@@ -1,0 +1,95 @@
+"""Fixed-size KV block allocator with per-block reference counts.
+
+Counterpart of `deepspeed_tpu/inference/v2/blocked_allocator.py`, carried
+over whole — a free-list over `num_blocks` cache blocks; sequences lease
+blocks as they grow and return them on flush.  Host-side bookkeeping only
+(the arena itself is a device tensor; see ragged_ops/engine_v2).
+
+Grown for prefix KV reuse (serving/prefix_cache.py): a block may be held
+by several owners at once — the sequence that wrote it, the prefix cache,
+and any number of later sequences sharing it read-only — so every block
+carries a reference count.  `allocate` hands out blocks at refcount 1,
+`incref` adds an owner, `decref` removes one and returns the block to the
+free list at zero.  `free` is decref applied to a whole lease (the
+historical flush spelling).  Allocated/free state lives in the refcount
+array, so free/decref is O(1) per block — the old `b in self._free`
+membership scan was O(free_list) per block, O(n^2) on large flushes.
+"""
+from __future__ import annotations
+
+from typing import Iterable, List
+
+__all__ = ["BlockedAllocator"]
+
+
+class BlockedAllocator:
+    def __init__(self, num_blocks: int):
+        if num_blocks < 1:
+            raise ValueError("need at least one block")
+        self.num_blocks = num_blocks
+        self._free: List[int] = list(range(num_blocks - 1, -1, -1))
+        # refcount per block: 0 = on the free list, >= 1 = that many owners
+        self._refs: List[int] = [0] * num_blocks
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    def refcount(self, block: int) -> int:
+        self._check_id(block)
+        return self._refs[block]
+
+    def refcounts(self) -> List[int]:
+        """Snapshot of every block's refcount (audit helper)."""
+        return list(self._refs)
+
+    def _check_id(self, b: int) -> None:
+        if not 0 <= b < self.num_blocks:
+            raise ValueError(f"bad block id {b}")
+
+    def allocate(self, n: int = 1) -> List[int]:
+        if n > len(self._free):
+            raise RuntimeError(
+                f"KV cache exhausted: requested {n} blocks, "
+                f"{len(self._free)} free of {self.num_blocks}")
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            self._refs[b] = 1
+        return out
+
+    def incref(self, block: int) -> None:
+        """Add an owner to an allocated block (prefix sharing: the cache
+        or a matching sequence takes a read-only reference)."""
+        self._check_id(block)
+        if self._refs[block] < 1:
+            raise ValueError(
+                f"incref of free block {block}: only allocated blocks can "
+                f"gain owners")
+        self._refs[block] += 1
+
+    def decref(self, block: int) -> None:
+        """Drop one owner; the block returns to the free list when the
+        last owner lets go."""
+        self._check_id(block)
+        if self._refs[block] < 1:
+            raise ValueError(
+                f"decref below zero for block {block} (double free)")
+        self._refs[block] -= 1
+        if self._refs[block] == 0:
+            self._free.append(block)
+
+    def free(self, blocks: Iterable[int]) -> None:
+        """Release one owner's lease on each block (decref-to-zero: the
+        block is only recycled once every sharer has released it).  Raises
+        on a bad id or a block with no owners (double free), before any
+        mutation, so a failed free never half-releases a lease."""
+        blocks = list(blocks)
+        need: dict = {}
+        for b in blocks:
+            self._check_id(b)
+            need[b] = need.get(b, 0) + 1
+        for b, n in need.items():
+            if self._refs[b] < n:
+                raise ValueError(f"double free of block {b}")
+        for b in blocks:
+            self.decref(b)

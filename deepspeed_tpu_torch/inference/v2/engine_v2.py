@@ -1,0 +1,544 @@
+"""FastGen-style continuous-batching inference engine in PyTorch.
+
+Counterpart of `deepspeed_tpu/inference/v2/engine_v2.py`: ragged batches of
+live sequences advance under Dynamic SplitFuse — each `put`/`step` does a
+bounded amount of prefill work (long prompts split into fixed chunks)
+while every decode-ready sequence generates a token.  The scheduling
+decisions are the reference's, line for line: the step budget, the
+fairness reservation for prompts only the chunked path can take, one
+power-of-two length bucket per full-prompt batch, the padded-slot cap,
+power-of-two chunk-slot counts.  Keeping the padded shapes the same keeps
+the two engines' block tables and host fetches comparable.
+
+The model runs on `device` ("cuda" by default; there is no silent CPU
+fallback).  The attention of each serving call goes through the port's
+CUDA kernels (flash forward, paged prefill, paged decode) for tensors on
+the card and through their plain PyTorch versions on the CPU;
+`plain_kernels=True` selects the plain versions on the card too, for
+end-to-end comparisons.
+
+Not carried yet, each refused by name: tensor parallelism, merged arenas,
+prefix cache, LoRA adapters, expert paging, seeded sampling streams,
+draft-and-verify and multi-step groups.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ...models.transformer import TransformerConfig, init_params
+from .ragged_manager import DSStateManager
+from .ragged_ops import (decode_step, decode_tokens, init_arena,
+                         prefill_chunks, prefill_full,
+                         prefill_full_supported, sample_tokens_compiled)
+
+__all__ = ["RaggedInferenceEngineConfig", "InferenceEngineV2"]
+
+
+@dataclass
+class RaggedInferenceEngineConfig:
+    """State manager and allocator sizing knobs (the reference's fields
+    and defaults)."""
+    num_blocks: int = 256
+    block_size: int = 64
+    max_blocks_per_seq: int = 32
+    # decode-batch width
+    max_seqs: int = 32
+    prefill_chunk_size: int = 256
+    # Dynamic SplitFuse budget: max new prefill tokens scheduled per put()
+    max_prefill_tokens_per_step: int = 512
+    # tokens sampled per decode-burst call (generate paths)
+    decode_burst: int = 8
+    # "auto" keeps the 5-D arena on a GPU; True (merged) is refused
+    arena_merged: object = "auto"
+    # > 1 is refused: tensor-parallel serving is not ported yet
+    tensor_parallel_size: int = 1
+    tp_collectives: str = "xla"
+    # fresh full prompts within budget run one dense causal flash
+    # forward (prefill_full); False forces chunked everywhere
+    full_prompt_prefill: bool = True
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} but no CUDA device is available: the port "
+            f"serves on the card by default; pass device='cpu' to run the "
+            f"plain PyTorch versions of the kernels on the CPU")
+    return dev
+
+
+def _to_param(x, device, dtype):
+    if isinstance(x, dict):
+        raise NotImplementedError(
+            "quantized serving weights are not carried by the PyTorch port "
+            "yet (plain weights only)")
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.array(x, np.float32))
+    return t.to(device=device, dtype=dtype) if t.is_floating_point() \
+        else t.to(device=device)
+
+
+class InferenceEngineV2:
+    """put()/flush() continuous-batching engine over a paged KV arena."""
+
+    def __init__(self, model, params=None,
+                 config: Optional[RaggedInferenceEngineConfig] = None,
+                 device="cuda", plain_kernels: bool = False):
+        self.device = _resolve_device(device)
+        self.cfg: TransformerConfig = (model.cfg if hasattr(model, "cfg")
+                                       else model)
+        self.config = config or RaggedInferenceEngineConfig()
+        if self.config.tensor_parallel_size > 1:
+            raise NotImplementedError(
+                "tensor-parallel serving is not carried by the PyTorch "
+                "port yet (tensor_parallel_size must be 1)")
+        if self.config.tp_collectives != "xla":
+            raise NotImplementedError(
+                f"tp_collectives={self.config.tp_collectives!r}: fused TP "
+                f"collectives are not carried by the PyTorch port yet")
+        # an explicit, never-default switch to the kernels' plain
+        # versions, for comparing the two on the card
+        self.plain_kernels = bool(plain_kernels)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            params = init_params(self.cfg, gen, self.device, self.cfg.dtype)
+        self.params = {
+            k: ({kk: _to_param(vv, self.device, self.cfg.dtype)
+                 for kk, vv in v.items()} if k == "layers"
+                else _to_param(v, self.device, self.cfg.dtype))
+            for k, v in params.items()}
+
+        self.state = DSStateManager(
+            self.config.num_blocks, self.config.block_size,
+            self.config.max_blocks_per_seq, self.config.max_seqs)
+        # per-sequence token ceiling: arena lease AND model context
+        self.max_tokens_per_seq = min(
+            self.config.max_blocks_per_seq * self.config.block_size,
+            self.cfg.max_seq_len)
+        # the arena is updated in place by every serving call (the
+        # reference donates it to each compiled program instead)
+        self.arena = init_arena(self.cfg, self.config.num_blocks,
+                                self.config.block_size, self.device,
+                                merged=self.config.arena_merged)
+        self._use_prefill_full = (self.config.full_prompt_prefill
+                                  and prefill_full_supported(self.cfg))
+        self._last_logits: Dict[int, np.ndarray] = {}
+        self._rng = torch.Generator(device=self.device).manual_seed(0)
+        # host-sync ledger: every explicit device->host fetch bumps it
+        self.profile: Dict[str, int] = {"d2h_fetches": 0}
+
+    # -- features the port does not carry yet ----------------------------
+    def enable_prefix_cache(self, *args, **kwargs):
+        raise NotImplementedError(
+            "prefix KV cache is not carried by the PyTorch port yet")
+
+    def attach_lora(self, *args, **kwargs):
+        raise NotImplementedError(
+            "LoRA adapters are not carried by the PyTorch port yet")
+
+    def enable_expert_paging(self, *args, **kwargs):
+        raise NotImplementedError(
+            "mixture-of-experts serving is not carried by the PyTorch "
+            "port yet")
+
+    def decode_multi_step(self, *args, **kwargs):
+        raise NotImplementedError(
+            "multi-step decode groups are not carried by the PyTorch port "
+            "yet (decode_burst_step serves the burst path)")
+
+    supports_per_row_sampling = True
+    supports_lora = False
+    supports_draft_verify = False
+    supports_seeded_sampling = False
+    supports_multi_step = False
+    supports_structured = False
+    supports_moe = False
+
+    def audit_blocks(self) -> Dict[str, int]:
+        """Block-conservation audit (DSStateManager.audit); raises on a
+        leak."""
+        return self.state.audit()
+
+    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        """The engine's one way to read device data on the host."""
+        self.profile["d2h_fetches"] += 1
+        return t.cpu().numpy()
+
+    # -- scheduling ------------------------------------------------------
+    def put(self, uids: Sequence[int], tokens_list: Sequence[np.ndarray],
+            decode: bool = True, prefixes=None) -> Dict[int, np.ndarray]:
+        """Admit new sequences (or append continuation tokens to existing
+        ones) and advance the ragged batch one step.  Returns {uid:
+        last-token logits} for every sequence that produced fresh logits
+        this call.  `decode=False` runs only the prefill phase."""
+        if prefixes is not None:
+            raise NotImplementedError(
+                "prefix leases: the prefix KV cache is not carried by the "
+                "PyTorch port yet")
+        # validate every uid before mutating any sequence
+        for uid, toks in zip(uids, tokens_list):
+            new_tokens = len(np.asarray(toks).ravel())
+            cur = (self.state.seqs[uid].seen_tokens
+                   if uid in self.state.seqs else 0)
+            if cur + new_tokens > self.max_tokens_per_seq:
+                raise RuntimeError(
+                    f"sequence {uid} would reach {cur + new_tokens} tokens, "
+                    f"over the {self.max_tokens_per_seq} limit "
+                    f"(min of KV lease capacity and model max_seq_len "
+                    f"{self.cfg.max_seq_len})")
+            if uid in self.state.seqs and self.state.seqs[uid].in_prefill:
+                raise RuntimeError(
+                    f"sequence {uid} is still prefilling "
+                    f"({self.state.seqs[uid].seen_tokens}/"
+                    f"{len(self.state.seqs[uid].prompt)} prompt tokens); "
+                    f"drive step() until query({uid}) returns logits "
+                    f"before feeding continuation tokens")
+        for uid, toks in zip(uids, tokens_list):
+            if uid in self.state.seqs:
+                self.state.seqs[uid].generated.extend(
+                    int(t) for t in np.asarray(toks).ravel())
+            else:
+                self.state.create(uid, np.asarray(toks, np.int32))
+        return self.step(decode=decode)
+
+    def step(self, decode: bool = True) -> Dict[int, np.ndarray]:
+        out: Dict[int, np.ndarray] = {}
+        C = self.config.prefill_chunk_size
+        # a zero/negative budget must still make 1 token of progress
+        budget = max(self.config.max_prefill_tokens_per_step, 1)
+
+        # 0) fresh-full-prompt fast path (see the reference's step for the
+        #    reasoning behind each guard): suspended while any sequence is
+        #    mid-prefill; one chunk of budget reserved when a fresh prompt
+        #    can only take the chunked path; one power-of-two length
+        #    bucket per batch; padded slots capped at
+        #    max(2x the budget's bucket, max_seqs * 128).
+        if self._use_prefill_full and not any(
+                d.seen_tokens > d.prefix_covered and d.in_prefill
+                and not d.done
+                for d in self.state.seqs.values()):
+            pad_cap = 128
+            while pad_cap < 2 * budget:
+                pad_cap *= 2
+            pad_cap = max(pad_cap, self.config.max_seqs * 128)
+            full_budget = budget
+            if any(d.seen_tokens == d.prefix_covered and not d.done
+                   and d.in_prefill
+                   and (len(d.prompt) > budget or d.prefix_covered > 0)
+                   for d in self.state.seqs.values()):
+                full_budget = max(budget - C, 0)
+            fresh: List = []
+            S = 128
+            for d in self.state.seqs.values():
+                if not (d.seen_tokens == 0 and not d.done
+                        and 0 < len(d.prompt) <= full_budget - sum(
+                            len(f.prompt) for f in fresh)
+                        and len(fresh) < self.config.max_seqs):
+                    continue
+                bucket = 128
+                while bucket < len(d.prompt):
+                    bucket *= 2
+                if fresh and bucket != S:
+                    continue          # one length bucket per batch
+                ns_next = 1
+                while ns_next < len(fresh) + 1:
+                    ns_next *= 2
+                if ns_next * bucket > pad_cap:
+                    continue          # padded-slot budget guard
+                S = bucket
+                fresh.append(d)
+            if fresh:
+                NS = 1
+                while NS < len(fresh):
+                    NS *= 2
+                ftokens = np.zeros((NS, S), np.int32)
+                flens = np.zeros(NS, np.int32)
+                ftables = np.zeros((NS, self.config.max_blocks_per_seq),
+                                   np.int32)
+                factive = np.zeros(NS, bool)
+                for i, d in enumerate(fresh):
+                    n = len(d.prompt)
+                    self.state.ensure_capacity(d, n)
+                    ftokens[i, :n] = d.prompt
+                    flens[i] = n
+                    ftables[i] = self.state.block_table(d)
+                    factive[i] = True
+                logits, self.arena = prefill_full(
+                    self.cfg, self.params, self.arena, ftokens, flens,
+                    ftables, factive, plain=self.plain_kernels)
+                logits = self._fetch(logits)
+                for i, d in enumerate(fresh):
+                    d.seen_tokens = len(d.prompt)
+                    out[d.uid] = logits[i]
+                budget -= sum(len(d.prompt) for d in fresh)
+                budget = max(budget, 0)
+        # slot bound: every full chunk consumes C budget and each sequence
+        # contributes at most one partial (tail) chunk
+        cap = budget // C + self.config.max_seqs
+        cap_alloc = 1
+        while cap_alloc < cap:
+            cap_alloc *= 2
+        # 1) prefill: plan the step's chunks (FIFO over pending prompts,
+        #    possibly several chunks of one long prompt, budget-bounded),
+        #    then advance them all in one call; the chunk-slot count pads
+        #    to a power of two.
+        planned: List[tuple] = []          # (d, start, n)
+        pseen = {d.uid: d.seen_tokens for d in self.state.seqs.values()}
+        tokens = np.zeros((cap_alloc, C), np.int32)
+        pos0s = np.zeros(cap_alloc, np.int32)
+        nvalids = np.zeros(cap_alloc, np.int32)
+        tables = np.zeros((cap_alloc, self.config.max_blocks_per_seq),
+                          np.int32)
+        active = np.zeros(cap_alloc, bool)
+        while budget > 0 and len(planned) < cap:
+            d = next((s for s in self.state.seqs.values()
+                      if pseen[s.uid] < len(s.prompt) and not s.done), None)
+            if d is None:
+                break
+            start = pseen[d.uid]
+            n = min(C, len(d.prompt) - start, budget)
+            self.state.ensure_capacity(d, start + n)
+            i = len(planned)
+            tokens[i, :n] = d.prompt[start:start + n]
+            pos0s[i] = start
+            nvalids[i] = n
+            tables[i] = self.state.block_table(d)
+            active[i] = True
+            planned.append((d, start, n))
+            pseen[d.uid] = start + n
+            budget -= n
+        if planned:
+            NC = 1
+            while NC < len(planned):
+                NC *= 2
+            logits, self.arena = prefill_chunks(
+                self.cfg, self.params, self.arena, tokens[:NC], pos0s[:NC],
+                nvalids[:NC], tables[:NC], active[:NC],
+                plain=self.plain_kernels)
+            logits = self._fetch(logits)
+            for i, (d, start, n) in enumerate(planned):
+                d.seen_tokens = start + n
+                if not d.in_prefill:
+                    out[d.uid] = logits[i]
+        # 2) decode: one token for every sequence with a pending input token
+        batch = [d for d in self.state.decode_batch() if d.generated
+                 and d.seen_tokens < len(d.prompt) + len(d.generated)
+                 ] if decode else []
+        if batch:
+            B = self.config.max_seqs
+            tokens = np.zeros(B, np.int32)
+            lens = np.zeros(B, np.int32)
+            tables = np.zeros((B, self.config.max_blocks_per_seq), np.int32)
+            active = np.zeros(B, bool)
+            for i, d in enumerate(batch):
+                pending_idx = d.seen_tokens - len(d.prompt)
+                tokens[i] = d.generated[pending_idx]
+                lens[i] = d.seen_tokens
+                self.state.ensure_capacity(d, d.seen_tokens + 1)
+                tables[i] = self.state.block_table(d)
+                active[i] = True
+            logits, self.arena = decode_step(
+                self.cfg, self.params, self.arena, tokens, lens, tables,
+                active, plain=self.plain_kernels)
+            logits = self._fetch(logits)
+            for i, d in enumerate(batch):
+                d.seen_tokens += 1
+                out[d.uid] = logits[i]
+        self._last_logits.update(out)
+        return out
+
+    # -- burst decode: sampling on the device, one host read per K tokens
+    def decode_burst_step(self, uids: Optional[Sequence[int]] = None,
+                          n_steps: Optional[int] = None,
+                          mode: str = "greedy", temperature=1.0,
+                          top_k=0, rng: Optional[torch.Generator] = None,
+                          max_tokens: Optional[Dict[int, int]] = None,
+                          **unsupported) -> Dict[int, np.ndarray]:
+        """Advance decode-ready sequences `n_steps` tokens in one call
+        (ragged_ops.decode_tokens): sample -> append KV -> feed back, all
+        on the device.  Each selected sequence must hold exactly one
+        pending input token.  Returns {uid: [n_steps] int32 sampled
+        tokens}; the last one is left pending so bursts chain.
+        mode="per_row" takes {uid: value} dicts for `temperature` and
+        `top_k` (missing uids sample greedily).  `max_tokens` ({uid:
+        absolute token cap}) tightens each row's KV-lease bound."""
+        given = sorted(k for k, v in unsupported.items() if v is not None)
+        if given:
+            raise NotImplementedError(
+                f"decode_burst_step({', '.join(given)}=...): drafts, "
+                f"seeded streams and grammar automata are not carried by "
+                f"the PyTorch port yet")
+        n_steps = n_steps or self.config.decode_burst
+        batch = [d for d in self.state.decode_batch() if d.generated
+                 and d.seen_tokens < len(d.prompt) + len(d.generated)]
+        if uids is not None:
+            sel = set(uids)
+            batch = [d for d in batch if d.uid in sel]
+        if not batch:
+            return {}
+        B = self.config.max_seqs
+        tokens = np.zeros(B, np.int32)
+        lens = np.zeros(B, np.int32)
+        max_lens = np.ones(B, np.int32)
+        tables = np.zeros((B, self.config.max_blocks_per_seq), np.int32)
+        active = np.zeros(B, bool)
+        for i, d in enumerate(batch):
+            pending = d.seen_tokens - len(d.prompt)
+            if pending != len(d.generated) - 1:
+                raise RuntimeError(
+                    f"sequence {d.uid} has {len(d.generated) - pending} "
+                    f"pending tokens; burst decode needs exactly 1 (drive "
+                    f"step() to drain extras first)")
+            tokens[i] = d.generated[pending]
+            lens[i] = d.seen_tokens
+            # cap the lease at the sequence's KV budget: overshot steps of
+            # a tail burst re-write the last leased slot (tokens trimmed)
+            capped = min(d.seen_tokens + n_steps, self.max_tokens_per_seq)
+            if max_tokens is not None and d.uid in max_tokens:
+                capped = min(capped, int(max_tokens[d.uid]))
+            capped = max(capped, d.seen_tokens)
+            max_lens[i] = capped
+            self.state.ensure_capacity(d, capped)
+            tables[i] = self.state.block_table(d)
+            active[i] = True
+        rng = rng or self._rng
+        temp, topk_vec = temperature, None
+        if mode == "per_row":
+            temperature = dict(temperature or {})
+            top_k = dict(top_k or {})
+            tv = np.zeros(B, np.float32)
+            kv = np.zeros(B, np.int32)
+            for i, d in enumerate(batch):
+                tv[i] = float(temperature.get(d.uid, 0.0))
+                kv[i] = int(top_k.get(d.uid, 0))
+            temp = torch.from_numpy(tv).to(self.device)
+            topk_vec = torch.from_numpy(kv).to(self.device)
+            top_k = 0
+        toks, self.arena = decode_tokens(
+            self.cfg, self.params, self.arena,
+            torch.from_numpy(tokens).to(self.device), lens, tables, active,
+            rng, temp, max_lens, topk_vec, n_steps=n_steps, mode=mode,
+            top_k=int(top_k), plain=self.plain_kernels)
+        toks = self._fetch(toks)   # the once-per-burst read
+        out: Dict[int, np.ndarray] = {}
+        for i, d in enumerate(batch):
+            real = max(0, int(max_lens[i]) - int(lens[i]))
+            d.generated.extend(int(t) for t in toks[i][:real])
+            d.seen_tokens = min(d.seen_tokens + n_steps, int(max_lens[i]))
+            out[d.uid] = toks[i]
+            # burst path produces tokens, not logits — drop stale logits
+            self._last_logits.pop(d.uid, None)
+        return out
+
+    def sample_tokens_batch(self, logits_rows, mode: str = "greedy",
+                            temperature=1.0, top_k=0) -> np.ndarray:
+        """Sample one token per row of `logits_rows` [N, V] in one device
+        call.  Scalar temperature/top_k with mode "greedy"/"sample", or
+        per-row vectors (length N) with mode="per_row" (rows with
+        temperature <= 0 take the argmax).  Returns [N] int32 on host."""
+        stacked = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(logits_rows, np.float32))
+        ).to(self.device)
+        if mode == "per_row":
+            temp = torch.as_tensor(np.asarray(temperature, np.float32),
+                                   device=self.device)
+            topk_vec = torch.as_tensor(np.asarray(top_k, np.int32),
+                                       device=self.device)
+            toks = sample_tokens_compiled(stacked, self._rng, temp,
+                                          topk_vec, mode="per_row")
+        else:
+            toks = sample_tokens_compiled(stacked, self._rng,
+                                          float(temperature), mode=mode,
+                                          top_k=int(top_k))
+        return self._fetch(toks)
+
+    # -- lifecycle -------------------------------------------------------
+    def flush(self, uid: int) -> None:
+        self.state.flush(uid)
+        self._last_logits.pop(uid, None)
+
+    def query(self, uid: int) -> Optional[np.ndarray]:
+        return self._last_logits.get(uid)
+
+    @property
+    def free_blocks(self) -> int:
+        return self.state.allocator.free_blocks
+
+    @property
+    def free_slots(self) -> int:
+        """Ragged-batch slots not held by a live sequence."""
+        return self.config.max_seqs - len(self.state.seqs)
+
+    # -- convenience: generation driving prefill + burst decode ----------
+    def generate(self, prompt_tokens, max_new_tokens: int = 16,
+                 uid: int = 0, mode: str = "greedy",
+                 temperature: float = 1.0, top_k: int = 0,
+                 eos_token_id: Optional[int] = None) -> np.ndarray:
+        """Generate up to max_new_tokens (stops early at eos_token_id)."""
+        out = self.generate_batch([np.asarray(prompt_tokens, np.int32)],
+                                  max_new_tokens=max_new_tokens,
+                                  mode=mode, temperature=temperature,
+                                  top_k=top_k, eos_token_id=eos_token_id,
+                                  first_uid=uid)
+        return out[0]
+
+    def generate_batch(self, prompts: Sequence[np.ndarray],
+                       max_new_tokens: int = 16, mode: str = "greedy",
+                       temperature: float = 1.0, top_k: int = 0,
+                       eos_token_id: Optional[int] = None,
+                       first_uid: int = 0) -> List[np.ndarray]:
+        """Batched generation: admit prompts in waves of max_seqs, prefill
+        through put()/step(), then burst-decode every live sequence in
+        lockstep — one call per `decode_burst` tokens for the whole wave.
+        Sequences that hit EOS drop out of later bursts."""
+        results: List[np.ndarray] = [None] * len(prompts)
+        W = self.config.max_seqs
+        burst = max(1, self.config.decode_burst)
+        for w0 in range(0, len(prompts), W):
+            wave = list(range(w0, min(w0 + W, len(prompts))))
+            uids = {i: first_uid + i for i in wave}
+            self.put([uids[i] for i in wave],
+                     [np.asarray(prompts[i], np.int32) for i in wave])
+            while any(self.query(uids[i]) is None for i in wave):
+                self.step()
+            # sample every first token in one device call
+            firsts = self.sample_tokens_batch(
+                np.stack([self.query(uids[i]) for i in wave]),
+                mode=mode, temperature=temperature, top_k=top_k)
+            toks: Dict[int, List[int]] = {}
+            live: List[int] = []
+            for i, first in zip(wave, (int(t) for t in firsts)):
+                toks[i] = [first]
+                if not (eos_token_id is not None and first == eos_token_id
+                        ) and max_new_tokens > 1:
+                    # stage as the pending input of the first burst
+                    self.state.seqs[uids[i]].generated.append(first)
+                    live.append(i)
+            while live:
+                # always a full burst (the reference's compiled shape);
+                # overshoot past max_new_tokens is trimmed on host
+                got = self.decode_burst_step(
+                    uids=[uids[i] for i in live], n_steps=burst, mode=mode,
+                    temperature=temperature, top_k=top_k)
+                nxt_live = []
+                for i in live:
+                    done = False
+                    for t in got[uids[i]]:
+                        toks[i].append(int(t))
+                        if ((eos_token_id is not None
+                             and int(t) == eos_token_id)
+                                or len(toks[i]) >= max_new_tokens):
+                            done = True
+                            break
+                    if not done:
+                        nxt_live.append(i)
+                live = nxt_live
+            for i in wave:
+                results[i] = np.asarray(toks[i], np.int32)
+                self.flush(uids[i])
+        return results

@@ -1,0 +1,58 @@
+"""JAX parameter pytree (as numpy arrays) -> the port's parameters.
+
+Both packages keep the same stacked, in-first layout and key names
+(`layers.wq` `[L, H, NH*D]`, `tok_embed` `[V, E]`, ...), so conversion is
+a copy per leaf: nothing is transposed or renamed.  The caller fetches the
+JAX tree to host first (`jax.device_get`), which keeps this module free of
+any JAX import.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .transformer import TransformerConfig
+
+__all__ = ["params_from_jax"]
+
+
+def _leaf(x, device, dtype):
+    a = np.asarray(x)
+    if a.dtype.kind != "f":
+        raise NotImplementedError(
+            f"non-float parameter leaf of dtype {a.dtype} (quantized "
+            f"serving weights are not carried by the PyTorch port yet)")
+    # bf16 has no numpy dtype of its own here: go through float32
+    t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_jax(np_tree: Dict, cfg: TransformerConfig, device,
+                    dtype: torch.dtype = None) -> Dict:
+    """Convert a JAX parameter tree of numpy arrays to torch tensors on
+    `device` in `dtype` (default `cfg.dtype`), keeping every key.  Raises
+    on a leaf whose shape disagrees with `cfg`'s stacked layout."""
+    dtype = dtype or cfg.dtype
+    out: Dict = {}
+    for key, val in np_tree.items():
+        if isinstance(val, dict):
+            if key != "layers":
+                raise NotImplementedError(
+                    f"nested parameter group {key!r} (only 'layers' is "
+                    f"carried)")
+            out[key] = {k: _leaf(v, device, dtype) for k, v in val.items()}
+        else:
+            out[key] = _leaf(val, device, dtype)
+    L, H = cfg.num_layers, cfg.hidden_size
+    want = {"wq": (L, H, cfg.num_heads * cfg.head_dim),
+            "wk": (L, H, cfg.kv_heads * cfg.head_dim),
+            "wv": (L, H, cfg.kv_heads * cfg.head_dim),
+            "wo": (L, cfg.num_heads * cfg.head_dim, H)}
+    for k, shape in want.items():
+        got = tuple(out["layers"][k].shape)
+        if got != shape:
+            raise ValueError(f"layers.{k} has shape {got}, config wants "
+                             f"{shape}")
+    return out

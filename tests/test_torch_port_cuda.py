@@ -1,0 +1,156 @@
+"""The PyTorch port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA card with `nvcc` (the kernels build from
+`deepspeed_tpu_torch/csrc` on first use) and skips without one.  The file
+imports neither `jax` nor the JAX package, so it runs on a machine that
+has only PyTorch:
+
+    python -m pytest --noconftest tests/test_torch_port_cuda.py -q
+
+Each kernel is checked in both dtypes it takes: f32, where kernel and
+plain version differ only by the order of f32 sums, and bf16, where the
+output's final rounding adds one bf16 ulp.  The engine test serves the
+same wave through the kernels and through the plain versions
+(`plain_kernels=True`) in f32.
+"""
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                              RaggedInferenceEngineConfig)
+from deepspeed_tpu_torch.models import get_model_config
+from deepspeed_tpu_torch.ops import flash_attention as tflash
+from deepspeed_tpu_torch.ops import paged_attention as tdecode
+from deepspeed_tpu_torch.ops import paged_prefill as tprefill
+
+pytestmark = [pytest.mark.kernels, pytest.mark.cuda]
+
+# |kernel - plain| <= ATOL + RTOL * |plain|, elementwise.
+# f32: summation order only (unit-normal inputs, outputs of size ~1).
+# bf16: the sums are f32 on both sides; the attention kernels round P to
+# bf16 before P.V on the tensor cores and every output is rounded to bf16
+# once: two bf16 ulps (2^-7 relative) plus about one ulp at unit scale.
+ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+RTOL = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
+# lse is f32 in both versions whatever the input dtype, of size ~10
+LSE_ATOL = 1e-4
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels exist only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rnd(g, dtype, *shape):
+    return torch.randn(*shape, generator=g, device="cuda", dtype=dtype)
+
+
+def _close(got, ref, atol, rtol=0.0):
+    torch.cuda.synchronize()
+    got, ref = got.float(), ref.float()
+    excess = (got - ref).abs() - (atol + rtol * ref.abs())
+    assert float(excess.max()) <= 0, float((got - ref).abs().max())
+
+
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                 ids=["f32", "bf16"])
+
+
+@DTYPES
+@pytest.mark.parametrize("S,NH,NKV,D", [(200, 8, 2, 128), (64, 4, 4, 64),
+                                        (1, 2, 1, 128)])
+def test_flash_kernel_matches_plain_version(card, dtype, S, NH, NKV, D):
+    q, k, v = (_rnd(card, dtype, 2, S, n, D) for n in (NH, NKV, NKV))
+    out, lse = tflash.flash_attention(q, k, v, return_lse=True)
+    ref, ref_lse = tflash.flash_attention_reference(q, k, v)
+    _close(out, ref, ATOL[dtype], RTOL[dtype])
+    _close(lse, ref_lse, LSE_ATOL)
+
+
+@DTYPES
+@pytest.mark.parametrize("NH,NKV,D", [(8, 2, 128), (4, 4, 64)])
+def test_paged_decode_kernel_matches_plain_version(card, dtype, NH, NKV, D):
+    rng = np.random.RandomState(0)
+    L, nb, bs, MB = 2, 40, 16, 24
+    ak, av = (_rnd(card, dtype, L, nb, bs, NKV, D) for _ in range(2))
+    lens = np.asarray([5, -1, 300, 0, 16, 383], np.int32)
+    # live blocks first, garbage (negative and past the arena) after them
+    tables = rng.randint(-3, nb + 3, size=(lens.size, MB)).astype(np.int32)
+    for b, n in enumerate(lens):
+        live = max(int(n), 0) // bs + 1
+        tables[b, :live] = rng.permutation(nb)[:live]
+    q = _rnd(card, dtype, lens.size, NH, D)
+    args = (q, ak, av, torch.from_numpy(tables).cuda(),
+            torch.from_numpy(lens).cuda())
+    got = tdecode.paged_decode_attention(*args, layer_idx=1)
+    ref = tdecode.paged_decode_reference(*args, layer_idx=1)
+    _close(got, ref, ATOL[dtype], RTOL[dtype])
+    assert (got[torch.from_numpy(lens < 0).cuda()] == 0).all()
+
+
+@DTYPES
+@pytest.mark.parametrize("C,pos0,n_valid,window", [
+    (3, 40, 3, None), (70, 100, 61, None), (32, 0, 32, 8), (5, 7, 2, None)])
+def test_paged_prefill_kernel_matches_plain_version(card, dtype, C, pos0,
+                                                    n_valid, window):
+    rng = np.random.RandomState(1)
+    L, nb, bs, MB, NH, NKV, D = 2, 32, 16, 16, 8, 2, 128
+    ak, av = (_rnd(card, dtype, L, nb, bs, NKV, D) for _ in range(2))
+    table = rng.randint(-3, nb + 3, size=MB).astype(np.int32)
+    live = (pos0 + n_valid - 1) // bs + 1
+    table[:live] = rng.permutation(nb)[:live]
+    q = _rnd(card, dtype, C, NH, D)
+    args = (q, ak, av, torch.from_numpy(table).cuda(), pos0, n_valid)
+    got = tprefill.paged_prefill_attention(*args, sliding_window=window,
+                                           layer_idx=1)
+    ref = tprefill.paged_prefill_reference(*args, sliding_window=window,
+                                           layer_idx=1)
+    _close(got[:n_valid], ref[:n_valid], ATOL[dtype], RTOL[dtype])
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    q = _rnd(card, torch.float16, 1, 8, 2, 64)
+    with pytest.raises(TypeError):
+        tflash.flash_attention(q, q, q)
+    q = _rnd(card, torch.float32, 1, 8, 2, 32)
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_attention(q, q, q)
+
+
+def test_engine_serves_the_same_through_kernels_and_plain_versions(card):
+    """A mixed wave (one prompt over the step budget) through the kernel
+    engine and the plain-version engine, f32: same greedy chains, and
+    first-token logits within the f32 tolerance."""
+    cfg = get_model_config("llama", "tiny", dtype=torch.float32,
+                           hidden_size=512, num_heads=8, num_kv_heads=4)
+    ecfg = RaggedInferenceEngineConfig(
+        num_blocks=64, block_size=16, max_blocks_per_seq=16, max_seqs=8,
+        prefill_chunk_size=32, max_prefill_tokens_per_step=64)
+    kern = InferenceEngineV2(cfg, config=ecfg, device="cuda")
+    plain = InferenceEngineV2(cfg, params=kern.params, config=ecfg,
+                              device="cuda", plain_kernels=True)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 17, 40, 100)]
+    counts = (tflash.flash_attention.launches,
+              tdecode.paged_decode_attention.launches,
+              tprefill.paged_prefill_attention.launches)
+    got = kern.generate_batch(prompts, max_new_tokens=8)
+    after = (tflash.flash_attention.launches,
+             tdecode.paged_decode_attention.launches,
+             tprefill.paged_prefill_attention.launches)
+    assert all(a > c for a, c in zip(after, counts))
+    want = plain.generate_batch(prompts, max_new_tokens=8)
+    assert [g.tolist() for g in got] == [w.tolist() for w in want]
+    firsts = []
+    for eng in (kern, plain):
+        eng.put(list(range(4)), prompts)
+        while any(eng.query(u) is None for u in range(4)):
+            eng.step()
+        firsts.append(np.stack([eng.query(u) for u in range(4)]))
+    np.testing.assert_allclose(firsts[0], firsts[1], rtol=1e-4, atol=1e-4)

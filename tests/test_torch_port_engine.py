@@ -1,0 +1,176 @@
+"""The PyTorch port's ragged serving engine against the JAX engine.
+
+Both engines are built from the same parameters (the JAX initializer's,
+converted with `models.params_from_jax`), run in f32 on the CPU under the
+same small engine config, and are fed the same numpy-drawn prompts.  The
+wave mixes lengths so that one step takes the fresh-full-prompt path
+(`prefill_full`), the over-budget prompt takes the chunked path
+(`prefill_chunks`) across several steps, and decode runs both one token
+per `step()` and in device-side bursts (`generate_batch`).  The engines
+must make the same scheduling decisions — the same block tables and the
+same number of device-to-host fetches after every step — and the same
+greedy token chains.
+
+Also here: the entry points default to the card (and raise without one),
+and every feature the port does not carry yet is refused by name.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.inference.v2 import RaggedInferenceEngineConfig as JaxCfg
+from deepspeed_tpu.inference.v2 import build_engine as jax_build_engine
+from deepspeed_tpu.models.transformer import _forward
+from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                              RaggedInferenceEngineConfig,
+                                              build_engine)
+from deepspeed_tpu_torch.inference.v2 import engine_v2 as tengine
+from deepspeed_tpu_torch.models import get_model_config
+
+pytestmark = pytest.mark.serving
+
+ENGINE_KW = dict(num_blocks=64, block_size=16, max_blocks_per_seq=16,
+                 max_seqs=8, prefill_chunk_size=32,
+                 max_prefill_tokens_per_step=64)
+# 100 > the 64-token budget: that prompt is prefilled in 32-token chunks
+PROMPT_LENS = (5, 17, 40, 100)
+MAX_NEW = 12
+# f32 engines on both sides agree on logits to about 1e-6 (see
+# tests/test_torch_port_model.py); 1e-4 is the bound asserted there.
+LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+# a greedy step is decided the same way by both engines when the top two
+# logits are further apart than both engines' error together
+MIN_TOP2_GAP = 2 * LOGIT_TOL["atol"]
+# qwen2's 151936-token vocabulary is cut for speed; nothing in the engine
+# depends on the vocabulary's size
+ARCH_KW = {"llama": {}, "gpt2": {}, "qwen2": {"vocab_size": 2048}}
+
+
+def _engines(arch):
+    kw = ARCH_KW[arch]
+    je = jax_build_engine(arch, "tiny", dtype=jnp.float32,
+                          engine_config=JaxCfg(**ENGINE_KW), **kw)
+    te = build_engine(arch, "tiny", params=jax.device_get(je.params),
+                      engine_config=RaggedInferenceEngineConfig(**ENGINE_KW),
+                      device="cpu", dtype=torch.float32, **kw)
+    return je, te
+
+
+def _prompts(vocab, seed=1):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, vocab, n).astype(np.int32) for n in PROMPT_LENS]
+
+
+def _same_state(je, te, out_j, out_t):
+    assert sorted(out_t) == sorted(out_j)
+    for uid in out_j:
+        np.testing.assert_allclose(out_t[uid], out_j[uid], **LOGIT_TOL)
+    assert sorted(te.state.seqs) == sorted(je.state.seqs)
+    for uid, d in je.state.seqs.items():
+        assert te.state.seqs[uid].blocks == d.blocks
+        assert te.state.seqs[uid].seen_tokens == d.seen_tokens
+    assert te.profile["d2h_fetches"] == je.profile["d2h_fetches"]
+    assert te.free_blocks == je.free_blocks
+
+
+@pytest.mark.parametrize("arch", ["llama", "gpt2", "qwen2"])
+def test_engine_matches_jax(arch):
+    je, te = _engines(arch)
+    prompts = _prompts(te.cfg.vocab_size)
+    uids = list(range(len(prompts)))
+
+    # put/step: prefill (full and chunked), then one decode step per call
+    _same_state(je, te, je.put(uids, prompts), te.put(uids, prompts))
+    steps = 0
+    while any(je.query(u) is None for u in uids):
+        _same_state(je, te, je.step(), te.step())
+        steps += 1
+    assert steps >= 1                  # the long prompt needed more steps
+    firsts = [int(np.argmax(je.query(u))) for u in uids]
+    nxt = [np.asarray([t], np.int32) for t in firsts]
+    _same_state(je, te, je.put(uids, nxt), te.put(uids, nxt))
+    for u in uids:
+        je.flush(u)
+        te.flush(u)
+    assert te.free_blocks == je.free_blocks == ENGINE_KW["num_blocks"]
+
+    # generate_batch: burst decode with on-device greedy sampling
+    want = je.generate_batch(prompts, max_new_tokens=MAX_NEW)
+    got = te.generate_batch(prompts, max_new_tokens=MAX_NEW)
+    assert [g.tolist() for g in got] == [w.tolist() for w in want]
+    assert te.profile["d2h_fetches"] == je.profile["d2h_fetches"]
+    te.audit_blocks()
+
+    # every greedy choice was unambiguous at the tolerance above: the
+    # dense JAX forward over prompt + chain has a wide top-2 gap at each
+    # generated position and picks the chain's token there
+    for p, chain in zip(prompts, want):
+        seq = np.concatenate([p, chain[:-1]])[None]
+        logits = np.asarray(_forward(je.cfg, je.params,
+                                     jnp.asarray(seq))[0][0])
+        rows = logits[len(p) - 1:]
+        top2 = np.sort(rows, axis=-1)[:, -2:]
+        assert (top2[:, 1] - top2[:, 0]).min() > MIN_TOP2_GAP
+        assert rows.argmax(-1).tolist() == chain.tolist()
+
+
+def test_build_engine_defaults_to_the_card(monkeypatch):
+    """`device` defaults to "cuda" and there is no quiet CPU fallback."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine("llama", "tiny")
+    cfg = get_model_config("gpt2", "tiny", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceEngineV2(cfg)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(pos_emb="alibi"), dict(sliding_window=16), dict(post_norm=True),
+    dict(parallel_residual=True), dict(rope_scaling=("linear", 2.0)),
+    dict(moe_experts=4)],
+    ids=["alibi", "window", "post_norm", "parallel_residual",
+         "rope_scaling", "moe"])
+def test_config_refuses_features_not_ported(kw):
+    with pytest.raises(NotImplementedError, match="PyTorch port"):
+        get_model_config("llama", "tiny", **kw)
+
+
+def _tiny_engine(**engine_kw):
+    cfg = get_model_config("gpt2", "tiny", dtype=torch.float32,
+                           num_layers=1)
+    kw = dict(ENGINE_KW, **engine_kw)
+    return InferenceEngineV2(cfg, config=RaggedInferenceEngineConfig(**kw),
+                             device="cpu")
+
+
+@pytest.mark.parametrize("what", [
+    "mixtral", "tensor_parallel", "merged_arena", "prefix_cache", "lora",
+    "quantized", "seeded", "drafts", "multi_step"])
+def test_engine_refuses_features_not_ported(what):
+    with pytest.raises(NotImplementedError):
+        if what == "mixtral":
+            build_engine("mixtral", device="cpu")
+        elif what == "tensor_parallel":
+            _tiny_engine(tensor_parallel_size=2)
+        elif what == "merged_arena":
+            _tiny_engine(arena_merged=True)
+        elif what == "quantized":
+            cfg = get_model_config("gpt2", "tiny", dtype=torch.float32,
+                                   num_layers=1)
+            params = tengine.init_params(cfg, torch.Generator(), "cpu")
+            params["layers"]["wq"] = {"codes": params["layers"]["wq"]}
+            InferenceEngineV2(cfg, params=params, device="cpu")
+        else:
+            eng = _tiny_engine()
+            if what == "prefix_cache":
+                eng.enable_prefix_cache(8)
+            elif what == "lora":
+                eng.attach_lora({})
+            elif what == "seeded":
+                eng.decode_burst_step(seeds={0: 1})
+            elif what == "drafts":
+                eng.decode_burst_step(drafts={0: [1, 2]})
+            else:
+                eng.decode_multi_step()
