@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Compare two copies of `deepspeed_tpu_torch` on one NVIDIA card.
+
+    python3 chip_ab.py DIR_A DIR_B [--rounds N] [--train-layers N]
+
+Each DIR holds a `deepspeed_tpu_torch` package (for example one unpacked
+with `git archive` from another commit).  The copies run in turns, A, B,
+B, A per round, each in a process of its own that builds its own kernels
+(into DIR/build) and measures, with chip_smoke.py's phases:
+
+- the dq and dk/dv kernels' device time at the training shape
+  (chip_smoke's TRAIN_ATTN, bf16, causal; its `time_flash_bwd`);
+- bench.py's GPT-2-1.3B training step (chip_smoke phase 5: 3 warm-up and
+  10 timed steps, the first warm-up loss) and its device time by kind
+  (phase 7).
+
+One JSON line per run, then a summary; two versions compare only within
+one call, on one card.  Exits non-zero without a card.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def worker(pkg_dir, train_layers):
+    sys.path.insert(0, os.path.abspath(pkg_dir))
+    sys.path.insert(1, HERE)
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    if not torch.cuda.is_available():
+        cs.fail("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = cs._qkv(torch, g, "cuda", *cs.TRAIN_ATTN)
+    do = torch.randn(q.shape, generator=g, device="cuda", dtype=q.dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    kernels = {f"{name}_ms": ms for name, ms in cs.time_flash_bwd(
+        fa, q, k, v, out, lse, do).items()}
+    del q, k, v, do, out, lse
+    counters = [fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv]
+    eng, batch, res = cs.train(torch, np, train_layers, counters)
+    prof = cs.profile_train_step(torch, eng, batch, res["step_ms"],
+                                 counters)
+    print("AB " + json.dumps(dict(
+        package=os.path.dirname(deepspeed_tpu_torch.__file__), **kernels,
+        step_ms=res["step_ms"], tokens_per_s=res["tokens_per_s"],
+        mfu=res["mfu"], first_loss=res["warmup_losses"][0],
+        idle_share=prof["idle_share"], ms_by_kind=prof["ms_by_kind"])),
+        flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("dirs", nargs="*", help="DIR_A DIR_B")
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--train-layers", type=int, default=24)
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        worker(args.worker, args.train_layers)
+        return 0
+    if len(args.dirs) != 2:
+        ap.error("need DIR_A and DIR_B")
+    runs = []
+    for _ in range(args.rounds):
+        for label in ("A", "B", "B", "A"):
+            d = args.dirs[0 if label == "A" else 1]
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--worker", d,
+                 "--train-layers", str(args.train_layers)],
+                capture_output=True, text=True)
+            lines = [ln[3:] for ln in proc.stdout.splitlines()
+                     if ln.startswith("AB ")]
+            if proc.returncode != 0 or not lines:
+                sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+                print(f"chip_ab: FAILED: run of {d} exited "
+                      f"{proc.returncode}", file=sys.stderr)
+                return 1
+            run = dict(label=label, **json.loads(lines[-1]))
+            runs.append(run)
+            print(json.dumps(run), flush=True)
+    for key in ("dq_ms", "dkv_ms", "step_ms", "tokens_per_s", "mfu",
+                "first_loss"):
+        print(f"{key}: " + ", ".join(f"{r['label']} {r[key]:.6g}"
+                                     for r in runs))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

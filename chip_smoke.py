@@ -1,27 +1,45 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`deepspeed_tpu_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py [--layers N] [--out DIR]
+    python3 chip_smoke.py [--layers N] [--train-layers N] [--out DIR]
 
 Phases (any failure exits non-zero and prints no result):
   0. report the card (name, power limit) and build the CUDA kernels from
      `deepspeed_tpu_torch/csrc` (one nvcc per source, all in parallel);
-  1. hold each kernel against its plain PyTorch version on the card in
-     bf16, at the serving path's shapes and at edge cases, and time both
-     (device time from torch.profiler) beside the card's bound for the
-     same work;
+  1. hold each kernel against its plain PyTorch version on the card, at
+     the serving and training paths' shapes and at edge cases (GQA,
+     ragged lengths, head dims 32/64/128, f32), and time both (device time
+     from torch.profiler) beside the card's bound for the same work;
   2. serve one wave of 8 requests through `build_engine("llama", "7b")`
      (Llama-2-7B widths, random weights from a seeded generator) and
      `generate_batch`, with every kernel's launch counter reset just
-     before and read just after: each kernel must have launched;
+     before and read just after: each serving kernel must have launched;
   3. rerun the wave's prefill and one decode step through the kernels and
      through an engine that selects the plain versions explicitly
      (`plain_kernels=True`) and compare the logits;
   4. profile a rerun of the wave (torch.profiler): device time by kernel
-     kind, and the device's idle share against phase 2's wall time.
+     kind, and the device's idle share against phase 2's wall time;
+  5. train bench.py's step: `initialize(model=Transformer(gpt2_config(
+     "1.3b", ...)), config=<bench.py's dict>)` (random weights from the
+     config's seed, one seeded batch of 2049-token rows reused every
+     step), 3 warm-up steps, then 10 timed steps with the counters reset
+     just before: step ms, tokens/s, mfu, peak memory, every loss, and
+     the flash forward, dq and dk/dv launches (one each per layer per
+     step under save_attn);
+  6. the same initial state and batch through `plain_kernels=True` for 3
+     steps, against the kernel engine's warm-up steps (loss and grad
+     norm, and at step 1 each layer's attention gradient norms); a control
+     run with a known fault in the plain backward, which these checks
+     must refuse; one step under nothing_saveable (2 flash forward
+     launches per layer, the same loss);
+  7. profile one training step: device time by kind (matmuls, the three
+     attention kernels, the optimizer's update, other) and the idle share.
+Every profile must hold each launch the kernels' counters saw in it (a
+session that dropped device events is repeated).
 Prints a `{"kernels": [...]}` line, the nvidia-smi line, and last
-`{"ok": true, "device": {...}}`.  `--layers` cuts the model's depth (the
-widths stay Llama-2-7B's); the default is the full 32 layers.
+`{"ok": true, "device": {...}}`.  `--layers` cuts the serving model's
+depth and `--train-layers` the training model's (the widths stay
+Llama-2-7B's and GPT-2-1.3B's); the defaults are the full 32 and 24.
 """
 import argparse
 import json
@@ -50,11 +68,64 @@ LSE_ATOL = 1e-3
 # logits by O(1).
 E2E_REL_TOL = 1e-1
 
+# flash backward kernels vs their plain versions, elementwise:
+#   |kernel - plain| <= BWD_RTOL |plain| + BWD_ATOL_REL max|plain|.
+# bf16: the plain versions keep P and dS in f32; the kernels round them to
+# bf16 before the tensor-core products (as the TPU kernels do) and round
+# each output once, so each output, a sum over up to S keys or queries,
+# carries one to two bf16 ulps of its largest magnitude.  f32: summation
+# order only.
+BWD_RTOL = 2 ** -7
+BWD_ATOL_REL = 2 ** -6
+BWD_F32_REL = 1e-5
+BWD_TOL_TEXT = (f"bf16 {BWD_RTOL} |plain| + {BWD_ATOL_REL} max|plain|, "
+                f"f32 {BWD_F32_REL} max|plain|")
+# kernel training engine vs the plain-version engine, per-step loss and
+# grad norm, relative.  The engines differ only in attention, where the
+# kernels round P and dS to bf16 (the plain versions keep f32): about one
+# bf16 ulp per attention output and gradient element.
+# - Step 1 runs both from the same parameters: on an H100 it measured
+#   2e-6 (loss, about 11) and 1.3e-4 (grad norm, a sum over 1.3e9 bf16
+#   gradients); a wrong mask or tile moves either by O(1).
+# - Steps 2 and 3 follow AdamW updates, the first of which is nearly
+#   sign(g) * lr for every element, so gradient elements near zero whose
+#   sign differs between the engines move the two models apart by up to
+#   2 lr each; they measured up to 3.5e-4 (loss) and 1.5e-2 (grad norm,
+#   at a grad-norm spike of 27).
+# - The global norm sums the attention gradients with every other leaf's,
+#   so step 1 also holds each layer's wq, wk, wv and wo gradient norm
+#   apart: the kernels' rounding of P and dS moved them by 5.0e-4 (wo)
+#   to 1.7e-3 (wk) at most over the 24 layers.
+# A control run (phase 6) drops delta from the plain backward; these
+# checks must refuse it.  On an H100 it read, against the plain engine,
+# 0.20 (step-1 grad norm), 0.43-22 (the per-layer attention norms), and
+# 2.9e-3 and 2.5e-2 (the loss at steps 2 and 3).
+TRAIN_STEP1_RTOL = {"loss": 1e-4, "grad_norm": 1e-3}
+TRAIN_LATER_RTOL = {"loss": 2e-3, "grad_norm": 5e-2}
+TRAIN_LEAF_RTOL = 1e-2
+ATTN_LEAVES = ("wq", "wk", "wv", "wo")
+
 PROMPT_LENS = [37, 64, 96, 128, 200, 311, 500, 1500]
 MAX_NEW = 32
 
+TRAIN_SEQ = 2048          # bench.py: GPT-2-1.3B at seq 2048, micro 4
+TRAIN_MICRO = 4
+# (B, S, NH, NKV, D) of the training path's attention: GPT-2-1.3B's 16
+# heads of 128 at bench.py's micro-batch and length
+TRAIN_ATTN = (TRAIN_MICRO, TRAIN_SEQ, 16, 16, 128)
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 10
+
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM
+
+# each kernel as the profiler names it -> (its wrapper, whose `launches`
+# counts the wrapper's calls; the device kernels one call runs)
+KERNELS = {"flash_fwd": ("flash_attention_fwd", 1),
+           "flash_bwd_dq": ("flash_attention_bwd_dq", 1),
+           "flash_bwd_dkv": ("flash_attention_bwd_dkv", 1),
+           "paged_decode": ("paged_decode_attention", 2),  # + combine
+           "paged_prefill": ("paged_prefill_attention", 1)}
 
 
 def fail(msg):
@@ -74,23 +145,84 @@ def device_events(prof):
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+PROFILE_TRIES = 3
+
+
+def _kind(name):
+    """The kind of a device kernel: one of the port's (they live in
+    anonymous namespaces of csrc/*.cu), a cuBLAS matmul, or other."""
+    for kernel in KERNELS:
+        if f"(anonymous namespace)::{kernel}" in name:
+            return kernel
+    low = name.lower()
+    if any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
+        return "matmul"
+    return "other"
+
+
+def profiled(body, complete=bool, what="device events"):
+    """The device events of `body()` under torch.profiler.  A session
+    can come back with device events missing (seen on the H100 machine:
+    none at all once, a quarter of a timing loop's kernels once), so a
+    session whose events are not `complete(events)` is repeated, up to
+    PROFILE_TRIES times, before the run fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if complete(events):
+            return events
+    fail(f"the profiler missed {what} in {PROFILE_TRIES} sessions")
+
+
+def holds_launches(launches):
+    """A `complete` test for `profiled`: the events hold, for each of the
+    port's kernels, every launch its counter saw during the session
+    (`launches`, filled in by the session's body)."""
+    def complete(events):
+        kinds = {}
+        for e in events:
+            kinds[_kind(e.name)] = kinds.get(_kind(e.name), 0) + 1
+        return bool(launches) and all(
+            kinds.get(kernel, 0) == per * launches[fn]
+            for kernel, (fn, per) in KERNELS.items() if fn in launches)
+    return complete
+
+
+def counted(counters, body, launches):
+    """`body` with the counters set to 0 before it and read into
+    `launches` after it."""
+    def run():
+        for c in counters:
+            c.launches = 0
+        body()
+        launches.update({c.__name__: c.launches for c in counters})
+    return run
+
+
 def time_ms(fn, iters=20, warmup=3):
     """Device time of one call of `fn`: the summed durations of the
     kernels it launches over `iters` calls (torch.profiler), divided by
     `iters`.  Host gaps between launches are left out, which CUDA events
     around a call of a few tens of microseconds would count; the inputs
-    stay warm in the 50 MB L2 from call to call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    stay warm in the 50 MB L2 from call to call.  The loop's session
+    must hold `iters` times the events of one call's session."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    per_call = len(profiled(fn, what="the device events of one call"))
+
+    def body():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in device_events(prof))
+
+    events = profiled(body, lambda ev: len(ev) == iters * per_call,
+                      what=f"{iters} x {per_call} device events")
+    us = sum(e.time_range.elapsed_us() for e in events)
     if us <= 0:
         fail("the profiler saw no device time")
     return us / 1e3 / iters
@@ -109,51 +241,67 @@ def kernel_close(out, ref):
 # ----------------------------------------------------------------------
 # phase 1: each kernel against its plain version
 # ----------------------------------------------------------------------
+def _qkv(torch, g, dev, B, S, NH, NKV, D, dtype=None):
+    dtype = dtype or torch.bfloat16
+    return (torch.randn(B, S, NH, D, generator=g, device=dev, dtype=dtype),
+            torch.randn(B, S, NKV, D, generator=g, device=dev, dtype=dtype),
+            torch.randn(B, S, NKV, D, generator=g, device=dev, dtype=dtype))
+
+
+def _flash_fwd_work(B, S, NH, NKV, D):
+    """(FLOPs, bytes) of one causal bf16 forward call."""
+    flops = 4 * B * NH * D * S * (S + 1) / 2
+    nbytes = 2 * (2 * B * S * NH * D + 2 * B * S * NKV * D) + 4 * B * NH * S
+    return flops, nbytes
+
+
 def check_flash(torch, fa, dev):
     import torch.nn.functional as F
     errs = []
     g = torch.Generator(device=dev).manual_seed(1)
-    cases = [  # (B, S, NH, NKV, D): main shape first
-        (4, 512, 32, 32, 128), (1, 300, 32, 8, 128), (2, 200, 16, 16, 64)]
-    for B, S, NH, NKV, D in cases:
-        q = torch.randn(B, S, NH, D, generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        k = torch.randn(B, S, NKV, D, generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        v = torch.randn(B, S, NKV, D, generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    f32 = torch.float32
+    # (B, S, NH, NKV, D, dtype): the serving path's shape first, the
+    # training path's second
+    cases = [(4, 512, 32, 32, 128, None), TRAIN_ATTN + (None,),
+             (1, 300, 32, 8, 128, None), (2, 200, 16, 16, 64, None),
+             (2, 100, 8, 2, 32, None), (2, 200, 8, 2, 128, f32)]
+    for B, S, NH, NKV, D, dt in cases:
+        q, k, v = _qkv(torch, g, dev, B, S, NH, NKV, D, dt)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
         ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
         torch.cuda.synchronize()
         e, el = max_err(out, ref), max_err(lse, ref_lse)
-        print(f"  flash_fwd B={B} S={S} NH={NH} NKV={NKV} D={D}: "
-              f"max|dout|={e:.3e} max|dlse|={el:.3e}")
+        print(f"  flash_fwd B={B} S={S} NH={NH} NKV={NKV} D={D} "
+              f"{str(q.dtype)[6:]}: max|dout|={e:.3e} max|dlse|={el:.3e}")
         if not (kernel_close(out, ref) and el <= LSE_ATOL):
             fail(f"flash_fwd disagrees with its plain version at "
-                 f"{(B, S, NH, NKV, D)}: {e} (tol {TOL_TEXT}), lse {el} "
-                 f"(tol {LSE_ATOL})")
+                 f"{(B, S, NH, NKV, D, q.dtype)}: {e} (tol {TOL_TEXT}), "
+                 f"lse {el} (tol {LSE_ATOL})")
         errs.append(max(e, el))
-    B, S, NH, NKV, D = cases[0]
-    q = torch.randn(B, S, NH, D, generator=g, device=dev,
-                    dtype=torch.bfloat16)
-    k = torch.randn(B, S, NKV, D, generator=g, device=dev,
-                    dtype=torch.bfloat16)
-    v = torch.randn(B, S, NKV, D, generator=g, device=dev,
-                    dtype=torch.bfloat16)
-    ms = time_ms(lambda: fa.flash_attention(q, k, v))
+        del ref, ref_lse
+    B, S, NH, NKV, D, _ = cases[0]
+    q, k, v = _qkv(torch, g, dev, B, S, NH, NKV, D)
+    ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v))
     plain = time_ms(lambda: fa.flash_attention_reference(q, k, v))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
-    flops = 4 * B * NH * D * S * (S + 1) / 2
-    nbytes = 2 * (2 * B * S * NH * D + 2 * B * S * NKV * D) + 4 * B * NH * S
-    bms, by = bound_ms(flops, nbytes)
+    bms, by = bound_ms(*_flash_fwd_work(B, S, NH, NKV, D))
+    # the training path's shape: kernel time beside its bound
+    tq, tk, tv = _qkv(torch, g, dev, *TRAIN_ATTN)
+    train_ms = time_ms(lambda: fa.flash_attention_fwd(tq, tk, tv))
+    train_bound = bound_ms(*_flash_fwd_work(*TRAIN_ATTN))[0]
+    print(f"  flash_fwd at the training shape: {train_ms:.4f} ms (bound "
+          f"{train_bound:.4f} ms)")
     return dict(name="flash_fwd", route="cuda",
                 source="deepspeed_tpu_torch/csrc/flash_fwd.cu",
                 replaces="deepspeed_tpu/ops/flash_attention.py:272",
                 shape=f"q [{B},{S},{NH},{D}] k/v [{B},{S},{NKV},{D}] bf16",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by, library_ms=lib)
+                bound_ms=bms, bound_by=by, library_ms=lib,
+                train_shape="q/k/v [{},{},{},{}] bf16".format(
+                    *TRAIN_ATTN[:3], TRAIN_ATTN[4]),
+                train_ms=train_ms, train_bound_ms=train_bound)
 
 
 def _arena(torch, g, dev, L, nb, bs, NKV, D):
@@ -179,12 +327,13 @@ def _garbage_tables(np, rng, B, MB, nb, bs, lens):
 def check_decode(torch, np, pa, dev):
     rng = np.random.RandomState(2)
     g = torch.Generator(device=dev).manual_seed(2)
-    L, nb, bs, MB, D = 2, 256, 64, 32, 128
+    L, nb, bs, MB = 2, 256, 64, 32
     errs, main = [], None
-    # (NH, NKV, lens): main shape first — B=8 at mixed lens up to ~1500
-    cases = [(32, 32, [36, 63, 95, 127, 199, 310, 499, 1499]),
-             (32, 8, [5, -1, 700, 64, 1, -3, 1200, 0])]
-    for NH, NKV, lens_l in cases:
+    # (NH, NKV, D, lens): main shape first — B=8 at mixed lens up to ~1500
+    cases = [(32, 32, 128, [36, 63, 95, 127, 199, 310, 499, 1499]),
+             (32, 8, 128, [5, -1, 700, 64, 1, -3, 1200, 0]),
+             (8, 2, 32, [40, -1, 300, 0])]
+    for NH, NKV, D, lens_l in cases:
         B = len(lens_l)
         ak, av = _arena(torch, g, dev, L, nb, bs, NKV, D)
         q = torch.randn(B, NH, D, generator=g, device=dev,
@@ -198,7 +347,7 @@ def check_decode(torch, np, pa, dev):
         torch.cuda.synchronize()
         e = max_err(out, ref)
         zero_ok = bool((out[lens < 0] == 0).all())
-        print(f"  paged_decode B={B} NH={NH} NKV={NKV} lens={lens_l}: "
+        print(f"  paged_decode B={B} NH={NH} NKV={NKV} D={D} lens={lens_l}: "
               f"max|dout|={e:.3e} inactive rows zero: {zero_ok}")
         if not (kernel_close(out, ref) and zero_ok):
             fail(f"paged_decode disagrees with its plain version "
@@ -206,8 +355,8 @@ def check_decode(torch, np, pa, dev):
                  f"inactive rows zero: {zero_ok}")
         errs.append(e)
         if main is None:
-            main = (q, ak, av, tables, lens, lens_np, NH, NKV)
-    q, ak, av, tables, lens, lens_np, NH, NKV = main
+            main = (q, ak, av, tables, lens, lens_np, NH, NKV, D)
+    q, ak, av, tables, lens, lens_np, NH, NKV, D = main
     B = q.shape[0]
     ms = time_ms(lambda: pa.paged_decode_attention(q, ak, av, tables, lens,
                                                    layer_idx=1))
@@ -245,13 +394,14 @@ def _prefill_work(C, NH, NKV, D, pos0, n_valid, window):
 def check_prefill(torch, np, pp, dev):
     rng = np.random.RandomState(3)
     g = torch.Generator(device=dev).manual_seed(3)
-    L, nb, bs, MB, D = 2, 256, 64, 32, 128
+    L, nb, bs, MB = 2, 256, 64, 32
     errs, main = [], None
-    # (C, NH, NKV, pos0, n_valid, window): main shape first
-    cases = [(256, 32, 32, 1024, 256, None), (256, 32, 8, 700, 100, None),
-             (3, 32, 32, 77, 3, None), (64, 32, 8, 300, 64, 128),
-             (5, 32, 32, 0, 2, None)]
-    for C, NH, NKV, pos0, n_valid, win in cases:
+    # (C, NH, NKV, D, pos0, n_valid, window): main shape first
+    cases = [(256, 32, 32, 128, 1024, 256, None),
+             (256, 32, 8, 128, 700, 100, None),
+             (3, 32, 32, 128, 77, 3, None), (64, 32, 8, 128, 300, 64, 128),
+             (5, 32, 32, 128, 0, 2, None), (70, 8, 2, 32, 100, 61, None)]
+    for C, NH, NKV, D, pos0, n_valid, win in cases:
         ak, av = _arena(torch, g, dev, L, nb, bs, NKV, D)
         q = torch.randn(C, NH, D, generator=g, device=dev,
                         dtype=torch.bfloat16)
@@ -264,16 +414,16 @@ def check_prefill(torch, np, pp, dev):
                                          sliding_window=win, layer_idx=1)
         torch.cuda.synchronize()
         e = max_err(out[:n_valid], ref[:n_valid])
-        print(f"  paged_prefill C={C} NH={NH} NKV={NKV} pos0={pos0} "
+        print(f"  paged_prefill C={C} NH={NH} NKV={NKV} D={D} pos0={pos0} "
               f"n_valid={n_valid} window={win}: max|dout|={e:.3e}")
         if not kernel_close(out[:n_valid], ref[:n_valid]):
             fail(f"paged_prefill disagrees with its plain version at "
-                 f"{(C, NH, NKV, pos0, n_valid, win)}: {e} "
+                 f"{(C, NH, NKV, D, pos0, n_valid, win)}: {e} "
                  f"(tol {TOL_TEXT})")
         errs.append(e)
         if main is None:
-            main = (q, ak, av, table, C, NH, NKV, pos0, n_valid)
-    q, ak, av, table, C, NH, NKV, pos0, n_valid = main
+            main = (q, ak, av, table, C, NH, NKV, D, pos0, n_valid)
+    q, ak, av, table, C, NH, NKV, D, pos0, n_valid = main
     ms = time_ms(lambda: pp.paged_prefill_attention(
         q, ak, av, table, pos0, n_valid, layer_idx=1))
     plain = time_ms(lambda: pp.paged_prefill_reference(
@@ -287,6 +437,383 @@ def check_prefill(torch, np, pp, dev):
                       f"bf16, pos0={pos0} n_valid={n_valid}",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain,
                 bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def _flash_bwd_work(B, S, NH, NKV, D, nmm, n_out_kv):
+    """(FLOPs, bytes) of one causal backward kernel call: `nmm` [S, S, D]
+    products over the S(S+1)/2 visible pairs per head; q, k, v, out, dO
+    (bf16) and lse (f32) read once, and dq or dk/dv written once."""
+    flops = nmm * 2 * D * (S * (S + 1) // 2) * B * NH
+    q_like = B * S * NH * D
+    kv_like = B * S * NKV * D
+    nbytes = 2 * (3 * q_like + 2 * kv_like) + 4 * B * NH * S
+    nbytes += 2 * (n_out_kv * kv_like if n_out_kv else q_like)
+    return flops, nbytes
+
+
+def bwd_close(got, ref, rtol, atol_rel):
+    """Elementwise |got - ref| <= rtol |ref| + atol_rel max|ref| (max|ref|
+    floored at 1, the unit-normal inputs' scale); returns (ok,
+    max|got - ref| / max|ref|)."""
+    got, ref = got.float(), ref.float()
+    scale = max(float(ref.abs().max()), 1.0)
+    ok = bool(((got - ref).abs()
+               <= rtol * ref.abs() + atol_rel * scale).all())
+    return ok, float((got - ref).abs().max()) / scale
+
+
+def time_flash_bwd(fa, q, k, v, out, lse, do):
+    """Device ms of the dq and of the dk/dv kernel on these inputs."""
+    return {"dq": time_ms(lambda: fa.flash_attention_bwd_dq(
+                q, k, v, out, lse, do)),
+            "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, out, lse, do))}
+
+
+def check_flash_bwd(torch, fa, dev):
+    """The dq and dk/dv kernels against their plain versions, both fed the
+    flash forward kernel's out and lse; timed at the training shape."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(4)
+    # (B, S, NH, NKV, D, dtype): the training shape first, then GQA with a
+    # ragged tail, D 64, D 32, and f32
+    cases = [TRAIN_ATTN + (torch.bfloat16,),
+             (1, 1000, 32, 4, 128, torch.bfloat16),
+             (2, 300, 8, 8, 64, torch.bfloat16),
+             (2, 100, 8, 2, 32, torch.bfloat16),
+             (2, 200, 8, 2, 128, torch.float32)]
+    errs = {"dq": [], "dkv": []}
+    main = None
+    for B, S, NH, NKV, D, dt in cases:
+        q, do = (torch.randn(B, S, NH, D, generator=g, device=dev, dtype=dt)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, NKV, D, generator=g, device=dev,
+                            dtype=dt) for _ in range(2))
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, do)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, do)
+        rdq = fa.flash_attention_bwd_dq_reference(q, k, v, out, lse, do)
+        rdk, rdv = fa.flash_attention_bwd_dkv_reference(q, k, v, out, lse,
+                                                        do)
+        torch.cuda.synchronize()
+        rtol, arel = ((BWD_RTOL, BWD_ATOL_REL) if dt == torch.bfloat16
+                      else (0.0, BWD_F32_REL))
+        res = {n: bwd_close(a, b, rtol, arel)
+               for n, a, b in (("dq", dq, rdq), ("dk", dk, rdk),
+                               ("dv", dv, rdv))}
+        print(f"  flash_bwd B={B} S={S} NH={NH} NKV={NKV} D={D} "
+              f"{str(dt)[6:]}: max|d| / max|plain| " + ", ".join(
+                  f"{n} {r[1]:.3e}" for n, r in res.items()))
+        for n, (ok, rel) in res.items():
+            if not ok:
+                fail(f"flash backward {n} disagrees with its plain version "
+                     f"at {(B, S, NH, NKV, D, dt)}: {rel} of max|plain| "
+                     f"(tol {BWD_TOL_TEXT})")
+        errs["dq"].append(max_err(dq, rdq))
+        errs["dkv"].append(max(max_err(dk, rdk), max_err(dv, rdv)))
+        if main is None:
+            main = (q, k, v, out, lse, do, B, S, NH, NKV, D)
+        del rdq, rdk, rdv
+    q, k, v, out, lse, do, B, S, NH, NKV, D = main
+    ms = time_flash_bwd(fa, q, k, v, out, lse, do)
+    plain = {"dq": time_ms(lambda: fa.flash_attention_bwd_dq_reference(
+                 q, k, v, out, lse, do), iters=3, warmup=1),
+             "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv_reference(
+                 q, k, v, out, lse, do), iters=3, warmup=1)}
+    # library yardstick: SDPA's backward (forward + backward less forward)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    lib_bwd = time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd)
+    print(f"  SDPA backward at the training shape: {lib_bwd:.4f} ms "
+          f"(dq + dk/dv kernels {ms['dq'] + ms['dkv']:.4f} ms)")
+    shape = (f"q/k/v/dO [{B},{S},{NH},{D}] bf16 causal")
+    rows = []
+    for name, nmm, nkv, line in (("dq", 3, 0, 374), ("dkv", 4, 2, 398)):
+        flops, nbytes = _flash_bwd_work(B, S, NH, NKV, D, nmm, nkv)
+        bms, by = bound_ms(flops, nbytes)
+        rows.append(dict(
+            name=f"flash_bwd_{name}", route="cuda",
+            source="deepspeed_tpu_torch/csrc/flash_bwd.cu",
+            replaces=f"deepspeed_tpu/ops/flash_attention.py:{line}",
+            shape=shape, max_abs_err=max(errs[name]), ms=ms[name],
+            plain_ms=plain[name], bound_ms=bms, bound_by=by,
+            library_ms=lib_bwd,
+            library_note="SDPA backward (fwd+bwd less fwd): dq, dk and dv "
+                         "in one call"))
+    return rows
+
+
+# ----------------------------------------------------------------------
+# phases 5-7: the training path
+# ----------------------------------------------------------------------
+def bench_config(policy):
+    """bench.py's training configuration on one device."""
+    return {"train_micro_batch_size_per_gpu": TRAIN_MICRO,
+            "gradient_accumulation_steps": 1,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 1e-4, "weight_decay": 0.1,
+                                     "state_dtype": "int8f"}},
+            "data_types": {"grad_accum_dtype": "bf16"},
+            "zero_optimization": {"stage": 1},
+            "bf16": {"enabled": True},
+            "gradient_clipping": 1.0,
+            "steps_per_print": 0,
+            "activation_checkpointing": {"policy": policy}}
+
+
+def train_model(torch, layers):
+    import deepspeed_tpu_torch as dt
+    return dt.Transformer(dt.gpt2_config(
+        "1.3b", max_seq_len=TRAIN_SEQ, dtype=torch.bfloat16, remat=True,
+        tiled_loss_shards=8, num_layers=layers))
+
+
+def train_batch_np(np, cfg, gbs):
+    """One seeded batch of S+1-token rows, reused every step (bench.py)."""
+    rng = np.random.RandomState(0)
+    return {"input_ids": rng.randint(0, cfg.vocab_size, (gbs, TRAIN_SEQ + 1)
+                                     ).astype(np.int32)}
+
+
+def attn_grad_norms(eng):
+    """Each layer's attention gradient norms of the engine's last step,
+    {leaf: [L floats]} for wq, wk, wv and wo."""
+    g = eng.grads["layers"]
+    return {k: g[k].float().flatten(1).norm(dim=1).tolist()
+            for k in ATTN_LEAVES}
+
+
+def _steps(torch, eng, batch, n):
+    """n steps: (losses, grad norms, step 1's `attn_grad_norms`)."""
+    out, first = [], None
+    for i in range(n):
+        out.append(eng.train_batch(batch))
+        if i == 0:
+            first = attn_grad_norms(eng)
+    torch.cuda.synchronize()
+    return ([float(m["loss"]) for m in out],
+            [float(m["grad_norm"]) for m in out], first)
+
+
+def train(torch, np, layers, counters):
+    import deepspeed_tpu_torch as dt
+    model = train_model(torch, layers)
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = dt.initialize(model=model, config=bench_config("save_attn"))
+    torch.cuda.synchronize()
+    gbs = eng.config.train_batch_size
+    batch = train_batch_np(np, cfg, gbs)
+    n_params = model.num_params()
+    print(f"phase 5: GPT-2-1.3B widths (H={cfg.hidden_size}, "
+          f"L={cfg.num_layers}, NH={cfg.num_heads}, D={cfg.head_dim}, "
+          f"V={cfg.vocab_size}, {n_params} parameters) bf16, random "
+          f"weights (seed {eng.config.seed}); micro {gbs} x S "
+          f"{TRAIN_SEQ}, save_attn, tiled loss x8, AdamW int8f; engine up "
+          f"in {time.perf_counter() - t0:.1f} s")
+    warm = _steps(torch, eng, batch, TRAIN_WARMUP)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    metrics = [eng.train_batch(batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {c.__name__: c.launches for c in counters}
+    losses = [float(m["loss"]) for m in metrics]
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = gbs * TRAIN_SEQ * TRAIN_STEPS / wall
+    flops_tok = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size \
+        * TRAIN_SEQ
+    mfu = flops_tok * tok_s / H100_BF16_FLOPS
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    print(f"phase 5: warm-up losses {warm[0]}, grad norms {warm[1]}")
+    print(f"phase 5: {TRAIN_STEPS} steps in {wall:.3f} s: step "
+          f"{step_ms:.2f} ms, {tok_s:.1f} tokens/s, mfu {mfu:.4f} "
+          f"(6N + 12 L H S FLOP/token at {H100_BF16_FLOPS:.3g} FLOP/s), "
+          f"peak memory {peak / 2 ** 30:.2f} GiB")
+    print(f"phase 5: losses {losses}")
+    print(f"phase 5: launches per step {per_step}")
+    if not all(np.isfinite(losses + warm[0] + warm[1])):
+        fail(f"non-finite training loss or grad norm: {losses}, {warm}")
+    for name, n in launches.items():
+        if n != cfg.num_layers * TRAIN_STEPS:
+            fail(f"{name} launched {n} times over {TRAIN_STEPS} steps, "
+                 f"want {cfg.num_layers} per step (one per layer under "
+                 f"save_attn)")
+    res = dict(step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu,
+               peak_memory_bytes=peak, losses=losses,
+               warmup_losses=warm[0], warmup_grad_norms=warm[1],
+               warmup_attn_grad_norms=warm[2], launches=launches, launches_per_step=per_step,
+               n_params=n_params, layers=cfg.num_layers)
+    return eng, batch, res
+
+
+def profile_train_step(torch, eng, batch, step_ms, counters):
+    """Device time of one training step by kind, and the device's idle
+    share against the unprofiled steps' mean wall time."""
+    from deepspeed_tpu_torch.runtime.engine import OPTIMIZER_RANGE
+    launches = {}
+    events = profiled(counted(counters, lambda: eng.train_batch(batch),
+                              launches),
+                      holds_launches(launches),
+                      what="attention kernels of the training step")
+    # the optimizer range also shows on the device timeline as an
+    # annotation spanning its kernels: it is a window, not a kernel
+    spans = [e.time_range for e in events if e.name == OPTIMIZER_RANGE]
+    by_kind = {}
+    opt_ms = 0.0
+    for e in events:
+        if e.name == OPTIMIZER_RANGE:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        if any(r.start <= e.time_range.start < r.end for r in spans):
+            opt_ms += ms
+            continue
+        k = _kind(e.name)
+        by_kind[k] = by_kind.get(k, 0.0) + ms
+    if spans:
+        by_kind["optimizer"] = opt_ms
+    busy = sum(by_kind.values())
+    if busy <= 0:
+        fail("the profiler saw no device time in the training step")
+    res = dict(device_ms=busy, step_wall_ms=step_ms,
+               idle_share=max(0.0, 1 - busy / step_ms), ms_by_kind=by_kind,
+               optimizer_share=(opt_ms / busy if spans else None))
+    print(f"phase 7: training step device time {busy:.2f} ms of "
+          f"{step_ms:.2f} ms wall (idle share {res['idle_share']:.3f}); by "
+          f"kind (ms) " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+              by_kind.items(), key=lambda kv: -kv[1])))
+    if not spans:
+        print("phase 7: the optimizer range did not show on the device "
+              "timeline: its share is not measured")
+    return res
+
+
+def plain_train_run(torch, np, layers, counters):
+    """bench.py's step from the same initial state and batch through
+    `plain_kernels=True`, for the warm-up's steps: `_steps`'s readings."""
+    import deepspeed_tpu_torch as dt
+    model = train_model(torch, layers)
+    eng = dt.initialize(model=model, config=bench_config("save_attn"),
+                        plain_kernels=True)
+    batch = train_batch_np(np, model.cfg, eng.config.train_batch_size)
+    before = [c.launches for c in counters]
+    run = _steps(torch, eng, batch, TRAIN_WARMUP)
+    if [c.launches for c in counters] != before:
+        fail("the plain_kernels engine launched a kernel")
+    del eng
+    torch.cuda.empty_cache()
+    return run
+
+
+def train_differences(got, plain):
+    """`_steps` readings against the plain engine's: (the relative
+    differences {"loss": [by step], "grad_norm": [...], "attn_leaves":
+    {leaf: max over layers at step 1}}, the checks they fail)."""
+    rel = {key: [abs(a - b) / abs(b) for a, b in zip(got[j], plain[j])]
+           for j, key in enumerate(("loss", "grad_norm"))}
+    rel["attn_leaves"] = {
+        k: max(abs(a - b) / b for a, b in zip(got[2][k], plain[2][k]))
+        for k in ATTN_LEAVES}
+    failed = [f"step {i + 1} {key} {r:.3e} > "
+              f"{(TRAIN_STEP1_RTOL if i == 0 else TRAIN_LATER_RTOL)[key]}"
+              for key in ("loss", "grad_norm")
+              for i, r in enumerate(rel[key])
+              if r > (TRAIN_STEP1_RTOL if i == 0 else TRAIN_LATER_RTOL)[key]]
+    failed += [f"step 1 {k} gradient norm {r:.3e} > {TRAIN_LEAF_RTOL}"
+               for k, r in rel["attn_leaves"].items() if r > TRAIN_LEAF_RTOL]
+    return rel, failed
+
+
+def _rel_text(rel):
+    return (", ".join(f"{k} {[float(f'{r:.3e}') for r in rel[k]]}"
+                      for k in ("loss", "grad_norm"))
+            + "; step 1 per-layer attention gradient norms, max over "
+              "layers: " + ", ".join(f"{k} {r:.3e}" for k, r in
+                                    rel["attn_leaves"].items()))
+
+
+def compare_train_plain(kernel_warm, plain):
+    """The kernel engine's warm-up steps against the plain engine's."""
+    rel, failed = train_differences(kernel_warm, plain)
+    print(f"phase 6: kernel engine vs plain engine over {TRAIN_WARMUP} "
+          f"steps: losses {kernel_warm[0]} vs {plain[0]}, grad norms "
+          f"{kernel_warm[1]} vs {plain[1]}; relative differences by step "
+          f"{_rel_text(rel)} (tol step 1 {TRAIN_STEP1_RTOL}, later "
+          f"{TRAIN_LATER_RTOL}, attention leaves {TRAIN_LEAF_RTOL})")
+    if failed:
+        fail("kernel and plain training engines disagree: "
+             + "; ".join(failed))
+    return dict(plain_losses=plain[0], plain_grad_norms=plain[1],
+                rel_dloss=rel["loss"], rel_dgrad_norm=rel["grad_norm"],
+                rel_attn_leaves=rel["attn_leaves"])
+
+
+def control_fault(torch, np, fa, layers, counters, plain):
+    """Control for phase 6's checks: the plain engine again, with delta =
+    rowsum(dO * O) dropped from its attention backward (O read as
+    zeros), against the plain engine.  The checks must refuse it."""
+    reference = fa._bwd_reference   # the plain backward the op calls
+
+    def no_delta(q, k, v, out, lse, do, causal):
+        return reference(q, k, v, torch.zeros_like(out), lse, do, causal)
+
+    fa._bwd_reference = no_delta
+    try:
+        faulty = plain_train_run(torch, np, layers, counters)
+    finally:
+        fa._bwd_reference = reference
+    rel, failed = train_differences(faulty, plain)
+    print(f"phase 6: control (delta dropped from the plain backward) vs "
+          f"plain engine: losses {faulty[0]}, grad norms {faulty[1]}; "
+          f"relative differences by step {_rel_text(rel)}; refused by: "
+          f"{failed}")
+    if not failed:
+        fail("phase 6's checks pass a backward without delta")
+    return dict(losses=faulty[0], grad_norms=faulty[1],
+                rel_dloss=rel["loss"], rel_dgrad_norm=rel["grad_norm"],
+                rel_attn_leaves=rel["attn_leaves"], refused_by=failed)
+
+
+def remat_launches(torch, np, layers, counters, first_loss):
+    """One step under nothing_saveable: the layer recompute reruns the
+    flash forward kernel (2L launches), and the loss equals save_attn's."""
+    import deepspeed_tpu_torch as dt
+    model = train_model(torch, layers)
+    eng = dt.initialize(model=model,
+                        config=bench_config("nothing_saveable"))
+    batch = train_batch_np(np, model.cfg, eng.config.train_batch_size)
+    for c in counters:
+        c.launches = 0
+    m = eng.train_batch(batch)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    loss = float(m["loss"])
+    del eng
+    L = model.cfg.num_layers
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L}
+    print(f"phase 6: one nothing_saveable step: launches {launches} (want "
+          f"{want}); loss {loss} vs save_attn's {first_loss}")
+    if launches != want:
+        fail(f"nothing_saveable launches {launches}, want {want}")
+    if abs(loss - first_loss) > 1e-6 * abs(first_loss):
+        fail(f"nothing_saveable loss {loss} != save_attn loss {first_loss}")
+    return dict(launches=launches, loss=loss)
 
 
 # ----------------------------------------------------------------------
@@ -407,30 +934,18 @@ def compare_plain(torch, np, eng, prompts, outs):
     return dict(e2e_max_rel_dlogit=worst, greedy_agreement=rate)
 
 
-def _kind(name):
-    # the port's kernels live in anonymous namespaces of csrc/*.cu
-    for kernel in ("flash_fwd", "paged_prefill", "paged_decode"):
-        if f"(anonymous namespace)::{kernel}" in name:
-            return kernel
-    low = name.lower()
-    if any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
-        return "matmul"
-    return "other"
-
-
-def profile_wave(torch, eng, prompts, served_wall):
+def profile_wave(torch, eng, prompts, served_wall, counters):
     """Where the device time of the wave goes: torch.profiler over a rerun
     of the same wave, kernel time summed by kind.  The device's idle share
     is taken against the unprofiled run's wall time (phase 2), since the
     profiler slows the host but not the kernels."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.generate_batch(prompts, max_new_tokens=MAX_NEW)
-        torch.cuda.synchronize()
+    launches = {}
+    events = profiled(
+        counted(counters, lambda: eng.generate_batch(
+            prompts, max_new_tokens=MAX_NEW), launches),
+        holds_launches(launches), what="kernels of the served wave")
     by_kind, by_name = {}, {}
-    for e in device_events(prof):
+    for e in events:
         ms = e.time_range.elapsed_us() / 1e3
         by_kind[_kind(e.name)] = by_kind.get(_kind(e.name), 0.0) + ms
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
@@ -454,7 +969,9 @@ def profile_wave(torch, eng, prompts, served_wall):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
-                    help="model depth (Llama-2-7B has 32)")
+                    help="serving model depth (Llama-2-7B has 32)")
+    ap.add_argument("--train-layers", type=int, default=24,
+                    help="training model depth (GPT-2-1.3B has 24)")
     ap.add_argument("--out", default=os.path.join("build", "chip_smoke"),
                     help="directory for the run's JSON record, relative to "
                          "this script's directory")
@@ -474,6 +991,8 @@ def main(argv=None):
     from deepspeed_tpu_torch.ops import paged_prefill as pp
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in f32 and round once, as the JAX `_dense`
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # phase 0
     kind = torch.cuda.get_device_name(0)
@@ -491,35 +1010,70 @@ def main(argv=None):
         log = _build.library_path(name).with_name(f"{name}.ptxas.txt")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}")
+                if "Function properties for" in line:
+                    print(f"  {name}: {line.split('for ')[-1][:90]}")
+                elif "registers" in line or "spill" in line:
+                    print(f"  {name}:   {line.strip()}")
 
     # phase 1
-    print(f"phase 1: kernels against their plain versions (bf16, tol "
-          f"{TOL_TEXT})")
+    print(f"phase 1: kernels against their plain versions (forward bf16 "
+          f"tol {TOL_TEXT}; backward tol {BWD_TOL_TEXT})")
     kernels = [check_flash(torch, fa, "cuda"),
+               *check_flash_bwd(torch, fa, "cuda"),
                check_decode(torch, np, pa, "cuda"),
                check_prefill(torch, np, pp, "cuda")]
 
     # phase 2
-    counters = [fa.flash_attention, pa.paged_decode_attention,
-                pp.paged_prefill_attention]
-    eng, prompts, outs, served = serve(torch, np, args.layers, counters)
-    names = {"flash_fwd": "flash_attention",
-             "paged_decode": "paged_decode_attention",
-             "paged_prefill": "paged_prefill_attention"}
-    for k in kernels:
-        k["launches"] = served["launches"][names[k["name"]]]
+    serve_counters = [fa.flash_attention_fwd, pa.paged_decode_attention,
+                      pp.paged_prefill_attention]
+    eng, prompts, outs, served = serve(torch, np, args.layers,
+                                       serve_counters)
 
     # phase 3
     e2e = compare_plain(torch, np, eng, prompts, outs)
 
     # phase 4
-    prof = profile_wave(torch, eng, prompts, served["wall_s"])
+    prof = profile_wave(torch, eng, prompts, served["wall_s"],
+                        serve_counters)
+    del eng
+    torch.cuda.empty_cache()
+
+    # phase 5
+    train_counters = [fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                      fa.flash_attention_bwd_dkv]
+    teng, batch, trained = train(torch, np, args.train_layers,
+                                 train_counters)
+
+    # phase 7 (on phase 5's engine, before it is freed)
+    tprof = profile_train_step(torch, teng, batch, trained["step_ms"],
+                               train_counters)
+    del teng
+    torch.cuda.empty_cache()
+
+    # phase 6
+    plain = plain_train_run(torch, np, args.train_layers, train_counters)
+    tplain = compare_train_plain(
+        (trained["warmup_losses"], trained["warmup_grad_norms"],
+         trained["warmup_attn_grad_norms"]), plain)
+    control = control_fault(torch, np, fa, args.train_layers,
+                            train_counters, plain)
+    remat = remat_launches(torch, np, args.train_layers, train_counters,
+                           trained["warmup_losses"][0])
+
+    for k in kernels:
+        fn = KERNELS[k["name"]][0]
+        by_path = {path: launches[fn] for path, launches in
+                   (("serve", served["launches"]),
+                    ("train", trained["launches"])) if fn in launches}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
 
     record = dict(kernels=kernels, serve=served, e2e=e2e, profile=prof,
+                  train=trained, train_profile=tprof, train_plain=tplain,
+                  train_control=control, remat=remat,
                   device=dict(kind=kind, nvidia_smi=smi,
-                              layers=args.layers))
+                              layers=args.layers,
+                              train_layers=args.train_layers))
     os.makedirs(os.path.join(root, args.out), exist_ok=True)
     with open(os.path.join(root, args.out, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
@@ -529,7 +1083,6 @@ def main(argv=None):
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,14 +1,23 @@
-"""PyTorch/CUDA port of the deepspeed_tpu serving path.
+"""PyTorch/CUDA port of deepspeed_tpu: the serving and training paths.
 
 The JAX package `deepspeed_tpu` is the reference; this package keeps its
-module layout and names (`models/transformer.py`, `ops/paged_attention.py`,
-`inference/v2/engine_v2.py`, ...) so each module's counterpart is easy to
-find.  It imports `torch` and never `jax`.  The attention kernels are
-hand-written CUDA C++ for Hopper (`csrc/*.cu`), built with `nvcc` on first
-use (`ops/_build.py`); each wrapper also keeps a plain PyTorch version of
-the same function, used for tensors on the CPU and as the kernel's check.
+module layout and names (`models/transformer.py`, `ops/flash_attention.py`,
+`inference/v2/engine_v2.py`, `runtime/engine.py`, ...) so each module's
+counterpart is easy to find.  It imports `torch` and never `jax`.  The
+attention kernels are hand-written CUDA C++ for Hopper (`csrc/*.cu`),
+built with `nvcc` on first use (`ops/_build.py`); each wrapper also keeps
+a plain PyTorch version of the same function, used for tensors on the CPU
+and as the kernel's check.
 
-Entry points: `inference.v2.build_engine(arch, size, device="cuda")` and
-`InferenceEngineV2.put / step / generate_batch`.
+Entry points:
+- serving: `inference.v2.build_engine(arch, size, device="cuda")` and
+  `InferenceEngineV2.put / step / generate_batch`;
+- training: `initialize(model=models.Transformer(gpt2_config(...)),
+  config={...})` and `TrainEngine.train_batch(batch)`.
 """
-__version__ = "0.1.0"
+from .models import Transformer, gpt2_config
+from .runtime.engine import TrainEngine, initialize
+
+__all__ = ["initialize", "TrainEngine", "Transformer", "gpt2_config"]
+
+__version__ = "0.2.0"

@@ -73,6 +73,9 @@ extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0 || NKV <= 0 || NH % NKV != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
+    if (D == 32)
+      return launch<__nv_bfloat16, 32>(q, k, v, o, lse, B, S, NH, NKV,
+                                       causal, st);
     if (D == 64)
       return launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, S, NH, NKV,
                                        causal, st);
@@ -80,6 +83,8 @@ extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v,
       return launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, S, NH, NKV,
                                         causal, st);
   } else if (dtype == 0) {
+    if (D == 32)
+      return launch<float, 32>(q, k, v, o, lse, B, S, NH, NKV, causal, st);
     if (D == 64)
       return launch<float, 64>(q, k, v, o, lse, B, S, NH, NKV, causal, st);
     if (D == 128)

@@ -256,6 +256,9 @@ extern "C" int dstt_paged_decode(const void* q, const void* ak,
       bs <= 0 || MB <= 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
+    if (D == 32)
+      return launch<__nv_bfloat16, 32>(q, ak, av, tables, lens, part, o, B,
+                                       NH, NKV, nb, bs, MB, layer_off, st);
     if (D == 64)
       return launch<__nv_bfloat16, 64>(q, ak, av, tables, lens, part, o, B,
                                        NH, NKV, nb, bs, MB, layer_off, st);
@@ -263,6 +266,9 @@ extern "C" int dstt_paged_decode(const void* q, const void* ak,
       return launch<__nv_bfloat16, 128>(q, ak, av, tables, lens, part, o, B,
                                         NH, NKV, nb, bs, MB, layer_off, st);
   } else if (dtype == 0) {
+    if (D == 32)
+      return launch<float, 32>(q, ak, av, tables, lens, part, o, B, NH, NKV,
+                               nb, bs, MB, layer_off, st);
     if (D == 64)
       return launch<float, 64>(q, ak, av, tables, lens, part, o, B, NH, NKV,
                                nb, bs, MB, layer_off, st);

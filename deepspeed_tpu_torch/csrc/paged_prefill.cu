@@ -92,6 +92,10 @@ extern "C" int dstt_paged_prefill(const void* q, const void* ak,
   if (C <= 0 || NKV <= 0 || NH % NKV != 0 || nb <= 0 || bs <= 0 || MB <= 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
+    if (D == 32)
+      return launch<__nv_bfloat16, 32>(q, ak, av, table, o, C, NH, NKV, nb,
+                                       bs, MB, layer_off, pos0, n_valid,
+                                       window, st);
     if (D == 64)
       return launch<__nv_bfloat16, 64>(q, ak, av, table, o, C, NH, NKV, nb,
                                        bs, MB, layer_off, pos0, n_valid,
@@ -101,6 +105,9 @@ extern "C" int dstt_paged_prefill(const void* q, const void* ak,
                                         bs, MB, layer_off, pos0, n_valid,
                                         window, st);
   } else if (dtype == 0) {
+    if (D == 32)
+      return launch<float, 32>(q, ak, av, table, o, C, NH, NKV, nb, bs, MB,
+                               layer_off, pos0, n_valid, window, st);
     if (D == 64)
       return launch<float, 64>(q, ak, av, table, o, C, NH, NKV, nb, bs, MB,
                                layer_off, pos0, n_valid, window, st);

@@ -15,7 +15,8 @@ fallback).  The attention of each serving call goes through the port's
 CUDA kernels (flash forward, paged prefill, paged decode) for tensors on
 the card and through their plain PyTorch versions on the CPU;
 `plain_kernels=True` selects the plain versions on the card too, for
-end-to-end comparisons.
+end-to-end comparisons, the way the training engine's option does: it
+sets the model config's `attn_impl` to "jnp".
 
 Not carried yet, each refused by name: tensor parallelism, merged arenas,
 prefix cache, LoRA adapters, expert paging, seeded sampling streams,
@@ -23,7 +24,7 @@ draft-and-verify and multi-step groups.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -92,6 +93,10 @@ class InferenceEngineV2:
         self.device = _resolve_device(device)
         self.cfg: TransformerConfig = (model.cfg if hasattr(model, "cfg")
                                        else model)
+        if plain_kernels:
+            # an explicit, never-default switch to the kernels' plain
+            # versions, for comparing the two on the card
+            self.cfg = replace(self.cfg, attn_impl="jnp")
         self.config = config or RaggedInferenceEngineConfig()
         if self.config.tensor_parallel_size > 1:
             raise NotImplementedError(
@@ -101,9 +106,6 @@ class InferenceEngineV2:
             raise NotImplementedError(
                 f"tp_collectives={self.config.tp_collectives!r}: fused TP "
                 f"collectives are not carried by the PyTorch port yet")
-        # an explicit, never-default switch to the kernels' plain
-        # versions, for comparing the two on the card
-        self.plain_kernels = bool(plain_kernels)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
             params = init_params(self.cfg, gen, self.device, self.cfg.dtype)
@@ -270,7 +272,7 @@ class InferenceEngineV2:
                     factive[i] = True
                 logits, self.arena = prefill_full(
                     self.cfg, self.params, self.arena, ftokens, flens,
-                    ftables, factive, plain=self.plain_kernels)
+                    ftables, factive)
                 logits = self._fetch(logits)
                 for i, d in enumerate(fresh):
                     d.seen_tokens = len(d.prompt)
@@ -318,8 +320,7 @@ class InferenceEngineV2:
                 NC *= 2
             logits, self.arena = prefill_chunks(
                 self.cfg, self.params, self.arena, tokens[:NC], pos0s[:NC],
-                nvalids[:NC], tables[:NC], active[:NC],
-                plain=self.plain_kernels)
+                nvalids[:NC], tables[:NC], active[:NC])
             logits = self._fetch(logits)
             for i, (d, start, n) in enumerate(planned):
                 d.seen_tokens = start + n
@@ -344,7 +345,7 @@ class InferenceEngineV2:
                 active[i] = True
             logits, self.arena = decode_step(
                 self.cfg, self.params, self.arena, tokens, lens, tables,
-                active, plain=self.plain_kernels)
+                active)
             logits = self._fetch(logits)
             for i, d in enumerate(batch):
                 d.seen_tokens += 1
@@ -423,7 +424,7 @@ class InferenceEngineV2:
             self.cfg, self.params, self.arena,
             torch.from_numpy(tokens).to(self.device), lens, tables, active,
             rng, temp, max_lens, topk_vec, n_steps=n_steps, mode=mode,
-            top_k=int(top_k), plain=self.plain_kernels)
+            top_k=int(top_k))
         toks = self._fetch(toks)   # the once-per-burst read
         out: Dict[int, np.ndarray] = {}
         for i, d in enumerate(batch):

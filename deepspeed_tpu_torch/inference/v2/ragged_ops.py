@@ -18,8 +18,8 @@ port does this instead:
   `index_put_` has no drop mode, so padded rows are simply not selected.
 - `jit`/`scan` become Python loops over layers and chunks.
 - The dense-gather attention branches are gone: each kernel's plain
-  PyTorch version serves tensors on the CPU, and `plain=True` selects it
-  on the card for comparisons (never by default).
+  PyTorch version serves tensors on the CPU, and `cfg.attn_impl="jnp"`
+  selects it on the card for comparisons (never by default).
 
 Scope: the 5-D arena and the pre-norm sequential dense families (the
 config refuses the rest).  No LoRA, tensor parallelism, seeded streams,
@@ -31,11 +31,9 @@ from typing import Dict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from ...models.transformer import (TransformerConfig, _act_fn, _embed_in,
-                                   _head_hidden, _norm, _rope,
-                                   resolve_weight_scaled)
+from ...models.transformer import (TransformerConfig, _dense, _embed_in,
+                                   _head_hidden, _mlp_block, _norm, _rope)
 from ...ops.attention import causal_attention
 from ...ops.paged_attention import (paged_decode_attention,
                                     paged_decode_reference)
@@ -115,34 +113,13 @@ def _layer(params, li: int) -> Dict[str, torch.Tensor]:
 
 
 # ----------------------------------------------------------------------
-# layer math
+# layer math (the dense and MLP pieces are the model module's)
 # ----------------------------------------------------------------------
-def _dense(h, w, b=None):
-    dt = h.dtype
-    mat, _ = resolve_weight_scaled(w, dt)
-    out = h @ mat
-    if b is not None:
-        out = out + b.to(dt)
-    return out
-
-
-def _plain_mlp(cfg: TransformerConfig, lp, h):
-    dt = h.dtype
-    if cfg.activation == "swiglu":
-        g = _dense(h, lp["w_gate"])
-        u = _dense(h, lp["w_up"])
-        h = F.silu(g.float()).to(dt) * u
-    else:
-        h = _dense(h, lp["w_up"], lp.get("b_up"))
-        h = _act_fn(cfg.activation)(h.float()).to(dt)
-    return _dense(h, lp["w_down"], lp.get("b_down"))
-
-
 def _mlp_delta(cfg: TransformerConfig, x, lp):
     """pre-norm -> MLP of `x`, without the residual add."""
     h = _norm(x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"), cfg.norm,
               cfg.norm_eps)
-    return _plain_mlp(cfg, lp, h)
+    return _mlp_block(cfg, lp, h)
 
 
 def _qkv(cfg: TransformerConfig, lp, x, lead, positions):
@@ -201,7 +178,7 @@ def _lm_logits(cfg: TransformerConfig, params, x):
 # serving programs
 # ----------------------------------------------------------------------
 def prefill_chunks(cfg: TransformerConfig, params, arena, tokens, pos0s,
-                   n_valids, block_tables, active, plain: bool = False):
+                   n_valids, block_tables, active):
     """Advance up to NC prompt chunks in one call (the ragged composition
     of Dynamic SplitFuse).  tokens: [NC, C] (padded); pos0s/n_valids:
     [NC]; block_tables: [NC, MB]; active: [NC] — all host data.  Within
@@ -228,7 +205,8 @@ def prefill_chunks(cfg: TransformerConfig, params, arena, tokens, pos0s,
     slots = _KVSlots(tables, positions, valid, bs, dev)
     tables_t = _dev(tables, dev, torch.int32)
     live = [i for i in range(NC) if active[i] and n_valids[i] > 0]
-    attend = paged_prefill_reference if plain else paged_prefill_attention
+    attend = (paged_prefill_reference if cfg.attn_impl == "jnp"
+              else paged_prefill_attention)
 
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
@@ -254,13 +232,13 @@ def prefill_full_supported(cfg: TransformerConfig) -> bool:
     config already refuses alibi, windows, post_norm and parallel
     residuals).  It does not look at the head dim, so scheduling is the
     same on every device: on the card a head dim the flash kernel does
-    not take (it takes 64 and 128) raises in the kernel's wrapper rather
-    than moving the prompt to another path."""
+    not take (it takes 32, 64 and 128) raises in the kernel's wrapper
+    rather than moving the prompt to another path."""
     return cfg.pos_emb in ("rope", "learned")
 
 
 def prefill_full(cfg: TransformerConfig, params, arena, tokens, lens,
-                 block_tables, active, plain: bool = False):
+                 block_tables, active):
     """Prefill FRESH full prompts with dense causal flash attention.
     tokens: [NS, S] (zero-padded); lens: [NS]; block_tables: [NS, MB];
     active: [NS] — host data.  Each layer writes the valid rows' K/V into
@@ -287,7 +265,7 @@ def prefill_full(cfg: TransformerConfig, params, arena, tokens, lens,
         q, k, v = _qkv(cfg, lp, x, (NS, S), pos_t)
         slots.write(arena, li, k.reshape(NS * S, *k.shape[2:]),
                     v.reshape(NS * S, *v.shape[2:]))
-        attn = causal_attention(q, k, v, plain=plain)
+        attn = causal_attention(q, k, v, plain=cfg.attn_impl == "jnp")
         x = x + _dense(attn.reshape(NS * S, NH * D), lp["wo"], lp.get("bo"))
         x = x + _mlp_delta(cfg, x, lp)
 
@@ -297,7 +275,7 @@ def prefill_full(cfg: TransformerConfig, params, arena, tokens, lens,
 
 
 def _decode_core(cfg: TransformerConfig, params, arena, tokens, seq_lens,
-                 block_tables, active, plain: bool = False):
+                 block_tables, active):
     """One token for each of B rows.  tokens: [B] (a device tensor — the
     previous step's samples — or host data); seq_lens (each row's new
     token position), block_tables [B, MB], active [B]: host data."""
@@ -317,7 +295,8 @@ def _decode_core(cfg: TransformerConfig, params, arena, tokens, seq_lens,
     tables_t = _dev(tables, dev, torch.int32)
     # the kernel's inactive-row marker: lens < 0 gives zeros
     lens_t = _dev(np.where(active, positions, -1), dev, torch.int32)
-    attend = paged_decode_reference if plain else paged_decode_attention
+    attend = (paged_decode_reference if cfg.attn_impl == "jnp"
+              else paged_decode_attention)
 
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
@@ -331,11 +310,11 @@ def _decode_core(cfg: TransformerConfig, params, arena, tokens, seq_lens,
 
 
 def decode_step(cfg: TransformerConfig, params, arena, tokens, seq_lens,
-                block_tables, active, plain: bool = False):
+                block_tables, active):
     """One generated token for up to B sequences: (logits [B, V] f32,
     arena).  Shapes as in `_decode_core`; inactive rows are inert."""
     return _decode_core(cfg, params, arena, tokens, seq_lens, block_tables,
-                        active, plain)
+                        active)
 
 
 def _sample_tokens(logits, generator, mode: str, temperature, top_k):
@@ -374,8 +353,7 @@ def sample_tokens_compiled(logits, generator, temperature, top_k_vec=None,
 def decode_tokens(cfg: TransformerConfig, params, arena, tokens, seq_lens,
                   block_tables, active, rng, temperature=1.0,
                   max_len=None, top_k_vec=None, *, n_steps: int = 8,
-                  mode: str = "greedy", top_k: int = 0,
-                  plain: bool = False):
+                  mode: str = "greedy", top_k: int = 0):
     """`n_steps` decode iterations with sampling on the device: sample ->
     append KV -> feed back; the sampled tokens stay on the device between
     steps and the host reads them once, at the end.  `max_len` [B]: each
@@ -389,7 +367,7 @@ def decode_tokens(cfg: TransformerConfig, params, arena, tokens, seq_lens,
     out = []
     for _ in range(n_steps):
         logits, arena = _decode_core(cfg, params, arena, toks, lens,
-                                     block_tables, active, plain)
+                                     block_tables, active)
         toks = _sample_tokens(logits, rng, mode, temperature,
                               top_k_vec if mode == "per_row" else top_k)
         out.append(toks)

@@ -1,9 +1,9 @@
-"""Model configs and parameters of the port (counterpart of
-`deepspeed_tpu/models/__init__.py`, restricted to the three families the
-port serves: gpt2, llama, qwen2)."""
-from .transformer import (TransformerConfig, gpt2_config, init_params,
-                          llama_config, qwen2_config)
-from .convert import params_from_jax
+"""Model configs, parameters and the training model bundle of the port
+(counterpart of `deepspeed_tpu/models/__init__.py`, restricted to the three
+families the port serves and trains: gpt2, llama, qwen2)."""
+from .transformer import (Transformer, TransformerConfig, gpt2_config,
+                          init_params, llama_config, qwen2_config)
+from .convert import opt_state_from_jax, params_from_jax
 
 MODEL_FAMILIES = {
     "gpt2": gpt2_config,
@@ -21,6 +21,7 @@ def get_model_config(family: str, size: str = None, **kw) -> TransformerConfig:
     return fn(size, **kw) if size is not None else fn(**kw)
 
 
-__all__ = ["TransformerConfig", "MODEL_FAMILIES", "get_model_config",
-           "gpt2_config", "llama_config", "qwen2_config", "init_params",
-           "params_from_jax"]
+__all__ = ["Transformer", "TransformerConfig", "MODEL_FAMILIES",
+           "get_model_config", "gpt2_config", "llama_config",
+           "qwen2_config", "init_params", "params_from_jax",
+           "opt_state_from_jax"]

@@ -1,4 +1,5 @@
-"""JAX parameter pytree (as numpy arrays) -> the port's parameters.
+"""JAX parameter and optimizer-state pytrees (as numpy arrays) -> the
+port's tensors.
 
 Both packages keep the same stacked, in-first layout and key names
 (`layers.wq` `[L, H, NH*D]`, `tok_embed` `[V, E]`, ...), so conversion is
@@ -15,7 +16,7 @@ import torch
 
 from .transformer import TransformerConfig
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax"]
 
 
 def _leaf(x, device, dtype):
@@ -56,3 +57,24 @@ def params_from_jax(np_tree: Dict, cfg: TransformerConfig, device,
             raise ValueError(f"layers.{k} has shape {got}, config wants "
                              f"{shape}")
     return out
+
+
+def opt_state_from_jax(np_state: Dict, device) -> Dict:
+    """Convert a JAX optimizer state ({"m": tree, "m_scale": tree, ...},
+    leaves as numpy arrays) to torch tensors on `device`, keeping each
+    leaf's dtype: int8/uint8 codes stay codes, f32 scales and moments stay
+    f32, bf16 moments stay bf16."""
+    def leaf(x):
+        a = np.asarray(x)
+        if a.dtype.kind in "iu":
+            return torch.from_numpy(np.array(a)).to(device)
+        dtype = torch.bfloat16 if a.dtype.name == "bfloat16" \
+            else torch.float32
+        return torch.from_numpy(np.ascontiguousarray(
+            a.astype(np.float32))).to(device=device, dtype=dtype)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return leaf(t)
+    return walk(np_state)

@@ -10,18 +10,29 @@ Scope: the pre-norm sequential dense families (gpt2, llama, qwen2) —
 rope or learned positions, rmsnorm or layernorm, swiglu or gelu, GQA,
 qkv/output biases.  The config refuses the features the port does not
 carry yet, by name, at construction (`NotImplementedError`).
+
+Training (`_forward`, `_lm_loss`, `Transformer.loss_fn`) runs the same
+layer math with autograd: attention through the differentiable flash op
+(`ops/attention.causal_attention`), each layer optionally under a
+checkpoint with a named remat policy (`runtime/activation_checkpointing`),
+and the loss optionally through the tiled fused logits+loss
+(`sequence/tiled.py`).  The layer stack may be given as the stacked dict
+or as a list of per-layer dicts (the engine's per-layer views, whose
+gradients land in one stacked buffer).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["TransformerConfig", "gpt2_config", "llama_config",
-           "qwen2_config", "init_params", "resolve_weight_scaled"]
+__all__ = ["TransformerConfig", "Transformer", "gpt2_config",
+           "llama_config", "qwen2_config", "init_params",
+           "dense_f32"]
 
 
 @dataclass(frozen=True)
@@ -52,8 +63,16 @@ class TransformerConfig:
     sliding_window: Optional[int] = None        # refused
     sliding_window_layers: Optional[Tuple[int, ...]] = None   # refused
     norm_eps: float = 1e-5
+    dropout: float = 0.0                        # != 0 refused
     dtype: torch.dtype = torch.bfloat16         # compute dtype
+    remat: bool = False                         # checkpoint every layer
+    # auto: the kernels on a CUDA tensor (their plain versions on the
+    # CPU); jnp: the plain versions on every device (what both engines'
+    # `plain_kernels=True` selects, for comparisons on the card)
+    attn_impl: str = "auto"
     moe_experts: int = 1                        # >1 refused
+    tiled_mlp_shards: int = 1                   # >1 refused
+    tiled_loss_shards: int = 1      # >1: fused logits+loss, no [B,S,V]
 
     def __post_init__(self):
         refused = []
@@ -72,6 +91,10 @@ class TransformerConfig:
             refused.append("rope_scaling")
         if self.moe_experts > 1:
             refused.append("mixture-of-experts layers")
+        if self.dropout:
+            refused.append("dropout")
+        if self.tiled_mlp_shards > 1:
+            refused.append("tiled_mlp_shards > 1")
         if refused:
             raise NotImplementedError(
                 f"the PyTorch port does not carry {', '.join(refused)} yet "
@@ -84,6 +107,13 @@ class TransformerConfig:
             raise ValueError(
                 f"num_heads={self.num_heads} is not a multiple of "
                 f"kv_heads={self.kv_heads}")
+        if self.attn_impl not in ("auto", "jnp"):
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
+        if self.embed_proj_dim and self.tiled_loss_shards > 1:
+            raise ValueError(
+                "tiled_loss_shards with embed_proj_dim is not supported: "
+                "the fused tiled loss consumes hidden states directly and "
+                "would skip the embed-out projection")
 
     @property
     def kv_heads(self) -> int:
@@ -239,17 +269,15 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 # ops
 # ----------------------------------------------------------------------
 def _norm(x, scale, bias, kind: str, eps: float):
+    """Norm with f32 statistics and affine, rounded once to x's dtype.
+    layernorm is one fused kernel (PyTorch's layer_norm computes a bf16
+    input in f32), not the f32 round trip of the JAX `_norm` op by op."""
+    if kind == "layernorm":
+        return F.layer_norm(x, (x.shape[-1],), scale.to(x.dtype),
+                            None if bias is None else bias.to(x.dtype), eps)
     xf = x.float()
-    if kind == "rmsnorm":
-        ms = xf.square().mean(dim=-1, keepdim=True)
-        out = xf * torch.rsqrt(ms + eps) * scale
-    else:
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = xf.var(dim=-1, keepdim=True, unbiased=False)
-        out = (xf - mu) * torch.rsqrt(var + eps) * scale
-        if bias is not None:
-            out = out + bias
-    return out.to(x.dtype)
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
 
 
 def _rope(x, positions, theta: float, pct: float = 1.0):
@@ -273,23 +301,14 @@ def _rope(x, positions, theta: float, pct: float = 1.0):
 
 
 def _act_fn(name: str):
-    """Non-gated activation in fp32: "gelu" is the tanh approximation,
-    "gelu_exact" the erf form."""
+    """Non-gated activation: "gelu" is the tanh approximation,
+    "gelu_exact" the erf form.  On a bf16 input PyTorch computes in f32
+    and rounds once, which is the JAX module's f32 round trip exactly."""
     if name == "relu":
         return F.relu
     if name == "gelu_exact":
         return F.gelu
     return lambda t: F.gelu(t, approximate="tanh")
-
-
-def resolve_weight_scaled(w, dt):
-    """(matrix, post_scale_or_None).  The port serves plain weights only:
-    the reference's fp8 code/scale dicts are refused by name."""
-    if isinstance(w, dict):
-        raise NotImplementedError(
-            "quantized serving weights are not carried by the PyTorch port "
-            "yet (plain weights only)")
-    return w.to(dt), None
 
 
 def _embed_in(cfg: TransformerConfig, params, input_ids, dt):
@@ -307,3 +326,203 @@ def _head_hidden(params, x, dt):
     if "embed_out_proj" in params:
         x = (x @ params["embed_out_proj"].to(dt)).to(dt)
     return x
+
+
+# ----------------------------------------------------------------------
+# training forward
+# ----------------------------------------------------------------------
+def _dense(h, w, b=None):
+    """[..., H] @ [H, D] in the activation dtype: bf16 in, f32
+    accumulation, rounded once to the activation dtype (torch's matmul
+    contract, with cuBLAS's split-K reductions kept in f32 by
+    `torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
+    False`), then the bias added in that dtype — as the JAX `_dense`."""
+    dt = h.dtype
+    out = h @ w.to(dt)
+    if b is not None:
+        out = out + b.to(dt)
+    return out
+
+
+class _DenseF32(torch.autograd.Function):
+    """x [..., H] @ w [H, V] with an f32 result from bf16 operands (the
+    JAX einsum with preferred_element_type=f32): the product is not
+    rounded to bf16.  The backward takes the f32 cotangent to the
+    operands' dtype and runs bf16 products."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.is_cuda:
+            out = torch.mm(x2, w, out_dtype=torch.float32)
+        else:
+            # bf16 -> f32 is exact, so this is the same product
+            out = x2.float() @ w.float()
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g2 @ w.t()).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = x.reshape(-1, x.shape[-1]).t() @ g2
+        return dx, dw
+
+
+def dense_f32(x, w):
+    """x @ w with an f32 result (the lm head: logits stay f32)."""
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32:
+        return x @ w
+    return _DenseF32.apply(x, w)
+
+
+def _mlp_block(cfg: TransformerConfig, lp, h):
+    """Dense MLP (swiglu / gelu / relu).  The activation is computed in
+    f32 and rounded once (see `_act_fn`)."""
+    if cfg.activation == "swiglu":
+        h = F.silu(_dense(h, lp["w_gate"])) * _dense(h, lp["w_up"])
+    else:
+        h = _act_fn(cfg.activation)(_dense(h, lp["w_up"], lp.get("b_up")))
+    return _dense(h, lp["w_down"], lp.get("b_down"))
+
+
+def _layer(cfg: TransformerConfig, x, lp, positions):
+    """One pre-norm transformer block over the full sequence.  x: [B, S,
+    H] in the compute dtype; lp: this layer's weights."""
+    from ..ops.attention import causal_attention
+    B, S, _ = x.shape
+    NH, NKV, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    h = _norm(x, lp["attn_norm_scale"], lp.get("attn_norm_bias"), cfg.norm,
+              cfg.norm_eps)
+    q = _dense(h, lp["wq"], lp.get("bq")).reshape(B, S, NH, D)
+    k = _dense(h, lp["wk"], lp.get("bk")).reshape(B, S, NKV, D)
+    v = _dense(h, lp["wv"], lp.get("bv")).reshape(B, S, NKV, D)
+    if cfg.pos_emb == "rope":
+        q = _rope(q, positions, cfg.rope_theta, cfg.rope_pct)
+        k = _rope(k, positions, cfg.rope_theta, cfg.rope_pct)
+    attn = causal_attention(q, k, v, plain=cfg.attn_impl == "jnp")
+    x = x + _dense(attn.reshape(B, S, NH * D), lp["wo"], lp.get("bo"))
+    h = _norm(x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"), cfg.norm,
+              cfg.norm_eps)
+    return x + _mlp_block(cfg, lp, h)
+
+
+def _layer_params(layers, i: int) -> Dict[str, torch.Tensor]:
+    """Layer i's weights: from a list of per-layer dicts, or as views
+    into the stacked [L, ...] leaves."""
+    if isinstance(layers, (list, tuple)):
+        return layers[i]
+    return {k: w[i] for k, w in layers.items()}
+
+
+def _lm_head(params):
+    """Output projection [E, V]: the explicit lm_head or the tied token
+    embedding's transpose (its gradient then adds from both uses)."""
+    head = params.get("lm_head")
+    return params["tok_embed"].t() if head is None else head
+
+
+def _forward(cfg: TransformerConfig, params, input_ids, positions=None,
+             return_hidden: bool = False, remat_policy: str = None):
+    """f32 logits [B, S, V] for [B, S] token ids, or the final hidden
+    states with `return_hidden`.  `remat_policy` names the checkpoint
+    policy when `cfg.remat` is set."""
+    B, S = input_ids.shape
+    dt = cfg.dtype
+    if positions is None:
+        positions = torch.arange(S, device=input_ids.device)[None].expand(
+            B, S)
+    x = _embed_in(cfg, params, input_ids, dt)
+    if cfg.pos_emb == "learned":
+        x = x + params["pos_embed"][positions].to(dt)
+    if cfg.embed_norm:
+        x = _norm(x, params["embed_norm_scale"], params["embed_norm_bias"],
+                  "layernorm", cfg.norm_eps)
+    layer_fn = partial(_layer, cfg)
+    if cfg.remat:
+        from ..runtime.activation_checkpointing import checkpoint_wrapper
+        layer_fn = checkpoint_wrapper(layer_fn, remat_policy)
+    for i in range(cfg.num_layers):
+        x = layer_fn(x, _layer_params(params["layers"], i), positions)
+    if cfg.final_norm:
+        x = _norm(x, params["final_norm_scale"],
+                  params.get("final_norm_bias"), cfg.norm, cfg.norm_eps)
+    if return_hidden:
+        return x
+    logits = dense_f32(_head_hidden(params, x, dt), _lm_head(params))
+    if "lm_head_bias" in params:
+        logits = logits + params["lm_head_bias"].float()
+    return logits
+
+
+def _lm_loss(cfg: TransformerConfig, params, batch, rng=None,
+             remat_policy: str = None):
+    """Next-token cross-entropy.  batch: {"input_ids": [B, S]} (labels
+    default to the shifted inputs) or explicit {"input_ids", "labels",
+    "mask"?}.  Returns (loss, {"ppl_log": loss})."""
+    ids = batch["input_ids"]
+    labels = batch.get("labels")
+    mask = batch.get("mask")
+    if (labels is None and ids.shape[1] <= cfg.max_seq_len
+            and (mask is None or mask.shape[1] == ids.shape[1])):
+        # keep the full S sequence (so S-divisible features such as the
+        # tiled loss stay active) and mask the final position instead of
+        # slicing to S-1; the masked mean equals the sliced mean exactly
+        inputs = ids
+        labels = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], 1)
+        last_off = torch.cat([torch.ones_like(ids[:, 1:]),
+                              torch.zeros_like(ids[:, :1])], 1)
+        mask = last_off if mask is None else mask * last_off
+    elif labels is None:
+        # S = max_seq_len + 1 shift-by-one idiom: slice
+        labels = ids[:, 1:]
+        inputs = ids[:, :-1]
+    else:
+        inputs = ids
+    if cfg.tiled_loss_shards > 1:
+        from ..sequence.tiled import tiled_fused_logits_loss
+        hidden = _forward(cfg, params, inputs, return_hidden=True,
+                          remat_policy=remat_policy)
+        loss = tiled_fused_logits_loss(
+            hidden, _lm_head(params), labels, shards=cfg.tiled_loss_shards,
+            mask=mask, bias=params.get("lm_head_bias"))
+    else:
+        logits = _forward(cfg, params, inputs, remat_policy=remat_policy)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+        if mask is not None:
+            maskf = mask.float()
+            loss = (nll * maskf).sum() / torch.clamp_min(maskf.sum(), 1.0)
+        else:
+            loss = nll.mean()
+    return loss, {"ppl_log": loss.detach()}
+
+
+class Transformer:
+    """Bundle of init / loss / forward for the training engine
+    (`deepspeed_tpu_torch.initialize(model=...)`)."""
+
+    def __init__(self, cfg: TransformerConfig):
+        self.cfg = cfg
+
+    def init_params(self, generator: torch.Generator,
+                    dtype: torch.dtype = torch.float32):
+        """Random parameters on the generator's device (`init_params`)."""
+        return init_params(self.cfg, generator, generator.device, dtype)
+
+    def loss_fn(self, params, batch, rng=None, remat_policy: str = None):
+        return _lm_loss(self.cfg, params, batch, rng, remat_policy)
+
+    def forward(self, params, input_ids, positions=None):
+        return _forward(self.cfg, params, input_ids, positions)
+
+    def num_params(self, params=None) -> int:
+        if params is None:
+            params = init_params(self.cfg, None, "meta")
+        from ..utils.tree import count_params
+        return count_params(params)

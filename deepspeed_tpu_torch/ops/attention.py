@@ -1,11 +1,12 @@
 """Causal attention entry point of the model code.
 
 Counterpart of `deepspeed_tpu/ops/attention.py`.  `causal_attention` sends
-a CUDA tensor to the flash kernel (`ops/flash_attention.py`) and a CPU
-tensor to the plain version; `plain=True` selects the plain version
-explicitly (the engine's `plain_kernels` option, for comparisons on the
-card).  There is no fallback: a kernel that cannot take its inputs
-raises.
+a CUDA tensor to the flash kernels (`ops/flash_attention.py`) and a CPU
+tensor to the plain versions; `plain=True` selects the plain versions
+explicitly (the engines' `plain_kernels` option, for comparisons on the
+card).  It is differentiable: with inputs that require grad, the
+backward runs the flash backward kernels.  There is no fallback: a kernel
+that cannot take its inputs raises.
 """
 from __future__ import annotations
 
@@ -22,6 +23,4 @@ def attention_reference(q, k, v, causal: bool = True):
 
 def causal_attention(q, k, v, plain: bool = False):
     """Causal attention, q [B,S,NH,D], k/v [B,S,NKV,D]."""
-    if plain:
-        return attention_reference(q, k, v, causal=True)
-    return flash_attention(q, k, v, causal=True)
+    return flash_attention(q, k, v, causal=True, plain=plain)

@@ -81,9 +81,9 @@ def _check(q, arena_k, arena_v, block_tables, lens, layer_idx):
                          f"{tuple(arena_k.shape)} / {tuple(arena_v.shape)}")
     B, NH, D = q.shape
     NKV = arena_k.shape[-2]
-    if arena_k.shape[-1] != D or D not in (64, 128):
-        raise ValueError(f"head dim {D} (kernel takes 64 or 128, matching "
-                         f"the arena)")
+    if arena_k.shape[-1] != D or D not in (32, 64, 128):
+        raise ValueError(f"head dim {D} (kernel takes 32, 64 or 128, "
+                         f"matching the arena)")
     if NH % NKV or NH // NKV > 8:
         raise ValueError(f"NH={NH}, NKV={NKV}: need NH % NKV == 0 and a "
                          f"group of at most 8 heads")

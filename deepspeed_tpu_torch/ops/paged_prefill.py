@@ -84,9 +84,9 @@ def _check(q, arena_k, arena_v, block_table, layer_idx, window):
                          f"{tuple(arena_k.shape)} / {tuple(arena_v.shape)}")
     C, NH, D = q.shape
     NKV = arena_k.shape[-2]
-    if arena_k.shape[-1] != D or D not in (64, 128):
-        raise ValueError(f"head dim {D} (kernel takes 64 or 128, matching "
-                         f"the arena)")
+    if arena_k.shape[-1] != D or D not in (32, 64, 128):
+        raise ValueError(f"head dim {D} (kernel takes 32, 64 or 128, "
+                         f"matching the arena)")
     if NH % NKV:
         raise ValueError(f"NH={NH} is not a multiple of NKV={NKV}")
     for name, t in (("q", q), ("arena_k", arena_k), ("arena_v", arena_v),

@@ -9,16 +9,19 @@ has only PyTorch:
 
 Each kernel is checked in both dtypes it takes: f32, where kernel and
 plain version differ only by the order of f32 sums, and bf16, where the
-output's final rounding adds one bf16 ulp.  The engine test serves the
-same wave through the kernels and through the plain versions
+output's final rounding adds one bf16 ulp, at every head dim the kernels
+take (32, 64, 128).  The engine tests serve the same wave, and take the
+same training steps, through the kernels and through the plain versions
 (`plain_kernels=True`) in f32.
 """
 import numpy as np
 import pytest
 import torch
 
+import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
-                                              RaggedInferenceEngineConfig)
+                                              RaggedInferenceEngineConfig,
+                                              build_engine)
 from deepspeed_tpu_torch.models import get_model_config
 from deepspeed_tpu_torch.ops import flash_attention as tflash
 from deepspeed_tpu_torch.ops import paged_attention as tdecode
@@ -35,6 +38,13 @@ ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 RTOL = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
 # lse is f32 in both versions whatever the input dtype, of size ~10
 LSE_ATOL = 1e-4
+# flash backward, |kernel - plain| <= BWD_RTOL |plain| + BWD_ATOL max|plain|:
+# f32, summation order only; bf16, the kernels round P and dS to bf16
+# before the tensor-core products (the plain versions keep f32) and each
+# output, a sum over up to S rows, once: one to two bf16 ulps of the
+# output's largest magnitude (measured up to 0.71% of it on an H100)
+BWD_RTOL = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
+BWD_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 
 
 @pytest.fixture
@@ -63,17 +73,17 @@ DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
 
 @DTYPES
 @pytest.mark.parametrize("S,NH,NKV,D", [(200, 8, 2, 128), (64, 4, 4, 64),
-                                        (1, 2, 1, 128)])
+                                        (1, 2, 1, 128), (50, 4, 2, 32)])
 def test_flash_kernel_matches_plain_version(card, dtype, S, NH, NKV, D):
     q, k, v = (_rnd(card, dtype, 2, S, n, D) for n in (NH, NKV, NKV))
-    out, lse = tflash.flash_attention(q, k, v, return_lse=True)
+    out, lse = tflash.flash_attention_fwd(q, k, v)
     ref, ref_lse = tflash.flash_attention_reference(q, k, v)
     _close(out, ref, ATOL[dtype], RTOL[dtype])
     _close(lse, ref_lse, LSE_ATOL)
 
 
 @DTYPES
-@pytest.mark.parametrize("NH,NKV,D", [(8, 2, 128), (4, 4, 64)])
+@pytest.mark.parametrize("NH,NKV,D", [(8, 2, 128), (4, 4, 64), (4, 2, 32)])
 def test_paged_decode_kernel_matches_plain_version(card, dtype, NH, NKV, D):
     rng = np.random.RandomState(0)
     L, nb, bs, MB = 2, 40, 16, 24
@@ -94,12 +104,13 @@ def test_paged_decode_kernel_matches_plain_version(card, dtype, NH, NKV, D):
 
 
 @DTYPES
-@pytest.mark.parametrize("C,pos0,n_valid,window", [
-    (3, 40, 3, None), (70, 100, 61, None), (32, 0, 32, 8), (5, 7, 2, None)])
+@pytest.mark.parametrize("C,pos0,n_valid,window,D", [
+    (3, 40, 3, None, 128), (70, 100, 61, None, 128), (32, 0, 32, 8, 128),
+    (5, 7, 2, None, 128), (70, 100, 61, None, 32)])
 def test_paged_prefill_kernel_matches_plain_version(card, dtype, C, pos0,
-                                                    n_valid, window):
+                                                    n_valid, window, D):
     rng = np.random.RandomState(1)
-    L, nb, bs, MB, NH, NKV, D = 2, 32, 16, 16, 8, 2, 128
+    L, nb, bs, MB, NH, NKV = 2, 32, 16, 16, 8, 2
     ak, av = (_rnd(card, dtype, L, nb, bs, NKV, D) for _ in range(2))
     table = rng.randint(-3, nb + 3, size=MB).astype(np.int32)
     live = (pos0 + n_valid - 1) // bs + 1
@@ -117,9 +128,18 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     q = _rnd(card, torch.float16, 1, 8, 2, 64)
     with pytest.raises(TypeError):
         tflash.flash_attention(q, q, q)
-    q = _rnd(card, torch.float32, 1, 8, 2, 32)
+    q = _rnd(card, torch.float32, 1, 8, 2, 48)
     with pytest.raises(ValueError, match="head dim"):
         tflash.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_attention_bwd_dq(q, q, q, q, q[:, :, :, 0].transpose(
+            1, 2).contiguous(), q)
+    q = _rnd(card, torch.bfloat16, 1, 8, 2, 64)
+    lse = torch.zeros(1, 2, 8, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.flash_attention_bwd_dkv(q, q, q, q, lse,
+                                       q.transpose(1, 2).contiguous()
+                                       .transpose(1, 2))
 
 
 def test_engine_serves_the_same_through_kernels_and_plain_versions(card):
@@ -137,11 +157,11 @@ def test_engine_serves_the_same_through_kernels_and_plain_versions(card):
     rng = np.random.RandomState(2)
     prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
                for n in (5, 17, 40, 100)]
-    counts = (tflash.flash_attention.launches,
+    counts = (tflash.flash_attention_fwd.launches,
               tdecode.paged_decode_attention.launches,
               tprefill.paged_prefill_attention.launches)
     got = kern.generate_batch(prompts, max_new_tokens=8)
-    after = (tflash.flash_attention.launches,
+    after = (tflash.flash_attention_fwd.launches,
              tdecode.paged_decode_attention.launches,
              tprefill.paged_prefill_attention.launches)
     assert all(a > c for a, c in zip(after, counts))
@@ -154,3 +174,77 @@ def test_engine_serves_the_same_through_kernels_and_plain_versions(card):
             eng.step()
         firsts.append(np.stack([eng.query(u) for u in range(4)]))
     np.testing.assert_allclose(firsts[0], firsts[1], rtol=1e-4, atol=1e-4)
+
+
+@DTYPES
+@pytest.mark.parametrize("S,NH,NKV,D", [(200, 8, 2, 128), (130, 4, 4, 64),
+                                        (100, 8, 2, 32), (64, 4, 4, 32),
+                                        (1, 2, 1, 128)])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_backward_kernels_match_plain_versions(card, dtype, S, NH, NKV,
+                                                     D, causal):
+    q, do = (_rnd(card, dtype, 2, S, NH, D) for _ in range(2))
+    k, v = (_rnd(card, dtype, 2, S, NKV, D) for _ in range(2))
+    out, lse = tflash.flash_attention_fwd(q, k, v, causal)
+    got = (tflash.flash_attention_bwd_dq(q, k, v, out, lse, do, causal),
+           *tflash.flash_attention_bwd_dkv(q, k, v, out, lse, do, causal))
+    want = (tflash.flash_attention_bwd_dq_reference(q, k, v, out, lse, do,
+                                                    causal),
+            *tflash.flash_attention_bwd_dkv_reference(q, k, v, out, lse, do,
+                                                      causal))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        # the scale has a floor of 1 (the inputs' own): at S = 1 dq and dk
+        # are 0 up to rounding
+        scale = max(float(w.float().abs().max()), 1.0)
+        _close(g, w, BWD_ATOL[dtype] * scale, BWD_RTOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["llama", "gpt2", "qwen2"])
+def test_tiny_presets_serve_on_the_card(card, arch):
+    """The tiny presets (head dim 32) serve through the kernels: the same
+    greedy chains as the plain-version engine, f32."""
+    kw = {"vocab_size": 2048} if arch == "qwen2" else {}
+    kern = build_engine(arch, "tiny", dtype=torch.float32, **kw)
+    assert kern.cfg.head_dim == 32
+    plain = InferenceEngineV2(kern.cfg, params=kern.params,
+                              config=kern.config, device="cuda",
+                              plain_kernels=True)
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, kern.cfg.vocab_size, n).astype(np.int32)
+               for n in (7, 30, 300)]
+    got = kern.generate_batch(prompts, max_new_tokens=6)
+    want = plain.generate_batch(prompts, max_new_tokens=6)
+    assert [g.tolist() for g in got] == [w.tolist() for w in want]
+
+
+def test_training_steps_match_through_kernels_and_plain_versions(card):
+    """llama tiny (head dim 32, GQA) in f32 under save_attn: the kernel
+    engine launches flash forward, dq and dk/dv once per layer per step,
+    and its losses and grad norms equal the plain engine's within f32
+    summation order."""
+    model = dt.Transformer(get_model_config(
+        "llama", "tiny", dtype=torch.float32, remat=True,
+        tiled_loss_shards=4))
+    conf = {"train_micro_batch_size_per_gpu": 2, "steps_per_print": 0,
+            "gradient_clipping": 1.0,
+            "optimizer": {"type": "adamw", "params": {
+                "lr": 1e-3, "weight_decay": 0.1, "state_dtype": "int8f"}},
+            "activation_checkpointing": {"policy": "save_attn"}}
+    kern = dt.initialize(model=model, config=conf)
+    plain = dt.initialize(model=model, config=conf, plain_kernels=True)
+    rng = np.random.RandomState(3)
+    batch = {"input_ids": rng.randint(0, model.cfg.vocab_size, (2, 256)
+                                      ).astype(np.int32)}
+    counters = (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
+                tflash.flash_attention_bwd_dkv)
+    for step in range(3):
+        before = [c.launches for c in counters]
+        km = kern.train_batch(batch)
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counters, before)] == \
+            [model.cfg.num_layers] * 3
+        pm = plain.train_batch(batch)
+        for key in ("loss", "grad_norm"):
+            assert float(km[key]) == pytest.approx(float(pm[key]),
+                                                   rel=1e-4), (step, key)
