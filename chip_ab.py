@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Compare two copies of `deepspeed_tpu_torch` on one NVIDIA card.
 
-    python3 chip_ab.py DIR_A DIR_B [--rounds N] [--train-layers N]
+    python3 chip_ab.py DIR_A DIR_B [--rounds N] [--what train|paged]
+                       [--train-layers N]
 
 Each DIR holds a `deepspeed_tpu_torch` package (for example one unpacked
 with `git archive` from another commit).  The copies run in turns, A, B,
 B, A per round, each in a process of its own that builds its own kernels
 (into DIR/build) and measures, with chip_smoke.py's phases:
 
-- the dq and dk/dv kernels' device time at the training shape
-  (chip_smoke's TRAIN_ATTN, bf16, causal; its `time_flash_bwd`);
-- bench.py's GPT-2-1.3B training step (chip_smoke phase 5: 3 warm-up and
-  10 timed steps, the first warm-up loss) and its device time by kind
-  (phase 7).
+- `--what train` (the default): the dq and dk/dv kernels' device time at
+  the training shape (chip_smoke's TRAIN_ATTN, bf16, causal; its
+  `time_flash_bwd`), and bench.py's GPT-2-1.3B training step (chip_smoke
+  phase 5: 3 warm-up and 10 timed steps, the first warm-up loss) with its
+  device time by kind (phase 7);
+- `--what paged`: the paged prefill and paged decode kernels' device time
+  at chip_smoke phase 1's main shapes (its `paged_main_inputs`), for
+  packages that predate the training path too.
 
 One JSON line per run, then a summary; two versions compare only within
 one call, on one card.  Exits non-zero without a card.
@@ -26,19 +30,36 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def worker(pkg_dir, train_layers):
+def paged_worker(cs, np, torch):
+    """Device ms of the paged prefill and decode kernels at phase 1's
+    main shapes."""
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import paged_prefill as pp
+    dec, pre = cs.paged_main_inputs(torch, np, "cuda")
+    return {"prefill_ms": cs.time_ms(
+                lambda: pp.paged_prefill_attention(*pre, layer_idx=1)),
+            "decode_ms": cs.time_ms(
+                lambda: pa.paged_decode_attention(*dec, layer_idx=1))}
+
+
+def worker(pkg_dir, train_layers, what):
     sys.path.insert(0, os.path.abspath(pkg_dir))
     sys.path.insert(1, HERE)
     import numpy as np
     import torch
     import chip_smoke as cs
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.ops import flash_attention as fa
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
+    package = os.path.dirname(deepspeed_tpu_torch.__file__)
+    if what == "paged":
+        print("AB " + json.dumps(dict(package=package, **paged_worker(
+            cs, np, torch))), flush=True)
+        return
+    from deepspeed_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = cs._qkv(torch, g, "cuda", *cs.TRAIN_ATTN)
     do = torch.randn(q.shape, generator=g, device="cuda", dtype=q.dtype)
@@ -52,7 +73,7 @@ def worker(pkg_dir, train_layers):
     prof = cs.profile_train_step(torch, eng, batch, res["step_ms"],
                                  counters)
     print("AB " + json.dumps(dict(
-        package=os.path.dirname(deepspeed_tpu_torch.__file__), **kernels,
+        package=package, **kernels,
         step_ms=res["step_ms"], tokens_per_s=res["tokens_per_s"],
         mfu=res["mfu"], first_loss=res["warmup_losses"][0],
         idle_share=prof["idle_share"], ms_by_kind=prof["ms_by_kind"])),
@@ -63,11 +84,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("dirs", nargs="*", help="DIR_A DIR_B")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--what", choices=("train", "paged"), default="train")
     ap.add_argument("--train-layers", type=int, default=24)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        worker(args.worker, args.train_layers)
+        worker(args.worker, args.train_layers, args.what)
         return 0
     if len(args.dirs) != 2:
         ap.error("need DIR_A and DIR_B")
@@ -77,7 +99,8 @@ def main(argv=None):
             d = args.dirs[0 if label == "A" else 1]
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--worker", d,
-                 "--train-layers", str(args.train_layers)],
+                 "--train-layers", str(args.train_layers),
+                 "--what", args.what],
                 capture_output=True, text=True)
             lines = [ln[3:] for ln in proc.stdout.splitlines()
                      if ln.startswith("AB ")]
@@ -89,8 +112,10 @@ def main(argv=None):
             run = dict(label=label, **json.loads(lines[-1]))
             runs.append(run)
             print(json.dumps(run), flush=True)
-    for key in ("dq_ms", "dkv_ms", "step_ms", "tokens_per_s", "mfu",
-                "first_loss"):
+    keys = (("prefill_ms", "decode_ms") if args.what == "paged" else
+            ("dq_ms", "dkv_ms", "step_ms", "tokens_per_s", "mfu",
+             "first_loss"))
+    for key in keys:
         print(f"{key}: " + ", ".join(f"{r['label']} {r[key]:.6g}"
                                      for r in runs))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -33,7 +33,21 @@ Phases (any failure exits non-zero and prints no result):
      must refuse; one step under nothing_saveable (2 flash forward
      launches per layer, the same loss);
   7. profile one training step: device time by kind (matmuls, the three
-     attention kernels, the optimizer's update, other) and the idle share.
+     attention kernels, the optimizer's update, other) and the idle share;
+  8. (run after phase 4, on phase 2's parameters) the multi-tenant wave:
+     phase 2's 8 requests on an engine with chunked prefill only, first
+     without adapters (arm A), then through an `AdapterPool` of 4 slots
+     holding 5 rank-16 adapters with a host tier (a demote and a promote
+     on the card), rows 1, 3 and 5 bound to three adapters and row 7 to
+     row 1's (arm B, counters reset just before it): base rows must give
+     arm A's tokens and prefill logits exactly, adapter rows other
+     chains, the LoRA kernel 32 launches per serving call with adapter
+     rows; arm B's prefill and one decode step against the plain-version
+     engine with the same stacks; a profiled rerun of arm B; pool and
+     engine audits clean;
+  9. phase 2's wave on an engine with the merged [L, nb, bs, NKV*D] arena
+     sharing the parameters: tokens and phase-3 logits equal to the 5-D
+     engine's, through the merged wrappers only.
 Every profile must hold each launch the kernels' counters saw in it (a
 session that dropped device events is repeated).
 Prints a `{"kernels": [...]}` line, the nvidia-smi line, and last
@@ -117,7 +131,23 @@ TRAIN_WARMUP = 3
 TRAIN_STEPS = 10
 
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
+H100_F32_FLOPS = 67e12       # f32 on the CUDA cores, H100 SXM
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM
+
+# gather-LoRA kernel vs its plain version: |kernel - plain| <= LORA_REL
+# max|plain|.  Both sides take f32 products of the same inputs (bf16 rows
+# widen exactly); only the order of the sums over K and r differs.
+LORA_REL = 1e-5
+# phase 8: rank-16 adapters over Llama-2-7B's attention output, 5 of them
+# through a pool of 4 slots; factors a ~ N(0, 1/K), b ~ N(0, 1/r), so an
+# adapter row's delta is about as large as the attention output itself
+LORA_RANK = 16
+LORA_ADAPTERS = 5
+LORA_SLOTS = 4
+LORA_BLOCK_ELEMS = 4096      # the pool's residency grain (its default)
+# request index -> adapter (row 7 shares row 1's; t0 is demoted when t4
+# registers and promoted back by row 1's reservation)
+LORA_PLAN = {1: "t0", 3: "t2", 5: "t3", 7: "t0"}
 
 # each kernel as the profiler names it -> (its wrapper, whose `launches`
 # counts the wrapper's calls; the device kernels one call runs)
@@ -125,7 +155,13 @@ KERNELS = {"flash_fwd": ("flash_attention_fwd", 1),
            "flash_bwd_dq": ("flash_attention_bwd_dq", 1),
            "flash_bwd_dkv": ("flash_attention_bwd_dkv", 1),
            "paged_decode": ("paged_decode_attention", 2),  # + combine
-           "paged_prefill": ("paged_prefill_attention", 1)}
+           "paged_prefill": ("paged_prefill_attention", 1),
+           "lora_delta": ("lora_delta", 2)}                # shrink + expand
+# each row of the kernels line -> the wrapper whose counter it reads (the
+# merged wrappers launch the paged kernels on a view of their arena)
+WRAPPERS = {**{k: fn for k, (fn, _) in KERNELS.items()},
+            "merged_decode": "merged_decode_attention",
+            "merged_prefill": "merged_prefill_attention"}
 
 
 def fail(msg):
@@ -133,8 +169,8 @@ def fail(msg):
     sys.exit(1)
 
 
-def bound_ms(flops, nbytes):
-    t_ops = flops / H100_BF16_FLOPS
+def bound_ms(flops, nbytes, peak=H100_BF16_FLOPS):
+    t_ops = flops / peak
     t_mem = nbytes / H100_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops > t_mem
                                      else "bytes")
@@ -437,6 +473,186 @@ def check_prefill(torch, np, pp, dev):
                       f"bf16, pos0={pos0} n_valid={n_valid}",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain,
                 bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def _lora_ids(np, rng, S, slots):
+    """Unsorted slot ids with base rows (-1) and an empty slot (the last)."""
+    ids = rng.randint(-1, slots - 1, S).astype(np.int32)
+    ids[::5] = -1
+    return ids
+
+
+def _lora_work(np, ids, K, N, r, x_bytes):
+    """(FLOPs, bytes) one call needs for these ids: the adapter rows'
+    two products, their x rows, each used slot's factors and the ids read
+    once, every output row (the base rows' zeros too) written once."""
+    rows = int((ids >= 0).sum())
+    used = len(np.unique(ids[ids >= 0]))
+    flops = 2 * rows * (K * r + r * N)
+    nbytes = (rows * K * x_bytes + used * (K * r + r * N) * 4
+              + 4 * ids.size + 4 * ids.size * N)
+    return flops, nbytes
+
+
+def check_lora(torch, np, lm, dev):
+    """The gather-LoRA kernel against its plain version: the wave's shapes
+    (decode rows 32, prefill rows 512 and 2048; K = N = 4096, rank 16, 4
+    slots of f32 factors), then ranks 1 and 128, K and N not multiples of
+    64, f32 rows and a batch of base rows only."""
+    rng = np.random.RandomState(5)
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (S, K, N, r, slots, x dtype): the timed prefill shape first
+    cases = [(512, 4096, 4096, 16, 4, bf16), (32, 4096, 4096, 16, 4, bf16),
+             (2048, 4096, 4096, 16, 4, bf16), (512, 4096, 4096, 1, 4, bf16),
+             (512, 4096, 4096, 128, 4, bf16), (77, 1000, 777, 16, 3, bf16),
+             (64, 4096, 4096, 16, 4, f32), (48, 4096, 4096, 16, 4, None)]
+    errs, rels, main = [], [], None
+    for S, K, N, r, slots, dt in cases:
+        x = torch.randn(S, K, generator=g, device=dev, dtype=dt or bf16)
+        a = torch.randn(slots, K, r, generator=g, device=dev) / K ** 0.5
+        b = torch.randn(slots, r, N, generator=g, device=dev) / r ** 0.5
+        ids = (_lora_ids(np, rng, S, slots) if dt is not None
+               else np.full(S, -1, np.int32))
+        rows = lm.LoraRows(ids)
+        out = lm.lora_delta(x, a, b, rows)
+        ref = lm.lora_delta_reference(x, a, b, rows)
+        torch.cuda.synchronize()
+        base = torch.from_numpy(ids < 0).to(dev)
+        zeros = bool((out[base] == 0).all()
+                     and not out[base].signbit().any())
+        scale = float(ref.abs().max())
+        err = max_err(out, ref)
+        rel = err / scale if scale > 0 else err
+        print(f"  lora_delta S={S} K={K} N={N} r={r} slots={slots} x "
+              f"{str(dt)[6:] if dt else 'bf16, every row base'}: "
+              f"max|d|/max|plain|={rel:.3e} base rows exactly 0: {zeros}")
+        if not (zeros and rel <= LORA_REL):
+            fail(f"lora_delta disagrees with its plain version at "
+                 f"{(S, K, N, r, slots, dt)}: {rel} of max|plain| (tol "
+                 f"{LORA_REL}), base rows exactly 0: {zeros}")
+        errs.append(err)
+        rels.append(rel)
+        if main is None:
+            main = (x, a, b, ids, rows, S, K, N, r)
+    # the timed shapes: prefill rows (the first case) and decode rows
+    x, a, b, ids, rows, S, K, N, r = main
+    ms = time_ms(lambda: lm.lora_delta(x, a, b, rows))
+    plain = time_ms(lambda: lm.lora_delta_reference(x, a, b, rows), iters=5)
+    bms, by = bound_ms(*_lora_work(np, ids, K, N, r, 2), H100_F32_FLOPS)
+    xd = torch.randn(32, K, generator=g, device=dev, dtype=bf16)
+    ids_d = _lora_ids(np, rng, 32, 4)
+    rows_d = lm.LoraRows(ids_d)
+    dec_ms = time_ms(lambda: lm.lora_delta(xd, a, b, rows_d))
+    dec_bound = bound_ms(*_lora_work(np, ids_d, K, N, r, 2),
+                         H100_F32_FLOPS)[0]
+    print(f"  lora_delta at the decode shape (32 rows): {dec_ms:.4f} ms "
+          f"(bound {dec_bound:.4f} ms); at {S} rows {ms:.4f} ms (bound "
+          f"{bms:.4f} ms)")
+    return dict(name="lora_delta", route="cuda",
+                source="deepspeed_tpu_torch/csrc/lora_delta.cu",
+                replaces="deepspeed_tpu/ops/lora_matmul.py:125",
+                shape=f"x [{S},{K}] bf16, A [4,{K},{r}] / B [4,{r},{N}] "
+                      f"f32, ids {int((ids >= 0).sum())} adapter rows of "
+                      f"{len(np.unique(ids[ids >= 0]))} slots",
+                max_abs_err=max(errs), max_rel_err=max(rels),
+                max_rel_err_note="max|kernel - plain| / max|plain|",
+                ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=None,
+                library_note="no single PyTorch call does a per-row slot "
+                             "gather and product",
+                decode_shape=f"x [32,{K}] bf16", decode_ms=dec_ms,
+                decode_bound_ms=dec_bound)
+
+
+WAVE_LENS = [36, 63, 95, 127, 199, 310, 499, 1499]   # decode positions
+
+
+def paged_main_inputs(torch, np, dev, NH=32, NKV=32, D=128, seed=6):
+    """Phase 1's main paged shapes on one [2, 256, 64, NKV, D] bf16 arena
+    (table entries past the live blocks garbage): decode, q [8, NH, D] at
+    the wave's positions WAVE_LENS, and prefill, q [256, NH, D] at pos0
+    1024 — (q, ak, av, tables, lens) and (q, ak, av, table, pos0,
+    n_valid), layer 1 to be read."""
+    rng = np.random.RandomState(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L, nb, bs, MB = 2, 256, 64, 32
+    ak, av = _arena(torch, g, dev, L, nb, bs, NKV, D)
+    lens = np.asarray(WAVE_LENS, np.int32)
+    q = torch.randn(lens.size, NH, D, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    tables = torch.from_numpy(_garbage_tables(
+        np, rng, lens.size, MB, nb, bs, lens)).to(dev)
+    qc = torch.randn(256, NH, D, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    table = torch.from_numpy(_garbage_tables(
+        np, rng, 1, MB, nb, bs, np.asarray([1024 + 255]))[0]).to(dev)
+    return ((q, ak, av, tables, torch.from_numpy(lens).to(dev)),
+            (qc, ak, av, table, 1024, 256))
+
+
+def check_merged(torch, np, pa, pp, pm, dev):
+    """The merged-arena wrappers: bit for bit the 5-D kernels on the same
+    bytes, and within the paged limits of their plain versions; timed at
+    phase 1's main decode and prefill shapes."""
+    errs, main = [], None
+    # (NH, NKV, D): the serving shape first, then GQA and D 64
+    for NH, NKV, D in ((32, 32, 128), (32, 8, 128), (8, 2, 64)):
+        dec, pre = paged_main_inputs(torch, np, dev, NH, NKV, D)
+        ak, av = (t.view(*t.shape[:3], NKV * D) for t in dec[1:3])
+        mdec, mpre = (dec[0], ak, av, *dec[3:]), (pre[0], ak, av, *pre[3:])
+        out = pm.merged_decode_attention(*mdec, layer_idx=1)
+        ref = pm.merged_decode_reference(*mdec, layer_idx=1)
+        outc = pm.merged_prefill_attention(*mpre, layer_idx=1)
+        refc = pm.merged_prefill_reference(*mpre, layer_idx=1)
+        same = (torch.equal(out, pa.paged_decode_attention(*dec,
+                                                            layer_idx=1)),
+                torch.equal(outc, pp.paged_prefill_attention(*pre,
+                                                             layer_idx=1)))
+        torch.cuda.synchronize()
+        e = (max_err(out, ref), max_err(outc, refc))
+        print(f"  merged NH={NH} NKV={NKV} D={D}: decode == 5-D kernel: "
+              f"{same[0]}, max|d plain|={e[0]:.3e}; prefill == 5-D "
+              f"kernel: {same[1]}, max|d plain|={e[1]:.3e}")
+        if not (all(same) and kernel_close(out, ref)
+                and kernel_close(outc, refc)):
+            fail(f"merged wrappers at {(NH, NKV, D)}: equal to the 5-D "
+                 f"kernels {same}, plain differences {e} (tol {TOL_TEXT})")
+        errs.append(e)
+        if main is None:
+            main = (mdec, mpre, NH, NKV, D)
+    (q, ak, av, tables, lens), mpre, NH, NKV, D = main
+    L, nb, bs, M = ak.shape
+    B, MB = q.shape[0], tables.shape[1]
+    keys = int(np.sum(np.asarray(WAVE_LENS) + 1))
+    dec = dict(ms=time_ms(lambda: pm.merged_decode_attention(
+                   *main[0], layer_idx=1)),
+               plain_ms=time_ms(lambda: pm.merged_decode_reference(
+                   *main[0], layer_idx=1)))
+    dec["bound_ms"], dec["bound_by"] = bound_ms(
+        4 * NH * D * keys, 2 * keys * NKV * D * 2 + 2 * 2 * B * NH * D
+        + 4 * B * MB + 4 * B)
+    pre = dict(ms=time_ms(lambda: pm.merged_prefill_attention(
+                   *mpre, layer_idx=1)),
+               plain_ms=time_ms(lambda: pm.merged_prefill_reference(
+                   *mpre, layer_idx=1)))
+    pre["bound_ms"], pre["bound_by"] = bound_ms(
+        *_prefill_work(256, NH, NKV, D, 1024, 256, None))
+    arena = f"arena [{L},{nb},{bs},{M}] bf16"
+    return [dict(name="merged_decode", route="cuda",
+                 source="deepspeed_tpu_torch/csrc/paged_decode.cu",
+                 wrapper="deepspeed_tpu_torch/ops/paged_merged.py",
+                 replaces="deepspeed_tpu/ops/paged_merged.py:202",
+                 shape=f"q [{B},{NH},{D}] {arena}, lens {WAVE_LENS}",
+                 max_abs_err=max(e[0] for e in errs), **dec,
+                 library_ms=None),
+            dict(name="merged_prefill", route="cuda",
+                 source="deepspeed_tpu_torch/csrc/paged_prefill.cu",
+                 wrapper="deepspeed_tpu_torch/ops/paged_merged.py",
+                 replaces="deepspeed_tpu/ops/paged_merged.py:400",
+                 shape=f"q [256,{NH},{D}] {arena}, pos0=1024 n_valid=256",
+                 max_abs_err=max(e[1] for e in errs), **pre,
+                 library_ms=None)]
 
 
 def _flash_bwd_work(B, S, NH, NKV, D, nmm, n_out_kv):
@@ -887,25 +1103,48 @@ def serve(torch, np, layers, counters):
     return eng, prompts, outs, res
 
 
+def prefill_and_step(np, e, prompts, outs, bind=None):
+    """The wave's prefill through put/step, then one decode step fed the
+    served run's first tokens `outs[i][0]`: ({uid: first-token logits},
+    {uid: second-token logits}).  `bind` ({uid: slot}) binds adapters
+    first; every sequence is flushed at the end."""
+    uids = list(range(len(prompts)))
+    for u, slot in (bind or {}).items():
+        e.set_adapter(u, slot)
+    e.put(uids, prompts)
+    while any(e.query(u) is None for u in uids):
+        e.step()
+    first = {u: e.query(u).copy() for u in uids}
+    e.put(uids, [np.asarray([int(o[0])], np.int32) for o in outs])
+    second = {u: e.query(u).copy() for u in uids}
+    for u in uids:
+        e.flush(u)
+    return first, second
+
+
+def logit_differences(np, got, want):
+    """max |dlogit| / max |logit| for each request, first and second
+    token: ([first-token values], [second-token values])."""
+    rels = ([], [])
+    for idx in (0, 1):
+        for u in sorted(want[idx]):
+            a, b = got[idx][u], want[idx][u]
+            if not (np.isfinite(a).all() and np.isfinite(b).all()):
+                fail(f"logits of request {u} not finite")
+            rels[idx].append(float(np.abs(a - b).max() / np.abs(b).max()))
+    return rels
+
+
 def compare_plain(torch, np, eng, prompts, outs):
     """Prefill the wave and run one decode step through the kernels and
-    through the plain versions; compare the logits."""
+    through the plain versions; compare the logits.  Returns (the
+    comparison, the kernel engine's logits)."""
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
     plain = InferenceEngineV2(eng.cfg, params=eng.params, config=eng.config,
                               device="cuda", plain_kernels=True)
-    logits = {}
-    for name, e in (("kernel", eng), ("plain", plain)):
-        uids = list(range(len(prompts)))
-        e.put(uids, prompts)
-        while any(e.query(u) is None for u in uids):
-            e.step()
-        first = {u: e.query(u).copy() for u in uids}
-        # one decode step, both engines fed the served run's first tokens
-        e.put(uids, [np.asarray([int(o[0])], np.int32) for o in outs])
-        second = {u: e.query(u).copy() for u in uids}
-        for u in uids:
-            e.flush(u)
-        logits[name] = (first, second)
+    logits = {name: prefill_and_step(np, e, prompts, outs)
+              for name, e in (("kernel", eng), ("plain", plain))}
+    del plain
     worst, agree = 0.0, 0
     for which, idx in (("first-token", 0), ("second-token", 1)):
         rels = []
@@ -931,7 +1170,8 @@ def compare_plain(torch, np, eng, prompts, outs):
     if worst > E2E_REL_TOL:
         fail(f"end-to-end logits differ by {worst} relative "
              f"(tol {E2E_REL_TOL})")
-    return dict(e2e_max_rel_dlogit=worst, greedy_agreement=rate)
+    return dict(e2e_max_rel_dlogit=worst, greedy_agreement=rate), \
+        logits["kernel"]
 
 
 def profile_wave(torch, eng, prompts, served_wall, counters):
@@ -966,6 +1206,267 @@ def profile_wave(torch, eng, prompts, served_wall, counters):
     return res
 
 
+# ----------------------------------------------------------------------
+# phases 8 and 9: multi-tenant LoRA serving and the merged arena
+# ----------------------------------------------------------------------
+def lora_factors(np, cfg, seed=8):
+    """LORA_ADAPTERS rank-LORA_RANK adapters over the attention output,
+    {"t<i>": (a [L, K, r] ~ N(0, 1/K), b [L, r, H] ~ N(0, 1/r))}, f32,
+    from a seed."""
+    rng = np.random.default_rng(seed)
+    L, K, H = cfg.num_layers, cfg.num_heads * cfg.head_dim, cfg.hidden_size
+    r = LORA_RANK
+    return {f"t{i}": (rng.standard_normal((L, K, r), np.float32)
+                      / np.float32(K ** 0.5),
+                      rng.standard_normal((L, r, H), np.float32)
+                      / np.float32(r ** 0.5))
+            for i in range(LORA_ADAPTERS)}
+
+
+def count_serving_calls(calls):
+    """Count the engine's serving calls — each `prefill_chunks` and each
+    decode step's `_decode_core` — and those that carry adapter rows
+    (`lora` given), into `calls`.  Returns a function that restores
+    them."""
+    from deepspeed_tpu_torch.inference.v2 import engine_v2, ragged_ops
+    saved = [(engine_v2, "prefill_chunks", engine_v2.prefill_chunks),
+             (ragged_ops, "_decode_core", ragged_ops._decode_core)]
+
+    def wrap(fn):
+        def counted_call(*args, **kw):
+            calls["all"] += 1
+            calls["with_adapters"] += kw.get("lora") is not None
+            return fn(*args, **kw)
+        return counted_call
+
+    for mod, name, fn in saved:
+        setattr(mod, name, wrap(fn))
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return restore
+
+
+def recorded_wave(eng, prompts):
+    """generate_batch over the wave, recording each request's first
+    prefill logits: (outputs, {uid: logits})."""
+    logits = {}
+    step = eng.step
+
+    def recording_step(*args, **kw):
+        out = step(*args, **kw)
+        for uid, row in out.items():
+            logits.setdefault(uid, row.copy())
+        return out
+
+    eng.step = recording_step
+    try:
+        outs = eng.generate_batch(prompts, max_new_tokens=MAX_NEW)
+    finally:
+        del eng.step
+    return outs, logits
+
+
+def serve_tenants(torch, np, cfg, params, config, prompts, counters, lm):
+    """Phase 8 (see the module docstring)."""
+    from dataclasses import replace
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.serving.tenancy import AdapterPool
+    # both arms plan the same chunks: adapter rows never take prefill_full
+    ecfg = replace(config, full_prompt_prefill=False)
+    eng = InferenceEngineV2(cfg, params=params, config=ecfg, device="cuda")
+    L, K, H = cfg.num_layers, cfg.num_heads * cfg.head_dim, cfg.hidden_size
+
+    def timed_wave():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, logits = recorded_wave(eng, prompts)
+        torch.cuda.synchronize()
+        return outs, logits, time.perf_counter() - t0
+
+    for c in counters:
+        c.launches = 0
+    outs_a, logits_a, wall_a = timed_wave()
+    launches_a = {c.__name__: c.launches for c in counters}
+
+    t0 = time.perf_counter()
+    factors = lora_factors(np, cfg)
+    per_adapter = L * -(-(K * LORA_RANK + LORA_RANK * H)
+                        // LORA_BLOCK_ELEMS)
+    pool = AdapterPool(eng, LORA_SLOTS * per_adapter,
+                       block_elems=LORA_BLOCK_ELEMS,
+                       host_blocks=2 * per_adapter)
+    for aid, (a, b) in factors.items():
+        pool.register(aid, a, b)
+    slots = {u: pool.reserve(aid) for u, aid in LORA_PLAN.items()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"phase 8: {LORA_ADAPTERS} rank-{LORA_RANK} adapters (a ~ N(0, "
+          f"1/K), b ~ N(0, 1/r), f32) through a {pool.slots}-slot pool "
+          f"({per_adapter} blocks an adapter, host tier "
+          f"{pool.host_blocks}): demotes {pool.demotes}, promotes "
+          f"{pool.promotes}; rows {sorted(LORA_PLAN)} bound to "
+          f"{[LORA_PLAN[u] for u in sorted(LORA_PLAN)]} in slots "
+          f"{[slots[u] for u in sorted(LORA_PLAN)]}; set-up {setup_s:.1f} s")
+    if pool.demotes < 1 or pool.promotes < 1:
+        fail(f"the pool made {pool.demotes} demotes and {pool.promotes} "
+             f"promotes; want at least one of each")
+
+    calls = {"all": 0, "with_adapters": 0}
+    restore = count_serving_calls(calls)
+    try:
+        for u, slot in slots.items():
+            eng.set_adapter(u, slot)
+        for c in counters:
+            c.launches = 0
+        outs_b, logits_b, wall = timed_wave()
+    finally:
+        restore()
+    launches = {c.__name__: c.launches for c in counters}
+    # arm A again, the pool attached but no row bound: the walls in turns
+    outs_a2, _, wall_a2 = timed_wave()
+    if [o.tolist() for o in outs_a2] != [o.tolist() for o in outs_a]:
+        fail("arm A's rerun (pool attached, no binding) changed tokens")
+    base = [i for i in range(len(prompts)) if i not in LORA_PLAN]
+    same_tokens = [outs_b[i].tolist() == outs_a[i].tolist() for i in base]
+    same_logits = [torch.equal(torch.from_numpy(logits_b[i]),
+                               torch.from_numpy(logits_a[i])) for i in base]
+    moved = [outs_b[u].tolist() != outs_a[u].tolist() for u in LORA_PLAN]
+    want = L * calls["with_adapters"]
+    print(f"phase 8: arm A (no pool) in {wall_a:.3f} s, launches "
+          f"{launches_a}; arm B in {wall:.3f} s, launches {launches}; arm "
+          f"A again (pool attached, nothing bound) in {wall_a2:.3f} s; "
+          f"serving calls "
+          f"{calls['all']} ({calls['with_adapters']} with adapter rows: "
+          f"want {want} LoRA launches); base rows {base}: tokens equal "
+          f"{same_tokens}, prefill logits equal {same_logits}; adapter "
+          f"rows' chains differ from arm A: {moved}")
+    if launches_a.get("lora_delta", 0) != 0:
+        fail("arm A (no adapters) launched the LoRA kernel")
+    if not (all(same_tokens) and all(same_logits)):
+        fail("base rows differ between the arms")
+    if not all(moved):
+        fail("an adapter row gave the base model's chain")
+    if calls["with_adapters"] == 0 or launches["lora_delta"] != want:
+        fail(f"lora_delta launched {launches['lora_delta']} times, want "
+             f"{L} per serving call with adapter rows ({want})")
+    for name, n in launches.items():
+        if n <= 0 and name != "flash_attention_fwd":
+            fail(f"kernel {name} was never launched in arm B")
+
+    # arm B's prefill and one decode step against the plain versions,
+    # the same adapter stacks attached to both engines
+    plain = InferenceEngineV2(cfg, params=params, config=ecfg,
+                              device="cuda", plain_kernels=True)
+    plain.attach_lora(eng._lora)
+    got = prefill_and_step(np, eng, prompts, outs_b, bind=slots)
+    before = lm.lora_delta.launches
+    want_logits = prefill_and_step(np, plain, prompts, outs_b, bind=slots)
+    if lm.lora_delta.launches != before:
+        fail("the plain_kernels engine launched the LoRA kernel")
+    del plain
+    torch.cuda.empty_cache()
+    rels = logit_differences(np, got, want_logits)
+    worst = max(max(r) for r in rels)
+    print(f"phase 8: kernel vs plain engine, adapters bound: max |dlogit| "
+          f"/ max |logit| by request, first token "
+          f"{[float(f'{r:.3e}') for r in rels[0]]}, second token "
+          f"{[float(f'{r:.3e}') for r in rels[1]]} (tol {E2E_REL_TOL})")
+    if worst > E2E_REL_TOL:
+        fail(f"multi-tenant logits differ by {worst} relative")
+
+    # the device time of arm B's wave by kind, the LoRA kernel's share
+    prof_launches = {}
+
+    def body():
+        for u, slot in slots.items():
+            eng.set_adapter(u, slot)
+        eng.generate_batch(prompts, max_new_tokens=MAX_NEW)
+
+    events = profiled(counted(counters, body, prof_launches),
+                      holds_launches(prof_launches),
+                      what="kernels of the multi-tenant wave")
+    by_kind = {}
+    for e in events:
+        by_kind[_kind(e.name)] = (by_kind.get(_kind(e.name), 0.0)
+                                  + e.time_range.elapsed_us() / 1e3)
+    busy = sum(by_kind.values())
+    lora_ms = by_kind.get("lora_delta", 0.0)
+    print(f"phase 8: profiled arm B: device time {busy:.1f} ms of "
+          f"{wall * 1e3:.1f} ms wall (idle share "
+          f"{max(0.0, 1 - busy / (wall * 1e3)):.3f}); LoRA kernel "
+          f"{lora_ms:.2f} ms over {prof_launches['lora_delta']} launches "
+          f"({lora_ms / busy:.4f} of device time); by kind (ms) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+              by_kind.items(), key=lambda kv: -kv[1])))
+
+    for aid in LORA_PLAN.values():
+        pool.release(aid)
+    audit = pool.audit()
+    blocks = eng.audit_blocks()
+    if pool._pins or eng._adapter_slots:
+        fail(f"pins {pool._pins} or bindings {eng._adapter_slots} remain")
+    print(f"phase 8: pool audit {audit}; engine audit {blocks}; pool "
+          f"{pool.stats()}")
+    res = dict(wall_s=wall, wall_arm_a_s=[wall_a, wall_a2],
+               launches=launches,
+               launches_arm_a=launches_a,
+               serving_calls=calls, e2e_rel_dlogit=rels,
+               e2e_max_rel_dlogit=worst, device_ms=busy,
+               idle_share=max(0.0, 1 - busy / (wall * 1e3)),
+               ms_by_kind=by_kind, lora_ms=lora_ms,
+               lora_share=lora_ms / busy, pool=pool.stats(),
+               pool_audit=audit)
+    del eng, pool
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_merged(torch, np, cfg, params, config, prompts, outs, logits,
+                 counters):
+    """Phase 9: phase 2's wave on a merged-arena engine sharing the
+    parameters; tokens and phase-3 logits must equal the 5-D engine's."""
+    from dataclasses import replace
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    eng = InferenceEngineV2(cfg, params=params,
+                            config=replace(config, arena_merged=True),
+                            device="cuda")
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = eng.generate_batch(prompts, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    first, second = prefill_and_step(np, eng, prompts, outs)
+    same_tokens = [g.tolist() == o.tolist() for g, o in zip(got, outs)]
+    same_logits = [torch.equal(torch.from_numpy(a[u]),
+                               torch.from_numpy(b[u]))
+                   for a, b in ((first, logits[0]), (second, logits[1]))
+                   for u in sorted(b)]
+    eng.audit_blocks()
+    print(f"phase 9: merged arena {tuple(eng.arena['k'].shape)} x2: wave "
+          f"in {wall:.3f} s, launches {launches}; tokens equal the 5-D "
+          f"engine's: {same_tokens}; first- and second-token logits "
+          f"equal: {same_logits}")
+    if eng.arena["k"].dim() != 4:
+        fail("arena_merged=True did not give a 4-D arena")
+    if not (all(same_tokens) and all(same_logits)):
+        fail("the merged-arena wave differs from the 5-D engine's")
+    if (launches["merged_decode_attention"] <= 0
+            or launches["merged_prefill_attention"] <= 0):
+        fail(f"a merged wrapper was never launched: {launches}")
+    if launches["paged_decode_attention"] or \
+            launches["paged_prefill_attention"]:
+        fail(f"the merged engine went through the 5-D wrappers: "
+             f"{launches}")
+    del eng
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, launches=launches)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -987,7 +1488,9 @@ def main(argv=None):
     import numpy as np
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import lora_matmul as lm
     from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import paged_merged as pm
     from deepspeed_tpu_torch.ops import paged_prefill as pp
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1017,11 +1520,14 @@ def main(argv=None):
 
     # phase 1
     print(f"phase 1: kernels against their plain versions (forward bf16 "
-          f"tol {TOL_TEXT}; backward tol {BWD_TOL_TEXT})")
+          f"tol {TOL_TEXT}; backward tol {BWD_TOL_TEXT}; LoRA tol "
+          f"{LORA_REL} max|plain|)")
     kernels = [check_flash(torch, fa, "cuda"),
                *check_flash_bwd(torch, fa, "cuda"),
                check_decode(torch, np, pa, "cuda"),
-               check_prefill(torch, np, pp, "cuda")]
+               check_prefill(torch, np, pp, "cuda"),
+               check_lora(torch, np, lm, "cuda"),
+               *check_merged(torch, np, pa, pp, pm, "cuda")]
 
     # phase 2
     serve_counters = [fa.flash_attention_fwd, pa.paged_decode_attention,
@@ -1030,12 +1536,26 @@ def main(argv=None):
                                        serve_counters)
 
     # phase 3
-    e2e = compare_plain(torch, np, eng, prompts, outs)
+    e2e, kernel_logits = compare_plain(torch, np, eng, prompts, outs)
 
     # phase 4
     prof = profile_wave(torch, eng, prompts, served["wall_s"],
                         serve_counters)
+    cfg, params, config = eng.cfg, eng.params, eng.config
     del eng
+    torch.cuda.empty_cache()
+
+    # phase 8 (phase 2's parameters, before the training phases)
+    tenants = serve_tenants(torch, np, cfg, params, config, prompts,
+                            serve_counters + [lm.lora_delta], lm)
+
+    # phase 9
+    merged = serve_merged(
+        torch, np, cfg, params, config, prompts, outs, kernel_logits,
+        [pm.merged_decode_attention, pm.merged_prefill_attention,
+         pa.paged_decode_attention, pp.paged_prefill_attention,
+         fa.flash_attention_fwd])
+    del params
     torch.cuda.empty_cache()
 
     # phase 5
@@ -1060,15 +1580,20 @@ def main(argv=None):
     remat = remat_launches(torch, np, args.train_layers, train_counters,
                            trained["warmup_losses"][0])
 
+    # each path's run: the serving wave (phase 2), the training steps
+    # (phase 5), arm B of the multi-tenant wave (phase 8), the merged
+    # wave (phase 9)
+    paths = (("serve", served["launches"]), ("train", trained["launches"]),
+             ("tenants", tenants["launches"]), ("merged", merged["launches"]))
     for k in kernels:
-        fn = KERNELS[k["name"]][0]
-        by_path = {path: launches[fn] for path, launches in
-                   (("serve", served["launches"]),
-                    ("train", trained["launches"])) if fn in launches}
+        fn = WRAPPERS[k["name"]]
+        by_path = {path: launches[fn] for path, launches in paths
+                   if fn in launches}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
 
     record = dict(kernels=kernels, serve=served, e2e=e2e, profile=prof,
+                  tenants=tenants, merged=merged,
                   train=trained, train_profile=tprof, train_plain=tplain,
                   train_control=control, remat=remat,
                   device=dict(kind=kind, nvidia_smi=smi,

@@ -11,7 +11,8 @@ and as the kernel's check.
 
 Entry points:
 - serving: `inference.v2.build_engine(arch, size, device="cuda")` and
-  `InferenceEngineV2.put / step / generate_batch`;
+  `InferenceEngineV2.put / step / generate_batch`, with multi-tenant LoRA
+  adapters through `serving.tenancy.AdapterPool` and `set_adapter`;
 - training: `initialize(model=models.Transformer(gpt2_config(...)),
   config={...})` and `TrainEngine.train_batch(batch)`.
 """
@@ -20,4 +21,4 @@ from .runtime.engine import TrainEngine, initialize
 
 __all__ = ["initialize", "TrainEngine", "Transformer", "gpt2_config"]
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

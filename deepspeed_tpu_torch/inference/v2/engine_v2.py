@@ -12,15 +12,23 @@ the two engines' block tables and host fetches comparable.
 
 The model runs on `device` ("cuda" by default; there is no silent CPU
 fallback).  The attention of each serving call goes through the port's
-CUDA kernels (flash forward, paged prefill, paged decode) for tensors on
-the card and through their plain PyTorch versions on the CPU;
-`plain_kernels=True` selects the plain versions on the card too, for
-end-to-end comparisons, the way the training engine's option does: it
-sets the model config's `attn_impl` to "jnp".
+CUDA kernels (flash forward, paged prefill, paged decode — or their merged
+arena wrappers — and the gather-LoRA epilogue) for tensors on the card and
+through their plain PyTorch versions on the CPU; `plain_kernels=True`
+selects the plain versions on the card too, for end-to-end comparisons,
+the way the training engine's option does: it sets the model config's
+`attn_impl` to "jnp".
 
-Not carried yet, each refused by name: tensor parallelism, merged arenas,
-prefix cache, LoRA adapters, expert paging, seeded sampling streams,
-draft-and-verify and multi-step groups.
+Multi-LoRA serving follows the reference's contract: an adapter pool
+(`serving.tenancy.AdapterPool`) attaches the stacked factors
+(`attach_lora`), each sequence is bound to a pool slot before its first
+prefill token (`set_adapter`), and base rows and adapter rows share every
+serving call.  KV block IO (`read_kv_block(s)` / `write_kv_block(s)`)
+moves whole arena blocks to and from the host.
+
+Not carried yet, each refused by name: tensor parallelism, prefix cache,
+expert paging, seeded sampling streams, draft-and-verify and multi-step
+groups.
 """
 from __future__ import annotations
 
@@ -53,7 +61,8 @@ class RaggedInferenceEngineConfig:
     max_prefill_tokens_per_step: int = 512
     # tokens sampled per decode-burst call (generate paths)
     decode_burst: int = 8
-    # "auto" keeps the 5-D arena on a GPU; True (merged) is refused
+    # "auto" keeps the 5-D arena on a GPU; True stores the reference's
+    # merged [L, nb, bs, NKV*D] layout (the same bytes)
     arena_merged: object = "auto"
     # > 1 is refused: tensor-parallel serving is not ported yet
     tensor_parallel_size: int = 1
@@ -133,15 +142,16 @@ class InferenceEngineV2:
         self._rng = torch.Generator(device=self.device).manual_seed(0)
         # host-sync ledger: every explicit device->host fetch bumps it
         self.profile: Dict[str, int] = {"d2h_fetches": 0}
+        # multi-LoRA serving: the stacked factors the adapter pool
+        # attaches, and each sequence's pool slot.  Batches with no
+        # adapter row run exactly the single-tenant computation.
+        self._lora = None
+        self._adapter_slots: Dict[int, int] = {}
 
     # -- features the port does not carry yet ----------------------------
     def enable_prefix_cache(self, *args, **kwargs):
         raise NotImplementedError(
             "prefix KV cache is not carried by the PyTorch port yet")
-
-    def attach_lora(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LoRA adapters are not carried by the PyTorch port yet")
 
     def enable_expert_paging(self, *args, **kwargs):
         raise NotImplementedError(
@@ -154,7 +164,7 @@ class InferenceEngineV2:
             "yet (decode_burst_step serves the burst path)")
 
     supports_per_row_sampling = True
-    supports_lora = False
+    supports_lora = True
     supports_draft_verify = False
     supports_seeded_sampling = False
     supports_multi_step = False
@@ -165,6 +175,130 @@ class InferenceEngineV2:
         """Block-conservation audit (DSStateManager.audit); raises on a
         leak."""
         return self.state.audit()
+
+    # -- multi-LoRA adapter serving (serving/tenancy) ---------------------
+    def attach_lora(self, lora) -> None:
+        """Attach (None = detach) the stacked multi-LoRA factors of the
+        serving calls' gather-LoRA epilogue: {"a": [L, slots, NH*D, r],
+        "b": [L, slots, r, H]} f32 tensors on the engine's device, over
+        the attention output projection (ops/lora_matmul).  The adapter
+        pool owns the slot tensors and re-attaches after every slot
+        change; the engine holds the current view."""
+        if lora is not None:
+            a, b = lora["a"], lora["b"]
+            if (a.ndim != 4 or b.ndim != 4 or a.shape[0] != b.shape[0]
+                    or a.shape[1] != b.shape[1] or a.shape[3] != b.shape[2]):
+                raise ValueError(
+                    f"attach_lora needs a [L,slots,K,r] / [L,slots,r,H] "
+                    f"stack, got a {tuple(a.shape)}, b {tuple(b.shape)}")
+            if a.shape[0] != self.cfg.num_layers:
+                raise ValueError(
+                    f"attach_lora stack covers {a.shape[0]} layers, "
+                    f"model has {self.cfg.num_layers}")
+        self._lora = lora
+
+    def set_adapter(self, uid: int, slot: int) -> None:
+        """Bind sequence `uid`'s batch rows to LoRA pool slot `slot`
+        (< 0 = base model).  The binding must land before the sequence's
+        first prefill token and holds until flush."""
+        if self._lora is None and slot >= 0:
+            raise RuntimeError(
+                f"set_adapter({uid}, {slot}) with no LoRA stack "
+                f"attached — attach_lora first (the adapter pool owns "
+                f"this ordering)")
+        if slot >= 0 and uid in self.state.seqs \
+                and self.state.seqs[uid].seen_tokens > 0:
+            raise RuntimeError(
+                f"set_adapter({uid}, {slot}) after the sequence began "
+                f"prefill — the binding must cover every token")
+        if slot < 0:
+            self._adapter_slots.pop(uid, None)
+        else:
+            self._adapter_slots[uid] = int(slot)
+
+    def _batch_adapter_ids(self, descs, n: int):
+        """[n] int32 pool slots of a staged batch (row i = descs[i], -1 =
+        base row), or None when no row carries an adapter: such batches
+        run exactly the single-tenant computation."""
+        if self._lora is None or not self._adapter_slots:
+            return None
+        aids = np.full(n, -1, np.int32)
+        for i, d in enumerate(descs):
+            aids[i] = self._adapter_slots.get(d.uid, -1)
+        return aids if (aids >= 0).any() else None
+
+    def _lora_kw(self, descs, n: int) -> Dict:
+        aids = self._batch_adapter_ids(descs, n)
+        return {} if aids is None else dict(adapter_ids=aids,
+                                            lora=self._lora)
+
+    # -- arena block IO ----------------------------------------------------
+    def _check_blocks(self, blocks) -> List[int]:
+        blocks = [int(b) for b in blocks]
+        for b in blocks:
+            if not 0 <= b < self.config.num_blocks:
+                raise ValueError(f"bad block id {b}")
+        return blocks
+
+    def _pages_in(self, name: str, pages, want) -> torch.Tensor:
+        """Migrated pages (numpy arrays or tensors) checked against the
+        arena's layout and staged on the device in the arena's dtype."""
+        got = tuple(pages.shape)
+        if got != want:
+            # a wrong-shaped page would broadcast into the arena slot
+            raise ValueError(
+                f"migrated {name.upper()} pages of shape {got} do not fit "
+                f"this arena (expected {want}): replicas must share the "
+                f"model and arena layout")
+        t = pages if isinstance(pages, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(pages))
+        return t.to(device=self.device, dtype=self.arena["k"].dtype)
+
+    def read_kv_block(self, block: int) -> tuple:
+        """Host copies (CPU tensors) of one arena block's K/V pages,
+        [num_layers, block_size, ...minor] each: two explicit fetches."""
+        (block,) = self._check_blocks([block])
+        k = self.arena["k"][:, block].cpu()
+        v = self.arena["v"][:, block].cpu()
+        self.profile["d2h_fetches"] += 2
+        return k, v
+
+    def write_kv_block(self, block: int, k, v) -> None:
+        """Adopt one migrated block's K/V pages into the arena.  The
+        caller must own the block (a fresh allocator lease): writing a
+        block a live sequence reads would corrupt its KV."""
+        (block,) = self._check_blocks([block])
+        shape = self.arena["k"].shape         # [L, blocks, bs, ...minor]
+        want = (shape[0], self.config.block_size) + tuple(shape[3:])
+        k, v = self._pages_in("k", k, want), self._pages_in("v", v, want)
+        self.arena["k"][:, block] = k
+        self.arena["v"][:, block] = v
+
+    def read_kv_blocks(self, blocks) -> tuple:
+        """Batched `read_kv_block`: host copies of a span's pages,
+        [num_layers, n_blocks, block_size, ...minor] each, one gather and
+        one fetch per page tensor."""
+        idx = torch.as_tensor(self._check_blocks(blocks), dtype=torch.long,
+                              device=self.device)
+        k = self.arena["k"][:, idx].cpu()
+        v = self.arena["v"][:, idx].cpu()
+        self.profile["d2h_fetches"] += 2
+        return k, v
+
+    def write_kv_blocks(self, blocks, k, v) -> None:
+        """Batched `write_kv_block`: one scatter per page tensor.  The
+        span's block ids must be distinct (a duplicated scatter index
+        would keep only one page)."""
+        blocks = self._check_blocks(blocks)
+        if len(set(blocks)) != len(blocks):
+            raise ValueError(f"duplicate block ids in span {blocks}")
+        shape = self.arena["k"].shape
+        want = (shape[0], len(blocks),
+                self.config.block_size) + tuple(shape[3:])
+        k, v = self._pages_in("k", k, want), self._pages_in("v", v, want)
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
+        self.arena["k"][:, idx] = k
+        self.arena["v"][:, idx] = v
 
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
         """The engine's one way to read device data on the host."""
@@ -240,7 +374,10 @@ class InferenceEngineV2:
                 if not (d.seen_tokens == 0 and not d.done
                         and 0 < len(d.prompt) <= full_budget - sum(
                             len(f.prompt) for f in fresh)
-                        and len(fresh) < self.config.max_seqs):
+                        and len(fresh) < self.config.max_seqs
+                        # adapter rows need the chunked path's gather-
+                        # LoRA epilogue (prefill_full has none)
+                        and self._adapter_slots.get(d.uid, -1) < 0):
                     continue
                 bucket = 128
                 while bucket < len(d.prompt):
@@ -320,7 +457,8 @@ class InferenceEngineV2:
                 NC *= 2
             logits, self.arena = prefill_chunks(
                 self.cfg, self.params, self.arena, tokens[:NC], pos0s[:NC],
-                nvalids[:NC], tables[:NC], active[:NC])
+                nvalids[:NC], tables[:NC], active[:NC],
+                **self._lora_kw([d for d, _, _ in planned], NC))
             logits = self._fetch(logits)
             for i, (d, start, n) in enumerate(planned):
                 d.seen_tokens = start + n
@@ -345,7 +483,7 @@ class InferenceEngineV2:
                 active[i] = True
             logits, self.arena = decode_step(
                 self.cfg, self.params, self.arena, tokens, lens, tables,
-                active)
+                active, **self._lora_kw(batch, B))
             logits = self._fetch(logits)
             for i, d in enumerate(batch):
                 d.seen_tokens += 1
@@ -424,7 +562,7 @@ class InferenceEngineV2:
             self.cfg, self.params, self.arena,
             torch.from_numpy(tokens).to(self.device), lens, tables, active,
             rng, temp, max_lens, topk_vec, n_steps=n_steps, mode=mode,
-            top_k=int(top_k))
+            top_k=int(top_k), **self._lora_kw(batch, B))
         toks = self._fetch(toks)   # the once-per-burst read
         out: Dict[int, np.ndarray] = {}
         for i, d in enumerate(batch):
@@ -462,6 +600,7 @@ class InferenceEngineV2:
     def flush(self, uid: int) -> None:
         self.state.flush(uid)
         self._last_logits.pop(uid, None)
+        self._adapter_slots.pop(uid, None)
 
     def query(self, uid: int) -> Optional[np.ndarray]:
         return self._last_logits.get(uid)

@@ -2,9 +2,9 @@
 paged arena, dense full-prompt prefill, and batched paged decode.
 
 Counterpart of `deepspeed_tpu/inference/v2/ragged_ops.py`, with the same
-function names, arguments and arena layout ([L, num_blocks, block_size,
-NKV, D] per tensor).  Where the reference differs by nature of JAX, the
-port does this instead:
+function names, arguments and arena layouts ([L, num_blocks, block_size,
+NKV, D] per tensor, or the merged [L, num_blocks, block_size, NKV*D]).
+Where the reference differs by nature of JAX, the port does this instead:
 
 - The reference's programs are pure and donate the arena; here the arena
   dict's tensors are updated IN PLACE (one `index_put_` per layer at
@@ -20,10 +20,13 @@ port does this instead:
 - The dense-gather attention branches are gone: each kernel's plain
   PyTorch version serves tensors on the CPU, and `cfg.attn_impl="jnp"`
   selects it on the card for comparisons (never by default).
+- The multi-LoRA epilogue's adapter ids are host data too: each serving
+  call groups its rows by slot once (`ops.lora_matmul.LoraRows`) for all
+  its layers.
 
-Scope: the 5-D arena and the pre-norm sequential dense families (the
-config refuses the rest).  No LoRA, tensor parallelism, seeded streams,
-grammar masks, drafts or multi-step groups.
+Scope: the pre-norm sequential dense families (the config refuses the
+rest).  No tensor parallelism, seeded streams, grammar masks, drafts or
+multi-step groups.
 """
 from __future__ import annotations
 
@@ -35,8 +38,13 @@ import torch
 from ...models.transformer import (TransformerConfig, _dense, _embed_in,
                                    _head_hidden, _mlp_block, _norm, _rope)
 from ...ops.attention import causal_attention
+from ...ops.lora_matmul import LoraRows, lora_delta, lora_delta_reference
 from ...ops.paged_attention import (paged_decode_attention,
                                     paged_decode_reference)
+from ...ops.paged_merged import (merged_decode_attention,
+                                 merged_decode_reference,
+                                 merged_prefill_attention,
+                                 merged_prefill_reference)
 from ...ops.paged_prefill import (paged_prefill_attention,
                                   paged_prefill_reference)
 
@@ -47,20 +55,20 @@ __all__ = ["init_arena", "prefill_chunks", "prefill_full",
 
 def init_arena(cfg: TransformerConfig, num_blocks: int, block_size: int,
                device, merged="auto") -> Dict[str, torch.Tensor]:
-    """Zeroed KV arena {"k", "v"}, each [L, num_blocks, block_size, NKV, D]
-    in cfg.dtype on `device`.  The reference's merged [L, nb, bs, NKV*D]
-    layout exists to dodge the TPU's 128-lane padding of a narrow head dim;
-    a GPU does not pad, so "auto" always keeps the 5-D layout and
-    merged=True is refused."""
-    if merged is True:
-        raise NotImplementedError(
-            "merged [L, nb, bs, NKV*D] KV arenas are not carried by the "
-            "PyTorch port yet (the 5-D arena serves every head dim here)")
-    if merged not in ("auto", False):
+    """Zeroed KV arena {"k", "v"} in cfg.dtype on `device`, each
+    [L, num_blocks, block_size, NKV, D], or [L, num_blocks, block_size,
+    NKV*D] with merged=True.  The reference merges to dodge the TPU's
+    128-lane padding of a narrow head dim; a GPU pads nothing, so "auto"
+    keeps the 5-D layout here, and merged=True stores the same bytes
+    under the reference's merged shape (the serving functions branch on
+    the arena's rank, as the reference's do)."""
+    if merged not in ("auto", False, True):
         raise ValueError(f"merged must be 'auto', False or True, got "
                          f"{merged!r}")
     shape = (cfg.num_layers, num_blocks, block_size, cfg.kv_heads,
              cfg.head_dim)
+    if merged is True:
+        shape = shape[:3] + (cfg.kv_heads * cfg.head_dim,)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
@@ -99,17 +107,47 @@ class _KVSlots:
         self.off = _dev((positions % bs).ravel()[rows], device)
 
     def write(self, arena, li: int, k, v) -> None:
-        """In-place scatter of this layer's new K/V rows (the reference's
-        functional `.at[li, blk, off].set(..., mode="drop")`)."""
+        """In-place scatter of this layer's new K/V rows [N, NKV, D] (the
+        reference's functional `.at[li, blk, off].set(..., mode="drop")`);
+        a merged arena takes each row as [NKV*D]."""
         if self.n == 0:
             return
-        arena["k"][li, self.blk, self.off] = k.index_select(0, self.rows)
-        arena["v"][li, self.blk, self.off] = v.index_select(0, self.rows)
+        k, v = k.index_select(0, self.rows), v.index_select(0, self.rows)
+        if arena["k"].dim() == 4:
+            k, v = k.reshape(self.n, -1), v.reshape(self.n, -1)
+        arena["k"][li, self.blk, self.off] = k
+        arena["v"][li, self.blk, self.off] = v
 
 
 def _layer(params, li: int) -> Dict[str, torch.Tensor]:
     """Layer `li`'s weights as views into the stacked [L, ...] leaves."""
     return {k: w[li] for k, w in params["layers"].items()}
+
+
+def _kernels(cfg: TransformerConfig, arena):
+    """(decode, prefill) attention for this arena's layout: the kernels,
+    or their plain versions under cfg.attn_impl="jnp"."""
+    plain = cfg.attn_impl == "jnp"
+    if arena["k"].dim() == 4:
+        return ((merged_decode_reference if plain
+                 else merged_decode_attention),
+                (merged_prefill_reference if plain
+                 else merged_prefill_attention))
+    return ((paged_decode_reference if plain else paged_decode_attention),
+            (paged_prefill_reference if plain else paged_prefill_attention))
+
+
+def _attn_out(cfg: TransformerConfig, lp, li: int, attn, lora, rows):
+    """The attention output projection of the flat rows `attn` [N, NH*D],
+    plus the gather-LoRA epilogue when `lora` is given (the reference's
+    order: dense, then `+ lora_delta(...).astype(dt)`)."""
+    out = _dense(attn, lp["wo"], lp.get("bo"))
+    if lora is not None:
+        delta = (lora_delta_reference if cfg.attn_impl == "jnp"
+                 else lora_delta)
+        out = out + delta(attn, lora["a"][li], lora["b"][li],
+                          rows).to(cfg.dtype)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -178,13 +216,18 @@ def _lm_logits(cfg: TransformerConfig, params, x):
 # serving programs
 # ----------------------------------------------------------------------
 def prefill_chunks(cfg: TransformerConfig, params, arena, tokens, pos0s,
-                   n_valids, block_tables, active):
+                   n_valids, block_tables, active, adapter_ids=None,
+                   lora=None):
     """Advance up to NC prompt chunks in one call (the ragged composition
     of Dynamic SplitFuse).  tokens: [NC, C] (padded); pos0s/n_valids:
     [NC]; block_tables: [NC, MB]; active: [NC] — all host data.  Within
     each layer every chunk's keys are written first, then the chunks
     attend in scheduling order, so consecutive chunks of one prompt stay
     exact; projections, MLP and logits batch over all NC*C rows.
+    adapter_ids: [NC] LoRA pool slot per chunk (< 0 = base model, host
+    data) with `lora` = {"a": [L, slots, NH*D, r], "b": [L, slots, r, H]}:
+    the attention output gains the gather-LoRA epilogue; lora=None runs
+    exactly the single-tenant computation.
     Returns (logits [NC, V] f32 at each chunk's last valid token, arena
     updated in place).  Rows of inactive chunks are not computed by the
     attention (their logits are meaningless, as in the reference)."""
@@ -205,8 +248,10 @@ def prefill_chunks(cfg: TransformerConfig, params, arena, tokens, pos0s,
     slots = _KVSlots(tables, positions, valid, bs, dev)
     tables_t = _dev(tables, dev, torch.int32)
     live = [i for i in range(NC) if active[i] and n_valids[i] > 0]
-    attend = (paged_prefill_reference if cfg.attn_impl == "jnp"
-              else paged_prefill_attention)
+    attend = _kernels(cfg, arena)[1]
+    # each chunk's rows carry its slot (the reference's repeat by C)
+    rows = (None if lora is None else
+            LoraRows(np.repeat(_host(adapter_ids).astype(np.int32), C)))
 
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
@@ -219,7 +264,8 @@ def prefill_chunks(cfg: TransformerConfig, params, arena, tokens, pos0s,
                              int(pos0s[i]), int(n_valids[i]),
                              sliding_window=cfg.sliding_window,
                              layer_idx=li)
-        x = x + _dense(attn.reshape(NC * C, NH * D), lp["wo"], lp.get("bo"))
+        x = x + _attn_out(cfg, lp, li, attn.reshape(NC * C, NH * D), lora,
+                          rows)
         x = x + _mlp_delta(cfg, x, lp)
 
     last = np.clip(n_valids - 1, 0, C - 1)
@@ -275,10 +321,12 @@ def prefill_full(cfg: TransformerConfig, params, arena, tokens, lens,
 
 
 def _decode_core(cfg: TransformerConfig, params, arena, tokens, seq_lens,
-                 block_tables, active):
+                 block_tables, active, adapter_ids=None, lora=None):
     """One token for each of B rows.  tokens: [B] (a device tensor — the
     previous step's samples — or host data); seq_lens (each row's new
-    token position), block_tables [B, MB], active [B]: host data."""
+    token position), block_tables [B, MB], active [B]: host data;
+    adapter_ids [B] (host data or a `LoraRows`) with `lora`: the
+    gather-LoRA epilogue, as in `prefill_chunks`."""
     dev = arena["k"].device
     if not isinstance(tokens, torch.Tensor):
         tokens = _dev(_host(tokens), dev)
@@ -295,8 +343,8 @@ def _decode_core(cfg: TransformerConfig, params, arena, tokens, seq_lens,
     tables_t = _dev(tables, dev, torch.int32)
     # the kernel's inactive-row marker: lens < 0 gives zeros
     lens_t = _dev(np.where(active, positions, -1), dev, torch.int32)
-    attend = (paged_decode_reference if cfg.attn_impl == "jnp"
-              else paged_decode_attention)
+    attend = _kernels(cfg, arena)[0]
+    rows = None if lora is None else LoraRows.of(adapter_ids)
 
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
@@ -304,17 +352,17 @@ def _decode_core(cfg: TransformerConfig, params, arena, tokens, seq_lens,
         slots.write(arena, li, k, v)
         attn = attend(q, arena["k"], arena["v"], tables_t, lens_t,
                       layer_idx=li)
-        x = x + _dense(attn.reshape(B, NH * D), lp["wo"], lp.get("bo"))
+        x = x + _attn_out(cfg, lp, li, attn.reshape(B, NH * D), lora, rows)
         x = x + _mlp_delta(cfg, x, lp)
     return _lm_logits(cfg, params, x), arena
 
 
 def decode_step(cfg: TransformerConfig, params, arena, tokens, seq_lens,
-                block_tables, active):
+                block_tables, active, adapter_ids=None, lora=None):
     """One generated token for up to B sequences: (logits [B, V] f32,
     arena).  Shapes as in `_decode_core`; inactive rows are inert."""
     return _decode_core(cfg, params, arena, tokens, seq_lens, block_tables,
-                        active)
+                        active, adapter_ids=adapter_ids, lora=lora)
 
 
 def _sample_tokens(logits, generator, mode: str, temperature, top_k):
@@ -352,22 +400,27 @@ def sample_tokens_compiled(logits, generator, temperature, top_k_vec=None,
 
 def decode_tokens(cfg: TransformerConfig, params, arena, tokens, seq_lens,
                   block_tables, active, rng, temperature=1.0,
-                  max_len=None, top_k_vec=None, *, n_steps: int = 8,
-                  mode: str = "greedy", top_k: int = 0):
+                  max_len=None, top_k_vec=None, adapter_ids=None, lora=None,
+                  *, n_steps: int = 8, mode: str = "greedy", top_k: int = 0):
     """`n_steps` decode iterations with sampling on the device: sample ->
     append KV -> feed back; the sampled tokens stay on the device between
     steps and the host reads them once, at the end.  `max_len` [B]: each
     row's KV-lease bound — positions clamp to max_len-1 so an overshooting
     tail burst re-writes the last leased slot (the host trims its tokens).
     Positions advance on the host, since they do not depend on the
-    samples.  Returns (tokens [B, n_steps] int32 on the device, arena)."""
+    samples.  adapter_ids [B] with `lora`: the gather-LoRA epilogue on
+    every step (the rows' grouping is built once for the burst).
+    Returns (tokens [B, n_steps] int32 on the device, arena)."""
     lens = _host(seq_lens).astype(np.int64)
+    if lora is not None:
+        adapter_ids = LoraRows(adapter_ids)
     cap = None if max_len is None else _host(max_len).astype(np.int64) - 1
     toks = tokens
     out = []
     for _ in range(n_steps):
         logits, arena = _decode_core(cfg, params, arena, toks, lens,
-                                     block_tables, active)
+                                     block_tables, active,
+                                     adapter_ids=adapter_ids, lora=lora)
         toks = _sample_tokens(logits, rng, mode, temperature,
                               top_k_vec if mode == "per_row" else top_k)
         out.append(toks)

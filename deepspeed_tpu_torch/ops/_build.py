@@ -24,7 +24,8 @@ from typing import Dict
 __all__ = ["KERNELS", "build_all", "load", "library_path", "function",
            "check"]
 
-KERNELS = ("flash_fwd", "flash_bwd", "paged_decode", "paged_prefill")
+KERNELS = ("flash_fwd", "flash_bwd", "paged_decode", "paged_prefill",
+           "lora_delta")
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"

@@ -101,17 +101,9 @@ def _check(q, arena_k, arena_v, block_tables, lens, layer_idx):
         raise ValueError(f"layer_idx {layer_idx} out of range")
 
 
-def paged_decode_attention(q, arena_k, arena_v, block_tables, lens,
-                           layer_idx=None):
-    """Paged decode attention (see module docstring); shapes as in
-    `paged_decode_reference`.  With `layer_idx`, arena_k/v keep their
-    full [L, nb, bs, NKV, D] shape and the kernel reads layer `layer_idx`
-    at a pointer offset — no layer slice is copied."""
-    if q.device.type == "cpu":
-        return paged_decode_reference(q, arena_k, arena_v, block_tables,
-                                      lens, layer_idx)
-    if q.device.type != "cuda":
-        raise ValueError(f"no paged decode kernel for device {q.device}")
+def launch(q, arena_k, arena_v, block_tables, lens, layer_idx=None):
+    """Check the inputs and launch the kernel on `q`'s CUDA device,
+    without counting the launch (the wrappers over it count theirs)."""
     _check(q, arena_k, arena_v, block_tables, lens, layer_idx)
     B, NH, D = q.shape
     nb, bs, NKV = arena_k.shape[-4], arena_k.shape[-3], arena_k.shape[-2]
@@ -129,6 +121,21 @@ def paged_decode_attention(q, arena_k, arena_v, block_tables, lens,
             out.data_ptr(), B, NH, NKV, D, nb, bs, MB, layer_off,
             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "paged decode")
+    return out
+
+
+def paged_decode_attention(q, arena_k, arena_v, block_tables, lens,
+                           layer_idx=None):
+    """Paged decode attention (see module docstring); shapes as in
+    `paged_decode_reference`.  With `layer_idx`, arena_k/v keep their
+    full [L, nb, bs, NKV, D] shape and the kernel reads layer `layer_idx`
+    at a pointer offset — no layer slice is copied."""
+    if q.device.type == "cpu":
+        return paged_decode_reference(q, arena_k, arena_v, block_tables,
+                                      lens, layer_idx)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged decode kernel for device {q.device}")
+    out = launch(q, arena_k, arena_v, block_tables, lens, layer_idx)
     paged_decode_attention.launches += 1
     return out
 

@@ -102,19 +102,10 @@ def _check(q, arena_k, arena_v, block_table, layer_idx, window):
         raise ValueError(f"sliding_window must be positive, got {window}")
 
 
-def paged_prefill_attention(q, arena_k, arena_v, block_table, pos0,
-                            n_valid, sliding_window: Optional[int] = None,
-                            layer_idx=None):
-    """Blocked-flash prefill (see module docstring); shapes as in
-    `paged_prefill_reference`.  With `layer_idx`, arena_k/v keep their
-    full [L, nb, bs, NKV, D] shape and the kernel reads the layer at a
-    pointer offset."""
-    if q.device.type == "cpu":
-        return paged_prefill_reference(q, arena_k, arena_v, block_table,
-                                       pos0, n_valid, sliding_window,
-                                       layer_idx)
-    if q.device.type != "cuda":
-        raise ValueError(f"no paged prefill kernel for device {q.device}")
+def launch(q, arena_k, arena_v, block_table, pos0, n_valid,
+           sliding_window: Optional[int] = None, layer_idx=None):
+    """Check the inputs and launch the kernel on `q`'s CUDA device,
+    without counting the launch (the wrappers over it count theirs)."""
     _check(q, arena_k, arena_v, block_table, layer_idx, sliding_window)
     C, NH, D = q.shape
     nb, bs, NKV = arena_k.shape[-4], arena_k.shape[-3], arena_k.shape[-2]
@@ -128,6 +119,24 @@ def paged_prefill_attention(q, arena_k, arena_v, block_table, pos0,
             int(sliding_window or 0), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "paged prefill")
+    return out
+
+
+def paged_prefill_attention(q, arena_k, arena_v, block_table, pos0,
+                            n_valid, sliding_window: Optional[int] = None,
+                            layer_idx=None):
+    """Blocked-flash prefill (see module docstring); shapes as in
+    `paged_prefill_reference`.  With `layer_idx`, arena_k/v keep their
+    full [L, nb, bs, NKV, D] shape and the kernel reads the layer at a
+    pointer offset."""
+    if q.device.type == "cpu":
+        return paged_prefill_reference(q, arena_k, arena_v, block_table,
+                                       pos0, n_valid, sliding_window,
+                                       layer_idx)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged prefill kernel for device {q.device}")
+    out = launch(q, arena_k, arena_v, block_table, pos0, n_valid,
+                 sliding_window, layer_idx)
     paged_prefill_attention.launches += 1
     return out
 

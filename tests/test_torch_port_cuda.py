@@ -24,8 +24,11 @@ from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                               build_engine)
 from deepspeed_tpu_torch.models import get_model_config
 from deepspeed_tpu_torch.ops import flash_attention as tflash
+from deepspeed_tpu_torch.ops import lora_matmul as tlora
 from deepspeed_tpu_torch.ops import paged_attention as tdecode
+from deepspeed_tpu_torch.ops import paged_merged as tmerged
 from deepspeed_tpu_torch.ops import paged_prefill as tprefill
+from deepspeed_tpu_torch.serving.tenancy import AdapterPool
 
 pytestmark = [pytest.mark.kernels, pytest.mark.cuda]
 
@@ -45,6 +48,10 @@ LSE_ATOL = 1e-4
 # output's largest magnitude (measured up to 0.71% of it on an H100)
 BWD_RTOL = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
 BWD_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+# gather-LoRA kernel vs plain version, |kernel - plain| <= LORA_REL
+# max|plain|: both take f32 products of the same (exactly widened) inputs;
+# only the order of the sums over K and r differs
+LORA_REL = 1e-5
 
 
 @pytest.fixture
@@ -248,3 +255,134 @@ def test_training_steps_match_through_kernels_and_plain_versions(card):
         for key in ("loss", "grad_norm"):
             assert float(km[key]) == pytest.approx(float(pm[key]),
                                                    rel=1e-4), (step, key)
+
+
+@DTYPES
+@pytest.mark.parametrize("S,K,N,r", [(37, 300, 200, 16), (8, 128, 77, 1),
+                                     (70, 64, 64, 128), (20, 1100, 96, 40)])
+def test_lora_kernel_matches_plain_version(card, dtype, S, K, N, r):
+    rng = np.random.RandomState(5)
+    slots = 4
+    x = _rnd(card, dtype, S, K)
+    a = _rnd(card, torch.float32, slots, K, r) / K ** 0.5
+    b = _rnd(card, torch.float32, slots, r, N)
+    # unsorted, with base rows and an empty slot (slots - 1)
+    ids = rng.randint(-1, slots - 1, S).astype(np.int32)
+    x[torch.from_numpy(ids < 0).cuda()] = float("nan")   # never multiplied
+    before = tlora.lora_delta.launches
+    got = tlora.lora_delta(x, a, b, ids, scaling=0.5)
+    assert tlora.lora_delta.launches == before + 1
+    ref = tlora.lora_delta_reference(x, a, b, ids, scaling=0.5)
+    base = torch.from_numpy(ids < 0).cuda()
+    torch.cuda.synchronize()
+    assert (got[base] == 0).all() and not got[base].signbit().any()
+    _close(got[~base], ref[~base], LORA_REL * float(ref.abs().max()))
+    none = tlora.lora_delta(x, a, b, np.full(S, -1, np.int32))
+    torch.cuda.synchronize()
+    assert (none == 0).all()
+
+
+@DTYPES
+@pytest.mark.parametrize("NH,NKV,D", [(8, 2, 128), (4, 4, 64), (4, 2, 32)])
+def test_merged_wrappers_equal_the_5d_kernels(card, dtype, NH, NKV, D):
+    rng = np.random.RandomState(6)
+    L, nb, bs, MB = 2, 40, 16, 24
+    ak, av = (_rnd(card, dtype, L, nb, bs, NKV * D) for _ in range(2))
+    lens = np.asarray([5, -1, 300, 0, 16, 383], np.int32)
+    tables = rng.randint(-3, nb + 3, size=(lens.size, MB)).astype(np.int32)
+    for i, n in enumerate(lens):
+        live = max(int(n), 0) // bs + 1
+        tables[i, :live] = rng.permutation(nb)[:live]
+    q = _rnd(card, dtype, lens.size, NH, D)
+    tables = torch.from_numpy(tables).cuda()
+    lens = torch.from_numpy(lens).cuda()
+    k5, v5 = tmerged.as_5d(ak, D), tmerged.as_5d(av, D)
+    before = (tmerged.merged_decode_attention.launches,
+              tdecode.paged_decode_attention.launches)
+    got = tmerged.merged_decode_attention(q, ak, av, tables, lens,
+                                          layer_idx=1)
+    assert (tmerged.merged_decode_attention.launches,
+            tdecode.paged_decode_attention.launches) == (before[0] + 1,
+                                                         before[1])
+    assert torch.equal(got, tdecode.paged_decode_attention(
+        q, k5, v5, tables, lens, layer_idx=1))
+    _close(got, tmerged.merged_decode_reference(q, ak, av, tables, lens,
+                                                layer_idx=1),
+           ATOL[dtype], RTOL[dtype])
+    qc = _rnd(card, dtype, 70, NH, D)
+    got = tmerged.merged_prefill_attention(qc, ak, av, tables[2], 100, 61,
+                                           layer_idx=0)
+    assert torch.equal(got[:61], tprefill.paged_prefill_attention(
+        qc, k5, v5, tables[2], 100, 61, layer_idx=0)[:61])
+    _close(got[:61], tmerged.merged_prefill_reference(
+        qc, ak, av, tables[2], 100, 61, layer_idx=0)[:61],
+        ATOL[dtype], RTOL[dtype])
+
+
+def test_new_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    ids = np.zeros(4, np.int32)
+    x = _rnd(card, torch.float32, 4, 64)
+    a = _rnd(card, torch.float32, 2, 64, 129)
+    b = _rnd(card, torch.float32, 2, 129, 32)
+    with pytest.raises(ValueError, match="rank"):
+        tlora.lora_delta(x, a, b, ids)
+    a, b = a[:, :, :8].contiguous(), b[:, :8].contiguous()
+    with pytest.raises(TypeError):
+        tlora.lora_delta(x.half(), a, b, ids)
+    with pytest.raises(TypeError, match="f32"):
+        tlora.lora_delta(x, a.bfloat16(), b, ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        tlora.lora_delta(x, a.transpose(1, 2).contiguous().transpose(1, 2),
+                         b, ids)
+    with pytest.raises(ValueError, match="out of range"):
+        tlora.lora_delta(x, a, b, np.asarray([0, 1, 2, -1], np.int32))
+    arena = _rnd(card, torch.float32, 1, 4, 8, 2 * 48)
+    q = _rnd(card, torch.float32, 2, 2, 48)
+    ints = torch.zeros(2, 3, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        tmerged.merged_decode_attention(q, arena, arena, ints, ints[:, 0],
+                                        layer_idx=0)
+    with pytest.raises(ValueError, match="head dim"):
+        tmerged.merged_prefill_attention(q, arena, arena, ints[0], 0, 2,
+                                         layer_idx=0)
+
+
+def test_engine_serves_adapters_through_the_kernel(card):
+    """Adapter and base rows in one wave, f32, on a merged arena: the
+    kernel engine launches the LoRA kernel once per layer per serving call
+    with adapter rows and gives the plain-version engine's chains; base
+    rows give what an engine without adapters gives."""
+    cfg = get_model_config("llama", "tiny", dtype=torch.float32,
+                           hidden_size=512, num_heads=8, num_kv_heads=4)
+    ecfg = RaggedInferenceEngineConfig(
+        num_blocks=64, block_size=16, max_blocks_per_seq=16, max_seqs=8,
+        prefill_chunk_size=32, max_prefill_tokens_per_step=64,
+        arena_merged=True)
+    kern = InferenceEngineV2(cfg, config=ecfg, device="cuda")
+    plain = InferenceEngineV2(cfg, params=kern.params, config=ecfg,
+                              device="cuda", plain_kernels=True)
+    rng = np.random.RandomState(7)
+    L, K, H = cfg.num_layers, cfg.num_heads * cfg.head_dim, cfg.hidden_size
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 17, 40, 100)]
+    factors = {f"a{i}": (rng.randn(L, K, 8) / K ** 0.5, rng.randn(L, 8, H))
+               for i in range(2)}
+    base = kern.generate_batch(prompts, max_new_tokens=8)
+    chains = []
+    for eng in (kern, plain):
+        # rank 8 over K = H = 512: 2 blocks a layer, so 4 L blocks hold
+        # both adapters
+        pool = AdapterPool(eng, 4 * L)
+        for aid, (a, b) in factors.items():
+            pool.register(aid, a, b)
+        for uid, aid in ((0, "a0"), (2, "a1"), (3, "a0")):
+            eng.set_adapter(uid, pool.reserve(aid))
+        before = tlora.lora_delta.launches
+        chains.append([c.tolist() for c in eng.generate_batch(
+            prompts, max_new_tokens=8)])
+        launched = tlora.lora_delta.launches - before
+        assert launched > 0 if eng is kern else launched == 0
+        assert launched % L == 0
+    assert chains[0] == chains[1]
+    assert chains[0][1] == base[1].tolist()
+    assert all(chains[0][i] != base[i].tolist() for i in (0, 2, 3))

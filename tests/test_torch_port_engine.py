@@ -146,16 +146,14 @@ def _tiny_engine(**engine_kw):
 
 
 @pytest.mark.parametrize("what", [
-    "mixtral", "tensor_parallel", "merged_arena", "prefix_cache", "lora",
-    "quantized", "seeded", "drafts", "multi_step"])
+    "mixtral", "tensor_parallel", "prefix_cache", "quantized", "seeded",
+    "drafts", "multi_step"])
 def test_engine_refuses_features_not_ported(what):
     with pytest.raises(NotImplementedError):
         if what == "mixtral":
             build_engine("mixtral", device="cpu")
         elif what == "tensor_parallel":
             _tiny_engine(tensor_parallel_size=2)
-        elif what == "merged_arena":
-            _tiny_engine(arena_merged=True)
         elif what == "quantized":
             cfg = get_model_config("gpt2", "tiny", dtype=torch.float32,
                                    num_layers=1)
@@ -166,8 +164,6 @@ def test_engine_refuses_features_not_ported(what):
             eng = _tiny_engine()
             if what == "prefix_cache":
                 eng.enable_prefix_cache(8)
-            elif what == "lora":
-                eng.attach_lora({})
             elif what == "seeded":
                 eng.decode_burst_step(seeds={0: 1})
             elif what == "drafts":

@@ -214,7 +214,10 @@ def test_importing_the_port_loads_no_jax():
             "deepspeed_tpu_torch.runtime.lr_schedules, "
             "deepspeed_tpu_torch.runtime.activation_checkpointing, "
             "deepspeed_tpu_torch.sequence.tiled, "
-            "deepspeed_tpu_torch.config, deepspeed_tpu_torch.utils.tree; "
+            "deepspeed_tpu_torch.config, deepspeed_tpu_torch.utils.tree, "
+            "deepspeed_tpu_torch.serving.tenancy, "
+            "deepspeed_tpu_torch.ops.lora_matmul, "
+            "deepspeed_tpu_torch.ops.paged_merged; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'deepspeed_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
