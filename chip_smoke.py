@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result):
   1. hold each kernel against its plain PyTorch version on the card, at
      the serving and training paths' shapes and at edge cases (GQA,
      ragged lengths, head dims 32/64/128, f32), and time both (device time
-     from torch.profiler) beside the card's bound for the same work;
+     from torch.profiler; CUDA events where its sessions keep missing
+     device events, as each row's `clocks` says) beside the card's bound
+     for the same work;
   2. serve one wave of 8 requests through `build_engine("llama", "7b")`
      (Llama-2-7B widths, random weights from a seeded generator) and
      `generate_batch`, with every kernel's launch counter reset just
@@ -47,9 +49,32 @@ Phases (any failure exits non-zero and prints no result):
      engine audits clean;
   9. phase 2's wave on an engine with the merged [L, nb, bs, NKV*D] arena
      sharing the parameters: tokens and phase-3 logits equal to the 5-D
-     engine's, through the merged wrappers only.
+     engine's, through the merged wrappers only;
+ 10. (run after phase 9) block-sparse attention: `SparseSelfAttention`
+     forward and backward (loss = sum of squares) over q/k/v [4, 4096, 16,
+     64] bf16 (BERT-large heads at 4096 tokens) for three layouts
+     (DeepSpeed's "fixed" config at block 16, BigBird at block 64, causal
+     "fixed" at block 64): out and
+     the three gradients against the plain versions, one launch of each
+     kernel per call (counters reset just before), density, ms of forward
+     and backward (CUDA events: most of this phase's profiler sessions
+     come back without device events) against their bound, against SDPA
+     with the dense mask and, for the causal layout, against the dense
+     flash kernels; the host time of one call (the tables are cached on
+     the module);
+ 11. (run after phase 10, before phase 5) bench.py's training step with
+     8-bit Adam moments and the fused update (`state_dtype "int8"`,
+     `fused_update: true`): phase 5's readings, one fused_adam8 launch per
+     leaf per step, a profiled step (the update's device ms against its
+     bound; phase 7 prints it beside the int8f update's), then the same initial
+     state through the plain int8 update for 3 steps (step 1 equal, steps
+     2-3 within INT8_LATER_RTOL), and two control runs of the fused engine
+     with a planted fault, which these checks must refuse.
 Every profile must hold each launch the kernels' counters saw in it (a
 session that dropped device events is repeated).
+Phase 1 also holds the fused 8-bit Adam kernel (one w_up layer's slice)
+and the three block-sparse kernels (at phase 10's first layout and at edge
+cases: a fully-masked row, f32, block 8) against their plain versions.
 Prints a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  `--layers` cuts the serving model's
 depth and `--train-layers` the training model's (the widths stay
@@ -149,6 +174,33 @@ LORA_BLOCK_ELEMS = 4096      # the pool's residency grain (its default)
 # registers and promoted back by row 1's reservation)
 LORA_PLAN = {1: "t0", 3: "t2", 5: "t3", 7: "t0"}
 
+# fused 8-bit Adam kernel vs its plain version: the kernel keeps the plain
+# version's operation order with IEEE roundings and no FMA contraction, so
+# only the last bit of exp2f/log2f may differ: master |d| <= ADAM8_RTOL
+# |plain| + ADAM8_ATOL, codes within one (the share that differ printed),
+# scales relative ADAM8_RTOL
+ADAM8_RTOL, ADAM8_ATOL = 1e-6, 1e-7
+ADAM8_SHAPE = (2048, 8192)     # one layer's slice of GPT-2-1.3B's w_up
+ADAM8_KW = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.1, adam_w=True)
+# f32 operations per element of the update: decode 5, gradient scale 1,
+# moments 7, step 9, requantize 13
+ADAM8_OPS = 35
+# phase 11: bench.py's optimizer with 8-bit moments and the fused update
+INT8_PARAMS = {"lr": 1e-4, "weight_decay": 0.1, "state_dtype": "int8",
+               "fused_update": True}
+# the fused-update engine vs the plain int8 update at steps 2-3, relative.
+# Both run the same attention kernels and differ only in the update, whose
+# codes may differ by one where exp2f/log2f's last bit does (one element's
+# moment moves by one code step), and whose f32 operations the kernel
+# orders as the plain version does.  On an H100 they measured 7.4e-6 and
+# 8.0e-5 (loss, steps 2 and 3) and 1.1e-4 and 2.4e-3 (grad norm, at step
+# 3's spike of 27); the limits sit about 6x and 8x above the largest.
+# Two control runs of the fused engine (the bf16 parameters left stale, as
+# if the cast went into a copy; bias correction dropped) must be refused.
+INT8_LATER_RTOL = {"loss": 5e-4, "grad_norm": 2e-2}
+# phase 10: BERT-large's 16 heads of 64 at 4096 tokens, batch 4
+SPARSE_SHAPE = (4, 4096, 16, 64)
+
 # each kernel as the profiler names it -> (its wrapper, whose `launches`
 # counts the wrapper's calls; the device kernels one call runs)
 KERNELS = {"flash_fwd": ("flash_attention_fwd", 1),
@@ -156,7 +208,11 @@ KERNELS = {"flash_fwd": ("flash_attention_fwd", 1),
            "flash_bwd_dkv": ("flash_attention_bwd_dkv", 1),
            "paged_decode": ("paged_decode_attention", 2),  # + combine
            "paged_prefill": ("paged_prefill_attention", 1),
-           "lora_delta": ("lora_delta", 2)}                # shrink + expand
+           "lora_delta": ("lora_delta", 2),                # shrink + expand
+           "fused_adam8": ("fused_adam8_leaf", 1),
+           "sparse_fwd": ("block_sparse_flash_attention", 1),
+           "sparse_dq": ("block_sparse_flash_dq", 1),
+           "sparse_dkv": ("block_sparse_flash_dkv", 1)}
 # each row of the kernels line -> the wrapper whose counter it reads (the
 # merged wrappers launch the paged kernels on a view of their arena)
 WRAPPERS = {**{k: fn for k, (fn, _) in KERNELS.items()},
@@ -181,7 +237,30 @@ def device_events(prof):
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-PROFILE_TRIES = 3
+PROFILE_TRIES = 5
+
+
+class Timing(float):
+    """A time in ms with the clock that took it: "profiler" (the summed
+    device durations of the kernels, `time_ms`) or "cuda_events" (events
+    around a loop of calls, host gaps between launches counted,
+    `event_time_ms`)."""
+
+    def __new__(cls, ms, clock):
+        t = super().__new__(cls, ms)
+        t.clock = clock
+        return t
+
+
+def timing_less(a, b):
+    """a - b as a Timing; its clock names both clocks where they differ."""
+    return Timing(a - b, a.clock if a.clock == b.clock
+                  else f"{a.clock} - {b.clock}")
+
+
+def clocks(row):
+    """{key: clock} of each time in a row of the kernels line."""
+    return {k: v.clock for k, v in row.items() if isinstance(v, Timing)}
 
 
 def _kind(name):
@@ -196,23 +275,29 @@ def _kind(name):
     return "other"
 
 
+def profile_session(body):
+    """The device events of one torch.profiler session around `body()`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        body()
+        torch.cuda.synchronize()
+    return device_events(prof)
+
+
 def profiled(body, complete=bool, what="device events"):
     """The device events of `body()` under torch.profiler.  A session
     can come back with device events missing (seen on the H100 machine:
-    none at all once, a quarter of a timing loop's kernels once), so a
-    session whose events are not `complete(events)` is repeated, up to
+    none at all, or a quarter of a timing loop's kernels), so a session
+    whose events are not `complete(events)` is repeated, up to
     PROFILE_TRIES times, before the run fails."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(PROFILE_TRIES):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            body()
-            torch.cuda.synchronize()
-        events = device_events(prof)
+    for i in range(PROFILE_TRIES):
+        events = profile_session(body)
         if complete(events):
             return events
+        print(f"  (profiler session {i + 1} missed {what}: repeated)")
     fail(f"the profiler missed {what} in {PROFILE_TRIES} sessions")
 
 
@@ -246,22 +331,47 @@ def time_ms(fn, iters=20, warmup=3):
     kernels it launches over `iters` calls (torch.profiler), divided by
     `iters`.  Host gaps between launches are left out, which CUDA events
     around a call of a few tens of microseconds would count; the inputs
-    stay warm in the 50 MB L2 from call to call.  The loop's session
-    must hold `iters` times the events of one call's session."""
+    stay warm in the 50 MB L2 from call to call.  A try profiles one call
+    and then the loop, and holds when the loop's events are `iters` times
+    the call's (a session that dropped events, in either, fails it).
+    After PROFILE_TRIES tries that miss, the time is taken with CUDA
+    events (`event_time_ms`) and its clock says so."""
     for _ in range(warmup):
         fn()
-    per_call = len(profiled(fn, what="the device events of one call"))
 
     def body():
         for _ in range(iters):
             fn()
 
-    events = profiled(body, lambda ev: len(ev) == iters * per_call,
-                      what=f"{iters} x {per_call} device events")
-    us = sum(e.time_range.elapsed_us() for e in events)
-    if us <= 0:
-        fail("the profiler saw no device time")
-    return us / 1e3 / iters
+    for _ in range(PROFILE_TRIES):
+        per_call = len(profile_session(fn))
+        events = profile_session(body)
+        us = sum(e.time_range.elapsed_us() for e in events)
+        if per_call and len(events) == iters * per_call and us > 0:
+            return Timing(us / 1e3 / iters, "profiler")
+    print(f"  (the profiler missed device events in {PROFILE_TRIES} tries, "
+          f"the last {len(events)} for {iters} x {per_call}: timed with "
+          f"CUDA events)")
+    return event_time_ms(fn, iters, warmup=0)
+
+
+def event_time_ms(fn, iters=20, warmup=3):
+    """Time of one call of `fn` from CUDA events around `iters` calls.
+    Host gaps between the launches are counted, so it reads high for
+    calls of tens of microseconds; phase 10 times its calls (0.4 ms and
+    more) with it, as most of its profiler sessions came back without
+    device events on the H100 machine, and `time_ms` falls back to it."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return Timing(start.elapsed_time(end) / iters, "cuda_events")
 
 
 def max_err(a, b):
@@ -678,11 +788,12 @@ def bwd_close(got, ref, rtol, atol_rel):
     return ok, float((got - ref).abs().max()) / scale
 
 
-def time_flash_bwd(fa, q, k, v, out, lse, do):
-    """Device ms of the dq and of the dk/dv kernel on these inputs."""
-    return {"dq": time_ms(lambda: fa.flash_attention_bwd_dq(
+def time_flash_bwd(fa, q, k, v, out, lse, do, timer=time_ms):
+    """ms of the dq and of the dk/dv kernel on these inputs (device ms
+    under the default `timer`)."""
+    return {"dq": timer(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, out, lse, do)),
-            "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv(
+            "dkv": timer(lambda: fa.flash_attention_bwd_dkv(
                 q, k, v, out, lse, do))}
 
 
@@ -749,7 +860,7 @@ def check_flash_bwd(torch, fa, dev):
         with torch.no_grad():
             F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
-    lib_bwd = time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd)
+    lib_bwd = timing_less(time_ms(sdpa_fwd_bwd), time_ms(sdpa_fwd))
     print(f"  SDPA backward at the training shape: {lib_bwd:.4f} ms "
           f"(dq + dk/dv kernels {ms['dq'] + ms['dkv']:.4f} ms)")
     shape = (f"q/k/v/dO [{B},{S},{NH},{D}] bf16 causal")
@@ -772,13 +883,15 @@ def check_flash_bwd(torch, fa, dev):
 # ----------------------------------------------------------------------
 # phases 5-7: the training path
 # ----------------------------------------------------------------------
-def bench_config(policy):
-    """bench.py's training configuration on one device."""
+def bench_config(policy, opt_params=None):
+    """bench.py's training configuration on one device (its optimizer
+    params replaced by `opt_params` where given)."""
     return {"train_micro_batch_size_per_gpu": TRAIN_MICRO,
             "gradient_accumulation_steps": 1,
             "optimizer": {"type": "adamw",
-                          "params": {"lr": 1e-4, "weight_decay": 0.1,
-                                     "state_dtype": "int8f"}},
+                          "params": opt_params or {
+                              "lr": 1e-4, "weight_decay": 0.1,
+                              "state_dtype": "int8f"}},
             "data_types": {"grad_accum_dtype": "bf16"},
             "zero_optimization": {"stage": 1},
             "bf16": {"enabled": True},
@@ -878,7 +991,7 @@ def train(torch, np, layers, counters):
     return eng, batch, res
 
 
-def profile_train_step(torch, eng, batch, step_ms, counters):
+def profile_train_step(torch, eng, batch, step_ms, counters, phase=7):
     """Device time of one training step by kind, and the device's idle
     share against the unprofiled steps' mean wall time."""
     from deepspeed_tpu_torch.runtime.engine import OPTIMIZER_RANGE
@@ -909,13 +1022,13 @@ def profile_train_step(torch, eng, batch, step_ms, counters):
     res = dict(device_ms=busy, step_wall_ms=step_ms,
                idle_share=max(0.0, 1 - busy / step_ms), ms_by_kind=by_kind,
                optimizer_share=(opt_ms / busy if spans else None))
-    print(f"phase 7: training step device time {busy:.2f} ms of "
+    print(f"phase {phase}: training step device time {busy:.2f} ms of "
           f"{step_ms:.2f} ms wall (idle share {res['idle_share']:.3f}); by "
           f"kind (ms) " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
               by_kind.items(), key=lambda kv: -kv[1])))
     if not spans:
-        print("phase 7: the optimizer range did not show on the device "
-              "timeline: its share is not measured")
+        print(f"phase {phase}: the optimizer range did not show on the "
+              f"device timeline: its share is not measured")
     return res
 
 
@@ -1467,6 +1580,551 @@ def serve_merged(torch, np, cfg, params, config, prompts, outs, logits,
     return dict(wall_s=wall, launches=launches)
 
 
+# ----------------------------------------------------------------------
+# phase 1: the fused 8-bit Adam and block-sparse kernels
+# ----------------------------------------------------------------------
+def adam8_inputs(torch, topt, g, dev, shape, gdtype):
+    """(grad, m codes, m scales, v codes, v scales, master) after one real
+    quantized step of seeded moments."""
+    p = torch.randn(*shape, generator=g, device=dev) * 0.1
+    grad = (torch.randn(*shape, generator=g, device=dev) * 1e-3).to(gdtype)
+    m0 = torch.randn(*shape, generator=g, device=dev) * 1e-3
+    m_q, m_s = topt._q8_signed(m0)
+    v_q, v_s = topt._q8_log(m0 * m0)
+    return grad, m_q, m_s, v_q, v_s, p
+
+
+def adam8_args(torch, dev):
+    """lr, gscale (a device scalar, as the engine passes it), c1, c2 at
+    step 2."""
+    return (1e-4, torch.tensor(0.5, device=dev), 1 - 0.9 ** 2,
+            1 - 0.999 ** 2)
+
+
+def adam8_bytes(n, rows):
+    """Bytes one update of n elements in `rows` rows must move: bf16
+    gradient, both codes and the f32 master read; master, bf16 parameter
+    and codes written; the four row scales read and written."""
+    return n * (2 + 1 + 1 + 4) + n * (4 + 2 + 1 + 1) + rows * 4 * 4
+
+
+def check_adam8(torch, fa8, topt, dev):
+    """The fused 8-bit Adam kernel against its plain version at one w_up
+    layer's slice (bf16 gradients), then f32 gradients, rows of 100 and of
+    33 (no vector loads), a row too long for shared memory (the recompute
+    form) and a 1-D leaf; timed at the main shape."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(ADAM8_SHAPE, bf16), ((7, 100), f32), ((5, 33), bf16),
+             ((2, 30000), bf16), ((2048,), f32)]
+    args = adam8_args(torch, dev)
+    errs, flips, main = [], [], None
+    for shape, gd in cases:
+        inp = adam8_inputs(torch, topt, g, dev, shape, gd)
+        got = fa8.fused_adam8_leaf(*inp, *args, **ADAM8_KW)
+        want = fa8.fused_adam8_leaf_reference(*inp, *args, **ADAM8_KW)
+        torch.cuda.synchronize()
+        master_ok = bool(((got[0] - want[0]).abs()
+                          <= ADAM8_ATOL + ADAM8_RTOL * want[0].abs()).all())
+        cast_ok = torch.equal(got[1], got[0].to(torch.bfloat16))
+        dcode = [(got[i].int() - want[i].int()).abs() for i in (2, 4)]
+        codes_ok = all(int(d.max()) <= 1 for d in dcode)
+        share = [float((d > 0).float().mean()) for d in dcode]
+        scale_err = max(float(((got[i] - want[i]).abs()
+                               / want[i].abs().clamp_min(1e-30)).max())
+                        for i in (3, 5))
+        e = max_err(got[0], want[0])
+        print(f"  fused_adam8 {list(shape)} grads {str(gd)[6:]}: "
+              f"max|dmaster|={e:.3e}, cast == cast of master: {cast_ok}, "
+              f"codes differing (m, v): {share[0]:.2e}, {share[1]:.2e} "
+              f"(max 1: {codes_ok}), max rel scale err {scale_err:.2e}")
+        if not (master_ok and cast_ok and codes_ok
+                and scale_err <= ADAM8_RTOL):
+            fail(f"fused_adam8 disagrees with its plain version at {shape} "
+                 f"{gd}: master {e}, cast {cast_ok}, codes {codes_ok}, "
+                 f"scales {scale_err}")
+        errs.append(e)
+        flips.append(max(share))
+        if main is None:
+            main = inp
+    n, rows = main[5].numel(), main[5].shape[0]
+    outs = tuple(torch.empty_like(t) for t in (main[5], main[5].to(bf16),
+                                               *main[1:5]))
+    ms = time_ms(lambda: fa8.fused_adam8_leaf(*main, *args, out=outs,
+                                              **ADAM8_KW))
+    plain = time_ms(lambda: fa8.fused_adam8_leaf_reference(
+        *main, *args, **ADAM8_KW), iters=5, warmup=1)
+    bms, by = bound_ms(ADAM8_OPS * n, adam8_bytes(n, rows), H100_F32_FLOPS)
+    print(f"  fused_adam8 at {list(ADAM8_SHAPE)}: {ms:.4f} ms (bound "
+          f"{bms:.4f} ms, {by}), plain {plain:.4f} ms")
+    return dict(name="fused_adam8", route="cuda",
+                source="deepspeed_tpu_torch/csrc/fused_adam8.cu",
+                replaces="deepspeed_tpu/ops/fused_adam8.py:182",
+                shape=f"[{ADAM8_SHAPE[0]},{ADAM8_SHAPE[1]}] f32 master, "
+                      f"bf16 grads, int8/uint8 codes, f32 row scales",
+                max_abs_err=max(errs), max_code_flip_share=max(flips),
+                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=None,
+                library_note="no single PyTorch call runs an Adam step "
+                             "with 8-bit codebook moments")
+
+
+def sparse_layouts(sa, H):
+    """Phase 10's layouts: (name, sparsity config)."""
+    return [("fixed16", sa.FixedSparsityConfig(
+                num_heads=H, block=16, different_layout_per_head=True,
+                num_local_blocks=4, num_global_blocks=1,
+                attention="bidirectional", num_different_global_patterns=4)),
+            ("bigbird64", sa.BigBirdSparsityConfig(num_heads=H, block=64)),
+            ("fixed64_causal", sa.FixedSparsityConfig(
+                num_heads=H, block=64, num_local_blocks=4,
+                attention="unidirectional"))]
+
+
+def sparse_pairs(np, layout, block, causal):
+    """(query, key) pairs one batch row's attention visits under `layout`
+    (per head summed): block^2 per visited block, the lower triangle with
+    the diagonal on diagonal blocks and nothing above them when causal."""
+    if not causal:
+        return int(layout.sum()) * block * block
+    H, nb, _ = layout.shape
+    i, j = np.meshgrid(np.arange(nb), np.arange(nb), indexing="ij")
+    per = np.where(j < i, block * block,
+                   np.where(j == i, block * (block + 1) // 2, 0))
+    return int((layout * per[None]).sum())
+
+
+def sparse_work(np, layout, block, causal, B, S, H, D, elem=2):
+    """(FLOPs, bytes) of the forward, dq and dk/dv kernels: 2, 3 and 4
+    products of 2 D FLOPs per visited pair; q, k, v (and out, dO, lse in
+    the backward) read once, outputs written once."""
+    pairs = B * sparse_pairs(np, layout, block, causal)
+    t = B * S * H * D * elem
+    lse = B * H * S * 4
+    return {"fwd": (4 * D * pairs, 3 * t + t + lse),
+            "dq": (6 * D * pairs, 5 * t + lse + t),
+            "dkv": (8 * D * pairs, 5 * t + lse + 2 * t),
+            "bwd": (14 * D * pairs, 5 * t + lse + 3 * t)}
+
+
+def sparse_check_one(torch, sa, sf, q, k, v, do, layout, block, causal):
+    """Forward, dq and dk/dv kernels against their plain versions on one
+    input: ({"fwd"|"dq"|"dkv": max abs err}, the kernel outputs)."""
+    kidx = sa._layout_to_gather(layout)
+    idx, rev = sa._device_tables(kidx, q.device)
+    out, lse = sf.block_sparse_flash_attention(q, k, v, idx, block, causal,
+                                               return_lse=True)
+    ref, ref_lse = sf.block_sparse_flash_attention_reference(
+        q, k, v, idx, block, causal)
+    dq, dk, dv = sf.block_sparse_flash_backward(q, k, v, idx, rev, out, do,
+                                                lse, block, causal)
+    rdq, rdk, rdv = sf.block_sparse_flash_backward_reference(
+        q, k, v, idx, out, do, lse, block, causal)
+    torch.cuda.synchronize()
+    bf = q.dtype == torch.bfloat16
+    fwd_ok = (kernel_close(out, ref) if bf else
+              max_err(out, ref) <= BWD_F32_REL * max(
+                  float(ref.abs().max()), 1.0))
+    el = max_err(lse, ref_lse)
+    rtol, arel = (BWD_RTOL, BWD_ATOL_REL) if bf else (0.0, BWD_F32_REL)
+    res = {n: bwd_close(a, b, rtol, arel)
+           for n, a, b in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv))}
+    desc = (f"B={q.shape[0]} S={q.shape[1]} H={q.shape[2]} D={q.shape[3]} "
+            f"block={block} {'causal' if causal else 'full'} "
+            f"{str(q.dtype)[6:]}")
+    print(f"  sparse {desc}: max|dout|={max_err(out, ref):.3e} "
+          f"max|dlse|={el:.3e}; max|d| / max|plain| " + ", ".join(
+              f"{n} {r[1]:.3e}" for n, r in res.items()))
+    if not (fwd_ok and el <= LSE_ATOL and all(r[0] for r in res.values())):
+        fail(f"block-sparse kernels disagree with their plain versions at "
+             f"{desc}: out {max_err(out, ref)} (tol {TOL_TEXT}), lse {el}, "
+             f"backward {res} (tol {BWD_TOL_TEXT})")
+    errs = {"fwd": max(max_err(out, ref), el), "dq": max_err(dq, rdq),
+            "dkv": max(max_err(dk, rdk), max_err(dv, rdv))}
+    return errs, (out, lse, dq, dk, dv, idx, rev)
+
+
+def dense_mask(torch, np, layout, block, causal, dev):
+    """The layout expanded to a boolean [H, S, S] token mask."""
+    m = np.kron(layout, np.ones((block, block), bool))
+    if causal:
+        m &= np.tril(np.ones(m.shape[1:], bool))[None]
+    return torch.from_numpy(m).to(dev)
+
+
+def sdpa_times(torch, q, k, v, do, mask, timer=time_ms):
+    """SDPA with the dense mask: (forward ms, backward ms as forward +
+    backward less forward), each from `timer`."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    f = timer(fwd, iters=5, warmup=1)
+    return f, timing_less(timer(fwd_bwd, iters=5, warmup=1), f)
+
+
+def check_sparse(torch, np, sa, sf, dev):
+    """The three block-sparse kernels against their plain versions at
+    phase 10's first layout and shape, then a fully-masked row, f32 and
+    block 8; timed at the main shape beside SDPA with the dense mask."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S, H, D = SPARSE_SHAPE
+    name, cfg = sparse_layouts(sa, H)[0]
+    block = cfg.block
+    main_layout = cfg.make_layout(S)
+    masked = np.eye(8, dtype=bool)[None].repeat(2, 0)
+    masked[0, 2] = False
+    masked[0, 2, 5] = True     # head 0, q-block 2: only a later key block
+    bigbird = sa.BigBirdSparsityConfig(num_heads=2, block=64,
+                                       different_layout_per_head=True)
+    # (B, S, H, D, dtype, layout, block, causal): the timed shape first
+    cases = [(B, S, H, D, bf16, main_layout, block, False),
+             (2, 128, 2, 64, bf16, masked, 16, True),
+             (2, 512, 2, 64, f32, bigbird.make_layout(512), 64, False),
+             (2, 64, 2, 128, bf16, sa.BigBirdSparsityConfig(
+                 num_heads=2, block=8).make_layout(64), 8, True),
+             (1, 1024, 4, 128, f32, sa.FixedSparsityConfig(
+                 num_heads=4, block=32, num_local_blocks=2,
+                 attention="unidirectional").make_layout(1024), 32, True)]
+    errs = {"fwd": [], "dq": [], "dkv": []}
+    main = None
+    for b_, s_, h_, d_, dt_, lay, bl, causal in cases:
+        q, k, v, do = (torch.randn(b_, s_, h_, d_, generator=g, device=dev,
+                                   dtype=dt_) for _ in range(4))
+        e, outs = sparse_check_one(torch, sa, sf, q, k, v, do, lay, bl,
+                                   causal)
+        if lay is masked:
+            rows = outs[0][:, 2 * bl:3 * bl, 0]
+            if not (bool((rows == 0).all())
+                    and bool(torch.isfinite(outs[1]).all())
+                    and all(bool(torch.isfinite(t).all())
+                            for t in outs[2:5])):
+                fail("a fully-masked row did not give out 0, a finite lse "
+                     "and finite gradients")
+        for n in errs:
+            errs[n].append(e[n])
+        if main is None:
+            main = (q, k, v, do, outs)
+        else:
+            del q, k, v, do, outs
+    q, k, v, do, (out, lse, dq, dk, dv, idx, rev) = main
+    torch.cuda.empty_cache()
+    ms = {"fwd": time_ms(lambda: sf.block_sparse_flash_attention(
+              q, k, v, idx, block, False, return_lse=True)),
+          "dq": time_ms(lambda: sf.block_sparse_flash_dq(
+              q, k, v, idx, out, do, lse, block, False)),
+          "dkv": time_ms(lambda: sf.block_sparse_flash_dkv(
+              q, k, v, idx, rev, out, do, lse, block, False))}
+    plain = {"fwd": time_ms(lambda: sf.block_sparse_flash_attention_reference(
+                 q, k, v, idx, block, False), iters=3, warmup=1),
+             "dq": time_ms(lambda: sf.block_sparse_flash_dq_reference(
+                 q, k, v, idx, out, do, lse, block, False), iters=3,
+                 warmup=1),
+             "dkv": time_ms(lambda: sf.block_sparse_flash_dkv_reference(
+                 q, k, v, idx, out, do, lse, block, False), iters=3,
+                 warmup=1)}
+    mask = dense_mask(torch, np, main_layout, block, False, dev)
+    lib_fwd, lib_bwd = sdpa_times(torch, q, k, v, do, mask)
+    del mask
+    work = sparse_work(np, main_layout, block, False, B, S, H, D)
+    shape = (f"q/k/v [{B},{S},{H},{D}] bf16, layout {name} (block {block}, "
+             f"density {main_layout.mean():.4f})")
+    rows = []
+    for kname, line in (("fwd", "sparse_flash.py:149"),
+                        ("dq", "sparse_flash.py:299"),
+                        ("dkv", "sparse_flash.py:329")):
+        bms, by = bound_ms(*work[kname])
+        rows.append(dict(
+            name=f"sparse_{kname}", route="cuda",
+            source="deepspeed_tpu_torch/csrc/sparse_flash.cu",
+            replaces=f"deepspeed_tpu/ops/{line}", shape=shape,
+            max_abs_err=max(errs[kname]), ms=ms[kname],
+            plain_ms=plain[kname], bound_ms=bms, bound_by=by,
+            library_ms=lib_fwd if kname == "fwd" else lib_bwd,
+            library_note="SDPA with the layout as a dense boolean mask"
+                         + ("" if kname == "fwd" else
+                            ": backward (fwd+bwd less fwd), dq, dk and dv "
+                            "in one call")))
+        print(f"  sparse_{kname} at the main shape: {ms[kname]:.4f} ms "
+              f"(bound {bms:.4f} ms, {by}), plain {plain[kname]:.4f} ms, "
+              f"SDPA {rows[-1]['library_ms']:.4f} ms")
+    return rows
+
+
+# ----------------------------------------------------------------------
+# phase 10: block-sparse attention through SparseSelfAttention
+# ----------------------------------------------------------------------
+def sparse_path(torch, np, sa, sf, fa, counters, shape=SPARSE_SHAPE,
+                dev="cuda"):
+    """Phase 10 (see the module docstring)."""
+    B, S, H, D = shape
+    g = torch.Generator(device=dev).manual_seed(10)
+    base = [torch.randn(B, S, H, D, generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(3)]
+    total = {c.__name__: 0 for c in counters}
+    results = []
+    for name, cfg in sparse_layouts(sa, H):
+        attn = sa.SparseSelfAttention(cfg)
+        block, causal = cfg.block, attn.causal
+        layout = attn.layout(S)
+        qkv = [t.clone().requires_grad_() for t in base]
+        # the first call builds and caches the tables; time the host side
+        # of the second (no sync: the launches only)
+        with torch.no_grad():
+            attn(*qkv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            attn(*qkv)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        out = attn(*qkv)
+        (out.float() ** 2).sum().backward()
+        out = out.detach()
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        for k_, n in launches.items():
+            total[k_] += n
+        # the plain versions on the same inputs and residuals
+        q, k, v = (t.detach() for t in qkv)
+        _, (idx, rev) = attn.tables(S, dev)
+        with torch.no_grad():
+            out2, lse = sf.block_sparse_flash_attention(
+                q, k, v, idx, block, causal, return_lse=True)
+            ref, ref_lse = sf.block_sparse_flash_attention_reference(
+                q, k, v, idx, block, causal)
+            do = (2 * out2.float()).to(out2.dtype)   # d(sum out^2)/d out
+            rdq, rdk, rdv = sf.block_sparse_flash_backward_reference(
+                q, k, v, idx, out2, do, lse, block, causal)
+        same = torch.equal(out, out2)
+        res = {n: bwd_close(t.grad, r, BWD_RTOL, BWD_ATOL_REL)
+               for n, t, r in zip(("dq", "dk", "dv"), qkv, (rdq, rdk, rdv))}
+        el = max_err(lse, ref_lse)
+        finite = all(bool(torch.isfinite(t.grad).all()) for t in qkv)
+        del rdq, rdk, rdv, ref_lse
+        # the caching allocator releases what the plain versions held;
+        # every time of this phase is from CUDA events (`event_time_ms`)
+        torch.cuda.empty_cache()
+        fwd_ms = event_time_ms(lambda: sf.block_sparse_flash_attention(
+            q, k, v, idx, block, causal, return_lse=True))
+        bwd_ms = event_time_ms(lambda: sf.block_sparse_flash_backward(
+            q, k, v, idx, rev, out2, do, lse, block, causal))
+        work = sparse_work(np, layout, block, causal, B, S, H, D)
+        fwd_bound = bound_ms(*work["fwd"])
+        bwd_bound = bound_ms(*work["bwd"])
+        mask = dense_mask(torch, np, layout, block, causal, dev)
+        sdpa_fwd, sdpa_bwd = sdpa_times(torch, q, k, v, do, mask,
+                                        event_time_ms)
+        del mask
+        row = dict(layout=name, clock="cuda_events", block=block, causal=causal,
+                   density=float(layout.mean()),
+                   max_active_blocks=int(layout.sum(-1).max()),
+                   launches=launches, host_ms=host_ms,
+                   max_abs_dout=max_err(out, ref), max_abs_dlse=el,
+                   rel_grad_err={n: r[1] for n, r in res.items()},
+                   fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound[0],
+                   fwd_bound_by=fwd_bound[1], bwd_ms=bwd_ms,
+                   bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
+                   sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd)
+        if causal:
+            # the port's dense causal flash kernels at the same shape
+            dout, dlse = fa.flash_attention_fwd(q, k, v, causal=True)
+            row["dense_flash_fwd_ms"] = event_time_ms(
+                lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+            row["dense_flash_bwd_ms"] = sum(time_flash_bwd(
+                fa, q, k, v, dout, dlse, do, event_time_ms).values())
+            del dout, dlse
+        print(f"phase 10: {name} (block {block}, "
+              f"{'causal' if causal else 'bidirectional'}): density "
+              f"{row['density']:.4f} (max {row['max_active_blocks']} of "
+              f"{S // block} blocks a row); launches {launches}; host side "
+              f"of one call {host_ms:.2f} ms; out == kernel rerun: {same}, "
+              f"max|dout| vs plain {row['max_abs_dout']:.3e}, max|dlse| "
+              f"{el:.3e}; grads max|d| / max|plain| " + ", ".join(
+                  f"{n} {r[1]:.3e}" for n, r in res.items())
+              + f"; CUDA-event times: forward {fwd_ms:.3f} ms (bound {fwd_bound[0]:.4f}, "
+              f"{fwd_bound[1]}), backward {bwd_ms:.3f} ms (bound "
+              f"{bwd_bound[0]:.4f}, {bwd_bound[1]}); SDPA with the dense "
+              f"mask {sdpa_fwd:.3f} / {sdpa_bwd:.3f} ms" + (
+                  f"; dense flash kernels {row['dense_flash_fwd_ms']:.3f} / "
+                  f"{row['dense_flash_bwd_ms']:.3f} ms" if causal else ""))
+        if launches != {c.__name__: 1 for c in counters}:
+            fail(f"{name}: launches {launches}, want one of each kernel")
+        if not (same and kernel_close(out, ref) and el <= LSE_ATOL
+                and finite and all(r[0] for r in res.values())):
+            fail(f"{name}: SparseSelfAttention disagrees with the plain "
+                 f"versions: out equal {same}, out {row['max_abs_dout']} "
+                 f"(tol {TOL_TEXT}), lse {el}, grads {res} (tol "
+                 f"{BWD_TOL_TEXT}), finite {finite}")
+        results.append(row)
+        del out, out2, ref, lse, do, qkv, q, k, v
+        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    return dict(layouts=results, launches=total, shape=list(shape))
+
+
+# ----------------------------------------------------------------------
+# phase 11: the 8-bit Adam training step with the fused update
+# ----------------------------------------------------------------------
+# phase 11's control runs: a fault planted in the fused engine
+INT8_FAULTS = {"stale_params": "the bf16 parameters left stale: the "
+                               "update's cast written into a copy",
+               "no_bias_correction": "bias correction dropped"}
+
+
+def int8_differences(got, plain):
+    """`_steps` readings of a fused engine against the plain int8
+    update's: (relative differences {"loss": [by step], "grad_norm":
+    [...]}, the checks they fail: step 1 equal, later INT8_LATER_RTOL)."""
+    rel = {key: [abs(a - b) / abs(b) for a, b in zip(got[j], plain[j])]
+           for j, key in enumerate(("loss", "grad_norm"))}
+    bad = [f"step 1 {key} {r:.3e} != 0" for key in rel
+           if rel[key][0] != 0]
+    bad += [f"step {i + 1} {key} {r:.3e} > {INT8_LATER_RTOL[key]}"
+            for key in rel for i, r in enumerate(rel[key])
+            if i > 0 and r > INT8_LATER_RTOL[key]]
+    return rel, bad
+
+
+def int8_fault_run(torch, dt, model, batch, fault):
+    """The fused engine from phase 11's initial state with `fault`
+    planted (INT8_FAULTS), for the warm-up's steps: `_steps`'s
+    readings."""
+    import dataclasses
+    from deepspeed_tpu_torch.utils import tree as tu
+    params = dict(INT8_PARAMS)
+    if fault == "no_bias_correction":
+        params["bias_correction"] = False
+    eng = dt.initialize(model=model, config=bench_config("save_attn",
+                                                         params))
+    if fault == "stale_params":
+        fused = eng.optimizer.update_fused
+
+        def into_copy(grads, state, master, lr, step, params, **kw):
+            return fused(grads, state, master, lr, step,
+                         tu.tree_map(torch.clone, params), **kw)
+
+        eng.optimizer = dataclasses.replace(eng.optimizer,
+                                            update_fused=into_copy)
+    if not eng.fused_update:
+        fail(f"the control engine ({fault}) does not take update_fused")
+    run = _steps(torch, eng, batch, TRAIN_WARMUP)
+    del eng
+    torch.cuda.empty_cache()
+    return run
+
+
+def train_int8(torch, np, layers, counters, fa8):
+    """Phase 11 (see the module docstring; it runs before phase 5, and
+    phase 7 prints the two updates side by side); `counters` are the
+    flash kernels' and fused_adam8's."""
+    import deepspeed_tpu_torch as dt
+    model = train_model(torch, layers)
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = dt.initialize(model=model,
+                        config=bench_config("save_attn", INT8_PARAMS))
+    if not eng.fused_update:
+        fail("the int8 fused_update engine does not take update_fused")
+    leaves = [t for t in eng.master.values() if isinstance(t, torch.Tensor)]
+    leaves += list(eng.master["layers"].values())
+    n_fused = sum(1 for t in leaves if t.dim() >= 1)
+    n = sum(t.numel() for t in leaves)
+    rows = sum(t.numel() // t.shape[-1] for t in leaves if t.dim() >= 1)
+    gbs = eng.config.train_batch_size
+    batch = train_batch_np(np, cfg, gbs)
+    warm = _steps(torch, eng, batch, TRAIN_WARMUP)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    metrics = [eng.train_batch(batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {c.__name__: c.launches for c in counters}
+    losses = [float(m["loss"]) for m in metrics]
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = gbs * TRAIN_SEQ * TRAIN_STEPS / wall
+    mfu = (6 * n + 12 * cfg.num_layers * cfg.hidden_size * TRAIN_SEQ) \
+        * tok_s / H100_BF16_FLOPS
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    print(f"phase 11: AdamW with int8 moments and fused_update ({n_fused} "
+          f"leaves of {n} parameters): warm-up losses {warm[0]}, grad norms "
+          f"{warm[1]}; {TRAIN_STEPS} steps in {wall:.3f} s: step "
+          f"{step_ms:.2f} ms, {tok_s:.1f} tokens/s, mfu {mfu:.4f}, peak "
+          f"memory {peak / 2 ** 30:.2f} GiB; losses {losses}; launches per "
+          f"step {per_step}")
+    if not all(np.isfinite(losses + warm[0] + warm[1])):
+        fail(f"non-finite int8 training loss or grad norm: {losses}, {warm}")
+    want = {c.__name__: cfg.num_layers * TRAIN_STEPS for c in counters}
+    want[fa8.fused_adam8_leaf.__name__] = n_fused * TRAIN_STEPS
+    if launches != want:
+        fail(f"phase 11 launches {launches}, want {want} (one fused_adam8 "
+             f"per leaf per step, one of each flash kernel per layer)")
+    torch.cuda.empty_cache()
+    prof = profile_train_step(torch, eng, batch, step_ms, counters,
+                              phase=11)
+    upd_bound = bound_ms(ADAM8_OPS * n, adam8_bytes(n, rows),
+                         H100_F32_FLOPS)
+    opt_ms = prof["ms_by_kind"].get("optimizer")
+    print(f"phase 11: the update's device time {opt_ms} ms (bound "
+          f"{upd_bound[0]:.3f} ms, {upd_bound[1]})")
+    del eng, metrics
+    torch.cuda.empty_cache()
+
+    # the same initial state through the plain int8 update
+    plain = dt.initialize(model=model, config=bench_config(
+        "save_attn", dict(INT8_PARAMS, fused_update=False)))
+    before = fa8.fused_adam8_leaf.launches
+    run = _steps(torch, plain, batch, TRAIN_WARMUP)
+    if fa8.fused_adam8_leaf.launches != before or plain.fused_update:
+        fail("the fused_update: false engine launched the fused kernel")
+    del plain
+    torch.cuda.empty_cache()
+    rel, bad = int8_differences(warm, run)
+    print(f"phase 11: fused vs plain int8 update over {TRAIN_WARMUP} steps: "
+          f"losses {warm[0]} vs {run[0]}, grad norms {warm[1]} vs {run[1]}; "
+          f"relative differences {rel} (step 1 must be equal, later "
+          f"{INT8_LATER_RTOL})")
+    if bad:
+        fail("fused and plain int8 updates disagree: " + "; ".join(bad))
+    controls = {}
+    for fault in INT8_FAULTS:
+        faulty = int8_fault_run(torch, dt, model, batch, fault)
+        rel_f, bad_f = int8_differences(faulty, run)
+        print(f"phase 11: control ({INT8_FAULTS[fault]}) vs plain int8 "
+              f"update: losses {faulty[0]}, grad norms {faulty[1]}; "
+              f"relative differences {rel_f}; refused by: {bad_f}")
+        if not bad_f:
+            fail(f"phase 11's checks pass a fused engine with "
+                 f"{INT8_FAULTS[fault]}")
+        controls[fault] = dict(losses=faulty[0], grad_norms=faulty[1],
+                               rel_vs_plain=rel_f, refused_by=bad_f)
+    return dict(controls=controls, step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu,
+                peak_memory_bytes=peak, losses=losses,
+                warmup_losses=warm[0], warmup_grad_norms=warm[1],
+                launches=launches, launches_per_step=per_step,
+                fused_leaves=n_fused, profile=prof, update_ms=opt_ms,
+                update_bound_ms=upd_bound[0], update_bound_by=upd_bound[1],
+                plain_int8_losses=run[0], plain_int8_grad_norms=run[1],
+                rel_vs_plain=rel)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -1488,10 +2146,14 @@ def main(argv=None):
     import numpy as np
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam8 as fa8
     from deepspeed_tpu_torch.ops import lora_matmul as lm
     from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops import paged_merged as pm
     from deepspeed_tpu_torch.ops import paged_prefill as pp
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops import sparse_flash as sf
+    from deepspeed_tpu_torch.runtime import optimizers as topt
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # bf16 products accumulate in f32 and round once, as the JAX `_dense`
@@ -1521,13 +2183,23 @@ def main(argv=None):
     # phase 1
     print(f"phase 1: kernels against their plain versions (forward bf16 "
           f"tol {TOL_TEXT}; backward tol {BWD_TOL_TEXT}; LoRA tol "
-          f"{LORA_REL} max|plain|)")
+          f"{LORA_REL} max|plain|; fused 8-bit Adam master {ADAM8_RTOL} "
+          f"|plain| + {ADAM8_ATOL}, codes within 1, scales {ADAM8_RTOL})")
     kernels = [check_flash(torch, fa, "cuda"),
                *check_flash_bwd(torch, fa, "cuda"),
                check_decode(torch, np, pa, "cuda"),
                check_prefill(torch, np, pp, "cuda"),
                check_lora(torch, np, lm, "cuda"),
-               *check_merged(torch, np, pa, pp, pm, "cuda")]
+               *check_merged(torch, np, pa, pp, pm, "cuda"),
+               check_adam8(torch, fa8, topt, "cuda"),
+               *check_sparse(torch, np, sa, sf, "cuda")]
+    for k in kernels:
+        k["clocks"] = clocks(k)
+    other = {k["name"]: {t: c for t, c in k["clocks"].items()
+                         if c != "profiler"} for k in kernels}
+    other = {n: c for n, c in other.items() if c}
+    print(f"phase 1: clocks: every time from the profiler but {other}")
+    torch.cuda.empty_cache()
 
     # phase 2
     serve_counters = [fa.flash_attention_fwd, pa.paged_decode_attention,
@@ -1558,6 +2230,18 @@ def main(argv=None):
     del params
     torch.cuda.empty_cache()
 
+    # phase 10 (before the training phases: run after phase 6, most of its
+    # profiler sessions came back without device events on the H100
+    # machine, for a reason not known)
+    sparse = sparse_path(torch, np, sa, sf, fa, [
+        sf.block_sparse_flash_attention, sf.block_sparse_flash_dq,
+        sf.block_sparse_flash_dkv])
+
+    # phase 11 (before the other training phases)
+    int8 = train_int8(torch, np, args.train_layers,
+                      [fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                       fa.flash_attention_bwd_dkv, fa8.fused_adam8_leaf], fa8)
+
     # phase 5
     train_counters = [fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
                       fa.flash_attention_bwd_dkv]
@@ -1567,6 +2251,10 @@ def main(argv=None):
     # phase 7 (on phase 5's engine, before it is freed)
     tprof = profile_train_step(torch, teng, batch, trained["step_ms"],
                                train_counters)
+    print(f"phase 7: the optimizer update's device time, plain int8f "
+          f"{tprof['ms_by_kind'].get('optimizer')} ms vs phase 11's fused "
+          f"int8 {int8['update_ms']} ms (bound {int8['update_bound_ms']:.3f}"
+          f" ms)")
     del teng
     torch.cuda.empty_cache()
 
@@ -1582,9 +2270,11 @@ def main(argv=None):
 
     # each path's run: the serving wave (phase 2), the training steps
     # (phase 5), arm B of the multi-tenant wave (phase 8), the merged
-    # wave (phase 9)
+    # wave (phase 9), the three layouts' forward and backward (phase 10),
+    # the int8 fused-update training steps (phase 11)
     paths = (("serve", served["launches"]), ("train", trained["launches"]),
-             ("tenants", tenants["launches"]), ("merged", merged["launches"]))
+             ("tenants", tenants["launches"]), ("merged", merged["launches"]),
+             ("sparse", sparse["launches"]), ("train_int8", int8["launches"]))
     for k in kernels:
         fn = WRAPPERS[k["name"]]
         by_path = {path: launches[fn] for path, launches in paths
@@ -1595,7 +2285,8 @@ def main(argv=None):
     record = dict(kernels=kernels, serve=served, e2e=e2e, profile=prof,
                   tenants=tenants, merged=merged,
                   train=trained, train_profile=tprof, train_plain=tplain,
-                  train_control=control, remat=remat,
+                  train_control=control, remat=remat, sparse=sparse,
+                  train_int8=int8,
                   device=dict(kind=kind, nvidia_smi=smi,
                               layers=args.layers,
                               train_layers=args.train_layers))

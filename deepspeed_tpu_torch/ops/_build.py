@@ -25,7 +25,7 @@ __all__ = ["KERNELS", "build_all", "load", "library_path", "function",
            "check"]
 
 KERNELS = ("flash_fwd", "flash_bwd", "paged_decode", "paged_prefill",
-           "lora_delta")
+           "lora_delta", "fused_adam8", "sparse_flash")
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"

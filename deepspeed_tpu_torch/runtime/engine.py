@@ -14,7 +14,13 @@ and with the same numerics:
    as one `grad_scale` scalar when the optimizer supports it, else
    applied to the gradient tree;
 4. the update on the f32 master parameters (bf16 compute) or on the
-   parameters themselves (f32 compute), then the cast back.
+   parameters themselves (f32 compute), then the cast back.  With int8
+   moments and `fused_update` (`optimizer.update_fused`), bf16 compute and
+   the card, the update is the fused 8-bit Adam kernel, one launch per
+   leaf, which writes the master, the bf16 parameters, the codes and the
+   scales in place in the same pass (the JAX step's `use_fused` rule with
+   "tpu" read as the card); otherwise the plain `update`, as the JAX
+   engine runs on its CPU.
 
 What differs by nature of PyTorch, and what the port does about it:
 
@@ -34,7 +40,9 @@ of `runtime/activation_checkpointing`.  The device is "cuda" unless the
 caller asks for the CPU; without a card that default raises.
 `initialize(..., plain_kernels=True)` selects the kernels' plain versions
 on the card, for comparisons (never by default): it sets the model
-config's `attn_impl` to "jnp", as the serving engine's option does.
+config's `attn_impl` to "jnp", as the serving engine's option does, and
+runs the optimizer's plain `update` even where `update_fused` exists, so
+the plain engine is plain throughout.
 """
 from __future__ import annotations
 
@@ -87,8 +95,9 @@ class TrainEngine:
     of per-layer dicts."""
 
     def __init__(self, loss_fn: Callable, params, config: DeepSpeedTPUConfig,
-                 device="cuda"):
+                 device="cuda", plain_kernels: bool = False):
         self.device = _resolve_device(device)
+        self.plain_kernels = bool(plain_kernels)
         self.config = config
         self.loss_fn = loss_fn
         self.optimizer = optimizers.build_optimizer(config.optimizer)
@@ -129,6 +138,15 @@ class TrainEngine:
         micro-batch's gradients (the step's, before unscale and clip, when
         gas is 1) until the next micro-batch zeroes it."""
         return self._grads
+
+    @property
+    def fused_update(self) -> bool:
+        """Whether a step runs the optimizer's `update_fused`: int8
+        moments with `fused_update`, an f32 master (bf16 compute), the
+        card, and not `plain_kernels`."""
+        return (self.optimizer.update_fused is not None
+                and self.master is not None
+                and self.device.type == "cuda" and not self.plain_kernels)
 
     def _target(self):
         """The tree the optimizer updates: the f32 masters, or the
@@ -240,11 +258,17 @@ class TrainEngine:
         kw = {"grad_scale": gscale} if fold else {}
         # a named range, so a profile can attribute the update's kernels
         with torch.profiler.record_function(OPTIMIZER_RANGE):
-            new_target, self.opt_state = opt.update(
-                grads, self.opt_state, self._target(), lr, step_num, **kw)
-            if self.master is not None:
-                self.master = new_target
-            tu.tree_map(lambda p, n: p.copy_(n), self.params, new_target)
+            if self.fused_update:
+                # master, parameters, codes and scales written in place
+                opt.update_fused(grads, self.opt_state, self.master, lr,
+                                 step_num, self.params, **kw)
+            else:
+                new_target, self.opt_state = opt.update(
+                    grads, self.opt_state, self._target(), lr, step_num,
+                    **kw)
+                if self.master is not None:
+                    self.master = new_target
+                tu.tree_map(lambda p, n: p.copy_(n), self.params, new_target)
         return {"loss": micro_losses.mean(), "grad_norm": gnorm, "lr": lr,
                 "micro_losses": micro_losses}
 
@@ -288,7 +312,9 @@ def initialize(loss_fn: Callable = None, params=None, config=None,
     config's remat policy); otherwise pass `loss_fn` and `params`.
     `params` may be a tree of tensors or numpy arrays, or a function of a
     `torch.Generator` (the model's `init_params` by default, seeded from
-    the config's `seed`).  Returns the engine."""
+    the config's `seed`).  `plain_kernels=True` runs the plain versions
+    throughout: the model's attention and the optimizer's `update` (never
+    `update_fused`).  Returns the engine."""
     cfg = DeepSpeedTPUConfig.from_json(config or {}, world_size=1)
     policy = cfg.activation_checkpointing.policy
     remat_policy(policy)   # refuse an unported policy before any work
@@ -308,4 +334,5 @@ def initialize(loss_fn: Callable = None, params=None, config=None,
                          "config)")
     if loss_fn is None or params is None:
         raise ValueError("initialize() needs loss_fn+params or model=")
-    return TrainEngine(loss_fn, params, cfg, device=device)
+    return TrainEngine(loss_fn, params, cfg, device=device,
+                       plain_kernels=plain_kernels)

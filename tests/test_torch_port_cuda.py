@@ -24,7 +24,10 @@ from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                               build_engine)
 from deepspeed_tpu_torch.models import get_model_config
 from deepspeed_tpu_torch.ops import flash_attention as tflash
+from deepspeed_tpu_torch.ops import fused_adam8 as tadam8
 from deepspeed_tpu_torch.ops import lora_matmul as tlora
+from deepspeed_tpu_torch.ops import sparse_attention as tsparse
+from deepspeed_tpu_torch.ops import sparse_flash as tsflash
 from deepspeed_tpu_torch.ops import paged_attention as tdecode
 from deepspeed_tpu_torch.ops import paged_merged as tmerged
 from deepspeed_tpu_torch.ops import paged_prefill as tprefill
@@ -52,6 +55,12 @@ BWD_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 # max|plain|: both take f32 products of the same (exactly widened) inputs;
 # only the order of the sums over K and r differs
 LORA_REL = 1e-5
+# fused 8-bit Adam vs plain version: the kernel keeps the plain version's
+# operation order with IEEE roundings and no FMA contraction, so only the
+# last bit of exp2f/log2f can differ (the card's libdevice against
+# PyTorch's CUDA kernels): master |d| <= 1e-6 |plain| + 1e-7, codes within
+# one, scales rtol 1e-6
+ADAM8_RTOL, ADAM8_ATOL = 1e-6, 1e-7
 
 
 @pytest.fixture
@@ -386,3 +395,209 @@ def test_engine_serves_adapters_through_the_kernel(card):
     assert chains[0] == chains[1]
     assert chains[0][1] == base[1].tolist()
     assert all(chains[0][i] != base[i].tolist() for i in (0, 2, 3))
+
+
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16],
+                         ids=["g-f32", "g-bf16"])
+@pytest.mark.parametrize("shape", [(64, 256), (7, 100), (5, 33), (300,),
+                                   (2, 30000)],
+                         ids=["vec", "rows-of-100", "odd-R", "1d",
+                              "recompute"])
+def test_fused_adam8_kernel_matches_plain_version(card, gdtype, shape):
+    """Inputs after one real quantized step; the kernel in place on copies
+    of the state (as the engine calls it) and out of place."""
+    from deepspeed_tpu_torch.runtime import optimizers as topt
+    p = _rnd(card, torch.float32, *shape) * 0.1
+    g = (_rnd(card, torch.float32, *shape) * 1e-3).to(gdtype)
+    m0 = _rnd(card, torch.float32, *shape) * 1e-3
+    m_q, m_s = topt._q8_signed(m0)
+    v_q, v_s = topt._q8_log(m0 * m0)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.1, adam_w=True)
+    args = (1e-3, torch.tensor(0.5, device="cuda"), 1 - 0.9 ** 2,
+            1 - 0.999 ** 2)
+    want = tadam8.fused_adam8_leaf_reference(g, m_q, m_s, v_q, v_s, p,
+                                             *args, **kw)
+    before = tadam8.fused_adam8_leaf.launches
+    got = tadam8.fused_adam8_leaf(g, m_q, m_s, v_q, v_s, p, *args, **kw)
+    state = [t.clone() for t in (m_q, m_s, v_q, v_s, p)]
+    cast = torch.empty_like(p, dtype=torch.bfloat16)
+    inplace = tadam8.fused_adam8_leaf(
+        g, *state, *args, out=(state[4], cast, state[0], state[1], state[2],
+                               state[3]), **kw)
+    torch.cuda.synchronize()
+    assert tadam8.fused_adam8_leaf.launches == before + 2
+    for res in (got, inplace):
+        _close(res[0], want[0], ADAM8_ATOL, ADAM8_RTOL)
+        assert torch.equal(res[1], res[0].bfloat16())
+        for i in (2, 4):
+            assert int((res[i].int() - want[i].int()).abs().max()) <= 1
+        for i in (3, 5):
+            _close(res[i], want[i], 0.0, 1e-6)
+    assert inplace[0] is state[4] and inplace[2] is state[0]
+
+
+SPARSE_CASES = [(8, 64), (16, 128), (24, 64), (64, 64), (128, 128)]
+
+
+def _sparse_layout(H, nb, seed):
+    """BigBird-like per-head layout with one q-block that sees no key
+    block at all (a fully-masked row)."""
+    rng = np.random.RandomState(seed)
+    layout = rng.rand(H, nb, nb) < 0.3
+    layout |= np.eye(nb, dtype=bool)[None]
+    layout[:, :, 0] = True
+    layout[0, 2] = False
+    layout[0, 2, 5] = True          # row 2 of head 0: one later block only
+    return layout
+
+
+@DTYPES
+@pytest.mark.parametrize("block,D", SPARSE_CASES,
+                         ids=[f"block{b}-d{d}" for b, d in SPARSE_CASES])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_sparse_kernels_match_plain_versions(card, dtype, block, D, causal):
+    B, H, nb = 2, 2, 8
+    S = nb * block
+    q, k, v, do = (_rnd(card, dtype, B, S, H, D) for _ in range(4))
+    kidx = tsparse._layout_to_gather(_sparse_layout(H, nb, block))
+    idx, rev = tsparse._device_tables(kidx, "cuda")
+    counts = [c.launches for c in (tsflash.block_sparse_flash_attention,
+                                   tsflash.block_sparse_flash_dq,
+                                   tsflash.block_sparse_flash_dkv)]
+    out, lse = tsflash.block_sparse_flash_attention(
+        q, k, v, idx, block, causal=causal, return_lse=True)
+    ref, ref_lse = tsflash.block_sparse_flash_attention_reference(
+        q, k, v, idx, block, causal=causal)
+    _close(out, ref, ATOL[dtype], RTOL[dtype])
+    _close(lse, ref_lse, LSE_ATOL, 1e-6)
+    if causal:   # head 0, q-block 2 sees only block 5: out 0, lse finite
+        rows = slice(2 * block, 3 * block)
+        assert (out[:, rows, 0] == 0).all()
+        assert torch.isfinite(lse).all()
+    got = tsflash.block_sparse_flash_backward(q, k, v, idx, rev, out, do,
+                                              lse, block, causal=causal)
+    want = (tsflash.block_sparse_flash_dq_reference(
+                q, k, v, idx, out, do, lse, block, causal),
+            *tsflash.block_sparse_flash_dkv_reference(
+                q, k, v, idx, out, do, lse, block, causal))
+    for gt, w in zip(got, want):
+        assert gt.shape == w.shape and gt.dtype == w.dtype
+        scale = max(float(w.float().abs().max()), 1.0)
+        _close(gt, w, BWD_ATOL[dtype] * scale, BWD_RTOL[dtype])
+    assert [c.launches for c in (tsflash.block_sparse_flash_attention,
+                                 tsflash.block_sparse_flash_dq,
+                                 tsflash.block_sparse_flash_dkv)] == \
+        [n + 1 for n in counts]
+
+
+def test_sparse_self_attention_trains_through_the_kernels(card):
+    """SparseSelfAttention forward and backward on the card, q/k/v sliced
+    out of one fused [B, S, 3, H, D] projection (not contiguous): one
+    launch of each kernel per call, and the gradients of the plain gather
+    path."""
+    cfg = tsparse.BigBirdSparsityConfig(num_heads=4, block=16,
+                                        different_layout_per_head=True)
+    attn = tsparse.SparseSelfAttention(cfg)
+    plain = tsparse.SparseSelfAttention(cfg, impl="jnp")
+    base = _rnd(card, torch.bfloat16, 2, 256, 3, 4, 64)
+    grads = []
+    counters = (tsflash.block_sparse_flash_attention,
+                tsflash.block_sparse_flash_dq, tsflash.block_sparse_flash_dkv)
+    for mod in (attn, plain):
+        qkv = base.clone().requires_grad_()
+        before = [c.launches for c in counters]
+        (mod(*qkv.unbind(2)).float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert launched == ([1, 1, 1] if mod is attn else [0, 0, 0])
+        grads.append(qkv.grad.unbind(2))
+    for g, w in zip(*grads):
+        scale = max(float(w.float().abs().max()), 1.0)
+        _close(g, w, BWD_ATOL[torch.bfloat16] * scale * 2,
+               BWD_RTOL[torch.bfloat16] * 2)
+
+
+@pytest.mark.parametrize("block,D", [(16, 96), (4, 64)],
+                         ids=["d96", "block4"])
+def test_sparse_self_attention_raises_on_what_the_kernels_do_not_take(
+        card, block, D):
+    """A CUDA tensor under impl "auto" goes to the kernels or raises: it
+    never runs the plain path."""
+    attn = tsparse.SparseSelfAttention(tsparse.FixedSparsityConfig(
+        num_heads=2, block=block, num_local_blocks=2))
+    q = _rnd(card, torch.bfloat16, 1, 8 * block, 2, D)
+    counters = (tsflash.block_sparse_flash_attention,
+                tsflash.block_sparse_flash_dq, tsflash.block_sparse_flash_dkv)
+    before = [c.launches for c in counters]
+    with pytest.raises(ValueError, match="block|head dim"):
+        attn(q, q, q)
+    assert [c.launches for c in counters] == before
+
+
+def test_sparse_and_adam8_wrappers_raise_on_what_they_do_not_take(card):
+    idx = torch.zeros(2, 2, 1, dtype=torch.int32, device="cuda")
+    for block, D in ((256, 64), (16, 96), (16, 192)):
+        q = _rnd(card, torch.bfloat16, 1, 2 * block, 2, D)
+        i2 = torch.zeros(2, 2, 1, dtype=torch.int32, device="cuda")
+        with pytest.raises(ValueError, match="block|head dim"):
+            tsflash.block_sparse_flash_attention(q, q, q, i2, block)
+    q = _rnd(card, torch.float16, 1, 32, 2, 64)
+    with pytest.raises(TypeError):
+        tsflash.block_sparse_flash_attention(q, q, q, idx, 16)
+    q = _rnd(card, torch.float32, 1, 32, 2, 64)
+    with pytest.raises(ValueError, match="int32"):
+        tsflash.block_sparse_flash_attention(q, q, q, idx.long(), 16)
+    p = _rnd(card, torch.float32, 4, 8)
+    codes = torch.zeros(4, 8, dtype=torch.int8, device="cuda")
+    ones = torch.ones(4, 1, device="cuda")
+    with pytest.raises(TypeError, match="uint8"):
+        tadam8.fused_adam8_leaf(p, codes, ones, codes, ones, p, 1e-3, 1.0,
+                                1.0, 1.0, b1=0.9, b2=0.999, eps=1e-8, wd=0.0,
+                                adam_w=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        tadam8.fused_adam8_leaf(p.t().contiguous().t(), codes, ones,
+                                codes.view(torch.uint8), ones, p, 1e-3, 1.0,
+                                1.0, 1.0, b1=0.9, b2=0.999, eps=1e-8,
+                                wd=0.0, adam_w=True)
+
+
+def test_int8_fused_training_on_the_card(card):
+    """llama tiny in bf16 with int8 moments: fused_update launches the
+    kernel once per leaf per step, writes in place, and step 1 equals the
+    engine without the flag (same parameters through the same kernels);
+    steps 2-3 agree within a bf16 rounding of the parameters."""
+    model = dt.Transformer(get_model_config(
+        "llama", "tiny", dtype=torch.bfloat16, remat=True,
+        tiled_loss_shards=4))
+
+    def conf(fused):
+        return {"train_micro_batch_size_per_gpu": 2, "steps_per_print": 0,
+                "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                "data_types": {"grad_accum_dtype": "bf16"},
+                "optimizer": {"type": "adamw", "params": {
+                    "lr": 1e-3, "weight_decay": 0.1, "state_dtype": "int8",
+                    "fused_update": fused}},
+                "activation_checkpointing": {"policy": "save_attn"}}
+    fused = dt.initialize(model=model, config=conf(True))
+    plain = dt.initialize(model=model, config=conf(False))
+    assert fused.fused_update and not plain.fused_update
+    n_leaves = sum(1 for _ in fused.params["layers"]) + sum(
+        1 for k in fused.params if k != "layers")
+    rng = np.random.RandomState(3)
+    batch = {"input_ids": rng.randint(0, model.cfg.vocab_size, (2, 256)
+                                      ).astype(np.int32)}
+    ptr = fused.params["layers"]["wq"].data_ptr()
+    for step in range(3):
+        before = tadam8.fused_adam8_leaf.launches
+        fm = fused.train_batch(batch)
+        pm = plain.train_batch(batch)
+        torch.cuda.synchronize()
+        assert tadam8.fused_adam8_leaf.launches - before == n_leaves
+        for key in ("loss", "grad_norm"):
+            a, b = float(fm[key]), float(pm[key])
+            assert np.isfinite(a)
+            if step == 0:
+                assert a == b, key
+            else:
+                assert a == pytest.approx(b, rel=2e-3), (step, key)
+    assert fused.params["layers"]["wq"].data_ptr() == ptr

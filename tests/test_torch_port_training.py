@@ -451,10 +451,8 @@ BASE = {"train_micro_batch_size_per_gpu": 2}
     ({"zero_optimization": {"stage": 2, "offload_optimizer": {}}},
      "offload_optimizer"),
     ({"optimizer": {"type": "lamb", "params": {}}}, "lamb"),
-    ({"optimizer": {"type": "adamw", "params": {"state_dtype": "int8"}}},
-     "int8"),
-    ({"optimizer": {"type": "adamw", "params": {"fused_update": True}}},
-     "fused_update"),
+    ({"optimizer": {"type": "lion", "params": {}}}, "lion"),
+    ({"optimizer": {"type": "onebitadam", "params": {}}}, "onebitadam"),
     ({"activation_checkpointing": {"policy": "dots_saveable"}},
      "dots_saveable")])
 def test_config_refuses_what_is_not_ported(extra, match):
