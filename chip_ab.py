@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare two copies of `deepspeed_tpu_torch` on one NVIDIA card.
 
-    python3 chip_ab.py DIR_A DIR_B [--rounds N] [--what train|paged]
+    python3 chip_ab.py DIR_A DIR_B [--rounds N]
+                       [--what train|paged|sparse|evoformer]
                        [--train-layers N]
 
 Each DIR holds a `deepspeed_tpu_torch` package (for example one unpacked
@@ -16,7 +17,13 @@ B, A per round, each in a process of its own that builds its own kernels
   device time by kind (phase 7);
 - `--what paged`: the paged prefill and paged decode kernels' device time
   at chip_smoke phase 1's main shapes (its `paged_main_inputs`), for
-  packages that predate the training path too.
+  packages that predate the training path too;
+- `--what sparse`: the block-sparse forward, dq and dk/dv kernels' device
+  time at chip_smoke phase 1's main shape (SPARSE_SHAPE bf16, phase 10's
+  first layout);
+- `--what evoformer`: the Evoformer forward, dq, dk/dv (with db1) and db2
+  kernels' device time at phase 12's MSA row shape (chip_smoke's
+  `evo_inputs`).
 
 One JSON line per run, then a summary; two versions compare only within
 one call, on one card.  Exits non-zero without a card.
@@ -42,6 +49,47 @@ def paged_worker(cs, np, torch):
                 lambda: pa.paged_decode_attention(*dec, layer_idx=1))}
 
 
+def sparse_worker(cs, np, torch):
+    """Device ms of the block-sparse kernels at phase 1's main shape."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops import sparse_flash as sf
+    B, S, H, D = cs.SPARSE_SHAPE
+    _, cfg = cs.sparse_layouts(sa, H)[0]
+    block = cfg.block
+    idx, rev = sa._device_tables(sa._layout_to_gather(cfg.make_layout(S)),
+                                 "cuda")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    out, lse = sf.block_sparse_flash_attention(q, k, v, idx, block, False,
+                                               return_lse=True)
+    return {"fwd_ms": cs.time_ms(lambda: sf.block_sparse_flash_attention(
+                q, k, v, idx, block, False, return_lse=True)),
+            "dq_ms": cs.time_ms(lambda: sf.block_sparse_flash_dq(
+                q, k, v, idx, out, do, lse, block, False)),
+            "dkv_ms": cs.time_ms(lambda: sf.block_sparse_flash_dkv(
+                q, k, v, idx, rev, out, do, lse, block, False))}
+
+
+def evoformer_worker(cs, np, torch):
+    """Device ms of the Evoformer kernels at phase 12's MSA row shape."""
+    from deepspeed_tpu_torch.ops import evoformer_flash as ef
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v, b1, b2 = cs.evo_inputs(torch, g, "cuda", *cs.EVO_SHAPES[0][1],
+                                    torch.bfloat16)
+    do = torch.randn(q.shape, generator=g, device="cuda", dtype=q.dtype)
+    out, lse = ef.evoformer_flash_forward(q, k, v, b1, b2, return_lse=True)
+    _, delta = ef.evoformer_flash_dq(q, k, v, b1, b2, out, do, lse)
+    return {"fwd_ms": cs.time_ms(lambda: ef.evoformer_flash_forward(
+                q, k, v, b1, b2, return_lse=True)),
+            "dq_ms": cs.time_ms(lambda: ef.evoformer_flash_dq(
+                q, k, v, b1, b2, out, do, lse)),
+            "dkv_ms": cs.time_ms(lambda: ef.evoformer_flash_dkv(
+                q, k, v, b1, b2, do, lse, delta)),
+            "db2_ms": cs.time_ms(lambda: ef.evoformer_flash_db2(
+                q, k, v, b1, b2, do, lse, delta))}
+
+
 def worker(pkg_dir, train_layers, what):
     sys.path.insert(0, os.path.abspath(pkg_dir))
     sys.path.insert(1, HERE)
@@ -55,8 +103,10 @@ def worker(pkg_dir, train_layers, what):
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
     package = os.path.dirname(deepspeed_tpu_torch.__file__)
-    if what == "paged":
-        print("AB " + json.dumps(dict(package=package, **paged_worker(
+    workers = {"paged": paged_worker, "sparse": sparse_worker,
+               "evoformer": evoformer_worker}
+    if what in workers:
+        print("AB " + json.dumps(dict(package=package, **workers[what](
             cs, np, torch))), flush=True)
         return
     from deepspeed_tpu_torch.ops import flash_attention as fa
@@ -84,7 +134,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("dirs", nargs="*", help="DIR_A DIR_B")
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--what", choices=("train", "paged"), default="train")
+    ap.add_argument("--what", default="train",
+                    choices=("train", "paged", "sparse", "evoformer"))
     ap.add_argument("--train-layers", type=int, default=24)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -112,9 +163,11 @@ def main(argv=None):
             run = dict(label=label, **json.loads(lines[-1]))
             runs.append(run)
             print(json.dumps(run), flush=True)
-    keys = (("prefill_ms", "decode_ms") if args.what == "paged" else
-            ("dq_ms", "dkv_ms", "step_ms", "tokens_per_s", "mfu",
-             "first_loss"))
+    keys = {"paged": ("prefill_ms", "decode_ms"),
+            "sparse": ("fwd_ms", "dq_ms", "dkv_ms"),
+            "evoformer": ("fwd_ms", "dq_ms", "dkv_ms", "db2_ms"),
+            "train": ("dq_ms", "dkv_ms", "step_ms", "tokens_per_s", "mfu",
+                      "first_loss")}[args.what]
     for key in keys:
         print(f"{key}: " + ", ".join(f"{r['label']} {r[key]:.6g}"
                                      for r in runs))

@@ -70,11 +70,25 @@ Phases (any failure exits non-zero and prints no result):
      state through the plain int8 update for 3 steps (step 1 equal, steps
      2-3 within INT8_LATER_RTOL), and two control runs of the fused engine
      with a planted fault, which these checks must refuse.
+ 12. (run after phase 10, before phase 11) Evoformer attention:
+     `evoformer_attention` forward and backward (loss = sum of squares) at
+     AlphaFold 2's MSA row [1, 128, 256, 8, 32], triangle [1, 256, 256, 4,
+     32] and extra-MSA row [1, 1024, 256, 8, 8] attention (q/k/v [B, N, L,
+     H, D] bf16), with a f32 mask bias (15% of keys at -1e9) and a bf16
+     pair bias that requires grad (the mask bias too at the MSA row): one
+     launch of each kernel per call (counters reset just before; the db1
+     epilogue only where the mask bias requires grad), a rerun
+     bit-identical, out and every gradient against the plain versions,
+     forward and backward ms against their bounds and against SDPA with
+     the summed bias as a dense float mask.
 Every profile must hold each launch the kernels' counters saw in it (a
 session that dropped device events is repeated).
-Phase 1 also holds the fused 8-bit Adam kernel (one w_up layer's slice)
-and the three block-sparse kernels (at phase 10's first layout and at edge
-cases: a fully-masked row, f32, block 8) against their plain versions.
+Phase 1 also holds the fused 8-bit Adam kernel (one w_up layer's slice),
+the three block-sparse kernels (at phase 10's first layout and at edge
+cases: a fully-masked row, f32, block 8, head dims 192 and 256) and the
+four Evoformer kernels (at phase 12's MSA row shape, D 8, 64 and 128, f32,
+L 100 with a fully masked row, each bias alone and none) against their
+plain versions.
 Prints a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  `--layers` cuts the serving model's
 depth and `--train-layers` the training model's (the widths stay
@@ -200,6 +214,15 @@ INT8_PARAMS = {"lr": 1e-4, "weight_decay": 0.1, "state_dtype": "int8",
 INT8_LATER_RTOL = {"loss": 5e-4, "grad_norm": 2e-2}
 # phase 10: BERT-large's 16 heads of 64 at 4096 tokens, batch 4
 SPARSE_SHAPE = (4, 4096, 16, 64)
+# phase 12: AlphaFold 2's Evoformer attention at its training crop
+# (Jumper et al. 2021, Supplementary Algorithms 7, 13-14 and 19; OpenFold's
+# training preset): (name, q/k/v [B, N, L, H, D], whether the mask bias
+# requires grad).  Every shape carries a f32 mask bias with EVO_MASKED of
+# its keys at -1e9 and a bf16 pair bias that requires grad.
+EVO_SHAPES = [("msa_row", (1, 128, 256, 8, 32), True),
+              ("triangle", (1, 256, 256, 4, 32), False),
+              ("extra_msa_row", (1, 1024, 256, 8, 8), False)]
+EVO_MASKED = 0.15
 
 # each kernel as the profiler names it -> (its wrapper, whose `launches`
 # counts the wrapper's calls; the device kernels one call runs)
@@ -212,12 +235,20 @@ KERNELS = {"flash_fwd": ("flash_attention_fwd", 1),
            "fused_adam8": ("fused_adam8_leaf", 1),
            "sparse_fwd": ("block_sparse_flash_attention", 1),
            "sparse_dq": ("block_sparse_flash_dq", 1),
-           "sparse_dkv": ("block_sparse_flash_dkv", 1)}
+           "sparse_dkv": ("block_sparse_flash_dkv", 1),
+           "evo_fwd": ("evoformer_flash_forward", 1),
+           "evo_dq": ("evoformer_flash_dq", 1),
+           "evo_dkv": ("evoformer_flash_dkv", 1),
+           "evo_db2": ("evoformer_flash_db2", 1)}
 # each row of the kernels line -> the wrapper whose counter it reads (the
-# merged wrappers launch the paged kernels on a view of their arena)
+# merged wrappers launch the paged kernels on a view of their arena; the
+# TPU's D-major Evoformer forward is the same kernel as its forward, and
+# its db1 kernel the dk/dv kernel's epilogue, counted where it ran)
 WRAPPERS = {**{k: fn for k, (fn, _) in KERNELS.items()},
             "merged_decode": "merged_decode_attention",
-            "merged_prefill": "merged_prefill_attention"}
+            "merged_prefill": "merged_prefill_attention",
+            "evo_fwd_dmajor": "evoformer_flash_forward",
+            "evo_db1": "evoformer_flash_db1"}
 
 
 def fail(msg):
@@ -1795,7 +1826,17 @@ def check_sparse(torch, np, sa, sf, dev):
                  num_heads=2, block=8).make_layout(64), 8, True),
              (1, 1024, 4, 128, f32, sa.FixedSparsityConfig(
                  num_heads=4, block=32, num_local_blocks=2,
-                 attention="unidirectional").make_layout(1024), 32, True)]
+                 attention="unidirectional").make_layout(1024), 32, True),
+             # head dims 192 and 256 (the JAX gate's D % 64 == 0); block
+             # 128 at D 256 takes the backward kernels' split tile
+             (1, 512, 2, 192, bf16, sa.BigBirdSparsityConfig(
+                 num_heads=2, block=64).make_layout(512), 64, False),
+             (1, 1024, 2, 256, bf16, sa.FixedSparsityConfig(
+                 num_heads=2, block=128, num_local_blocks=2,
+                 attention="unidirectional").make_layout(1024), 128, True),
+             (1, 256, 2, 256, f32, sa.FixedSparsityConfig(
+                 num_heads=2, block=32, num_local_blocks=2).make_layout(256),
+              32, False)]
     errs = {"fwd": [], "dq": [], "dkv": []}
     main = None
     for b_, s_, h_, d_, dt_, lay, bl, causal in cases:
@@ -1977,6 +2018,346 @@ def sparse_path(torch, np, sa, sf, fa, counters, shape=SPARSE_SHAPE,
 
 
 # ----------------------------------------------------------------------
+# phase 1: the Evoformer kernels
+# ----------------------------------------------------------------------
+def evo_inputs(torch, g, dev, B, N, L, H, D, dtype, which="both",
+               mask_row=False):
+    """q, k, v in `dtype`, a f32 mask bias with EVO_MASKED of its keys at
+    -1e9 (with `mask_row`, row 0 at -1e30 on every key) and a bf16 pair
+    bias; `which` keeps "b1", "b2", "both" or "none" of the biases."""
+    q, k, v = (torch.randn(B, N, L, H, D, generator=g, device=dev,
+                           dtype=dtype) for _ in range(3))
+    b1 = torch.where(torch.rand(B, N, 1, 1, L, generator=g, device=dev)
+                     < EVO_MASKED, -1e9, 0.0)
+    if mask_row:
+        b1[0, 0] = -1e30
+    b2 = torch.randn(B, 1, H, L, L, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    return (q, k, v, b1 if which in ("b1", "both") else None,
+            b2 if which in ("b2", "both") else None)
+
+
+def evo_work(q, b1, b2, need_db1):
+    """(FLOPs, bytes) of each Evoformer kernel and of the whole backward:
+    2 D FLOPs per product element over the B*N*H*L*L scores, 2 products in
+    the forward, 3 in dq, 4 in dk/dv, 2 in db2 and 5 in the backward
+    (dq, dk, dv need S and dP); every input read once, every output
+    written once, delta [B*N, H, L] f32 an output of dq and an input of
+    dk/dv and db2."""
+    B, N, L, H, D = q.shape
+    t = q.numel() * q.element_size()
+    rows = B * N * H * L * 4
+    bias = sum(b.numel() * b.element_size() for b in (b1, b2)
+               if b is not None)
+    db1 = b1.numel() * b1.element_size() if need_db1 else 0
+    db2 = b2.numel() * b2.element_size() if b2 is not None else 0
+    f = 2 * D * B * N * H * L * L
+    return {"fwd": (2 * f, 3 * t + bias + t + rows),
+            "dq": (3 * f, 5 * t + rows + bias + t + rows),
+            "dkv": (4 * f, 4 * t + 2 * rows + bias + 2 * t + db1),
+            "db2": (2 * f, 4 * t + 2 * rows + bias + db2),
+            "bwd": (5 * f, 5 * t + rows + bias + 3 * t + db1 + db2)}
+
+
+def evo_close(got, ref):
+    """The backward limit for a gradient, by its dtype: (ok, max|d| /
+    max|plain|)."""
+    import torch
+    bf = got.dtype == torch.bfloat16
+    return bwd_close(got, ref, BWD_RTOL if bf else 0.0,
+                     BWD_ATOL_REL if bf else BWD_F32_REL)
+
+
+def evo_sdpa_times(torch, q, k, v, b1, b2, do, timer=time_ms):
+    """SDPA over [B*N, H, L, D] with b1 + b2 summed into one dense float
+    mask [B*N, H, L, L] in q's dtype that requires grad where the backend
+    gives its gradient: (forward ms, backward ms as forward + backward
+    less forward, the backend, whether the mask's gradient was taken)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    B, N, L, H, D = q.shape
+    qt, kt, vt, dot = (t.reshape(B * N, L, H, D).transpose(1, 2)
+                       .contiguous() for t in (q, k, v, do))
+    mask = torch.zeros(B, N, H, L, L, device=q.device)
+    for b in (b1, b2):
+        if b is not None:
+            mask = mask + b.float()
+    mask = mask.reshape(B * N, H, L, L).to(q.dtype)
+    for backend, mask_grad in ((SDPBackend.EFFICIENT_ATTENTION, True),
+                               (SDPBackend.MATH, True)):
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        m = mask.detach().requires_grad_(mask_grad)
+        wrt = leaves + ([m] if mask_grad else [])
+
+        def fwd():
+            with torch.no_grad(), sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(*leaves, attn_mask=m)
+
+        def fwd_bwd():
+            with sdpa_kernel([backend]):
+                o = F.scaled_dot_product_attention(*leaves, attn_mask=m)
+            torch.autograd.grad(o, wrt, dot)
+
+        try:
+            fwd_bwd()
+        except RuntimeError as err:
+            print(f"  (SDPA {backend.name} with mask grad {mask_grad}: "
+                  f"{str(err).splitlines()[0][:120]})")
+            continue
+        f = timer(fwd, iters=5, warmup=1)
+        b = timing_less(timer(fwd_bwd, iters=5, warmup=1), f)
+        return f, b, backend.name, mask_grad
+    fail("no SDPA backend runs the Evoformer shapes with a dense mask")
+
+
+# (B, N, L, H, D, dtype, biases, a fully masked row): phase 12's MSA row
+# shape first (timed), then D 8 (the extra-MSA width), D 64 with the mask
+# bias only, D 128 with the pair bias only, f32, a tail (L 100) with a
+# fully masked row, no bias at D 16
+def evo_cases(torch):
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [EVO_SHAPES[0][1] + (bf16, "both", False),
+            (1, 16, 256, 8, 8, bf16, "both", False),
+            (1, 8, 128, 4, 64, bf16, "b1", False),
+            (1, 4, 128, 2, 128, bf16, "b2", False),
+            (1, 4, 128, 4, 32, f32, "both", False),
+            (1, 4, 100, 4, 32, bf16, "both", True),
+            (1, 4, 64, 2, 16, bf16, "none", False)]
+
+
+def check_evoformer(torch, ef, dev):
+    """The forward, dq, dk/dv (+db1) and db2 kernels against their plain
+    versions at `evo_cases`; the backward run twice (bit-identical);
+    timed at phase 12's MSA row shape beside SDPA with the summed bias as
+    a dense mask."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    errs = {n: [] for n in ("fwd", "dq", "dkv", "db2", "db1")}
+    rel = {n: 0.0 for n in ("dq", "dk", "dv", "db1", "db2")}
+    main = None
+    for B, N, L, H, D, dt, which, mask_row in evo_cases(torch):
+        q, k, v, b1, b2 = evo_inputs(torch, g, dev, B, N, L, H, D, dt,
+                                     which, mask_row)
+        do = torch.randn(B, N, L, H, D, generator=g, device=dev, dtype=dt)
+        out, lse = ef.evoformer_flash_forward(q, k, v, b1, b2,
+                                              return_lse=True)
+        ref, ref_lse = ef.evoformer_flash_forward_reference(q, k, v, b1, b2)
+        dq, delta = ef.evoformer_flash_dq(q, k, v, b1, b2, out, do, lse)
+        dk, dv, db1 = ef.evoformer_flash_dkv(q, k, v, b1, b2, do, lse,
+                                             delta)
+        db2 = (ef.evoformer_flash_db2(q, k, v, b1, b2, do, lse, delta)
+               if b2 is not None else None)
+        again = ef.evoformer_flash_backward(q, k, v, b1, b2, out, do, lse)
+        want = ef.evoformer_flash_backward_reference(q, k, v, b1, b2, out,
+                                                     do, lse)
+        torch.cuda.synchronize()
+        got = (dq, dk, dv, db1, db2)
+        bf = dt == torch.bfloat16
+        fwd_ok = (kernel_close(out, ref) if bf else
+                  max_err(out, ref) <= BWD_F32_REL * max(
+                      float(ref.abs().max()), 1.0))
+        el = max_err(lse, ref_lse)
+        ed = max_err(delta, ef._delta(out, do))
+        res = {n: evo_close(a, b) for n, a, b in zip(
+            ("dq", "dk", "dv", "db1", "db2"), got, want) if b is not None}
+        same = all(a is None or torch.equal(a, b)
+                   for a, b in zip(got, again))
+        desc = (f"B={B} N={N} L={L} H={H} D={D} {str(dt)[6:]} biases "
+                f"{which}" + (" masked row" if mask_row else ""))
+        print(f"  evoformer {desc}: max|dout|={max_err(out, ref):.3e} "
+              f"max|dlse|={el:.3e} max|ddelta|={ed:.3e}; max|d| / "
+              f"max|plain| " + ", ".join(f"{n} {r[1]:.3e}"
+                                         for n, r in res.items())
+              + f"; rerun bit-identical: {same}")
+        masked_ok = True
+        if mask_row:
+            masked_ok = (bool((out[0, 0] == 0).all())
+                         and float(lse.view(B, N, H, L)[0, 0].max()) <= -1e29
+                         and all(bool(torch.isfinite(t).all())
+                                 for t in got if t is not None)
+                         and bool((dq[0, 0] == 0).all()))
+        if not (fwd_ok and el <= LSE_ATOL and ed <= 1e-5 * max(
+                float(delta.abs().max()), 1.0) and same and masked_ok
+                and all(r[0] for r in res.values())):
+            fail(f"Evoformer kernels disagree with their plain versions at "
+                 f"{desc}: out {max_err(out, ref)} (tol {TOL_TEXT}), lse "
+                 f"{el}, delta {ed}, backward {res} (tol {BWD_TOL_TEXT}), "
+                 f"rerun equal {same}, masked row {masked_ok}")
+        errs["fwd"].append(max_err(out, ref))
+        errs["dq"].append(max_err(dq, want[0]))
+        errs["dkv"].append(max(max_err(dk, want[1]), max_err(dv, want[2])))
+        if db1 is not None:
+            errs["db1"].append(max_err(db1, want[3]))
+        if db2 is not None:
+            errs["db2"].append(max_err(db2, want[4]))
+        for n, r in res.items():
+            rel[n] = max(rel[n], r[1])
+        if main is None:
+            main = (q, k, v, b1, b2, out, lse, do, delta)
+        del want, again, got, ref
+    q, k, v, b1, b2, out, lse, do, delta = main
+    torch.cuda.empty_cache()
+    ms = {"fwd": time_ms(lambda: ef.evoformer_flash_forward(
+              q, k, v, b1, b2, return_lse=True)),
+          "dq": time_ms(lambda: ef.evoformer_flash_dq(
+              q, k, v, b1, b2, out, do, lse)),
+          "dkv": time_ms(lambda: ef.evoformer_flash_dkv(
+              q, k, v, b1, b2, do, lse, delta)),
+          "db2": time_ms(lambda: ef.evoformer_flash_db2(
+              q, k, v, b1, b2, do, lse, delta))}
+    plain = {"fwd": time_ms(lambda: ef.evoformer_flash_forward_reference(
+                 q, k, v, b1, b2), iters=3, warmup=1),
+             "dq": time_ms(lambda: ef.evoformer_flash_dq_reference(
+                 q, k, v, b1, b2, out, do, lse), iters=3, warmup=1),
+             "dkv": time_ms(lambda: ef.evoformer_flash_dkv_reference(
+                 q, k, v, b1, b2, do, lse, delta), iters=3, warmup=1),
+             "db2": time_ms(lambda: ef.evoformer_flash_db2_reference(
+                 q, k, v, b1, b2, do, lse, delta), iters=3, warmup=1)}
+    lib_fwd, lib_bwd, backend, mask_grad = evo_sdpa_times(
+        torch, q, k, v, b1, b2, do)
+    work = evo_work(q, b1, b2, need_db1=True)
+    B, N, L, H, D = q.shape
+    shape = (f"q/k/v [{B},{N},{L},{H},{D}] bf16, b1 f32 ({EVO_MASKED:.0%} "
+             f"of keys at -1e9), b2 bf16 (AlphaFold 2 MSA row attention)")
+    note_bwd = (f"SDPA backward ({backend}, fwd+bwd less fwd): dq, dk, dv"
+                + (" and the dense mask's gradient" if mask_grad else
+                   " (no mask gradient)") + " in one call")
+    rows = []
+    for name, kname, line, kernel in (
+            ("evo_fwd", "fwd", "evoformer_flash.py:156", "fwd"),
+            ("evo_fwd_dmajor", "fwd", "evoformer_flash.py:613", "fwd"),
+            ("evo_dq", "dq", "evoformer_flash.py:379", "dq"),
+            ("evo_dkv", "dkv", "evoformer_flash.py:405", "dkv"),
+            ("evo_db2", "db2", "evoformer_flash.py:442", "db2"),
+            ("evo_db1", "dkv", "evoformer_flash.py:479", "db1")):
+        bms, by = bound_ms(*work[kname])
+        row = dict(name=name, route="cuda",
+                   source="deepspeed_tpu_torch/csrc/evoformer_flash.cu",
+                   replaces=f"deepspeed_tpu/ops/{line}", shape=shape,
+                   max_abs_err=max(errs[kernel]), ms=ms[kname],
+                   plain_ms=plain[kname], bound_ms=bms, bound_by=by,
+                   library_ms=lib_fwd if kname == "fwd" else lib_bwd,
+                   library_note=(f"SDPA forward ({backend}) with b1 + b2 as "
+                                 f"a dense float mask" if kname == "fwd"
+                                 else note_bwd))
+        if name == "evo_fwd_dmajor":
+            row["note"] = ("the TPU's D-major twin of the forward; the same "
+                           "kernel here")
+        if name == "evo_db1":
+            row["note"] = ("the dk/dv kernel's epilogue (its ms and bound "
+                           "are the dk/dv kernel's with db1)")
+        rows.append(row)
+    print(f"  Evoformer at the MSA row shape: " + ", ".join(
+        f"{r['name']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
+        f"{r['bound_by']}, plain {r['plain_ms']:.4f})" for r in rows
+        if r["name"] not in ("evo_fwd_dmajor", "evo_db1"))
+        + f"; SDPA {backend} {lib_fwd:.4f} / {lib_bwd:.4f} ms (mask grad "
+          f"{mask_grad}); highest max|d| / max|plain| " + ", ".join(
+              f"{n} {r:.3e}" for n, r in rel.items()))
+    return rows
+
+
+# ----------------------------------------------------------------------
+# phase 12: Evoformer attention through evoformer_attention
+# ----------------------------------------------------------------------
+def evoformer_path(torch, evo, ef, counters, shapes=EVO_SHAPES,
+                   dev="cuda"):
+    """Phase 12 (see the module docstring)."""
+    total = {c.__name__: 0 for c in counters}
+    results = []
+    for name, shape, b1_grad in shapes:
+        B, N, L, H, D = shape
+        g = torch.Generator(device=dev).manual_seed(13)
+        q, k, v, b1, b2 = evo_inputs(torch, g, dev, B, N, L, H, D,
+                                     torch.bfloat16)
+        b1.requires_grad_(b1_grad)
+        leaves = [t.requires_grad_() for t in (q, k, v, b2)] + (
+            [b1] if b1_grad else [])
+
+        def run():
+            for t in leaves:
+                t.grad = None
+            out = evo.evoformer_attention(q, k, v, (b1, b2))
+            (out.float() ** 2).sum().backward()
+            torch.cuda.synchronize()
+            return out.detach(), [t.grad for t in leaves]
+
+        for c in counters:
+            c.launches = 0
+        out, grads = run()
+        launches = {c.__name__: c.launches for c in counters}
+        for k_, n in launches.items():
+            total[k_] += n
+        out_again, grads_again = run()
+        same = torch.equal(out, out_again) and all(
+            torch.equal(a, b) for a, b in zip(grads, grads_again))
+        del out_again, grads_again
+        # the plain versions on the same inputs and residuals
+        qd, kd, vd, b1d, b2d = (t.detach() for t in (q, k, v, b1, b2))
+        with torch.no_grad():
+            out2, lse = ef.evoformer_flash_forward(qd, kd, vd, b1d, b2d,
+                                                   return_lse=True)
+            ref, ref_lse = ef.evoformer_flash_forward_reference(
+                qd, kd, vd, b1d, b2d)
+            do = (2 * out2.float()).to(out2.dtype)   # d(sum out^2)/d out
+            want = ef.evoformer_flash_backward_reference(
+                qd, kd, vd, b1d, b2d, out2, do, lse, need_db1=b1_grad)
+        names = ("dq", "dk", "dv", "db2") + (("db1",) if b1_grad else ())
+        refs = want[:3] + (want[4],) + ((want[3],) if b1_grad else ())
+        res = {n: evo_close(gr, r) for n, gr, r in zip(names, grads, refs)}
+        el = max_err(lse, ref_lse)
+        finite = all(bool(torch.isfinite(t).all()) for t in grads)
+        max_dout = max_err(out, ref)
+        out_ok = torch.equal(out, out2) and kernel_close(out, ref)
+        del want, refs, ref, ref_lse, grads
+        torch.cuda.empty_cache()
+        fwd_ms = time_ms(lambda: ef.evoformer_flash_forward(
+            qd, kd, vd, b1d, b2d, return_lse=True))
+        bwd_ms = time_ms(lambda: ef.evoformer_flash_backward(
+            qd, kd, vd, b1d, b2d, out2, do, lse, need_db1=b1_grad))
+        work = evo_work(qd, b1d, b2d, b1_grad)
+        fwd_bound, bwd_bound = bound_ms(*work["fwd"]), bound_ms(*work["bwd"])
+        sdpa_fwd, sdpa_bwd, backend, mask_grad = evo_sdpa_times(
+            torch, qd, kd, vd, b1d, b2d, do)
+        row = dict(shape_name=name, shape=list(shape),
+                   b1_requires_grad=b1_grad, launches=launches,
+                   rerun_bit_identical=same,
+                   max_abs_dout=max_dout, max_abs_dlse=el,
+                   rel_grad_err={n: r[1] for n, r in res.items()},
+                   fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound[0],
+                   fwd_bound_by=fwd_bound[1], bwd_ms=bwd_ms,
+                   bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
+                   sdpa_backend=backend, sdpa_mask_grad=mask_grad,
+                   sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd,
+                   clocks={"fwd_ms": fwd_ms.clock, "bwd_ms": bwd_ms.clock,
+                           "sdpa_fwd_ms": sdpa_fwd.clock,
+                           "sdpa_bwd_ms": sdpa_bwd.clock})
+        print(f"phase 12: {name} q/k/v {list(shape)} (mask bias "
+              f"{'requires' if b1_grad else 'without'} grad): launches "
+              f"{launches}; rerun bit-identical: {same}; max|dout| vs plain "
+              f"{max_dout:.3e}, max|dlse| {el:.3e}; grads max|d| / "
+              f"max|plain| " + ", ".join(f"{n} {r[1]:.3e}"
+                                        for n, r in res.items())
+              + f"; forward {fwd_ms:.4f} ms (bound {fwd_bound[0]:.4f}, "
+              f"{fwd_bound[1]}), backward {bwd_ms:.4f} ms (bound "
+              f"{bwd_bound[0]:.4f}, {bwd_bound[1]}); SDPA {backend} (mask "
+              f"grad {mask_grad}) {sdpa_fwd:.4f} / {sdpa_bwd:.4f} ms")
+        want_launches = {c.__name__: 1 for c in counters}
+        want_launches["evoformer_flash_db1"] = int(b1_grad)
+        if launches != want_launches:
+            fail(f"{name}: launches {launches}, want {want_launches}")
+        if not (same and out_ok and el <= LSE_ATOL and finite
+                and all(r[0] for r in res.values())):
+            fail(f"{name}: evoformer_attention disagrees with the plain "
+                 f"versions: rerun equal {same}, out {max_dout} (tol "
+                 f"{TOL_TEXT}), lse {el}, grads {res} (tol {BWD_TOL_TEXT}),"
+                 f" finite {finite}")
+        results.append(row)
+        del q, k, v, b1, b2, leaves, qd, kd, vd, b1d, b2d, out, out2, lse, do
+        torch.cuda.empty_cache()
+    return dict(shapes=results, launches=total)
+
+
+# ----------------------------------------------------------------------
 # phase 11: the 8-bit Adam training step with the fused update
 # ----------------------------------------------------------------------
 # phase 11's control runs: a fault planted in the fused engine
@@ -2145,6 +2526,8 @@ def main(argv=None):
     sys.path.insert(0, root)
     import numpy as np
     from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops import evoformer as evo
+    from deepspeed_tpu_torch.ops import evoformer_flash as ef
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import fused_adam8 as fa8
     from deepspeed_tpu_torch.ops import lora_matmul as lm
@@ -2192,7 +2575,8 @@ def main(argv=None):
                check_lora(torch, np, lm, "cuda"),
                *check_merged(torch, np, pa, pp, pm, "cuda"),
                check_adam8(torch, fa8, topt, "cuda"),
-               *check_sparse(torch, np, sa, sf, "cuda")]
+               *check_sparse(torch, np, sa, sf, "cuda"),
+               *check_evoformer(torch, ef, "cuda")]
     for k in kernels:
         k["clocks"] = clocks(k)
     other = {k["name"]: {t: c for t, c in k["clocks"].items()
@@ -2237,6 +2621,13 @@ def main(argv=None):
         sf.block_sparse_flash_attention, sf.block_sparse_flash_dq,
         sf.block_sparse_flash_dkv])
 
+    # phase 12
+    evoformer = evoformer_path(torch, evo, ef, [
+        ef.evoformer_flash_forward, ef.evoformer_flash_dq,
+        ef.evoformer_flash_dkv, ef.evoformer_flash_db2,
+        ef.evoformer_flash_db1])
+    torch.cuda.empty_cache()
+
     # phase 11 (before the other training phases)
     int8 = train_int8(torch, np, args.train_layers,
                       [fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
@@ -2271,10 +2662,12 @@ def main(argv=None):
     # each path's run: the serving wave (phase 2), the training steps
     # (phase 5), arm B of the multi-tenant wave (phase 8), the merged
     # wave (phase 9), the three layouts' forward and backward (phase 10),
-    # the int8 fused-update training steps (phase 11)
+    # the int8 fused-update training steps (phase 11), the three
+    # Evoformer shapes' forward and backward (phase 12)
     paths = (("serve", served["launches"]), ("train", trained["launches"]),
              ("tenants", tenants["launches"]), ("merged", merged["launches"]),
-             ("sparse", sparse["launches"]), ("train_int8", int8["launches"]))
+             ("sparse", sparse["launches"]), ("train_int8", int8["launches"]),
+             ("evoformer", evoformer["launches"]))
     for k in kernels:
         fn = WRAPPERS[k["name"]]
         by_path = {path: launches[fn] for path, launches in paths
@@ -2286,7 +2679,7 @@ def main(argv=None):
                   tenants=tenants, merged=merged,
                   train=trained, train_profile=tprof, train_plain=tplain,
                   train_control=control, remat=remat, sparse=sparse,
-                  train_int8=int8,
+                  train_int8=int8, evoformer=evoformer,
                   device=dict(kind=kind, nvidia_smi=smi,
                               layers=args.layers,
                               train_layers=args.train_layers))

@@ -427,4 +427,87 @@ __device__ __forceinline__ void attn_tile_any(
   }
 }
 
+// ---------------------------------------------------------------------
+// Fragment helpers of the kernels that stage every operand in shared
+// memory as bf16 rows of leading dim LD and read the mma fragments from
+// there (sparse_flash.cu, evoformer_flash.cu): a warp owns 16 rows, lane
+// (g, t) = (lane / 4, lane % 4) rows g and g + 8.
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+// A fragment (m16n8k16, row-major) of rows r0 and r0 + 8 at column k0.
+__device__ __forceinline__ void frag_a(uint32_t* a, const __nv_bfloat16* tile,
+                                       int LD, int r0, int k0, int t) {
+  const __nv_bfloat16* p = tile + r0 * LD + k0 + 2 * t;
+  a[0] = ld_u32(p);
+  a[1] = ld_u32(p + 8 * LD);
+  a[2] = ld_u32(p + 8);
+  a[3] = ld_u32(p + 8 * LD + 8);
+}
+
+// f32 accumulators of a 16 x 16 tile (n-tiles 0 and 1) as the bf16 A
+// fragment of the next product.
+__device__ __forceinline__ void acc_to_a(uint32_t* a, const float (*s)[4]) {
+  a[0] = pack_bf16(s[0][0], s[0][1]);
+  a[1] = pack_bf16(s[0][2], s[0][3]);
+  a[2] = pack_bf16(s[1][0], s[1][1]);
+  a[3] = pack_bf16(s[1][2], s[1][3]);
+}
+
+// acc[16 x D] += A[16 x 16] * Bt where Bt is a row-major [16, D] shared
+// tile (rows = the contraction dim) read with ldmatrix.trans.
+template <int D>
+__device__ __forceinline__ void mma_rowmajor_b(float (*acc)[4],
+                                               const uint32_t* a,
+                                               const __nv_bfloat16* bt,
+                                               int LD, int lane) {
+  const __nv_bfloat16* row =
+      bt + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+#pragma unroll
+  for (int n = 0; n < D / 16; ++n) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, row + n * 16);
+    mma_bf16(acc[2 * n], a, b[0], b[1]);
+    mma_bf16(acc[2 * n + 1], a, b[2], b[3]);
+  }
+}
+
+// S[16 x 16] (two n-tiles) += A rows (a tile of LD, rows r0/r0+8) times the
+// 16 rows [c0, c0 + 16) of a row-major tile Bt, transposed: S = A Bt^T,
+// contracting D columns.
+template <int D>
+__device__ __forceinline__ void mma_abt(float (*s)[4],
+                                        const __nv_bfloat16* a_tile,
+                                        const __nv_bfloat16* bt, int LD,
+                                        int r0, int c0, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    frag_a(a, a_tile, LD, r0, kk * 16, t);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const __nv_bfloat16* br = bt + (c0 + j * 8 + g) * LD + kk * 16 + 2 * t;
+      mma_bf16(s[j], a, ld_u32(br), ld_u32(br + 8));
+    }
+  }
+}
+
+__device__ __forceinline__ void zero16(float (*s)[4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+}
+
 }  // namespace dstt

@@ -44,6 +44,12 @@
 // them too).  f32 runs on the CUDA cores with exact f32 products: one warp
 // per query row (key row in dk/dv), a lane per key of a 32-key chunk for the
 // scores and the D columns split over the lanes for the products.
+// Head dims 64, 128, 192 and 256 (the JAX gate's D % 64 == 0).  At D 256 a
+// block above 96 rows does not fit its four backward tiles in shared
+// memory (227 KB), so the dq and dk/dv kernels then take a smaller tile:
+// the block's own rows split over two CTAs, each staging the other operand
+// pair whole (`bwd_tiles`).  At D 256 the dk/dv kernel's 256 f32
+// accumulators a thread exceed the 255 registers and spill.
 //
 // What bounds it on the H100 at the main path's shapes ([4, 4096, 16, 64]
 // bf16, 26% of the blocks visited at block 16): operations, 2 (forward) to 4
@@ -63,19 +69,13 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int MAX_BLOCK = 128;
 constexpr int F32_WARPS = 8;
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
+using dstt::acc_to_a;
+using dstt::frag_a;
+using dstt::mma_abt;
+using dstt::mma_rowmajor_b;
+using dstt::warp_max;
+using dstt::warp_sum;
+using dstt::zero16;
 
 // Copy `rows` rows of D bf16 (global row stride `stride`) into a shared
 // tile of `tile_rows` rows of leading dim LD, zero-filling the rest.
@@ -91,68 +91,6 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src, long stride,
         row < rows ? *reinterpret_cast<const uint4*>(src + row * stride + c)
                    : zero;
   }
-}
-
-// A fragment (m16n8k16, row-major) of rows r0 and r0 + 8 at column k0.
-__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* tile, int LD,
-                                       int r0, int k0, int t) {
-  const bf16* p = tile + r0 * LD + k0 + 2 * t;
-  a[0] = dstt::ld_u32(p);
-  a[1] = dstt::ld_u32(p + 8 * LD);
-  a[2] = dstt::ld_u32(p + 8);
-  a[3] = dstt::ld_u32(p + 8 * LD + 8);
-}
-
-// f32 accumulators of a 16 x 16 tile (n-tiles 0 and 1) as the bf16 A
-// fragment of the next product.
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float (*s)[4]) {
-  a[0] = dstt::pack_bf16(s[0][0], s[0][1]);
-  a[1] = dstt::pack_bf16(s[0][2], s[0][3]);
-  a[2] = dstt::pack_bf16(s[1][0], s[1][1]);
-  a[3] = dstt::pack_bf16(s[1][2], s[1][3]);
-}
-
-// acc[16 x D] += A[16 x 16] * Bt where Bt is a row-major [16, D] shared
-// tile (rows = the contraction dim) read with ldmatrix.trans.
-template <int D>
-__device__ __forceinline__ void mma_rowmajor_b(float (*acc)[4],
-                                               const uint32_t* a,
-                                               const bf16* bt, int LD,
-                                               int lane) {
-  const bf16* row =
-      bt + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    uint32_t b[4];
-    dstt::ldmatrix_x4_trans(b, row + n * 16);
-    dstt::mma_bf16(acc[2 * n], a, b[0], b[1]);
-    dstt::mma_bf16(acc[2 * n + 1], a, b[2], b[3]);
-  }
-}
-
-// S[16 x 16] (two n-tiles) += A rows (a tile of LD, rows r0/r0+8) times the
-// 16 rows [c0, c0 + 16) of a row-major tile Bt, transposed: S = A Bt^T.
-template <int D>
-__device__ __forceinline__ void mma_abt(float (*s)[4], const bf16* a_tile,
-                                        const bf16* bt, int LD, int r0,
-                                        int c0, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    frag_a(a, a_tile, LD, r0, kk * 16, t);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const bf16* br = bt + (c0 + j * 8 + g) * LD + kk * 16 + 2 * t;
-      dstt::mma_bf16(s[j], a, dstt::ld_u32(br), dstt::ld_u32(br + 8));
-    }
-  }
-}
-
-__device__ __forceinline__ void zero16(float (*s)[4]) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 }
 
 template <int D>
@@ -284,61 +222,78 @@ sparse_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// Shared memory of the dq and dk/dv kernels: the CTA's own tile (`rows`
+// query rows in dq, key rows in dk/dv; two operands) and the other
+// operand pair of a whole block (`other` rows), plus lse and delta.
 template <int D>
-__host__ __device__ constexpr int bwd_smem(int rows) {
-  return 4 * rows * ld_bf16<D>() * 2 + 2 * rows * 4;
+__host__ __device__ constexpr int bwd_smem(int rows, int other) {
+  return 2 * (rows + other) * ld_bf16<D>() * 2 +
+         2 * (rows > other ? rows : other) * 4;
 }
 
 // delta = rowsum(dO * O) of a staged dO tile's rows [0, n) (rows past n
-// get 0): the CTA has two threads per tile row (32 per 16 rows), each sums
-// half the row from 16-byte loads, and the pair adds with one shuffle.
+// get 0, up to tile_rows): two threads per tile row, each sums half the
+// row from 16-byte loads, and the pair adds with one shuffle; the CTA
+// walks the tile blockDim/2 rows at a time.
 template <int D>
 __device__ __forceinline__ void tile_delta(float* delta_s, const bf16* dOs,
                                            const bf16* o, long stride,
-                                           int n) {
+                                           int n, int tile_rows) {
   constexpr int LD = ld_bf16<D>();
-  const int row = threadIdx.x >> 1;
   const int c0 = (threadIdx.x & 1) * (D / 2);
-  float part = 0.f;
-  if (row < n) {
+  for (int base = 0; base < tile_rows; base += blockDim.x / 2) {
+    const int row = base + (threadIdx.x >> 1);
+    float part = 0.f;
+    if (row < n) {
 #pragma unroll
-    for (int c = c0; c < c0 + D / 2; c += 8) {
-      const uint4 a = *reinterpret_cast<const uint4*>(dOs + row * LD + c);
-      const uint4 b = *reinterpret_cast<const uint4*>(o + row * stride + c);
-      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
-      const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+      for (int c = c0; c < c0 + D / 2; c += 8) {
+        const uint4 a = *reinterpret_cast<const uint4*>(dOs + row * LD + c);
+        const uint4 b =
+            *reinterpret_cast<const uint4*>(o + row * stride + c);
+        const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 xf = __bfloat1622float2(x[e]);
-        const float2 yf = __bfloat1622float2(y[e]);
-        part += xf.x * yf.x + xf.y * yf.y;
+        for (int e = 0; e < 4; ++e) {
+          const float2 xf = __bfloat1622float2(x[e]);
+          const float2 yf = __bfloat1622float2(y[e]);
+          part += xf.x * yf.x + xf.y * yf.y;
+        }
       }
     }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if ((threadIdx.x & 1) == 0 && row < tile_rows) delta_s[row] = part;
   }
-  part += __shfl_xor_sync(0xffffffffu, part, 1);
-  if ((threadIdx.x & 1) == 0) delta_s[row] = part;
 }
 
+// The backward kernels take blockDim / 2 rows of their block per CTA
+// (16 a warp) and `split` CTAs per block: split is 1 but where a whole
+// block's four tiles do not fit in shared memory (D 256 at blocks above
+// 96), where each CTA takes a part of the block's own rows and the other
+// operand pair whole.
 template <int D>
 __global__ void __launch_bounds__(256)
 sparse_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ o,
               const float* __restrict__ lse, const bf16* __restrict__ dout,
               bf16* __restrict__ dq, const int* __restrict__ idx, int S,
-              int H, int block, int A, int causal, float sm_scale) {
+              int H, int block, int A, int causal, float sm_scale,
+              int split) {
   constexpr int LD = ld_bf16<D>();
-  const int rows = blockDim.x / 2;
+  const int rows = blockDim.x / 2;             // this CTA's query rows
+  const int krows = (block + 15) / 16 * 16;    // a key block's tile rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* dOs = Qs + rows * LD;
   bf16* Ks = dOs + rows * LD;
-  bf16* Vs = Ks + rows * LD;
-  float* lse_s = reinterpret_cast<float*>(Vs + rows * LD);
+  bf16* Vs = Ks + krows * LD;
+  float* lse_s = reinterpret_cast<float*>(Vs + krows * LD);
   float* delta_s = lse_s + rows;
 
-  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int qb = blockIdx.x / split, h = blockIdx.y, b = blockIdx.z;
+  const int row0 = (blockIdx.x % split) * rows;
+  const int nrows = min(rows, block - row0);
   const int nqb = S / block;
-  const int q0 = qb * block;
+  const int q0 = qb * block + row0;            // this CTA's first row
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16 + g;
@@ -346,13 +301,13 @@ sparse_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long head = (long)b * S * stride + (long)h * D;
   const long qbase = head + (long)q0 * stride;
 
-  stage<D, LD>(Qs, q + qbase, stride, block, rows);
-  stage<D, LD>(dOs, dout + qbase, stride, block, rows);
+  stage<D, LD>(Qs, q + qbase, stride, nrows, rows);
+  stage<D, LD>(dOs, dout + qbase, stride, nrows, rows);
   for (int r = threadIdx.x; r < rows; r += blockDim.x)
-    lse_s[r] = r < block ? lse[((long)b * H + h) * S + q0 + r] * LOG2E
+    lse_s[r] = r < nrows ? lse[((long)b * H + h) * S + q0 + r] * LOG2E
                          : INFINITY;   // padding rows: P = 0
   __syncthreads();
-  tile_delta<D>(delta_s, dOs, o + qbase, stride, block);
+  tile_delta<D>(delta_s, dOs, o + qbase, stride, nrows, rows);
   __syncthreads();
   const float lse_r[2] = {lse_s[r0], lse_s[r0 + 8]};
   const float delta_r[2] = {delta_s[r0], delta_s[r0 + 8]};
@@ -371,8 +326,8 @@ sparse_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (kb < 0) break;
     const int k0 = kb * block;
     __syncthreads();
-    stage<D, LD>(Ks, k + head + (long)k0 * stride, stride, block, rows);
-    stage<D, LD>(Vs, v + head + (long)k0 * stride, stride, block, rows);
+    stage<D, LD>(Ks, k + head + (long)k0 * stride, stride, block, krows);
+    stage<D, LD>(Vs, v + head + (long)k0 * stride, stride, block, krows);
     __syncthreads();
     for (int kc = 0; kc < block; kc += 16) {
       float s[2][4], dp[2][4];
@@ -399,7 +354,7 @@ sparse_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = r0 + 8 * hh;
-    if (r >= block) continue;
+    if (r >= nrows) continue;
     bf16* row = dq + qbase + (long)r * stride;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
@@ -416,31 +371,34 @@ sparse_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const float* __restrict__ lse, const bf16* __restrict__ dout,
                bf16* __restrict__ dk, bf16* __restrict__ dv,
                const int* __restrict__ rev, int S, int H, int block, int R,
-               int causal, float sm_scale) {
+               int causal, float sm_scale, int split) {
   constexpr int LD = ld_bf16<D>();
-  const int rows = blockDim.x / 2;
+  const int rows = blockDim.x / 2;             // this CTA's key rows
+  const int qrows = (block + 15) / 16 * 16;    // a q-block's tile rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + rows * LD;
   bf16* Qs = Vs + rows * LD;
-  bf16* dOs = Qs + rows * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + rows * LD);
-  float* delta_s = lse_s + rows;
+  bf16* dOs = Qs + qrows * LD;
+  float* lse_s = reinterpret_cast<float*>(dOs + qrows * LD);
+  float* delta_s = lse_s + qrows;
 
-  const int kbi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kbi = blockIdx.x / split, h = blockIdx.y, b = blockIdx.z;
+  const int row0 = (blockIdx.x % split) * rows;
+  const int nrows = min(rows, block - row0);
   const int nkb = S / block;
-  const int k0 = kbi * block;
+  const int k0 = kbi * block + row0;           // this CTA's first key
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16 + g;   // key rows r0 and r0 + 8
   const long stride = (long)H * D;
   const long head = (long)b * S * stride + (long)h * D;
   const int kp[2] = {k0 + r0, k0 + r0 + 8};
-  const bool kvalid[2] = {r0 < block, r0 + 8 < block};
+  const bool kvalid[2] = {r0 < nrows, r0 + 8 < nrows};
   const float scale2 = sm_scale * LOG2E;
 
-  stage<D, LD>(Ks, k + head + (long)k0 * stride, stride, block, rows);
-  stage<D, LD>(Vs, v + head + (long)k0 * stride, stride, block, rows);
+  stage<D, LD>(Ks, k + head + (long)k0 * stride, stride, nrows, rows);
+  stage<D, LD>(Vs, v + head + (long)k0 * stride, stride, nrows, rows);
 
   float dkacc[D / 8][4], dvacc[D / 8][4];
 #pragma unroll
@@ -455,13 +413,13 @@ sparse_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int q0 = qb * block;
     const long qbase = head + (long)q0 * stride;
     __syncthreads();   // the previous q-block's readers are done
-    stage<D, LD>(Qs, q + qbase, stride, block, rows);
-    stage<D, LD>(dOs, dout + qbase, stride, block, rows);
-    for (int i = threadIdx.x; i < rows; i += blockDim.x)
+    stage<D, LD>(Qs, q + qbase, stride, block, qrows);
+    stage<D, LD>(dOs, dout + qbase, stride, block, qrows);
+    for (int i = threadIdx.x; i < qrows; i += blockDim.x)
       lse_s[i] = i < block ? lse[((long)b * H + h) * S + q0 + i] * LOG2E
                            : INFINITY;
     __syncthreads();
-    tile_delta<D>(delta_s, dOs, o + qbase, stride, block);
+    tile_delta<D>(delta_s, dOs, o + qbase, stride, block, qrows);
     __syncthreads();
     for (int qc = 0; qc < block; qc += 16) {
       float st[2][4], dpt[2][4];
@@ -493,7 +451,7 @@ sparse_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = r0 + 8 * hh;
-    if (r >= block) continue;
+    if (r >= nrows) continue;
     bf16* dkr = dk + head + (long)(k0 + r) * stride;
     bf16* dvr = dv + head + (long)(k0 + r) * stride;
 #pragma unroll
@@ -716,12 +674,29 @@ struct Shape {
 bool bad(const Shape& s, int dtype) {
   return s.B <= 0 || s.S <= 0 || s.H <= 0 || s.n <= 0 || s.block < 8 ||
          s.block > MAX_BLOCK || s.block % 8 || s.S % s.block ||
-         (s.D != 64 && s.D != 128) || (dtype != 0 && dtype != 1);
+         (s.D != 64 && s.D != 128 && s.D != 192 && s.D != 256) ||
+         (dtype != 0 && dtype != 1);
 }
 
 // threads and dynamic shared memory of the bf16 kernels: one 16-row warp
 // per 16 rows of the block
 int mma_threads(int block) { return 32 * ((block + 15) / 16); }
+
+constexpr int MAX_SMEM = 227 * 1024;   // a CTA's dynamic shared memory
+
+// The backward kernels' rows per CTA (a multiple of 16) and CTAs per
+// block: the whole block in one CTA where its tiles fit, else the block's
+// own rows split over the fewest CTAs whose tiles do.
+template <int D>
+void bwd_tiles(int block, int* rows, int* split) {
+  const int whole = (block + 15) / 16 * 16;
+  *split = 1;
+  *rows = whole;
+  while (bwd_smem<D>(*rows, whole) > MAX_SMEM) {
+    ++*split;
+    *rows = ((block + *split - 1) / *split + 15) / 16 * 16;
+  }
+}
 
 template <typename K>
 int set_smem(K kern, int bytes) {
@@ -757,14 +732,16 @@ int dq(const void* q, const void* k, const void* v, const void* o,
        const void* lse, const void* dout, void* dqo, const void* idx,
        const Shape& s, int dtype, cudaStream_t st) {
   if (dtype == 1) {
-    const int threads = mma_threads(s.block);
-    const int smem = bwd_smem<D>(threads / 2);
+    int rows, split;
+    bwd_tiles<D>(s.block, &rows, &split);
+    const int smem = bwd_smem<D>(rows, (s.block + 15) / 16 * 16);
     int err = set_smem(sparse_dq_mma<D>, smem);
     if (err) return err;
-    sparse_dq_mma<D><<<dim3(s.S / s.block, s.H, s.B), threads, smem, st>>>(
+    sparse_dq_mma<D><<<dim3(s.S / s.block * split, s.H, s.B), 2 * rows,
+                       smem, st>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
         (const float*)lse, (const bf16*)dout, (bf16*)dqo, (const int*)idx,
-        s.S, s.H, s.block, s.n, s.causal, s.scale);
+        s.S, s.H, s.block, s.n, s.causal, s.scale, split);
   } else {
     sparse_dq_f32<D><<<dim3((s.S + F32_WARPS - 1) / F32_WARPS, s.H, s.B),
                        F32_WARPS * 32, 0, st>>>(
@@ -780,14 +757,16 @@ int dkv(const void* q, const void* k, const void* v, const void* o,
         const void* lse, const void* dout, void* dko, void* dvo,
         const void* rev, const Shape& s, int dtype, cudaStream_t st) {
   if (dtype == 1) {
-    const int threads = mma_threads(s.block);
-    const int smem = bwd_smem<D>(threads / 2);
+    int rows, split;
+    bwd_tiles<D>(s.block, &rows, &split);
+    const int smem = bwd_smem<D>(rows, (s.block + 15) / 16 * 16);
     int err = set_smem(sparse_dkv_mma<D>, smem);
     if (err) return err;
-    sparse_dkv_mma<D><<<dim3(s.S / s.block, s.H, s.B), threads, smem, st>>>(
+    sparse_dkv_mma<D><<<dim3(s.S / s.block * split, s.H, s.B), 2 * rows,
+                        smem, st>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
         (const float*)lse, (const bf16*)dout, (bf16*)dko, (bf16*)dvo,
-        (const int*)rev, s.S, s.H, s.block, s.n, s.causal, s.scale);
+        (const int*)rev, s.S, s.H, s.block, s.n, s.causal, s.scale, split);
   } else {
     sparse_dkv_f32<D><<<dim3((s.S + F32_WARPS - 1) / F32_WARPS, s.H, s.B),
                         F32_WARPS * 32, 0, st>>>(
@@ -797,6 +776,13 @@ int dkv(const void* q, const void* k, const void* v, const void* o,
   }
   return (int)cudaGetLastError();
 }
+
+// The launcher F<D> for head dim D (one of the four `bad` lets through).
+#define SPARSE_BY_D(dim, F, ...)                            \
+  ((dim) == 64    ? F<64>(__VA_ARGS__)                      \
+   : (dim) == 128 ? F<128>(__VA_ARGS__)                     \
+   : (dim) == 192 ? F<192>(__VA_ARGS__)                     \
+                  : F<256>(__VA_ARGS__))
 
 }  // namespace
 
@@ -811,8 +797,7 @@ extern "C" int dstt_sparse_fwd(const void* q, const void* k, const void* v,
   const Shape s{B, S, H, D, block, A, causal, scale};
   if (bad(s, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? fwd<64>(q, k, v, o, lse, idx, s, dtype, st)
-                 : fwd<128>(q, k, v, o, lse, idx, s, dtype, st);
+  return SPARSE_BY_D(D, fwd, q, k, v, o, lse, idx, s, dtype, st);
 }
 
 extern "C" int dstt_sparse_dq(const void* q, const void* k, const void* v,
@@ -824,8 +809,7 @@ extern "C" int dstt_sparse_dq(const void* q, const void* k, const void* v,
   const Shape s{B, S, H, D, block, A, causal, scale};
   if (bad(s, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? dq<64>(q, k, v, o, lse, dout, dqo, idx, s, dtype, st)
-                 : dq<128>(q, k, v, o, lse, dout, dqo, idx, s, dtype, st);
+  return SPARSE_BY_D(D, dq, q, k, v, o, lse, dout, dqo, idx, s, dtype, st);
 }
 
 extern "C" int dstt_sparse_dkv(const void* q, const void* k, const void* v,
@@ -837,7 +821,6 @@ extern "C" int dstt_sparse_dkv(const void* q, const void* k, const void* v,
   const Shape s{B, S, H, D, block, R, causal, scale};
   if (bad(s, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64
-             ? dkv<64>(q, k, v, o, lse, dout, dko, dvo, rev, s, dtype, st)
-             : dkv<128>(q, k, v, o, lse, dout, dko, dvo, rev, s, dtype, st);
+  return SPARSE_BY_D(D, dkv, q, k, v, o, lse, dout, dko, dvo, rev, s, dtype,
+                     st);
 }

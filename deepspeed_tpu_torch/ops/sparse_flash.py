@@ -25,7 +25,8 @@ device takes the kernel or an error.  The forward's plain version is also
 the plain path of `sparse_attention.block_sparse_attention`, where
 PyTorch's autograd differentiates it.  The kernels take bf16 (tensor
 cores) or f32 (CUDA cores), blocks that are multiples of 8 up to 128 and
-head dims 64 and 128; other shapes raise.
+head dims 64, 128, 192 and 256 (the JAX gate's `D % 64 == 0`); other
+shapes raise.
 
 Layout is the JAX public one: q, k, v [B, S, H, D].
 """
@@ -48,7 +49,7 @@ __all__ = ["block_sparse_flash_attention", "block_sparse_flash_backward",
            "block_sparse_flash_dkv_reference", "NEG_INF"]
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 192, 256)
 MAX_BLOCK = 128
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = (_P,) * 6 + (_I,) * 7 + (_F, _I, _P)

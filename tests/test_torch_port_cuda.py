@@ -9,10 +9,11 @@ has only PyTorch:
 
 Each kernel is checked in both dtypes it takes: f32, where kernel and
 plain version differ only by the order of f32 sums, and bf16, where the
-output's final rounding adds one bf16 ulp, at every head dim the kernels
-take (32, 64, 128).  The engine tests serve the same wave, and take the
-same training steps, through the kernels and through the plain versions
-(`plain_kernels=True`) in f32.
+output's final rounding adds one bf16 ulp, at the head dims the kernels
+take (32, 64, 128; block-sparse 64-256; Evoformer every D % 8 up to 128,
+whose backward must also rerun bit for bit).  The engine tests serve the
+same wave, and take the same training steps, through the kernels and
+through the plain versions (`plain_kernels=True`) in f32.
 """
 import numpy as np
 import pytest
@@ -23,6 +24,8 @@ from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                               RaggedInferenceEngineConfig,
                                               build_engine)
 from deepspeed_tpu_torch.models import get_model_config
+from deepspeed_tpu_torch.ops import evoformer as tevo
+from deepspeed_tpu_torch.ops import evoformer_flash as tevof
 from deepspeed_tpu_torch.ops import flash_attention as tflash
 from deepspeed_tpu_torch.ops import fused_adam8 as tadam8
 from deepspeed_tpu_torch.ops import lora_matmul as tlora
@@ -436,7 +439,8 @@ def test_fused_adam8_kernel_matches_plain_version(card, gdtype, shape):
     assert inplace[0] is state[4] and inplace[2] is state[0]
 
 
-SPARSE_CASES = [(8, 64), (16, 128), (24, 64), (64, 64), (128, 128)]
+SPARSE_CASES = [(8, 64), (16, 128), (24, 64), (64, 64), (128, 128),
+                (64, 192), (112, 256), (128, 256)]
 
 
 def _sparse_layout(H, nb, seed):
@@ -536,7 +540,7 @@ def test_sparse_self_attention_raises_on_what_the_kernels_do_not_take(
 
 def test_sparse_and_adam8_wrappers_raise_on_what_they_do_not_take(card):
     idx = torch.zeros(2, 2, 1, dtype=torch.int32, device="cuda")
-    for block, D in ((256, 64), (16, 96), (16, 192)):
+    for block, D in ((256, 64), (16, 96), (16, 160)):
         q = _rnd(card, torch.bfloat16, 1, 2 * block, 2, D)
         i2 = torch.zeros(2, 2, 1, dtype=torch.int32, device="cuda")
         with pytest.raises(ValueError, match="block|head dim"):
@@ -601,3 +605,114 @@ def test_int8_fused_training_on_the_card(card):
             else:
                 assert a == pytest.approx(b, rel=2e-3), (step, key)
     assert fused.params["layers"]["wq"].data_ptr() == ptr
+
+
+# (B, N, L, H, D, biases): AlphaFold's widths at small N, the tails of L
+# (100, 77), every D class (8 runs padded to 16, 24 to 32, 48 to 64)
+EVO_CASES = [(1, 4, 256, 8, 32, "both"), (1, 3, 100, 4, 8, "both"),
+             (2, 2, 77, 2, 48, "b1"), (1, 2, 128, 2, 128, "b2"),
+             (1, 3, 64, 2, 24, "none"), (1, 2, 96, 4, 64, "both")]
+
+
+def _evo_inputs(g, dtype, B, N, L, H, D, which, mask_row=False):
+    """q, k, v in `dtype`; b1 f32 with about 15% of keys at -1e9 (and,
+    with `mask_row`, row 0 at -1e30 everywhere); b2 bf16."""
+    q, k, v = (_rnd(g, dtype, B, N, L, H, D) for _ in range(3))
+    b1 = torch.where(torch.rand(B, N, 1, 1, L, generator=g, device="cuda")
+                     < 0.15, -1e9, 0.0)
+    if mask_row:
+        b1[0, 0] = -1e30
+    b2 = _rnd(g, torch.bfloat16, B, 1, H, L, L)
+    return (q, k, v, b1 if which in ("b1", "both") else None,
+            b2 if which in ("b2", "both") else None)
+
+
+@DTYPES
+@pytest.mark.parametrize("B,N,L,H,D,which", EVO_CASES,
+                         ids=[f"L{c[2]}-d{c[4]}-{c[5]}" for c in EVO_CASES])
+def test_evoformer_kernels_match_plain_versions(card, dtype, B, N, L, H, D,
+                                                which):
+    q, k, v, b1, b2 = _evo_inputs(card, dtype, B, N, L, H, D, which,
+                                  mask_row=which == "both")
+    counters = (tevof.evoformer_flash_forward, tevof.evoformer_flash_dq,
+                tevof.evoformer_flash_dkv, tevof.evoformer_flash_db2,
+                tevof.evoformer_flash_db1)
+    before = [c.launches for c in counters]
+    out, lse = tevof.evoformer_flash_forward(q, k, v, b1, b2,
+                                             return_lse=True)
+    ref, ref_lse = tevof.evoformer_flash_forward_reference(q, k, v, b1, b2)
+    _close(out, ref, ATOL[dtype], RTOL[dtype])
+    _close(lse, ref_lse, LSE_ATOL, 1e-6)
+    if which == "both":   # row 0 fully masked: out 0, lse -1e30
+        assert (out[0, 0] == 0).all() and torch.isfinite(lse).all()
+    do = _rnd(card, dtype, B, N, L, H, D)
+    got = tevof.evoformer_flash_backward(q, k, v, b1, b2, out, do, lse)
+    again = tevof.evoformer_flash_backward(q, k, v, b1, b2, out, do, lse)
+    want = tevof.evoformer_flash_backward_reference(q, k, v, b1, b2, out,
+                                                    do, lse)
+    for gt, ag, w in zip(got, again, want):
+        assert (gt is None) == (w is None)
+        if w is None:
+            continue
+        assert gt.shape == w.shape and gt.dtype == w.dtype
+        assert torch.equal(gt, ag)          # no atomics: the same bits
+        # each gradient rounds once to its own dtype (db2 to b2's bf16)
+        scale = max(float(w.float().abs().max()), 1.0)
+        _close(gt, w, BWD_ATOL[gt.dtype] * scale, BWD_RTOL[gt.dtype])
+    _, delta = tevof.evoformer_flash_dq(q, k, v, b1, b2, out, do, lse)
+    _close(delta, tevof._delta(out, do), 1e-5 * max(
+        float(delta.abs().max()), 1.0))
+    # one forward, two backward calls and one more dq
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [1, 3, 2, 2 * int(b2 is not None), 2 * int(b1 is not None)]
+
+
+def test_evoformer_attention_trains_through_the_kernels(card):
+    """evoformer_attention forward and backward on the card (bf16 q/k/v
+    and pair bias, f32 mask bias): one launch of each kernel per call, db1
+    only for a mask bias that requires grad, gradients within the
+    backward tolerance of the plain path's autograd."""
+    q, k, v, b1, b2 = _evo_inputs(card, torch.bfloat16, 1, 8, 128, 4, 32,
+                                  "both")
+    counters = (tevof.evoformer_flash_forward, tevof.evoformer_flash_dq,
+                tevof.evoformer_flash_dkv, tevof.evoformer_flash_db2,
+                tevof.evoformer_flash_db1)
+    grads = []
+    for impl in ("auto", "jnp"):
+        for b1_grad in (False, True):
+            t = [x.clone().requires_grad_() for x in (q, k, v, b2)]
+            bb1 = b1.clone().requires_grad_(b1_grad)
+            before = [c.launches for c in counters]
+            out = tevo.evoformer_attention(t[0], t[1], t[2], (bb1, t[3]),
+                                           impl=impl)
+            (out.float() ** 2).sum().backward()
+            torch.cuda.synchronize()
+            launched = [c.launches - b for c, b in zip(counters, before)]
+            assert launched == ([1, 1, 1, 1, int(b1_grad)] if impl == "auto"
+                                else [0] * 5)
+            assert (bb1.grad is None) != b1_grad
+            if b1_grad:
+                grads.append([x.grad for x in t] + [bb1.grad])
+    for g, w in zip(*grads):
+        scale = max(float(w.float().abs().max()), 1.0)
+        _close(g, w, BWD_ATOL[torch.bfloat16] * scale * 2,
+               BWD_RTOL[torch.bfloat16] * 2)
+
+
+def test_evoformer_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    for D in (12, 136):
+        q = _rnd(card, torch.bfloat16, 1, 2, 16, 2, D)
+        with pytest.raises(ValueError, match="head dim"):
+            tevof.evoformer_flash_forward(q, q, q)
+        with pytest.raises(ValueError, match="head dim"):
+            tevo.evoformer_attention(q, q, q)
+    q = _rnd(card, torch.float16, 1, 2, 16, 2, 32)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tevof.evoformer_flash_forward(q, q, q)
+    q = _rnd(card, torch.bfloat16, 1, 2, 16, 2, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        tevof.evoformer_flash_forward(q.transpose(1, 2).contiguous()
+                                      .transpose(1, 2), q, q)
+    b1 = torch.zeros(1, 2, 1, 1, 16, dtype=torch.float16, device="cuda")
+    with pytest.raises(ValueError, match="mask bias"):
+        tevof.evoformer_flash_forward(q, q, q, b1)

@@ -233,6 +233,30 @@ def test_gradients_match_jax(_interpret, monkeypatch, name):
                                            **BWD_TOL)
 
 
+def test_head_dim_192_matches_jax(_interpret, monkeypatch):
+    """Head dims 192 and 256 pass the JAX kernels' gate (D % 64 == 0), and
+    the port's kernels take them: the kernel path's forward and gradients
+    at D 192 against the Pallas kernels and the jnp path."""
+    assert {192, 256} <= set(tsf.HEAD_DIMS)
+    monkeypatch.setattr(jsa, "_use_sparse_kernel",
+                        lambda impl, block, D: impl != "jnp")
+    layout = jsa.FixedSparsityConfig(num_heads=2, block=16).make_layout(64)
+    q, k, v = _qkv(B=1, S=64, H=2, D=192, seed=4)
+    jqkv = list(map(jnp.asarray, (q, k, v)))
+    for impl in ("auto", "jnp"):
+        want = np.asarray(jsa.block_sparse_attention(*jqkv, layout, 16,
+                                                     impl=impl))
+        wgrad = jax.grad(lambda *a: jnp.sum(jsa.block_sparse_attention(
+            *a, layout, 16, impl=impl) ** 2), argnums=(0, 1, 2))(*jqkv)
+        ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        out = _kernel_path(*ts, layout, 16, True)
+        np.testing.assert_allclose(out.detach().numpy(), want, **FWD_TOL)
+        (out ** 2).sum().backward()
+        for t, w in zip(ts, wgrad):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                       **BWD_TOL)
+
+
 def test_fully_masked_row_gradients_are_finite_and_zero():
     nb, block = 4, 16
     layout = np.zeros((1, nb, nb), bool)
