@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (`deepspeed_tpu_torch`) on one NVIDIA card.
+"""Drive the PyTorch/CUDA port (`deepspeed_tpu_torch`) on one NVIDIA card
+(or N with `--tp N`).
 
     python3 chip_smoke.py [--layers N] [--train-layers N] [--out DIR]
+    python3 chip_smoke.py --tp N [--layers N] [--out DIR]      (N cards)
 
 Phases (any failure exits non-zero and prints no result):
   0. report the card (name, power limit) and build the CUDA kernels from
@@ -85,12 +87,31 @@ Every profile must hold each launch the kernels' counters saw in it (a
 session that dropped device events is repeated).
 Phase 1 also holds the fused 8-bit Adam kernel (one w_up layer's slice),
 the three block-sparse kernels (at phase 10's first layout and at edge
-cases: a fully-masked row, f32, block 8, head dims 192 and 256) and the
+cases: a fully-masked row, f32, block 8, head dims 192 and 256), the
 four Evoformer kernels (at phase 12's MSA row shape, D 8, 64 and 128, f32,
-L 100 with a fully masked row, each bias alone and none) against their
-plain versions.
+L 100 with a fully masked row, each bias alone and none; a mask bias
+view off the 16-byte boundary through `evoformer_attention`, and B*N =
+70000 rows past the grid limit) and the tile GEMM of the tensor-parallel
+ring (at every per-hop shape of phase 13's wave at tp 2 and 4, bf16 and
+f32, and at edges: M 1, K 2752, N 1001, a misaligned view, M tiles past
+the grid limit) against their plain versions, and times the flash
+forward beside SDPA at the training shape too.
+ 13. (only with `--tp N`, N in 2, 4, on N cards: the one-card run says
+     so and skips it) tensor-parallel serving over the fused ring: phase
+     0, phase 1's tile GEMM rows, then phase 2's wave on Llama-2-7B
+     widths at tp 1 on one card and at tp 2 (and 4) with one NCCL rank a
+     card (`comm.spawn_ranks`, the kernels built once, here), each rank
+     building `build_engine("llama", "7b", engine_config=...(tensor_
+     parallel_size=N, tp_collectives="fused"))` from the same seed: tile
+     GEMM launches (7 L per prefill call + 7 L + 1 per decode step, times
+     N), the paged kernels' launches as at tp 1, no plain version;
+     logits within phase 3's limit of tp 1's (greedy tokens reported);
+     the same at f32 and 2 layers with tokens identical and logits within
+     TP_STRICT_ATOL; rank 0's profiled decode step (device ms by kind,
+     idle share, NCCL send/recv time under a tile GEMM); prefill tokens/s
+     and decode ms per step beside tp 1's.
 Prints a `{"kernels": [...]}` line, the nvidia-smi line, and last
-`{"ok": true, "device": {...}}`.  `--layers` cuts the serving model's
+`{"ok": true, "device": {...}}`.  `--layers` cuts the serving models'
 depth and `--train-layers` the training model's (the widths stay
 Llama-2-7B's and GPT-2-1.3B's); the defaults are the full 32 and 24.
 """
@@ -239,7 +260,8 @@ KERNELS = {"flash_fwd": ("flash_attention_fwd", 1),
            "evo_fwd": ("evoformer_flash_forward", 1),
            "evo_dq": ("evoformer_flash_dq", 1),
            "evo_dkv": ("evoformer_flash_dkv", 1),
-           "evo_db2": ("evoformer_flash_db2", 1)}
+           "evo_db2": ("evoformer_flash_db2", 1),
+           "tile_matmul": ("tile_matmul", 1)}
 # each row of the kernels line -> the wrapper whose counter it reads (the
 # merged wrappers launch the paged kernels on a view of their arena; the
 # TPU's D-major Evoformer forward is the same kernel as its forward, and
@@ -301,6 +323,8 @@ def _kind(name):
         if f"(anonymous namespace)::{kernel}" in name:
             return kernel
     low = name.lower()
+    if "nccl" in low:
+        return "nccl"
     if any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
         return "matmul"
     return "other"
@@ -464,12 +488,15 @@ def check_flash(torch, fa, dev):
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
     bms, by = bound_ms(*_flash_fwd_work(B, S, NH, NKV, D))
-    # the training path's shape: kernel time beside its bound
+    # the training path's shape: kernel time beside its bound and SDPA's
     tq, tk, tv = _qkv(torch, g, dev, *TRAIN_ATTN)
     train_ms = time_ms(lambda: fa.flash_attention_fwd(tq, tk, tv))
     train_bound = bound_ms(*_flash_fwd_work(*TRAIN_ATTN))[0]
+    tqt, tkt, tvt = (t.transpose(1, 2).contiguous() for t in (tq, tk, tv))
+    train_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        tqt, tkt, tvt, is_causal=True))
     print(f"  flash_fwd at the training shape: {train_ms:.4f} ms (bound "
-          f"{train_bound:.4f} ms)")
+          f"{train_bound:.4f} ms, SDPA forward {train_lib:.4f} ms)")
     return dict(name="flash_fwd", route="cuda",
                 source="deepspeed_tpu_torch/csrc/flash_fwd.cu",
                 replaces="deepspeed_tpu/ops/flash_attention.py:272",
@@ -478,7 +505,8 @@ def check_flash(torch, fa, dev):
                 bound_ms=bms, bound_by=by, library_ms=lib,
                 train_shape="q/k/v [{},{},{},{}] bf16".format(
                     *TRAIN_ATTN[:3], TRAIN_ATTN[4]),
-                train_ms=train_ms, train_bound_ms=train_bound)
+                train_ms=train_ms, train_bound_ms=train_bound,
+                train_library_ms=train_lib)
 
 
 def _arena(torch, g, dev, L, nb, bs, NKV, D):
@@ -1179,12 +1207,18 @@ def remat_launches(torch, np, layers, counters, first_loss):
 # ----------------------------------------------------------------------
 # phases 2 and 3: the serving path
 # ----------------------------------------------------------------------
-def _timed(torch, np, fn, acc, key, finite):
+def sync(torch, dev="cuda"):
+    """Wait for `dev`'s queued work (nothing to wait for on the CPU)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed(torch, np, fn, acc, key, finite, dev="cuda"):
     def wrapped(*a, **kw):
-        torch.cuda.synchronize()
+        sync(torch, dev)
         t0 = time.perf_counter()
         out = fn(*a, **kw)
-        torch.cuda.synchronize()
+        sync(torch, dev)
         acc[key] += time.perf_counter() - t0
         acc[key + "_calls"] += 1
         if key == "prefill":
@@ -2256,6 +2290,75 @@ def check_evoformer(torch, ef, dev):
     return rows
 
 
+def check_evoformer_edges(torch, evo, ef, dev):
+    """Two layouts the reference takes that the kernels' grid and loads
+    once refused: a bf16 mask bias sliced at an odd row (its view starts
+    200 bytes into the storage, off the 16-byte boundary; the autograd
+    Function copies it), forward and backward through
+    `evoformer_attention` against its plain path; and B*N = 70000 rows at
+    a small L, H and D (past the 65535 grid limit: the kernels walk the
+    rows with grid-stride loops), every kernel against its plain
+    version.  Returns the largest errors."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    bf16 = torch.bfloat16
+    B, N, L, H, D = 1, 8, 100, 2, 32
+    q, k, v = (torch.randn(B, N, L, H, D, generator=g, device=dev,
+                           dtype=bf16) for _ in range(3))
+    full = torch.randn(B, N + 1, 1, 1, L, generator=g, device=dev,
+                       dtype=bf16)
+    if full[:, 1:].data_ptr() % 16 == 0:
+        fail("the sliced mask bias is not misaligned: the case tests nothing")
+    got = {}
+    for impl in ("auto", "jnp"):
+        t = [x.clone().requires_grad_() for x in (q, k, v)]
+        bb = full.clone().requires_grad_()
+        out = evo.evoformer_attention(t[0], t[1], t[2], (bb[:, 1:],),
+                                      impl=impl)
+        (out.float() ** 2).sum().backward()
+        got[impl] = [out.detach()] + [x.grad for x in t] + [bb.grad]
+    torch.cuda.synchronize()
+    out_ok = kernel_close(got["auto"][0], got["jnp"][0])
+    grads = [evo_close(a, b) for a, b in zip(got["auto"][1:],
+                                              got["jnp"][1:])]
+    e_view = max_err(got["auto"][0], got["jnp"][0])
+    print(f"  evoformer, mask bias sliced off the 16-byte boundary "
+          f"[{B},{N},1,1,{L}] bf16: max|dout|={e_view:.3e}; max|d| / "
+          f"max|plain| dq, dk, dv, db1 "
+          + ", ".join(f"{r[1]:.3e}" for r in grads))
+    if not (out_ok and all(r[0] for r in grads)):
+        fail(f"evoformer_attention with a misaligned bias view disagrees "
+             f"with its plain path: out {e_view}, grads {grads}")
+    errs = [e_view]
+    for dt in (bf16, torch.float32):
+        q, k, v, b1, b2 = evo_inputs(torch, g, dev, 1, 70000, 16, 1, 8, dt)
+        do = torch.randn_like(q)
+        out, lse = ef.evoformer_flash_forward(q, k, v, b1, b2,
+                                              return_lse=True)
+        ref, ref_lse = ef.evoformer_flash_forward_reference(q, k, v, b1, b2)
+        back = ef.evoformer_flash_backward(q, k, v, b1, b2, out, do, lse)
+        want = ef.evoformer_flash_backward_reference(q, k, v, b1, b2, out,
+                                                     do, lse)
+        torch.cuda.synchronize()
+        bf = dt == bf16
+        fwd_ok = (kernel_close(out, ref) if bf else
+                  max_err(out, ref) <= BWD_F32_REL * max(
+                      float(ref.abs().max()), 1.0))
+        el = max_err(lse, ref_lse)
+        res = [evo_close(a, b) for a, b in zip(back, want) if b is not None]
+        print(f"  evoformer B*N=70000 L=16 H=1 D=8 {str(dt)[6:]} (grid "
+              f"stride): max|dout|={max_err(out, ref):.3e} "
+              f"max|dlse|={el:.3e}; max|d| / max|plain| dq, dk, dv, db1, "
+              f"db2 " + ", ".join(f"{r[1]:.3e}" for r in res))
+        if not (fwd_ok and el <= LSE_ATOL and all(r[0] for r in res)):
+            fail(f"the Evoformer kernels disagree with their plain versions "
+                 f"at B*N = 70000 ({dt}): out {max_err(out, ref)}, lse "
+                 f"{el}, backward {res}")
+        errs.append(max_err(out, ref))
+        del q, k, v, b1, b2, do, out, lse, ref, ref_lse, back, want
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
 # ----------------------------------------------------------------------
 # phase 12: Evoformer attention through evoformer_attention
 # ----------------------------------------------------------------------
@@ -2506,6 +2609,580 @@ def train_int8(torch, np, layers, counters, fa8):
                 rel_vs_plain=rel)
 
 
+# ----------------------------------------------------------------------
+# phase 1: the tile GEMM of the fused tensor-parallel ring
+# ----------------------------------------------------------------------
+# phase 13's engines: the wave's 8 requests in one decode batch (a ring
+# hop's rows: 8/tp), chunked prefill only (prefill_full is off under tp,
+# so the tp 1 reference takes the same path); the other fields are the
+# engine's defaults, phase 2's (256 blocks x 64 slots, 256-token chunks,
+# a 512-token budget, bursts of 8)
+TP_ENGINE = dict(max_seqs=8, full_prompt_prefill=False)
+TP_SIZES = (2, 4)
+# a prefill call's chunk slots are a power of two: up to 8 for the wave
+# (at most 5 live chunks under a 512-token budget); rows per hop C*NC/tp
+TP_PREFILL_NC = (1, 2, 4, 8)
+# tile GEMM vs its plain version: |kernel - plain| <= TILE_REL max|plain|.
+# Both sum the same exact products (bf16 x bf16 is exact in f32) in f32,
+# in another order: over K up to 11008 unit-normal terms that is ~1e-6 of
+# the outputs' scale; a lost K tile or a misplaced column is O(1)
+TILE_REL = 2e-5
+# ring GEMMs of a swiglu layer: q, k, v, gate, up (all-gather) and o, down
+# (reduce-scatter), each tp launches; the decode head adds tp more
+TP_MM_PER_LAYER = 7
+# phase 13's strict check: the same comparison at f32 and 2 layers, where
+# tp N and tp 1 differ only by the order of f32 sums: tokens identical,
+# max |dlogit| within TP_STRICT_ATOL (logits of size ~1 at these random
+# weights; the reference's tp parity bound)
+TP_STRICT_LAYERS = 2
+TP_STRICT_ATOL = 2e-4
+
+
+def tile_hop_shapes(H=4096, F=11008, V=32000, C=256):
+    """{(M, K, N): [labels]} of every per-hop GEMM of phase 13's wave at
+    Llama-2-7B widths (NH = NKV = 32 heads of 128, so q, k and v share a
+    shape): the decode rows' q/k/v, o, gate/up, down and head hops, the
+    prefill rows' (C*NC/tp) q/k/v, o, gate/up and down hops."""
+    shapes = {}
+    for tp in TP_SIZES:
+        rows = [("decode", TP_ENGINE["max_seqs"] // tp)] + [
+            (f"prefill NC={nc}", C * nc // tp) for nc in TP_PREFILL_NC]
+        for stage, m in rows:
+            hops = [("q/k/v", H, H // tp), ("o", H // tp, H),
+                    ("gate/up", H, F // tp), ("down", F // tp, H)]
+            if stage == "decode":
+                hops.append(("head", H, V // tp))
+            for proj, k, n in hops:
+                shapes.setdefault((m, k, n), []).append(
+                    f"tp{tp} {stage} {proj}")
+    return shapes
+
+
+def tile_work(M, K, N, elem):
+    """(FLOPs, bytes) of one tile GEMM: x and w read once, out (f32)
+    written once."""
+    return 2 * M * K * N, (M * K + K * N) * elem + 4 * M * N
+
+
+def check_tile_matmul(torch, tm, dev):
+    """The tile GEMM against its plain version at every per-hop shape of
+    phase 13's wave (bf16, the serving dtype; f32, the strict check's, at
+    the decode hops and the NC=2 prefill hops), and at the edges: M 1,
+    K 2752, N 1001, ragged shapes, a view off the 16-byte boundary (the
+    element loads), and M tiles past the 65535 grid limit.  A rerun is
+    bit-identical.  Times every decode hop (and the NC=2 prefill hops)
+    beside its bound, the plain version and cuBLAS's
+    torch.mm(out_dtype=float32)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf16, f32 = torch.bfloat16, torch.float32
+    hops = tile_hop_shapes()
+    cases = []                    # (M, K, N, dtype, label, element loads)
+    for (M, K, N), labels in hops.items():
+        cases.append((M, K, N, bf16, ", ".join(labels), False))
+        if any("decode" in lb or "NC=2" in lb for lb in labels):
+            cases.append((M, K, N, f32, ", ".join(labels), False))
+    for dt in (bf16, f32):
+        cases += [(1, 2752, 1001, dt, "edge: M 1, K 2752, N 1001", False),
+                  (37, 100, 60, dt, "edge: ragged M, K, N", False),
+                  (17, 4096, 2048, dt, "edge: x off the 16-byte boundary",
+                   True),
+                  (3, 7, 5, dt, "edge: tiny", False)]
+    cases += [(64 * 65535 + 37, 8, 8, bf16,
+               "edge: 65537 M tiles (grid stride)", False),
+              (32 * 65535 + 5, 8, 8, f32,
+               "edge: 65536 M tiles (grid stride)", False)]
+    errs, rels = [], []
+    for M, K, N, dt, label, off in cases:
+        if off:   # a contiguous view one element past an aligned start
+            x = torch.randn(M * K + 1, generator=g, device=dev,
+                            dtype=dt)[1:].view(M, K)
+        else:
+            x = torch.randn(M, K, generator=g, device=dev, dtype=dt)
+        w = torch.randn(K, N, generator=g, device=dev, dtype=dt)
+        out = tm.tile_matmul(x, w)
+        ref = tm.tile_matmul_reference(x, w)
+        torch.cuda.synchronize()
+        e = max_err(out, ref)
+        rel = e / max(float(ref.abs().max()), 1.0)
+        print(f"  tile_matmul [{M},{K}] @ [{K},{N}] {str(dt)[6:]} ({label}): "
+              f"max|d| / max|plain| = {rel:.3e}")
+        if out.dtype != f32 or rel > TILE_REL:
+            fail(f"tile_matmul disagrees with its plain version at "
+                 f"{(M, K, N, dt)}: {rel} of max|plain| (tol {TILE_REL})")
+        errs.append(e)
+        rels.append(rel)
+        del x, w, out, ref
+    torch.cuda.empty_cache()
+    timed = []
+    for (M, K, N), labels in hops.items():
+        if not any("decode" in lb or "NC=2" in lb for lb in labels):
+            continue
+        x = torch.randn(M, K, generator=g, device=dev, dtype=bf16)
+        w = torch.randn(K, N, generator=g, device=dev, dtype=bf16)
+        first = tm.tile_matmul(x, w)
+        if not torch.equal(first, tm.tile_matmul(x, w)):
+            fail(f"tile_matmul reruns differ at {(M, K, N)}")
+        row = dict(shape=f"x [{M},{K}] @ w [{K},{N}] bf16",
+                   hops=", ".join(labels),
+                   ms=time_ms(lambda: tm.tile_matmul(x, w)),
+                   plain_ms=time_ms(lambda: tm.tile_matmul_reference(x, w)),
+                   library_ms=time_ms(lambda: torch.mm(
+                       x, w, out_dtype=torch.float32)))
+        row["bound_ms"], row["bound_by"] = bound_ms(*tile_work(M, K, N, 2))
+        timed.append(row)
+        print(f"  tile_matmul {row['shape']} ({row['hops']}): "
+              f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f} "
+              f"{row['bound_by']}, plain {row['plain_ms']:.4f}, cuBLAS "
+              f"{row['library_ms']:.4f})")
+        del x, w
+    main = next(r for r in timed if "tp4 decode gate/up" in r["hops"])
+    return dict(name="tile_matmul", route="cuda",
+                source="deepspeed_tpu_torch/csrc/tile_matmul.cu",
+                replaces="deepspeed_tpu/ops/tp_matmul.py:118",
+                shape=main["shape"] + f" ({main['hops']})",
+                max_abs_err=max(errs), max_rel_err=max(rels),
+                max_rel_err_note="max|kernel - plain| / max|plain|",
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"],
+                library_note="torch.mm(x, w, out_dtype=torch.float32) "
+                             "(cuBLAS)",
+                hops=timed)
+
+
+# ----------------------------------------------------------------------
+# phase 13: tensor-parallel serving over the fused ring (--tp N)
+# ----------------------------------------------------------------------
+def tp_engine_config(tp):
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineConfig
+    kw = dict(TP_ENGINE)
+    if tp > 1:
+        kw.update(tensor_parallel_size=tp, tp_collectives="fused")
+    return RaggedInferenceEngineConfig(**kw)
+
+
+def matmul_flags(torch):
+    """f32 products in full f32, bf16 products summed in f32 and rounded
+    once (the JAX `_dense`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def tp_wave(torch, np, eng, prompts, counters):
+    """Phase 2's wave on `eng` (any tp) with the counters set to 0 just
+    before it and read just after: tokens, prefill tokens/s, decode ms per
+    step, the launches, and the serving calls (prefill calls, decode
+    steps) the launches are counted against."""
+    acc = {"prefill": 0.0, "prefill_calls": 0, "decode": 0.0,
+           "decode_calls": 0}
+    finite = []
+    calls = {"prefill_chunks": 0, "decode_steps": 0}
+    progs = eng._programs
+    real = {k: getattr(progs, k) for k in ("prefill_chunks", "decode_step",
+                                           "decode_tokens")}
+
+    def prefill(*a, **kw):
+        calls["prefill_chunks"] += 1
+        return real["prefill_chunks"](*a, **kw)
+
+    def step(*a, **kw):
+        calls["decode_steps"] += 1
+        return real["decode_step"](*a, **kw)
+
+    def burst(*a, **kw):
+        calls["decode_steps"] += kw["n_steps"]
+        return real["decode_tokens"](*a, **kw)
+
+    progs.prefill_chunks, progs.decode_step = prefill, step
+    progs.decode_tokens = burst
+    eng.step = _timed(torch, np, eng.step, acc, "prefill", finite,
+                      eng.device)
+    eng.decode_burst_step = _timed(torch, np, eng.decode_burst_step, acc,
+                                   "decode", finite, eng.device)
+    for c in counters:
+        c.launches = 0
+    sync(torch, eng.device)
+    t0 = time.perf_counter()
+    outs = eng.generate_batch(prompts, max_new_tokens=MAX_NEW)
+    sync(torch, eng.device)
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    del eng.step, eng.decode_burst_step
+    for k, fn in real.items():
+        setattr(progs, k, fn)
+    if len(finite) != len(prompts) or not all(finite):
+        fail(f"prefill logits not finite for every request ({finite})")
+    return dict(tokens=np.stack(outs), wall_s=wall, launches=launches,
+                calls=calls,
+                prefill_tok_s=sum(len(p) for p in prompts) / acc["prefill"],
+                decode_ms_per_step=1e3 * acc["decode"]
+                / max(calls["decode_steps"], 1))
+
+
+def _union_us(intervals):
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def _overlap_us(intervals, cover):
+    """Length of `intervals` covered by the union of `cover`."""
+    cover = sorted(cover)
+    total = 0.0
+    for a, b in intervals:
+        for c, d in cover:
+            if c >= b:
+                break
+            lo, hi = max(a, c), min(b, d)
+            if hi > lo:
+                total += hi - lo
+    return total
+
+
+def tp_profile_decode(torch, np, eng, prompts, outs, profile):
+    """One decode step of the wave (after its prefill), its wall time,
+    then the next step under torch.profiler on this rank when `profile`:
+    device ms by kind (tile GEMM, NCCL, attention, other), the idle share
+    against the unprofiled step's wall time, and the share of NCCL
+    send/recv time that a tile-GEMM kernel overlaps on the timeline.  The
+    ranks agree by an all-reduce whether a session held every launch (a
+    session that dropped device events is repeated, the same step on
+    every rank, as collectives need)."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import tp_matmul as tm
+    uids = list(range(len(prompts)))
+    eng.put(uids, [p.copy() for p in prompts])
+    while any(eng.query(u) is None for u in uids):
+        eng.step()
+
+    def feed(j):
+        eng.put(uids, [np.asarray([int(o[j])], np.int32) for o in outs])
+
+    comm.barrier()
+    sync(torch, eng.device)
+    t0 = time.perf_counter()
+    feed(0)
+    sync(torch, eng.device)
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    res = None
+    for j in range(1, PROFILE_TRIES + 1):
+        comm.barrier()
+        launches = {}
+        body = counted([tm.tile_matmul, pa.paged_decode_attention],
+                       lambda: feed(j), launches)
+        if profile:
+            events = profile_session(body)
+            ok = holds_launches(launches)(events)
+        else:
+            body()
+            sync(torch, eng.device)
+            ok = True
+        flag = torch.tensor([0.0 if ok else 1.0], device=eng.device)
+        comm.all_reduce(flag, op="max")
+        if float(flag) == 0.0:
+            break
+        print(f"  (rank profiler session {j} missed device events: "
+              f"repeated on every rank)")
+    else:
+        fail(f"the profiler missed device events in {PROFILE_TRIES} "
+             f"decode-step sessions")
+    if profile:
+        by_kind = {}
+        spans = {"all": [], "tile_matmul": [], "sendrecv": []}
+        for e in events:
+            kind = _kind(e.name)
+            kind = "attention" if kind in ("paged_decode",
+                                           "paged_prefill") else kind
+            us = e.time_range.elapsed_us()
+            by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+            iv = (e.time_range.start, e.time_range.end)
+            spans["all"].append(iv)
+            if kind == "tile_matmul":
+                spans["tile_matmul"].append(iv)
+            low = e.name.lower()
+            if "nccl" in low and ("sendrecv" in low or "send" in low
+                                  or "recv" in low):
+                spans["sendrecv"].append(iv)
+        busy = _union_us(spans["all"]) / 1e3
+        sr = sum(b - a for a, b in spans["sendrecv"])
+        res = dict(device_ms=busy, step_wall_ms=wall_ms,
+                   idle_share=max(0.0, 1 - busy / wall_ms),
+                   ms_by_kind=by_kind, launches=launches,
+                   sendrecv_ms=sr / 1e3,
+                   sendrecv_overlapped_by_tile_share=(
+                       _overlap_us(spans["sendrecv"], spans["tile_matmul"])
+                       / sr if sr > 0 else None))
+    for u in uids:
+        eng.flush(u)
+    return res, wall_ms
+
+
+def free(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def tp_rank(rank, world, init, layers, prompts, outs1, strict_outs1, dev,
+            profile, model_kw):
+    """Phase 13 on one rank of `world` (see `tensor_parallel`)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.inference.v2 import build_engine, ragged_ops
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import paged_prefill as pp
+    from deepspeed_tpu_torch.ops import tp_matmul as tm
+    comm.init_distributed(init, rank, world, device=dev)
+    matmul_flags(torch)
+    # no rank may take a plain version: count every call of one
+    plain = {"tile_matmul_reference": 0, "paged_decode_reference": 0,
+             "paged_prefill_reference": 0}
+
+    def counting(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **kw):
+            plain[name] += 1
+            return fn(*a, **kw)
+        setattr(mod, name, wrapped)
+    counting(tm, "tile_matmul_reference")
+    counting(ragged_ops, "paged_decode_reference")
+    counting(ragged_ops, "paged_prefill_reference")
+    counters = [tm.tile_matmul, pa.paged_decode_attention,
+                pp.paged_prefill_attention, fa.flash_attention_fwd]
+    t0 = time.perf_counter()
+    eng = build_engine("llama", "7b", dtype=torch.bfloat16, device=dev,
+                       num_layers=layers,
+                       engine_config=tp_engine_config(world), **model_kw)
+    sync(torch, eng.device)
+    build_s = time.perf_counter() - t0
+    wave = tp_wave(torch, np, eng, prompts, counters)
+    logits = prefill_and_step(np, eng, prompts, outs1)
+    prof, step_ms = tp_profile_decode(torch, np, eng, prompts, outs1,
+                                      profile and rank == 0)
+    arena = tuple(eng.arena["k"].shape)
+    del eng
+    free(torch, dev)
+    strict = build_engine("llama", "7b", dtype=torch.float32, device=dev,
+                          num_layers=TP_STRICT_LAYERS,
+                          engine_config=tp_engine_config(world), **model_kw)
+    strict_tokens = np.stack(strict.generate_batch(prompts,
+                                                   max_new_tokens=MAX_NEW))
+    strict_logits = prefill_and_step(np, strict, prompts, strict_outs1)
+    del strict
+    free(torch, dev)
+    return dict(build_s=build_s, wave=wave, logits=logits, profile=prof,
+                decode_step_wall_ms=step_ms, arena=arena, plain_calls=plain,
+                strict_tokens=strict_tokens, strict_logits=strict_logits)
+
+
+def tensor_parallel(torch, np, layers, sizes, store_dir, dev="cuda",
+                    profile=True, model_kw=None):
+    """Phase 13 (`--tp N`): Llama-2-7B widths (`layers` deep) served by
+    the fused-ring tensor-parallel engine at each tp in `sizes`, one NCCL
+    rank per card, against the same engine at tp 1.
+      1. tp 1 on this process's card: phase 2's seeded weights and wave
+         (chunked prefill, 8 sequences a decode batch): tokens, prefill
+         logits and one decode step's logits; the same at f32 and 2
+         layers; then the card is freed.
+      2. for each tp: tp ranks (`comm.spawn_ranks`), each building
+         `build_engine("llama", "7b", engine_config=...(tensor_parallel_
+         size=tp, tp_collectives="fused"))` from the same seed, serve the
+         wave with every counter set to 0 just before and read just
+         after: tile GEMM launches (7L·prefill calls + (7L+1)·decode
+         steps)·tp, the paged kernels' launches as at tp 1, no plain
+         version called;
+      3. logits within phase 3's limit of tp 1's, greedy tokens reported;
+      4. the strict check at f32 and 2 layers: tokens identical, logits
+         within TP_STRICT_ATOL;
+      5. rank 0 profiles one decode step (device ms by kind, idle share,
+         the NCCL send/recv time a tile GEMM overlaps);
+      6. prefill tokens/s and decode ms per step beside tp 1's.
+    `model_kw` overrides the model's widths (a rehearsal on the CPU, with
+    dev="cpu" and profile=False, runs gloo ranks at a small size)."""
+    model_kw = dict(model_kw or {})
+    from deepspeed_tpu_torch.comm import spawn_ranks
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import paged_prefill as pp
+    from deepspeed_tpu_torch.ops import tp_matmul as tm
+    rng = np.random.RandomState(0)
+    eng = build_engine("llama", "7b", dtype=torch.bfloat16, device=dev,
+                       num_layers=layers, engine_config=tp_engine_config(1),
+                       **model_kw)
+    cfg = eng.cfg
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    print(f"phase 13: Llama-2-7B widths (H={cfg.hidden_size}, "
+          f"L={cfg.num_layers}, NH=NKV={cfg.num_heads}, D={cfg.head_dim}, "
+          f"ffn {cfg.ffn_dim}, V={cfg.vocab_size}) bf16, random weights "
+          f"(seed 0); engine {TP_ENGINE}, the rest default; tp 1 on "
+          f"{eng.device}")
+    counters = [tm.tile_matmul, pa.paged_decode_attention,
+                pp.paged_prefill_attention, fa.flash_attention_fwd]
+    base = tp_wave(torch, np, eng, prompts, counters)
+    outs1 = base["tokens"]
+    logits1 = prefill_and_step(np, eng, prompts, outs1)
+    del eng
+    free(torch, dev)
+    strict = build_engine("llama", "7b", dtype=torch.float32, device=dev,
+                          num_layers=TP_STRICT_LAYERS,
+                          engine_config=tp_engine_config(1), **model_kw)
+    strict_outs1 = np.stack(strict.generate_batch(prompts,
+                                                  max_new_tokens=MAX_NEW))
+    strict_logits1 = prefill_and_step(np, strict, prompts, strict_outs1)
+    del strict
+    free(torch, dev)
+    print(f"phase 13: tp 1: prefill {base['prefill_tok_s']:.0f} tok/s, "
+          f"decode {base['decode_ms_per_step']:.2f} ms/step; calls "
+          f"{base['calls']}; launches {base['launches']}")
+    L = cfg.num_layers
+    results = {"tp1": dict(prefill_tok_s=base["prefill_tok_s"],
+                           decode_ms_per_step=base["decode_ms_per_step"],
+                           calls=base["calls"], launches=base["launches"])}
+    for tp in sizes:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(tp_rank, tp,
+                            os.path.join(store_dir, f"store_tp{tp}"),
+                            args=(layers, prompts, outs1, strict_outs1, dev,
+                                  profile, model_kw), timeout_s=900,
+                            threads=4)
+        wall = time.perf_counter() - t0
+        r0 = ranks[0]
+        w = r0["wave"]
+        for r in ranks[1:]:
+            if not (np.array_equal(r["wave"]["tokens"], w["tokens"])
+                    and np.array_equal(r["strict_tokens"],
+                                       r0["strict_tokens"])):
+                fail(f"tp {tp}: the ranks sampled different tokens")
+        calls = w["calls"]
+        want_tile = tp * (TP_MM_PER_LAYER * L * calls["prefill_chunks"]
+                          + (TP_MM_PER_LAYER * L + 1)
+                          * calls["decode_steps"])
+        lt = {n: [r["wave"]["launches"][n] for r in ranks]
+              for n in w["launches"]}
+        backend = "NCCL" if torch.device(dev).type == "cuda" else "gloo"
+        print(f"phase 13: tp {tp}: {tp} {backend} ranks in {wall:.1f} s "
+              f"(engine build {r0['build_s']:.1f} s, local arena {r0['arena']}); "
+              f"calls {calls}; launches by rank {lt} (tile GEMM want "
+              f"{want_tile}); plain-version calls "
+              f"{[r['plain_calls'] for r in ranks]}")
+        if calls != base["calls"]:
+            fail(f"tp {tp} scheduled other serving calls than tp 1: "
+                 f"{calls} vs {base['calls']}")
+        for r in ranks:
+            got = r["wave"]["launches"]
+            if got["tile_matmul"] != want_tile:
+                fail(f"tp {tp}: {got['tile_matmul']} tile GEMM launches, "
+                     f"want {want_tile}")
+            for n in ("paged_decode_attention", "paged_prefill_attention",
+                      "flash_attention_fwd"):
+                if got[n] != base["launches"][n]:
+                    fail(f"tp {tp}: {n} launched {got[n]} times, tp 1 "
+                         f"{base['launches'][n]}")
+            if got["paged_decode_attention"] <= 0 or any(
+                    r["plain_calls"].values()):
+                fail(f"tp {tp}: a rank served through a plain version "
+                     f"({r['plain_calls']}) or without the paged kernels")
+        rels = logit_differences(np, r0["logits"], logits1)
+        worst = max(max(rels[0]), max(rels[1]))
+        same = float((w["tokens"] == outs1).mean())
+        first_same = int((w["tokens"][:, 0] == outs1[:, 0]).sum())
+        print(f"  bf16 logits vs tp 1: max |dlogit| / max |logit| first "
+              f"token {[float(f'{x:.3e}') for x in rels[0]]}, second "
+              f"{[float(f'{x:.3e}') for x in rels[1]]} (tol {E2E_REL_TOL}); "
+              f"greedy tokens equal to tp 1's: {same:.3f} of "
+              f"{w['tokens'].size}, first tokens {first_same}/"
+              f"{len(prompts)}")
+        if worst > E2E_REL_TOL:
+            fail(f"tp {tp} logits differ from tp 1's by {worst} relative "
+                 f"(tol {E2E_REL_TOL})")
+        sd = max(float(np.abs(r0["strict_logits"][i][u]
+                              - strict_logits1[i][u]).max())
+                 for i in (0, 1) for u in strict_logits1[i])
+        strict_same = bool(np.array_equal(r0["strict_tokens"],
+                                          strict_outs1))
+        print(f"  strict (f32, {TP_STRICT_LAYERS} layers): max |dlogit| "
+              f"{sd:.3e} (tol {TP_STRICT_ATOL}); tokens identical: "
+              f"{strict_same}")
+        if sd > TP_STRICT_ATOL or not strict_same:
+            fail(f"tp {tp} strict check: max |dlogit| {sd}, tokens "
+                 f"identical {strict_same}")
+        p0 = r0["profile"]
+        if p0 is not None:
+            print(f"  rank 0 decode step: device {p0['device_ms']:.3f} ms "
+                  f"of {p0['step_wall_ms']:.2f} ms wall (idle share "
+                  f"{p0['idle_share']:.3f}); by kind (ms) " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in sorted(
+                          p0["ms_by_kind"].items(), key=lambda kv: -kv[1]))
+                  + f"; NCCL send/recv {p0['sendrecv_ms']:.3f} ms, share "
+                    f"overlapped by a tile GEMM "
+                    f"{p0['sendrecv_overlapped_by_tile_share']}")
+        print(f"  tp {tp}: prefill {w['prefill_tok_s']:.0f} tok/s, decode "
+              f"{w['decode_ms_per_step']:.2f} ms/step (tp 1: "
+              f"{base['prefill_tok_s']:.0f} tok/s, "
+              f"{base['decode_ms_per_step']:.2f} ms/step)")
+        results[f"tp{tp}"] = dict(
+            ranks_s=wall, build_s=r0["build_s"], arena=r0["arena"],
+            calls=calls, launches_by_rank=lt, tile_launches_want=want_tile,
+            e2e_max_rel_dlogit=worst, token_agreement=same,
+            first_token_agreement=first_same / len(prompts),
+            strict_max_abs_dlogit=sd, strict_tokens_identical=strict_same,
+            prefill_tok_s=w["prefill_tok_s"],
+            decode_ms_per_step=w["decode_ms_per_step"],
+            decode_step_wall_ms=r0["decode_step_wall_ms"], profile=p0)
+    return results
+
+
+def tp_main(torch, np, tm, args, kind, smi, out_dir):
+    """`--tp N`: phase 1's tile GEMM checks, then phase 13 at tp 2 (and 4
+    with --tp 4).  The kernels were built in this process (phase 0), so
+    the ranks load them and build nothing."""
+    print(f"phase 1: the tile GEMM against its plain version (tol "
+          f"{TILE_REL} max|plain|)")
+    row = check_tile_matmul(torch, tm, "cuda")
+    row["clocks"] = clocks(row)
+    torch.cuda.empty_cache()
+    sizes = [t for t in TP_SIZES if t <= args.tp]
+    # the ranks meet at file stores beside the kernels' build
+    store_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "tp_store")
+    os.makedirs(store_dir, exist_ok=True)
+    for t in sizes:
+        store = os.path.join(store_dir, f"store_tp{t}")
+        if os.path.exists(store):
+            os.remove(store)
+    res = tensor_parallel(torch, np, args.layers, sizes, store_dir)
+    top = res[f"tp{sizes[-1]}"]
+    row["launches"] = top["launches_by_rank"]["tile_matmul"][0]
+    row["launches_by_path"] = {f"tp{t}_rank0": res[f"tp{t}"][
+        "launches_by_rank"]["tile_matmul"][0] for t in sizes}
+    with open(os.path.join(out_dir, "chip_smoke_tp.json"), "w") as f:
+        json.dump(dict(kernels=[row], tensor_parallel=res,
+                       device=dict(kind=kind, nvidia_smi=smi,
+                                   count=torch.cuda.device_count(),
+                                   layers=args.layers)), f, indent=1,
+                  default=lambda o: o.tolist() if hasattr(o, "tolist")
+                  else str(o))
+    print(json.dumps({"kernels": [row]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -2515,11 +3192,18 @@ def main(argv=None):
     ap.add_argument("--out", default=os.path.join("build", "chip_smoke"),
                     help="directory for the run's JSON record, relative to "
                          "this script's directory")
+    ap.add_argument("--tp", type=int, default=0, choices=(0, 2, 4),
+                    help="run phase 13 instead: tensor-parallel serving at "
+                         "tp 2 (and tp 4 with --tp 4) on that many cards, "
+                         "after phase 0 and phase 1's tile GEMM checks")
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device (this script measures the port on the card)")
+    if torch.cuda.device_count() < args.tp:
+        fail(f"--tp {args.tp} needs {args.tp} CUDA devices, "
+             f"{torch.cuda.device_count()} visible")
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "deepspeed_tpu_torch")):
         fail(f"no deepspeed_tpu_torch package beside {__file__}")
@@ -2536,11 +3220,11 @@ def main(argv=None):
     from deepspeed_tpu_torch.ops import paged_prefill as pp
     from deepspeed_tpu_torch.ops import sparse_attention as sa
     from deepspeed_tpu_torch.ops import sparse_flash as sf
+    from deepspeed_tpu_torch.ops import tp_matmul as tm
     from deepspeed_tpu_torch.runtime import optimizers as topt
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # bf16 products accumulate in f32 and round once, as the JAX `_dense`
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    matmul_flags(torch)
+    out_dir = os.path.join(root, args.out)
+    os.makedirs(out_dir, exist_ok=True)
 
     # phase 0
     kind = torch.cuda.get_device_name(0)
@@ -2563,11 +3247,16 @@ def main(argv=None):
                 elif "registers" in line or "spill" in line:
                     print(f"  {name}:   {line.strip()}")
 
+    if args.tp:
+        return tp_main(torch, np, tm, args, kind, smi, out_dir)
+
     # phase 1
     print(f"phase 1: kernels against their plain versions (forward bf16 "
           f"tol {TOL_TEXT}; backward tol {BWD_TOL_TEXT}; LoRA tol "
           f"{LORA_REL} max|plain|; fused 8-bit Adam master {ADAM8_RTOL} "
-          f"|plain| + {ADAM8_ATOL}, codes within 1, scales {ADAM8_RTOL})")
+          f"|plain| + {ADAM8_ATOL}, codes within 1, scales {ADAM8_RTOL}; "
+          f"tile GEMM {TILE_REL} max|plain|)")
+    evo_edges = check_evoformer_edges(torch, evo, ef, "cuda")
     kernels = [check_flash(torch, fa, "cuda"),
                *check_flash_bwd(torch, fa, "cuda"),
                check_decode(torch, np, pa, "cuda"),
@@ -2576,7 +3265,8 @@ def main(argv=None):
                *check_merged(torch, np, pa, pp, pm, "cuda"),
                check_adam8(torch, fa8, topt, "cuda"),
                *check_sparse(torch, np, sa, sf, "cuda"),
-               *check_evoformer(torch, ef, "cuda")]
+               *check_evoformer(torch, ef, "cuda"),
+               check_tile_matmul(torch, tm, "cuda")]
     for k in kernels:
         k["clocks"] = clocks(k)
     other = {k["name"]: {t: c for t, c in k["clocks"].items()
@@ -2659,6 +3349,9 @@ def main(argv=None):
     remat = remat_launches(torch, np, args.train_layers, train_counters,
                            trained["warmup_losses"][0])
 
+    print("phase 13: tensor-parallel serving over the fused ring runs only "
+          "with --tp N (N in 2, 4, on N cards); not run in this one-card run")
+
     # each path's run: the serving wave (phase 2), the training steps
     # (phase 5), arm B of the multi-tenant wave (phase 8), the merged
     # wave (phase 9), the three layouts' forward and backward (phase 10),
@@ -2680,11 +3373,11 @@ def main(argv=None):
                   train=trained, train_profile=tprof, train_plain=tplain,
                   train_control=control, remat=remat, sparse=sparse,
                   train_int8=int8, evoformer=evoformer,
+                  evoformer_edges_max_abs_err=evo_edges,
                   device=dict(kind=kind, nvidia_smi=smi,
                               layers=args.layers,
                               train_layers=args.train_layers))
-    os.makedirs(os.path.join(root, args.out), exist_ok=True)
-    with open(os.path.join(root, args.out, "chip_smoke.json"), "w") as f:
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

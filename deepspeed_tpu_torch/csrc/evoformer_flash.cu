@@ -56,6 +56,9 @@
 //     kernel sums with float atomics, whose order changes from run to
 //     run; here nothing accumulates with atomics, so two runs give the
 //     same bits.
+// The B*N (B*H) axis of each grid stops at the 65535 limit of the y and z
+// axes: each kernel is a grid-stride loop over its slices (`*_slice` is
+// one slice's work), so any B*N is served.
 //
 // bf16 runs on the tensor cores (mma.sync m16n8k16, f32 accumulate): four
 // warps of 16 rows, the tiles staged in shared memory as bf16 rows of
@@ -297,10 +300,10 @@ __host__ __device__ constexpr int mma_smem(int own, int chunk, int f32) {
 // warp then walks the chunk's 64-key tiles on its own, adding the pair
 // bias from device memory into its score fragment.
 template <int DP>
-__global__ void __launch_bounds__(THREADS)
-evo_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__device__ __forceinline__ void
+evo_fwd_mma_slice(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, bf16* __restrict__ o,
-            float* __restrict__ lse, Evo e) {
+            float* __restrict__ lse, Evo e, int bn) {
   constexpr int LD = DP + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
@@ -308,7 +311,7 @@ evo_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Vs = Ks + CHUNK * LD;
   float* B1s = reinterpret_cast<float*>(Vs + CHUNK * LD);
 
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, bn = blockIdx.z;
+  const int q0 = blockIdx.x * TILE, h = blockIdx.y;
   const int L = e.L, D = e.D, tid = threadIdx.x;
   const int lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -425,6 +428,17 @@ evo_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int DP>
+__global__ void __launch_bounds__(THREADS)
+evo_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, bf16* __restrict__ o,
+            float* __restrict__ lse, Evo e) {
+  for (int bn = blockIdx.z; bn < e.B * e.N; bn += gridDim.z) {
+    evo_fwd_mma_slice<DP>(q, k, v, o, lse, e, bn);
+    __syncthreads();   // the next slice restages shared memory
+  }
+}
+
 // delta = rowsum(dO * O) of the staged dO rows [0, n) against O in device
 // memory: two threads a row (TILE rows, THREADS threads), 8 columns a
 // load, the pair adding with one shuffle.
@@ -454,11 +468,11 @@ __device__ __forceinline__ float tile_delta(const bf16* dOs, const bf16* o,
 // dq: Q and dO staged once; K, V and b1 CHUNK keys at a time, the warps
 // walking the chunk's 16-key slices on their own.
 template <int DP>
-__global__ void __launch_bounds__(THREADS)
-evo_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__device__ __forceinline__ void
+evo_dq_mma_slice(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const bf16* __restrict__ o,
            const bf16* __restrict__ dout, const float* __restrict__ lse,
-           bf16* __restrict__ dq, float* __restrict__ delta, Evo e) {
+           bf16* __restrict__ dq, float* __restrict__ delta, Evo e, int bn) {
   constexpr int LD = DP + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
@@ -469,7 +483,7 @@ evo_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* lse_s = B1s + CHUNK;
   float* delta_s = lse_s + TILE;
 
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, bn = blockIdx.z;
+  const int q0 = blockIdx.x * TILE, h = blockIdx.y;
   const int L = e.L, D = e.D, tid = threadIdx.x;
   const int lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -554,15 +568,28 @@ evo_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int DP>
+__global__ void __launch_bounds__(THREADS)
+evo_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, const bf16* __restrict__ o,
+           const bf16* __restrict__ dout, const float* __restrict__ lse,
+           bf16* __restrict__ dq, float* __restrict__ delta, Evo e) {
+  for (int bn = blockIdx.z; bn < e.B * e.N; bn += gridDim.z) {
+    evo_dq_mma_slice<DP>(q, k, v, o, dout, lse, dq, delta, e, bn);
+    __syncthreads();   // the next slice restages shared memory
+  }
+}
+
 // dk/dv: per head, K and V of the CTA's 64 keys staged once; per 64-query
 // tile, Q, dO, lse, delta and the pair-bias tile (as f32) staged in
 // shared memory, one barrier pair a tile.
 template <int DP>
-__global__ void __launch_bounds__(THREADS)
-evo_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__device__ __forceinline__ void
+evo_dkv_mma_slice(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const bf16* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            bf16* __restrict__ dk, bf16* __restrict__ dv, void* db1, Evo e) {
+            bf16* __restrict__ dk, bf16* __restrict__ dv, void* db1, Evo e,
+            int bn) {
   constexpr int LD = DP + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
@@ -573,7 +600,7 @@ evo_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* lse_s = B2s + TILE * LDB;
   float* delta_s = lse_s + TILE;
 
-  const int k0 = blockIdx.x * TILE, bn = blockIdx.y;
+  const int k0 = blockIdx.x * TILE;
   const int L = e.L, D = e.D, tid = threadIdx.x;
   const int lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -674,6 +701,18 @@ evo_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int DP>
+__global__ void __launch_bounds__(THREADS)
+evo_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            bf16* __restrict__ dk, bf16* __restrict__ dv, void* db1, Evo e) {
+  for (int bn = blockIdx.y; bn < e.B * e.N; bn += gridDim.y) {
+    evo_dkv_mma_slice<DP>(q, k, v, dout, lse, delta, dk, dv, db1, e, bn);
+    __syncthreads();   // the next slice restages shared memory
+  }
+}
+
 // db2 runs G groups of four warps in one CTA: group g takes the rows
 // n = g, g + G, ... with its own tiles in shared memory (named barrier
 // g + 1), and at the end group 0 adds the groups' partial sums in the
@@ -700,11 +739,11 @@ __device__ __forceinline__ void group_sync(int grp) {
 }
 
 template <int DP>
-__global__ void __launch_bounds__(THREADS * db2_groups<DP>())
-evo_db2_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__device__ __forceinline__ void
+evo_db2_mma_slice(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const bf16* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            void* db2, Evo e) {
+            void* db2, Evo e, int bh) {
   constexpr int LD = DP + 8;
   constexpr int G = db2_groups<DP>();
   constexpr int NACC = TILE * TILE / THREADS;   // accumulators a thread
@@ -722,7 +761,7 @@ evo_db2_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* red = B2s + TILE * LDB;   // [G - 1][NACC][THREADS]
 
   const int q0 = blockIdx.x * TILE, k0 = blockIdx.y * TILE;
-  const int bh = blockIdx.z, b = bh / e.H, h = bh % e.H;
+  const int b = bh / e.H, h = bh % e.H;
   const int L = e.L, D = e.D;
   const int lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -808,6 +847,18 @@ evo_db2_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
+template <int DP>
+__global__ void __launch_bounds__(THREADS * db2_groups<DP>())
+evo_db2_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            void* db2, Evo e) {
+  for (int bh = blockIdx.z; bh < e.B * e.H; bh += gridDim.z) {
+    evo_db2_mma_slice<DP>(q, k, v, dout, lse, delta, db2, e, bh);
+    __syncthreads();   // the next slice restages shared memory
+  }
+}
+
 // ---------------------------------------------------------------------
 // f32 on the CUDA cores: one warp per row, F32_WARPS rows a CTA
 // ---------------------------------------------------------------------
@@ -821,15 +872,15 @@ __device__ __forceinline__ float dot(const float* a, const float* b, int D) {
   return acc;
 }
 
-__global__ void __launch_bounds__(F32_WARPS * 32)
-evo_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+__device__ __forceinline__ void
+evo_fwd_f32_slice(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, float* __restrict__ o,
-            float* __restrict__ lse, Evo e) {
+            float* __restrict__ lse, Evo e, int bn) {
   __shared__ __align__(16) float qs_all[F32_WARPS][MAX_D];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * F32_WARPS + warp;
   if (i >= e.L) return;
-  const int h = blockIdx.y, bn = blockIdx.z, L = e.L, D = e.D;
+  const int h = blockIdx.y, L = e.L, D = e.D;
   const long stride = (long)e.H * D;
   const long head = (long)bn * L * stride + (long)h * D;
   float* qs = qs_all[warp];
@@ -870,16 +921,26 @@ evo_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 __global__ void __launch_bounds__(F32_WARPS * 32)
-evo_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+evo_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, float* __restrict__ o,
+            float* __restrict__ lse, Evo e) {
+  for (int bn = blockIdx.z; bn < e.B * e.N; bn += gridDim.z) {
+    evo_fwd_f32_slice(q, k, v, o, lse, e, bn);
+    __syncwarp();
+  }
+}
+
+__device__ __forceinline__ void
+evo_dq_f32_slice(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ o,
            const float* __restrict__ dout, const float* __restrict__ lse,
-           float* __restrict__ dq, float* __restrict__ delta, Evo e) {
+           float* __restrict__ dq, float* __restrict__ delta, Evo e, int bn) {
   __shared__ __align__(16) float qs_all[F32_WARPS][MAX_D];
   __shared__ __align__(16) float ds_all[F32_WARPS][MAX_D];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * F32_WARPS + warp;
   if (i >= e.L) return;
-  const int h = blockIdx.y, bn = blockIdx.z, L = e.L, D = e.D;
+  const int h = blockIdx.y, L = e.L, D = e.D;
   const long stride = (long)e.H * D;
   const long head = (long)bn * L * stride + (long)h * D;
   const long rowoff = head + (long)i * stride;
@@ -924,17 +985,28 @@ evo_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 __global__ void __launch_bounds__(F32_WARPS * 32)
-evo_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+evo_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ o,
+           const float* __restrict__ dout, const float* __restrict__ lse,
+           float* __restrict__ dq, float* __restrict__ delta, Evo e) {
+  for (int bn = blockIdx.z; bn < e.B * e.N; bn += gridDim.z) {
+    evo_dq_f32_slice(q, k, v, o, dout, lse, dq, delta, e, bn);
+    __syncwarp();
+  }
+}
+
+__device__ __forceinline__ void
+evo_dkv_f32_slice(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             float* __restrict__ dk, float* __restrict__ dv, void* db1,
-            Evo e) {
+            Evo e, int bn) {
   __shared__ __align__(16) float ks_all[F32_WARPS][MAX_D];
   __shared__ __align__(16) float vs_all[F32_WARPS][MAX_D];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int j = blockIdx.x * F32_WARPS + warp;   // this warp's key
   if (j >= e.L) return;
-  const int bn = blockIdx.y, L = e.L, D = e.D;
+  const int L = e.L, D = e.D;
   const long stride = (long)e.H * D;
   float* ks = ks_all[warp];
   float* vs = vs_all[warp];
@@ -993,16 +1065,28 @@ evo_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 __global__ void __launch_bounds__(F32_WARPS * 32)
-evo_db2_f32(const float* __restrict__ q, const float* __restrict__ k,
+evo_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            void* db2, Evo e) {
+            float* __restrict__ dk, float* __restrict__ dv, void* db1,
+            Evo e) {
+  for (int bn = blockIdx.y; bn < e.B * e.N; bn += gridDim.y) {
+    evo_dkv_f32_slice(q, k, v, dout, lse, delta, dk, dv, db1, e, bn);
+    __syncwarp();
+  }
+}
+
+__device__ __forceinline__ void
+evo_db2_f32_slice(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            void* db2, Evo e, int bh) {
   __shared__ __align__(16) float qs_all[F32_WARPS][MAX_D];
   __shared__ __align__(16) float ds_all[F32_WARPS][MAX_D];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * F32_WARPS + warp;   // this warp's query
   if (i >= e.L) return;
-  const int bh = blockIdx.y, b = bh / e.H, h = bh % e.H;
+  const int b = bh / e.H, h = bh % e.H;
   const int L = e.L, D = e.D;
   const long stride = (long)e.H * D;
   float* qs = qs_all[warp];
@@ -1032,15 +1116,25 @@ evo_db2_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+__global__ void __launch_bounds__(F32_WARPS * 32)
+evo_db2_f32(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            void* db2, Evo e) {
+  for (int bh = blockIdx.y; bh < e.B * e.H; bh += gridDim.y) {
+    evo_db2_f32_slice(q, k, v, dout, lse, delta, db2, e, bh);
+    __syncwarp();
+  }
+}
+
 // ---------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------
-// grid dims y and z stop at 65535: B*N rows (forward, dq, dk/dv) and B*H
-// pair-bias planes (db2)
+// B*N and B*H stay within int (the kernels' slice indices)
 bool bad(const Evo& e, int dtype) {
   return e.B <= 0 || e.N <= 0 || e.L <= 0 || e.H <= 0 || e.D < 8 ||
-         e.D > MAX_D || e.D % 8 || (long)e.B * e.N > 65535 ||
-         (long)e.B * e.H > 65535 || (dtype != 0 && dtype != 1);
+         e.D > MAX_D || e.D % 8 || (long)e.B * e.N > 2147483647L ||
+         (long)e.B * e.H > 2147483647L || (dtype != 0 && dtype != 1);
 }
 
 // D rounded up to the bf16 kernels' padded widths
@@ -1059,6 +1153,9 @@ struct Ptrs {
 };
 
 int tiles(int L) { return (L + TILE - 1) / TILE; }
+// grid axes y and z stop at 65535: the kernels walk the B*N (B*H) slices
+// with a grid-stride loop over that axis
+int slices(int n) { return n < 65535 ? n : 65535; }
 int f32_rows(int L) { return (L + F32_WARPS - 1) / F32_WARPS; }
 
 template <int DP>
@@ -1067,11 +1164,13 @@ int fwd(const Ptrs& p, const Evo& e, int dtype, cudaStream_t st) {
     const int smem = mma_smem<DP>(1, 2, CHUNK);
     int err = set_smem(evo_fwd_mma<DP>, smem);
     if (err) return err;
-    evo_fwd_mma<DP><<<dim3(tiles(e.L), e.H, e.B * e.N), THREADS, smem, st>>>(
+    evo_fwd_mma<DP><<<dim3(tiles(e.L), e.H, slices(e.B * e.N)), THREADS,
+                      smem, st>>>(
         (const bf16*)p.q, (const bf16*)p.k, (const bf16*)p.v, (bf16*)p.out,
         (float*)p.lse_out, e);
   } else {
-    evo_fwd_f32<<<dim3(f32_rows(e.L), e.H, e.B * e.N), F32_WARPS * 32, 0,
+    evo_fwd_f32<<<dim3(f32_rows(e.L), e.H, slices(e.B * e.N)),
+                  F32_WARPS * 32, 0,
                   st>>>((const float*)p.q, (const float*)p.k,
                         (const float*)p.v, (float*)p.out, (float*)p.lse_out,
                         e);
@@ -1085,13 +1184,14 @@ int dq(const Ptrs& p, const Evo& e, int dtype, cudaStream_t st) {
     const int smem = mma_smem<DP>(2, 2, CHUNK + 2 * TILE);
     int err = set_smem(evo_dq_mma<DP>, smem);
     if (err) return err;
-    evo_dq_mma<DP><<<dim3(tiles(e.L), e.H, e.B * e.N), THREADS, smem, st>>>(
+    evo_dq_mma<DP><<<dim3(tiles(e.L), e.H, slices(e.B * e.N)), THREADS,
+                     smem, st>>>(
         (const bf16*)p.q, (const bf16*)p.k, (const bf16*)p.v,
         (const bf16*)p.o, (const bf16*)p.dout, (const float*)p.lse,
         (bf16*)p.dq, (float*)p.delta, e);
   } else {
-    evo_dq_f32<<<dim3(f32_rows(e.L), e.H, e.B * e.N), F32_WARPS * 32, 0,
-                 st>>>((const float*)p.q, (const float*)p.k,
+    evo_dq_f32<<<dim3(f32_rows(e.L), e.H, slices(e.B * e.N)),
+                 F32_WARPS * 32, 0, st>>>((const float*)p.q, (const float*)p.k,
                        (const float*)p.v, (const float*)p.o,
                        (const float*)p.dout, (const float*)p.lse,
                        (float*)p.dq, (float*)p.delta, e);
@@ -1105,12 +1205,14 @@ int dkv(const Ptrs& p, const Evo& e, int dtype, cudaStream_t st) {
     const int smem = mma_smem<DP>(4, 0, TILE * LDB + 2 * TILE);
     int err = set_smem(evo_dkv_mma<DP>, smem);
     if (err) return err;
-    evo_dkv_mma<DP><<<dim3(tiles(e.L), e.B * e.N), THREADS, smem, st>>>(
+    evo_dkv_mma<DP><<<dim3(tiles(e.L), slices(e.B * e.N)), THREADS, smem,
+                      st>>>(
         (const bf16*)p.q, (const bf16*)p.k, (const bf16*)p.v,
         (const bf16*)p.dout, (const float*)p.lse, (const float*)p.delta,
         (bf16*)p.dk, (bf16*)p.dv, p.dbias, e);
   } else {
-    evo_dkv_f32<<<dim3(f32_rows(e.L), e.B * e.N), F32_WARPS * 32, 0, st>>>(
+    evo_dkv_f32<<<dim3(f32_rows(e.L), slices(e.B * e.N)), F32_WARPS * 32, 0,
+                  st>>>(
         (const float*)p.q, (const float*)p.k, (const float*)p.v,
         (const float*)p.dout, (const float*)p.lse, (const float*)p.delta,
         (float*)p.dk, (float*)p.dv, p.dbias, e);
@@ -1124,13 +1226,14 @@ int db2(const Ptrs& p, const Evo& e, int dtype, cudaStream_t st) {
     const int smem = db2_smem<DP>();
     int err = set_smem(evo_db2_mma<DP>, smem);
     if (err) return err;
-    evo_db2_mma<DP><<<dim3(tiles(e.L), tiles(e.L), e.B * e.H),
+    evo_db2_mma<DP><<<dim3(tiles(e.L), tiles(e.L), slices(e.B * e.H)),
                       THREADS * db2_groups<DP>(), smem, st>>>(
         (const bf16*)p.q, (const bf16*)p.k, (const bf16*)p.v,
         (const bf16*)p.dout, (const float*)p.lse, (const float*)p.delta,
         p.dbias, e);
   } else {
-    evo_db2_f32<<<dim3(f32_rows(e.L), e.B * e.H), F32_WARPS * 32, 0, st>>>(
+    evo_db2_f32<<<dim3(f32_rows(e.L), slices(e.B * e.H)), F32_WARPS * 32, 0,
+                  st>>>(
         (const float*)p.q, (const float*)p.k, (const float*)p.v,
         (const float*)p.dout, (const float*)p.lse, (const float*)p.delta,
         p.dbias, e);

@@ -26,9 +26,18 @@ prefill token (`set_adapter`), and base rows and adapter rows share every
 serving call.  KV block IO (`read_kv_block(s)` / `write_kv_block(s)`)
 moves whole arena blocks to and from the host.
 
-Not carried yet, each refused by name: tensor parallelism, prefix cache,
-expert paging, seeded sampling streams, draft-and-verify and multi-step
-groups.
+Tensor parallelism (`tensor_parallel_size > 1` with
+`tp_collectives="fused"`) runs one engine per rank of an initialized
+process group (`comm.init_distributed`, one process per device): each
+rank keeps its shard of the weights and its kv heads of the arena, and
+`put`, `step`, `decode_burst_step` and `generate_batch` go through the
+fused-ring programs of `tp_ragged.py`.  Every rank must get the same
+calls; each then holds the same full logits and samples the same tokens.
+
+Not carried yet, each refused by name: the reference's GSPMD tensor
+parallelism (`tp_collectives="xla"` at tp > 1), LoRA adapters and KV
+block IO on a tensor-parallel engine, prefix cache, expert paging, seeded
+sampling streams, draft-and-verify and multi-step groups.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ...models.convert import shard_params_tp
 from ...models.transformer import TransformerConfig, init_params
 from .ragged_manager import DSStateManager
 from .ragged_ops import (decode_step, decode_tokens, init_arena,
@@ -64,7 +74,8 @@ class RaggedInferenceEngineConfig:
     # "auto" keeps the 5-D arena on a GPU; True stores the reference's
     # merged [L, nb, bs, NKV*D] layout (the same bytes)
     arena_merged: object = "auto"
-    # > 1 is refused: tensor-parallel serving is not ported yet
+    # > 1 runs one engine per rank of an initialized process group;
+    # only tp_collectives="fused" (the ring programs) is carried
     tensor_parallel_size: int = 1
     tp_collectives: str = "xla"
     # fresh full prompts within budget run one dense causal flash
@@ -93,13 +104,49 @@ def _to_param(x, device, dtype):
         else t.to(device=device)
 
 
+def _leaves(params):
+    """The leaves of a parameter tree in a fixed (sorted key) order."""
+    for k in sorted(params):
+        v = params[k]
+        if isinstance(v, dict):
+            yield from (v[kk] for kk in sorted(v))
+        else:
+            yield v
+
+
+def _leaf_sum(x) -> float:
+    """f64 sum of one leaf (numpy or torch), in chunks on its device."""
+    if not isinstance(x, torch.Tensor):
+        return float(np.sum(np.asarray(x, np.float64)))
+    flat = x.reshape(-1)
+    return float(sum(c.sum(dtype=torch.float64)
+                     for c in flat.split(1 << 24)))
+
+
+class _RaggedPrograms:
+    """The `ragged_ops` serving programs with the model config bound (the
+    reference binds its statics with partials); each is looked up in this
+    module when called."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def prefill_chunks(self, *args, **kw):
+        return prefill_chunks(self.cfg, *args, **kw)
+
+    def decode_step(self, *args, **kw):
+        return decode_step(self.cfg, *args, **kw)
+
+    def decode_tokens(self, *args, **kw):
+        return decode_tokens(self.cfg, *args, **kw)
+
+
 class InferenceEngineV2:
     """put()/flush() continuous-batching engine over a paged KV arena."""
 
     def __init__(self, model, params=None,
                  config: Optional[RaggedInferenceEngineConfig] = None,
                  device="cuda", plain_kernels: bool = False):
-        self.device = _resolve_device(device)
         self.cfg: TransformerConfig = (model.cfg if hasattr(model, "cfg")
                                        else model)
         if plain_kernels:
@@ -107,17 +154,29 @@ class InferenceEngineV2:
             # versions, for comparing the two on the card
             self.cfg = replace(self.cfg, attn_impl="jnp")
         self.config = config or RaggedInferenceEngineConfig()
-        if self.config.tensor_parallel_size > 1:
-            raise NotImplementedError(
-                "tensor-parallel serving is not carried by the PyTorch "
-                "port yet (tensor_parallel_size must be 1)")
-        if self.config.tp_collectives != "xla":
-            raise NotImplementedError(
-                f"tp_collectives={self.config.tp_collectives!r}: fused TP "
-                f"collectives are not carried by the PyTorch port yet")
+        self._check_tp()
+        self.tp = self.config.tensor_parallel_size
+        self.device = _resolve_device(device)
+        self.topology = None
+        if self.tp > 1:
+            # the layout refusals need no process group: shapes only
+            self._refuse_layout(params if params is not None else
+                                init_params(self.cfg, None, "meta"))
+            from ...parallel.mesh import make_tp_mesh
+            self.topology = make_tp_mesh(self.tp)
+            if self.device.type != self.topology.device.type:
+                raise ValueError(
+                    f"device={device!r} but this rank's process group runs "
+                    f"on {self.topology.device}")
+            # the rank's own card (cuda:<local_rank>), or the CPU
+            self.device = self.topology.device
         if params is None:
+            # every rank draws the same full set and keeps its shard
             gen = torch.Generator(device=self.device).manual_seed(0)
             params = init_params(self.cfg, gen, self.device, self.cfg.dtype)
+        self._tpp = None
+        if self.tp > 1:
+            params = self._shard(params)
         self.params = {
             k: ({kk: _to_param(vv, self.device, self.cfg.dtype)
                  for kk, vv in v.items()} if k == "layers"
@@ -132,11 +191,25 @@ class InferenceEngineV2:
             self.config.max_blocks_per_seq * self.config.block_size,
             self.cfg.max_seq_len)
         # the arena is updated in place by every serving call (the
-        # reference donates it to each compiled program instead)
+        # reference donates it to each compiled program instead); under
+        # tp each rank holds its NKV/tp kv heads
         self.arena = init_arena(self.cfg, self.config.num_blocks,
                                 self.config.block_size, self.device,
-                                merged=self.config.arena_merged)
+                                merged=self.config.arena_merged,
+                                kv_heads=self.cfg.kv_heads // self.tp)
+        # one program namespace for every serving call site: the fused TP
+        # programs, or the ragged_ops programs with cfg bound
+        if self.tp > 1:
+            from .tp_ragged import TPServingPrograms
+            self._tpp = TPServingPrograms(self.cfg, self.topology,
+                                          self.params)
+            self._programs = self._tpp
+        else:
+            self._programs = _RaggedPrograms(self.cfg)
+        # prefill_full is off under tp (no fused-ring wiring), as in the
+        # reference
         self._use_prefill_full = (self.config.full_prompt_prefill
+                                  and self.tp == 1
                                   and prefill_full_supported(self.cfg))
         self._last_logits: Dict[int, np.ndarray] = {}
         self._rng = torch.Generator(device=self.device).manual_seed(0)
@@ -147,6 +220,65 @@ class InferenceEngineV2:
         # adapter row run exactly the single-tenant computation.
         self._lora = None
         self._adapter_slots: Dict[int, int] = {}
+
+    # -- tensor parallelism ----------------------------------------------
+    def _check_tp(self) -> None:
+        """The reference's tensor-parallel configuration checks (tp 1
+        builds no process group and no TP programs)."""
+        tp = self.config.tensor_parallel_size
+        mode = self.config.tp_collectives
+        if mode not in ("xla", "fused"):
+            raise ValueError(f"tp_collectives must be 'xla' or 'fused', got "
+                             f"{mode!r}")
+        if mode == "fused" and tp <= 1:
+            raise ValueError(
+                "tp_collectives='fused' requires tensor_parallel_size > 1 "
+                "(there is no collective to fuse at tp=1; the default "
+                "'xla' keeps tp=1 byte-identical)")
+        if tp > 1 and mode == "xla":
+            raise NotImplementedError(
+                "tp_collectives='xla' at tensor_parallel_size > 1 (the "
+                "reference's GSPMD path) is not carried by the PyTorch port "
+                "yet; tp_collectives='fused' serves tensor parallelism")
+
+    def _refuse_layout(self, params) -> None:
+        """Refuse what the fused programs do not serve, with the
+        reference's reasons (`params` may hold shapes only)."""
+        from .tp_ragged import tp_fused_unsupported_reason
+        meta_arena = init_arena(self.cfg, self.config.num_blocks,
+                                self.config.block_size, "meta",
+                                merged=self.config.arena_merged)
+        reason = tp_fused_unsupported_reason(self.cfg, self.config, params,
+                                             meta_arena)
+        if reason is not None:
+            raise ValueError(
+                f"tp_collectives='fused' cannot serve this configuration: "
+                f"{reason} — the reference's tp_collectives='xla' (GSPMD) "
+                f"path serves it, and is not carried by the PyTorch port "
+                f"yet")
+
+    def _shard(self, params):
+        """This rank's shard of the full `params`, after proving that
+        every rank holds the same full set: each leaf's f64 sum, max- and
+        min-reduced over the ranks, must equal this rank's."""
+        from ...comm import comm
+        sums = torch.tensor([_leaf_sum(x) for x in _leaves(params)],
+                            dtype=torch.float64, device=self.device)
+        both = comm.all_reduce(torch.cat([sums, -sums]),
+                               self.topology.tp_group, op="max")
+        n = sums.numel()
+        if not (torch.equal(both[:n], sums) and torch.equal(-both[n:], sums)):
+            raise RuntimeError(
+                "the tensor-parallel ranks hold different parameters (their "
+                "per-leaf checksums disagree): give every rank the same "
+                "params, or the same seed")
+        return shard_params_tp(params, self.tp, self.topology.tp_rank)
+
+    def _refuse_under_tp(self, what: str) -> None:
+        if self.tp > 1:
+            raise NotImplementedError(
+                f"{what} on a tensor-parallel engine is not carried by the "
+                f"PyTorch port yet")
 
     # -- features the port does not carry yet ----------------------------
     def enable_prefix_cache(self, *args, **kwargs):
@@ -184,6 +316,7 @@ class InferenceEngineV2:
         the attention output projection (ops/lora_matmul).  The adapter
         pool owns the slot tensors and re-attaches after every slot
         change; the engine holds the current view."""
+        self._refuse_under_tp("attach_lora (multi-LoRA serving)")
         if lora is not None:
             a, b = lora["a"], lora["b"]
             if (a.ndim != 4 or b.ndim != 4 or a.shape[0] != b.shape[0]
@@ -234,6 +367,7 @@ class InferenceEngineV2:
 
     # -- arena block IO ----------------------------------------------------
     def _check_blocks(self, blocks) -> List[int]:
+        self._refuse_under_tp("KV block IO")
         blocks = [int(b) for b in blocks]
         for b in blocks:
             if not 0 <= b < self.config.num_blocks:
@@ -455,8 +589,8 @@ class InferenceEngineV2:
             NC = 1
             while NC < len(planned):
                 NC *= 2
-            logits, self.arena = prefill_chunks(
-                self.cfg, self.params, self.arena, tokens[:NC], pos0s[:NC],
+            logits, self.arena = self._programs.prefill_chunks(
+                self.params, self.arena, tokens[:NC], pos0s[:NC],
                 nvalids[:NC], tables[:NC], active[:NC],
                 **self._lora_kw([d for d, _, _ in planned], NC))
             logits = self._fetch(logits)
@@ -481,9 +615,9 @@ class InferenceEngineV2:
                 self.state.ensure_capacity(d, d.seen_tokens + 1)
                 tables[i] = self.state.block_table(d)
                 active[i] = True
-            logits, self.arena = decode_step(
-                self.cfg, self.params, self.arena, tokens, lens, tables,
-                active, **self._lora_kw(batch, B))
+            logits, self.arena = self._programs.decode_step(
+                self.params, self.arena, tokens, lens, tables, active,
+                **self._lora_kw(batch, B))
             logits = self._fetch(logits)
             for i, d in enumerate(batch):
                 d.seen_tokens += 1
@@ -558,8 +692,8 @@ class InferenceEngineV2:
             temp = torch.from_numpy(tv).to(self.device)
             topk_vec = torch.from_numpy(kv).to(self.device)
             top_k = 0
-        toks, self.arena = decode_tokens(
-            self.cfg, self.params, self.arena,
+        toks, self.arena = self._programs.decode_tokens(
+            self.params, self.arena,
             torch.from_numpy(tokens).to(self.device), lens, tables, active,
             rng, temp, max_lens, topk_vec, n_steps=n_steps, mode=mode,
             top_k=int(top_k), **self._lora_kw(batch, B))

@@ -48,7 +48,10 @@ def build_engine(arch: str, size: Optional[str] = None, params=None,
     the reference's stacked layout (torch tensors or numpy arrays, e.g.
     from `models.params_from_jax`); None draws random weights from a
     seeded `torch.Generator` on `device`.  `device` defaults to "cuda" and
-    raises when no CUDA device is present."""
+    raises when no CUDA device is present.  With `engine_config=
+    RaggedInferenceEngineConfig(tensor_parallel_size=N,
+    tp_collectives="fused")` every one of N ranks calls this after
+    `comm.init_distributed` and serves its shard on its own card."""
     cfg = arch_config(arch, size, **cfg_kw)
     return InferenceEngineV2(cfg, params=params, config=engine_config,
                              device=device)

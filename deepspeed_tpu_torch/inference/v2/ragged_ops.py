@@ -25,8 +25,9 @@ Where the reference differs by nature of JAX, the port does this instead:
   its layers.
 
 Scope: the pre-norm sequential dense families (the config refuses the
-rest).  No tensor parallelism, seeded streams, grammar masks, drafts or
-multi-step groups.
+rest).  No seeded streams, grammar masks, drafts or multi-step groups.
+Tensor parallelism runs the same layer pieces (`_qkv`, `_mlp_delta`,
+`_KVSlots`, `_kernels`, `decode_loop`) through `tp_ragged.py`.
 """
 from __future__ import annotations
 
@@ -54,21 +55,23 @@ __all__ = ["init_arena", "prefill_chunks", "prefill_full",
 
 
 def init_arena(cfg: TransformerConfig, num_blocks: int, block_size: int,
-               device, merged="auto") -> Dict[str, torch.Tensor]:
+               device, merged="auto", kv_heads: int = None
+               ) -> Dict[str, torch.Tensor]:
     """Zeroed KV arena {"k", "v"} in cfg.dtype on `device`, each
     [L, num_blocks, block_size, NKV, D], or [L, num_blocks, block_size,
-    NKV*D] with merged=True.  The reference merges to dodge the TPU's
-    128-lane padding of a narrow head dim; a GPU pads nothing, so "auto"
-    keeps the 5-D layout here, and merged=True stores the same bytes
-    under the reference's merged shape (the serving functions branch on
-    the arena's rank, as the reference's do)."""
+    NKV*D] with merged=True; `kv_heads` overrides NKV (a tensor-parallel
+    rank holds its NKV/tp local heads).  The reference merges to dodge
+    the TPU's 128-lane padding of a narrow head dim; a GPU pads nothing,
+    so "auto" keeps the 5-D layout here, and merged=True stores the same
+    bytes under the reference's merged shape (the serving functions
+    branch on the arena's rank, as the reference's do)."""
     if merged not in ("auto", False, True):
         raise ValueError(f"merged must be 'auto', False or True, got "
                          f"{merged!r}")
-    shape = (cfg.num_layers, num_blocks, block_size, cfg.kv_heads,
-             cfg.head_dim)
+    nkv = cfg.kv_heads if kv_heads is None else kv_heads
+    shape = (cfg.num_layers, num_blocks, block_size, nkv, cfg.head_dim)
     if merged is True:
-        shape = shape[:3] + (cfg.kv_heads * cfg.head_dim,)
+        shape = shape[:3] + (nkv * cfg.head_dim,)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
@@ -153,23 +156,26 @@ def _attn_out(cfg: TransformerConfig, lp, li: int, attn, lora, rows):
 # ----------------------------------------------------------------------
 # layer math (the dense and MLP pieces are the model module's)
 # ----------------------------------------------------------------------
-def _mlp_delta(cfg: TransformerConfig, x, lp):
-    """pre-norm -> MLP of `x`, without the residual add."""
+def _mlp_delta(cfg: TransformerConfig, x, lp, col=_dense, row=_dense):
+    """pre-norm -> MLP of `x`, without the residual add (`col` / `row`:
+    the projections, as in `_mlp_block`)."""
     h = _norm(x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"), cfg.norm,
               cfg.norm_eps)
-    return _mlp_block(cfg, lp, h)
+    return _mlp_block(cfg, lp, h, col, row)
 
 
-def _qkv(cfg: TransformerConfig, lp, x, lead, positions):
-    """Pre-norm and q/k/v projections of the flat rows `x` [N, H],
-    reshaped to `lead + (heads, D)`, with RoPE at `positions` (shaped
-    `lead`; a 1-D lead is rotated as a length-1 sequence)."""
-    NH, NKV, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+def _qkv(cfg: TransformerConfig, lp, x, lead, positions, proj=_dense):
+    """Pre-norm and q/k/v projections of the flat rows `x` [N, H]
+    (`proj(h, w, b)`, `_dense` or a tensor-parallel stage whose output
+    rows and heads are this rank's), reshaped to `lead + (heads, D)`, with
+    RoPE at `positions` (shaped `lead`; a 1-D lead is rotated as a
+    length-1 sequence)."""
+    D = cfg.head_dim
     h = _norm(x, lp["attn_norm_scale"], lp.get("attn_norm_bias"), cfg.norm,
               cfg.norm_eps)
-    q = _dense(h, lp["wq"], lp.get("bq")).reshape(*lead, NH, D)
-    k = _dense(h, lp["wk"], lp.get("bk")).reshape(*lead, NKV, D)
-    v = _dense(h, lp["wv"], lp.get("bv")).reshape(*lead, NKV, D)
+    q = proj(h, lp["wq"], lp.get("bq")).reshape(*lead, -1, D)
+    k = proj(h, lp["wk"], lp.get("bk")).reshape(*lead, -1, D)
+    v = proj(h, lp["wv"], lp.get("bv")).reshape(*lead, -1, D)
     if cfg.pos_emb == "rope":
         if len(lead) == 1:
             q = _rope(q[:, None], positions[:, None], cfg.rope_theta,
@@ -411,16 +417,29 @@ def decode_tokens(cfg: TransformerConfig, params, arena, tokens, seq_lens,
     samples.  adapter_ids [B] with `lora`: the gather-LoRA epilogue on
     every step (the rows' grouping is built once for the burst).
     Returns (tokens [B, n_steps] int32 on the device, arena)."""
-    lens = _host(seq_lens).astype(np.int64)
     if lora is not None:
         adapter_ids = LoraRows(adapter_ids)
+
+    def core(arena, toks, lens):
+        return _decode_core(cfg, params, arena, toks, lens, block_tables,
+                            active, adapter_ids=adapter_ids, lora=lora)
+    return decode_loop(core, arena, tokens, seq_lens, rng, temperature,
+                       max_len, top_k_vec, n_steps=n_steps, mode=mode,
+                       top_k=top_k)
+
+
+def decode_loop(core, arena, tokens, seq_lens, rng, temperature=1.0,
+                max_len=None, top_k_vec=None, *, n_steps: int,
+                mode: str = "greedy", top_k: int = 0):
+    """The burst of `decode_tokens` over any one-step core: `core(arena,
+    tokens, lens)` -> (logits [B, V] f32, arena).  Shared with the
+    tensor-parallel programs."""
+    lens = _host(seq_lens).astype(np.int64)
     cap = None if max_len is None else _host(max_len).astype(np.int64) - 1
     toks = tokens
     out = []
     for _ in range(n_steps):
-        logits, arena = _decode_core(cfg, params, arena, toks, lens,
-                                     block_tables, active,
-                                     adapter_ids=adapter_ids, lora=lora)
+        logits, arena = core(arena, toks, lens)
         toks = _sample_tokens(logits, rng, mode, temperature,
                               top_k_vec if mode == "per_row" else top_k)
         out.append(toks)

@@ -3,7 +3,7 @@
 families the port serves and trains: gpt2, llama, qwen2)."""
 from .transformer import (Transformer, TransformerConfig, gpt2_config,
                           init_params, llama_config, qwen2_config)
-from .convert import opt_state_from_jax, params_from_jax
+from .convert import opt_state_from_jax, params_from_jax, shard_params_tp
 
 MODEL_FAMILIES = {
     "gpt2": gpt2_config,
@@ -24,4 +24,4 @@ def get_model_config(family: str, size: str = None, **kw) -> TransformerConfig:
 __all__ = ["Transformer", "TransformerConfig", "MODEL_FAMILIES",
            "get_model_config", "gpt2_config", "llama_config",
            "qwen2_config", "init_params", "params_from_jax",
-           "opt_state_from_jax"]
+           "opt_state_from_jax", "shard_params_tp"]

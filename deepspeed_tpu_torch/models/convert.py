@@ -1,5 +1,5 @@
 """JAX parameter and optimizer-state pytrees (as numpy arrays) -> the
-port's tensors.
+port's tensors, and the tensor-parallel shard of a parameter tree.
 
 Both packages keep the same stacked, in-first layout and key names
 (`layers.wq` `[L, H, NH*D]`, `tok_embed` `[V, E]`, ...), so conversion is
@@ -16,7 +16,22 @@ import torch
 
 from .transformer import TransformerConfig
 
-__all__ = ["params_from_jax", "opt_state_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "shard_params_tp",
+           "TP_SPLIT_DIMS"]
+
+# The reference's Megatron partition rules (`_TP_RULES`,
+# deepspeed_tpu/models/transformer.py) as the dim of each stacked leaf that
+# the tp axis splits: column-parallel leaves (q/k/v, MLP up/gate and their
+# biases) on their output dim, row-parallel ones (attention out, MLP down)
+# on their input dim, the embedding and lm head on the vocabulary.  Every
+# other leaf is replicated.  (The MoE rules are left out: the port refuses
+# MoE layers.)
+TP_SPLIT_DIMS = {
+    "wq": 2, "wk": 2, "wv": 2, "bq": 1, "bk": 1, "bv": 1,
+    "w_up": 2, "w_gate": 2, "b_up": 1,
+    "wo": 1, "w_down": 1,
+    "tok_embed": 0, "lm_head": 1, "lm_head_bias": 0,
+}
 
 
 def _leaf(x, device, dtype):
@@ -78,3 +93,32 @@ def opt_state_from_jax(np_state: Dict, device) -> Dict:
             return {k: walk(v) for k, v in t.items()}
         return leaf(t)
     return walk(np_state)
+
+
+def shard_params_tp(params: Dict, tp: int, rank: int) -> Dict:
+    """Rank `rank`'s shard of the full parameter tree for tensor
+    parallelism of degree `tp`: every leaf named in `TP_SPLIT_DIMS` cut to
+    its rank-th contiguous chunk along that dim, every other leaf as it is.
+    Leaves may be numpy arrays or torch tensors; a cut leaf is a contiguous
+    copy (so the full tree can be freed).  Raises if a split dim does not
+    divide by tp."""
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} outside tp={tp}")
+
+    def cut(name, x):
+        dim = TP_SPLIT_DIMS.get(name)
+        if dim is None or tp == 1:
+            return x
+        n = x.shape[dim]
+        if n % tp:
+            raise ValueError(f"{name} has {n} entries along dim {dim}, not "
+                             f"divisible by tp={tp}")
+        c = n // tp
+        piece = x[(slice(None),) * dim + (slice(rank * c, (rank + 1) * c),)]
+        if isinstance(piece, torch.Tensor):
+            return piece.contiguous()
+        return np.ascontiguousarray(piece)
+
+    return {k: ({kk: cut(kk, vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else cut(k, v))
+            for k, v in params.items()}

@@ -381,14 +381,16 @@ def dense_f32(x, w):
     return _DenseF32.apply(x, w)
 
 
-def _mlp_block(cfg: TransformerConfig, lp, h):
+def _mlp_block(cfg: TransformerConfig, lp, h, col=_dense, row=_dense):
     """Dense MLP (swiglu / gelu / relu).  The activation is computed in
-    f32 and rounded once (see `_act_fn`)."""
+    f32 and rounded once (see `_act_fn`).  `col` / `row` compute the up
+    (and gate) and the down projections, `col(h, w, b)` like `_dense`
+    (the tensor-parallel programs pass their fused ring stages)."""
     if cfg.activation == "swiglu":
-        h = F.silu(_dense(h, lp["w_gate"])) * _dense(h, lp["w_up"])
+        h = F.silu(col(h, lp["w_gate"], None)) * col(h, lp["w_up"], None)
     else:
-        h = _act_fn(cfg.activation)(_dense(h, lp["w_up"], lp.get("b_up")))
-    return _dense(h, lp["w_down"], lp.get("b_down"))
+        h = _act_fn(cfg.activation)(col(h, lp["w_up"], lp.get("b_up")))
+    return row(h, lp["w_down"], lp.get("b_down"))
 
 
 def _layer(cfg: TransformerConfig, x, lp, positions):

@@ -25,7 +25,8 @@ __all__ = ["KERNELS", "build_all", "load", "library_path", "function",
            "check"]
 
 KERNELS = ("flash_fwd", "flash_bwd", "paged_decode", "paged_prefill",
-           "lora_delta", "fused_adam8", "sparse_flash", "evoformer_flash")
+           "lora_delta", "fused_adam8", "sparse_flash", "evoformer_flash",
+           "tile_matmul")
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"

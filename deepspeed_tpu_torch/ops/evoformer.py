@@ -75,15 +75,25 @@ def _use_evo_kernel(impl: str) -> bool:
     return impl == "auto"
 
 
+def _aligned(t):
+    """`t` contiguous and starting on a 16-byte boundary, as the kernels
+    read it: a view that starts elsewhere (a bias sliced at an odd row,
+    say) is copied."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 class _EvoformerKernel(torch.autograd.Function):
     """The kernel path: the forward kernel keeps out and lse; the backward
-    is the dq, dk/dv (+db1) and db2 kernels."""
+    is the dq, dk/dv (+db1) and db2 kernels.  Inputs the kernels would
+    refuse for their layout alone (not contiguous, or not starting on a
+    16-byte boundary) are copied first, as the reference takes them."""
 
     @staticmethod
     def forward(ctx, q, k, v, b1, b2):
-        q, k, v = (t.contiguous() for t in (q, k, v))
-        b1, b2 = (b.contiguous() if b is not None else None
-                  for b in (b1, b2))
+        q, k, v, b1, b2 = (_aligned(t) for t in (q, k, v, b1, b2))
         out, lse = evoformer_flash.evoformer_flash_forward(
             q, k, v, b1, b2, return_lse=True)
         ctx.save_for_backward(q, k, v, b1, b2, out, lse)
@@ -93,7 +103,7 @@ class _EvoformerKernel(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, b1, b2, out, lse = ctx.saved_tensors
         dq, dk, dv, db1, db2 = evoformer_flash.evoformer_flash_backward(
-            q, k, v, b1, b2, out, dout.contiguous(), lse,
+            q, k, v, b1, b2, out, _aligned(dout), lse,
             need_db1=ctx.needs_input_grad[3],
             need_db2=ctx.needs_input_grad[4])
         return dq, dk, dv, db1, db2

@@ -206,9 +206,6 @@ def _check(q, k, v, b1, b2, like_q=(), rows=()):
     if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {D}: the Evoformer kernels take "
                          f"D % 8 == 0 and D <= {MAX_HEAD_DIM}")
-    if B * N > 65535 or B * H > 65535:
-        raise ValueError(f"B*N = {B * N} and B*H = {B * H} must stay within "
-                         f"65535 (the kernels' grid)")
     for t in (k, v) + tuple(like_q):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError("k, v, out and dO must match q's shape, dtype "

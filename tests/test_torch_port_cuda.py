@@ -34,6 +34,7 @@ from deepspeed_tpu_torch.ops import sparse_flash as tsflash
 from deepspeed_tpu_torch.ops import paged_attention as tdecode
 from deepspeed_tpu_torch.ops import paged_merged as tmerged
 from deepspeed_tpu_torch.ops import paged_prefill as tprefill
+from deepspeed_tpu_torch.ops import tp_matmul as ttm
 from deepspeed_tpu_torch.serving.tenancy import AdapterPool
 
 pytestmark = [pytest.mark.kernels, pytest.mark.cuda]
@@ -64,6 +65,11 @@ LORA_REL = 1e-5
 # PyTorch's CUDA kernels): master |d| <= 1e-6 |plain| + 1e-7, codes within
 # one, scales rtol 1e-6
 ADAM8_RTOL, ADAM8_ATOL = 1e-6, 1e-7
+# tile GEMM vs plain version, |kernel - plain| <= TILE_REL max|plain|: both
+# sum the same exact products (bf16 x bf16 is exact in f32) in f32, in
+# another order; over K up to 11008 unit-normal terms that is ~1e-6 of the
+# outputs' scale, and a lost K tile or misplaced column is O(1)
+TILE_REL = 2e-5
 
 
 @pytest.fixture
@@ -716,3 +722,160 @@ def test_evoformer_wrappers_raise_on_what_the_kernels_do_not_take(card):
     b1 = torch.zeros(1, 2, 1, 1, 16, dtype=torch.float16, device="cuda")
     with pytest.raises(ValueError, match="mask bias"):
         tevof.evoformer_flash_forward(q, q, q, b1)
+
+
+# ----------------------------------------------------------------------
+# tensor-parallel serving: the tile GEMM, and the ring on several cards
+# ----------------------------------------------------------------------
+@DTYPES
+@pytest.mark.parametrize("M,K,N", [
+    (4, 4096, 2048), (2, 4096, 2752), (1, 2752, 1001), (16, 512, 256),
+    (37, 100, 60), (256, 1024, 1000), (3, 7, 5), (5, 0, 9)],
+    ids=["decode-q-tp2", "decode-up-tp4", "edges", "bm16", "odd",
+         "prefill", "tiny", "k0"])
+def test_tile_matmul_kernel_matches_plain_version(card, dtype, M, K, N):
+    x = _rnd(card, dtype, M, K)
+    w = _rnd(card, dtype, K, N)
+    before = ttm.tile_matmul.launches
+    got = ttm.tile_matmul(x, w)
+    again = ttm.tile_matmul(x, w)
+    torch.cuda.synchronize()
+    assert ttm.tile_matmul.launches - before == 2
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert torch.equal(got, again)              # fixed order: the same bits
+    ref = ttm.tile_matmul_reference(x, w)
+    scale = TILE_REL * max(float(ref.abs().max()), 1.0)
+    _close(got, ref, scale)
+    # a view one element past an aligned start takes the element loads
+    if K:
+        xs = _rnd(card, dtype, M * K + 1)[1:].view(M, K)
+        assert xs.data_ptr() % 16
+        _close(ttm.tile_matmul(xs, w), ttm.tile_matmul_reference(xs, w),
+               TILE_REL * max(float(ttm.tile_matmul_reference(
+                   xs, w).abs().max()), 1.0))
+
+
+def test_tile_matmul_raises_on_what_the_kernel_does_not_take(card):
+    x = _rnd(card, torch.bfloat16, 4, 64)
+    with pytest.raises(TypeError, match="one dtype"):
+        ttm.tile_matmul(x, _rnd(card, torch.float32, 64, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        ttm.tile_matmul(x, _rnd(card, torch.bfloat16, 8, 64).t())
+    with pytest.raises(ValueError, match="w \\[K, N\\]"):
+        ttm.tile_matmul(x, _rnd(card, torch.bfloat16, 32, 8))
+
+
+def test_evoformer_takes_a_misaligned_bias_view(card):
+    """A bf16 mask bias sliced at an odd row starts 200 bytes into its
+    storage, off the kernels' 16-byte boundary: the autograd Function
+    copies it (forward and backward), as the reference takes any view."""
+    B, N, L, H, D = 1, 8, 100, 2, 32
+    q, k, v = (_rnd(card, torch.bfloat16, B, N, L, H, D) for _ in range(3))
+    full = _rnd(card, torch.bfloat16, B, N + 1, 1, 1, L)
+    b1 = full[:, 1:]
+    assert b1.is_contiguous() and b1.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tevof.evoformer_flash_forward(q, k, v, b1)
+    grads = []
+    for impl in ("auto", "jnp"):
+        t = [x.clone().requires_grad_() for x in (q, k, v)]
+        bb = full.clone().requires_grad_()
+        out = tevo.evoformer_attention(t[0], t[1], t[2], (bb[:, 1:],),
+                                       impl=impl)
+        (out.float() ** 2).sum().backward()
+        grads.append([out] + [x.grad for x in t] + [bb.grad])
+    _close(grads[0][0], grads[1][0], ATOL[torch.bfloat16],
+           RTOL[torch.bfloat16])
+    for g, w in zip(grads[0][1:], grads[1][1:]):
+        scale = max(float(w.float().abs().max()), 1.0)
+        _close(g, w, BWD_ATOL[torch.bfloat16] * scale * 2,
+               BWD_RTOL[torch.bfloat16] * 2)
+    assert (grads[0][-1][:, 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_evoformer_kernels_walk_more_slices_than_the_grid(card, dtype):
+    """B*N = 70000 rows: past the 65535 grid limit, every slice is served
+    by the grid-stride loops, forward and backward."""
+    q, k, v, b1, b2 = _evo_inputs(card, dtype, 1, 70000, 16, 1, 8, "both")
+    out, lse = tevof.evoformer_flash_forward(q, k, v, b1, b2,
+                                             return_lse=True)
+    ref, ref_lse = tevof.evoformer_flash_forward_reference(q, k, v, b1, b2)
+    _close(out, ref, ATOL[dtype], RTOL[dtype])
+    _close(lse, ref_lse, LSE_ATOL, 1e-6)
+    do = _rnd(card, dtype, *q.shape)
+    got = tevof.evoformer_flash_backward(q, k, v, b1, b2, out, do, lse)
+    want = tevof.evoformer_flash_backward_reference(q, k, v, b1, b2, out,
+                                                    do, lse)
+    for gt, w in zip(got, want):
+        if w is None:
+            continue
+        scale = max(float(w.float().abs().max()), 1.0)
+        _close(gt, w, BWD_ATOL[gt.dtype] * scale, BWD_RTOL[gt.dtype])
+
+
+@pytest.fixture
+def two_cards(card):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices (the tp ring)")
+    return card
+
+
+@pytest.mark.multi_cuda
+def test_ring_on_nccl_matches_the_replicated_product(two_cards, tmp_path):
+    import _torch_tp_ranks as ranks
+    from deepspeed_tpu_torch.comm import spawn_ranks
+    rng = np.random.RandomState(0)
+    x = rng.randn(16, 32).astype(np.float32)
+    w1 = rng.randn(32, 64).astype(np.float32)
+    w2 = rng.randn(64, 32).astype(np.float32)
+    ref = np.tanh(x @ w1) @ w2
+    res = spawn_ranks(ranks.ring_block, 2, str(tmp_path / "store"),
+                      args=(x, w1, w2, "cuda"), timeout_s=300)
+    for got in (np.concatenate([r[0] for r in res]),
+                np.concatenate([r[1] for r in res])):
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+    for _, _, log_ag, log_rs in res:
+        assert log_ag.count("hop") == log_rs.count("hop") == 1
+
+
+@pytest.mark.multi_cuda
+def test_tp2_greedy_chain_on_two_cards(two_cards, tmp_path):
+    """A tiny f32 Llama at tp 2 on two cards (NCCL, the tile kernel, the
+    paged kernels on local heads) against the same engine at tp 1."""
+    import _torch_tp_ranks as ranks
+    from deepspeed_tpu_torch.comm import spawn_ranks
+    cfg_kw = dict(vocab_size=512, hidden_size=256, num_layers=2,
+                  num_heads=8, num_kv_heads=4, max_seq_len=256,
+                  pos_emb="rope", norm="rmsnorm", activation="swiglu",
+                  dtype=torch.float32)
+    engine_kw = dict(num_blocks=64, block_size=16, max_blocks_per_seq=16,
+                     max_seqs=4, prefill_chunk_size=32,
+                     max_prefill_tokens_per_step=64,
+                     full_prompt_prefill=False)
+    cfg = dt.models.TransformerConfig(**cfg_kw)
+    params = {k: ({kk: vv.cpu().numpy() for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.cpu().numpy())
+              for k, v in dt.models.init_params(
+                  cfg, torch.Generator().manual_seed(0), "cpu").items()}
+    rng = np.random.RandomState(11)
+    # both prompts fit one step's 64-token budget (the drive reads both
+    # first logits from one put)
+    prompts = [rng.randint(0, 512, n).astype(np.int32) for n in (40, 9)]
+    want = ranks._drive(ranks.engine(params, cfg_kw, engine_kw,
+                                     device="cuda"), prompts)
+    before = ttm.tile_matmul.launches
+    res = spawn_ranks(ranks.serve_tp, 2, str(tmp_path / "store"),
+                      args=(params, cfg_kw, engine_kw, prompts, "cuda"),
+                      timeout_s=300)
+    assert ttm.tile_matmul.launches == before      # only the ranks ran it
+    for out in res:
+        assert out["tile_launches"] > 0
+        for key in ("prefill", "cont"):
+            for u in want[key]:
+                np.testing.assert_allclose(out[key][u], want[key][u],
+                                           rtol=2e-4, atol=2e-4)
+        for u in (0, 1):
+            np.testing.assert_array_equal(out["burst"][u], want["burst"][u])
+        assert out["chains"] == want["chains"]
