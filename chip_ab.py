@@ -2,7 +2,7 @@
 """Compare two copies of `deepspeed_tpu_torch` on one NVIDIA card.
 
     python3 chip_ab.py DIR_A DIR_B [--rounds N]
-                       [--what train|paged|sparse|evoformer]
+                       [--what train|paged|sparse|evoformer|tile|flash]
                        [--train-layers N]
 
 Each DIR holds a `deepspeed_tpu_torch` package (for example one unpacked
@@ -23,7 +23,14 @@ B, A per round, each in a process of its own that builds its own kernels
   first layout);
 - `--what evoformer`: the Evoformer forward, dq, dk/dv (with db1) and db2
   kernels' device time at phase 12's MSA row shape (chip_smoke's
-  `evo_inputs`).
+  `evo_inputs`);
+- `--what tile`: the tile GEMM's device time at phase 13's decode hops
+  (warm, and with the L2 flushed before each call: chip_smoke's
+  `cold_time_ms`) and NC=2 prefill hops (chip_smoke's `tile_hop_shapes`),
+  bf16, and the host time of one decode-hop call (`host_us`);
+- `--what flash`: the flash forward's device time at the serving shape
+  [4, 512, 32, 128] and the training shape (TRAIN_ATTN), bf16, causal,
+  and the host time of one call at [1, 128, 8, 128].
 
 One JSON line per run, then a summary; two versions compare only within
 one call, on one card.  Exits non-zero without a card.
@@ -90,12 +97,58 @@ def evoformer_worker(cs, np, torch):
                 q, k, v, b1, b2, do, lse, delta))}
 
 
+def tile_worker(cs, np, torch):
+    """Device ms of the tile GEMM at phase 13's decode (warm and L2
+    flushed) and NC=2 prefill hops; host us of one decode-hop call."""
+    from deepspeed_tpu_torch.ops import tp_matmul as tm
+    g = torch.Generator(device="cuda").manual_seed(9)
+    res = {}
+    for (M, K, N), labels in cs.tile_hop_shapes().items():
+        decode = any("decode" in lb for lb in labels)
+        if not (decode or any("NC=2" in lb for lb in labels)):
+            continue
+        x = torch.randn(M, K, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        w = torch.randn(K, N, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        key = f"{M}x{K}x{N}"
+        res[f"{key}_ms"] = cs.time_ms(lambda: tm.tile_matmul(x, w))
+        if decode:
+            res[f"{key}_cold_ms"] = cs.cold_time_ms(
+                torch, lambda: tm.tile_matmul(x, w))
+        if "tp4 decode gate/up" in labels:
+            res["decode_host_us"] = cs.host_us(
+                torch, lambda: tm.tile_matmul(x, w))
+    return res
+
+
+def flash_worker(cs, np, torch):
+    """Device ms of the flash forward at the serving and training shapes;
+    host us of one call at a small shape."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(1)
+    res = {}
+    for name, shape in (("serve", (4, 512, 32, 32, 128)),
+                        ("train", cs.TRAIN_ATTN)):
+        q, k, v = cs._qkv(torch, g, "cuda", *shape)
+        res[f"{name}_ms"] = cs.time_ms(lambda: fa.flash_attention_fwd(
+            q, k, v))
+    q, k, v = cs._qkv(torch, g, "cuda", 1, 128, 8, 8, 128)
+    res["host_us"] = cs.host_us(torch, lambda: fa.flash_attention_fwd(
+        q, k, v))
+    return res
+
+
 def worker(pkg_dir, train_layers, what):
+    import importlib.util
     sys.path.insert(0, os.path.abspath(pkg_dir))
-    sys.path.insert(1, HERE)
     import numpy as np
     import torch
-    import chip_smoke as cs
+    # this script's chip_smoke (its helpers and shapes), whatever DIR holds
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     import deepspeed_tpu_torch
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
@@ -104,7 +157,8 @@ def worker(pkg_dir, train_layers, what):
         False
     package = os.path.dirname(deepspeed_tpu_torch.__file__)
     workers = {"paged": paged_worker, "sparse": sparse_worker,
-               "evoformer": evoformer_worker}
+               "evoformer": evoformer_worker, "tile": tile_worker,
+               "flash": flash_worker}
     if what in workers:
         print("AB " + json.dumps(dict(package=package, **workers[what](
             cs, np, torch))), flush=True)
@@ -135,7 +189,8 @@ def main(argv=None):
     ap.add_argument("dirs", nargs="*", help="DIR_A DIR_B")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--what", default="train",
-                    choices=("train", "paged", "sparse", "evoformer"))
+                    choices=("train", "paged", "sparse", "evoformer",
+                             "tile", "flash"))
     ap.add_argument("--train-layers", type=int, default=24)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -167,7 +222,9 @@ def main(argv=None):
             "sparse": ("fwd_ms", "dq_ms", "dkv_ms"),
             "evoformer": ("fwd_ms", "dq_ms", "dkv_ms", "db2_ms"),
             "train": ("dq_ms", "dkv_ms", "step_ms", "tokens_per_s", "mfu",
-                      "first_loss")}[args.what]
+                      "first_loss")}.get(args.what)
+    if keys is None:   # tile, flash: every number the runs share
+        keys = [k for k in runs[0] if k not in ("label", "package")]
     for key in keys:
         print(f"{key}: " + ", ".join(f"{r['label']} {r[key]:.6g}"
                                      for r in runs))

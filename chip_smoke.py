@@ -94,8 +94,11 @@ view off the 16-byte boundary through `evoformer_attention`, and B*N =
 70000 rows past the grid limit) and the tile GEMM of the tensor-parallel
 ring (at every per-hop shape of phase 13's wave at tp 2 and 4, bf16 and
 f32, and at edges: M 1, K 2752, N 1001, a misaligned view, M tiles past
-the grid limit) against their plain versions, and times the flash
-forward beside SDPA at the training shape too.
+the grid limit; each case prints the kernel `tile_plan` gave it, and a
+bf16 hop that ran neither the split-K TMA stream nor the wgmma kernel
+fails) against their plain versions, times the tile GEMM's decode hops
+warm and with the L2 flushed before each call, and the flash forward
+beside SDPA at the training shape too.
  13. (only with `--tp N`, N in 2, 4, on N cards: the one-card run says
      so and skips it) tensor-parallel serving over the fused ring: phase
      0, phase 1's tile GEMM rows, then phase 2's wave on Llama-2-7B
@@ -104,7 +107,8 @@ forward beside SDPA at the training shape too.
      building `build_engine("llama", "7b", engine_config=...(tensor_
      parallel_size=N, tp_collectives="fused"))` from the same seed: tile
      GEMM launches (7 L per prefill call + 7 L + 1 per decode step, times
-     N), the paged kernels' launches as at tp 1, no plain version;
+     N), every one on a TMA kernel (launches by kernel), the paged
+     kernels' launches as at tp 1, no plain version;
      logits within phase 3's limit of tp 1's (greedy tokens reported);
      the same at f32 and 2 layers with tokens identical and logits within
      TP_STRICT_ATOL; rank 0's profiled decode step (device ms by kind,
@@ -2664,15 +2668,78 @@ def tile_work(M, K, N, elem):
     return 2 * M * K * N, (M * K + K * N) * elem + 4 * M * N
 
 
+def cold_time_ms(torch, fn, iters=20, flush_mb=128):
+    """Device time of one call of `fn` with the 50 MB L2 flushed before
+    each call (a `flush_mb` MB buffer zeroed between calls, its fill
+    kernel left out of the sum), as a ring hop finds its weight shard.
+    A session holds when it has `iters` times one call's kernels; after
+    PROFILE_TRIES that miss, CUDA events around each call."""
+    flush = torch.empty(flush_mb << 18, dtype=torch.float32, device="cuda")
+    fill = {e.name for e in profile_session(flush.zero_)}
+    per_call = len(profile_session(fn))
+
+    def body():
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+
+    for _ in range(PROFILE_TRIES):
+        mine = [e for e in profile_session(body) if e.name not in fill]
+        us = sum(e.time_range.elapsed_us() for e in mine)
+        if per_call and len(mine) == iters * per_call and us > 0:
+            return Timing(us / 1e3 / iters, "profiler")
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return Timing(total / iters, "cuda_events")
+
+
+def host_us(torch, fn, iters=200):
+    """Host time of one call of `fn` (a wrapper's checks, plan, tensor
+    maps and launch), at a size where the card keeps up: the wall time of
+    `iters` calls with no synchronisation inside, divided by `iters`."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def tile_variant(tm, fn):
+    """(result of fn(), the tile GEMM kernel it launched: the one variant
+    whose count moved by one)."""
+    before = dict(tm.tile_matmul.launches_by_variant)
+    out = fn()
+    moved = [k for k, n in tm.tile_matmul.launches_by_variant.items()
+             if n != before[k]]
+    if len(moved) != 1:
+        fail(f"tile_matmul launched {moved} for one call")
+    return out, moved[0]
+
+
 def check_tile_matmul(torch, tm, dev):
     """The tile GEMM against its plain version at every per-hop shape of
     phase 13's wave (bf16, the serving dtype; f32, the strict check's, at
     the decode hops and the NC=2 prefill hops), and at the edges: M 1,
     K 2752, N 1001, ragged shapes, a view off the 16-byte boundary (the
-    element loads), and M tiles past the 65535 grid limit.  A rerun is
-    bit-identical.  Times every decode hop (and the NC=2 prefill hops)
-    beside its bound, the plain version and cuBLAS's
-    torch.mm(out_dtype=float32)."""
+    element loads), and M tiles past the 65535 grid limit.  Each case
+    prints the kernel it ran (`tp_matmul.tile_plan`'s variant, read from
+    the per-variant launch counts); a bf16 hop shape that did not run the
+    split-K stream (M <= 16) or the wgmma kernel fails the phase, and an
+    edge runs the kernel the plan names.  A rerun is bit-identical.
+    Times every decode hop (and the NC=2 prefill hops) beside its bound,
+    the plain version and cuBLAS's torch.mm(out_dtype=float32), warm and
+    (decode hops) with the L2 flushed before each call."""
     g = torch.Generator(device=dev).manual_seed(9)
     bf16, f32 = torch.bfloat16, torch.float32
     hops = tile_hop_shapes()
@@ -2691,7 +2758,7 @@ def check_tile_matmul(torch, tm, dev):
                "edge: 65537 M tiles (grid stride)", False),
               (32 * 65535 + 5, 8, 8, f32,
                "edge: 65536 M tiles (grid stride)", False)]
-    errs, rels = [], []
+    errs, rels, ran = [], [], {}
     for M, K, N, dt, label, off in cases:
         if off:   # a contiguous view one element past an aligned start
             x = torch.randn(M * K + 1, generator=g, device=dev,
@@ -2699,19 +2766,30 @@ def check_tile_matmul(torch, tm, dev):
         else:
             x = torch.randn(M, K, generator=g, device=dev, dtype=dt)
         w = torch.randn(K, N, generator=g, device=dev, dtype=dt)
-        out = tm.tile_matmul(x, w)
+        out, variant = tile_variant(tm, lambda: tm.tile_matmul(x, w))
         ref = tm.tile_matmul_reference(x, w)
         torch.cuda.synchronize()
         e = max_err(out, ref)
         rel = e / max(float(ref.abs().max()), 1.0)
         print(f"  tile_matmul [{M},{K}] @ [{K},{N}] {str(dt)[6:]} ({label}): "
-              f"max|d| / max|plain| = {rel:.3e}")
+              f"{variant}, max|d| / max|plain| = {rel:.3e}")
         if out.dtype != f32 or rel > TILE_REL:
             fail(f"tile_matmul disagrees with its plain version at "
                  f"{(M, K, N, dt)}: {rel} of max|plain| (tol {TILE_REL})")
+        aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+        want = tm.tile_plan(M, K, N, dt, aligned).variant
+        if dt == bf16 and not label.startswith("edge"):
+            if want != ("stream" if M <= tm.STREAM_MAX_M else "wgmma"):
+                fail(f"the plan gives hop shape {(M, K, N)} the {want} "
+                     f"kernel, not a TMA one")
+        if variant != want:
+            fail(f"tile_matmul ran {variant} at {(M, K, N, dt)}, its plan "
+                 f"says {want}")
+        ran[variant] = ran.get(variant, 0) + 1
         errs.append(e)
         rels.append(rel)
         del x, w, out, ref
+    print(f"  tile_matmul cases by kernel: {ran}")
     torch.cuda.empty_cache()
     timed = []
     for (M, K, N), labels in hops.items():
@@ -2719,21 +2797,30 @@ def check_tile_matmul(torch, tm, dev):
             continue
         x = torch.randn(M, K, generator=g, device=dev, dtype=bf16)
         w = torch.randn(K, N, generator=g, device=dev, dtype=bf16)
-        first = tm.tile_matmul(x, w)
+        first, variant = tile_variant(tm, lambda: tm.tile_matmul(x, w))
         if not torch.equal(first, tm.tile_matmul(x, w)):
             fail(f"tile_matmul reruns differ at {(M, K, N)}")
+        plan = tm.tile_plan(M, K, N, bf16)
         row = dict(shape=f"x [{M},{K}] @ w [{K},{N}] bf16",
-                   hops=", ".join(labels),
+                   hops=", ".join(labels), variant=variant,
+                   splits=plan.splits, ctas=plan.ctas,
                    ms=time_ms(lambda: tm.tile_matmul(x, w)),
                    plain_ms=time_ms(lambda: tm.tile_matmul_reference(x, w)),
                    library_ms=time_ms(lambda: torch.mm(
                        x, w, out_dtype=torch.float32)))
         row["bound_ms"], row["bound_by"] = bound_ms(*tile_work(M, K, N, 2))
+        if M <= tm.STREAM_MAX_M:
+            row["cold_ms"] = cold_time_ms(
+                torch, lambda: tm.tile_matmul(x, w))
+            row["library_cold_ms"] = cold_time_ms(
+                torch, lambda: torch.mm(x, w, out_dtype=torch.float32))
         timed.append(row)
-        print(f"  tile_matmul {row['shape']} ({row['hops']}): "
-              f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f} "
-              f"{row['bound_by']}, plain {row['plain_ms']:.4f}, cuBLAS "
-              f"{row['library_ms']:.4f})")
+        cold = (f", L2 flushed {row['cold_ms']:.4f} (cuBLAS "
+                f"{row['library_cold_ms']:.4f})" if "cold_ms" in row else "")
+        print(f"  tile_matmul {row['shape']} ({row['hops']}): {variant} x "
+              f"{plan.ctas} CTAs, {row['ms']:.4f} ms{cold} (bound "
+              f"{row['bound_ms']:.4f} {row['bound_by']}, plain "
+              f"{row['plain_ms']:.4f}, cuBLAS {row['library_ms']:.4f})")
         del x, w
     main = next(r for r in timed if "tp4 decode gate/up" in r["hops"])
     return dict(name="tile_matmul", route="cuda",
@@ -2744,10 +2831,11 @@ def check_tile_matmul(torch, tm, dev):
                 max_rel_err_note="max|kernel - plain| / max|plain|",
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"],
+                library_ms=main["library_ms"], cold_ms=main["cold_ms"],
+                library_cold_ms=main["library_cold_ms"],
                 library_note="torch.mm(x, w, out_dtype=torch.float32) "
                              "(cuBLAS)",
-                hops=timed)
+                cases_by_kernel=ran, hops=timed)
 
 
 # ----------------------------------------------------------------------
@@ -2802,19 +2890,23 @@ def tp_wave(torch, np, eng, prompts, counters):
                                    "decode", finite, eng.device)
     for c in counters:
         c.launches = 0
+        if hasattr(c, "launches_by_variant"):     # the tile GEMM's kernels
+            c.launches_by_variant = dict.fromkeys(c.launches_by_variant, 0)
     sync(torch, eng.device)
     t0 = time.perf_counter()
     outs = eng.generate_batch(prompts, max_new_tokens=MAX_NEW)
     sync(torch, eng.device)
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
+    by_variant = {c.__name__: dict(c.launches_by_variant) for c in counters
+                  if hasattr(c, "launches_by_variant")}
     del eng.step, eng.decode_burst_step
     for k, fn in real.items():
         setattr(progs, k, fn)
     if len(finite) != len(prompts) or not all(finite):
         fail(f"prefill logits not finite for every request ({finite})")
     return dict(tokens=np.stack(outs), wall_s=wall, launches=launches,
-                calls=calls,
+                launches_by_variant=by_variant, calls=calls,
                 prefill_tok_s=sum(len(p) for p in prompts) / acc["prefill"],
                 decode_ms_per_step=1e3 * acc["decode"]
                 / max(calls["decode_steps"], 1))
@@ -3081,11 +3173,17 @@ def tensor_parallel(torch, np, layers, sizes, store_dir, dev="cuda",
         if calls != base["calls"]:
             fail(f"tp {tp} scheduled other serving calls than tp 1: "
                  f"{calls} vs {base['calls']}")
-        for r in ranks:
+        variants = [r["wave"]["launches_by_variant"]["tile_matmul"]
+                    for r in ranks]
+        print(f"  tile GEMM launches by kernel, by rank: {variants}")
+        for r, v in zip(ranks, variants):
             got = r["wave"]["launches"]
             if got["tile_matmul"] != want_tile:
                 fail(f"tp {tp}: {got['tile_matmul']} tile GEMM launches, "
                      f"want {want_tile}")
+            # bf16 hops have K and N multiples of 8: TMA kernels only
+            if v["cp_async"] or v["f32"]:
+                fail(f"tp {tp}: a bf16 hop ran an old tile kernel: {v}")
             for n in ("paged_decode_attention", "paged_prefill_attention",
                       "flash_attention_fwd"):
                 if got[n] != base["launches"][n]:
@@ -3136,6 +3234,7 @@ def tensor_parallel(torch, np, layers, sizes, store_dir, dev="cuda",
         results[f"tp{tp}"] = dict(
             ranks_s=wall, build_s=r0["build_s"], arena=r0["arena"],
             calls=calls, launches_by_rank=lt, tile_launches_want=want_tile,
+            tile_launches_by_kernel=variants,
             e2e_max_rel_dlogit=worst, token_agreement=same,
             first_token_agreement=first_same / len(prompts),
             strict_max_abs_dlogit=sd, strict_tokens_identical=strict_same,

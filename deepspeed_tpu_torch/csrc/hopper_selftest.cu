@@ -1,0 +1,212 @@
+// Checks of hopper_tile.cuh's building blocks one at a time, on the card
+// (tests/test_torch_port_cuda.py calls them; no kernel of the port's
+// paths lives here).  A wrong swizzle or descriptor gives wrong numbers,
+// not a fault, so each block is held against a plain computation before
+// a kernel is built on it:
+//
+//   dstt_selftest_tma: one TMA box of a bf16 tensor (2-D to 4-D, any
+//     swizzle) into shared memory, copied out byte for byte, so the
+//     caller can check the swizzle pattern and the zero fill at the edges;
+//   dstt_selftest_wgmma: one warpgroup's out [64, N] f32 = A [64, 64] @ B
+//     over four k16 steps, A and B loaded by TMA with the given swizzle,
+//     A from shared memory or from registers, B K-major ([N, 64]) or
+//     MN-major ([64, N]).
+#include "hopper_tile.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+namespace hp = dstt::hopper;
+
+__global__ void tma_box_kernel(const __grid_constant__ CUtensorMap map,
+                               uint8_t* __restrict__ dst, int bytes, int rank,
+                               int c0, int c1, int c2, int c3) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* box = hp::align1024(smem_raw);
+  __shared__ __align__(8) uint64_t bar;
+  if (threadIdx.x == 0) {
+    hp::mbar_init(&bar, 1);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hp::mbar_expect_tx(&bar, (uint32_t)bytes);
+    if (rank == 2)
+      hp::tma_load_2d(box, &map, &bar, c0, c1);
+    else
+      hp::tma_load_4d(box, &map, &bar, c0, c1, c2, c3);
+  }
+  hp::mbar_wait(&bar, 0);
+  for (int i = threadIdx.x; i < bytes; i += blockDim.x) dst[i] = box[i];
+}
+
+// Shared layout: A as 64 / CH boxes [64 rows][CH] (K-major), B as
+// boxes of R-byte rows: K-major [N rows][CH] per K chunk, MN-major [64 K
+// rows][CH] per N chunk; CH = R / 2 elements for an R-byte swizzle.
+template <int N, int TB>
+__global__ void __launch_bounds__(128)
+wgmma_tile_kernel(const __grid_constant__ CUtensorMap amap,
+                  const __grid_constant__ CUtensorMap bmap,
+                  const bf16* __restrict__ a_gmem, float* __restrict__ out,
+                  int swizzle, int a_regs) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* base = hp::align1024(smem_raw);
+  __shared__ __align__(8) uint64_t bar;
+  const hp::Swizzle sw = static_cast<hp::Swizzle>(swizzle);
+  const int R = sw == hp::SW128 ? 128 : sw == hp::SW64 ? 64 : 32;
+  const int CH = R / 2;
+  uint8_t* As = base;                  // 64 x 64 bf16 = 8 KB
+  uint8_t* Bs = base + 64 * 64 * 2;    // 64 x N bf16
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hp::mbar_init(&bar, 1);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hp::mbar_expect_tx(&bar, (64 * 64 + 64 * N) * 2);
+    for (int c = 0; c < 64 / CH; ++c)
+      hp::tma_load_2d(As + c * 64 * R, &amap, &bar, c * CH, 0);
+    if (TB == 0) {
+      for (int c = 0; c < 64 / CH; ++c)
+        hp::tma_load_2d(Bs + c * N * R, &bmap, &bar, c * CH, 0);
+    } else {
+      for (int c = 0; c < N / CH; ++c)
+        hp::tma_load_2d(Bs + c * 64 * R, &bmap, &bar, c * CH, 0);
+    }
+  }
+  hp::mbar_wait(&bar, 0);
+
+  float d[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  hp::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int chunk = kk * 16 / CH, within = (kk * 16 % CH) * 2;
+    uint64_t db;
+    if (TB == 0)
+      db = hp::smem_desc(Bs + chunk * N * R + within, sw, 16, 8 * R);
+    else
+      db = hp::smem_desc(Bs + kk * 16 * R, sw, 64 * R, 8 * R);
+    if (a_regs) {
+      const bf16* ar = a_gmem + (16 * warp + g) * 64 + kk * 16 + 2 * t;
+      uint32_t a[4];
+      a[0] = *reinterpret_cast<const uint32_t*>(ar);
+      a[1] = *reinterpret_cast<const uint32_t*>(ar + 8 * 64);
+      a[2] = *reinterpret_cast<const uint32_t*>(ar + 8);
+      a[3] = *reinterpret_cast<const uint32_t*>(ar + 8 * 64 + 8);
+      hp::wgmma_rs<N, TB>(d, a, db, 1);
+    } else {
+      const uint64_t da =
+          hp::smem_desc(As + chunk * 64 * R + within, sw, 16, 8 * R);
+      hp::wgmma_ss<N, TB>(d, da, db, 1);
+    }
+  }
+  hp::wgmma_commit();
+  hp::wgmma_wait<0>();
+  hp::fence_regs(d);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 16 * warp + g + 8 * (e / 2);
+      const int col = 8 * j + 2 * t + (e % 2);
+      out[row * N + col] = d[4 * j + e];
+    }
+  }
+}
+
+template <int N, int TB>
+int launch_wgmma(const void* a, const void* b, void* out, int swizzle,
+                 int a_regs, cudaStream_t st) {
+  const int R = swizzle == hp::SW128 ? 128 : swizzle == hp::SW64 ? 64 : 32;
+  const uint32_t CH = R / 2;
+  CUtensorMap amap, bmap;
+  const uint64_t adims[2] = {64, 64}, astr[1] = {64 * 2};
+  const uint32_t abox[2] = {CH, 64};
+  int rc = hp::make_map_bf16(&amap, a, 2, adims, astr, abox,
+                             static_cast<hp::Swizzle>(swizzle));
+  if (rc) return rc;
+  if (TB == 0) {   // b [N, 64]
+    const uint64_t dims[2] = {64, (uint64_t)N}, str[1] = {64 * 2};
+    const uint32_t box[2] = {CH, (uint32_t)N};
+    rc = hp::make_map_bf16(&bmap, b, 2, dims, str, box,
+                           static_cast<hp::Swizzle>(swizzle));
+  } else {         // b [64, N]
+    const uint64_t dims[2] = {(uint64_t)N, 64}, str[1] = {(uint64_t)N * 2};
+    const uint32_t box[2] = {CH, 64};
+    rc = hp::make_map_bf16(&bmap, b, 2, dims, str, box,
+                           static_cast<hp::Swizzle>(swizzle));
+  }
+  if (rc) return rc;
+  const int smem = 1024 + (64 * 64 + 64 * N) * 2;
+  cudaError_t e = cudaFuncSetAttribute(
+      wgmma_tile_kernel<N, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  wgmma_tile_kernel<N, TB><<<1, 128, smem, st>>>(
+      amap, bmap, static_cast<const bf16*>(a), static_cast<float*>(out),
+      swizzle, a_regs);
+  return (int)cudaGetLastError();
+}
+
+template <int TB>
+int wgmma_by_n(int N, const void* a, const void* b, void* out, int swizzle,
+               int a_regs, cudaStream_t st) {
+  switch (N) {
+    case 32: return launch_wgmma<32, TB>(a, b, out, swizzle, a_regs, st);
+    case 64: return launch_wgmma<64, TB>(a, b, out, swizzle, a_regs, st);
+    case 128: return launch_wgmma<128, TB>(a, b, out, swizzle, a_regs, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// One TMA box of a contiguous bf16 tensor: `rank` (2 or 4) dims
+// innermost first, the box, the box's start coordinates (may run past the
+// edges), swizzle 0-3 (none, 32, 64, 128 B).  dst gets the box's shared
+// memory image, prod(box) bf16.
+extern "C" int dstt_selftest_tma(const void* src, void* dst, int rank,
+                                 const long long* dims, const int* box,
+                                 const int* coords, int swizzle,
+                                 void* stream) {
+  if (rank != 2 && rank != 4) return (int)cudaErrorInvalidValue;
+  uint64_t d[4], s[3];
+  uint32_t b[4];
+  uint64_t stride = 2;
+  int bytes = 2;
+  for (int i = 0; i < rank; ++i) {
+    d[i] = (uint64_t)dims[i];
+    b[i] = (uint32_t)box[i];
+    bytes *= box[i];
+    if (i > 0) s[i - 1] = stride;
+    stride *= d[i];
+  }
+  CUtensorMap map;
+  int rc = dstt::hopper::make_map_bf16(
+      &map, src, rank, d, s, b, static_cast<dstt::hopper::Swizzle>(swizzle));
+  if (rc) return rc;
+  const int smem = 1024 + bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      tma_box_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  tma_box_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<uint8_t*>(dst), bytes, rank, coords[0], coords[1],
+      rank > 2 ? coords[2] : 0, rank > 2 ? coords[3] : 0);
+  return (int)cudaGetLastError();
+}
+
+// out [64, N] f32 = a [64, 64] @ (b_mn ? b [64, N] : b [N, 64]^T), bf16
+// row-major inputs; N 32, 64 or 128; swizzle 1-3 (32, 64, 128 B);
+// a_regs: A from registers.
+extern "C" int dstt_selftest_wgmma(const void* a, const void* b, void* out,
+                                   int N, int b_mn, int a_regs, int swizzle,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (swizzle < 1 || swizzle > 3) return (int)cudaErrorInvalidValue;
+  return b_mn ? wgmma_by_n<1>(N, a, b, out, swizzle, a_regs, st)
+              : wgmma_by_n<0>(N, a, b, out, swizzle, a_regs, st);
+}

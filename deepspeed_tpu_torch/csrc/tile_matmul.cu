@@ -5,38 +5,55 @@
 //   out [M, N] f32 = x [M, K] @ w [K, N]
 // with x and w both bf16 or both f32, and an f32 sum over K.  It is the
 // per-hop GEMM of `ag_matmul` / `matmul_rs` and of the decode lm head.
-//
 // The TPU kernel picks its (bm, bk, bn) blocks from MXU-aligned candidates
-// and refuses other shapes; here every M, K and N >= 0 is served: the
-// ragged edges of M, N and K are zero-filled in shared memory and masked
-// at the store.  The grid is (N tiles, M tiles) with both axes walked by
-// grid-stride loops, so no shape meets the 65535 limit of the y axis.
+// and refuses other shapes; here every M, K and N >= 0 is served.
 //
-// bf16 (tile_matmul_mma): one CTA = four warps over a BM x 64 output tile,
-// BM = 16 when M <= 16 (the decode hops: the four warps split the 64
-// columns) and 64 otherwise (one 16-row slab per warp).  K streams through
-// shared memory in 32-row stages, STAGES of them in flight with cp.async
-// (16-byte copies where K and N are multiples of 8 and the pointers are
-// 16-byte aligned; element copies otherwise).  Products on the tensor cores
-// with mma.sync m16n8k16, f32 accumulators in registers; x's A fragments
-// read from its row-major tile, w's B fragments with ldmatrix.trans from
-// its row-major [k][n] tile (the flash kernels' P.V layout, attn_tile.cuh).
+// Four kernels; the host plan `ops/tp_matmul.py:tile_plan` picks one per
+// shape (a documented dispatch: each has its own launch count) and the
+// split count.  Every output element is summed over K in a fixed order
+// (K tiles in order inside a split, splits 0..s-1 in order after), with
+// no float atomics, so a rerun is bit-identical.
 //
-// f32 (tile_matmul_f32): one CTA = 256 threads over a 32 x 64 tile, each
+// What bounds it on the H100: bytes at the decode hops (M = 2-16 rows,
+// the decode batch over tp): w (K x N bf16, 16.8-22.5 MB at Llama-2-7B's
+// hops) is read once while the tensor cores idle, 2 M operations per
+// byte against the card's ~295.  At the prefill hops (M 64-1024) w is
+// still the larger operand up to M ~ 300; beyond, the tensor cores.
+//
+// tile_matmul_stream (bf16, M <= 16, TMA-able: the decode hops):
+// split-K.  A CTA owns 128 output columns and one K range (the plan
+// makes column tiles x splits >= 2 x 132 CTAs, so some 4-8 MB of w are
+// in flight on the card, the Little's-law need of 3.35 TB/s at ~1 us).
+// One producer thread streams the range's w tiles (64 K rows x 128
+// columns, two 128-byte-swizzled TMA boxes, 16 KB) through a 4-slot
+// mbarrier ring; four consumer warps wait on a slot's barrier, run
+// mma.sync m16n8k16 (ldmatrix.trans on the swizzled tile) and free the
+// slot; no CTA-wide barrier per slot.  x's K slice (M rows) is staged
+// once.  f32 partials go to a [splits, M, N] workspace; the CTA that
+// takes the last ticket of its column tile (an integer atomic, reset by
+// that CTA) sums splits 0..s-1 in order into out.
+//
+// tile_matmul_wgmma (bf16, M > 16, TMA-able: the prefill hops): a
+// 128 x 128 output tile per CTA, one producer warp (TMA: x as a K-major A box
+// [128 rows][64 k], w as two MN-major B boxes [64 k][64 n], 128-byte
+// swizzle, 32 KB a slot, 6 slots) and two consumer warpgroups, each
+// wgmma m64n128k16 on 64 rows (B through the transpose bit) with one
+// slot's products left in flight while the next slot's issue.  Where
+// the output tiles would leave most SMs idle (M 128-256 at these N) the
+// plan splits K as above, through the same ticketed fixed-order sum.
+//
+// tile_matmul_mma (bf16 shapes TMA cannot take: K or N not a multiple
+// of 8, a pointer off the 16-byte boundary, K = 0): one CTA = four warps
+// over a BM x 64 output tile (BM 16 or 64), K streamed through shared
+// memory in 32-row stages, STAGES in flight with cp.async (16-byte
+// copies where allowed, element copies otherwise), mma.sync m16n8k16.
+// The grid is (N tiles, M tiles) walked by grid-stride loops, so no
+// shape meets the 65535 limit of the y axis.
+//
+// tile_matmul_f32 (f32): one CTA = 256 threads over a 32 x 64 tile, each
 // thread 2 x 4 outputs, exact f32 FMAs on the CUDA cores.
-//
-// Each output element is summed over K in one thread in a fixed order (no
-// split-K, no atomics), so a rerun is bit-identical.
-//
-// What bounds it on the H100: bytes at the decode hops.  A hop's rows are
-// the decode batch over tp (2-16), so w (K x N bf16, 16.8-22.5 MB at
-// Llama-2-7B's hops) is read once while the tensor cores idle: 2 M
-// operations per byte of w, far below the card's ~295.  The design keeps
-// every byte of w read exactly once per call (each CTA owns its columns
-// for the whole of K) with several stages in flight per CTA; at a prefill
-// hop (M = 64-1024) the same kernel runs on the tensor cores with
-// 64-row tiles.  TMA, wgmma and split-K are left for a later change.
 #include "attn_tile.cuh"
+#include "hopper_tile.cuh"
 
 namespace {
 
@@ -274,6 +291,336 @@ int launch_mma(const void* x, const void* w, void* out, int M, int K, int N,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// TMA variants (bf16, K and N multiples of 8, 16-byte aligned bases)
+namespace hp = dstt::hopper;
+
+constexpr int SPLIT_KT = 64;          // K rows per ring slot (both)
+
+// K tiles [t0, t1) of split `split` out of `splits` over nkt tiles; the
+// host plan computes the same ranges (tp_matmul.tile_plan)
+__device__ __forceinline__ void split_range(int split, int splits, int nkt,
+                                            int& t0, int& t1) {
+  t0 = (int)((long)split * nkt / splits);
+  t1 = (int)((long)(split + 1) * nkt / splits);
+}
+
+// Split-K, first half: store this CTA's f32 accumulators (NJ n8 blocks
+// acc[j][0..3] at rows r0 and r0 + 8, columns col0 + 8 j (+ 2 t, + 1))
+// to out (one split) or to its partial ws[split]; with several splits,
+// take a ticket of the output tile and return whether this CTA took the
+// last one (then it sums the partials).  `bar_id`/`threads` name the
+// consumers' barrier.
+template <int NJ>
+__device__ __forceinline__ bool store_partial(
+    const float (*acc)[4], float* __restrict__ out, float* __restrict__ ws,
+    int* __restrict__ ticket, int* last, int M, int N, int r0, int col0,
+    int split, int splits, int bar_id, int threads, bool leader) {
+  float* dst = splits == 1 ? out : ws + (long)split * M * N;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h, col = col0 + 8 * j;
+      if (row < M && col < N)
+        *reinterpret_cast<float2*>(dst + (long)row * N + col) =
+            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  }
+  if (splits == 1) return false;
+  __threadfence();
+  hp::named_sync(bar_id, threads);
+  if (leader) *last = atomicAdd(ticket, 1) == splits - 1;
+  hp::named_sync(bar_id, threads);
+  if (*last) __threadfence();
+  return *last;
+}
+
+// Split-K, second half (the last CTA of an output tile): out = ws[0] +
+// ws[1] + ... + ws[splits-1], added in that order, over rows [m0, m0 +
+// rows) and columns [n0, n0 + BN) of the tile, 16-byte chunks spread
+// over the CTA's `threads` consumers, BATCH splits' loads in flight at a
+// time; then the ticket is reset for the next call on this stream.
+template <int BN, int BATCH>
+__device__ __forceinline__ void sum_partials(
+    float* __restrict__ out, const float* __restrict__ ws,
+    int* __restrict__ ticket, int M, int N, int m0, int rows, int n0,
+    int splits, int tid, int threads) {
+  constexpr int C4 = BN / 4;   // 16-byte chunks per tile row
+  const long mn = (long)M * N;
+  for (int i = tid; i < rows * C4; i += threads) {
+    const int col = n0 + (i % C4) * 4;
+    if (col >= N) continue;     // N % 8 == 0: a chunk is in or out
+    const long off = (long)(m0 + i / C4) * N + col;
+    float4 sum = __ldcg(reinterpret_cast<const float4*>(ws + off));
+    for (int sp = 1; sp < splits; sp += BATCH) {
+      float4 p[BATCH];
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b)
+        p[b] = sp + b < splits
+                   ? __ldcg(reinterpret_cast<const float4*>(
+                         ws + (sp + b) * mn + off))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b) {
+        if (sp + b >= splits) break;
+        sum.x += p[b].x;
+        sum.y += p[b].y;
+        sum.z += p[b].z;
+        sum.w += p[b].w;
+      }
+    }
+    *reinterpret_cast<float4*>(out + off) = sum;
+  }
+  if (tid == 0) *ticket = 0;
+}
+
+// ---- tile_matmul_stream: split-K stream for M <= 16 ---------------
+constexpr int ST_BN = 128;                     // columns per CTA
+constexpr int ST_BOX = SPLIT_KT * 64 * 2;      // one [64 k][64 n] box, 8 KB
+constexpr int ST_SLOT = 2 * ST_BOX;            // 16 KB
+constexpr int ST_STAGES = 4;
+constexpr int ST_THREADS = 160;                // 4 consumer warps + producer
+
+// three CTAs an SM (ptxas keeps the registers at 128), so the plan's
+// 2-3 x 132 CTAs run in one wave
+__global__ void __launch_bounds__(ST_THREADS, 3)
+tile_matmul_stream(const __grid_constant__ CUtensorMap wmap,
+            const bf16* __restrict__ x, float* __restrict__ out,
+            float* __restrict__ ws, int* __restrict__ tickets, int M, int K,
+            int N, int splits, int ldx) {
+  extern __shared__ __align__(1024) uint8_t smem_tma[];
+  uint8_t* ring = hp::align1024(smem_tma);
+  bf16* xs = reinterpret_cast<bf16*>(ring + ST_STAGES * ST_SLOT);
+  __shared__ __align__(8) uint64_t full[ST_STAGES], empty[ST_STAGES];
+  __shared__ int last;
+  const int tn = blockIdx.x, split = blockIdx.y;
+  const int nkt = (K + SPLIT_KT - 1) / SPLIT_KT;
+  int t0, t1;
+  split_range(split, splits, nkt, t0, t1);
+  const int nk = t1 - t0, k0 = t0 * SPLIT_KT, n0 = tn * ST_BN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < ST_STAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 4);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {   // producer: one thread keeps the ring full
+    if (lane == 0) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % ST_STAGES;
+        hp::mbar_wait(&empty[s], ((i / ST_STAGES) & 1) ^ 1);
+        hp::mbar_expect_tx(&full[s], ST_SLOT);
+        uint8_t* slot = ring + s * ST_SLOT;
+        const int kr = k0 + i * SPLIT_KT;
+        hp::tma_load_2d(slot, &wmap, &full[s], n0, kr);
+        hp::tma_load_2d(slot + ST_BOX, &wmap, &full[s], n0 + 64, kr);
+      }
+    }
+    return;
+  }
+
+  // consumers: stage x[:, k0 : k0 + nk*KT] once (zeros past K; K % 8 == 0
+  // so a 16-byte chunk is wholly in or out)
+  const int kl = nk * SPLIT_KT, cpr = kl / 8;
+  for (int c = tid; c < M * cpr; c += 128) {
+    const int r = c / cpr, kc = (c % cpr) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (k0 + kc < K)
+      v = *reinterpret_cast<const uint4*>(x + (long)r * K + k0 + kc);
+    *reinterpret_cast<uint4*>(xs + r * ldx + kc) = v;
+  }
+  hp::named_sync(1, 128);
+
+  const int g = lane >> 2, t = lane & 3;
+  const int cbase = 4 * (warp & 1);   // first 16-byte chunk in the box
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const bool lo = g < M, hi = g + 8 < M;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % ST_STAGES;
+    hp::mbar_wait(&full[s], (i / ST_STAGES) & 1);
+    const uint8_t* tile = ring + s * ST_SLOT + (warp >> 1) * ST_BOX;
+#pragma unroll
+    for (int kk = 0; kk < SPLIT_KT / 16; ++kk) {
+      const int kc = i * SPLIT_KT + kk * 16 + 2 * t;
+      uint32_t a[4];
+      a[0] = lo ? dstt::ld_u32(xs + g * ldx + kc) : 0u;
+      a[1] = hi ? dstt::ld_u32(xs + (g + 8) * ldx + kc) : 0u;
+      a[2] = lo ? dstt::ld_u32(xs + g * ldx + kc + 8) : 0u;
+      a[3] = hi ? dstt::ld_u32(xs + (g + 8) * ldx + kc + 8) : 0u;
+      const int row = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int chunk = cbase + 2 * n + (lane >> 4);
+        uint32_t b[4];
+        dstt::ldmatrix_x4_trans(
+            b, tile + row * 128 + ((chunk ^ (row & 7)) << 4));
+        dstt::mma_bf16(acc[2 * n], a, b[0], b[1]);
+        dstt::mma_bf16(acc[2 * n + 1], a, b[2], b[3]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(&empty[s]);
+  }
+  if (store_partial<4>(acc, out, ws, tickets + tn, &last, M, N, g,
+                       n0 + 32 * warp + 2 * t, split, splits, 1, 128,
+                       tid == 0)) {
+    sum_partials<ST_BN, 8>(out, ws, tickets + tn, M, N, 0, M, n0, splits,
+                           tid, 128);
+  }
+}
+
+// ---- tile_matmul_wgmma: TMA + wgmma for M > 16 --------------------
+constexpr int WG_BM = 128, WG_BN = 128;
+constexpr int WG_A = WG_BM * SPLIT_KT * 2;     // [128 m][64 k], 16 KB
+constexpr int WG_BOX = SPLIT_KT * 64 * 2;      // [64 k][64 n], 8 KB
+constexpr int WG_SLOT = WG_A + 2 * WG_BOX;     // 32 KB
+constexpr int WG_STAGES = 6;
+constexpr int WG_THREADS = 384;                // producer + 2 consumer WGs
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+tile_matmul_wgmma(const __grid_constant__ CUtensorMap xmap,
+           const __grid_constant__ CUtensorMap wmap, float* __restrict__ out,
+           float* __restrict__ ws, int* __restrict__ tickets, int M, int K,
+           int N, int splits) {
+  extern __shared__ __align__(1024) uint8_t smem_tma[];
+  uint8_t* ring = hp::align1024(smem_tma);
+  __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
+  __shared__ int last;
+  const int tn = blockIdx.x, tm = blockIdx.y, split = blockIdx.z;
+  const int nkt = (K + SPLIT_KT - 1) / SPLIT_KT;
+  int t0, t1;
+  split_range(split, splits, nkt, t0, t1);
+  const int nk = t1 - t0, m0 = tm * WG_BM, n0 = tn * WG_BN;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 8);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // producer
+    if (tid == 0) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % WG_STAGES;
+        hp::mbar_wait(&empty[s], ((i / WG_STAGES) & 1) ^ 1);
+        hp::mbar_expect_tx(&full[s], WG_SLOT);
+        uint8_t* slot = ring + s * WG_SLOT;
+        const int kr = (t0 + i) * SPLIT_KT;
+        hp::tma_load_2d(slot, &xmap, &full[s], kr, m0);
+        hp::tma_load_2d(slot + WG_A, &wmap, &full[s], n0, kr);
+        hp::tma_load_2d(slot + WG_A + WG_BOX, &wmap, &full[s], n0 + 64, kr);
+      }
+    }
+    return;
+  }
+
+  const int c = wg - 1, ltid = tid - 128;
+  const int warp = (ltid >> 5) & 3, lane = ltid & 31;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % WG_STAGES;
+    hp::mbar_wait(&full[s], (i / WG_STAGES) & 1);
+    const uint8_t* slot = ring + s * WG_SLOT;
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SPLIT_KT / 16; ++kk) {
+      // A: K-major rows of 128 B, this warpgroup's 64 rows; B: MN-major,
+      // 16 k rows per step, the two 64-column boxes 8 KB apart
+      const uint64_t da =
+          hp::smem_desc(slot + c * 64 * 128 + kk * 32, hp::SW128, 16, 1024);
+      const uint64_t db = hp::smem_desc(slot + WG_A + kk * 16 * 128,
+                                        hp::SW128, WG_BOX, 1024);
+      hp::wgmma_ss<128, 1>(acc, da, db, 1);
+    }
+    hp::wgmma_commit();
+    // the previous slot's products are done: free it
+    hp::wgmma_wait<1>();
+    if (i > 0 && lane == 0)
+      hp::mbar_arrive(&empty[(i - 1) % WG_STAGES]);
+  }
+  hp::wgmma_wait<0>();
+  hp::fence_regs(acc);
+  const int g = lane >> 2, t = lane & 3;
+  int* ticket = tickets + tm * gridDim.x + tn;
+  if (store_partial<16>(reinterpret_cast<const float(*)[4]>(acc), out, ws,
+                        ticket, &last, M, N, m0 + 64 * c + 16 * warp + g,
+                        n0 + 2 * t, split, splits, 1, 256, ltid == 0)) {
+    sum_partials<WG_BN, 8>(out, ws, ticket, M, N, m0, min(WG_BM, M - m0),
+                           n0, splits, ltid, 256);
+  }
+}
+
+int launch_stream(const void* x, const void* w, void* out, void* ws,
+                  void* tickets, int M, int K, int N, int splits,
+                  cudaStream_t st) {
+  CUtensorMap wmap;
+  const uint64_t dims[2] = {(uint64_t)N, (uint64_t)K};
+  const uint64_t strides[1] = {(uint64_t)N * 2};
+  const uint32_t box[2] = {64, SPLIT_KT};
+  int rc = hp::make_map_bf16(&wmap, w, 2, dims, strides, box, hp::SW128);
+  if (rc) return rc;
+  const int nkt = (K + SPLIT_KT - 1) / SPLIT_KT;
+  const int ldx = (nkt + splits - 1) / splits * SPLIT_KT + 8;
+  const int smem = 1024 + ST_STAGES * ST_SLOT + M * ldx * 2;
+  // three CTAs an SM at the decode hops' M: ask for the largest shared
+  // memory carveout, or the CUDA driver may leave room for two
+  cudaError_t e = cudaFuncSetAttribute(
+      tile_matmul_stream, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(tile_matmul_stream,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  tile_matmul_stream<<<dim3((unsigned)((N + ST_BN - 1) / ST_BN), splits),
+                ST_THREADS, smem, st>>>(
+      wmap, static_cast<const bf16*>(x), static_cast<float*>(out),
+      static_cast<float*>(ws), static_cast<int*>(tickets), M, K, N, splits,
+      ldx);
+  return (int)cudaGetLastError();
+}
+
+int launch_wgmma(const void* x, const void* w, void* out, void* ws,
+                 void* tickets, int M, int K, int N, int splits,
+                 cudaStream_t st) {
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[2] = {(uint64_t)K, (uint64_t)M};
+  const uint64_t xstr[1] = {(uint64_t)K * 2};
+  const uint32_t xbox[2] = {SPLIT_KT, WG_BM};
+  int rc = hp::make_map_bf16(&xmap, x, 2, xdims, xstr, xbox, hp::SW128);
+  if (rc) return rc;
+  const uint64_t wdims[2] = {(uint64_t)N, (uint64_t)K};
+  const uint64_t wstr[1] = {(uint64_t)N * 2};
+  const uint32_t wbox[2] = {64, SPLIT_KT};
+  rc = hp::make_map_bf16(&wmap, w, 2, wdims, wstr, wbox, hp::SW128);
+  if (rc) return rc;
+  const long tiles_m = (M + WG_BM - 1) / WG_BM;
+  if (tiles_m > MAX_GRID_Y) return (int)cudaErrorInvalidValue;
+  const int smem = 1024 + WG_STAGES * WG_SLOT;
+  cudaError_t e = cudaFuncSetAttribute(
+      tile_matmul_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  tile_matmul_wgmma<<<dim3((unsigned)((N + WG_BN - 1) / WG_BN),
+                           (unsigned)tiles_m, splits),
+               WG_THREADS, smem, st>>>(
+      xmap, wmap, static_cast<float*>(out), static_cast<float*>(ws),
+      static_cast<int*>(tickets), M, K, N, splits);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // out [M, N] f32 = x [M, K] @ w [K, N], row-major and contiguous.  dtype:
@@ -300,5 +647,29 @@ extern "C" int dstt_tile_matmul(const void* x, const void* w, void* out,
                                static_cast<float*>(out), M, K, N);
     return (int)cudaGetLastError();
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The TMA variants, as the host plan (tp_matmul.tile_plan) chose them:
+// variant 0 = tile_matmul_stream (M <= 16), 1 = tile_matmul_wgmma; bf16
+// x [M, K] and w [K, N] with K and N multiples of 8 and 16-byte aligned
+// bases; splits in [1, ceil(K / 64)]; with splits > 1, ws is f32
+// [splits, M, N] and tickets holds one zeroed int per output tile (left
+// zeroed).  Returns cudaGetLastError() after the launch.
+extern "C" int dstt_tile_matmul_tma(const void* x, const void* w, void* out,
+                                    void* ws, void* tickets, int M, int K,
+                                    int N, int variant, int splits,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nkt = (K + SPLIT_KT - 1) / SPLIT_KT;
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 || splits < 1 ||
+      splits > nkt || splits > MAX_GRID_Y ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16 ||
+      (splits > 1 && (ws == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (variant == 0 && M <= 16)
+    return launch_stream(x, w, out, ws, tickets, M, K, N, splits, st);
+  if (variant == 1)
+    return launch_wgmma(x, w, out, ws, tickets, M, K, N, splits, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,15 +21,20 @@ neighbour directions and the chunk order are the reference's.
 all-gather or one reduce-scatter (the reference's unfused twins).
 
 The per-hop GEMM is `tile_matmul`: `x [M, K] @ w [K, N]` to f32, by the
-hand-written kernel `csrc/tile_matmul.cu` for tensors on the card (any M,
-K and N: the TPU kernel's MXU tile rule, `tile_matmul_supported`, has no
-counterpart) and by the plain version, the f32 product of the exactly
-widened inputs, for tensors on the CPU.
+hand-written kernels of `csrc/tile_matmul.cu` for tensors on the card (any
+M, K and N: the TPU kernel's MXU tile rule, `tile_matmul_supported`, has
+no counterpart) and by the plain version, the f32 product of the exactly
+widened inputs, for tensors on the CPU.  `tile_plan` (pure Python) picks
+the kernel and its split of K for a shape: the split-K TMA stream at the
+decode hops (M <= 16), TMA + wgmma at the prefill hops, and the cp.async
+kernel (bf16) or the CUDA-core kernel (f32) where TMA cannot go.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Callable
+import functools
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -37,12 +42,112 @@ import torch.distributed as dist
 from ..comm import comm
 from . import _build
 
-__all__ = ["tile_matmul", "tile_matmul_reference", "ag_matmul", "matmul_rs",
+__all__ = ["tile_matmul", "tile_matmul_reference", "tile_plan", "TilePlan",
+           "tile_edge_reason", "TILE_VARIANTS", "ag_matmul", "matmul_rs",
            "ag_matmul_xla", "matmul_rs_xla"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
+_TMA_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# ----------------------------------------------------------------------
+# the host plan: which kernel, and how K is split
+# ----------------------------------------------------------------------
+# "stream" and "wgmma" read x and w with TMA; "cp_async" and "f32" are
+# the kernels for what TMA cannot take (csrc/tile_matmul.cu says what
+# each does)
+TILE_VARIANTS = ("stream", "wgmma", "cp_async", "f32")
+_TMA_CODES = {"stream": 0, "wgmma": 1}
+STREAM_MAX_M = 16       # decode hops: the decode batch over tp rows
+STREAM_BN = 128         # output columns per stream CTA
+WGMMA_BM = WGMMA_BN = 128
+SPLIT_KT = 64           # K rows per ring slot; K ranges are whole slots
+STREAM_MAX_KR = 1024    # K rows per stream CTA (x's slice in shared mem)
+WGMMA_MIN_KR = 1024     # K rows per wgmma split, at least
+H100_SMS = 132
+MAX_GRID_Y = 65535
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """One tile GEMM launch: the kernel (`variant`, one of TILE_VARIANTS),
+    why an old kernel serves the shape (`reason`, "" for the TMA ones),
+    its output tiles, and the K split: split i sums K tiles
+    [i*nkt//splits, (i+1)*nkt//splits) of SPLIT_KT rows (the kernel's own
+    formula), splits summed 0..s-1 in order."""
+    variant: str
+    reason: str
+    tiles: int
+    splits: int
+    K: int
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def k_ranges(self) -> List[Tuple[int, int]]:
+        nkt = -(-self.K // SPLIT_KT)
+        return [(i * nkt // self.splits * SPLIT_KT,
+                 min(self.K, (i + 1) * nkt // self.splits * SPLIT_KT))
+                for i in range(self.splits)]
+
+
+def tile_edge_reason(M: int, K: int, N: int, dtype,
+                     aligned: bool) -> str:
+    """Why TMA cannot take a shape ("" where it can): TMA reads bf16 here,
+    needs 16-byte-aligned bases and row strides that are multiples of 16
+    bytes (K and N multiples of 8), and the wgmma grid's y axis holds at
+    most 65535 row tiles."""
+    if dtype != torch.bfloat16:
+        return f"{dtype} (the CUDA-core kernel)"
+    if not aligned:
+        return "a base off the 16-byte boundary"
+    if K % 8 or N % 8:
+        return "K or N not a multiple of 8"
+    if K == 0:
+        return "K = 0"
+    if M > STREAM_MAX_M and -(-M // WGMMA_BM) > MAX_GRID_Y:
+        return "more than 65535 row tiles"
+    return ""
+
+
+@functools.lru_cache(maxsize=4096)
+def tile_plan(M: int, K: int, N: int, dtype, aligned: bool = True,
+              sm_count: int = H100_SMS) -> TilePlan:
+    """The launch `tile_matmul` makes for x [M, K] @ w [K, N] of `dtype`
+    (`aligned`: x and w start on 16-byte boundaries) on a card of
+    `sm_count` SMs.
+
+    - decode hops (M <= STREAM_MAX_M): the split-K stream, 128 columns a
+      CTA, K split so that column tiles x splits >= 2 x sm_count CTAs
+      (bytes in flight on every SM) and each split holds at most
+      STREAM_MAX_KR rows, never more splits than K tiles;
+    - prefill hops: TMA + wgmma on 128 x 128 tiles, K split only where
+      the tiles would leave three quarters of the SMs idle, into
+      floor(sm_count / tiles) ranges of at least WGMMA_MIN_KR rows (one
+      CTA sums a tile's partials, so a split pays back only over a long
+      K: measured on the card at the NC=2 hops, PERF.md);
+    - what `tile_edge_reason` names: the cp.async kernel (bf16) or the
+      CUDA-core kernel (f32), K unsplit.
+
+    Cached: a serving wave asks for a few shapes thousands of times."""
+    reason = tile_edge_reason(M, K, N, dtype, aligned)
+    nkt = -(-K // SPLIT_KT)
+    if reason:
+        variant = "f32" if dtype == torch.float32 else "cp_async"
+        bm = 32 if variant == "f32" else (16 if M <= 16 else 64)
+        return TilePlan(variant, reason, -(-M // bm) * -(-N // 64), 1, K)
+    if M <= STREAM_MAX_M:
+        tiles = -(-N // STREAM_BN)
+        splits = max(-(-2 * sm_count // tiles), -(-K // STREAM_MAX_KR))
+        return TilePlan("stream", "", tiles, min(splits, nkt), K)
+    tiles = -(-M // WGMMA_BM) * -(-N // WGMMA_BN)
+    splits = 1
+    if tiles <= sm_count // 4:
+        splits = max(1, min(sm_count // tiles, K // WGMMA_MIN_KR))
+    return TilePlan("wgmma", "", tiles, splits, K)
 
 
 def tile_matmul_reference(x, w):
@@ -91,18 +196,60 @@ def tile_matmul(x, w, *, impl: str = "auto"):
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return out
-    vec = (K % 8 == 0 and N % 8 == 0 and x.data_ptr() % 16 == 0
-           and w.data_ptr() % 16 == 0)
-    fn = _build.function("tile_matmul", "dstt_tile_matmul", _ARGS)
-    rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N,
-            _DTYPES[x.dtype], int(vec),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "tile matmul")
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    plan = tile_plan(M, K, N, x.dtype, aligned, _sm_count(x.device))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if plan.variant in _TMA_CODES:
+        ws = tickets = None
+        if plan.splits > 1:
+            ws = torch.empty((plan.splits, M, N), dtype=torch.float32,
+                             device=x.device)
+            tickets = _tickets(x.device, stream, plan.tiles)
+        fn = _build.function("tile_matmul", "dstt_tile_matmul_tma",
+                             _TMA_ARGS)
+        rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(),
+                None if tickets is None else tickets.data_ptr(), M, K, N,
+                _TMA_CODES[plan.variant], plan.splits, stream)
+    else:
+        vec = K % 8 == 0 and N % 8 == 0 and aligned
+        fn = _build.function("tile_matmul", "dstt_tile_matmul", _ARGS)
+        rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N,
+                _DTYPES[x.dtype], int(vec), stream)
+    _build.check(rc, f"tile matmul ({plan.variant})")
     tile_matmul.launches += 1
+    tile_matmul.launches_by_variant[plan.variant] += 1
     return out
 
 
 tile_matmul.launches = 0
+# launches per kernel (TILE_VARIANTS); a caller resets it with `launches`
+tile_matmul.launches_by_variant = dict.fromkeys(TILE_VARIANTS, 0)
+
+_SMS: Dict[int, int] = {}
+# split-K tickets, one zeroed int per output tile, per (device, stream):
+# the CTA that takes a tile's last ticket resets it, so the buffer stays
+# zeroed from call to call on its stream
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _tickets(device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), stream)
+    buf: Optional[torch.Tensor] = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(1 << max(n - 1, 1).bit_length(), dtype=torch.int32,
+                          device=device)
+        _TICKETS[key] = buf
+    return buf
 
 
 # ----------------------------------------------------------------------

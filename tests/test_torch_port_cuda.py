@@ -755,6 +755,138 @@ def test_tile_matmul_kernel_matches_plain_version(card, dtype, M, K, N):
                    xs, w).abs().max()), 1.0))
 
 
+# ----------------------------------------------------------------------
+# Hopper building blocks (csrc/hopper_tile.cuh) one at a time, and the
+# TMA / wgmma kernels built on them at the main paths' shapes
+# ----------------------------------------------------------------------
+def _selftest(symbol, argtypes):
+    from deepspeed_tpu_torch.ops import _build
+    _build.build_all(("hopper_selftest",))
+    return _build.function("hopper_selftest", symbol, argtypes)
+
+
+def _swizzled(off, swizzle):
+    """The shared-memory byte offset TMA writes logical offset `off` to
+    (Swizzle<B, 4, 3>: 16-byte chunk bits 4.. XOR row bits 7..)."""
+    mask = {0: 0, 1: 1, 2: 3, 3: 7}[swizzle]
+    return off ^ (((off >> 7) & mask) << 4)
+
+
+@pytest.mark.parametrize("rank,dims,box,coords,swizzle", [
+    (2, (64, 40), (64, 16), (0, 8), 3),
+    (2, (64, 40), (32, 16), (32, 30), 2),      # rows past the edge: zero
+    (2, (48, 20), (16, 8), (16, 0), 1),
+    (2, (48, 20), (24, 8), (8, 4), 0),
+    (4, (128, 3, 100, 2), (64, 1, 128, 1), (64, 1, 0, 1), 3),
+    (4, (32, 2, 50, 3), (32, 1, 128, 1), (0, 1, 0, 2), 2)],
+    ids=["2d-sw128", "2d-sw64-edge", "2d-sw32", "2d-none", "4d-sw128-S100",
+         "4d-sw64-S50"])
+def test_hopper_tma_box_lands_swizzled_and_zero_filled(card, rank, dims,
+                                                      box, coords, swizzle):
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _selftest("dstt_selftest_tma", (P, P, I, P, P, P, I, P))
+    numel = int(np.prod(dims))
+    src = torch.randint(-2 ** 15, 2 ** 15, (numel,), generator=card,
+                        device="cuda", dtype=torch.int32).to(torch.int16)
+    nbox = int(np.prod(box))
+    dst = torch.full((nbox,), 7, dtype=torch.int16, device="cuda")
+    dims_c = (ctypes.c_longlong * rank)(*dims)
+    box_c = (ctypes.c_int * rank)(*box)
+    coords_c = (ctypes.c_int * rank)(*coords)
+    rc = fn(src.data_ptr(), dst.data_ptr(), rank, dims_c, box_c, coords_c,
+            swizzle, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    # expected image: box element (innermost first) -> its source element
+    want = np.zeros(nbox, np.int16)
+    full = src.view(*dims[::-1]).cpu().numpy()
+    for flat in range(nbox):
+        idx, rem = [], flat
+        for b in box:
+            idx.append(rem % b)
+            rem //= b
+        pos = [c + i for c, i in zip(coords, idx)]
+        inside = all(0 <= p < d for p, d in zip(pos, dims))
+        val = full[tuple(pos[::-1])] if inside else 0
+        want[_swizzled(2 * flat, swizzle) // 2] = val
+    assert np.array_equal(dst.cpu().numpy(), want)
+
+
+# (N, B MN-major, swizzle): an MN-major B is stored in column blocks of
+# the swizzle's width (16, 32 or 64 bf16), so N 32 has no 128-byte case
+WGMMA_CASES = [(n, mn, sw) for n in (32, 64, 128) for mn in (0, 1)
+               for sw in (1, 2, 3) if not (mn and n < 8 << sw)]
+
+
+@pytest.mark.parametrize("N,b_mn,swizzle", WGMMA_CASES, ids=[
+    f"n{n}-{'mn' if mn else 'k'}major-sw{16 << sw}"
+    for n, mn, sw in WGMMA_CASES])
+@pytest.mark.parametrize("a_regs", [0, 1], ids=["a-smem", "a-regs"])
+def test_hopper_wgmma_tile_matches_a_matmul(card, swizzle, b_mn, a_regs, N):
+    import ctypes
+    fn = _selftest("dstt_selftest_wgmma", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    a = _rnd(card, torch.bfloat16, 64, 64)
+    b = _rnd(card, torch.bfloat16, *((64, N) if b_mn else (N, 64)))
+    out = torch.full((64, N), float("nan"), device="cuda")
+    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), N, b_mn, a_regs,
+            swizzle, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    ref = a.float() @ (b.float() if b_mn else b.float().t())
+    _close(out, ref, 1e-4)
+
+
+def _tile_hop_shapes(H=4096, F=11008, V=32000, C=256, max_seqs=8):
+    """(M, K, N) of every per-hop GEMM of chip_smoke phase 13 at
+    Llama-2-7B widths: decode and NC = 1, 2, 4, 8 prefill, tp 2 and 4."""
+    shapes = set()
+    for tp in (2, 4):
+        for m in [max_seqs // tp] + [C * nc // tp for nc in (1, 2, 4, 8)]:
+            shapes |= {(m, H, H // tp), (m, H // tp, H), (m, H, F // tp),
+                       (m, F // tp, H)}
+        shapes.add((max_seqs // tp, H, V // tp))
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("M,K,N", _tile_hop_shapes())
+def test_tile_matmul_hops_take_the_tma_kernels(card, M, K, N):
+    x = _rnd(card, torch.bfloat16, M, K)
+    w = _rnd(card, torch.bfloat16, K, N)
+    want = "stream" if M <= ttm.STREAM_MAX_M else "wgmma"
+    assert ttm.tile_plan(M, K, N, torch.bfloat16).variant == want
+    before = dict(ttm.tile_matmul.launches_by_variant)
+    got = ttm.tile_matmul(x, w)
+    again = ttm.tile_matmul(x, w)
+    torch.cuda.synchronize()
+    after = ttm.tile_matmul.launches_by_variant
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 2 if k == want else 0 for k in after}
+    assert torch.equal(got, again)
+    ref = ttm.tile_matmul_reference(x, w)
+    _close(got, ref, TILE_REL * max(float(ref.abs().max()), 1.0))
+
+
+@pytest.mark.parametrize("B,S,NH,NKV,D", [
+    (4, 2048, 16, 16, 128), (1, 1, 8, 2, 128), (2, 50, 8, 2, 64),
+    (2, 200, 8, 2, 32), (1, 300, 32, 8, 128), (2, 130, 4, 4, 64),
+    (1, 256, 8, 2, 128)],
+    ids=["training", "S1", "S50-D64", "S200-D32", "S300-gqa", "S130",
+         "S256-gqa"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_forward_wgmma_matches_plain_version(card, B, S, NH, NKV, D,
+                                                   causal):
+    dtype = torch.bfloat16
+    q, k, v = (_rnd(card, dtype, B, S, n, D) for n in (NH, NKV, NKV))
+    before = tflash.flash_attention_fwd.launches
+    out, lse = tflash.flash_attention_fwd(q, k, v, causal=causal)
+    assert tflash.flash_attention_fwd.launches == before + 1
+    ref, ref_lse = tflash.flash_attention_reference(q, k, v, causal=causal)
+    _close(out, ref, ATOL[dtype], RTOL[dtype])
+    _close(lse, ref_lse, LSE_ATOL)
+
+
 def test_tile_matmul_raises_on_what_the_kernel_does_not_take(card):
     x = _rnd(card, torch.bfloat16, 4, 64)
     with pytest.raises(TypeError, match="one dtype"):
