@@ -10,11 +10,13 @@ with `git archive` from another commit).  The copies run in turns, A, B,
 B, A per round, each in a process of its own that builds its own kernels
 (into DIR/build) and measures, with chip_smoke.py's phases:
 
-- `--what train` (the default): the dq and dk/dv kernels' device time at
-  the training shape (chip_smoke's TRAIN_ATTN, bf16, causal; its
-  `time_flash_bwd`), and bench.py's GPT-2-1.3B training step (chip_smoke
-  phase 5: 3 warm-up and 10 timed steps, the first warm-up loss) with its
-  device time by kind (phase 7);
+- `--what train` (the default): the flash backward's device time at the
+  training shape (chip_smoke's TRAIN_ATTN, bf16, causal; its
+  `time_flash_bwd`: dq and dk/dv, and the delta kernel where the package
+  has one, 0 where dq and dk/dv compute delta inside; `bwd_ms` is their
+  sum), and bench.py's GPT-2-1.3B training step (chip_smoke phase 5: 3
+  warm-up and 10 timed steps, the first warm-up loss) with its device
+  time by kind (phase 7);
 - `--what paged`: the paged prefill and paged decode kernels' device time
   at chip_smoke phase 1's main shapes (its `paged_main_inputs`), for
   packages that predate the training path too;
@@ -170,9 +172,12 @@ def worker(pkg_dir, train_layers, what):
     out, lse = fa.flash_attention_fwd(q, k, v)
     kernels = {f"{name}_ms": ms for name, ms in cs.time_flash_bwd(
         fa, q, k, v, out, lse, do).items()}
+    kernels["bwd_ms"] = sum(kernels.values())
     del q, k, v, do, out, lse
     counters = [fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
                 fa.flash_attention_bwd_dkv]
+    if hasattr(fa, "flash_attention_bwd_delta"):
+        counters.append(fa.flash_attention_bwd_delta)
     eng, batch, res = cs.train(torch, np, train_layers, counters)
     prof = cs.profile_train_step(torch, eng, batch, res["step_ms"],
                                  counters)
@@ -221,8 +226,8 @@ def main(argv=None):
     keys = {"paged": ("prefill_ms", "decode_ms"),
             "sparse": ("fwd_ms", "dq_ms", "dkv_ms"),
             "evoformer": ("fwd_ms", "dq_ms", "dkv_ms", "db2_ms"),
-            "train": ("dq_ms", "dkv_ms", "step_ms", "tokens_per_s", "mfu",
-                      "first_loss")}.get(args.what)
+            "train": ("delta_ms", "dq_ms", "dkv_ms", "bwd_ms", "step_ms",
+                      "tokens_per_s", "mfu", "first_loss")}.get(args.what)
     if keys is None:   # tile, flash: every number the runs share
         keys = [k for k in runs[0] if k not in ("label", "package")]
     for key in keys:

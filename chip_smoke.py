@@ -28,15 +28,16 @@ Phases (any failure exits non-zero and prints no result):
      config's seed, one seeded batch of 2049-token rows reused every
      step), 3 warm-up steps, then 10 timed steps with the counters reset
      just before: step ms, tokens/s, mfu, peak memory, every loss, and
-     the flash forward, dq and dk/dv launches (one each per layer per
-     step under save_attn);
+     the flash forward, delta, dq and dk/dv launches (one each per layer
+     per step under save_attn; every dq and dk/dv launch on the TMA +
+     wgmma kernels, by their launches per variant);
   6. the same initial state and batch through `plain_kernels=True` for 3
      steps, against the kernel engine's warm-up steps (loss and grad
      norm, and at step 1 each layer's attention gradient norms); a control
      run with a known fault in the plain backward, which these checks
      must refuse; one step under nothing_saveable (2 flash forward
      launches per layer, the same loss);
-  7. profile one training step: device time by kind (matmuls, the three
+  7. profile one training step: device time by kind (matmuls, the four
      attention kernels, the optimizer's update, other) and the idle share;
   8. (run after phase 4, on phase 2's parameters) the multi-tenant wave:
      phase 2's 8 requests on an engine with chunked prefill only, first
@@ -98,7 +99,10 @@ the grid limit; each case prints the kernel `tile_plan` gave it, and a
 bf16 hop that ran neither the split-K TMA stream nor the wgmma kernel
 fails) against their plain versions, times the tile GEMM's decode hops
 warm and with the L2 flushed before each call, and the flash forward
-beside SDPA at the training shape too.
+beside SDPA at the training shape too; the flash backward's delta, dq
+and dk/dv kernels (every bf16 case on the TMA + wgmma pair, reruns
+bit-identical) beside SDPA's backward and the mma.sync kernels' times
+they replaced.
  13. (only with `--tp N`, N in 2, 4, on N cards: the one-card run says
      so and skips it) tensor-parallel serving over the fused ring: phase
      0, phase 1's tile GEMM rows, then phase 2's wave on Llama-2-7B
@@ -252,6 +256,7 @@ EVO_MASKED = 0.15
 # each kernel as the profiler names it -> (its wrapper, whose `launches`
 # counts the wrapper's calls; the device kernels one call runs)
 KERNELS = {"flash_fwd": ("flash_attention_fwd", 1),
+           "flash_bwd_delta": ("flash_attention_bwd_delta", 1),
            "flash_bwd_dq": ("flash_attention_bwd_dq", 1),
            "flash_bwd_dkv": ("flash_attention_bwd_dkv", 1),
            "paged_decode": ("paged_decode_attention", 2),  # + combine
@@ -374,12 +379,26 @@ def holds_launches(launches):
     return complete
 
 
+def reset_counts(counters):
+    """Set each wrapper's launch count (and its counts per kernel
+    variant, where it keeps them) to 0."""
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "launches_by_variant"):
+            c.launches_by_variant = dict.fromkeys(c.launches_by_variant, 0)
+
+
+def by_variant(counters):
+    """{wrapper: {variant: launches}} of the wrappers that count them."""
+    return {c.__name__: dict(c.launches_by_variant) for c in counters
+            if hasattr(c, "launches_by_variant")}
+
+
 def counted(counters, body, launches):
     """`body` with the counters set to 0 before it and read into
     `launches` after it."""
     def run():
-        for c in counters:
-            c.launches = 0
+        reset_counts(counters)
         body()
         launches.update({c.__name__: c.launches for c in counters})
     return run
@@ -852,61 +871,106 @@ def bwd_close(got, ref, rtol, atol_rel):
 
 
 def time_flash_bwd(fa, q, k, v, out, lse, do, timer=time_ms):
-    """ms of the dq and of the dk/dv kernel on these inputs (device ms
-    under the default `timer`)."""
-    return {"dq": timer(lambda: fa.flash_attention_bwd_dq(
-                q, k, v, out, lse, do)),
-            "dkv": timer(lambda: fa.flash_attention_bwd_dkv(
-                q, k, v, out, lse, do))}
+    """ms of the backward's kernels on these inputs (device ms under the
+    default `timer`): the delta kernel and dq and dk/dv fed its delta,
+    each alone.  A package without the delta kernel (its dq and dk/dv
+    compute delta inside) reads "delta" 0."""
+    delta, res = None, {"delta": 0.0}
+    if hasattr(fa, "flash_attention_bwd_delta"):
+        delta = fa.flash_attention_bwd_delta(out, do)
+        res["delta"] = timer(lambda: fa.flash_attention_bwd_delta(out, do))
+    kw = {} if delta is None else {"delta": delta}
+    res["dq"] = timer(lambda: fa.flash_attention_bwd_dq(
+        q, k, v, out, lse, do, **kw))
+    res["dkv"] = timer(lambda: fa.flash_attention_bwd_dkv(
+        q, k, v, out, lse, do, **kw))
+    return res
+
+
+# The mma.sync dq and dk/dv kernels that the TMA + wgmma pair replaced, at
+# the training shape (TRAIN_ATTN): PERF.md's kernel table, rows 4 and 5,
+# on an H100 80GB HBM3 at 700 W.  Printed beside this run's times only.
+MMA_SYNC_BWD_MS = {"dq": 0.5946, "dkv": 1.5495}
+DELTA_REL = 1e-5   # delta vs plain rowsum: f32 sums of D terms, reordered
 
 
 def check_flash_bwd(torch, fa, dev):
-    """The dq and dk/dv kernels against their plain versions, both fed the
-    flash forward kernel's out and lse; timed at the training shape."""
+    """The delta, dq and dk/dv kernels against their plain versions, all
+    fed the flash forward kernel's out and lse; the bf16 cases on the TMA
+    + wgmma pair and rerun bit for bit; timed at the training shape."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(4)
-    # (B, S, NH, NKV, D, dtype): the training shape first, then GQA with a
-    # ragged tail, D 64, D 32, and f32
-    cases = [TRAIN_ATTN + (torch.bfloat16,),
-             (1, 1000, 32, 4, 128, torch.bfloat16),
-             (2, 300, 8, 8, 64, torch.bfloat16),
-             (2, 100, 8, 2, 32, torch.bfloat16),
-             (2, 200, 8, 2, 128, torch.float32)]
-    errs = {"dq": [], "dkv": []}
+    # (B, S, NH, NKV, D, dtype, causal): the training shape first, then GQA
+    # with a ragged tail, D 64, D 32 (GQA 4), one row, non-causal, and f32
+    cases = [TRAIN_ATTN + (torch.bfloat16, True),
+             (1, 1000, 32, 4, 128, torch.bfloat16, True),
+             (2, 300, 8, 8, 64, torch.bfloat16, True),
+             (2, 100, 8, 2, 32, torch.bfloat16, True),
+             (1, 1, 8, 2, 128, torch.bfloat16, True),
+             (2, 200, 8, 2, 128, torch.bfloat16, False),
+             (2, 130, 4, 4, 32, torch.bfloat16, False),
+             (2, 200, 8, 2, 128, torch.float32, True)]
+    counters = (fa.flash_attention_bwd_delta, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    errs = {"delta": [], "dq": [], "dkv": []}
     main = None
-    for B, S, NH, NKV, D, dt in cases:
+    for B, S, NH, NKV, D, dt, causal in cases:
         q, do = (torch.randn(B, S, NH, D, generator=g, device=dev, dtype=dt)
                  for _ in range(2))
         k, v = (torch.randn(B, S, NKV, D, generator=g, device=dev,
                             dtype=dt) for _ in range(2))
-        out, lse = fa.flash_attention_fwd(q, k, v)
-        dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, do)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, do)
-        rdq = fa.flash_attention_bwd_dq_reference(q, k, v, out, lse, do)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal)
+        reset_counts(counters)
+        delta = fa.flash_attention_bwd_delta(out, do)
+        dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, causal, delta)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, do, causal,
+                                            delta)
+        variants = by_variant(counters)
+        again = (fa.flash_attention_bwd_dq(q, k, v, out, lse, do, causal,
+                                           delta),
+                 *fa.flash_attention_bwd_dkv(q, k, v, out, lse, do, causal,
+                                             delta))
+        rdelta = fa.flash_attention_bwd_delta_reference(out, do)
+        rdq = fa.flash_attention_bwd_dq_reference(q, k, v, out, lse, do,
+                                                  causal)
         rdk, rdv = fa.flash_attention_bwd_dkv_reference(q, k, v, out, lse,
-                                                        do)
+                                                        do, causal)
         torch.cuda.synchronize()
         rtol, arel = ((BWD_RTOL, BWD_ATOL_REL) if dt == torch.bfloat16
                       else (0.0, BWD_F32_REL))
         res = {n: bwd_close(a, b, rtol, arel)
                for n, a, b in (("dq", dq, rdq), ("dk", dk, rdk),
                                ("dv", dv, rdv))}
+        res["delta"] = bwd_close(delta, rdelta, 0.0, DELTA_REL)
+        same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+        want = fa.bwd_variant(dt)
         print(f"  flash_bwd B={B} S={S} NH={NH} NKV={NKV} D={D} "
-              f"{str(dt)[6:]}: max|d| / max|plain| " + ", ".join(
-                  f"{n} {r[1]:.3e}" for n, r in res.items()))
+              f"{str(dt)[6:]} {'causal' if causal else 'full'}: "
+              f"max|d| / max|plain| " + ", ".join(
+                  f"{n} {r[1]:.3e}" for n, r in res.items())
+              + f"; rerun equal {same}; kernels {variants}")
         for n, (ok, rel) in res.items():
             if not ok:
                 fail(f"flash backward {n} disagrees with its plain version "
-                     f"at {(B, S, NH, NKV, D, dt)}: {rel} of max|plain| "
-                     f"(tol {BWD_TOL_TEXT})")
+                     f"at {(B, S, NH, NKV, D, dt, causal)}: {rel} of "
+                     f"max|plain| (tol {BWD_TOL_TEXT}; delta {DELTA_REL})")
+        if not same:
+            fail(f"flash backward rerun differs at "
+                 f"{(B, S, NH, NKV, D, dt, causal)}")
+        if any(v[want] != 1 for v in variants.values()):
+            fail(f"flash backward at {(B, S, NH, NKV, D, dt)} ran "
+                 f"{variants}, want one {want} launch each")
+        errs["delta"].append(max_err(delta, rdelta))
         errs["dq"].append(max_err(dq, rdq))
         errs["dkv"].append(max(max_err(dk, rdk), max_err(dv, rdv)))
         if main is None:
             main = (q, k, v, out, lse, do, B, S, NH, NKV, D)
-        del rdq, rdk, rdv
+        del rdq, rdk, rdv, again
     q, k, v, out, lse, do, B, S, NH, NKV, D = main
     ms = time_flash_bwd(fa, q, k, v, out, lse, do)
-    plain = {"dq": time_ms(lambda: fa.flash_attention_bwd_dq_reference(
+    plain = {"delta": time_ms(lambda: fa.flash_attention_bwd_delta_reference(
+                 out, do), iters=3, warmup=1),
+             "dq": time_ms(lambda: fa.flash_attention_bwd_dq_reference(
                  q, k, v, out, lse, do), iters=3, warmup=1),
              "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv_reference(
                  q, k, v, out, lse, do), iters=3, warmup=1)}
@@ -924,9 +988,15 @@ def check_flash_bwd(torch, fa, dev):
             F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
     lib_bwd = timing_less(time_ms(sdpa_fwd_bwd), time_ms(sdpa_fwd))
-    print(f"  SDPA backward at the training shape: {lib_bwd:.4f} ms "
-          f"(dq + dk/dv kernels {ms['dq'] + ms['dkv']:.4f} ms)")
+    total = ms["delta"] + ms["dq"] + ms["dkv"]
+    print(f"  flash backward at the training shape: delta {ms['delta']:.4f}"
+          f", dq {ms['dq']:.4f}, dk/dv {ms['dkv']:.4f} ms, together "
+          f"{total:.4f} ms ({total / lib_bwd:.2f}x SDPA's backward "
+          f"{lib_bwd:.4f} ms); the mma.sync kernels it replaced: dq "
+          f"{MMA_SYNC_BWD_MS['dq']}, dk/dv {MMA_SYNC_BWD_MS['dkv']} ms "
+          f"(PERF.md)")
     shape = (f"q/k/v/dO [{B},{S},{NH},{D}] bf16 causal")
+    q_like = B * S * NH * D
     rows = []
     for name, nmm, nkv, line in (("dq", 3, 0, 374), ("dkv", 4, 2, 398)):
         flops, nbytes = _flash_bwd_work(B, S, NH, NKV, D, nmm, nkv)
@@ -940,6 +1010,18 @@ def check_flash_bwd(torch, fa, dev):
             library_ms=lib_bwd,
             library_note="SDPA backward (fwd+bwd less fwd): dq, dk and dv "
                          "in one call"))
+    # out and dO read, delta written: 2 q-like bf16 reads, one f32 per row
+    bms, by = bound_ms(2 * q_like, 2 * 2 * q_like + 4 * B * NH * S)
+    rows.append(dict(
+        name="flash_bwd_delta", route="cuda",
+        source="deepspeed_tpu_torch/csrc/flash_bwd.cu",
+        replaces="deepspeed_tpu/ops/flash_attention.py:374",
+        replaces_note="delta = rowsum(dO * O), which the TPU's dq and dk/dv "
+                      "kernels compute from the out tile (:141, :216): "
+                      "part of rows 4 and 5",
+        shape=shape, max_abs_err=max(errs["delta"]), ms=ms["delta"],
+        plain_ms=plain["delta"], bound_ms=bms, bound_by=by,
+        library_ms=None))
     return rows
 
 
@@ -1016,14 +1098,14 @@ def train(torch, np, layers, counters):
           f"{TRAIN_SEQ}, save_attn, tiled loss x8, AdamW int8f; engine up "
           f"in {time.perf_counter() - t0:.1f} s")
     warm = _steps(torch, eng, batch, TRAIN_WARMUP)
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     metrics = [eng.train_batch(batch) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = {c.__name__: c.launches for c in counters}
+    variants = by_variant(counters)
     losses = [float(m["loss"]) for m in metrics]
     peak = torch.cuda.max_memory_allocated()
     step_ms = wall / TRAIN_STEPS * 1e3
@@ -1038,7 +1120,7 @@ def train(torch, np, layers, counters):
           f"(6N + 12 L H S FLOP/token at {H100_BF16_FLOPS:.3g} FLOP/s), "
           f"peak memory {peak / 2 ** 30:.2f} GiB")
     print(f"phase 5: losses {losses}")
-    print(f"phase 5: launches per step {per_step}")
+    print(f"phase 5: launches per step {per_step}; by variant {variants}")
     if not all(np.isfinite(losses + warm[0] + warm[1])):
         fail(f"non-finite training loss or grad norm: {losses}, {warm}")
     for name, n in launches.items():
@@ -1046,12 +1128,24 @@ def train(torch, np, layers, counters):
             fail(f"{name} launched {n} times over {TRAIN_STEPS} steps, "
                  f"want {cfg.num_layers} per step (one per layer under "
                  f"save_attn)")
+    check_bwd_variants(variants, launches, "phase 5")
     res = dict(step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu,
                peak_memory_bytes=peak, losses=losses,
                warmup_losses=warm[0], warmup_grad_norms=warm[1],
-               warmup_attn_grad_norms=warm[2], launches=launches, launches_per_step=per_step,
+               warmup_attn_grad_norms=warm[2], launches=launches,
+               launches_per_step=per_step, launches_by_variant=variants,
                n_params=n_params, layers=cfg.num_layers)
     return eng, batch, res
+
+
+def check_bwd_variants(variants, launches, where):
+    """Every flash dq and dk/dv launch of a bf16 training run took the
+    TMA + wgmma kernels (`variants` from `by_variant`)."""
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        if name in variants and \
+                variants[name].get("wgmma") != launches[name]:
+            fail(f"{where}: {name} launches by variant {variants[name]}: "
+                 f"every bf16 launch must take the TMA + wgmma kernel")
 
 
 def profile_train_step(torch, eng, batch, step_ms, counters, phase=7):
@@ -1189,16 +1283,15 @@ def remat_launches(torch, np, layers, counters, first_loss):
     eng = dt.initialize(model=model,
                         config=bench_config("nothing_saveable"))
     batch = train_batch_np(np, model.cfg, eng.config.train_batch_size)
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     m = eng.train_batch(batch)
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
     loss = float(m["loss"])
     del eng
     L = model.cfg.num_layers
-    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
-            "flash_attention_bwd_dkv": L}
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_delta": L,
+            "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L}
     print(f"phase 6: one nothing_saveable step: launches {launches} (want "
           f"{want}); loss {loss} vs save_attn's {first_loss}")
     if launches != want:
@@ -2536,14 +2629,14 @@ def train_int8(torch, np, layers, counters, fa8):
     gbs = eng.config.train_batch_size
     batch = train_batch_np(np, cfg, gbs)
     warm = _steps(torch, eng, batch, TRAIN_WARMUP)
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     metrics = [eng.train_batch(batch) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = {c.__name__: c.launches for c in counters}
+    variants = by_variant(counters)
     losses = [float(m["loss"]) for m in metrics]
     peak = torch.cuda.max_memory_allocated()
     step_ms = wall / TRAIN_STEPS * 1e3
@@ -2556,7 +2649,7 @@ def train_int8(torch, np, layers, counters, fa8):
           f"{warm[1]}; {TRAIN_STEPS} steps in {wall:.3f} s: step "
           f"{step_ms:.2f} ms, {tok_s:.1f} tokens/s, mfu {mfu:.4f}, peak "
           f"memory {peak / 2 ** 30:.2f} GiB; losses {losses}; launches per "
-          f"step {per_step}")
+          f"step {per_step}; by variant {variants}")
     if not all(np.isfinite(losses + warm[0] + warm[1])):
         fail(f"non-finite int8 training loss or grad norm: {losses}, {warm}")
     want = {c.__name__: cfg.num_layers * TRAIN_STEPS for c in counters}
@@ -2564,6 +2657,7 @@ def train_int8(torch, np, layers, counters, fa8):
     if launches != want:
         fail(f"phase 11 launches {launches}, want {want} (one fused_adam8 "
              f"per leaf per step, one of each flash kernel per layer)")
+    check_bwd_variants(variants, launches, "phase 11")
     torch.cuda.empty_cache()
     prof = profile_train_step(torch, eng, batch, step_ms, counters,
                               phase=11)
@@ -3419,12 +3513,13 @@ def main(argv=None):
 
     # phase 11 (before the other training phases)
     int8 = train_int8(torch, np, args.train_layers,
-                      [fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
-                       fa.flash_attention_bwd_dkv, fa8.fused_adam8_leaf], fa8)
+                      [fa.flash_attention_fwd, fa.flash_attention_bwd_delta,
+                       fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+                       fa8.fused_adam8_leaf], fa8)
 
     # phase 5
-    train_counters = [fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
-                      fa.flash_attention_bwd_dkv]
+    train_counters = [fa.flash_attention_fwd, fa.flash_attention_bwd_delta,
+                      fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv]
     teng, batch, trained = train(torch, np, args.train_layers,
                                  train_counters)
 

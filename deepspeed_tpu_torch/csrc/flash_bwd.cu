@@ -1,397 +1,486 @@
-// Causal flash-attention backward for Hopper (sm_90a): the dq kernel and
-// the dk/dv kernel.
+// Causal flash-attention backward for Hopper (sm_90a): the delta, dq and
+// dk/dv kernels.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/flash_attention.py
 // `_bwd_vjp`: `_bwd_dq_kernel` (pallas_call at :374) and `_bwd_dkv_kernel`
 // (pallas_call at :398).  Inputs are the forward's residuals (q, k, v, out,
-// lse) and dO; delta = rowsum(dO * O) is computed in the kernels, as on the
-// TPU, so no [B, NH, S] array of it is written.
+// lse) and dO.
 //
 // Layout (the JAX public one, no transposes): q, out, dO, dq [B, S, NH, D];
-// k, v, dk, dv [B, S, NKV, D]; lse [B, NH, S] f32.  Any S (ragged tails are
-// masked), causal or not, GQA with NH % NKV == 0, D in {32, 64, 128}.
-//
-//   dq kernel, grid (ceil(S/64), NH, B): one CTA per 64-row query tile of
-//     one head.  It computes delta for its rows, then walks key tiles of
-//     64 up to the diagonal: S = Q K^T, P = exp(S*scale - lse), dP = dO V^T,
-//     dS = P * (dP - delta), dQ += dS K in f32; it writes dQ * scale once.
-//   dk/dv kernel, grid (ceil(S/64), NKV, B): one CTA per 64-key tile of one
-//     KV head.  It walks the q heads of its GQA group and, for each, the
-//     64-row query tiles from the diagonal on, each in two 32-row
-//     passes (registers): S^T = K Q^T, P^T, dP^T =
-//     V dO^T, dS^T; dV += P^T dO and dK += dS^T Q in f32 registers, and
-//     writes dK * scale and dV once.  The TPU kernel writes dk/dv per q head
-//     in bf16 and sums the group outside; here the group sum is f32 inside
-//     the CTA.  No atomics: every output element is written by one thread,
-//     so the result is the same on every run.
-//
-// bf16 runs on the tensor cores with mma.sync m16n8k16 (f32 accumulate):
-// four warps of 16 rows (query rows in the dq kernel, key rows in the dk/dv
-// kernel), the tiles staged in shared memory as bf16 with rows padded by 8
-// elements; products whose B operand is row-major in the contraction dim
-// (dS K, P^T dO, dS^T Q) read it with ldmatrix.trans, and P / dS are
-// rounded to bf16 and reused from the accumulator registers as the A
-// operand (as the forward does with P; the TPU kernels round them too).
-// f32 runs on the CUDA cores with exact f32 products (4 threads per row,
-// as attn_tile.cuh's f32 core).
+// k, v, dk, dv [B, S, NKV, D]; lse and delta [B, NH, S] f32.  Any S (ragged
+// tails are masked), causal or not, GQA with NH % NKV == 0, D in {32, 64,
+// 128}.  No atomics: every output element is written by one thread after a
+// fixed order of sums, so the result is the same on every run.
 //
 // What bounds it on the H100 at the training shape ([4, 2048, 16, 128]
 // bf16, causal): operations.  dq does 3 and dk/dv 4 causal [S, S, D]
 // matmuls per head (1.03e11 and 1.37e11 FLOP: 0.104 and 0.139 ms at 989
-// TFLOP/s) against ~200 MB of bytes (0.06 ms).  This first form feeds the
-// tensor cores one tile at a time from shared memory with no copy/compute
-// overlap; TMA, wgmma and a ring of stages are the next step.
+// TFLOP/s) against ~200 MB of bytes (0.06 ms).
+//
+// bf16: three kernels, one launch each per backward.
+//   flash_bwd_delta: delta = rowsum(dO * out) in f32 into [B, NH, S]
+//     (D * 2 / 16 threads a row, one 16-byte load each of out and dO, an
+//     xor-shuffle sum).  On the TPU each kernel recomputes it from the out
+//     tile; here the dk/dv kernel would redo it for every query tile a key
+//     tile visits, so it is computed once and both kernels read it.
+//   flash_bwd_dkv_wgmma, grid (ceil(S/128), NKV, B), key tiles on x from
+//     the first (the heaviest causal ones first), head-major: one CTA =
+//     128 keys of one KV head, warp-specialised as flash_fwd.cu.  A
+//     producer warpgroup (registers handed to the consumers with
+//     setmaxnreg): one thread loads K and V once by TMA and streams 64-row
+//     tiles of Q and dO through a 3-slot mbarrier ring, walking the q
+//     heads of the GQA group and, causal, the query tiles from the
+//     diagonal on; one warp stages each tile's lse (times log2 e) and
+//     delta in shared memory (+inf and 0 past S, so those rows give P = 0).
+//     Two consumer warpgroups of 64 keys each, per tile: S^T = K Q^T and
+//     dP^T = V dO^T (wgmma, both operands K-major in shared memory); P^T =
+//     exp2(S^T scale log2e - lse log2e), masked only on the diagonal tile
+//     and past S; dS^T = P^T (dP^T - delta); dV += P^T dO and dK += dS^T Q
+//     (wgmma with P^T / dS^T rounded to bf16 from the accumulators as the
+//     register A operand, dO / Q as the MN-major B).  dK and dV stay in f32
+//     registers over the whole group, so the GQA sum is f32 and in order;
+//     dK * scale and dV are written once.  A warpgroup whose 64 keys all
+//     lie past a tile's rows (the first causal tile of warpgroup 1) skips
+//     its products but still frees the slot.
+//   flash_bwd_dq_wgmma, grid (ceil(S/128), NH, B), query tiles on x from
+//     the last, head-major: one CTA = 128 query rows of one head (two
+//     consumer warpgroups of 64), Q and dO loaded once, 64-key tiles of K
+//     and V through a 3-slot ring up to the diagonal: S = Q K^T, dP =
+//     dO V^T, P, dS = P (dP - delta), dQ += dS K (K as the MN-major B);
+//     dQ * scale is written once.
+//   Tiles are loaded through 4-D tensor maps over [B, S, heads, D], so rows
+//   past S come back zero and a tile never crosses into the next batch;
+//   rows of more than 64 bf16 load as 64-column boxes (the 128-byte
+//   swizzle's width; D 32 uses the 64-byte swizzle), as in flash_fwd.cu.
+//
+// f32 runs on the CUDA cores with exact f32 products (4 threads per row,
+// as attn_tile.cuh's f32 core) and computes delta inside, per tile: grids
+// (ceil(S/64), NH or NKV, B).
 #include "attn_tile.cuh"
+#include "hopper_tile.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int BQ = dstt::BQ;     // query rows per dq CTA (64)
-constexpr int BK = dstt::BK;     // keys per tile (64)
-constexpr int QT = 64;           // query rows staged per dk/dv tile
-constexpr int QSUB = 32;         // query rows per dk/dv product pass
+namespace hp = dstt::hopper;
+constexpr int BQ = dstt::BQ;     // query rows per f32 dq CTA (64)
+constexpr int BK = dstt::BK;     // keys per f32 tile (64)
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float warp_sum(float x) {
+// ---------------------------------------------------------------------
+// delta = rowsum(dO * out), f32, [B, NH, S]
+__device__ __forceinline__ float dot_chunk(uint4 a, uint4 b, const bf16*) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+  for (int i = 0; i < 4; ++i) {
+    const float2 fx = __bfloat1622float2(x[i]);
+    const float2 fy = __bfloat1622float2(y[i]);
+    s += fx.x * fy.x + fx.y * fy.y;
+  }
+  return s;
 }
 
-// Copy `rows` rows of D bf16 (global row stride `stride`) into a shared
-// tile of `tile_rows` rows of leading dim LD, zero-filling rows >= rows.
-template <int D, int LD>
-__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src,
-                                           long stride, int rows,
-                                           int tile_rows, int tid,
-                                           int nthreads) {
-  constexpr int NV = D / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int idx = tid; idx < tile_rows * NV; idx += nthreads) {
-    const int row = idx / NV;
-    const int c = (idx % NV) * 8;
-    *reinterpret_cast<uint4*>(dst + row * LD + c) =
-        row < rows ? *reinterpret_cast<const uint4*>(src + row * stride + c)
-                   : zero;
+__device__ __forceinline__ float dot_chunk(uint4 a, uint4 b, const float*) {
+  const float4 x = *reinterpret_cast<const float4*>(&a);
+  const float4 y = *reinterpret_cast<const float4*>(&b);
+  return x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+}
+
+constexpr int DELTA_THREADS = 256;
+
+// Row r = (b * S + s) * NH + h of out / dO (D elements) is summed by TPR
+// consecutive threads, one 16-byte chunk each, and lands at
+// delta[(b * NH + h) * S + s].
+template <typename T, int D>
+__global__ void __launch_bounds__(DELTA_THREADS)
+flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                float* __restrict__ delta, long rows, int S, int NH) {
+  constexpr int TPR = D * (int)sizeof(T) / 16;
+  constexpr int RPB = DELTA_THREADS / TPR;
+  const long row = (long)blockIdx.x * RPB + threadIdx.x / TPR;
+  const int part = threadIdx.x % TPR;
+  float s = 0.f;
+  if (row < rows)
+    s = dot_chunk(reinterpret_cast<const uint4*>(o + row * D)[part],
+                  reinterpret_cast<const uint4*>(dout + row * D)[part], o);
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (part == 0 && row < rows) {
+    const int h = (int)(row % NH);
+    const long bs = row / NH;
+    delta[(bs / S * NH + h) * S + bs % S] = s;
   }
 }
 
-// A fragment (m16n8k16, row-major) of rows r0 and r0 + 8 at column k0.
-__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* tile,
-                                       int LD, int r0, int k0, int t) {
-  const bf16* p = tile + r0 * LD + k0 + 2 * t;
-  a[0] = dstt::ld_u32(p);
-  a[1] = dstt::ld_u32(p + 8 * LD);
-  a[2] = dstt::ld_u32(p + 8);
-  a[3] = dstt::ld_u32(p + 8 * LD + 8);
-}
+// ---------------------------------------------------------------------
+// bf16: TMA + wgmma, warp-specialised
+constexpr int WG_THREADS = 384;   // producer warpgroup + two consumers
+constexpr int KV_ROWS = 128;      // dk/dv: keys per CTA
+constexpr int QT = 64;            // dk/dv: query rows per ring tile
+constexpr int DQ_ROWS = 128;      // dq: query rows per CTA
+constexpr int KT = 64;            // dq: keys per ring tile
+constexpr int STAGES = 3;         // ring slots
 
-// f32 accumulators of a 16 x 16k tile (n-tiles 2kk, 2kk+1) as the bf16 A
-// fragment of the next product.
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float (*s)[4],
-                                         int kk) {
-  a[0] = dstt::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-  a[1] = dstt::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-  a[2] = dstt::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-  a[3] = dstt::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-}
-
-// acc[16 x D] += A[16 x 16] * Bt where Bt is a row-major [16, D] shared
-// tile (rows = the contraction dim) read with ldmatrix.trans.
 template <int D>
-__device__ __forceinline__ void mma_rowmajor_b(float (*acc)[4],
-                                               const uint32_t* a,
-                                               const bf16* bt, int LD,
-                                               int lane) {
-  const bf16* row =
-      bt + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+struct BwdTile {
+  static constexpr int CH = D < 64 ? D : 64;     // elements per box row
+  static constexpr int NCH = D / CH;             // boxes per row
+  static constexpr int RB = CH * 2;              // bytes per box row
+  static constexpr hp::Swizzle SW = RB == 128 ? hp::SW128 : hp::SW64;
+  static constexpr int KV_BYTES = KV_ROWS * D * 2;   // dk/dv: K or V
+  static constexpr int QT_BYTES = QT * D * 2;        // dk/dv: Q or dO tile
+  static constexpr int DKV_SMEM = 1024 + 2 * KV_BYTES + STAGES * 2 * QT_BYTES;
+  static constexpr int Q_BYTES = DQ_ROWS * D * 2;    // dq: Q or dO
+  static constexpr int KT_BYTES = KT * D * 2;        // dq: K or V tile
+  static constexpr int DQ_SMEM = 1024 + 2 * Q_BYTES + STAGES * 2 * KT_BYTES;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// acc [64 x N] = A [64 x D] B [N x D]^T for one warpgroup, both operands
+// K-major in D-column boxes: A's rows start at `a` in boxes of `a_rows`
+// rows, B's N rows fill boxes of N rows at `b`.
+template <int D, int N>
+__device__ __forceinline__ void issue_abt(float (&acc)[N / 2],
+                                          const uint8_t* a, int a_rows,
+                                          const uint8_t* b) {
+  using T = BwdTile<D>;
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    uint32_t b[4];
-    dstt::ldmatrix_x4_trans(b, row + n * 16);
-    dstt::mma_bf16(acc[2 * n], a, b[0], b[1]);
-    dstt::mma_bf16(acc[2 * n + 1], a, b[2], b[3]);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int ch = kk * 16 / T::CH, within = (kk * 16 % T::CH) * 2;
+    const uint64_t da = hp::smem_desc(a + ch * a_rows * T::RB + within,
+                                      T::SW, 16, 8 * T::RB);
+    const uint64_t db = hp::smem_desc(b + ch * N * T::RB + within, T::SW,
+                                      16, 8 * T::RB);
+    hp::wgmma_ss<N, 0>(acc, da, db, kk > 0);
   }
 }
 
+// acc [64 x D] += A [64 x 64] B [64 x D]: A from registers (the bf16
+// fragments of four k16 slices), B MN-major in D-column boxes of 64 rows
+// (the contraction index) at `b`.
 template <int D>
-constexpr int dq_mma_smem() {
-  return (2 * BQ + 2 * BK) * (D + 8) * 2 + 2 * BQ * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(dstt::MMA_THREADS)
-flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ o,
-                 const float* __restrict__ lse, const bf16* __restrict__ dout,
-                 bf16* __restrict__ dq, int S, int NH, int NKV, int causal,
-                 float sm_scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + BQ * LD;
-  bf16* Ks = dOs + BQ * LD;
-  bf16* Vs = Ks + BK * LD;
-  float* lse_s = reinterpret_cast<float*>(Vs + BK * LD);
-  float* delta_s = lse_s + BQ;
-
-  // the last query tiles walk the most key tiles: launch them first so
-  // the short ones fill the tail of the grid
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (NH / NKV);
-  const int n_rows = min(BQ, S - q0);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = warp * 16 + g;   // this lane's rows: r0 and r0 + 8
-  const long q_stride = (long)NH * D;
-  const long q_base = ((long)b * S + q0) * NH * D + (long)h * D;
-  const long kv_stride = (long)NKV * D;
-  const long kv_base = (long)b * S * NKV * D + (long)kvh * D;
-
-  stage_bf16<D, LD>(Qs, q + q_base, q_stride, n_rows, BQ, tid,
-                    dstt::MMA_THREADS);
-  stage_bf16<D, LD>(dOs, dout + q_base, q_stride, n_rows, BQ, tid,
-                    dstt::MMA_THREADS);
-  for (int r = tid; r < BQ; r += dstt::MMA_THREADS)
-    lse_s[r] = r < n_rows ? lse[((long)b * NH + h) * S + q0 + r] * LOG2E
-                          : INFINITY;   // padding rows: P = 0
-  __syncthreads();
-  // delta = rowsum(dO * O) in f32, warp w for its own 16 rows
-  for (int rr = 0; rr < 16; ++rr) {
-    const int row = warp * 16 + rr;
-    float part = 0.f;
-    if (row < n_rows)
-      for (int d = lane; d < D; d += 32)
-        part += __bfloat162float(dOs[row * LD + d]) *
-                __bfloat162float(o[q_base + row * q_stride + d]);
-    part = warp_sum(part);
-    if (lane == 0) delta_s[row] = part;
-  }
-  __syncthreads();
-  const float lse_r[2] = {lse_s[r0], lse_s[r0 + 8]};
-  const float delta_r[2] = {delta_s[r0], delta_s[r0 + 8]};
-  const int qp[2] = {q0 + r0, q0 + r0 + 8};
-  const float scale2 = sm_scale * LOG2E;
-
-  float dqacc[D / 8][4];
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
+                                         const uint32_t (&a)[4][4],
+                                         const uint8_t* b) {
+  using T = BwdTile<D>;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqacc[n][e] = 0.f;
-
-  const int k_end = causal ? min(S, q0 + n_rows) : S;
-  for (int kt0 = 0; kt0 < k_end; kt0 += BK) {
-    __syncthreads();   // the previous tile's readers are done
-    const int nk = min(BK, k_end - kt0);
-    stage_bf16<D, LD>(Ks, k + kv_base + (long)kt0 * kv_stride, kv_stride,
-                      nk, BK, tid, dstt::MMA_THREADS);
-    stage_bf16<D, LD>(Vs, v + kv_base + (long)kt0 * kv_stride, kv_stride,
-                      nk, BK, tid, dstt::MMA_THREADS);
-    __syncthreads();
-
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      frag_a(qa, Qs, LD, r0, kk * 16, t);
-      frag_a(da, dOs, LD, r0, kk * 16, t);
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const bf16* kr = Ks + (j * 8 + g) * LD + kk * 16 + 2 * t;
-        dstt::mma_bf16(s[j], qa, dstt::ld_u32(kr), dstt::ld_u32(kr + 8));
-        const bf16* vr = Vs + (j * 8 + g) * LD + kk * 16 + 2 * t;
-        dstt::mma_bf16(dp[j], da, dstt::ld_u32(vr), dstt::ld_u32(vr + 8));
-      }
-    }
-    // s[j][0..1]: row r0, keys kt0+8j+2t+{0,1}; s[j][2..3]: row r0+8
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hh = e >> 1;
-        const int kp = kt0 + 8 * j + 2 * t + (e & 1);
-        const bool vis = kp < k_end && (!causal || kp <= qp[hh]);
-        const float p = vis ? exp2f(s[j][e] * scale2 - lse_r[hh]) : 0.f;
-        s[j][e] = p * (dp[j][e] - delta_r[hh]);   // dS
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s, kk);
-      mma_rowmajor_b<D>(dqacc, a, Ks + kk * 16 * LD, LD, lane);
-    }
-  }
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = r0 + 8 * hh;
-    if (r >= n_rows) continue;
-    bf16* row = dq + q_base + r * q_stride;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dqacc[n][2 * hh] * sm_scale,
-                                dqacc[n][2 * hh + 1] * sm_scale);
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = hp::smem_desc(b + kk * 16 * T::RB, T::SW,
+                                      64 * T::RB, 8 * T::RB);
+    hp::wgmma_rs<D, 1>(acc, a[kk], db, 1);
   }
 }
 
-template <int D>
-constexpr int dkv_mma_smem() {
-  return (2 * BK + 2 * QT) * (D + 8) * 2 + 2 * QT * 4;
+// A [64 x 64] f32 accumulator as the bf16 A fragments of four k16 slices.
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4],
+                                           const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = dstt::pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    a[kk][1] = dstt::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = dstt::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = dstt::pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    hp::fence_regs(a[kk]);
+  }
+}
+
+// Accumulator element i of m64n64 for thread (warp w, g, t): row
+// 16 w + g + 8 (i % 4 / 2), column 8 (i / 4) + 2 t + i % 2.
+__device__ __forceinline__ int acc_col(int i, int t) {
+  return 8 * (i >> 2) + 2 * t + (i & 1);
 }
 
 template <int D>
-__global__ void __launch_bounds__(dstt::MMA_THREADS)
-flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ o,
-                  const float* __restrict__ lse,
-                  const bf16* __restrict__ dout, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv, int S, int NH, int NKV, int causal,
-                  float sm_scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BK * LD;
-  bf16* Qs = Vs + BK * LD;
-  bf16* dOs = Qs + QT * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + QT * LD);
-  float* delta_s = lse_s + QT;
-
-  const int k0 = blockIdx.x * BK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap dmap,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int S, int NH, int NKV,
+                    int causal, float scale_log2, float sm_scale) {
+  using T = BwdTile<D>;
+  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  extern __shared__ __align__(1024) uint8_t smem_tma[];
+  uint8_t* Ks = hp::align1024(smem_tma);
+  uint8_t* Vs = Ks + T::KV_BYTES;
+  uint8_t* QdO = Vs + T::KV_BYTES;   // slot s: the Q tile, then the dO tile
+  __shared__ float lse_s[STAGES][QT], dl_s[STAGES][QT];
+  __shared__ __align__(8) uint64_t kv_full, full[STAGES], empty[STAGES];
+  const int k0 = blockIdx.x * KV_ROWS, kvh = blockIdx.y, b = blockIdx.z;
   const int G = NH / NKV;
-  const int n_keys = min(BK, S - k0);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = warp * 16 + g;   // this lane's key rows: r0 and r0 + 8
-  const long kv_stride = (long)NKV * D;
-  const long kv_base = ((long)b * S + k0) * NKV * D + (long)kvh * D;
-  const long q_stride = (long)NH * D;
-  const int kp[2] = {k0 + r0, k0 + r0 + 8};
-  const float scale2 = sm_scale * LOG2E;
-
-  stage_bf16<D, LD>(Ks, k + kv_base, kv_stride, n_keys, BK, tid,
-                    dstt::MMA_THREADS);
-  stage_bf16<D, LD>(Vs, v + kv_base, kv_stride, n_keys, BK, tid,
-                    dstt::MMA_THREADS);
-
-  float dkacc[D / 8][4], dvacc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dkacc[n][e] = dvacc[n][e] = 0.f;
-
   // query rows before k0 see none of these keys (k0 is a multiple of QT)
   const int q_begin = causal ? k0 : 0;
-  for (int hq = kvh * G; hq < (kvh + 1) * G; ++hq) {
-    const long head_base = (long)b * S * NH * D + (long)hq * D;
-    const float* lse_h = lse + ((long)b * NH + hq) * S;
-    for (int qt0 = q_begin; qt0 < S; qt0 += QT) {
-      const int nq = min(QT, S - qt0);
-      const long q_base = head_base + (long)qt0 * q_stride;
-      __syncthreads();   // the previous tile's readers are done
-      stage_bf16<D, LD>(Qs, q + q_base, q_stride, nq, QT, tid,
-                        dstt::MMA_THREADS);
-      stage_bf16<D, LD>(dOs, dout + q_base, q_stride, nq, QT, tid,
-                        dstt::MMA_THREADS);
-      for (int r = tid; r < QT; r += dstt::MMA_THREADS)
-        lse_s[r] = r < nq ? lse_h[qt0 + r] * LOG2E : INFINITY;
-      __syncthreads();
-      // delta for the tile's rows: warp w takes rows 16w .. 16w+15
-      for (int rr = 0; rr < QT / 4; ++rr) {
-        const int row = warp * (QT / 4) + rr;
-        float part = 0.f;
-        if (row < nq)
-          for (int d = lane; d < D; d += 32)
-            part += __bfloat162float(dOs[row * LD + d]) *
-                    __bfloat162float(o[q_base + row * q_stride + d]);
-        part = warp_sum(part);
-        if (lane == 0) delta_s[row] = part;
-      }
-      __syncthreads();
+  const int n_qt = (S - q_begin + QT - 1) / QT;   // per q head
+  const int n_tiles = G * n_qt;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid == 0) {
+    hp::mbar_init(&kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hp::mbar_init(&full[s], 1 + 32);   // TMA thread + the lse/delta warp
+      hp::mbar_init(&empty[s], 8);       // one arrival per consumer warp
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
 
-      // two passes of QSUB rows keep P^T and dS^T at 16 registers each
-      for (int sub = 0; sub < QT && qt0 + sub < S; sub += QSUB) {
-        const bf16* Qp = Qs + sub * LD;
-        const bf16* dOp = dOs + sub * LD;
-        float st[QSUB / 8][4], dpt[QSUB / 8][4];
-#pragma unroll
-        for (int j = 0; j < QSUB / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          uint32_t ka[4], va[4];
-          frag_a(ka, Ks, LD, r0, kk * 16, t);
-          frag_a(va, Vs, LD, r0, kk * 16, t);
-#pragma unroll
-          for (int j = 0; j < QSUB / 8; ++j) {
-            const bf16* qr = Qp + (j * 8 + g) * LD + kk * 16 + 2 * t;
-            dstt::mma_bf16(st[j], ka, dstt::ld_u32(qr),
-                           dstt::ld_u32(qr + 8));
-            const bf16* dr = dOp + (j * 8 + g) * LD + kk * 16 + 2 * t;
-            dstt::mma_bf16(dpt[j], va, dstt::ld_u32(dr),
-                           dstt::ld_u32(dr + 8));
-          }
+  if (wg == 0) {   // producer
+    hp::setmaxnreg_dec<24>();
+    const int warp = tid >> 5, lane = tid & 31;
+    if (warp == 0 && lane == 0) {
+      hp::mbar_expect_tx(&kv_full, 2 * T::KV_BYTES);
+      for (int c = 0; c < T::NCH; ++c) {
+        hp::tma_load_4d(Ks + c * KV_ROWS * T::RB, &kmap, &kv_full,
+                        c * T::CH, kvh, k0, b);
+        hp::tma_load_4d(Vs + c * KV_ROWS * T::RB, &vmap, &kv_full,
+                        c * T::CH, kvh, k0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        const int hq = kvh * G + j / n_qt, qt0 = q_begin + j % n_qt * QT;
+        hp::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        uint8_t* Qs = QdO + s * 2 * T::QT_BYTES;
+        hp::mbar_expect_tx(&full[s], 2 * T::QT_BYTES);
+        for (int c = 0; c < T::NCH; ++c) {
+          hp::tma_load_4d(Qs + c * QT * T::RB, &qmap, &full[s], c * T::CH,
+                          hq, qt0, b);
+          hp::tma_load_4d(Qs + T::QT_BYTES + c * QT * T::RB, &dmap,
+                          &full[s], c * T::CH, hq, qt0, b);
         }
-        // st[j][0..1]: key r0, query rows sub+8j+2t+{0,1}; [2..3]: key
-        // r0+8
-#pragma unroll
-        for (int j = 0; j < QSUB / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int hk = e >> 1;
-            const int r = sub + 8 * j + 2 * t + (e & 1);
-            const int qpos = qt0 + r;
-            const bool vis = kp[hk] < S && qpos < S &&
-                             (!causal || kp[hk] <= qpos);
-            const float p =
-                vis ? exp2f(st[j][e] * scale2 - lse_s[r]) : 0.f;
-            dpt[j][e] = p * (dpt[j][e] - delta_s[r]);   // dS^T
-            st[j][e] = p;                               // P^T
-          }
+      }
+    } else if (warp == 1) {
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        const int hq = kvh * G + j / n_qt, qt0 = q_begin + j % n_qt * QT;
+        const long base = ((long)blockIdx.z * NH + hq) * S;
+        hp::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        for (int r = lane; r < QT; r += 32) {
+          const int row = qt0 + r;
+          lse_s[s][r] = row < S ? lse[base + row] * LOG2E : INFINITY;
+          dl_s[s][r] = row < S ? delta[base + row] : 0.f;
         }
-#pragma unroll
-        for (int kk = 0; kk < QSUB / 16; ++kk) {
-          uint32_t pa[4], dsa[4];
-          acc_to_a(pa, st, kk);
-          acc_to_a(dsa, dpt, kk);
-          mma_rowmajor_b<D>(dvacc, pa, dOp + kk * 16 * LD, LD, lane);
-          mma_rowmajor_b<D>(dkacc, dsa, Qp + kk * 16 * LD, LD, lane);
-        }
+        hp::mbar_arrive(&full[s]);
       }
     }
+    return;
+  }
+
+  hp::setmaxnreg_inc<240>();
+  const int c = wg - 1;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw0 = k0 + 64 * c;                 // this warpgroup's keys
+  const int kr0 = kw0 + 16 * warp + g;         // keys kr0, kr0 + 8
+  const uint8_t* ka = Ks + 64 * c * T::RB;
+  const uint8_t* va = Vs + 64 * c * T::RB;
+  const bool key_edge = kw0 + 64 > S;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  float st[32], dpt[32];
+  uint32_t pa[4][4], da[4][4];
+  hp::mbar_wait(&kv_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % STAGES, qt0 = q_begin + j % n_qt * QT;
+    const uint8_t* Qs = QdO + s * 2 * T::QT_BYTES;
+    const uint8_t* dOs = Qs + T::QT_BYTES;
+    hp::mbar_wait(&full[s], (j / STAGES) & 1);
+    if (!causal || qt0 + QT > kw0) {   // some row sees some key
+      hp::wgmma_fence();
+      issue_abt<D, QT>(st, ka, KV_ROWS, Qs);
+      hp::wgmma_commit();
+      issue_abt<D, QT>(dpt, va, KV_ROWS, dOs);
+      hp::wgmma_commit();
+      const bool masked = (causal && qt0 < kw0 + 64) || key_edge;
+      hp::wgmma_wait<1>();
+      hp::fence_regs(st);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = acc_col(i, t);
+        float p = ex2(fmaf(st[i], scale_log2, -lse_s[s][col]));
+        if (masked) {
+          const int kp = kr0 + 8 * ((i >> 1) & 1);
+          if (kp >= S || (causal && kp > qt0 + col)) p = 0.f;
+        }
+        st[i] = p;
+      }
+      hp::wgmma_wait<0>();
+      hp::fence_regs(dpt);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        dpt[i] = st[i] * (dpt[i] - dl_s[s][acc_col(i, t)]);
+      pack_frags(pa, st);
+      pack_frags(da, dpt);
+      hp::wgmma_fence();
+      issue_rs<D>(dva, pa, dOs);
+      issue_rs<D>(dka, da, Qs);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(dva);
+      hp::fence_regs(dka);
+    }
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(&empty[s]);
   }
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int r = r0 + 8 * hh;
-    if (r >= n_keys) continue;
-    bf16* dkr = dk + kv_base + r * kv_stride;
-    bf16* dvr = dv + kv_base + r * kv_stride;
+    const int key = kr0 + 8 * hh;
+    if (key >= S) continue;
+    const long off = (((long)b * S + key) * NKV + kvh) * D;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dkr + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dkacc[n][2 * hh] * sm_scale,
-                                dkacc[n][2 * hh + 1] * sm_scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvr + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dvacc[n][2 * hh], dvacc[n][2 * hh + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(dka[4 * n + 2 * hh] * sm_scale,
+                                dka[4 * n + 2 * hh + 1] * sm_scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(dva[4 * n + 2 * hh], dva[4 * n + 2 * hh + 1]);
     }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap dmap,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   int S, int NH, int NKV, int causal, float scale_log2,
+                   float sm_scale) {
+  using T = BwdTile<D>;
+  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  extern __shared__ __align__(1024) uint8_t smem_tma[];
+  uint8_t* Qs = hp::align1024(smem_tma);
+  uint8_t* dOs = Qs + T::Q_BYTES;
+  uint8_t* KVs = dOs + T::Q_BYTES;   // slot s: the K tile, then the V tile
+  __shared__ __align__(8) uint64_t q_full, full[STAGES], empty[STAGES];
+  const int h = blockIdx.y, b = blockIdx.z;
+  // the last query tiles walk the most key tiles: they start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_ROWS;
+  const int kvh = h / (NH / NKV);
+  const int n_kt = ((causal ? min(S, q0 + DQ_ROWS) : S) + KT - 1) / KT;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid == 0) {
+    hp::mbar_init(&q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 8);       // one arrival per consumer warp
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // producer
+    hp::setmaxnreg_dec<24>();
+    if (tid == 0) {
+      hp::mbar_expect_tx(&q_full, 2 * T::Q_BYTES);
+      for (int c = 0; c < T::NCH; ++c) {
+        hp::tma_load_4d(Qs + c * DQ_ROWS * T::RB, &qmap, &q_full,
+                        c * T::CH, h, q0, b);
+        hp::tma_load_4d(dOs + c * DQ_ROWS * T::RB, &dmap, &q_full,
+                        c * T::CH, h, q0, b);
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % STAGES;
+        hp::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        uint8_t* Ks = KVs + s * 2 * T::KT_BYTES;
+        hp::mbar_expect_tx(&full[s], 2 * T::KT_BYTES);
+        for (int c = 0; c < T::NCH; ++c) {
+          hp::tma_load_4d(Ks + c * KT * T::RB, &kmap, &full[s], c * T::CH,
+                          kvh, j * KT, b);
+          hp::tma_load_4d(Ks + T::KT_BYTES + c * KT * T::RB, &vmap,
+                          &full[s], c * T::CH, kvh, j * KT, b);
+        }
+      }
+    }
+    return;
+  }
+
+  hp::setmaxnreg_inc<240>();
+  const int c = wg - 1;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_lo = q0 + 64 * c;              // this warpgroup's rows
+  const int row0 = row_lo + 16 * warp + g;     // rows row0, row0 + 8
+  const uint8_t* qa = Qs + 64 * c * T::RB;
+  const uint8_t* da_s = dOs + 64 * c * T::RB;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    const long i = ((long)b * NH + h) * S + row;
+    lse2[hh] = row < S ? lse[i] * LOG2E : INFINITY;   // rows past S: P = 0
+    dl[hh] = row < S ? delta[i] : 0.f;
+  }
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  float sc[32], dp[32];
+  uint32_t dsa[4][4];
+  hp::mbar_wait(&q_full, 0);
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int s = j % STAGES, kt0 = j * KT;
+    const uint8_t* Ks = KVs + s * 2 * T::KT_BYTES;
+    const uint8_t* Vs = Ks + T::KT_BYTES;
+    hp::mbar_wait(&full[s], (j / STAGES) & 1);
+    if (!causal || kt0 < row_lo + 64) {   // some row sees some key
+      hp::wgmma_fence();
+      issue_abt<D, KT>(sc, qa, DQ_ROWS, Ks);
+      hp::wgmma_commit();
+      issue_abt<D, KT>(dp, da_s, DQ_ROWS, Vs);
+      hp::wgmma_commit();
+      const bool masked = (causal && kt0 + KT - 1 > row_lo) || kt0 + KT > S;
+      hp::wgmma_wait<1>();
+      hp::fence_regs(sc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        float p = ex2(fmaf(sc[i], scale_log2, -lse2[hh]));
+        if (masked) {
+          const int kp = kt0 + acc_col(i, t);
+          if (kp >= S || (causal && kp > row0 + 8 * hh)) p = 0.f;
+        }
+        sc[i] = p;
+      }
+      hp::wgmma_wait<0>();
+      hp::fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]);
+      pack_frags(dsa, dp);
+      hp::wgmma_fence();
+      issue_rs<D>(dqa, dsa, Ks);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(dqa);
+    }
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= S) continue;
+    bf16* out = dq + (((long)b * S + row) * NH + h) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(dqa[4 * n + 2 * hh] * sm_scale,
+                                dqa[4 * n + 2 * hh + 1] * sm_scale);
   }
 }
 
@@ -685,118 +774,216 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
+// A bf16 tensor map of [B, S, heads, D] (innermost first: D, heads, S, B)
+// whose box is `rows` rows of one head in D-column boxes of BwdTile's width.
 template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* o,
-              const void* lse, const void* dout, void* dq, int B, int S,
-              int NH, int NKV, int causal, int dtype, cudaStream_t stream) {
-  const dim3 grid((S + BQ - 1) / BQ, NH, B);
+int bwd_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+            int rows) {
+  using T = BwdTile<D>;
+  const uint64_t dims[4] = {D, (uint64_t)heads, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[3] = {D * 2, (uint64_t)heads * D * 2,
+                               (uint64_t)S * heads * D * 2};
+  const uint32_t box[4] = {T::CH, 1, (uint32_t)rows, 1};
+  return hp::make_map_bf16(map, base, 4, dims, strides, box, T::SW);
+}
+
+template <int D>
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* lse, const void* dout, const void* delta,
+                    void* dq, int B, int S, int NH, int NKV, int causal,
+                    cudaStream_t stream) {
+  using T = BwdTile<D>;
+  CUtensorMap qmap, kmap, vmap, dmap;
+  int rc = bwd_map<D>(&qmap, q, B, S, NH, DQ_ROWS);
+  if (!rc) rc = bwd_map<D>(&dmap, dout, B, S, NH, DQ_ROWS);
+  if (!rc) rc = bwd_map<D>(&kmap, k, B, S, NKV, KT);
+  if (!rc) rc = bwd_map<D>(&vmap, v, B, S, NKV, KT);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
   const float sm_scale = 1.0f / sqrtf((float)D);
-  cudaError_t err;
-  if (dtype == 1) {
-    err = cudaFuncSetAttribute(flash_bwd_dq_mma<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dq_mma_smem<D>());
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_mma<D><<<grid, dstt::MMA_THREADS, dq_mma_smem<D>(),
-                          stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-        static_cast<const float*>(lse), static_cast<const bf16*>(dout),
-        static_cast<bf16*>(dq), S, NH, NKV, causal, sm_scale);
-  } else {
-    err = cudaFuncSetAttribute(flash_bwd_dq_f32<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dq_f32_smem<D>());
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_f32<D><<<grid, F32_THREADS, dq_f32_smem<D>(), stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(o),
-        static_cast<const float*>(lse), static_cast<const float*>(dout),
-        static_cast<float*>(dq), S, NH, NKV, causal, sm_scale);
-  }
+  flash_bwd_dq_wgmma<D><<<dim3((S + DQ_ROWS - 1) / DQ_ROWS, NH, B),
+                          WG_THREADS, T::DQ_SMEM, stream>>>(
+      qmap, kmap, vmap, dmap, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), S, NH, NKV,
+      causal, sm_scale * LOG2E, sm_scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* o,
-               const void* lse, const void* dout, void* dk, void* dv, int B,
-               int S, int NH, int NKV, int causal, int dtype,
-               cudaStream_t stream) {
-  const dim3 grid((S + BK - 1) / BK, NKV, B);
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* lse, const void* dout, const void* delta,
+                     void* dk, void* dv, int B, int S, int NH, int NKV,
+                     int causal, cudaStream_t stream) {
+  using T = BwdTile<D>;
+  CUtensorMap qmap, kmap, vmap, dmap;
+  int rc = bwd_map<D>(&qmap, q, B, S, NH, QT);
+  if (!rc) rc = bwd_map<D>(&dmap, dout, B, S, NH, QT);
+  if (!rc) rc = bwd_map<D>(&kmap, k, B, S, NKV, KV_ROWS);
+  if (!rc) rc = bwd_map<D>(&vmap, v, B, S, NKV, KV_ROWS);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
   const float sm_scale = 1.0f / sqrtf((float)D);
-  cudaError_t err;
-  if (dtype == 1) {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_mma<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dkv_mma_smem<D>());
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_mma<D><<<grid, dstt::MMA_THREADS, dkv_mma_smem<D>(),
-                           stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-        static_cast<const float*>(lse), static_cast<const bf16*>(dout),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, NH, NKV, causal,
-        sm_scale);
-  } else {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_f32<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dkv_f32_smem<D>());
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_f32<D><<<grid, F32_THREADS, dkv_f32_smem<D>(), stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(o),
-        static_cast<const float*>(lse), static_cast<const float*>(dout),
-        static_cast<float*>(dk), static_cast<float*>(dv), S, NH, NKV, causal,
-        sm_scale);
-  }
+  flash_bwd_dkv_wgmma<D><<<dim3((S + KV_ROWS - 1) / KV_ROWS, NKV, B),
+                           WG_THREADS, T::DKV_SMEM, stream>>>(
+      qmap, kmap, vmap, dmap, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), S, NH, NKV, causal, sm_scale * LOG2E,
+      sm_scale);
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(int B, int S, int NH, int NKV, int dtype) {
-  return B <= 0 || S <= 0 || NKV <= 0 || NH % NKV != 0 ||
-         (dtype != 0 && dtype != 1);
+template <typename T, int D>
+int launch_delta(const void* o, const void* dout, void* delta, int B, int S,
+                 int NH, cudaStream_t stream) {
+  constexpr int RPB = DELTA_THREADS / (D * (int)sizeof(T) / 16);
+  const long rows = (long)B * S * NH;
+  flash_bwd_delta<T, D><<<(unsigned)((rows + RPB - 1) / RPB),
+                          DELTA_THREADS, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout),
+      static_cast<float*>(delta), rows, S, NH);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_f32(const void* q, const void* k, const void* v, const void* o,
+                  const void* lse, const void* dout, void* dq, int B, int S,
+                  int NH, int NKV, int causal, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_f32_smem<D>());
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_f32<D><<<dim3((S + BQ - 1) / BQ, NH, B), F32_THREADS,
+                        dq_f32_smem<D>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(lse), static_cast<const float*>(dout),
+      static_cast<float*>(dq), S, NH, NKV, causal, 1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_f32(const void* q, const void* k, const void* v,
+                   const void* o, const void* lse, const void* dout,
+                   void* dk, void* dv, int B, int S, int NH, int NKV,
+                   int causal, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkv_f32_smem<D>());
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkv_f32<D><<<dim3((S + BK - 1) / BK, NKV, B), F32_THREADS,
+                         dkv_f32_smem<D>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(lse), static_cast<const float*>(dout),
+      static_cast<float*>(dk), static_cast<float*>(dv), S, NH, NKV, causal,
+      1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+// A bf16 call needs delta; TMA needs 65535 or fewer heads and batches on
+// the grid.
+bool bad_shape(int B, int S, int NH, int NKV, int dtype, const void* delta) {
+  return B <= 0 || S <= 0 || NKV <= 0 || NH % NKV != 0 || NH > 65535 ||
+         B > 65535 || (dtype != 0 && dtype != 1) ||
+         (dtype == 1 && delta == nullptr);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Each returns cudaGetLastError() after
 // its launch (cudaErrorInvalidValue for an unsupported head dim, shape or
-// dtype).
+// dtype).  delta [B, NH, S] f32 is dstt_flash_bwd_delta's output for the
+// same out and dO: the bf16 kernels read it; the f32 kernels compute delta
+// themselves and ignore it (it may be null there).
+extern "C" int dstt_flash_bwd_delta(const void* o, const void* dout,
+                                    void* delta, int B, int S, int NH,
+                                    int D, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0 || NH <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    if (D == 32) return launch_delta<bf16, 32>(o, dout, delta, B, S, NH, st);
+    if (D == 64) return launch_delta<bf16, 64>(o, dout, delta, B, S, NH, st);
+    if (D == 128)
+      return launch_delta<bf16, 128>(o, dout, delta, B, S, NH, st);
+  } else if (dtype == 0) {
+    if (D == 32)
+      return launch_delta<float, 32>(o, dout, delta, B, S, NH, st);
+    if (D == 64)
+      return launch_delta<float, 64>(o, dout, delta, B, S, NH, st);
+    if (D == 128)
+      return launch_delta<float, 128>(o, dout, delta, B, S, NH, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" int dstt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* o, const void* lse,
-                                 const void* dout, void* dq, int B, int S,
-                                 int NH, int NKV, int D, int causal,
-                                 int dtype, void* stream) {
+                                 const void* dout, const void* delta,
+                                 void* dq, int B, int S, int NH, int NKV,
+                                 int D, int causal, int dtype,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(B, S, NH, NKV, dtype)) return (int)cudaErrorInvalidValue;
-  if (D == 32)
-    return launch_dq<32>(q, k, v, o, lse, dout, dq, B, S, NH, NKV, causal,
-                         dtype, st);
-  if (D == 64)
-    return launch_dq<64>(q, k, v, o, lse, dout, dq, B, S, NH, NKV, causal,
-                         dtype, st);
-  if (D == 128)
-    return launch_dq<128>(q, k, v, o, lse, dout, dq, B, S, NH, NKV, causal,
-                          dtype, st);
+  if (bad_shape(B, S, NH, NKV, dtype, delta))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    if (D == 32)
+      return launch_dq_wgmma<32>(q, k, v, lse, dout, delta, dq, B, S, NH,
+                                 NKV, causal, st);
+    if (D == 64)
+      return launch_dq_wgmma<64>(q, k, v, lse, dout, delta, dq, B, S, NH,
+                                 NKV, causal, st);
+    if (D == 128)
+      return launch_dq_wgmma<128>(q, k, v, lse, dout, delta, dq, B, S, NH,
+                                  NKV, causal, st);
+  } else {
+    if (D == 32)
+      return launch_dq_f32<32>(q, k, v, o, lse, dout, dq, B, S, NH, NKV,
+                               causal, st);
+    if (D == 64)
+      return launch_dq_f32<64>(q, k, v, o, lse, dout, dq, B, S, NH, NKV,
+                               causal, st);
+    if (D == 128)
+      return launch_dq_f32<128>(q, k, v, o, lse, dout, dq, B, S, NH, NKV,
+                                causal, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int dstt_flash_bwd_dkv(const void* q, const void* k,
                                   const void* v, const void* o,
                                   const void* lse, const void* dout,
-                                  void* dk, void* dv, int B, int S, int NH,
-                                  int NKV, int D, int causal, int dtype,
-                                  void* stream) {
+                                  const void* delta, void* dk, void* dv,
+                                  int B, int S, int NH, int NKV, int D,
+                                  int causal, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(B, S, NH, NKV, dtype)) return (int)cudaErrorInvalidValue;
-  if (D == 32)
-    return launch_dkv<32>(q, k, v, o, lse, dout, dk, dv, B, S, NH, NKV,
-                          causal, dtype, st);
-  if (D == 64)
-    return launch_dkv<64>(q, k, v, o, lse, dout, dk, dv, B, S, NH, NKV,
-                          causal, dtype, st);
-  if (D == 128)
-    return launch_dkv<128>(q, k, v, o, lse, dout, dk, dv, B, S, NH, NKV,
-                           causal, dtype, st);
+  if (bad_shape(B, S, NH, NKV, dtype, delta))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    if (D == 32)
+      return launch_dkv_wgmma<32>(q, k, v, lse, dout, delta, dk, dv, B, S,
+                                  NH, NKV, causal, st);
+    if (D == 64)
+      return launch_dkv_wgmma<64>(q, k, v, lse, dout, delta, dk, dv, B, S,
+                                  NH, NKV, causal, st);
+    if (D == 128)
+      return launch_dkv_wgmma<128>(q, k, v, lse, dout, delta, dk, dv, B, S,
+                                   NH, NKV, causal, st);
+  } else {
+    if (D == 32)
+      return launch_dkv_f32<32>(q, k, v, o, lse, dout, dk, dv, B, S, NH,
+                                NKV, causal, st);
+    if (D == 64)
+      return launch_dkv_f32<64>(q, k, v, o, lse, dout, dk, dv, B, S, NH,
+                                NKV, causal, st);
+    if (D == 128)
+      return launch_dkv_f32<128>(q, k, v, o, lse, dout, dk, dv, B, S, NH,
+                                 NKV, causal, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

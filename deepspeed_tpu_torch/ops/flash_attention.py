@@ -1,34 +1,39 @@
 """Causal flash attention, forward and backward.
 
 Counterpart of `deepspeed_tpu/ops/flash_attention.py` (`flash_attention`,
-`_fwd`, `_bwd_vjp`).  Three hand-written CUDA kernels for sm_90a, bound
-with ctypes:
+`_fwd`, `_bwd_vjp`).  Hand-written CUDA kernels for sm_90a, bound with
+ctypes:
 
 - `flash_attention_fwd` (`csrc/flash_fwd.cu`): FlashAttention-2 online
   softmax in f32, key tiles past the diagonal skipped, GQA without a KV
   repeat; out plus the row logsumexp;
 - `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`
   (`csrc/flash_bwd.cu`): the gradient from the forward's residuals
-  (q, k, v, out, lse) and dO, delta = rowsum(dO * O) computed in the
-  kernels; dk/dv summed over the GQA group in f32 inside the kernel.
+  (q, k, v, out, lse) and dO; dk/dv summed over the GQA group in f32
+  inside the kernel.  In bf16 both are TMA + wgmma kernels that read
+  delta = rowsum(dO * out) from `flash_attention_bwd_delta` (one launch
+  per backward, shared by the two); the f32 kernels compute delta
+  themselves.  `bwd_variant` names the kernel a dtype takes, and
+  `launches_by_variant` on each wrapper counts its launches per kernel.
 
 Each has a plain PyTorch version of the same function
 (`flash_attention_reference`, `flash_attention_bwd_dq_reference`,
-`flash_attention_bwd_dkv_reference`, dense and f32) that runs for tensors
-on the CPU; a tensor on a CUDA device takes the kernel or an error.
+`flash_attention_bwd_dkv_reference`, `flash_attention_bwd_delta_reference`,
+dense and f32) that runs for tensors on the CPU; a tensor on a CUDA device
+takes the kernel or an error.
 
 `flash_attention` is the differentiable entry point: with no input that
 requires grad it calls the forward directly (the serving path pays nothing
 for autograd); otherwise it runs the `dstt::flash_attention` custom op,
-whose backward is the two backward kernels.  Being one op, it can be named
-in a selective-checkpoint policy: the `save_attn` remat policy
-(`runtime/activation_checkpointing`) keeps its out and lse and never
+whose backward is the delta and the two backward kernels.  Being one op,
+it can be named in a selective-checkpoint policy: the `save_attn` remat
+policy (`runtime/activation_checkpointing`) keeps its out and lse and never
 reruns the forward kernel.
 
 Layout is the JAX public one: q [B, S, NH, D], k/v [B, S, NKV, D]; lse
-[B, NH, S] f32.  On the card S need not be a multiple of any tile (the
-TPU gate in `ops/attention.py` has no counterpart here); D is 32, 64 or
-128.
+and delta [B, NH, S] f32.  On the card S need not be a multiple of any
+tile (the TPU gate in `ops/attention.py` has no counterpart here); D is
+32, 64 or 128.
 """
 from __future__ import annotations
 
@@ -41,17 +46,31 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "flash_attention_reference", "flash_attention_bwd_dq_reference",
-           "flash_attention_bwd_dkv_reference"]
+           "flash_attention_bwd_delta", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "flash_attention_reference",
+           "flash_attention_bwd_delta_reference",
+           "flash_attention_bwd_dq_reference",
+           "flash_attention_bwd_dkv_reference", "bwd_variant",
+           "BWD_VARIANTS"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
-_DQ_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
-_DKV_ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _P)
+_DELTA_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
+_DQ_ARGS = (_P,) * 8 + (_I,) * 7 + (_P,)
+_DKV_ARGS = (_P,) * 9 + (_I,) * 7 + (_P,)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+# the backward kernels: TMA + wgmma (bf16, reads delta), CUDA cores (f32)
+BWD_VARIANTS = ("wgmma", "f32")
+
+
+def bwd_variant(dtype) -> str:
+    """The backward kernel pair that inputs of `dtype` take on the card:
+    "wgmma" for bf16 (every head dim, GQA group and length: TMA reads any
+    of them), "f32" for float32."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype} (the kernels take bf16 or f32)")
+    return "wgmma" if dtype == torch.bfloat16 else "f32"
 
 
 # ----------------------------------------------------------------------
@@ -84,6 +103,12 @@ def flash_attention_reference(q, k, v, causal: bool = True):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bnqk,bknd->bqnd", p, vv)
     return out.to(q.dtype), lse
+
+
+def flash_attention_bwd_delta_reference(out, do):
+    """Plain PyTorch version of the delta kernel: rowsum(dO * out) in f32,
+    [B, NH, S]."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 def _bwd_reference(q, k, v, out, lse, do, causal):
@@ -193,51 +218,116 @@ def flash_attention_fwd(q, k, v, causal: bool = True):
     return out, lse
 
 
-def flash_attention_bwd_dq(q, k, v, out, lse, do, causal: bool = True):
+def flash_attention_bwd_delta(out, do):
+    """delta = rowsum(dO * out) in f32 [B, NH, S] from out and dO
+    [B, S, NH, D]: the input the bf16 dq and dk/dv kernels share (one
+    launch per backward)."""
+    if out.device.type == "cpu":
+        return flash_attention_bwd_delta_reference(out, do)
+    if out.device.type != "cuda":
+        raise ValueError(f"no flash attention kernel for device "
+                         f"{out.device}")
+    if do.shape != out.shape or do.dtype != out.dtype or \
+            do.device != out.device:
+        raise ValueError("do must match out's shape, dtype and device")
+    if out.dtype not in _DTYPES or out.dim() != 4 or \
+            out.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"out must be bf16 or f32 [B, S, NH, D] with D in "
+                         f"{HEAD_DIMS}, got {out.dtype} {tuple(out.shape)}")
+    for name, t in (("out", out), ("do", do)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             f"aligned")
+    B, S, NH, D = out.shape
+    delta = torch.empty((B, NH, S), dtype=torch.float32, device=out.device)
+    fn = _build.function("flash_bwd", "dstt_flash_bwd_delta", _DELTA_ARGS)
+    rc = fn(out.data_ptr(), do.data_ptr(), delta.data_ptr(), B, S, NH, D,
+            _DTYPES[out.dtype], _stream(out))
+    _build.check(rc, "flash attention delta")
+    flash_attention_bwd_delta.launches += 1
+    return delta
+
+
+def _delta_for(q, out, do, delta):
+    """The delta a backward kernel takes: the bf16 kernels read `delta`
+    (computed here when the caller has none to share), the f32 ones
+    compute their own (None)."""
+    if bwd_variant(q.dtype) == "f32":
+        return None
+    if delta is None:
+        return flash_attention_bwd_delta(out, do)
+    B, S, NH, _ = q.shape
+    if delta.shape != (B, NH, S) or delta.dtype != torch.float32 or \
+            delta.device != q.device or not delta.is_contiguous():
+        raise ValueError(f"delta must be contiguous f32 [B, NH, S] = "
+                         f"{(B, NH, S)} on q's device")
+    return delta
+
+
+def _count(wrapper, variant):
+    wrapper.launches += 1
+    wrapper.launches_by_variant[variant] += 1
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, do, causal: bool = True,
+                           delta=None):
     """dq of flash attention from the forward's residuals and dO (the
-    `_bwd_dq_kernel` counterpart).  Returns dq like q."""
+    `_bwd_dq_kernel` counterpart).  `delta` is
+    `flash_attention_bwd_delta(out, do)` where the caller shares it with
+    the dk/dv kernel (None computes it).  Returns dq like q."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, out, lse, do,
                                                 causal)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
     _check(q, k, v, out, lse, do)
+    delta = _delta_for(q, out, do, delta)
     B, S, NH, D = q.shape
     dq = torch.empty_like(q)
     fn = _build.function("flash_bwd", "dstt_flash_bwd_dq", _DQ_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), B, S, NH,
-            k.shape[2], D, int(bool(causal)), _DTYPES[q.dtype], _stream(q))
+            lse.data_ptr(), do.data_ptr(),
+            None if delta is None else delta.data_ptr(), dq.data_ptr(), B,
+            S, NH, k.shape[2], D, int(bool(causal)), _DTYPES[q.dtype],
+            _stream(q))
     _build.check(rc, "flash attention dq")
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, bwd_variant(q.dtype))
     return dq
 
 
-def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal: bool = True):
+def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal: bool = True,
+                            delta=None):
     """dk and dv of flash attention, summed over each kv head's GQA group
-    (the `_bwd_dkv_kernel` counterpart).  Returns (dk, dv) like k."""
+    (the `_bwd_dkv_kernel` counterpart); `delta` as for
+    `flash_attention_bwd_dq`.  Returns (dk, dv) like k."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, out, lse, do,
                                                  causal)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
     _check(q, k, v, out, lse, do)
+    delta = _delta_for(q, out, do, delta)
     B, S, NH, D = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     fn = _build.function("flash_bwd", "dstt_flash_bwd_dkv", _DKV_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
-            S, NH, k.shape[2], D, int(bool(causal)), _DTYPES[q.dtype],
-            _stream(q))
+            lse.data_ptr(), do.data_ptr(),
+            None if delta is None else delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, S, NH, k.shape[2], D, int(bool(causal)),
+            _DTYPES[q.dtype], _stream(q))
     _build.check(rc, "flash attention dk/dv")
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, bwd_variant(q.dtype))
     return dk, dv
 
 
 flash_attention_fwd.launches = 0
+flash_attention_bwd_delta.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+# launches per kernel (BWD_VARIANTS); a caller resets it with `launches`
+flash_attention_bwd_dq.launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
+flash_attention_bwd_dkv.launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 
 
 # ----------------------------------------------------------------------
@@ -273,8 +363,11 @@ def _flash_backward(ctx, dout, _dlse):
         dq, dk, dv = _bwd_reference(q, k, v, out, lse, do, ctx.causal)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None,
                 None)
-    dq = flash_attention_bwd_dq(q, k, v, out, lse, do, ctx.causal)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, do, ctx.causal)
+    # one delta launch for both kernels (None where the f32 pair runs)
+    delta = _delta_for(q, out, do, None) if q.device.type == "cuda" else None
+    dq = flash_attention_bwd_dq(q, k, v, out, lse, do, ctx.causal, delta)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, do, ctx.causal,
+                                     delta)
     return dq, dk, dv, None, None
 
 

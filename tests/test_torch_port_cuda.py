@@ -201,28 +201,89 @@ def test_engine_serves_the_same_through_kernels_and_plain_versions(card):
     np.testing.assert_allclose(firsts[0], firsts[1], rtol=1e-4, atol=1e-4)
 
 
+# delta kernel vs plain rowsum, |d| <= DELTA_REL max(max|plain|, 1): f32
+# sums of D exact products in another order
+DELTA_REL = 1e-5
+
+
+# GQA with a ragged tail, D 64 with a ragged key tile, D 32 (64-byte
+# swizzle), one row, a tail of one row past a 128-key tile, a whole number
+# of tiles, groups of 4 and 8 q heads
 @DTYPES
 @pytest.mark.parametrize("S,NH,NKV,D", [(200, 8, 2, 128), (130, 4, 4, 64),
                                         (100, 8, 2, 32), (64, 4, 4, 32),
-                                        (1, 2, 1, 128)])
+                                        (1, 2, 1, 128), (1000, 32, 4, 128),
+                                        (300, 8, 8, 64), (129, 4, 4, 32),
+                                        (256, 8, 8, 128), (200, 16, 2, 64)])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_backward_kernels_match_plain_versions(card, dtype, S, NH, NKV,
                                                      D, causal):
+    """dq and dk/dv fed the delta kernel's output: one launch each per call
+    on the variant the dtype takes (bf16: TMA + wgmma), reruns
+    bit-identical, within the backward tolerance of the plain versions;
+    delta within DELTA_REL of the plain rowsum."""
     q, do = (_rnd(card, dtype, 2, S, NH, D) for _ in range(2))
     k, v = (_rnd(card, dtype, 2, S, NKV, D) for _ in range(2))
     out, lse = tflash.flash_attention_fwd(q, k, v, causal)
-    got = (tflash.flash_attention_bwd_dq(q, k, v, out, lse, do, causal),
-           *tflash.flash_attention_bwd_dkv(q, k, v, out, lse, do, causal))
+    wrappers = (tflash.flash_attention_bwd_dq, tflash.flash_attention_bwd_dkv)
+    before = [dict(w.launches_by_variant) for w in wrappers]
+    delta = tflash.flash_attention_bwd_delta(out, do)
+    runs = [(tflash.flash_attention_bwd_dq(q, k, v, out, lse, do, causal,
+                                           delta),
+             *tflash.flash_attention_bwd_dkv(q, k, v, out, lse, do, causal,
+                                             delta)) for _ in range(2)]
+    torch.cuda.synchronize()
+    variant = tflash.bwd_variant(dtype)
+    for w, b in zip(wrappers, before):
+        assert {n: w.launches_by_variant[n] - b[n] for n in b} == {
+            n: 2 if n == variant else 0 for n in b}
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
     want = (tflash.flash_attention_bwd_dq_reference(q, k, v, out, lse, do,
                                                     causal),
             *tflash.flash_attention_bwd_dkv_reference(q, k, v, out, lse, do,
                                                       causal))
-    for g, w in zip(got, want):
+    for g, w in zip(runs[0], want):
         assert g.shape == w.shape and g.dtype == w.dtype
         # the scale has a floor of 1 (the inputs' own): at S = 1 dq and dk
         # are 0 up to rounding
         scale = max(float(w.float().abs().max()), 1.0)
         _close(g, w, BWD_ATOL[dtype] * scale, BWD_RTOL[dtype])
+    ref = tflash.flash_attention_bwd_delta_reference(out, do)
+    _close(delta, ref, DELTA_REL * max(float(ref.abs().max()), 1.0))
+
+
+@DTYPES
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_backward_delta_kernel_matches_the_plain_rowsum(card, dtype,
+                                                             D):
+    out, do = (_rnd(card, dtype, 2, 77, 6, D) for _ in range(2))
+    delta = tflash.flash_attention_bwd_delta(out, do)
+    ref = tflash.flash_attention_bwd_delta_reference(out, do)
+    assert delta.shape == (2, 6, 77) and delta.dtype == torch.float32
+    assert torch.equal(delta, tflash.flash_attention_bwd_delta(out, do))
+    _close(delta, ref, DELTA_REL * max(float(ref.abs().max()), 1.0))
+
+
+def test_flash_backward_without_delta_computes_its_own(card):
+    """dq and dk/dv called without delta launch the delta kernel
+    themselves and give what they give with it."""
+    q, k, v, do = (_rnd(card, torch.bfloat16, 1, 90, 4, 64)
+                   for _ in range(4))
+    out, lse = tflash.flash_attention_fwd(q, k, v)
+    delta = tflash.flash_attention_bwd_delta(out, do)
+    n = tflash.flash_attention_bwd_delta.launches
+    got = (tflash.flash_attention_bwd_dq(q, k, v, out, lse, do),
+           *tflash.flash_attention_bwd_dkv(q, k, v, out, lse, do))
+    want = (tflash.flash_attention_bwd_dq(q, k, v, out, lse, do, True,
+                                          delta),
+            *tflash.flash_attention_bwd_dkv(q, k, v, out, lse, do, True,
+                                            delta))
+    torch.cuda.synchronize()
+    assert tflash.flash_attention_bwd_delta.launches == n + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="delta"):
+        tflash.flash_attention_bwd_dq(q, k, v, out, lse, do, True,
+                                      delta[:, :, :-1])
 
 
 @pytest.mark.parametrize("arch", ["llama", "gpt2", "qwen2"])
@@ -265,10 +326,13 @@ def test_training_steps_match_through_kernels_and_plain_versions(card):
                 tflash.flash_attention_bwd_dkv)
     for step in range(3):
         before = [c.launches for c in counters]
+        n_delta = tflash.flash_attention_bwd_delta.launches
         km = kern.train_batch(batch)
         torch.cuda.synchronize()
         assert [c.launches - b for c, b in zip(counters, before)] == \
             [model.cfg.num_layers] * 3
+        # f32: the CUDA-core pair computes delta itself
+        assert tflash.flash_attention_bwd_delta.launches == n_delta
         pm = plain.train_batch(batch)
         for key in ("loss", "grad_norm"):
             assert float(km[key]) == pytest.approx(float(pm[key]),

@@ -1,4 +1,5 @@
-"""The tile GEMM's host plan (`ops/tp_matmul.tile_plan`) on the CPU.
+"""The tile GEMM's host plan (`ops/tp_matmul.tile_plan`) and the flash
+backward's kernel choice (`ops/flash_attention.bwd_variant`) on the CPU.
 
 The plan picks the kernel for a shape (the split-K TMA stream at the
 decode hops, TMA + wgmma at the prefill hops, the cp.async or CUDA-core
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import flash_attention as tflash
 from deepspeed_tpu_torch.ops import tp_matmul as ttm
 
 pytestmark = pytest.mark.kernels
@@ -157,3 +159,38 @@ def test_variant_counts_start_at_zero_and_name_every_kernel():
     before = dict(ttm.tile_matmul.launches_by_variant)
     ttm.tile_matmul(torch.ones(2, 8), torch.ones(8, 8))
     assert ttm.tile_matmul.launches_by_variant == before
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"),
+                                        (torch.float32, "f32")],
+                         ids=["bf16", "f32"])
+def test_flash_backward_variant_follows_the_dtype(dtype, want):
+    """bf16 takes the TMA + wgmma pair (which reads delta), f32 the CUDA-
+    core pair; every variant has a counter on both wrappers."""
+    assert tflash.bwd_variant(dtype) == want
+    assert want in tflash.BWD_VARIANTS
+    for fn in (tflash.flash_attention_bwd_dq, tflash.flash_attention_bwd_dkv):
+        assert set(fn.launches_by_variant) == set(tflash.BWD_VARIANTS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int8])
+def test_flash_backward_variant_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tflash.bwd_variant(dtype)
+
+
+def test_flash_backward_on_the_cpu_counts_no_kernel_launch():
+    """The CPU path runs the plain versions (delta included): no counter
+    moves."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(1, 9, 2, 32, generator=g) for _ in range(4))
+    counters = (tflash.flash_attention_bwd_delta,
+                tflash.flash_attention_bwd_dq, tflash.flash_attention_bwd_dkv)
+    before = ([c.launches for c in counters],
+              [dict(c.launches_by_variant) for c in counters[1:]])
+    out, lse = tflash.flash_attention_fwd(q, k, v)
+    delta = tflash.flash_attention_bwd_delta(out, do)
+    tflash.flash_attention_bwd_dq(q, k, v, out, lse, do, delta=delta)
+    tflash.flash_attention_bwd_dkv(q, k, v, out, lse, do, delta=delta)
+    assert ([c.launches for c in counters],
+            [dict(c.launches_by_variant) for c in counters[1:]]) == before

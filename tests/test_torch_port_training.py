@@ -118,6 +118,30 @@ def test_plain_backward_matches_pallas_backward(_interpret_mode, B, S, NH,
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **GRAD_TOL)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+def test_plain_delta_matches_the_rowsum_of_the_pallas_kernels(dtype):
+    """delta = rowsum(dO * out), the JAX kernels' in-VMEM sum
+    (`_bwd_dq_kernel` / `_bwd_dkv_kernel`: f32 products of the out and dO
+    tiles), equals `flash_attention_bwd_delta` (its plain version on the
+    CPU) laid out [B, NH, S]; f32 sums of D terms in another order."""
+    rng = np.random.RandomState(5)
+    B, S, NH, D = 2, 37, 4, 64
+    out, do = (np.array(jnp.asarray(rng.randn(B, S, NH, D), dtype))
+               for _ in range(2))
+    jout, jdo = (jnp.transpose(jnp.asarray(a), (0, 2, 1, 3))
+                 for a in (out, do))     # the JAX kernels' [B, N, S, D]
+    want = jnp.sum(jdo.astype(jnp.float32) * jout.astype(jnp.float32),
+                   axis=-1)
+    got = tflash.flash_attention_bwd_delta(
+        *(torch.from_numpy(np.array(a, np.float32)).to(
+            torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
+          for a in (out, do)))
+    assert got.shape == (B, NH, S) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("NKV", [4, 2], ids=["mha", "gqa"])
 def test_autograd_path_matches_autograd_through_the_reference(NKV):
     rng = np.random.RandomState(1)
