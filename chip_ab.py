@@ -23,9 +23,10 @@ B, A per round, each in a process of its own that builds its own kernels
 - `--what sparse`: the block-sparse forward, dq and dk/dv kernels' device
   time at chip_smoke phase 1's main shape (SPARSE_SHAPE bf16, phase 10's
   first layout);
-- `--what evoformer`: the Evoformer forward, dq, dk/dv (with db1) and db2
-  kernels' device time at phase 12's MSA row shape (chip_smoke's
-  `evo_inputs`);
+- `--what evoformer`: the Evoformer forward, dq, dk/dv (with db1 where
+  the mask bias requires grad) and db2 kernels' device time, and the
+  backward's sum, at phase 12's MSA row, triangle and extra-MSA row shapes
+  (chip_smoke's `EVO_SHAPES` and `evo_inputs`);
 - `--what tile`: the tile GEMM's device time at phase 13's decode hops
   (warm, and with the L2 flushed before each call: chip_smoke's
   `cold_time_ms`) and NC=2 prefill hops (chip_smoke's `tile_hop_shapes`),
@@ -81,22 +82,32 @@ def sparse_worker(cs, np, torch):
 
 
 def evoformer_worker(cs, np, torch):
-    """Device ms of the Evoformer kernels at phase 12's MSA row shape."""
+    """Device ms of the Evoformer kernels at phase 12's three shapes (the
+    dk/dv kernel with db1 where the shape's mask bias requires grad), and
+    the backward's sum."""
     from deepspeed_tpu_torch.ops import evoformer_flash as ef
-    g = torch.Generator(device="cuda").manual_seed(12)
-    q, k, v, b1, b2 = cs.evo_inputs(torch, g, "cuda", *cs.EVO_SHAPES[0][1],
-                                    torch.bfloat16)
-    do = torch.randn(q.shape, generator=g, device="cuda", dtype=q.dtype)
-    out, lse = ef.evoformer_flash_forward(q, k, v, b1, b2, return_lse=True)
-    _, delta = ef.evoformer_flash_dq(q, k, v, b1, b2, out, do, lse)
-    return {"fwd_ms": cs.time_ms(lambda: ef.evoformer_flash_forward(
-                q, k, v, b1, b2, return_lse=True)),
-            "dq_ms": cs.time_ms(lambda: ef.evoformer_flash_dq(
-                q, k, v, b1, b2, out, do, lse)),
-            "dkv_ms": cs.time_ms(lambda: ef.evoformer_flash_dkv(
-                q, k, v, b1, b2, do, lse, delta)),
-            "db2_ms": cs.time_ms(lambda: ef.evoformer_flash_db2(
-                q, k, v, b1, b2, do, lse, delta))}
+    res = {}
+    for name, shape, b1_grad in cs.EVO_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(12)
+        q, k, v, b1, b2 = cs.evo_inputs(torch, g, "cuda", *shape,
+                                        torch.bfloat16)
+        do = torch.randn(q.shape, generator=g, device="cuda", dtype=q.dtype)
+        out, lse = ef.evoformer_flash_forward(q, k, v, b1, b2,
+                                              return_lse=True)
+        _, delta = ef.evoformer_flash_dq(q, k, v, b1, b2, out, do, lse)
+        ms = {"fwd": cs.time_ms(lambda: ef.evoformer_flash_forward(
+                  q, k, v, b1, b2, return_lse=True)),
+              "dq": cs.time_ms(lambda: ef.evoformer_flash_dq(
+                  q, k, v, b1, b2, out, do, lse)),
+              "dkv": cs.time_ms(lambda: ef.evoformer_flash_dkv(
+                  q, k, v, b1, b2, do, lse, delta, need_db1=b1_grad)),
+              "db2": cs.time_ms(lambda: ef.evoformer_flash_db2(
+                  q, k, v, b1, b2, do, lse, delta))}
+        ms["bwd"] = ms["dq"] + ms["dkv"] + ms["db2"]
+        res.update({f"{name}_{k_}_ms": float(t) for k_, t in ms.items()})
+        del q, k, v, b1, b2, do, out, lse, delta
+        torch.cuda.empty_cache()
+    return res
 
 
 def tile_worker(cs, np, torch):
@@ -225,10 +236,9 @@ def main(argv=None):
             print(json.dumps(run), flush=True)
     keys = {"paged": ("prefill_ms", "decode_ms"),
             "sparse": ("fwd_ms", "dq_ms", "dkv_ms"),
-            "evoformer": ("fwd_ms", "dq_ms", "dkv_ms", "db2_ms"),
             "train": ("delta_ms", "dq_ms", "dkv_ms", "bwd_ms", "step_ms",
                       "tokens_per_s", "mfu", "first_loss")}.get(args.what)
-    if keys is None:   # tile, flash: every number the runs share
+    if keys is None:   # tile, flash, evoformer: every number the runs share
         keys = [k for k in runs[0] if k not in ("label", "package")]
     for key in keys:
         print(f"{key}: " + ", ".join(f"{r['label']} {r[key]:.6g}"

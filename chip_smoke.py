@@ -80,19 +80,22 @@ Phases (any failure exits non-zero and prints no result):
      H, D] bf16), with a f32 mask bias (15% of keys at -1e9) and a bf16
      pair bias that requires grad (the mask bias too at the MSA row): one
      launch of each kernel per call (counters reset just before; the db1
-     epilogue only where the mask bias requires grad), a rerun
-     bit-identical, out and every gradient against the plain versions,
-     forward and backward ms against their bounds and against SDPA with
-     the summed bias as a dense float mask.
+     epilogue only where the mask bias requires grad), dq and dk/dv on
+     the pair `bwd_variant` names (TMA + wgmma at D 32, mma.sync at the
+     extra-MSA row's D 8; launches by variant), a rerun bit-identical, out
+     and every gradient against the plain versions, forward and backward
+     ms and each backward kernel's (dq, dk/dv, db2) against their bounds
+     and against SDPA with the summed bias as a dense float mask.
 Every profile must hold each launch the kernels' counters saw in it (a
 session that dropped device events is repeated).
 Phase 1 also holds the fused 8-bit Adam kernel (one w_up layer's slice),
 the three block-sparse kernels (at phase 10's first layout and at edge
 cases: a fully-masked row, f32, block 8, head dims 192 and 256), the
 four Evoformer kernels (at phase 12's MSA row shape, D 8, 64 and 128, f32,
-L 100 with a fully masked row, each bias alone and none; a mask bias
-view off the 16-byte boundary through `evoformer_attention`, and B*N =
-70000 rows past the grid limit) and the tile GEMM of the tensor-parallel
+L 100 with a fully masked row, each bias alone and none, each case's dq
+and dk/dv on the pair `bwd_variant` names; a mask bias view off the
+16-byte boundary through `evoformer_attention`, and B*N = 70000 rows
+past the grid limit) and the tile GEMM of the tensor-parallel
 ring (at every per-hop shape of phase 13's wave at tp 2 and 4, bf16 and
 f32, and at edges: M 1, K 2752, N 1001, a misaligned view, M tiles past
 the grid limit; each case prints the kernel `tile_plan` gave it, and a
@@ -2264,11 +2267,13 @@ def check_evoformer(torch, ef, dev):
     g = torch.Generator(device=dev).manual_seed(12)
     errs = {n: [] for n in ("fwd", "dq", "dkv", "db2", "db1")}
     rel = {n: 0.0 for n in ("dq", "dk", "dv", "db1", "db2")}
+    pair = [ef.evoformer_flash_dq, ef.evoformer_flash_dkv]
     main = None
     for B, N, L, H, D, dt, which, mask_row in evo_cases(torch):
         q, k, v, b1, b2 = evo_inputs(torch, g, dev, B, N, L, H, D, dt,
                                      which, mask_row)
         do = torch.randn(B, N, L, H, D, generator=g, device=dev, dtype=dt)
+        reset_counts(pair)
         out, lse = ef.evoformer_flash_forward(q, k, v, b1, b2,
                                               return_lse=True)
         ref, ref_lse = ef.evoformer_flash_forward_reference(q, k, v, b1, b2)
@@ -2294,11 +2299,24 @@ def check_evoformer(torch, ef, dev):
                    for a, b in zip(got, again))
         desc = (f"B={B} N={N} L={L} H={H} D={D} {str(dt)[6:]} biases "
                 f"{which}" + (" masked row" if mask_row else ""))
+        # dq and dk/dv ran twice each, all on the pair bwd_variant names;
+        # bf16 at D 32, 64 and 128 on the TMA + wgmma pair
+        variant = ef.bwd_variant(dt, D, L)
+        variants = by_variant(pair)
+        want_v = {c.__name__: {n: 2 if n == variant else 0
+                               for n in c.launches_by_variant}
+                  for c in pair}
+        wgmma_ok = (variant == "wgmma") == (dt == torch.bfloat16
+                                            and D in (32, 64, 128))
         print(f"  evoformer {desc}: max|dout|={max_err(out, ref):.3e} "
               f"max|dlse|={el:.3e} max|ddelta|={ed:.3e}; max|d| / "
               f"max|plain| " + ", ".join(f"{n} {r[1]:.3e}"
                                          for n, r in res.items())
-              + f"; rerun bit-identical: {same}")
+              + f"; rerun bit-identical: {same}; dq and dk/dv on "
+                f"{variant}")
+        if variants != want_v or not wgmma_ok:
+            fail(f"Evoformer dq and dk/dv at {desc} ran {variants}, want "
+                 f"{want_v} (bf16 at D 32, 64 and 128 on wgmma)")
         masked_ok = True
         if mask_row:
             masked_ok = (bool((out[0, 0] == 0).all())
@@ -2376,6 +2394,8 @@ def check_evoformer(torch, ef, dev):
         if name == "evo_db1":
             row["note"] = ("the dk/dv kernel's epilogue (its ms and bound "
                            "are the dk/dv kernel's with db1)")
+        if kname in ("dq", "dkv"):
+            row["variant"] = ef.bwd_variant(q.dtype, D, L)
         rows.append(row)
     print(f"  Evoformer at the MSA row shape: " + ", ".join(
         f"{r['name']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
@@ -2463,6 +2483,7 @@ def evoformer_path(torch, evo, ef, counters, shapes=EVO_SHAPES,
                    dev="cuda"):
     """Phase 12 (see the module docstring)."""
     total = {c.__name__: 0 for c in counters}
+    total_variants = {}
     results = []
     for name, shape, b1_grad in shapes:
         B, N, L, H, D = shape
@@ -2481,12 +2502,16 @@ def evoformer_path(torch, evo, ef, counters, shapes=EVO_SHAPES,
             torch.cuda.synchronize()
             return out.detach(), [t.grad for t in leaves]
 
-        for c in counters:
-            c.launches = 0
+        reset_counts(counters)
         out, grads = run()
         launches = {c.__name__: c.launches for c in counters}
+        variants = by_variant(counters)
         for k_, n in launches.items():
             total[k_] += n
+        for fn, counts in variants.items():
+            acc = total_variants.setdefault(fn, dict.fromkeys(counts, 0))
+            for v_, n in counts.items():
+                acc[v_] += n
         out_again, grads_again = run()
         same = torch.equal(out, out_again) and all(
             torch.equal(a, b) for a, b in zip(grads, grads_again))
@@ -2514,12 +2539,21 @@ def evoformer_path(torch, evo, ef, counters, shapes=EVO_SHAPES,
             qd, kd, vd, b1d, b2d, return_lse=True))
         bwd_ms = time_ms(lambda: ef.evoformer_flash_backward(
             qd, kd, vd, b1d, b2d, out2, do, lse, need_db1=b1_grad))
+        _, delta = ef.evoformer_flash_dq(qd, kd, vd, b1d, b2d, out2, do, lse)
+        kernel_ms = {
+            "dq_ms": time_ms(lambda: ef.evoformer_flash_dq(
+                qd, kd, vd, b1d, b2d, out2, do, lse)),
+            "dkv_ms": time_ms(lambda: ef.evoformer_flash_dkv(
+                qd, kd, vd, b1d, b2d, do, lse, delta, need_db1=b1_grad)),
+            "db2_ms": time_ms(lambda: ef.evoformer_flash_db2(
+                qd, kd, vd, b1d, b2d, do, lse, delta))}
         work = evo_work(qd, b1d, b2d, b1_grad)
         fwd_bound, bwd_bound = bound_ms(*work["fwd"]), bound_ms(*work["bwd"])
         sdpa_fwd, sdpa_bwd, backend, mask_grad = evo_sdpa_times(
             torch, qd, kd, vd, b1d, b2d, do)
         row = dict(shape_name=name, shape=list(shape),
                    b1_requires_grad=b1_grad, launches=launches,
+                   launches_by_variant=variants,
                    rerun_bit_identical=same,
                    max_abs_dout=max_dout, max_abs_dlse=el,
                    rel_grad_err={n: r[1] for n, r in res.items()},
@@ -2527,10 +2561,8 @@ def evoformer_path(torch, evo, ef, counters, shapes=EVO_SHAPES,
                    fwd_bound_by=fwd_bound[1], bwd_ms=bwd_ms,
                    bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
                    sdpa_backend=backend, sdpa_mask_grad=mask_grad,
-                   sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd,
-                   clocks={"fwd_ms": fwd_ms.clock, "bwd_ms": bwd_ms.clock,
-                           "sdpa_fwd_ms": sdpa_fwd.clock,
-                           "sdpa_bwd_ms": sdpa_bwd.clock})
+                   sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd, **kernel_ms)
+        row["clocks"] = clocks(row)
         print(f"phase 12: {name} q/k/v {list(shape)} (mask bias "
               f"{'requires' if b1_grad else 'without'} grad): launches "
               f"{launches}; rerun bit-identical: {same}; max|dout| vs plain "
@@ -2539,12 +2571,21 @@ def evoformer_path(torch, evo, ef, counters, shapes=EVO_SHAPES,
                                         for n, r in res.items())
               + f"; forward {fwd_ms:.4f} ms (bound {fwd_bound[0]:.4f}, "
               f"{fwd_bound[1]}), backward {bwd_ms:.4f} ms (bound "
-              f"{bwd_bound[0]:.4f}, {bwd_bound[1]}); SDPA {backend} (mask "
-              f"grad {mask_grad}) {sdpa_fwd:.4f} / {sdpa_bwd:.4f} ms")
+              f"{bwd_bound[0]:.4f}, {bwd_bound[1]}): dq "
+              f"{kernel_ms['dq_ms']:.4f}, dk/dv {kernel_ms['dkv_ms']:.4f}, "
+              f"db2 {kernel_ms['db2_ms']:.4f}; dq and dk/dv launches by "
+              f"variant {variants}; SDPA {backend} (mask grad {mask_grad}) "
+              f"{sdpa_fwd:.4f} / {sdpa_bwd:.4f} ms; clocks {row['clocks']}")
         want_launches = {c.__name__: 1 for c in counters}
         want_launches["evoformer_flash_db1"] = int(b1_grad)
         if launches != want_launches:
             fail(f"{name}: launches {launches}, want {want_launches}")
+        pair_variant = ef.bwd_variant(torch.bfloat16, D, L)
+        want_variants = {fn: {v_: int(v_ == pair_variant) for v_ in counts}
+                         for fn, counts in variants.items()}
+        if variants != want_variants:
+            fail(f"{name}: dq and dk/dv ran {variants}, want "
+                 f"{want_variants}")
         if not (same and out_ok and el <= LSE_ATOL and finite
                 and all(r[0] for r in res.values())):
             fail(f"{name}: evoformer_attention disagrees with the plain "
@@ -2553,8 +2594,10 @@ def evoformer_path(torch, evo, ef, counters, shapes=EVO_SHAPES,
                  f" finite {finite}")
         results.append(row)
         del q, k, v, b1, b2, leaves, qd, kd, vd, b1d, b2d, out, out2, lse, do
+        del delta
         torch.cuda.empty_cache()
-    return dict(shapes=results, launches=total)
+    return dict(shapes=results, launches=total,
+                launches_by_variant=total_variants)
 
 
 # ----------------------------------------------------------------------
@@ -3561,6 +3604,8 @@ def main(argv=None):
                    if fn in launches}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
+        if fn in evoformer["launches_by_variant"]:   # evo_dq, evo_dkv
+            k["launches_by_variant"] = evoformer["launches_by_variant"][fn]
 
     record = dict(kernels=kernels, serve=served, e2e=e2e, profile=prof,
                   tenants=tenants, merged=merged,

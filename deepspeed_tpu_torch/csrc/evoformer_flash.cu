@@ -9,6 +9,12 @@
 //   evo_dq_*: `_bwd_dq_kernel` (:379);
 //   evo_dkv_*: `_bwd_dkv_kernel` (:405) and, as its epilogue, the mask-bias
 //     gradient `_bwd_db1_kernel` (:479);
+// dq and dk/dv come as three pairs (`ops.evoformer_flash.bwd_variant`
+// names the one inputs take): TMA + wgmma for bf16 at D 32, 64 and 128
+// (evo_dq_wgmma, evo_dkv_wgmma), mma.sync through registers for bf16 at
+// every other D (evo_dq_mma, evo_dkv_mma: D 8, the extra-MSA width, would
+// run 4x padded on wgmma, whose products contract D in whole 16-column
+// steps of a swizzled row) and the CUDA cores for f32.
 //   evo_db2_*: the pair-bias gradient `_bwd_db2_kernel` (:442).
 //
 // Layout (the JAX public one, no transposes): q, k, v, out, dO, dq, dk, dv
@@ -36,18 +42,20 @@
 //     in registers), adding the pair bias from device memory into its
 //     score fragment (the JAX kernel's [bq, bk] copies of b1 are TPU
 //     tiling); out and lse = m + log(l);
-//   dq, same grid: delta = rowsum(dO * O) of its rows from out as stored
-//     (written to `delta` for the other two kernels, which run after it on
-//     the stream), then K and V staged as in the forward, and per 16-key
-//     slice P = exp(s - lse), dP = dO V^T, dS = P (dP - delta),
+//   dq (mma), same grid: delta = rowsum(dO * O) of its rows from out as
+//     stored (written to `delta` for the other two kernels, which run
+//     after it on the stream), then K and V staged as in the forward, and
+//     per 16-key slice P = exp(s - lse), dP = dO V^T, dS = P (dP - delta),
 //     dQ += dS K; dq = dQ * scale, written once;
-//   dk/dv, grid (ceil(L/64), B*N): one CTA per 64-key tile of a row walks
-//     the heads and, for each, the 64-query tiles (Q, dO, lse, delta and
-//     the pair-bias tile staged in shared memory): P^T and dS^T as above,
-//     dV += P^T dO, dK += dS^T Q in f32 registers, written once per head;
-//     with db1 asked for, each lane also sums dS over the heads and queries
-//     of its two keys in a fixed order, and the four lanes of a key add
-//     with two shuffles: db1 written once;
+//   dk/dv (mma), grid (ceil(L/64), B*N): one CTA per 64-key tile of a row
+//     walks the heads and, for each, the 64-query tiles (Q, dO, lse, delta
+//     and the pair-bias tile staged in shared memory): P^T and dS^T as
+//     above, dV += P^T dO, dK += dS^T Q in f32 registers, written once per
+//     head; with db1 asked for, each lane also sums dS over the heads and
+//     queries of its two keys in a fixed order, and the four lanes of a
+//     key add with two shuffles: db1 written once;
+//   dq and dk/dv (wgmma): the same work and order of sums, warp-
+//     specialised (see evo_dq_wgmma and evo_dkv_wgmma below);
 //   db2, grid (ceil(L/64) query tiles, ceil(L/64) key tiles, B*H): one CTA
 //     per [64, 64] tile of the pair bias (held in shared memory for every
 //     row) walks the N rows and sums dS in f32 registers: G groups of four
@@ -60,8 +68,9 @@
 // axes: each kernel is a grid-stride loop over its slices (`*_slice` is
 // one slice's work), so any B*N is served.
 //
-// bf16 runs on the tensor cores (mma.sync m16n8k16, f32 accumulate): four
-// warps of 16 rows, the tiles staged in shared memory as bf16 rows of
+// The bf16 mma forms (the forward, db2, and dq and dk/dv where D is not
+// 32, 64 or 128) run on the tensor cores (mma.sync m16n8k16, f32
+// accumulate): four warps of 16 rows, the tiles staged in shared memory as bf16 rows of
 // DP + 8 elements, where DP is D rounded up to 16, 32, 64 or 128 and the
 // columns past D are zero (D 8, the extra-MSA stack's width, runs as 16);
 // P and dS are rounded to bf16 and reused from the accumulator registers
@@ -72,18 +81,25 @@
 //
 // What bounds it on the H100 at AlphaFold 2's MSA row attention (q/k/v
 // [1, 128, 256, 8, 32] bf16): bytes.  The forward moves ~69 MB (0.021 ms
-// at 3.35 TB/s) against 8.6 GFLOP (0.009 ms at 989 TFLOP/s).  These first
-// forms reload K/V per query tile (from L2) and the pair bias per row n,
-// stage operands with no copy/compute overlap (the loads of a chunk wait
-// at a barrier), and at D 32 spend as many instructions on the softmax and
-// the biases as on the products; the db2 kernel has B*H*(L/64)^2 CTAs (128
-// at that shape), each walking the N rows, and is bound by the latency of
-// its loads.
+// at 3.35 TB/s) against 8.6 GFLOP (0.009 ms at 989 TFLOP/s); dq and dk/dv
+// each ~0.031 ms of bytes.  The mma forms reload K/V per query tile (from
+// L2) and the pair bias per row n, stage operands with no copy/compute
+// overlap (the loads of a chunk wait at a barrier), and at D 32 spend as
+// many instructions on the softmax and the biases as on the products; the
+// db2 kernel has B*H*(L/64)^2 CTAs (128 at that shape), each walking the N
+// rows, and is bound by the latency of its loads.  The wgmma pair streams
+// every operand by TMA behind the products (a producer warp and an
+// mbarrier ring), keeps the pair-bias tile in bf16 or f32 as given (no
+// per-tile widening pass) and runs two (dk/dv) or three (dq) CTAs an SM;
+// what holds it at ~3x its bound is each tile's chain of products,
+// exponentials and bias reads (PERF.md).
 #include "attn_tile.cuh"
+#include "hopper_tile.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+namespace hp = dstt::hopper;
 using dstt::acc_to_a;
 using dstt::frag_a;
 using dstt::mma_abt;
@@ -860,6 +876,502 @@ evo_db2_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
+// bf16 on TMA + wgmma (D 32, 64, 128), warp-specialised
+// ---------------------------------------------------------------------
+constexpr int WS = 3;              // ring slots
+constexpr int RT = 64;             // ring tile rows: queries (dk/dv), keys (dq)
+constexpr int SMEM_MAX = 232448;   // shared memory a CTA may have
+
+// The pair bias as a wgmma kernel reads it: absent, bf16 or f32.
+enum BiasKind { B2_NONE = 0, B2_BF16 = 1, B2_F32 = 2 };
+
+template <int BK>
+struct BiasTile {
+  static constexpr int ES = BK == B2_F32 ? 4 : 2;   // bytes an element
+  static constexpr int COLS = 128 / ES;   // keys a box row (128-byte swizzle)
+  __host__ __device__ static constexpr int bytes(int rows, int keys) {
+    return BK == B2_NONE ? 0 : rows * keys * ES;
+  }
+};
+
+// Byte offset of pair-bias element (row r, key c) of a tile of `rows` rows
+// stored as 128-byte-swizzled TMA boxes of COLS keys (box b at
+// b * rows * 128): 16-byte chunk j of row r lands at chunk j ^ (r % 8).
+template <int BK>
+__device__ __forceinline__ int bias_at(int r, int c, int rows) {
+  constexpr int ES = BiasTile<BK>::ES, COLS = BiasTile<BK>::COLS;
+  const int byte = (c % COLS) * ES;
+  return (c / COLS) * rows * 128 + r * 128 +
+         ((((byte >> 4) ^ r) & 7) << 4) + (byte & 15);
+}
+
+// One bias element, and two of consecutive keys (c even), as f32.
+template <int BK>
+__device__ __forceinline__ float bias1(const uint8_t* tile, int off) {
+  if constexpr (BK == B2_BF16)
+    return __bfloat162float(*reinterpret_cast<const bf16*>(tile + off));
+  else
+    return *reinterpret_cast<const float*>(tile + off);
+}
+
+template <int BK>
+__device__ __forceinline__ float2 bias2(const uint8_t* tile, int off) {
+  if constexpr (BK == B2_BF16)
+    return __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(tile + off));
+  else
+    return *reinterpret_cast<const float2*>(tile + off);
+}
+
+// A CTA of one consumer warpgroup (64 rows: keys in dk/dv, query rows in
+// dq) and one producer warp after it (a second warpgroup sharing K and V,
+// or Q and dO, at one CTA an SM was slower for both kernels); shared
+// memory in bytes.
+constexpr int WG_THREADS = 128 + 32;
+constexpr int ROWS = 64;
+
+template <int D, int BK>
+struct EvoWg {
+  static constexpr int OWN = ROWS * D * 2;   // K or V (dk/dv); Q or dO (dq)
+  static constexpr int TILE = RT * D * 2;    // Q or dO (dk/dv); K or V (dq)
+  static constexpr int BIAS = BiasTile<BK>::bytes(RT, ROWS);
+  static constexpr int SLOT = 2 * TILE + BIAS;
+  // dk/dv double-buffers K and V across heads; dq holds one Q and dO
+  static constexpr int DKV_SMEM = 1024 + 4 * OWN + WS * SLOT;
+  static constexpr int DQ_SMEM = 1024 + 2 * OWN + WS * SLOT;
+};
+
+// CTAs an SM that each kernel's registers are sized for (the launch
+// bound caps every thread's registers, the producer warp's as a
+// consumer's): at D 32 two (dk/dv) or three (dq); otherwise ptxas takes
+// what it needs (D 64 spills at those caps).
+template <int D>
+constexpr int dkv_blocks() {
+  return D == 32 ? 2 : 1;
+}
+
+template <int D>
+constexpr int dq_blocks() {
+  return D == 32 ? 3 : 1;
+}
+
+// The score's P from x = s * scale + b1 + b2 and the row's lse (natural
+// units): 0 at or below the mask level, and where lse is +inf (rows past
+// L).
+__device__ __forceinline__ float wg_prob(float x, float lse) {
+  return x > NEG_INF * 0.5f ? hp::ex2((x - lse) * LOG2E) : 0.f;
+}
+
+// dk/dv (+ db1), grid (ceil(L / 64), B*N slices): one CTA per 64 keys of
+// one row bn walks the H heads and, for each, the 64-query tiles of the
+// row.  The producer warp (after the consumers) loads K and V of a head
+// (a 2-slot buffer, so the next head's arrive while this one runs) and
+// streams each tile's Q, dO and pair-bias boxes [64 queries, 64 keys]
+// through a WS-slot ring by TMA from one lane, while its 32 lanes stage
+// the tile's lse and delta (+inf and 0 past L, loaded a tile ahead).  The
+// consumer warpgroup: S^T = K Q^T and dP^T = V dO^T (wgmma), P^T =
+// exp(S^T scale + b1 + b2^T - lse) with the bias read transposed from its
+// swizzled tile, dS^T = P^T (dP^T - delta), dV += P^T dO and dK += dS^T Q
+// (P^T, dS^T as the register A operand); dK scale and dV written once per
+// head, db1 summed over heads and queries in a fixed order and written
+// once.  Keys past L are computed and not written.
+template <int D, int BK>
+__global__ void __launch_bounds__(WG_THREADS, dkv_blocks<D>())
+evo_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap,
+              const __grid_constant__ CUtensorMap dmap,
+              const __grid_constant__ CUtensorMap bmap,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dk, bf16* __restrict__ dv, void* db1,
+              Evo e) {
+  using W = EvoWg<D, BK>;
+  using T = hp::RowTile<D>;
+  extern __shared__ __align__(1024) uint8_t smem_tma[];
+  uint8_t* KV = hp::align1024(smem_tma);   // buffer u: K, then V
+  uint8_t* ring = KV + 4 * W::OWN;         // slot s: Q, dO, bias
+  __shared__ __align__(16) float lse_s[WS][RT], dl_s[WS][RT];
+  __shared__ __align__(8) uint64_t kv_full[2], kv_empty[2], full[WS],
+      empty[WS];
+  const int L = e.L, H = e.H;
+  const int k0 = blockIdx.x * ROWS;
+  const int n_qt = (L + RT - 1) / RT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int u = 0; u < 2; ++u) {
+      hp::mbar_init(&kv_full[u], 1);
+      hp::mbar_init(&kv_empty[u], 4);   // one arrival a consumer warp
+    }
+    for (int s = 0; s < WS; ++s) {
+      hp::mbar_init(&full[s], 1 + 32);      // expect_tx + the warp's lanes
+      hp::mbar_init(&empty[s], 4);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // slices walk grid-stride; both roles count heads and tiles alike
+  for (int bn = blockIdx.y, it = 0; bn < e.B * e.N;
+       bn += gridDim.y, ++it) {
+    const int h0 = it * H, j0 = it * H * n_qt;
+    if (warp == 4) {   // the producer warp
+      const int b = bn / e.N;
+      // each lane's rows of the next tile's lse and delta, loaded while
+      // the warp waits for its slot
+      float nl[RT / 32], nd[RT / 32];
+      auto fetch = [&](int j) {
+        const long base = ((long)bn * H + j / n_qt) * L;
+#pragma unroll
+        for (int i = 0; i < RT / 32; ++i) {
+          const int row = j % n_qt * RT + lane + 32 * i;
+          nl[i] = row < L ? lse[base + row] : INFINITY;
+          nd[i] = row < L ? delta[base + row] : 0.f;
+        }
+      };
+      fetch(0);
+      for (int j = 0; j < H * n_qt; ++j) {
+        const int h = j / n_qt, qt = j % n_qt;
+        const int jc = j0 + j, s = jc % WS;
+        uint8_t* Qs = ring + s * W::SLOT;
+        if (qt == 0 && lane == 0) {   // K and V of head h
+          const int hc = h0 + h, u = hc & 1;
+          uint8_t* Ks = KV + u * 2 * W::OWN;
+          hp::mbar_wait(&kv_empty[u], ((hc >> 1) & 1) ^ 1);
+          hp::mbar_expect_tx(&kv_full[u], 2 * W::OWN);
+          for (int c = 0; c < T::NCH; ++c) {
+            hp::tma_load_4d(Ks + c * ROWS * T::RB, &kmap, &kv_full[u],
+                            c * T::CH, h, k0, bn);
+            hp::tma_load_4d(Ks + W::OWN + c * ROWS * T::RB, &vmap,
+                            &kv_full[u], c * T::CH, h, k0, bn);
+          }
+        }
+        __syncwarp();
+        hp::mbar_wait(&empty[s], ((jc / WS) & 1) ^ 1);
+        if (lane == 0) {
+          hp::mbar_expect_tx(&full[s], W::SLOT);
+          for (int c = 0; c < T::NCH; ++c) {
+            hp::tma_load_4d(Qs + c * RT * T::RB, &qmap, &full[s], c * T::CH,
+                            h, qt * RT, bn);
+            hp::tma_load_4d(Qs + W::TILE + c * RT * T::RB, &dmap, &full[s],
+                            c * T::CH, h, qt * RT, bn);
+          }
+          if constexpr (BK != B2_NONE) {
+            constexpr int COLS = BiasTile<BK>::COLS;
+            for (int c = 0; c < ROWS / COLS; ++c)
+              hp::tma_load_4d(Qs + 2 * W::TILE + c * RT * 128, &bmap,
+                              &full[s], k0 + c * COLS, qt * RT, h, b);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RT / 32; ++i) {
+          lse_s[s][lane + 32 * i] = nl[i];
+          dl_s[s][lane + 32 * i] = nd[i];
+        }
+        hp::mbar_arrive(&full[s]);
+        if (j + 1 < H * n_qt) fetch(j + 1);
+      }
+    } else {
+      const int g = lane >> 2, t = lane & 3;
+      const int kl = 16 * warp + g;   // keys k0 + kl, + 8
+      float b1r[2], db1acc[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hk = 0; hk < 2; ++hk) {
+        const int key = k0 + kl + 8 * hk;
+        b1r[hk] = e.b1 && key < L
+                      ? ld_any(e.b1, (long)bn * L + key, e.b1_bf16)
+                      : 0.f;
+      }
+      float dka[D / 2], dva[D / 2], st[32], dpt[32];
+      uint32_t pa[4][4], da[4][4];
+      for (int h = 0; h < H; ++h) {
+        const int hc = h0 + h, u = hc & 1;
+        const uint8_t* ka = KV + u * 2 * W::OWN;
+        const uint8_t* va = ka + W::OWN;
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+        hp::mbar_wait(&kv_full[u], (hc >> 1) & 1);
+        for (int qt = 0; qt < n_qt; ++qt) {
+          const int jc = j0 + h * n_qt + qt, s = jc % WS;
+          const uint8_t* Qs = ring + s * W::SLOT;
+          const uint8_t* dOs = Qs + W::TILE;
+          const uint8_t* Bs = Qs + 2 * W::TILE;
+          hp::mbar_wait(&full[s], (jc / WS) & 1);
+          hp::wgmma_fence();
+          hp::issue_abt<D, RT>(st, ka, ROWS, Qs);
+          hp::wgmma_commit();
+          hp::issue_abt<D, RT>(dpt, va, ROWS, dOs);
+          hp::wgmma_commit();
+          hp::wgmma_wait<1>();
+          hp::fence_regs(st);
+          // element i: key kl + 8 (i / 2 % 2), query 8 (i / 4) + 2 t + i % 2
+          // (two queries a float2 of lse and delta); in the swizzled bias
+          // tile, query rows 8 apart lie 1024 bytes apart, so four offsets
+          // serve all 32
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const float2 l2 = *reinterpret_cast<const float2*>(
+                &lse_s[s][8 * (i >> 2) + 2 * t]);
+            float x = st[i] * e.scale + b1r[(i >> 1) & 1];
+            if constexpr (BK != B2_NONE)
+              x += bias1<BK>(Bs + (i >> 2) * 1024,
+                             bias_at<BK>(2 * t + (i & 1),
+                                         kl + 8 * ((i >> 1) & 1), RT));
+            st[i] = wg_prob(x, i & 1 ? l2.y : l2.x);
+          }
+          hp::wgmma_wait<0>();
+          hp::fence_regs(dpt);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const float2 d2 = *reinterpret_cast<const float2*>(
+                &dl_s[s][8 * (i >> 2) + 2 * t]);
+            const float ds = st[i] * (dpt[i] - (i & 1 ? d2.y : d2.x));
+            db1acc[(i >> 1) & 1] += ds;
+            dpt[i] = ds;
+          }
+          hp::pack_frags(pa, st);
+          hp::pack_frags(da, dpt);
+          hp::wgmma_fence();
+          hp::issue_rs<D>(dva, pa, dOs);
+          hp::issue_rs<D>(dka, da, Qs);
+          hp::wgmma_commit();
+          hp::wgmma_wait<0>();
+          hp::fence_regs(dva);
+          hp::fence_regs(dka);
+          __syncwarp();
+          if (lane == 0) hp::mbar_arrive(&empty[s]);
+        }
+        __syncwarp();
+        if (lane == 0) hp::mbar_arrive(&kv_empty[u]);
+#pragma unroll
+        for (int hk = 0; hk < 2; ++hk) {
+          const int key = k0 + kl + 8 * hk;
+          if (key >= L) continue;
+          const long off = (((long)bn * L + key) * H + h) * D;
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * n + 2 * t) =
+                __floats2bfloat162_rn(dka[4 * n + 2 * hk] * e.scale,
+                                      dka[4 * n + 2 * hk + 1] * e.scale);
+            *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * n + 2 * t) =
+                __floats2bfloat162_rn(dva[4 * n + 2 * hk],
+                                      dva[4 * n + 2 * hk + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int hk = 0; hk < 2; ++hk) {
+        float x = db1acc[hk];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        const int key = k0 + kl + 8 * hk;
+        if (db1 != nullptr && t == 0 && key < L)
+          st_any(db1, (long)bn * L + key, x, e.b1_bf16);
+      }
+    }
+    __syncthreads();   // the slice's buffers are free for the next
+  }
+}
+
+// rowsum(dO * O) over D / 4 columns (one thread's quarter of a row).
+template <int D>
+__device__ __forceinline__ float quarter_dot(const bf16* o, const bf16* d) {
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < D / 4; c += 8) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + c);
+    const uint4 b = *reinterpret_cast<const uint4*>(d + c);
+    const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 xf = __bfloat1622float2(x[i]);
+      const float2 yf = __bfloat1622float2(y[i]);
+      s += xf.x * yf.x + xf.y * yf.y;
+    }
+  }
+  return s;
+}
+
+// dq (+ delta), grid (ceil(L / 64), H, B*N slices): one CTA per 64 query
+// rows of one (row, head).  The producer warp loads Q and dO once and
+// streams 64-key tiles of K, V and the pair bias [64 rows, 64 keys] by
+// TMA through a WS-slot ring, while its lanes stage each tile's b1 as f32
+// (-1e30 past L, so those keys get P = 0; loaded a tile ahead).  The
+// consumer warpgroup first takes delta = rowsum(dO * O) of its rows from
+// device memory (four threads a row, written for the dk/dv and db2
+// kernels), then per tile S = Q K^T and dP = dO V^T (wgmma), P = exp(S
+// scale + b1 + b2 - lse), dS = P (dP - delta) and dQ += dS K (dS as the
+// register A operand, K MN-major); dQ scale written once.
+template <int D, int BK>
+__global__ void __launch_bounds__(WG_THREADS, dq_blocks<D>())
+evo_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap,
+             const __grid_constant__ CUtensorMap dmap,
+             const __grid_constant__ CUtensorMap bmap,
+             const bf16* __restrict__ o, const bf16* __restrict__ dout,
+             const float* __restrict__ lse, bf16* __restrict__ dq,
+             float* __restrict__ delta, Evo e) {
+  using W = EvoWg<D, BK>;
+  using T = hp::RowTile<D>;
+  extern __shared__ __align__(1024) uint8_t smem_tma[];
+  uint8_t* Qs = hp::align1024(smem_tma);
+  uint8_t* dOs = Qs + W::OWN;
+  uint8_t* ring = dOs + W::OWN;   // slot s: K, V, bias
+  __shared__ __align__(16) float b1_s[WS][RT];
+  __shared__ __align__(8) uint64_t q_full, full[WS], empty[WS];
+  const int L = e.L, H = e.H;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y;
+  const int n_kt = (L + RT - 1) / RT;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    hp::mbar_init(&q_full, 1);
+    for (int s = 0; s < WS; ++s) {
+      hp::mbar_init(&full[s], 1 + 32);      // expect_tx + the warp's lanes
+      hp::mbar_init(&empty[s], 4);      // one arrival a consumer warp
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  for (int bn = blockIdx.z, it = 0; bn < e.B * e.N;
+       bn += gridDim.z, ++it) {
+    const int j0 = it * n_kt;
+    if (warp == 4) {   // the producer warp
+      const int b = bn / e.N;
+      if (lane == 0) {
+        hp::mbar_expect_tx(&q_full, 2 * W::OWN);
+        for (int c = 0; c < T::NCH; ++c) {
+          hp::tma_load_4d(Qs + c * ROWS * T::RB, &qmap, &q_full,
+                          c * T::CH, h, q0, bn);
+          hp::tma_load_4d(dOs + c * ROWS * T::RB, &dmap, &q_full,
+                          c * T::CH, h, q0, bn);
+        }
+      }
+      __syncwarp();
+      // each lane's keys of the next tile's b1 (-1e30 past L), loaded
+      // while the warp waits for its slot
+      float nb[RT / 32];
+      auto fetch = [&](int kt) {
+#pragma unroll
+        for (int i = 0; i < RT / 32; ++i) {
+          const int key = kt * RT + lane + 32 * i;
+          nb[i] = key >= L ? NEG_INF
+                  : e.b1   ? ld_any(e.b1, (long)bn * L + key, e.b1_bf16)
+                           : 0.f;
+        }
+      };
+      fetch(0);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int jc = j0 + kt, s = jc % WS;
+        uint8_t* Ks = ring + s * W::SLOT;
+        hp::mbar_wait(&empty[s], ((jc / WS) & 1) ^ 1);
+        if (lane == 0) {
+          hp::mbar_expect_tx(&full[s], W::SLOT);
+          for (int c = 0; c < T::NCH; ++c) {
+            hp::tma_load_4d(Ks + c * RT * T::RB, &kmap, &full[s], c * T::CH,
+                            h, kt * RT, bn);
+            hp::tma_load_4d(Ks + W::TILE + c * RT * T::RB, &vmap, &full[s],
+                            c * T::CH, h, kt * RT, bn);
+          }
+          if constexpr (BK != B2_NONE) {
+            constexpr int COLS = BiasTile<BK>::COLS;
+            for (int c = 0; c < RT / COLS; ++c)
+              hp::tma_load_4d(Ks + 2 * W::TILE + c * ROWS * 128, &bmap,
+                              &full[s], kt * RT + c * COLS, q0, h, b);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RT / 32; ++i) b1_s[s][lane + 32 * i] = nb[i];
+        hp::mbar_arrive(&full[s]);
+        if (kt + 1 < n_kt) fetch(kt + 1);
+      }
+    } else {
+      const int g = lane >> 2, t = lane & 3;
+      const int rl = 16 * warp + g;   // rows q0 + rl, + 8
+      float lse_r[2], dl[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = q0 + rl + 8 * hh;
+        const long li = ((long)bn * H + h) * L + row;
+        const long off = (((long)bn * L + row) * H + h) * D + t * (D / 4);
+        float part = row < L ? quarter_dot<D>(o + off, dout + off) : 0.f;
+        part += __shfl_xor_sync(0xffffffffu, part, 1);
+        part += __shfl_xor_sync(0xffffffffu, part, 2);
+        dl[hh] = part;
+        lse_r[hh] = row < L ? lse[li] : INFINITY;
+        if (t == 0 && row < L) delta[li] = part;
+      }
+      const uint8_t* qa = Qs;
+      const uint8_t* da_s = dOs;
+      float dqa[D / 2], sc[32], dp[32];
+      uint32_t dsa[4][4];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+      hp::mbar_wait(&q_full, it & 1);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int jc = j0 + kt, s = jc % WS;
+        const uint8_t* Ks = ring + s * W::SLOT;
+        const uint8_t* Vs = Ks + W::TILE;
+        const uint8_t* Bs = Ks + 2 * W::TILE;
+        hp::mbar_wait(&full[s], (jc / WS) & 1);
+        hp::wgmma_fence();
+        hp::issue_abt<D, RT>(sc, qa, ROWS, Ks);
+        hp::wgmma_commit();
+        hp::issue_abt<D, RT>(dp, da_s, ROWS, Vs);
+        hp::wgmma_commit();
+        hp::wgmma_wait<1>();
+        hp::fence_regs(sc);
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int col = hp::acc_col(i, t);   // the tile's key (even)
+          const int hh = (i >> 1) & 1;
+          const float2 b1p =
+              *reinterpret_cast<const float2*>(&b1_s[s][col]);
+          float x0 = sc[i] * e.scale + b1p.x;
+          float x1 = sc[i + 1] * e.scale + b1p.y;
+          if constexpr (BK != B2_NONE) {
+            // row rl + 8 hh: g in the swizzle, the rest 128 bytes a row
+            const float2 bb =
+                bias2<BK>(Bs + (rl - g + 8 * hh) * 128,
+                          bias_at<BK>(g, col, ROWS));
+            x0 += bb.x;
+            x1 += bb.y;
+          }
+          sc[i] = wg_prob(x0, lse_r[hh]);
+          sc[i + 1] = wg_prob(x1, lse_r[hh]);
+        }
+        hp::wgmma_wait<0>();
+        hp::fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]);
+        hp::pack_frags(dsa, dp);
+        hp::wgmma_fence();
+        hp::issue_rs<D>(dqa, dsa, Ks);
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_regs(dqa);
+        __syncwarp();
+        if (lane == 0) hp::mbar_arrive(&empty[s]);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = q0 + rl + 8 * hh;
+        if (row >= L) continue;
+        bf16* out = dq + (((long)bn * L + row) * H + h) * D;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * n + 2 * t) =
+              __floats2bfloat162_rn(dqa[4 * n + 2 * hh] * e.scale,
+                                    dqa[4 * n + 2 * hh + 1] * e.scale);
+      }
+    }
+    __syncthreads();   // Q, dO and the ring are free for the next slice
+  }
+}
+
+// ---------------------------------------------------------------------
 // f32 on the CUDA cores: one warp per row, F32_WARPS rows a CTA
 // ---------------------------------------------------------------------
 __device__ __forceinline__ float dot(const float* a, const float* b, int D) {
@@ -1241,6 +1753,110 @@ int db2(const Ptrs& p, const Evo& e, int dtype, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// A bf16 tensor map of q, k, v, out or dO [B*N, L, H, D] (innermost first:
+// D, H, L, B*N) whose box is `rows` rows of one head in RowTile<D> boxes;
+// rows past L come back zero.
+template <int D>
+int row_map(CUtensorMap* map, const void* base, const Evo& e, int rows) {
+  using T = hp::RowTile<D>;
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)e.H, (uint64_t)e.L,
+                            (uint64_t)e.B * e.N};
+  const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)e.H * D * 2,
+                               (uint64_t)e.L * e.H * D * 2};
+  const uint32_t box[4] = {(uint32_t)T::CH, 1, (uint32_t)rows, 1};
+  return hp::make_map_bf16(map, base, 4, dims, strides, box, T::SW);
+}
+
+// The pair bias [B, H, L, pitch] (innermost first: keys, queries, H, B;
+// rows `pitch` elements apart) in 128-byte-swizzled boxes of COLS keys and
+// `rows` queries; keys and queries past L come back zero.
+template <int BK>
+int bias_map(CUtensorMap* map, const Evo& e, int pitch, int rows) {
+  if constexpr (BK == B2_NONE) {
+    return 0;
+  } else {
+    const uint64_t es = BiasTile<BK>::ES, row = (uint64_t)pitch * es;
+    const uint64_t dims[4] = {(uint64_t)e.L, (uint64_t)e.L, (uint64_t)e.H,
+                              (uint64_t)e.B};
+    const uint64_t strides[3] = {row, row * e.L, row * e.L * e.H};
+    const uint32_t box[4] = {(uint32_t)BiasTile<BK>::COLS, (uint32_t)rows, 1,
+                             1};
+    return hp::make_map(map,
+                        BK == B2_F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        e.b2, 4, dims, strides, box, hp::SW128);
+  }
+}
+
+// The static shared memory the wgmma kernels add to their dynamic share.
+constexpr int WG_STATIC_SMEM = 2048;
+
+template <int D, int BK>
+int dq_wgmma(const Ptrs& p, const Evo& e, int pitch, cudaStream_t st) {
+  using W = EvoWg<D, BK>;
+  static_assert(W::DQ_SMEM + WG_STATIC_SMEM <= SMEM_MAX, "dq smem");
+  CUtensorMap qmap, kmap, vmap, dmap, bmap = {};
+  int rc = row_map<D>(&qmap, p.q, e, ROWS);
+  if (!rc) rc = row_map<D>(&dmap, p.dout, e, ROWS);
+  if (!rc) rc = row_map<D>(&kmap, p.k, e, RT);
+  if (!rc) rc = row_map<D>(&vmap, p.v, e, RT);
+  if (!rc) rc = bias_map<BK>(&bmap, e, pitch, ROWS);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      evo_dq_wgmma<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W::DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  evo_dq_wgmma<D, BK><<<dim3((e.L + ROWS - 1) / ROWS, e.H,
+                                slices(e.B * e.N)),
+                           WG_THREADS, W::DQ_SMEM, st>>>(
+      qmap, kmap, vmap, dmap, bmap, (const bf16*)p.o, (const bf16*)p.dout,
+      (const float*)p.lse, (bf16*)p.dq, (float*)p.delta, e);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int BK>
+int dkv_wgmma(const Ptrs& p, const Evo& e, int pitch, cudaStream_t st) {
+  using W = EvoWg<D, BK>;
+  static_assert(W::DKV_SMEM + WG_STATIC_SMEM <= SMEM_MAX, "dk/dv smem");
+  CUtensorMap qmap, kmap, vmap, dmap, bmap = {};
+  int rc = row_map<D>(&qmap, p.q, e, RT);
+  if (!rc) rc = row_map<D>(&dmap, p.dout, e, RT);
+  if (!rc) rc = row_map<D>(&kmap, p.k, e, ROWS);
+  if (!rc) rc = row_map<D>(&vmap, p.v, e, ROWS);
+  if (!rc) rc = bias_map<BK>(&bmap, e, pitch, RT);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      evo_dkv_wgmma<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W::DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  evo_dkv_wgmma<D, BK><<<dim3((e.L + ROWS - 1) / ROWS,
+                                 slices(e.B * e.N)),
+                            WG_THREADS, W::DKV_SMEM, st>>>(
+      qmap, kmap, vmap, dmap, bmap, (const float*)p.lse,
+      (const float*)p.delta, (bf16*)p.dk, (bf16*)p.dv, p.dbias, e);
+  return (int)cudaGetLastError();
+}
+
+// The wgmma launcher F<D, BK> for the head dim and the pair bias's kind.
+#define EVO_WG_BY_BIAS(F, D, ...)                                     \
+  (e.b2 == nullptr ? F<D, B2_NONE>(__VA_ARGS__)                       \
+   : e.b2_bf16     ? F<D, B2_BF16>(__VA_ARGS__)                       \
+                   : F<D, B2_F32>(__VA_ARGS__))
+#define EVO_WG(F, ...)                                                \
+  (e.D == 32   ? EVO_WG_BY_BIAS(F, 32, __VA_ARGS__)                   \
+   : e.D == 64 ? EVO_WG_BY_BIAS(F, 64, __VA_ARGS__)                   \
+               : EVO_WG_BY_BIAS(F, 128, __VA_ARGS__))
+
+// What the wgmma pair takes beyond `bad`: D 32, 64 or 128, bf16, H on the
+// grid, and pair-bias rows `pitch` >= L elements apart that start on
+// 16-byte boundaries (TMA's stride rule).
+bool bad_wgmma(const Evo& e, int pitch) {
+  const int es = e.b2_bf16 ? 2 : 4;
+  return bad(e, 1) || (e.D != 32 && e.D != 64 && e.D != 128) ||
+         e.H > 65535 ||
+         (e.b2 != nullptr && (pitch < e.L || (long)pitch * es % 16));
+}
+
 // The launcher F<DP> for head dim D.
 #define EVO_BY_D(D, F, ...)                     \
   (padded(D) == 16   ? F<16>(__VA_ARGS__)       \
@@ -1335,4 +1951,51 @@ extern "C" int dstt_evo_db2(const void* q, const void* k, const void* v,
   p.delta = const_cast<void*>(delta);
   p.dbias = db2o;
   return EVO_BY_D(D, db2, p, e, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 TMA + wgmma pair (D 32, 64 or 128): `pitch` is the pair bias's
+// row pitch in elements (L, or more for a padded copy whose rows start on
+// 16-byte boundaries).  Otherwise as dstt_evo_dq / dstt_evo_dkv.
+extern "C" int dstt_evo_dq_wgmma(const void* q, const void* k, const void* v,
+                                 const void* b1, const void* b2,
+                                 const void* o, const void* dout,
+                                 const void* lse, void* dqo, void* delta,
+                                 int B, int N, int L, int H, int D,
+                                 int bias_bf16, float scale, int pitch,
+                                 void* stream) {
+  const Evo e = make(b1, b2, B, N, L, H, D, bias_bf16, scale);
+  if (bad_wgmma(e, pitch)) return (int)cudaErrorInvalidValue;
+  Ptrs p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.dout = dout;
+  p.lse = lse;
+  p.dq = dqo;
+  p.delta = delta;
+  return EVO_WG(dq_wgmma, p, e, pitch, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int dstt_evo_dkv_wgmma(const void* q, const void* k,
+                                  const void* v, const void* b1,
+                                  const void* b2, const void* dout,
+                                  const void* lse, const void* delta,
+                                  void* dko, void* dvo, void* db1, int B,
+                                  int N, int L, int H, int D, int bias_bf16,
+                                  float scale, int pitch, void* stream) {
+  const Evo e = make(b1, b2, B, N, L, H, D, bias_bf16, scale);
+  if (bad_wgmma(e, pitch) || (db1 != nullptr && b1 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Ptrs p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = lse;
+  p.delta = const_cast<void*>(delta);
+  p.dk = dko;
+  p.dv = dvo;
+  p.dbias = db1;
+  return EVO_WG(dkv_wgmma, p, e, pitch, static_cast<cudaStream_t>(stream));
 }

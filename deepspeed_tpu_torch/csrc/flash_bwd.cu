@@ -125,11 +125,7 @@ constexpr int KT = 64;            // dq: keys per ring tile
 constexpr int STAGES = 3;         // ring slots
 
 template <int D>
-struct BwdTile {
-  static constexpr int CH = D < 64 ? D : 64;     // elements per box row
-  static constexpr int NCH = D / CH;             // boxes per row
-  static constexpr int RB = CH * 2;              // bytes per box row
-  static constexpr hp::Swizzle SW = RB == 128 ? hp::SW128 : hp::SW64;
+struct BwdTile : hp::RowTile<D> {
   static constexpr int KV_BYTES = KV_ROWS * D * 2;   // dk/dv: K or V
   static constexpr int QT_BYTES = QT * D * 2;        // dk/dv: Q or dO tile
   static constexpr int DKV_SMEM = 1024 + 2 * KV_BYTES + STAGES * 2 * QT_BYTES;
@@ -138,65 +134,11 @@ struct BwdTile {
   static constexpr int DQ_SMEM = 1024 + 2 * Q_BYTES + STAGES * 2 * KT_BYTES;
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// acc [64 x N] = A [64 x D] B [N x D]^T for one warpgroup, both operands
-// K-major in D-column boxes: A's rows start at `a` in boxes of `a_rows`
-// rows, B's N rows fill boxes of N rows at `b`.
-template <int D, int N>
-__device__ __forceinline__ void issue_abt(float (&acc)[N / 2],
-                                          const uint8_t* a, int a_rows,
-                                          const uint8_t* b) {
-  using T = BwdTile<D>;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int ch = kk * 16 / T::CH, within = (kk * 16 % T::CH) * 2;
-    const uint64_t da = hp::smem_desc(a + ch * a_rows * T::RB + within,
-                                      T::SW, 16, 8 * T::RB);
-    const uint64_t db = hp::smem_desc(b + ch * N * T::RB + within, T::SW,
-                                      16, 8 * T::RB);
-    hp::wgmma_ss<N, 0>(acc, da, db, kk > 0);
-  }
-}
-
-// acc [64 x D] += A [64 x 64] B [64 x D]: A from registers (the bf16
-// fragments of four k16 slices), B MN-major in D-column boxes of 64 rows
-// (the contraction index) at `b`.
-template <int D>
-__device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
-                                         const uint32_t (&a)[4][4],
-                                         const uint8_t* b) {
-  using T = BwdTile<D>;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = hp::smem_desc(b + kk * 16 * T::RB, T::SW,
-                                      64 * T::RB, 8 * T::RB);
-    hp::wgmma_rs<D, 1>(acc, a[kk], db, 1);
-  }
-}
-
-// A [64 x 64] f32 accumulator as the bf16 A fragments of four k16 slices.
-__device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4],
-                                           const float (&s)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = dstt::pack_bf16(s[8 * kk], s[8 * kk + 1]);
-    a[kk][1] = dstt::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    a[kk][2] = dstt::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    a[kk][3] = dstt::pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    hp::fence_regs(a[kk]);
-  }
-}
-
-// Accumulator element i of m64n64 for thread (warp w, g, t): row
-// 16 w + g + 8 (i % 4 / 2), column 8 (i / 4) + 2 t + i % 2.
-__device__ __forceinline__ int acc_col(int i, int t) {
-  return 8 * (i >> 2) + 2 * t + (i & 1);
-}
+using hp::acc_col;
+using hp::ex2;
+using hp::issue_abt;
+using hp::issue_rs;
+using hp::pack_frags;
 
 template <int D>
 __global__ void __launch_bounds__(WG_THREADS, 1)

@@ -4,9 +4,10 @@
 // not a fault, so each block is held against a plain computation before
 // a kernel is built on it:
 //
-//   dstt_selftest_tma: one TMA box of a bf16 tensor (2-D to 4-D, any
-//     swizzle) into shared memory, copied out byte for byte, so the
-//     caller can check the swizzle pattern and the zero fill at the edges;
+//   dstt_selftest_tma, dstt_selftest_tma_f32: one TMA box of a bf16 or
+//     f32 tensor (2-D to 4-D, any swizzle) into shared memory, copied out
+//     byte for byte, so the caller can check the swizzle pattern and the
+//     zero fill at the edges;
 //   dstt_selftest_wgmma: one warpgroup's out [64, N] f32 = A [64, 64] @ B
 //     over four k16 steps, A and B loaded by TMA with the given swizzle,
 //     A from shared memory or from registers, B K-major ([N, 64]) or
@@ -163,21 +164,18 @@ int wgmma_by_n(int N, const void* a, const void* b, void* out, int swizzle,
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// One TMA box of a contiguous bf16 tensor: `rank` (2 or 4) dims
-// innermost first, the box, the box's start coordinates (may run past the
-// edges), swizzle 0-3 (none, 32, 64, 128 B).  dst gets the box's shared
-// memory image, prod(box) bf16.
-extern "C" int dstt_selftest_tma(const void* src, void* dst, int rank,
-                                 const long long* dims, const int* box,
-                                 const int* coords, int swizzle,
-                                 void* stream) {
+// One TMA box of a contiguous bf16 (es 2) or f32 (es 4) tensor: `rank` (2
+// or 4) dims innermost first, the box, the box's start coordinates (may
+// run past the edges), swizzle 0-3 (none, 32, 64, 128 B).  dst gets the
+// box's shared memory image, prod(box) elements.
+int tma_box(const void* src, void* dst, int rank, const long long* dims,
+            const int* box, const int* coords, int swizzle, int es,
+            cudaStream_t stream) {
   if (rank != 2 && rank != 4) return (int)cudaErrorInvalidValue;
   uint64_t d[4], s[3];
   uint32_t b[4];
-  uint64_t stride = 2;
-  int bytes = 2;
+  uint64_t stride = es;
+  int bytes = es;
   for (int i = 0; i < rank; ++i) {
     d[i] = (uint64_t)dims[i];
     b[i] = (uint32_t)box[i];
@@ -186,17 +184,38 @@ extern "C" int dstt_selftest_tma(const void* src, void* dst, int rank,
     stride *= d[i];
   }
   CUtensorMap map;
-  int rc = dstt::hopper::make_map_bf16(
-      &map, src, rank, d, s, b, static_cast<dstt::hopper::Swizzle>(swizzle));
+  int rc = hp::make_map(
+      &map, es == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      src, rank, d, s, b, static_cast<hp::Swizzle>(swizzle));
   if (rc) return rc;
   const int smem = 1024 + bytes;
   cudaError_t e = cudaFuncSetAttribute(
       tma_box_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  tma_box_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+  tma_box_kernel<<<1, 128, smem, stream>>>(
       map, static_cast<uint8_t*>(dst), bytes, rank, coords[0], coords[1],
       rank > 2 ? coords[2] : 0, rank > 2 ? coords[3] : 0);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One TMA box of a contiguous tensor (see tma_box), bf16 and f32.
+extern "C" int dstt_selftest_tma(const void* src, void* dst, int rank,
+                                 const long long* dims, const int* box,
+                                 const int* coords, int swizzle,
+                                 void* stream) {
+  return tma_box(src, dst, rank, dims, box, coords, swizzle, 2,
+                 static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int dstt_selftest_tma_f32(const void* src, void* dst, int rank,
+                                     const long long* dims, const int* box,
+                                     const int* coords, int swizzle,
+                                     void* stream) {
+  return tma_box(src, dst, rank, dims, box, coords, swizzle, 4,
+                 static_cast<cudaStream_t>(stream));
 }
 
 // out [64, N] f32 = a [64, 64] @ (b_mn ? b [64, N] : b [N, 64]^T), bf16

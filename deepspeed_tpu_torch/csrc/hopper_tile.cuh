@@ -1,13 +1,15 @@
 // Hopper building blocks shared by the port's TMA + wgmma kernels
-// (tile_matmul.cu, flash_fwd.cu; hopper_selftest.cu checks each alone).
+// (tile_matmul.cu, flash_fwd.cu, flash_bwd.cu, evoformer_flash.cu;
+// hopper_selftest.cu checks each alone).
 //
 //   * Tensor maps (TMA descriptors), encoded on the host with the CUDA driver's
 //     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so
 //     that the libraries link no libcuda; a kernel takes a map as a
 //     `__grid_constant__ const CUtensorMap` parameter.
-//   * TMA tile loads (2-D and 4-D cp.async.bulk.tensor) into shared
-//     memory, completing on an mbarrier (init, arrive.expect_tx, arrive,
-//     try_wait.parity on the phase bit of a ring slot).
+//   * TMA tile loads (2-D and 4-D cp.async.bulk.tensor, bf16 or f32
+//     elements) into shared memory, completing on an mbarrier (init,
+//     arrive.expect_tx, arrive, try_wait.parity on the phase bit of a ring
+//     slot).
 //   * wgmma: shared-memory matrix descriptors for the 32, 64 and 128 byte
 //     swizzles that TMA writes, fence / commit / wait, and
 //     wgmma.mma_async m64nNk16 (N 32, 64, 128), bf16 in, f32
@@ -74,12 +76,13 @@ inline EncodeTiledFn encode_tiled() {
 // Swizzle widths, as CUtensorMapSwizzle counts them.
 enum Swizzle { SW_NONE = 0, SW32 = 1, SW64 = 2, SW128 = 3 };
 
-// A bf16 tensor map of `rank` dims (innermost first), byte strides of
-// dims 1 .. rank-1, the box in elements, zero fill past every edge.
-// Returns 0 or a CUDA error code.
-inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
-                         const uint64_t* dims, const uint64_t* strides,
-                         const uint32_t* box, Swizzle swizzle) {
+// A tensor map of `rank` dims (innermost first) of bf16 or f32 elements,
+// byte strides of dims 1 .. rank-1, the box in elements, zero fill past
+// every edge.  Returns 0 or a CUDA error code.
+inline int make_map(CUtensorMap* map, CUtensorMapDataType type,
+                    const void* base, int rank, const uint64_t* dims,
+                    const uint64_t* strides, const uint32_t* box,
+                    Swizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   cuuint64_t d[5], s[4];
@@ -90,13 +93,19 @@ inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                  const_cast<void*>(base), d, s, b, e,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+  CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), d,
+                  s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   static_cast<CUtensorMapSwizzle>(swizzle),
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                         const uint64_t* dims, const uint64_t* strides,
+                         const uint32_t* box, Swizzle swizzle) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                  strides, box, swizzle);
 }
 
 // ---------------------------------------------------------------------
@@ -407,6 +416,85 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, db, scale_d);
   if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, scale_d);
   if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, db, scale_d);
+}
+
+// ---------------------------------------------------------------------
+// attention tiles of D bf16 columns (the backward kernels' products)
+// Rows of D bf16 as TMA boxes of CH columns (64 at most, the 128-byte
+// swizzle's width; D 32 is one 64-byte box), NCH boxes a row, RB bytes a
+// box row.
+template <int D>
+struct RowTile {
+  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  static constexpr int CH = D < 64 ? D : 64;
+  static constexpr int NCH = D / CH;
+  static constexpr int RB = CH * 2;
+  static constexpr Swizzle SW = RB == 128 ? SW128 : SW64;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// acc [64 x N] = A [64 x D] B [N x D]^T for one warpgroup, both operands
+// K-major in D-column boxes: A's rows start at `a` in boxes of `a_rows`
+// rows, B's N rows fill boxes of N rows at `b`.
+template <int D, int N>
+__device__ __forceinline__ void issue_abt(float (&acc)[N / 2],
+                                          const uint8_t* a, int a_rows,
+                                          const uint8_t* b) {
+  using T = RowTile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int ch = kk * 16 / T::CH, within = (kk * 16 % T::CH) * 2;
+    const uint64_t da = smem_desc(a + ch * a_rows * T::RB + within, T::SW,
+                                  16, 8 * T::RB);
+    const uint64_t db = smem_desc(b + ch * N * T::RB + within, T::SW, 16,
+                                  8 * T::RB);
+    wgmma_ss<N, 0>(acc, da, db, kk > 0);
+  }
+}
+
+// acc [64 x D] += A [64 x 64] B [64 x D]: A from registers (the bf16
+// fragments of four k16 slices), B MN-major in D-column boxes of 64 rows
+// (the contraction index) at `b`.
+template <int D>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
+                                         const uint32_t (&a)[4][4],
+                                         const uint8_t* b) {
+  using T = RowTile<D>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = smem_desc(b + kk * 16 * T::RB, T::SW, 64 * T::RB,
+                                  8 * T::RB);
+    wgmma_rs<D, 1>(acc, a[kk], db, 1);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A [64 x 64] f32 accumulator as the bf16 A fragments of four k16 slices.
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4],
+                                           const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16x2(s[8 * kk], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+    fence_regs(a[kk]);
+  }
+}
+
+// Accumulator element i of m64n64 for thread (warp w, g, t): row
+// 16 w + g + 8 (i % 4 / 2), column 8 (i / 4) + 2 t + i % 2.
+__device__ __forceinline__ int acc_col(int i, int t) {
+  return 8 * (i >> 2) + 2 * t + (i & 1);
 }
 
 }  // namespace hopper

@@ -15,6 +15,10 @@ Counterpart of `deepspeed_tpu/ops/evoformer_flash.py`
   from `out` as stored, which the other two kernels read;
 - `evoformer_flash_dkv`: dk and dv, and with `need_db1` the mask-bias
   gradient db1 as its epilogue (counted on `evoformer_flash_db1`);
+  `bwd_variant` names the kernel pair (dq, dk/dv) inputs take on the card
+  (warp-specialised TMA + wgmma, mma.sync through registers, or the f32
+  CUDA-core pair) and each of the two wrappers counts its launches per
+  variant in `launches_by_variant`;
 - `evoformer_flash_db2`: the pair-bias gradient, summed over the N rows
   in a fixed order.
 `evoformer_flash_backward` runs the three backward kernels.  Nothing
@@ -48,23 +52,64 @@ __all__ = ["evoformer_flash_forward", "evoformer_flash_forward_dmajor",
            "evoformer_flash_db1", "evoformer_flash_forward_reference",
            "evoformer_flash_dq_reference", "evoformer_flash_dkv_reference",
            "evoformer_flash_db2_reference",
-           "evoformer_flash_backward_reference", "NEG_INF"]
+           "evoformer_flash_backward_reference", "bwd_variant",
+           "pair_bias_pitch", "BWD_VARIANTS", "NEG_INF"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SHAPE = (_I,) * 6 + (_F, _I, _P)      # B, N, L, H, D, bias dtypes; rest
+_WG_SHAPE = (_I,) * 6 + (_F, _I, _P)   # ..., scale, the pair bias's pitch
 _FWD_ARGS = (_P,) * 7 + _SHAPE
 _DQ_ARGS = (_P,) * 10 + _SHAPE
 _DKV_ARGS = (_P,) * 11 + _SHAPE
 _DB2_ARGS = (_P,) * 9 + _SHAPE
+# each backward pair kernel's C entry points: (mma / f32, wgmma)
+_PAIR_ARGS = {"dq": (_DQ_ARGS, (_P,) * 10 + _WG_SHAPE),
+              "dkv": (_DKV_ARGS, (_P,) * 11 + _WG_SHAPE)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BIAS_DTYPES = (torch.float32, torch.bfloat16)
+# the dq and dk/dv kernel pairs: TMA + wgmma (bf16, D 32/64/128),
+# mma.sync through registers (bf16, every other D), CUDA cores (f32)
+BWD_VARIANTS = ("wgmma", "mma", "f32")
+WGMMA_HEAD_DIMS = (32, 64, 128)
 
 # The dk/dv kernel's launches that also computed db1 (its epilogue stands
 # for the TPU's separate db1 kernel).
 evoformer_flash_db1 = types.SimpleNamespace(__name__="evoformer_flash_db1",
                                             launches=0)
+
+
+def bwd_variant(dtype, D: int, L: int) -> str:
+    """The dq and dk/dv kernel pair that inputs of `dtype`, head dim `D`
+    and length `L` take on the card: "f32" for float32 (CUDA cores, exact
+    f32 products); for bf16 "wgmma" (warp-specialised TMA + wgmma) at D
+    32, 64 and 128, and "mma" (mma.sync through registers) at every other
+    D % 8 == 0 up to 128: wgmma contracts D in whole 16-column steps of a
+    swizzled row, and D 8 (the extra-MSA width) would run 4x padded.
+    Every L takes the same pair (TMA zero-fills the tails; a pair bias
+    whose rows TMA cannot address is copied, `pair_bias_pitch`)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype}: the Evoformer kernels take bf16 "
+                        f"or f32")
+    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D}: the Evoformer kernels take "
+                         f"D % 8 == 0 and D <= {MAX_HEAD_DIM}")
+    if L < 1:
+        raise ValueError(f"length {L}")
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if D in WGMMA_HEAD_DIMS else "mma"
+
+
+def pair_bias_pitch(L: int, dtype) -> int:
+    """Elements between rows of the pair bias [B, 1, H, L, L] that the
+    wgmma pair reads by TMA, whose rows must start on 16-byte boundaries:
+    L where L elements of `dtype` fill whole 16-byte units, else L
+    rounded up to one, in a zero-padded copy that the wrappers make and
+    count (`pair_bias_copies`)."""
+    unit = 16 // torch.empty((), dtype=dtype).element_size()
+    return -(-L // unit) * unit
 
 
 def _scale(scale, D):
@@ -248,6 +293,47 @@ def _shape_args(q, bias_bits, scale):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
+def _tma_pair_bias(wrapper, b2, L):
+    """(the pair bias as the wgmma pair reads it, its row pitch): `b2`
+    itself where TMA can address its rows, else a zero-padded copy of
+    pitch `pair_bias_pitch` (counted on the wrapper's
+    `pair_bias_copies`)."""
+    if b2 is None:
+        return None, L
+    pitch = pair_bias_pitch(L, b2.dtype)
+    if pitch == L:
+        return b2, L
+    padded = b2.new_zeros(b2.shape[:-1] + (pitch,))
+    padded[..., :L] = b2
+    wrapper.pair_bias_copies += 1
+    return padded, pitch
+
+
+def _run_pair(wrapper, kernel, q, k, v, b1, b2, rest, scale):
+    """Launch the dq or dk/dv kernel (`kernel` "dq" or "dkv") of the pair
+    that `bwd_variant` names, `rest` being the pointers after the biases;
+    count the launch on `wrapper` by variant."""
+    B, N, L, H, D = q.shape
+    variant = bwd_variant(q.dtype, D, L)
+    if variant == "wgmma":
+        b2, pitch = _tma_pair_bias(wrapper, b2, L)
+    p1, p2, bits = _bias_args(b1, b2)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), p1, p2) + rest
+    plain_args, wgmma_args = _PAIR_ARGS[kernel]
+    if variant == "wgmma":
+        fn = _build.function("evoformer_flash", f"dstt_evo_{kernel}_wgmma",
+                             wgmma_args)
+        rc = fn(*args, B, N, L, H, D, bits, _scale(scale, D), pitch,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    else:
+        fn = _build.function("evoformer_flash", f"dstt_evo_{kernel}",
+                             plain_args)
+        rc = fn(*args, *_shape_args(q, bits, scale))
+    _build.check(rc, f"Evoformer attention {kernel}")
+    wrapper.launches += 1
+    wrapper.launches_by_variant[variant] += 1
+
+
 def evoformer_flash_forward(q, k, v, b1=None, b2=None,
                             scale: Optional[float] = None,
                             return_lse: bool = False):
@@ -289,13 +375,9 @@ def evoformer_flash_dq(q, k, v, b1, b2, out, do, lse,
     B, N, L, H, D = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty((B * N, H, L), dtype=torch.float32, device=q.device)
-    p1, p2, bits = _bias_args(b1, b2)
-    fn = _build.function("evoformer_flash", "dstt_evo_dq", _DQ_ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), p1, p2,
-            out.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-            delta.data_ptr(), *_shape_args(q, bits, scale))
-    _build.check(rc, "Evoformer attention dq")
-    evoformer_flash_dq.launches += 1
+    _run_pair(evoformer_flash_dq, "dq", q, k, v, b1, b2,
+              (out.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+               delta.data_ptr()), scale)
     return dq, delta
 
 
@@ -313,14 +395,10 @@ def evoformer_flash_dkv(q, k, v, b1, b2, do, lse, delta,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     db1 = torch.empty_like(b1) if b1 is not None and need_db1 else None
-    p1, p2, bits = _bias_args(b1, b2)
-    fn = _build.function("evoformer_flash", "dstt_evo_dkv", _DKV_ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), p1, p2, do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            db1.data_ptr() if db1 is not None else None,
-            *_shape_args(q, bits, scale))
-    _build.check(rc, "Evoformer attention dk/dv")
-    evoformer_flash_dkv.launches += 1
+    _run_pair(evoformer_flash_dkv, "dkv", q, k, v, b1, b2,
+              (do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+               dk.data_ptr(), dv.data_ptr(),
+               db1.data_ptr() if db1 is not None else None), scale)
     if db1 is not None:
         evoformer_flash_db1.launches += 1
     return dk, dv, db1
@@ -366,3 +444,9 @@ evoformer_flash_forward.launches = 0
 evoformer_flash_dq.launches = 0
 evoformer_flash_dkv.launches = 0
 evoformer_flash_db2.launches = 0
+# launches per kernel pair (BWD_VARIANTS), reset with `launches`; and the
+# wgmma launches that read a padded copy of the pair bias
+evoformer_flash_dq.launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
+evoformer_flash_dkv.launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
+evoformer_flash_dq.pair_bias_copies = 0
+evoformer_flash_dkv.pair_bias_copies = 0

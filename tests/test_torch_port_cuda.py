@@ -678,23 +678,46 @@ def test_int8_fused_training_on_the_card(card):
 
 
 # (B, N, L, H, D, biases): AlphaFold's widths at small N, the tails of L
-# (100, 77), every D class (8 runs padded to 16, 24 to 32, 48 to 64)
+# (100, 77), every D class (8 runs padded to 16, 24 to 32, 48 to 64; the
+# bf16 pair takes TMA + wgmma at D 32, 64 and 128, mma.sync elsewhere)
 EVO_CASES = [(1, 4, 256, 8, 32, "both"), (1, 3, 100, 4, 8, "both"),
              (2, 2, 77, 2, 48, "b1"), (1, 2, 128, 2, 128, "b2"),
-             (1, 3, 64, 2, 24, "none"), (1, 2, 96, 4, 64, "both")]
+             (1, 3, 64, 2, 24, "none"), (1, 2, 96, 4, 64, "both"),
+             (1, 3, 100, 4, 32, "both")]
 
 
-def _evo_inputs(g, dtype, B, N, L, H, D, which, mask_row=False):
+def _evo_inputs(g, dtype, B, N, L, H, D, which, mask_row=False,
+                b2_dtype=torch.bfloat16):
     """q, k, v in `dtype`; b1 f32 with about 15% of keys at -1e9 (and,
-    with `mask_row`, row 0 at -1e30 everywhere); b2 bf16."""
+    with `mask_row`, row 0 at -1e30 everywhere); b2 in `b2_dtype`."""
     q, k, v = (_rnd(g, dtype, B, N, L, H, D) for _ in range(3))
     b1 = torch.where(torch.rand(B, N, 1, 1, L, generator=g, device="cuda")
                      < 0.15, -1e9, 0.0)
     if mask_row:
         b1[0, 0] = -1e30
-    b2 = _rnd(g, torch.bfloat16, B, 1, H, L, L)
+    b2 = _rnd(g, b2_dtype, B, 1, H, L, L)
     return (q, k, v, b1 if which in ("b1", "both") else None,
             b2 if which in ("b2", "both") else None)
+
+
+def _evo_want_variant(dtype, D):
+    """The kernel pair each case must take: the f32 CUDA-core pair, TMA +
+    wgmma for bf16 at D 32, 64 and 128, mma.sync for other bf16 D."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if D in (32, 64, 128) else "mma"
+
+
+def _evo_check_backward(got, again, want):
+    for gt, ag, w in zip(got, again, want):
+        assert (gt is None) == (w is None)
+        if w is None:
+            continue
+        assert gt.shape == w.shape and gt.dtype == w.dtype
+        assert torch.equal(gt, ag)          # no atomics: the same bits
+        # each gradient rounds once to its own dtype (db2 to b2's bf16)
+        scale = max(float(w.float().abs().max()), 1.0)
+        _close(gt, w, BWD_ATOL[gt.dtype] * scale, BWD_RTOL[gt.dtype])
 
 
 @DTYPES
@@ -707,7 +730,9 @@ def test_evoformer_kernels_match_plain_versions(card, dtype, B, N, L, H, D,
     counters = (tevof.evoformer_flash_forward, tevof.evoformer_flash_dq,
                 tevof.evoformer_flash_dkv, tevof.evoformer_flash_db2,
                 tevof.evoformer_flash_db1)
+    pair = (tevof.evoformer_flash_dq, tevof.evoformer_flash_dkv)
     before = [c.launches for c in counters]
+    by_variant = [dict(c.launches_by_variant) for c in pair]
     out, lse = tevof.evoformer_flash_forward(q, k, v, b1, b2,
                                              return_lse=True)
     ref, ref_lse = tevof.evoformer_flash_forward_reference(q, k, v, b1, b2)
@@ -720,21 +745,53 @@ def test_evoformer_kernels_match_plain_versions(card, dtype, B, N, L, H, D,
     again = tevof.evoformer_flash_backward(q, k, v, b1, b2, out, do, lse)
     want = tevof.evoformer_flash_backward_reference(q, k, v, b1, b2, out,
                                                     do, lse)
-    for gt, ag, w in zip(got, again, want):
-        assert (gt is None) == (w is None)
-        if w is None:
-            continue
-        assert gt.shape == w.shape and gt.dtype == w.dtype
-        assert torch.equal(gt, ag)          # no atomics: the same bits
-        # each gradient rounds once to its own dtype (db2 to b2's bf16)
-        scale = max(float(w.float().abs().max()), 1.0)
-        _close(gt, w, BWD_ATOL[gt.dtype] * scale, BWD_RTOL[gt.dtype])
+    _evo_check_backward(got, again, want)
+    if which == "both":   # the masked row's gradients are zero
+        assert all((t[0, 0] == 0).all() for t in got[:3])
     _, delta = tevof.evoformer_flash_dq(q, k, v, b1, b2, out, do, lse)
     _close(delta, tevof._delta(out, do), 1e-5 * max(
         float(delta.abs().max()), 1.0))
     # one forward, two backward calls and one more dq
     assert [c.launches - b for c, b in zip(counters, before)] == \
         [1, 3, 2, 2 * int(b2 is not None), 2 * int(b1 is not None)]
+    variant = _evo_want_variant(dtype, D)
+    assert tevof.bwd_variant(dtype, D, L) == variant
+    for c, b, n in zip(pair, by_variant, (3, 2)):
+        assert {k: c.launches_by_variant[k] - b[k] for k in b} == {
+            k: n if k == variant else 0 for k in b}
+
+
+@pytest.mark.parametrize("L,b2_dtype", [(77, torch.float32),
+                                        (100, torch.float32),
+                                        (100, torch.bfloat16),
+                                        (128, torch.float32)],
+                         ids=["L77-f32", "L100-f32", "L100-bf16",
+                              "L128-f32"])
+def test_evoformer_wgmma_pair_takes_any_pair_bias_row(card, L, b2_dtype):
+    """The TMA + wgmma pair reads the pair bias by TMA, whose rows must
+    start on 16-byte boundaries: a row of L elements that does not (L 77
+    in f32, L 100 in bf16) is read from a zero-padded copy, counted on
+    each wrapper; L 100 and 128 in f32 are read as they are."""
+    q, k, v, b1, b2 = _evo_inputs(card, torch.bfloat16, 1, 3, L, 4, 32,
+                                  "both", mask_row=True, b2_dtype=b2_dtype)
+    pair = (tevof.evoformer_flash_dq, tevof.evoformer_flash_dkv)
+    copies = [c.pair_bias_copies for c in pair]
+    wgmma = [c.launches_by_variant["wgmma"] for c in pair]
+    out, lse = tevof.evoformer_flash_forward(q, k, v, b1, b2,
+                                             return_lse=True)
+    do = _rnd(card, torch.bfloat16, *q.shape)
+    got = tevof.evoformer_flash_backward(q, k, v, b1, b2, out, do, lse)
+    again = tevof.evoformer_flash_backward(q, k, v, b1, b2, out, do, lse)
+    want = tevof.evoformer_flash_backward_reference(q, k, v, b1, b2, out,
+                                                    do, lse)
+    _evo_check_backward(got, again, want)
+    assert got[4].dtype == b2_dtype
+    padded = tevof.pair_bias_pitch(L, b2_dtype) != L
+    assert padded == (L * b2.element_size() % 16 != 0)
+    assert [c.pair_bias_copies - n for c, n in zip(pair, copies)] == \
+        [2 * int(padded)] * 2
+    assert [c.launches_by_variant["wgmma"] - n
+            for c, n in zip(pair, wgmma)] == [2, 2]
 
 
 def test_evoformer_attention_trains_through_the_kernels(card):
@@ -836,25 +893,19 @@ def _swizzled(off, swizzle):
     return off ^ (((off >> 7) & mask) << 4)
 
 
-@pytest.mark.parametrize("rank,dims,box,coords,swizzle", [
-    (2, (64, 40), (64, 16), (0, 8), 3),
-    (2, (64, 40), (32, 16), (32, 30), 2),      # rows past the edge: zero
-    (2, (48, 20), (16, 8), (16, 0), 1),
-    (2, (48, 20), (24, 8), (8, 4), 0),
-    (4, (128, 3, 100, 2), (64, 1, 128, 1), (64, 1, 0, 1), 3),
-    (4, (32, 2, 50, 3), (32, 1, 128, 1), (0, 1, 0, 2), 2)],
-    ids=["2d-sw128", "2d-sw64-edge", "2d-sw32", "2d-none", "4d-sw128-S100",
-         "4d-sw64-S50"])
-def test_hopper_tma_box_lands_swizzled_and_zero_filled(card, rank, dims,
-                                                      box, coords, swizzle):
+def _tma_box_image(g, symbol, rank, dims, box, coords, swizzle, itype):
+    """One TMA box of a random tensor of `itype` elements (int16 for bf16,
+    int32 for f32: the copy moves bits) through selftest `symbol`, against
+    the image the swizzle and the zero fill predict."""
     import ctypes
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _selftest("dstt_selftest_tma", (P, P, I, P, P, P, I, P))
+    fn = _selftest(symbol, (P, P, I, P, P, P, I, P))
+    es = torch.empty((), dtype=itype).element_size()
     numel = int(np.prod(dims))
-    src = torch.randint(-2 ** 15, 2 ** 15, (numel,), generator=card,
-                        device="cuda", dtype=torch.int32).to(torch.int16)
+    src = torch.randint(-2 ** 15, 2 ** 15, (numel,), generator=g,
+                        device="cuda", dtype=torch.int32).to(itype)
     nbox = int(np.prod(box))
-    dst = torch.full((nbox,), 7, dtype=torch.int16, device="cuda")
+    dst = torch.full((nbox,), 7, dtype=itype, device="cuda")
     dims_c = (ctypes.c_longlong * rank)(*dims)
     box_c = (ctypes.c_int * rank)(*box)
     coords_c = (ctypes.c_int * rank)(*coords)
@@ -863,8 +914,8 @@ def test_hopper_tma_box_lands_swizzled_and_zero_filled(card, rank, dims,
     assert rc == 0
     torch.cuda.synchronize()
     # expected image: box element (innermost first) -> its source element
-    want = np.zeros(nbox, np.int16)
     full = src.view(*dims[::-1]).cpu().numpy()
+    want = np.zeros(nbox, full.dtype)
     for flat in range(nbox):
         idx, rem = [], flat
         for b in box:
@@ -873,8 +924,40 @@ def test_hopper_tma_box_lands_swizzled_and_zero_filled(card, rank, dims,
         pos = [c + i for c, i in zip(coords, idx)]
         inside = all(0 <= p < d for p, d in zip(pos, dims))
         val = full[tuple(pos[::-1])] if inside else 0
-        want[_swizzled(2 * flat, swizzle) // 2] = val
+        want[_swizzled(es * flat, swizzle) // es] = val
     assert np.array_equal(dst.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("rank,dims,box,coords,swizzle", [
+    (2, (64, 40), (64, 16), (0, 8), 3),
+    (2, (64, 40), (32, 16), (32, 30), 2),      # rows past the edge: zero
+    (2, (48, 20), (16, 8), (16, 0), 1),
+    (2, (48, 20), (24, 8), (8, 4), 0),
+    (4, (128, 3, 100, 2), (64, 1, 128, 1), (64, 1, 0, 1), 3),
+    (4, (32, 2, 50, 3), (32, 1, 128, 1), (0, 1, 0, 2), 2),
+    # the Evoformer pair bias [B, H, L, L] (keys innermost), bf16 boxes of
+    # 64 keys: the transposed tile of dk/dv and the rows of dq, past L
+    (4, (104, 100, 2, 1), (64, 64, 1, 1), (64, 64, 1, 0), 3)],
+    ids=["2d-sw128", "2d-sw64-edge", "2d-sw32", "2d-none", "4d-sw128-S100",
+         "4d-sw64-S50", "4d-sw128-bias-L100"])
+def test_hopper_tma_box_lands_swizzled_and_zero_filled(card, rank, dims,
+                                                      box, coords, swizzle):
+    _tma_box_image(card, "dstt_selftest_tma", rank, dims, box, coords,
+                   swizzle, torch.int16)
+
+
+@pytest.mark.parametrize("rank,dims,box,coords,swizzle", [
+    (2, (64, 40), (32, 16), (32, 30), 3),
+    (4, (80, 77, 3, 2), (32, 64, 1, 1), (64, 64, 2, 1), 3),   # pitch 80
+    (4, (100, 100, 2, 1), (32, 128, 1, 1), (96, 0, 1, 0), 3)],
+    ids=["2d-sw128-edge", "4d-sw128-bias-L77", "4d-sw128-bias-L100"])
+def test_hopper_tma_f32_box_lands_swizzled_and_zero_filled(
+        card, rank, dims, box, coords, swizzle):
+    """f32 tensor maps, as the Evoformer wgmma pair reads an f32 pair bias:
+    boxes of 32 keys (128 bytes, the 128-byte swizzle), rows and keys past
+    L zero."""
+    _tma_box_image(card, "dstt_selftest_tma_f32", rank, dims, box, coords,
+                   swizzle, torch.int32)
 
 
 # (N, B MN-major, swizzle): an MN-major B is stored in column blocks of
@@ -991,10 +1074,12 @@ def test_evoformer_takes_a_misaligned_bias_view(card):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_evoformer_kernels_walk_more_slices_than_the_grid(card, dtype):
+@pytest.mark.parametrize("D", [8, 32], ids=["d8", "d32"])
+def test_evoformer_kernels_walk_more_slices_than_the_grid(card, dtype, D):
     """B*N = 70000 rows: past the 65535 grid limit, every slice is served
-    by the grid-stride loops, forward and backward."""
-    q, k, v, b1, b2 = _evo_inputs(card, dtype, 1, 70000, 16, 1, 8, "both")
+    by the grid-stride loops, forward and backward (bf16 D 32 on the TMA
+    + wgmma pair, whose CTAs walk several slices through one ring)."""
+    q, k, v, b1, b2 = _evo_inputs(card, dtype, 1, 70000, 16, 1, D, "both")
     out, lse = tevof.evoformer_flash_forward(q, k, v, b1, b2,
                                              return_lse=True)
     ref, ref_lse = tevof.evoformer_flash_forward_reference(q, k, v, b1, b2)

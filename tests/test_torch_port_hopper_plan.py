@@ -1,5 +1,7 @@
-"""The tile GEMM's host plan (`ops/tp_matmul.tile_plan`) and the flash
-backward's kernel choice (`ops/flash_attention.bwd_variant`) on the CPU.
+"""The tile GEMM's host plan (`ops/tp_matmul.tile_plan`), the flash
+backward's kernel choice (`ops/flash_attention.bwd_variant`) and the
+Evoformer backward's (`ops/evoformer_flash.bwd_variant`, with the pair-bias
+row pitch its TMA pair reads, `pair_bias_pitch`) on the CPU.
 
 The plan picks the kernel for a shape (the split-K TMA stream at the
 decode hops, TMA + wgmma at the prefill hops, the cp.async or CUDA-core
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import evoformer_flash as tevof
 from deepspeed_tpu_torch.ops import flash_attention as tflash
 from deepspeed_tpu_torch.ops import tp_matmul as ttm
 
@@ -194,3 +197,100 @@ def test_flash_backward_on_the_cpu_counts_no_kernel_launch():
     tflash.flash_attention_bwd_dkv(q, k, v, out, lse, do, delta=delta)
     assert ([c.launches for c in counters],
             [dict(c.launches_by_variant) for c in counters[1:]]) == before
+
+
+# (dtype, D, L, the pair): phase 12's MSA row and triangle (D 32, L 256)
+# and extra-MSA row (D 8) shapes, phase 1's L 100 tail (its bf16 pair-bias
+# rows are 200 bytes, off TMA's 16-byte stride rule) and every other head
+# dim class the kernels take
+EVO_VARIANTS = [(torch.bfloat16, 32, 256, "wgmma"),
+                (torch.bfloat16, 32, 100, "wgmma"),
+                (torch.bfloat16, 64, 77, "wgmma"),
+                (torch.bfloat16, 128, 128, "wgmma"),
+                (torch.bfloat16, 8, 256, "mma"),
+                (torch.bfloat16, 16, 64, "mma"),
+                (torch.bfloat16, 24, 100, "mma"),
+                (torch.bfloat16, 48, 77, "mma"),
+                (torch.float32, 32, 256, "f32"),
+                (torch.float32, 8, 100, "f32")]
+
+
+@pytest.mark.parametrize("dtype,D,L,want", EVO_VARIANTS, ids=[
+    f"{str(c[0])[6:]}-d{c[1]}-L{c[2]}" for c in EVO_VARIANTS])
+def test_evoformer_backward_variant_by_dtype_head_dim_and_length(
+        dtype, D, L, want):
+    """bf16 takes the TMA + wgmma pair at D 32, 64 and 128 (any L, D 8 of
+    the extra-MSA row stays on mma.sync), f32 the CUDA-core pair."""
+    assert tevof.bwd_variant(dtype, D, L) == want
+    assert want in tevof.BWD_VARIANTS
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int8, torch.float64])
+def test_evoformer_backward_variant_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tevof.bwd_variant(dtype, 32, 256)
+
+
+@pytest.mark.parametrize("D", [4, 12, 136])
+def test_evoformer_backward_variant_refuses_other_head_dims(D):
+    with pytest.raises(ValueError, match="head dim"):
+        tevof.bwd_variant(torch.bfloat16, D, 256)
+
+
+@pytest.mark.parametrize("L,dtype,pitch", [
+    (256, torch.bfloat16, 256), (100, torch.bfloat16, 104),
+    (77, torch.bfloat16, 80), (100, torch.float32, 100),
+    (77, torch.float32, 80), (1, torch.float32, 4)])
+def test_evoformer_pair_bias_pitch_meets_the_tma_stride_rule(L, dtype,
+                                                             pitch):
+    """The pair bias's rows as the wgmma pair reads them: 16-byte
+    multiples, L itself where it already is one, else the least
+    multiple above (a zero-padded copy)."""
+    got = tevof.pair_bias_pitch(L, dtype)
+    assert got == pitch
+    size = torch.empty((), dtype=dtype).element_size()
+    assert got * size % 16 == 0 and L <= got < L + 16 // size
+
+
+def test_evoformer_pair_bias_copy_holds_the_bias_and_zeros():
+    """The padded copy (its rows `pair_bias_pitch` apart) holds b2 in the
+    first L keys of every row and zeros past them, and is counted."""
+    g = torch.Generator().manual_seed(0)
+    b2 = torch.randn(1, 1, 2, 100, 100, generator=g).bfloat16()
+    fn = tevof.evoformer_flash_dq
+    before = fn.pair_bias_copies
+    padded, pitch = tevof._tma_pair_bias(fn, b2, 100)
+    assert pitch == 104 and padded.shape == (1, 1, 2, 100, 104)
+    assert torch.equal(padded[..., :100], b2)
+    assert not padded[..., 100:].any()
+    assert fn.pair_bias_copies == before + 1
+    fn.pair_bias_copies = before
+    # rows already on 16-byte boundaries are read as they are
+    for bias in (b2.float(), b2[..., :96, :96].contiguous()):
+        L = bias.shape[-1]
+        assert tevof._tma_pair_bias(fn, bias, L)[0] is bias
+    assert tevof._tma_pair_bias(fn, None, 100) == (None, 100)
+    assert fn.pair_bias_copies == before
+
+
+def test_evoformer_variant_counters_name_every_kernel_and_count_no_cpu_launch():
+    """Both wrappers of the pair keep a count per variant, all zero on
+    the CPU, where the backward runs the plain versions."""
+    pair = (tevof.evoformer_flash_dq, tevof.evoformer_flash_dkv)
+    for fn in pair:
+        assert set(fn.launches_by_variant) == set(tevof.BWD_VARIANTS)
+        assert set(fn.launches_by_variant.values()) == {0}
+        assert fn.pair_bias_copies == 0
+    g = torch.Generator().manual_seed(1)
+    q, k, v, do = (torch.randn(1, 2, 9, 2, 32, generator=g).bfloat16()
+                   for _ in range(4))
+    b1 = torch.zeros(1, 2, 1, 1, 9)
+    b2 = torch.randn(1, 1, 2, 9, 9, generator=g).bfloat16()
+    out, lse = tevof.evoformer_flash_forward(q, k, v, b1, b2,
+                                             return_lse=True)
+    grads = tevof.evoformer_flash_backward(q, k, v, b1, b2, out, do, lse)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in grads)
+    for fn in pair:
+        assert fn.launches == 0
+        assert set(fn.launches_by_variant.values()) == {0}
+        assert fn.pair_bias_copies == 0
