@@ -20,9 +20,12 @@ B, A per round, each in a process of its own that builds its own kernels
 - `--what paged`: the paged prefill and paged decode kernels' device time
   at chip_smoke phase 1's main shapes (its `paged_main_inputs`), for
   packages that predate the training path too;
-- `--what sparse`: the block-sparse forward, dq and dk/dv kernels' device
-  time at chip_smoke phase 1's main shape (SPARSE_SHAPE bf16, phase 10's
-  first layout);
+- `--what sparse`: the block-sparse forward, delta, dq and dk/dv
+  kernels' device time at chip_smoke phase 1's main shape (SPARSE_SHAPE
+  bf16, phase 10's first layout; delta 0 where a package has no delta
+  kernel), the host time of phase 10's module forward per layout, and
+  the backward (CUDA events, on the pair each package routes to) at
+  phase 10's three layouts and its pair-gate sweep (`sweep_layouts`);
 - `--what evoformer`: the Evoformer forward, dq, dk/dv (with db1 where
   the mask bias requires grad) and db2 kernels' device time, and the
   backward's sum, at phase 12's MSA row, triangle and extra-MSA row shapes
@@ -59,26 +62,68 @@ def paged_worker(cs, np, torch):
                 lambda: pa.paged_decode_attention(*dec, layer_idx=1))}
 
 
+def _sparse_tables(sa, kidx, block):
+    """(idx, rev, backward keywords) of a package's device tables: a
+    package with the backward plan takes it, an older one has none."""
+    try:
+        tables = sa._device_tables(kidx, "cuda", block)
+    except TypeError:   # a package from before the plan
+        tables = sa._device_tables(kidx, "cuda")
+    kw = {"plan": tables[2]} if len(tables) > 2 else {}
+    return tables[0], tables[1], kw
+
+
 def sparse_worker(cs, np, torch):
-    """Device ms of the block-sparse kernels at phase 1's main shape."""
+    """Device ms of the block-sparse kernels at phase 1's main shape (the
+    delta kernel 0 where the package has none), the backward at phase
+    10's layouts and at its pair-gate sweep (CUDA events, the pair each
+    package routes to)."""
     from deepspeed_tpu_torch.ops import sparse_attention as sa
     from deepspeed_tpu_torch.ops import sparse_flash as sf
     B, S, H, D = cs.SPARSE_SHAPE
     _, cfg = cs.sparse_layouts(sa, H)[0]
     block = cfg.block
-    idx, rev = sa._device_tables(sa._layout_to_gather(cfg.make_layout(S)),
-                                 "cuda")
+    idx, rev, kw = _sparse_tables(
+        sa, sa._layout_to_gather(cfg.make_layout(S)), block)
     g = torch.Generator(device="cuda").manual_seed(9)
     q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda",
                                dtype=torch.bfloat16) for _ in range(4))
     out, lse = sf.block_sparse_flash_attention(q, k, v, idx, block, False,
                                                return_lse=True)
-    return {"fwd_ms": cs.time_ms(lambda: sf.block_sparse_flash_attention(
-                q, k, v, idx, block, False, return_lse=True)),
-            "dq_ms": cs.time_ms(lambda: sf.block_sparse_flash_dq(
-                q, k, v, idx, out, do, lse, block, False)),
-            "dkv_ms": cs.time_ms(lambda: sf.block_sparse_flash_dkv(
-                q, k, v, idx, rev, out, do, lse, block, False))}
+    res = {"fwd_ms": cs.time_ms(lambda: sf.block_sparse_flash_attention(
+        q, k, v, idx, block, False, return_lse=True)), "delta_ms": 0.0}
+    if hasattr(sf, "block_sparse_flash_bwd_delta") and sf.bwd_variant(
+            q.dtype, D, block) == "wgmma":
+        kw["delta"] = sf.block_sparse_flash_bwd_delta(out, do)
+        res["delta_ms"] = cs.time_ms(
+            lambda: sf.block_sparse_flash_bwd_delta(out, do))
+    res["dq_ms"] = cs.time_ms(lambda: sf.block_sparse_flash_dq(
+        q, k, v, idx, out, do, lse, block, False, **kw))
+    res["dkv_ms"] = cs.time_ms(lambda: sf.block_sparse_flash_dkv(
+        q, k, v, idx, rev, out, do, lse, block, False, **kw))
+    res["bwd_sum_ms"] = res["delta_ms"] + res["dq_ms"] + res["dkv_ms"]
+    del out, lse
+    for name, cfg_ in cs.sparse_layouts(sa, H):
+        # phase 10's host side of one call: the module's forward, tables
+        # and plan cached; the least of five readings (the host's own
+        # noise spreads single readings by some 2x)
+        attn = sa.SparseSelfAttention(cfg_)
+        with torch.no_grad():
+            res[f"{name}_fwd_host_us"] = min(
+                cs.host_us(torch, lambda: attn(q, k, v), iters=30)
+                for _ in range(5))
+    layouts = [(n, c.make_layout(S), c.block,
+                sa.SparseSelfAttention(c).causal)
+               for n, c in cs.sparse_layouts(sa, H)]
+    for name, layout, bl, causal in layouts + cs.sweep_layouts(np, sa, H, S):
+        idx, rev, kw = _sparse_tables(sa, sa._layout_to_gather(layout), bl)
+        out, lse = sf.block_sparse_flash_attention(q, k, v, idx, bl, causal,
+                                                   return_lse=True)
+        res[f"{name}_bwd_ms"] = cs.event_time_ms(
+            lambda: sf.block_sparse_flash_backward(
+                q, k, v, idx, rev, out, do, lse, bl, causal, **kw))
+        del out, lse
+    return res
 
 
 def evoformer_worker(cs, np, torch):
@@ -235,10 +280,9 @@ def main(argv=None):
             runs.append(run)
             print(json.dumps(run), flush=True)
     keys = {"paged": ("prefill_ms", "decode_ms"),
-            "sparse": ("fwd_ms", "dq_ms", "dkv_ms"),
             "train": ("delta_ms", "dq_ms", "dkv_ms", "bwd_ms", "step_ms",
                       "tokens_per_s", "mfu", "first_loss")}.get(args.what)
-    if keys is None:   # tile, flash, evoformer: every number the runs share
+    if keys is None:   # the others: every number the runs share
         keys = [k for k in runs[0] if k not in ("label", "package")]
     for key in keys:
         print(f"{key}: " + ", ".join(f"{r['label']} {r[key]:.6g}"

@@ -59,12 +59,19 @@ Phases (any failure exits non-zero and prints no result):
      (DeepSpeed's "fixed" config at block 16, BigBird at block 64, causal
      "fixed" at block 64): out and
      the three gradients against the plain versions, one launch of each
-     kernel per call (counters reset just before), density, ms of forward
+     kernel per call (counters reset just before; the delta kernel only
+     where the backward takes the wgmma pair), dq and dk/dv on the pair
+     `bwd_variant` names (launches by variant; the plan's walks and
+     padding factors), density, ms of forward
      and backward (CUDA events: most of this phase's profiler sessions
      come back without device events) against their bound, against SDPA
      with the dense mask and, for the causal layout, against the dense
-     flash kernels; the host time of one call (the tables are cached on
-     the module);
+     flash kernels; the host time of one call (the tables and the
+     backward's plan are cached on the module); then the pair gate: over
+     16 layouts at blocks 16 and 32 (the port's sparsity configs and
+     scattered random layouts), both bf16 backward pairs' device time
+     from CUDA graphs in the same call, failing where the routed pair is
+     more than 1.25x slower than the other;
  11. (run after phase 10, before phase 5) bench.py's training step with
      8-bit Adam moments and the fused update (`state_dtype "int8"`,
      `fused_update: true`): phase 5's readings, one fused_adam8 launch per
@@ -89,8 +96,12 @@ Phases (any failure exits non-zero and prints no result):
 Every profile must hold each launch the kernels' counters saw in it (a
 session that dropped device events is repeated).
 Phase 1 also holds the fused 8-bit Adam kernel (one w_up layer's slice),
-the three block-sparse kernels (at phase 10's first layout and at edge
-cases: a fully-masked row, f32, block 8, head dims 192 and 256), the
+the block-sparse forward, delta, dq and dk/dv kernels (at phase 10's
+first layout, timed beside the mma.sync pair, and at edge cases: the
+wgmma pair at blocks 16, 32 and 64, D 64 and 128, causal and not, a
+fully-masked row, lists that end mid-step, over every walk the plan can
+take; f32, block 8 and 128, head dims 192 and 256; reruns
+bit-identical), the
 four Evoformer kernels (at phase 12's MSA row shape, D 8, 64 and 128, f32,
 L 100 with a fully masked row, each bias alone and none, each case's dq
 and dk/dv on the pair `bwd_variant` names; a mask bias view off the
@@ -269,6 +280,7 @@ KERNELS = {"flash_fwd": ("flash_attention_fwd", 1),
            "sparse_fwd": ("block_sparse_flash_attention", 1),
            "sparse_dq": ("block_sparse_flash_dq", 1),
            "sparse_dkv": ("block_sparse_flash_dkv", 1),
+           "sparse_bwd_delta": ("block_sparse_flash_bwd_delta", 1),
            "evo_fwd": ("evoformer_flash_forward", 1),
            "evo_dq": ("evoformer_flash_dq", 1),
            "evo_dkv": ("evoformer_flash_dkv", 1),
@@ -453,6 +465,36 @@ def event_time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return Timing(start.elapsed_time(end) / iters, "cuda_events")
+
+
+def graph_time_ms(fn, iters=20, replays=5):
+    """Device time of one call of `fn`: `iters` calls captured in one CUDA
+    graph (after warm-up calls on a side stream), replayed `replays` times
+    between two CUDA events.  No host gaps and no profiler: for calls of
+    tens of microseconds that host overhead would hide, as in phase 10's
+    pair gate."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    return Timing(ms, "cuda_graph")
 
 
 def max_err(a, b):
@@ -1872,41 +1914,85 @@ def sparse_work(np, layout, block, causal, B, S, H, D, elem=2):
             "bwd": (14 * D * pairs, 5 * t + lse + 3 * t)}
 
 
-def sparse_check_one(torch, sa, sf, q, k, v, do, layout, block, causal):
-    """Forward, dq and dk/dv kernels against their plain versions on one
-    input: ({"fwd"|"dq"|"dkv": max abs err}, the kernel outputs)."""
+def walk_text(plan):
+    """The wgmma pair's walks of a plan: owners a CTA, grouping, padding
+    factor (tile work over visited work), per kernel."""
+    if plan.dq is None:
+        return "no gathered walk at this block"
+    return ", ".join(f"{n} {w.owners} owner{'s' if w.owners > 1 else ''} "
+                     f"{w.grouping} padding {w.padding:.4f}"
+                     for n, w in (("dq", plan.dq), ("dk/dv", plan.dkv)))
+
+
+def sparse_check_one(torch, sa, sf, q, k, v, do, layout, block, causal,
+                     every_walk=False):
+    """Forward, delta, dq and dk/dv kernels against their plain versions
+    on one input, the backward on the pair `bwd_variant` names (with
+    `every_walk`, on the wgmma pair over every walk the plan can take
+    too), each backward rerun bit for bit: ({"fwd"|"dq"|"dkv"|"delta":
+    max abs err}, the kernel outputs, the variant)."""
+    B, S, H, D = q.shape
     kidx = sa._layout_to_gather(layout)
-    idx, rev = sa._device_tables(kidx, q.device)
+    idx, rev, plan = sa._device_tables(kidx, q.device, block)
     out, lse = sf.block_sparse_flash_attention(q, k, v, idx, block, causal,
                                                return_lse=True)
     ref, ref_lse = sf.block_sparse_flash_attention_reference(
         q, k, v, idx, block, causal)
-    dq, dk, dv = sf.block_sparse_flash_backward(q, k, v, idx, rev, out, do,
-                                                lse, block, causal)
+    variant = sf.bwd_variant(q.dtype, D, block)
+    counters = (sf.block_sparse_flash_dq, sf.block_sparse_flash_dkv)
+    plans = [plan]
+    if every_walk and variant == "wgmma":
+        plans += [sf.bwd_plan(kidx, block, q.device, r, g)
+                  for r in sf.OWNER_GROUPS[block] for g in sf.WALK_GROUPINGS
+                  if (r > 1 or g == "adjacent") and layout.shape[1] % r == 0]
     rdq, rdk, rdv = sf.block_sparse_flash_backward_reference(
         q, k, v, idx, out, do, lse, block, causal)
-    torch.cuda.synchronize()
+    rdelta = sf.block_sparse_flash_bwd_delta_reference(out, do)
     bf = q.dtype == torch.bfloat16
-    fwd_ok = (kernel_close(out, ref) if bf else
-              max_err(out, ref) <= BWD_F32_REL * max(
-                  float(ref.abs().max()), 1.0))
-    el = max_err(lse, ref_lse)
     rtol, arel = (BWD_RTOL, BWD_ATOL_REL) if bf else (0.0, BWD_F32_REL)
-    res = {n: bwd_close(a, b, rtol, arel)
-           for n, a, b in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv))}
-    desc = (f"B={q.shape[0]} S={q.shape[1]} H={q.shape[2]} D={q.shape[3]} "
-            f"block={block} {'causal' if causal else 'full'} "
-            f"{str(q.dtype)[6:]}")
-    print(f"  sparse {desc}: max|dout|={max_err(out, ref):.3e} "
-          f"max|dlse|={el:.3e}; max|d| / max|plain| " + ", ".join(
-              f"{n} {r[1]:.3e}" for n, r in res.items()))
-    if not (fwd_ok and el <= LSE_ATOL and all(r[0] for r in res.values())):
-        fail(f"block-sparse kernels disagree with their plain versions at "
-             f"{desc}: out {max_err(out, ref)} (tol {TOL_TEXT}), lse {el}, "
-             f"backward {res} (tol {BWD_TOL_TEXT})")
-    errs = {"fwd": max(max_err(out, ref), el), "dq": max_err(dq, rdq),
-            "dkv": max(max_err(dk, rdk), max_err(dv, rdv))}
-    return errs, (out, lse, dq, dk, dv, idx, rev)
+    desc = (f"B={B} S={S} H={H} D={D} block={block} "
+            f"{'causal' if causal else 'full'} {str(q.dtype)[6:]}")
+    errs = {"fwd": max(max_err(out, ref), max_err(lse, ref_lse)), "dq": 0.0,
+            "dkv": 0.0, "delta": 0.0}
+    for p in plans:
+        kw = {"plan": p, "variant": variant} if variant == "wgmma" else {}
+        reset_counts(counters)
+        got = sf.block_sparse_flash_backward(q, k, v, idx, rev, out, do, lse,
+                                             block, causal, **kw)
+        again = sf.block_sparse_flash_backward(q, k, v, idx, rev, out, do,
+                                               lse, block, causal, **kw)
+        variants = by_variant(counters)
+        torch.cuda.synchronize()
+        res = {n: bwd_close(a, b, rtol, arel)
+               for n, a, b in zip(("dq", "dk", "dv"), got, (rdq, rdk, rdv))}
+        if variant == "wgmma":
+            delta = sf.block_sparse_flash_bwd_delta(out, do)
+            res["delta"] = bwd_close(delta, rdelta, 0.0, DELTA_REL)
+            errs["delta"] = max(errs["delta"], max_err(delta, rdelta))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"  sparse {desc}: {variant} ({walk_text(p)}); "
+              f"max|dout|={max_err(out, ref):.3e} "
+              f"max|dlse|={max_err(lse, ref_lse):.3e}; max|d| / max|plain| "
+              + ", ".join(f"{n} {r[1]:.3e}" for n, r in res.items())
+              + f"; rerun equal {same}; kernels {variants}")
+        fwd_ok = (kernel_close(out, ref) if bf else
+                  max_err(out, ref) <= BWD_F32_REL * max(
+                      float(ref.abs().max()), 1.0))
+        if not (fwd_ok and max_err(lse, ref_lse) <= LSE_ATOL
+                and all(r[0] for r in res.values())):
+            fail(f"block-sparse kernels disagree with their plain versions "
+                 f"at {desc} ({walk_text(p)}): out {max_err(out, ref)} "
+                 f"(tol {TOL_TEXT}), lse {max_err(lse, ref_lse)}, backward "
+                 f"{res} (tol {BWD_TOL_TEXT}; delta {DELTA_REL})")
+        if not same:
+            fail(f"block-sparse backward rerun differs at {desc}")
+        if any(v_[variant] != 2 for v_ in variants.values()):
+            fail(f"block-sparse backward at {desc} ran {variants}, want "
+                 f"two {variant} launches each")
+        errs["dq"] = max(errs["dq"], max_err(got[0], rdq))
+        errs["dkv"] = max(errs["dkv"], max_err(got[1], rdk),
+                          max_err(got[2], rdv))
+    return errs, (out, lse, *got, idx, rev, plan), variant
 
 
 def dense_mask(torch, np, layout, block, causal, dev):
@@ -1937,27 +2023,61 @@ def sdpa_times(torch, q, k, v, do, mask, timer=time_ms):
     return f, timing_less(timer(fwd_bwd, iters=5, warmup=1), f)
 
 
+def masked_layout(np, nb):
+    """Two heads of one block a row on the diagonal; head 0's q-block 2
+    sees only key block 5 (under causal, nothing: a fully-masked row)."""
+    layout = np.eye(nb, dtype=bool)[None].repeat(2, 0)
+    layout[0, 2] = False
+    layout[0, 2, 5] = True
+    return layout
+
+
+def scattered_layout(np, H, nb, per_row, seed=11):
+    """The diagonal and `per_row` - 1 random blocks a row, per head: the
+    visitor lists of neighbouring blocks share little."""
+    rng = np.random.RandomState(seed)
+    layout = np.zeros((H, nb, nb), bool)
+    for h in range(H):
+        for i in range(nb):
+            layout[h, i, i] = True
+            layout[h, i, rng.choice(nb, per_row - 1, replace=False)] = True
+    return layout
+
+
 def check_sparse(torch, np, sa, sf, dev):
-    """The three block-sparse kernels against their plain versions at
-    phase 10's first layout and shape, then a fully-masked row, f32 and
-    block 8; timed at the main shape beside SDPA with the dense mask."""
+    """The block-sparse forward, delta, dq and dk/dv kernels against their
+    plain versions at phase 10's first layout and shape, then the wgmma
+    pair's edges (blocks 16, 32, 64, D 64 and 128, causal and not, a
+    fully-masked row, lists that end mid-step, every walk the plan can
+    take) and the other pairs' (block 8 and 128, D 192 and 256, f32);
+    timed at the main shape beside the mma.sync pair and SDPA with the
+    dense mask."""
     g = torch.Generator(device=dev).manual_seed(9)
     bf16, f32 = torch.bfloat16, torch.float32
     B, S, H, D = SPARSE_SHAPE
     name, cfg = sparse_layouts(sa, H)[0]
     block = cfg.block
     main_layout = cfg.make_layout(S)
-    masked = np.eye(8, dtype=bool)[None].repeat(2, 0)
-    masked[0, 2] = False
-    masked[0, 2, 5] = True     # head 0, q-block 2: only a later key block
     bigbird = sa.BigBirdSparsityConfig(num_heads=2, block=64,
                                        different_layout_per_head=True)
+    masked = masked_layout(np, 8)
     # (B, S, H, D, dtype, layout, block, causal): the timed shape first
     cases = [(B, S, H, D, bf16, main_layout, block, False),
              (2, 128, 2, 64, bf16, masked, 16, True),
+             (2, 384, 2, 128, bf16, scattered_layout(np, 2, 12, 5), 32,
+              True),
+             (2, 768, 2, 64, bf16, scattered_layout(np, 2, 12, 3), 64,
+              True),
+             (1, 1024, 2, 128, bf16, sa.FixedSparsityConfig(
+                 num_heads=2, block=64, num_local_blocks=2,
+                 attention="unidirectional").make_layout(1024), 64, True),
+             (2, 480, 2, 64, bf16, sa.BSLongformerSparsityConfig(
+                 num_heads=2, block=16).make_layout(480), 16, False),
              (2, 512, 2, 64, f32, bigbird.make_layout(512), 64, False),
              (2, 64, 2, 128, bf16, sa.BigBirdSparsityConfig(
                  num_heads=2, block=8).make_layout(64), 8, True),
+             (1, 1024, 2, 128, bf16, sa.BigBirdSparsityConfig(
+                 num_heads=2, block=128).make_layout(1024), 128, False),
              (1, 1024, 4, 128, f32, sa.FixedSparsityConfig(
                  num_heads=4, block=32, num_local_blocks=2,
                  attention="unidirectional").make_layout(1024), 32, True),
@@ -1971,37 +2091,51 @@ def check_sparse(torch, np, sa, sf, dev):
              (1, 256, 2, 256, f32, sa.FixedSparsityConfig(
                  num_heads=2, block=32, num_local_blocks=2).make_layout(256),
               32, False)]
-    errs = {"fwd": [], "dq": [], "dkv": []}
+    errs = {"fwd": [], "dq": [], "dkv": [], "delta": []}
     main = None
-    for b_, s_, h_, d_, dt_, lay, bl, causal in cases:
+    for n_, (b_, s_, h_, d_, dt_, lay, bl, causal) in enumerate(cases):
         q, k, v, do = (torch.randn(b_, s_, h_, d_, generator=g, device=dev,
                                    dtype=dt_) for _ in range(4))
-        e, outs = sparse_check_one(torch, sa, sf, q, k, v, do, lay, bl,
-                                   causal)
+        e, outs, variant = sparse_check_one(torch, sa, sf, q, k, v, do, lay,
+                                            bl, causal, every_walk=n_ > 0)
         if lay is masked:
-            rows = outs[0][:, 2 * bl:3 * bl, 0]
-            if not (bool((rows == 0).all())
+            rows = slice(2 * bl, 3 * bl)
+            if not (bool((outs[0][:, rows, 0] == 0).all())
                     and bool(torch.isfinite(outs[1]).all())
                     and all(bool(torch.isfinite(t).all())
-                            for t in outs[2:5])):
-                fail("a fully-masked row did not give out 0, a finite lse "
-                     "and finite gradients")
+                            for t in outs[2:5])
+                    and bool((outs[2][:, rows, 0] == 0).all())):
+                fail("a fully-masked row did not give out 0, a finite lse, "
+                     "finite gradients and dq 0")
         for n in errs:
             errs[n].append(e[n])
         if main is None:
-            main = (q, k, v, do, outs)
+            main = (q, k, v, do, outs, variant)
         else:
             del q, k, v, do, outs
-    q, k, v, do, (out, lse, dq, dk, dv, idx, rev) = main
+    q, k, v, do, (out, lse, dq, dk, dv, idx, rev, plan), variant = main
     torch.cuda.empty_cache()
+    kw = dict(plan=plan, variant=variant)
+    delta = sf.block_sparse_flash_bwd_delta(out, do)
+    if variant == "wgmma":
+        kw["delta"] = delta
     ms = {"fwd": time_ms(lambda: sf.block_sparse_flash_attention(
               q, k, v, idx, block, False, return_lse=True)),
+          "delta": time_ms(lambda: sf.block_sparse_flash_bwd_delta(out, do)),
           "dq": time_ms(lambda: sf.block_sparse_flash_dq(
-              q, k, v, idx, out, do, lse, block, False)),
+              q, k, v, idx, out, do, lse, block, False, **kw)),
           "dkv": time_ms(lambda: sf.block_sparse_flash_dkv(
-              q, k, v, idx, rev, out, do, lse, block, False))}
+              q, k, v, idx, rev, out, do, lse, block, False, **kw))}
+    mma = {"dq": time_ms(lambda: sf.block_sparse_flash_dq(
+               q, k, v, idx, out, do, lse, block, False, variant="mma")),
+           "dkv": time_ms(lambda: sf.block_sparse_flash_dkv(
+               q, k, v, idx, rev, out, do, lse, block, False,
+               variant="mma"))}
     plain = {"fwd": time_ms(lambda: sf.block_sparse_flash_attention_reference(
                  q, k, v, idx, block, False), iters=3, warmup=1),
+             "delta": time_ms(
+                 lambda: sf.block_sparse_flash_bwd_delta_reference(out, do),
+                 iters=3, warmup=1),
              "dq": time_ms(lambda: sf.block_sparse_flash_dq_reference(
                  q, k, v, idx, out, do, lse, block, False), iters=3,
                  warmup=1),
@@ -2011,9 +2145,18 @@ def check_sparse(torch, np, sa, sf, dev):
     mask = dense_mask(torch, np, main_layout, block, False, dev)
     lib_fwd, lib_bwd = sdpa_times(torch, q, k, v, do, mask)
     del mask
+    lib_delta = time_ms(lambda: torch.einsum("bshd,bshd->bhs", out.float(),
+                                             do.float()))
     work = sparse_work(np, main_layout, block, False, B, S, H, D)
     shape = (f"q/k/v [{B},{S},{H},{D}] bf16, layout {name} (block {block}, "
              f"density {main_layout.mean():.4f})")
+    bwd = ms["dq"] + ms["dkv"] + (ms["delta"] if variant == "wgmma" else 0)
+    print(f"  block-sparse backward at the main shape on {variant} "
+          f"({walk_text(plan)}): delta {ms['delta']:.4f}, dq "
+          f"{ms['dq']:.4f}, dk/dv {ms['dkv']:.4f} ms, together "
+          f"{bwd:.4f} ms ({bwd / lib_bwd:.3f}x SDPA's backward "
+          f"{lib_bwd:.4f} ms); the mma.sync pair here: dq {mma['dq']:.4f}, "
+          f"dk/dv {mma['dkv']:.4f} ms")
     rows = []
     for kname, line in (("fwd", "sparse_flash.py:149"),
                         ("dq", "sparse_flash.py:299"),
@@ -2030,9 +2173,31 @@ def check_sparse(torch, np, sa, sf, dev):
                          + ("" if kname == "fwd" else
                             ": backward (fwd+bwd less fwd), dq, dk and dv "
                             "in one call")))
+        if kname != "fwd":
+            walk = plan.dq if kname == "dq" else plan.dkv
+            rows[-1].update(variant=variant, mma_sync_ms=mma[kname],
+                            owners=walk.owners, grouping=walk.grouping,
+                            padding=walk.padding)
         print(f"  sparse_{kname} at the main shape: {ms[kname]:.4f} ms "
               f"(bound {bms:.4f} ms, {by}), plain {plain[kname]:.4f} ms, "
               f"SDPA {rows[-1]['library_ms']:.4f} ms")
+    # out and dO read, delta written: one f32 per row
+    q_like = B * S * H * D
+    bms, by = bound_ms(2 * q_like, 2 * 2 * q_like + 4 * B * H * S)
+    rows.append(dict(
+        name="sparse_bwd_delta", route="cuda",
+        source="deepspeed_tpu_torch/csrc/sparse_flash.cu",
+        replaces="deepspeed_tpu/ops/sparse_flash.py:293",
+        replaces_note="delta = rowsum(dO * O), computed once in the TPU's "
+                      "block_sparse_flash_backward (:293) for both kernels: "
+                      "part of rows 12 and 13",
+        shape=shape, max_abs_err=max(errs["delta"]), ms=ms["delta"],
+        plain_ms=plain["delta"], bound_ms=bms, bound_by=by,
+        library_ms=lib_delta,
+        library_note="torch.einsum('bshd,bshd->bhs') over f32 copies"))
+    print(f"  sparse_bwd_delta at the main shape: {ms['delta']:.4f} ms "
+          f"(bound {bms:.4f} ms, {by}), plain {plain['delta']:.4f} ms, "
+          f"einsum {lib_delta:.4f} ms")
     return rows
 
 
@@ -2047,6 +2212,8 @@ def sparse_path(torch, np, sa, sf, fa, counters, shape=SPARSE_SHAPE,
     base = [torch.randn(B, S, H, D, generator=g, device=dev,
                         dtype=torch.bfloat16) for _ in range(3)]
     total = {c.__name__: 0 for c in counters}
+    total_by = {fn_: dict.fromkeys(by, 0)
+                for fn_, by in by_variant(counters).items()}
     results = []
     for name, cfg in sparse_layouts(sa, H):
         attn = sa.SparseSelfAttention(cfg)
@@ -2063,18 +2230,22 @@ def sparse_path(torch, np, sa, sf, fa, counters, shape=SPARSE_SHAPE,
             attn(*qkv)
         host_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-        for c in counters:
-            c.launches = 0
+        _, (idx, rev, plan) = attn.tables(S, dev)
+        variant = sf.bwd_variant(torch.bfloat16, D, block)
+        reset_counts(counters)
         out = attn(*qkv)
         (out.float() ** 2).sum().backward()
         out = out.detach()
         torch.cuda.synchronize()
         launches = {c.__name__: c.launches for c in counters}
+        variants = by_variant(counters)
         for k_, n in launches.items():
             total[k_] += n
+        for fn_, by in variants.items():
+            for v_, n in by.items():
+                total_by[fn_][v_] += n
         # the plain versions on the same inputs and residuals
         q, k, v = (t.detach() for t in qkv)
-        _, (idx, rev) = attn.tables(S, dev)
         with torch.no_grad():
             out2, lse = sf.block_sparse_flash_attention(
                 q, k, v, idx, block, causal, return_lse=True)
@@ -2095,7 +2266,7 @@ def sparse_path(torch, np, sa, sf, fa, counters, shape=SPARSE_SHAPE,
         fwd_ms = event_time_ms(lambda: sf.block_sparse_flash_attention(
             q, k, v, idx, block, causal, return_lse=True))
         bwd_ms = event_time_ms(lambda: sf.block_sparse_flash_backward(
-            q, k, v, idx, rev, out2, do, lse, block, causal))
+            q, k, v, idx, rev, out2, do, lse, block, causal, plan=plan))
         work = sparse_work(np, layout, block, causal, B, S, H, D)
         fwd_bound = bound_ms(*work["fwd"])
         bwd_bound = bound_ms(*work["bwd"])
@@ -2106,7 +2277,8 @@ def sparse_path(torch, np, sa, sf, fa, counters, shape=SPARSE_SHAPE,
         row = dict(layout=name, clock="cuda_events", block=block, causal=causal,
                    density=float(layout.mean()),
                    max_active_blocks=int(layout.sum(-1).max()),
-                   launches=launches, host_ms=host_ms,
+                   launches=launches, launches_by_variant=variants,
+                   variant=variant, walks=walk_text(plan), host_ms=host_ms,
                    max_abs_dout=max_err(out, ref), max_abs_dlse=el,
                    rel_grad_err={n: r[1] for n, r in res.items()},
                    fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound[0],
@@ -2124,7 +2296,8 @@ def sparse_path(torch, np, sa, sf, fa, counters, shape=SPARSE_SHAPE,
         print(f"phase 10: {name} (block {block}, "
               f"{'causal' if causal else 'bidirectional'}): density "
               f"{row['density']:.4f} (max {row['max_active_blocks']} of "
-              f"{S // block} blocks a row); launches {launches}; host side "
+              f"{S // block} blocks a row); launches {launches}, by "
+              f"variant {variants} ({variant}: {walk_text(plan)}); host side "
               f"of one call {host_ms:.2f} ms; out == kernel rerun: {same}, "
               f"max|dout| vs plain {row['max_abs_dout']:.3e}, max|dlse| "
               f"{el:.3e}; grads max|d| / max|plain| " + ", ".join(
@@ -2135,8 +2308,12 @@ def sparse_path(torch, np, sa, sf, fa, counters, shape=SPARSE_SHAPE,
               f"mask {sdpa_fwd:.3f} / {sdpa_bwd:.3f} ms" + (
                   f"; dense flash kernels {row['dense_flash_fwd_ms']:.3f} / "
                   f"{row['dense_flash_bwd_ms']:.3f} ms" if causal else ""))
-        if launches != {c.__name__: 1 for c in counters}:
-            fail(f"{name}: launches {launches}, want one of each kernel")
+        want = {c.__name__: 1 for c in counters}
+        want["block_sparse_flash_bwd_delta"] = int(variant == "wgmma")
+        if launches != want or any(by[variant] != 1
+                                   for by in variants.values()):
+            fail(f"{name}: launches {launches}, by variant {variants}; want "
+                 f"{want}, dq and dk/dv on {variant}")
         if not (same and kernel_close(out, ref) and el <= LSE_ATOL
                 and finite and all(r[0] for r in res.values())):
             fail(f"{name}: SparseSelfAttention disagrees with the plain "
@@ -2148,7 +2325,106 @@ def sparse_path(torch, np, sa, sf, fa, counters, shape=SPARSE_SHAPE,
         torch.cuda.empty_cache()
     del base
     torch.cuda.empty_cache()
-    return dict(layouts=results, launches=total, shape=list(shape))
+    gate = pair_gate(torch, np, sa, sf, shape, dev)
+    return dict(layouts=results, launches=total, launches_by_variant=total_by,
+                shape=list(shape), pair_gate=gate)
+
+
+def sweep_layouts(np, sa, H, S):
+    """Phase 10's pair-gate sweep at blocks 16 and 32: (name, layout,
+    block, causal) from the port's sparsity configs (their causal rule as
+    SparseSelfAttention takes it) and layouts whose visitor lists
+    scatter."""
+    cfgs = [("fixed16", sparse_layouts(sa, H)[0][1]),
+            ("fixed16_causal", sa.FixedSparsityConfig(
+                num_heads=H, block=16, num_local_blocks=4,
+                attention="unidirectional")),
+            ("bigbird16", sa.BigBirdSparsityConfig(num_heads=H, block=16)),
+            ("longformer16", sa.BSLongformerSparsityConfig(num_heads=H,
+                                                           block=16)),
+            ("variable16", sa.VariableSparsityConfig(num_heads=H, block=16)),
+            ("diagonal16_causal", sa.LocalSlidingWindowSparsityConfig(
+                num_heads=H, block=16, num_sliding_window_blocks=1)),
+            ("sliding16_causal", sa.LocalSlidingWindowSparsityConfig(
+                num_heads=H, block=16)),
+            ("sliding16_w7_causal", sa.LocalSlidingWindowSparsityConfig(
+                num_heads=H, block=16, num_sliding_window_blocks=7)),
+            ("sliding16_w16_causal", sa.LocalSlidingWindowSparsityConfig(
+                num_heads=H, block=16, num_sliding_window_blocks=16)),
+            ("bigbird32", sa.BigBirdSparsityConfig(num_heads=H, block=32)),
+            ("fixed32_causal", sa.FixedSparsityConfig(
+                num_heads=H, block=32, num_local_blocks=4,
+                attention="unidirectional")),
+            ("sliding32_causal", sa.LocalSlidingWindowSparsityConfig(
+                num_heads=H, block=32))]
+    out = [(n, c.make_layout(S), c.block, sa.SparseSelfAttention(c).causal)
+           for n, c in cfgs]
+    return out + [(f"random{b}_x{r}", scattered_layout(np, H, S // b, r), b,
+                   False) for b, r in ((16, 2), (16, 5), (16, 16), (32, 2))]
+
+
+# the routed pair may be this much slower than the other pair before the
+# gate calls the rule wrong (timing noise is a few percent)
+PAIR_GATE = 1.25
+
+
+def pair_gate(torch, np, sa, sf, shape, dev="cuda"):
+    """Per sweep layout: the pair `bwd_variant` routes to and the other
+    bf16 pair (the wgmma pair with its delta launch, the mma.sync pair
+    computing delta inside), each backward's device time from a CUDA graph
+    of 20 calls (`graph_time_ms`) in the same call, and their gradients
+    against each other; fails where the routed pair is more than PAIR_GATE
+    slower."""
+    B, S, H, D = shape
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    rows = []
+    for name, layout, block, causal in sweep_layouts(np, sa, H, S):
+        kidx = sa._layout_to_gather(layout)
+        idx, rev, plan = sa._device_tables(kidx, dev, block)
+        routed = sf.bwd_variant(q.dtype, D, block)
+        other = "mma" if routed == "wgmma" else "wgmma"
+        out, lse = sf.block_sparse_flash_attention(q, k, v, idx, block,
+                                                   causal, return_lse=True)
+
+        def run(variant):
+            return sf.block_sparse_flash_backward(
+                q, k, v, idx, rev, out, do, lse, block, causal, plan=plan,
+                variant=variant)
+
+        ms = {p: graph_time_ms(lambda: run(p)) for p in (routed, other)}
+        grads = {p: run(p) for p in (routed, other)}
+        rel = {n: bwd_close(a, b, BWD_RTOL, BWD_ATOL_REL)[1]
+               for n, a, b in zip(("dq", "dk", "dv"), grads["wgmma"],
+                                  grads["mma"])}
+        row = dict(layout=name, block=block, causal=causal,
+                   density=float(layout.mean()),
+                   mean_visits=float(layout.sum(-1).mean()), routed=routed,
+                   ms={p: float(t) for p, t in ms.items()},
+                   ratio=float(ms[other] / ms[routed]),
+                   walks=walk_text(plan), rel_wgmma_vs_mma=rel,
+                   clock="cuda_graph")
+        rows.append(row)
+        print(f"phase 10: pair gate at {name} (block {block}, "
+              f"{'causal' if causal else 'bidirectional'}, density "
+              f"{row['density']:.4f}, {row['mean_visits']:.2f} blocks a row; "
+              f"{walk_text(plan)}): routed to {routed}; wgmma (delta + dq "
+              f"+ dk/dv) {ms['wgmma']:.4f} ms, mma.sync (dq + dk/dv) "
+              f"{ms['mma']:.4f} ms: routed {row['ratio']:.2f}x as fast; "
+              f"grads max|wgmma - mma| / max|mma| " + ", ".join(
+                  f"{n} {r:.3e}" for n, r in rel.items()))
+        if ms[routed] > PAIR_GATE * ms[other]:
+            fail(f"pair gate at {name}: the routed {routed} pair takes "
+                 f"{ms[routed]:.4f} ms, the {other} pair {ms[other]:.4f} ms "
+                 f"(more than {PAIR_GATE}x): the variant rule is wrong here")
+        if max(rel.values()) > 2 * BWD_ATOL_REL:
+            fail(f"pair gate at {name}: the two pairs' gradients differ by "
+                 f"{rel} of max|mma|")
+        del out, lse, grads
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -3545,7 +3821,7 @@ def main(argv=None):
     # machine, for a reason not known)
     sparse = sparse_path(torch, np, sa, sf, fa, [
         sf.block_sparse_flash_attention, sf.block_sparse_flash_dq,
-        sf.block_sparse_flash_dkv])
+        sf.block_sparse_flash_dkv, sf.block_sparse_flash_bwd_delta])
 
     # phase 12
     evoformer = evoformer_path(torch, evo, ef, [
@@ -3606,6 +3882,8 @@ def main(argv=None):
         k["launches_by_path"] = by_path
         if fn in evoformer["launches_by_variant"]:   # evo_dq, evo_dkv
             k["launches_by_variant"] = evoformer["launches_by_variant"][fn]
+        if fn in sparse["launches_by_variant"]:      # sparse_dq, sparse_dkv
+            k["launches_by_variant"] = sparse["launches_by_variant"][fn]
 
     record = dict(kernels=kernels, serve=served, e2e=e2e, profile=prof,
                   tenants=tenants, merged=merged,

@@ -9,9 +9,10 @@
 //     byte for byte, so the caller can check the swizzle pattern and the
 //     zero fill at the edges;
 //   dstt_selftest_wgmma: one warpgroup's out [64, N] f32 = A [64, 64] @ B
-//     over four k16 steps, A and B loaded by TMA with the given swizzle,
-//     A from shared memory or from registers, B K-major ([N, 64]) or
-//     MN-major ([64, N]).
+//     over four k16 steps (N 16, 32, 64 or 128), A and B loaded by TMA
+//     with the given swizzle, A from shared memory (K-major, or MN-major:
+//     the transposed operand of a [K, M] tile) or, at N 32-128, from
+//     registers, B K-major ([N, 64]) or MN-major ([64, N]).
 #include "hopper_tile.cuh"
 
 namespace {
@@ -41,15 +42,17 @@ __global__ void tma_box_kernel(const __grid_constant__ CUtensorMap map,
   for (int i = threadIdx.x; i < bytes; i += blockDim.x) dst[i] = box[i];
 }
 
-// Shared layout: A as 64 / CH boxes [64 rows][CH] (K-major), B as
-// boxes of R-byte rows: K-major [N rows][CH] per K chunk, MN-major [64 K
-// rows][CH] per N chunk; CH = R / 2 elements for an R-byte swizzle.
+// Shared layout: A as 64 / CH boxes [64 rows][CH] (rows M for K-major,
+// rows K for MN-major), B as boxes of R-byte rows: K-major [N rows][CH]
+// per K chunk, MN-major [64 K rows][CH] per N chunk; CH = R / 2 elements
+// for an R-byte swizzle.  a_mode: 0 A K-major in shared memory, 1 A from
+// registers, 2 A MN-major in shared memory.
 template <int N, int TB>
 __global__ void __launch_bounds__(128)
 wgmma_tile_kernel(const __grid_constant__ CUtensorMap amap,
                   const __grid_constant__ CUtensorMap bmap,
                   const bf16* __restrict__ a_gmem, float* __restrict__ out,
-                  int swizzle, int a_regs) {
+                  int swizzle, int a_mode) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* base = hp::align1024(smem_raw);
   __shared__ __align__(8) uint64_t bar;
@@ -91,7 +94,14 @@ wgmma_tile_kernel(const __grid_constant__ CUtensorMap amap,
       db = hp::smem_desc(Bs + chunk * N * R + within, sw, 16, 8 * R);
     else
       db = hp::smem_desc(Bs + kk * 16 * R, sw, 64 * R, 8 * R);
-    if (a_regs) {
+    if (a_mode == 0) {
+      const uint64_t da =
+          hp::smem_desc(As + chunk * 64 * R + within, sw, 16, 8 * R);
+      hp::wgmma_ss<N, TB>(d, da, db, 1);
+    } else if (a_mode == 2) {
+      const uint64_t da = hp::smem_desc(As + kk * 16 * R, sw, 64 * R, 8 * R);
+      hp::wgmma_ss<N, TB, 1>(d, da, db, 1);
+    } else if constexpr (N != 16) {   // a_mode 1: no register form at N 16
       const bf16* ar = a_gmem + (16 * warp + g) * 64 + kk * 16 + 2 * t;
       uint32_t a[4];
       a[0] = *reinterpret_cast<const uint32_t*>(ar);
@@ -99,10 +109,6 @@ wgmma_tile_kernel(const __grid_constant__ CUtensorMap amap,
       a[2] = *reinterpret_cast<const uint32_t*>(ar + 8);
       a[3] = *reinterpret_cast<const uint32_t*>(ar + 8 * 64 + 8);
       hp::wgmma_rs<N, TB>(d, a, db, 1);
-    } else {
-      const uint64_t da =
-          hp::smem_desc(As + chunk * 64 * R + within, sw, 16, 8 * R);
-      hp::wgmma_ss<N, TB>(d, da, db, 1);
     }
   }
   hp::wgmma_commit();
@@ -121,7 +127,7 @@ wgmma_tile_kernel(const __grid_constant__ CUtensorMap amap,
 
 template <int N, int TB>
 int launch_wgmma(const void* a, const void* b, void* out, int swizzle,
-                 int a_regs, cudaStream_t st) {
+                 int a_mode, cudaStream_t st) {
   const int R = swizzle == hp::SW128 ? 128 : swizzle == hp::SW64 ? 64 : 32;
   const uint32_t CH = R / 2;
   CUtensorMap amap, bmap;
@@ -149,17 +155,18 @@ int launch_wgmma(const void* a, const void* b, void* out, int swizzle,
   if (e != cudaSuccess) return (int)e;
   wgmma_tile_kernel<N, TB><<<1, 128, smem, st>>>(
       amap, bmap, static_cast<const bf16*>(a), static_cast<float*>(out),
-      swizzle, a_regs);
+      swizzle, a_mode);
   return (int)cudaGetLastError();
 }
 
 template <int TB>
 int wgmma_by_n(int N, const void* a, const void* b, void* out, int swizzle,
-               int a_regs, cudaStream_t st) {
+               int a_mode, cudaStream_t st) {
   switch (N) {
-    case 32: return launch_wgmma<32, TB>(a, b, out, swizzle, a_regs, st);
-    case 64: return launch_wgmma<64, TB>(a, b, out, swizzle, a_regs, st);
-    case 128: return launch_wgmma<128, TB>(a, b, out, swizzle, a_regs, st);
+    case 16: return launch_wgmma<16, TB>(a, b, out, swizzle, a_mode, st);
+    case 32: return launch_wgmma<32, TB>(a, b, out, swizzle, a_mode, st);
+    case 64: return launch_wgmma<64, TB>(a, b, out, swizzle, a_mode, st);
+    case 128: return launch_wgmma<128, TB>(a, b, out, swizzle, a_mode, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -218,14 +225,17 @@ extern "C" int dstt_selftest_tma_f32(const void* src, void* dst, int rank,
                  static_cast<cudaStream_t>(stream));
 }
 
-// out [64, N] f32 = a [64, 64] @ (b_mn ? b [64, N] : b [N, 64]^T), bf16
-// row-major inputs; N 32, 64 or 128; swizzle 1-3 (32, 64, 128 B);
-// a_regs: A from registers.
+// out [64, N] f32 = A @ (b_mn ? b [64, N] : b [N, 64]^T), bf16 row-major
+// inputs, A = a [64, 64] (a_mode 0: from shared memory, 1: from
+// registers, N 32-128 only) or a^T (a_mode 2: a [K, M] read MN-major);
+// N 16, 32, 64 or 128; swizzle 1-3 (32, 64, 128 B).
 extern "C" int dstt_selftest_wgmma(const void* a, const void* b, void* out,
-                                   int N, int b_mn, int a_regs, int swizzle,
+                                   int N, int b_mn, int a_mode, int swizzle,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (swizzle < 1 || swizzle > 3) return (int)cudaErrorInvalidValue;
-  return b_mn ? wgmma_by_n<1>(N, a, b, out, swizzle, a_regs, st)
-              : wgmma_by_n<0>(N, a, b, out, swizzle, a_regs, st);
+  if (swizzle < 1 || swizzle > 3 || a_mode < 0 || a_mode > 2 ||
+      (N == 16 && a_mode == 1))
+    return (int)cudaErrorInvalidValue;
+  return b_mn ? wgmma_by_n<1>(N, a, b, out, swizzle, a_mode, st)
+              : wgmma_by_n<0>(N, a, b, out, swizzle, a_mode, st);
 }

@@ -12,10 +12,11 @@
 //     slot).
 //   * wgmma: shared-memory matrix descriptors for the 32, 64 and 128 byte
 //     swizzles that TMA writes, fence / commit / wait, and
-//     wgmma.mma_async m64nNk16 (N 32, 64, 128), bf16 in, f32
-//     accumulators in registers, A from shared memory (`wgmma_ss`) or
-//     from registers (`wgmma_rs`), B K-major (TB = 0) or MN-major (TB = 1,
-//     the transpose bit that 16-bit types allow).
+//     wgmma.mma_async m64nNk16, bf16 in, f32 accumulators in registers,
+//     A from shared memory (`wgmma_ss`, N 16, 32, 64, 128; K-major or,
+//     TA = 1, MN-major) or from registers (`wgmma_rs`, N 32, 64, 128), B
+//     K-major (TB = 0) or MN-major (TB = 1, the transpose bit that 16-bit
+//     types allow).
 //
 // Layouts (16-bit elements).  A TMA box whose inner extent is R bytes
 // (R = 32, 64 or 128, with the swizzle of the same width) lands as rows
@@ -213,6 +214,13 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Make this thread's ordinary shared-memory writes visible to the async
+// proxy (a wgmma operand written by the threads, not by TMA); then a
+// barrier among the writers before the wgmma is issued.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -264,8 +272,22 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
 }
 
 // d[64 x N] (+)= A[64 x 16] B[16 x N]: A and B by descriptor; scale_d 0
-// overwrites d.  TB: 0 = B K-major, 1 = B MN-major.
-template <int TB>
+// overwrites d.  TB: 0 = B K-major, 1 = B MN-major; TA the same for A
+// (1 = A MN-major: M contiguous, the transpose that 16-bit types allow).
+template <int TB, int TA = 0>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", %8, %9, p, 1, 1, %12, %11;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
+}
+
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -273,11 +295,11 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15}"
-      ", %16, %17, p, 1, 1, 0, %19;\n}\n"
+      ", %16, %17, p, 1, 1, %20, %19;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
         "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 template <int TB>
@@ -297,7 +319,7 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
         "n"(TB));
 }
 
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -306,7 +328,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
       "%28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      ", %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
         "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -314,7 +336,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 template <int TB>
@@ -339,7 +361,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "n"(TB));
 }
 
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -350,7 +372,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      ", %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
         "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -364,7 +386,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 template <int TB>
@@ -397,13 +419,14 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "n"(TB));
 }
 
-template <int N, int TB>
+template <int N, int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 128, "wgmma N");
-  if constexpr (N == 32) wgmma_ss_n32<TB>(d, da, db, scale_d);
-  if constexpr (N == 64) wgmma_ss_n64<TB>(d, da, db, scale_d);
-  if constexpr (N == 128) wgmma_ss_n128<TB>(d, da, db, scale_d);
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma N");
+  if constexpr (N == 16) wgmma_ss_n16<TB, TA>(d, da, db, scale_d);
+  if constexpr (N == 32) wgmma_ss_n32<TB, TA>(d, da, db, scale_d);
+  if constexpr (N == 64) wgmma_ss_n64<TB, TA>(d, da, db, scale_d);
+  if constexpr (N == 128) wgmma_ss_n128<TB, TA>(d, da, db, scale_d);
 }
 
 // The same with A from registers: the warp's m16n8k16 A fragment (rows
@@ -471,6 +494,16 @@ __device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
                                   8 * T::RB);
     wgmma_rs<D, 1>(acc, a[kk], db, 1);
   }
+}
+
+// Byte offset at which a tile of R-byte rows written with the R-byte
+// swizzle (R = 32, 64, 128; base aligned to 8 R) keeps logical byte
+// offset `off`: 16-byte chunk bits 4.. XOR row-group bits 7.. (the
+// layouts above), for tiles that threads write as wgmma operands.
+template <Swizzle SWZ>
+__device__ __forceinline__ uint32_t swizzled(uint32_t off) {
+  constexpr uint32_t mask = SWZ == SW128 ? 7 : SWZ == SW64 ? 3 : 1;
+  return off ^ (((off >> 7) & mask) << 4);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {

@@ -24,10 +24,11 @@
 //     q-blocks that visit this key block): P^T, dS^T as above with
 //     dV += P^T dO and dK += dS^T Q (q scaled) in f32 registers, written
 //     once, no atomics (the same result every run).
-// delta = rowsum(dO * O) is computed inside the kernels, as flash_bwd.cu
-// does: by the dq CTA for its own rows, and by each dk/dv CTA for each
-// q-block it visits, two threads a row with 16-byte loads (no [B, H, S]
-// array of it is written).
+// The mma.sync pair computes delta = rowsum(dO * O) inside: the dq CTA
+// for its own rows, each dk/dv CTA for each q-block it visits.  The bf16
+// TMA + wgmma pair (below, `sparse_dq_wgmma`, `sparse_dkv_wgmma`) reads
+// it from `sparse_bwd_delta`, one launch a backward into [B, H, S] f32,
+// as the TPU wrapper computes it once (sparse_flash.py:293).
 // Masked scores take the TPU kernel's sentinel NEG_INF = -1e30 and every
 // exponent is re-masked (s > NEG_INF / 2), so a row that sees no key gives
 // out 0 and a finite lse (-1e30), and then P = 0 in the backward: dq, dk and
@@ -54,12 +55,30 @@
 // What bounds it on the H100 at the main path's shapes ([4, 4096, 16, 64]
 // bf16, 26% of the blocks visited at block 16): operations, 2 (forward) to 4
 // (dk/dv) [block, block, D] products per visited block pair, against bytes
-// that are each block read once; the first form here reloads K/V for every
-// visit, feeds the tensor cores one tile at a time with no copy/compute
-// overlap, and at block 16 runs one warp per CTA.  A BigBird global row (or
-// a global key block in dk/dv) walks every block while the others walk a
-// few: the load is imbalanced and nothing here evens it out.
+// that are each block read once.  The mma.sync forms reload K/V for every
+// visit, feed the tensor cores one tile at a time with no copy/compute
+// overlap, and at block 16 run one warp per CTA.
+//
+// The bf16 backward at D 64 / 128 and block 16 / 32 / 64 has a second
+// pair on TMA + wgmma over a gathered tile plan (ops/sparse_flash.py
+// `tile_walk`): wgmma's M is 64 rows, so a step gathers 64 rows of the
+// visited blocks (G = 64 / block of them, one TMA box each) on the M side
+// while the CTA's own rows (R blocks, N = R * block <= 64) stay on the N
+// side: padding stands only at the tail of a CTA's list, never across
+// blocks that one owner does not visit.  At N 16 a step moves 16 KB for
+// 0.4 MFLOP (L2 traffic bounds it), so the plan gives a CTA R > 1 owners
+// whose lists are alike (adjacent, or grouped by sorted list) where the
+// padding costs less than the traffic it saves; `STEP_COST` (measured)
+// weighs the two.  One producer warp issues the TMA boxes into a 2-slot
+// mbarrier ring (dk/dv: and stages the gathered rows' lse and delta), one
+// consumer warpgroup runs the products; P and dS are rounded to bf16 and
+// staged in shared memory as the MN-major B of the second products, whose
+// A is the gathered tile read MN-major (wgmma's transpose of A).  The
+// CTAs with the longest lists start first.  Every output element is
+// summed in one CTA in list order and written once: reruns are bitwise
+// equal.
 #include "attn_tile.cuh"
+#include "hopper_tile.cuh"
 
 namespace {
 
@@ -466,6 +485,477 @@ sparse_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
+// bf16 backward on TMA + wgmma over a gathered tile plan
+// ---------------------------------------------------------------------
+namespace hp = dstt::hopper;
+
+// delta = rowsum(dO * out) in f32 into [B, H, S] for the wgmma pair (bf16,
+// D 64 or 128): DELTA_TPR consecutive threads a row of D elements, each
+// summing its 16-byte chunks part, part + DELTA_TPR, ... in order, then an
+// xor-shuffle sum.
+constexpr int DELTA_THREADS = 256;
+constexpr int DELTA_TPR = 8;
+
+template <int D>
+__global__ void __launch_bounds__(DELTA_THREADS)
+sparse_bwd_delta(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                 float* __restrict__ delta, long rows, int S, int H) {
+  constexpr int CHUNKS = D * (int)sizeof(bf16) / 16 / DELTA_TPR;
+  constexpr int RPB = DELTA_THREADS / DELTA_TPR;
+  const long row = (long)blockIdx.x * RPB + threadIdx.x / DELTA_TPR;
+  const int part = threadIdx.x % DELTA_TPR;
+  float s = 0.f;
+  if (row < rows) {
+    const uint4* a = reinterpret_cast<const uint4*>(o + row * D);
+    const uint4* b = reinterpret_cast<const uint4*>(dout + row * D);
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+      const uint4 ca = a[part + c * DELTA_TPR], cb = b[part + c * DELTA_TPR];
+      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&ca);
+      const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&cb);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 fx = __bfloat1622float2(x[i]);
+        const float2 fy = __bfloat1622float2(y[i]);
+        s += fx.x * fy.x + fx.y * fy.y;
+      }
+    }
+  }
+#pragma unroll
+  for (int off = DELTA_TPR / 2; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (part == 0 && row < rows) {
+    const int h = (int)(row % H);
+    const long bs = row / H;
+    delta[(bs / S * H + h) * S + bs % S] = s;
+  }
+}
+
+// The gathered tile plan (ops/sparse_flash.py `TileWalk`).  A CTA owns R
+// blocks of one head (query blocks in dq, key blocks in dk/dv: N = R *
+// block rows, the narrow N side of every product) and walks its list:
+// the blocks any of its R owners visits, ascending, G = 64 / block of
+// them a step gathered into one 64-row tile (the wgmma M side) as G TMA
+// boxes of `block` rows.  A list entry is (block << 4) | mask, bit o of
+// the mask set when owner o visits that block (masked where clear), or
+// -1: a padding slot at the list's tail, loaded from past S (zeros) and
+// masked.  sched [n_ctas] two int4: (h, steps, offset of the list in
+// ents, R) and the R owned blocks, the CTAs with the most steps first.
+constexpr int GROWS = 64;                  // gathered rows a step
+constexpr int G_CONSUMERS = 128;           // one consumer warpgroup
+constexpr int G_THREADS = G_CONSUMERS + 32;   // and one producer warp
+constexpr int G_STAGES = 2;                // ring slots
+
+template <int D, int BLK, int R>
+struct Walk : hp::RowTile<D> {
+  static constexpr int N = BLK * R;           // owned rows
+  static constexpr int G = GROWS / BLK;       // gathered blocks a step
+  static constexpr int OWN = N * D * 2;       // one owned operand
+  static constexpr int TILE = GROWS * D * 2;  // one gathered operand
+  static constexpr int RBN = N * 2;           // a staged operand's row
+  static constexpr hp::Swizzle SWN =
+      RBN == 128 ? hp::SW128 : RBN == 64 ? hp::SW64 : hp::SW32;
+  static constexpr int STAGED = GROWS * RBN;  // one staged [64 x N] operand
+  static constexpr int LDO = D + 8;           // epilogue rows, bf16
+  // the owned pair, the ring of gathered pairs, `staged` staged operands;
+  // the epilogue's [N][LDO] rows reuse the ring
+  static constexpr int smem(int staged) {
+    return 1024 + 2 * OWN + G_STAGES * 2 * TILE + staged * STAGED;
+  }
+  static_assert(GROWS % BLK == 0 && N <= 64, "tile plan");
+  static_assert(2 * N * LDO * 2 <= G_STAGES * 2 * TILE, "epilogue");
+};
+
+// CTAs an SM the launch bound asks for, so that no walk spills: four at N
+// 16 (and 32 at D 64), three at D 128 N 32, two at D 64 N 64, one at D 128
+// N 64 (dk/dv's four accumulators of [D x N])
+template <int D, int N>
+constexpr int walk_ctas() {
+  return N == 16 || (N == 32 && D == 64) ? 4 : N == 32 ? 3 : D == 64 ? 2 : 1;
+}
+
+// Store an m64nN f32 accumulator as bf16 into a staged operand of 64 rows
+// of N bf16 (the next product's MN-major B: rows its contraction index),
+// with the N * 2-byte swizzle.
+template <int N, hp::Swizzle SWN>
+__device__ __forceinline__ void stage_acc(uint8_t* staged,
+                                          const float (&acc)[N / 2], int warp,
+                                          int g, int t) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const uint32_t off =
+          (16 * warp + g + 8 * hh) * (N * 2) + (8 * j + 2 * t) * 2;
+      *reinterpret_cast<uint32_t*>(staged + hp::swizzled<SWN>(off)) =
+          hp::pack_bf16x2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+    }
+}
+
+// acc[m] [64 x N] += X^T [64 of D (column box m) x 64] W [64 x N]: X the
+// gathered tile (rows its contraction index, read MN-major), W a staged
+// operand (MN-major).
+template <int D, int N, hp::Swizzle SWN>
+__device__ __forceinline__ void issue_tn(float (&acc)[D / 64][N / 2],
+                                         const uint8_t* x, const uint8_t* w) {
+#pragma unroll
+  for (int m = 0; m < D / 64; ++m)
+#pragma unroll
+    for (int kk = 0; kk < GROWS / 16; ++kk) {
+      const uint64_t da = hp::smem_desc(x + m * GROWS * 128 + kk * 16 * 128,
+                                        hp::SW128, GROWS * 128, 8 * 128);
+      const uint64_t db = hp::smem_desc(w + kk * 16 * (N * 2), SWN,
+                                        GROWS * N * 2, 8 * N * 2);
+      hp::wgmma_ss<N, 1, 1>(acc[m], da, db, 1);
+    }
+}
+
+// owned block o of a CTA (o < R)
+__device__ __forceinline__ int owned(int4 own, int o) {
+  return o == 0 ? own.x : o == 1 ? own.y : o == 2 ? own.z : own.w;
+}
+
+// rows [0, N) of an epilogue tile out_s [N][LDO] (bf16), row r of owned
+// block r / BLK, to the rows of D elements `stride` apart at `head`,
+// 16-byte stores by the consumer warpgroup
+template <int D, int BLK, int N, int LDO>
+__device__ __forceinline__ void write_rows(bf16* head, long stride,
+                                           int4 own, const bf16* out_s,
+                                           int tid) {
+  for (int x = tid; x < N * D / 8; x += G_CONSUMERS) {
+    const int r = x / (D / 8), c = x % (D / 8) * 8;
+    const long row = (long)owned(own, r / BLK) * BLK + r % BLK;
+    *reinterpret_cast<uint4*>(head + row * stride + c) =
+        *reinterpret_cast<const uint4*>(out_s + r * LDO + c);
+  }
+}
+
+// dq: the CTA owns R query blocks (Q, dO, lse, delta loaded once) and
+// gathers 64 key rows a step: S^T = K_g Q^T and dP^T = V_g dO^T (M 64, N
+// the owned rows, K = D), P^T = exp2(S^T scale log2e - lse log2e) masked
+// (owners that do not visit a gathered block, the causal diagonal, the
+// tail's padding), dS^T = P^T (dP^T - delta) staged in shared memory as
+// bf16, dQ^T += K_g^T dS^T (M = D in 64-row boxes, N, K = 64).
+template <int D, int BLK, int R>
+__global__ void __launch_bounds__(G_THREADS, walk_ctas<D, BLK * R>())
+sparse_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const __grid_constant__ CUtensorMap dmap,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dq,
+                const int4* __restrict__ sched, const int* __restrict__ ents,
+                int S, int H, int B, int causal, float scale_log2,
+                float sm_scale) {
+  using T = Walk<D, BLK, R>;
+  constexpr int N = T::N, G = T::G;
+  extern __shared__ __align__(1024) uint8_t smem_tma[];
+  uint8_t* Qs = hp::align1024(smem_tma);
+  uint8_t* dOs = Qs + T::OWN;
+  uint8_t* ring = dOs + T::OWN;   // slot s: the K tile, then the V tile
+  uint8_t* dSs = ring + G_STAGES * 2 * T::TILE;
+  __shared__ __align__(8) uint64_t own_full, full[G_STAGES], empty[G_STAGES];
+  const int4 job = sched[2 * (blockIdx.x / B)];
+  const int4 own = sched[2 * (blockIdx.x / B) + 1];
+  const int b = blockIdx.x % B, h = job.x, n_steps = job.y;
+  const int* list = ents + job.z;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hp::mbar_init(&own_full, 1);
+    for (int s = 0; s < G_STAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 4);   // one arrival per consumer warp
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= G_CONSUMERS) {   // producer: TMA from one lane
+    if (tid == G_CONSUMERS) {
+      hp::mbar_expect_tx(&own_full, 2 * T::OWN);
+      for (int o = 0; o < R; ++o)
+        for (int c = 0; c < T::NCH; ++c) {
+          const int off = c * N * T::RB + o * BLK * T::RB;
+          hp::tma_load_4d(Qs + off, &qmap, &own_full, c * T::CH, h,
+                          owned(own, o) * BLK, b);
+          hp::tma_load_4d(dOs + off, &dmap, &own_full, c * T::CH, h,
+                          owned(own, o) * BLK, b);
+        }
+      for (int j = 0; j < n_steps; ++j) {
+        const int s = j % G_STAGES;
+        hp::mbar_wait(&empty[s], ((j / G_STAGES) & 1) ^ 1);
+        uint8_t* Ks = ring + s * 2 * T::TILE;
+        hp::mbar_expect_tx(&full[s], 2 * T::TILE);
+        for (int i = 0; i < G; ++i) {
+          const int e = list[j * G + i];
+          const int k0 = e >= 0 ? (e >> 4) * BLK : S;   // padding: zeros
+          for (int c = 0; c < T::NCH; ++c) {
+            const int off = c * GROWS * T::RB + i * BLK * T::RB;
+            hp::tma_load_4d(Ks + off, &kmap, &full[s], c * T::CH, h, k0, b);
+            hp::tma_load_4d(Ks + T::TILE + off, &vmap, &full[s], c * T::CH,
+                            h, k0, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int kr = 16 * warp + g;   // gathered rows kr, kr + 8 (one slot)
+  // this thread's query columns 8 j + 2 t, + 1: their rows, lse (times
+  // log2 e) and delta
+  int qrow[N / 8];
+  float2 lse2[N / 8], dl[N / 8];
+  const long lbase = ((long)b * H + h) * S;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    qrow[j] = owned(own, 8 * j / BLK) * BLK + 8 * j % BLK + 2 * t;
+    const float2 l = *reinterpret_cast<const float2*>(lse + lbase + qrow[j]);
+    lse2[j] = make_float2(l.x * LOG2E, l.y * LOG2E);
+    dl[j] = *reinterpret_cast<const float2*>(delta + lbase + qrow[j]);
+  }
+  float dqa[D / 64][N / 2];
+#pragma unroll
+  for (int m = 0; m < D / 64; ++m)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) dqa[m][i] = 0.f;
+  float st[N / 2], dpt[N / 2];
+  hp::mbar_wait(&own_full, 0);
+
+  for (int j = 0; j < n_steps; ++j) {
+    const int s = j % G_STAGES;
+    const int e = list[j * G + kr / BLK];
+    const uint8_t* Ks = ring + s * 2 * T::TILE;
+    const uint8_t* Vs = Ks + T::TILE;
+    hp::mbar_wait(&full[s], (j / G_STAGES) & 1);
+    hp::wgmma_fence();
+    hp::issue_abt<D, N>(st, Ks, GROWS, Qs);
+    hp::wgmma_commit();
+    hp::issue_abt<D, N>(dpt, Vs, GROWS, dOs);
+    hp::wgmma_commit();
+    const int mask = e < 0 ? 0 : e & 15;
+    const int kp = (e >> 4) * BLK + kr % BLK;   // key rows kp, kp + 8
+    hp::wgmma_wait<1>();
+    hp::fence_regs(st);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int jj = i >> 2;
+      const float l = (i & 1) ? lse2[jj].y : lse2[jj].x;
+      float p = hp::ex2(fmaf(st[i], scale_log2, -l));
+      if (!((mask >> (8 * jj / BLK)) & 1) ||
+          (causal && kp + 8 * ((i >> 1) & 1) > qrow[jj] + (i & 1)))
+        p = 0.f;
+      st[i] = p;
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dpt);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float d = (i & 1) ? dl[i >> 2].y : dl[i >> 2].x;
+      dpt[i] = st[i] * (dpt[i] - d);
+    }
+    hp::named_sync(1, G_CONSUMERS);   // the last step's product read dSs
+    stage_acc<N, T::SWN>(dSs, dpt, warp, g, t);
+    hp::fence_proxy_async();
+    hp::named_sync(1, G_CONSUMERS);
+    hp::wgmma_fence();
+    issue_tn<D, N, T::SWN>(dqa, Ks, dSs);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < D / 64; ++m) hp::fence_regs(dqa[m]);
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(&empty[s]);
+  }
+
+  // dQ^T (rows d, columns the owned query rows) through shared memory
+  hp::named_sync(1, G_CONSUMERS);   // every product has read the ring
+  bf16* out_s = reinterpret_cast<bf16*>(ring);
+#pragma unroll
+  for (int m = 0; m < D / 64; ++m)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int d = 64 * m + kr + 8 * ((i >> 1) & 1);
+      out_s[hp::acc_col(i, t) * T::LDO + d] =
+          __float2bfloat16(dqa[m][i] * sm_scale);
+    }
+  hp::named_sync(1, G_CONSUMERS);
+  const long stride = (long)H * D;
+  write_rows<D, BLK, N, T::LDO>(dq + (long)b * S * stride + (long)h * D,
+                                stride, own, out_s, tid);
+}
+
+// dk/dv: the CTA owns R key blocks (K and V loaded once) and gathers 64
+// query rows a step (Q, dO, and their lse and delta, which the producer
+// warp stages beside the ring slot: +inf and 0 on padding rows): S = Q_g
+// K^T and dP = dO_g V^T (M 64, N the owned keys), P and dS = P (dP -
+// delta) masked as in dq, both staged as bf16; dV^T += dO_g^T P and dK^T
+// += Q_g^T dS (M = D, N, K = 64).
+template <int D, int BLK, int R>
+__global__ void __launch_bounds__(G_THREADS, walk_ctas<D, BLK * R>())
+sparse_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap dmap,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, const int4* __restrict__ sched,
+                 const int* __restrict__ ents, int S, int H, int B,
+                 int causal, float scale_log2, float sm_scale) {
+  using T = Walk<D, BLK, R>;
+  constexpr int N = T::N, G = T::G;
+  extern __shared__ __align__(1024) uint8_t smem_tma[];
+  uint8_t* Ks = hp::align1024(smem_tma);
+  uint8_t* Vs = Ks + T::OWN;
+  uint8_t* ring = Vs + T::OWN;   // slot s: the Q tile, then the dO tile
+  uint8_t* Ps = ring + G_STAGES * 2 * T::TILE;
+  uint8_t* dSs = Ps + T::STAGED;
+  __shared__ float lse_s[G_STAGES][GROWS], dl_s[G_STAGES][GROWS];
+  __shared__ __align__(8) uint64_t own_full, full[G_STAGES], empty[G_STAGES];
+  const int4 job = sched[2 * (blockIdx.x / B)];
+  const int4 own = sched[2 * (blockIdx.x / B) + 1];
+  const int b = blockIdx.x % B, h = job.x, n_steps = job.y;
+  const int* list = ents + job.z;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hp::mbar_init(&own_full, 1);
+    for (int s = 0; s < G_STAGES; ++s) {
+      hp::mbar_init(&full[s], 1 + 32);   // the TMA lane + the warp's rows
+      hp::mbar_init(&empty[s], 4);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= G_CONSUMERS) {   // producer warp
+    const int lane = tid - G_CONSUMERS;
+    const long lbase = ((long)b * H + h) * S;
+    if (lane == 0) {
+      hp::mbar_expect_tx(&own_full, 2 * T::OWN);
+      for (int o = 0; o < R; ++o)
+        for (int c = 0; c < T::NCH; ++c) {
+          const int off = c * N * T::RB + o * BLK * T::RB;
+          hp::tma_load_4d(Ks + off, &kmap, &own_full, c * T::CH, h,
+                          owned(own, o) * BLK, b);
+          hp::tma_load_4d(Vs + off, &vmap, &own_full, c * T::CH, h,
+                          owned(own, o) * BLK, b);
+        }
+    }
+    for (int j = 0; j < n_steps; ++j) {
+      const int s = j % G_STAGES;
+      hp::mbar_wait(&empty[s], ((j / G_STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        uint8_t* Qg = ring + s * 2 * T::TILE;
+        hp::mbar_expect_tx(&full[s], 2 * T::TILE);
+        for (int i = 0; i < G; ++i) {
+          const int e = list[j * G + i];
+          const int r0 = e >= 0 ? (e >> 4) * BLK : S;   // padding: zeros
+          for (int c = 0; c < T::NCH; ++c) {
+            const int off = c * GROWS * T::RB + i * BLK * T::RB;
+            hp::tma_load_4d(Qg + off, &qmap, &full[s], c * T::CH, h, r0, b);
+            hp::tma_load_4d(Qg + T::TILE + off, &dmap, &full[s], c * T::CH,
+                            h, r0, b);
+          }
+        }
+      }
+      for (int rr = lane; rr < GROWS; rr += 32) {
+        const int e = list[j * G + rr / BLK];
+        const long i = lbase + (e >> 4) * BLK + rr % BLK;
+        lse_s[s][rr] = e >= 0 ? lse[i] * LOG2E : INFINITY;
+        dl_s[s][rr] = e >= 0 ? delta[i] : 0.f;
+      }
+      hp::mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int qr = 16 * warp + g;   // gathered query rows qr, qr + 8
+  int krow[N / 8];                // this thread's key columns 8 j + 2 t
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+    krow[j] = owned(own, 8 * j / BLK) * BLK + 8 * j % BLK + 2 * t;
+  float dka[D / 64][N / 2], dva[D / 64][N / 2];
+#pragma unroll
+  for (int m = 0; m < D / 64; ++m)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) dka[m][i] = dva[m][i] = 0.f;
+  float sc[N / 2], dp[N / 2];
+  hp::mbar_wait(&own_full, 0);
+
+  for (int j = 0; j < n_steps; ++j) {
+    const int s = j % G_STAGES;
+    const int e = list[j * G + qr / BLK];
+    const uint8_t* Qg = ring + s * 2 * T::TILE;
+    const uint8_t* dOg = Qg + T::TILE;
+    hp::mbar_wait(&full[s], (j / G_STAGES) & 1);
+    hp::wgmma_fence();
+    hp::issue_abt<D, N>(sc, Qg, GROWS, Ks);
+    hp::wgmma_commit();
+    hp::issue_abt<D, N>(dp, dOg, GROWS, Vs);
+    hp::wgmma_commit();
+    const int mask = e < 0 ? 0 : e & 15;
+    const int qp = (e >> 4) * BLK + qr % BLK;   // query rows qp, qp + 8
+    const float lse2[2] = {lse_s[s][qr], lse_s[s][qr + 8]};
+    const float dl[2] = {dl_s[s][qr], dl_s[s][qr + 8]};
+    hp::wgmma_wait<1>();
+    hp::fence_regs(sc);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int hh = (i >> 1) & 1, jj = i >> 2;
+      float p = hp::ex2(fmaf(sc[i], scale_log2, -lse2[hh]));
+      if (!((mask >> (8 * jj / BLK)) & 1) ||
+          (causal && krow[jj] + (i & 1) > qp + 8 * hh))
+        p = 0.f;
+      sc[i] = p;
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]);
+    hp::named_sync(1, G_CONSUMERS);   // the last step's products read Ps, dSs
+    stage_acc<N, T::SWN>(Ps, sc, warp, g, t);
+    stage_acc<N, T::SWN>(dSs, dp, warp, g, t);
+    hp::fence_proxy_async();
+    hp::named_sync(1, G_CONSUMERS);
+    hp::wgmma_fence();
+    issue_tn<D, N, T::SWN>(dva, dOg, Ps);
+    issue_tn<D, N, T::SWN>(dka, Qg, dSs);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < D / 64; ++m) {
+      hp::fence_regs(dva[m]);
+      hp::fence_regs(dka[m]);
+    }
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(&empty[s]);
+  }
+
+  // dK^T * scale and dV^T (rows d, columns the owned keys) through shared
+  // memory
+  hp::named_sync(1, G_CONSUMERS);
+  bf16* out_k = reinterpret_cast<bf16*>(ring);
+  bf16* out_v = out_k + N * T::LDO;
+#pragma unroll
+  for (int m = 0; m < D / 64; ++m)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int at = hp::acc_col(i, t) * T::LDO + 64 * m + qr +
+                     8 * ((i >> 1) & 1);
+      out_k[at] = __float2bfloat16(dka[m][i] * sm_scale);
+      out_v[at] = __float2bfloat16(dva[m][i]);
+    }
+  hp::named_sync(1, G_CONSUMERS);
+  const long stride = (long)H * D;
+  const long head = (long)b * S * stride + (long)h * D;
+  write_rows<D, BLK, N, T::LDO>(dk + head, stride, own, out_k, tid);
+  write_rows<D, BLK, N, T::LDO>(dv + head, stride, own, out_v, tid);
+}
+
+// ---------------------------------------------------------------------
 // f32 on the CUDA cores: one warp per row, F32_WARPS rows a CTA
 // ---------------------------------------------------------------------
 template <int D>
@@ -777,6 +1267,90 @@ int dkv(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// A bf16 tensor map of [B, S, H, D] (innermost first: D, H, S, B) whose
+// box is BLK rows of one head in 64-column boxes (the 128-byte swizzle).
+template <int D, int BLK>
+int walk_map(CUtensorMap* map, const void* base, int B, int S, int H) {
+  using T = hp::RowTile<D>;
+  const uint64_t dims[4] = {D, (uint64_t)H, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[3] = {D * 2, (uint64_t)H * D * 2,
+                               (uint64_t)S * H * D * 2};
+  const uint32_t box[4] = {T::CH, 1, BLK, 1};
+  return hp::make_map_bf16(map, base, 4, dims, strides, box, T::SW);
+}
+
+struct WalkArgs {
+  const void *q, *k, *v, *lse, *dout, *delta, *sched, *ents;
+  void *out1, *out2;   // dq; or dk, dv
+  int n_ctas, B, S, H, causal;
+  float scale;
+};
+
+template <int D, int BLK, int R>
+int launch_walk(const WalkArgs& a, bool dkv, cudaStream_t st) {
+  using T = Walk<D, BLK, R>;
+  CUtensorMap qm, km, vm, dm;
+  int rc = walk_map<D, BLK>(&qm, a.q, a.B, a.S, a.H);
+  if (!rc) rc = walk_map<D, BLK>(&km, a.k, a.B, a.S, a.H);
+  if (!rc) rc = walk_map<D, BLK>(&vm, a.v, a.B, a.S, a.H);
+  if (!rc) rc = walk_map<D, BLK>(&dm, a.dout, a.B, a.S, a.H);
+  if (rc) return rc;
+  const unsigned grid = (unsigned)a.n_ctas * a.B;
+  const float sl2 = a.scale * LOG2E;
+  if (dkv) {
+    const int smem = T::smem(2);
+    int err = set_smem(sparse_dkv_wgmma<D, BLK, R>, smem);
+    if (err) return err;
+    sparse_dkv_wgmma<D, BLK, R><<<grid, G_THREADS, smem, st>>>(
+        qm, km, vm, dm, (const float*)a.lse, (const float*)a.delta,
+        (bf16*)a.out1, (bf16*)a.out2, (const int4*)a.sched,
+        (const int*)a.ents, a.S, a.H, a.B, a.causal, sl2, a.scale);
+  } else {
+    const int smem = T::smem(1);
+    int err = set_smem(sparse_dq_wgmma<D, BLK, R>, smem);
+    if (err) return err;
+    sparse_dq_wgmma<D, BLK, R><<<grid, G_THREADS, smem, st>>>(
+        qm, km, vm, dm, (const float*)a.lse, (const float*)a.delta,
+        (bf16*)a.out1, (const int4*)a.sched, (const int*)a.ents, a.S, a.H,
+        a.B, a.causal, sl2, a.scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// (block, owners a CTA) pairs of the gathered plan: N = block * R <= 64
+template <int D>
+int walk_by_tile(int block, int R, const WalkArgs& a, bool dkv,
+                 cudaStream_t st) {
+  if (block == 16 && R == 1) return launch_walk<D, 16, 1>(a, dkv, st);
+  if (block == 16 && R == 2) return launch_walk<D, 16, 2>(a, dkv, st);
+  if (block == 16 && R == 4) return launch_walk<D, 16, 4>(a, dkv, st);
+  if (block == 32 && R == 1) return launch_walk<D, 32, 1>(a, dkv, st);
+  if (block == 32 && R == 2) return launch_walk<D, 32, 2>(a, dkv, st);
+  if (block == 64 && R == 1) return launch_walk<D, 64, 1>(a, dkv, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int walk(int D, int block, int R, const WalkArgs& a, bool dkv,
+         cudaStream_t st) {
+  if (a.B <= 0 || a.H <= 0 || a.n_ctas <= 0 || a.S <= 0 || a.S % block ||
+      a.delta == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (D == 64) return walk_by_tile<64>(block, R, a, dkv, st);
+  if (D == 128) return walk_by_tile<128>(block, R, a, dkv, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch_delta(const void* o, const void* dout, void* delta, int B, int S,
+                 int H, cudaStream_t st) {
+  constexpr int RPB = DELTA_THREADS / DELTA_TPR;
+  const long rows = (long)B * S * H;
+  sparse_bwd_delta<D><<<(unsigned)((rows + RPB - 1) / RPB), DELTA_THREADS, 0,
+                        st>>>((const bf16*)o, (const bf16*)dout,
+                              (float*)delta, rows, S, H);
+  return (int)cudaGetLastError();
+}
+
 // The launcher F<D> for head dim D (one of the four `bad` lets through).
 #define SPARSE_BY_D(dim, F, ...)                            \
   ((dim) == 64    ? F<64>(__VA_ARGS__)                      \
@@ -823,4 +1397,45 @@ extern "C" int dstt_sparse_dkv(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return SPARSE_BY_D(D, dkv, q, k, v, o, lse, dout, dko, dvo, rev, s, dtype,
                      st);
+}
+
+// delta [B, H, S] f32 = rowsum(dO * out) over bf16 out / dO [B, S, H, D],
+// D 64 or 128 (what the wgmma pair reads).
+extern "C" int dstt_sparse_bwd_delta(const void* o, const void* dout,
+                                     void* delta, int B, int S, int H,
+                                     int D, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (D == 64) return launch_delta<64>(o, dout, delta, B, S, H, st);
+  if (D == 128) return launch_delta<128>(o, dout, delta, B, S, H, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 TMA + wgmma dq and dk/dv over a gathered tile plan (sched
+// [n_ctas] two int4 and its lists `ents`, R owned blocks a CTA): D 64 or 128,
+// block 16 (R 1, 2, 4), 32 (R 1, 2) or 64 (R 1); delta from
+// dstt_sparse_bwd_delta.  Each returns cudaGetLastError() after its
+// launch (cudaErrorInvalidValue for what it does not take).
+extern "C" int dstt_sparse_dq_wgmma(const void* q, const void* k,
+                                    const void* v, const void* lse,
+                                    const void* dout, const void* delta,
+                                    void* dqo, const void* sched,
+                                    const void* ents, int n_ctas, int R,
+                                    int B, int S, int H, int D, int block,
+                                    int causal, float scale, void* stream) {
+  const WalkArgs a{q,   k,      v, lse, dout, delta, sched, ents, dqo,
+                   nullptr, n_ctas, B, S,   H,    causal, scale};
+  return walk(D, block, R, a, false, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int dstt_sparse_dkv_wgmma(const void* q, const void* k,
+                                     const void* v, const void* lse,
+                                     const void* dout, const void* delta,
+                                     void* dko, void* dvo, const void* sched,
+                                     const void* ents, int n_ctas, int R,
+                                     int B, int S, int H, int D, int block,
+                                     int causal, float scale, void* stream) {
+  const WalkArgs a{q,   k,   v,      lse, dout, delta, sched,  ents,
+                   dko, dvo, n_ctas, B,   S,    H,     causal, scale};
+  return walk(D, block, R, a, true, static_cast<cudaStream_t>(stream));
 }

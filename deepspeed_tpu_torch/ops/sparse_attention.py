@@ -22,15 +22,17 @@ branch maps its -inf softmax's NaN to 0), and PyTorch's autograd for the
 gradient.
 
 `SparseSelfAttention` caches, per sequence length, the layout and, per
-device, the gather table and its reverse as int32 tensors: the JAX
-backward rebuilds both in Python loops on every call (~275k iterations at
-H 16, nb 256, A 67), which would keep the card waiting on the host.
+device, the gather table and its reverse as int32 tensors with the
+backward's plan (`sparse_flash.bwd_plan`: the kernel pair's rule input
+and the gathered tile walks): the JAX backward rebuilds the tables in
+Python loops on every call (~275k iterations at H 16, nb 256, A 67),
+which would keep the card waiting on the host.
 """
 from __future__ import annotations
 
 import math
 import random
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -316,11 +318,12 @@ def _use_sparse_kernel(impl: str, device) -> bool:
 
 class _SparseFlash(torch.autograd.Function):
     """The kernel path: the forward kernel keeps out and lse; the backward
-    is the dq and dk/dv kernels over the table and its reverse."""
+    is the dq and dk/dv kernels over the table and its reverse, on the
+    pair the cached plan's rule names."""
 
     @staticmethod
     def forward(ctx, q, k, v, tables, block, causal, scale):
-        idx, rev = tables
+        idx, rev, plan = tables
         # the kernels take contiguous [B, S, H, D]; q/k/v sliced out of a
         # fused projection are not
         q, k, v = (t.contiguous() for t in (q, k, v))
@@ -328,6 +331,7 @@ class _SparseFlash(torch.autograd.Function):
             q, k, v, idx, block, causal=causal, scale=scale, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse, idx, rev)
         ctx.block, ctx.causal, ctx.scale = block, causal, scale
+        ctx.plan = plan
         return out
 
     @staticmethod
@@ -335,16 +339,25 @@ class _SparseFlash(torch.autograd.Function):
         q, k, v, out, lse, idx, rev = ctx.saved_tensors
         dq, dk, dv = sparse_flash.block_sparse_flash_backward(
             q, k, v, idx, rev, out, dout.contiguous(), lse, ctx.block,
-            causal=ctx.causal, scale=ctx.scale)
+            causal=ctx.causal, scale=ctx.scale, plan=ctx.plan)
         return dq, dk, dv, None, None, None, None
 
 
-def _device_tables(kb_idx: np.ndarray, device) -> Tuple[torch.Tensor,
-                                                        torch.Tensor]:
+class DeviceTables(NamedTuple):
+    """A layout's gather table and its reverse as int32 tensors on one
+    device, and the backward's plan at one block (its walks' tensors on
+    the same device)."""
+    idx: torch.Tensor
+    rev: torch.Tensor
+    plan: "sparse_flash.BwdPlan"
+
+
+def _device_tables(kb_idx: np.ndarray, device, block: int) -> DeviceTables:
     rev = sparse_flash.reverse_gather(kb_idx)
-    return (torch.from_numpy(np.ascontiguousarray(kb_idx, np.int32)).to(
-                device),
-            torch.from_numpy(rev).to(device))
+    return DeviceTables(
+        torch.from_numpy(np.ascontiguousarray(kb_idx, np.int32)).to(device),
+        torch.from_numpy(rev).to(device),
+        sparse_flash.bwd_plan(kb_idx, block, device))
 
 
 def block_sparse_attention(q, k, v, layout: np.ndarray, block: int,
@@ -352,8 +365,8 @@ def block_sparse_attention(q, k, v, layout: np.ndarray, block: int,
                            impl: str = "auto", tables=None):
     """q, k, v: [B, S, H, D]; layout: [H, S/block, S/block] bool (static).
     Differentiable in q, k and v.  `tables` (the gather table as numpy
-    and the device tables `(kb_idx, rev)`), when given, saves rebuilding
-    them (`SparseSelfAttention` caches them)."""
+    and its `DeviceTables`), when given, saves rebuilding them
+    (`SparseSelfAttention` caches them)."""
     B, S, H, D = q.shape
     nb = S // block
     if layout.shape != (H, nb, nb):
@@ -366,7 +379,7 @@ def block_sparse_attention(q, k, v, layout: np.ndarray, block: int,
         kb_idx, dev_tables = tables
     if _use_sparse_kernel(impl, q.device):
         if dev_tables is None:
-            dev_tables = _device_tables(kb_idx, q.device)
+            dev_tables = _device_tables(kb_idx, q.device, block)
         return _SparseFlash.apply(q, k, v, dev_tables, block, bool(causal),
                                   float(scale))
     return sparse_flash.block_sparse_flash_attention_reference(
@@ -392,8 +405,7 @@ class SparseSelfAttention:
         self.impl = impl
         self._layouts: Dict[int, np.ndarray] = {}
         self._gathers: Dict[int, np.ndarray] = {}
-        self._tables: Dict[Tuple[int, str], Tuple[torch.Tensor,
-                                                  torch.Tensor]] = {}
+        self._tables: Dict[Tuple[int, str], DeviceTables] = {}
 
     def layout(self, seq_len: int) -> np.ndarray:
         if seq_len not in self._layouts:
@@ -401,14 +413,16 @@ class SparseSelfAttention:
         return self._layouts[seq_len]
 
     def tables(self, seq_len: int, device):
-        """(kb_idx numpy, (kb_idx, rev) int32 tensors on `device`), built
-        once per sequence length and device."""
+        """(kb_idx numpy, `DeviceTables` on `device`: kb_idx and rev as
+        int32 tensors and the backward's plan), built once per sequence
+        length and device."""
         if seq_len not in self._gathers:
             self._gathers[seq_len] = _layout_to_gather(self.layout(seq_len))
         kb_idx = self._gathers[seq_len]
         key = (seq_len, str(torch.device(device)))
         if key not in self._tables:
-            self._tables[key] = _device_tables(kb_idx, device)
+            self._tables[key] = _device_tables(kb_idx, device,
+                                               self.sparsity_config.block)
         return kb_idx, self._tables[key]
 
     def __call__(self, q, k, v):

@@ -15,6 +15,23 @@ Counterpart of `deepspeed_tpu/ops/sparse_flash.py`
   (`reverse_gather`), summed in f32 and written once, no atomics.
 `block_sparse_flash_backward` runs the two backward kernels.
 
+The backward has two bf16 kernel pairs, and `bwd_variant` names the one a
+call takes ("wgmma", "mma", or "f32" for float32); each wrapper counts
+its launches per pair in `launches_by_variant`:
+
+- "wgmma" (D 64 and 128, block 16, 32, 64): TMA + wgmma over a gathered
+  tile plan (`bwd_plan`, `TileWalk`): a CTA owns 1-4 blocks whose lists
+  are alike (the N side of the products) and gathers 64 rows of the
+  blocks they visit a step (the M side), so padding stands only at a
+  list's tail; both read delta from `block_sparse_flash_bwd_delta`,
+  launched once a backward;
+- "mma": mma.sync through registers, one CTA per block, delta computed
+  inside (every other D and block).
+
+The rule reads the dtype, D and block only: the wgmma pair was faster on
+every layout of the on-card sweep (PERF.md), and chip_smoke phase 10's
+pair gate holds it so on the card.
+
 A row whose every key is masked gives out 0 and a finite lse (the TPU
 kernel's -1e30 sentinel and re-mask), and then dq, dk and dv 0.
 
@@ -33,6 +50,7 @@ Layout is the JAX public one: q, k, v [B, S, H, D].
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Optional
 
@@ -43,10 +61,13 @@ from . import _build
 
 __all__ = ["block_sparse_flash_attention", "block_sparse_flash_backward",
            "block_sparse_flash_dq", "block_sparse_flash_dkv",
-           "reverse_gather", "block_sparse_flash_attention_reference",
+           "block_sparse_flash_bwd_delta", "bwd_variant", "bwd_plan",
+           "call_plan", "tile_walk", "TileWalk", "BwdPlan", "reverse_gather",
+           "block_sparse_flash_attention_reference",
            "block_sparse_flash_backward_reference",
            "block_sparse_flash_dq_reference",
-           "block_sparse_flash_dkv_reference", "NEG_INF"]
+           "block_sparse_flash_dkv_reference",
+           "block_sparse_flash_bwd_delta_reference", "NEG_INF"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 192, 256)
@@ -55,7 +76,26 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = (_P,) * 6 + (_I,) * 7 + (_F, _I, _P)
 _DQ_ARGS = (_P,) * 8 + (_I,) * 7 + (_F, _I, _P)
 _DKV_ARGS = (_P,) * 9 + (_I,) * 7 + (_F, _I, _P)
+_DELTA_ARGS = (_P,) * 3 + (_I,) * 4 + (_P,)
+_DQ_WGMMA_ARGS = (_P,) * 9 + (_I,) * 8 + (_F, _P)
+_DKV_WGMMA_ARGS = (_P,) * 10 + (_I,) * 8 + (_F, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the backward's kernel pairs (module docstring)
+BWD_VARIANTS = ("wgmma", "mma", "f32")
+WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_BLOCKS = (16, 32, 64)
+GATHER_ROWS = 64          # rows a gathered step fills (wgmma's M)
+# owned blocks a CTA may take by block: N = block * R <= 64
+OWNER_GROUPS = {16: (1, 2, 4), 32: (1, 2), 64: (1,)}
+# relative time of one gathered step by N = block * R, from the on-card
+# sweep (PERF.md): `tile_walk` picks the R of least steps * cost
+STEP_COST = {16: 1.0, 32: 1.4, 64: 2.5}
+# the walks of a plan: dq over the gather table, dk/dv over its reverse
+WALKS = ("dq", "dkv")
+# plans a wrapper keeps for calls given none, per table, block, device
+# and walk (`SparseSelfAttention` keeps its own beside its tables)
+CALL_PLANS = 16
 
 
 def reverse_gather(kb_idx) -> np.ndarray:
@@ -75,6 +115,204 @@ def reverse_gather(kb_idx) -> np.ndarray:
     rev = np.full((H * nqb, R), -1, np.int32)
     rev[row, np.arange(row.size) - starts[row]] = qb
     return rev.reshape(H, nqb, R)
+
+
+# ----------------------------------------------------------------------
+# the gathered tile plan of the wgmma backward pair
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TileWalk:
+    """One backward kernel's walk over a table [H, nb, n] (the gather
+    table for dq, its reverse for dk/dv): a CTA owns `owners` blocks of
+    one head and walks the ascending union of their lists, `gather`
+    blocks (64 rows) a step.
+
+    `sched` int32 [n_ctas, 8]: (h, steps, offset of the CTA's list in
+    `ents`, owners, the owned blocks (up to 4)), the CTAs with the most
+    steps first (the kernels run them in this order, so a long list
+    starts early); `ents` int32: each list padded with -1 to whole steps,
+    an entry (block << 4) | mask where bit o of the mask is set when
+    owner o visits the block.  `grouping` says which blocks share a CTA:
+    "adjacent" runs of `owners` blocks, or "sorted" runs of the head's
+    blocks ordered by list length, then lexicographically (alike lists
+    together).  `visits` counts the visited (owner, block) pairs;
+    `padding` is the tile work (steps x gather x owners block pairs) over
+    them."""
+    owners: int
+    gather: int
+    grouping: str
+    sched: np.ndarray
+    ents: np.ndarray
+    visits: int
+
+    @property
+    def steps(self) -> int:
+        return int(self.sched[:, 1].sum())
+
+    @property
+    def padding(self) -> float:
+        return self.steps * self.gather * self.owners / max(self.visits, 1)
+
+    def pairs(self) -> np.ndarray:
+        """[n, 3] (h, owned block, visited block) of every pair the walk
+        computes unmasked, one row per visit of the walk."""
+        rows = []
+        for h, steps, off, _, *owned in self.sched.tolist():
+            for e in self.ents[off:off + steps * self.gather].tolist():
+                for o in range(self.owners):
+                    if e >= 0 and (e & 15) >> o & 1:
+                        rows.append((h, owned[o], e >> 4))
+        return np.asarray(rows, np.int64).reshape(-1, 3)
+
+
+WALK_GROUPINGS = ("adjacent", "sorted")
+
+
+def tile_walk(table, block: int, owners: int = 1,
+              grouping: str = "adjacent") -> TileWalk:
+    """The walk of `owners` blocks a CTA over `table` [H, nb, n]
+    (ascending block lists, -1 padded) at `block`: pure numpy."""
+    table = np.asarray(table)
+    H, nb, _ = table.shape
+    if (owners not in OWNER_GROUPS.get(block, ()) or nb % owners
+            or grouping not in WALK_GROUPINGS):
+        raise ValueError(f"no {grouping!r} gathered walk of {owners} owners "
+                         f"at block {block} over {nb} blocks")
+    gather = GATHER_ROWS // block
+    visits = np.zeros((H, nb, nb), bool)                # [h, owner, block]
+    h, i, a = np.nonzero(table >= 0)
+    visits[h, i, table[h, i, a]] = True
+    if grouping == "sorted":   # by list length, then lexicographically
+        lengths = (table >= 0).sum(-1)
+        order = np.stack([np.lexsort((*table[hh].T[::-1], -lengths[hh]))
+                          for hh in range(H)])
+    else:
+        order = np.broadcast_to(np.arange(nb), (H, nb))
+    groups = order.reshape(H, nb // owners, owners)    # [h, group, o]
+    grouped = visits[np.arange(H)[:, None, None], groups]
+    bits = (grouped.view(np.uint8) << np.arange(owners, dtype=np.uint8)[
+        :, None]).sum(2, dtype=np.uint8)               # owner mask, 4 bits
+    union = bits > 0                                    # [h, group, block]
+    counts = union.sum(-1).ravel()
+    steps = -(-counts // gather)
+    gh, gg, kb = np.nonzero(union)       # row-major: ascending kb per group
+    group = gh * (nb // owners) + gg
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    offsets = np.concatenate([[0], np.cumsum(steps * gather)[:-1]])
+    ents = np.full(int((steps * gather).sum()), -1, np.int32)
+    ents[offsets[group] + np.arange(group.size) - starts[group]] = (
+        kb * 16 + bits[gh, gg, kb].astype(np.int64))
+    owned = np.full((H * (nb // owners), 4), -1, np.int64)
+    owned[:, :owners] = groups.reshape(-1, owners)
+    sched = np.concatenate([np.stack([
+        np.repeat(np.arange(H), nb // owners), steps, offsets,
+        np.full_like(steps, owners)], 1), owned], 1).astype(np.int32)
+    sched = sched[np.argsort(-steps, kind="stable")]
+    return TileWalk(owners, gather, grouping, np.ascontiguousarray(sched),
+                    ents, int(visits.sum()))
+
+
+def _cheapest_walk(table, block: int) -> TileWalk:
+    """The walk of least steps x STEP_COST[N] over the owner counts the
+    block allows and both groupings (the fewest owners, then "adjacent",
+    on a tie)."""
+    nb = np.asarray(table).shape[1]
+    walks = [tile_walk(table, block, r, grp) for r in OWNER_GROUPS[block]
+             if nb % r == 0 for grp in (WALK_GROUPINGS if r > 1 else
+                                        WALK_GROUPINGS[:1])]
+    return min(walks, key=lambda w: (w.steps * STEP_COST[block * w.owners],
+                                     w.owners,
+                                     WALK_GROUPINGS.index(w.grouping)))
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """One layout's backward plan at one block: at the blocks the wgmma
+    pair takes, the dq and dk/dv walks (None where not built) with their
+    `sched` and `ents` as int32 tensors on `device` in `device_walks`
+    (one (sched, ents) or None per walk).  Built once per layout and
+    device (`sparse_attention._device_tables` caches it)."""
+    block: int
+    heads: int
+    blocks: int
+    dq: Optional[TileWalk]
+    dkv: Optional[TileWalk]
+    device_walks: tuple = ()
+
+
+def _host_table(kb_idx) -> np.ndarray:
+    if isinstance(kb_idx, torch.Tensor):
+        kb_idx = kb_idx.cpu().numpy()
+    return np.ascontiguousarray(kb_idx, np.int32)
+
+
+def _plan_walk(kb_idx, block, which, owners, grouping, device):
+    table = kb_idx if which == "dq" else reverse_gather(kb_idx)
+    walk = (_cheapest_walk(table, block) if owners is None
+            else tile_walk(table, block, owners, grouping))
+    return walk, (torch.from_numpy(walk.sched).to(device),
+                  torch.from_numpy(walk.ents).to(device))
+
+
+def bwd_plan(kb_idx, block: int, device="cpu", owners: Optional[int] = None,
+             grouping: str = "adjacent") -> BwdPlan:
+    """The backward plan of gather table `kb_idx` [H, nqb, A] (numpy or
+    a tensor) at `block`: each walk the cheapest, or with `owners` given
+    that many owners a CTA grouped by `grouping` (the card's checks hold
+    every walk the kernels take)."""
+    kb_idx = _host_table(kb_idx)
+    H, nb, _ = kb_idx.shape
+    if block not in WGMMA_BLOCKS:
+        return BwdPlan(block, H, nb, None, None)
+    built = [_plan_walk(kb_idx, block, w, owners, grouping, device)
+             for w in WALKS]
+    return BwdPlan(block, H, nb, *(w for w, _ in built),
+                   tuple(d for _, d in built))
+
+
+_call_walks: dict = {}
+
+
+def call_plan(kb_idx, block: int, device, walks=WALKS) -> BwdPlan:
+    """The plan of a wrapper call given none: each of `walks` built once
+    per table, block and device and kept (the CALL_PLANS * 2 latest
+    walks), so a direct dq call builds only the dq walk, and a repeated
+    call only reads the table back to hash it."""
+    kb_idx = _host_table(kb_idx)
+    H, nb, _ = kb_idx.shape
+    key = (kb_idx.shape, kb_idx.tobytes(), block, str(torch.device(device)))
+    built = []
+    for w in WALKS:
+        got = None
+        if w in walks:
+            got = _call_walks.pop((w,) + key, None) or _plan_walk(
+                kb_idx, block, w, None, "adjacent", device)
+            _call_walks[(w,) + key] = got      # the latest last
+            while len(_call_walks) > 2 * CALL_PLANS:
+                del _call_walks[next(iter(_call_walks))]
+        built.append(got or (None, None))
+    return BwdPlan(block, H, nb, *(w for w, _ in built),
+                   tuple(d for _, d in built))
+
+
+def bwd_variant(dtype, D: int, block: int) -> str:
+    """The dq and dk/dv kernel pair a call of `dtype`, head dim `D` and
+    `block` takes on the card: "f32" for float32; for bf16 "wgmma" at D
+    64 and 128 and block 16, 32 and 64, else "mma".  Raises on what no
+    pair takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype}: the block-sparse kernels take bf16 "
+                        f"or f32")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} (kernels take {HEAD_DIMS})")
+    if block % 8 or not 8 <= block <= MAX_BLOCK:
+        raise ValueError(f"block {block} (kernels take multiples of 8 up to "
+                         f"{MAX_BLOCK})")
+    if dtype == torch.float32:
+        return "f32"
+    if D not in WGMMA_HEAD_DIMS or block not in WGMMA_BLOCKS:
+        return "mma"
+    return "wgmma"
 
 
 # ----------------------------------------------------------------------
@@ -146,8 +384,15 @@ def block_sparse_flash_attention_reference(q, k, v, kb_idx, block: int,
     return _unblocks(out).to(q.dtype), lse
 
 
-def _bwd_reference(q, k, v, kb_idx, out, do, lse, block, causal, scale):
-    """(dq, dk, dv) in f32 from the forward's residuals and dO."""
+def _delta(out, do):
+    """rowsum(dO * out) in f32, [B, H, S]."""
+    return (do.float() * out.float()).sum(-1).permute(0, 2, 1)
+
+
+def _bwd_reference(q, k, v, kb_idx, out, do, lse, block, causal, scale,
+                   delta=None):
+    """(dq, dk, dv) in f32 from the forward's residuals and dO; `delta`
+    [B, H, S] (rowsum(dO * out)) where the caller has it."""
     B, S, H, D = q.shape
     nb = S // block
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -156,7 +401,9 @@ def _bwd_reference(q, k, v, kb_idx, out, do, lse, block, causal, scale):
     p = torch.where(s > NEG_INF * 0.5, torch.exp(s - lse.float()[..., None]),
                     0.0).reshape(B, H, nb, block, A, block)
     dob = _blocks(do, block).float()
-    delta = (dob * _blocks(out, block).float()).sum(-1)    # [B, H, nqb, bl]
+    if delta is None:
+        delta = _delta(out, do)
+    delta = delta.float().reshape(B, H, nb, block)
     dp = torch.einsum("bhqid,bhqajd->bhqiaj", dob, gv)
     ds = p * (dp - delta[..., None, None])
     dq = torch.einsum("bhqiaj,bhqajd->bhqid", ds, gk) * scale
@@ -185,21 +432,29 @@ def block_sparse_flash_backward_reference(q, k, v, kb_idx, out, do, lse,
 
 def block_sparse_flash_dq_reference(q, k, v, kb_idx, out, do, lse,
                                     block: int, causal: bool = True,
-                                    scale: Optional[float] = None):
+                                    scale: Optional[float] = None,
+                                    delta=None):
     """Plain PyTorch version of the dq kernel: f32 math.  Returns dq like
     q."""
     return _bwd_reference(q, k, v, kb_idx, out, do, lse, block, causal,
-                          scale)[0].to(q.dtype)
+                          scale, delta)[0].to(q.dtype)
 
 
 def block_sparse_flash_dkv_reference(q, k, v, kb_idx, out, do, lse,
                                      block: int, causal: bool = True,
-                                     scale: Optional[float] = None):
+                                     scale: Optional[float] = None,
+                                     delta=None):
     """Plain PyTorch version of the dk/dv kernel: f32 math.  Returns (dk,
     dv) like k."""
     _, dk, dv = _bwd_reference(q, k, v, kb_idx, out, do, lse, block,
-                               causal, scale)
+                               causal, scale, delta)
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def block_sparse_flash_bwd_delta_reference(out, do):
+    """Plain PyTorch version of the delta kernel: rowsum(dO * out) in
+    f32, [B, H, S]."""
+    return _delta(out, do)
 
 
 # ----------------------------------------------------------------------
@@ -287,67 +542,197 @@ def block_sparse_flash_attention(q, k, v, kb_idx, block: int,
     return (out, lse) if return_lse else out
 
 
+def _rows_like(t, q, name):
+    B, S, H, _ = q.shape
+    if (t.shape != (B, H, S) or t.dtype != torch.float32
+            or t.device != q.device or not t.is_contiguous()):
+        raise ValueError(f"{name} must be contiguous f32 {(B, H, S)} on "
+                         f"q's device")
+
+
+def block_sparse_flash_bwd_delta(out, do):
+    """delta = rowsum(dO * out) [B, H, S] f32, read by the wgmma pair:
+    one launch a backward."""
+    if out.device.type == "cpu":
+        return block_sparse_flash_bwd_delta_reference(out, do)
+    _not_cuda(out)
+    if (out.dtype != torch.bfloat16 or out.dim() != 4
+            or out.shape[3] not in WGMMA_HEAD_DIMS):
+        raise ValueError(f"the delta kernel takes the wgmma pair's bf16 "
+                         f"[B, S, H, D] at D {WGMMA_HEAD_DIMS}, got "
+                         f"{out.dtype} {tuple(out.shape)}")
+    B, S, H, D = out.shape
+    if (do.shape != out.shape or do.dtype != out.dtype
+            or do.device != out.device or not out.is_contiguous()
+            or not do.is_contiguous()):
+        raise ValueError("dO must match out's shape, dtype and device, both "
+                         "contiguous")
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=out.device)
+    fn = _build.function("sparse_flash", "dstt_sparse_bwd_delta",
+                         _DELTA_ARGS)
+    _build.check(fn(out.data_ptr(), do.data_ptr(), delta.data_ptr(), B, S,
+                    H, D, _stream(out)),
+                 "block-sparse attention delta")
+    block_sparse_flash_bwd_delta.launches += 1
+    return delta
+
+
+def _route(q, kb_idx, block, plan, variant, walks):
+    """(plan, variant) of a backward call on the card: the variant
+    `bwd_variant` names where none is given, and on the wgmma pair the
+    plan given or else `call_plan`'s of `walks`; raises where the named
+    variant does not take the call (no other pair is tried)."""
+    B, S, H, D = q.shape
+    if variant is None:
+        variant = bwd_variant(q.dtype, D, block)
+    if variant not in BWD_VARIANTS:
+        raise ValueError(f"variant {variant!r} (one of {BWD_VARIANTS})")
+    if (variant == "f32") != (q.dtype == torch.float32):
+        raise ValueError(f"the {variant!r} pair does not take {q.dtype}")
+    if variant == "wgmma":
+        if (q.dtype != torch.bfloat16 or D not in WGMMA_HEAD_DIMS
+                or block not in WGMMA_BLOCKS):
+            raise ValueError(f"the wgmma pair takes bf16 at D "
+                             f"{WGMMA_HEAD_DIMS} and block {WGMMA_BLOCKS}, "
+                             f"not {q.dtype} D {D} block {block}")
+        if plan is None:
+            plan = call_plan(kb_idx, block, q.device, walks)
+        if (plan.block, plan.heads, plan.blocks) != (block, H, S // block) \
+                or any(getattr(plan, w) is None for w in walks):
+            raise ValueError(f"the plan is for block {plan.block}, "
+                             f"{plan.heads} heads, {plan.blocks} blocks with "
+                             f"walks {[w for w in WALKS if getattr(plan, w)]}"
+                             f", not block {block}, {H} heads, {S // block} "
+                             f"blocks with {list(walks)}")
+        tables = [d[0] for d in plan.device_walks if d is not None]
+        if tables[0].device != q.device:
+            raise ValueError(f"the plan's tables lie on {tables[0].device}, "
+                             f"not {q.device}")
+    return plan, variant
+
+
+def _count(wrapper, variant):
+    wrapper.launches += 1
+    wrapper.launches_by_variant[variant] += 1
+
+
+def _walk_args(plan, which, q, block, causal, scale):
+    """The pointers and ints after the outputs of a wgmma entry point."""
+    walk = plan.dq if which == 0 else plan.dkv
+    sched, ents = plan.device_walks[which]
+    B, S, H, D = q.shape
+    return (sched.data_ptr(), ents.data_ptr(), sched.shape[0], walk.owners,
+            B, S, H, D, block, int(bool(causal)), _scale(scale, D),
+            _stream(q))
+
+
 def block_sparse_flash_dq(q, k, v, kb_idx, out, do, lse, block: int,
                           causal: bool = True,
-                          scale: Optional[float] = None):
+                          scale: Optional[float] = None, *, delta=None,
+                          plan: Optional[BwdPlan] = None,
+                          variant: Optional[str] = None):
     """dq of block-sparse attention along the gather table, from the
-    forward's residuals and dO.  Returns dq like q."""
+    forward's residuals and dO, on the pair `variant` (default: the one
+    `bwd_variant` names).  The wgmma pair reads `delta` (computed here
+    where not given) and `plan` (`call_plan`'s where not given).  Returns dq
+    like q."""
     if q.device.type == "cpu":
         return block_sparse_flash_dq_reference(q, k, v, kb_idx, out, do,
-                                               lse, block, causal, scale)
+                                               lse, block, causal, scale,
+                                               delta)
     _not_cuda(q)
     idx = _device_table(kb_idx, q.device)
     _check(q, k, v, idx, block, (out, do, lse))
     B, S, H, D = q.shape
+    plan, variant = _route(q, kb_idx, block, plan, variant, ("dq",))
     dq = torch.empty_like(q)
-    fn = _build.function("sparse_flash", "dstt_sparse_dq", _DQ_ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), idx.data_ptr(), B,
-            S, H, D, block, idx.shape[2], int(bool(causal)),
-            _scale(scale, D), _DTYPES[q.dtype], _stream(q))
-    _build.check(rc, "block-sparse attention dq")
-    block_sparse_flash_dq.launches += 1
+    if variant == "wgmma":
+        if delta is None:
+            delta = block_sparse_flash_bwd_delta(out, do)
+        _rows_like(delta, q, "delta")
+        fn = _build.function("sparse_flash", "dstt_sparse_dq_wgmma",
+                             _DQ_WGMMA_ARGS)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+                do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                *_walk_args(plan, 0, q, block, causal, scale))
+    else:
+        fn = _build.function("sparse_flash", "dstt_sparse_dq", _DQ_ARGS)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), do.data_ptr(), dq.data_ptr(), idx.data_ptr(),
+                B, S, H, D, block, idx.shape[2], int(bool(causal)),
+                _scale(scale, D), _DTYPES[q.dtype], _stream(q))
+    _build.check(rc, f"block-sparse attention dq ({variant})")
+    _count(block_sparse_flash_dq, variant)
     return dq
 
 
 def block_sparse_flash_dkv(q, k, v, kb_idx, rev_idx, out, do, lse,
                            block: int, causal: bool = True,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None, *, delta=None,
+                           plan: Optional[BwdPlan] = None,
+                           variant: Optional[str] = None):
     """dk and dv of block-sparse attention, each key block walking the
-    q-blocks of the reverse table `rev_idx` [H, nkb, R].  Returns (dk, dv)
-    like k."""
+    q-blocks of the reverse table `rev_idx` [H, nkb, R] (the mma and f32
+    pairs) or the plan's dk/dv walk (the wgmma pair); `delta`, `plan` and
+    `variant` as in `block_sparse_flash_dq`.  Returns (dk, dv) like k."""
     if q.device.type == "cpu":
         return block_sparse_flash_dkv_reference(q, k, v, kb_idx, out, do,
-                                                lse, block, causal, scale)
+                                                lse, block, causal, scale,
+                                                delta)
     _not_cuda(q)
     rev = _device_table(rev_idx, q.device)
     _check(q, k, v, rev, block, (out, do, lse))
     B, S, H, D = q.shape
+    plan, variant = _route(q, kb_idx, block, plan, variant, ("dkv",))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _build.function("sparse_flash", "dstt_sparse_dkv", _DKV_ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            rev.data_ptr(), B, S, H, D, block, rev.shape[2],
-            int(bool(causal)), _scale(scale, D), _DTYPES[q.dtype],
-            _stream(q))
-    _build.check(rc, "block-sparse attention dk/dv")
-    block_sparse_flash_dkv.launches += 1
+    if variant == "wgmma":
+        if delta is None:
+            delta = block_sparse_flash_bwd_delta(out, do)
+        _rows_like(delta, q, "delta")
+        fn = _build.function("sparse_flash", "dstt_sparse_dkv_wgmma",
+                             _DKV_WGMMA_ARGS)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+                do.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *_walk_args(plan, 1, q, block, causal, scale))
+    else:
+        fn = _build.function("sparse_flash", "dstt_sparse_dkv", _DKV_ARGS)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), do.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                rev.data_ptr(), B, S, H, D, block, rev.shape[2],
+                int(bool(causal)), _scale(scale, D), _DTYPES[q.dtype],
+                _stream(q))
+    _build.check(rc, f"block-sparse attention dk/dv ({variant})")
+    _count(block_sparse_flash_dkv, variant)
     return dk, dv
 
 
 def block_sparse_flash_backward(q, k, v, kb_idx, rev_idx, out, do, lse,
                                 block: int, causal: bool = True,
-                                scale: Optional[float] = None):
+                                scale: Optional[float] = None, *,
+                                plan: Optional[BwdPlan] = None,
+                                variant: Optional[str] = None):
     """(dq, dk, dv) for `block_sparse_flash_attention`: the dq kernel over
-    `kb_idx`, the dk/dv kernel over its reverse `rev_idx`."""
+    `kb_idx`, the dk/dv kernel over its reverse `rev_idx` (or, on the
+    wgmma pair, over `plan`'s walks, after one delta launch)."""
+    delta = None
+    if q.device.type != "cpu":
+        _not_cuda(q)
+        plan, variant = _route(q, kb_idx, block, plan, variant, WALKS)
+        if variant == "wgmma":
+            delta = block_sparse_flash_bwd_delta(out, do)
+    kw = dict(delta=delta, plan=plan, variant=variant)
     dq = block_sparse_flash_dq(q, k, v, kb_idx, out, do, lse, block,
-                               causal, scale)
+                               causal, scale, **kw)
     dk, dv = block_sparse_flash_dkv(q, k, v, kb_idx, rev_idx, out, do, lse,
-                                    block, causal, scale)
+                                    block, causal, scale, **kw)
     return dq, dk, dv
 
 
 block_sparse_flash_attention.launches = 0
 block_sparse_flash_dq.launches = 0
 block_sparse_flash_dkv.launches = 0
+block_sparse_flash_bwd_delta.launches = 0
+# launches per kernel pair (BWD_VARIANTS), reset with `launches`
+block_sparse_flash_dq.launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
+block_sparse_flash_dkv.launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)

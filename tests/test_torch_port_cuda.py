@@ -534,7 +534,7 @@ def test_sparse_kernels_match_plain_versions(card, dtype, block, D, causal):
     S = nb * block
     q, k, v, do = (_rnd(card, dtype, B, S, H, D) for _ in range(4))
     kidx = tsparse._layout_to_gather(_sparse_layout(H, nb, block))
-    idx, rev = tsparse._device_tables(kidx, "cuda")
+    idx, rev, _ = tsparse._device_tables(kidx, "cuda", block)
     counts = [c.launches for c in (tsflash.block_sparse_flash_attention,
                                    tsflash.block_sparse_flash_dq,
                                    tsflash.block_sparse_flash_dkv)]
@@ -562,6 +562,167 @@ def test_sparse_kernels_match_plain_versions(card, dtype, block, D, causal):
                                  tsflash.block_sparse_flash_dq,
                                  tsflash.block_sparse_flash_dkv)] == \
         [n + 1 for n in counts]
+
+
+# the wgmma pair (bf16, D 64 / 128, block 16 / 32 / 64): phase 1's edges
+SPARSE_WGMMA_CASES = [(16, 64, True), (16, 128, False), (32, 64, False),
+                      (32, 128, True), (64, 64, True), (64, 128, False)]
+# delta vs its plain rowsum: f32 sums of D exact products in another order
+DELTA_REL = 1e-5
+
+
+def _bwd_walks(block):
+    """(owners, grouping) of every walk the wgmma pair takes at block."""
+    return [(r, g) for r in tsflash.OWNER_GROUPS[block]
+            for g in tsflash.WALK_GROUPINGS if r > 1 or g == "adjacent"]
+
+
+@pytest.mark.parametrize("block,D,causal", SPARSE_WGMMA_CASES, ids=[
+    f"block{b}-d{d}-{'causal' if c else 'full'}"
+    for b, d, c in SPARSE_WGMMA_CASES])
+def test_sparse_wgmma_pair_and_delta_match_plain_versions(card, block, D,
+                                                         causal):
+    """The delta kernel and the wgmma dq and dk/dv over every walk the
+    plan can give (1, 2 or 4 owners a CTA, adjacent or sorted): 12 blocks
+    a row, so lists end mid-step; the fully-masked row gives 0 gradients;
+    reruns are bit-identical."""
+    B, H, nb = 2, 2, 12
+    S = nb * block
+    q, k, v, do = (_rnd(card, torch.bfloat16, B, S, H, D) for _ in range(4))
+    kidx = tsparse._layout_to_gather(_sparse_layout(H, nb, block + 1))
+    idx, rev, _ = tsparse._device_tables(kidx, "cuda", block)
+    out, lse = tsflash.block_sparse_flash_attention(
+        q, k, v, idx, block, causal=causal, return_lse=True)
+    delta = tsflash.block_sparse_flash_bwd_delta(out, do)
+    want_delta = tsflash.block_sparse_flash_bwd_delta_reference(out, do)
+    _close(delta, want_delta, DELTA_REL * max(
+        float(want_delta.abs().max()), 1.0))
+    want = (tsflash.block_sparse_flash_dq_reference(
+                q, k, v, idx, out, do, lse, block, causal),
+            *tsflash.block_sparse_flash_dkv_reference(
+                q, k, v, idx, out, do, lse, block, causal))
+    for owners, grouping in _bwd_walks(block):
+        plan = tsflash.bwd_plan(kidx, block, "cuda", owners, grouping)
+        before = [dict(f.launches_by_variant) for f in (
+            tsflash.block_sparse_flash_dq, tsflash.block_sparse_flash_dkv)]
+        runs = [tsflash.block_sparse_flash_backward(
+                    q, k, v, idx, rev, out, do, lse, block, causal=causal,
+                    plan=plan, variant="wgmma") for _ in range(2)]
+        torch.cuda.synchronize()
+        for gt, rr, w in zip(*runs, want):
+            scale = max(float(w.float().abs().max()), 1.0)
+            _close(gt, w, BWD_ATOL[torch.bfloat16] * scale,
+                   BWD_RTOL[torch.bfloat16])
+            assert torch.equal(gt, rr), (owners, grouping)
+        if causal:   # head 0, q-block 2 sees only block 5
+            assert (runs[0][0][:, 2 * block:3 * block, 0] == 0).all()
+        for f, b4 in zip((tsflash.block_sparse_flash_dq,
+                          tsflash.block_sparse_flash_dkv), before):
+            assert f.launches_by_variant["wgmma"] == b4["wgmma"] + 2
+
+
+def test_sparse_launches_by_variant_follow_the_rule(card):
+    """SparseSelfAttention forward and backward: dq and dk/dv count one
+    launch each on the pair `bwd_variant` names for the cached plan, and
+    the delta kernel one launch where that pair is wgmma."""
+    cases = [(tsparse.FixedSparsityConfig(num_heads=2, block=16), 64),
+             (tsparse.LocalSlidingWindowSparsityConfig(num_heads=2,
+                                                       block=32), 64),
+             (tsparse.BigBirdSparsityConfig(num_heads=2, block=64), 64),
+             (tsparse.FixedSparsityConfig(num_heads=2, block=16), 192),
+             (tsparse.BigBirdSparsityConfig(num_heads=2, block=128), 128)]
+    fns = (tsflash.block_sparse_flash_dq, tsflash.block_sparse_flash_dkv)
+    for cfg, D in cases:
+        attn = tsparse.SparseSelfAttention(cfg)
+        S = 8 * cfg.block
+        q = _rnd(card, torch.bfloat16, 1, S, 2, D).requires_grad_()
+        _, tables = attn.tables(S, "cuda")
+        want = tsflash.bwd_variant(torch.bfloat16, D, cfg.block)
+        before = [dict(f.launches_by_variant) for f in fns]
+        deltas = tsflash.block_sparse_flash_bwd_delta.launches
+        (attn(q, q, q).float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        for f, b4 in zip(fns, before):
+            assert {n: c - b4[n] for n, c in f.launches_by_variant.items()
+                    } == {n: int(n == want) for n in tsflash.BWD_VARIANTS}
+        assert tsflash.block_sparse_flash_bwd_delta.launches - deltas == \
+            int(want == "wgmma")
+
+
+def test_sparse_wrappers_raise_on_what_their_variant_does_not_take(card):
+    """A named pair that does not take the call raises; no other pair is
+    tried and nothing launches."""
+    fns = (tsflash.block_sparse_flash_dq, tsflash.block_sparse_flash_dkv)
+
+    def call(dtype, D, block, variant, plan_block=None):
+        q = _rnd(card, dtype, 1, 8 * block, 2, D)
+        layout = tsparse.FixedSparsityConfig(
+            num_heads=2, block=block).make_layout(8 * block)
+        kidx = tsparse._layout_to_gather(layout)
+        idx, rev, plan = tsparse._device_tables(kidx, "cuda", block)
+        if plan_block is not None:
+            plan = tsflash.bwd_plan(tsparse._layout_to_gather(
+                tsparse.FixedSparsityConfig(num_heads=2, block=plan_block)
+                .make_layout(8 * plan_block)), plan_block, "cuda")
+        out, lse = tsflash.block_sparse_flash_attention(q, q, q, idx, block,
+                                                        return_lse=True)
+        before = [f.launches for f in fns]
+        for fn, args in ((tsflash.block_sparse_flash_dq, (idx,)),
+                         (tsflash.block_sparse_flash_dkv, (idx, rev))):
+            with pytest.raises(ValueError):
+                fn(q, q, q, *args, out, q, lse, block, plan=plan,
+                   variant=variant)
+        assert [f.launches for f in fns] == before
+
+    call(torch.bfloat16, 192, 16, "wgmma")
+    call(torch.bfloat16, 64, 128, "wgmma")
+    call(torch.bfloat16, 64, 8, "wgmma")
+    call(torch.float32, 64, 16, "wgmma")
+    call(torch.float32, 64, 16, "mma")
+    call(torch.bfloat16, 64, 16, "f32")
+    call(torch.bfloat16, 64, 16, "cuda")
+    call(torch.bfloat16, 64, 16, "wgmma", plan_block=32)
+    # the delta kernel takes what the wgmma pair reads, bf16 at D 64/128
+    deltas = tsflash.block_sparse_flash_bwd_delta.launches
+    for dtype, D in ((torch.float32, 64), (torch.bfloat16, 192),
+                     (torch.bfloat16, 256)):
+        o = _rnd(card, dtype, 1, 32, 2, D)
+        with pytest.raises(ValueError):
+            tsflash.block_sparse_flash_bwd_delta(o, o)
+    assert tsflash.block_sparse_flash_bwd_delta.launches == deltas
+
+
+def test_sparse_wgmma_call_without_a_plan_builds_its_walks_once(card):
+    """dq, dk/dv and the backward called with no plan run the wgmma pair
+    on `call_plan`'s walks, built once per table, and give what the
+    cached module plan gives, bit for bit."""
+    block, D = 16, 64
+    layout = tsparse.FixedSparsityConfig(num_heads=2, block=block,
+                                         attention="bidirectional",
+                                         different_layout_per_head=True,
+                                         num_different_global_patterns=2
+                                         ).make_layout(8 * block)
+    kidx = tsparse._layout_to_gather(layout)
+    idx, rev, plan = tsparse._device_tables(kidx, "cuda", block)
+    q, k, v, do = (_rnd(card, torch.bfloat16, 2, 8 * block, 2, D)
+                   for _ in range(4))
+    out, lse = tsflash.block_sparse_flash_attention(q, k, v, idx, block,
+                                                    False, return_lse=True)
+    want = tsflash.block_sparse_flash_backward(q, k, v, idx, rev, out, do,
+                                               lse, block, False, plan=plan)
+    tsflash._call_walks.clear()
+    dq = tsflash.block_sparse_flash_dq(q, k, v, idx, out, do, lse, block,
+                                       False)
+    assert [k_[0] for k_ in tsflash._call_walks] == ["dq"]
+    dk, dv = tsflash.block_sparse_flash_dkv(q, k, v, idx, rev, out, do, lse,
+                                            block, False)
+    walks = dict(tsflash._call_walks)
+    got = tsflash.block_sparse_flash_backward(q, k, v, idx, rev, out, do,
+                                              lse, block, False)
+    assert {k_: id(w) for k_, w in tsflash._call_walks.items()} == {
+        k_: id(w) for k_, w in walks.items()} and len(walks) == 2
+    for a, b, c in zip((dq, dk, dv), got, want):
+        assert torch.equal(a, c) and torch.equal(b, c)
 
 
 def test_sparse_self_attention_trains_through_the_kernels(card):
@@ -982,6 +1143,58 @@ def test_hopper_wgmma_tile_matches_a_matmul(card, swizzle, b_mn, a_regs, N):
             swizzle, torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     ref = a.float() @ (b.float() if b_mn else b.float().t())
+    _close(out, ref, 1e-4)
+
+
+N16_CASES = [(mn, sw) for mn in (0, 1) for sw in (1, 2, 3)
+             if not (mn and 16 < 8 << sw)]
+
+
+@pytest.mark.parametrize("b_mn,swizzle", N16_CASES, ids=[
+    f"{'mn' if mn else 'k'}major-sw{16 << sw}" for mn, sw in N16_CASES])
+def test_hopper_wgmma_n16_matches_a_matmul(card, b_mn, swizzle):
+    """wgmma m64n16k16 with A K-major from shared memory (the block-sparse
+    pair's S^T and dP^T at block 16); the register-A form, which no kernel
+    issues at N 16, is refused."""
+    import ctypes
+    fn = _selftest("dstt_selftest_wgmma", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    a = _rnd(card, torch.bfloat16, 64, 64)
+    b = _rnd(card, torch.bfloat16, *((64, 16) if b_mn else (16, 64)))
+    out = torch.full((64, 16), float("nan"), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), 16, b_mn, 1,
+              swizzle, stream) != 0
+    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), 16, b_mn, 0,
+            swizzle, stream)
+    assert rc == 0
+    _close(out, a.float() @ (b.float() if b_mn else b.float().t()), 1e-4)
+
+
+# A MN-major (a [K, M] read as the transposed operand), from shared memory
+A_MN_CASES = [(n, mn, sw) for n in (16, 32, 64) for mn in (0, 1)
+              for sw in (1, 2, 3) if not (mn and n < 8 << sw)]
+
+
+@pytest.mark.parametrize("N,b_mn,swizzle", A_MN_CASES, ids=[
+    f"n{n}-{'mn' if mn else 'k'}major-sw{16 << sw}"
+    for n, mn, sw in A_MN_CASES])
+def test_hopper_wgmma_transposed_a_matches_a_matmul(card, N, b_mn, swizzle):
+    """wgmma with A MN-major (the transpose bit of A, as the block-sparse
+    pair reads its gathered tile for dQ^T, dK^T and dV^T), every N the
+    pair takes and N 16's K-major and MN-major B."""
+    import ctypes
+    fn = _selftest("dstt_selftest_wgmma", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    a = _rnd(card, torch.bfloat16, 64, 64)
+    b = _rnd(card, torch.bfloat16, *((64, N) if b_mn else (N, 64)))
+    out = torch.full((64, N), float("nan"), device="cuda")
+    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), N, b_mn, 2,
+            swizzle, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    ref = a.float().t() @ (b.float() if b_mn else b.float().t())
     _close(out, ref, 1e-4)
 
 

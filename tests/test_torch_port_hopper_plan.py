@@ -1,7 +1,9 @@
 """The tile GEMM's host plan (`ops/tp_matmul.tile_plan`), the flash
-backward's kernel choice (`ops/flash_attention.bwd_variant`) and the
+backward's kernel choice (`ops/flash_attention.bwd_variant`), the
 Evoformer backward's (`ops/evoformer_flash.bwd_variant`, with the pair-bias
-row pitch its TMA pair reads, `pair_bias_pitch`) on the CPU.
+row pitch its TMA pair reads, `pair_bias_pitch`) and the block-sparse
+backward's (`ops/sparse_flash.bwd_variant`, with the gathered tile plan of
+its wgmma pair, `tile_walk` / `bwd_plan`) on the CPU.
 
 The plan picks the kernel for a shape (the split-K TMA stream at the
 decode hops, TMA + wgmma at the prefill hops, the cp.async or CUDA-core
@@ -21,6 +23,8 @@ import torch
 
 from deepspeed_tpu_torch.ops import evoformer_flash as tevof
 from deepspeed_tpu_torch.ops import flash_attention as tflash
+from deepspeed_tpu_torch.ops import sparse_attention as tsparse
+from deepspeed_tpu_torch.ops import sparse_flash as tsflash
 from deepspeed_tpu_torch.ops import tp_matmul as ttm
 
 pytestmark = pytest.mark.kernels
@@ -294,3 +298,220 @@ def test_evoformer_variant_counters_name_every_kernel_and_count_no_cpu_launch():
         assert fn.launches == 0
         assert set(fn.launches_by_variant.values()) == {0}
         assert fn.pair_bias_copies == 0
+
+
+# ----------------------------------------------------------------------
+# the block-sparse backward: the gathered tile plan and the kernel pair
+# ----------------------------------------------------------------------
+def _sparse_layouts(block, H=2, S=512):
+    """(name, layout [H, nb, nb]) of each of the port's sparsity configs,
+    unidirectional and bidirectional where the config has the mode, and a
+    random layout whose visitor lists scatter."""
+    sa = tsparse
+    cfgs = [("dense", sa.DenseSparsityConfig(num_heads=H, block=block)),
+            ("bigbird", sa.BigBirdSparsityConfig(
+                num_heads=H, block=block, different_layout_per_head=True)),
+            ("bslongformer", sa.BSLongformerSparsityConfig(
+                num_heads=H, block=block)),
+            ("sliding3", sa.LocalSlidingWindowSparsityConfig(
+                num_heads=H, block=block)),
+            ("sliding7", sa.LocalSlidingWindowSparsityConfig(
+                num_heads=H, block=block, num_sliding_window_blocks=7))]
+    for mode in ("unidirectional", "bidirectional"):
+        cfgs += [(f"fixed-{mode}", sa.FixedSparsityConfig(
+                     num_heads=H, block=block, num_local_blocks=4,
+                     attention=mode, different_layout_per_head=True,
+                     num_different_global_patterns=2)),
+                 (f"variable-{mode}", sa.VariableSparsityConfig(
+                     num_heads=H, block=block, attention=mode))]
+    out = [(n, c.make_layout(S)) for n, c in cfgs]
+    nb = S // block
+    rng = np.random.RandomState(5)
+    rand = np.zeros((H, nb, nb), bool)
+    for h in range(H):
+        for i in range(nb):
+            rand[h, i, rng.choice(nb, 3, replace=False)] = True
+    return out + [("random", rand)]
+
+
+WALK_CASES = [(block, name, owners, grouping)
+              for block in (16, 32, 64)
+              for name, _ in _sparse_layouts(block)
+              for owners in tsflash.OWNER_GROUPS[block]
+              for grouping in tsflash.WALK_GROUPINGS]
+
+
+def _visited(layout, side):
+    """Sorted (h, owned block, visited block) of a layout: dq owns query
+    blocks, dk/dv key blocks."""
+    h, i, j = np.nonzero(layout)
+    pairs = np.stack([h, i, j] if side == "dq" else [h, j, i], 1)
+    return pairs[np.lexsort(pairs.T[::-1])]
+
+
+@pytest.mark.parametrize("block,name,owners,grouping", WALK_CASES, ids=[
+    f"b{b}-{n}-r{r}-{g}" for b, n, r, g in WALK_CASES])
+def test_sparse_tile_walk_covers_each_visit_once_and_counts_its_padding(
+        block, name, owners, grouping):
+    layout = dict(_sparse_layouts(block))[name]
+    kidx = tsparse._layout_to_gather(layout)
+    tables = {"dq": kidx, "dkv": tsflash.reverse_gather(kidx)}
+    for side, table in tables.items():
+        walk = tsflash.tile_walk(table, block, owners, grouping)
+        got = walk.pairs()
+        got = got[np.lexsort(got.T[::-1])]
+        assert np.array_equal(got, _visited(layout, side)), side
+        # the padding factor counted by hand: each CTA's union of its
+        # owners' lists, whole steps of 64 rows, over the visited pairs
+        lists = [set(r[r >= 0].tolist()) for r in table.reshape(
+            -1, table.shape[-1])]
+        nb, gather = table.shape[1], 64 // block
+        tiles, seen = 0, set()
+        for h, steps, _, r, *own in walk.sched.tolist():
+            assert r == owners and steps >= 0
+            rows = [h * nb + o for o in own[:owners]]
+            seen.update(rows)
+            union = set().union(*(lists[x] for x in rows))
+            assert steps == -(-len(union) // gather)
+            tiles += steps * gather * owners
+        assert seen == set(range(table.shape[0] * nb))
+        assert walk.visits == int(layout.sum())
+        assert walk.padding == pytest.approx(tiles / layout.sum())
+        # the CTAs with the most steps first
+        assert (np.diff(walk.sched[:, 1]) <= 0).all()
+
+
+@pytest.mark.parametrize("block", [16, 32, 64])
+def test_sparse_plan_takes_the_cheapest_walk(block):
+    for name, layout in _sparse_layouts(block):
+        kidx = tsparse._layout_to_gather(layout)
+        plan = tsflash.bwd_plan(kidx, block)
+        for walk, table in ((plan.dq, kidx),
+                            (plan.dkv, tsflash.reverse_gather(kidx))):
+            cost = walk.steps * tsflash.STEP_COST[block * walk.owners]
+            for r in tsflash.OWNER_GROUPS[block]:
+                for g in tsflash.WALK_GROUPINGS:
+                    other = tsflash.tile_walk(table, block, r, g)
+                    assert cost <= other.steps * tsflash.STEP_COST[
+                        block * r], (name, r, g)
+        # the device side holds the same walks
+        for walk, (sched, ents) in zip((plan.dq, plan.dkv),
+                                       plan.device_walks):
+            assert sched.dtype == torch.int32 and ents.dtype == torch.int32
+            assert np.array_equal(sched.numpy(), walk.sched)
+
+
+def test_sparse_plan_at_blocks_the_wgmma_pair_does_not_take():
+    layout = tsparse.FixedSparsityConfig(num_heads=2, block=8).make_layout(
+        256)
+    plan = tsflash.bwd_plan(tsparse._layout_to_gather(layout), 8)
+    assert plan.dq is None and plan.dkv is None and not plan.device_walks
+    with pytest.raises(ValueError, match="no 'adjacent' gathered walk"):
+        tsflash.tile_walk(tsparse._layout_to_gather(layout), 8)
+
+
+SPARSE_VARIANTS = [(torch.bfloat16, 64, 16, "wgmma"),
+                   (torch.bfloat16, 128, 32, "wgmma"),
+                   (torch.bfloat16, 64, 64, "wgmma"),
+                   (torch.bfloat16, 64, 8, "mma"),
+                   (torch.bfloat16, 128, 128, "mma"),
+                   (torch.bfloat16, 192, 16, "mma"),
+                   (torch.bfloat16, 256, 64, "mma"),
+                   (torch.float32, 64, 16, "f32"),
+                   (torch.float32, 256, 128, "f32")]
+
+
+@pytest.mark.parametrize("dtype,D,block,want", SPARSE_VARIANTS, ids=[
+    f"{str(d)[6:]}-d{D}-b{b}" for d, D, b, _ in SPARSE_VARIANTS])
+def test_sparse_backward_variant_by_dtype_head_dim_and_block(dtype, D, block,
+                                                            want):
+    assert tsflash.bwd_variant(dtype, D, block) == want
+
+
+CALL_PLAN_WALKS = [("dq",), ("dkv",), ("dq", "dkv")]
+
+
+@pytest.mark.parametrize("walks", CALL_PLAN_WALKS, ids=[
+    "+".join(w) for w in CALL_PLAN_WALKS])
+def test_sparse_call_plan_builds_only_its_walks_once(walks, monkeypatch):
+    """A wrapper call given no plan builds the walks it runs, the same as
+    `bwd_plan`'s, once per table, block and device: a second call, or a
+    call of the same table as a tensor, builds nothing."""
+    monkeypatch.setattr(tsflash, "_call_walks", {})
+    layout = tsparse.BSLongformerSparsityConfig(
+        num_heads=2, block=16).make_layout(256)
+    kidx = tsparse._layout_to_gather(layout)
+    full = tsflash.bwd_plan(kidx, 16)
+    built = []
+    real = tsflash._plan_walk
+    monkeypatch.setattr(tsflash, "_plan_walk", lambda t, b, w, *a: (
+        built.append(w), real(t, b, w, *a))[1])
+    plan = tsflash.call_plan(kidx, 16, "cpu", walks)
+    assert built == list(walks)
+    for i, w in enumerate(tsflash.WALKS):
+        got, want = getattr(plan, w), getattr(full, w)
+        if w in walks:
+            assert np.array_equal(got.sched, want.sched)
+            assert np.array_equal(got.ents, want.ents)
+            assert np.array_equal(plan.device_walks[i][0].numpy(),
+                                  want.sched)
+        else:
+            assert got is None and plan.device_walks[i] is None
+    again = tsflash.call_plan(torch.from_numpy(kidx), 16, "cpu", walks)
+    assert built == list(walks)
+    for w in walks:
+        assert getattr(again, w) is getattr(plan, w)
+    # another table, block or device builds its own
+    tsflash.call_plan(kidx[:, :, :1].copy(), 16, "cpu", walks)
+    assert built == list(walks) * 2
+
+
+def test_sparse_call_plan_keeps_the_latest_walks(monkeypatch):
+    monkeypatch.setattr(tsflash, "_call_walks", {})
+    monkeypatch.setattr(tsflash, "CALL_PLANS", 2)
+    tables = [tsparse._layout_to_gather(
+        tsparse.LocalSlidingWindowSparsityConfig(
+            num_heads=1, block=16, num_sliding_window_blocks=w
+        ).make_layout(128)) for w in (1, 3, 5)]
+    for t in tables:
+        tsflash.call_plan(t, 16, "cpu")
+    assert len(tsflash._call_walks) == 4
+    kept = {(k[0], k[2]) for k in tsflash._call_walks}
+    assert kept == {(w, t.tobytes()) for w in tsflash.WALKS
+                    for t in tables[1:]}
+
+
+@pytest.mark.parametrize("dtype,D,block,err", [
+    (torch.float16, 64, 16, TypeError), (torch.int8, 64, 16, TypeError),
+    (torch.bfloat16, 32, 16, ValueError), (torch.bfloat16, 96, 16,
+                                           ValueError),
+    (torch.bfloat16, 64, 12, ValueError), (torch.float32, 64, 256,
+                                           ValueError)])
+def test_sparse_backward_variant_refuses_what_no_pair_takes(dtype, D, block,
+                                                           err):
+    with pytest.raises(err):
+        tsflash.bwd_variant(dtype, D, block)
+
+
+def test_sparse_variant_counters_start_at_zero_and_count_no_cpu_launch():
+    for fn in (tsflash.block_sparse_flash_dq, tsflash.block_sparse_flash_dkv):
+        assert set(fn.launches_by_variant) == set(tsflash.BWD_VARIANTS)
+        assert all(n == 0 for n in fn.launches_by_variant.values())
+    layout = tsparse.FixedSparsityConfig(num_heads=2, block=16).make_layout(
+        128)
+    kidx = tsparse._layout_to_gather(layout)
+    idx, rev, plan = tsparse._device_tables(kidx, "cpu", 16)
+    rng = np.random.RandomState(0)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, 128, 2, 64).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(4))
+    counters = (tsflash.block_sparse_flash_attention,
+                tsflash.block_sparse_flash_dq, tsflash.block_sparse_flash_dkv,
+                tsflash.block_sparse_flash_bwd_delta)
+    before = [c.launches for c in counters]
+    out, lse = tsflash.block_sparse_flash_attention(q, k, v, idx, 16,
+                                                    return_lse=True)
+    tsflash.block_sparse_flash_backward(q, k, v, idx, rev, out, do, lse, 16,
+                                        plan=plan)
+    assert [c.launches for c in counters] == before
+    for fn in (tsflash.block_sparse_flash_dq, tsflash.block_sparse_flash_dkv):
+        assert all(n == 0 for n in fn.launches_by_variant.values())

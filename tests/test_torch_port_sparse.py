@@ -16,7 +16,9 @@ path and its Pallas kernels in interpret mode.  Covered:
   the `torch.autograd.Function` over the kernel wrappers, whose plain
   versions run here) against `jax.grad` through the jnp path and the
   Pallas kernels, 3e-4 as the JAX package's own test; a fully-masked row
-  gives finite gradients and exactly 0 for its queries;
+  gives finite gradients and exactly 0 for its queries; the plain dq and
+  dk/dv given the delta kernel's plain rowsum equal themselves without it
+  and the Pallas backward;
 - `SparseSelfAttention`'s causal rule and its per-length table cache.
 """
 import functools
@@ -188,7 +190,8 @@ def _kernel_path(q, k, v, layout, block, causal):
     """The port's kernel-path autograd Function (its wrappers run their
     plain versions on these CPU tensors)."""
     kidx = tsa._layout_to_gather(layout)
-    return tsa._SparseFlash.apply(q, k, v, tsa._device_tables(kidx, "cpu"),
+    return tsa._SparseFlash.apply(q, k, v,
+                                  tsa._device_tables(kidx, "cpu", block),
                                   block, causal, 1.0 / np.sqrt(q.shape[-1]))
 
 
@@ -257,6 +260,39 @@ def test_head_dim_192_matches_jax(_interpret, monkeypatch):
                                        **BWD_TOL)
 
 
+@pytest.mark.parametrize("name", list(BWD_CASES))
+def test_plain_backward_with_delta_matches_jax_and_itself(_interpret, name):
+    """The plain dq and dk/dv given a precomputed delta (as the wgmma pair
+    reads it from the delta kernel) equal the same computation without it,
+    and JAX's `block_sparse_flash_backward` (Pallas, interpret mode)."""
+    make, causal = BWD_CASES[name]
+    layout = make(tsa)
+    block = 64 // layout.shape[1]
+    q, k, v, do = _qkv(S=64, H=2, D=64, seed=6) + [
+        np.random.RandomState(7).randn(2, 64, 2, 64).astype(np.float32)]
+    kidx = tsa._layout_to_gather(layout)
+    rev = tsf.reverse_gather(kidx)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse = tsf.block_sparse_flash_attention(tq, tk, tv, kidx, block,
+                                                causal, return_lse=True)
+    delta = tsf.block_sparse_flash_bwd_delta(out, tdo)
+    assert delta.shape == (2, 2, 64) and delta.dtype == torch.float32
+    torch.testing.assert_close(
+        delta, (tdo * out).sum(-1).permute(0, 2, 1), rtol=0, atol=0)
+    args = (tq, tk, tv, kidx, out, tdo, lse, block, causal)
+    dq = tsf.block_sparse_flash_dq(*args, delta=delta)
+    dk, dv = tsf.block_sparse_flash_dkv(tq, tk, tv, kidx, rev, out, tdo, lse,
+                                        block, causal, delta=delta)
+    assert torch.equal(dq, tsf.block_sparse_flash_dq_reference(*args))
+    for a, b in zip((dk, dv), tsf.block_sparse_flash_dkv_reference(*args)):
+        assert torch.equal(a, b)
+    jdq, jdk, jdv = jsf.block_sparse_flash_backward(
+        *map(jnp.asarray, (q, k, v)), kidx, rev, jnp.asarray(out.numpy()),
+        jnp.asarray(do), jnp.asarray(lse.numpy()), block, causal=causal)
+    for got, want in zip((dq, dk, dv), (jdq, jdk, jdv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **BWD_TOL)
+
+
 def test_fully_masked_row_gradients_are_finite_and_zero():
     nb, block = 4, 16
     layout = np.zeros((1, nb, nb), bool)
@@ -303,9 +339,10 @@ def test_module_matches_jax_and_caches_its_tables():
     attn = make(tsa)
     got = attn(*map(torch.from_numpy, (q, k, v)))
     np.testing.assert_allclose(got.numpy(), want, **FWD_TOL)
-    kidx, (idx, rev) = attn.tables(S, "cpu")
+    kidx, (idx, rev, plan) = attn.tables(S, "cpu")
     again = attn.tables(S, "cpu")
-    assert again[0] is kidx and again[1][0] is idx and again[1][1] is rev
+    assert again[0] is kidx and again[1].idx is idx and again[1].rev is rev
+    assert again[1].plan is plan and plan.block == BLOCK
     assert idx.dtype == torch.int32 and rev.dtype == torch.int32
     assert attn.layout(S) is attn.layout(S)
 
