@@ -2,7 +2,8 @@
 """Compare two copies of `deepspeed_tpu_torch` on one NVIDIA card.
 
     python3 chip_ab.py DIR_A DIR_B [--rounds N]
-                       [--what train|paged|sparse|evoformer|tile|flash]
+                       [--what train|paged|paged_plans|sparse|evoformer|
+                               tile|flash]
                        [--train-layers N]
 
 Each DIR holds a `deepspeed_tpu_torch` package (for example one unpacked
@@ -18,8 +19,12 @@ B, A per round, each in a process of its own that builds its own kernels
   warm-up and 10 timed steps, the first warm-up loss) with its device
   time by kind (phase 7);
 - `--what paged`: the paged prefill and paged decode kernels' device time
-  at chip_smoke phase 1's main shapes (its `paged_main_inputs`), for
-  packages that predate the training path too;
+  at chip_smoke phase 1's main shapes (its `paged_main_inputs`), through
+  the 5-D and the merged wrappers, prefill at phase 13's local heads at
+  tp 4, and the host time of one call of each, on the kernels each
+  package routes to; `--what paged_plans` (a package with the TMA
+  kernels, given as both DIRs for the spread) times prefill under every
+  split choice of its plan and decode with 32- and 256-block tables;
 - `--what sparse`: the block-sparse forward, delta, dq and dk/dv
   kernels' device time at chip_smoke phase 1's main shape (SPARSE_SHAPE
   bf16, phase 10's first layout; delta 0 where a package has no delta
@@ -51,15 +56,74 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def paged_worker(cs, np, torch):
-    """Device ms of the paged prefill and decode kernels at phase 1's
-    main shapes."""
+    """Device ms of the paged prefill and decode kernels, through the 5-D
+    and the merged wrappers, at phase 1's main shapes, and of prefill at
+    phase 13's local heads at tp 4 (NH 8); the host time of one call
+    where the card keeps up (a 16-query chunk at pos0 0, a decode step
+    of 8 rows at 16 keys)."""
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import paged_merged as pm
+    from deepspeed_tpu_torch.ops import paged_prefill as pp
+    dec, pre = cs.paged_main_inputs(torch, np, "cuda")
+    merged = [(t[0], *(a.view(*a.shape[:3], -1) for a in t[1:3]), *t[3:])
+              for t in (dec, pre)]
+    _, pre8 = cs.paged_main_inputs(torch, np, "cuda", NH=8, NKV=8)
+    res = {"prefill_ms": cs.time_ms(
+               lambda: pp.paged_prefill_attention(*pre, layer_idx=1)),
+           "decode_ms": cs.time_ms(
+               lambda: pa.paged_decode_attention(*dec, layer_idx=1)),
+           "merged_prefill_ms": cs.time_ms(
+               lambda: pm.merged_prefill_attention(*merged[1], layer_idx=1)),
+           "merged_decode_ms": cs.time_ms(
+               lambda: pm.merged_decode_attention(*merged[0], layer_idx=1)),
+           "prefill_nh8_ms": cs.time_ms(
+               lambda: pp.paged_prefill_attention(*pre8, layer_idx=1))}
+    q, ak, av, tables, lens = dec
+    short = torch.full_like(lens, 15)
+    res["decode_host_us"] = cs.host_us(
+        torch, lambda: pa.paged_decode_attention(q, ak, av, tables, short,
+                                                 layer_idx=1))
+    qc, _, _, table = pre[:4]
+    res["prefill_host_us"] = cs.host_us(
+        torch, lambda: pp.paged_prefill_attention(qc[:16], ak, av, table, 0,
+                                                  16, layer_idx=1))
+    return res
+
+
+def paged_plans_worker(cs, np, torch):
+    """Device ms of the paged TMA kernels at phase 1's main shapes: prefill
+    under each split choice its plan could make (1-8 splits a query
+    tile), decode with the main shape's 32-block tables and with the
+    serving engine's 256-block ones (the same live blocks, garbage after
+    them).  A package without the prefill plan times its own kernels."""
+    import dataclasses
     from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops import paged_prefill as pp
     dec, pre = cs.paged_main_inputs(torch, np, "cuda")
-    return {"prefill_ms": cs.time_ms(
-                lambda: pp.paged_prefill_attention(*pre, layer_idx=1)),
-            "decode_ms": cs.time_ms(
-                lambda: pa.paged_decode_attention(*dec, layer_idx=1))}
+    q, ak, av, tables, lens = dec
+    rng = np.random.RandomState(6)
+    wide = torch.from_numpy(rng.randint(
+        -5, 261, (q.shape[0], 256)).astype(np.int32)).to("cuda")
+    wide[:, :tables.shape[1]] = tables
+    res = {"decode_ms": cs.time_ms(
+               lambda: pa.paged_decode_attention(*dec, layer_idx=1)),
+           "decode_mb256_ms": cs.time_ms(
+               lambda: pa.paged_decode_attention(q, ak, av, wide, lens,
+                                                 layer_idx=1))}
+    if not hasattr(pp, "prefill_plan"):
+        res["prefill_ms"] = cs.time_ms(
+            lambda: pp.paged_prefill_attention(*pre, layer_idx=1))
+        return res
+    real = pp.prefill_plan
+    try:
+        for splits in (1, 2, 3, 4, 6, 8):
+            pp.prefill_plan = (lambda *a, n=splits, **k: dataclasses.replace(
+                real(*a, **k), splits=n))
+            res[f"prefill_splits{splits}_ms"] = cs.time_ms(
+                lambda: pp.paged_prefill_attention(*pre, layer_idx=1))
+    finally:
+        pp.prefill_plan = real
+    return res
 
 
 def _sparse_tables(sa, kidx, block):
@@ -214,7 +278,8 @@ def worker(pkg_dir, train_layers, what):
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
     package = os.path.dirname(deepspeed_tpu_torch.__file__)
-    workers = {"paged": paged_worker, "sparse": sparse_worker,
+    workers = {"paged": paged_worker, "paged_plans": paged_plans_worker,
+               "sparse": sparse_worker,
                "evoformer": evoformer_worker, "tile": tile_worker,
                "flash": flash_worker}
     if what in workers:
@@ -250,8 +315,8 @@ def main(argv=None):
     ap.add_argument("dirs", nargs="*", help="DIR_A DIR_B")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--what", default="train",
-                    choices=("train", "paged", "sparse", "evoformer",
-                             "tile", "flash"))
+                    choices=("train", "paged", "paged_plans", "sparse",
+                             "evoformer", "tile", "flash"))
     ap.add_argument("--train-layers", type=int, default=24)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -279,8 +344,7 @@ def main(argv=None):
             run = dict(label=label, **json.loads(lines[-1]))
             runs.append(run)
             print(json.dumps(run), flush=True)
-    keys = {"paged": ("prefill_ms", "decode_ms"),
-            "train": ("delta_ms", "dq_ms", "dkv_ms", "bwd_ms", "step_ms",
+    keys = {"train": ("delta_ms", "dq_ms", "dkv_ms", "bwd_ms", "step_ms",
                       "tokens_per_s", "mfu", "first_loss")}.get(args.what)
     if keys is None:   # the others: every number the runs share
         keys = [k for k in runs[0] if k not in ("label", "package")]

@@ -94,7 +94,12 @@ Phases (any failure exits non-zero and prints no result):
      ms and each backward kernel's (dq, dk/dv, db2) against their bounds
      and against SDPA with the summed bias as a dense float mask.
 Every profile must hold each launch the kernels' counters saw in it (a
-session that dropped device events is repeated).
+session that dropped device events is repeated).  The bf16 paged prefill
+and decode run on their TMA kernels (`variant` "tma"): phase 1 holds them
+over block sizes 16-128, groups 1-8, head dims 32-128, windows, ragged
+lens and chunks, reruns bit-identical, beside the mma.sync kernels they
+replaced (timed in the same call); phases 2-4, 8, 9 and 13 fail on a
+paged launch off "tma".
 Phase 1 also holds the fused 8-bit Adam kernel (one w_up layer's slice),
 the block-sparse forward, delta, dq and dk/dv kernels (at phase 10's
 first layout, timed beside the mma.sync pair, and at edge cases: the
@@ -268,12 +273,15 @@ EVO_SHAPES = [("msa_row", (1, 128, 256, 8, 32), True),
 EVO_MASKED = 0.15
 
 # each kernel as the profiler names it -> (its wrapper, whose `launches`
-# counts the wrapper's calls; the device kernels one call runs)
+# counts the wrapper's calls; the device kernels one call runs, or by the
+# variant the call took: {variant: kernels})
 KERNELS = {"flash_fwd": ("flash_attention_fwd", 1),
            "flash_bwd_delta": ("flash_attention_bwd_delta", 1),
            "flash_bwd_dq": ("flash_attention_bwd_dq", 1),
            "flash_bwd_dkv": ("flash_attention_bwd_dkv", 1),
-           "paged_decode": ("paged_decode_attention", 2),  # + combine
+           # the TMA kernel merges its splits itself; mma and f32 + combine
+           "paged_decode": ("paged_decode_attention",
+                            {"tma": 1, "mma": 2, "f32": 2}),
            "paged_prefill": ("paged_prefill_attention", 1),
            "lora_delta": ("lora_delta", 2),                # shrink + expand
            "fused_adam8": ("fused_adam8_leaf", 1),
@@ -389,9 +397,17 @@ def holds_launches(launches):
         for e in events:
             kinds[_kind(e.name)] = kinds.get(_kind(e.name), 0) + 1
         return bool(launches) and all(
-            kinds.get(kernel, 0) == per * launches[fn]
+            kinds.get(kernel, 0) == device_launches(fn, per, launches)
             for kernel, (fn, per) in KERNELS.items() if fn in launches)
     return complete
+
+
+def device_launches(fn, per, launches):
+    """The device kernels that `launches[fn]` wrapper calls ran: `per`
+    each, or by variant from `launches[fn + "/" + variant]`."""
+    if isinstance(per, dict):
+        return sum(n * launches.get(f"{fn}/{v}", 0) for v, n in per.items())
+    return per * launches[fn]
 
 
 def reset_counts(counters):
@@ -411,12 +427,34 @@ def by_variant(counters):
 
 def counted(counters, body, launches):
     """`body` with the counters set to 0 before it and read into
-    `launches` after it."""
+    `launches` after it (with each variant's count as
+    `launches[name + "/" + variant]`)."""
     def run():
         reset_counts(counters)
         body()
         launches.update({c.__name__: c.launches for c in counters})
+        for name, by in by_variant(counters).items():
+            launches.update({f"{name}/{v}": n for v, n in by.items()})
     return run
+
+
+PAGED_WRAPPERS = ("paged_decode_attention", "paged_prefill_attention",
+                  "merged_decode_attention", "merged_prefill_attention")
+
+
+def paged_on_tma(counters, where):
+    """Fail where a paged wrapper among `counters` ran a bf16 call off the
+    TMA kernels since its counts were reset (the engines' shapes are bf16
+    at D 128 and block size 64: the rule names "tma")."""
+    for c in counters:
+        if c.__name__ not in PAGED_WRAPPERS:
+            continue
+        off = {v: n for v, n in c.launches_by_variant.items()
+               if v != "tma" and n}
+        if off or c.launches_by_variant["tma"] != c.launches:
+            fail(f"{where}: {c.__name__} launched {dict(c.launches_by_variant)}"
+                 f" of {c.launches} calls: every bf16 paged call must take "
+                 f"the TMA kernel")
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -598,16 +636,26 @@ def _garbage_tables(np, rng, B, MB, nb, bs, lens):
 
 
 def check_decode(torch, np, pa, dev):
+    """The paged decode kernels: every case on the variant the rule names
+    (TMA at every bf16 case here) against the plain version, rerun bit
+    for bit, the mma.sync pair beside it; timed at the main shape, with
+    the mma.sync pair (the kernels the TMA kernel replaced) in the same
+    call."""
     rng = np.random.RandomState(2)
     g = torch.Generator(device=dev).manual_seed(2)
-    L, nb, bs, MB = 2, 256, 64, 32
+    L, nb = 2, 256
     errs, main = [], None
-    # (NH, NKV, D, lens): main shape first — B=8 at mixed lens up to ~1500
-    cases = [(32, 32, 128, [36, 63, 95, 127, 199, 310, 499, 1499]),
-             (32, 8, 128, [5, -1, 700, 64, 1, -3, 1200, 0]),
-             (8, 2, 32, [40, -1, 300, 0])]
-    for NH, NKV, D, lens_l in cases:
-        B = len(lens_l)
+    # (NH, NKV, D, bs, lens): main shape first — B=8 at mixed lens up to
+    # ~1500; then GQA 4 and 8, D 32 and 64, block sizes 16, 32, 128 with
+    # lens -1, 0, bs - 1, bs
+    cases = [(32, 32, 128, 64, [36, 63, 95, 127, 199, 310, 499, 1499]),
+             (32, 8, 128, 64, [5, -1, 700, 64, 1, -3, 1200, 0]),
+             (8, 2, 32, 64, [40, -1, 300, 0]),
+             (8, 2, 64, 16, [-1, 0, 15, 16, 700, 333]),
+             (32, 4, 128, 128, [-1, 0, 127, 128, 1499, 900]),
+             (16, 2, 32, 32, [-1, 0, 31, 32, 1000, 2047])]
+    for NH, NKV, D, bs, lens_l in cases:
+        B, MB = len(lens_l), 2048 // bs
         ak, av = _arena(torch, g, dev, L, nb, bs, NKV, D)
         q = torch.randn(B, NH, D, generator=g, device=dev,
                         dtype=torch.bfloat16)
@@ -615,24 +663,35 @@ def check_decode(torch, np, pa, dev):
         tables = torch.from_numpy(_garbage_tables(
             np, rng, B, MB, nb, bs, lens_np)).to(dev)
         lens = torch.from_numpy(lens_np).to(dev)
-        out = pa.paged_decode_attention(q, ak, av, tables, lens, layer_idx=1)
-        ref = pa.paged_decode_reference(q, ak, av, tables, lens, layer_idx=1)
+        args = (q, ak, av, tables, lens)
+        variant = pa.decode_variant(q.dtype, D, bs, NH // NKV)
+        out = pa.paged_decode_attention(*args, layer_idx=1)
+        again = pa.paged_decode_attention(*args, layer_idx=1)
+        old = pa.paged_decode_attention(*args, layer_idx=1, variant="mma")
+        ref = pa.paged_decode_reference(*args, layer_idx=1)
         torch.cuda.synchronize()
-        e = max_err(out, ref)
+        e, e_old = max_err(out, ref), max_err(old, ref)
         zero_ok = bool((out[lens < 0] == 0).all())
-        print(f"  paged_decode B={B} NH={NH} NKV={NKV} D={D} lens={lens_l}: "
-              f"max|dout|={e:.3e} inactive rows zero: {zero_ok}")
-        if not (kernel_close(out, ref) and zero_ok):
-            fail(f"paged_decode disagrees with its plain version "
-                 f"(NH={NH}, NKV={NKV}): {e} (tol {TOL_TEXT}), "
-                 f"inactive rows zero: {zero_ok}")
+        same = torch.equal(out, again)
+        print(f"  paged_decode B={B} NH={NH} NKV={NKV} D={D} bs={bs} "
+              f"lens={lens_l}: {variant} max|dout|={e:.3e} (mma.sync "
+              f"{e_old:.3e}), rerun equal: {same}, inactive rows zero: "
+              f"{zero_ok}")
+        if not (variant == "tma" and kernel_close(out, ref) and zero_ok
+                and same and kernel_close(old, ref)):
+            fail(f"paged_decode ({variant}) disagrees with its plain "
+                 f"version at {(NH, NKV, D, bs)}: {e} (mma.sync {e_old}; "
+                 f"tol {TOL_TEXT}), rerun equal: {same}, inactive rows "
+                 f"zero: {zero_ok}")
         errs.append(e)
         if main is None:
-            main = (q, ak, av, tables, lens, lens_np, NH, NKV, D)
-    q, ak, av, tables, lens, lens_np, NH, NKV, D = main
-    B = q.shape[0]
+            main = (q, ak, av, tables, lens, lens_np, NH, NKV, D, bs)
+    q, ak, av, tables, lens, lens_np, NH, NKV, D, bs = main
+    B, MB = q.shape[0], tables.shape[1]
     ms = time_ms(lambda: pa.paged_decode_attention(q, ak, av, tables, lens,
                                                    layer_idx=1))
+    mma_ms = time_ms(lambda: pa.paged_decode_attention(
+        q, ak, av, tables, lens, layer_idx=1, variant="mma"))
     plain = time_ms(lambda: pa.paged_decode_reference(
         q, ak, av, tables, lens, layer_idx=1))
     keys = int(np.sum(np.maximum(lens_np, -1) + 1))
@@ -640,13 +699,23 @@ def check_decode(torch, np, pa, dev):
     nbytes = (2 * keys * NKV * D * 2 + 2 * 2 * B * NH * D + 4 * B * MB
               + 4 * B)
     bms, by = bound_ms(flops, nbytes)
+    work = pa.decode_work(lens_np, NKV, MB, bs,
+                          pa.tma_ctas(D, NH // NKV, B))
+    shares = work.tiles_per_cta
+    print(f"  paged_decode at the main shape: tma {ms:.4f} ms ({sum(shares)}"
+          f" key tiles on {len(shares)} CTAs, {min(shares)}-{max(shares)} "
+          f"each), mma.sync pair {mma_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return dict(name="paged_decode", route="cuda",
                 source="deepspeed_tpu_torch/csrc/paged_decode.cu",
                 replaces="deepspeed_tpu/ops/paged_attention.py:208",
+                variant="tma",
                 shape=f"q [{B},{NH},{D}] arena [{L},{nb},{bs},{NKV},{D}] "
                       f"bf16, lens {lens_np.tolist()}",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by, library_ms=None)
+                bound_ms=bms, bound_by=by, library_ms=None,
+                mma_ms=mma_ms,
+                mma_note="the mma.sync split-KV pass + combine it "
+                         "replaced, same call")
 
 
 def _prefill_work(C, NH, NKV, D, pos0, n_valid, window):
@@ -665,51 +734,99 @@ def _prefill_work(C, NH, NKV, D, pos0, n_valid, window):
 
 
 def check_prefill(torch, np, pp, dev):
+    """The paged prefill kernels, as `check_decode` does."""
     rng = np.random.RandomState(3)
     g = torch.Generator(device=dev).manual_seed(3)
-    L, nb, bs, MB = 2, 256, 64, 32
+    L, nb = 2, 256
     errs, main = [], None
-    # (C, NH, NKV, D, pos0, n_valid, window): main shape first
-    cases = [(256, 32, 32, 128, 1024, 256, None),
-             (256, 32, 8, 128, 700, 100, None),
-             (3, 32, 32, 128, 77, 3, None), (64, 32, 8, 128, 300, 64, 128),
-             (5, 32, 32, 128, 0, 2, None), (70, 8, 2, 32, 100, 61, None)]
-    for C, NH, NKV, D, pos0, n_valid, win in cases:
+    # (C, NH, NKV, D, pos0, n_valid, window, bs): main shape first, then
+    # GQA, short chunks, windows 8 and 128, pos0 0, n_valid < C, block
+    # sizes 16, 32, 128, phase 13's local heads at tp 4
+    cases = [(256, 32, 32, 128, 1024, 256, None, 64),
+             (256, 32, 8, 128, 700, 100, None, 64),
+             (3, 32, 32, 128, 77, 3, None, 64),
+             (64, 32, 8, 128, 300, 64, 128, 64),
+             (5, 32, 32, 128, 0, 2, None, 64),
+             (70, 8, 2, 32, 100, 61, None, 64),
+             (512, 16, 4, 64, 0, 500, None, 16),
+             (256, 32, 4, 128, 1024, 250, 128, 128),
+             (70, 16, 2, 32, 100, 61, 8, 32),
+             (1, 8, 1, 128, 0, 1, None, 16),
+             (256, 8, 8, 128, 1024, 256, None, 64)]
+    for C, NH, NKV, D, pos0, n_valid, win, bs in cases:
+        MB = 2048 // bs
         ak, av = _arena(torch, g, dev, L, nb, bs, NKV, D)
         q = torch.randn(C, NH, D, generator=g, device=dev,
                         dtype=torch.bfloat16)
         last = pos0 + n_valid - 1
         table = torch.from_numpy(_garbage_tables(
             np, rng, 1, MB, nb, bs, np.asarray([last]))[0]).to(dev)
-        out = pp.paged_prefill_attention(q, ak, av, table, pos0, n_valid,
-                                         sliding_window=win, layer_idx=1)
-        ref = pp.paged_prefill_reference(q, ak, av, table, pos0, n_valid,
-                                         sliding_window=win, layer_idx=1)
+        args = (q, ak, av, table, pos0, n_valid)
+        variant = pp.prefill_variant(q.dtype, D, bs)
+        out = pp.paged_prefill_attention(*args, sliding_window=win,
+                                         layer_idx=1)
+        again = pp.paged_prefill_attention(*args, sliding_window=win,
+                                           layer_idx=1)
+        old = pp.paged_prefill_attention(*args, sliding_window=win,
+                                         layer_idx=1, variant="mma")
+        ref = pp.paged_prefill_reference(*args, sliding_window=win,
+                                         layer_idx=1)
         torch.cuda.synchronize()
         e = max_err(out[:n_valid], ref[:n_valid])
+        e_old = max_err(old[:n_valid], ref[:n_valid])
+        same = torch.equal(out, again)
         print(f"  paged_prefill C={C} NH={NH} NKV={NKV} D={D} pos0={pos0} "
-              f"n_valid={n_valid} window={win}: max|dout|={e:.3e}")
-        if not kernel_close(out[:n_valid], ref[:n_valid]):
-            fail(f"paged_prefill disagrees with its plain version at "
-                 f"{(C, NH, NKV, D, pos0, n_valid, win)}: {e} "
-                 f"(tol {TOL_TEXT})")
+              f"n_valid={n_valid} window={win} bs={bs}: {variant} "
+              f"max|dout|={e:.3e} (mma.sync {e_old:.3e}), rerun equal: "
+              f"{same}")
+        if not (variant == "tma" and same
+                and kernel_close(out[:n_valid], ref[:n_valid])
+                and kernel_close(old[:n_valid], ref[:n_valid])):
+            fail(f"paged_prefill ({variant}) disagrees with its plain "
+                 f"version at {(C, NH, NKV, D, pos0, n_valid, win, bs)}: "
+                 f"{e} (mma.sync {e_old}; tol {TOL_TEXT}), rerun equal: "
+                 f"{same}")
         errs.append(e)
         if main is None:
-            main = (q, ak, av, table, C, NH, NKV, D, pos0, n_valid)
-    q, ak, av, table, C, NH, NKV, D, pos0, n_valid = main
+            main = (q, ak, av, table, C, NH, NKV, D, pos0, n_valid, bs)
+    q, ak, av, table, C, NH, NKV, D, pos0, n_valid, bs = main
     ms = time_ms(lambda: pp.paged_prefill_attention(
         q, ak, av, table, pos0, n_valid, layer_idx=1))
+    mma_ms = time_ms(lambda: pp.paged_prefill_attention(
+        q, ak, av, table, pos0, n_valid, layer_idx=1, variant="mma"))
     plain = time_ms(lambda: pp.paged_prefill_reference(
         q, ak, av, table, pos0, n_valid, layer_idx=1))
     flops, nbytes = _prefill_work(C, NH, NKV, D, pos0, n_valid, None)
     bms, by = bound_ms(flops, nbytes)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # phase 13's local heads at tp 4 (the last case's shape)
+    qt = q[:, :8].contiguous()
+    akt, avt = (t[..., :8, :].contiguous() for t in (ak, av))
+    tp4_ms = time_ms(lambda: pp.paged_prefill_attention(
+        qt, akt, avt, table, pos0, n_valid, layer_idx=1))
+    tp4_mma = time_ms(lambda: pp.paged_prefill_attention(
+        qt, akt, avt, table, pos0, n_valid, layer_idx=1, variant="mma"))
+    plan = pp.prefill_plan(C, n_valid, pos0, None, NH, NKV, sms,
+                           table.shape[0] * bs)
+    plan8 = pp.prefill_plan(C, n_valid, pos0, None, 8, 8, sms,
+                            table.shape[0] * bs)
+    print(f"  paged_prefill at the main shape: tma {ms:.4f} ms ({plan.splits}"
+          f" splits, {plan.ctas(NH)} CTAs), mma.sync {mma_ms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}); at NH 8 (tp 4's local heads) tma "
+          f"{tp4_ms:.4f} ms ({plan8.splits} splits, {plan8.ctas(8)} CTAs), "
+          f"mma.sync {tp4_mma:.4f} ms")
     return dict(name="paged_prefill", route="cuda",
                 source="deepspeed_tpu_torch/csrc/paged_prefill.cu",
                 replaces="deepspeed_tpu/ops/paged_prefill.py:309",
+                variant="tma",
                 shape=f"q [{C},{NH},{D}] arena [{L},{nb},{bs},{NKV},{D}] "
                       f"bf16, pos0={pos0} n_valid={n_valid}",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by, library_ms=None)
+                bound_ms=bms, bound_by=by, library_ms=None,
+                mma_ms=mma_ms,
+                mma_note="the mma.sync kernel it replaced, same call",
+                tp4_shape=f"q [{C},8,{D}] (phase 13's local heads at tp 4)",
+                tp4_ms=tp4_ms, tp4_mma_ms=tp4_mma)
 
 
 def _lora_ids(np, rng, S, slots):
@@ -865,14 +982,21 @@ def check_merged(torch, np, pa, pp, pm, dev):
     dec = dict(ms=time_ms(lambda: pm.merged_decode_attention(
                    *main[0], layer_idx=1)),
                plain_ms=time_ms(lambda: pm.merged_decode_reference(
-                   *main[0], layer_idx=1)))
+                   *main[0], layer_idx=1)),
+               mma_ms=time_ms(lambda: pm.merged_decode_attention(
+                   *main[0], layer_idx=1, variant="mma")))
     dec["bound_ms"], dec["bound_by"] = bound_ms(
         4 * NH * D * keys, 2 * keys * NKV * D * 2 + 2 * 2 * B * NH * D
         + 4 * B * MB + 4 * B)
     pre = dict(ms=time_ms(lambda: pm.merged_prefill_attention(
                    *mpre, layer_idx=1)),
                plain_ms=time_ms(lambda: pm.merged_prefill_reference(
-                   *mpre, layer_idx=1)))
+                   *mpre, layer_idx=1)),
+               mma_ms=time_ms(lambda: pm.merged_prefill_attention(
+                   *mpre, layer_idx=1, variant="mma")))
+    print(f"  merged at the main shapes: decode tma {dec['ms']:.4f} ms, "
+          f"mma.sync {dec['mma_ms']:.4f} ms; prefill tma {pre['ms']:.4f} "
+          f"ms, mma.sync {pre['mma_ms']:.4f} ms")
     pre["bound_ms"], pre["bound_by"] = bound_ms(
         *_prefill_work(256, NH, NKV, D, 1024, 256, None))
     arena = f"arena [{L},{nb},{bs},{M}] bf16"
@@ -880,6 +1004,7 @@ def check_merged(torch, np, pa, pp, pm, dev):
                  source="deepspeed_tpu_torch/csrc/paged_decode.cu",
                  wrapper="deepspeed_tpu_torch/ops/paged_merged.py",
                  replaces="deepspeed_tpu/ops/paged_merged.py:202",
+                 variant="tma",
                  shape=f"q [{B},{NH},{D}] {arena}, lens {WAVE_LENS}",
                  max_abs_err=max(e[0] for e in errs), **dec,
                  library_ms=None),
@@ -887,6 +1012,7 @@ def check_merged(torch, np, pa, pp, pm, dev):
                  source="deepspeed_tpu_torch/csrc/paged_prefill.cu",
                  wrapper="deepspeed_tpu_torch/ops/paged_merged.py",
                  replaces="deepspeed_tpu/ops/paged_merged.py:400",
+                 variant="tma",
                  shape=f"q [256,{NH},{D}] {arena}, pos0=1024 n_valid=256",
                  max_abs_err=max(e[1] for e in errs), **pre,
                  library_ms=None)]
@@ -1391,14 +1517,14 @@ def serve(torch, np, layers, counters):
     eng.step = _timed(torch, np, eng.step, acc, "prefill", finite)
     eng.decode_burst_step = _timed(torch, np, eng.decode_burst_step, acc,
                                    "decode", finite)
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     outs = eng.generate_batch(prompts, max_new_tokens=MAX_NEW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = {c.__name__: c.launches for c in counters}
+    paged_on_tma(counters, "phase 2")
     del eng.step, eng.decode_burst_step
     if len(finite) != len(prompts) or not all(finite):
         fail(f"prefill logits not finite for every request ({finite})")
@@ -1411,12 +1537,13 @@ def serve(torch, np, layers, counters):
                decode_tok_s=n_dec / acc["decode"],
                prefill_steps=acc["prefill_calls"],
                decode_bursts=acc["decode_calls"], wall_s=wall,
-               launches=launches)
+               launches=launches, launches_by_variant=by_variant(counters))
     print(f"phase 2: {len(prompts)} requests, {n_prompt} prompt tokens in "
           f"{acc['prefill']:.3f} s over {acc['prefill_calls']} steps "
           f"({res['prefill_tok_s']:.0f} tok/s); {n_dec} decode tokens in "
           f"{acc['decode']:.3f} s over {acc['decode_calls']} bursts "
-          f"({res['decode_tok_s']:.0f} tok/s); launches {launches}")
+          f"({res['decode_tok_s']:.0f} tok/s); launches {launches}, by "
+          f"variant {res['launches_by_variant']}")
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was never launched on the serving path")
@@ -1605,10 +1732,10 @@ def serve_tenants(torch, np, cfg, params, config, prompts, counters, lm):
         torch.cuda.synchronize()
         return outs, logits, time.perf_counter() - t0
 
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     outs_a, logits_a, wall_a = timed_wave()
     launches_a = {c.__name__: c.launches for c in counters}
+    paged_on_tma(counters, "phase 8 arm A")
 
     t0 = time.perf_counter()
     factors = lora_factors(np, cfg)
@@ -1638,12 +1765,13 @@ def serve_tenants(torch, np, cfg, params, config, prompts, counters, lm):
     try:
         for u, slot in slots.items():
             eng.set_adapter(u, slot)
-        for c in counters:
-            c.launches = 0
+        reset_counts(counters)
         outs_b, logits_b, wall = timed_wave()
     finally:
         restore()
     launches = {c.__name__: c.launches for c in counters}
+    variants = by_variant(counters)
+    paged_on_tma(counters, "phase 8 arm B")
     # arm A again, the pool attached but no row bound: the walls in turns
     outs_a2, _, wall_a2 = timed_wave()
     if [o.tolist() for o in outs_a2] != [o.tolist() for o in outs_a]:
@@ -1730,6 +1858,7 @@ def serve_tenants(torch, np, cfg, params, config, prompts, counters, lm):
     print(f"phase 8: pool audit {audit}; engine audit {blocks}; pool "
           f"{pool.stats()}")
     res = dict(wall_s=wall, wall_arm_a_s=[wall_a, wall_a2],
+               launches_by_variant=variants,
                launches=launches,
                launches_arm_a=launches_a,
                serving_calls=calls, e2e_rel_dlogit=rels,
@@ -1752,14 +1881,15 @@ def serve_merged(torch, np, cfg, params, config, prompts, outs, logits,
     eng = InferenceEngineV2(cfg, params=params,
                             config=replace(config, arena_merged=True),
                             device="cuda")
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = eng.generate_batch(prompts, max_new_tokens=MAX_NEW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
+    variants = by_variant(counters)
+    paged_on_tma(counters, "phase 9")
     first, second = prefill_and_step(np, eng, prompts, outs)
     same_tokens = [g.tolist() == o.tolist() for g, o in zip(got, outs)]
     same_logits = [torch.equal(torch.from_numpy(a[u]),
@@ -1784,7 +1914,8 @@ def serve_merged(torch, np, cfg, params, config, prompts, outs, logits,
              f"{launches}")
     del eng
     torch.cuda.empty_cache()
-    return dict(wall_s=wall, launches=launches)
+    return dict(wall_s=wall, launches=launches,
+                launches_by_variant=variants)
 
 
 # ----------------------------------------------------------------------
@@ -3301,10 +3432,7 @@ def tp_wave(torch, np, eng, prompts, counters):
                       eng.device)
     eng.decode_burst_step = _timed(torch, np, eng.decode_burst_step, acc,
                                    "decode", finite, eng.device)
-    for c in counters:
-        c.launches = 0
-        if hasattr(c, "launches_by_variant"):     # the tile GEMM's kernels
-            c.launches_by_variant = dict.fromkeys(c.launches_by_variant, 0)
+    reset_counts(counters)
     sync(torch, eng.device)
     t0 = time.perf_counter()
     outs = eng.generate_batch(prompts, max_new_tokens=MAX_NEW)
@@ -3537,6 +3665,7 @@ def tensor_parallel(torch, np, layers, sizes, store_dir, dev="cuda",
     counters = [tm.tile_matmul, pa.paged_decode_attention,
                 pp.paged_prefill_attention, fa.flash_attention_fwd]
     base = tp_wave(torch, np, eng, prompts, counters)
+    paged_on_tma(counters, "phase 13, tp 1")
     outs1 = base["tokens"]
     logits1 = prefill_and_step(np, eng, prompts, outs1)
     del eng
@@ -3597,6 +3726,12 @@ def tensor_parallel(torch, np, layers, sizes, store_dir, dev="cuda",
             # bf16 hops have K and N multiples of 8: TMA kernels only
             if v["cp_async"] or v["f32"]:
                 fail(f"tp {tp}: a bf16 hop ran an old tile kernel: {v}")
+            # bf16 paged calls at D 128, bs 64: the TMA kernels only
+            for n in ("paged_decode_attention", "paged_prefill_attention"):
+                pv = r["wave"]["launches_by_variant"][n]
+                if pv["tma"] != got[n]:
+                    fail(f"tp {tp}: {n} launched {pv} of {got[n]} calls: "
+                         f"every bf16 paged call must take the TMA kernel")
             for n in ("paged_decode_attention", "paged_prefill_attention",
                       "flash_attention_fwd"):
                 if got[n] != base["launches"][n]:
@@ -3794,11 +3929,14 @@ def main(argv=None):
                                        serve_counters)
 
     # phase 3
+    reset_counts(serve_counters)
     e2e, kernel_logits = compare_plain(torch, np, eng, prompts, outs)
+    paged_on_tma(serve_counters, "phase 3")
 
     # phase 4
     prof = profile_wave(torch, eng, prompts, served["wall_s"],
                         serve_counters)
+    paged_on_tma(serve_counters, "phase 4")
     cfg, params, config = eng.cfg, eng.params, eng.config
     del eng
     torch.cuda.empty_cache()
@@ -3884,6 +4022,12 @@ def main(argv=None):
             k["launches_by_variant"] = evoformer["launches_by_variant"][fn]
         if fn in sparse["launches_by_variant"]:      # sparse_dq, sparse_dkv
             k["launches_by_variant"] = sparse["launches_by_variant"][fn]
+        paged = [p["launches_by_variant"][fn] for p in (served, tenants,
+                                                          merged)
+                 if fn in p["launches_by_variant"]]
+        if paged:                                    # the paged kernels
+            k["launches_by_variant"] = {v: sum(p[v] for p in paged)
+                                        for v in paged[0]}
 
     record = dict(kernels=kernels, serve=served, e2e=e2e, profile=prof,
                   tenants=tenants, merged=merged,

@@ -8,17 +8,50 @@
 // grouped q heads share one pass over the kv head's keys), f32 online
 // softmax.
 //
-// Layout: q [B, NH, D]; arena k/v [L, nb, bs, NKV, D] addressed at layer
-// `layer_off` (an element offset into the full arena — no layer slice is
-// ever copied); tables [B, MB] int32; lens [B] int32; out [B, NH, D].
+// Layout: q [B, NH, D]; arena k/v [L, nb, bs, NKV, D] (the merged
+// [L, nb, bs, NKV * D] is the same bytes) read at one layer — no layer
+// slice is ever copied; tables [B, MB] int32; lens [B] int32; out
+// [B, NH, D].
 //
 // What bounds it on the H100: bytes.  Every live key row of K and V is
 // read once per (sequence, kv head) and each row does 4*G*D FLOPs, far
 // below the ~295 FLOP/byte ridge, so the card is only fast when enough
-// loads are in flight.  The TPU kernel walks one sequence's blocks in
-// order on one core; here one sequence's keys are split over many CTAs
-// (split-KV, as in flash-decoding), so a long sequence does not leave the
-// card waiting on one CTA's loads:
+// bytes are in flight: some 3.35 TB/s x ~1 us of latency, 24 KB or more
+// on each SM.  The TPU kernel walks one sequence's blocks in order on one
+// core; here one sequence's keys are split over CTAs (split-KV, as in
+// flash-decoding).  `ops/paged_attention.py:decode_variant` names the
+// kernels a call takes:
+//
+// paged_decode_tma ("tma": bf16, D 32/64/128, a block size TMA can tile,
+// see paged_tile.cuh; B <= 4096): one wave of resident CTAs (as many as
+// fit on every SM) walks a work list that each CTA builds alike from
+// lens: the key tiles (64 keys, whole pages at bs <= 64) of every
+// (sequence, kv head), in that order, T of them, CTA c taking positions
+// [c T / N, (c + 1) T / N), so every CTA carries the same number of tiles
+// within one, whatever the sequences' lengths, no CTA is launched past a
+// sequence's end, and a long sequence spreads over as many CTAs as its
+// tiles need.  A producer warp reads the table (a window of 32 page
+// entries in its lanes, one read for many tiles), clamps each entry and
+// loads the K and V tiles of one kv head by TMA (one [bs, D] box a page,
+// row pitch NKV*D) into a ring of 3 slots (16 KB a slot at D 128), so
+// with four CTAs an SM (12 slots) some 190 KB are in flight; more CTAs
+// an SM with fewer slots each read faster than fewer CTAs with deeper
+// rings, as the CTAs' starts and merges then overlap more.  The consumer warps
+// compute from shared memory: a thread per key takes its dot with each
+// of the G queries (f32, q scaled by log2(e)/sqrt(D) once); a warp per
+// query head takes the tile's max, the base-2 exponents and their sum;
+// then each thread adds P V for one 16-byte column chunk over its keys
+// (keys past lens are skipped, so garbage there never enters a sum).  The
+// warps' sums meet in shared memory in a fixed order.  A head whose tiles
+// lie in one CTA's range is written, normalised, by that CTA; otherwise
+// each of the CTAs that share it writes its unnormalised (acc, m, l) to a
+// workspace and takes an integer ticket of the (sequence, kv head), and
+// the CTA that takes the last one merges them in CTA order and resets
+// the ticket: one launch, no float atomics, a rerun bit for bit the same
+// (the grid is fixed for a card and a group size).
+//
+// paged_decode_kernel + paged_decode_combine_kernel ("mma": other bf16
+// block sizes; "f32"), a split-KV pass and a merge:
 //   1. paged_decode_kernel, grid (NKV, B, splits): the CTA of split s takes
 //      keys [s*KS, (s+1)*KS) of one (kv head, sequence) — a CTA past the
 //      sequence's end returns at once.  Its 8 warps take keys w*4, w*4+1,
@@ -34,6 +67,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
+
+#include "paged_tile.cuh"
 
 namespace {
 
@@ -235,6 +272,447 @@ int launch(const void* q, const void* ak, const void* av, const void* tables,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// bf16: TMA ring, one launch (paged_decode_tma)
+namespace hp = dstt::hopper;
+namespace pg = dstt::paged;
+using bf16 = __nv_bfloat16;
+
+constexpr int D_SLOTS = 3;            // ring slots, a K or a V tile each
+constexpr int D_THREADS = 128 + 32;   // four consumer warps + producer warp
+
+template <int D>
+struct DecodeTile {
+  static constexpr int TILE = pg::TK * D * 2;
+  static constexpr int RING = D_SLOTS * TILE;
+  static constexpr int NDC = D / 8;        // 16-byte chunks a row
+  static constexpr int KG = 128 / NDC;     // key groups of the P V pass
+  // q of one head, f32: two halves of D / 2 + 4 floats (the pad puts the
+  // halves' chunks, read at once by a key's two threads, on other banks)
+  static constexpr int QROW = D + 8;
+  // shared memory after the ring, floats: q [G][QROW], scores and
+  // probabilities [G][64] each, the warps' sums [4][G][D]; then the work
+  // list's prefix sums, B + 1 ints
+  static constexpr int smem(int G, int B) {
+    return 1024 + RING + (G * QROW + 2 * G * pg::TK + 4 * G * D) * 4 +
+           ((B + 1) * 4 + 15) / 16 * 16;
+  }
+};
+
+struct DecodeArgs {
+  int B, NH, NKV, nb, bs, MB, page0, segs;
+  float scale_log2;
+};
+
+// Key tiles of a sequence at position `len` (0 for an inactive row).
+__device__ __forceinline__ int seq_tiles(int len, const DecodeArgs& a) {
+  const int n_keys = min(len + 1, a.MB * a.bs);
+  return n_keys > 0 ? (n_keys + pg::TK - 1) / pg::TK : 0;
+}
+
+// The work list: position p of T = sum_b NKV * tiles_b runs over
+// sequences, then kv heads, then key tiles; CTA c of N walks positions
+// [c T / N, (c + 1) T / N), so every CTA carries the same number of tiles
+// within one.  chunk_of(p) is the CTA whose range holds p.
+__device__ __forceinline__ int chunk_of(int p, int T, int N) {
+  return (int)(((long)p * N + N - 1) / T);
+}
+
+// The run of a CTA's range [p, p1) inside one (sequence, kv head): its
+// tiles [t0, t1) of the head's n, its index among the CTAs that share the
+// head's tiles and their count, and the position after it.
+struct Segment {
+  int b, kvh, t0, t1, index, count, next;
+};
+
+__device__ __forceinline__ Segment segment_at(int p, int p1, const int* pre,
+                                              int B, int NKV, int T, int N,
+                                              int c) {
+  int lo = 0, hi = B;   // pre[lo] <= p < pre[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (pre[mid] <= p) lo = mid; else hi = mid;
+  }
+  const int n = (pre[lo + 1] - pre[lo]) / NKV;
+  const int r = p - pre[lo];
+  const int start = pre[lo] + (r / n) * n, stop = start + n;
+  const int next = min(p1, stop);
+  const int first = chunk_of(start, T, N);
+  return Segment{lo, r / n, r % n, r % n + (next - p), c - first,
+                 chunk_of(stop - 1, T, N) - first + 1, next};
+}
+
+// GM: a bound on the group size G (1, 2, 4 or 8), so the accumulators of
+// a small group take few registers (four CTAs an SM up to GM 2).
+template <int D, int GM>
+__global__ void __launch_bounds__(D_THREADS, GM <= 2 ? 4 : 2)
+paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const bf16* __restrict__ q, const int* __restrict__ tables,
+                 const int* __restrict__ lens, bf16* __restrict__ o,
+                 float* __restrict__ ws, int* __restrict__ tickets,
+                 DecodeArgs a) {
+  using DT = DecodeTile<D>;
+  constexpr int TK = pg::TK, NDC = DT::NDC, KG = DT::KG;
+  const int G = a.NH / a.NKV;
+  extern __shared__ __align__(1024) uint8_t smem_tma[];
+  uint8_t* ring = hp::align1024(smem_tma);
+  float* sq = reinterpret_cast<float*>(ring + DT::RING);   // [G][QROW]
+  float* ss = sq + G * DT::QROW;                            // [G][TK]
+  float* sp = ss + G * TK;                                  // [G][TK]
+  float* red = sp + G * TK;                                 // [4][G][D]
+  int* pre = reinterpret_cast<int*>(red + 4 * G * D);       // [B + 1]
+  __shared__ __align__(8) uint64_t full[D_SLOTS], empty[D_SLOTS];
+  __shared__ float s_alpha[MAXG], s_m[MAXG], s_l[MAXG];
+  __shared__ int last;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+
+  // the work list, the same in every CTA: pre[b] = positions before
+  // sequence b (its NKV heads' tiles), by warp 0's running scan
+  if (warp == 0) {
+    int carry = 0;
+    if (lane == 0) pre[0] = 0;
+    for (int b0 = 0; b0 < a.B; b0 += 32) {
+      const int b = b0 + lane;
+      int x = b < a.B ? seq_tiles(__ldg(lens + b), a) * a.NKV : 0;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, off);
+        if (lane >= off) x += y;
+      }
+      if (b < a.B) pre[b + 1] = carry + x;
+      carry += __shfl_sync(0xffffffffu, x, 31);
+    }
+  }
+  // inactive rows (lens < 0): zeros, each row by one CTA
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x)
+    if (seq_tiles(__ldg(lens + b), a) == 0)
+      for (int i = tid; i < a.NH * D; i += D_THREADS)
+        o[(long)b * a.NH * D + i] = __float2bfloat16(0.f);
+  if (tid == 0) {
+    for (int s = 0; s < D_SLOTS; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 4);   // one arrival a consumer warp
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+  // N <= T CTAs share the positions, so every CTA's range holds one or
+  // more and a head's tiles are shared by consecutive CTAs
+  const int T = pre[a.B], N = min((int)gridDim.x, T), cta = blockIdx.x;
+  const int p0 = cta < N ? (int)((long)cta * T / N) : 0;
+  const int p1 = cta < N ? (int)((long)(cta + 1) * T / N) : 0;
+  const int rows = a.bs < TK ? a.bs : TK;
+
+  if (warp == 4) {   // the producer warp: K_j, V_j, K_j+1, ... in turn
+    int e = 0;       // ring entries issued
+    for (int pos = p0; pos < p1;) {
+      const Segment sg = segment_at(pos, p1, pre, a.B, a.NKV, T, N, cta);
+      pg::BoxPages pages{tables + (long)sg.b * a.MB, a.MB, a.nb, a.bs, rows,
+                         sg.t0 * TK};
+      for (int j = 0; j < sg.t1 - sg.t0; ++j) {
+        for (int kv = 0; kv < 2; ++kv, ++e) {
+          const int s = e % D_SLOTS;
+          hp::mbar_wait(&empty[s], ((e / D_SLOTS) & 1) ^ 1);
+          if (lane == 0) hp::mbar_expect_tx(&full[s], DT::TILE);
+          pg::load_tile<D>(ring + s * DT::TILE, kv ? &vmap : &kmap, &full[s],
+                           pages, j * (TK / rows), a.page0, sg.kvh, lane);
+        }
+      }
+      pos = sg.next;
+    }
+    return;
+  }
+
+  const int dc = tid % NDC, kg = tid / NDC;   // the P V pass's chunk, keys
+  int e = 0;                                  // ring entries consumed
+  for (int pos = p0; pos < p1;) {
+    const Segment sg = segment_at(pos, p1, pre, a.B, a.NKV, T, N, cta);
+    pos = sg.next;
+    const int n_keys = min(__ldg(lens + sg.b) + 1, a.MB * a.bs);
+    const int t0 = sg.t0, nt = sg.t1 - sg.t0;
+    const long row = (long)sg.b * a.NH + (long)sg.kvh * G;   // first head
+    for (int x = tid; x < G * D; x += 128) {
+      const int g = x / D, d = x % D;
+      sq[g * DT::QROW + d + (d >= D / 2 ? 4 : 0)] =
+          __bfloat162float(q[row * D + x]) * a.scale_log2;
+    }
+    float m_r[2] = {-INFINITY, -INFINITY};   // heads warp and warp + 4
+    float l_r[2] = {0.f, 0.f};
+    float acc[GM][8];
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc[g][u] = 0.f;
+    hp::named_sync(1, 128);
+
+    for (int j = 0; j < nt; ++j, e += 2) {
+      const int k0 = (t0 + j) * TK;
+      const int sk = e % D_SLOTS, sv = (e + 1) % D_SLOTS;
+      // scores: two threads a key, half of D each, all G heads (q
+      // broadcast from shared memory); the second half walks its chunks
+      // from the middle at D 128, so a key's two threads read other banks
+      hp::mbar_wait(&full[sk], (e / D_SLOTS) & 1);
+      {
+        const uint8_t* Ks = ring + sk * DT::TILE;
+        const int key = tid >> 1, half = tid & 1;
+        float sc[GM];
+#pragma unroll
+        for (int g = 0; g < GM; ++g) sc[g] = 0.f;
+#pragma unroll 4
+        for (int j = 0; j < NDC / 2; ++j) {
+          const int cj = half ? (j ^ (D == 128 ? 4 : 0)) : j;
+          const uint4 raw = *pg::tile_chunk<D>(Ks, key, half * NDC / 2 + cj);
+          const __nv_bfloat162* kp2 =
+              reinterpret_cast<const __nv_bfloat162*>(&raw);
+          float kf[8];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float2 f = __bfloat1622float2(kp2[u]);
+            kf[2 * u] = f.x;
+            kf[2 * u + 1] = f.y;
+          }
+#pragma unroll
+          for (int g = 0; g < GM; ++g) {
+            if (g >= G) break;
+            const float4* qv = reinterpret_cast<const float4*>(
+                sq + g * DT::QROW + half * (D / 2 + 4) + cj * 8);
+            const float4 x = qv[0], y = qv[1];
+            sc[g] += kf[0] * x.x + kf[1] * x.y + kf[2] * x.z + kf[3] * x.w +
+                     kf[4] * y.x + kf[5] * y.y + kf[6] * y.z + kf[7] * y.w;
+          }
+        }
+        const bool live_key = k0 + key < n_keys;
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          if (g >= G) break;
+          // a + b on one lane, b + a on the other: the same float
+          const float both = sc[g] + __shfl_xor_sync(0xffffffffu, sc[g], 1);
+          if (half == 0) ss[g * TK + key] = live_key ? both : -INFINITY;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&empty[sk]);
+      hp::named_sync(1, 128);
+      // softmax: warp w takes heads w and w + 4, two keys a lane
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int g = warp + 4 * hi;
+        if (g >= G) break;
+        const float s0 = ss[g * TK + lane], s1 = ss[g * TK + lane + 32];
+        const float m_new = fmaxf(m_r[hi], pg::warp_max(fmaxf(s0, s1)));
+        const float mu = m_new == -INFINITY ? 0.f : m_new;
+        const float al = hp::ex2(m_r[hi] - mu);
+        const float p0 = hp::ex2(s0 - mu), p1 = hp::ex2(s1 - mu);
+        sp[g * TK + lane] = p0;
+        sp[g * TK + lane + 32] = p1;
+        l_r[hi] = l_r[hi] * al + pg::warp_sum(p0 + p1);
+        m_r[hi] = m_new;
+        if (lane == 0) s_alpha[g] = al;
+      }
+      hp::named_sync(1, 128);
+      // P V: a thread a 16-byte column chunk over keys kg, kg + KG, ...
+      hp::mbar_wait(&full[sv], ((e + 1) / D_SLOTS) & 1);
+      const uint8_t* Vs = ring + sv * DT::TILE;
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g >= G) break;
+        const float al = s_alpha[g];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[g][c] *= al;
+      }
+#pragma unroll 2
+      for (int r0 = 0; r0 < TK / KG; ++r0) {
+        const int r = kg + KG * r0;
+        if (k0 + r >= n_keys) break;   // keys past lens are never read
+        const uint4 raw = *pg::tile_chunk<D>(Vs, r, dc);
+        const __nv_bfloat162* vp2 =
+            reinterpret_cast<const __nv_bfloat162*>(&raw);
+        float vf[8];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float2 f = __bfloat1622float2(vp2[u]);
+          vf[2 * u] = f.x;
+          vf[2 * u + 1] = f.y;
+        }
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          if (g >= G) break;
+          const float p = sp[g * TK + r];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[g][c] += p * vf[c];
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&empty[sv]);
+    }
+
+    // the key groups' sums: first the lanes of a warp that share a chunk,
+    // then the four warps in order
+#pragma unroll
+    for (int off = NDC; off < 32; off <<= 1)
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g >= G) break;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          acc[g][c] += __shfl_xor_sync(0xffffffffu, acc[g][c], off);
+      }
+    if (lane == 0)
+      for (int hi = 0; hi < 2; ++hi) {
+        const int g = warp + 4 * hi;
+        if (g < G) {
+          s_m[g] = m_r[hi];
+          s_l[g] = l_r[hi];
+        }
+      }
+    if (lane < NDC)
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g >= G) break;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          red[(warp * G + g) * D + dc * 8 + c] = acc[g][c];
+      }
+    hp::named_sync(1, 128);
+    auto summed = [&](int g, int d) {
+      return red[g * D + d] + red[(G + g) * D + d] +
+             red[(2 * G + g) * D + d] + red[(3 * G + g) * D + d];
+    };
+    if (sg.count == 1) {
+      for (int x = tid; x < G * D; x += 128)
+        o[row * D + x] = __float2bfloat16(summed(x / D, x % D) / s_l[x / D]);
+      hp::named_sync(1, 128);   // red and s_l are read before the next
+      continue;
+    }
+    const long key = (long)sg.b * a.NKV + sg.kvh;
+    const int PART = G * (D + 2);   // a segment's acc [G][D], m, l
+    float* part = ws + (key * a.segs + sg.index) * PART;
+    for (int x = tid; x < G * D; x += 128) {
+      const int g = x / D, d = x % D;
+      part[g * (D + 2) + d] = summed(g, d);
+      if (d == 0) {
+        part[g * (D + 2) + D] = s_m[g];
+        part[g * (D + 2) + D + 1] = s_l[g];
+      }
+    }
+    __threadfence();
+    hp::named_sync(1, 128);
+    if (tid == 0) last = atomicAdd(tickets + key, 1) == sg.count - 1;
+    hp::named_sync(1, 128);
+    if (last) {
+      __threadfence();
+      // the last CTA of the (sequence, kv head): its segments in order
+      const float* base = ws + key * a.segs * PART;
+      for (int x = tid; x < G * D; x += 128) {
+        const int g = x / D, d = x % D;
+        float M = -INFINITY;
+        for (int s = 0; s < sg.count; ++s)
+          M = fmaxf(M, __ldcg(base + s * PART + g * (D + 2) + D));
+        float O = 0.f, L = 0.f;
+        for (int s = 0; s < sg.count; ++s) {
+          const float* ps = base + s * PART + g * (D + 2);
+          const float f = hp::ex2(__ldcg(ps + D) - M);
+          L += __ldcg(ps + D + 1) * f;
+          O += __ldcg(ps + d) * f;
+        }
+        o[row * D + x] = __float2bfloat16(O / L);
+      }
+      if (tid == 0) tickets[key] = 0;   // zeroed for the next call
+    }
+    hp::named_sync(1, 128);   // `last` is read before the next segment's
+  }
+}
+
+// The grid: one wave of resident CTAs (as many as fit on every SM at
+// this group size and batch) walks the work list.  The last answer is
+// kept (a serving step asks the same for every layer).
+template <int D, int GM>
+int resident_ctas(int G, int B, int* ctas) {
+  static int last_dev = -1, last_G = 0, last_B = 0, last_ctas = 0;
+  const int smem = DecodeTile<D>::smem(G, B);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev == last_dev && G == last_G && B == last_B) {
+    *ctas = last_ctas;
+    return 0;
+  }
+  err = cudaFuncSetAttribute(paged_decode_tma<D, GM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, paged_decode_tma<D, GM>, D_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  *ctas = per_sm * sms > 0 ? per_sm * sms : 1;
+  last_dev = dev, last_G = G, last_B = B, last_ctas = *ctas;
+  return 0;
+}
+
+template <int D, int GM>
+int launch_tma(const void* q, const void* ak, const void* av,
+               const void* tables, const void* lens, void* o, void* ws,
+               void* tickets, int B, int NH, int NKV, int L, int nb, int bs,
+               int MB, int layer, int segs, cudaStream_t stream) {
+  const int G = NH / NKV;
+  if (!pg::tma_block_size(bs) || segs < 1 || B > 4096 ||
+      (long)L * nb >= (1L << 31) ||
+      (long)segs * pg::TK < (long)MB * bs ||
+      (long)B * NKV * segs >= (1L << 31) || ws == nullptr ||
+      tickets == nullptr)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap kmap, vmap;
+  int rc = pg::arena_map<D>(&kmap, ak, L, nb, bs, NKV);
+  if (!rc) rc = pg::arena_map<D>(&vmap, av, L, nb, bs, NKV);
+  if (rc) return rc;
+  int ctas = 0;
+  rc = resident_ctas<D, GM>(G, B, &ctas);
+  if (rc) return rc;
+  DecodeArgs args{B, NH, NKV, nb, bs, MB, layer * nb, segs,
+                  1.4426950408889634f / sqrtf((float)D)};
+  paged_decode_tma<D, GM><<<ctas, D_THREADS, DecodeTile<D>::smem(G, B),
+                            stream>>>(
+      kmap, vmap, static_cast<const bf16*>(q),
+      static_cast<const int*>(tables), static_cast<const int*>(lens),
+      static_cast<bf16*>(o), static_cast<float*>(ws),
+      static_cast<int*>(tickets), args);
+  return (int)cudaGetLastError();
+}
+
+// f(GM) for the least group bound GM of 1, 2, 4, 8 that holds G.
+template <typename F>
+int by_group(int G, F&& f) {
+  if (G <= 1) return f(std::integral_constant<int, 1>());
+  if (G <= 2) return f(std::integral_constant<int, 2>());
+  if (G <= 4) return f(std::integral_constant<int, 4>());
+  return f(std::integral_constant<int, 8>());
+}
+
+template <int D>
+int launch_tma_any(const void* q, const void* ak, const void* av,
+                   const void* tables, const void* lens, void* o, void* ws,
+                   void* tickets, int B, int NH, int NKV, int L, int nb,
+                   int bs, int MB, int layer, int segs, cudaStream_t stream) {
+  return by_group(NH / NKV, [&](auto gm) {
+    return launch_tma<D, decltype(gm)::value>(q, ak, av, tables, lens, o, ws,
+                                              tickets, B, NH, NKV, L, nb, bs,
+                                              MB, layer, segs, stream);
+  });
+}
+
+template <int D>
+int ctas_any(int G, int B) {
+  int ctas = 0;
+  const int rc = by_group(G, [&](auto gm) {
+    return resident_ctas<D, decltype(gm)::value>(G, B, &ctas);
+  });
+  return rc ? 0 : ctas;
+}
+
 }  // namespace
 
 // Number of key splits of a table of MB blocks of bs keys: the scratch
@@ -277,4 +755,42 @@ extern "C" int dstt_paged_decode(const void* q, const void* ak,
                                 nb, bs, MB, layer_off, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The TMA kernel (bf16; see the note at the top): arena k/v
+// [L, nb, bs, NKV, D] read at `layer`; ws holds B * NKV * segs * G *
+// (D + 2) floats with segs * 64 >= MB * bs (a head's tiles split over at
+// most segs CTAs), tickets one zeroed int per (sequence, kv head) (left
+// zeroed); B <= 4096.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for what the kernel does not take).
+extern "C" int dstt_paged_decode_tma(const void* q, const void* ak,
+                                     const void* av, const void* tables,
+                                     const void* lens, void* o, void* ws,
+                                     void* tickets, int B, int NH, int NKV,
+                                     int D, int L, int nb, int bs, int MB,
+                                     int layer, int segs, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || NKV <= 0 || NH % NKV != 0 || NH / NKV > MAXG || nb <= 0 ||
+      bs <= 0 || MB <= 0 || L <= 0 || layer < 0 || layer >= L)
+    return (int)cudaErrorInvalidValue;
+  if (D == 32)
+    return launch_tma_any<32>(q, ak, av, tables, lens, o, ws, tickets, B,
+                              NH, NKV, L, nb, bs, MB, layer, segs, st);
+  if (D == 64)
+    return launch_tma_any<64>(q, ak, av, tables, lens, o, ws, tickets, B,
+                              NH, NKV, L, nb, bs, MB, layer, segs, st);
+  if (D == 128)
+    return launch_tma_any<128>(q, ak, av, tables, lens, o, ws, tickets, B,
+                               NH, NKV, L, nb, bs, MB, layer, segs, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The TMA kernel's grid for head dim D, group G and batch B (the CTAs
+// that share its work list), or 0 where it takes no such call.
+extern "C" int dstt_paged_decode_tma_ctas(int D, int G, int B) {
+  if (G < 1 || G > MAXG || B < 1 || B > 4096) return 0;
+  if (D == 32) return ctas_any<32>(G, B);
+  if (D == 64) return ctas_any<64>(G, B);
+  if (D == 128) return ctas_any<128>(G, B);
+  return 0;
 }

@@ -1,12 +1,18 @@
 """Paged decode attention: one query token per sequence over its KV blocks
 in the shared arena.
 
-Counterpart of `deepspeed_tpu/ops/paged_attention.py`.  The kernel is
-`csrc/paged_decode.cu` (hand-written CUDA for sm_90a, bound with ctypes);
-`paged_decode_reference` is the plain PyTorch version of the same
-function.  `paged_decode_attention` runs the plain version for tensors on
-the CPU and the kernel for tensors on a CUDA device — never the plain
-version there.
+Counterpart of `deepspeed_tpu/ops/paged_attention.py`.  The kernels are
+in `csrc/paged_decode.cu` (hand-written CUDA for sm_90a, bound with
+ctypes); `paged_decode_reference` is the plain PyTorch version of the
+same function.  `paged_decode_attention` runs the plain version for
+tensors on the CPU and a kernel for tensors on a CUDA device — never the
+plain version there: `decode_variant` names which ("tma": the one-launch
+TMA kernel, for bf16 at head dims 32, 64, 128 and a block size TMA can
+tile; "mma": the split-KV pass and its merge, for other bf16 block sizes;
+"f32"); `decode_plan` sizes the TMA kernel's workspace from the table's
+length alone, and `decode_work` is its work list (equal shares of all key
+tiles per CTA) in Python.  The wrappers count their launches in all and
+by variant.
 
 Masking: block j of a table holds key positions [j*bs, (j+1)*bs); keys
 with position > lens[b] are masked; lens[b] < 0 marks an inactive
@@ -16,19 +22,104 @@ live blocks may be garbage: they are clamped to [0, nb-1] and masked.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _scratch
+from .paged_prefill import (HEAD_DIMS, TILE, VARIANTS, count, named_variant,
+                            tma_block_size)
 
-__all__ = ["paged_decode_attention", "paged_decode_reference"]
+__all__ = ["paged_decode_attention", "paged_decode_reference",
+           "decode_variant", "decode_plan", "decode_work", "tma_ctas",
+           "VARIANTS"]
 
 NEG_INF = -1e30
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _I,
          _P)
+_TMA_ARGS = (_P,) * 8 + (_I,) * 10 + (_P,)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GROUP = 8      # q heads a kv head serves in one pass
+MAX_BATCH = 4096   # sequences the TMA kernel's work list holds
+
+
+def decode_variant(dtype, D: int, bs: int, G: int,
+                   B: Optional[int] = None) -> str:
+    """The kernels a call of `dtype`, head dim `D`, block size `bs` and
+    GQA group `G` takes on the card: "f32" for float32; for bf16 "tma"
+    where TMA can tile the pages (`paged_prefill.tma_block_size`) and the
+    batch `B`, where given, is at most MAX_BATCH (the TMA kernel's work
+    list), else "mma".  Raises on what no kernel takes (a group above 8
+    included)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype}: the paged decode kernels take "
+                        f"bf16 or f32")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} (kernels take {HEAD_DIMS})")
+    if not 1 <= G <= MAX_GROUP:
+        raise ValueError(f"GQA group {G} (kernels take 1 to {MAX_GROUP})")
+    if dtype == torch.float32:
+        return "f32"
+    fits = B is None or B <= MAX_BATCH
+    return "tma" if tma_block_size(bs) and fits else "mma"
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """The TMA kernel's workspace: a (sequence, kv head)'s key tiles are
+    shared by at most `segs` CTAs, each leaving a partial state."""
+    segs: int
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(MB: int, bs: int) -> DecodePlan:
+    """The workspace a table of MB blocks of bs keys needs: the host does
+    not read lens (the kernel builds its work list from them), so room
+    for a split at every key tile of the longest table."""
+    return DecodePlan(-(-MB * bs // TILE))
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeWork:
+    """The TMA kernel's work list for these lens on `ctas` CTAs: each
+    CTA's number of key tiles, and for each (sequence, kv head) with keys
+    the key ranges [k0, k1) of the CTAs that share its tiles, in CTA
+    order (the order of the merge)."""
+    tiles_per_cta: Tuple[int, ...]
+    segments: Dict[Tuple[int, int], List[Tuple[int, int]]]
+
+
+def decode_work(lens, NKV: int, MB: int, bs: int, ctas: int) -> DecodeWork:
+    """The kernel's own arithmetic (csrc/paged_decode.cu): the key tiles
+    of every (sequence, kv head) in that order, T in all, CTA c taking
+    positions [c T / N, (c + 1) T / N) of N = min(ctas, T)."""
+    tiles = []
+    for n in lens:
+        n_keys = min(int(n) + 1, MB * bs)
+        tiles.append(-(-n_keys // TILE) if n_keys > 0 else 0)
+    T = NKV * sum(tiles)
+    N = min(ctas, T)
+    bounds = [c * T // N for c in range(N + 1)] if N else [0]
+    segments: Dict[Tuple[int, int], List[Tuple[int, int]]] = {}
+    pos = 0
+    for b, n in enumerate(tiles):
+        n_keys = min(int(lens[b]) + 1, MB * bs)
+        for kvh in range(NKV if n else 0):
+            start, stop = pos, pos + n
+            segs = []
+            for c in range(N):
+                lo, hi = max(bounds[c], start), min(bounds[c + 1], stop)
+                if lo < hi:
+                    segs.append(((lo - start) * TILE,
+                                 min((hi - start) * TILE, n_keys)))
+            segments[(b, kvh)] = segs
+            pos = stop
+    return DecodeWork(tuple(bounds[c + 1] - bounds[c] for c in range(N)),
+                      segments)
 
 
 def paged_decode_reference(q, arena_k, arena_v, block_tables, lens,
@@ -101,43 +192,77 @@ def _check(q, arena_k, arena_v, block_tables, lens, layer_idx):
         raise ValueError(f"layer_idx {layer_idx} out of range")
 
 
-def launch(q, arena_k, arena_v, block_tables, lens, layer_idx=None):
-    """Check the inputs and launch the kernel on `q`'s CUDA device,
-    without counting the launch (the wrappers over it count theirs)."""
+def tma_ctas(D: int, G: int, B: int) -> int:
+    """The TMA kernel's grid on the current card for head dim D, group G
+    and batch B (the CTAs that share its work list; `decode_work`)."""
+    return _build.function("paged_decode", "dstt_paged_decode_tma_ctas",
+                           (_I, _I, _I))(D, G, B)
+
+
+def launch(q, arena_k, arena_v, block_tables, lens, layer_idx=None,
+           variant: Optional[str] = None):
+    """Check the inputs and launch the kernels on `q`'s CUDA device (those
+    `decode_variant` names, or `variant` where it can take the call),
+    without counting the launch (the wrappers over it count theirs).
+    Returns (out, the variant launched)."""
     _check(q, arena_k, arena_v, block_tables, lens, layer_idx)
     B, NH, D = q.shape
     nb, bs, NKV = arena_k.shape[-4], arena_k.shape[-3], arena_k.shape[-2]
     MB = block_tables.shape[1]
-    layer_off = 0 if layer_idx is None else int(layer_idx) * nb * bs * NKV * D
-    splits = _build.function("paged_decode", "dstt_paged_decode_splits",
-                             (_I, _I))(MB, bs)
-    # the split-KV pass's partial states (see csrc/paged_decode.cu)
-    part = torch.empty(B * NH * splits * (D + 2), dtype=torch.float32,
-                       device=q.device)
+    variant = named_variant(
+        decode_variant(q.dtype, D, bs, NH // NKV, B), variant,
+        f"{q.dtype} at head dim {D}, block size {bs}, batch {B}")
     out = torch.empty_like(q)
-    fn = _build.function("paged_decode", "dstt_paged_decode", _ARGS)
-    rc = fn(q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
-            block_tables.data_ptr(), lens.data_ptr(), part.data_ptr(),
-            out.data_ptr(), B, NH, NKV, D, nb, bs, MB, layer_off,
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "paged decode")
-    return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if variant == "tma":
+        L = arena_k.shape[0] if layer_idx is not None else 1
+        plan = decode_plan(MB, bs)
+        ws = _scratch.buffer("decode_ws", q.device, stream,
+                             B * NH * plan.segs * (D + 2), torch.float32)
+        tickets = _scratch.buffer("decode_tickets", q.device, stream,
+                                  B * NKV, torch.int32)
+        fn = _build.function("paged_decode", "dstt_paged_decode_tma",
+                             _TMA_ARGS)
+        rc = fn(q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
+                block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), tickets.data_ptr(), B, NH, NKV, D, L, nb, bs,
+                MB, int(layer_idx or 0), plan.segs, stream)
+    else:
+        layer_off = (0 if layer_idx is None
+                     else int(layer_idx) * nb * bs * NKV * D)
+        splits = _build.function("paged_decode", "dstt_paged_decode_splits",
+                                 (_I, _I))(MB, bs)
+        # the split-KV pass's partial states (see csrc/paged_decode.cu)
+        part = torch.empty(B * NH * splits * (D + 2), dtype=torch.float32,
+                           device=q.device)
+        fn = _build.function("paged_decode", "dstt_paged_decode", _ARGS)
+        rc = fn(q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
+                block_tables.data_ptr(), lens.data_ptr(), part.data_ptr(),
+                out.data_ptr(), B, NH, NKV, D, nb, bs, MB, layer_off,
+                _DTYPES[q.dtype], stream)
+    _build.check(rc, f"paged decode ({variant})")
+    return out, variant
 
 
 def paged_decode_attention(q, arena_k, arena_v, block_tables, lens,
-                           layer_idx=None):
+                           layer_idx=None, variant: Optional[str] = None):
     """Paged decode attention (see module docstring); shapes as in
     `paged_decode_reference`.  With `layer_idx`, arena_k/v keep their
     full [L, nb, bs, NKV, D] shape and the kernel reads layer `layer_idx`
-    at a pointer offset — no layer slice is copied."""
+    in place — no layer slice is copied.  `variant` (the card only) names
+    a kernel other than the rule's where it can take the call ("mma" for
+    a bf16 call the rule sends to "tma"), and raises where it cannot."""
     if q.device.type == "cpu":
         return paged_decode_reference(q, arena_k, arena_v, block_tables,
                                       lens, layer_idx)
     if q.device.type != "cuda":
         raise ValueError(f"no paged decode kernel for device {q.device}")
-    out = launch(q, arena_k, arena_v, block_tables, lens, layer_idx)
-    paged_decode_attention.launches += 1
+    out, used = launch(q, arena_k, arena_v, block_tables, lens, layer_idx,
+                       variant)
+    count(paged_decode_attention, used)
     return out
 
 
 paged_decode_attention.launches = 0
+# launches per kernel (VARIANTS); a caller resets it with `launches`
+paged_decode_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -11,17 +11,21 @@ walks 128-lane stripes of it.
 A GPU pads nothing: a [..., NKV*D] row is byte for byte the [..., NKV, D]
 row of the 5-D arena.  So each wrapper here views the 4-D arena as 5-D (a
 view, no copy) and launches the hand-written 5-D kernel on it
-(`csrc/paged_decode.cu`, `csrc/paged_prefill.cu`); the packed queries, the
-zero stripes and the stripe grid have no counterpart, because no lane
-needs splitting.  Each wrapper counts its own launches (the 5-D wrappers'
-counters do not move), so a run shows that the merged path ran, and keeps
-a plain version: the 5-D plain version on the same view.
+(`csrc/paged_decode.cu`, `csrc/paged_prefill.cu`; the variant the 5-D
+rule names, `decode_variant` / `prefill_variant`, whose TMA maps see the
+same bytes, so the output equals the 5-D kernel's bit for bit); the
+packed queries, the zero stripes and the stripe grid have no
+counterpart, because no lane needs splitting.  Each wrapper counts its
+own launches, in all and by variant (the 5-D wrappers' counters do not
+move), so a run shows that the merged path ran, and keeps a plain
+version: the 5-D plain version on the same view.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from . import paged_attention, paged_prefill
+from .paged_prefill import VARIANTS, count
 
 __all__ = ["merged_decode_attention", "merged_prefill_attention",
            "merged_decode_reference", "merged_prefill_reference",
@@ -61,19 +65,20 @@ def merged_decode_reference(q, arena_k, arena_v, block_tables, lens,
 
 
 def merged_decode_attention(q, arena_k, arena_v, block_tables, lens,
-                            layer_idx=None):
+                            layer_idx=None, variant: Optional[str] = None):
     """Paged decode over a merged arena (the reference's signature,
     without its `interpret` switch); shapes as in
-    `merged_decode_reference`."""
+    `merged_decode_reference`; `variant` as in `paged_decode_attention`."""
     if q.device.type == "cpu":
         return merged_decode_reference(q, arena_k, arena_v, block_tables,
                                        lens, layer_idx)
     if q.device.type != "cuda":
         raise ValueError(f"no merged decode kernel for device {q.device}")
     D = q.shape[-1]
-    out = paged_attention.launch(q, as_5d(arena_k, D), as_5d(arena_v, D),
-                                 block_tables, lens, layer_idx)
-    merged_decode_attention.launches += 1
+    out, used = paged_attention.launch(q, as_5d(arena_k, D),
+                                       as_5d(arena_v, D), block_tables,
+                                       lens, layer_idx, variant)
+    count(merged_decode_attention, used)
     return out
 
 
@@ -91,10 +96,11 @@ def merged_prefill_reference(q, arena_k, arena_v, block_table, pos0,
 
 def merged_prefill_attention(q, arena_k, arena_v, block_table, pos0, n_valid,
                              sliding_window: Optional[int] = None,
-                             layer_idx=None):
+                             layer_idx=None, variant: Optional[str] = None):
     """Blocked-flash prefill over a merged arena (the reference's
     signature, without its `interpret` switch); shapes as in
-    `merged_prefill_reference`."""
+    `merged_prefill_reference`; `variant` as in
+    `paged_prefill_attention`."""
     if q.device.type == "cpu":
         return merged_prefill_reference(q, arena_k, arena_v, block_table,
                                         pos0, n_valid, sliding_window,
@@ -102,12 +108,16 @@ def merged_prefill_attention(q, arena_k, arena_v, block_table, pos0, n_valid,
     if q.device.type != "cuda":
         raise ValueError(f"no merged prefill kernel for device {q.device}")
     D = q.shape[-1]
-    out = paged_prefill.launch(q, as_5d(arena_k, D), as_5d(arena_v, D),
-                               block_table, pos0, n_valid, sliding_window,
-                               layer_idx)
-    merged_prefill_attention.launches += 1
+    out, used = paged_prefill.launch(q, as_5d(arena_k, D),
+                                     as_5d(arena_v, D), block_table, pos0,
+                                     n_valid, sliding_window, layer_idx,
+                                     variant)
+    count(merged_prefill_attention, used)
     return out
 
 
 merged_decode_attention.launches = 0
 merged_prefill_attention.launches = 0
+# launches per kernel (VARIANTS of the 5-D wrappers)
+merged_decode_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+merged_prefill_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -34,13 +34,13 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, List, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..comm import comm
-from . import _build
+from . import _build, _scratch
 
 __all__ = ["tile_matmul", "tile_matmul_reference", "tile_plan", "TilePlan",
            "tile_edge_reason", "TILE_VARIANTS", "ag_matmul", "matmul_rs",
@@ -197,14 +197,16 @@ def tile_matmul(x, w, *, impl: str = "auto"):
     if M == 0 or N == 0:
         return out
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    plan = tile_plan(M, K, N, x.dtype, aligned, _sm_count(x.device))
+    plan = tile_plan(M, K, N, x.dtype, aligned, _scratch.sm_count(x.device))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if plan.variant in _TMA_CODES:
         ws = tickets = None
         if plan.splits > 1:
             ws = torch.empty((plan.splits, M, N), dtype=torch.float32,
                              device=x.device)
-            tickets = _tickets(x.device, stream, plan.tiles)
+            # one zeroed int per output tile, left zeroed by the kernel
+            tickets = _scratch.buffer("tile_tickets", x.device, stream,
+                                      plan.tiles, torch.int32)
         fn = _build.function("tile_matmul", "dstt_tile_matmul_tma",
                              _TMA_ARGS)
         rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
@@ -225,32 +227,6 @@ def tile_matmul(x, w, *, impl: str = "auto"):
 tile_matmul.launches = 0
 # launches per kernel (TILE_VARIANTS); a caller resets it with `launches`
 tile_matmul.launches_by_variant = dict.fromkeys(TILE_VARIANTS, 0)
-
-_SMS: Dict[int, int] = {}
-# split-K tickets, one zeroed int per output tile, per (device, stream):
-# the CTA that takes a tile's last ticket resets it, so the buffer stays
-# zeroed from call to call on its stream
-_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _sm_count(device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
-
-
-def _tickets(device, stream: int, n: int) -> torch.Tensor:
-    key = (device.index if device.index is not None
-           else torch.cuda.current_device(), stream)
-    buf: Optional[torch.Tensor] = _TICKETS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(1 << max(n - 1, 1).bit_length(), dtype=torch.int32,
-                          device=device)
-        _TICKETS[key] = buf
-    return buf
-
 
 # ----------------------------------------------------------------------
 # fused ring collective-matmuls (every rank of the group calls them)

@@ -401,6 +401,164 @@ def test_merged_wrappers_equal_the_5d_kernels(card, dtype, NH, NKV, D):
         ATOL[dtype], RTOL[dtype])
 
 
+# ----------------------------------------------------------------------
+# the paged TMA kernels (bf16): every block size, group and head dim they
+# take, against the plain versions and the mma.sync kernels they replace
+# ----------------------------------------------------------------------
+def _paged_arena(card, L, nb, bs, NKV, D):
+    return (_rnd(card, torch.bfloat16, L, nb, bs, NKV, D) for _ in range(2))
+
+
+def _live_tables(rng, lens, MB, nb, bs):
+    """Live blocks distinct and first; garbage (negative and past the
+    arena) after them."""
+    tables = rng.randint(-5, nb + 5, size=(len(lens), MB)).astype(np.int32)
+    for b, n in enumerate(lens):
+        live = min(max(int(n), 0) // bs + 1, MB)
+        tables[b, :live] = rng.permutation(nb)[:live]
+    return tables
+
+
+def _by_variant(fn):
+    return dict(fn.launches_by_variant)
+
+
+@pytest.mark.parametrize("bs,G,D", [
+    (16, 1, 128), (32, 4, 64), (64, 8, 32), (128, 1, 128), (64, 4, 128),
+    (16, 8, 64), (64, 1, 64), (8, 2, 32), (128, 8, 128), (32, 1, 32)])
+def test_paged_decode_tma_matches_plain_version_and_mma_kernel(card, bs, G,
+                                                               D):
+    rng = np.random.RandomState(bs + G + D)
+    NKV, L, MB = 2, 2, max(1600 // bs, 2)
+    nb = MB + 7
+    ak, av = _paged_arena(card, L, nb, bs, NKV, D)
+    lens = np.asarray([-1, 0, bs - 1, bs, 37, 1499, -4, MB * bs + 9],
+                      np.int32)
+    tables = torch.from_numpy(_live_tables(rng, lens, MB, nb, bs)).cuda()
+    q = _rnd(card, torch.bfloat16, lens.size, G * NKV, D)
+    lens_t = torch.from_numpy(lens).cuda()
+    args = (q, ak, av, tables, lens_t)
+    assert tdecode.decode_variant(torch.bfloat16, D, bs, G) == "tma"
+    before = _by_variant(tdecode.paged_decode_attention)
+    got = tdecode.paged_decode_attention(*args, layer_idx=1)
+    after = _by_variant(tdecode.paged_decode_attention)
+    assert after["tma"] == before["tma"] + 1
+    assert after["mma"] == before["mma"]
+    ref = tdecode.paged_decode_reference(*args, layer_idx=1)
+    _close(got, ref, ATOL[torch.bfloat16], RTOL[torch.bfloat16])
+    assert (got[torch.from_numpy(lens < 0).cuda()] == 0).all()
+    for _ in range(2):
+        assert torch.equal(got, tdecode.paged_decode_attention(
+            *args, layer_idx=1))
+    old = tdecode.paged_decode_attention(*args, layer_idx=1, variant="mma")
+    assert _by_variant(tdecode.paged_decode_attention)["mma"] == \
+        before["mma"] + 1
+    _close(old, ref, ATOL[torch.bfloat16], RTOL[torch.bfloat16])
+    mk, mv = (t.view(L, nb, bs, NKV * D) for t in (ak, av))
+    assert torch.equal(got, tmerged.merged_decode_attention(
+        q, mk, mv, tables, lens_t, layer_idx=1))
+
+
+@pytest.mark.parametrize("C,n_valid,pos0,window,bs,G,D", [
+    (1, 1, 0, None, 16, 1, 128), (3, 3, 77, None, 64, 4, 128),
+    (70, 61, 100, None, 32, 8, 64), (256, 250, 1024, None, 64, 1, 128),
+    (512, 500, 0, None, 16, 4, 32), (256, 256, 300, 8, 64, 1, 128),
+    (256, 200, 700, 128, 128, 4, 64), (64, 64, 0, 128, 16, 8, 32),
+    (256, 256, 0, None, 64, 1, 128), (70, 70, 1000, 8, 128, 1, 32),
+    (256, 256, 1024, None, 8, 2, 64)])
+def test_paged_prefill_tma_matches_plain_version_and_mma_kernel(
+        card, C, n_valid, pos0, window, bs, G, D):
+    rng = np.random.RandomState(C + pos0 + bs)
+    NKV, L = 2, 2
+    MB = -(-(pos0 + C) // bs) + 3
+    nb = MB + 5
+    ak, av = _paged_arena(card, L, nb, bs, NKV, D)
+    table = torch.from_numpy(_live_tables(
+        rng, [pos0 + n_valid - 1], MB, nb, bs)[0]).cuda()
+    q = _rnd(card, torch.bfloat16, C, G * NKV, D)
+    args = (q, ak, av, table, pos0, n_valid)
+    assert tprefill.prefill_variant(torch.bfloat16, D, bs) == "tma"
+    before = _by_variant(tprefill.paged_prefill_attention)
+    got = tprefill.paged_prefill_attention(*args, sliding_window=window,
+                                           layer_idx=1)
+    after = _by_variant(tprefill.paged_prefill_attention)
+    assert after["tma"] == before["tma"] + 1
+    assert after["mma"] == before["mma"]
+    ref = tprefill.paged_prefill_reference(*args, sliding_window=window,
+                                           layer_idx=1)
+    _close(got[:n_valid], ref[:n_valid], ATOL[torch.bfloat16],
+           RTOL[torch.bfloat16])
+    for _ in range(2):
+        assert torch.equal(got, tprefill.paged_prefill_attention(
+            *args, sliding_window=window, layer_idx=1))
+    old = tprefill.paged_prefill_attention(*args, sliding_window=window,
+                                           layer_idx=1, variant="mma")
+    _close(old[:n_valid], ref[:n_valid], ATOL[torch.bfloat16],
+           RTOL[torch.bfloat16])
+    mk, mv = (t.view(L, nb, bs, NKV * D) for t in (ak, av))
+    assert torch.equal(got, tmerged.merged_prefill_attention(
+        q, mk, mv, table, pos0, n_valid, sliding_window=window,
+        layer_idx=1))
+
+
+def test_paged_tma_kernels_ignore_nan_past_the_keys_they_may_read(card):
+    """Arena rows past a sequence's keys (and before a window's start)
+    hold NaN: P is 0 there, and the kernels never let the garbage in."""
+    rng = np.random.RandomState(9)
+    L, nb, bs, NKV, D, MB = 1, 40, 16, 2, 64, 32
+    ak, av = (t.fill_(float("nan")) for t in _paged_arena(
+        card, L, nb, bs, NKV, D))
+    lens = np.asarray([20, 200, 7], np.int32)
+    tables = _live_tables(rng, lens, MB, nb, bs)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for b, n in enumerate(lens):
+        for j in range(int(n) // bs + 1):
+            blk = tables[b, j]
+            rows = min(bs, int(n) + 1 - j * bs)
+            for t in (ak, av):
+                t[0, blk, :rows] = torch.randn(
+                    rows, NKV, D, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    tables_t = torch.from_numpy(tables).cuda()
+    q = _rnd(card, torch.bfloat16, 3, 4, D)
+    got = tdecode.paged_decode_attention(q, ak, av, tables_t,
+                                         torch.from_numpy(lens).cuda(),
+                                         layer_idx=0)
+    assert torch.isfinite(got).all()
+    # a 17-query chunk ending at key 200, window 40
+    qc = _rnd(card, torch.bfloat16, 17, 4, D)
+    out = tprefill.paged_prefill_attention(qc, ak, av, tables_t[1], 184, 17,
+                                           sliding_window=40, layer_idx=0)
+    assert torch.isfinite(out).all()
+
+
+def test_paged_wrappers_refuse_a_variant_that_cannot_take_the_call(card):
+    rng = np.random.RandomState(3)
+    L, nb, bs, NKV, D, MB = 1, 12, 24, 2, 64, 4
+    ak, av = _paged_arena(card, L, nb, bs, NKV, D)
+    tables = torch.from_numpy(_live_tables(rng, [30, 5], MB, nb, bs)).cuda()
+    lens = torch.tensor([30, 5], dtype=torch.int32, device="cuda")
+    q = _rnd(card, torch.bfloat16, 2, 4, D)
+    # bs 24: no TMA tile; the mma.sync kernels take it
+    assert tdecode.decode_variant(torch.bfloat16, D, bs, 2) == "mma"
+    with pytest.raises(ValueError, match="cannot take"):
+        tdecode.paged_decode_attention(q, ak, av, tables, lens, layer_idx=0,
+                                       variant="tma")
+    with pytest.raises(ValueError, match="cannot take"):
+        tprefill.paged_prefill_attention(q, ak, av, tables[0], 0, 2,
+                                         layer_idx=0, variant="tma")
+    with pytest.raises(ValueError, match="cannot take"):
+        tdecode.paged_decode_attention(q, ak, av, tables, lens, layer_idx=0,
+                                       variant="f32")
+    with pytest.raises(ValueError, match="one of"):
+        tprefill.paged_prefill_attention(q, ak, av, tables[0], 0, 2,
+                                         layer_idx=0, variant="wgmma")
+    before = _by_variant(tdecode.paged_decode_attention)
+    tdecode.paged_decode_attention(q, ak, av, tables, lens, layer_idx=0)
+    assert _by_variant(tdecode.paged_decode_attention)["mma"] == \
+        before["mma"] + 1
+
+
 def test_new_wrappers_raise_on_what_the_kernels_do_not_take(card):
     ids = np.zeros(4, np.int32)
     x = _rnd(card, torch.float32, 4, 64)

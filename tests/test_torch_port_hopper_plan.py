@@ -3,7 +3,10 @@ backward's kernel choice (`ops/flash_attention.bwd_variant`), the
 Evoformer backward's (`ops/evoformer_flash.bwd_variant`, with the pair-bias
 row pitch its TMA pair reads, `pair_bias_pitch`) and the block-sparse
 backward's (`ops/sparse_flash.bwd_variant`, with the gathered tile plan of
-its wgmma pair, `tile_walk` / `bwd_plan`) on the CPU.
+its wgmma pair, `tile_walk` / `bwd_plan`) and the paged kernels' (
+`ops/paged_prefill.prefill_variant` with `prefill_plan`, the split of each
+query tile's key range over CTAs, and `ops/paged_attention.decode_variant`
+with `decode_plan`, the split of a sequence's key tiles) on the CPU.
 
 The plan picks the kernel for a shape (the split-K TMA stream at the
 decode hops, TMA + wgmma at the prefill hops, the cp.async or CUDA-core
@@ -12,7 +15,10 @@ per-hop GEMM of chip_smoke phase 13's wave at Llama-2-7B widths (tp 2 and
 4, decode and NC = 1, 2, 4, 8 prefill chunks), computed here, and the edge
 shapes phase 1 checks.  The kernels' order of sums across splits (an f32
 partial per K range, added in split order) is emulated in numpy and held
-against the JAX package's Pallas tile kernel in interpret mode.
+against the JAX package's Pallas tile kernel in interpret mode; so are
+the paged TMA kernels' orders (an online softmax over 64-key tiles with a
+base-2 exponent inside a split, the splits' (m, l, acc) merged in split
+order), against the Pallas paged prefill and decode kernels.
 """
 import functools
 
@@ -23,6 +29,9 @@ import torch
 
 from deepspeed_tpu_torch.ops import evoformer_flash as tevof
 from deepspeed_tpu_torch.ops import flash_attention as tflash
+from deepspeed_tpu_torch.ops import paged_attention as tdecode
+from deepspeed_tpu_torch.ops import paged_merged as tmerged
+from deepspeed_tpu_torch.ops import paged_prefill as tprefill
 from deepspeed_tpu_torch.ops import sparse_attention as tsparse
 from deepspeed_tpu_torch.ops import sparse_flash as tsflash
 from deepspeed_tpu_torch.ops import tp_matmul as ttm
@@ -515,3 +524,339 @@ def test_sparse_variant_counters_start_at_zero_and_count_no_cpu_launch():
     assert [c.launches for c in counters] == before
     for fn in (tsflash.block_sparse_flash_dq, tsflash.block_sparse_flash_dkv):
         assert all(n == 0 for n in fn.launches_by_variant.values())
+
+
+# ----------------------------------------------------------------------
+# the paged kernels: variant rules, split plans, split-merge order
+# ----------------------------------------------------------------------
+# |emulation - Pallas| <= PAGED_TOL (rtol = atol): both in f32, the
+# emulation with base-2 exponents, 64-key tiles and splits merged in
+# order, the Pallas kernels with exp over their own blocks (the JAX
+# package's own kernel tolerance)
+PAGED_TOL = 2e-5
+LOG2E = 1.4426950408889634
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,D,bs,want", [
+    (BF16, 128, 64, "tma"), (BF16, 64, 16, "tma"), (BF16, 32, 8, "tma"),
+    (BF16, 128, 32, "tma"), (BF16, 128, 128, "tma"), (BF16, 64, 256, "tma"),
+    (BF16, 128, 24, "mma"), (BF16, 128, 48, "mma"), (BF16, 64, 96, "mma"),
+    (BF16, 32, 4, "mma"), (BF16, 128, 12, "mma"),
+    (F32, 128, 64, "f32"), (F32, 32, 16, "f32"), (F32, 64, 24, "f32")])
+def test_paged_prefill_variant_by_dtype_head_dim_and_block(dtype, D, bs,
+                                                           want):
+    assert tprefill.prefill_variant(dtype, D, bs) == want
+
+
+@pytest.mark.parametrize("dtype,D,bs,G,want", [
+    (BF16, 128, 64, 1, "tma"), (BF16, 128, 16, 4, "tma"),
+    (BF16, 32, 16, 8, "tma"), (BF16, 64, 128, 2, "tma"),
+    (BF16, 128, 24, 1, "mma"), (BF16, 64, 40, 8, "mma"),
+    (F32, 128, 64, 1, "f32"), (F32, 64, 16, 8, "f32")])
+def test_paged_decode_variant_by_dtype_head_dim_block_and_group(dtype, D, bs,
+                                                                G, want):
+    assert tdecode.decode_variant(dtype, D, bs, G) == want
+
+
+@pytest.mark.parametrize("dtype,D,G,err", [
+    (torch.float16, 128, 1, TypeError), (torch.int8, 64, 1, TypeError),
+    (BF16, 48, 1, ValueError), (BF16, 256, 1, ValueError),
+    (BF16, 128, 9, ValueError), (F32, 128, 16, ValueError)])
+def test_paged_variants_refuse_what_no_kernel_takes(dtype, D, G, err):
+    with pytest.raises(err):
+        tdecode.decode_variant(dtype, D, 64, G)
+    if G <= 8:
+        with pytest.raises(err):
+            tprefill.prefill_variant(dtype, D, 64)
+
+
+def _partitions(plan, C, n_valid, pos0, window, max_keys):
+    """Each query tile's split ranges are contiguous, in split order, and
+    cover exactly the key tiles of [window start, last valid key]."""
+    for qt, ranges in enumerate(plan.ranges):
+        k_begin, k_end = tprefill.tile_keys(qt, n_valid, pos0, window,
+                                            max_keys)
+        if k_end > k_begin:
+            lo, hi = k_begin // 64, -(-k_end // 64)
+        else:
+            lo = hi = k_begin // 64
+        assert len(ranges) == plan.splits
+        assert ranges[0][0] == lo and ranges[-1][1] == hi
+        for (a0, a1), (b0, b1) in zip(ranges, ranges[1:]):
+            assert a0 <= a1 == b0 <= b1
+        # the last valid query's position is covered, the window's start
+        # is the first key read
+        if k_end > k_begin:
+            c_last = min(qt * 64 + 63, n_valid - 1)
+            assert lo * 64 <= k_begin and hi * 64 >= min(
+                pos0 + c_last + 1, max_keys)
+
+
+PREFILL_PLANS = [
+    # (C, n_valid, pos0, window, NH, NKV, max_keys): the main shape, phase
+    # 13's local heads, the wave's first chunk, windows, n_valid < C
+    (256, 256, 1024, None, 32, 32, 2048), (256, 256, 1024, None, 16, 16, 2048),
+    (256, 256, 1024, None, 8, 8, 2048), (256, 256, 0, None, 32, 32, 2048),
+    (70, 61, 100, None, 8, 2, 256), (64, 64, 300, 128, 32, 8, 2048),
+    (256, 100, 700, None, 32, 8, 2048), (3, 3, 77, None, 32, 32, 2048),
+    (512, 400, 0, 8, 8, 2, 1024), (1, 1, 0, None, 4, 4, 64),
+    (256, 256, 1900, None, 32, 32, 2048)]
+
+
+@pytest.mark.parametrize("C,n_valid,pos0,window,NH,NKV,max_keys",
+                         PREFILL_PLANS)
+def test_prefill_plan_partitions_each_tile_key_range_in_order(
+        C, n_valid, pos0, window, NH, NKV, max_keys):
+    plan = tprefill.prefill_plan(C, n_valid, pos0, window, NH, NKV, 132,
+                                 max_keys)
+    assert plan.q_tiles == -(-C // 64)
+    assert 1 <= plan.splits <= tprefill.MAX_SPLITS
+    _partitions(plan, C, n_valid, pos0, window, max_keys)
+
+
+@pytest.mark.parametrize("NH", [32, 16, 8])
+def test_prefill_plan_fills_the_card_at_the_main_shape(NH):
+    plan = tprefill.prefill_plan(256, 256, 1024, None, NH, NH, 132, 2048)
+    assert plan.ctas(NH) >= 132
+    # and the longest tile's splits keep two key tiles or more to pipeline
+    longest = max(r[-1][1] - r[0][0] for r in plan.ranges)
+    assert min(b - a for r in plan.ranges for a, b in r
+               if r[-1][1] - r[0][0] == longest) >= 2
+
+
+DECODE_LENS = [[36, 63, 95, 127, 199, 310, 499, 1499],
+               [5, -1, 700, 64, 1, -3, 1200, 0], [40, -1, 300, 0],
+               [2047, 0, 63, 64, 65]]
+
+
+@pytest.mark.parametrize("lens", DECODE_LENS)
+@pytest.mark.parametrize("NKV,MB,bs,ctas", [
+    (32, 32, 64, 528), (32, 256, 64, 528), (2, 24, 16, 7), (4, 16, 128, 13),
+    (8, 33, 8, 264), (1, 64, 32, 5), (32, 32, 64, 1000)])
+def test_decode_work_list_covers_each_head_once_in_equal_shares(
+        lens, NKV, MB, bs, ctas):
+    plan = tdecode.decode_plan(MB, bs)
+    assert plan.segs * 64 >= MB * bs
+    work = tdecode.decode_work(lens, NKV, MB, bs, ctas)
+    # every CTA that works carries the same number of key tiles within one
+    if work.tiles_per_cta:
+        assert max(work.tiles_per_cta) - min(work.tiles_per_cta) <= 1
+        assert min(work.tiles_per_cta) >= 1 and len(work.tiles_per_cta) <= ctas
+    for b, n in enumerate(lens):
+        n_keys = min(n + 1, MB * bs)
+        for kvh in range(NKV):
+            segs = work.segments.get((b, kvh))
+            if n_keys <= 0:
+                assert segs is None
+                continue
+            # the CTAs sharing a head cover its keys once, in order, no
+            # more of them than the workspace holds
+            assert segs[0][0] == 0 and segs[-1][1] == n_keys
+            assert 1 <= len(segs) <= plan.segs
+            for (a0, a1), (b0, b1) in zip(segs, segs[1:]):
+                assert a0 < a1 == b0 < b1 and a0 % 64 == 0 and b0 % 64 == 0
+
+
+@pytest.mark.parametrize("MB", [32, 256])
+def test_decode_work_is_level_at_the_wave_whatever_the_table(MB):
+    """At the wave's positions the 1504 key tiles spread over a wave of
+    CTAs (four an SM on 132) at 2-3 tiles each, the longest sequence over
+    10 of them, whatever the table's length."""
+    work = tdecode.decode_work(DECODE_LENS[0], 32, MB, 64, 528)
+    assert sum(work.tiles_per_cta) == 32 * 47
+    assert set(work.tiles_per_cta) == {2, 3}
+    assert max(len(s) for s in work.segments.values()) == 10
+
+
+def test_decode_variant_routes_a_batch_past_the_work_list_to_mma():
+    assert tdecode.decode_variant(BF16, 128, 64, 1, B=4096) == "tma"
+    assert tdecode.decode_variant(BF16, 128, 64, 1, B=4097) == "mma"
+
+
+def _softmax_tiles(qs, keys_k, keys_v, tiles, visible):
+    """One split: the online softmax over its 64-key tiles in order, in
+    log2 units (scores scaled by log2(e)/sqrt(D)).  qs [R, D] f32 already
+    scaled; visible(k0) -> [R, 64] bool.  Returns (m, l, acc)."""
+    R, D = qs.shape
+    m = np.full(R, -np.inf, np.float32)
+    l = np.zeros(R, np.float32)
+    acc = np.zeros((R, D), np.float32)
+    for j in tiles:
+        k0 = j * 64
+        s = (qs @ keys_k[k0:k0 + 64].T).astype(np.float32)
+        s = np.where(visible(k0), s, -np.inf)
+        m_new = np.maximum(m, s.max(axis=1))
+        mu = np.where(np.isneginf(m_new), 0.0, m_new).astype(np.float32)
+        alpha = np.exp2(m - mu)
+        p = np.exp2(s - mu[:, None]).astype(np.float32)
+        l = l * alpha + p.sum(axis=1)
+        acc = acc * alpha[:, None] + p @ keys_v[k0:k0 + 64]
+        m = m_new
+    return m, l, acc
+
+
+def _merge(parts):
+    """Splits' (m, l, acc) merged in split order; a row no split saw is
+    zeros."""
+    M = np.max([m for m, _, _ in parts], axis=0)
+    L = np.zeros_like(parts[0][1])
+    O = np.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        f = np.where(np.isneginf(m), 0.0,
+                     np.exp2(m - np.where(np.isneginf(M), 0.0, M)))
+        L = L + l * f
+        O = O + acc * f[:, None]
+    return np.where(L[:, None] > 0, O / np.where(L > 0, L, 1.0)[:, None],
+                    0.0)
+
+
+def _gathered(ak, av, table, kvh, pad_to):
+    """K and V rows of kv head kvh in key order through the clamped
+    table, zeros past the table (the kernels mask those keys)."""
+    nb, bs = ak.shape[:2]
+    idx = np.clip(table, 0, nb - 1)
+    k = ak[idx, :, kvh].reshape(-1, ak.shape[-1])
+    v = av[idx, :, kvh].reshape(-1, av.shape[-1])
+    pad = max(0, pad_to - k.shape[0])
+    return (np.pad(k, ((0, pad), (0, 0))), np.pad(v, ((0, pad), (0, 0))))
+
+
+def _emulate_prefill(q, ak, av, table, pos0, n_valid, window, plan):
+    C, NH, D = q.shape
+    NKV = ak.shape[2]
+    max_keys = table.size * ak.shape[1]
+    out = np.zeros((C, NH, D), np.float32)
+    scale = LOG2E / np.sqrt(D)
+    for h in range(NH):
+        kk, vv = _gathered(ak, av, table, h // (NH // NKV),
+                           (max_keys // 64 + 2) * 64)
+        for qt, ranges in enumerate(plan.ranges):
+            c0 = qt * 64
+            rows = np.zeros((64, D), np.float32)
+            rows[:min(64, C - c0)] = q[c0:c0 + 64, h]
+            qpos = pos0 + c0 + np.arange(64)
+            _, k_end = tprefill.tile_keys(qt, n_valid, pos0, window,
+                                          max_keys)
+
+            def visible(k0, qpos=qpos, k_end=k_end):
+                kp = k0 + np.arange(64)[None, :]
+                vis = (kp <= qpos[:, None]) & (kp < k_end)
+                if window:
+                    vis &= kp > qpos[:, None] - window
+                return vis
+
+            parts = [_softmax_tiles(rows * scale, kk, vv, range(j0, j1),
+                                    visible) for j0, j1 in ranges]
+            merged = _merge(parts)
+            out[c0:c0 + 64, h] = merged[:min(64, C - c0)]
+    return out
+
+
+@pytest.mark.parametrize("C,n_valid,pos0,window,NH,NKV,bs", [
+    (128, 120, 100, None, 4, 2, 16), (64, 64, 250, 150, 4, 4, 16),
+    (32, 20, 0, None, 4, 2, 8), (128, 128, 192, 70, 2, 1, 32),
+    (40, 33, 300, None, 4, 2, 8)])
+def test_prefill_split_order_matches_the_pallas_kernel(
+        monkeypatch, C, n_valid, pos0, window, NH, NKV, bs):
+    import jax.experimental.pallas as pl
+    import deepspeed_tpu.ops.paged_prefill as jpp
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    D, nb, MB = 64, 40, 512 // bs
+    rng = np.random.RandomState(C + pos0)
+    q = rng.randn(C, NH, D).astype(np.float32)
+    ak, av = (rng.randn(nb, bs, NKV, D).astype(np.float32)
+              for _ in range(2))
+    table = rng.randint(0, nb, MB).astype(np.int32)
+    # 8 SMs: several splits even at these sizes, where a tile has keys to
+    # split
+    plan = tprefill.prefill_plan(C, n_valid, pos0, window, NH, NKV, 8,
+                                 MB * bs)
+    assert plan.splits > 1 or max(r[-1][1] - r[0][0]
+                                  for r in plan.ranges) < 4
+    got = _emulate_prefill(q, ak, av, table, pos0, n_valid, window, plan)
+    want = np.asarray(jpp.paged_prefill_attention(
+        *map(jnp.asarray, (q, ak, av, table)), pos0, n_valid, window))
+    np.testing.assert_allclose(got[:n_valid], want[:n_valid],
+                               rtol=PAGED_TOL, atol=PAGED_TOL)
+
+
+def _emulate_decode(q, ak, av, tables, lens, ctas):
+    B, NH, D = q.shape
+    NKV, bs = ak.shape[2], ak.shape[1]
+    MB = tables.shape[1]
+    out = np.zeros((B, NH, D), np.float32)
+    scale = LOG2E / np.sqrt(D)
+    G = NH // NKV
+    work = tdecode.decode_work(lens, NKV, MB, bs, ctas)
+    for b in range(B):
+        for kvh in range(NKV):
+            segs = work.segments.get((b, kvh))
+            if segs is None:
+                continue
+            n_keys = segs[-1][1]
+            kk, vv = _gathered(ak, av, tables[b], kvh,
+                               (MB * bs // 64 + 2) * 64)
+            rows = q[b, kvh * G:(kvh + 1) * G] * scale
+
+            def visible(k0, n_keys=n_keys):
+                return np.broadcast_to(k0 + np.arange(64) < n_keys, (G, 64))
+
+            parts = [_softmax_tiles(rows, kk, vv,
+                                    range(k0 // 64, -(-k1 // 64)), visible)
+                     for k0, k1 in segs]
+            out[b, kvh * G:(kvh + 1) * G] = _merge(parts)
+    return out
+
+
+@pytest.mark.parametrize("NH,NKV,bs,MB,lens", [
+    (8, 2, 16, 24, [5, -1, 300, 0, 16, 383]),
+    (4, 4, 8, 40, [319, 63, 64, -3]), (8, 1, 32, 12, [200, 1, 383]),
+    (4, 2, 64, 8, [511, 129, 128, 127])])
+def test_decode_split_order_matches_the_pallas_kernel(monkeypatch, NH, NKV,
+                                                      bs, MB, lens):
+    import jax.experimental.pallas as pl
+    import deepspeed_tpu.ops.paged_attention as jpa
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    B, D, nb = len(lens), 64, 48
+    rng = np.random.RandomState(MB + bs)
+    q = rng.randn(B, NH, D).astype(np.float32)
+    ak, av = (rng.randn(nb, bs, NKV, D).astype(np.float32)
+              for _ in range(2))
+    tables = rng.randint(-3, nb + 3, (B, MB)).astype(np.int32)
+    lens = np.asarray(lens, np.int32)
+    # few CTAs for the work: a head's tiles shared by several of them
+    work = tdecode.decode_work(lens, NKV, MB, bs, 5)
+    assert max(len(s) for s in work.segments.values()) > 1
+    got = _emulate_decode(q, ak, av, tables, lens, 5)
+    want = np.asarray(jpa.paged_decode_attention(
+        *map(jnp.asarray, (q, ak, av, tables, lens))))
+    np.testing.assert_allclose(got, want, rtol=PAGED_TOL, atol=PAGED_TOL)
+    assert (got[lens < 0] == 0).all()
+
+
+def test_paged_variant_counters_name_every_kernel_and_count_no_cpu_launch():
+    wrappers = (tprefill.paged_prefill_attention,
+                tdecode.paged_decode_attention,
+                tmerged.merged_prefill_attention,
+                tmerged.merged_decode_attention)
+    for fn in wrappers:
+        assert set(fn.launches_by_variant) == {"tma", "mma", "f32"}
+    before = [(fn.launches, dict(fn.launches_by_variant)) for fn in wrappers]
+    rng = np.random.RandomState(0)
+    ak, av = (torch.from_numpy(rng.randn(2, 8, 16, 2, 32).astype(np.float32))
+              .bfloat16() for _ in range(2))
+    q = torch.from_numpy(rng.randn(3, 4, 32).astype(np.float32)).bfloat16()
+    tables = torch.from_numpy(rng.randint(0, 8, (3, 4)).astype(np.int32))
+    lens = torch.tensor([5, -1, 40], dtype=torch.int32)
+    tdecode.paged_decode_attention(q, ak, av, tables, lens, layer_idx=1)
+    tprefill.paged_prefill_attention(q, ak, av, tables[0], 10, 3,
+                                     layer_idx=0)
+    mk, mv = (t.view(2, 8, 16, 64) for t in (ak, av))
+    tmerged.merged_decode_attention(q, mk, mv, tables, lens, layer_idx=1)
+    tmerged.merged_prefill_attention(q, mk, mv, tables[0], 10, 3,
+                                     layer_idx=0)
+    assert [(fn.launches, dict(fn.launches_by_variant))
+            for fn in wrappers] == before

@@ -144,24 +144,32 @@ def _fwd_cases():
 
 @pytest.mark.parametrize("name", list(_fwd_cases()))
 def test_forward_matches_jax_jnp_and_pallas(_interpret, name):
+    """Each side gets its own copy of the inputs, and the JAX results are
+    on the host before the port runs, so neither side can see the other's
+    buffers or threads; each comparison names its sides."""
     make, block, causal = _fwd_cases()[name]
     layout = make(jsa)
     q, k, v = _qkv()
-    jq, jk, jv = map(jnp.asarray, (q, k, v))
-    ref = np.asarray(jsa.block_sparse_attention(jq, jk, jv, layout, block,
-                                                causal=causal, impl="jnp"))
+    jq, jk, jv = (jnp.array(x, copy=True) for x in (q, k, v))
+    ref = np.array(jsa.block_sparse_attention(jq, jk, jv, layout, block,
+                                              causal=causal, impl="jnp"))
     kidx = jsa._layout_to_gather(layout)
-    kern, kern_lse = jsf.block_sparse_flash_attention(
-        jq, jk, jv, kidx, block, causal=causal, return_lse=True)
-    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    kern, kern_lse = (np.array(x) for x in jsf.block_sparse_flash_attention(
+        jq, jk, jv, kidx, block, causal=causal, return_lse=True))
+    np.testing.assert_allclose(kern, ref, **FWD_TOL,
+                               err_msg="JAX: Pallas against jnp")
+    tq, tk, tv = (torch.from_numpy(x.copy()) for x in (q, k, v))
     got = tsa.block_sparse_attention(tq, tk, tv, make(tsa), block,
                                      causal=causal)
-    np.testing.assert_allclose(got.numpy(), ref, **FWD_TOL)
+    np.testing.assert_allclose(got.numpy(), ref, **FWD_TOL,
+                               err_msg="port plain path against JAX jnp")
     out, lse = tsf.block_sparse_flash_attention(
         tq, tk, tv, tsa._layout_to_gather(make(tsa)), block, causal=causal,
         return_lse=True)
-    np.testing.assert_allclose(out.numpy(), np.asarray(kern), **FWD_TOL)
-    np.testing.assert_allclose(lse.numpy(), np.asarray(kern_lse), **FWD_TOL)
+    np.testing.assert_allclose(out.numpy(), kern, **FWD_TOL,
+                               err_msg="port kernel path against Pallas")
+    np.testing.assert_allclose(lse.numpy(), kern_lse, **FWD_TOL,
+                               err_msg="port lse against Pallas lse")
 
 
 def test_fully_masked_row_outputs_zero_and_finite_lse(_interpret):
