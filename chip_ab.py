@@ -3,7 +3,7 @@
 
     python3 chip_ab.py DIR_A DIR_B [--rounds N]
                        [--what train|paged|paged_plans|sparse|evoformer|
-                               tile|flash]
+                               tile|flash|lora]
                        [--train-layers N]
 
 Each DIR holds a `deepspeed_tpu_torch` package (for example one unpacked
@@ -28,9 +28,15 @@ B, A per round, each in a process of its own that builds its own kernels
 - `--what sparse`: the block-sparse forward, delta, dq and dk/dv
   kernels' device time at chip_smoke phase 1's main shape (SPARSE_SHAPE
   bf16, phase 10's first layout; delta 0 where a package has no delta
-  kernel), the host time of phase 10's module forward per layout, and
-  the backward (CUDA events, on the pair each package routes to) at
-  phase 10's three layouts and its pair-gate sweep (`sweep_layouts`);
+  kernel), the host time of phase 10's module forward per layout, the
+  backward (CUDA events, on the pair each package routes to) and the
+  forward (CUDA graphs: device time without host gaps, on the kernel
+  each package routes to) at phase 10's three layouts and its pair-gate
+  sweep (`sweep_layouts`);
+- `--what lora`: the gather-LoRA delta's device time at chip_smoke phase
+  1's wave shapes (32, 512 and 2048 bf16 rows, K = N = 4096, rank 16, 4
+  slots, its `_lora_ids`) on the kernel each package routes to, and the
+  host time of one 32-row call;
 - `--what evoformer`: the Evoformer forward, dq, dk/dv (with db1 where
   the mask bias requires grad) and db2 kernels' device time, and the
   backward's sum, at phase 12's MSA row, triangle and extra-MSA row shapes
@@ -126,6 +132,37 @@ def paged_plans_worker(cs, np, torch):
     return res
 
 
+def lora_worker(cs, np, torch):
+    """Device ms of the LoRA delta at phase 1's three wave shapes, on the
+    kernel each package routes to; host us of one 32-row call."""
+    from deepspeed_tpu_torch.ops import lora_matmul as lm
+    rng = np.random.RandomState(5)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    K = N = 4096
+    r = 16
+    a = torch.randn(4, K, r, generator=g, device="cuda") / K ** 0.5
+    b = torch.randn(4, r, N, generator=g, device="cuda") / r ** 0.5
+    res = {}
+    for S in (32, 512, 2048):
+        x = torch.randn(S, K, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        rows = lm.LoraRows(cs._lora_ids(np, rng, S, 4))
+        res[f"rows{S}_ms"] = cs.time_ms(lambda: lm.lora_delta(x, a, b, rows))
+        if S == 32:
+            res["rows32_host_us"] = cs.host_us(
+                torch, lambda: lm.lora_delta(x, a, b, rows))
+    return res
+
+
+def _fwd_kw(sf, kw):
+    """The forward's keywords: the plan, where the package's forward
+    takes one."""
+    import inspect
+    takes = "plan" in inspect.signature(
+        sf.block_sparse_flash_attention).parameters
+    return {"plan": kw["plan"]} if takes and "plan" in kw else {}
+
+
 def _sparse_tables(sa, kidx, block):
     """(idx, rev, backward keywords) of a package's device tables: a
     package with the backward plan takes it, an older one has none."""
@@ -152,10 +189,11 @@ def sparse_worker(cs, np, torch):
     g = torch.Generator(device="cuda").manual_seed(9)
     q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda",
                                dtype=torch.bfloat16) for _ in range(4))
+    fk = _fwd_kw(sf, kw)
     out, lse = sf.block_sparse_flash_attention(q, k, v, idx, block, False,
-                                               return_lse=True)
+                                               return_lse=True, **fk)
     res = {"fwd_ms": cs.time_ms(lambda: sf.block_sparse_flash_attention(
-        q, k, v, idx, block, False, return_lse=True)), "delta_ms": 0.0}
+        q, k, v, idx, block, False, return_lse=True, **fk)), "delta_ms": 0.0}
     if hasattr(sf, "block_sparse_flash_bwd_delta") and sf.bwd_variant(
             q.dtype, D, block) == "wgmma":
         kw["delta"] = sf.block_sparse_flash_bwd_delta(out, do)
@@ -181,8 +219,12 @@ def sparse_worker(cs, np, torch):
                for n, c in cs.sparse_layouts(sa, H)]
     for name, layout, bl, causal in layouts + cs.sweep_layouts(np, sa, H, S):
         idx, rev, kw = _sparse_tables(sa, sa._layout_to_gather(layout), bl)
+        fk = _fwd_kw(sf, kw)
         out, lse = sf.block_sparse_flash_attention(q, k, v, idx, bl, causal,
-                                                   return_lse=True)
+                                                   return_lse=True, **fk)
+        res[f"{name}_fwd_ms"] = cs.graph_time_ms(
+            lambda: sf.block_sparse_flash_attention(
+                q, k, v, idx, bl, causal, return_lse=True, **fk))
         res[f"{name}_bwd_ms"] = cs.event_time_ms(
             lambda: sf.block_sparse_flash_backward(
                 q, k, v, idx, rev, out, do, lse, bl, causal, **kw))
@@ -279,7 +321,7 @@ def worker(pkg_dir, train_layers, what):
         False
     package = os.path.dirname(deepspeed_tpu_torch.__file__)
     workers = {"paged": paged_worker, "paged_plans": paged_plans_worker,
-               "sparse": sparse_worker,
+               "sparse": sparse_worker, "lora": lora_worker,
                "evoformer": evoformer_worker, "tile": tile_worker,
                "flash": flash_worker}
     if what in workers:
@@ -316,7 +358,7 @@ def main(argv=None):
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--what", default="train",
                     choices=("train", "paged", "paged_plans", "sparse",
-                             "evoformer", "tile", "flash"))
+                             "evoformer", "tile", "flash", "lora"))
     ap.add_argument("--train-layers", type=int, default=24)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

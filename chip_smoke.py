@@ -47,7 +47,8 @@ Phases (any failure exits non-zero and prints no result):
      row 1's (arm B, counters reset just before it): base rows must give
      arm A's tokens and prefill logits exactly, adapter rows other
      chains, the LoRA kernel 32 launches per serving call with adapter
-     rows; arm B's prefill and one decode step against the plain-version
+     rows, every one on the fused kernel (`launches_by_variant`), and the
+     wave's LoRA device ms; arm B's prefill and one decode step against the plain-version
      engine with the same stacks; a profiled rerun of arm B; pool and
      engine audits clean;
   9. phase 2's wave on an engine with the merged [L, nb, bs, NKV*D] arena
@@ -67,11 +68,13 @@ Phases (any failure exits non-zero and prints no result):
      come back without device events) against their bound, against SDPA
      with the dense mask and, for the causal layout, against the dense
      flash kernels; the host time of one call (the tables and the
-     backward's plan are cached on the module); then the pair gate: over
-     16 layouts at blocks 16 and 32 (the port's sparsity configs and
-     scattered random layouts), both bf16 backward pairs' device time
-     from CUDA graphs in the same call, failing where the routed pair is
-     more than 1.25x slower than the other;
+     kernels' plan are cached on the module); the forward on the kernel
+     `fwd_variant` names (TMA + wgmma at bf16 D 64/128, block 16/32/64;
+     launches by variant); then the pair gate: over 16 layouts at blocks
+     16 and 32 (the port's sparsity configs and scattered random
+     layouts), both bf16 backward pairs' and both bf16 forward kernels'
+     device time from CUDA graphs in the same call, failing where a
+     routed kernel is more than 1.25x slower than the other;
  11. (run after phase 10, before phase 5) bench.py's training step with
      8-bit Adam moments and the fused update (`state_dtype "int8"`,
      `fused_update: true`): phase 5's readings, one fused_adam8 launch per
@@ -100,13 +103,18 @@ over block sizes 16-128, groups 1-8, head dims 32-128, windows, ragged
 lens and chunks, reruns bit-identical, beside the mma.sync kernels they
 replaced (timed in the same call); phases 2-4, 8, 9 and 13 fail on a
 paged launch off "tma".
-Phase 1 also holds the fused 8-bit Adam kernel (one w_up layer's slice),
-the block-sparse forward, delta, dq and dk/dv kernels (at phase 10's
-first layout, timed beside the mma.sync pair, and at edge cases: the
-wgmma pair at blocks 16, 32 and 64, D 64 and 128, causal and not, a
-fully-masked row, lists that end mid-step, over every walk the plan can
-take; f32, block 8 and 128, head dims 192 and 256; reruns
-bit-identical), the
+Phase 1 also holds the gather-LoRA kernel (the fused one-launch kernel
+and the two-pass kernel it replaced, in the same call: the wave's decode,
+prefill and 2048-row shapes, ranks 1-128, K off the 16-byte grain, one
+row, f32 rows, NaN in base rows' x; reruns bit-identical), the fused
+8-bit Adam kernel (one w_up layer's slice), the block-sparse forward,
+delta, dq and dk/dv kernels (at phase 10's first layout, each timed
+beside its mma.sync kernel, and at edge cases: the wgmma kernels at
+blocks 16, 32 and 64, D 64 and 128, causal and not, a fully-masked row,
+lists that end mid-step, ragged forward groups, NaN in key and value
+blocks no row visits, over every walk the plan can take, the forward
+against the mma.sync kernel; f32, block 8 and 128, head dims 192 and
+256; reruns bit-identical), the
 four Evoformer kernels (at phase 12's MSA row shape, D 8, 64 and 128, f32,
 L 100 with a fully masked row, each bias alone and none, each case's dq
 and dk/dv on the pair `bwd_variant` names; a mask bias view off the
@@ -235,6 +243,19 @@ LORA_BLOCK_ELEMS = 4096      # the pool's residency grain (its default)
 # request index -> adapter (row 7 shares row 1's; t0 is demoted when t4
 # registers and promoted back by row 1's reservation)
 LORA_PLAN = {1: "t0", 3: "t2", 5: "t3", 7: "t0"}
+# phase 1's LoRA cases, (S, K, N, r, slots, x dtype; None: bf16 rows all
+# base): the timed shapes first (prefill, decode, 2048 rows), then ranks
+# 1, 128 and 40, K not a multiple of 8 and N not of 4, one row, f32 rows
+LORA_CASES = [(512, 4096, 4096, 16, 4, "bfloat16"),
+              (32, 4096, 4096, 16, 4, "bfloat16"),
+              (2048, 4096, 4096, 16, 4, "bfloat16"),
+              (512, 4096, 4096, 1, 4, "bfloat16"),
+              (512, 4096, 4096, 128, 4, "bfloat16"),
+              (77, 1000, 777, 16, 3, "bfloat16"),
+              (45, 1003, 1001, 40, 4, "bfloat16"),
+              (1, 4096, 4096, 16, 4, "bfloat16"),
+              (64, 4096, 4096, 16, 4, "float32"),
+              (48, 4096, 4096, 16, 4, None)]
 
 # fused 8-bit Adam kernel vs its plain version: the kernel keeps the plain
 # version's operation order with IEEE roundings and no FMA contraction, so
@@ -283,7 +304,9 @@ KERNELS = {"flash_fwd": ("flash_attention_fwd", 1),
            "paged_decode": ("paged_decode_attention",
                             {"tma": 1, "mma": 2, "f32": 2}),
            "paged_prefill": ("paged_prefill_attention", 1),
-           "lora_delta": ("lora_delta", 2),                # shrink + expand
+           # the fused kernel is one launch; the two-pass one shrink +
+           # expand
+           "lora_delta": ("lora_delta", {"fused": 1, "two_pass": 2}),
            "fused_adam8": ("fused_adam8_leaf", 1),
            "sparse_fwd": ("block_sparse_flash_attention", 1),
            "sparse_dq": ("block_sparse_flash_dq", 1),
@@ -849,74 +872,112 @@ def _lora_work(np, ids, K, N, r, x_bytes):
 
 
 def check_lora(torch, np, lm, dev):
-    """The gather-LoRA kernel against its plain version: the wave's shapes
-    (decode rows 32, prefill rows 512 and 2048; K = N = 4096, rank 16, 4
-    slots of f32 factors), then ranks 1 and 128, K and N not multiples of
-    64, f32 rows and a batch of base rows only."""
+    """The gather-LoRA kernels against their plain version: the fused
+    kernel (every call's route) and the two-pass kernel it replaced, at
+    the wave's shapes (decode rows 32, prefill rows 512 and 2048 -- more
+    work items than resident CTAs; K = N = 4096, rank 16, 4 slots of f32
+    factors), then ranks 1, 40 and 128, K not a multiple of 8 and N not
+    of 4, one row, f32 rows and a batch of base rows only.  Base rows'
+    x rows hold NaN and must give exactly +0.0; the fused kernel's rerun
+    is bit for bit; a variant that does not exist is refused.  The three
+    wave shapes are timed on both kernels in this call."""
     rng = np.random.RandomState(5)
     g = torch.Generator(device=dev).manual_seed(5)
-    bf16, f32 = torch.bfloat16, torch.float32
-    # (S, K, N, r, slots, x dtype): the timed prefill shape first
-    cases = [(512, 4096, 4096, 16, 4, bf16), (32, 4096, 4096, 16, 4, bf16),
-             (2048, 4096, 4096, 16, 4, bf16), (512, 4096, 4096, 1, 4, bf16),
-             (512, 4096, 4096, 128, 4, bf16), (77, 1000, 777, 16, 3, bf16),
-             (64, 4096, 4096, 16, 4, f32), (48, 4096, 4096, 16, 4, None)]
-    errs, rels, main = [], [], None
-    for S, K, N, r, slots, dt in cases:
-        x = torch.randn(S, K, generator=g, device=dev, dtype=dt or bf16)
+    errs, rels, timed = [], [], []
+    fn = lm.lora_delta
+    for S, K, N, r, slots, dt in LORA_CASES:
+        dt = dt and getattr(torch, dt)
+        x = torch.randn(S, K, generator=g, device=dev,
+                        dtype=dt or torch.bfloat16)
         a = torch.randn(slots, K, r, generator=g, device=dev) / K ** 0.5
         b = torch.randn(slots, r, N, generator=g, device=dev) / r ** 0.5
         ids = (_lora_ids(np, rng, S, slots) if dt is not None
                else np.full(S, -1, np.int32))
+        if S == 1:
+            ids[:] = 1
+        base = torch.from_numpy(ids < 0).to(dev)
+        x[base] = float("nan")          # base rows: never multiplied
         rows = lm.LoraRows(ids)
-        out = lm.lora_delta(x, a, b, rows)
+        before = dict(fn.launches_by_variant)
+        out = fn(x, a, b, rows)
+        again = fn(x, a, b, rows)
+        two = fn(x, a, b, rows, variant="two_pass")
         ref = lm.lora_delta_reference(x, a, b, rows)
         torch.cuda.synchronize()
-        base = torch.from_numpy(ids < 0).to(dev)
-        zeros = bool((out[base] == 0).all()
-                     and not out[base].signbit().any())
+        ran = {v: n - before[v] for v, n in fn.launches_by_variant.items()}
+        zeros = all(bool((t[base] == 0).all()
+                         and not t[base].signbit().any()) for t in (out,
+                                                                     two))
         scale = float(ref.abs().max())
-        err = max_err(out, ref)
+        err, err2 = max_err(out, ref), max_err(two, ref)
         rel = err / scale if scale > 0 else err
+        rel2 = err2 / scale if scale > 0 else err2
+        same = torch.equal(out, again)
         print(f"  lora_delta S={S} K={K} N={N} r={r} slots={slots} x "
-              f"{str(dt)[6:] if dt else 'bf16, every row base'}: "
-              f"max|d|/max|plain|={rel:.3e} base rows exactly 0: {zeros}")
-        if not (zeros and rel <= LORA_REL):
+              f"{str(dt)[6:] if dt else 'bf16, every row base'}: fused "
+              f"max|d|/max|plain|={rel:.3e}, two-pass {rel2:.3e}; base rows "
+              f"exactly 0: {zeros}; rerun equal {same}; launches {ran}")
+        if not (zeros and rel <= LORA_REL and rel2 <= LORA_REL and same):
             fail(f"lora_delta disagrees with its plain version at "
-                 f"{(S, K, N, r, slots, dt)}: {rel} of max|plain| (tol "
-                 f"{LORA_REL}), base rows exactly 0: {zeros}")
-        errs.append(err)
-        rels.append(rel)
-        if main is None:
-            main = (x, a, b, ids, rows, S, K, N, r)
-    # the timed shapes: prefill rows (the first case) and decode rows
-    x, a, b, ids, rows, S, K, N, r = main
-    ms = time_ms(lambda: lm.lora_delta(x, a, b, rows))
+                 f"{(S, K, N, r, slots, dt)}: fused {rel}, two-pass {rel2} "
+                 f"of max|plain| (tol {LORA_REL}), base rows exactly 0: "
+                 f"{zeros}, rerun equal {same}")
+        if ran != {"fused": 2, "two_pass": 1}:
+            fail(f"lora_delta ran {ran}, want fused 2, two_pass 1")
+        errs.append(max(err, err2))
+        rels.append(max(rel, rel2))
+        if len(timed) < 3:
+            timed.append((x, a, b, ids, rows, S, K, N, r))
+    with_bad = fn.launches
+    try:
+        fn(x, a, b, rows, variant="mma")
+    except ValueError:
+        pass
+    else:
+        fail("lora_delta took variant 'mma'")
+    if fn.launches != with_bad:
+        fail("a refused LoRA variant launched")
+    # the timed shapes on both kernels: prefill rows (the row's main
+    # shape), decode rows and 2048 rows
+    times, sizes = {}, [t[5] for t in timed]
+    for x, a, b, ids, rows, S, K, N, r in timed:
+        times[S] = dict(
+            fused=time_ms(lambda: fn(x, a, b, rows)),
+            two_pass=time_ms(lambda: fn(x, a, b, rows, variant="two_pass")),
+            bound=bound_ms(*_lora_work(np, ids, K, N, r, 2),
+                           H100_F32_FLOPS))
+        print(f"  lora_delta at {S} rows: fused {times[S]['fused']:.4f} ms, "
+              f"two-pass {times[S]['two_pass']:.4f} ms (bound "
+              f"{times[S]['bound'][0]:.4f} ms, {times[S]['bound'][1]})")
+        if times[S]["fused"] > times[S]["two_pass"]:
+            print(f"  NOTE: the fused kernel is slower than the two-pass one "
+                  f"at {S} rows")
+    x, a, b, ids, rows, S, K, N, r = timed[0]
     plain = time_ms(lambda: lm.lora_delta_reference(x, a, b, rows), iters=5)
-    bms, by = bound_ms(*_lora_work(np, ids, K, N, r, 2), H100_F32_FLOPS)
-    xd = torch.randn(32, K, generator=g, device=dev, dtype=bf16)
-    ids_d = _lora_ids(np, rng, 32, 4)
-    rows_d = lm.LoraRows(ids_d)
-    dec_ms = time_ms(lambda: lm.lora_delta(xd, a, b, rows_d))
-    dec_bound = bound_ms(*_lora_work(np, ids_d, K, N, r, 2),
-                         H100_F32_FLOPS)[0]
-    print(f"  lora_delta at the decode shape (32 rows): {dec_ms:.4f} ms "
-          f"(bound {dec_bound:.4f} ms); at {S} rows {ms:.4f} ms (bound "
-          f"{bms:.4f} ms)")
+    main = times[S]
     return dict(name="lora_delta", route="cuda",
                 source="deepspeed_tpu_torch/csrc/lora_delta.cu",
                 replaces="deepspeed_tpu/ops/lora_matmul.py:125",
+                variant="fused",
                 shape=f"x [{S},{K}] bf16, A [4,{K},{r}] / B [4,{r},{N}] "
                       f"f32, ids {int((ids >= 0).sum())} adapter rows of "
                       f"{len(np.unique(ids[ids >= 0]))} slots",
                 max_abs_err=max(errs), max_rel_err=max(rels),
-                max_rel_err_note="max|kernel - plain| / max|plain|",
-                ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=None,
+                max_rel_err_note="max|kernel - plain| / max|plain|, both "
+                                 "kernels",
+                ms=main["fused"], two_pass_ms=main["two_pass"],
+                two_pass_note="the two-pass kernel it replaced, same call",
+                plain_ms=plain, bound_ms=main["bound"][0],
+                bound_by=main["bound"][1], library_ms=None,
                 library_note="no single PyTorch call does a per-row slot "
                              "gather and product",
-                decode_shape=f"x [32,{K}] bf16", decode_ms=dec_ms,
-                decode_bound_ms=dec_bound)
+                decode_shape=f"x [{sizes[1]},{K}] bf16",
+                decode_ms=times[sizes[1]]["fused"],
+                decode_two_pass_ms=times[sizes[1]]["two_pass"],
+                decode_bound_ms=times[sizes[1]]["bound"][0],
+                rows2048_ms=times[sizes[2]]["fused"],
+                rows2048_two_pass_ms=times[sizes[2]]["two_pass"],
+                rows2048_bound_ms=times[sizes[2]]["bound"][0])
 
 
 WAVE_LENS = [36, 63, 95, 127, 199, 310, 499, 1499]   # decode positions
@@ -1799,6 +1860,9 @@ def serve_tenants(torch, np, cfg, params, config, prompts, counters, lm):
     if calls["with_adapters"] == 0 or launches["lora_delta"] != want:
         fail(f"lora_delta launched {launches['lora_delta']} times, want "
              f"{L} per serving call with adapter rows ({want})")
+    if variants["lora_delta"] != {"fused": want, "two_pass": 0}:
+        fail(f"lora_delta launched {variants['lora_delta']}: every LoRA "
+             f"launch of the wave must take the fused kernel")
     for name, n in launches.items():
         if n <= 0 and name != "flash_attention_fwd":
             fail(f"kernel {name} was never launched in arm B")
@@ -1841,6 +1905,10 @@ def serve_tenants(torch, np, cfg, params, config, prompts, counters, lm):
                                   + e.time_range.elapsed_us() / 1e3)
     busy = sum(by_kind.values())
     lora_ms = by_kind.get("lora_delta", 0.0)
+    lora_by = {v: prof_launches.get("lora_delta/" + v, 0)
+               for v in lm.VARIANTS}
+    print(f"phase 8: the wave's LoRA device ms {lora_ms:.2f} over "
+          f"{prof_launches['lora_delta']} launches (by kernel {lora_by})")
     print(f"phase 8: profiled arm B: device time {busy:.1f} ms of "
           f"{wall * 1e3:.1f} ms wall (idle share "
           f"{max(0.0, 1 - busy / (wall * 1e3)):.3f}); LoRA kernel "
@@ -2046,13 +2114,80 @@ def sparse_work(np, layout, block, causal, B, S, H, D, elem=2):
 
 
 def walk_text(plan):
-    """The wgmma pair's walks of a plan: owners a CTA, grouping, padding
+    """The wgmma kernels' walks of a plan: owners a CTA, grouping, padding
     factor (tile work over visited work), per kernel."""
     if plan.dq is None:
         return "no gathered walk at this block"
     return ", ".join(f"{n} {w.owners} owner{'s' if w.owners > 1 else ''} "
                      f"{w.grouping} padding {w.padding:.4f}"
-                     for n, w in (("dq", plan.dq), ("dk/dv", plan.dkv)))
+                     for n, w in (("fwd", plan.fwd), ("dq", plan.dq),
+                                  ("dk/dv", plan.dkv)) if w is not None)
+
+
+def fwd_walk_plans(torch, sf, kidx, block, plan):
+    """`plan` with its forward walk replaced by each grouping's (the
+    walks the forward kernel can take)."""
+    import dataclasses
+    out = []
+    for grp in sf.WALK_GROUPINGS:
+        w = sf.tile_walk(kidx, block, sf.GATHER_ROWS // block, grp,
+                         ragged=True)
+        dev = plan.fwd_device[0].device
+        out.append(dataclasses.replace(plan, fwd=w, fwd_device=(
+            torch.from_numpy(w.sched).to(dev),
+            torch.from_numpy(w.ents).to(dev))))
+    return out
+
+
+def check_sparse_forward(torch, sf, q, k, v, kidx, layout, idx, plan, block,
+                         causal, out, lse, ref, ref_lse, every_walk):
+    """The forward on the kernel `fwd_variant` names (given its output
+    `out`, `lse`): a rerun bit for bit; NaN written into the key and
+    value blocks no query block of a head visits changes no bit; on the
+    wgmma kernel, the mma.sync kernel's output within the forward
+    tolerance and (with `every_walk`) both groupings' walks within it of
+    the plain version, each rerun bit for bit.  Returns (max abs error
+    against the plain version and the mma.sync kernel, problems)."""
+    fwd = sf.block_sparse_flash_attention
+    D = q.shape[-1]
+    variant = sf.fwd_variant(q.dtype, D, block)
+    problems = []
+    again, lse2 = fwd(q, k, v, idx, block, causal, return_lse=True,
+                      plan=plan)
+    if not (torch.equal(out, again) and torch.equal(lse, lse2)):
+        problems.append("rerun differs")
+    unvisited = ~layout.any(1)                         # [h, key block]
+    if unvisited.any():
+        kn, vn = k.clone(), v.clone()
+        for h, kb in zip(*unvisited.nonzero()):
+            kn[:, kb * block:(kb + 1) * block, h] = float("nan")
+            vn[:, kb * block:(kb + 1) * block, h] = float("nan")
+        nan_out, nan_lse = fwd(q, kn, vn, idx, block, causal,
+                               return_lse=True, plan=plan)
+        if not (torch.equal(out, nan_out) and torch.equal(lse, nan_lse)):
+            problems.append("NaN in unvisited key/value blocks moved the "
+                            "output")
+        del kn, vn, nan_out, nan_lse
+    err = 0.0
+    if variant == "wgmma":
+        mma, mma_lse = fwd(q, k, v, idx, block, causal, return_lse=True,
+                           variant="mma")
+        err = max(max_err(out, mma), max_err(lse, mma_lse))
+        if not (kernel_close(out, mma)
+                and max_err(lse, mma_lse) <= LSE_ATOL):
+            problems.append(f"the mma.sync kernel differs by {err}")
+        for p in (fwd_walk_plans(torch, sf, kidx, block, plan)
+                  if every_walk else []):
+            got, glse = fwd(q, k, v, idx, block, causal, return_lse=True,
+                            plan=p)
+            got2, _ = fwd(q, k, v, idx, block, causal, return_lse=True,
+                          plan=p)
+            err = max(err, max_err(got, ref), max_err(glse, ref_lse))
+            if not (kernel_close(got, ref) and torch.equal(got, got2)
+                    and max_err(glse, ref_lse) <= LSE_ATOL):
+                problems.append(f"the {p.fwd.grouping} walk disagrees or "
+                                f"reruns differ")
+    return err, problems
 
 
 def sparse_check_one(torch, sa, sf, q, k, v, do, layout, block, causal,
@@ -2065,10 +2200,19 @@ def sparse_check_one(torch, sa, sf, q, k, v, do, layout, block, causal,
     B, S, H, D = q.shape
     kidx = sa._layout_to_gather(layout)
     idx, rev, plan = sa._device_tables(kidx, q.device, block)
+    fcount = dict(sf.block_sparse_flash_attention.launches_by_variant)
     out, lse = sf.block_sparse_flash_attention(q, k, v, idx, block, causal,
-                                               return_lse=True)
+                                               return_lse=True, plan=plan)
+    fran = {v_: n - fcount[v_] for v_, n in
+            sf.block_sparse_flash_attention.launches_by_variant.items()}
     ref, ref_lse = sf.block_sparse_flash_attention_reference(
         q, k, v, idx, block, causal)
+    fvariant = sf.fwd_variant(q.dtype, D, block)
+    if fran != {v_: int(v_ == fvariant) for v_ in sf.FWD_VARIANTS}:
+        fail(f"the block-sparse forward ran {fran}, want one {fvariant}")
+    fwd_err, fwd_problems = check_sparse_forward(
+        torch, sf, q, k, v, kidx, layout, idx, plan, block, causal, out,
+        lse, ref, ref_lse, every_walk)
     variant = sf.bwd_variant(q.dtype, D, block)
     counters = (sf.block_sparse_flash_dq, sf.block_sparse_flash_dkv)
     plans = [plan]
@@ -2083,8 +2227,16 @@ def sparse_check_one(torch, sa, sf, q, k, v, do, layout, block, causal,
     rtol, arel = (BWD_RTOL, BWD_ATOL_REL) if bf else (0.0, BWD_F32_REL)
     desc = (f"B={B} S={S} H={H} D={D} block={block} "
             f"{'causal' if causal else 'full'} {str(q.dtype)[6:]}")
-    errs = {"fwd": max(max_err(out, ref), max_err(lse, ref_lse)), "dq": 0.0,
-            "dkv": 0.0, "delta": 0.0}
+    errs = {"fwd": max(max_err(out, ref), max_err(lse, ref_lse), fwd_err),
+            "dq": 0.0, "dkv": 0.0, "delta": 0.0}
+    print(f"  sparse {desc}: forward on {fvariant}, max|dout| "
+          f"{max_err(out, ref):.3e}, max|dlse| {max_err(lse, ref_lse):.3e}"
+          + (f", against mma.sync and every walk {fwd_err:.3e}"
+             if fvariant == "wgmma" else "")
+          + f"; rerun equal, NaN in unvisited blocks ignored: "
+          f"{not fwd_problems}")
+    if fwd_problems:
+        fail(f"block-sparse forward at {desc}: {fwd_problems}")
     for p in plans:
         kw = {"plan": p, "variant": variant} if variant == "wgmma" else {}
         reset_counts(counters)
@@ -2204,6 +2356,8 @@ def check_sparse(torch, np, sa, sf, dev):
                  attention="unidirectional").make_layout(1024), 64, True),
              (2, 480, 2, 64, bf16, sa.BSLongformerSparsityConfig(
                  num_heads=2, block=16).make_layout(480), 16, False),
+             (1, 288, 2, 128, bf16, scattered_layout(np, 2, 9, 2), 32,
+              False),
              (2, 512, 2, 64, f32, bigbird.make_layout(512), 64, False),
              (2, 64, 2, 128, bf16, sa.BigBirdSparsityConfig(
                  num_heads=2, block=8).make_layout(64), 8, True),
@@ -2251,13 +2405,15 @@ def check_sparse(torch, np, sa, sf, dev):
     if variant == "wgmma":
         kw["delta"] = delta
     ms = {"fwd": time_ms(lambda: sf.block_sparse_flash_attention(
-              q, k, v, idx, block, False, return_lse=True)),
+              q, k, v, idx, block, False, return_lse=True, plan=plan)),
           "delta": time_ms(lambda: sf.block_sparse_flash_bwd_delta(out, do)),
           "dq": time_ms(lambda: sf.block_sparse_flash_dq(
               q, k, v, idx, out, do, lse, block, False, **kw)),
           "dkv": time_ms(lambda: sf.block_sparse_flash_dkv(
               q, k, v, idx, rev, out, do, lse, block, False, **kw))}
-    mma = {"dq": time_ms(lambda: sf.block_sparse_flash_dq(
+    mma = {"fwd": time_ms(lambda: sf.block_sparse_flash_attention(
+               q, k, v, idx, block, False, return_lse=True, variant="mma")),
+           "dq": time_ms(lambda: sf.block_sparse_flash_dq(
                q, k, v, idx, out, do, lse, block, False, variant="mma")),
            "dkv": time_ms(lambda: sf.block_sparse_flash_dkv(
                q, k, v, idx, rev, out, do, lse, block, False,
@@ -2287,7 +2443,9 @@ def check_sparse(torch, np, sa, sf, dev):
           f"{ms['dq']:.4f}, dk/dv {ms['dkv']:.4f} ms, together "
           f"{bwd:.4f} ms ({bwd / lib_bwd:.3f}x SDPA's backward "
           f"{lib_bwd:.4f} ms); the mma.sync pair here: dq {mma['dq']:.4f}, "
-          f"dk/dv {mma['dkv']:.4f} ms")
+          f"dk/dv {mma['dkv']:.4f} ms; forward on "
+          f"{sf.fwd_variant(q.dtype, D, block)} {ms['fwd']:.4f} ms, the "
+          f"mma.sync forward {mma['fwd']:.4f} ms")
     rows = []
     for kname, line in (("fwd", "sparse_flash.py:149"),
                         ("dq", "sparse_flash.py:299"),
@@ -2304,11 +2462,11 @@ def check_sparse(torch, np, sa, sf, dev):
                          + ("" if kname == "fwd" else
                             ": backward (fwd+bwd less fwd), dq, dk and dv "
                             "in one call")))
-        if kname != "fwd":
-            walk = plan.dq if kname == "dq" else plan.dkv
-            rows[-1].update(variant=variant, mma_sync_ms=mma[kname],
-                            owners=walk.owners, grouping=walk.grouping,
-                            padding=walk.padding)
+        walk = {"fwd": plan.fwd, "dq": plan.dq, "dkv": plan.dkv}[kname]
+        rows[-1].update(variant=sf.fwd_variant(q.dtype, D, block)
+                        if kname == "fwd" else variant,
+                        mma_sync_ms=mma[kname], owners=walk.owners,
+                        grouping=walk.grouping, padding=walk.padding)
         print(f"  sparse_{kname} at the main shape: {ms[kname]:.4f} ms "
               f"(bound {bms:.4f} ms, {by}), plain {plain[kname]:.4f} ms, "
               f"SDPA {rows[-1]['library_ms']:.4f} ms")
@@ -2379,7 +2537,7 @@ def sparse_path(torch, np, sa, sf, fa, counters, shape=SPARSE_SHAPE,
         q, k, v = (t.detach() for t in qkv)
         with torch.no_grad():
             out2, lse = sf.block_sparse_flash_attention(
-                q, k, v, idx, block, causal, return_lse=True)
+                q, k, v, idx, block, causal, return_lse=True, plan=plan)
             ref, ref_lse = sf.block_sparse_flash_attention_reference(
                 q, k, v, idx, block, causal)
             do = (2 * out2.float()).to(out2.dtype)   # d(sum out^2)/d out
@@ -2395,7 +2553,7 @@ def sparse_path(torch, np, sa, sf, fa, counters, shape=SPARSE_SHAPE,
         # every time of this phase is from CUDA events (`event_time_ms`)
         torch.cuda.empty_cache()
         fwd_ms = event_time_ms(lambda: sf.block_sparse_flash_attention(
-            q, k, v, idx, block, causal, return_lse=True))
+            q, k, v, idx, block, causal, return_lse=True, plan=plan))
         bwd_ms = event_time_ms(lambda: sf.block_sparse_flash_backward(
             q, k, v, idx, rev, out2, do, lse, block, causal, plan=plan))
         work = sparse_work(np, layout, block, causal, B, S, H, D)
@@ -2412,7 +2570,8 @@ def sparse_path(torch, np, sa, sf, fa, counters, shape=SPARSE_SHAPE,
                    variant=variant, walks=walk_text(plan), host_ms=host_ms,
                    max_abs_dout=max_err(out, ref), max_abs_dlse=el,
                    rel_grad_err={n: r[1] for n, r in res.items()},
-                   fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound[0],
+                   fwd_ms=fwd_ms, fwd_bwd_ms=fwd_ms + bwd_ms,
+                   fwd_bound_ms=fwd_bound[0],
                    fwd_bound_by=fwd_bound[1], bwd_ms=bwd_ms,
                    bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
                    sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd)
@@ -2433,8 +2592,10 @@ def sparse_path(torch, np, sa, sf, fa, counters, shape=SPARSE_SHAPE,
               f"max|dout| vs plain {row['max_abs_dout']:.3e}, max|dlse| "
               f"{el:.3e}; grads max|d| / max|plain| " + ", ".join(
                   f"{n} {r[1]:.3e}" for n, r in res.items())
-              + f"; CUDA-event times: forward {fwd_ms:.3f} ms (bound {fwd_bound[0]:.4f}, "
-              f"{fwd_bound[1]}), backward {bwd_ms:.3f} ms (bound "
+              + f"; CUDA-event times: forward ({variant}) {fwd_ms:.3f} ms "
+              f"(bound {fwd_bound[0]:.4f}, "
+              f"{fwd_bound[1]}), backward {bwd_ms:.3f} ms, together "
+              f"{fwd_ms + bwd_ms:.3f} ms (bound "
               f"{bwd_bound[0]:.4f}, {bwd_bound[1]}); SDPA with the dense "
               f"mask {sdpa_fwd:.3f} / {sdpa_bwd:.3f} ms" + (
                   f"; dense flash kernels {row['dense_flash_fwd_ms']:.3f} / "
@@ -2504,8 +2665,9 @@ def pair_gate(torch, np, sa, sf, shape, dev="cuda"):
     bf16 pair (the wgmma pair with its delta launch, the mma.sync pair
     computing delta inside), each backward's device time from a CUDA graph
     of 20 calls (`graph_time_ms`) in the same call, and their gradients
-    against each other; fails where the routed pair is more than PAIR_GATE
-    slower."""
+    against each other; the same for the forward kernel `fwd_variant`
+    routes to and the other (outputs within the forward tolerance of each
+    other); fails where a routed kernel is more than PAIR_GATE slower."""
     B, S, H, D = shape
     g = torch.Generator(device=dev).manual_seed(13)
     q, k, v, do = (torch.randn(B, S, H, D, generator=g, device=dev,
@@ -2524,6 +2686,18 @@ def pair_gate(torch, np, sa, sf, shape, dev="cuda"):
                 q, k, v, idx, rev, out, do, lse, block, causal, plan=plan,
                 variant=variant)
 
+        def fwd(variant):
+            return sf.block_sparse_flash_attention(
+                q, k, v, idx, block, causal, return_lse=True, plan=plan,
+                variant=variant)
+
+        fms = {p: graph_time_ms(lambda: fwd(p)) for p in (routed, other)}
+        outs = {p: fwd(p) for p in (routed, other)}
+        fwd_err = max(max_err(outs["wgmma"][0], outs["mma"][0]),
+                      max_err(outs["wgmma"][1], outs["mma"][1]))
+        fwd_ok = (kernel_close(outs["wgmma"][0], outs["mma"][0])
+                  and max_err(outs["wgmma"][1], outs["mma"][1]) <= LSE_ATOL)
+        del outs
         ms = {p: graph_time_ms(lambda: run(p)) for p in (routed, other)}
         grads = {p: run(p) for p in (routed, other)}
         rel = {n: bwd_close(a, b, BWD_RTOL, BWD_ATOL_REL)[1]
@@ -2534,6 +2708,10 @@ def pair_gate(torch, np, sa, sf, shape, dev="cuda"):
                    mean_visits=float(layout.sum(-1).mean()), routed=routed,
                    ms={p: float(t) for p, t in ms.items()},
                    ratio=float(ms[other] / ms[routed]),
+                   fwd_routed=sf.fwd_variant(q.dtype, D, block),
+                   fwd_ms={p: float(t) for p, t in fms.items()},
+                   fwd_ratio=float(fms[other] / fms[routed]),
+                   fwd_max_abs_wgmma_vs_mma=fwd_err,
                    walks=walk_text(plan), rel_wgmma_vs_mma=rel,
                    clock="cuda_graph")
         rows.append(row)
@@ -2544,7 +2722,20 @@ def pair_gate(torch, np, sa, sf, shape, dev="cuda"):
               f"+ dk/dv) {ms['wgmma']:.4f} ms, mma.sync (dq + dk/dv) "
               f"{ms['mma']:.4f} ms: routed {row['ratio']:.2f}x as fast; "
               f"grads max|wgmma - mma| / max|mma| " + ", ".join(
-                  f"{n} {r:.3e}" for n, r in rel.items()))
+                  f"{n} {r:.3e}" for n, r in rel.items())
+              + f"; forward wgmma {fms['wgmma']:.4f} ms, mma.sync "
+              f"{fms['mma']:.4f} ms: routed {row['fwd_ratio']:.2f}x as fast, "
+              f"max|wgmma - mma| {fwd_err:.3e}")
+        if row["fwd_routed"] != routed:
+            fail(f"forward gate at {name}: the forward routes to "
+                 f"{row['fwd_routed']}, the backward to {routed}")
+        if fms[routed] > PAIR_GATE * fms[other]:
+            fail(f"forward gate at {name}: the routed {routed} forward takes "
+                 f"{fms[routed]:.4f} ms, the {other} one {fms[other]:.4f} ms "
+                 f"(more than {PAIR_GATE}x): the forward's rule is wrong here")
+        if not fwd_ok:
+            fail(f"forward gate at {name}: the two forward kernels differ by "
+                 f"{fwd_err} (tol {TOL_TEXT}, lse {LSE_ATOL})")
         if ms[routed] > PAIR_GATE * ms[other]:
             fail(f"pair gate at {name}: the routed {routed} pair takes "
                  f"{ms[routed]:.4f} ms, the {other} pair {ms[other]:.4f} ms "

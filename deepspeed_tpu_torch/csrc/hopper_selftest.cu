@@ -12,8 +12,17 @@
 //     over four k16 steps (N 16, 32, 64 or 128), A and B loaded by TMA
 //     with the given swizzle, A from shared memory (K-major, or MN-major:
 //     the transposed operand of a [K, M] tile) or, at N 32-128, from
-//     registers, B K-major ([N, 64]) or MN-major ([64, N]).
+//     registers, B K-major ([N, 64]) or MN-major ([64, N]);
+//   dstt_selftest_bulk_rows: 1-D bulk copies (cp.async.bulk) of gathered
+//     byte ranges, one per row, into shared memory at a row pitch (the
+//     LoRA kernel's x rows), copied out;
+//   dstt_selftest_sparse_scores: one step of the block-sparse forward's
+//     score tile: Q's owned blocks and one step's gathered K blocks by
+//     TMA (a -1 entry loads zeros from past S), S = Q K^T by wgmma
+//     m64n64, then sparse_tile.cuh's owner mask, the 64 x 64 tile
+//     copied out (masked entries NEG_INF).
 #include "hopper_tile.cuh"
+#include "sparse_tile.cuh"
 
 namespace {
 
@@ -206,6 +215,109 @@ int tma_box(const void* src, void* dst, int rank, const long long* dims,
   return (int)cudaGetLastError();
 }
 
+
+// n <= 32 ranges of `bytes` bytes at src + rows[i] * src_pitch + col0 into
+// shared memory at i * dst_pitch (lane i copies range i), then to dst.
+__global__ void bulk_rows_kernel(const uint8_t* __restrict__ src,
+                                 uint8_t* __restrict__ dst,
+                                 const int* __restrict__ rows, int n,
+                                 long src_pitch, int col0, int bytes,
+                                 int dst_pitch) {
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    hp::mbar_init(&bar, 32);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    if (lane == 0) hp::mbar_expect_tx_only(&bar, (uint32_t)(n * bytes));
+    __syncwarp();
+    if (lane < n)
+      hp::bulk_load(smem_raw + lane * dst_pitch,
+                    src + rows[lane] * src_pitch + col0, bytes, &bar);
+    hp::mbar_arrive(&bar);
+  }
+  hp::mbar_wait(&bar, 0);
+  for (int i = threadIdx.x; i < n * dst_pitch; i += blockDim.x)
+    dst[i] = smem_raw[i];
+}
+
+// One step of the forward's score tile at D 64: q, k [1, S, 1, 64] bf16,
+// owned query blocks o0..o3 (the first 64 / BLK; -1 loads zeros), the
+// step's 64 / BLK entries `ents`; out [64, 64] f32.
+template <int BLK>
+__global__ void __launch_bounds__(160)
+sparse_scores_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const int* __restrict__ ents, int4 own,
+                     float* __restrict__ out, int S, int causal,
+                     float scale_log2) {
+  constexpr int G = 64 / BLK;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* Qs = hp::align1024(smem_raw);
+  uint8_t* Ks = Qs + 64 * 64 * 2;
+  __shared__ __align__(8) uint64_t bar;
+  const int tid = threadIdx.x;
+  const int owners[4] = {own.x, own.y, own.z, own.w};
+  if (tid == 0) {
+    hp::mbar_init(&bar, 1);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 128) {
+    hp::mbar_expect_tx(&bar, 2 * 64 * 64 * 2);
+    for (int r = 0; r < G; ++r)
+      hp::tma_load_4d(Qs + r * BLK * 128, &qmap, &bar, 0, 0,
+                      owners[r] >= 0 ? owners[r] * BLK : S, 0);
+    dstt::sparse::gather_boxes<64, BLK>(Ks, &kmap, &bar, ents, 0, 0, S);
+  }
+  if (tid >= 128) return;
+  hp::mbar_wait(&bar, 0);
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  int obit[2], qpos[2], ent[G];
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * warp + g + 8 * hh;
+    obit[hh] = r / BLK;
+    qpos[hh] = owners[r / BLK] * BLK + r % BLK;
+  }
+  for (int i = 0; i < G; ++i) ent[i] = ents[i];
+  float sc[32];
+  hp::wgmma_fence();
+  hp::issue_abt<64, 64>(sc, Qs, 64, Ks);
+  hp::wgmma_commit();
+  hp::wgmma_wait<0>();
+  hp::fence_regs(sc);
+  dstt::sparse::mask_scores<BLK>(sc, ent, obit, qpos, t, causal,
+                                 scale_log2);
+  for (int i = 0; i < 32; ++i)
+    out[(16 * warp + g + 8 * ((i >> 1) & 1)) * 64 + hp::acc_col(i, t)] =
+        sc[i];
+}
+
+template <int BLK>
+int launch_scores(const void* q, const void* k, const void* ents, int4 own,
+                  void* out, int S, int causal, float scale_log2,
+                  cudaStream_t st) {
+  CUtensorMap qmap, kmap;
+  const uint64_t dims[4] = {64, 1, (uint64_t)S, 1};
+  const uint64_t strides[3] = {128, 128, (uint64_t)S * 128};
+  const uint32_t box[4] = {64, 1, BLK, 1};
+  int rc = hp::make_map_bf16(&qmap, q, 4, dims, strides, box, hp::SW128);
+  if (!rc) rc = hp::make_map_bf16(&kmap, k, 4, dims, strides, box, hp::SW128);
+  if (rc) return rc;
+  const int smem = 1024 + 2 * 64 * 64 * 2;
+  cudaError_t e = cudaFuncSetAttribute(
+      sparse_scores_kernel<BLK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  sparse_scores_kernel<BLK><<<1, 160, smem, st>>>(
+      qmap, kmap, static_cast<const int*>(ents), own,
+      static_cast<float*>(out), S, causal, scale_log2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // One TMA box of a contiguous tensor (see tma_box), bf16 and f32.
@@ -238,4 +350,45 @@ extern "C" int dstt_selftest_wgmma(const void* a, const void* b, void* out,
     return (int)cudaErrorInvalidValue;
   return b_mn ? wgmma_by_n<1>(N, a, b, out, swizzle, a_mode, st)
               : wgmma_by_n<0>(N, a, b, out, swizzle, a_mode, st);
+}
+
+// n <= 32 gathered byte ranges (see bulk_rows_kernel): rows [n] int32 on
+// the card; src_pitch, col0, bytes and dst_pitch multiples of 16; dst
+// gets n * dst_pitch bytes.
+extern "C" int dstt_selftest_bulk_rows(const void* src, void* dst,
+                                       const void* rows, int n,
+                                       long long src_pitch, int col0,
+                                       int bytes, int dst_pitch,
+                                       void* stream) {
+  if (n < 1 || n > 32 || bytes < 16 || bytes % 16 || col0 % 16 ||
+      src_pitch % 16 || dst_pitch % 16 || dst_pitch < bytes)
+    return (int)cudaErrorInvalidValue;
+  const int smem = n * dst_pitch;
+  cudaError_t e = cudaFuncSetAttribute(
+      bulk_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  bulk_rows_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst),
+      static_cast<const int*>(rows), n, (long)src_pitch, col0, bytes,
+      dst_pitch);
+  return (int)cudaGetLastError();
+}
+
+// One step of the block-sparse forward's masked score tile at D 64 (see
+// sparse_scores_kernel): block 16, 32 or 64; owned o0..o3.
+extern "C" int dstt_selftest_sparse_scores(const void* q, const void* k,
+                                           const void* ents, int o0, int o1,
+                                           int o2, int o3, void* out, int S,
+                                           int block, int causal,
+                                           float scale_log2, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int4 own = make_int4(o0, o1, o2, o3);
+  if (S <= 0 || S % block) return (int)cudaErrorInvalidValue;
+  if (block == 16)
+    return launch_scores<16>(q, k, ents, own, out, S, causal, scale_log2, st);
+  if (block == 32)
+    return launch_scores<32>(q, k, ents, own, out, S, causal, scale_log2, st);
+  if (block == 64)
+    return launch_scores<64>(q, k, ents, own, out, S, causal, scale_log2, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,13 @@
 // Hopper building blocks shared by the port's TMA + wgmma kernels
-// (tile_matmul.cu, flash_fwd.cu, flash_bwd.cu, evoformer_flash.cu;
+// (tile_matmul.cu, flash_fwd.cu, flash_bwd.cu, evoformer_flash.cu,
+// sparse_flash.cu, paged_*.cu, and lora_delta.cu's bulk copies;
 // hopper_selftest.cu checks each alone).
 //
+//   * 1-D bulk copies (cp.async.bulk, no tensor map) completing on an
+//     mbarrier, and an expect_tx that does not arrive (a warp announces
+//     the bytes, then each lane issues its copies and arrives); a load
+//     with acquire semantics at device scope (a counter other CTAs
+//     release into).
 //   * Tensor maps (TMA descriptors), encoded on the host with the CUDA driver's
 //     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so
 //     that the libraries link no libcuda; a kernel takes a map as a
@@ -200,6 +206,41 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A 1-D bulk copy (cp.async.bulk, no tensor map) of `bytes` from global
+// memory to shared memory, completing its bytes on `bar`: both addresses
+// 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Expect `bytes` more of transactions on `bar` without arriving (a
+// producer warp announces the bytes, then its lanes issue the copies and
+// arrive).
+__device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// A load with acquire semantics at device scope (the reader's side of a
+// counter that other CTAs release into).
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
 // Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, a

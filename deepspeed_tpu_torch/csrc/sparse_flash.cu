@@ -77,8 +77,21 @@
 // CTAs with the longest lists start first.  Every output element is
 // summed in one CTA in list order and written once: reruns are bitwise
 // equal.
+//
+// The bf16 forward at the same D and blocks has its own TMA + wgmma
+// kernel, `sparse_fwd_wgmma`, in flash_fwd_wgmma's orientation over the
+// gathered walk of the gather table: a CTA owns 64 query rows (R = 64 /
+// block query blocks, grouped adjacent or by sorted list, whichever
+// walk takes fewer steps; the last group of a head may be ragged) on
+// the M side and gathers G = 64 / block visited key blocks a step on
+// the N side (one TMA box each, into a 2-3 slot ring), so at block 16 a
+// step is a 64 x 64 x D product instead of 16 x 16 x D.  The owner mask
+// of each entry (sparse_tile.cuh) sets the rows whose owner does not
+// visit that key block to NEG_INF; the online softmax stays row-wise in
+// registers and P V takes P from registers.
 #include "attn_tile.cuh"
 #include "hopper_tile.cuh"
+#include "sparse_tile.cuh"
 
 namespace {
 
@@ -955,6 +968,200 @@ sparse_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
   write_rows<D, BLK, N, T::LDO>(dv + head, stride, own, out_v, tid);
 }
 
+// The forward on TMA + wgmma over the gathered walk of the gather table
+// (flash_fwd_wgmma's orientation): the CTA owns R = 64 / BLK query blocks
+// (Q loaded once, 64 rows: the M side) and gathers G = 64 / BLK key
+// blocks a step (the N side): S = Q K_g^T (m64n64, K = D), owner-masked
+// (sparse_tile.cuh), the online softmax row-wise in registers (quad
+// shuffles), P rounded to bf16 as the A fragments of O += P V_g (V the
+// MN-major B: the transpose bit).  S_{j+1} is issued before P_j V_j runs,
+// so one step's softmax overlaps the other's product.  Rows whose owner
+// visits no block of a step take P = 0 there; a row that sees no key at
+// all gives out 0 and lse = NEG_INF + log(1e-30), as the mma.sync kernel.
+template <int D>
+__host__ __device__ constexpr int fwd_stages() {
+  return D == 64 ? 3 : 2;
+}
+
+template <int D>
+__host__ __device__ constexpr int fwd_ctas() {
+  return D == 64 ? 3 : 2;
+}
+
+template <int D, int BLK>
+__global__ void __launch_bounds__(G_THREADS, fwd_ctas<D>())
+sparse_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 bf16* __restrict__ o, float* __restrict__ lse,
+                 const int4* __restrict__ sched, const int* __restrict__ ents,
+                 int S, int H, int B, int causal, float scale_log2) {
+  using T = hp::RowTile<D>;
+  constexpr int G = GROWS / BLK, R = GROWS / BLK, STAGES = fwd_stages<D>();
+  constexpr int TILE = GROWS * D * 2;
+  extern __shared__ __align__(1024) uint8_t smem_tma[];
+  uint8_t* Qs = hp::align1024(smem_tma);
+  uint8_t* ring = Qs + TILE;   // slot s: the K tile, then the V tile
+  __shared__ __align__(8) uint64_t q_full, full[STAGES], empty[STAGES];
+  const int4 job = sched[2 * (blockIdx.x / B)];
+  const int4 own = sched[2 * (blockIdx.x / B) + 1];
+  const int b = blockIdx.x % B, h = job.x, n_steps = job.y;
+  const int* list = ents + job.z;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hp::mbar_init(&q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 4);   // one arrival per consumer warp
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= G_CONSUMERS) {   // producer: TMA from one lane
+    if (tid == G_CONSUMERS) {
+      hp::mbar_expect_tx(&q_full, TILE);
+      for (int r = 0; r < R; ++r) {
+        const int qb = owned(own, r);
+        for (int c = 0; c < T::NCH; ++c)
+          hp::tma_load_4d(Qs + c * GROWS * T::RB + r * BLK * T::RB, &qmap,
+                          &q_full, c * T::CH, h, qb >= 0 ? qb * BLK : S, b);
+      }
+      for (int j = 0; j < n_steps; ++j) {
+        const int s = j % STAGES;
+        hp::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        uint8_t* Ks = ring + s * 2 * TILE;
+        hp::mbar_expect_tx(&full[s], 2 * TILE);
+        dstt::sparse::gather_boxes<D, BLK>(Ks, &kmap, &full[s],
+                                           list + j * G, h, b, S);
+        dstt::sparse::gather_boxes<D, BLK>(Ks + TILE, &vmap, &full[s],
+                                           list + j * G, h, b, S);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // this thread's rows 16 warp + g (+ 8): their owner and query position
+  int obit[2], qpos[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * warp + g + 8 * hh;
+    obit[hh] = r / BLK;
+    qpos[hh] = owned(own, r / BLK) * BLK + r % BLK;
+  }
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float sc[32];
+  uint32_t pa[4][4];
+  float m[2] = {NEG_INF, NEG_INF};   // running max, log2 units
+  float l[2] = {0.f, 0.f};           // this lane's partial row sums
+  float alpha[2] = {1.f, 1.f};
+
+  // mask and online softmax of step j's S tile: new row max m, alpha =
+  // 2^(m_old - m_new) for O and l, P = 2^(s - m) into sc (0 where masked)
+  auto softmax = [&](int j) {
+    int ent[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) ent[i] = list[j * G + i];
+    dstt::sparse::mask_scores<BLK>(sc, ent, obit, qpos, t, causal,
+                                   scale_log2);
+    float tmax[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], sc[i]);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      tmax[hh] = fmaxf(tmax[hh], __shfl_xor_sync(0xffffffffu, tmax[hh], 1));
+      tmax[hh] = fmaxf(tmax[hh], __shfl_xor_sync(0xffffffffu, tmax[hh], 2));
+      const float m_new = fmaxf(m[hh], tmax[hh]);
+      alpha[hh] = hp::ex2(m[hh] - m_new);   // 1 while the row saw no key
+      m[hh] = m_new;
+      l[hh] *= alpha[hh];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      sc[i] = sc[i] > NEG_INF * 0.5f ? hp::ex2(sc[i] - m[hh]) : 0.f;
+      l[hh] += sc[i];
+    }
+  };
+  auto rescale = [&]() {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      oacc[4 * n] *= alpha[0];
+      oacc[4 * n + 1] *= alpha[0];
+      oacc[4 * n + 2] *= alpha[1];
+      oacc[4 * n + 3] *= alpha[1];
+    }
+    hp::fence_regs(oacc);
+  };
+
+  hp::mbar_wait(&q_full, 0);
+  if (n_steps > 0) {
+    hp::mbar_wait(&full[0], 0);
+    hp::wgmma_fence();
+    hp::issue_abt<D, GROWS>(sc, Qs, GROWS, ring);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(sc);
+    softmax(0);
+    hp::pack_frags(pa, sc);
+  }
+  // step j: S_j = Q K_j^T and O = alpha_{j-1} O + P_{j-1} V_{j-1} are
+  // issued together; the softmax of S_j runs while P_{j-1} V_{j-1} holds
+  // the tensor cores
+  for (int j = 1; j < n_steps; ++j) {
+    const int s = j % STAGES, sp = (j - 1) % STAGES;
+    hp::mbar_wait(&full[s], (j / STAGES) & 1);
+    hp::wgmma_fence();
+    hp::issue_abt<D, GROWS>(sc, Qs, GROWS, ring + s * 2 * TILE);
+    hp::wgmma_commit();
+    rescale();
+    hp::wgmma_fence();
+    hp::issue_rs<D>(oacc, pa, ring + sp * 2 * TILE + TILE);
+    hp::wgmma_commit();
+    hp::wgmma_wait<1>();   // S_j is done (groups end in order)
+    hp::fence_regs(sc);
+    softmax(j);
+    hp::wgmma_wait<0>();   // P_{j-1} V_{j-1} is done
+    hp::fence_regs(oacc);
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(&empty[sp]);
+    hp::pack_frags(pa, sc);
+  }
+  if (n_steps > 0) {   // the last step's P V
+    rescale();
+    hp::wgmma_fence();
+    hp::issue_rs<D>(oacc, pa,
+                    ring + (n_steps - 1) % STAGES * 2 * TILE + TILE);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(oacc);
+  }
+
+  const long stride = (long)H * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    if (owned(own, obit[hh]) < 0) continue;   // a ragged group's gap
+    const float lsafe = fmaxf(l[hh], 1e-30f);   // no key seen: out 0
+    const float inv = 1.f / lsafe;
+    bf16* orow = o + (long)b * S * stride + (long)qpos[hh] * stride +
+                 (long)h * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(oacc[4 * n + 2 * hh] * inv,
+                                oacc[4 * n + 2 * hh + 1] * inv);
+    if (t == 0)
+      lse[((long)b * H + h) * S + qpos[hh]] =
+          (m[hh] > NEG_INF * 0.5f ? m[hh] / LOG2E : NEG_INF) + logf(lsafe);
+  }
+}
+
 // ---------------------------------------------------------------------
 // f32 on the CUDA cores: one warp per row, F32_WARPS rows a CTA
 // ---------------------------------------------------------------------
@@ -1340,6 +1547,38 @@ int walk(int D, int block, int R, const WalkArgs& a, bool dkv,
   return (int)cudaErrorInvalidValue;
 }
 
+struct FwdArgs {
+  const void *q, *k, *v, *sched, *ents;
+  void *o, *lse;
+  int n_ctas, B, S, H, causal;
+  float scale;
+};
+
+template <int D, int BLK>
+int launch_fwd_walk(const FwdArgs& a, cudaStream_t st) {
+  CUtensorMap qm, km, vm;
+  int rc = walk_map<D, BLK>(&qm, a.q, a.B, a.S, a.H);
+  if (!rc) rc = walk_map<D, BLK>(&km, a.k, a.B, a.S, a.H);
+  if (!rc) rc = walk_map<D, BLK>(&vm, a.v, a.B, a.S, a.H);
+  if (rc) return rc;
+  constexpr int smem = 1024 + GROWS * D * 2 * (1 + 2 * fwd_stages<D>());
+  int err = set_smem(sparse_fwd_wgmma<D, BLK>, smem);
+  if (err) return err;
+  sparse_fwd_wgmma<D, BLK><<<(unsigned)a.n_ctas * a.B, G_THREADS, smem,
+                             st>>>(
+      qm, km, vm, (bf16*)a.o, (float*)a.lse, (const int4*)a.sched,
+      (const int*)a.ents, a.S, a.H, a.B, a.causal, a.scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int fwd_walk_by_block(int block, const FwdArgs& a, cudaStream_t st) {
+  if (block == 16) return launch_fwd_walk<D, 16>(a, st);
+  if (block == 32) return launch_fwd_walk<D, 32>(a, st);
+  if (block == 64) return launch_fwd_walk<D, 64>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int D>
 int launch_delta(const void* o, const void* dout, void* delta, int B, int S,
                  int H, cudaStream_t st) {
@@ -1438,4 +1677,26 @@ extern "C" int dstt_sparse_dkv_wgmma(const void* q, const void* k,
   const WalkArgs a{q,   k,   v,      lse, dout, delta, sched,  ents,
                    dko, dvo, n_ctas, B,   S,    H,     causal, scale};
   return walk(D, block, R, a, true, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 TMA + wgmma forward over the gathered walk of the gather table
+// (sched [n_ctas] two int4 and its lists `ents`, 64 / block owned query
+// blocks a CTA, -1 for a ragged group's gap): D 64 or 128, block 16, 32
+// or 64.  Returns cudaGetLastError() after its launch
+// (cudaErrorInvalidValue for what it does not take).
+extern "C" int dstt_sparse_fwd_wgmma(const void* q, const void* k,
+                                     const void* v, void* o, void* lse,
+                                     const void* sched, const void* ents,
+                                     int n_ctas, int B, int S, int H, int D,
+                                     int block, int causal, float scale,
+                                     void* stream) {
+  if (B <= 0 || H <= 0 || n_ctas <= 0 || S <= 0 || block <= 0 ||
+      S % block)
+    return (int)cudaErrorInvalidValue;
+  const FwdArgs a{q, k, v, sched, ents, o, lse, n_ctas, B, S, H, causal,
+                  scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return fwd_walk_by_block<64>(block, a, st);
+  if (D == 128) return fwd_walk_by_block<128>(block, a, st);
+  return (int)cudaErrorInvalidValue;
 }

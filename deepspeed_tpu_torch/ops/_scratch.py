@@ -7,7 +7,10 @@ ticket merges and sets the ticket back to 0.  Both buffers are cached per
 (kernel, device, stream) here and grown when a call needs more, so no
 call allocates them: the tickets start zeroed and the kernels leave them
 zeroed; the workspace holds nothing between calls.  Calls on one stream
-run in order, so they may share a buffer.
+run in order, so they may share a buffer.  The fused LoRA kernel keeps
+its partial sums and its work and tile counters here too (two counter
+regions, used by turns, each zeroed by the call after the one that used
+it).
 """
 from __future__ import annotations
 

@@ -17,6 +17,18 @@ reference's jnp escape: a per-row gather of the factors, two f32 einsums,
 then the mask.  `lora_delta` runs the plain version for tensors on the
 CPU and the kernel for tensors on a CUDA device.
 
+Two kernels compute it, named by `variant` (`lora_delta
+.launches_by_variant` counts each):
+- "fused" (every call by default): one launch whose persistent CTAs take
+  work items from one counter, first each adapter tile's K spans
+  (partial h), then each tile's N spans (`work_items` lists them in the
+  kernel's order), fed by 1-D bulk copies; an expand item waits for its
+  tile's partials and sums them in span order;
+- "two_pass": the first port's shrink and expand launches, kept so that
+  the two can be timed side by side.
+Both keep their scratch (partials, counters) in `_scratch`'s cached
+buffers, so no call allocates but its output.
+
 The ids are host data (the engine plans each serving call on the host).
 The kernel groups the rows by slot; a `LoraRows` builds that grouping
 once and copies it to the card in one transfer, so a serving call makes
@@ -25,19 +37,32 @@ one for all its layers and passes it as `adapter_ids`.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _scratch
 
 __all__ = ["lora_delta", "lora_delta_reference", "lora_delta_supported",
-           "pad_lora_rank", "LoraRows", "MAX_RANK"]
+           "pad_lora_rank", "work_items", "LoraRows", "MAX_RANK",
+           "VARIANTS"]
 
-# the kernel's largest rank (four columns of r per lane of a warp)
+# the kernels' largest rank
 MAX_RANK = 128
+# rows a tile (one slot's rows, at most this many), the fused kernel's
+# span (K rows of a shrink item, N columns of an expand item) and the
+# two-pass kernel's K rows a shrink CTA (its partials' slabs): the
+# kernels refuse a call whose view of these differs from their own
+TILE_ROWS = 16
+SPAN = 256
+TWO_PASS_K_SPAN = 512
+# resident CTAs an SM the fused kernel asks for (its launch bound)
+FUSED_CTAS_PER_SM = 2
+VARIANTS = ("fused", "two_pass")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)
+_FUSED_ARGS = (_P,) * 7 + (_I,) * 10 + (_F, _I, _I, _P)
+_TWO_PASS_ARGS = (_P,) * 6 + (_I,) * 7 + (_F, _I, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -58,6 +83,18 @@ def lora_delta_supported(S: int, K: int, N: int, num_slots: int) -> bool:
     return S >= 1 and K >= 1 and N >= 1 and num_slots >= 1
 
 
+def work_items(n_tiles: int, n_base: int, K: int, N: int):
+    """The fused kernel's work items in the order its counter hands them
+    out: ("shrink", tile, K span) of every adapter tile (tiles n_base ..
+    n_tiles - 1, the base tiles first in the plan), tile-major, then
+    ("expand", tile, N span) of every tile; spans of SPAN rows or
+    columns."""
+    ks, ns = -(-K // SPAN), -(-N // SPAN)
+    return ([("shrink", t, k) for t in range(n_base, n_tiles)
+             for k in range(ks)]
+            + [("expand", t, n) for t in range(n_tiles) for n in range(ns)])
+
+
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
@@ -69,8 +106,8 @@ class LoraRows:
     first use for the kernel, the rows grouped by slot in one int32 buffer
     on the card: `perm` [S] (sorted position -> row; rows sorted by slot,
     stably) then `tiles` [T, 3] (slot, first sorted position, rows), at
-    most the kernel's tile height of rows a tile; slot -1 tiles hold the
-    base rows.  A serving call builds one and passes it to every layer's
+    most TILE_ROWS rows a tile; slot -1 tiles hold the base rows and come
+    first.  A serving call builds one and passes it to every layer's
     `lora_delta`, so the grouping and its copy happen once a call."""
 
     @classmethod
@@ -97,21 +134,35 @@ class LoraRows:
                 device)
         return self._ids_t
 
+    def tiles(self):
+        """(perm [S], tiles [T, 3] int32, base tiles): the grouping by
+        slot, base rows (slot -1) sorting first."""
+        key = np.where(self.ids < 0, -1, self.ids)
+        perm = np.argsort(key, kind="stable").astype(np.int32)
+        sid = key[perm]
+        starts = np.flatnonzero(np.r_[True, sid[1:] != sid[:-1]])
+        ends = np.r_[starts[1:], self.S]
+        tiles = np.asarray(
+            [(int(sid[s]), p, min(TILE_ROWS, e - p))
+             for s, e in zip(starts, ends) for p in range(s, e, TILE_ROWS)],
+            np.int32).reshape(-1, 3)
+        return perm, tiles, int((tiles[:, 0] < 0).sum())
+
     def kernel_plan(self, device):
-        """(plan buffer on `device`, number of tiles), built once."""
+        """(plan buffer on `device`, number of tiles, base tiles), built
+        once: `perm`, `tiles`, then the fused kernel's tile records
+        [T, 4 + TILE_ROWS] (slot, first sorted position, rows, 0, the
+        rows' perm entries), which its producer warp reads in one go."""
         device = torch.device(device)
         if self._plan is None or self._plan[0].device != device:
-            tr = _build.function("lora_delta", "dstt_lora_delta_tile_rows",
-                                 ())()
-            key = np.where(self.ids < 0, -1, self.ids)
-            perm = np.argsort(key, kind="stable").astype(np.int32)
-            sid = key[perm]
-            starts = np.flatnonzero(np.r_[True, sid[1:] != sid[:-1]])
-            ends = np.r_[starts[1:], self.S]
-            tiles = [(int(sid[s]), p, min(tr, e - p))
-                     for s, e in zip(starts, ends) for p in range(s, e, tr)]
-            buf = np.concatenate([perm, np.asarray(tiles, np.int32).ravel()])
-            self._plan = (torch.from_numpy(buf).to(device), len(tiles))
+            perm, tiles, n_base = self.tiles()
+            recs = np.zeros((len(tiles), 4 + TILE_ROWS), np.int32)
+            recs[:, :3] = tiles
+            for t, (_, p0, rows) in enumerate(tiles.tolist()):
+                recs[t, 4:4 + rows] = perm[p0:p0 + rows]
+            buf = np.concatenate([perm, tiles.ravel(), recs.ravel()])
+            self._plan = (torch.from_numpy(buf).to(device), len(tiles),
+                          n_base)
         return self._plan
 
 
@@ -154,12 +205,14 @@ def _check(x, lora_a, lora_b, rows):
             raise ValueError(f"{name} must be contiguous")
 
 
-def lora_delta(x, lora_a, lora_b, adapter_ids, *, scaling: float = 1.0):
+def lora_delta(x, lora_a, lora_b, adapter_ids, *, scaling: float = 1.0,
+               variant: Optional[str] = None):
     """Per-row low-rank delta, f32 [S, N] (see module docstring).
 
     x: [S, K] batch rows; lora_a: [num_slots, K, r]; lora_b: [num_slots,
     r, N]; adapter_ids: [S] slot per row (< 0 = base row, delta exactly
-    0.0) as host data, or a `LoraRows` of them."""
+    0.0) as host data, or a `LoraRows` of them; `variant` one of VARIANTS
+    (default "fused")."""
     S, K = x.shape
     A, Ka, r = lora_a.shape
     Ab, rb, N = lora_b.shape
@@ -172,24 +225,54 @@ def lora_delta(x, lora_a, lora_b, adapter_ids, *, scaling: float = 1.0):
         return lora_delta_reference(x, lora_a, lora_b, adapter_ids, scaling)
     if x.device.type != "cuda":
         raise ValueError(f"no LoRA kernel for device {x.device}")
+    variant = "fused" if variant is None else variant
+    if variant not in VARIANTS:
+        raise ValueError(f"LoRA variant {variant!r} (one of {VARIANTS})")
     rows = LoraRows.of(adapter_ids)
     _check(x, lora_a, lora_b, rows)
     out = torch.empty(S, N, dtype=torch.float32, device=x.device)
     if S == 0:
         return out
-    plan, n_tiles = rows.kernel_plan(x.device)
-    k_span = _build.function("lora_delta", "dstt_lora_delta_k_span", ())()
-    # the shrink pass's partial sums, one [S, r] slab per K span
-    hp = torch.empty(-(-K // k_span) * S * r, dtype=torch.float32,
-                     device=x.device)
-    fn = _build.function("lora_delta", "dstt_lora_delta", _ARGS)
-    rc = fn(x.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr(),
-            plan.data_ptr(), hp.data_ptr(), out.data_ptr(), S, K, N, r,
-            n_tiles, float(scaling), _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "LoRA delta")
+    plan, n_tiles, n_base = rows.kernel_plan(x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if variant == "fused":
+        # each adapter tile's partial h [TILE_ROWS, r] per K span, and two
+        # regions of counters (work, one a tile): a call uses the region
+        # of its parity on the stream, found zero, and zeroes the other
+        hp = _scratch.buffer("lora_hp", x.device, stream, max(
+            (n_tiles - n_base) * -(-K // SPAN) * TILE_ROWS * r, 1),
+            torch.float32)
+        ctr = _scratch.buffer("lora_ctr", x.device, stream,
+                              2 * (1 + n_tiles), torch.int32)
+        # (a new buffer is all zero: either parity may start on it)
+        calls = _fused_calls.get(ctr.data_ptr(), 0)
+        _fused_calls[ctr.data_ptr()] = calls + 1
+        fn = _build.function("lora_delta", "dstt_lora_delta", _FUSED_ARGS)
+        rc = fn(x.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr(),
+                plan.data_ptr(), hp.data_ptr(), ctr.data_ptr(),
+                out.data_ptr(), S, K, N, r, n_tiles, n_base, TILE_ROWS, SPAN,
+                ctr.numel() // 2, calls & 1, float(scaling),
+                _DTYPES[x.dtype],
+                FUSED_CTAS_PER_SM * _scratch.sm_count(x.device), stream)
+    else:
+        # the shrink pass's partial sums, one [S, r] slab per K span
+        hp = _scratch.buffer("lora_hp_two_pass", x.device, stream,
+                             -(-K // TWO_PASS_K_SPAN) * S * r, torch.float32)
+        fn = _build.function("lora_delta", "dstt_lora_delta_two_pass",
+                             _TWO_PASS_ARGS)
+        rc = fn(x.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr(),
+                plan.data_ptr(), hp.data_ptr(), out.data_ptr(), S, K, N, r,
+                n_tiles, TILE_ROWS, TWO_PASS_K_SPAN, float(scaling),
+                _DTYPES[x.dtype], stream)
+    _build.check(rc, f"LoRA delta ({variant})")
     lora_delta.launches += 1
+    lora_delta.launches_by_variant[variant] += 1
     return out
 
 
+# fused calls made on each counter buffer, by its address (their parity
+# picks the region a call uses)
+_fused_calls: Dict[int, int] = {}
 lora_delta.launches = 0
+# launches per kernel (VARIANTS), reset with `launches`
+lora_delta.launches_by_variant = dict.fromkeys(VARIANTS, 0)

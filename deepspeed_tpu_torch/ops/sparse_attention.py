@@ -23,8 +23,8 @@ gradient.
 
 `SparseSelfAttention` caches, per sequence length, the layout and, per
 device, the gather table and its reverse as int32 tensors with the
-backward's plan (`sparse_flash.bwd_plan`: the kernel pair's rule input
-and the gathered tile walks): the JAX backward rebuilds the tables in
+kernels' plan (`sparse_flash.bwd_plan`: the gathered tile walks of the
+forward, dq and dk/dv): the JAX backward rebuilds the tables in
 Python loops on every call (~275k iterations at H 16, nb 256, A 67),
 which would keep the card waiting on the host.
 """
@@ -318,8 +318,8 @@ def _use_sparse_kernel(impl: str, device) -> bool:
 
 class _SparseFlash(torch.autograd.Function):
     """The kernel path: the forward kernel keeps out and lse; the backward
-    is the dq and dk/dv kernels over the table and its reverse, on the
-    pair the cached plan's rule names."""
+    is the dq and dk/dv kernels over the table and its reverse; both on
+    the kernels their rules name, over the cached plan's walks."""
 
     @staticmethod
     def forward(ctx, q, k, v, tables, block, causal, scale):
@@ -328,7 +328,8 @@ class _SparseFlash(torch.autograd.Function):
         # fused projection are not
         q, k, v = (t.contiguous() for t in (q, k, v))
         out, lse = sparse_flash.block_sparse_flash_attention(
-            q, k, v, idx, block, causal=causal, scale=scale, return_lse=True)
+            q, k, v, idx, block, causal=causal, scale=scale, return_lse=True,
+            plan=plan)
         ctx.save_for_backward(q, k, v, out, lse, idx, rev)
         ctx.block, ctx.causal, ctx.scale = block, causal, scale
         ctx.plan = plan
@@ -345,8 +346,8 @@ class _SparseFlash(torch.autograd.Function):
 
 class DeviceTables(NamedTuple):
     """A layout's gather table and its reverse as int32 tensors on one
-    device, and the backward's plan at one block (its walks' tensors on
-    the same device)."""
+    device, and the kernels' plan at one block (the forward's and the
+    backward's walks, their tensors on the same device)."""
     idx: torch.Tensor
     rev: torch.Tensor
     plan: "sparse_flash.BwdPlan"

@@ -15,6 +15,18 @@ Counterpart of `deepspeed_tpu/ops/sparse_flash.py`
   (`reverse_gather`), summed in f32 and written once, no atomics.
 `block_sparse_flash_backward` runs the two backward kernels.
 
+The forward has two bf16 kernels, and `fwd_variant` names the one a call
+takes ("wgmma", "mma", or "f32" for float32; the same rule as the
+backward's); `block_sparse_flash_attention.launches_by_variant` counts
+its launches per kernel:
+
+- "wgmma" (D 64 and 128, block 16, 32, 64): TMA + wgmma over the gathered
+  walk of the gather table (`fwd_walk`): a CTA owns 64 query rows (64 /
+  block query blocks, the M side) and gathers 64 / block of the key
+  blocks their lists hold a step (the N side), each entry's owner mask
+  hiding the blocks an owner does not visit;
+- "mma": one CTA per q-block through mma.sync (every other D and block).
+
 The backward has two bf16 kernel pairs, and `bwd_variant` names the one a
 call takes ("wgmma", "mma", or "f32" for float32); each wrapper counts
 its launches per pair in `launches_by_variant`:
@@ -61,8 +73,9 @@ from . import _build
 
 __all__ = ["block_sparse_flash_attention", "block_sparse_flash_backward",
            "block_sparse_flash_dq", "block_sparse_flash_dkv",
-           "block_sparse_flash_bwd_delta", "bwd_variant", "bwd_plan",
-           "call_plan", "tile_walk", "TileWalk", "BwdPlan", "reverse_gather",
+           "block_sparse_flash_bwd_delta", "bwd_variant", "fwd_variant",
+           "bwd_plan", "call_plan", "tile_walk", "fwd_walk", "TileWalk",
+           "BwdPlan", "reverse_gather",
            "block_sparse_flash_attention_reference",
            "block_sparse_flash_backward_reference",
            "block_sparse_flash_dq_reference",
@@ -79,10 +92,12 @@ _DKV_ARGS = (_P,) * 9 + (_I,) * 7 + (_F, _I, _P)
 _DELTA_ARGS = (_P,) * 3 + (_I,) * 4 + (_P,)
 _DQ_WGMMA_ARGS = (_P,) * 9 + (_I,) * 8 + (_F, _P)
 _DKV_WGMMA_ARGS = (_P,) * 10 + (_I,) * 8 + (_F, _P)
+_FWD_WGMMA_ARGS = (_P,) * 7 + (_I,) * 7 + (_F, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the backward's kernel pairs (module docstring)
+# the backward's kernel pairs and the forward's kernels (module docstring)
 BWD_VARIANTS = ("wgmma", "mma", "f32")
+FWD_VARIANTS = BWD_VARIANTS
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_BLOCKS = (16, 32, 64)
 GATHER_ROWS = 64          # rows a gathered step fills (wgmma's M)
@@ -91,8 +106,10 @@ OWNER_GROUPS = {16: (1, 2, 4), 32: (1, 2), 64: (1,)}
 # relative time of one gathered step by N = block * R, from the on-card
 # sweep (PERF.md): `tile_walk` picks the R of least steps * cost
 STEP_COST = {16: 1.0, 32: 1.4, 64: 2.5}
-# the walks of a plan: dq over the gather table, dk/dv over its reverse
+# the backward's walks of a plan: dq over the gather table, dk/dv over
+# its reverse; a plan also holds the forward's walk ("fwd")
 WALKS = ("dq", "dkv")
+ALL_WALKS = WALKS + ("fwd",)
 # plans a wrapper keeps for calls given none, per table, block, device
 # and walk (`SparseSelfAttention` keeps its own beside its tables)
 CALL_PLANS = 16
@@ -137,7 +154,8 @@ class TileWalk:
     blocks ordered by list length, then lexicographically (alike lists
     together).  `visits` counts the visited (owner, block) pairs;
     `padding` is the tile work (steps x gather x owners block pairs) over
-    them."""
+    them.  A ragged walk's last group of a head may hold fewer than
+    `owners` blocks: its gaps are owned block -1, which visits nothing."""
     owners: int
     gather: int
     grouping: str
@@ -169,17 +187,21 @@ WALK_GROUPINGS = ("adjacent", "sorted")
 
 
 def tile_walk(table, block: int, owners: int = 1,
-              grouping: str = "adjacent") -> TileWalk:
+              grouping: str = "adjacent", ragged: bool = False) -> TileWalk:
     """The walk of `owners` blocks a CTA over `table` [H, nb, n]
-    (ascending block lists, -1 padded) at `block`: pure numpy."""
+    (ascending block lists, -1 padded) at `block`: pure numpy.  With
+    `ragged`, nb need not be a multiple of `owners` (the forward's walk)."""
     table = np.asarray(table)
     H, nb, _ = table.shape
-    if (owners not in OWNER_GROUPS.get(block, ()) or nb % owners
+    if (owners not in OWNER_GROUPS.get(block, ())
+            or (nb % owners and not ragged)
             or grouping not in WALK_GROUPINGS):
         raise ValueError(f"no {grouping!r} gathered walk of {owners} owners "
                          f"at block {block} over {nb} blocks")
     gather = GATHER_ROWS // block
-    visits = np.zeros((H, nb, nb), bool)                # [h, owner, block]
+    ng = -(-nb // owners)                               # groups a head
+    # [h, owner, block]; owner nb is a ragged group's gap
+    visits = np.zeros((H, nb + 1, nb), bool)
     h, i, a = np.nonzero(table >= 0)
     visits[h, i, table[h, i, a]] = True
     if grouping == "sorted":   # by list length, then lexicographically
@@ -188,28 +210,44 @@ def tile_walk(table, block: int, owners: int = 1,
                           for hh in range(H)])
     else:
         order = np.broadcast_to(np.arange(nb), (H, nb))
-    groups = order.reshape(H, nb // owners, owners)    # [h, group, o]
-    grouped = visits[np.arange(H)[:, None, None], groups]
+    order = np.concatenate([order, np.full((H, ng * owners - nb), -1,
+                                           order.dtype)], 1)
+    groups = order.reshape(H, ng, owners)               # [h, group, o]
+    grouped = visits[np.arange(H)[:, None, None],
+                     np.where(groups < 0, nb, groups)]
     bits = (grouped.view(np.uint8) << np.arange(owners, dtype=np.uint8)[
         :, None]).sum(2, dtype=np.uint8)               # owner mask, 4 bits
     union = bits > 0                                    # [h, group, block]
     counts = union.sum(-1).ravel()
     steps = -(-counts // gather)
     gh, gg, kb = np.nonzero(union)       # row-major: ascending kb per group
-    group = gh * (nb // owners) + gg
+    group = gh * ng + gg
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     offsets = np.concatenate([[0], np.cumsum(steps * gather)[:-1]])
     ents = np.full(int((steps * gather).sum()), -1, np.int32)
     ents[offsets[group] + np.arange(group.size) - starts[group]] = (
         kb * 16 + bits[gh, gg, kb].astype(np.int64))
-    owned = np.full((H * (nb // owners), 4), -1, np.int64)
+    owned = np.full((H * ng, 4), -1, np.int64)
     owned[:, :owners] = groups.reshape(-1, owners)
     sched = np.concatenate([np.stack([
-        np.repeat(np.arange(H), nb // owners), steps, offsets,
+        np.repeat(np.arange(H), ng), steps, offsets,
         np.full_like(steps, owners)], 1), owned], 1).astype(np.int32)
     sched = sched[np.argsort(-steps, kind="stable")]
     return TileWalk(owners, gather, grouping, np.ascontiguousarray(sched),
                     ents, int(visits.sum()))
+
+
+def fwd_walk(kb_idx, block: int) -> TileWalk:
+    """The forward's walk of gather table `kb_idx` [H, nqb, A] at `block`:
+    64 / block query blocks a CTA (64 query rows, wgmma's M), a head's
+    last group ragged where nqb is not a multiple of that, grouped
+    "adjacent" or "sorted", whichever takes fewer steps ("adjacent" on a
+    tie)."""
+    owners = GATHER_ROWS // block
+    walks = [tile_walk(kb_idx, block, owners, g, ragged=True)
+             for g in WALK_GROUPINGS]
+    return min(walks, key=lambda w: (w.steps,
+                                     WALK_GROUPINGS.index(w.grouping)))
 
 
 def _cheapest_walk(table, block: int) -> TileWalk:
@@ -227,10 +265,11 @@ def _cheapest_walk(table, block: int) -> TileWalk:
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """One layout's backward plan at one block: at the blocks the wgmma
-    pair takes, the dq and dk/dv walks (None where not built) with their
+    """One layout's plan at one block: at the blocks the wgmma kernels
+    take, the dq and dk/dv walks (None where not built) with their
     `sched` and `ents` as int32 tensors on `device` in `device_walks`
-    (one (sched, ents) or None per walk).  Built once per layout and
+    (one (sched, ents) or None per walk of WALKS), and the forward's walk
+    `fwd` with its tensors in `fwd_device`.  Built once per layout and
     device (`sparse_attention._device_tables` caches it)."""
     block: int
     heads: int
@@ -238,6 +277,17 @@ class BwdPlan:
     dq: Optional[TileWalk]
     dkv: Optional[TileWalk]
     device_walks: tuple = ()
+    fwd: Optional[TileWalk] = None
+    fwd_device: Optional[tuple] = None
+
+    def device(self, walk: str):
+        """(sched, ents) of `walk` (one of ALL_WALKS) on the plan's device,
+        or None."""
+        if walk == "fwd":
+            return self.fwd_device
+        if not self.device_walks:
+            return None
+        return self.device_walks[WALKS.index(walk)]
 
 
 def _host_table(kb_idx) -> np.ndarray:
@@ -247,42 +297,46 @@ def _host_table(kb_idx) -> np.ndarray:
 
 
 def _plan_walk(kb_idx, block, which, owners, grouping, device):
-    table = kb_idx if which == "dq" else reverse_gather(kb_idx)
-    walk = (_cheapest_walk(table, block) if owners is None
-            else tile_walk(table, block, owners, grouping))
+    if which == "fwd":
+        walk = fwd_walk(kb_idx, block)
+    else:
+        table = kb_idx if which == "dq" else reverse_gather(kb_idx)
+        walk = (_cheapest_walk(table, block) if owners is None
+                else tile_walk(table, block, owners, grouping))
     return walk, (torch.from_numpy(walk.sched).to(device),
                   torch.from_numpy(walk.ents).to(device))
 
 
 def bwd_plan(kb_idx, block: int, device="cpu", owners: Optional[int] = None,
              grouping: str = "adjacent") -> BwdPlan:
-    """The backward plan of gather table `kb_idx` [H, nqb, A] (numpy or
-    a tensor) at `block`: each walk the cheapest, or with `owners` given
+    """The plan of gather table `kb_idx` [H, nqb, A] (numpy or a tensor)
+    at `block`: each backward walk the cheapest, or with `owners` given
     that many owners a CTA grouped by `grouping` (the card's checks hold
-    every walk the kernels take)."""
+    every walk the kernels take), and the forward's walk (`fwd_walk`)."""
     kb_idx = _host_table(kb_idx)
     H, nb, _ = kb_idx.shape
     if block not in WGMMA_BLOCKS:
         return BwdPlan(block, H, nb, None, None)
     built = [_plan_walk(kb_idx, block, w, owners, grouping, device)
-             for w in WALKS]
-    return BwdPlan(block, H, nb, *(w for w, _ in built),
-                   tuple(d for _, d in built))
+             for w in ALL_WALKS]
+    return BwdPlan(block, H, nb, *(w for w, _ in built[:2]),
+                   tuple(d for _, d in built[:2]), *built[2])
 
 
 _call_walks: dict = {}
 
 
 def call_plan(kb_idx, block: int, device, walks=WALKS) -> BwdPlan:
-    """The plan of a wrapper call given none: each of `walks` built once
-    per table, block and device and kept (the CALL_PLANS * 2 latest
-    walks), so a direct dq call builds only the dq walk, and a repeated
-    call only reads the table back to hash it."""
+    """The plan of a wrapper call given none: each of `walks` (of
+    ALL_WALKS) built once per table, block and device and kept (the
+    CALL_PLANS * 2 latest walks), so a direct dq call builds only the dq
+    walk, a forward call only the forward's, and a repeated call only
+    reads the table back to hash it."""
     kb_idx = _host_table(kb_idx)
     H, nb, _ = kb_idx.shape
     key = (kb_idx.shape, kb_idx.tobytes(), block, str(torch.device(device)))
     built = []
-    for w in WALKS:
+    for w in ALL_WALKS:
         got = None
         if w in walks:
             got = _call_walks.pop((w,) + key, None) or _plan_walk(
@@ -291,8 +345,8 @@ def call_plan(kb_idx, block: int, device, walks=WALKS) -> BwdPlan:
             while len(_call_walks) > 2 * CALL_PLANS:
                 del _call_walks[next(iter(_call_walks))]
         built.append(got or (None, None))
-    return BwdPlan(block, H, nb, *(w for w, _ in built),
-                   tuple(d for _, d in built))
+    return BwdPlan(block, H, nb, *(w for w, _ in built[:2]),
+                   tuple(d for _, d in built[:2]), *built[2])
 
 
 def bwd_variant(dtype, D: int, block: int) -> str:
@@ -300,6 +354,18 @@ def bwd_variant(dtype, D: int, block: int) -> str:
     `block` takes on the card: "f32" for float32; for bf16 "wgmma" at D
     64 and 128 and block 16, 32 and 64, else "mma".  Raises on what no
     pair takes."""
+    return _variant_rule(dtype, D, block)
+
+
+def fwd_variant(dtype, D: int, block: int) -> str:
+    """The forward kernel a call takes on the card, by the backward's
+    rule: "f32" for float32; for bf16 "wgmma" at D 64 and 128 and block
+    16, 32 and 64 (phase 10's forward gate holds it against the mma.sync
+    kernel on the card), else "mma".  Raises on what no kernel takes."""
+    return _variant_rule(dtype, D, block)
+
+
+def _variant_rule(dtype, D, block):
     if dtype not in _DTYPES:
         raise TypeError(f"dtype {dtype}: the block-sparse kernels take bf16 "
                         f"or f32")
@@ -518,10 +584,15 @@ def _not_cuda(t):
 def block_sparse_flash_attention(q, k, v, kb_idx, block: int,
                                  causal: bool = True,
                                  scale: Optional[float] = None,
-                                 return_lse: bool = False):
+                                 return_lse: bool = False, *,
+                                 plan: Optional[BwdPlan] = None,
+                                 variant: Optional[str] = None):
     """Block-sparse attention over the gather table `kb_idx` [H, nqb, A]
-    (numpy or an int32 tensor; -1 padding).  Returns out [B, S, H, D] in
-    q.dtype, and with `return_lse` also the lse [B, H, nqb, block] f32."""
+    (numpy or an int32 tensor; -1 padding), on the kernel `variant`
+    (default: the one `fwd_variant` names; the wgmma kernel reads `plan`'s
+    forward walk, `call_plan`'s where not given).  Returns out [B, S, H,
+    D] in q.dtype, and with `return_lse` also the lse [B, H, nqb, block]
+    f32."""
     if q.device.type == "cpu":
         out, lse = block_sparse_flash_attention_reference(
             q, k, v, kb_idx, block, causal, scale)
@@ -530,15 +601,26 @@ def block_sparse_flash_attention(q, k, v, kb_idx, block: int,
     idx = _device_table(kb_idx, q.device)
     _check(q, k, v, idx, block)
     B, S, H, D = q.shape
+    plan, variant = _route(q, kb_idx, block, plan, variant, ("fwd",))
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S // block, block), dtype=torch.float32,
                       device=q.device)
-    fn = _build.function("sparse_flash", "dstt_sparse_fwd", _FWD_ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), idx.data_ptr(), B, S, H, D, block, idx.shape[2],
-            int(bool(causal)), _scale(scale, D), _DTYPES[q.dtype], _stream(q))
-    _build.check(rc, "block-sparse attention")
-    block_sparse_flash_attention.launches += 1
+    if variant == "wgmma":
+        sched, ents = plan.fwd_device
+        fn = _build.function("sparse_flash", "dstt_sparse_fwd_wgmma",
+                             _FWD_WGMMA_ARGS)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), sched.data_ptr(), ents.data_ptr(),
+                sched.shape[0], B, S, H, D, block, int(bool(causal)),
+                _scale(scale, D), _stream(q))
+    else:
+        fn = _build.function("sparse_flash", "dstt_sparse_fwd", _FWD_ARGS)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), idx.data_ptr(), B, S, H, D, block,
+                idx.shape[2], int(bool(causal)), _scale(scale, D),
+                _DTYPES[q.dtype], _stream(q))
+    _build.check(rc, f"block-sparse attention ({variant})")
+    _count(block_sparse_flash_attention, variant)
     return (out, lse) if return_lse else out
 
 
@@ -578,13 +660,15 @@ def block_sparse_flash_bwd_delta(out, do):
 
 
 def _route(q, kb_idx, block, plan, variant, walks):
-    """(plan, variant) of a backward call on the card: the variant
-    `bwd_variant` names where none is given, and on the wgmma pair the
-    plan given or else `call_plan`'s of `walks`; raises where the named
-    variant does not take the call (no other pair is tried)."""
+    """(plan, variant) of a call on the card running `walks` (the
+    forward's or the backward's): the variant the rule (`fwd_variant`,
+    `bwd_variant`) names where none is given, and on the wgmma kernels
+    the plan given or else `call_plan`'s of `walks`; raises where the
+    named variant does not take the call (no other kernel is tried)."""
     B, S, H, D = q.shape
     if variant is None:
-        variant = bwd_variant(q.dtype, D, block)
+        rule = fwd_variant if walks == ("fwd",) else bwd_variant
+        variant = rule(q.dtype, D, block)
     if variant not in BWD_VARIANTS:
         raise ValueError(f"variant {variant!r} (one of {BWD_VARIANTS})")
     if (variant == "f32") != (q.dtype == torch.float32):
@@ -592,7 +676,7 @@ def _route(q, kb_idx, block, plan, variant, walks):
     if variant == "wgmma":
         if (q.dtype != torch.bfloat16 or D not in WGMMA_HEAD_DIMS
                 or block not in WGMMA_BLOCKS):
-            raise ValueError(f"the wgmma pair takes bf16 at D "
+            raise ValueError(f"the wgmma kernels take bf16 at D "
                              f"{WGMMA_HEAD_DIMS} and block {WGMMA_BLOCKS}, "
                              f"not {q.dtype} D {D} block {block}")
         if plan is None:
@@ -601,13 +685,14 @@ def _route(q, kb_idx, block, plan, variant, walks):
                 or any(getattr(plan, w) is None for w in walks):
             raise ValueError(f"the plan is for block {plan.block}, "
                              f"{plan.heads} heads, {plan.blocks} blocks with "
-                             f"walks {[w for w in WALKS if getattr(plan, w)]}"
+                             f"walks "
+                             f"{[w for w in ALL_WALKS if getattr(plan, w)]}"
                              f", not block {block}, {H} heads, {S // block} "
                              f"blocks with {list(walks)}")
-        tables = [d[0] for d in plan.device_walks if d is not None]
-        if tables[0].device != q.device:
-            raise ValueError(f"the plan's tables lie on {tables[0].device}, "
-                             f"not {q.device}")
+        where = plan.device(walks[0])[0].device
+        if where != q.device:
+            raise ValueError(f"the plan's tables lie on {where}, not "
+                             f"{q.device}")
     return plan, variant
 
 
@@ -733,6 +818,9 @@ block_sparse_flash_attention.launches = 0
 block_sparse_flash_dq.launches = 0
 block_sparse_flash_dkv.launches = 0
 block_sparse_flash_bwd_delta.launches = 0
-# launches per kernel pair (BWD_VARIANTS), reset with `launches`
+# launches per kernel (pair) (FWD_VARIANTS, BWD_VARIANTS), reset with
+# `launches`
+block_sparse_flash_attention.launches_by_variant = dict.fromkeys(
+    FWD_VARIANTS, 0)
 block_sparse_flash_dq.launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 block_sparse_flash_dkv.launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)

@@ -15,6 +15,8 @@ whose backward must also rerun bit for bit).  The engine tests serve the
 same wave, and take the same training steps, through the kernels and
 through the plain versions (`plain_kernels=True`) in f32.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -362,6 +364,189 @@ def test_lora_kernel_matches_plain_version(card, dtype, S, K, N, r):
     none = tlora.lora_delta(x, a, b, np.full(S, -1, np.int32))
     torch.cuda.synchronize()
     assert (none == 0).all()
+
+
+# the fused LoRA kernel (one launch, bulk copies) against the plain
+# version and the two-pass kernel: (S, K, N, r, x dtype); K 1000 and 1003
+# are not multiples of 8 (bf16 rows off the bulk copies' 16-byte grain),
+# N 777 and 1001 not multiples of 4 (B rows and the output stores
+# likewise), S 1 one row, S 2048 at K = N = 4096 more work items (~3600)
+# than resident CTAs, r 40 and 128 factor spans of several ring slots
+LORA_FUSED_CASES = [(32, 4096, 4096, 16, torch.bfloat16),
+                    (1, 4096, 4096, 16, torch.bfloat16),
+                    (2048, 4096, 4096, 16, torch.bfloat16),
+                    (77, 1000, 777, 16, torch.bfloat16),
+                    (45, 1003, 1001, 40, torch.bfloat16),
+                    (64, 4096, 512, 128, torch.bfloat16),
+                    (33, 1003, 96, 1, torch.float32),
+                    (64, 4096, 4096, 16, torch.float32)]
+
+
+@pytest.mark.parametrize("S,K,N,r,dtype", LORA_FUSED_CASES, ids=[
+    f"s{s}-k{k}-n{n}-r{r}-{str(d)[6:]}" for s, k, n, r, d in LORA_FUSED_CASES])
+def test_lora_fused_matches_plain_version_and_two_pass(card, S, K, N, r,
+                                                       dtype):
+    """The fused kernel within LORA_REL of the plain version and of the
+    two-pass kernel, base rows exactly +0.0 though their x rows hold NaN,
+    reruns bitwise equal (the counters back at zero after each call), and
+    one launch counted on its variant."""
+    rng = np.random.RandomState(S + K)
+    slots = 4
+    x = _rnd(card, dtype, S, K)
+    a = _rnd(card, torch.float32, slots, K, r) / K ** 0.5
+    b = _rnd(card, torch.float32, slots, r, N)
+    ids = rng.randint(-1, slots - 1, S).astype(np.int32)
+    ids[0] = -1 if S > 1 else 1        # a base row; one adapter row alone
+    base = torch.from_numpy(ids < 0).cuda()
+    x[base] = float("nan")
+    rows = tlora.LoraRows(ids)
+    before = dict(tlora.lora_delta.launches_by_variant)
+    runs = [tlora.lora_delta(x, a, b, rows, scaling=0.5) for _ in range(2)]
+    two = tlora.lora_delta(x, a, b, rows, scaling=0.5, variant="two_pass")
+    ref = tlora.lora_delta_reference(x, a, b, rows, scaling=0.5)
+    torch.cuda.synchronize()
+    got = runs[0]
+    assert torch.equal(runs[0], runs[1])
+    assert (got[base] == 0).all() and not got[base].signbit().any()
+    scale = LORA_REL * float(ref[~base].abs().max())
+    _close(got[~base], ref[~base], scale)
+    _close(got[~base], two[~base], scale)
+    assert {v: n - before[v] for v, n in
+            tlora.lora_delta.launches_by_variant.items()} == {
+        "fused": 2, "two_pass": 1}
+
+
+def test_lora_fused_counters_return_to_zero(card):
+    """The fused kernel leaves the counter region of the next call on
+    its stream at zero (each call zeroes the region the previous one
+    used), so a call after a larger one and on a second stream gives the
+    same bits."""
+    g = card
+    a = _rnd(g, torch.float32, 3, 512, 8) / 512 ** 0.5
+    b = _rnd(g, torch.float32, 3, 8, 256)
+    rng = np.random.RandomState(3)
+    big = _rnd(g, torch.bfloat16, 300, 512)
+    small = _rnd(g, torch.bfloat16, 20, 512)
+    ids_big = rng.randint(-1, 3, 300).astype(np.int32)
+    ids_small = rng.randint(-1, 3, 20).astype(np.int32)
+    first = tlora.lora_delta(small, a, b, ids_small)
+    tlora.lora_delta(big, a, b, ids_big)
+    again = tlora.lora_delta(small, a, b, ids_small)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = tlora.lora_delta(small, a, b, ids_small)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, other)
+    from deepspeed_tpu_torch.ops import _scratch
+    for stream in (torch.cuda.current_stream(), side):
+        ctr = _scratch.buffer("lora_ctr", torch.device("cuda"),
+                              stream.cuda_stream, 1, torch.int32)
+        region = ctr.numel() // 2
+        nxt = tlora._fused_calls[ctr.data_ptr()] & 1
+        assert int(ctr[nxt * region:(nxt + 1) * region].abs().sum()) == 0
+
+
+def test_lora_variant_refusals(card):
+    x = _rnd(card, torch.bfloat16, 8, 64)
+    a = _rnd(card, torch.float32, 2, 64, 4)
+    b = _rnd(card, torch.float32, 2, 4, 32)
+    ids = np.zeros(8, np.int32)
+    before = tlora.lora_delta.launches
+    for bad in ("cuda", "fused ", "mma"):
+        with pytest.raises(ValueError, match="variant"):
+            tlora.lora_delta(x, a, b, ids, variant=bad)
+    with pytest.raises(ValueError, match="out of range"):
+        tlora.lora_delta(x, a, b, np.full(8, 2, np.int32))
+    assert tlora.lora_delta.launches == before
+
+
+def test_hopper_bulk_rows_land_at_their_pitch(card):
+    """1-D bulk copies of gathered byte ranges (the LoRA kernel's x rows:
+    rows of a [rows, K] tensor at a K offset) into shared memory at a row
+    pitch, byte for byte."""
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _selftest("dstt_selftest_bulk_rows",
+                   (P, P, P, I, ctypes.c_longlong, I, I, I, P))
+    src = torch.randint(0, 256, (40, 1024), generator=card, device="cuda",
+                        dtype=torch.int32).to(torch.uint8)
+    for rows, col0, nbytes, pitch in (([5, 0, 39, 7, 7], 256, 512, 512),
+                                      (list(range(16))[::-1], 48, 80, 96),
+                                      ([3] * 32, 1008, 16, 16)):
+        idx = torch.tensor(rows, dtype=torch.int32, device="cuda")
+        dst = torch.full((len(rows) * pitch,), 7, dtype=torch.uint8,
+                         device="cuda")
+        rc = fn(src.data_ptr(), dst.data_ptr(), idx.data_ptr(), len(rows),
+                1024, col0, nbytes, pitch,
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        torch.cuda.synchronize()
+        got = dst.view(len(rows), pitch)[:, :nbytes]
+        assert torch.equal(got, src[idx.long(), col0:col0 + nbytes])
+    bad = fn(src.data_ptr(), dst.data_ptr(), idx.data_ptr(), 4, 1024, 8,
+             16, 16, torch.cuda.current_stream().cuda_stream)
+    assert bad != 0   # an offset off the 16-byte grain is refused
+
+
+# one step of the forward's masked score tile: (block, owned query
+# blocks, the step's entries (key block << 4 | owner mask, or -1), causal)
+SCORE_CASES = [(16, (0, 1, 2, 3), (0 << 4 | 15, 2 << 4 | 5, 7 << 4 | 8, -1),
+                True),
+               (16, (4, 5, 6, -1), (1 << 4 | 1, 5 << 4 | 6, -1, -1), False),
+               (32, (2, 3), (0 << 4 | 3, 3 << 4 | 2), True),
+               (64, (1,), (1 << 4 | 1,), True),
+               (64, (2,), (-1,), False)]
+
+
+@pytest.mark.parametrize("block,own,ents,causal", SCORE_CASES, ids=[
+    f"b{b}-{i}" for i, (b, *_) in enumerate(SCORE_CASES)])
+def test_hopper_sparse_scores_hide_what_an_owner_does_not_visit(
+        card, block, own, ents, causal):
+    """The forward's step: Q's owned blocks and the gathered K blocks by
+    TMA, S = Q K^T by wgmma, then the owner mask: a row sees a key only
+    where its owner's mask bit is set, the entry is not -1 and (causal)
+    the key is not past the query; masked entries are exactly -1e30."""
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _selftest("dstt_selftest_sparse_scores",
+                   (P, P, P, I, I, I, I, P, I, I, I, ctypes.c_float, P))
+    S = 8 * block
+    q = _rnd(card, torch.bfloat16, S, 64)
+    k = _rnd(card, torch.bfloat16, S, 64)
+    ent = torch.tensor(ents, dtype=torch.int32, device="cuda")
+    owners = list(own) + [-1] * (4 - len(own))
+    out = torch.full((64, 64), float("nan"), device="cuda")
+    scale = 0.125 * 1.4426950408889634
+    rc = fn(q.data_ptr(), k.data_ptr(), ent.data_ptr(), *owners,
+            out.data_ptr(), S, block, int(causal), scale,
+            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    qrows = torch.zeros(64, 64, device="cuda")
+    krows = torch.zeros(64, 64, device="cuda")
+    vis = torch.zeros(64, 64, dtype=torch.bool)
+    for r in range(64):
+        o = owners[r // block]
+        if o >= 0:
+            qrows[r] = q[o * block + r % block].float()
+    for c in range(64):
+        e = ents[c // block]
+        if e >= 0:
+            krows[c] = k[(e >> 4) * block + c % block].float()
+    for r in range(64):
+        o, qb = r // block, owners[r // block]
+        for c in range(64):
+            e = ents[c // block]
+            kp = (e >> 4) * block + c % block
+            vis[r, c] = (e >= 0 and (e >> o) & 1 == 1 and qb >= 0
+                         and (not causal or kp <= qb * block + r % block))
+    want = (qrows @ krows.t()) * scale
+    vis = vis.cuda()
+    assert torch.equal(out[~vis], torch.full_like(out[~vis], -1e30))
+    if vis.any():
+        _close(out[vis], want[vis], 1e-3, 1e-5)
 
 
 @DTYPES
@@ -777,6 +962,111 @@ def test_sparse_wgmma_pair_and_delta_match_plain_versions(card, block, D,
         for f, b4 in zip((tsflash.block_sparse_flash_dq,
                           tsflash.block_sparse_flash_dkv), before):
             assert f.launches_by_variant["wgmma"] == b4["wgmma"] + 2
+
+
+# the bf16 forward on TMA + wgmma (`sparse_fwd_wgmma`): (B, nb, block, D,
+# causal); nb 10 at block 16 and 9 at block 32 leave a ragged last group
+# of query blocks (4 and 2 a CTA), and 12 blocks a row end lists mid-step
+SPARSE_FWD_CASES = [(2, 12, 16, 64, True), (2, 10, 16, 128, False),
+                    (2, 9, 32, 64, False), (1, 12, 32, 128, True),
+                    (2, 6, 64, 64, True), (1, 7, 64, 128, False)]
+
+
+@pytest.mark.parametrize("B,nb,block,D,causal", SPARSE_FWD_CASES, ids=[
+    f"nb{n}-block{b}-d{d}-{'causal' if c else 'full'}"
+    for _, n, b, d, c in SPARSE_FWD_CASES])
+def test_sparse_forward_wgmma_matches_plain_version_and_mma(card, B, nb,
+                                                           block, D, causal):
+    """The wgmma forward on its plan's walk and on both groupings: within
+    the forward tolerance of the plain version and of the mma.sync
+    kernel; NaN in the key and value blocks no row visits never reaches
+    the output; the fully-masked row gives out 0 and a finite lse; reruns
+    bitwise equal; launches counted on their variant."""
+    H = 2
+    S = nb * block
+    q = _rnd(card, torch.bfloat16, B, S, H, D)
+    k = _rnd(card, torch.bfloat16, B, S, H, D)
+    v = _rnd(card, torch.bfloat16, B, S, H, D)
+    layout = _sparse_layout(H, nb, block + nb)
+    layout[:, :, nb - 1] = False            # no row visits the last block
+    layout[1, 3] = False
+    layout[1, 3, 3] = True
+    k[:, (nb - 1) * block:] = float("nan")
+    v[:, (nb - 1) * block:] = float("nan")
+    kidx = tsparse._layout_to_gather(layout)
+    idx, rev, plan = tsparse._device_tables(kidx, "cuda", block)
+    ref, ref_lse = tsflash.block_sparse_flash_attention_reference(
+        q, k, v, idx, block, causal=causal)
+    mma, mma_lse = tsflash.block_sparse_flash_attention(
+        q, k, v, idx, block, causal, return_lse=True, variant="mma")
+    plans = [plan] + [dataclasses.replace(plan, fwd=w, fwd_device=(
+        torch.from_numpy(w.sched).cuda(), torch.from_numpy(w.ents).cuda()))
+        for w in (tsflash.tile_walk(kidx, block, 64 // block, g, ragged=True)
+                  for g in tsflash.WALK_GROUPINGS)]
+    fwd = tsflash.block_sparse_flash_attention
+    for p in plans:
+        before = dict(fwd.launches_by_variant)
+        runs = [fwd(q, k, v, idx, block, causal, return_lse=True, plan=p)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        (out, lse), (out2, lse2) = runs
+        assert torch.equal(out, out2) and torch.equal(lse, lse2)
+        assert torch.isfinite(out.float()).all()
+        assert torch.isfinite(lse).all()
+        _close(out, ref, ATOL[torch.bfloat16], RTOL[torch.bfloat16])
+        _close(out, mma, ATOL[torch.bfloat16], RTOL[torch.bfloat16])
+        _close(lse, ref_lse, LSE_ATOL, 1e-6)
+        _close(lse, mma_lse, LSE_ATOL, 1e-6)
+        if causal:   # head 0, q-block 2 sees only block 5: out 0
+            assert (out[:, 2 * block:3 * block, 0] == 0).all()
+        assert {n: c - before[n] for n, c in
+                fwd.launches_by_variant.items()} == {"wgmma": 2, "mma": 0,
+                                                     "f32": 0}
+
+
+def test_sparse_forward_refuses_a_variant_that_cannot_take_the_call(card):
+    """A named forward kernel that does not take the call raises, nothing
+    launches; a plan of another block or without the forward walk is
+    refused."""
+    fwd = tsflash.block_sparse_flash_attention
+
+    def call(dtype, D, block, variant, plan_block=None):
+        q = _rnd(card, dtype, 1, 8 * block, 2, D)
+        layout = tsparse.FixedSparsityConfig(
+            num_heads=2, block=block).make_layout(8 * block)
+        kidx = tsparse._layout_to_gather(layout)
+        idx, _, plan = tsparse._device_tables(kidx, "cuda", block)
+        if plan_block is not None:
+            plan = tsflash.bwd_plan(tsparse._layout_to_gather(
+                tsparse.FixedSparsityConfig(num_heads=2, block=plan_block)
+                .make_layout(8 * plan_block)), plan_block, "cuda")
+        before = fwd.launches
+        with pytest.raises(ValueError):
+            fwd(q, q, q, idx, block, plan=plan, variant=variant)
+        assert fwd.launches == before
+
+    call(torch.bfloat16, 192, 16, "wgmma")
+    call(torch.bfloat16, 64, 128, "wgmma")
+    call(torch.bfloat16, 64, 8, "wgmma")
+    call(torch.float32, 64, 16, "wgmma")
+    call(torch.float32, 64, 16, "mma")
+    call(torch.bfloat16, 64, 16, "f32")
+    call(torch.bfloat16, 64, 16, "tma")
+    call(torch.bfloat16, 64, 16, "wgmma", plan_block=32)
+    for dtype, D, block, want in ((torch.bfloat16, 64, 16, "wgmma"),
+                                  (torch.bfloat16, 192, 64, "mma"),
+                                  (torch.bfloat16, 64, 8, "mma"),
+                                  (torch.float32, 64, 16, "f32")):
+        q = _rnd(card, dtype, 1, 8 * block, 2, D)
+        kidx = tsparse._layout_to_gather(tsparse.FixedSparsityConfig(
+            num_heads=2, block=block).make_layout(8 * block))
+        idx, _, plan = tsparse._device_tables(kidx, "cuda", block)
+        before = dict(fwd.launches_by_variant)
+        fwd(q, q, q, idx, block, plan=plan)
+        torch.cuda.synchronize()
+        assert {n: c - before[n] for n, c in
+                fwd.launches_by_variant.items()} == {
+            n: int(n == want) for n in tsflash.FWD_VARIANTS}
 
 
 def test_sparse_launches_by_variant_follow_the_rule(card):

@@ -2,8 +2,10 @@
 backward's kernel choice (`ops/flash_attention.bwd_variant`), the
 Evoformer backward's (`ops/evoformer_flash.bwd_variant`, with the pair-bias
 row pitch its TMA pair reads, `pair_bias_pitch`) and the block-sparse
-backward's (`ops/sparse_flash.bwd_variant`, with the gathered tile plan of
-its wgmma pair, `tile_walk` / `bwd_plan`) and the paged kernels' (
+backward's and forward's (`ops/sparse_flash.bwd_variant`, `fwd_variant`,
+with the gathered tile walks of its wgmma kernels, `tile_walk`,
+`fwd_walk`, `bwd_plan`), the fused LoRA delta's work list
+(`ops/lora_matmul.work_items`) and the paged kernels' (
 `ops/paged_prefill.prefill_variant` with `prefill_plan`, the split of each
 query tile's key range over CTAs, and `ops/paged_attention.decode_variant`
 with `decode_plan`, the split of a sequence's key tiles) on the CPU.
@@ -18,7 +20,11 @@ partial per K range, added in split order) is emulated in numpy and held
 against the JAX package's Pallas tile kernel in interpret mode; so are
 the paged TMA kernels' orders (an online softmax over 64-key tiles with a
 base-2 exponent inside a split, the splits' (m, l, acc) merged in split
-order), against the Pallas paged prefill and decode kernels.
+order), against the Pallas paged prefill and decode kernels; and so are
+the fused LoRA kernel's (k-group sums in order, K spans' partials in span
+order) against the JAX `lora_delta` and the block-sparse wgmma forward's
+(the gathered, owner-masked online softmax with P rounded to bf16)
+against the Pallas block-sparse forward.
 """
 import functools
 
@@ -29,6 +35,7 @@ import torch
 
 from deepspeed_tpu_torch.ops import evoformer_flash as tevof
 from deepspeed_tpu_torch.ops import flash_attention as tflash
+from deepspeed_tpu_torch.ops import lora_matmul as tlora
 from deepspeed_tpu_torch.ops import paged_attention as tdecode
 from deepspeed_tpu_torch.ops import paged_merged as tmerged
 from deepspeed_tpu_torch.ops import paged_prefill as tprefill
@@ -860,3 +867,340 @@ def test_paged_variant_counters_name_every_kernel_and_count_no_cpu_launch():
                                      layer_idx=0)
     assert [(fn.launches, dict(fn.launches_by_variant))
             for fn in wrappers] == before
+
+
+# ----------------------------------------------------------------------
+# the fused LoRA delta: work items and order of sums
+# ----------------------------------------------------------------------
+# |emulation - JAX| <= LORA_REL max|JAX|: f32 products of the same inputs
+# on both sides, summed in another order (chip_smoke's LoRA limit)
+LORA_REL = 1e-5
+
+
+def _lora_ids(S, slots, seed):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(-1, slots, S).astype(np.int32)
+    ids[::5] = -1
+    return ids
+
+
+LORA_ITEMS = [(1, 4096, 4096, 4, 0), (32, 4096, 4096, 4, 1),
+              (512, 4096, 4096, 4, 2), (77, 1000, 777, 3, 3),
+              (40, 256, 256, 1, 4), (20, 300, 200, 4, 5)]
+
+
+@pytest.mark.parametrize("S,K,N,slots,seed", LORA_ITEMS, ids=[
+    f"s{s}-k{k}-n{n}" for s, k, n, *_ in LORA_ITEMS])
+def test_lora_work_items_cover_each_tile_span_once_shrinks_first(
+        S, K, N, slots, seed):
+    """The fused kernel's work list: every (adapter tile, K span) shrink
+    item and every (tile, N span) expand item once, every shrink item
+    before any expand item (so an expand item, which waits for its tile's
+    shrinks, never waits on an item no CTA has taken); the tiles group one
+    slot's rows, at most TILE_ROWS a tile, base tiles first."""
+    ids = _lora_ids(S, slots, seed)
+    if S == 1:
+        ids[:] = 0
+    perm, tiles, n_base = tlora.LoraRows(ids).tiles()
+    assert sorted(perm.tolist()) == list(range(S))
+    assert (tiles[:n_base, 0] < 0).all() and (tiles[n_base:, 0] >= 0).all()
+    covered = []
+    for slot, p0, rows in tiles.tolist():
+        assert 1 <= rows <= tlora.TILE_ROWS
+        got = ids[perm[p0:p0 + rows]]
+        assert ((got < 0) if slot < 0 else (got == slot)).all()
+        covered += perm[p0:p0 + rows].tolist()
+    assert sorted(covered) == list(range(S))
+    items = tlora.work_items(len(tiles), n_base, K, N)
+    kinds = [kind for kind, _, _ in items]
+    n_shrink = kinds.count("shrink")
+    assert kinds == ["shrink"] * n_shrink + ["expand"] * (len(kinds)
+                                                          - n_shrink)
+    ks, ns = -(-K // tlora.SPAN), -(-N // tlora.SPAN)
+    shrink = [(t, s) for kind, t, s in items if kind == "shrink"]
+    expand = [(t, s) for kind, t, s in items if kind == "expand"]
+    assert shrink == [(t, s) for t in range(n_base, len(tiles))
+                      for s in range(ks)]
+    assert sorted(set(expand)) == expand == [
+        (t, n) for t in range(len(tiles)) for n in range(ns)]
+
+
+def _contract(X, W, J0, chunk, C):
+    """out [rows, C] = X [:, j] W [j, :] over j in [J0, J0 + len) summed as
+    the fused kernel does: the item's j range in chunks of `chunk`; in
+    each, k-group g (KG = 256 / (4 ceil(C / 4)) of them) takes the
+    4-row pieces g, g + KG, ... of the chunk; the groups' f32 sums added
+    in group order."""
+    KG = 256 // (4 * -(-C // 4))
+    J = X.shape[1]
+    acc = np.zeros((KG, X.shape[0], C), np.float32)
+    for c0 in range(0, J, chunk):
+        jc = min(chunk, J - c0)
+        for g in range(KG):
+            for j0 in range(4 * g, jc, 4 * KG):
+                for j in range(j0, min(j0 + 4, jc)):
+                    acc[g] += (X[:, c0 + j, None] * W[None, c0 + j]).astype(
+                        np.float32)
+    out = np.zeros(acc.shape[1:], np.float32)
+    for g in range(KG):
+        out += acc[g]
+    return out
+
+
+def _emulate_lora(x, a, b, ids, scaling):
+    """The fused kernel in numpy f32: per adapter tile, a partial h per K
+    span (`_contract` over chunks of k_chunk rows), the partials summed
+    in span order, then each N span's h B (chunks of 16 rows of B),
+    times scaling; base rows 0.0."""
+    S, K = x.shape
+    r, N = b.shape[1], b.shape[2]
+    span = tlora.SPAN
+    k_chunk = min(span, 4096 // r // 8 * 8)
+    perm, tiles, _ = tlora.LoraRows(ids).tiles()
+    out = np.zeros((S, N), np.float32)
+    for slot, p0, rows in tiles.tolist():
+        if slot < 0:
+            continue
+        xr = x[perm[p0:p0 + rows]]
+        h = np.zeros((rows, r), np.float32)
+        for k0 in range(0, K, span):      # span order
+            h += _contract(xr[:, k0:k0 + span], a[slot, k0:k0 + span],
+                           0, k_chunk, r)
+        for n0 in range(0, N, span):
+            nc = min(span, N - n0)
+            o = _contract(h, b[slot, :, n0:n0 + nc], 0, 16, nc)
+            out[perm[p0:p0 + rows], n0:n0 + nc] = o * np.float32(scaling)
+    return out
+
+
+@pytest.mark.parametrize("S,K,N,r,impl", [(24, 384, 256, 16, "pallas"),
+                                          (20, 512, 384, 40, "pallas"),
+                                          (18, 300, 200, 4, "jnp")])
+def test_lora_fused_order_of_sums_matches_jax(monkeypatch, S, K, N, r,
+                                             impl):
+    """The fused kernel's order of sums (k-groups in order, K spans'
+    partials in span order, B in 16-row chunks), emulated in numpy f32,
+    within LORA_REL of the JAX `lora_delta` (the Pallas kernel in
+    interpret mode where it takes the shape, else the jnp path); base
+    rows exactly 0.0."""
+    from deepspeed_tpu.ops import lora_matmul as jlora
+    rng = np.random.RandomState(S + K + r)
+    x = rng.randn(S, K).astype(np.float32)
+    a = (rng.randn(3, K, r) / np.sqrt(K)).astype(np.float32)
+    b = rng.randn(3, r, N).astype(np.float32)
+    ids = _lora_ids(S, 3, S)
+    got = _emulate_lora(x, a, b, ids, 0.5)
+    kw = {"interpret": True} if impl == "pallas" else {}
+    ref = np.asarray(jlora.lora_delta(jnp.asarray(x), jnp.asarray(a),
+                                      jnp.asarray(b), jnp.asarray(ids),
+                                      scaling=0.5, impl=impl, **kw))
+    assert (got[ids < 0] == 0).all()
+    assert np.abs(got - ref).max() <= LORA_REL * np.abs(ref).max()
+
+
+# ----------------------------------------------------------------------
+# the block-sparse forward: its walk, its rule, its order of sums
+# ----------------------------------------------------------------------
+FWD_WALK_CASES = [(block, name) for block in (16, 32, 64)
+                  for name, _ in _sparse_layouts(block)]
+
+
+@pytest.mark.parametrize("block,name", FWD_WALK_CASES, ids=[
+    f"b{b}-{n}" for b, n in FWD_WALK_CASES])
+def test_sparse_forward_walk_visits_each_pair_once(block, name):
+    """The forward's walk: 64 / block query blocks a CTA (64 rows), as
+    many key blocks a step, every (query block, key block) pair of the
+    layout visited once, a mask bit set exactly where its owner's list
+    holds the block (`pairs`), every query block owned once; the
+    fewer-steps grouping."""
+    layout = dict(_sparse_layouts(block))[name]
+    for nb in (layout.shape[1], layout.shape[1] - 3):   # the second ragged
+        lay = layout[:, :nb, :nb].copy()
+        lay[:, np.arange(nb), np.arange(nb)] = True
+        kidx = tsparse._layout_to_gather(lay)
+        walk = tsflash.fwd_walk(kidx, block)
+        owners = 64 // block
+        assert walk.owners == owners and walk.gather == owners
+        got = walk.pairs()
+        got = got[np.lexsort(got.T[::-1])]
+        assert np.array_equal(got, _visited(lay, "dq"))
+        owned = [(h, o) for h, _, _, _, *own in walk.sched.tolist()
+                 for o in own[:owners] if o >= 0]
+        assert sorted(owned) == [(h, i) for h in range(lay.shape[0])
+                                 for i in range(nb)]
+        gaps = sum(o < 0 for row in walk.sched.tolist()
+                   for o in row[4:4 + owners])
+        assert gaps == lay.shape[0] * (-nb % owners)
+        other = [tsflash.tile_walk(kidx, block, owners, g, ragged=True)
+                 for g in tsflash.WALK_GROUPINGS]
+        assert walk.steps == min(w.steps for w in other)
+
+
+def test_sparse_tile_walk_refuses_a_ragged_group_unless_asked():
+    kidx = tsparse._layout_to_gather(np.eye(10, dtype=bool)[None])
+    with pytest.raises(ValueError, match="gathered walk"):
+        tsflash.tile_walk(kidx, 16, 4)
+    assert tsflash.tile_walk(kidx, 16, 4, ragged=True).sched.shape[0] == 3
+
+
+@pytest.mark.parametrize("dtype,D,block,want", SPARSE_VARIANTS, ids=[
+    f"{str(d)[6:]}-d{D}-b{b}" for d, D, b, _ in SPARSE_VARIANTS])
+def test_sparse_forward_variant_by_dtype_head_dim_and_block(dtype, D, block,
+                                                           want):
+    assert tsflash.fwd_variant(dtype, D, block) == want
+
+
+@pytest.mark.parametrize("dtype,D,block,err", [
+    (torch.float16, 64, 16, TypeError), (torch.int8, 64, 16, TypeError),
+    (torch.bfloat16, 32, 16, ValueError), (torch.bfloat16, 96, 16,
+                                           ValueError),
+    (torch.bfloat16, 64, 12, ValueError), (torch.float32, 64, 256,
+                                           ValueError)])
+def test_sparse_forward_variant_refuses_what_no_kernel_takes(dtype, D, block,
+                                                            err):
+    with pytest.raises(err):
+        tsflash.fwd_variant(dtype, D, block)
+
+
+def test_sparse_plan_holds_the_forward_walk_and_call_plan_builds_it_alone(
+        monkeypatch):
+    monkeypatch.setattr(tsflash, "_call_walks", {})
+    layout = tsparse.BSLongformerSparsityConfig(
+        num_heads=2, block=16).make_layout(480)        # 30 blocks: ragged
+    kidx = tsparse._layout_to_gather(layout)
+    plan = tsflash.bwd_plan(kidx, 16)
+    want = tsflash.fwd_walk(kidx, 16)
+    assert np.array_equal(plan.fwd.sched, want.sched)
+    assert np.array_equal(plan.device("fwd")[1].numpy(), want.ents)
+    built = []
+    real = tsflash._plan_walk
+    monkeypatch.setattr(tsflash, "_plan_walk", lambda t, b, w, *a: (
+        built.append(w), real(t, b, w, *a))[1])
+    got = tsflash.call_plan(kidx, 16, "cpu", ("fwd",))
+    assert built == ["fwd"] and got.dq is None and got.dkv is None
+    assert np.array_equal(got.fwd.ents, want.ents)
+    tsflash.call_plan(torch.from_numpy(kidx), 16, "cpu", ("fwd",))
+    assert built == ["fwd"]
+
+
+def _bf16(x):
+    return torch.from_numpy(x).bfloat16().float().numpy()
+
+
+def _emulate_sparse_forward(q, k, v, kidx, block, causal, scale):
+    """The wgmma forward in numpy f32 over its walk: per CTA, the owners'
+    query rows; per step the gathered 64 keys (a -1 entry: zeros),
+    scores times scale log2 e masked by owner bit and causal to -1e30,
+    the online softmax in base 2 (row max m, alpha = 2^(m_old - m_new)),
+    P rounded to bf16 before O += P V; out = O / max(l, 1e-30), lse = m
+    / log2 e + log(max(l, 1e-30)) (m -1e30 where the row saw no key)."""
+    B, S, H, D = q.shape
+    walk = tsflash.fwd_walk(kidx, block)
+    R, G = walk.owners, walk.gather
+    M = R * block                              # query rows a CTA
+    neg, log2e = -1e30, np.float32(1.4426950408889634)
+    out = np.zeros_like(q)
+    lse = np.zeros((B, H, S), np.float32)
+    for h, steps, off, _, *own in walk.sched.tolist():
+        own = own[:R]
+        rows = np.arange(M)
+        qpos = np.array([own[r // block] * block + r % block for r in rows])
+        for b in range(B):
+            Q = np.stack([q[b, p, h] if own[r // block] >= 0 else
+                          np.zeros(D, np.float32)
+                          for r, p in zip(rows, qpos)])
+            m = np.full(M, neg, np.float32)
+            l = np.zeros(M, np.float32)
+            O = np.zeros((M, D), np.float32)
+            for j in range(steps):
+                ents = walk.ents[off + j * G:off + (j + 1) * G]
+                K = np.zeros((64, D), np.float32)
+                V = np.zeros((64, D), np.float32)
+                vis = np.zeros((M, 64), bool)
+                for i, e in enumerate(ents.tolist()):
+                    if e < 0:
+                        continue
+                    kp = (e >> 4) * block + np.arange(block)
+                    K[i * block:(i + 1) * block] = k[b, kp, h]
+                    V[i * block:(i + 1) * block] = v[b, kp, h]
+                    bits = (e >> (rows // block)) & 1
+                    ok = bits[:, None] == 1
+                    if causal:
+                        ok = ok & (kp[None, :] <= qpos[:, None])
+                    vis[:, i * block:(i + 1) * block] = ok
+                s = np.where(vis, (Q @ K.T) * np.float32(scale) * log2e,
+                             np.float32(neg)).astype(np.float32)
+                m_new = np.maximum(m, s.max(1))
+                alpha = np.exp2(m - m_new).astype(np.float32)
+                p = np.where(s > neg / 2, np.exp2(s - m_new[:, None]),
+                             0).astype(np.float32)
+                l = l * alpha + p.sum(1)
+                O = O * alpha[:, None] + _bf16(p) @ V
+                m = m_new
+            lsafe = np.maximum(l, np.float32(1e-30))
+            for r in rows:
+                if own[r // block] < 0:
+                    continue
+                out[b, qpos[r], h] = O[r] / lsafe[r]
+                lse[b, h, qpos[r]] = ((m[r] / log2e if m[r] > neg / 2
+                                       else neg) + np.log(lsafe[r]))
+    return out, lse
+
+
+def _fwd_emulation_layouts():
+    rng = np.random.RandomState(7)
+    scattered = np.zeros((2, 12, 12), bool)
+    for h in range(2):
+        for i in range(12):
+            scattered[h, i, rng.choice(12, 3, replace=False)] = True
+    masked = np.eye(8, dtype=bool)[None].repeat(2, 0)
+    masked[0, 2] = False
+    masked[0, 2, 5] = True            # causal: q-block 2 sees no key
+    return {
+        "fixed16": (tsparse.FixedSparsityConfig(
+            num_heads=2, block=16, num_local_blocks=4,
+            attention="bidirectional").make_layout(256), 16, False),
+        "scattered16": (scattered, 16, False),
+        "masked-row16": (masked, 16, True),
+        "ragged16": (tsparse.BSLongformerSparsityConfig(
+            num_heads=2, block=16).make_layout(160), 16, True),
+        "sliding32": (tsparse.LocalSlidingWindowSparsityConfig(
+            num_heads=2, block=32).make_layout(288), 32, True)}
+
+
+# the forward tolerance (chip_smoke's): out |d| <= 0.02 + 2^-7 |JAX|, lse
+# 1e-3 — the emulation rounds P to bf16 before P V as the kernel does,
+# the f32 Pallas kernel keeps it f32
+FWD_ATOL, FWD_RTOL, FWD_LSE = 2e-2, 2 ** -7, 1e-3
+
+
+@pytest.mark.parametrize("name", list(_fwd_emulation_layouts()))
+def test_sparse_forward_order_of_sums_matches_the_pallas_kernel(monkeypatch,
+                                                                name):
+    """The wgmma forward's gathered, owner-masked online softmax (lists
+    ending mid-step, a ragged last group, a row that sees no key),
+    emulated in numpy over the plan's walk, against the JAX
+    `block_sparse_flash_attention` (its Pallas kernel in interpret mode)
+    on the same bf16-representable inputs."""
+    import functools as ft
+
+    import jax.experimental.pallas as pl
+    from deepspeed_tpu.ops import sparse_flash as jsf
+    monkeypatch.setattr(pl, "pallas_call",
+                        ft.partial(pl.pallas_call, interpret=True))
+    layout, block, causal = _fwd_emulation_layouts()[name]
+    H, nb, _ = layout.shape
+    rng = np.random.RandomState(nb + block)
+    q, k, v = (_bf16(rng.randn(2, nb * block, H, 64).astype(np.float32))
+               for _ in range(3))
+    kidx = tsparse._layout_to_gather(layout)
+    scale = 1.0 / 8.0
+    got, got_lse = _emulate_sparse_forward(q, k, v, kidx, block, causal,
+                                           scale)
+    ref, ref_lse = (np.asarray(t) for t in jsf.block_sparse_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kidx, block,
+        causal=causal, return_lse=True))
+    assert (np.abs(got - ref) <= FWD_ATOL + FWD_RTOL * np.abs(ref)).all()
+    assert np.abs(got_lse - ref_lse.reshape(got_lse.shape)).max() <= FWD_LSE
+    if name == "masked-row16":
+        assert (got[:, 2 * block:3 * block, 0] == 0).all()
