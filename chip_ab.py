@@ -3,7 +3,7 @@
 
     python3 chip_ab.py DIR_A DIR_B [--rounds N]
                        [--what train|paged|paged_plans|sparse|evoformer|
-                               tile|flash|lora]
+                               evoformer_plans|tile|flash|lora]
                        [--train-layers N]
 
 Each DIR holds a `deepspeed_tpu_torch` package (for example one unpacked
@@ -40,7 +40,14 @@ B, A per round, each in a process of its own that builds its own kernels
 - `--what evoformer`: the Evoformer forward, dq, dk/dv (with db1 where
   the mask bias requires grad) and db2 kernels' device time, and the
   backward's sum, at phase 12's MSA row, triangle and extra-MSA row shapes
-  (chip_smoke's `EVO_SHAPES` and `evo_inputs`);
+  (chip_smoke's `EVO_SHAPES` and `evo_inputs`), on the kernels each
+  package routes to (`<shape>_routes`: the forward's and db2's variants);
+  `--what evoformer_plans` (a package with the plans, given as both DIRs
+  for the spread) times the forward under rows 1-8 a CTA and db2 under
+  1-16 splits at those shapes (CUDA graphs), beside the first kernels,
+  and the new forward and db2 kernels against the first ones at phase
+  1's other bf16 cases (`evo_cases`) and at longer rows (`EVO_LONG`: L
+  384-1024, the forward's strip in shared memory up to its limit);
 - `--what tile`: the tile GEMM's device time at phase 13's decode hops
   (warm, and with the L2 flushed before each call: chip_smoke's
   `cold_time_ms`) and NC=2 prefill hops (chip_smoke's `tile_hop_shapes`),
@@ -256,6 +263,115 @@ def evoformer_worker(cs, np, torch):
                   q, k, v, b1, b2, do, lse, delta))}
         ms["bwd"] = ms["dq"] + ms["dkv"] + ms["db2"]
         res.update({f"{name}_{k_}_ms": float(t) for k_, t in ms.items()})
+        # the kernels this package routes the forward and db2 to (a
+        # package without the rules ran its only kernels)
+        B, N, L, H, D = shape
+        res[f"{name}_routes"] = (
+            f"{ef.fwd_variant(q.dtype, D, L, b2.dtype)}/"
+            f"{ef.db2_variant(q.dtype, D, L, N)}"
+            if hasattr(ef, "db2_variant") else "mma/mma")
+        del q, k, v, b1, b2, do, out, lse, delta
+        torch.cuda.empty_cache()
+    return res
+
+
+# AlphaFold 2's fine-tuning crop (L 384) and longer rows, at the MSA row's
+# (H 8, D 32) and extra-MSA row's (H 8, D 8) widths and at D 64 and 128,
+# N cut to 32 (64 at D 8): (N, L, H, D, pair-bias dtype)
+EVO_LONG = [(32, L, 8, 32, "bf16") for L in (384, 512, 768, 1024)] + [
+    (64, L, 8, 8, "bf16") for L in (384, 512, 768, 1024)] + [
+    (32, 384, 8, 64, "bf16"), (32, 768, 8, 64, "bf16"),
+    (32, 384, 8, 128, "bf16"), (32, 768, 8, 128, "bf16"),
+    (32, 384, 8, 32, "f32"), (32, 384, 8, 128, "f32")]
+
+
+def evoformer_plans_worker(cs, np, torch):
+    """Device ms (CUDA graphs) of the Evoformer forward under rows 1-8 a
+    CTA and of db2 under 1-16 splits at phase 12's shapes, on the new
+    kernels the package routes the shape to (its plans' choices are
+    `<shape>_fwd_plan_rows` / `_db2_plan_splits`; the others are run by
+    replacing `fwd_plan` / `db2_plan` for the call), beside the first
+    kernels (`variant="mma"`); the new forward and db2 kernels (named by
+    D) against the first ones at phase 1's other bf16 cases (`evo_cases`)
+    and at the long rows of EVO_LONG (`long_<N>x<L>x<H>x<D>_<b2>_*`, with
+    the variants the rules name and the plans' rows and splits)."""
+    from deepspeed_tpu_torch.ops import _scratch
+    from deepspeed_tpu_torch.ops import evoformer_flash as ef
+    sms = _scratch.sm_count(torch.device("cuda"))
+    res = {}
+
+    def planned(name, value, call):
+        """`call`'s device ms with the plan `name` giving `value`."""
+        kept = getattr(ef, name)
+        setattr(ef, name, lambda *args: value)
+        try:
+            return cs.graph_time_ms(call)
+        finally:
+            setattr(ef, name, kept)
+
+    for name, shape, _ in cs.EVO_SHAPES:
+        B, N, L, H, D = shape
+        g = torch.Generator(device="cuda").manual_seed(12)
+        q, k, v, b1, b2 = cs.evo_inputs(torch, g, "cuda", *shape,
+                                        torch.bfloat16)
+        do = torch.randn(q.shape, generator=g, device="cuda", dtype=q.dtype)
+        out, lse = ef.evoformer_flash_forward(q, k, v, b1, b2,
+                                              return_lse=True)
+        _, delta = ef.evoformer_flash_dq(q, k, v, b1, b2, out, do, lse)
+        res[f"{name}_fwd_plan_rows"] = ef.fwd_plan(B, N, L, H, D, b2.dtype,
+                                                   sms)
+        res[f"{name}_db2_plan_splits"] = ef.db2_plan(B, N, L, H, D,
+                                                     b2.dtype, sms)
+        res[f"{name}_fwd_first_ms"] = cs.graph_time_ms(
+            lambda: ef.evoformer_flash_forward(q, k, v, b1, b2,
+                                               return_lse=True,
+                                               variant="mma"))
+        res[f"{name}_db2_first_ms"] = cs.graph_time_ms(
+            lambda: ef.evoformer_flash_db2(q, k, v, b1, b2, do, lse, delta,
+                                           variant="mma"))
+        for rows in (1, 2, 3, 4, 6, 8):
+            res[f"{name}_fwd_rows{rows}_ms"] = planned(
+                "fwd_plan", rows, lambda: ef.evoformer_flash_forward(
+                    q, k, v, b1, b2, return_lse=True))
+        for splits in (1, 2, 3, 4, 6, 8, 16):
+            res[f"{name}_db2_splits{splits}_ms"] = planned(
+                "db2_plan", splits, lambda: ef.evoformer_flash_db2(
+                    q, k, v, b1, b2, do, lse, delta))
+        del q, k, v, b1, b2, do, out, lse, delta
+        torch.cuda.empty_cache()
+    cases = [(f"case_{B}x{N}x{L}x{H}x{D}", B, N, L, H, D, torch.bfloat16)
+             for B, N, L, H, D, dt, _, _ in cs.evo_cases(torch)[1:]
+             if dt == torch.bfloat16]
+    cases += [(f"long_{N}x{L}x{H}x{D}_{b2t}", 1, N, L, H, D,
+               torch.bfloat16 if b2t == "bf16" else torch.float32)
+              for N, L, H, D, b2t in EVO_LONG]
+    # the new forward and db2 kernels (named) beside the first
+    for name, B, N, L, H, D, b2_dtype in cases:
+        g = torch.Generator(device="cuda").manual_seed(12)
+        q, k, v, b1, b2 = cs.evo_inputs(torch, g, "cuda", B, N, L, H, D,
+                                        torch.bfloat16)
+        b2 = b2.to(b2_dtype)
+        do = torch.randn(q.shape, generator=g, device="cuda", dtype=q.dtype)
+        out, lse = ef.evoformer_flash_forward(q, k, v, b1, b2,
+                                              return_lse=True)
+        _, delta = ef.evoformer_flash_dq(q, k, v, b1, b2, out, do, lse)
+        # the new kernels by D, named (the rule may route elsewhere)
+        wg = D in ef.WGMMA_HEAD_DIMS
+        fv, dv = ("wgmma", "wgmma") if wg else ("rows", "split")
+        res[f"{name}_fwd_routed"] = ef.fwd_variant(q.dtype, D, L, b2_dtype)
+        res[f"{name}_db2_routed"] = ef.db2_variant(q.dtype, D, L, N)
+        res[f"{name}_fwd_plan_rows"] = ef.fwd_plan(B, N, L, H, D, b2_dtype,
+                                                   sms)
+        res[f"{name}_db2_plan_splits"] = ef.db2_plan(B, N, L, H, D,
+                                                     b2_dtype, sms)
+        for kernel, vr in (("fwd", fv), ("fwd", "mma"), ("db2", dv),
+                           ("db2", "mma")):
+            call = (lambda vr=vr: ef.evoformer_flash_forward(
+                        q, k, v, b1, b2, return_lse=True, variant=vr)) \
+                if kernel == "fwd" else \
+                (lambda vr=vr: ef.evoformer_flash_db2(
+                    q, k, v, b1, b2, do, lse, delta, variant=vr))
+            res[f"{name}_{kernel}_{vr}_ms"] = cs.graph_time_ms(call)
         del q, k, v, b1, b2, do, out, lse, delta
         torch.cuda.empty_cache()
     return res
@@ -322,7 +438,8 @@ def worker(pkg_dir, train_layers, what):
     package = os.path.dirname(deepspeed_tpu_torch.__file__)
     workers = {"paged": paged_worker, "paged_plans": paged_plans_worker,
                "sparse": sparse_worker, "lora": lora_worker,
-               "evoformer": evoformer_worker, "tile": tile_worker,
+               "evoformer": evoformer_worker,
+               "evoformer_plans": evoformer_plans_worker, "tile": tile_worker,
                "flash": flash_worker}
     if what in workers:
         print("AB " + json.dumps(dict(package=package, **workers[what](
@@ -358,7 +475,8 @@ def main(argv=None):
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--what", default="train",
                     choices=("train", "paged", "paged_plans", "sparse",
-                             "evoformer", "tile", "flash", "lora"))
+                             "evoformer", "evoformer_plans", "tile", "flash",
+                             "lora"))
     ap.add_argument("--train-layers", type=int, default=24)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -389,7 +507,8 @@ def main(argv=None):
     keys = {"train": ("delta_ms", "dq_ms", "dkv_ms", "bwd_ms", "step_ms",
                       "tokens_per_s", "mfu", "first_loss")}.get(args.what)
     if keys is None:   # the others: every number the runs share
-        keys = [k for k in runs[0] if k not in ("label", "package")]
+        keys = [k for k in runs[0] if k not in ("label", "package")
+                and isinstance(runs[0][k], (int, float))]
     for key in keys:
         print(f"{key}: " + ", ".join(f"{r['label']} {r[key]:.6g}"
                                      for r in runs))

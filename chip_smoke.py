@@ -90,12 +90,16 @@ Phases (any failure exits non-zero and prints no result):
      H, D] bf16), with a f32 mask bias (15% of keys at -1e9) and a bf16
      pair bias that requires grad (the mask bias too at the MSA row): one
      launch of each kernel per call (counters reset just before; the db1
-     epilogue only where the mask bias requires grad), dq and dk/dv on
-     the pair `bwd_variant` names (TMA + wgmma at D 32, mma.sync at the
-     extra-MSA row's D 8; launches by variant), a rerun bit-identical, out
-     and every gradient against the plain versions, forward and backward
-     ms and each backward kernel's (dq, dk/dv, db2) against their bounds
-     and against SDPA with the summed bias as a dense float mask.
+     epilogue only where the mask bias requires grad), every kernel on the
+     variant its rule names (`fwd_variant`, `bwd_variant`, `db2_variant`:
+     TMA + wgmma at D 32, mma.sync at the extra-MSA row's D 8; launches by
+     variant), a rerun bit-identical, out and every gradient against the
+     plain versions, forward and backward ms and each backward kernel's
+     (dq, dk/dv, db2) against their bounds and against SDPA with the
+     summed bias as a dense float mask; then the gate: the routed forward
+     and db2 against the first kernels (`variant="mma"`), CUDA graphs in
+     turns in this call, failing where a routed kernel takes more than
+     EVO_GATE (1.05) times the first.
 Every profile must hold each launch the kernels' counters saw in it (a
 session that dropped device events is repeated).  The bf16 paged prefill
 and decode run on their TMA kernels (`variant` "tma"): phase 1 holds them
@@ -116,10 +120,13 @@ blocks no row visits, over every walk the plan can take, the forward
 against the mma.sync kernel; f32, block 8 and 128, head dims 192 and
 256; reruns bit-identical), the
 four Evoformer kernels (at phase 12's MSA row shape, D 8, 64 and 128, f32,
-L 100 with a fully masked row, each bias alone and none, each case's dq
-and dk/dv on the pair `bwd_variant` names; a mask bias view off the
-16-byte boundary through `evoformer_attention`, and B*N = 70000 rows
-past the grid limit) and the tile GEMM of the tensor-parallel
+L 100 with a fully masked row, each bias alone and none, each case's
+kernels on the variants the rules name, and at every bf16 case the
+first forward and db2 kernels against the plain versions too and phase
+12's gate of the forward and db2 against the first kernels; the main
+shape's forward and db2 timed beside the first kernels; a mask bias view
+off the 16-byte boundary through `evoformer_attention`, and B*N = 70000
+rows past the grid limit) and the tile GEMM of the tensor-parallel
 ring (at every per-hop shape of phase 13's wave at tp 2 and 4, bf16 and
 f32, and at edges: M 1, K 2752, N 1001, a misaligned view, M tiles past
 the grid limit; each case prints the kernel `tile_plan` gave it, and a
@@ -2842,19 +2849,104 @@ def evo_sdpa_times(torch, q, k, v, b1, b2, do, timer=time_ms):
     fail("no SDPA backend runs the Evoformer shapes with a dense mask")
 
 
+# the routed Evoformer forward and db2 may take this much longer than the
+# first kernels (`variant="mma"`), timed in the same call, before the gate
+# calls the rule wrong
+EVO_GATE = 1.05
+
+
+def evo_gate(torch, ef, desc, q, k, v, b1, b2, do, lse, delta,
+             timer=graph_time_ms):
+    """The forward and (with a pair bias) db2 on the kernels their rules
+    route to and on the first kernels ("mma"), timed in turns (first,
+    routed, routed, first; CUDA graphs of 20 calls: device time without
+    host gaps) in this call; fails where a routed kernel takes more than
+    EVO_GATE times the first.  Returns {kernel: {variant, ms, first_ms,
+    ratio}} (ms None where the rule routes to the first kernel)."""
+    B, N, L, H, D = q.shape
+    calls = {"fwd": (ef.fwd_variant(q.dtype, D, L, bias_dtype(b2)),
+                     lambda vr: ef.evoformer_flash_forward(
+                         q, k, v, b1, b2, return_lse=True, variant=vr))}
+    if b2 is not None:
+        calls["db2"] = (ef.db2_variant(q.dtype, D, L, N),
+                        lambda vr: ef.evoformer_flash_db2(
+                            q, k, v, b1, b2, do, lse, delta, variant=vr))
+    res = {}
+    for name, (routed, call) in calls.items():
+        if routed == "mma":
+            res[name] = dict(variant=routed, ms=None, first_ms=None,
+                             ratio=None)
+            continue
+        t = {"mma": [], routed: []}
+        for vr in ("mma", routed, routed, "mma"):
+            t[vr].append(float(timer(lambda: call(vr))))
+        ms, first = sum(t[routed]) / 2, sum(t["mma"]) / 2
+        res[name] = dict(variant=routed, ms=ms, first_ms=first,
+                         ratio=ms / first)
+        if ms > EVO_GATE * first:
+            fail(f"Evoformer gate at {desc}: the routed {name} kernel "
+                 f"({routed}) takes {ms:.4f} ms, the first kernel "
+                 f"{first:.4f} ms (more than {EVO_GATE}x): route this shape "
+                 f"to the first kernel")
+    return res
+
+
+def bias_dtype(b2):
+    """The pair bias's dtype as the forward's rule takes it (None: no pair
+    bias)."""
+    return None if b2 is None else b2.dtype
+
+
+def gate_text(gate):
+    return ", ".join(
+        f"{n} {g['variant']}" + ("" if g["ms"] is None else
+                                 f" {g['ms']:.4f} ms vs first "
+                                 f"{g['first_ms']:.4f} ({g['ratio']:.2f}x)")
+        for n, g in gate.items())
+
+
 # (B, N, L, H, D, dtype, biases, a fully masked row): phase 12's MSA row
-# shape first (timed), then D 8 (the extra-MSA width), D 64 with the mask
-# bias only, D 128 with the pair bias only, f32, a tail (L 100) with a
-# fully masked row, no bias at D 16
+# shape first (timed), then D 8 (the extra-MSA width), AlphaFold 2's
+# fine-tuning crop (L 384) at the MSA row's and the extra-MSA row's widths
+# with N cut to 32 and 64, D 64 with the mask bias only, D 128 with the
+# pair bias only, f32, a tail (L 100) with a fully masked row, no bias at
+# D 16
 def evo_cases(torch):
     bf16, f32 = torch.bfloat16, torch.float32
     return [EVO_SHAPES[0][1] + (bf16, "both", False),
             (1, 16, 256, 8, 8, bf16, "both", False),
+            (1, 32, 384, 8, 32, bf16, "both", False),
+            (1, 64, 384, 8, 8, bf16, "both", False),
             (1, 8, 128, 4, 64, bf16, "b1", False),
             (1, 4, 128, 2, 128, bf16, "b2", False),
             (1, 4, 128, 4, 32, f32, "both", False),
             (1, 4, 100, 4, 32, bf16, "both", True),
             (1, 4, 64, 2, 16, bf16, "none", False)]
+
+
+def evo_first_errors(torch, ef, q, k, v, b1, b2, do, lse, delta, ref,
+                     ref_lse, want_db2, mask_row):
+    """The first forward and (with a pair bias) db2 kernels (`variant=
+    "mma"`) against the plain versions' out, lse and db2, with the limits
+    the routed kernels are held to (and, with a fully masked row, its out
+    0 and lse at the mask level).  Returns {out, lse, db2 (evo_close's
+    pair or None), db2_abs, ok}."""
+    out, lse1 = ef.evoformer_flash_forward(q, k, v, b1, b2, return_lse=True,
+                                           variant="mma")
+    db2 = (ef.evoformer_flash_db2(q, k, v, b1, b2, do, lse, delta,
+                                  variant="mma") if b2 is not None else None)
+    torch.cuda.synchronize()
+    B, N, L, H, _ = q.shape
+    el = max_err(lse1, ref_lse)
+    res = evo_close(db2, want_db2) if db2 is not None else None
+    ok = kernel_close(out, ref) and el <= LSE_ATOL and (res is None
+                                                        or res[0])
+    if mask_row:
+        ok = ok and bool((out[0, 0] == 0).all()) and float(
+            lse1.view(B, N, H, L)[0, 0].max()) <= -1e29
+    return dict(out=max_err(out, ref), lse=el, db2=res,
+                db2_abs=max_err(db2, want_db2) if db2 is not None else 0.0,
+                ok=ok)
 
 
 def check_evoformer(torch, ef, dev):
@@ -2866,12 +2958,13 @@ def check_evoformer(torch, ef, dev):
     errs = {n: [] for n in ("fwd", "dq", "dkv", "db2", "db1")}
     rel = {n: 0.0 for n in ("dq", "dk", "dv", "db1", "db2")}
     pair = [ef.evoformer_flash_dq, ef.evoformer_flash_dkv]
-    main = None
+    fwd_db2 = [ef.evoformer_flash_forward, ef.evoformer_flash_db2]
+    main, gates = None, {}
     for B, N, L, H, D, dt, which, mask_row in evo_cases(torch):
         q, k, v, b1, b2 = evo_inputs(torch, g, dev, B, N, L, H, D, dt,
                                      which, mask_row)
         do = torch.randn(B, N, L, H, D, generator=g, device=dev, dtype=dt)
-        reset_counts(pair)
+        reset_counts(pair + fwd_db2)
         out, lse = ef.evoformer_flash_forward(q, k, v, b1, b2,
                                               return_lse=True)
         ref, ref_lse = ef.evoformer_flash_forward_reference(q, k, v, b1, b2)
@@ -2897,23 +2990,50 @@ def check_evoformer(torch, ef, dev):
                    for a, b in zip(got, again))
         desc = (f"B={B} N={N} L={L} H={H} D={D} {str(dt)[6:]} biases "
                 f"{which}" + (" masked row" if mask_row else ""))
-        # dq and dk/dv ran twice each, all on the pair bwd_variant names;
-        # bf16 at D 32, 64 and 128 on the TMA + wgmma pair
+        # dq and dk/dv ran twice each, all on the pair bwd_variant names
+        # (bf16 at D 32, 64 and 128 on the TMA + wgmma pair); the forward
+        # once and db2 twice, on the kernels fwd_variant and db2_variant
+        # name
         variant = ef.bwd_variant(dt, D, L)
-        variants = by_variant(pair)
+        fv = ef.fwd_variant(dt, D, L, bias_dtype(b2))
+        d2v = ef.db2_variant(dt, D, L, N)
+        variants = by_variant(pair + fwd_db2)
         want_v = {c.__name__: {n: 2 if n == variant else 0
                                for n in c.launches_by_variant}
                   for c in pair}
-        wgmma_ok = (variant == "wgmma") == (dt == torch.bfloat16
-                                            and D in (32, 64, 128))
+        want_v["evoformer_flash_forward"] = {
+            n: int(n == fv) for n in ef.FWD_VARIANTS}
+        want_v["evoformer_flash_db2"] = {
+            n: 2 * int(n == d2v and b2 is not None) for n in ef.DB2_VARIANTS}
+        wgmma_ok = ((variant == "wgmma") == (bf and D in (32, 64, 128))
+                    and (fv == "wgmma") == (bf and D in (32, 64, 128)
+                                            and ef.fwd_smem(
+                                                "wgmma", D, L,
+                                                bias_dtype(b2))
+                                            <= ef.SMEM_MAX))
+        # the first forward and db2 kernels, which still serve bf16 at
+        # long L and db2 at few rows, against the same plain versions
+        first = evo_first_errors(torch, ef, q, k, v, b1, b2, do, lse,
+                                 delta, ref, ref_lse, want[4],
+                                 mask_row) if bf else {}
+        gate = evo_gate(torch, ef, desc, q, k, v, b1, b2, do, lse,
+                        delta) if bf else {}
+        gates[desc] = gate
         print(f"  evoformer {desc}: max|dout|={max_err(out, ref):.3e} "
               f"max|dlse|={el:.3e} max|ddelta|={ed:.3e}; max|d| / "
               f"max|plain| " + ", ".join(f"{n} {r[1]:.3e}"
                                          for n, r in res.items())
               + f"; rerun bit-identical: {same}; dq and dk/dv on "
-                f"{variant}")
+                f"{variant}, forward on {fv}, db2 on {d2v}"
+              + (f"; first kernels max|dout|={first['out']:.3e} "
+                 f"max|dlse|={first['lse']:.3e}"
+                 + ("" if first["db2"] is None else
+                    f" db2 max|d| / max|plain| {first['db2'][1]:.3e}")
+                 if first else "")
+              + (f"; gate (CUDA graphs, same call): {gate_text(gate)}"
+                 if gate else ""))
         if variants != want_v or not wgmma_ok:
-            fail(f"Evoformer dq and dk/dv at {desc} ran {variants}, want "
+            fail(f"Evoformer kernels at {desc} ran {variants}, want "
                  f"{want_v} (bf16 at D 32, 64 and 128 on wgmma)")
         masked_ok = True
         if mask_row:
@@ -2924,18 +3044,21 @@ def check_evoformer(torch, ef, dev):
                          and bool((dq[0, 0] == 0).all()))
         if not (fwd_ok and el <= LSE_ATOL and ed <= 1e-5 * max(
                 float(delta.abs().max()), 1.0) and same and masked_ok
-                and all(r[0] for r in res.values())):
+                and all(r[0] for r in res.values())
+                and (not first or first["ok"])):
             fail(f"Evoformer kernels disagree with their plain versions at "
                  f"{desc}: out {max_err(out, ref)} (tol {TOL_TEXT}), lse "
                  f"{el}, delta {ed}, backward {res} (tol {BWD_TOL_TEXT}), "
-                 f"rerun equal {same}, masked row {masked_ok}")
-        errs["fwd"].append(max_err(out, ref))
+                 f"rerun equal {same}, masked row {masked_ok}; the first "
+                 f"forward and db2 kernels {first}")
+        errs["fwd"].append(max(max_err(out, ref), first.get("out", 0.0)))
         errs["dq"].append(max_err(dq, want[0]))
         errs["dkv"].append(max(max_err(dk, want[1]), max_err(dv, want[2])))
         if db1 is not None:
             errs["db1"].append(max_err(db1, want[3]))
         if db2 is not None:
-            errs["db2"].append(max_err(db2, want[4]))
+            errs["db2"].append(max(max_err(db2, want[4]),
+                                   first.get("db2_abs", 0.0)))
         for n, r in res.items():
             rel[n] = max(rel[n], r[1])
         if main is None:
@@ -2951,6 +3074,11 @@ def check_evoformer(torch, ef, dev):
               q, k, v, b1, b2, do, lse, delta)),
           "db2": time_ms(lambda: ef.evoformer_flash_db2(
               q, k, v, b1, b2, do, lse, delta))}
+    # the first forward and db2 kernels, which the new ones replaced
+    first = {"fwd": time_ms(lambda: ef.evoformer_flash_forward(
+                 q, k, v, b1, b2, return_lse=True, variant="mma")),
+             "db2": time_ms(lambda: ef.evoformer_flash_db2(
+                 q, k, v, b1, b2, do, lse, delta, variant="mma"))}
     plain = {"fwd": time_ms(lambda: ef.evoformer_flash_forward_reference(
                  q, k, v, b1, b2), iters=3, warmup=1),
              "dq": time_ms(lambda: ef.evoformer_flash_dq_reference(
@@ -2994,11 +3122,18 @@ def check_evoformer(torch, ef, dev):
                            "are the dk/dv kernel's with db1)")
         if kname in ("dq", "dkv"):
             row["variant"] = ef.bwd_variant(q.dtype, D, L)
+        if kname in first:
+            row["variant"] = (ef.fwd_variant(q.dtype, D, L, bias_dtype(b2))
+                              if kname == "fwd"
+                              else ef.db2_variant(q.dtype, D, L, N))
+            row["first_ms"] = first[kname]
+            row["gate"] = gates[next(iter(gates))][kname]
         rows.append(row)
     print(f"  Evoformer at the MSA row shape: " + ", ".join(
         f"{r['name']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
-        f"{r['bound_by']}, plain {r['plain_ms']:.4f})" for r in rows
-        if r["name"] not in ("evo_fwd_dmajor", "evo_db1"))
+        f"{r['bound_by']}, plain {r['plain_ms']:.4f}"
+        + (f", first kernel {r['first_ms']:.4f}" if "first_ms" in r else "")
+        + ")" for r in rows if r["name"] not in ("evo_fwd_dmajor", "evo_db1"))
         + f"; SDPA {backend} {lib_fwd:.4f} / {lib_bwd:.4f} ms (mask grad "
           f"{mask_grad}); highest max|d| / max|plain| " + ", ".join(
               f"{n} {r:.3e}" for n, r in rel.items()))
@@ -3145,6 +3280,8 @@ def evoformer_path(torch, evo, ef, counters, shapes=EVO_SHAPES,
                 qd, kd, vd, b1d, b2d, do, lse, delta, need_db1=b1_grad)),
             "db2_ms": time_ms(lambda: ef.evoformer_flash_db2(
                 qd, kd, vd, b1d, b2d, do, lse, delta))}
+        gate = evo_gate(torch, ef, name, qd, kd, vd, b1d, b2d, do, lse,
+                        delta)
         work = evo_work(qd, b1d, b2d, b1_grad)
         fwd_bound, bwd_bound = bound_ms(*work["fwd"]), bound_ms(*work["bwd"])
         sdpa_fwd, sdpa_bwd, backend, mask_grad = evo_sdpa_times(
@@ -3159,7 +3296,8 @@ def evoformer_path(torch, evo, ef, counters, shapes=EVO_SHAPES,
                    fwd_bound_by=fwd_bound[1], bwd_ms=bwd_ms,
                    bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
                    sdpa_backend=backend, sdpa_mask_grad=mask_grad,
-                   sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd, **kernel_ms)
+                   sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd, gate=gate,
+                   **kernel_ms)
         row["clocks"] = clocks(row)
         print(f"phase 12: {name} q/k/v {list(shape)} (mask bias "
               f"{'requires' if b1_grad else 'without'} grad): launches "
@@ -3171,18 +3309,24 @@ def evoformer_path(torch, evo, ef, counters, shapes=EVO_SHAPES,
               f"{fwd_bound[1]}), backward {bwd_ms:.4f} ms (bound "
               f"{bwd_bound[0]:.4f}, {bwd_bound[1]}): dq "
               f"{kernel_ms['dq_ms']:.4f}, dk/dv {kernel_ms['dkv_ms']:.4f}, "
-              f"db2 {kernel_ms['db2_ms']:.4f}; dq and dk/dv launches by "
-              f"variant {variants}; SDPA {backend} (mask grad {mask_grad}) "
+              f"db2 {kernel_ms['db2_ms']:.4f}; launches by variant "
+              f"{variants}; gate (CUDA graphs, same call): "
+              f"{gate_text(gate)}; SDPA {backend} (mask grad {mask_grad}) "
               f"{sdpa_fwd:.4f} / {sdpa_bwd:.4f} ms; clocks {row['clocks']}")
         want_launches = {c.__name__: 1 for c in counters}
         want_launches["evoformer_flash_db1"] = int(b1_grad)
         if launches != want_launches:
             fail(f"{name}: launches {launches}, want {want_launches}")
-        pair_variant = ef.bwd_variant(torch.bfloat16, D, L)
-        want_variants = {fn: {v_: int(v_ == pair_variant) for v_ in counts}
+        bf16 = torch.bfloat16
+        rules = {"evoformer_flash_forward": ef.fwd_variant(bf16, D, L,
+                                                           bias_dtype(b2)),
+                 "evoformer_flash_dq": ef.bwd_variant(bf16, D, L),
+                 "evoformer_flash_dkv": ef.bwd_variant(bf16, D, L),
+                 "evoformer_flash_db2": ef.db2_variant(bf16, D, L, N)}
+        want_variants = {fn: {v_: int(v_ == rules[fn]) for v_ in counts}
                          for fn, counts in variants.items()}
         if variants != want_variants:
-            fail(f"{name}: dq and dk/dv ran {variants}, want "
+            fail(f"{name}: the Evoformer kernels ran {variants}, want "
                  f"{want_variants}")
         if not (same and out_ok and el <= LSE_ATOL and finite
                 and all(r[0] for r in res.values())):

@@ -510,4 +510,23 @@ __device__ __forceinline__ void zero16(float (*s)[4]) {
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 }
 
+// 16-byte asynchronous copies into shared memory (cp.async, tile_matmul.cu
+// and the Evoformer kernels that stage rows a step ahead); src-size 0
+// writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 }  // namespace dstt

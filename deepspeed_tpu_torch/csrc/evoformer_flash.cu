@@ -9,14 +9,18 @@
 //   evo_dq_*: `_bwd_dq_kernel` (:379);
 //   evo_dkv_*: `_bwd_dkv_kernel` (:405) and, as its epilogue, the mask-bias
 //     gradient `_bwd_db1_kernel` (:479);
-// dq and dk/dv come as three pairs (`ops.evoformer_flash.bwd_variant`
-// names the one inputs take): TMA + wgmma for bf16 at D 32, 64 and 128
-// (evo_dq_wgmma, evo_dkv_wgmma), mma.sync through registers for bf16 at
-// every other D (evo_dq_mma, evo_dkv_mma: D 8, the extra-MSA width, would
-// run 4x padded on wgmma, whose products contract D in whole 16-column
-// steps of a swizzled row) and the CUDA cores for f32.
 //   evo_db2_*: the pair-bias gradient `_bwd_db2_kernel` (:442).
-//
+// Each comes in variants (`ops.evoformer_flash.fwd_variant`, `bwd_variant`
+// and `db2_variant` name the one inputs take): for bf16, TMA + wgmma at D
+// 32, 64 and 128 (evo_fwd_wgmma, evo_dq_wgmma, evo_dkv_wgmma,
+// evo_db2_wgmma) and mma.sync through registers at every other D
+// (evo_fwd_rows, evo_dq_mma, evo_dkv_mma, evo_db2_split: D 8, the
+// extra-MSA width, would run 4x padded on wgmma, whose products contract D
+// in whole 16-column steps of a swizzled row); the CUDA cores for f32.  The
+// first forward and db2 kernels (evo_fwd_mma, one CTA a row n; evo_db2_mma,
+// one CTA walking every row) stay for L whose forward strip does not fit
+// shared memory, for db2 at D <= 32 with few rows, and for timing
+// (`variant="mma"`).
 // Layout (the JAX public one, no transposes): q, k, v, out, dO, dq, dk, dv
 // [B, N, L, H, D]; the mask bias b1 [B, N, 1, 1, L] read as [B*N, L], the
 // pair bias b2 [B, 1, H, L, L] read as [B, H, L, L], each f32 or bf16 (its
@@ -35,18 +39,24 @@
 // instead (a difference within the bf16 rounding of q); the f32 kernels
 // scale q first.
 //
-//   forward, grid (ceil(L/64), H, B*N): one CTA per 64-row query tile of
-//     one (row, head) stages K, V and its b1 key row 256 keys at a time
-//     (one barrier pair per 256 keys), and each warp then walks the 64-key
-//     tiles on its own with an online softmax in f32 (m, l and the output
-//     in registers), adding the pair bias from device memory into its
-//     score fragment (the JAX kernel's [bq, bk] copies of b1 are TPU
-//     tiling); out and lse = m + log(l);
-//   dq (mma), same grid: delta = rowsum(dO * O) of its rows from out as
-//     stored (written to `delta` for the other two kernels, which run
-//     after it on the stream), then K and V staged as in the forward, and
-//     per 16-key slice P = exp(s - lse), dP = dO V^T, dS = P (dP - delta),
-//     dQ += dS K; dq = dQ * scale, written once;
+//   forward (evo_fwd_wgmma, evo_fwd_rows), grid (ceil(L/64), H, B *
+//     groups): one CTA per 64-row query tile of one (b, h) walks `rows`
+//     rows n (the host's `fwd_plan`: 4 at AlphaFold 2's shapes) with the
+//     pair-bias strip [64 queries, L keys] resident in shared memory, in
+//     b2's dtype (TMA boxes, loaded once a CTA: b2 does not depend on n),
+//     and per row an online softmax over 64-key tiles in f32 (m, l and the
+//     output in registers; P rounded to bf16 for P V); out and lse = m +
+//     log(l) once a row.  Any L whose strip fits beside the kernel's tiles
+//     (bf16 b2: L 1536 at D 32, 768 at D 128; f32 half that), for
+//     evo_fwd_rows while two CTAs fit an SM (L 704 at D 8: at one it ran
+//     1.6x the first kernel on an H100); past it,
+//     evo_fwd_mma: one CTA per 64-row tile of one (row, head), K, V and b1
+//     staged 256 keys at a time, the pair bias added from device memory;
+//   dq (mma), grid (ceil(L/64), H, B*N): delta = rowsum(dO * O) of its
+//     rows from out as stored (written to `delta` for the other two
+//     kernels, which run after it on the stream), then K and V staged as
+//     in the first forward, and per 16-key slice P = exp(s - lse), dP = dO
+//     V^T, dS = P (dP - delta), dQ += dS K; dq = dQ * scale, written once;
 //   dk/dv (mma), grid (ceil(L/64), B*N): one CTA per 64-key tile of a row
 //     walks the heads and, for each, the 64-query tiles (Q, dO, lse, delta
 //     and the pair-bias tile staged in shared memory): P^T and dS^T as
@@ -56,23 +66,29 @@
 //     key add with two shuffles: db1 written once;
 //   dq and dk/dv (wgmma): the same work and order of sums, warp-
 //     specialised (see evo_dq_wgmma and evo_dkv_wgmma below);
-//   db2, grid (ceil(L/64) query tiles, ceil(L/64) key tiles, B*H): one CTA
-//     per [64, 64] tile of the pair bias (held in shared memory for every
-//     row) walks the N rows and sums dS in f32 registers: G groups of four
-//     warps take the rows n = g, g + G, ... and group 0 adds the groups'
-//     partial tiles in the order g = 0 .. G-1.  The reference CUTLASS
-//     kernel sums with float atomics, whose order changes from run to
-//     run; here nothing accumulates with atomics, so two runs give the
-//     same bits.
-// The B*N (B*H) axis of each grid stops at the 65535 limit of the y and z
-// axes: each kernel is a grid-stride loop over its slices (`*_slice` is
-// one slice's work), so any B*N is served.
+//   db2 (evo_db2_wgmma, evo_db2_split), grid (ceil(L/64)^2 tiles, splits,
+//     B*H): the N rows of each [64, 64] tile of one (b, h) are split over
+//     `splits` CTAs (the host's `db2_plan`: one wave of resident CTAs),
+//     each holding the pair-bias tile (TMA, b2's dtype) and summing dS
+//     over its rows in order in f32 registers; each split stores its
+//     partial, takes an integer ticket, and the CTA with the last ticket
+//     adds the partials in split order, writes db2 once and sets the
+//     ticket back to 0 (the paged kernels' merge).  evo_db2_mma: one CTA a
+//     tile walking every row, G groups of four warps on rows n = g, g + G,
+//     ... added in the order g = 0 .. G-1.  The reference CUTLASS kernel
+//     sums with float atomics, whose order changes from run to run; here
+//     nothing accumulates with atomics, so two runs give the same bits.
+// The B*N (B*H, B*groups) axis of each grid stops at the 65535 limit of
+// the y and z axes: each kernel is a grid-stride loop over its slices
+// (`*_slice` is one slice's work), so any B*N is served.
 //
-// The bf16 mma forms (the forward, db2, and dq and dk/dv where D is not
-// 32, 64 or 128) run on the tensor cores (mma.sync m16n8k16, f32
-// accumulate): four warps of 16 rows, the tiles staged in shared memory as bf16 rows of
-// DP + 8 elements, where DP is D rounded up to 16, 32, 64 or 128 and the
-// columns past D are zero (D 8, the extra-MSA stack's width, runs as 16);
+// The bf16 mma forms (evo_fwd_rows, evo_db2_split, the first forward and
+// db2, and dq and dk/dv where D is not 32, 64 or 128) run on the tensor
+// cores (mma.sync m16n8k16, f32 accumulate): four warps of 16 rows, the
+// tiles staged in shared memory as bf16 rows of DP + 8 elements (by
+// cp.async a stage or more ahead in the new two), where DP is D rounded
+// up to 16, 32, 64 or 128 and the columns past D are zero (D 8, the
+// extra-MSA stack's width, runs as 16);
 // P and dS are rounded to bf16 and reused from the accumulator registers
 // as the A operand.  f32 runs on the CUDA cores with exact f32 products:
 // one warp per query row (key row in dk/dv), a lane per key (query) of a
@@ -82,17 +98,25 @@
 // What bounds it on the H100 at AlphaFold 2's MSA row attention (q/k/v
 // [1, 128, 256, 8, 32] bf16): bytes.  The forward moves ~69 MB (0.021 ms
 // at 3.35 TB/s) against 8.6 GFLOP (0.009 ms at 989 TFLOP/s); dq and dk/dv
-// each ~0.031 ms of bytes.  The mma forms reload K/V per query tile (from
-// L2) and the pair bias per row n, stage operands with no copy/compute
-// overlap (the loads of a chunk wait at a barrier), and at D 32 spend as
-// many instructions on the softmax and the biases as on the products; the
-// db2 kernel has B*H*(L/64)^2 CTAs (128 at that shape), each walking the N
-// rows, and is bound by the latency of its loads.  The wgmma pair streams
-// every operand by TMA behind the products (a producer warp and an
-// mbarrier ring), keeps the pair-bias tile in bf16 or f32 as given (no
-// per-tile widening pass) and runs two (dk/dv) or three (dq) CTAs an SM;
-// what holds it at ~3x its bound is each tile's chain of products,
-// exponentials and bias reads (PERF.md).
+// each ~0.031 ms of bytes, db2 0.021.  The first forward and db2 kernels
+// ran at ~8x that (0.161 and 0.190 ms on an H100 80GB HBM3 at 700 W,
+// PERF.md): many small CTAs staging operands with no copy/compute overlap,
+// the pair bias re-read from L2 by every row n (128 MB at the MSA row
+// against a 69 MB bound) in 2-byte loads, and db2's 128 CTAs walking all N
+// rows (less than one wave).  The new forward keeps the bias strip in
+// shared memory (read from L2 N / 4 times, not N times), streams K and V
+// by TMA behind the products and overlaps each tile's softmax with the
+// previous tile's P V; db2 fills the card by splitting rows and streams
+// each row's Q, dO, K and V by TMA.  What holds both at ~3.5x their
+// bounds (0.072 ms each on that card) is each 64 x 64 tile's chain of
+// products, exponentials and bias reads per row with two to three CTAs an
+// SM: the scores' instructions (~8 a score, ~0.02 ms at the MSA row) and
+// their latency, not bytes.  At the extra-MSA row (D 8, 537 M scores) the
+// issue rate alone costs ~0.15 ms a kernel; the mma.sync forward and db2
+// read ~0.60 and ~0.50 ms there.  The wgmma dq and dk/dv pair streams every
+// operand by TMA behind the products (a producer warp and an mbarrier
+// ring), keeps the pair-bias tile in bf16 or f32 as given and runs two
+// (dk/dv) or three (dq) CTAs an SM.
 #include "attn_tile.cuh"
 #include "hopper_tile.cuh"
 
@@ -1372,6 +1396,869 @@ evo_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------
+// bf16: db2 split over the N rows, and the forward walking rows n with the
+// pair bias resident (TMA + wgmma at D 32, 64 and 128; mma.sync with
+// cp.async stages at every other D)
+// ---------------------------------------------------------------------
+using dstt::cp_async16;
+using dstt::cp_async_commit;
+using dstt::cp_async_wait;
+
+// -lse log2(e) of a row as the new kernels take P = 2^(x log2(e) - lse
+// log2(e)) in one FMA and ex2: -inf where lse is at or below the mask
+// level (a row masked everywhere: every P is 0, as the re-mask of each
+// score gives) or +inf (rows past L).  A masked key (x near -1e30) of any
+// other row gives 2^(-1.4e30) = 0 by itself.
+__device__ __forceinline__ float neg_lse2(float lse) {
+  return lse > NEG_INF * 0.5f ? -lse * LOG2E : -INFINITY;
+}
+
+__device__ __forceinline__ float p_of(float x, float nl2) {
+  return hp::ex2(fmaf(x, LOG2E, nl2));
+}
+
+// Where a db2 tile's splits meet: each split's f32 partial [units][splits]
+// [32][128] (thread-major), and one zeroed int ticket a unit (a [64, 64]
+// tile of one (b, h)), left zeroed.
+struct Split {
+  float* ws;
+  int* tickets;
+  int splits;
+};
+
+// The first row of split s of N rows over `splits` (split s walks
+// [split_row(s), split_row(s + 1))).
+__device__ __forceinline__ int split_row(int s, int N, int splits) {
+  return (int)((long)s * N / splits);
+}
+
+// A group of the forward's rows: CTA z of the B*groups slices walks rows
+// [g * rows, min(N, (g + 1) * rows)) of batch z / groups, g = z % groups.
+struct Rows {
+  int rows, groups;
+};
+
+// Thread tid's 32 db2 accumulators of a [64 query, 64 key] tile (element
+// i: row 16 (tid / 32) + g + 8 ((i >> 1) & 1), key 8 (i >> 2) + 2 t +
+// (i & 1), the m16n8 C layout of each warp, which wgmma's m64n64 shares)
+// into db2 [B*H, L, L] in b2's dtype.  With several splits, each CTA
+// stores its partial thread-major, takes a ticket, and the CTA with the
+// last ticket adds the partials in split order 0 .. splits-1 (its own
+// from registers) and sets the ticket back to 0.  The 128 threads meet at
+// named barrier `bar`.
+__device__ __forceinline__ void db2_finish(float (&acc)[32], const Evo& e,
+                                           void* db2, const Split& sp,
+                                           int split, long unit, int bh,
+                                           int q0, int k0, int tid,
+                                           int bar) {
+  __shared__ int last;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int rl = 16 * (tid >> 5) + g;
+  if (sp.splits > 1) {
+    float* part = sp.ws + (unit * sp.splits + split) * 4096;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) part[i * 128 + tid] = acc[i];
+    __threadfence();
+    hp::named_sync(bar, 128);
+    if (tid == 0) last = atomicAdd(sp.tickets + unit, 1) == sp.splits - 1;
+    hp::named_sync(bar, 128);
+    if (!last) return;
+    __threadfence();
+    const float* base = sp.ws + unit * sp.splits * 4096;
+    float tot[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tot[i] = 0.f;
+    for (int s = 0; s < sp.splits; ++s)
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        tot[i] += s == split ? acc[i] : __ldcg(base + s * 4096 + i * 128 + tid);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = tot[i];
+  }
+  const int L = e.L;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int row = q0 + rl + 8 * ((i >> 1) & 1);
+    const int key = k0 + hp::acc_col(i, t);
+    if (row < L && key < L)
+      st_any(db2, ((long)bh * L + row) * L + key, acc[i], e.b2_bf16);
+  }
+  if (sp.splits > 1 && tid == 0) sp.tickets[unit] = 0;   // for the next call
+}
+
+// CTAs an SM each kernel's registers are sized for (the launch bound
+// caps every thread's registers; fewer spill at these).
+template <int D>
+constexpr int db2_blocks() {
+  return D == 128 ? 1 : 2;
+}
+
+template <int DP>
+constexpr int db2_split_blocks() {
+  return DP == 16 ? 4 : 2;
+}
+
+// db2 (TMA + wgmma, D 32, 64, 128), grid (query tiles x key tiles, splits,
+// B*H slices): one CTA per [64 query, 64 key] tile of one (b, h) and one
+// split of the N rows.  The producer warp (after the consumers) loads the
+// pair-bias tile once (TMA, in b2's dtype) and streams each row's Q and dO
+// (the query tile) and K and V (the key tile) boxes through a WS-slot
+// ring, its lanes staging the row's lse and delta (+inf and 0 past L) and
+// b1 (-1e30 past L) a row ahead.  The consumer warpgroup: S = Q K^T and
+// dP = dO V^T (wgmma m64n64; the two accumulators share one register
+// layout), acc += P (dP - delta), P = exp(S scale + b1 + b2 - lse), in f32
+// registers; then `db2_finish`.
+template <int D, int BK>
+__global__ void __launch_bounds__(WG_THREADS, db2_blocks<D>())
+evo_db2_wgmma(const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap,
+              const __grid_constant__ CUtensorMap dmap,
+              const __grid_constant__ CUtensorMap bmap,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              void* db2, Split sp, Evo e) {
+  using T = hp::RowTile<D>;
+  constexpr int OWN = ROWS * D * 2;   // one of Q, dO, K, V
+  constexpr int SLOT = 4 * OWN;
+  constexpr int BIAS = BiasTile<BK>::bytes(ROWS, ROWS);
+  extern __shared__ __align__(1024) uint8_t smem_tma[];
+  uint8_t* Bs = hp::align1024(smem_tma);
+  uint8_t* ring = Bs + BIAS;   // slot s: Q, dO, K, V
+  __shared__ __align__(16) float lse_s[WS][RT], dl_s[WS][RT], b1_s[WS][RT];
+  __shared__ __align__(8) uint64_t b_full, full[WS], empty[WS];
+  const int L = e.L, H = e.H, N = e.N;
+  const int nkt = (L + ROWS - 1) / ROWS, tile = blockIdx.x;
+  const int q0 = tile / nkt * ROWS, k0 = tile % nkt * ROWS;
+  const int split = blockIdx.y;
+  const int n0 = split_row(split, N, sp.splits);
+  const int nr = split_row(split + 1, N, sp.splits) - n0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    hp::mbar_init(&b_full, 1);
+    for (int s = 0; s < WS; ++s) {
+      hp::mbar_init(&full[s], 1 + 32);   // expect_tx + the warp's lanes
+      hp::mbar_init(&empty[s], 4);       // one arrival a consumer warp
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  for (int bh = blockIdx.z, it = 0; bh < e.B * H; bh += gridDim.z, ++it) {
+    const int b = bh / H, h = bh % H;
+    const int j0 = it * nr;
+    if (warp == 4) {   // the producer warp
+      float nl[RT / 32], nd[RT / 32], nb[RT / 32];
+      auto fetch = [&](int j) {
+        const int bn = b * N + n0 + j;
+        const long base = ((long)bn * H + h) * L;
+#pragma unroll
+        for (int i = 0; i < RT / 32; ++i) {
+          const int row = q0 + lane + 32 * i, key = k0 + lane + 32 * i;
+          nl[i] = row < L ? lse[base + row] : INFINITY;
+          nd[i] = row < L ? delta[base + row] : 0.f;
+          nb[i] = key >= L ? NEG_INF
+                  : e.b1   ? ld_any(e.b1, (long)bn * L + key, e.b1_bf16)
+                           : 0.f;
+        }
+      };
+      if (lane == 0) {
+        constexpr int COLS = BiasTile<BK>::COLS;
+        hp::mbar_expect_tx(&b_full, BIAS);
+        for (int c = 0; c < ROWS / COLS; ++c)
+          hp::tma_load_4d(Bs + c * ROWS * 128, &bmap, &b_full,
+                          k0 + c * COLS, q0, h, b);
+      }
+      if (nr > 0) fetch(0);
+      for (int j = 0; j < nr; ++j) {
+        const int jc = j0 + j, s = jc % WS, bn = b * N + n0 + j;
+        uint8_t* Qs = ring + s * SLOT;
+        hp::mbar_wait(&empty[s], ((jc / WS) & 1) ^ 1);
+        if (lane == 0) {
+          hp::mbar_expect_tx(&full[s], SLOT);
+          for (int c = 0; c < T::NCH; ++c) {
+            const int off = c * ROWS * T::RB;
+            hp::tma_load_4d(Qs + off, &qmap, &full[s], c * T::CH, h, q0, bn);
+            hp::tma_load_4d(Qs + OWN + off, &dmap, &full[s], c * T::CH, h,
+                            q0, bn);
+            hp::tma_load_4d(Qs + 2 * OWN + off, &kmap, &full[s], c * T::CH,
+                            h, k0, bn);
+            hp::tma_load_4d(Qs + 3 * OWN + off, &vmap, &full[s], c * T::CH,
+                            h, k0, bn);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RT / 32; ++i) {
+          lse_s[s][lane + 32 * i] = nl[i];
+          dl_s[s][lane + 32 * i] = nd[i];
+          b1_s[s][lane + 32 * i] = nb[i];
+        }
+        hp::mbar_arrive(&full[s]);
+        if (j + 1 < nr) fetch(j + 1);
+      }
+    } else {
+      const int g = lane >> 2, t = lane & 3;
+      const int rl = 16 * warp + g;   // query rows q0 + rl, + 8
+      float acc[32], sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      hp::mbar_wait(&b_full, it & 1);
+      for (int j = 0; j < nr; ++j) {
+        const int jc = j0 + j, s = jc % WS;
+        const uint8_t* Qs = ring + s * SLOT;
+        hp::mbar_wait(&full[s], (jc / WS) & 1);
+        hp::wgmma_fence();
+        hp::issue_abt<D, RT>(sc, Qs, ROWS, Qs + 2 * OWN);
+        hp::wgmma_commit();
+        hp::issue_abt<D, RT>(dp, Qs + OWN, ROWS, Qs + 3 * OWN);
+        hp::wgmma_commit();
+        const float nl[2] = {neg_lse2(lse_s[s][rl]),
+                             neg_lse2(lse_s[s][rl + 8])};
+        const float dr[2] = {dl_s[s][rl], dl_s[s][rl + 8]};
+        hp::wgmma_wait<1>();
+        hp::fence_regs(sc);
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int col = hp::acc_col(i, t), hh = (i >> 1) & 1;
+          const float2 b1p = *reinterpret_cast<const float2*>(&b1_s[s][col]);
+          float x0 = sc[i] * e.scale + b1p.x;
+          float x1 = sc[i + 1] * e.scale + b1p.y;
+          if constexpr (BK != B2_NONE) {
+            const float2 bb = bias2<BK>(Bs, bias_at<BK>(rl + 8 * hh, col,
+                                                        ROWS));
+            x0 += bb.x;
+            x1 += bb.y;
+          }
+          sc[i] = p_of(x0, nl[hh]);
+          sc[i + 1] = p_of(x1, nl[hh]);
+        }
+        hp::wgmma_wait<0>();
+        hp::fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          acc[i] += sc[i] * (dp[i] - dr[(i >> 1) & 1]);
+        __syncwarp();
+        if (lane == 0) hp::mbar_arrive(&empty[s]);
+      }
+      const long tiles = (long)nkt * nkt;
+      db2_finish(acc, e, db2, sp, split, bh * tiles + tile, bh, q0, k0, tid,
+                 1);
+    }
+    __syncthreads();   // the bias tile and the ring are free for the next
+  }
+}
+
+// The mma.sync kernels' staged rows: bf16 tiles of TILE rows and DP + 8
+// columns (DP: D padded to 16, 32, 64 or 128; zero past D and past L), in
+// stages that land behind the stages before them: three for db2 (a
+// stage's copies behind two rows of work), two for the forward (whose
+// pair-bias strip leaves room for four CTAs an SM at D 8 only so, which
+// beat three stages at three CTAs an SM on an H100).
+constexpr int MMA_STAGES = 3;
+constexpr int FWD_STAGES = 2;
+
+template <int DP>
+struct MmaRows {
+  static constexpr int LD = DP + 8;
+  static constexpr int TILEB = TILE * LD * 2;
+  // db2: one row's Q, dO, K, V, then lse, delta and b1 (f32)
+  static constexpr int DB2_STAGE = 4 * TILEB + 3 * TILE * 4;
+  // the forward: a key tile's K and V, then its b1 (f32)
+  static constexpr int FWD_STAGE = 2 * TILEB + TILE * 4;
+};
+
+// `rows` rows [pos0, pos0 + rows) of one head of x [B*N, L, H, D] into a
+// shared tile of LD bf16 a row by 16-byte cp.async copies (zeros past
+// row L and column D), shared by the CTA's THREADS threads.
+template <int DP>
+__device__ __forceinline__ void stage_async(bf16* dst, const bf16* x,
+                                            long head, long stride, int pos0,
+                                            int L, int D, int tid) {
+  constexpr int NV = DP / 8;
+  for (int i = tid; i < TILE * NV; i += THREADS) {
+    const int row = i / NV, c = (i % NV) * 8, pos = pos0 + row;
+    const bool ok = pos < L && c < D;
+    cp_async16(dst + row * MmaRows<DP>::LD + c,
+               ok ? x + head + (long)pos * stride + c : x, ok);
+  }
+}
+
+// db2 (mma.sync, every bf16 D), grid as evo_db2_wgmma's: four warps of 16 query
+// rows.  Thread 0 loads the pair-bias tile once a slice (TMA, in b2's dtype);
+// each row's Q, dO, K and V are staged MMA_STAGES - 1 rows ahead by cp.async,
+// its lse, delta and b1 read into registers as its copies are issued and stored
+// after the current row's products.  Per row S = Q K^T and dP = dO V^T through
+// mma.sync, acc += P (dP - delta) in f32 registers; then `db2_finish`.
+template <int DP, int BK>
+__global__ void __launch_bounds__(THREADS, db2_split_blocks<DP>())
+evo_db2_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+              const __grid_constant__ CUtensorMap bmap,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              void* db2, Split sp, Evo e) {
+  using M = MmaRows<DP>;
+  constexpr int LD = M::LD;
+  constexpr int BIAS = BiasTile<BK>::bytes(TILE, TILE);
+  extern __shared__ __align__(1024) uint8_t smem_tma[];
+  uint8_t* Bs = hp::align1024(smem_tma);
+  uint8_t* stages = Bs + BIAS;
+  __shared__ __align__(8) uint64_t b_full;
+  const int L = e.L, D = e.D, H = e.H, N = e.N;
+  const int nkt = (L + TILE - 1) / TILE, tile = blockIdx.x;
+  const int q0 = tile / nkt * TILE, k0 = tile % nkt * TILE;
+  const int split = blockIdx.y;
+  const int n0 = split_row(split, N, sp.splits);
+  const int nr = split_row(split + 1, N, sp.splits) - n0;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (tid >> 5) * 16 + g;   // query rows q0 + r0, + 8
+  const long stride = (long)H * D;
+  if (tid == 0) {
+    hp::mbar_init(&b_full, 1);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  for (int bh = blockIdx.z, it = 0; bh < e.B * H; bh += gridDim.z, ++it) {
+    const int b = bh / H, h = bh % H;
+    if (tid == 0) {
+      constexpr int COLS = BiasTile<BK>::COLS;
+      hp::mbar_expect_tx(&b_full, BIAS);
+      for (int c = 0; c < TILE / COLS; ++c)
+        hp::tma_load_4d(Bs + c * TILE * 128, &bmap, &b_full, k0 + c * COLS,
+                        q0, h, b);
+    }
+    auto stage = [&](int u) { return stages + u * M::DB2_STAGE; };
+    auto issue = [&](int j, int u) {
+      const long head = (long)(b * N + n0 + j) * L * stride + (long)h * D;
+      bf16* x = reinterpret_cast<bf16*>(stage(u));
+      stage_async<DP>(x, q, head, stride, q0, L, D, tid);
+      stage_async<DP>(x + TILE * LD, dout, head, stride, q0, L, D, tid);
+      stage_async<DP>(x + 2 * TILE * LD, k, head, stride, k0, L, D, tid);
+      stage_async<DP>(x + 3 * TILE * LD, v, head, stride, k0, L, D, tid);
+      cp_async_commit();
+    };
+    // threads 0-63: lse and delta of query q0 + tid; 64-127: b1 of key
+    // k0 + tid - 64 (-1e30 past L)
+    auto fetch = [&](int j) {
+      const int bn = b * N + n0 + j;
+      float2 r = make_float2(0.f, 0.f);
+      if (tid < TILE) {
+        const int row = q0 + tid;
+        const long li = ((long)bn * H + h) * L + row;
+        r = row < L ? make_float2(lse[li], delta[li])
+                    : make_float2(INFINITY, 0.f);
+      } else {
+        const int key = k0 + tid - TILE;
+        r.x = key >= L ? NEG_INF
+              : e.b1   ? ld_any(e.b1, (long)bn * L + key, e.b1_bf16)
+                       : 0.f;
+      }
+      return r;
+    };
+    auto put = [&](int u, float2 r) {
+      float* f = reinterpret_cast<float*>(stage(u) + 4 * M::TILEB);
+      if (tid < TILE) {
+        f[tid] = r.x;
+        f[TILE + tid] = r.y;
+      } else {
+        f[2 * TILE + tid - TILE] = r.x;
+      }
+    };
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    // one commit group a stage (empty past the last row), so the wait for
+    // row j always leaves the next MMA_STAGES - 1 in flight
+    for (int j = 0; j < MMA_STAGES - 1; ++j) {
+      if (j < nr) {
+        issue(j, j);
+        put(j, fetch(j));
+      } else {
+        cp_async_commit();
+      }
+    }
+    for (int j = 0; j < nr; ++j) {
+      const int u = j % MMA_STAGES, jn = j + MMA_STAGES - 1;
+      float2 nx = make_float2(0.f, 0.f);
+      if (jn < nr) {
+        issue(jn, jn % MMA_STAGES);
+        nx = fetch(jn);
+      } else {
+        cp_async_commit();
+      }
+      cp_async_wait<MMA_STAGES - 1>();
+      __syncthreads();   // stage u has landed for every thread
+      if (j == 0) hp::mbar_wait(&b_full, it & 1);
+      const bf16* Qs = reinterpret_cast<const bf16*>(stage(u));
+      const bf16* dOs = Qs + TILE * LD;
+      const bf16* Ks = dOs + TILE * LD;
+      const bf16* Vs = Ks + TILE * LD;
+      const float* lse_s = reinterpret_cast<const float*>(Vs + TILE * LD);
+      const float* dl_s = lse_s + TILE;
+      const float* b1_s = dl_s + TILE;
+      const float nl[2] = {neg_lse2(lse_s[r0]), neg_lse2(lse_s[r0 + 8])};
+      const float dr[2] = {dl_s[r0], dl_s[r0 + 8]};
+#pragma unroll
+      for (int kc = 0; kc < TILE; kc += 16) {
+        float s[2][4], dp[2][4];
+        zero16(s);
+        zero16(dp);
+        mma_abt<DP>(s, Qs, Ks, LD, r0, kc, g, t);
+        mma_abt<DP>(dp, dOs, Vs, LD, r0, kc, g, t);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int c = 0; c < 4; c += 2) {
+            const int hh = c >> 1, kl = kc + 8 * jj + 2 * t;
+            const float2 b1p = *reinterpret_cast<const float2*>(b1_s + kl);
+            float x0 = s[jj][c] * e.scale + b1p.x;
+            float x1 = s[jj][c + 1] * e.scale + b1p.y;
+            if constexpr (BK != B2_NONE) {
+              const float2 bb =
+                  bias2<BK>(Bs, bias_at<BK>(r0 + 8 * hh, kl, TILE));
+              x0 += bb.x;
+              x1 += bb.y;
+            }
+            float* a = acc + (kc / 8 + jj) * 4 + c;
+            a[0] += p_of(x0, nl[hh]) * (dp[jj][c] - dr[hh]);
+            a[1] += p_of(x1, nl[hh]) * (dp[jj][c + 1] - dr[hh]);
+          }
+      }
+      if (jn < nr) put(jn % MMA_STAGES, nx);
+      __syncthreads();   // stage u is read: a later row may land there
+    }
+    if (nr == 0) hp::mbar_wait(&b_full, it & 1);   // the tile has landed
+    const long tiles = (long)nkt * nkt;
+    db2_finish(acc, e, db2, sp, split, bh * tiles + tile, bh, q0, k0, tid, 1);
+    __syncthreads();   // the bias tile is free for the next slice
+  }
+}
+
+// The pair-bias strip [64 queries, every key tile] as the forward keeps
+// it: ceil(L / 64) * 64 keys in 128-byte boxes of BiasTile<BK>::COLS.
+template <int BK>
+__host__ __device__ constexpr int strip_bytes(int L) {
+  return BiasTile<BK>::bytes(TILE, (L + TILE - 1) / TILE * TILE);
+}
+
+// thread 0: the strip of query tile q0 of (b, h) by TMA, on `bar`
+template <int BK>
+__device__ __forceinline__ void load_strip(uint8_t* strip,
+                                           const CUtensorMap* bmap,
+                                           uint64_t* bar, int L, int q0,
+                                           int h, int b) {
+  if constexpr (BK != B2_NONE) {
+    constexpr int COLS = BiasTile<BK>::COLS;
+    hp::mbar_expect_tx(bar, strip_bytes<BK>(L));
+    for (int c = 0; c < (L + TILE - 1) / TILE * TILE / COLS; ++c)
+      hp::tma_load_4d(strip + c * TILE * 128, bmap, bar, c * COLS, q0, h, b);
+  } else {
+    hp::mbar_arrive(bar);
+  }
+}
+
+template <int D>
+constexpr int fwd_blocks() {
+  return D == 32 ? 3 : D == 64 ? 2 : 1;
+}
+
+// The forward's online softmax step for one lane's two rows (hh) over a
+// tile's scores x (natural units, 0 .. n - 1 in the m16n8 C layout, x[i]
+// of row hh = (i >> 1) & 1): the running max m from -1e30, alpha =
+// exp(m_old - m_new) for l and the output, p = exp(x - m) in place (0 for
+// a masked key, and for every key while m is at the mask level), l += p.
+template <int NX>
+__device__ __forceinline__ void online_softmax(float (&x)[NX], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2]) {
+  float tmax[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+    tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], x[i]);
+  float nm[2];   // -m log2(e), -inf while every key so far is masked
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    tmax[hh] = fmaxf(tmax[hh], __shfl_xor_sync(0xffffffffu, tmax[hh], 1));
+    tmax[hh] = fmaxf(tmax[hh], __shfl_xor_sync(0xffffffffu, tmax[hh], 2));
+    const float m_new = fmaxf(m[hh], tmax[hh]);
+    alpha[hh] = hp::ex2((m[hh] - m_new) * LOG2E);
+    m[hh] = m_new;
+    l[hh] *= alpha[hh];
+    nm[hh] = neg_lse2(m_new);
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    x[i] = p_of(x[i], nm[(i >> 1) & 1]);
+    l[(i >> 1) & 1] += x[i];
+  }
+}
+
+// out row and lse of a lane's two rows once a row n is done: l summed
+// over the row's four lanes, out = acc / max(l, 1e-9) in bf16 (columns
+// 8 n + 2 t, + 1 of acc[4 n + 2 hh], [4 n + 2 hh + 1]; those < D), lse = m
+// + log(max(l, 1e-9)).
+template <int NACC>
+__device__ __forceinline__ void write_row(const float (&acc)[NACC],
+                                          const float (&m)[2], float (&l)[2],
+                                          const Evo& e, bf16* o, float* lse,
+                                          int bn, int h, int row0, int t) {
+  const int L = e.L, D = e.D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    const int row = row0 + 8 * hh;
+    if (row >= L) continue;
+    const float lsafe = fmaxf(l[hh], 1e-9f);
+    const float inv = 1.f / lsafe;
+    bf16* orow = o + (((long)bn * L + row) * e.H + h) * D;
+#pragma unroll
+    for (int n = 0; n < NACC / 4; ++n)
+      if (n * 8 < D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * hh] * inv,
+                                  acc[4 * n + 2 * hh + 1] * inv);
+    if (t == 0) lse[((long)bn * e.H + h) * L + row] = m[hh] + logf(lsafe);
+  }
+}
+
+// The forward (TMA + wgmma, D 32, 64, 128), grid (query tiles, H, B *
+// groups slices): one CTA per 64 query rows of one (b, h) walks the rows
+// n of its group (`Rows`) with the pair-bias strip [64 queries, L keys]
+// resident (TMA boxes in b2's dtype, loaded once a slice: the bias is the
+// same for every row n).  The producer warp loads each row's Q box (two
+// buffers, so the next row's arrives during this one) and streams its
+// 64-key K and V boxes through a WS-slot ring, its lanes staging each key
+// tile's b1 (-1e30 past L) a tile ahead.  The consumer warpgroup: S = Q
+// K^T (wgmma), s scale + b1 + b2, the online softmax in f32 (m, l), P
+// rounded to bf16 as the register A operand of O += P V; out and lse
+// once a row.
+template <int D, int BK>
+__global__ void __launch_bounds__(WG_THREADS, fwd_blocks<D>())
+evo_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap,
+              const __grid_constant__ CUtensorMap bmap, bf16* __restrict__ o,
+              float* __restrict__ lse, Rows rw, Evo e) {
+  using T = hp::RowTile<D>;
+  constexpr int OWN = ROWS * D * 2;   // Q, K or V
+  constexpr int SLOT = 2 * OWN;
+  extern __shared__ __align__(1024) uint8_t smem_tma[];
+  uint8_t* Qb = hp::align1024(smem_tma);   // buffer u: Q
+  uint8_t* ring = Qb + 2 * OWN;            // slot s: K, V
+  uint8_t* strip = ring + WS * SLOT;
+  __shared__ __align__(16) float b1_s[WS][RT];
+  __shared__ __align__(8) uint64_t b_full, q_full[2], q_empty[2], full[WS],
+      empty[WS];
+  const int L = e.L, H = e.H, N = e.N;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y;
+  const int nkt = (L + RT - 1) / RT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    hp::mbar_init(&b_full, 1);
+    for (int u = 0; u < 2; ++u) {
+      hp::mbar_init(&q_full[u], 1);
+      hp::mbar_init(&q_empty[u], 4);
+    }
+    for (int s = 0; s < WS; ++s) {
+      hp::mbar_init(&full[s], 1 + 32);
+      hp::mbar_init(&empty[s], 4);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // rows and key tiles are counted alike by both roles across slices
+  int rc = 0, jc = 0;
+  for (int z = blockIdx.z, it = 0; z < e.B * rw.groups;
+       z += gridDim.z, ++it) {
+    const int b = z / rw.groups, n0 = z % rw.groups * rw.rows;
+    const int nr = min(N - n0, rw.rows);
+    if (warp == 4) {   // the producer warp
+      if (lane == 0) load_strip<BK>(strip, &bmap, &b_full, L, q0, h, b);
+      float nb[RT / 32];
+      auto fetch = [&](int bn, int kt) {
+#pragma unroll
+        for (int i = 0; i < RT / 32; ++i) {
+          const int key = kt * RT + lane + 32 * i;
+          nb[i] = key >= L ? NEG_INF
+                  : e.b1   ? ld_any(e.b1, (long)bn * L + key, e.b1_bf16)
+                           : 0.f;
+        }
+      };
+      if (nr > 0) fetch(b * N + n0, 0);
+      for (int r = 0; r < nr; ++r, ++rc) {
+        const int bn = b * N + n0 + r, u = rc & 1;
+        if (lane == 0) {
+          hp::mbar_wait(&q_empty[u], ((rc >> 1) & 1) ^ 1);
+          hp::mbar_expect_tx(&q_full[u], OWN);
+          for (int c = 0; c < T::NCH; ++c)
+            hp::tma_load_4d(Qb + u * OWN + c * ROWS * T::RB, &qmap,
+                            &q_full[u], c * T::CH, h, q0, bn);
+        }
+        __syncwarp();
+        for (int kt = 0; kt < nkt; ++kt, ++jc) {
+          const int s = jc % WS;
+          uint8_t* Ks = ring + s * SLOT;
+          hp::mbar_wait(&empty[s], ((jc / WS) & 1) ^ 1);
+          if (lane == 0) {
+            hp::mbar_expect_tx(&full[s], SLOT);
+            for (int c = 0; c < T::NCH; ++c) {
+              hp::tma_load_4d(Ks + c * RT * T::RB, &kmap, &full[s],
+                              c * T::CH, h, kt * RT, bn);
+              hp::tma_load_4d(Ks + OWN + c * RT * T::RB, &vmap, &full[s],
+                              c * T::CH, h, kt * RT, bn);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < RT / 32; ++i) b1_s[s][lane + 32 * i] = nb[i];
+          hp::mbar_arrive(&full[s]);
+          if (kt + 1 < nkt)
+            fetch(bn, kt + 1);
+          else if (r + 1 < nr)
+            fetch(bn + 1, 0);
+        }
+      }
+    } else {
+      const int g = lane >> 2, t = lane & 3;
+      const int rl = 16 * warp + g;   // rows q0 + rl, + 8
+      float oacc[D / 2], sc[32], m[2], l[2], alpha[2];
+      uint32_t pa[4][4];
+      // S of key tile kt in flight, then the scores s scale + b1 + b2 (in
+      // that order) and the online softmax once it lands
+      auto issue_s = [&](const uint8_t* Qs, int s) {
+        hp::mbar_wait(&full[s], (jc / WS) & 1);
+        hp::wgmma_fence();
+        hp::issue_abt<D, RT>(sc, Qs, ROWS, ring + s * SLOT);
+        hp::wgmma_commit();
+      };
+      auto softmax = [&](int s, int kt) {
+        hp::fence_regs(sc);
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int col = hp::acc_col(i, t), hh = (i >> 1) & 1;
+          const float2 b1p = *reinterpret_cast<const float2*>(&b1_s[s][col]);
+          sc[i] = sc[i] * e.scale + b1p.x;
+          sc[i + 1] = sc[i + 1] * e.scale + b1p.y;
+          if constexpr (BK != B2_NONE) {
+            const float2 bb = bias2<BK>(
+                strip, bias_at<BK>(rl + 8 * hh, kt * RT + col, ROWS));
+            sc[i] += bb.x;
+            sc[i + 1] += bb.y;
+          }
+        }
+        online_softmax(sc, m, l, alpha);
+      };
+      // O = alpha O + P V of the tile in slot s (P from registers)
+      auto issue_pv = [&](int s) {
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          oacc[4 * n] *= alpha[0];
+          oacc[4 * n + 1] *= alpha[0];
+          oacc[4 * n + 2] *= alpha[1];
+          oacc[4 * n + 3] *= alpha[1];
+        }
+        hp::fence_regs(oacc);
+        hp::wgmma_fence();
+        hp::issue_rs<D>(oacc, pa, ring + s * SLOT + OWN);
+        hp::wgmma_commit();
+      };
+      auto release = [&](int s) {
+        __syncwarp();
+        if (lane == 0) hp::mbar_arrive(&empty[s]);
+      };
+      hp::mbar_wait(&b_full, it & 1);
+      for (int r = 0; r < nr; ++r, ++rc) {
+        const int bn = b * N + n0 + r, u = rc & 1;
+        const uint8_t* Qs = Qb + u * OWN;
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+        m[0] = m[1] = NEG_INF;
+        l[0] = l[1] = 0.f;
+        hp::mbar_wait(&q_full[u], (rc >> 1) & 1);
+        // key tile 0, then per tile kt: S_kt and P_{kt-1} V_{kt-1} in
+        // flight while the warps wait for S_kt, whose softmax then runs
+        // beside P V on the tensor cores
+        int sp = jc % WS;
+        issue_s(Qs, sp);
+        hp::wgmma_wait<0>();
+        softmax(sp, 0);
+        hp::pack_frags(pa, sc);
+        ++jc;
+        for (int kt = 1; kt < nkt; ++kt, ++jc) {
+          const int s = jc % WS;
+          issue_s(Qs, s);
+          issue_pv(sp);
+          hp::wgmma_wait<1>();
+          softmax(s, kt);
+          hp::wgmma_wait<0>();
+          hp::fence_regs(oacc);
+          release(sp);
+          hp::pack_frags(pa, sc);
+          sp = s;
+        }
+        issue_pv(sp);
+        hp::wgmma_wait<0>();
+        hp::fence_regs(oacc);
+        release(sp);
+        __syncwarp();
+        if (lane == 0) hp::mbar_arrive(&q_empty[u]);
+        write_row(oacc, m, l, e, o, lse, bn, h, q0 + rl, t);
+      }
+    }
+    __syncthreads();   // the strip is free for the next slice
+  }
+}
+
+// The forward (mma.sync, every bf16 D), grid as evo_fwd_wgmma's: four warps of
+// 16 query rows.  Thread 0 loads the pair-bias strip once a slice (TMA, in b2's
+// dtype); each 64-key tile's K and V (and its row's Q at the row's first tile,
+// a buffer a stage) are staged FWD_STAGES - 1 tiles ahead by cp.async, its b1
+// read into registers as they are issued.  Per tile S = Q K^T (Q's fragments in
+// registers, loaded at a row's first tile), s scale + b1 + b2, the online
+// softmax, O += P V through mma.sync; out and lse once a row.
+template <int DP, int BK>
+__global__ void __launch_bounds__(THREADS, DP == 16 ? 4 : 2)
+evo_fwd_rows(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v,
+             const __grid_constant__ CUtensorMap bmap, bf16* __restrict__ o,
+             float* __restrict__ lse, Rows rw, Evo e) {
+  using M = MmaRows<DP>;
+  constexpr int LD = M::LD;
+  extern __shared__ __align__(1024) uint8_t smem_tma[];
+  uint8_t* strip = hp::align1024(smem_tma);
+  bf16* Qb = reinterpret_cast<bf16*>(strip + strip_bytes<BK>(e.L));
+  uint8_t* stages = reinterpret_cast<uint8_t*>(Qb + FWD_STAGES * TILE * LD);
+  __shared__ __align__(8) uint64_t b_full;
+  const int L = e.L, D = e.D, H = e.H, N = e.N;
+  const int q0 = blockIdx.x * TILE, h = blockIdx.y;
+  const int nkt = (L + TILE - 1) / TILE;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (tid >> 5) * 16 + g;   // rows q0 + r0, + 8
+  const long stride = (long)H * D;
+  if (tid == 0) {
+    hp::mbar_init(&b_full, 1);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  for (int z = blockIdx.z, it = 0; z < e.B * rw.groups;
+       z += gridDim.z, ++it) {
+    const int b = z / rw.groups, n0 = z % rw.groups * rw.rows;
+    const int nr = min(N - n0, rw.rows), nf = nr * nkt;
+    if (tid == 0) load_strip<BK>(strip, &bmap, &b_full, L, q0, h, b);
+    auto stage = [&](int u) { return stages + u * M::FWD_STAGE; };
+    // stage f: row f / nkt's key tile f % nkt (and its Q at the first)
+    auto issue = [&](int f, int u) {
+      const int r = f / nkt, kt = f % nkt;
+      const long head = (long)(b * N + n0 + r) * L * stride + (long)h * D;
+      bf16* x = reinterpret_cast<bf16*>(stage(u));
+      if (kt == 0)
+        stage_async<DP>(Qb + r % FWD_STAGES * TILE * LD, q, head, stride, q0,
+                        L, D, tid);
+      stage_async<DP>(x, k, head, stride, kt * TILE, L, D, tid);
+      stage_async<DP>(x + TILE * LD, v, head, stride, kt * TILE, L, D, tid);
+      cp_async_commit();
+    };
+    auto fetch = [&](int f) {
+      const int bn = b * N + n0 + f / nkt, key = f % nkt * TILE + tid;
+      return tid >= TILE ? 0.f
+             : key >= L  ? NEG_INF
+             : e.b1      ? ld_any(e.b1, (long)bn * L + key, e.b1_bf16)
+                         : 0.f;
+    };
+    auto put = [&](int u, float x) {
+      if (tid < TILE)
+        reinterpret_cast<float*>(stage(u) + 2 * M::TILEB)[tid] = x;
+    };
+    uint32_t qa[DP / 16][4];
+    float oacc[DP / 8][4], m[2], l[2], alpha[2];
+    for (int f = 0; f < FWD_STAGES - 1; ++f) {
+      if (f < nf) {
+        issue(f, f);
+        put(f, fetch(f));
+      } else {
+        cp_async_commit();
+      }
+    }
+    for (int f = 0; f < nf; ++f) {
+      const int u = f % FWD_STAGES, r = f / nkt, kt = f % nkt;
+      const int fn = f + FWD_STAGES - 1;
+      float nx = 0.f;
+      if (fn < nf) {
+        issue(fn, fn % FWD_STAGES);
+        nx = fetch(fn);
+      } else {
+        cp_async_commit();
+      }
+      cp_async_wait<FWD_STAGES - 1>();
+      __syncthreads();   // stage u (and Q at a row's first tile) landed
+      if (f == 0) hp::mbar_wait(&b_full, it & 1);
+      const bf16* Ks = reinterpret_cast<const bf16*>(stage(u));
+      const bf16* Vs = Ks + TILE * LD;
+      const float* b1_s = reinterpret_cast<const float*>(Vs + TILE * LD);
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          frag_a(qa[kk], Qb + r % FWD_STAGES * TILE * LD, LD, r0, kk * 16,
+                 t);
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) oacc[n][c] = 0.f;
+        m[0] = m[1] = NEG_INF;
+        l[0] = l[1] = 0.f;
+      }
+      float s[32];   // s[4 j + c]: the m16n8 C fragment of keys 8 j ..
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < TILE / 8; ++j) {
+          const bf16* kr = Ks + (j * 8 + g) * LD + kk * 16 + 2 * t;
+          dstt::mma_bf16(s + 4 * j, qa[kk], dstt::ld_u32(kr),
+                         dstt::ld_u32(kr + 8));
+        }
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int col = hp::acc_col(i, t), hh = (i >> 1) & 1;
+        const float2 b1p = *reinterpret_cast<const float2*>(b1_s + col);
+        s[i] = s[i] * e.scale + b1p.x;
+        s[i + 1] = s[i + 1] * e.scale + b1p.y;
+        if constexpr (BK != B2_NONE) {
+          const float2 bb = bias2<BK>(
+              strip, bias_at<BK>(r0 + 8 * hh, kt * TILE + col, TILE));
+          s[i] += bb.x;
+          s[i + 1] += bb.y;
+        }
+      }
+      online_softmax(s, m, l, alpha);
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        oacc[n][0] *= alpha[0];
+        oacc[n][1] *= alpha[0];
+        oacc[n][2] *= alpha[1];
+        oacc[n][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk) {
+        uint32_t pa[4];
+        acc_to_a(pa, reinterpret_cast<const float(*)[4]>(s + 8 * kk));
+        mma_rowmajor_b<DP>(oacc, pa, Vs + kk * 16 * LD, LD, lane);
+      }
+      if (kt == nkt - 1)
+        write_row(reinterpret_cast<const float(&)[DP / 2]>(oacc), m, l, e, o,
+                  lse, b * N + n0 + r, h, q0 + r0, t);
+      if (fn < nf) put(fn % FWD_STAGES, nx);
+      __syncthreads();   // stage u is read: a later tile may land there
+    }
+    __syncthreads();   // the strip is free for the next slice
+  }
+}
+
+// ---------------------------------------------------------------------
 // f32 on the CUDA cores: one warp per row, F32_WARPS rows a CTA
 // ---------------------------------------------------------------------
 __device__ __forceinline__ float dot(const float* a, const float* b, int D) {
@@ -1652,9 +2539,10 @@ bool bad(const Evo& e, int dtype) {
 // D rounded up to the bf16 kernels' padded widths
 int padded(int D) { return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128; }
 
+// Opt kernel `kern` in to `bytes` of dynamic shared memory (needed above
+// 48 KB less the 1 KB a CTA keeps reserved; harmless below).
 template <typename K>
 int set_smem(K kern, int bytes) {
-  if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
@@ -1870,6 +2758,120 @@ Evo make(const void* b1, const void* b2, int B, int N, int L, int H, int D,
              (bias_bf16 >> 1) & 1};
 }
 
+// The static shared memory of the new wgmma kernels (rows of lse, delta,
+// b1 and the barriers) beside their dynamic share.
+constexpr int DB2_STATIC_SMEM = 3 * WS * RT * 4 + 128;
+
+template <int D, int BK>
+int db2_wgmma(const Ptrs& p, const Evo& e, int pitch, const Split& sp,
+              cudaStream_t st) {
+  constexpr int SMEM =
+      1024 + BiasTile<BK>::bytes(ROWS, ROWS) + WS * 4 * ROWS * D * 2;
+  static_assert(SMEM + DB2_STATIC_SMEM <= SMEM_MAX, "db2 smem");
+  CUtensorMap qmap, kmap, vmap, dmap, bmap = {};
+  int rc = row_map<D>(&qmap, p.q, e, ROWS);
+  if (!rc) rc = row_map<D>(&dmap, p.dout, e, ROWS);
+  if (!rc) rc = row_map<D>(&kmap, p.k, e, ROWS);
+  if (!rc) rc = row_map<D>(&vmap, p.v, e, ROWS);
+  if (!rc) rc = bias_map<BK>(&bmap, e, pitch, ROWS);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      evo_db2_wgmma<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int nkt = tiles(e.L);
+  evo_db2_wgmma<D, BK><<<dim3(nkt * nkt, sp.splits, slices(e.B * e.H)),
+                          WG_THREADS, SMEM, st>>>(
+      qmap, kmap, vmap, dmap, bmap, (const float*)p.lse,
+      (const float*)p.delta, p.dbias, sp, e);
+  return (int)cudaGetLastError();
+}
+
+template <int DP, int BK>
+int db2_split(const Ptrs& p, const Evo& e, int pitch, const Split& sp,
+              cudaStream_t st) {
+  constexpr int SMEM = 1024 + BiasTile<BK>::bytes(TILE, TILE) +
+                       MMA_STAGES * MmaRows<DP>::DB2_STAGE;
+  CUtensorMap bmap = {};
+  int rc = bias_map<BK>(&bmap, e, pitch, TILE);
+  if (rc) return rc;
+  rc = set_smem(evo_db2_split<DP, BK>, SMEM);
+  if (rc) return rc;
+  const int nkt = tiles(e.L);
+  evo_db2_split<DP, BK><<<dim3(nkt * nkt, sp.splits, slices(e.B * e.H)),
+                          THREADS, SMEM, st>>>(
+      (const bf16*)p.q, (const bf16*)p.k, (const bf16*)p.v,
+      (const bf16*)p.dout, bmap, (const float*)p.lse, (const float*)p.delta,
+      p.dbias, sp, e);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int BK>
+int fwd_wgmma(const Ptrs& p, const Evo& e, int pitch, Rows rw,
+              cudaStream_t st) {
+  const int smem = 1024 + (2 + 2 * WS) * ROWS * D * 2 + strip_bytes<BK>(e.L);
+  if (smem + WG_STATIC_SMEM > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap qmap, kmap, vmap, bmap = {};
+  int rc = row_map<D>(&qmap, p.q, e, ROWS);
+  if (!rc) rc = row_map<D>(&kmap, p.k, e, RT);
+  if (!rc) rc = row_map<D>(&vmap, p.v, e, RT);
+  if (!rc) rc = bias_map<BK>(&bmap, e, pitch, ROWS);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      evo_fwd_wgmma<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  evo_fwd_wgmma<D, BK><<<dim3(tiles(e.L), e.H, slices(e.B * rw.groups)),
+                          WG_THREADS, smem, st>>>(
+      qmap, kmap, vmap, bmap, (bf16*)p.out, (float*)p.lse_out, rw, e);
+  return (int)cudaGetLastError();
+}
+
+template <int DP, int BK>
+int fwd_rows(const Ptrs& p, const Evo& e, int pitch, Rows rw,
+             cudaStream_t st) {
+  using M = MmaRows<DP>;
+  const int smem = 1024 + strip_bytes<BK>(e.L) +
+                   FWD_STAGES * (M::TILEB + M::FWD_STAGE);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap bmap = {};
+  int rc = bias_map<BK>(&bmap, e, pitch, TILE);
+  if (rc) return rc;
+  rc = set_smem(evo_fwd_rows<DP, BK>, smem);
+  if (rc) return rc;
+  evo_fwd_rows<DP, BK><<<dim3(tiles(e.L), e.H, slices(e.B * rw.groups)),
+                         THREADS, smem, st>>>(
+      (const bf16*)p.q, (const bf16*)p.k, (const bf16*)p.v, bmap,
+      (bf16*)p.out, (float*)p.lse_out, rw, e);
+  return (int)cudaGetLastError();
+}
+
+// What the row-walking forward and the split db2 take beyond `bad`: bf16,
+// H on the grid, pair-bias rows `pitch` >= L elements apart on 16-byte
+// boundaries (TMA's stride rule), and for the wgmma kernels D 32, 64 or
+// 128.
+bool bad_split(const Evo& e, int pitch, int wgmma) {
+  const int es = e.b2_bf16 ? 2 : 4;
+  return bad(e, 1) || e.H > 65535 ||
+         (wgmma && e.D != 32 && e.D != 64 && e.D != 128) ||
+         (e.b2 != nullptr && (pitch < e.L || (long)pitch * es % 16));
+}
+
+// The launcher F<X, BK> for the pair bias's kind, b2 given.
+#define EVO_B2_GIVEN(F, X, ...)                                        \
+  (e.b2_bf16 ? F<X, B2_BF16>(__VA_ARGS__) : F<X, B2_F32>(__VA_ARGS__))
+// The launcher F<D, ...> of a wgmma kernel (D 32, 64, 128), or F<DP, ...>
+// of an mma.sync kernel, by the pair bias's kind (KIND).
+#define EVO_WG_KIND(KIND, F, ...)                                      \
+  (e.D == 32   ? KIND(F, 32, __VA_ARGS__)                             \
+   : e.D == 64 ? KIND(F, 64, __VA_ARGS__)                             \
+               : KIND(F, 128, __VA_ARGS__))
+#define EVO_MMA_KIND(KIND, F, ...)                                     \
+  (padded(e.D) == 16   ? KIND(F, 16, __VA_ARGS__)                     \
+   : padded(e.D) == 32 ? KIND(F, 32, __VA_ARGS__)                     \
+   : padded(e.D) == 64 ? KIND(F, 64, __VA_ARGS__)                     \
+                       : KIND(F, 128, __VA_ARGS__))
+
 }  // namespace
 
 // dtype of q/k/v (and out, dO, dq, dk, dv): 0 = float32, 1 = bfloat16.
@@ -1998,4 +3000,63 @@ extern "C" int dstt_evo_dkv_wgmma(const void* q, const void* k,
   p.dv = dvo;
   p.dbias = db1;
   return EVO_WG(dkv_wgmma, p, e, pitch, static_cast<cudaStream_t>(stream));
+}
+
+// The row-walking forward (bf16, any L whose pair-bias strip fits a CTA's
+// shared memory beside the kernel's tiles: the launchers check it, and the
+// host's `fwd_variant` routes by the same sizes): `rows` rows n a CTA (the
+// host's `fwd_plan`); `wgmma` 1 for the TMA + wgmma kernel (D 32, 64,
+// 128), 0 for the mma.sync one (any D); `pitch` as dstt_evo_dq_wgmma's.
+extern "C" int dstt_evo_fwd_rows(const void* q, const void* k, const void* v,
+                                 const void* b1, const void* b2, void* o,
+                                 void* lse, int B, int N, int L, int H, int D,
+                                 int bias_bf16, float scale, int pitch,
+                                 int rows, int wgmma, void* stream) {
+  const Evo e = make(b1, b2, B, N, L, H, D, bias_bf16, scale);
+  if (bad_split(e, pitch, wgmma) || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const int groups = (N + rows - 1) / rows;
+  if ((long)B * groups > 2147483647L) return (int)cudaErrorInvalidValue;
+  Ptrs p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = o;
+  p.lse_out = lse;
+  const Rows rw{rows, groups};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return wgmma ? EVO_WG_KIND(EVO_WG_BY_BIAS, fwd_wgmma, p, e, pitch, rw, st)
+               : EVO_MMA_KIND(EVO_WG_BY_BIAS, fwd_rows, p, e, pitch, rw, st);
+}
+
+// db2 split over the N rows in `splits` parts (the host's `db2_plan`):
+// `ws` f32 [B*H * ceil(L/64)^2 * splits * 4096] and `tickets` int
+// [B*H * ceil(L/64)^2], zeroed and left zeroed (both may be null with one
+// split); `wgmma` and `pitch` as dstt_evo_fwd_rows's.
+extern "C" int dstt_evo_db2_split(const void* q, const void* k,
+                                  const void* v, const void* b1,
+                                  const void* b2, const void* dout,
+                                  const void* lse, const void* delta,
+                                  void* db2o, void* ws, void* tickets, int B,
+                                  int N, int L, int H, int D, int bias_bf16,
+                                  float scale, int pitch, int splits,
+                                  int wgmma, void* stream) {
+  const Evo e = make(b1, b2, B, N, L, H, D, bias_bf16, scale);
+  if (bad_split(e, pitch, wgmma) || b2 == nullptr || splits < 1 ||
+      splits > N || splits > 65535 ||
+      (splits > 1 && (ws == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  Ptrs p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = lse;
+  p.delta = const_cast<void*>(delta);
+  p.dbias = db2o;
+  const Split sp{static_cast<float*>(ws), static_cast<int*>(tickets),
+                 splits};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return wgmma ? EVO_WG_KIND(EVO_B2_GIVEN, db2_wgmma, p, e, pitch, sp, st)
+               : EVO_MMA_KIND(EVO_B2_GIVEN, db2_split, p, e, pitch, sp, st);
 }

@@ -71,22 +71,9 @@ constexpr int F_THREADS = 256;    // f32 kernel
 constexpr int FBM = 32;
 constexpr int FKT = 32;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  // src-size 0 writes 16 zero bytes and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using dstt::cp_async16;
+using dstt::cp_async_commit;
+using dstt::cp_async_wait;
 
 // One stage: x rows [m0, m0+BM) x K [k0, k0+KT) into As, w K rows
 // [k0, k0+KT) x columns [n0, n0+BN) into Bs, zeros past each edge.

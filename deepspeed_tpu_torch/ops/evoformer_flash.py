@@ -3,7 +3,7 @@ a pair bias), forward and backward.
 
 Counterpart of `deepspeed_tpu/ops/evoformer_flash.py`
 (`evoformer_flash_forward`, `evoformer_flash_forward_dmajor`,
-`evoformer_flash_backward`).  Four hand-written CUDA kernels for sm_90a
+`evoformer_flash_backward`).  Hand-written CUDA kernels for sm_90a
 (`csrc/evoformer_flash.cu`), bound with ctypes:
 
 - `evoformer_flash_forward`: online softmax over key tiles of
@@ -25,6 +25,19 @@ Counterpart of `deepspeed_tpu/ops/evoformer_flash.py`
 accumulates with float atomics: two runs give the same bits.  db1 and db2
 are summed in f32 and written in their bias's dtype.
 
+The forward and db2 come in kernel variants too (`fwd_variant`,
+`db2_variant`; counted per variant in `launches_by_variant`).  The bf16
+forward walks several rows n of one (b, h, query tile) per CTA with the
+pair-bias strip resident in shared memory (`fwd_plan` sizes the walk):
+TMA + wgmma at D 32, 64 and 128 ("wgmma"), mma.sync with asynchronous
+copies at every other D ("rows"), wherever the strip fits a CTA's shared
+memory (`fwd_smem`; two CTAs an SM for "rows"); longer rows take the
+first forward kernel ("mma").
+bf16 db2 splits each [64, 64] tile's N rows over several CTAs
+(`db2_plan`) and adds the splits' f32 partials in split order in the
+launch ("wgmma" at D 32, 64 and 128, "split" at every other D).  The first kernels stay reachable with
+`variant="mma"` for timing them beside the new ones.
+
 A row whose every key carries the -1e30 mask gives out 0, a finite lse
 (-1e30) and zero gradients; scores at or below -5e29 are re-masked, the
 -1e9 mask of AlphaFold-class models is not.
@@ -38,13 +51,14 @@ bf16, any L, and head dims D % 8 == 0 up to 128; other inputs raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import types
 from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _scratch
 
 __all__ = ["evoformer_flash_forward", "evoformer_flash_forward_dmajor",
            "evoformer_flash_dq", "evoformer_flash_dkv",
@@ -53,7 +67,10 @@ __all__ = ["evoformer_flash_forward", "evoformer_flash_forward_dmajor",
            "evoformer_flash_dq_reference", "evoformer_flash_dkv_reference",
            "evoformer_flash_db2_reference",
            "evoformer_flash_backward_reference", "bwd_variant",
-           "pair_bias_pitch", "BWD_VARIANTS", "NEG_INF"]
+           "fwd_variant", "db2_variant", "fwd_plan", "db2_plan",
+           "pair_bias_pitch", "BWD_VARIANTS", "FWD_VARIANTS",
+           "DB2_VARIANTS", "fwd_smem", "db2_smem", "resident",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
@@ -64,6 +81,11 @@ _FWD_ARGS = (_P,) * 7 + _SHAPE
 _DQ_ARGS = (_P,) * 10 + _SHAPE
 _DKV_ARGS = (_P,) * 11 + _SHAPE
 _DB2_ARGS = (_P,) * 9 + _SHAPE
+# the row-walking forward and the split db2: ..., scale, pitch, rows or
+# splits, wgmma, stream
+_SPLIT_SHAPE = (_I,) * 6 + (_F, _I, _I, _I, _P)
+_FWD_ROWS_ARGS = (_P,) * 7 + _SPLIT_SHAPE
+_DB2_SPLIT_ARGS = (_P,) * 11 + _SPLIT_SHAPE
 # each backward pair kernel's C entry points: (mma / f32, wgmma)
 _PAIR_ARGS = {"dq": (_DQ_ARGS, (_P,) * 10 + _WG_SHAPE),
               "dkv": (_DKV_ARGS, (_P,) * 11 + _WG_SHAPE)}
@@ -73,11 +95,61 @@ _BIAS_DTYPES = (torch.float32, torch.bfloat16)
 # mma.sync through registers (bf16, every other D), CUDA cores (f32)
 BWD_VARIANTS = ("wgmma", "mma", "f32")
 WGMMA_HEAD_DIMS = (32, 64, 128)
+# the forward kernels: rows n walked with the pair-bias strip resident,
+# TMA + wgmma ("wgmma", bf16 D 32/64/128) or mma.sync ("rows", other bf16
+# D), both where the strip fits shared memory (`fwd_smem`); the first
+# kernel, one CTA a row ("mma"); CUDA cores ("f32")
+FWD_VARIANTS = ("wgmma", "rows", "mma", "f32")
+# the db2 kernels: N rows split over CTAs, TMA + wgmma ("wgmma") or
+# mma.sync ("split"); the first kernel, one CTA walking every row
+# ("mma"); CUDA cores ("f32")
+DB2_VARIANTS = ("wgmma", "split", "mma", "f32")
+# Shared memory as the C launchers size it (csrc/evoformer_flash.cu): a
+# CTA may take SMEM_MAX bytes, an SM holds SM_SMEM and reserves 1 KB a
+# CTA; the ring's WS slots of 64-row tiles; the wgmma kernels' static
+# share (WG_STATIC_SMEM, DB2_STATIC_SMEM); the mma.sync kernels' cp.async
+# stages (FWD_STAGES, MMA_STAGES).
+SMEM_MAX = 232448
+SM_SMEM = 233472
+_WS, _TILE = 3, 64
+_WG_STATIC_SMEM, _DB2_STATIC_SMEM = 2048, 3 * 3 * 64 * 4 + 128
+_FWD_STAGES, _DB2_STAGES = 2, 3
+# a db2 split walks at least this many rows (its bias tile and merge
+# amortised over them)
+MIN_SPLIT_ROWS = 4
+# the most rows n a forward CTA walks (on an H100 4 rows a CTA beat 1, 2,
+# 3, 6 and 8 at the MSA row and triangle shapes and came within 0.5% of
+# the best at the extra-MSA row: `chip_ab.py --what evoformer_plans`,
+# PERF.md)
+FWD_MAX_ROWS = 4
+# the mma.sync row-walking forward ("rows") takes a call only where an SM
+# holds at least this many of its CTAs: at one (L 768 and 1024 at D 8 in
+# bf16, a 96 and 128 KB strip) it ran 1.6x the first kernel on an H100, at two
+# (L 512) 0.89x and at three (L 384) 0.68x (`chip_ab.py --what
+# evoformer_plans`, PERF.md); the wgmma form won at one CTA an SM too
+ROWS_MIN_RESIDENT = 2
+# below this many rows n, bf16 db2 at D <= 32 stays on the first kernel:
+# its four row groups a CTA match or beat the split kernels' serial walk
+# where every row is cheap (on an H100 at N 4 and 16: `chip_ab.py --what
+# evoformer_plans`, PERF.md)
+DB2_MIN_ROWS = 32
 
 # The dk/dv kernel's launches that also computed db1 (its epilogue stands
 # for the TPU's separate db1 kernel).
 evoformer_flash_db1 = types.SimpleNamespace(__name__="evoformer_flash_db1",
                                             launches=0)
+
+
+def _refuse(dtype, D: int, L: int) -> None:
+    """Raise on a dtype, head dim or length no Evoformer kernel takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype}: the Evoformer kernels take bf16 "
+                        f"or f32")
+    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D}: the Evoformer kernels take "
+                         f"D % 8 == 0 and D <= {MAX_HEAD_DIM}")
+    if L < 1:
+        raise ValueError(f"length {L}")
 
 
 def bwd_variant(dtype, D: int, L: int) -> str:
@@ -89,17 +161,123 @@ def bwd_variant(dtype, D: int, L: int) -> str:
     swizzled row, and D 8 (the extra-MSA width) would run 4x padded.
     Every L takes the same pair (TMA zero-fills the tails; a pair bias
     whose rows TMA cannot address is copied, `pair_bias_pitch`)."""
-    if dtype not in _DTYPES:
-        raise TypeError(f"dtype {dtype}: the Evoformer kernels take bf16 "
-                        f"or f32")
-    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {D}: the Evoformer kernels take "
-                         f"D % 8 == 0 and D <= {MAX_HEAD_DIM}")
-    if L < 1:
-        raise ValueError(f"length {L}")
+    _refuse(dtype, D, L)
     if dtype == torch.float32:
         return "f32"
     return "wgmma" if D in WGMMA_HEAD_DIMS else "mma"
+
+
+def _padded(D: int) -> int:
+    """The mma.sync kernels' staged width: D up to 16, 32, 64 or 128."""
+    return 16 if D <= 16 else 32 if D <= 32 else 64 if D <= 64 else 128
+
+
+def _bias_bytes(b2_dtype, keys: int) -> int:
+    """A [64, keys] pair-bias tile in `b2_dtype` (None: no pair bias)."""
+    if b2_dtype is None:
+        return 0
+    return _TILE * keys * torch.empty((), dtype=b2_dtype).element_size()
+
+
+def fwd_smem(variant: str, D: int, L: int, b2_dtype) -> int:
+    """Shared memory a CTA of the row-walking forward `variant` ("wgmma"
+    or "rows") takes at head dim D and length L, its pair-bias strip
+    [64, L rounded up to 64] in `b2_dtype` (None: no pair bias) among it,
+    as the launchers `fwd_wgmma` / `fwd_rows` size and check it."""
+    strip = _bias_bytes(b2_dtype, -(-L // _TILE) * _TILE)
+    if variant == "wgmma":   # Q twice, K and V in every slot
+        return 1024 + (2 + 2 * _WS) * _TILE * D * 2 + strip + _WG_STATIC_SMEM
+    tile = _TILE * (_padded(D) + 8) * 2       # Q, then K, V and b1 a stage
+    return 1024 + strip + _FWD_STAGES * (3 * tile + _TILE * 4)
+
+
+def db2_smem(variant: str, D: int, b2_dtype) -> int:
+    """Shared memory a CTA of the split db2 `variant` ("wgmma" or
+    "split") takes at head dim D, as `db2_wgmma` / `db2_split` size it."""
+    bias = _bias_bytes(b2_dtype, _TILE)
+    if variant == "wgmma":   # Q, dO, K and V in every slot
+        return 1024 + bias + _WS * 4 * _TILE * D * 2 + _DB2_STATIC_SMEM
+    tile = _TILE * (_padded(D) + 8) * 2       # Q, dO, K, V, lse, delta, b1
+    return 1024 + bias + _DB2_STAGES * (4 * tile + 3 * _TILE * 4)
+
+
+def resident(kernel: str, variant: str, D: int, smem: int) -> int:
+    """CTAs an SM holds of the forward's or db2's (`kernel` "fwd" or
+    "db2") new kernel `variant` at head dim D taking `smem` bytes: its
+    launch bound (`fwd_blocks`, `db2_blocks`; 4 at D 8 and 16 and 2
+    otherwise for the mma.sync kernels), or fewer where shared memory
+    holds fewer."""
+    if variant == "wgmma":
+        bound = {32: 3 if kernel == "fwd" else 2, 64: 2, 128: 1}[D]
+    else:
+        bound = 4 if _padded(D) == 16 else 2
+    return max(1, min(bound, SM_SMEM // (smem + 1024)))
+
+
+def fwd_variant(dtype, D: int, L: int, b2_dtype) -> str:
+    """The forward kernel that inputs of `dtype`, head dim `D`, length `L`
+    and a pair bias of `b2_dtype` (None: none) take on the card: "f32"
+    for float32; for bf16 the row-walking kernels, "wgmma" at D 32, 64
+    and 128 wherever their pair-bias strip fits a CTA's shared memory
+    (`fwd_smem`: in bf16 up to L 768 at D 128, 1536 at D 32) and "rows"
+    (mma.sync) at every other D wherever ROWS_MIN_RESIDENT of its CTAs
+    fit an SM (in bf16 up to L 704 at D 8), and past that "mma" (one CTA
+    a row n, the pair bias read from device memory).  Refuses what
+    `bwd_variant` refuses."""
+    _refuse(dtype, D, L)
+    if dtype == torch.float32:
+        return "f32"
+    variant = "wgmma" if D in WGMMA_HEAD_DIMS else "rows"
+    smem = fwd_smem(variant, D, L, b2_dtype)
+    if smem > SMEM_MAX or (variant == "rows" and resident(
+            "fwd", variant, D, smem) < ROWS_MIN_RESIDENT):
+        return "mma"
+    return variant
+
+
+def db2_variant(dtype, D: int, L: int, N: int) -> str:
+    """The db2 kernel that inputs of `dtype`, head dim `D`, length `L` and
+    N rows take on the card: "f32" for float32; for bf16 the split
+    kernels, "wgmma" at D 32, 64 and 128 and "split" (mma.sync) at every
+    other D (any L), except "mma" (the first kernel) at D <= 32 with fewer
+    than DB2_MIN_ROWS rows.  Refuses what `bwd_variant` refuses."""
+    _refuse(dtype, D, L)
+    if dtype == torch.float32:
+        return "f32"
+    if N < DB2_MIN_ROWS and D <= 32:
+        return "mma"
+    return "wgmma" if D in WGMMA_HEAD_DIMS else "split"
+
+
+@functools.lru_cache(maxsize=256)
+def db2_plan(B: int, N: int, L: int, H: int, D: int, b2_dtype,
+             sms: int) -> int:
+    """The splits of bf16 db2's N rows at [B, N, L, H, D] (pair bias in
+    `b2_dtype`) on a card of `sms` SMs: the most whose grid of [64, 64]
+    tiles x splits still fits one wave (sms x `resident` CTAs), each split
+    walking at least MIN_SPLIT_ROWS rows (one split where N is smaller).
+    The kernels give split s rows [s N / splits, (s + 1) N / splits).
+    On an H100 a full wave beat more splits (a partial last wave costs
+    more than it hides; `chip_ab.py --what evoformer_plans`, PERF.md)."""
+    variant = "wgmma" if D in WGMMA_HEAD_DIMS else "split"
+    tiles = B * H * (-(-L // _TILE)) ** 2
+    wave = sms * resident("db2", variant, D, db2_smem(variant, D, b2_dtype))
+    return max(1, min(N // MIN_SPLIT_ROWS, wave // tiles))
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(B: int, N: int, L: int, H: int, D: int, b2_dtype,
+             sms: int) -> int:
+    """The rows n a CTA of the bf16 row-walking forward walks at [B, N,
+    L, H, D] (pair bias in `b2_dtype`) on a card of `sms` SMs: the most,
+    up to FWD_MAX_ROWS, that still give the grid of (b, h, query tile) x
+    ceil(N / rows) CTAs one wave (sms x `resident` CTAs); each row's pair
+    bias then comes from shared memory, and from L2 once a CTA."""
+    variant = "wgmma" if D in WGMMA_HEAD_DIMS else "rows"
+    units = B * H * -(-L // _TILE)
+    wave = sms * resident("fwd", variant, D,
+                          fwd_smem(variant, D, L, b2_dtype))
+    return max(1, min(FWD_MAX_ROWS, N * units // wave))
 
 
 def pair_bias_pitch(L: int, dtype) -> int:
@@ -303,10 +481,8 @@ def _tma_pair_bias(wrapper, b2, L):
     pitch = pair_bias_pitch(L, b2.dtype)
     if pitch == L:
         return b2, L
-    padded = b2.new_zeros(b2.shape[:-1] + (pitch,))
-    padded[..., :L] = b2
     wrapper.pair_bias_copies += 1
-    return padded, pitch
+    return torch.nn.functional.pad(b2, (0, pitch - L)), pitch
 
 
 def _run_pair(wrapper, kernel, q, k, v, b1, b2, rest, scale):
@@ -334,27 +510,78 @@ def _run_pair(wrapper, kernel, q, k, v, b1, b2, rest, scale):
     wrapper.launches_by_variant[variant] += 1
 
 
+def _takes(kernel, variant, dtype, D, L, b2_dtype) -> bool:
+    """Whether the forward's or db2's (`kernel` "fwd" or "db2") kernel
+    `variant` takes inputs of `dtype`, head dim D, length L and a pair
+    bias of `b2_dtype`."""
+    if variant == "f32":
+        return dtype == torch.float32
+    if dtype != torch.bfloat16:
+        return False
+    if variant == "wgmma" and D not in WGMMA_HEAD_DIMS:
+        return False
+    return not (kernel == "fwd" and variant in ("wgmma", "rows")
+                and fwd_smem(variant, D, L, b2_dtype) > SMEM_MAX)
+
+
+def _route(kernel, variant, q, b2_dtype):
+    """The variant the forward's or db2's (`kernel` "fwd" or "db2") call
+    on q [B, N, L, H, D] with a pair bias of `b2_dtype` takes: its rule's
+    (`fwd_variant`, `db2_variant`), or the one the caller names, which
+    must take the call (no other kernel is tried)."""
+    _, N, L, _, D = q.shape
+    if kernel == "fwd":
+        routed, kinds = fwd_variant(q.dtype, D, L, b2_dtype), FWD_VARIANTS
+    else:
+        routed, kinds = db2_variant(q.dtype, D, L, N), DB2_VARIANTS
+    if variant is None or variant == routed:
+        return routed
+    if variant not in kinds or not _takes(kernel, variant, q.dtype, D, L,
+                                          b2_dtype):
+        raise ValueError(f"Evoformer {kernel} variant {variant!r} does not "
+                         f"take {q.dtype} at D {D}, L {L} (the rule names "
+                         f"{routed!r})")
+    return variant
+
+
 def evoformer_flash_forward(q, k, v, b1=None, b2=None,
                             scale: Optional[float] = None,
-                            return_lse: bool = False):
+                            return_lse: bool = False,
+                            variant: Optional[str] = None):
     """q/k/v: [B, N, L, H, D]; b1: [B, N, 1, 1, L] mask bias or None; b2:
     [B, 1, H, L, L] pair bias or None.  Returns out [B, N, L, H, D] in
     q.dtype (with `return_lse` also the lse [B*N, H, L] f32 the backward
-    kernels consume)."""
+    kernels consume).  On the card `variant` (FWD_VARIANTS) names a kernel
+    other than `fwd_variant`'s (the row-walking kernels walk `fwd_plan`'s
+    rows a CTA)."""
     if q.device.type == "cpu":
         out, lse = evoformer_flash_forward_reference(q, k, v, b1, b2, scale)
         return (out, lse) if return_lse else out
     _not_cuda(q)
     _check(q, k, v, b1, b2)
     B, N, L, H, D = q.shape
+    b2_dtype = None if b2 is None else b2.dtype
+    variant = _route("fwd", variant, q, b2_dtype)
     out = torch.empty_like(q)
     lse = torch.empty((B * N, H, L), dtype=torch.float32, device=q.device)
-    p1, p2, bits = _bias_args(b1, b2)
-    fn = _build.function("evoformer_flash", "dstt_evo_fwd", _FWD_ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), p1, p2,
-            out.data_ptr(), lse.data_ptr(), *_shape_args(q, bits, scale))
+    if variant in ("wgmma", "rows"):
+        rows = fwd_plan(B, N, L, H, D, b2_dtype, _scratch.sm_count(q.device))
+        b2, pitch = _tma_pair_bias(evoformer_flash_forward, b2, L)
+        p1, p2, bits = _bias_args(b1, b2)
+        fn = _build.function("evoformer_flash", "dstt_evo_fwd_rows",
+                             _FWD_ROWS_ARGS)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), p1, p2,
+                out.data_ptr(), lse.data_ptr(), B, N, L, H, D, bits,
+                _scale(scale, D), pitch, rows, int(variant == "wgmma"),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    else:
+        p1, p2, bits = _bias_args(b1, b2)
+        fn = _build.function("evoformer_flash", "dstt_evo_fwd", _FWD_ARGS)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), p1, p2,
+                out.data_ptr(), lse.data_ptr(), *_shape_args(q, bits, scale))
     _build.check(rc, "Evoformer attention")
     evoformer_flash_forward.launches += 1
+    evoformer_flash_forward.launches_by_variant[variant] += 1
     return (out, lse) if return_lse else out
 
 
@@ -405,9 +632,12 @@ def evoformer_flash_dkv(q, k, v, b1, b2, do, lse, delta,
 
 
 def evoformer_flash_db2(q, k, v, b1, b2, do, lse, delta,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        variant: Optional[str] = None):
     """The pair-bias gradient [B, 1, H, L, L] in b2's dtype: dS summed
-    over the N rows."""
+    over the N rows.  On the card `variant` (DB2_VARIANTS) names a kernel
+    other than `db2_variant`'s (the split kernels split the rows as
+    `db2_plan` says)."""
     if b2 is None:
         raise ValueError("db2 needs the pair bias b2")
     if q.device.type == "cpu":
@@ -415,14 +645,39 @@ def evoformer_flash_db2(q, k, v, b1, b2, do, lse, delta,
                                              delta, scale)
     _not_cuda(q)
     _check(q, k, v, b1, b2, (do,), (lse, delta))
+    B, N, L, H, D = q.shape
+    variant = _route("db2", variant, q, b2.dtype)
     db2 = torch.empty_like(b2)
-    p1, p2, bits = _bias_args(b1, b2)
-    fn = _build.function("evoformer_flash", "dstt_evo_db2", _DB2_ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), p1, p2, do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), db2.data_ptr(),
-            *_shape_args(q, bits, scale))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if variant in ("wgmma", "split"):
+        splits = db2_plan(B, N, L, H, D, b2.dtype,
+                          _scratch.sm_count(q.device))
+        tiles = B * H * (-(-L // _TILE)) ** 2
+        ws = tickets = None
+        if splits > 1:
+            ws = _scratch.buffer("evo_db2_ws", q.device, stream,
+                                 tiles * splits * 4096,
+                                 torch.float32).data_ptr()
+            tickets = _scratch.buffer("evo_db2_tickets", q.device, stream,
+                                      tiles, torch.int32).data_ptr()
+        b2t, pitch = _tma_pair_bias(evoformer_flash_db2, b2, L)
+        p1, p2, bits = _bias_args(b1, b2t)
+        fn = _build.function("evoformer_flash", "dstt_evo_db2_split",
+                             _DB2_SPLIT_ARGS)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), p1, p2,
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                db2.data_ptr(), ws, tickets, B, N, L, H, D, bits,
+                _scale(scale, D), pitch, splits,
+                int(variant == "wgmma"), stream)
+    else:
+        p1, p2, bits = _bias_args(b1, b2)
+        fn = _build.function("evoformer_flash", "dstt_evo_db2", _DB2_ARGS)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), p1, p2,
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                db2.data_ptr(), *_shape_args(q, bits, scale))
     _build.check(rc, "Evoformer attention db2")
     evoformer_flash_db2.launches += 1
+    evoformer_flash_db2.launches_by_variant[variant] += 1
     return db2
 
 
@@ -444,9 +699,14 @@ evoformer_flash_forward.launches = 0
 evoformer_flash_dq.launches = 0
 evoformer_flash_dkv.launches = 0
 evoformer_flash_db2.launches = 0
-# launches per kernel pair (BWD_VARIANTS), reset with `launches`; and the
-# wgmma launches that read a padded copy of the pair bias
+# launches per kernel variant (FWD_VARIANTS, BWD_VARIANTS for the pair,
+# DB2_VARIANTS), reset with `launches`; and the TMA launches that read a
+# padded copy of the pair bias
+evoformer_flash_forward.launches_by_variant = dict.fromkeys(FWD_VARIANTS, 0)
 evoformer_flash_dq.launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 evoformer_flash_dkv.launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
+evoformer_flash_db2.launches_by_variant = dict.fromkeys(DB2_VARIANTS, 0)
+evoformer_flash_forward.pair_bias_copies = 0
 evoformer_flash_dq.pair_bias_copies = 0
 evoformer_flash_dkv.pair_bias_copies = 0
+evoformer_flash_db2.pair_bias_copies = 0

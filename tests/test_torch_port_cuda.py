@@ -1309,12 +1309,27 @@ def _evo_inputs(g, dtype, B, N, L, H, D, which, mask_row=False,
             b2 if which in ("b2", "both") else None)
 
 
-def _evo_want_variant(dtype, D):
-    """The kernel pair each case must take: the f32 CUDA-core pair, TMA +
-    wgmma for bf16 at D 32, 64 and 128, mma.sync for other bf16 D."""
+def _evo_want_variant(dtype, D, kernel="pair", L=128, N=64,
+                      b2_dtype=torch.bfloat16):
+    """The kernel each case must take: the f32 CUDA-core kernels; for
+    bf16 the TMA + wgmma kernels at D 32, 64 and 128, elsewhere the dq and
+    dk/dv pair's mma.sync kernels, db2's split mma.sync kernel and the
+    forward's row-walking mma.sync kernel (while two of its CTAs fit an
+    SM; the wgmma one while its pair-bias strip fits shared memory; the
+    first forward kernel past that); db2 at D <= 32 with
+    fewer than 32 rows n on its first kernel."""
     if dtype == torch.float32:
         return "f32"
-    return "wgmma" if D in (32, 64, 128) else "mma"
+    new = "wgmma" if D in (32, 64, 128) else "rows"
+    smem = tevof.fwd_smem(new, D, L, b2_dtype)
+    if kernel == "fwd" and (smem > tevof.SMEM_MAX or new == "rows" and
+                            tevof.resident("fwd", new, D, smem) < 2):
+        return "mma"
+    if kernel == "db2" and D <= 32 and N < 32:
+        return "mma"
+    if D in (32, 64, 128):
+        return "wgmma"
+    return {"pair": "mma", "fwd": "rows", "db2": "split"}[kernel]
 
 
 def _evo_check_backward(got, again, want):
@@ -1341,7 +1356,8 @@ def test_evoformer_kernels_match_plain_versions(card, dtype, B, N, L, H, D,
                 tevof.evoformer_flash_db1)
     pair = (tevof.evoformer_flash_dq, tevof.evoformer_flash_dkv)
     before = [c.launches for c in counters]
-    by_variant = [dict(c.launches_by_variant) for c in pair]
+    by_variant = [dict(c.launches_by_variant) for c in
+                  pair + (counters[0], counters[3])]
     out, lse = tevof.evoformer_flash_forward(q, k, v, b1, b2,
                                              return_lse=True)
     ref, ref_lse = tevof.evoformer_flash_forward_reference(q, k, v, b1, b2)
@@ -1349,6 +1365,8 @@ def test_evoformer_kernels_match_plain_versions(card, dtype, B, N, L, H, D,
     _close(lse, ref_lse, LSE_ATOL, 1e-6)
     if which == "both":   # row 0 fully masked: out 0, lse -1e30
         assert (out[0, 0] == 0).all() and torch.isfinite(lse).all()
+        assert float(lse.view(B, N, H, L)[0, 0].max()) <= -1e29
+    assert torch.equal(out, tevof.evoformer_flash_forward(q, k, v, b1, b2))
     do = _rnd(card, dtype, B, N, L, H, D)
     got = tevof.evoformer_flash_backward(q, k, v, b1, b2, out, do, lse)
     again = tevof.evoformer_flash_backward(q, k, v, b1, b2, out, do, lse)
@@ -1360,14 +1378,25 @@ def test_evoformer_kernels_match_plain_versions(card, dtype, B, N, L, H, D,
     _, delta = tevof.evoformer_flash_dq(q, k, v, b1, b2, out, do, lse)
     _close(delta, tevof._delta(out, do), 1e-5 * max(
         float(delta.abs().max()), 1.0))
-    # one forward, two backward calls and one more dq
+    # two forward and two backward calls and one more dq
     assert [c.launches - b for c, b in zip(counters, before)] == \
-        [1, 3, 2, 2 * int(b2 is not None), 2 * int(b1 is not None)]
+        [2, 3, 2, 2 * int(b2 is not None), 2 * int(b1 is not None)]
     variant = _evo_want_variant(dtype, D)
     assert tevof.bwd_variant(dtype, D, L) == variant
     for c, b, n in zip(pair, by_variant, (3, 2)):
         assert {k: c.launches_by_variant[k] - b[k] for k in b} == {
             k: n if k == variant else 0 for k in b}
+    # the forward and db2 on the kernels their rules name
+    b2_dtype = None if b2 is None else b2.dtype
+    for c, b, n, kernel, routed in (
+            (counters[0], by_variant[2], 2, "fwd",
+             tevof.fwd_variant(dtype, D, L, b2_dtype)),
+            (counters[3], by_variant[3], 2 * int(b2 is not None), "db2",
+             tevof.db2_variant(dtype, D, L, N))):
+        want = _evo_want_variant(dtype, D, kernel, L, N, b2_dtype)
+        assert routed == want
+        assert {k: c.launches_by_variant[k] - b[k] for k in b} == {
+            k: n if k == want else 0 for k in b}
 
 
 @pytest.mark.parametrize("L,b2_dtype", [(77, torch.float32),
@@ -1386,6 +1415,9 @@ def test_evoformer_wgmma_pair_takes_any_pair_bias_row(card, L, b2_dtype):
     pair = (tevof.evoformer_flash_dq, tevof.evoformer_flash_dkv)
     copies = [c.pair_bias_copies for c in pair]
     wgmma = [c.launches_by_variant["wgmma"] for c in pair]
+    more = (tevof.evoformer_flash_forward, tevof.evoformer_flash_db2)
+    more_copies = [c.pair_bias_copies for c in more]
+    more_wgmma = [c.launches_by_variant["wgmma"] for c in more]
     out, lse = tevof.evoformer_flash_forward(q, k, v, b1, b2,
                                              return_lse=True)
     do = _rnd(card, torch.bfloat16, *q.shape)
@@ -1401,6 +1433,163 @@ def test_evoformer_wgmma_pair_takes_any_pair_bias_row(card, L, b2_dtype):
         [2 * int(padded)] * 2
     assert [c.launches_by_variant["wgmma"] - n
             for c, n in zip(pair, wgmma)] == [2, 2]
+    # the forward and db2 (the wgmma split kernel, which N 3 takes only
+    # when named) read it by TMA too, from the same padded copy
+    lse_delta = tevof.evoformer_flash_dq(q, k, v, b1, b2, out, do, lse)[1]
+    got2 = tevof.evoformer_flash_db2(q, k, v, b1, b2, do, lse, lse_delta,
+                                     variant="wgmma")
+    scale = max(float(want[4].float().abs().max()), 1.0)
+    _close(got2, want[4], BWD_ATOL[torch.bfloat16] * scale,
+           BWD_RTOL[torch.bfloat16])
+    assert [c.pair_bias_copies - n for c, n in zip(more, more_copies)] == \
+        [int(padded), int(padded)]
+    assert [c.launches_by_variant["wgmma"] - n
+            for c, n in zip(more, more_wgmma)] == [1, 1]
+
+
+@pytest.mark.parametrize("B,N,L,H,D,which", [
+    (1, 4, 256, 8, 32, "both"), (1, 3, 100, 4, 8, "both"),
+    (1, 2, 96, 4, 64, "b2"), (1, 2, 128, 2, 128, "both")],
+    ids=["L256-d32", "L100-d8", "L96-d64", "L128-d128"])
+def test_evoformer_first_forward_and_db2_stay_reachable(card, B, N, L, H, D,
+                                                        which):
+    """`variant="mma"` runs the first forward and db2 kernels (one CTA a
+    row n; one CTA walking every row) beside the new ones, within the
+    kernels' limits of each other and of the plain versions; "split"
+    takes D 32 too; a variant that cannot take the call raises."""
+    q, k, v, b1, b2 = _evo_inputs(card, torch.bfloat16, B, N, L, H, D, which,
+                                  mask_row=True)
+    fwd, db2 = tevof.evoformer_flash_forward, tevof.evoformer_flash_db2
+    counts = [dict(c.launches_by_variant) for c in (fwd, db2)]
+    out, lse = fwd(q, k, v, b1, b2, return_lse=True)
+    old, old_lse = fwd(q, k, v, b1, b2, return_lse=True, variant="mma")
+    ref, ref_lse = tevof.evoformer_flash_forward_reference(q, k, v, b1, b2)
+    for o, ls in ((out, lse), (old, old_lse)):
+        _close(o, ref, ATOL[torch.bfloat16], RTOL[torch.bfloat16])
+        _close(ls, ref_lse, LSE_ATOL, 1e-6)
+    do = _rnd(card, torch.bfloat16, *q.shape)
+    _, delta = tevof.evoformer_flash_dq(q, k, v, b1, b2, out, do, lse)
+    want = tevof.evoformer_flash_db2_reference(q, k, v, b1, b2, do, lse,
+                                               delta)
+    scale = max(float(want.float().abs().max()), 1.0)
+    got = {vr: db2(q, k, v, b1, b2, do, lse, delta, variant=vr)
+           for vr in ("mma", "split", None)}
+    for g in got.values():
+        _close(g, want, BWD_ATOL[torch.bfloat16] * scale,
+               BWD_RTOL[torch.bfloat16])
+    routed_fwd = tevof.fwd_variant(torch.bfloat16, D, L,
+                                   None if b2 is None else b2.dtype)
+    routed_db2 = tevof.db2_variant(torch.bfloat16, D, L, N)
+    assert {k_: fwd.launches_by_variant[k_] - counts[0][k_]
+            for k_ in counts[0]} == {k_: (k_ == routed_fwd) + (k_ == "mma")
+                                     for k_ in counts[0]}
+    assert {k_: db2.launches_by_variant[k_] - counts[1][k_]
+            for k_ in counts[1]} == {
+        k_: (k_ == routed_db2) + (k_ == "mma") + (k_ == "split")
+        for k_ in counts[1]}
+    if D not in (32, 64, 128):
+        with pytest.raises(ValueError, match="variant 'wgmma'"):
+            fwd(q, k, v, b1, b2, variant="wgmma")
+        with pytest.raises(ValueError, match="variant 'wgmma'"):
+            db2(q, k, v, b1, b2, do, lse, delta, variant="wgmma")
+    with pytest.raises(ValueError, match="variant 'f32'"):
+        fwd(q, k, v, b1, b2, variant="f32")
+
+
+@pytest.mark.parametrize("D,b2_dtype", [
+    (8, torch.bfloat16), (8, torch.float32), (32, torch.bfloat16),
+    (64, torch.float32), (128, torch.bfloat16), (128, torch.float32)],
+    ids=["d8-bf16", "d8-f32", "d32-bf16", "d64-f32", "d128-bf16",
+         "d128-f32"])
+def test_evoformer_forward_takes_long_rows_up_to_the_strip_limit(card, D,
+                                                                 b2_dtype):
+    """The row-walking forward launches, named, at the longest L whose
+    pair-bias strip `fwd_smem` says fits shared memory (so the launcher's
+    check agrees with the rule), and one key later the call takes the
+    first kernel; both within the forward's limits of the plain
+    version."""
+    new = "wgmma" if D in (32, 64, 128) else "rows"
+    top = max(L for L in range(64, 4097, 64)
+              if tevof.fwd_smem(new, D, L, b2_dtype) <= tevof.SMEM_MAX)
+    fwd = tevof.evoformer_flash_forward
+    for L, want in ((top, new), (top + 1, "mma")):
+        q, k, v, b1, b2 = _evo_inputs(card, torch.bfloat16, 1, 2, L, 2, D,
+                                      "both", mask_row=True,
+                                      b2_dtype=b2_dtype)
+        if want == "mma":
+            assert tevof.fwd_variant(torch.bfloat16, D, L, b2_dtype) == want
+        before = fwd.launches_by_variant[want]
+        out, lse = fwd(q, k, v, b1, b2, return_lse=True, variant=want)
+        assert fwd.launches_by_variant[want] == before + 1
+        ref, ref_lse = tevof.evoformer_flash_forward_reference(q, k, v, b1,
+                                                               b2)
+        _close(out, ref, ATOL[torch.bfloat16], RTOL[torch.bfloat16])
+        _close(lse, ref_lse, LSE_ATOL, 1e-6)
+        assert (out[0, 0] == 0).all()
+        del q, k, v, b1, b2, out, lse, ref, ref_lse
+
+
+@pytest.mark.parametrize("D", [8, 32], ids=["d8", "d32"])
+def test_evoformer_db2_reruns_equal_under_every_split(card, D,
+                                                      monkeypatch):
+    """db2's splits add their f32 partials in split order in the launch
+    (an integer ticket, no float atomics): every split count gives the
+    same bits from run to run, and each is within the backward limit of
+    the plain version and of the one-split sum."""
+    B, N, L, H = 1, 40, 200, 2
+    q, k, v, b1, b2 = _evo_inputs(card, torch.bfloat16, B, N, L, H, D,
+                                  "both")
+    do = _rnd(card, torch.bfloat16, *q.shape)
+    out, lse = tevof.evoformer_flash_forward(q, k, v, b1, b2,
+                                             return_lse=True)
+    _, delta = tevof.evoformer_flash_dq(q, k, v, b1, b2, out, do, lse)
+    want = tevof.evoformer_flash_db2_reference(q, k, v, b1, b2, do, lse,
+                                               delta)
+    scale = max(float(want.float().abs().max()), 1.0)
+    planned = tevof.db2_plan(B, N, L, H, D, b2.dtype, 132)
+    for splits in sorted({1, 2, 5, N // 4, planned}):
+        monkeypatch.setattr(tevof, "db2_plan", lambda *a, s=splits: s)
+        got = tevof.evoformer_flash_db2(q, k, v, b1, b2, do, lse, delta)
+        again = tevof.evoformer_flash_db2(q, k, v, b1, b2, do, lse, delta)
+        assert torch.equal(got, again), splits
+        _close(got, want, BWD_ATOL[torch.bfloat16] * scale,
+               BWD_RTOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("D", [8, 32], ids=["d8", "d32"])
+def test_evoformer_forward_and_db2_walk_past_the_grid_limit(card, D,
+                                                            monkeypatch):
+    """The row-walking forward at one row a CTA over B*N = 70000 rows
+    (B * groups past the 65535 limit of the grid's z axis) and db2 over B*H
+    = 80000 heads (past it too): both walk their slices grid-stride."""
+    q, k, v, b1, b2 = _evo_inputs(card, torch.bfloat16, 1, 70000, 16, 1, D,
+                                  "both")
+    monkeypatch.setattr(tevof, "fwd_plan", lambda *a: 1)
+    out, lse = tevof.evoformer_flash_forward(q, k, v, b1, b2,
+                                             return_lse=True)
+    monkeypatch.undo()
+    ref, ref_lse = tevof.evoformer_flash_forward_reference(q, k, v, b1, b2)
+    _close(out, ref, ATOL[torch.bfloat16], RTOL[torch.bfloat16])
+    _close(lse, ref_lse, LSE_ATOL, 1e-6)
+    del q, k, v, b1, b2, out, lse, ref, ref_lse
+    B, N, L, H = 2, 2, 16, 40000
+    q, k, v, b1, b2 = _evo_inputs(card, torch.bfloat16, B, N, L, H, D,
+                                  "both")
+    do = _rnd(card, torch.bfloat16, *q.shape)
+    out, lse = tevof.evoformer_flash_forward(q, k, v, b1, b2,
+                                             return_lse=True)
+    _, delta = tevof.evoformer_flash_dq(q, k, v, b1, b2, out, do, lse)
+    variant = "wgmma" if D == 32 else "split"   # the split kernels
+    before = tevof.evoformer_flash_db2.launches_by_variant[variant]
+    got = tevof.evoformer_flash_db2(q, k, v, b1, b2, do, lse, delta,
+                                    variant=variant)
+    assert tevof.evoformer_flash_db2.launches_by_variant[variant] == \
+        before + 1
+    want = tevof.evoformer_flash_db2_reference(q, k, v, b1, b2, do, lse,
+                                               delta)
+    scale = max(float(want.float().abs().max()), 1.0)
+    _close(got, want, BWD_ATOL[torch.bfloat16] * scale,
+           BWD_RTOL[torch.bfloat16])
 
 
 def test_evoformer_attention_trains_through_the_kernels(card):

@@ -116,6 +116,22 @@ def test_forward_matches_pallas_kernels(_interpret, which, D):
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **FWD_TOL)
 
 
+@pytest.mark.parametrize("variant", [None, "wgmma", "rows", "mma"])
+def test_forward_keywords_of_the_card_leave_the_cpu_result(_interpret,
+                                                           variant):
+    """`variant` names the card's forward kernel; on the CPU the wrapper
+    runs the plain version whatever it says, within FWD_TOL of the Pallas
+    forward."""
+    arrays = _pick(_inputs(1, 5, 64, 2, 32, seed=9, scale=1.0, mask=True),
+                   "both")
+    want, want_lse = jef.evoformer_flash_forward(*_jax(arrays),
+                                                 return_lse=True)
+    out, lse = tef.evoformer_flash_forward(*_torch(arrays), return_lse=True,
+                                           variant=variant)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **FWD_TOL)
+
+
 # ----------------------------------------------------------------------
 # backward
 # ----------------------------------------------------------------------
@@ -152,6 +168,29 @@ def test_backward_plain_versions_match_pallas(_interpret, which):
         delta.numpy(), (do * np.asarray(jout)).sum(-1).transpose(
             0, 1, 3, 2).reshape(3, 2, 64), rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(dq.numpy(), got[0].numpy())
+
+
+@pytest.mark.parametrize("variant", [None, "wgmma", "split", "mma"])
+def test_db2_keywords_of_the_card_leave_the_cpu_result(_interpret, variant):
+    """`variant` names the card's db2 kernel; on the CPU the wrapper runs
+    the plain version whatever it says, within BWD_TOL of the Pallas
+    backward's db2."""
+    arrays = _pick(_inputs(1, 6, 64, 2, 32, seed=11, scale=0.3, mask=True),
+                   "both")
+    rng = np.random.RandomState(12)
+    do = rng.randn(*arrays[0].shape).astype(np.float32)
+    jargs = _jax(arrays)
+    jout, jlse = jef.evoformer_flash_forward(*jargs, return_lse=True)
+    want = jef.evoformer_flash_backward(*jargs, jout, jnp.asarray(do),
+                                        jlse)[4]
+    q, k, v, b1, b2 = _torch(arrays)
+    out, lse = torch.from_numpy(np.array(jout)), torch.from_numpy(
+        np.array(jlse))
+    tdo = torch.from_numpy(do)
+    _, delta = tef.evoformer_flash_dq(q, k, v, b1, b2, out, tdo, lse)
+    got = tef.evoformer_flash_db2(q, k, v, b1, b2, tdo, lse, delta,
+                                  variant=variant)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BWD_TOL)
 
 
 GRAD_CASES = {

@@ -1204,3 +1204,395 @@ def test_sparse_forward_order_of_sums_matches_the_pallas_kernel(monkeypatch,
     assert np.abs(got_lse - ref_lse.reshape(got_lse.shape)).max() <= FWD_LSE
     if name == "masked-row16":
         assert (got[:, 2 * block:3 * block, 0] == 0).all()
+
+
+# ----------------------------------------------------------------------
+# the Evoformer forward and db2: their rules, plans and orders of sums
+# ----------------------------------------------------------------------
+# phase 12's shapes (chip_smoke EVO_SHAPES): MSA row, triangle, extra-MSA
+EVO_SHAPES = [(1, 128, 256, 8, 32), (1, 256, 256, 4, 32),
+              (1, 1024, 256, 8, 8)]
+# (dtype, D, L, N, pair-bias dtype, forward, db2): the phase-12 shapes,
+# phase 1's cases, AlphaFold 2's fine-tuning crop (L 384), and rows whose
+# forward strip does not fit shared memory
+EVO_NEW_VARIANTS = [
+    (torch.bfloat16, 32, 256, 128, torch.bfloat16, "wgmma", "wgmma"),
+    (torch.bfloat16, 32, 256, 256, torch.bfloat16, "wgmma", "wgmma"),
+    (torch.bfloat16, 8, 256, 1024, torch.bfloat16, "rows", "split"),
+    (torch.bfloat16, 8, 256, 16, torch.bfloat16, "rows", "mma"),
+    (torch.bfloat16, 64, 128, 8, None, "wgmma", "wgmma"),
+    (torch.bfloat16, 128, 128, 4, torch.bfloat16, "wgmma", "wgmma"),
+    (torch.bfloat16, 32, 100, 4, torch.bfloat16, "wgmma", "mma"),
+    (torch.bfloat16, 16, 64, 4, None, "rows", "mma"),
+    (torch.bfloat16, 48, 77, 40, torch.float32, "rows", "split"),
+    (torch.bfloat16, 32, 384, 32, torch.bfloat16, "wgmma", "wgmma"),
+    (torch.bfloat16, 8, 384, 64, torch.bfloat16, "rows", "split"),
+    (torch.bfloat16, 128, 384, 32, torch.float32, "wgmma", "wgmma"),
+    (torch.bfloat16, 128, 448, 32, torch.float32, "mma", "wgmma"),
+    (torch.bfloat16, 128, 800, 32, torch.bfloat16, "mma", "wgmma"),
+    (torch.bfloat16, 8, 704, 64, torch.bfloat16, "rows", "split"),
+    (torch.bfloat16, 8, 768, 64, torch.bfloat16, "mma", "split"),
+    (torch.bfloat16, 8, 384, 64, torch.float32, "mma", "split"),
+    (torch.bfloat16, 8, 2000, 64, torch.bfloat16, "mma", "split"),
+    (torch.bfloat16, 32, 5000, 64, None, "wgmma", "wgmma"),
+    (torch.float32, 32, 256, 128, torch.float32, "f32", "f32"),
+    (torch.float32, 8, 100, 4, None, "f32", "f32")]
+
+
+@pytest.mark.parametrize("dtype,D,L,N,b2_dtype,fwd,db2", EVO_NEW_VARIANTS,
+                         ids=[f"{str(c[0])[6:]}-d{c[1]}-L{c[2]}-N{c[3]}-"
+                              f"{str(c[4])[6:]}" for c in EVO_NEW_VARIANTS])
+def test_evoformer_forward_and_db2_variants(dtype, D, L, N, b2_dtype, fwd,
+                                            db2):
+    """bf16 takes the row-walking forward (TMA + wgmma at D 32, 64 and
+    128 wherever its pair-bias strip fits shared memory, mma.sync at
+    other D while two of its CTAs fit an SM), the first kernel past it,
+    and the split db2 (wgmma at D
+    32/64/128, mma.sync at other D; the first kernel at D <= 32 with
+    fewer than 32 rows); f32 the CUDA-core kernels."""
+    assert tevof.fwd_variant(dtype, D, L, b2_dtype) == fwd
+    assert tevof.db2_variant(dtype, D, L, N) == db2
+    assert fwd in tevof.FWD_VARIANTS and db2 in tevof.DB2_VARIANTS
+
+
+# (the longest L, a multiple of 64, whose pair-bias strip [64, L] fits a
+# row-walking forward CTA beside its tiles; the longest L the rule routes
+# to it), by head dim and pair-bias dtype, from the launchers' sizes
+# worked by hand.  Fit: (smem limit 232448 - the rest of the CTA) // (64 x
+# 64 x the bias's bytes) key tiles, the wgmma kernel's rest 1024 + 8 x 64
+# x D x 2 + 2048 static, the mma.sync kernel's 1024 + 2 stages of 3 x 64
+# x (D padded + 8) x 2 + 256 bytes.  Routed: the wgmma kernel wherever it
+# fits; the mma.sync kernel while two CTAs fit an SM's 233472 bytes, 1024
+# reserved a CTA: (116736 - 1024 - the rest) // the tile's bytes
+EVO_STRIP_LIMITS = {(8, "bf16"): (1600, 704), (8, "f32"): (768, 320),
+                    (32, "bf16"): (1536, 1536), (32, "f32"): (768, 768),
+                    (48, "bf16"): (1344, 448), (48, "f32"): (640, 192),
+                    (64, "bf16"): (1280, 1280), (64, "f32"): (640, 640),
+                    (128, "bf16"): (768, 768), (128, "f32"): (384, 384)}
+
+
+@pytest.mark.parametrize("D,b2", list(EVO_STRIP_LIMITS),
+                         ids=[f"d{d}-{b}" for d, b in EVO_STRIP_LIMITS])
+def test_evoformer_forward_takes_the_row_kernels_while_the_strip_fits(D,
+                                                                      b2):
+    """One rule for the forward's long rows: a row-walking kernel takes
+    (when named) every L whose strip fits (`fwd_smem` <= SMEM_MAX); the
+    rule routes to it up to the longest L it is faster at (the wgmma
+    kernel wherever it fits, the mma.sync one while ROWS_MIN_RESIDENT of
+    its CTAs fit an SM), the first kernel from the next length on, and
+    any L without a pair bias."""
+    b2_dtype = torch.bfloat16 if b2 == "bf16" else torch.float32
+    top, routed = EVO_STRIP_LIMITS[(D, b2)]
+    new = "wgmma" if D in (32, 64, 128) else "rows"
+    assert tevof.fwd_smem(new, D, top, b2_dtype) <= tevof.SMEM_MAX
+    assert tevof.fwd_smem(new, D, top + 1, b2_dtype) > tevof.SMEM_MAX
+    for L in (1, 100, min(256, routed), routed - 63, routed):
+        assert tevof.fwd_variant(torch.bfloat16, D, L, b2_dtype) == new
+    for L in (routed + 1, routed + 64, top + 1, 4096):
+        assert tevof.fwd_variant(torch.bfloat16, D, L, b2_dtype) == "mma"
+        assert tevof.fwd_variant(torch.bfloat16, D, L, None) == new
+    q = torch.zeros(1, 1, top, 1, D, dtype=torch.bfloat16)
+    assert tevof._route("fwd", new, q, b2_dtype) == new
+    # the first kernel takes any L; a named row kernel past the limit
+    # raises
+    q = torch.zeros(1, 1, top + 1, 1, D, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"variant '{new}'"):
+        tevof._route("fwd", new, q, b2_dtype)
+    assert tevof._route("fwd", "mma", q, b2_dtype) == "mma"
+
+
+@pytest.mark.parametrize("rule", ["fwd", "db2"])
+def test_evoformer_forward_and_db2_variants_refuse_what_bwd_refuses(rule):
+    rule = ((lambda dt, D, L: tevof.fwd_variant(dt, D, L, torch.bfloat16))
+            if rule == "fwd" else
+            (lambda dt, D, L: tevof.db2_variant(dt, D, L, 64)))
+    for dtype in (torch.float16, torch.int8, torch.float64):
+        with pytest.raises(TypeError, match="bf16 or f32"):
+            rule(dtype, 32, 256)
+    for D in (4, 12, 136):
+        with pytest.raises(ValueError, match="head dim"):
+            rule(torch.bfloat16, D, 256)
+    with pytest.raises(ValueError, match="length"):
+        rule(torch.bfloat16, 32, 0)
+
+
+@pytest.mark.parametrize("kernel,variant,D,L", [
+    ("fwd", "wgmma", 8, 256), ("fwd", "rows", 32, 2048),
+    ("fwd", "f32", 32, 256), ("db2", "wgmma", 24, 256),
+    ("db2", "f32", 32, 256), ("db2", "mma_sync", 32, 256)])
+def test_evoformer_named_variant_that_cannot_take_the_call_raises(
+        kernel, variant, D, L):
+    """A variant named by the caller must take the call: no other kernel
+    is tried."""
+    q = torch.zeros(1, 1, L, 1, D, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"variant '{variant}'"):
+        tevof._route(kernel, variant, q, torch.float32)
+    # the first kernels take every bf16 call
+    assert tevof._route(kernel, "mma", q, torch.float32) == "mma"
+
+
+def _split_ranges(N, splits):
+    """The rows [n0, n1) of each split as the kernels cut them
+    (`split_row`: split s starts at s N / splits)."""
+    return [(s * N // splits, (s + 1) * N // splits) for s in range(splits)]
+
+
+def _wave(kernel, D, L, sms=132):
+    """One wave of the forward's or db2's new kernel at bf16 pair bias."""
+    new = ("wgmma" if D in (32, 64, 128) else
+           "rows" if kernel == "fwd" else "split")
+    smem = (tevof.fwd_smem(new, D, L, torch.bfloat16) if kernel == "fwd"
+            else tevof.db2_smem(new, D, torch.bfloat16))
+    return sms * tevof.resident(kernel, new, D, smem)
+
+
+@pytest.mark.parametrize("shape", EVO_SHAPES,
+                         ids=["msa_row", "triangle", "extra_msa_row"])
+def test_evoformer_db2_plan_fills_a_wave_and_covers_each_row_once(shape):
+    """At 132 SMs each phase-12 shape's db2 grid fills one wave of resident
+    CTAs (at least two CTAs an SM, as many as the kernel holds) to within
+    one tile's splits and no further (a second partial wave measured
+    slower on an H100), each split walks a contiguous run of rows in
+    order, every row n in exactly one split, no split under
+    MIN_SPLIT_ROWS rows."""
+    B, N, L, H, D = shape
+    splits = tevof.db2_plan(B, N, L, H, D, torch.bfloat16, 132)
+    tiles = B * H * (L // 64) ** 2
+    wave = _wave("db2", D, L)
+    assert wave - tiles < tiles * splits <= wave
+    assert tiles * splits >= 1.9 * 132
+    assert splits > 1
+    ranges = _split_ranges(N, splits)
+    assert [n for n0, n1 in ranges for n in range(n0, n1)] == list(range(N))
+    assert min(n1 - n0 for n0, n1 in ranges) >= tevof.MIN_SPLIT_ROWS
+    before = tevof.db2_plan.cache_info().hits     # cached per shape
+    tevof.db2_plan(B, N, L, H, D, torch.bfloat16, 132)
+    assert tevof.db2_plan.cache_info().hits == before + 1
+
+
+def test_evoformer_db2_plan_at_few_rows_and_many_tiles():
+    """Fewer rows than MIN_SPLIT_ROWS, or more tiles than a wave: one
+    split walking every row."""
+    for shape in ((1, 3, 256, 8, 32), (4, 64, 1024, 16, 32)):
+        assert tevof.db2_plan(*shape, torch.bfloat16, 132) == 1
+
+
+@pytest.mark.parametrize("kernel,variant,D,b2,want", [
+    ("fwd", "wgmma", 32, "bf16", 3), ("fwd", "wgmma", 64, "bf16", 2),
+    ("fwd", "wgmma", 128, "bf16", 1), ("fwd", "rows", 8, "bf16", 4),
+    ("fwd", "rows", 48, "bf16", 2), ("db2", "wgmma", 32, "bf16", 2),
+    ("db2", "wgmma", 64, "bf16", 2), ("db2", "wgmma", 64, "f32", 1),
+    ("db2", "wgmma", 128, "bf16", 1), ("db2", "split", 8, "f32", 4),
+    ("db2", "split", 48, "bf16", 1)])
+def test_evoformer_resident_ctas_follow_launch_bounds_and_smem(
+        kernel, variant, D, b2, want):
+    """CTAs an SM, as the plans count a wave, at L 256: the kernel's launch
+    bound (forward wgmma 3/2/1 at D 32/64/128, db2 wgmma 2/2/1, the
+    mma.sync kernels 4 at D 8 and 2 above), or fewer where shared memory
+    holds fewer (db2 wgmma at D 64 with a f32 pair bias: 115 KB a CTA;
+    the mma.sync db2 at D 48, three stages at width 64: 122 KB)."""
+    b2_dtype = torch.bfloat16 if b2 == "bf16" else torch.float32
+    smem = (tevof.fwd_smem(variant, D, 256, b2_dtype) if kernel == "fwd"
+            else tevof.db2_smem(variant, D, b2_dtype))
+    assert tevof.resident(kernel, variant, D, smem) == want
+
+
+@pytest.mark.parametrize("shape", EVO_SHAPES + [(1, 16, 256, 8, 8),
+                                                (1, 4, 100, 4, 32),
+                                                (1, 32, 384, 8, 32),
+                                                (2, 70000, 16, 1, 8)])
+def test_evoformer_forward_plan_walks_each_row_once(shape):
+    """The forward's groups cover every row n once (the last may hold
+    fewer), at most FWD_MAX_ROWS rows a CTA, 4 at the phase-12 shapes,
+    and fewer where that keeps the grid a wave of resident CTAs."""
+    B, N, L, H, D = shape
+    rows = tevof.fwd_plan(B, N, L, H, D, torch.bfloat16, 132)
+    units = B * H * -(-L // 64)
+    groups = -(-N // rows)
+    assert 1 <= rows <= tevof.FWD_MAX_ROWS
+    assert (groups - 1) * rows < N <= groups * rows
+    if shape in EVO_SHAPES:
+        assert rows == 4
+    elif rows < tevof.FWD_MAX_ROWS:
+        assert N * units < _wave("fwd", D, L) * (rows + 1)
+
+
+def test_evoformer_forward_and_db2_counters_start_at_zero():
+    """The forward and db2 keep a count per variant and of the padded
+    pair-bias copies their TMA kernels read, all zero on the CPU, where
+    they run their plain versions (a named variant is for the card)."""
+    for fn, kinds in ((tevof.evoformer_flash_forward, tevof.FWD_VARIANTS),
+                      (tevof.evoformer_flash_db2, tevof.DB2_VARIANTS)):
+        assert tuple(fn.launches_by_variant) == kinds
+        assert set(fn.launches_by_variant.values()) == {0}
+        assert fn.pair_bias_copies == 0
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(1, 5, 9, 2, 32, generator=g).bfloat16()
+                   for _ in range(4))
+    b2 = torch.randn(1, 1, 2, 9, 9, generator=g).bfloat16()
+    out, lse = tevof.evoformer_flash_forward(
+        q, k, v, None, b2, return_lse=True, variant="wgmma")
+    ref, ref_lse = tevof.evoformer_flash_forward_reference(q, k, v, None, b2)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    _, delta = tevof.evoformer_flash_dq(q, k, v, None, b2, out, do, lse)
+    db2 = tevof.evoformer_flash_db2(q, k, v, None, b2, do, lse, delta,
+                                    variant="split")
+    assert torch.equal(db2, tevof.evoformer_flash_db2_reference(
+        q, k, v, None, b2, do, lse, delta))
+    for fn in (tevof.evoformer_flash_forward, tevof.evoformer_flash_db2):
+        assert fn.launches == 0
+        assert set(fn.launches_by_variant.values()) == {0}
+
+
+def _evo_bf16_inputs(B, N, L, H, D, seed):
+    """bf16-representable f32 q, k, v, dO, a mask bias with ~15% of keys
+    at -1e9 and row n = 1 at -1e30 on every key, a pair bias."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (_bf16(rng.randn(B, N, L, H, D).astype(np.float32))
+                   for _ in range(4))
+    b1 = np.where(rng.rand(B, N, 1, 1, L) < 0.15, -1e9, 0.0).astype(
+        np.float32)
+    b1[:, 1] = -1e30
+    b2 = _bf16(rng.randn(B, 1, H, L, L).astype(np.float32))
+    return q, k, v, do, b1, b2
+
+
+def _evo_scores(q, k, b1, b2, b, n, h, scale):
+    """s scale + b1 + b2 of row n, head h, in that order, f32 [L, L]."""
+    s = (q[b, n, :, h] @ k[b, n, :, h].T).astype(np.float32)
+    return ((s * np.float32(scale) + b1[b, n, 0, 0][None, :])
+            + b2[b, 0, h]).astype(np.float32)
+
+
+def _neg_lse2(lse):
+    """The kernels' -lse log2(e): -inf at or below the mask level."""
+    return np.where(lse > -5e29, -lse * np.float32(1.4426950408889634),
+                    -np.inf).astype(np.float32)
+
+
+def _emulate_evo_forward(q, k, v, b1, b2, scale, rows):
+    """The row-walking forward in numpy f32, `rows` rows a CTA: each group's
+    rows n in order, per row the online softmax over 64-key tiles (keys
+    past L at -1e30), the running max m from -1e30, alpha = 2^((m_old -
+    m_new) log2 e), p = 2^(x log2 e - m log2 e) (every p 0 while m is at
+    the mask level), P rounded to bf16 before O += P V; out = O / max(l,
+    1e-9), lse = m + log(max(l, 1e-9))."""
+    B, N, L, H, D = q.shape
+    log2e = np.float32(1.4426950408889634)
+    out = np.zeros_like(q)
+    lse = np.zeros((B, N, H, L), np.float32)
+    seen = []
+    for b in range(B):
+        for grp in range(-(-N // rows)):
+            for n in range(grp * rows, min(N, (grp + 1) * rows)):
+                seen.append((b, n))
+                for h in range(H):
+                    x = _evo_scores(q, k, b1, b2, b, n, h, scale)
+                    m = np.full(L, -1e30, np.float32)
+                    l = np.zeros(L, np.float32)
+                    O = np.zeros((L, D), np.float32)
+                    for k0 in range(0, L, 64):
+                        xt, vt = x[:, k0:k0 + 64], v[b, n, k0:k0 + 64, h]
+                        m_new = np.maximum(m, xt.max(1))
+                        alpha = np.exp2((m - m_new) * log2e)
+                        nm = _neg_lse2(m_new)[:, None]
+                        p = np.exp2(xt * log2e + nm).astype(np.float32)
+                        l = l * alpha + p.sum(1)
+                        O = O * alpha[:, None] + _bf16(p) @ vt
+                        m = m_new
+                    lsafe = np.maximum(l, np.float32(1e-9))
+                    out[b, n, :, h] = O / lsafe[:, None]
+                    lse[b, n, h] = m + np.log(lsafe)
+    assert sorted(seen) == [(b, n) for b in range(B) for n in range(N)]
+    return out, lse.reshape(B * N, H, L)
+
+
+def _emulate_evo_db2(q, k, v, b1, b2, do, lse, delta, scale, splits):
+    """The split db2 in numpy f32: per split, the f32 sum over its rows n
+    in order of P (dP - delta), P = 2^(x log2 e - lse log2 e) (0 for a
+    row whose lse is at the mask level); the splits' partials added in
+    split order."""
+    B, N, L, H, D = q.shape
+    log2e = np.float32(1.4426950408889634)
+    lse = lse.reshape(B, N, H, L)
+    delta = delta.reshape(B, N, H, L)
+    db2 = np.zeros((B, 1, H, L, L), np.float32)
+    for b in range(B):
+        for h in range(H):
+            total = np.zeros((L, L), np.float32)
+            for n0, n1 in _split_ranges(N, splits):
+                part = np.zeros((L, L), np.float32)
+                for n in range(n0, n1):
+                    x = _evo_scores(q, k, b1, b2, b, n, h, scale)
+                    nl = _neg_lse2(lse[b, n, h])[:, None]
+                    p = np.exp2(x * log2e + nl)
+                    dp = do[b, n, :, h] @ v[b, n, :, h].T
+                    ds = p * (dp - delta[b, n, h][:, None])
+                    part = part + ds.astype(np.float32)
+                total = total + part
+            db2[b, 0, h] = total
+    return db2
+
+
+@pytest.fixture
+def _evo_interpret(monkeypatch):
+    import jax.experimental.pallas as pl
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+
+
+# the forward's limits (chip_smoke's): out |d| <= 0.02 + 2^-7 |JAX| (the
+# emulation rounds P to bf16 before P V as the kernels do, the Pallas
+# kernel keeps it f32), lse 1e-3; db2 within 2e-4 of max |JAX| (f32 sums
+# of the same terms in another order, as the JAX package's kernel test)
+EVO_DB2_REL = 2e-4
+
+
+@pytest.mark.parametrize("shape,sms", [((1, 7, 96, 2, 32), 132),
+                                       ((2, 5, 128, 1, 8), 1)],
+                         ids=["L96-d32-rows1", "L128-d8-rows4"])
+def test_evoformer_forward_walk_order_matches_the_pallas_kernel(
+        _evo_interpret, shape, sms):
+    """The row-walking forward's per-row online softmax over 64-key
+    tiles (a ragged last tile, masked keys, a row masked everywhere with
+    -1e30), emulated in numpy over its plan, against the JAX
+    `evoformer_flash_forward` (its Pallas kernel in interpret mode) on
+    the same bf16-representable inputs."""
+    from deepspeed_tpu.ops import evoformer_flash as jef
+    B, N, L, H, D = shape
+    q, k, v, _, b1, b2 = _evo_bf16_inputs(B, N, L, H, D, seed=L + D)
+    scale = 1.0 / np.sqrt(D)
+    rows = tevof.fwd_plan(B, N, L, H, D, torch.bfloat16, sms)
+    got, got_lse = _emulate_evo_forward(q, k, v, b1, b2, scale, rows)
+    ref, ref_lse = (np.asarray(t) for t in jef.evoformer_flash_forward(
+        *(jnp.asarray(a) for a in (q, k, v, b1, b2)), return_lse=True))
+    assert (np.abs(got - ref) <= FWD_ATOL + FWD_RTOL * np.abs(ref)).all()
+    assert np.abs(got_lse - ref_lse).max() <= FWD_LSE
+    assert (got[:, 1] == 0).all() and (got_lse.reshape(B, N, H, L)[:, 1]
+                                       <= -1e29).all()
+
+
+@pytest.mark.parametrize("shape,sms", [((1, 13, 96, 2, 32), 12),
+                                       ((1, 9, 128, 2, 8), 4)],
+                         ids=["L96-d32-splits3", "L128-d8-splits2"])
+def test_evoformer_db2_split_order_matches_the_pallas_kernel(
+        _evo_interpret, shape, sms):
+    """db2 as the split kernels sum it (f32 partials per split over its
+    rows in order, added in split order; a row masked everywhere adds
+    nothing), emulated in numpy over `db2_plan`'s splits, against the
+    JAX `evoformer_flash_backward`'s db2 (its Pallas kernels in interpret
+    mode) on the same inputs and residuals."""
+    from deepspeed_tpu.ops import evoformer_flash as jef
+    B, N, L, H, D = shape
+    q, k, v, do, b1, b2 = _evo_bf16_inputs(B, N, L, H, D, seed=N + D)
+    splits = tevof.db2_plan(B, N, L, H, D, torch.bfloat16, sms)
+    assert splits > 1
+    jargs = [jnp.asarray(a) for a in (q, k, v, b1, b2)]
+    out, lse = jef.evoformer_flash_forward(*jargs, return_lse=True)
+    ref = np.asarray(jef.evoformer_flash_backward(
+        *jargs, out, jnp.asarray(do), lse)[4])
+    out, lse = np.asarray(out), np.asarray(lse)
+    delta = np.einsum("bnlhd,bnlhd->bnhl", do, out).reshape(B * N, H, L)
+    got = _emulate_evo_db2(q, k, v, b1, b2, do, lse, delta,
+                           1.0 / np.sqrt(D), splits)
+    assert np.abs(got - ref).max() <= EVO_DB2_REL * np.abs(ref).max()
