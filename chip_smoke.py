@@ -100,12 +100,34 @@ Phases (any failure exits non-zero and prints no result):
      and db2 against the first kernels (`variant="mma"`), CUDA graphs in
      turns in this call, failing where a routed kernel takes more than
      EVO_GATE (1.05) times the first.
+ 14. (run after phase 9, on phase 2's parameters) multi-step decode
+     groups, each one replay of a captured CUDA graph: phase 2's 8
+     requests staged (prefill, greedy first token) on a captured engine,
+     an eager one (its captured programs taken away) and a burst engine;
+     a greedy `decode_multi_step(k=8)` gives the eager group's and a
+     greedy `decode_burst_step`'s tokens with torch.equal arenas;
+     captured and eager groups timed in turns (decode ms per step,
+     tokens/s), one replay's launches (32 paged decode launches a step,
+     all "tma"), the idle share of a profiled captured group against the
+     unprofiled captured groups' mean wall; from the staged state
+     again, a row that samples its EOS mid-group and a row with a
+     max_tokens budget of 3 stop there (the other rows' tokens and KV as
+     the free group's, no slot past a stop written); seeded rows
+     (temperature 0.9, top_k 20) equal over two replays from one state
+     and the eager group, their uniforms numpy's Philox draws truncated
+     to 24 bits, unseeded rows fresh on the second replay; LoRA rows on a
+     3-layer engine at full width with k=3 (9 LoRA launches a replay, all
+     fused) and an eager LoRA call between two replays, tokens and
+     arenas as the eager engine's; the merged arena's group gives the
+     5-D tokens.  The path's launches (the kernels line's `multi_step`)
+     are those of the captured engines' groups, each counted from 0 just
+     before it and read just after; the eager controls' are not.
 Every profile must hold each launch the kernels' counters saw in it (a
 session that dropped device events is repeated).  The bf16 paged prefill
 and decode run on their TMA kernels (`variant` "tma"): phase 1 holds them
 over block sizes 16-128, groups 1-8, head dims 32-128, windows, ragged
 lens and chunks, reruns bit-identical, beside the mma.sync kernels they
-replaced (timed in the same call); phases 2-4, 8, 9 and 13 fail on a
+replaced (timed in the same call); phases 2-4, 8, 9, 13 and 14 fail on a
 paged launch off "tma".
 Phase 1 also holds the gather-LoRA kernel (the fused one-launch kernel
 and the two-pass kernel it replaced, in the same call: the wave's decode,
@@ -250,6 +272,14 @@ LORA_BLOCK_ELEMS = 4096      # the pool's residency grain (its default)
 # request index -> adapter (row 7 shares row 1's; t0 is demoted when t4
 # registers and promoted back by row 1's reservation)
 LORA_PLAN = {1: "t0", 3: "t2", 5: "t3", 7: "t0"}
+# phase 14: decode groups of MS_K steps; the seeded rows' seeds, their
+# temperature and top_k; the LoRA check's depth and k (an odd number of
+# LoRA calls a replay); captured and eager groups timed in turns
+MS_K = 8
+MS_SEEDS = (1234567, 2 ** 64 - 5, 99)
+MS_TEMP, MS_TOPK = 0.9, 20
+MS_LORA_LAYERS, MS_LORA_K = 3, 3
+MS_TIMED_GROUPS = 4
 # phase 1's LoRA cases, (S, K, N, r, slots, x dtype; None: bf16 rows all
 # base): the timed shapes first (prefill, decode, 2048 rows), then ranks
 # 1, 128 and 40, K not a multiple of 8 and N not of 4, one row, f32 rows
@@ -1693,7 +1723,14 @@ def profile_wave(torch, eng, prompts, served_wall, counters):
     """Where the device time of the wave goes: torch.profiler over a rerun
     of the same wave, kernel time summed by kind.  The device's idle share
     is taken against the unprofiled run's wall time (phase 2), since the
-    profiler slows the host but not the kernels."""
+    profiler slows the host but not the kernels, and against an
+    unprofiled rerun's, whose decode bursts replay the graphs phase 2
+    captured."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate_batch(prompts, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    rerun_wall = time.perf_counter() - t0
     launches = {}
     events = profiled(
         counted(counters, lambda: eng.generate_batch(
@@ -1710,10 +1747,14 @@ def profile_wave(torch, eng, prompts, served_wall, counters):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     res = dict(device_ms=busy, served_wall_ms=served_wall * 1e3,
                idle_share=max(0.0, 1 - busy / (served_wall * 1e3)),
+               rerun_wall_ms=rerun_wall * 1e3,
+               rerun_idle_share=1 - busy / (rerun_wall * 1e3),
                ms_by_kind=by_kind,
                top_kernels=[(n[:60], ms) for n, ms in top])
     print(f"phase 4: wave device time {busy:.1f} ms of {served_wall * 1e3:.1f}"
-          f" ms wall (idle share {res['idle_share']:.3f}); by kind (ms) "
+          f" ms wall (idle share {res['idle_share']:.3f}); of a rerun's "
+          f"{rerun_wall * 1e3:.1f} ms (its bursts replayed, idle share "
+          f"{res['rerun_idle_share']:.3f}); by kind (ms) "
           + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
               by_kind.items(), key=lambda kv: -kv[1])))
     for n, ms in res["top_kernels"]:
@@ -1738,28 +1779,41 @@ def lora_factors(np, cfg, seed=8):
             for i in range(LORA_ADAPTERS)}
 
 
-def count_serving_calls(calls):
-    """Count the engine's serving calls — each `prefill_chunks` and each
-    decode step's `_decode_core` — and those that carry adapter rows
-    (`lora` given), into `calls`.  Returns a function that restores
-    them."""
+def count_serving_calls(calls, eng):
+    """Count the engine's serving calls — each `prefill_chunks`, each
+    decode step's `_decode_core` (put/step) and each step of a decode
+    burst (`decode_tokens`, a graph replay on the card) — and those that
+    carry adapter rows (`lora` given), into `calls`.  Returns a function
+    that restores them."""
     from deepspeed_tpu_torch.inference.v2 import engine_v2, ragged_ops
-    saved = [(engine_v2, "prefill_chunks", engine_v2.prefill_chunks),
-             (ragged_ops, "_decode_core", ragged_ops._decode_core)]
+    progs = eng._programs
+    graphs = progs.graphs
+    saved = [(engine_v2, "prefill_chunks", engine_v2.prefill_chunks, 1),
+             (ragged_ops, "_decode_core", ragged_ops._decode_core, 1),
+             (progs, "decode_tokens", progs.decode_tokens, "n_steps")]
 
-    def wrap(fn):
+    def wrap(fn, steps):
         def counted_call(*args, **kw):
-            calls["all"] += 1
-            calls["with_adapters"] += kw.get("lora") is not None
-            return fn(*args, **kw)
+            captures = graphs.captures if graphs is not None else 0
+            out = fn(*args, **kw)
+            n = kw[steps] if isinstance(steps, str) else steps
+            if graphs is not None:
+                # a capture runs one eager warm-up step first
+                n += graphs.captures - captures
+            calls["all"] += n
+            calls["with_adapters"] += n * (kw.get("lora") is not None)
+            return out
         return counted_call
 
-    for mod, name, fn in saved:
-        setattr(mod, name, wrap(fn))
+    for obj, name, fn, steps in saved:
+        setattr(obj, name, wrap(fn, steps))
 
     def restore():
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+        for obj, name, fn, _ in saved:
+            if obj is progs:
+                delattr(progs, name)
+            else:
+                setattr(obj, name, fn)
     return restore
 
 
@@ -1829,7 +1883,7 @@ def serve_tenants(torch, np, cfg, params, config, prompts, counters, lm):
              f"promotes; want at least one of each")
 
     calls = {"all": 0, "with_adapters": 0}
-    restore = count_serving_calls(calls)
+    restore = count_serving_calls(calls, eng)
     try:
         for u, slot in slots.items():
             eng.set_adapter(u, slot)
@@ -1991,6 +2045,468 @@ def serve_merged(torch, np, cfg, params, config, prompts, outs, logits,
     torch.cuda.empty_cache()
     return dict(wall_s=wall, launches=launches,
                 launches_by_variant=variants)
+
+
+# ----------------------------------------------------------------------
+# phase 14: multi-step decode groups replayed as CUDA graphs
+# ----------------------------------------------------------------------
+def ms_stage(np, engines, prompts, bind=None):
+    """Prefill the wave in every engine (no decode) and stage each
+    request's greedy first token, the first engine's, as its pending
+    input; the engines' first-token logits must be equal.  `bind` ({uid:
+    [slot in each engine]}) binds adapters first.  Returns the uids."""
+    uids = list(range(len(prompts)))
+    for i, e in enumerate(engines):
+        for u, slots in (bind or {}).items():
+            e.set_adapter(u, slots[i])
+        e.put(uids, prompts, decode=False)
+        while any(e.query(u) is None for u in uids):
+            e.step(decode=False)
+    for u in uids:
+        first = engines[0].query(u)
+        for e in engines[1:]:
+            if not np.array_equal(e.query(u), first):
+                fail(f"phase 14: request {u}'s first-token logits differ "
+                     f"between the engines")
+        for e in engines:
+            e.state.seqs[u].generated.append(int(first.argmax()))
+    return uids
+
+
+def ms_flush(engines, uids):
+    for e in engines:
+        for u in uids:
+            e.flush(u)
+
+
+def ms_same(torch, np, dev, got, want, what, arenas=None):
+    """Fail unless two groups' tokens are equal (and the arenas of the
+    engine pairs in `arenas` are torch.equal)."""
+    bad = [u for u in want if got[u].tolist() != want[u].tolist()]
+    if sorted(got) != sorted(want) or bad:
+        fail(f"phase 14: {what}: tokens differ for requests {bad}")
+    sync(torch, dev)
+    for a, b in arenas or ():
+        if not all(torch.equal(a.arena[n], b.arena[n]) for n in ("k", "v")):
+            fail(f"phase 14: {what}: the arenas differ")
+
+
+def ms_row_kv(torch, e, u, n):
+    """Request u's K and V at positions [0, n), [2, L, n, ...]."""
+    d = e.state.seqs[u]
+    blocks = torch.as_tensor(d.blocks, device=e.device)
+    return torch.stack([e.arena[x].index_select(1, blocks).flatten(1, 2)[
+        :, :n] for x in ("k", "v")])
+
+
+def ms_operands(np, e, uids, k, temps, top_k, seeds):
+    """A group's host operands as `decode_multi_step` stages them (leases
+    taken for the full k; no sequence state moves)."""
+    B, MB = e.config.max_seqs, e.config.max_blocks_per_seq
+    ops = dict(tokens=np.zeros(B, np.int32), seq_lens=np.zeros(B, np.int32),
+               block_tables=np.zeros((B, MB), np.int32),
+               active=np.zeros(B, bool),
+               temperature=np.zeros(B, np.float32),
+               max_len=np.ones(B, np.int32),
+               top_k_vec=np.zeros(B, np.int32),
+               eos_ids=np.full(B, -1, np.int32),
+               budget=np.zeros(B, np.int32),
+               seed_hi=np.zeros(B, np.int64), seed_lo=np.zeros(B, np.int64),
+               seed_pos=np.zeros(B, np.int64), has_seed=np.zeros(B, bool))
+    for i, u in enumerate(uids):
+        d = e.state.seqs[u]
+        e.state.ensure_capacity(d, d.seen_tokens + k)
+        ops["tokens"][i] = d.generated[-1]
+        ops["seq_lens"][i] = d.seen_tokens
+        ops["block_tables"][i] = e.state.block_table(d)
+        ops["active"][i] = True
+        ops["max_len"][i] = d.seen_tokens + k
+        ops["budget"][i] = k
+        ops["temperature"][i] = temps.get(u, 0.0)
+        ops["top_k_vec"][i] = top_k.get(u, 0)
+        if u in seeds:
+            ops["seed_hi"][i], ops["seed_lo"][i] = (seeds[u] >> 32,
+                                                    seeds[u] & 0xFFFFFFFF)
+            ops["seed_pos"][i] = len(d.generated)
+            ops["has_seed"][i] = True
+    return ops
+
+
+def ms_eager(engine):
+    """`engine` with its captured programs taken away: its decode groups
+    and bursts run the eager functions (the control of phase 14)."""
+    engine._programs.graphs = None
+    return engine
+
+
+def ms_stops(torch, np, dev, graph, eager, prompts, chains, kv_free, K,
+             strict=False, run=lambda call: call()):
+    """From the staged state again, a group in which one row samples its
+    EOS at step 3 and another meets a max_tokens budget of 3: captured ==
+    eager (tokens, arenas); both stop there; every row's tokens and KV
+    equal the free group's (`chains`, `kv_free`) through step 3, or
+    everywhere when `strict` (per-row decode kernels); no slot past a
+    stop written.  `run` makes the captured engine's call.  Returns (EOS
+    row, budget row, (other rows' later tokens equal to the free group's,
+    of how many))."""
+    uids = list(range(len(prompts)))
+    ms_flush((graph, eager), uids)
+    ms_stage(np, (graph, eager), prompts)
+    rows = [u for u in uids if chains[u][2] not in chains[u][:2].tolist()]
+    if len(rows) < 2:
+        fail(f"phase 14: no two greedy chains with a new token at step 3: "
+             f"{ {u: chains[u].tolist() for u in uids} }")
+    eos_row, budget_row = rows[:2]
+    start = {u: graph.state.seqs[u].seen_tokens for u in uids}
+    snap = {n: graph.arena[n].clone() for n in ("k", "v")}
+    kw = dict(uids=uids, k=K, eos_ids={eos_row: int(chains[eos_row][2])},
+              max_tokens={budget_row: start[budget_row] + 3})
+    got = run(lambda: graph.decode_multi_step(**kw))
+    ms_same(torch, np, dev, eager.decode_multi_step(**kw), got,
+            "group with stops, captured vs eager", [(graph, eager)])
+    want = {u: chains[u].tolist() for u in uids}
+    for u in (eos_row, budget_row):
+        want[u] = want[u][:3]
+    upto = K if strict else 3
+    bad = [u for u in uids if len(got[u]) != len(want[u])
+           or got[u].tolist()[:upto] != want[u][:upto]]
+    if bad:
+        fail(f"phase 14: stops: got { {u: got[u].tolist() for u in bad} }, "
+             f"want { {u: want[u] for u in bad} }")
+    bs = graph.config.block_size
+    for u in uids:
+        d = graph.state.seqs[u]
+        n = start[u] + min(upto, len(got[u]))
+        if not torch.equal(ms_row_kv(torch, graph, u, n),
+                           kv_free[u][:, :, :n]):
+            fail(f"phase 14: request {u}'s KV differs from the free run's")
+        for pos in range(d.seen_tokens, min(start[u] + K,
+                                            len(d.blocks) * bs)):
+            blk, off = d.blocks[pos // bs], pos % bs
+            if not all(torch.equal(graph.arena[x][:, blk, off],
+                                   snap[x][:, blk, off]) for x in ("k", "v")):
+                fail(f"phase 14: stopped request {u} wrote position {pos}")
+    others = [u for u in uids if u not in (eos_row, budget_row)]
+    same = sum(int(a == b) for u in others
+               for a, b in zip(got[u].tolist()[3:], want[u][3:]))
+    return eos_row, budget_row, (same, (K - 3) * len(others))
+
+
+def multi_step_path(torch, np, cfg, params, config, prompts, counters, lm,
+                    dev="cuda"):
+    """Phase 14 (see the module docstring).  `dev`: "cpu" rehearses it
+    with the plain versions (no capture there).  The path's launches are
+    those of the captured bf16 engines' groups (each call counted from 0
+    just before it and read just after, then summed); the control
+    engines' calls, the staging prefills and the f32 check are not on
+    it."""
+    from dataclasses import replace
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, ragged_ops
+    from deepspeed_tpu_torch.serving.tenancy import AdapterPool
+    K, L = MS_K, cfg.num_layers
+    gen = dict(params=params, config=config, device=dev)
+    path = {}
+
+    def on_path(call, launches=None):
+        """`call` (a captured engine's group) with the counters set to 0
+        just before it and read just after into `launches`; the reading
+        is added to the path's totals.  Returns a function that makes
+        the call and returns its result."""
+        launches = {} if launches is None else launches
+
+        def run():
+            out = []
+            counted(counters, lambda: out.append(call()), launches)()
+            for n, v in launches.items():
+                path[n] = path.get(n, 0) + v
+            return out[0]
+        return run
+
+    t_phase = time.perf_counter()
+    graph = InferenceEngineV2(cfg, **gen)
+    eager = ms_eager(InferenceEngineV2(cfg, **gen))
+    burst = InferenceEngineV2(cfg, **gen)
+    uids = ms_stage(np, (graph, eager, burst), prompts)
+
+    # greedy: the captured group, the eager group and a captured burst
+    t0 = time.perf_counter()
+    chains = on_path(lambda: graph.decode_multi_step(uids=uids, k=K))()
+    sync(torch, dev)
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    ms_same(torch, np, dev, eager.decode_multi_step(uids=uids, k=K), chains,
+            "greedy group, captured vs eager", [(graph, eager)])
+    ms_same(torch, np, dev, on_path(lambda: burst.decode_burst_step(
+        uids=uids, n_steps=K))(), chains, "greedy group vs a greedy burst",
+        [(graph, burst)])
+    seen = {u: graph.state.seqs[u].seen_tokens for u in uids}
+    kv_free = {u: ms_row_kv(torch, graph, u, seen[u]) for u in uids}
+    del burst
+    free(torch, dev)
+    print(f"phase 14: Llama-2-7B widths, {L} layers, {len(uids)} requests: "
+          f"greedy group k={K} (its capture and first replay "
+          f"{capture_ms:.0f} ms) equal to the eager group and to a greedy "
+          f"burst: tokens and arenas torch.equal")
+
+    # timing, captured against eager, from the same state, in turns;
+    # then one replay's launches
+    walls = {"captured": [], "eager": []}
+    for _ in range(MS_TIMED_GROUPS):
+        got = {}
+        for name, e in (("captured", graph), ("eager", eager)):
+            call = (lambda e=e: e.decode_multi_step(uids=uids, k=K))
+            if e is graph:
+                call = on_path(call)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            got[name] = call()
+            sync(torch, dev)
+            walls[name].append(time.perf_counter() - t0)
+        ms_same(torch, np, dev, got["captured"], got["eager"],
+                "timed greedy group", [(graph, eager)])
+    per_replay = {}
+    on_path(lambda: graph.decode_multi_step(uids=uids, k=K), per_replay)()
+    eager.decode_multi_step(uids=uids, k=K)
+    timing = {}
+    for name, w in walls.items():
+        mean = sum(w) / len(w)
+        timing[name] = dict(group_ms=[x * 1e3 for x in w],
+                            step_ms=mean * 1e3 / K,
+                            tok_s=len(uids) * K / mean)
+    want = {"paged_decode_attention": K * L,
+            "paged_decode_attention/tma": K * L, "lora_delta": 0}
+    print(f"phase 14: decode ms per step (8 rows), captured "
+          f"{timing['captured']['step_ms']:.2f} ({timing['captured']['tok_s']:.0f}"
+          f" tok/s) vs eager {timing['eager']['step_ms']:.2f} "
+          f"({timing['eager']['tok_s']:.0f} tok/s), {MS_TIMED_GROUPS} groups "
+          f"each in turns; one replay's launches "
+          f"{ {n: v for n, v in per_replay.items() if v} }")
+    if any(per_replay[n] != v for n, v in want.items()):
+        fail(f"phase 14: one replay of a {K}-step group launched "
+             f"{per_replay}, want {want}")
+
+    # the device's idle share over a profiled captured group, against
+    # the unprofiled captured groups' mean wall (the profiler slows the
+    # host, not the kernels)
+    prof_launches, prof_wall = {}, []
+
+    def group():
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        graph.decode_multi_step(uids=uids, k=K)
+        sync(torch, dev)
+        prof_wall.append(time.perf_counter() - t0)
+
+    events = profiled(on_path(group, prof_launches),
+                      holds_launches(prof_launches),
+                      what="kernels of a captured group")
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    eager.decode_multi_step(uids=uids, k=K)
+    wall = timing["captured"]["step_ms"] * K
+    idle = 1 - busy / wall
+    print(f"phase 14: a captured group's device time {busy:.2f} ms (under "
+          f"the profiler, whose group took {prof_wall[-1] * 1e3:.2f} ms) of "
+          f"the unprofiled captured groups' mean wall {wall:.2f} ms: idle "
+          f"share {idle:.3f}"
+          + (" (device time above the wall: the readings disagree)"
+             if idle < 0 else ""))
+
+    # stops inside a group, from the staged state again
+    eos_row, budget_row, later = ms_stops(
+        torch, np, dev, graph, eager, prompts, chains, kv_free, K,
+        run=lambda call: on_path(call)())
+    print(f"phase 14: request {eos_row} stopped on its EOS at step 3, "
+          f"request {budget_row} on a max_tokens budget of 3; captured == "
+          f"eager, arenas torch.equal; every row's tokens and KV as the "
+          f"free group's through step 3, no slot past a stop written; "
+          f"later, {later[0]} of {later[1]} of the other rows' tokens as "
+          f"the free group's (the TMA decode kernel shares key tiles over "
+          f"the whole batch, so a stop may move other rows' sums by a "
+          f"rounding; the f32 check below holds them exactly)")
+
+    # seeded and unseeded rows: two replays from one state, then eager
+    del kv_free
+    snap = {n: graph.arena[n].clone() for n in ("k", "v")}
+    progs = graph._programs     # the captured programs on the card
+    seeded = {1: MS_SEEDS[0], 3: MS_SEEDS[1], 5: MS_SEEDS[2]}
+    temps = {u: MS_TEMP for u in seeded}
+    temps.update({2: 1.0, 6: 1.0})
+    ops = ms_operands(np, graph, uids, K, temps,
+                      {u: MS_TOPK for u in seeded}, seeded)
+    packs = []
+    for i in range(3):
+        for n in ("k", "v"):
+            graph.arena[n].copy_(snap[n])
+        args = (graph.params, graph.arena, ops["tokens"], ops["seq_lens"],
+                ops["block_tables"], ops["active"])
+        tail = (ops["temperature"], ops["max_len"], ops["top_k_vec"],
+                ops["eos_ids"], ops["budget"], ops["seed_hi"],
+                ops["seed_lo"], ops["seed_pos"], ops["has_seed"])
+        if i < 2:
+            out, _ = on_path(lambda: progs.decode_multi_step(
+                *args, graph._rng, *tail, k=K))()
+        else:
+            out, _ = ragged_ops.decode_multi_step(
+                cfg, *args, torch.Generator(dev).manual_seed(1), *tail,
+                k=K)
+        packs.append(out.cpu().numpy())
+    fixed = [i for i, u in enumerate(uids) if u not in (2, 6)]
+    fresh = [uids.index(2), uids.index(6)]
+    same = all(np.array_equal(packs[0][fixed], p[fixed]) for p in packs[1:])
+    moved = bool((packs[0][fresh, :K] != packs[1][fresh, :K]).any())
+    u24 = ragged_ops.seeded_uniform24(
+        torch.as_tensor(ops["seed_hi"], device=dev)[:, None],
+        torch.as_tensor(ops["seed_lo"], device=dev)[:, None],
+        torch.as_tensor(ops["seed_pos"], device=dev)[:, None]
+        + torch.arange(K, device=dev)).cpu().numpy()
+    u_ok = all(int(u24[i, t] * 2 ** 24) == int(np.random.Generator(
+        np.random.Philox(key=np.array([seeded[u], int(ops["seed_pos"][i])
+                                       + t], dtype=np.uint64))).random()
+        * 2 ** 24) for i, u in enumerate(uids) if u in seeded
+        for t in range(K))
+    print(f"phase 14: seeded rows {sorted(seeded)} (temperature {MS_TEMP}, "
+          f"top_k {MS_TOPK}) and greedy rows equal over two replays and the "
+          f"eager group: {same}; unseeded rows [2, 6] drew fresh tokens on "
+          f"the second replay: {moved}; the seeded rows' {len(seeded) * K} "
+          f"uniforms equal numpy's Philox draws truncated to 24 bits: "
+          f"{u_ok}")
+    if not (same and moved and u_ok):
+        fail("phase 14: the seeded / unseeded replay checks failed")
+    for n in ("k", "v"):
+        graph.arena[n].copy_(snap[n])
+    del snap
+    ms_flush((graph, eager), uids)
+    del graph, eager
+    free(torch, dev)
+
+    # LoRA rows: a 3-layer engine at full width, k = 3 (9 LoRA calls a
+    # replay, an odd count), an eager LoRA call between two replays
+    cfg3 = replace(cfg, num_layers=MS_LORA_LAYERS)
+    params3 = {k: ({kk: vv[:MS_LORA_LAYERS] for kk, vv in v.items()}
+                   if k == "layers" else v) for k, v in params.items()}
+    gen3 = dict(params=params3, config=config, device=dev)
+    lg, le = (InferenceEngineV2(cfg3, **gen3),
+              ms_eager(InferenceEngineV2(cfg3, **gen3)))
+    factors = lora_factors(np, cfg3)
+    H, KK = cfg.hidden_size, cfg.num_heads * cfg.head_dim
+    per_adapter = MS_LORA_LAYERS * -(-(KK * LORA_RANK + LORA_RANK * H)
+                                     // LORA_BLOCK_ELEMS)
+    pools = []
+    for e in (lg, le):
+        pool = AdapterPool(e, LORA_ADAPTERS * per_adapter,
+                           block_elems=LORA_BLOCK_ELEMS)
+        for aid, (a, b) in factors.items():
+            pool.register(aid, a, b)
+        pools.append(pool)
+    bind = {u: [p.reserve(aid) for p in pools]
+            for u, aid in LORA_PLAN.items()}
+    ms_stage(np, (lg, le), prompts, bind)
+    lk = MS_LORA_K
+    lora_launches = []
+    x = torch.randn(5, KK, dtype=cfg.dtype, device=dev)
+    for i in range(3):
+        got, lc = {}, {}
+        on_path(lambda: got.update(lg.decode_multi_step(uids=uids, k=lk)),
+                lc)()
+        lora_launches.append({"all": lc["lora_delta"],
+                              "fused": lc["lora_delta/fused"],
+                              "two_pass": lc["lora_delta/two_pass"]})
+        ms_same(torch, np, dev, got, le.decode_multi_step(uids=uids, k=lk),
+                f"LoRA group {i + 1}, captured vs eager", [(lg, le)])
+        if i == 1:
+            # an eager call on the replay stream between two replays: it
+            # shares the graph's counter buffer
+            lm.lora_delta(x, lg._lora["a"][0], lg._lora["b"][0],
+                          np.array([0, -1, 1, 2, 0], np.int32))
+    want_replay = {"all": MS_LORA_LAYERS * lk,
+                   "fused": MS_LORA_LAYERS * lk, "two_pass": 0}
+    print(f"phase 14: LoRA rows {sorted(LORA_PLAN)} on a "
+          f"{MS_LORA_LAYERS}-layer engine, k={lk}: three groups (an eager "
+          f"LoRA call between the second and third) equal the eager "
+          f"engine's, arenas torch.equal; the graph's LoRA launches by "
+          f"group (the first with its one-step warm-up) {lora_launches}")
+    if lora_launches[1] != want_replay or lora_launches[2] != want_replay:
+        fail(f"phase 14: a LoRA replay launched {lora_launches[1:]}, want "
+             f"{want_replay} each")
+    for p, e in zip(pools, (lg, le)):
+        for aid in LORA_PLAN.values():
+            p.release(aid)
+    ms_flush((lg, le), uids)
+    del lg, le, pools
+    free(torch, dev)
+
+    # stops at f32 on a 3-layer engine at full width, where the decode
+    # kernels work row by row: every other row exactly as the free group
+    strict = {}
+
+    def strict_stops():
+        f32 = torch.float32
+        cfg32 = replace(cfg, num_layers=MS_LORA_LAYERS, dtype=f32)
+        p32 = {k: ({kk: vv[:MS_LORA_LAYERS].to(f32) for kk, vv in v.items()}
+                   if k == "layers" else v.to(f32))
+               for k, v in params.items()}
+        gen32 = dict(params=p32, config=config, device=dev)
+        g32, e32 = (InferenceEngineV2(cfg32, **gen32),
+                    ms_eager(InferenceEngineV2(cfg32, **gen32)))
+        ms_stage(np, (g32, e32), prompts)
+        free32 = g32.decode_multi_step(uids=uids, k=K)
+        ms_same(torch, np, dev, e32.decode_multi_step(uids=uids, k=K),
+                free32, "f32 greedy group, captured vs eager", [(g32, e32)])
+        kv32 = {u: ms_row_kv(torch, g32, u, g32.state.seqs[u].seen_tokens)
+                for u in uids}
+        strict["rows"] = ms_stops(torch, np, dev, g32, e32, prompts, free32,
+                                  kv32, K, strict=True)[:2]
+        ms_flush((g32, e32), uids)
+
+    strict_launches = {}
+    counted(counters, strict_stops, strict_launches)()
+    free(torch, dev)
+    print(f"phase 14: f32, {MS_LORA_LAYERS} layers: requests "
+          f"{list(strict['rows'])} stopped on their EOS and budget at step "
+          f"3; every other row's tokens and KV bit for bit the free "
+          f"group's; captured == eager")
+
+    # the merged arena gives the 5-D engine's tokens
+    merged = InferenceEngineV2(cfg, params=params, device=dev,
+                               config=replace(config, arena_merged=True))
+    ms_stage(np, (merged,), prompts)
+    ms_same(torch, np, dev, on_path(lambda: merged.decode_multi_step(
+        uids=uids, k=K))(), chains, "merged-arena group vs the 5-D group")
+    per_merged = {}
+    on_path(lambda: merged.decode_multi_step(uids=uids, k=K), per_merged)()
+    print(f"phase 14: the merged arena {tuple(merged.arena['k'].shape)}: "
+          f"the greedy group's tokens equal the 5-D engine's; one replay's "
+          f"launches { {n: v for n, v in per_merged.items() if v} }")
+    if per_merged.get("merged_decode_attention/tma") != K * L:
+        fail(f"phase 14: a merged replay launched {per_merged}")
+    del merged
+    free(torch, dev)
+
+    launches = {c.__name__: path.get(c.__name__, 0) for c in counters}
+    variants = {c.__name__: {v: path.get(f"{c.__name__}/{v}", 0)
+                             for v in c.launches_by_variant}
+                for c in counters if hasattr(c, "launches_by_variant")}
+    for n in PAGED_WRAPPERS:
+        # every paged launch of the path (bf16) on "tma"
+        if n in variants and variants[n]["tma"] != launches[n]:
+            fail(f"phase 14: {n} launched {variants[n]} of {launches[n]} "
+                 f"calls: every bf16 paged call must take the TMA kernel")
+    if variants["lora_delta"]["two_pass"]:
+        fail(f"phase 14: a LoRA launch off the fused kernel: {variants}")
+    for name in ("paged_decode_attention", "merged_decode_attention",
+                 "lora_delta"):
+        if launches[name] <= 0:
+            fail(f"phase 14: {name} was never launched")
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s; the captured "
+          f"engines' groups launched {launches}, by variant {variants} "
+          f"(the f32 check's, not on the path: "
+          f"{ {n: v for n, v in strict_launches.items() if v} })")
+    return dict(launches=launches, launches_by_variant=variants,
+                strict_launches=strict_launches, timing=timing,
+                capture_ms=capture_ms, idle_share=idle,
+                group_device_ms=busy, group_wall_ms=wall,
+                profiled_group_wall_ms=prof_wall[-1] * 1e3,
+                per_replay=per_replay, lora_launches=lora_launches,
+                merged_per_replay=per_merged)
 
 
 # ----------------------------------------------------------------------
@@ -3745,7 +4261,9 @@ def tp_wave(torch, np, eng, prompts, counters):
            "decode_calls": 0}
     finite = []
     calls = {"prefill_chunks": 0, "decode_steps": 0}
+    warmup = [0]
     progs = eng._programs
+    graphs = getattr(progs, "graphs", None)
     real = {k: getattr(progs, k) for k in ("prefill_chunks", "decode_step",
                                            "decode_tokens")}
 
@@ -3759,7 +4277,12 @@ def tp_wave(torch, np, eng, prompts, counters):
 
     def burst(*a, **kw):
         calls["decode_steps"] += kw["n_steps"]
-        return real["decode_tokens"](*a, **kw)
+        captures = graphs.captures if graphs is not None else 0
+        out = real["decode_tokens"](*a, **kw)
+        if graphs is not None:
+            # a capture (tp 1 on the card) runs one eager warm-up step
+            warmup[0] += graphs.captures - captures
+        return out
 
     progs.prefill_chunks, progs.decode_step = prefill, step
     progs.decode_tokens = burst
@@ -3783,6 +4306,7 @@ def tp_wave(torch, np, eng, prompts, counters):
         fail(f"prefill logits not finite for every request ({finite})")
     return dict(tokens=np.stack(outs), wall_s=wall, launches=launches,
                 launches_by_variant=by_variant, calls=calls,
+                warmup_steps=warmup[0],
                 prefill_tok_s=sum(len(p) for p in prompts) / acc["prefill"],
                 decode_ms_per_step=1e3 * acc["decode"]
                 / max(calls["decode_steps"], 1))
@@ -4015,7 +4539,8 @@ def tensor_parallel(torch, np, layers, sizes, store_dir, dev="cuda",
     free(torch, dev)
     print(f"phase 13: tp 1: prefill {base['prefill_tok_s']:.0f} tok/s, "
           f"decode {base['decode_ms_per_step']:.2f} ms/step; calls "
-          f"{base['calls']}; launches {base['launches']}")
+          f"{base['calls']} (and {base['warmup_steps']} warm-up steps of "
+          f"captures); launches {base['launches']}")
     L = cfg.num_layers
     results = {"tp1": dict(prefill_tok_s=base["prefill_tok_s"],
                            decode_ms_per_step=base["decode_ms_per_step"],
@@ -4067,11 +4592,15 @@ def tensor_parallel(torch, np, layers, sizes, store_dir, dev="cuda",
                 if pv["tma"] != got[n]:
                     fail(f"tp {tp}: {n} launched {pv} of {got[n]} calls: "
                          f"every bf16 paged call must take the TMA kernel")
+            # tp 1's bursts are captured: its capture's warm-up step adds
+            # one paged decode launch a layer that the tp ranks do not run
+            warm = {"paged_decode_attention": L * base["warmup_steps"]}
             for n in ("paged_decode_attention", "paged_prefill_attention",
                       "flash_attention_fwd"):
-                if got[n] != base["launches"][n]:
+                if got[n] != base["launches"][n] - warm.get(n, 0):
                     fail(f"tp {tp}: {n} launched {got[n]} times, tp 1 "
-                         f"{base['launches'][n]}")
+                         f"{base['launches'][n]} (less {warm.get(n, 0)} "
+                         f"in its capture's warm-up step)")
             if got["paged_decode_attention"] <= 0 or any(
                     r["plain_calls"].values()):
                 fail(f"tp {tp}: a rank served through a plain version "
@@ -4286,6 +4815,13 @@ def main(argv=None):
         [pm.merged_decode_attention, pm.merged_prefill_attention,
          pa.paged_decode_attention, pp.paged_prefill_attention,
          fa.flash_attention_fwd])
+    torch.cuda.empty_cache()
+
+    # phase 14 (phase 2's parameters, after phase 9)
+    multi = multi_step_path(
+        torch, np, cfg, params, config, prompts,
+        serve_counters + [pm.merged_decode_attention,
+                          pm.merged_prefill_attention, lm.lora_delta], lm)
     del params
     torch.cuda.empty_cache()
 
@@ -4342,9 +4878,11 @@ def main(argv=None):
     # (phase 5), arm B of the multi-tenant wave (phase 8), the merged
     # wave (phase 9), the three layouts' forward and backward (phase 10),
     # the int8 fused-update training steps (phase 11), the three
-    # Evoformer shapes' forward and backward (phase 12)
+    # Evoformer shapes' forward and backward (phase 12), the decode
+    # groups (phase 14)
     paths = (("serve", served["launches"]), ("train", trained["launches"]),
              ("tenants", tenants["launches"]), ("merged", merged["launches"]),
+             ("multi_step", multi["launches"]),
              ("sparse", sparse["launches"]), ("train_int8", int8["launches"]),
              ("evoformer", evoformer["launches"]))
     for k in kernels:
@@ -4358,14 +4896,14 @@ def main(argv=None):
         if fn in sparse["launches_by_variant"]:      # sparse_dq, sparse_dkv
             k["launches_by_variant"] = sparse["launches_by_variant"][fn]
         paged = [p["launches_by_variant"][fn] for p in (served, tenants,
-                                                          merged)
+                                                          merged, multi)
                  if fn in p["launches_by_variant"]]
         if paged:                                    # the paged kernels
             k["launches_by_variant"] = {v: sum(p[v] for p in paged)
                                         for v in paged[0]}
 
     record = dict(kernels=kernels, serve=served, e2e=e2e, profile=prof,
-                  tenants=tenants, merged=merged,
+                  tenants=tenants, merged=merged, multi_step=multi,
                   train=trained, train_profile=tprof, train_plain=tplain,
                   train_control=control, remat=remat, sparse=sparse,
                   train_int8=int8, evoformer=evoformer,

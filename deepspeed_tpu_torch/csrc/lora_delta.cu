@@ -45,11 +45,14 @@
 // 16-byte aligned (bf16 K % 8, f32 K % 4, N % 4) go through the warp's
 // own loads instead.  Ranks whose factor span exceeds a ring slot
 // (16 KB) take it in chunks.  Eight consumer warps contract a chunk as
-// 4 x 4 register tiles and write the output with 16-byte stores.  The
-// counters live in one of two regions, by the parity of the call on its
-// stream: each call finds its region zero and zeroes the other one (the
-// previous call's, finished before this one starts), so none of them
-// waits at its end to reset anything.  Counters and `hp` are the
+// 4 x 4 register tiles and write the output with 16-byte stores.  Each
+// call finds its counters zero and leaves them zero, each zeroed by its
+// last user: the work counter by the producer whose fetch takes its last
+// value (every CTA fetches one past the end), a tile's counter by the
+// last of its expanders (each adds one after its wait).  Nothing depends
+// on the host's count of calls, so a CUDA graph that replays any number
+// of calls, or an eager call between two replays, finds them zero, and
+// no CTA waits at its end to reset anything.  Counters and `hp` are the
 // wrapper's cached scratch: no call allocates.
 //
 // lora_delta_shrink_kernel + lora_delta_expand_kernel
@@ -275,10 +278,8 @@ struct FusedArgs {
   const int* recs;   // [n_tiles, REC] tile records, base tiles first
   float* hp;         // [n_tiles - first_ad, ks, TR, r] shrink partials
   float* out;
-  int* ctr;          // this call's region: [0] work, [1 + t] tile t's
-                     // finished shrink items
-  int* clear;        // the previous call's region, zeroed here
-  int region;        // ints a region holds
+  int* ctr;          // [0] work, [1 + t] tile t's finished shrink items
+                     // (then its expanders)
   int S, K, N, r, n_tiles, first_ad, ks, ns, n_shrink, n_items;
   float scaling;
   int scaled, x_bulk, a_bulk, b_bulk, out_vec;
@@ -448,8 +449,7 @@ __device__ __forceinline__ void store4(float* o, const float (&v)[4],
 // one K span and releases it on its tile's counter; an expand item waits
 // (acquire) for its tile's ks shrinks, sums their partials in span order
 // into h, then stores scaling * h B over its N span (base tiles: 0.0).
-// The counters live in one of two regions, by call parity: CTA 0 zeroes
-// the other one, which the previous call used, for the next call.
+// Each counter's last user zeroes it for the next call.
 template <typename T>
 __global__ void __launch_bounds__(F_THREADS, 2)
 lora_delta_fused(const FusedArgs p) {
@@ -469,8 +469,6 @@ lora_delta_fused(const FusedArgs p) {
     }
     hp::mbar_fence_init();
   }
-  if (blockIdx.x == 0)
-    for (int i = tid; i < p.region; i += F_THREADS) p.clear[i] = 0;
   __syncthreads();
 
   if (tid >= F_CONS) {   // producer
@@ -479,6 +477,8 @@ lora_delta_fused(const FusedArgs p) {
     int item = __shfl_sync(0xffffffffu, next, 0);
     for (int j = 0;;) {
       if (lane == 0 && item < p.n_items) next = atomicAdd(p.ctr, 1);
+      // the call's last fetch: no other comes, so the counter is zeroed
+      if (lane == 0 && item == p.n_items + (int)gridDim.x - 1) p.ctr[0] = 0;
       int n = 1;
       Item it{};
       int rec = 0, my_row = 0;
@@ -516,6 +516,7 @@ lora_delta_fused(const FusedArgs p) {
   const int r4 = (p.r + 3) & ~3;
   Item it{};
   int CQ = 1, KG = 1, kg = 0, rq = 0, cq = 0;
+  int seen = -1;   // tid 0: the tile counter before this expander's add
   float acc[4][4];
   for (int j = 0;; ++j) {
     const int s = j % F_STAGES;
@@ -538,8 +539,10 @@ lora_delta_fused(const FusedArgs p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
       if (!it.shrink && it.slot >= 0) {
-        if (tid == 0)
+        if (tid == 0) {
           while (hp::ld_acquire(p.ctr + 1 + it.tile) < p.ks) __nanosleep(32);
+          seen = atomicAdd(p.ctr + 1 + it.tile, 1);   // read at the end
+        }
         hp::named_sync(1, F_CONS);
         const float* part =
             p.hp + (long)(it.tile - p.first_ad) * p.ks * TR * p.r;
@@ -625,6 +628,11 @@ lora_delta_fused(const FusedArgs p) {
                          p.ctr + 1 + it.tile)
                      : "memory");
       hp::mbar_arrive(&empty[s]);
+      // (after the slot is handed back: the add's value may still be on
+      // its way)
+      if (last && seen == p.ks + p.ns - 1)   // the tile's last expander
+        p.ctr[1 + it.tile] = 0;
+      if (last) seen = -1;
     }
   }
 }
@@ -654,23 +662,21 @@ int launch_fused(const FusedArgs& p, int grid, cudaStream_t st) {
 // tile records [n_tiles, 4 + tile_rows] (slot, first sorted position,
 // rows, 0, the rows' perm entries), the first `first_ad` tiles base
 // tiles; hp: (n_tiles - first_ad) * ceil(K / span) * tile_rows * r
-// floats; ctr: two regions of `region` >= 1 + n_tiles ints, region
-// `parity` zero (the previous call zeroed it; this call zeroes the
-// other); tile_rows and span: the wrapper's view of TR and SPAN
-// (refused if they differ); at most max_ctas CTAs.  Returns
-// cudaGetLastError() after the launch.
+// floats; ctr: `ctr_ints` >= 1 + n_tiles ints, the first 1 + n_tiles
+// zero (a new buffer is; each call leaves them zero); tile_rows and
+// span: the wrapper's view of TR and SPAN (refused if they differ); at
+// most max_ctas CTAs.  Returns cudaGetLastError() after the launch.
 extern "C" int dstt_lora_delta(const void* x, const void* a, const void* b,
                                const void* plan, void* hp, void* ctr,
                                void* out, int S, int K, int N, int r,
                                int n_tiles, int first_ad, int tile_rows,
-                               int span, int region, int parity,
-                               float scaling, int dtype, int max_ctas,
-                               void* stream) {
+                               int span, int ctr_ints, float scaling,
+                               int dtype, int max_ctas, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S <= 0 || K <= 0 || N <= 0 || r <= 0 || r > MAX_RANK ||
       n_tiles <= 0 || first_ad < 0 || first_ad > n_tiles || max_ctas <= 0 ||
-      tile_rows != TR || span != SPAN || region < 1 + n_tiles ||
-      (parity != 0 && parity != 1) || (dtype != 0 && dtype != 1))
+      tile_rows != TR || span != SPAN || ctr_ints < 1 + n_tiles ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const int es = dtype == 1 ? 2 : 4;
   auto aligned = [](const void* ptr) {
@@ -683,9 +689,7 @@ extern "C" int dstt_lora_delta(const void* x, const void* a, const void* b,
   p.recs = static_cast<const int*>(plan) + S + 3 * n_tiles;
   p.hp = static_cast<float*>(hp);
   p.out = static_cast<float*>(out);
-  p.ctr = static_cast<int*>(ctr) + (long)parity * region;
-  p.clear = static_cast<int*>(ctr) + (long)(1 - parity) * region;
-  p.region = region;
+  p.ctr = static_cast<int*>(ctr);
   p.S = S, p.K = K, p.N = N, p.r = r;
   p.n_tiles = n_tiles, p.first_ad = first_ad;
   p.ks = (K + SPAN - 1) / SPAN;

@@ -26,6 +26,15 @@ prefill token (`set_adapter`), and base rows and adapter rows share every
 serving call.  KV block IO (`read_kv_block(s)` / `write_kv_block(s)`)
 moves whole arena blocks to and from the host.
 
+Decode groups follow the reference too: `decode_burst_step` (with seeded
+sampling streams, `seeds=` / `seed_positions=`) and `decode_multi_step`
+(k steps with per-row termination on the device and one packed fetch a
+group).  At tensor parallelism 1 on a CUDA device each burst and each
+group is one replay of a captured CUDA graph (`graphs.DecodeGraphs`), the
+counterpart of the reference's one compiled dispatch; a capture that
+fails raises, nothing falls back to eager.  On the CPU the engine runs
+the eager functions.
+
 Tensor parallelism (`tensor_parallel_size > 1` with
 `tp_collectives="fused"`) runs one engine per rank of an initialized
 process group (`comm.init_distributed`, one process per device): each
@@ -36,8 +45,10 @@ calls; each then holds the same full logits and samples the same tokens.
 
 Not carried yet, each refused by name: the reference's GSPMD tensor
 parallelism (`tp_collectives="xla"` at tp > 1), LoRA adapters and KV
-block IO on a tensor-parallel engine, prefix cache, expert paging, seeded
-sampling streams, draft-and-verify and multi-step groups.
+block IO on a tensor-parallel engine, prefix cache, expert paging,
+draft-and-verify and grammar automata (`fsm=`).  As in the reference, the
+fused tensor-parallel programs carry neither seeded streams nor
+multi-step groups.
 """
 from __future__ import annotations
 
@@ -50,8 +61,8 @@ import torch
 from ...models.convert import shard_params_tp
 from ...models.transformer import TransformerConfig, init_params
 from .ragged_manager import DSStateManager
-from .ragged_ops import (decode_step, decode_tokens, init_arena,
-                         prefill_chunks, prefill_full,
+from .ragged_ops import (decode_multi_step, decode_step, decode_tokens,
+                         init_arena, prefill_chunks, prefill_full,
                          prefill_full_supported, sample_tokens_compiled)
 
 __all__ = ["RaggedInferenceEngineConfig", "InferenceEngineV2"]
@@ -126,10 +137,12 @@ def _leaf_sum(x) -> float:
 class _RaggedPrograms:
     """The `ragged_ops` serving programs with the model config bound (the
     reference binds its statics with partials); each is looked up in this
-    module when called."""
+    module when called.  With `graphs` (a CUDA device), the decode bursts
+    and groups are its captured programs' replays."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, graphs=None):
         self.cfg = cfg
+        self.graphs = graphs
 
     def prefill_chunks(self, *args, **kw):
         return prefill_chunks(self.cfg, *args, **kw)
@@ -138,7 +151,14 @@ class _RaggedPrograms:
         return decode_step(self.cfg, *args, **kw)
 
     def decode_tokens(self, *args, **kw):
+        if self.graphs is not None:
+            return self.graphs.decode_tokens(*args, **kw)
         return decode_tokens(self.cfg, *args, **kw)
+
+    def decode_multi_step(self, *args, **kw):
+        if self.graphs is not None:
+            return self.graphs.decode_multi_step(*args, **kw)
+        return decode_multi_step(self.cfg, *args, **kw)
 
 
 class InferenceEngineV2:
@@ -205,7 +225,11 @@ class InferenceEngineV2:
                                           self.params)
             self._programs = self._tpp
         else:
-            self._programs = _RaggedPrograms(self.cfg)
+            graphs = None
+            if self.device.type == "cuda":
+                from .graphs import DecodeGraphs
+                graphs = DecodeGraphs(self.cfg, self.device)
+            self._programs = _RaggedPrograms(self.cfg, graphs)
         # prefill_full is off under tp (no fused-ring wiring), as in the
         # reference
         self._use_prefill_full = (self.config.full_prompt_prefill
@@ -290,18 +314,22 @@ class InferenceEngineV2:
             "mixture-of-experts serving is not carried by the PyTorch "
             "port yet")
 
-    def decode_multi_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            "multi-step decode groups are not carried by the PyTorch port "
-            "yet (decode_burst_step serves the burst path)")
-
     supports_per_row_sampling = True
     supports_lora = True
     supports_draft_verify = False
-    supports_seeded_sampling = False
-    supports_multi_step = False
     supports_structured = False
     supports_moe = False
+
+    # counter-based (seed, position) sampling streams and k-step groups
+    # with on-device termination: properties, as in the reference, since
+    # the fused tensor-parallel programs carry neither
+    @property
+    def supports_seeded_sampling(self) -> bool:
+        return self._tpp is None
+
+    @property
+    def supports_multi_step(self) -> bool:
+        return self._tpp is None
 
     def audit_blocks(self) -> Dict[str, int]:
         """Block-conservation audit (DSStateManager.audit); raises on a
@@ -631,27 +659,39 @@ class InferenceEngineV2:
                           mode: str = "greedy", temperature=1.0,
                           top_k=0, rng: Optional[torch.Generator] = None,
                           max_tokens: Optional[Dict[int, int]] = None,
+                          seeds: Optional[Dict[int, int]] = None,
+                          seed_positions: Optional[Dict[int, int]] = None,
                           **unsupported) -> Dict[int, np.ndarray]:
         """Advance decode-ready sequences `n_steps` tokens in one call
         (ragged_ops.decode_tokens): sample -> append KV -> feed back, all
-        on the device.  Each selected sequence must hold exactly one
-        pending input token.  Returns {uid: [n_steps] int32 sampled
-        tokens}; the last one is left pending so bursts chain.
+        on the device (one graph replay on the card at tp 1).  Each
+        selected sequence must hold exactly one pending input token.
+        Returns {uid: [n_steps] int32 sampled tokens}; the last one is
+        left pending so bursts chain.
         mode="per_row" takes {uid: value} dicts for `temperature` and
         `top_k` (missing uids sample greedily).  `max_tokens` ({uid:
-        absolute token cap}) tightens each row's KV-lease bound."""
+        absolute token cap}) tightens each row's KV-lease bound.
+        `seeds` ({uid: 64-bit stream seed}) with `seed_positions` ({uid:
+        index of the row's first token of this burst in its generated
+        stream}) draw the flagged rows' token j from their counter-based
+        Philox stream at position + j, independent of the engine's
+        generator; they need a stochastic mode ("sample" rides the
+        per-row program so that the flags get a row axis).  `drafts=` and
+        `fsm=` are refused by name."""
         given = sorted(k for k, v in unsupported.items() if v is not None)
         if given:
             raise NotImplementedError(
-                f"decode_burst_step({', '.join(given)}=...): drafts, "
-                f"seeded streams and grammar automata are not carried by "
-                f"the PyTorch port yet")
+                f"decode_burst_step({', '.join(given)}=...): drafts and "
+                f"grammar automata are not carried by the PyTorch port yet")
+        if seeds:
+            self._check_seeds(seed_positions)
+            if mode == "greedy":
+                raise ValueError(
+                    "seeds= with mode='greedy': greedy rows never consume "
+                    "their sampling stream — drop the seeds or pick a "
+                    "stochastic mode")
         n_steps = n_steps or self.config.decode_burst
-        batch = [d for d in self.state.decode_batch() if d.generated
-                 and d.seen_tokens < len(d.prompt) + len(d.generated)]
-        if uids is not None:
-            sel = set(uids)
-            batch = [d for d in batch if d.uid in sel]
+        batch = self._decode_ready(uids)
         if not batch:
             return {}
         B = self.config.max_seqs
@@ -661,13 +701,7 @@ class InferenceEngineV2:
         tables = np.zeros((B, self.config.max_blocks_per_seq), np.int32)
         active = np.zeros(B, bool)
         for i, d in enumerate(batch):
-            pending = d.seen_tokens - len(d.prompt)
-            if pending != len(d.generated) - 1:
-                raise RuntimeError(
-                    f"sequence {d.uid} has {len(d.generated) - pending} "
-                    f"pending tokens; burst decode needs exactly 1 (drive "
-                    f"step() to drain extras first)")
-            tokens[i] = d.generated[pending]
+            tokens[i] = self._pending(d, "burst")
             lens[i] = d.seen_tokens
             # cap the lease at the sequence's KV budget: overshot steps of
             # a tail burst re-write the last leased slot (tokens trimmed)
@@ -680,23 +714,32 @@ class InferenceEngineV2:
             tables[i] = self.state.block_table(d)
             active[i] = True
         rng = rng or self._rng
-        temp, topk_vec = temperature, None
-        if mode == "per_row":
-            temperature = dict(temperature or {})
-            top_k = dict(top_k or {})
+        lkw = self._lora_kw(batch, B)
+        if mode == "per_row" or (seeds and mode == "sample"):
             tv = np.zeros(B, np.float32)
             kv = np.zeros(B, np.int32)
-            for i, d in enumerate(batch):
-                tv[i] = float(temperature.get(d.uid, 0.0))
-                kv[i] = int(top_k.get(d.uid, 0))
-            temp = torch.from_numpy(tv).to(self.device)
-            topk_vec = torch.from_numpy(kv).to(self.device)
-            top_k = 0
-        toks, self.arena = self._programs.decode_tokens(
-            self.params, self.arena,
-            torch.from_numpy(tokens).to(self.device), lens, tables, active,
-            rng, temp, max_lens, topk_vec, n_steps=n_steps, mode=mode,
-            top_k=int(top_k), **self._lora_kw(batch, B))
+            if mode == "per_row":
+                temperature = dict(temperature or {})
+                top_k = dict(top_k or {})
+                for i, d in enumerate(batch):
+                    tv[i] = float(temperature.get(d.uid, 0.0))
+                    kv[i] = int(top_k.get(d.uid, 0))
+            else:
+                # a uniform stochastic burst with seeded rows rides the
+                # per-row program: the seed flags need a row axis
+                tv[:len(batch)] = float(temperature)
+                kv[:len(batch)] = int(top_k)
+            skw = (self._seed_operands(batch, B, seeds, seed_positions)
+                   if seeds else {})
+            toks, self.arena = self._programs.decode_tokens(
+                self.params, self.arena, tokens, lens, tables, active, rng,
+                tv, max_lens, kv, n_steps=n_steps, mode="per_row", top_k=0,
+                **skw, **lkw)
+        else:
+            toks, self.arena = self._programs.decode_tokens(
+                self.params, self.arena, tokens, lens, tables, active, rng,
+                float(temperature), max_lens, n_steps=n_steps, mode=mode,
+                top_k=int(top_k), **lkw)
         toks = self._fetch(toks)   # the once-per-burst read
         out: Dict[int, np.ndarray] = {}
         for i, d in enumerate(batch):
@@ -705,6 +748,150 @@ class InferenceEngineV2:
             d.seen_tokens = min(d.seen_tokens + n_steps, int(max_lens[i]))
             out[d.uid] = toks[i]
             # burst path produces tokens, not logits — drop stale logits
+            self._last_logits.pop(d.uid, None)
+        return out
+
+    def _decode_ready(self, uids):
+        """The decode-ready sequences (one pending input token or more),
+        those of `uids` where given."""
+        batch = [d for d in self.state.decode_batch() if d.generated
+                 and d.seen_tokens < len(d.prompt) + len(d.generated)]
+        if uids is not None:
+            sel = set(uids)
+            batch = [d for d in batch if d.uid in sel]
+        return batch
+
+    @staticmethod
+    def _pending(d, what: str) -> int:
+        """Sequence `d`'s one pending input token (a burst or group needs
+        exactly one)."""
+        pending = d.seen_tokens - len(d.prompt)
+        if pending != len(d.generated) - 1:
+            raise RuntimeError(
+                f"sequence {d.uid} has {len(d.generated) - pending} "
+                f"pending tokens; {what} decode needs exactly 1 (drive "
+                f"step() to drain extras first)")
+        return d.generated[pending]
+
+    def _check_seeds(self, seed_positions) -> None:
+        if not self.supports_seeded_sampling:
+            raise RuntimeError(
+                "seeded sampling streams are not served by the fused-TP "
+                "program set (tp_ragged.TPServingPrograms has no seed "
+                "operands), as in the reference")
+        if seed_positions is None:
+            raise ValueError(
+                "seeds= needs seed_positions= (the stream index of each "
+                "row's first drawn token)")
+
+    def _seed_operands(self, batch, B: int, seeds, seed_positions) -> Dict:
+        """The per-row counter-based stream operands: the 64-bit seed as
+        two 32-bit words, the stream index of the row's first drawn
+        token, and the participation flag (host data)."""
+        seeds = dict(seeds or {})
+        seed_positions = dict(seed_positions or {})
+        sh = np.zeros(B, np.int64)
+        sl = np.zeros(B, np.int64)
+        sp = np.zeros(B, np.int64)
+        hs = np.zeros(B, bool)
+        for i, d in enumerate(batch):
+            if d.uid in seeds:
+                s = int(seeds[d.uid]) & 0xFFFFFFFFFFFFFFFF
+                sh[i], sl[i] = s >> 32, s & 0xFFFFFFFF
+                sp[i] = int(seed_positions[d.uid])
+                hs[i] = True
+        return dict(seed_hi=sh, seed_lo=sl, seed_pos=sp, has_seed=hs)
+
+    def decode_multi_step(self, uids: Optional[Sequence[int]] = None,
+                          k: int = 8, temperature=None, top_k=None,
+                          rng: Optional[torch.Generator] = None,
+                          max_tokens: Optional[Dict[int, int]] = None,
+                          eos_ids: Optional[Dict[int, int]] = None,
+                          seeds: Optional[Dict[int, int]] = None,
+                          seed_positions: Optional[Dict[int, int]] = None,
+                          fsm=None, fsm_states=None
+                          ) -> Dict[int, np.ndarray]:
+        """Advance decode-ready sequences up to `k` tokens in one group
+        (ragged_ops.decode_multi_step; one graph replay on the card at tp
+        1) with sampling AND termination on the device: a row stops the
+        moment it samples its EOS token or exhausts its new-token budget —
+        it pins its length and stops writing KV — and the host reads one
+        packed [B, k+1] result per group.
+
+        Sampling is per row: `temperature`/`top_k` are {uid: value} dicts
+        (missing uids sample greedily); `seeds`/`seed_positions` as in
+        `decode_burst_step`.  `max_tokens` ({uid: absolute token cap})
+        bounds both the row's KV lease and its budget; `eos_ids` ({uid:
+        token id}) arms per-row EOS termination (missing = never).  KV
+        leases are taken for the full k up front; flushing a stopped
+        request frees them.  `fsm=` is refused by name.
+
+        Returns {uid: [n_e] int32}: the tokens the row emitted, EOS
+        included, nothing past its stop; the last one stays pending so
+        groups chain like bursts."""
+        if fsm is not None or fsm_states is not None:
+            raise NotImplementedError(
+                "decode_multi_step(fsm=...): grammar-constrained step "
+                "groups (structured generation) are not carried by the "
+                "PyTorch port yet")
+        if k < 1:
+            raise ValueError(f"decode_multi_step needs k >= 1, got {k}")
+        if not self.supports_multi_step:
+            raise RuntimeError(
+                "decode_multi_step is not served by the fused-TP program "
+                "set (tp_ragged.TPServingPrograms has no multi-step "
+                "program) — use tp_collectives='xla' for multi-step "
+                "serving")
+        if seeds:
+            self._check_seeds(seed_positions)
+        batch = self._decode_ready(uids)
+        if not batch:
+            return {}
+        temperature = dict(temperature or {})
+        top_k = dict(top_k or {})
+        eos_ids = dict(eos_ids or {})
+        max_tokens = dict(max_tokens or {})
+        B = self.config.max_seqs
+        tokens = np.zeros(B, np.int32)
+        lens = np.zeros(B, np.int32)
+        max_lens = np.ones(B, np.int32)
+        budget = np.zeros(B, np.int32)
+        eos_vec = np.full(B, -1, np.int32)
+        temp_vec = np.zeros(B, np.float32)
+        topk_vec = np.zeros(B, np.int32)
+        tables = np.zeros((B, self.config.max_blocks_per_seq), np.int32)
+        active = np.zeros(B, bool)
+        for i, d in enumerate(batch):
+            tokens[i] = self._pending(d, "multi-step")
+            lens[i] = d.seen_tokens
+            # full-k lease up front, bounded by the row's token cap; the
+            # budget also stops the row on the device
+            capped = min(d.seen_tokens + k, self.max_tokens_per_seq)
+            capped = min(capped, int(max_tokens.get(d.uid, capped)))
+            capped = max(capped, d.seen_tokens)
+            max_lens[i] = capped
+            budget[i] = capped - d.seen_tokens
+            self.state.ensure_capacity(d, capped)
+            tables[i] = self.state.block_table(d)
+            active[i] = budget[i] > 0
+            eos_vec[i] = int(eos_ids.get(d.uid, -1))
+            temp_vec[i] = float(temperature.get(d.uid, 0.0))
+            topk_vec[i] = int(top_k.get(d.uid, 0))
+        skw = (self._seed_operands(batch, B, seeds, seed_positions)
+               if seeds else {})
+        packed, self.arena = self._programs.decode_multi_step(
+            self.params, self.arena, tokens, lens, tables, active,
+            rng or self._rng, temp_vec, max_lens, topk_vec, eos_vec, budget,
+            k=k, **skw, **self._lora_kw(batch, B))
+        packed = self._fetch(packed)   # the once-per-group read
+        out: Dict[int, np.ndarray] = {}
+        for i, d in enumerate(batch):
+            n_e = int(packed[i, k])
+            toks = np.asarray(packed[i, :n_e], np.int32)
+            d.generated.extend(int(t) for t in toks)
+            d.seen_tokens += n_e
+            out[d.uid] = toks
+            # multi-step produces tokens, not logits — drop stale logits
             self._last_logits.pop(d.uid, None)
         return out
 

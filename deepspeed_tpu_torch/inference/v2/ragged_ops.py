@@ -23,11 +23,19 @@ Where the reference differs by nature of JAX, the port does this instead:
 - The multi-LoRA epilogue's adapter ids are host data too: each serving
   call groups its rows by slot once (`ops.lora_matmul.LoraRows`) for all
   its layers.
+- A decode group (`decode_tokens`' burst, `decode_multi_step`'s group)
+  plans its steps on the device instead (`_GroupSlots`), over fixed [B]
+  buffers: a row that stops mid-group is a stop the device decides, and
+  no step may read the device from the host, so that the engine can
+  replay the whole group as one captured CUDA graph (`graphs.py`, the
+  counterpart of the reference's one compiled dispatch).
+- The seeded sampling streams (Philox4x64-10, `philox_word`) run in
+  int64 lanes holding 32-bit words, since torch's uint32 covers few ops.
 
 Scope: the pre-norm sequential dense families (the config refuses the
-rest).  No seeded streams, grammar masks, drafts or multi-step groups.
-Tensor parallelism runs the same layer pieces (`_qkv`, `_mlp_delta`,
-`_KVSlots`, `_kernels`, `decode_loop`) through `tp_ragged.py`.
+rest).  No grammar masks or drafts.  Tensor parallelism runs the same
+layer pieces (`_qkv`, `_mlp_delta`, `_KVSlots`, `_kernels`,
+`decode_loop`) through `tp_ragged.py`.
 """
 from __future__ import annotations
 
@@ -51,7 +59,8 @@ from ...ops.paged_prefill import (paged_prefill_attention,
 
 __all__ = ["init_arena", "prefill_chunks", "prefill_full",
            "prefill_full_supported", "decode_step", "decode_tokens",
-           "sample_tokens_compiled"]
+           "decode_multi_step", "sample_tokens_compiled", "philox_word",
+           "seeded_uniform24", "write_rows"]
 
 
 def init_arena(cfg: TransformerConfig, num_blocks: int, block_size: int,
@@ -120,6 +129,64 @@ class _KVSlots:
             k, v = k.reshape(self.n, -1), v.reshape(self.n, -1)
         arena["k"][li, self.blk, self.off] = k
         arena["v"][li, self.blk, self.off] = v
+
+
+def write_rows(active) -> np.ndarray:
+    """[B] int64 rows whose slots a decode group writes, from the host
+    `active` flags: the active rows, then the first of them repeated (a
+    repeated index writes the same value, so the scatter stays
+    deterministic).  Padded rows are left out: their all-zero block
+    tables point at block 0, which may be a live row's slot.  With no
+    active row, all 0: no row is live, and each write puts its slot's
+    own value back."""
+    flags = _host(active).astype(bool).ravel()
+    act = np.flatnonzero(flags)
+    rows = np.full(flags.size, act[0] if act.size else 0, np.int64)
+    rows[:act.size] = act
+    return rows
+
+
+class _GroupSlots:
+    """Where a decode group's rows write K/V, planned on the device over
+    fixed [B] buffers (`_KVSlots` plans one call on the host).  Each
+    step, the `write_rows` rows (device int64 [B]) write to
+    arena[li, tables[b, pos // bs], pos % bs]; a row that is not live
+    this step (it stopped) writes back the value its slot already holds,
+    so the arena stays byte-identical there."""
+
+    def __init__(self, tables, rows, bs: int):
+        self.rows = rows
+        self.tables = tables.index_select(0, rows).long()       # [B, MB]
+        self.bs = bs
+
+    def at(self, positions, live) -> "_GroupSlots":
+        """This step's slots for `positions` [B] int64 and `live` [B]
+        bool, device tensors."""
+        pos = positions.index_select(0, self.rows)
+        idx = (pos // self.bs).clamp(0, self.tables.shape[1] - 1)
+        self.blk = self.tables.gather(1, idx[:, None])[:, 0]
+        self.off = pos % self.bs
+        self.keep = live.index_select(0, self.rows)
+        return self
+
+    def write(self, arena, li: int, k, v) -> None:
+        for name, new in (("k", k), ("v", v)):
+            a = arena[name]
+            new = new.index_select(0, self.rows)
+            if a.dim() == 4:
+                new = new.reshape(new.shape[0], -1)
+            old = a[li, self.blk, self.off]
+            keep = self.keep.view(-1, *([1] * (new.dim() - 1)))
+            a[li, self.blk, self.off] = torch.where(keep, new, old)
+
+
+def _operand(x, device, dtype) -> torch.Tensor:
+    """A group operand on `device`: host data copied once; a tensor as
+    it is (a captured program's buffers already have the device and
+    dtype, so nothing is copied)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return _dev(_host(x), device, dtype)
 
 
 def _layer(params, li: int) -> Dict[str, torch.Tensor]:
@@ -326,6 +393,28 @@ def prefill_full(cfg: TransformerConfig, params, arena, tokens, lens,
     return _lm_logits(cfg, params, xl), arena
 
 
+def _decode_layers(cfg: TransformerConfig, params, arena, tokens, pos_t,
+                   tables_t, lens_t, slots, rows, lora):
+    """The layers of one decode step for B rows, on the device: tokens
+    and positions `pos_t` [B], block tables `tables_t` [B, MB] int32, the
+    kernel's `lens_t` [B] int32 (< 0: a row that is not live), `slots`
+    (a `_KVSlots` or `_GroupSlots`: where the rows write K/V), `rows` (a
+    `LoraRows`) with `lora`.  Returns (logits [B, V] f32, arena)."""
+    B = pos_t.shape[0]
+    NH, D = cfg.num_heads, cfg.head_dim
+    x = _embed(cfg, params, tokens.long(), pos_t)                  # [B, H]
+    attend = _kernels(cfg, arena)[0]
+    for li in range(cfg.num_layers):
+        lp = _layer(params, li)
+        q, k, v = _qkv(cfg, lp, x, (B,), pos_t)
+        slots.write(arena, li, k, v)
+        attn = attend(q, arena["k"], arena["v"], tables_t, lens_t,
+                      layer_idx=li)
+        x = x + _attn_out(cfg, lp, li, attn.reshape(B, NH * D), lora, rows)
+        x = x + _mlp_delta(cfg, x, lp)
+    return _lm_logits(cfg, params, x), arena
+
+
 def _decode_core(cfg: TransformerConfig, params, arena, tokens, seq_lens,
                  block_tables, active, adapter_ids=None, lora=None):
     """One token for each of B rows.  tokens: [B] (a device tensor — the
@@ -339,28 +428,14 @@ def _decode_core(cfg: TransformerConfig, params, arena, tokens, seq_lens,
     active = _host(active).astype(bool)
     positions = _host(seq_lens).astype(np.int64)
     tables = _host(block_tables).astype(np.int32)
-    B = positions.shape[0]
     bs = arena["k"].shape[2]
-    NH, D = cfg.num_heads, cfg.head_dim
-
-    pos_t = _dev(positions, dev)
-    x = _embed(cfg, params, tokens.to(dev).long(), pos_t)          # [B, H]
     slots = _KVSlots(tables, positions[:, None], active, bs, dev)
-    tables_t = _dev(tables, dev, torch.int32)
     # the kernel's inactive-row marker: lens < 0 gives zeros
     lens_t = _dev(np.where(active, positions, -1), dev, torch.int32)
-    attend = _kernels(cfg, arena)[0]
     rows = None if lora is None else LoraRows.of(adapter_ids)
-
-    for li in range(cfg.num_layers):
-        lp = _layer(params, li)
-        q, k, v = _qkv(cfg, lp, x, (B,), pos_t)
-        slots.write(arena, li, k, v)
-        attn = attend(q, arena["k"], arena["v"], tables_t, lens_t,
-                      layer_idx=li)
-        x = x + _attn_out(cfg, lp, li, attn.reshape(B, NH * D), lora, rows)
-        x = x + _mlp_delta(cfg, x, lp)
-    return _lm_logits(cfg, params, x), arena
+    return _decode_layers(cfg, params, arena, tokens.to(dev),
+                          _dev(positions, dev), _dev(tables, dev, torch.int32),
+                          lens_t, slots, rows, lora)
 
 
 def decode_step(cfg: TransformerConfig, params, arena, tokens, seq_lens,
@@ -371,6 +446,19 @@ def decode_step(cfg: TransformerConfig, params, arena, tokens, seq_lens,
                         active, adapter_ids=adapter_ids, lora=lora)
 
 
+# ----------------------------------------------------------------------
+# sampling
+# ----------------------------------------------------------------------
+def _draw(probs, generator):
+    """One draw per row of `probs` [B, V] from `generator`: torch's own
+    one-sample `multinomial` algorithm (argmax of p / q with q ~ Exp(1)),
+    so the same generator state gives the same tokens, without the
+    validity check it makes on the host — a read of the device that a
+    captured decode step may not make."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / q).argmax(dim=-1)
+
+
 def _sample_tokens(logits, generator, mode: str, temperature, top_k):
     """Sampling on the logits' device.  mode: "greedy" | "sample" |
     "per_row" (temperature and top_k are then [B] tensors; rows with
@@ -379,61 +467,337 @@ def _sample_tokens(logits, generator, mode: str, temperature, top_k):
     distribution matches the reference."""
     if mode == "greedy":
         return logits.argmax(dim=-1).to(torch.int32)
-    from ..sampling import scale_topk, scale_topk_per_row
     if mode == "per_row":
-        t = temperature.to(logits.device).float()
-        probs = torch.softmax(scale_topk_per_row(
-            logits, t, top_k.to(logits.device)), dim=-1)
-        sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        return torch.where(t <= 0.0, logits.argmax(dim=-1),
-                           sampled).to(torch.int32)
+        return _sample_per_row(logits, generator, temperature, top_k)
     if mode != "sample":
         raise ValueError(
             f"unknown sampling mode {mode!r} (greedy | sample | per_row)")
+    from ..sampling import scale_topk
     probs = torch.softmax(scale_topk(logits, temperature, top_k), dim=-1)
-    return torch.multinomial(probs, 1,
-                             generator=generator)[:, 0].to(torch.int32)
+    return _draw(probs, generator).to(torch.int32)
+
+
+# -- counter-based sampling streams (Philox4x64-10 in int64 lanes) --------
+# A seeded request's token `position` is drawn from numpy's Philox bit
+# generator keyed by (seed, position) — the reference's
+# serving/streaming.seeded_uniform.  To sample on the device without a
+# host round trip, the block cipher runs here on torch tensors: every
+# 64-bit word is a (hi, lo) pair of 32-bit words held in int64 lanes, and
+# the 64x64 multiplies go through 16-bit limbs, so every product stays
+# below 2**32 (the reference's uint32 arithmetic; torch's uint32 covers
+# few ops).  numpy's Generator bumps the counter before its first draw,
+# so the word behind seeded_uniform(seed, position) is output word 0 of
+# the block at counter (1, 0, 0, 0).
+_M32, _M16 = 0xFFFFFFFF, 0xFFFF
+_PHILOX_M0 = (0xD2E7470E, 0xE14C6C93)   # round multipliers (hi, lo)
+_PHILOX_M1 = (0xCA5A8263, 0x95121157)
+_PHILOX_W0 = (0x9E3779B9, 0x7F4A7C15)   # key-schedule Weyl constants
+_PHILOX_W1 = (0xBB67AE85, 0x84CAA73B)
+
+
+def _umul32(x, y):
+    """Unsigned 32x32 -> 64 multiply of int64 lanes holding 32-bit words,
+    as (hi, lo) words, through 16-bit limbs."""
+    xl, xh = x & _M16, x >> 16
+    yl, yh = y & _M16, y >> 16
+    ll, lh, hl, hh = xl * yl, xl * yh, xh * yl, xh * yh
+    t = (ll >> 16) + (lh & _M16) + (hl & _M16)
+    lo = (ll & _M16) | ((t & _M16) << 16)
+    hi = hh + (lh >> 16) + (hl >> 16) + (t >> 16)
+    return hi, lo
+
+
+def _add64(ah, al, bh, bl):
+    """(ah, al) + (bh, bl) mod 2**64, in 32-bit words."""
+    lo = al + bl
+    return (ah + bh + (lo >> 32)) & _M32, lo & _M32
+
+
+def _mul64(ah, al, bh, bl):
+    """64x64 -> 128 multiply: four 32-bit words, most significant first.
+    The four 32x32 partial products are one `_umul32` over a stacked
+    axis."""
+    ah, al, bh, bl = torch.broadcast_tensors(ah, al, bh, bl)
+    hi, lo = _umul32(torch.stack([al, al, ah, ah]),
+                     torch.stack([bl, bh, bl, bh]))
+    (p0h, p1h, p2h, p3h), (p0l, p1l, p2l, p3l) = hi, lo
+    w1 = p0h + p1l + p2l
+    w2 = p1h + p2h + p3l + (w1 >> 32)
+    w3 = p3h + (w2 >> 32)
+    return w3 & _M32, w2 & _M32, w1 & _M32, p0l
+
+
+def philox_word(seed_hi, seed_lo, pos_hi, pos_lo):
+    """Output word 0 of the Philox4x64-10 block at counter (1, 0, 0, 0)
+    keyed by (seed, position), as a (hi, lo) pair of int64 tensors
+    holding 32-bit words — the u64 numpy's Generator(Philox(key=[seed,
+    position])).random() turns into a double.  Inputs: 32-bit words
+    (tensors or ints, any shapes that broadcast).  Each round's two
+    multiplies are one `_mul64` over a leading axis of 2."""
+    words = [torch.as_tensor(w, dtype=torch.int64) for w in
+             (seed_hi, seed_lo, pos_hi, pos_lo)]
+    dev = next((w.device for w in (seed_hi, seed_lo, pos_hi, pos_lo)
+                if isinstance(w, torch.Tensor)), torch.device("cpu"))
+    k0h, k0l, k1h, k1l = (w.to(dev) & _M32
+                          for w in torch.broadcast_tensors(*words))
+    z = torch.zeros_like(k0h)
+    c0h, c0l, c1h, c1l = z, z + 1, z, z       # counter bumped pre-draw
+    c2h, c2l, c3h, c3l = z, z, z, z
+    # the multipliers filled on the device (a captured step copies no
+    # host data)
+    mh = torch.stack([z + _PHILOX_M0[0], z + _PHILOX_M1[0]])
+    ml = torch.stack([z + _PHILOX_M0[1], z + _PHILOX_M1[1]])
+    for r in range(10):
+        if r:
+            k0h, k0l = _add64(k0h, k0l, *_PHILOX_W0)
+            k1h, k1l = _add64(k1h, k1l, *_PHILOX_W1)
+        # [0]: M0 * c0, [1]: M1 * c2
+        p3, p2, p1, p0 = _mul64(mh, ml, torch.stack([c0h, c2h]),
+                                torch.stack([c0l, c2l]))
+        c0h, c0l, c2h, c2l = (p3[1] ^ c1h ^ k0h, p2[1] ^ c1l ^ k0l,
+                              p3[0] ^ c3h ^ k1h, p2[0] ^ c3l ^ k1l)
+        c1h, c1l, c3h, c3l = p1[1], p0[1], p1[0], p0[0]
+    return c0h, c0l
+
+
+def seeded_uniform24(seed_hi, seed_lo, position):
+    """f32 uniform in [0, 1) from the TOP 24 bits of the (seed, position)
+    Philox word: the host's 53-bit draw (serving/streaming.seeded_uniform
+    in the reference) truncated, never rounded.  `position`: the token's
+    index in the generated stream (taken mod 2**32, as the reference's
+    uint32 cast); seed words: 32-bit words."""
+    pos = torch.as_tensor(position, dtype=torch.int64)
+    if isinstance(seed_hi, torch.Tensor):
+        pos = pos.to(seed_hi.device)
+    pos = pos & _M32
+    hi, _ = philox_word(seed_hi, seed_lo, torch.zeros_like(pos), pos)
+    return (hi >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+def _seeded_pick(scaled_logits, u):
+    """Inverse-CDF draw (the reference's, after serving/streaming.
+    seeded_sample): the number of CDF entries <= u * total, clipped to
+    the last bin.  `scaled_logits` [B, V]: the temperature-scaled,
+    top-k-masked logits (-inf holes have probability 0, a flat CDF);
+    `u` [B] the rows' uniforms; f32 throughout."""
+    p = torch.softmax(scaled_logits.float(), dim=-1)
+    cdf = torch.cumsum(p, dim=-1)
+    t = u * cdf[:, -1]
+    idx = (cdf <= t[:, None]).sum(dim=-1)
+    return idx.clamp(max=cdf.shape[-1] - 1).to(torch.int32)
+
+
+def _sample_per_row(logits, generator, temperature, top_k_vec, seed_hi=None,
+                    seed_lo=None, seed_pos=None, has_seed=None, mask=None,
+                    *, uniform=None):
+    """mode="per_row" sampling with optional counter-based streams: rows
+    flagged by `has_seed` [B] bool draw token `seed_pos` of their (seed)
+    Philox stream by inverse CDF (or take `uniform` [B], their uniforms
+    drawn beforehand), unflagged stochastic rows draw from `generator`,
+    and rows with temperature <= 0 take the argmax.  `temperature` [B],
+    `top_k_vec` [B]: tensors on the logits' device.  Grammar masks are
+    refused by name."""
+    if mask is not None:
+        raise NotImplementedError(
+            "grammar-constrained sampling masks (structured generation) "
+            "are not carried by the PyTorch port yet")
+    from ..sampling import scale_topk_per_row
+    t = temperature.float()
+    scaled = scale_topk_per_row(logits, t, top_k_vec)
+    drawn = _draw(torch.softmax(scaled, dim=-1), generator)
+    if uniform is None and seed_hi is not None:
+        uniform = seeded_uniform24(seed_hi, seed_lo, seed_pos)
+    if uniform is not None:
+        drawn = torch.where(has_seed, _seeded_pick(scaled, uniform).long(),
+                            drawn)
+    return torch.where(t <= 0.0, logits.argmax(dim=-1),
+                       drawn).to(torch.int32)
 
 
 def sample_tokens_compiled(logits, generator, temperature, top_k_vec=None,
-                           *, mode: str = "greedy", top_k: int = 0):
+                           seed_hi=None, seed_lo=None, seed_pos=None,
+                           has_seed=None, *, mode: str = "greedy",
+                           top_k: int = 0):
     """The engine's batched first-token sampler (the reference compiles
     this chain; eager PyTorch runs it as is).  mode="per_row" reads
-    `top_k_vec`; scalar modes use `top_k`."""
-    return _sample_tokens(logits, generator, mode, temperature,
-                          top_k_vec if mode == "per_row" else top_k)
+    `top_k_vec` and the optional seed operands (32-bit seed words, [B]
+    positions, [B] flags); scalar modes use `top_k` and refuse seeds."""
+    if mode == "per_row":
+        return _sample_per_row(logits, generator, temperature, top_k_vec,
+                               seed_hi, seed_lo, seed_pos, has_seed)
+    if seed_hi is not None:
+        raise ValueError(
+            "seeded sampling operands need mode='per_row' (the flag "
+            "vector decides per row; scalar modes have no row axis)")
+    return _sample_tokens(logits, generator, mode, temperature, top_k)
+
+
+# ----------------------------------------------------------------------
+# decode groups: k steps planned on the device
+# ----------------------------------------------------------------------
+def _group_inputs(arena, tokens, seq_lens, block_tables, active, rows):
+    """A group's common operands on the arena's device: (tokens, lens
+    int64, tables int32, active bool, `_GroupSlots`).  `rows`: the
+    `write_rows` buffer, or None to derive it from the host `active`."""
+    dev = arena["k"].device
+    if rows is None:
+        rows = write_rows(active)
+    tables = _operand(block_tables, dev, torch.int32)
+    slots = _GroupSlots(tables, _operand(rows, dev, torch.int64),
+                        arena["k"].shape[2])
+    return (_operand(tokens, dev, torch.int64),
+            _operand(seq_lens, dev, torch.int64), tables,
+            _operand(active, dev, torch.bool), slots)
+
+
+def _group_step(cfg, params, arena, toks, lens, live, tables, slots, rows,
+                lora):
+    """One step of a decode group: the live rows write K/V and attend;
+    (logits [B, V] f32, arena)."""
+    lens_k = torch.where(live, lens, -1).to(torch.int32)
+    return _decode_layers(cfg, params, arena, toks, lens, tables, lens_k,
+                          slots.at(lens, live), rows, lora)
+
+
+def _uniforms(seed_hi, seed_lo, seed_pos, n: int, device):
+    """[B, n] f32: each row's uniforms for stream positions seed_pos + j
+    (a row live at step j has emitted j tokens of the group, so this is
+    the reference's seed_pos + emitted for every draw that is kept)."""
+    pos = _operand(seed_pos, device, torch.int64)
+    steps = torch.arange(n, device=device, dtype=torch.int64)
+    return seeded_uniform24(_operand(seed_hi, device, torch.int64)[:, None],
+                            _operand(seed_lo, device, torch.int64)[:, None],
+                            pos[:, None] + steps[None])
 
 
 def decode_tokens(cfg: TransformerConfig, params, arena, tokens, seq_lens,
                   block_tables, active, rng, temperature=1.0,
                   max_len=None, top_k_vec=None, adapter_ids=None, lora=None,
-                  *, n_steps: int = 8, mode: str = "greedy", top_k: int = 0):
+                  seed_hi=None, seed_lo=None, seed_pos=None, has_seed=None,
+                  *, n_steps: int = 8, mode: str = "greedy", top_k: int = 0,
+                  rows=None):
     """`n_steps` decode iterations with sampling on the device: sample ->
-    append KV -> feed back; the sampled tokens stay on the device between
-    steps and the host reads them once, at the end.  `max_len` [B]: each
-    row's KV-lease bound — positions clamp to max_len-1 so an overshooting
-    tail burst re-writes the last leased slot (the host trims its tokens).
-    Positions advance on the host, since they do not depend on the
-    samples.  adapter_ids [B] with `lora`: the gather-LoRA epilogue on
-    every step (the rows' grouping is built once for the burst).
-    Returns (tokens [B, n_steps] int32 on the device, arena)."""
-    if lora is not None:
-        adapter_ids = LoraRows(adapter_ids)
+    append KV -> feed back, every step planned on the device, so no step
+    reads the device from the host (the engine captures and replays the
+    burst as one CUDA graph on the card).  Operands may be host data or
+    device tensors.  `max_len` [B]: each row's KV-lease bound — positions
+    clamp to max_len-1 so an overshooting tail burst re-writes the last
+    leased slot (the host trims its tokens).  adapter_ids [B] with
+    `lora`: the gather-LoRA epilogue on every step.  Seed operands
+    (`seed_hi`/`seed_lo` [B] 32-bit words, `seed_pos` [B] the stream
+    index of the burst's first token, `has_seed` [B] bool; mode="per_row"
+    only) send the flagged rows through their Philox streams, token j at
+    seed_pos + j.  `rows`: the `write_rows` buffer (derived from host
+    `active` when None).  Returns (tokens [B, n_steps] int32 on the
+    device, arena)."""
+    seeded = seed_hi is not None
+    if seeded and mode != "per_row":
+        raise ValueError(
+            "seeded burst decode needs mode='per_row' (per-row seed "
+            "flags have no meaning for scalar sampling signatures)")
+    dev = arena["k"].device
+    toks, lens, tables, act, slots = _group_inputs(
+        arena, tokens, seq_lens, block_tables, active, rows)
+    cap = None if max_len is None else _operand(max_len, dev,
+                                                torch.int64) - 1
+    if mode == "per_row":
+        temperature = _operand(temperature, dev, torch.float32)
+        top_k = _operand(top_k_vec, dev, torch.int64)
+    u = flags = None
+    if seeded:
+        u = _uniforms(seed_hi, seed_lo, seed_pos, n_steps, dev)
+        flags = _operand(has_seed, dev, torch.bool)
+    lrows = None if lora is None else LoraRows.of(adapter_ids)
+    out = []
+    for j in range(n_steps):
+        logits, arena = _group_step(cfg, params, arena, toks, lens, act,
+                                    tables, slots, lrows, lora)
+        if seeded:
+            toks = _sample_per_row(logits, rng, temperature, top_k,
+                                   has_seed=flags, uniform=u[:, j])
+        else:
+            toks = _sample_tokens(logits, rng, mode, temperature, top_k)
+        out.append(toks)
+        lens = lens + 1
+        if cap is not None:
+            lens = torch.minimum(lens, cap)
+    return torch.stack(out, dim=1), arena
 
-    def core(arena, toks, lens):
-        return _decode_core(cfg, params, arena, toks, lens, block_tables,
-                            active, adapter_ids=adapter_ids, lora=lora)
-    return decode_loop(core, arena, tokens, seq_lens, rng, temperature,
-                       max_len, top_k_vec, n_steps=n_steps, mode=mode,
-                       top_k=top_k)
+
+def decode_multi_step(cfg: TransformerConfig, params, arena, tokens,
+                      seq_lens, block_tables, active, rng, temperature,
+                      max_len, top_k_vec, eos_ids, budget, seed_hi=None,
+                      seed_lo=None, seed_pos=None, has_seed=None,
+                      adapter_ids=None, lora=None, fsm_trans=None,
+                      fsm_mask=None, fsm_accept=None, fsm_state=None,
+                      has_fsm=None, *, k: int = 8, rows=None):
+    """`k` decode steps with per-row sampling AND per-row termination on
+    the device, one packed result for the host (the reference's
+    host-free step group):
+
+    - a row stops when it samples its `eos_ids` token (>= 0; -1 disables
+      EOS) or has emitted its `budget` (<= k) tokens; a stopped row pins
+      its length, writes no KV (`_GroupSlots` puts its slot's own value
+      back) and emits -1 for its remaining steps;
+    - sampling is per row (`temperature` [B], `top_k_vec` [B]; rows with
+      temperature <= 0 take the argmax, bit-identical to greedy): rows
+      flagged by `has_seed` draw token seed_pos + emitted of their Philox
+      stream, the other stochastic rows draw from `rng`.  The seed
+      operands may be None (no seeded row: no stream is computed);
+    - `max_len` clamps positions as in `decode_tokens`.
+
+    Operands may be host data or device tensors; `rows` as in
+    `decode_tokens`.  The grammar operands (`fsm_*`) are refused by name.
+    Returns (packed [B, k+1] int32 on the device: k tokens, -1 past a
+    row's stop, then the number it emitted; arena)."""
+    if any(x is not None for x in (fsm_trans, fsm_mask, fsm_accept,
+                                   fsm_state, has_fsm)):
+        raise NotImplementedError(
+            "decode_multi_step(fsm=...): grammar-constrained step groups "
+            "(structured generation) are not carried by the PyTorch port "
+            "yet")
+    if k < 1:
+        raise ValueError(f"decode_multi_step needs k >= 1, got {k}")
+    dev = arena["k"].device
+    toks, lens, tables, act, slots = _group_inputs(
+        arena, tokens, seq_lens, block_tables, active, rows)
+    temperature = _operand(temperature, dev, torch.float32)
+    top_k = _operand(top_k_vec, dev, torch.int64)
+    eos = _operand(eos_ids, dev, torch.int64)
+    budget = _operand(budget, dev, torch.int64)
+    cap = _operand(max_len, dev, torch.int64) - 1
+    u = flags = None
+    if seed_hi is not None:
+        u = _uniforms(seed_hi, seed_lo, seed_pos, k, dev)
+        flags = _operand(has_seed, dev, torch.bool)
+    lrows = None if lora is None else LoraRows.of(adapter_ids)
+    alive = torch.ones_like(act)
+    e = torch.zeros_like(lens)
+    emitted = []
+    for j in range(k):
+        live = act & alive
+        logits, arena = _group_step(cfg, params, arena, toks, lens, live,
+                                    tables, slots, lrows, lora)
+        nxt = _sample_per_row(logits, rng, temperature, top_k,
+                              has_seed=flags,
+                              uniform=None if u is None else u[:, j]).long()
+        e_next = torch.where(live, e + 1, e)
+        stop = ((eos >= 0) & (nxt == eos)) | (e_next >= budget)
+        alive = alive & ~stop
+        lens = torch.where(live, torch.minimum(lens + 1, cap), lens)
+        toks = torch.where(live, nxt, toks)
+        emitted.append(torch.where(live, nxt, -1))
+        e = e_next
+    packed = torch.cat([torch.stack(emitted, dim=1), e[:, None]], dim=1)
+    return packed.to(torch.int32), arena
 
 
 def decode_loop(core, arena, tokens, seq_lens, rng, temperature=1.0,
                 max_len=None, top_k_vec=None, *, n_steps: int,
                 mode: str = "greedy", top_k: int = 0):
-    """The burst of `decode_tokens` over any one-step core: `core(arena,
-    tokens, lens)` -> (logits [B, V] f32, arena).  Shared with the
-    tensor-parallel programs."""
+    """`decode_tokens`' burst over any one-step core planned on the host:
+    `core(arena, tokens, lens)` -> (logits [B, V] f32, arena).  The
+    tensor-parallel programs' burst."""
     lens = _host(seq_lens).astype(np.int64)
     cap = None if max_len is None else _host(max_len).astype(np.int64) - 1
     toks = tokens

@@ -45,7 +45,7 @@ from ...comm import comm
 from ...models.transformer import _norm
 from ...ops.tp_matmul import ag_matmul, matmul_rs, tile_matmul
 from .ragged_ops import (_KVSlots, _dev, _host, _kernels, _layer,
-                         _mlp_delta, _qkv, decode_loop)
+                         _mlp_delta, _operand, _qkv, decode_loop)
 
 __all__ = ["TPServingPrograms", "tp_fused_unsupported_reason"]
 
@@ -264,6 +264,10 @@ class TPServingPrograms:
         def core(arena, toks, lens):
             return self._decode_rows(params, arena, toks, lens,
                                      block_tables, active)
+        if mode == "per_row":
+            dev = arena["k"].device
+            temperature = _operand(temperature, dev, torch.float32)
+            top_k_vec = _operand(top_k_vec, dev, torch.int64)
         return decode_loop(core, arena, tokens, seq_lens, rng, temperature,
                            max_len, top_k_vec, n_steps=n_steps, mode=mode,
                            top_k=top_k)

@@ -32,12 +32,14 @@ buffers, so no call allocates but its output.
 The ids are host data (the engine plans each serving call on the host).
 The kernel groups the rows by slot; a `LoraRows` builds that grouping
 once and copies it to the card in one transfer, so a serving call makes
-one for all its layers and passes it as `adapter_ids`.
+one for all its layers and passes it as `adapter_ids`.  A captured decode
+program binds its own device buffers instead (`LoraRows.bind`), which
+the host refills before each replay.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -61,7 +63,7 @@ TWO_PASS_K_SPAN = 512
 FUSED_CTAS_PER_SM = 2
 VARIANTS = ("fused", "two_pass")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FUSED_ARGS = (_P,) * 7 + (_I,) * 10 + (_F, _I, _I, _P)
+_FUSED_ARGS = (_P,) * 7 + (_I,) * 9 + (_F, _I, _I, _P)
 _TWO_PASS_ARGS = (_P,) * 6 + (_I,) * 7 + (_F, _I, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -148,22 +150,39 @@ class LoraRows:
             np.int32).reshape(-1, 3)
         return perm, tiles, int((tiles[:, 0] < 0).sum())
 
+    def plan_host(self):
+        """(plan buffer [S + 3 T + T (4 + TILE_ROWS)] int32 numpy, tiles
+        T, base tiles): `perm`, `tiles`, then the fused kernel's tile
+        records [T, 4 + TILE_ROWS] (slot, first sorted position, rows, 0,
+        the rows' perm entries), which its producer warp reads in one
+        go."""
+        perm, tiles, n_base = self.tiles()
+        recs = np.zeros((len(tiles), 4 + TILE_ROWS), np.int32)
+        recs[:, :3] = tiles
+        for t, (_, p0, rows) in enumerate(tiles.tolist()):
+            recs[t, 4:4 + rows] = perm[p0:p0 + rows]
+        return (np.concatenate([perm, tiles.ravel(), recs.ravel()]),
+                len(tiles), n_base)
+
     def kernel_plan(self, device):
         """(plan buffer on `device`, number of tiles, base tiles), built
-        once: `perm`, `tiles`, then the fused kernel's tile records
-        [T, 4 + TILE_ROWS] (slot, first sorted position, rows, 0, the
-        rows' perm entries), which its producer warp reads in one go."""
+        and copied once (`plan_host`)."""
         device = torch.device(device)
         if self._plan is None or self._plan[0].device != device:
-            perm, tiles, n_base = self.tiles()
-            recs = np.zeros((len(tiles), 4 + TILE_ROWS), np.int32)
-            recs[:, :3] = tiles
-            for t, (_, p0, rows) in enumerate(tiles.tolist()):
-                recs[t, 4:4 + rows] = perm[p0:p0 + rows]
-            buf = np.concatenate([perm, tiles.ravel(), recs.ravel()])
-            self._plan = (torch.from_numpy(buf).to(device), len(tiles),
-                          n_base)
+            buf, n_tiles, n_base = self.plan_host()
+            self._plan = (torch.from_numpy(buf).to(device), n_tiles, n_base)
         return self._plan
+
+    def bind(self, plan: torch.Tensor, ids: torch.Tensor) -> "LoraRows":
+        """Take `plan` (int32, laid out as `plan_host`) and `ids` (int64),
+        device buffers that already hold this call's rows, as its device
+        copies: a captured decode program refills them from the host
+        before each replay, and nothing is copied inside the capture."""
+        n_tiles, n_base = self.plan_host()[1:]
+        self._plan = (plan, n_tiles, n_base)
+        self._ids_t = ids
+        return self
+
 
 
 def lora_delta_reference(x, lora_a, lora_b, adapter_ids, scaling=1.0):
@@ -236,23 +255,18 @@ def lora_delta(x, lora_a, lora_b, adapter_ids, *, scaling: float = 1.0,
     plan, n_tiles, n_base = rows.kernel_plan(x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if variant == "fused":
-        # each adapter tile's partial h [TILE_ROWS, r] per K span, and two
-        # regions of counters (work, one a tile): a call uses the region
-        # of its parity on the stream, found zero, and zeroes the other
+        # each adapter tile's partial h [TILE_ROWS, r] per K span, and the
+        # counters (work, one a tile), found zero and left zero
         hp = _scratch.buffer("lora_hp", x.device, stream, max(
             (n_tiles - n_base) * -(-K // SPAN) * TILE_ROWS * r, 1),
             torch.float32)
         ctr = _scratch.buffer("lora_ctr", x.device, stream,
-                              2 * (1 + n_tiles), torch.int32)
-        # (a new buffer is all zero: either parity may start on it)
-        calls = _fused_calls.get(ctr.data_ptr(), 0)
-        _fused_calls[ctr.data_ptr()] = calls + 1
+                              1 + n_tiles, torch.int32)
         fn = _build.function("lora_delta", "dstt_lora_delta", _FUSED_ARGS)
         rc = fn(x.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr(),
                 plan.data_ptr(), hp.data_ptr(), ctr.data_ptr(),
                 out.data_ptr(), S, K, N, r, n_tiles, n_base, TILE_ROWS, SPAN,
-                ctr.numel() // 2, calls & 1, float(scaling),
-                _DTYPES[x.dtype],
+                ctr.numel(), float(scaling), _DTYPES[x.dtype],
                 FUSED_CTAS_PER_SM * _scratch.sm_count(x.device), stream)
     else:
         # the shrink pass's partial sums, one [S, r] slab per K span
@@ -270,9 +284,6 @@ def lora_delta(x, lora_a, lora_b, adapter_ids, *, scaling: float = 1.0,
     return out
 
 
-# fused calls made on each counter buffer, by its address (their parity
-# picks the region a call uses)
-_fused_calls: Dict[int, int] = {}
 lora_delta.launches = 0
 # launches per kernel (VARIANTS), reset with `launches`
 lora_delta.launches_by_variant = dict.fromkeys(VARIANTS, 0)

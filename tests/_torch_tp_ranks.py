@@ -116,3 +116,24 @@ def serve_tp(rank, world, init, params, cfg_kw, engine_kw, prompts,
             refused[what] = str(e)
     out["refused"] = refused
     return out
+
+
+def multistep_refused_tp(rank, world, init, params, cfg_kw, engine_kw,
+                         device="cpu"):
+    """A tp=`world` fused engine's answers on multi-step groups and
+    seeded bursts: its supports_* flags and each refusal's message."""
+    comm.init_distributed(init, rank, world, device=device)
+    eng = engine(params, cfg_kw, engine_kw, device=device,
+                 tensor_parallel_size=world, tp_collectives="fused")
+    out = dict(supports=(eng.supports_multi_step,
+                         eng.supports_seeded_sampling))
+    for what, call in (
+            ("multi_step", lambda: eng.decode_multi_step(k=4)),
+            ("seeded", lambda: eng.decode_burst_step(
+                mode="sample", seeds={0: 1}, seed_positions={0: 1}))):
+        try:
+            call()
+            out[what] = None
+        except RuntimeError as e:
+            out[what] = str(e)
+    return out

@@ -417,10 +417,9 @@ def test_lora_fused_matches_plain_version_and_two_pass(card, S, K, N, r,
 
 
 def test_lora_fused_counters_return_to_zero(card):
-    """The fused kernel leaves the counter region of the next call on
-    its stream at zero (each call zeroes the region the previous one
-    used), so a call after a larger one and on a second stream gives the
-    same bits."""
+    """The fused kernel leaves its counters on its stream at zero (each
+    counter's last user zeroes it), so a call after a larger one and on a
+    second stream gives the same bits."""
     g = card
     a = _rnd(g, torch.float32, 3, 512, 8) / 512 ** 0.5
     b = _rnd(g, torch.float32, 3, 8, 256)
@@ -443,9 +442,7 @@ def test_lora_fused_counters_return_to_zero(card):
     for stream in (torch.cuda.current_stream(), side):
         ctr = _scratch.buffer("lora_ctr", torch.device("cuda"),
                               stream.cuda_stream, 1, torch.int32)
-        region = ctr.numel() // 2
-        nxt = tlora._fused_calls[ctr.data_ptr()] & 1
-        assert int(ctr[nxt * region:(nxt + 1) * region].abs().sum()) == 0
+        assert int(ctr.abs().sum()) == 0
 
 
 def test_lora_variant_refusals(card):
@@ -2010,3 +2007,224 @@ def test_tp2_greedy_chain_on_two_cards(two_cards, tmp_path):
         for u in (0, 1):
             np.testing.assert_array_equal(out["burst"][u], want["burst"][u])
         assert out["chains"] == want["chains"]
+
+
+# ----------------------------------------------------------------------
+# decode groups replayed as CUDA graphs (inference/v2/graphs.py)
+# ----------------------------------------------------------------------
+GROUP_ECFG = dict(num_blocks=64, block_size=16, max_blocks_per_seq=16,
+                  max_seqs=8, prefill_chunk_size=32,
+                  max_prefill_tokens_per_step=64)
+
+
+def _group_engines(num_layers=4, **ecfg_kw):
+    """A bf16 tiny llama (head dim 32: the paged kernels' "tma" variant)
+    on the card twice, sharing its weights: decode groups captured, and
+    the same groups run eagerly (its captured programs taken away)."""
+    cfg = get_model_config("llama", "tiny", dtype=torch.bfloat16,
+                           num_layers=num_layers)
+    ecfg = RaggedInferenceEngineConfig(**dict(GROUP_ECFG, **ecfg_kw))
+    graph = InferenceEngineV2(cfg, config=ecfg, device="cuda")
+    eager = InferenceEngineV2(cfg, params=graph.params, config=ecfg,
+                              device="cuda")
+    assert graph._programs.graphs is not None
+    eager._programs.graphs = None
+    return graph, eager
+
+
+def _stage(engines, n=4, seed=12, first_uid=0):
+    """Prefill `n` prompts in every engine (uids from `first_uid`) and
+    stage each one's greedy first token (the first engine's) as its
+    pending input."""
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, 32000, m).astype(np.int32)
+               for m in (5, 17, 40, 23)[:n]]
+    uids = list(range(first_uid, first_uid + n))
+    for eng in engines:
+        eng.put(uids, prompts, decode=False)
+        while any(eng.query(u) is None for u in uids):
+            eng.step(decode=False)
+    for u in uids:
+        first = int(np.argmax(engines[0].query(u)))
+        for eng in engines:
+            eng.state.seqs[u].generated.append(first)
+    return uids
+
+
+def _same_arena(a, b):
+    torch.cuda.synchronize()
+    return all(torch.equal(a.arena[n], b.arena[n]) for n in ("k", "v"))
+
+
+def _adapter_pools(engines, cfg, seed=4, plan=((0, "a0"), (2, "a1"))):
+    rng = np.random.RandomState(seed)
+    L, K, H = cfg.num_layers, cfg.num_heads * cfg.head_dim, cfg.hidden_size
+    factors = {f"a{i}": (rng.randn(L, K, 8) / K ** 0.5, rng.randn(L, 8, H))
+               for i in range(2)}
+    pools = []
+    for eng in engines:
+        pool = AdapterPool(eng, 4 * L)
+        for aid, (a, b) in factors.items():
+            pool.register(aid, a, b)
+        for uid, aid in plan:
+            eng.set_adapter(uid, pool.reserve(aid))
+        pools.append(pool)
+    return pools
+
+
+def test_captured_groups_equal_eager_groups(card):
+    """Greedy, EOS/budget and seeded groups and greedy and seeded bursts:
+    the captured programs give the eager functions' tokens bit for bit
+    and leave the same arena, one capture for each program key."""
+    graph, eager = _group_engines()
+    uids = _stage((graph, eager))
+    calls = [
+        ("multi", dict(uids=uids, k=8)),
+        ("multi", dict(uids=uids, k=8, eos_ids={0: 0}, max_tokens={
+            1: graph.state.seqs[1].seen_tokens + 11})),
+        ("multi", dict(uids=uids, k=8, temperature={1: 0.9, 2: 1.0},
+                       top_k={1: 20}, seeds={1: 7, 2: 2 ** 64 - 1},
+                       seed_positions={1: 17, 2: 17})),
+        ("burst", dict(uids=uids, n_steps=4)),
+        ("burst", dict(uids=uids, n_steps=4, mode="sample",
+                       temperature=0.9, top_k=20,
+                       seeds={u: 100 + u for u in uids},
+                       seed_positions={u: 28 for u in uids})),
+        ("multi", dict(uids=uids, k=8)),
+    ]
+    for what, kw in calls:
+        got, want = ((e.decode_multi_step(**kw) if what == "multi"
+                      else e.decode_burst_step(**kw))
+                     for e in (graph, eager))
+        assert sorted(got) == sorted(want)
+        for u in want:
+            assert got[u].tolist() == want[u].tolist(), (what, kw, u)
+            assert (graph.state.seqs[u].seen_tokens
+                    == eager.state.seqs[u].seen_tokens)
+        assert _same_arena(graph, eager), (what, kw)
+    g = graph._programs.graphs
+    assert g.captures == 4 and g.replays == len(calls)
+    assert graph.profile["d2h_fetches"] == eager.profile["d2h_fetches"]
+
+
+@pytest.mark.parametrize("between", ["none", "eager_lora_call"])
+def test_captured_lora_groups_with_an_odd_number_of_lora_calls(card,
+                                                               between):
+    """A 3-layer engine with adapter rows, k = 3: 9 LoRA launches a
+    replay, an odd count (a counter scheme that alternated by a host count
+    of calls would start every other replay on dirty counters); with an
+    eager LoRA call on the replay stream between two replays too (it
+    shares the graph's counter buffer).  Every replay gives the eager
+    engine's tokens, every LoRA launch is fused, and the counters are
+    zero after the last call."""
+    graph, eager = _group_engines(num_layers=3)
+    _adapter_pools((graph, eager), graph.cfg)
+    uids = _stage((graph, eager))
+    x = _rnd(card, torch.bfloat16, 5, graph.cfg.hidden_size)
+    for i in range(4):
+        before = dict(tlora.lora_delta.launches_by_variant)
+        got, want = (e.decode_multi_step(uids=uids, k=3)
+                     for e in (graph, eager))
+        for u in uids:
+            assert got[u].tolist() == want[u].tolist(), (i, u)
+        assert _same_arena(graph, eager)
+        if i:
+            # a replay (and the eager group): 9 launches each, all fused
+            assert {v: tlora.lora_delta.launches_by_variant[v] - before[v]
+                    for v in before} == {"fused": 18, "two_pass": 0}
+        if between == "eager_lora_call":
+            lora = graph._lora
+            tlora.lora_delta(x, lora["a"][0], lora["b"][0],
+                             np.array([0, -1, 1, 0, 1], np.int32))
+    assert graph._programs.graphs.captures == 1
+    from deepspeed_tpu_torch.ops import _scratch
+    torch.cuda.synchronize()
+    ctr = _scratch.buffer("lora_ctr", torch.device("cuda"),
+                          torch.cuda.current_stream().cuda_stream, 1,
+                          torch.int32)
+    assert int(ctr.abs().sum()) == 0
+
+
+def test_attach_lora_between_replays_captures_again(card):
+    graph, eager = _group_engines(num_layers=3)
+    _adapter_pools((graph, eager), graph.cfg)
+    uids = _stage((graph, eager))
+    g = graph._programs.graphs
+    for i in range(3):
+        if i == 2:
+            # new stacks (new addresses): the graphs that read the old
+            # ones are dropped, and the next group captures again
+            for e in (graph, eager):
+                e.attach_lora({n: t.clone() for n, t in e._lora.items()})
+        got, want = (e.decode_multi_step(uids=uids, k=2)
+                     for e in (graph, eager))
+        for u in uids:
+            assert got[u].tolist() == want[u].tolist()
+        assert _same_arena(graph, eager)
+    assert g.captures == 2 and g.replays == 3
+
+
+def test_launch_counters_move_per_replay(card):
+    """Per replay of a k-step group: L paged decode launches a step on
+    "tma", L fused LoRA launches a step with adapter rows; the capture
+    itself adds nothing."""
+    graph, _ = _group_engines(num_layers=3)
+    L = graph.cfg.num_layers
+    # uids 0-3 base rows only, 4-7 with adapter rows among them
+    _adapter_pools((graph,), graph.cfg, plan=((4, "a0"), (6, "a1")))
+    groups = (_stage((graph,)), _stage((graph,), first_uid=4))
+    for with_lora, uids in zip((False, True), groups):
+        graph.decode_multi_step(uids=uids, k=4)      # warm-up + capture
+        before = (tdecode.paged_decode_attention.launches,
+                  dict(tdecode.paged_decode_attention.launches_by_variant),
+                  dict(tlora.lora_delta.launches_by_variant))
+        graph.decode_multi_step(uids=uids, k=4)
+        torch.cuda.synchronize()
+        assert tdecode.paged_decode_attention.launches - before[0] == 4 * L
+        assert (tdecode.paged_decode_attention.launches_by_variant["tma"]
+                - before[1]["tma"]) == 4 * L
+        assert (tlora.lora_delta.launches_by_variant["fused"]
+                - before[2]["fused"]) == (4 * L if with_lora else 0)
+
+
+def test_unseeded_replays_draw_fresh_numbers(card):
+    """Two replays of one unseeded stochastic group on the same arena and
+    operands draw different tokens (the engine's generator is registered
+    with the graph and advances); a seeded group replays the same."""
+    graph, _ = _group_engines()
+    uids = _stage((graph,))
+    g = graph._programs.graphs
+    B, MB = GROUP_ECFG["max_seqs"], GROUP_ECFG["max_blocks_per_seq"]
+    tokens = np.zeros(B, np.int32)
+    lens = np.zeros(B, np.int32)
+    tables = np.zeros((B, MB), np.int32)
+    active = np.zeros(B, bool)
+    for i, u in enumerate(uids):
+        d = graph.state.seqs[u]
+        graph.state.ensure_capacity(d, d.seen_tokens + 8)
+        tokens[i], lens[i] = d.generated[-1], d.seen_tokens
+        tables[i], active[i] = graph.state.block_table(d), True
+    snap = {n: t.clone() for n, t in graph.arena.items()}
+    ops = dict(temperature=np.where(active, 1.0, 0.0).astype(np.float32),
+               max_len=lens + 8, top_k_vec=np.zeros(B, np.int32),
+               eos_ids=np.full(B, -1, np.int32),
+               budget=np.where(active, 8, 0).astype(np.int32))
+    runs = {}
+    for seeded in (False, True):
+        skw = {} if not seeded else dict(
+            seed_hi=np.full(B, 3), seed_lo=np.full(B, 9),
+            seed_pos=np.full(B, 1), has_seed=active.copy())
+        outs = []
+        for _ in range(2):
+            for n in ("k", "v"):
+                graph.arena[n].copy_(snap[n])
+            state = graph._rng.get_state()
+            packed, _ = g.decode_multi_step(
+                graph.params, graph.arena, tokens, lens, tables, active,
+                graph._rng, ops["temperature"], ops["max_len"],
+                ops["top_k_vec"], ops["eos_ids"], ops["budget"], k=8, **skw)
+            outs.append(packed.cpu().numpy()[:len(uids)])
+            assert seeded or not torch.equal(state, graph._rng.get_state())
+        runs[seeded] = outs
+    assert (runs[False][0][:, :8] != runs[False][1][:, :8]).any()
+    np.testing.assert_array_equal(runs[True][0], runs[True][1])

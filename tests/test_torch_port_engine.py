@@ -12,7 +12,9 @@ same number of device-to-host fetches after every step — and the same
 greedy token chains.
 
 Also here: the entry points default to the card (and raise without one),
-and every feature the port does not carry yet is refused by name.
+and every feature the port does not carry yet is refused by name (the
+"seeded" and "multi_step" cases now hold what stays refused beside those
+features: drafts with seeds, and grammar automata on a step group).
 """
 import jax
 import jax.numpy as jnp
@@ -165,8 +167,13 @@ def test_engine_refuses_features_not_ported(what):
             if what == "prefix_cache":
                 eng.enable_prefix_cache(8)
             elif what == "seeded":
-                eng.decode_burst_step(seeds={0: 1})
+                # seeded streams are carried; draft-and-verify is not,
+                # with seeds or without
+                eng.decode_burst_step(mode="sample", seeds={0: 1},
+                                      seed_positions={0: 1},
+                                      drafts={0: [1, 2]})
             elif what == "drafts":
                 eng.decode_burst_step(drafts={0: [1, 2]})
             else:
-                eng.decode_multi_step()
+                # multi-step groups are carried; grammar automata are not
+                eng.decode_multi_step(fsm=object(), fsm_states={0: 0})
