@@ -122,6 +122,26 @@ Phases (any failure exits non-zero and prints no result):
      5-D tokens.  The path's launches (the kernels line's `multi_step`)
      are those of the captured engines' groups, each counted from 0 just
      before it and read just after; the eager controls' are not.
+ 15. (run after phase 14, before phase 10) the architectures, bf16,
+     random seeded weights at their published widths: Mistral-7B at
+     `--layers` (32: full depth; window 4096, 8 prompts, two of 4600
+     tokens whose decode crosses the window), Bloom-7b1 (ALiBi, embedding
+     norm), Falcon-7B (71 q heads on one kv head, parallel residual) and
+     a Falcon-RW-7B-style model (ALiBi before the score scale, sequential
+     blocks) at full width and 4 layers, OPT-350m at full depth (post-
+     norm, its 512-wide embedding projected in and out).  Each run:
+     put/step prefill, one decode step, a greedy `decode_burst_step` and
+     a captured `decode_multi_step(k=8)`, counted (every paged launch on
+     "tma", none of the plain versions); its logits against the same
+     engine with `plain_kernels=True` within phase 3's limit; a profiled
+     rerun's device time and the idle share against the run's wall; an
+     f32 run at 4 layers whose greedy chains of 16 tokens must equal the
+     plain engine's (a differing token at a plain top-2 margin below
+     ARCH_F32_TIE is printed, past it the run fails).  Then Mistral-7B at
+     4 layers on the merged arena (rows 6 and 7), equal to the 5-D
+     engine's, and `build_hf_engine` on the card from an HF config
+     namespace and a state dict (no `transformers` there).  The kernels
+     line's `archs` path counts the served runs and the merged run.
 Every profile must hold each launch the kernels' counters saw in it (a
 session that dropped device events is repeated).  The bf16 paged prefill
 and decode run on their TMA kernels (`variant` "tma"): phase 1 holds them
@@ -129,6 +149,14 @@ over block sizes 16-128, groups 1-8, head dims 32-128, windows, ragged
 lens and chunks, reruns bit-identical, beside the mma.sync kernels they
 replaced (timed in the same call); phases 2-4, 8, 9, 13 and 14 fail on a
 paged launch off "tma".
+Phase 1 also holds the paged kernels with a sliding window (None, 1,
+100, 4096), ALiBi slopes (off, bloom's, falcon-rw's) and groups of 1, 4,
+8 and 71 at D 64 and 128, bf16 on the TMA and mma.sync kernels and f32,
+the merged view bit for bit the 5-D kernels; it times Mistral-7B's
+decode (six of 8 rows past the window) with and without the window (the
+windowed walk must read fewer key tiles and take less time), Falcon-7B's
+group-71 decode and Bloom-7b1's prefill with ALiBi, each beside its
+bound.
 Phase 1 also holds the gather-LoRA kernel (the fused one-launch kernel
 and the two-pass kernel it replaced, in the same call: the wave's decode,
 prefill and 2048-row shapes, ranks 1-128, K off the 16-byte grain, one
@@ -1573,6 +1601,244 @@ def remat_launches(torch, np, layers, counters, first_loss):
 # ----------------------------------------------------------------------
 # phases 2 and 3: the serving path
 # ----------------------------------------------------------------------
+# ----------------------------------------------------------------------
+# phase 1: the paged kernels' sliding window, ALiBi bias and groups above 8
+# ----------------------------------------------------------------------
+# f32 kernels vs their plain versions: summation order only
+PAGED_F32_TOL = 1e-4
+# decode (NH, NKV, D, bs, lens, window, alibi): Bloom-7b1, Mistral-7B
+# (two rows past its 4096 window, one at its edge), Falcon-7B's 71 q heads
+# on one kv head, group 8, D 64; windows None, 1, 100, 4096; ALiBi off,
+# bloom's slopes, falcon-rw's (divided by sqrt(D))
+FEATURE_DECODE = [
+    (32, 32, 128, 64, [36, 63, 95, 127, 199, 310, 499, 1499], None,
+     "bloom"),
+    (32, 8, 128, 64, [4599, 4650, 4095, 4096, 36, -1, 499, 1499], 4096,
+     None),
+    (32, 8, 128, 64, [4599, 311, 100, 99, 5, -1, 64, 0], 100, "falcon"),
+    (64, 8, 128, 128, [1000, 3000, 5, 0], 1, "bloom"),
+    (71, 1, 64, 64, [36, 63, 95, 127, 199, 310, 499, 1499], None, None),
+    (71, 1, 64, 64, [36, -1, 95, 1999], 100, "falcon"),
+    (16, 16, 64, 16, [5, 40, -1, 333, 1000], 100, "bloom"),
+    (32, 4, 64, 32, [-1, 0, 31, 32, 1000, 2047], None, "falcon")]
+# prefill (C, NH, NKV, D, pos0, n_valid, window, bs, alibi)
+FEATURE_PREFILL = [
+    (256, 32, 32, 128, 1024, 256, None, 64, "bloom"),
+    (256, 32, 8, 128, 4500, 256, 4096, 64, None),
+    (64, 32, 8, 128, 300, 64, 100, 64, "falcon"),
+    (256, 71, 1, 64, 0, 200, None, 64, None),
+    (128, 71, 1, 64, 100, 100, 1, 64, "falcon"),
+    (70, 16, 16, 64, 100, 61, None, 16, "bloom"),
+    (70, 64, 8, 128, 100, 61, 100, 128, "bloom")]
+# phase 1's timed shapes: Mistral-7B's decode (8 rows in its 8192-token
+# context, six past its 4096 window), Falcon-7B's decode at the wave's
+# positions
+MISTRAL_LENS = [8100, 8000, 7000, 6000, 4600, 4600, 300, 36]
+
+
+def slopes_of(torch, NH, D, kind, dev):
+    """ALiBi slopes [NH] f32 on `dev`: bloom's (after the 1/sqrt(D)
+    scale), falcon-rw's (before it: divided by sqrt(D)), or None."""
+    if kind is None:
+        return None
+    from deepspeed_tpu_torch.models import get_model_config
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+    cfg = get_model_config("bloom", "tiny", hidden_size=NH * D,
+                           num_heads=NH, alibi_scaled=kind == "falcon")
+    return torch.from_numpy(alibi_slopes(cfg)).to(dev)
+
+
+def feature_close(out, ref):
+    """bf16: `kernel_close`; f32: within PAGED_F32_TOL (1 + |plain|)."""
+    import torch
+    if out.dtype == torch.float32:
+        return bool(((out - ref).abs()
+                     <= PAGED_F32_TOL * (1 + ref.abs())).all())
+    return kernel_close(out, ref)
+
+
+def _feature_run(torch, what, variants, call, ref, rows=None):
+    """Each variant's output against `ref` (first `rows` rows), rerun bit
+    for bit; returns (max error, {variant: error})."""
+    errs = {}
+    for v in variants:
+        out, again = call(v), call(v)
+        torch.cuda.synchronize()
+        o, r = (out, ref) if rows is None else (out[:rows], ref[:rows])
+        errs[v] = max_err(o, r)
+        if not (feature_close(o, r) and torch.equal(out, again)):
+            fail(f"{what} ({v}) disagrees with its plain version: "
+                 f"{errs[v]} (bf16 tol {TOL_TEXT}, f32 {PAGED_F32_TOL}), "
+                 f"rerun equal: {torch.equal(out, again)}")
+    return errs
+
+
+def check_paged_features(torch, np, pa, pp, pm, dev):
+    """The paged decode and prefill kernels with a sliding window, ALiBi
+    slopes and GQA groups above 8 against their plain versions: every
+    case on the rule's kernel ("tma" at bf16, "f32" at f32) and on the
+    mma.sync kernels (`variant="mma"`), reruns bit for bit, the merged
+    wrappers on the same bytes bit for bit the 5-D kernels.  Then the
+    timed shapes: Mistral-7B's decode with and without its window (the
+    windowed walk must read fewer key tiles and take less time), Falcon-7B's
+    group-71 decode, Bloom-7b1's prefill with and without ALiBi.  Returns
+    ({decode row keys}, {prefill row keys})."""
+    rng = np.random.RandomState(18)
+    g = torch.Generator(device=dev).manual_seed(18)
+    worst = {"decode": 0.0, "prefill": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        variants = ("tma", "mma") if dtype == torch.bfloat16 else ("f32",)
+        for NH, NKV, D, bs, lens_l, win, al in FEATURE_DECODE:
+            B, MB = len(lens_l), 5120 // bs
+            nb = sum(max(n, 0) // bs + 1 for n in lens_l) + 4
+            ak, av = (torch.randn(2, nb, bs, NKV, D, generator=g, device=dev,
+                                  dtype=dtype) for _ in range(2))
+            q = torch.randn(B, NH, D, generator=g, device=dev, dtype=dtype)
+            lens_np = np.asarray(lens_l, np.int32)
+            tables = torch.from_numpy(_garbage_tables(
+                np, rng, B, MB, nb, bs, lens_np)).to(dev)
+            lens = torch.from_numpy(lens_np).to(dev)
+            sl = slopes_of(torch, NH, D, al, dev)
+            args = (q, ak, av, tables, lens)
+            kw = dict(layer_idx=1, sliding_window=win, alibi_slopes=sl)
+            ref = pa.paged_decode_reference(*args, **kw)
+            if pa.decode_variant(dtype, D, bs, NH // NKV, B) != variants[0]:
+                fail(f"paged decode at {(NH, NKV, D, bs)} {dtype} takes "
+                     f"{pa.decode_variant(dtype, D, bs, NH // NKV, B)}")
+            errs = _feature_run(
+                torch, f"paged_decode {(NH, NKV, D, bs, win, al)} {dtype}",
+                variants, lambda v: pa.paged_decode_attention(
+                    *args, variant=v, **kw), ref)
+            mk, mv = (t.view(*t.shape[:3], NKV * D) for t in (ak, av))
+            merged = pm.merged_decode_attention(q, mk, mv, tables, lens,
+                                                **kw)
+            same = torch.equal(merged, pa.paged_decode_attention(*args,
+                                                                 **kw))
+            print(f"  paged_decode B={B} NH={NH} NKV={NKV} D={D} bs={bs} "
+                  f"window={win} alibi={al} {str(dtype)[6:]}: max|dout| "
+                  + ", ".join(f"{v} {e:.3e}" for v, e in errs.items())
+                  + f"; merged == 5-D: {same}")
+            if not same:
+                fail(f"merged decode != 5-D decode at {(NH, NKV, D, bs)}")
+            worst["decode"] = max(worst["decode"], *errs.values())
+        for C, NH, NKV, D, pos0, nv, win, bs, al in FEATURE_PREFILL:
+            MB = 5120 // bs
+            nb = (pos0 + nv) // bs + 8
+            ak, av = (torch.randn(2, nb, bs, NKV, D, generator=g, device=dev,
+                                  dtype=dtype) for _ in range(2))
+            q = torch.randn(C, NH, D, generator=g, device=dev, dtype=dtype)
+            table = torch.from_numpy(_garbage_tables(
+                np, rng, 1, MB, nb, bs, np.asarray([pos0 + nv - 1]))[0]
+            ).to(dev)
+            sl = slopes_of(torch, NH, D, al, dev)
+            args = (q, ak, av, table, pos0, nv)
+            kw = dict(sliding_window=win, layer_idx=1, alibi_slopes=sl)
+            ref = pp.paged_prefill_reference(*args, **kw)
+            case = (C, NH, NKV, D, pos0, nv, win, bs, al)
+            errs = _feature_run(
+                torch, f"paged_prefill {case} {dtype}", variants,
+                lambda v: pp.paged_prefill_attention(*args, variant=v, **kw),
+                ref, rows=nv)
+            mk, mv = (t.view(*t.shape[:3], NKV * D) for t in (ak, av))
+            same = torch.equal(
+                pm.merged_prefill_attention(q, mk, mv, table, pos0, nv, **kw),
+                pp.paged_prefill_attention(*args, **kw))
+            print(f"  paged_prefill C={C} NH={NH} NKV={NKV} D={D} pos0={pos0}"
+                  f" n_valid={nv} window={win} bs={bs} alibi={al} "
+                  f"{str(dtype)[6:]}: max|dout| "
+                  + ", ".join(f"{v} {e:.3e}" for v, e in errs.items())
+                  + f"; merged == 5-D: {same}")
+            if not same:
+                fail(f"merged prefill != 5-D prefill at {(C, NH, NKV, D)}")
+            worst["prefill"] = max(worst["prefill"], *errs.values())
+
+    # Mistral-7B decode: 8 rows, six past the 4096 window
+    NH, NKV, D, bs, W = 32, 8, 128, 64, 4096
+    lens_np = np.asarray(MISTRAL_LENS, np.int32)
+    B, MB = lens_np.size, 8192 // bs
+    nb = sum(int(n) // bs + 1 for n in lens_np) + 4
+    ak, av = (torch.randn(2, nb, bs, NKV, D, generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    q = torch.randn(B, NH, D, generator=g, device=dev, dtype=torch.bfloat16)
+    tables = torch.from_numpy(_garbage_tables(np, rng, B, MB, nb, bs,
+                                              lens_np)).to(dev)
+    args = (q, ak, av, tables, torch.from_numpy(lens_np).to(dev))
+    ctas = pa.tma_ctas(D, NH // NKV, B)
+    tiles_w = sum(pa.decode_work(lens_np, NKV, MB, bs, ctas,
+                                 window=W).tiles_per_cta)
+    tiles_f = sum(pa.decode_work(lens_np, NKV, MB, bs, ctas).tiles_per_cta)
+    win_ms = time_ms(lambda: pa.paged_decode_attention(
+        *args, layer_idx=1, sliding_window=W))
+    full_ms = time_ms(lambda: pa.paged_decode_attention(*args, layer_idx=1))
+    win_plain = time_ms(lambda: pa.paged_decode_reference(
+        *args, layer_idx=1, sliding_window=W))
+    keys = int(np.minimum(lens_np + 1, W).sum())
+    w_bound, w_by = bound_ms(4 * NH * D * keys, 2 * keys * NKV * D * 2
+                             + 2 * 2 * B * NH * D + 4 * B * MB + 4 * B)
+    print(f"  paged_decode at Mistral-7B's shape (q [{B},{NH},{D}], lens "
+          f"{lens_np.tolist()}, window {W}): {win_ms:.4f} ms over {tiles_w}"
+          f" key tiles vs {full_ms:.4f} ms over {tiles_f} without the "
+          f"window; bound over the window's {keys} keys {w_bound:.4f} ms "
+          f"({w_by}); plain {win_plain:.4f} ms")
+    if not (tiles_w < tiles_f and win_ms < full_ms):
+        fail(f"a windowed decode past its window read {tiles_w} tiles in "
+             f"{win_ms} ms, the unwindowed {tiles_f} in {full_ms} ms")
+    window_row = dict(shape=f"q [{B},{NH},{D}] arena [2,{nb},{bs},{NKV},{D}]"
+                            f" bf16, lens {lens_np.tolist()}, window {W}",
+                      ms=win_ms, no_window_ms=full_ms, plain_ms=win_plain,
+                      bound_ms=w_bound, bound_by=w_by, key_tiles=tiles_w,
+                      no_window_key_tiles=tiles_f)
+
+    # Falcon-7B decode: 71 q heads on one kv head, the wave's positions
+    NH, NKV, D = 71, 1, 64
+    lens_np = np.asarray(WAVE_LENS, np.int32)
+    B, MB = lens_np.size, 32
+    nb = sum(int(n) // bs + 1 for n in lens_np) + 4
+    ak, av = (torch.randn(2, nb, bs, NKV, D, generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    q = torch.randn(B, NH, D, generator=g, device=dev, dtype=torch.bfloat16)
+    tables = torch.from_numpy(_garbage_tables(np, rng, B, MB, nb, bs,
+                                              lens_np)).to(dev)
+    args = (q, ak, av, tables, torch.from_numpy(lens_np).to(dev))
+    g_ms = time_ms(lambda: pa.paged_decode_attention(*args, layer_idx=1))
+    g_mma = time_ms(lambda: pa.paged_decode_attention(*args, layer_idx=1,
+                                                      variant="mma"))
+    g_plain = time_ms(lambda: pa.paged_decode_reference(*args, layer_idx=1))
+    keys = int((lens_np + 1).sum())
+    g_bound, g_by = bound_ms(4 * NH * D * keys, 2 * keys * NKV * D * 2
+                             + 2 * 2 * B * NH * D + 4 * B * MB + 4 * B)
+    print(f"  paged_decode at Falcon-7B's shape (q [{B},{NH},{D}], one kv "
+          f"head, {pa.group_passes(NH)[1]} passes, lens {WAVE_LENS}): tma "
+          f"{g_ms:.4f} ms, mma.sync {g_mma:.4f} ms, plain {g_plain:.4f} ms,"
+          f" bound {g_bound:.4f} ms ({g_by})")
+    g71_row = dict(shape=f"q [{B},{NH},{D}] arena [2,{nb},{bs},1,{D}] bf16,"
+                         f" lens {WAVE_LENS}",
+                   ms=g_ms, mma_ms=g_mma, plain_ms=g_plain, bound_ms=g_bound,
+                   bound_by=g_by)
+
+    # Bloom-7b1 prefill with ALiBi at phase 1's main shape
+    dec, pre = paged_main_inputs(torch, np, dev)
+    sl = slopes_of(torch, 32, 128, "bloom", dev)
+    a_ms = time_ms(lambda: pp.paged_prefill_attention(*pre, layer_idx=1,
+                                                      alibi_slopes=sl))
+    n_ms = time_ms(lambda: pp.paged_prefill_attention(*pre, layer_idx=1))
+    a_plain = time_ms(lambda: pp.paged_prefill_reference(
+        *pre, layer_idx=1, alibi_slopes=sl))
+    a_bound, a_by = bound_ms(*_prefill_work(256, 32, 32, 128, 1024, 256,
+                                            None))
+    print(f"  paged_prefill at Bloom-7b1's shape (q [256,32,128], pos0 1024)"
+          f": with ALiBi {a_ms:.4f} ms, without {n_ms:.4f} ms, plain "
+          f"{a_plain:.4f} ms, bound {a_bound:.4f} ms ({a_by})")
+    alibi_row = dict(shape="q [256,32,128] arena [2,256,64,32,128] bf16, "
+                           "pos0=1024 n_valid=256, bloom slopes",
+                     ms=a_ms, no_alibi_ms=n_ms, plain_ms=a_plain,
+                     bound_ms=a_bound, bound_by=a_by)
+    return (dict(features_max_abs_err=worst["decode"],
+                 mistral_window=window_row, falcon_group71=g71_row),
+            dict(features_max_abs_err=worst["prefill"],
+                 bloom_alibi=alibi_row))
+
+
 def sync(torch, dev="cuda"):
     """Wait for `dev`'s queued work (nothing to wait for on the CPU)."""
     if torch.device(dev).type == "cuda":
@@ -2507,6 +2773,368 @@ def multi_step_path(torch, np, cfg, params, config, prompts, counters, lm,
                 profiled_group_wall_ms=prof_wall[-1] * 1e3,
                 per_replay=per_replay, lora_launches=lora_launches,
                 merged_per_replay=per_merged)
+
+
+# ----------------------------------------------------------------------
+# phase 15: the architectures (mistral, bloom, falcon, falcon-rw, opt)
+# ----------------------------------------------------------------------
+# Mistral-7B's prompts: two of 4600 tokens, whose decode crosses its 4096
+# window (the other architectures take phase 2's PROMPT_LENS)
+MISTRAL_PROMPTS = [37, 64, 96, 128, 200, 311, 4600, 4600]
+# its engine: 80 blocks of 64 keys a sequence holds 4600 + the decode
+MISTRAL_ENGINE = dict(num_blocks=256, block_size=64, max_blocks_per_seq=80)
+ARCH_BURST = 8            # decode_burst_step's tokens
+ARCH_K = 8                # decode_multi_step's group
+ARCH_F32_LAYERS = 4
+ARCH_F32_STEPS = 16
+# f32 kernel vs plain engines: a greedy step whose plain top-2 margin is
+# below this may go either way (the two engines' logits differ by about
+# 1e-5 at f32); a differing token past it fails
+ARCH_F32_TIE = 1e-3
+
+
+def arch_models(layers):
+    """(name, family, size, overrides, prompt lens, engine overrides):
+    Mistral-7B at `layers` (32: full depth), Bloom-7b1, Falcon-7B and a
+    Falcon-RW-7B-style model (its published widths: 71 heads of 64, one kv
+    head each, sequential blocks, ALiBi before the score scale) at full
+    width and 4 layers, OPT-350m at full depth (24 layers of 1024, 16
+    heads, its 512-wide embedding projected in and out, post-norm, no
+    final norm)."""
+    return [
+        ("mistral-7b", "mistral", "7b", dict(num_layers=layers),
+         MISTRAL_PROMPTS, MISTRAL_ENGINE),
+        ("bloom-7b1", "bloom", "7b", dict(num_layers=4), PROMPT_LENS, {}),
+        ("falcon-7b", "falcon", "7b", dict(num_layers=4), PROMPT_LENS, {}),
+        ("falcon-rw-7b", "falcon", "7b",
+         dict(num_layers=4, num_kv_heads=71, pos_emb="alibi",
+              alibi_scaled=True, parallel_residual=False), PROMPT_LENS, {}),
+        ("opt-350m", "opt", "1.3b",
+         dict(hidden_size=1024, num_layers=24, num_heads=16,
+              intermediate_size=4096, embed_proj_dim=512, post_norm=True,
+              final_norm=False), PROMPT_LENS, {})]
+
+
+def arch_serve(np, e, prompts, burst=True):
+    """put/step prefill of every prompt, one decode step through put (fed
+    each request's greedy first token), then, with `burst`, a greedy
+    `decode_burst_step` of ARCH_BURST tokens and a greedy captured
+    `decode_multi_step(k=ARCH_K)`; every request flushed.  Returns
+    ({uid: first-token logits}, {uid: second-token logits}, {uid: burst
+    and group tokens})."""
+    uids = list(range(len(prompts)))
+    e.put(uids, prompts)
+    while any(e.query(u) is None for u in uids):
+        e.step()
+    first = {u: e.query(u).copy() for u in uids}
+    e.put(uids, [np.asarray([int(first[u].argmax())], np.int32)
+                 for u in uids])
+    second = {u: e.query(u).copy() for u in uids}
+    tokens = {}
+    if burst:
+        for u in uids:
+            e.state.seqs[u].generated.append(int(second[u].argmax()))
+        got = e.decode_burst_step(uids=uids, n_steps=ARCH_BURST)
+        group = e.decode_multi_step(uids=uids, k=ARCH_K)
+        tokens = {u: np.concatenate([np.asarray(got[u]),
+                                     np.asarray(group[u])]) for u in uids}
+    for u in uids:
+        e.flush(u)
+    return first, second, tokens
+
+
+def arch_plain_logits(np, e, prompts, first):
+    """The plain engine's first- and second-token logits, fed the kernel
+    run's first tokens."""
+    uids = list(range(len(prompts)))
+    e.put(uids, prompts)
+    while any(e.query(u) is None for u in uids):
+        e.step()
+    got = {u: e.query(u).copy() for u in uids}
+    e.put(uids, [np.asarray([int(first[u].argmax())], np.int32)
+                 for u in uids])
+    second = {u: e.query(u).copy() for u in uids}
+    for u in uids:
+        e.flush(u)
+    return got, second
+
+
+def greedy_chain(np, e, prompts, n):
+    """n greedy tokens per request, one decode step a token through put:
+    ({uid: tokens}, {uid: [logits rows]})."""
+    uids = list(range(len(prompts)))
+    e.put(uids, prompts)
+    while any(e.query(u) is None for u in uids):
+        e.step()
+    rows = {u: [e.query(u).copy()] for u in uids}
+    toks = {u: [] for u in uids}
+    for _ in range(n):
+        nxt = [int(rows[u][-1].argmax()) for u in uids]
+        for u, t in zip(uids, nxt):
+            toks[u].append(t)
+        e.put(uids, [np.asarray([t], np.int32) for t in nxt])
+        for u in uids:
+            rows[u].append(e.query(u).copy())
+    for u in uids:
+        e.flush(u)
+    return toks, rows
+
+
+def arch_f32(torch, np, name, family, size, kw, prompts, ecfg):
+    """The f32 check at ARCH_F32_LAYERS layers: the kernel and plain
+    engines' greedy chains over ARCH_F32_STEPS steps must be equal; a
+    differing token where the plain top-2 margin is below ARCH_F32_TIE is
+    printed, past it the run fails.  Returns the smallest plain margin."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  build_engine)
+    eng = build_engine(family, size, dtype=torch.float32, device="cuda",
+                       engine_config=ecfg,
+                       **dict(kw, num_layers=ARCH_F32_LAYERS))
+    plain = InferenceEngineV2(eng.cfg, params=eng.params, config=eng.config,
+                              device="cuda", plain_kernels=True)
+    got, _ = greedy_chain(np, eng, prompts, ARCH_F32_STEPS)
+    want, rows = greedy_chain(np, plain, prompts, ARCH_F32_STEPS)
+    del eng, plain
+    low = float("inf")
+    for u in want:
+        for j, row in enumerate(rows[u][:ARCH_F32_STEPS]):
+            top2 = np.sort(row)[-2:]
+            margin = float(top2[1] - top2[0])
+            low = min(low, margin)
+            if got[u][j] != want[u][j]:
+                if margin > ARCH_F32_TIE:
+                    fail(f"phase 15: {name} f32: request {u} step {j}: "
+                         f"kernel token {got[u][j]} != plain {want[u][j]} "
+                         f"(plain top-2 margin {margin:.3e})")
+                print(f"phase 15: {name} f32: request {u} step {j}: tokens"
+                      f" differ at a near-tie (plain top-2 margin "
+                      f"{margin:.3e} < {ARCH_F32_TIE})")
+                break
+    print(f"phase 15: {name} f32, {ARCH_F32_LAYERS} layers: greedy chains "
+          f"of {ARCH_F32_STEPS} tokens equal for requests "
+          f"{[u for u in want if got[u] == want[u]]} of {len(want)}; "
+          f"smallest plain top-2 margin {low:.3e}")
+    return low
+
+
+def arch_run(torch, np, name, family, size, kw, lens, ekw, counters):
+    """One architecture's run (see the module docstring).  Returns its
+    record, launches included."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig,
+                                                  build_engine)
+    t0 = time.perf_counter()
+    ecfg = RaggedInferenceEngineConfig(**ekw)
+    eng = build_engine(family, size, dtype=torch.bfloat16, device="cuda",
+                       engine_config=ecfg, **kw)
+    torch.cuda.synchronize()
+    cfg = eng.cfg
+    rng = np.random.RandomState(15)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    print(f"phase 15: {name} (H={cfg.hidden_size}, L={cfg.num_layers}, "
+          f"NH={cfg.num_heads}, NKV={cfg.kv_heads}, D={cfg.head_dim}, "
+          f"FFN={cfg.ffn_dim}, V={cfg.vocab_size}, pos {cfg.pos_emb}"
+          f"{' scaled' if cfg.alibi_scaled else ''}, window "
+          f"{cfg.sliding_window}, post_norm {cfg.post_norm}, parallel "
+          f"residual {cfg.parallel_residual}) bf16, random weights (seed 0) "
+          f"built in {time.perf_counter() - t0:.1f} s; prompts {lens}")
+    launches = {}
+    out = {}
+
+    def served():
+        out["run"] = arch_serve(np, eng, prompts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counted(counters, served, launches)()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    variants = by_variant(counters)
+    paged_on_tma(counters, f"phase 15 ({name})")
+    first, second, tokens = out["run"]
+    for c in counters:
+        if c.__name__ in ("paged_decode_attention",
+                          "paged_prefill_attention") and c.launches <= 0:
+            fail(f"phase 15: {name}: {c.__name__} was never launched")
+    for u, t in tokens.items():
+        if (t.shape != (ARCH_BURST + ARCH_K,) or t.min() < 0
+                or t.max() >= cfg.vocab_size):
+            fail(f"phase 15: {name}: bad tokens for request {u}: {t}")
+    plain = InferenceEngineV2(cfg, params=eng.params, config=eng.config,
+                              device="cuda", plain_kernels=True)
+    want = arch_plain_logits(np, plain, prompts, first)
+    del plain
+    rels = logit_differences(np, (first, second), want)
+    worst = max(max(rels[0]), max(rels[1]))
+    print(f"phase 15: {name}: kernel vs plain engine max |dlogit| / max "
+          f"|logit|: first token {[float(f'{r:.3e}') for r in rels[0]]}, "
+          f"second {[float(f'{r:.3e}') for r in rels[1]]} (tol "
+          f"{E2E_REL_TOL})")
+    if worst > E2E_REL_TOL:
+        fail(f"phase 15: {name}: logits differ by {worst} relative (tol "
+             f"{E2E_REL_TOL})")
+    prof_launches = {}
+    events = profiled(counted(counters, lambda: arch_serve(np, eng, prompts),
+                              prof_launches),
+                      holds_launches(prof_launches),
+                      what=f"kernels of {name}'s run")
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    idle = 1 - busy / (wall * 1e3)
+    print(f"phase 15: {name}: run in {wall * 1e3:.1f} ms wall, device time "
+          f"{busy:.1f} ms (profiled rerun), idle share {idle:.3f}; launches "
+          f"{ {k: v for k, v in launches.items() if '/' not in k} }; by "
+          f"variant {variants}")
+    del eng
+    torch.cuda.empty_cache()
+    f32_lens = lens[::2]
+    f32_prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in f32_lens]
+    margin = arch_f32(torch, np, name, family, size, kw, f32_prompts, ecfg)
+    torch.cuda.empty_cache()
+    return dict(launches={k: v for k, v in launches.items() if "/" not in k},
+                launches_by_variant=variants, wall_ms=wall * 1e3,
+                device_ms=busy, idle_share=idle, e2e_max_rel_dlogit=worst,
+                f32_min_top2_margin=margin)
+
+
+def arch_merged(torch, np, counters):
+    """Mistral-7B at 4 layers on the merged arena [L, nb, bs, NKV*D]: the
+    merged wrappers (rows 6 and 7) with its window, their logits equal to
+    a 5-D engine's with the same parameters, bit for bit."""
+    from deepspeed_tpu_torch.inference.v2 import (RaggedInferenceEngineConfig,
+                                                  build_engine)
+    rng = np.random.RandomState(16)
+    lens = MISTRAL_PROMPTS[::3]
+    prompts = [rng.randint(0, 32000, n).astype(np.int32) for n in lens]
+    five = build_engine("mistral", "7b", dtype=torch.bfloat16,
+                        device="cuda", num_layers=4,
+                        engine_config=RaggedInferenceEngineConfig(
+                            **MISTRAL_ENGINE))
+    merged = build_engine("mistral", "7b", params=five.params,
+                          dtype=torch.bfloat16, device="cuda", num_layers=4,
+                          engine_config=RaggedInferenceEngineConfig(
+                              arena_merged=True, **MISTRAL_ENGINE))
+    launches = {}
+    out = {}
+
+    def run():
+        out["merged"] = arch_serve(np, merged, prompts)
+    counted(counters, run, launches)()
+    variants = by_variant(counters)
+    paged_on_tma(counters, "phase 15 (merged)")
+    want = arch_serve(np, five, prompts)
+    got = out["merged"]
+    same = all(np.array_equal(got[i][u], want[i][u])
+               for i in range(3) for u in want[i])
+    print(f"phase 15: mistral-7b, 4 layers, merged arena "
+          f"{tuple(merged.arena['k'].shape)}: logits and tokens equal to the "
+          f"5-D engine's: {same}; launches by variant {variants}")
+    for name in ("merged_decode_attention", "merged_prefill_attention"):
+        if launches.get(name, 0) <= 0:
+            fail(f"phase 15: {name} was never launched")
+    if not same:
+        fail("phase 15: the merged arena's logits differ from the 5-D's")
+    return dict(launches={k: v for k, v in launches.items() if "/" not in k},
+                launches_by_variant=variants)
+
+
+def hf_state_dict(torch, c, g):
+    """A random HF llama-family state dict (seeded generator) for the
+    namespace config `c`: the names and [out, in] shapes of HF's
+    checkpoints."""
+    H, D = c.hidden_size, c.hidden_size // c.num_attention_heads
+    NKV = c.num_key_value_heads
+    shapes = {"model.embed_tokens.weight": (c.vocab_size, H),
+              "model.norm.weight": (H,), "lm_head.weight": (c.vocab_size, H)}
+    for i in range(c.num_hidden_layers):
+        p = f"model.layers.{i}."
+        shapes.update({
+            p + "input_layernorm.weight": (H,),
+            p + "post_attention_layernorm.weight": (H,),
+            p + "self_attn.q_proj.weight": (H, H),
+            p + "self_attn.k_proj.weight": (NKV * D, H),
+            p + "self_attn.v_proj.weight": (NKV * D, H),
+            p + "self_attn.o_proj.weight": (H, H),
+            p + "mlp.gate_proj.weight": (c.intermediate_size, H),
+            p + "mlp.up_proj.weight": (c.intermediate_size, H),
+            p + "mlp.down_proj.weight": (H, c.intermediate_size)})
+    return {k: (torch.ones(v) if len(v) == 1 else
+                torch.randn(v, generator=g) * 0.02)
+            for k, v in shapes.items()}
+
+
+def hf_on_card(torch, np, counters):
+    """`build_hf_engine` on the card, where there is no `transformers`:
+    an HF Mistral config as a namespace (a config.json's fields) and a
+    random state dict; its prefill runs the paged kernels with the
+    window, and its logits equal those of `build_engine` fed the
+    converted parameters."""
+    import types
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig,
+                                                  build_hf_engine)
+    from deepspeed_tpu_torch.models import convert_state_dict, hf_to_config
+    c = types.SimpleNamespace(
+        model_type="mistral", vocab_size=32000, hidden_size=1024,
+        num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=2,
+        intermediate_size=3584, max_position_embeddings=4096,
+        rope_theta=10000.0, rms_norm_eps=1e-5, tie_word_embeddings=False,
+        sliding_window=256, rope_scaling=None, attention_bias=False)
+    sd = hf_state_dict(torch, c, torch.Generator().manual_seed(17))
+    ns = types.SimpleNamespace(config=c, state_dict=lambda: sd)
+    ecfg = RaggedInferenceEngineConfig(num_blocks=32, block_size=64,
+                                       max_blocks_per_seq=16, max_seqs=2)
+    launches = {}
+    out = {}
+    prompt = np.random.RandomState(17).randint(0, 32000, 700).astype(
+        np.int32)
+
+    def run():
+        e = build_hf_engine(ns, engine_config=ecfg, dtype=torch.bfloat16)
+        out["hf"] = e.put([0], [prompt])
+        while e.query(0) is None:
+            out["hf"] = e.step()
+    counted(counters, run, launches)()
+    cfg = hf_to_config(c, dtype=torch.bfloat16)
+    e = InferenceEngineV2(cfg, params=convert_state_dict(cfg, "mistral", sd),
+                          config=ecfg, device="cuda")
+    want = e.put([0], [prompt])
+    while e.query(0) is None:
+        want = e.step()
+    same = np.array_equal(out["hf"][0], want[0])
+    print(f"phase 15: build_hf_engine on the card (mistral config namespace,"
+          f" window {c.sliding_window}, 700-token prompt): prefill launches "
+          f"{launches.get('paged_prefill_attention/tma', 0)} tma, logits "
+          f"finite {bool(np.isfinite(want[0]).all())}, equal to build_engine"
+          f"'s: {same}")
+    if not (same and np.isfinite(want[0]).all()
+            and launches.get("paged_prefill_attention/tma", 0) > 0):
+        fail("phase 15: build_hf_engine on the card")
+
+
+def arch_path(torch, np, layers, counters, merged_counters):
+    """Phase 15 (see the module docstring).  Returns the record: each
+    run's, and the path's launches (the served runs of every
+    architecture and the merged run)."""
+    t_phase = time.perf_counter()
+    runs = {}
+    for name, family, size, kw, lens, ekw in arch_models(layers):
+        runs[name] = arch_run(torch, np, name, family, size, kw, lens, ekw,
+                              counters)
+    merged = arch_merged(torch, np, merged_counters)
+    hf_on_card(torch, np, counters)
+    launches, variants = {}, {}
+    for r in list(runs.values()) + [merged]:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        for k, by in r["launches_by_variant"].items():
+            acc = variants.setdefault(k, dict.fromkeys(by, 0))
+            for v, n in by.items():
+                acc[v] += n
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s; the path's "
+          f"launches {launches}, by variant {variants}")
+    return dict(runs=runs, merged=merged, launches=launches,
+                launches_by_variant=variants)
 
 
 # ----------------------------------------------------------------------
@@ -4768,10 +5396,12 @@ def main(argv=None):
           f"|plain| + {ADAM8_ATOL}, codes within 1, scales {ADAM8_RTOL}; "
           f"tile GEMM {TILE_REL} max|plain|)")
     evo_edges = check_evoformer_edges(torch, evo, ef, "cuda")
+    dec_extra, pre_extra = check_paged_features(torch, np, pa, pp, pm,
+                                                "cuda")
     kernels = [check_flash(torch, fa, "cuda"),
                *check_flash_bwd(torch, fa, "cuda"),
-               check_decode(torch, np, pa, "cuda"),
-               check_prefill(torch, np, pp, "cuda"),
+               {**check_decode(torch, np, pa, "cuda"), **dec_extra},
+               {**check_prefill(torch, np, pp, "cuda"), **pre_extra},
                check_lora(torch, np, lm, "cuda"),
                *check_merged(torch, np, pa, pp, pm, "cuda"),
                check_adam8(torch, fa8, topt, "cuda"),
@@ -4823,6 +5453,13 @@ def main(argv=None):
         serve_counters + [pm.merged_decode_attention,
                           pm.merged_prefill_attention, lm.lora_delta], lm)
     del params
+    torch.cuda.empty_cache()
+
+    # phase 15 (after phase 14, before the training phases)
+    archs = arch_path(
+        torch, np, args.layers, serve_counters,
+        [pm.merged_decode_attention, pm.merged_prefill_attention,
+         pa.paged_decode_attention, pp.paged_prefill_attention])
     torch.cuda.empty_cache()
 
     # phase 10 (before the training phases: run after phase 6, most of its
@@ -4883,6 +5520,7 @@ def main(argv=None):
     paths = (("serve", served["launches"]), ("train", trained["launches"]),
              ("tenants", tenants["launches"]), ("merged", merged["launches"]),
              ("multi_step", multi["launches"]),
+             ("archs", archs["launches"]),
              ("sparse", sparse["launches"]), ("train_int8", int8["launches"]),
              ("evoformer", evoformer["launches"]))
     for k in kernels:
@@ -4896,7 +5534,8 @@ def main(argv=None):
         if fn in sparse["launches_by_variant"]:      # sparse_dq, sparse_dkv
             k["launches_by_variant"] = sparse["launches_by_variant"][fn]
         paged = [p["launches_by_variant"][fn] for p in (served, tenants,
-                                                          merged, multi)
+                                                          merged, multi,
+                                                          archs)
                  if fn in p["launches_by_variant"]]
         if paged:                                    # the paged kernels
             k["launches_by_variant"] = {v: sum(p[v] for p in paged)
@@ -4904,6 +5543,7 @@ def main(argv=None):
 
     record = dict(kernels=kernels, serve=served, e2e=e2e, profile=prof,
                   tenants=tenants, merged=merged, multi_step=multi,
+                  archs=archs,
                   train=trained, train_profile=tprof, train_plain=tplain,
                   train_control=control, remat=remat, sparse=sparse,
                   train_int8=int8, evoformer=evoformer,

@@ -42,15 +42,17 @@ __host__ __device__ constexpr int tile_smem_bytes(int D) {
 // One CTA's flash pass: query rows [0, n_rows) at q + r*q_stride sit at
 // absolute positions qpos0 + r and attend keys in [k_begin, k_end) (key kp
 // at kb/vb + key_off(kp)) under the causal rule kp <= qpos and, when
-// window > 0, the sliding-window rule kp > qpos - window.  Writes the
+// window > 0, the sliding-window rule kp > qpos - window.  With ALIBI each
+// visible score qk * sm_scale takes -slope (qpos - kp).  Writes the
 // normalized output rows (zeros for a row that saw no key) and, when lse
 // is not null, lse[r] = m + log(l).
-template <int D, class KeyOff>
+template <int D, bool ALIBI = false, class KeyOff>
 __device__ __forceinline__ void attn_tile(
     const float* __restrict__ q, long q_stride, const float* __restrict__ kb,
     const float* __restrict__ vb, KeyOff key_off, float* __restrict__ o,
     long o_stride, float* __restrict__ lse, int n_rows, int qpos0,
-    bool causal, int window, int k_begin, int k_end, float sm_scale) {
+    bool causal, int window, int k_begin, int k_end, float sm_scale,
+    float slope = 0.f) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int LD = D + 4;
   constexpr int LDP = BK + 4;
@@ -122,7 +124,10 @@ __device__ __forceinline__ void attn_tile(
       const int kp = kt0 + p + 4 * j;
       const bool vis = kp < k_end && (!causal || kp <= qpos) &&
                        (window <= 0 || kp > qpos - window);
-      s[j] = vis ? s[j] * sm_scale : -INFINITY;
+      if constexpr (ALIBI)
+        s[j] = vis ? s[j] * sm_scale - slope * (float)(qpos - kp) : -INFINITY;
+      else
+        s[j] = vis ? s[j] * sm_scale : -INFINITY;
       tmax = fmaxf(tmax, s[j]);
     }
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
@@ -234,14 +239,14 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
 
 // The same pass as attn_tile (same arguments and results) for bf16, on
 // MMA_THREADS threads with mma_smem_bytes(D) of dynamic shared memory.
-template <int D, class KeyOff>
+template <int D, bool ALIBI = false, class KeyOff>
 __device__ __forceinline__ void attn_tile_mma(
     const __nv_bfloat16* __restrict__ q, long q_stride,
     const __nv_bfloat16* __restrict__ kb,
     const __nv_bfloat16* __restrict__ vb, KeyOff key_off,
     __nv_bfloat16* __restrict__ o, long o_stride, float* __restrict__ lse,
     int n_rows, int qpos0, bool causal, int window, int k_begin, int k_end,
-    float sm_scale) {
+    float sm_scale, float slope = 0.f) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int LD = D + 8;
   constexpr int NV = D / 8;            // 16-byte vectors per row
@@ -330,7 +335,11 @@ __device__ __forceinline__ void attn_tile_mma(
         const int kp = kt0 + 8 * j + 2 * t + (e & 1);
         const bool vis = kp < k_end && (!causal || kp <= qp[h]) &&
                          (window <= 0 || kp > qp[h] - window);
-        s[j][e] = vis ? s[j][e] * scale : -INFINITY;
+        if constexpr (ALIBI)
+          s[j][e] = vis ? s[j][e] * scale - slope * LOG2E * (float)(qp[h] - kp)
+                        : -INFINITY;
+        else
+          s[j][e] = vis ? s[j][e] * scale : -INFINITY;
         tmax[h] = fmaxf(tmax[h], s[j][e]);
       }
     }
@@ -413,17 +422,19 @@ __host__ __device__ constexpr int launch_smem_bytes(int D) {
                                                : tile_smem_bytes(D);
 }
 
-template <typename T, int D, class KeyOff>
+template <typename T, int D, bool ALIBI = false, class KeyOff>
 __device__ __forceinline__ void attn_tile_any(
     const T* q, long q_stride, const T* kb, const T* vb, KeyOff key_off,
     T* o, long o_stride, float* lse, int n_rows, int qpos0, bool causal,
-    int window, int k_begin, int k_end, float sm_scale) {
+    int window, int k_begin, int k_end, float sm_scale, float slope = 0.f) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    attn_tile_mma<D>(q, q_stride, kb, vb, key_off, o, o_stride, lse, n_rows,
-                     qpos0, causal, window, k_begin, k_end, sm_scale);
+    attn_tile_mma<D, ALIBI>(q, q_stride, kb, vb, key_off, o, o_stride, lse,
+                            n_rows, qpos0, causal, window, k_begin, k_end,
+                            sm_scale, slope);
   } else {
-    attn_tile<D>(q, q_stride, kb, vb, key_off, o, o_stride, lse, n_rows,
-                 qpos0, causal, window, k_begin, k_end, sm_scale);
+    attn_tile<D, ALIBI>(q, q_stride, kb, vb, key_off, o, o_stride, lse,
+                        n_rows, qpos0, causal, window, k_begin, k_end,
+                        sm_scale, slope);
   }
 }
 

@@ -6,7 +6,18 @@
 // per key block, table entries clamped to [0, nb-1], keys past lens[b]
 // masked, lens[b] < 0 rows give zeros, GQA served per kv head (the G
 // grouped q heads share one pass over the kv head's keys), f32 online
-// softmax.
+// softmax.  Beyond the TPU kernel (whose callers send these models to a
+// dense gather in XLA), each kernel also takes:
+//   * a sliding window w > 0: keys at or before lens[b] - w are masked,
+//     and the key walk starts at the tile of key lens[b] + 1 - w, so a row
+//     past its window reads about w keys, not lens[b] + 1;
+//   * ALiBi slopes [NH] f32: score qk/sqrt(D) - slope[h] (lens[b] - k);
+//   * any group G: a group above MAXG (8) q heads is cut into passes of 8
+//     heads over the same kv head (the last one shorter), each pass a
+//     work unit of its own (Falcon-7B: 71 heads, 9 passes of its one kv
+//     head, whose tiles the passes read from L2 after the first);
+// the window and the bias are template flags (WIN, ALIBI), so a call
+// without them runs the code it ran before they existed.
 //
 // Layout: q [B, NH, D]; arena k/v [L, nb, bs, NKV, D] (the merged
 // [L, nb, bs, NKV * D] is the same bytes) read at one layer — no layer
@@ -26,7 +37,8 @@
 // see paged_tile.cuh; B <= 4096): one wave of resident CTAs (as many as
 // fit on every SM) walks a work list that each CTA builds alike from
 // lens: the key tiles (64 keys, whole pages at bs <= 64) of every
-// (sequence, kv head), in that order, T of them, CTA c taking positions
+// (sequence, work unit: a kv head, or one pass of a group above 8), from
+// the window's first tile, in that order, T of them, CTA c taking positions
 // [c T / N, (c + 1) T / N), so every CTA carries the same number of tiles
 // within one, whatever the sequences' lengths, no CTA is launched past a
 // sequence's end, and a long sequence spreads over as many CTAs as its
@@ -52,13 +64,14 @@
 //
 // paged_decode_kernel + paged_decode_combine_kernel ("mma": other bf16
 // block sizes; "f32"), a split-KV pass and a merge:
-//   1. paged_decode_kernel, grid (NKV, B, splits): the CTA of split s takes
-//      keys [s*KS, (s+1)*KS) of one (kv head, sequence) — a CTA past the
-//      sequence's end returns at once.  Its 8 warps take keys w*4, w*4+1,
+//   1. paged_decode_kernel, grid (NKV * passes, B, splits): the CTA of
+//      split s takes keys [s*KS, (s+1)*KS) from the window's first key of
+//      one (work unit, sequence) — a CTA past the sequence's end returns at
+//      once.  Its 8 warps take keys w*4, w*4+1,
 //      ... in runs of 4 and issue the 4 rows' K and V loads (one vector
 //      load per lane per row) before any arithmetic, so their latencies
 //      overlap; lane i holds D/32 contiguous elements of q, k, v and of
-//      the f32 accumulators for each of the G <= 8 heads; the per-key dot
+//      the f32 accumulators for each of the pass's <= 8 heads; the per-key dot
 //      is a 5-step xor-shuffle sum; the warps' (m, l, acc) states merge
 //      through shared memory into the split's partial state, written
 //      unnormalized to the f32 scratch `part` [B, NH, splits, D + 2].
@@ -76,8 +89,24 @@ namespace {
 
 constexpr int NW = 8;      // warps per CTA
 constexpr int KB = 4;      // keys per warp per iteration
-constexpr int MAXG = 8;    // largest GQA group served
+constexpr int MAXG = 8;    // q heads a pass (work unit) serves
 constexpr int KS = 256;    // keys per split
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The q heads of a pass and the passes of a group of G: one pass of G up
+// to MAXG, else passes of MAXG (ops/paged_attention.py:group_passes).
+__host__ __device__ __forceinline__ int pass_heads(int G) {
+  return G < MAXG ? G : MAXG;
+}
+__host__ __device__ __forceinline__ int group_passes(int G) {
+  return (G + pass_heads(G) - 1) / pass_heads(G);
+}
+
+// The first key a row at position `len` reads under a window w > 0: the
+// keys at or before len - w are masked.
+__device__ __forceinline__ int window_lo(int len, int window) {
+  return max(0, len + 1 - window);
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -111,41 +140,53 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+// grid (NKV * passes, B, splits): blockIdx.x is the work unit, pass
+// blockIdx.x % passes of kv head blockIdx.x / passes; with WIN the splits
+// cover [window_lo, n_keys), with ALIBI each score takes its bias.
+template <typename T, int D, bool WIN, bool ALIBI>
 __global__ void __launch_bounds__(NW * 32)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ ak,
                     const T* __restrict__ av, const int* __restrict__ tables,
                     const int* __restrict__ lens, float* __restrict__ part,
                     int NH, int NKV, int nb, int bs, int MB, int splits,
-                    long layer_off, float sm_scale) {
+                    long layer_off, float sm_scale, int window,
+                    const float* __restrict__ slopes) {
   constexpr int PER = D / 32;   // elements per lane
   __shared__ float sm_m[NW][MAXG];
   __shared__ float sm_l[NW][MAXG];
   __shared__ float sm_acc[NW][MAXG][D];
 
-  const int kvh = blockIdx.x;
+  const int GA = NH / NKV;                  // the whole group
+  const int HG = pass_heads(GA), GC = group_passes(GA);
+  const int kvh = blockIdx.x / GC;
+  const int h0 = kvh * GA + (blockIdx.x % GC) * HG;   // the pass's heads
+  const int G = min(HG, kvh * GA + GA - h0);
   const int b = blockIdx.y;
   const int split = blockIdx.z;
-  const int G = NH / NKV;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n_keys = min(lens[b] + 1, MB * bs);   // lens < 0: no keys
-  const int k0 = split * KS;
+  const int len = lens[b];
+  const int n_keys = min(len + 1, MB * bs);   // lens < 0: no keys
+  int k0 = split * KS;
+  if constexpr (WIN) k0 += window_lo(len, window);
   if (k0 >= n_keys) return;   // past the sequence: the combine skips it
   const int k1 = min(k0 + KS, n_keys);
 
   float qf[MAXG][PER], acc[MAXG][PER], m[MAXG], l[MAXG];
-  const long q_base = ((long)b * NH + (long)kvh * G) * D + lane * PER;
+  float slope[MAXG];
+  const long q_base = ((long)b * NH + h0) * D + lane * PER;
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < PER; ++e) acc[g][e] = 0.f;
+    slope[g] = 0.f;
     if (g < G) {
       load_f<T, PER>(q + q_base + (long)g * D, qf[g]);
 #pragma unroll
       for (int e = 0; e < PER; ++e) qf[g][e] *= sm_scale;
+      if constexpr (ALIBI) slope[g] = slopes[h0 + g];
     } else {
 #pragma unroll
       for (int e = 0; e < PER; ++e) qf[g][e] = 0.f;
@@ -181,6 +222,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ ak,
 #pragma unroll
         for (int e = 0; e < PER; ++e) s += qf[g][e] * kf[u][e];
         s = warp_sum(s);
+        if constexpr (ALIBI) s -= slope[g] * (float)(len - (base + u));
         const float m_new = fmaxf(m[g], s);
         const float alpha = expf(m[g] - m_new);   // exp(-inf) = 0 at start
         const float pr = expf(s - m_new);
@@ -220,8 +262,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ ak,
       L += sm_l[w][g] * sc;
       O += sm_acc[w][g][d] * sc;
     }
-    float* pr = part + (((long)b * NH + (long)kvh * G + g) * splits + split) *
-                           (D + 2);
+    float* pr = part + (((long)b * NH + h0 + g) * splits + split) * (D + 2);
     pr[d] = O;
     if (d == 0) {
       pr[D] = M;
@@ -230,15 +271,16 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ ak,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool WIN>
 __global__ void __launch_bounds__(D)
 paged_decode_combine_kernel(const float* __restrict__ part,
                             const int* __restrict__ lens, T* __restrict__ o,
-                            int NH, int MB, int bs, int splits) {
+                            int NH, int MB, int bs, int splits, int window) {
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int d = threadIdx.x;
-  const int n_keys = min(lens[b] + 1, MB * bs);
+  int n_keys = min(lens[b] + 1, MB * bs);
+  if constexpr (WIN) n_keys -= window_lo(lens[b], window);
   const int live = n_keys > 0 ? (n_keys + KS - 1) / KS : 0;
   const float* pr = part + ((long)b * NH + h) * splits * (D + 2);
   float M = -INFINITY;
@@ -254,22 +296,49 @@ paged_decode_combine_kernel(const float* __restrict__ part,
   o[((long)b * NH + h) * D + d] = from_f<T>(L > 0.f ? O / L : 0.f);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool WIN, bool ALIBI>
 int launch(const void* q, const void* ak, const void* av, const void* tables,
            const void* lens, void* part, void* o, int B, int NH, int NKV,
-           int nb, int bs, int MB, long long layer_off, cudaStream_t stream) {
+           int nb, int bs, int MB, long long layer_off, int window,
+           const float* slopes, cudaStream_t stream) {
   const int splits = (MB * bs + KS - 1) / KS;
-  paged_decode_kernel<T, D><<<dim3(NKV, B, splits), NW * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ak),
-      static_cast<const T*>(av), static_cast<const int*>(tables),
-      static_cast<const int*>(lens), static_cast<float*>(part), NH, NKV, nb,
-      bs, MB, splits, (long)layer_off, 1.0f / sqrtf((float)D));
+  const int units = NKV * group_passes(NH / NKV);
+  paged_decode_kernel<T, D, WIN, ALIBI>
+      <<<dim3(units, B, splits), NW * 32, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(ak),
+          static_cast<const T*>(av), static_cast<const int*>(tables),
+          static_cast<const int*>(lens), static_cast<float*>(part), NH, NKV,
+          nb, bs, MB, splits, (long)layer_off, 1.0f / sqrtf((float)D),
+          window, slopes);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_decode_combine_kernel<T, D><<<dim3(NH, B), D, 0, stream>>>(
+  paged_decode_combine_kernel<T, D, WIN><<<dim3(NH, B), D, 0, stream>>>(
       static_cast<const float*>(part), static_cast<const int*>(lens),
-      static_cast<T*>(o), NH, MB, bs, splits);
+      static_cast<T*>(o), NH, MB, bs, splits, window);
   return (int)cudaGetLastError();
+}
+
+// f(WIN, ALIBI) for the flags of a call: a window > 0, slopes given.
+template <typename F>
+int by_flags(int window, const void* slopes, F&& f) {
+  using yes = std::true_type;
+  using no = std::false_type;
+  if (window > 0)
+    return slopes ? f(yes(), yes()) : f(yes(), no());
+  return slopes ? f(no(), yes()) : f(no(), no());
+}
+
+template <typename T, int D>
+int launch_any(const void* q, const void* ak, const void* av,
+               const void* tables, const void* lens, void* part, void* o,
+               int B, int NH, int NKV, int nb, int bs, int MB,
+               long long layer_off, int window, const void* slopes,
+               cudaStream_t stream) {
+  return by_flags(window, slopes, [&](auto win, auto alibi) {
+    return launch<T, D, decltype(win)::value, decltype(alibi)::value>(
+        q, ak, av, tables, lens, part, o, B, NH, NKV, nb, bs, MB, layer_off,
+        window, static_cast<const float*>(slopes), stream);
+  });
 }
 
 // ---------------------------------------------------------------------
@@ -302,38 +371,56 @@ struct DecodeTile {
 struct DecodeArgs {
   int B, NH, NKV, nb, bs, MB, page0, segs;
   float scale_log2;
+  // work units a sequence (NKV * passes), q heads a pass, the window
+  // (WIN builds), the slopes (ALIBI builds)
+  int NU, HG, window;
+  const float* slopes;
 };
 
-// Key tiles of a sequence at position `len` (0 for an inactive row).
-__device__ __forceinline__ int seq_tiles(int len, const DecodeArgs& a) {
-  const int n_keys = min(len + 1, a.MB * a.bs);
-  return n_keys > 0 ? (n_keys + pg::TK - 1) / pg::TK : 0;
+// The first key tile a sequence at position `len` reads: the window's.
+template <bool WIN>
+__device__ __forceinline__ int first_tile(int len, const DecodeArgs& a) {
+  if constexpr (WIN) return window_lo(len, a.window) / pg::TK;
+  return 0;
 }
 
-// The work list: position p of T = sum_b NKV * tiles_b runs over
-// sequences, then kv heads, then key tiles; CTA c of N walks positions
-// [c T / N, (c + 1) T / N), so every CTA carries the same number of tiles
-// within one.  chunk_of(p) is the CTA whose range holds p.
+// Key tiles of a sequence at position `len` (0 for an inactive row), from
+// its first tile.
+template <bool WIN>
+__device__ __forceinline__ int seq_tiles(int len, const DecodeArgs& a) {
+  const int n_keys = min(len + 1, a.MB * a.bs);
+  if (n_keys <= 0) return 0;
+  const int n = (n_keys + pg::TK - 1) / pg::TK;
+  if constexpr (WIN) return max(0, n - first_tile<WIN>(len, a));
+  return n;
+}
+
+// The work list: position p of T = sum_b NU * tiles_b runs over
+// sequences, then work units (kv heads, each in its passes), then key
+// tiles; CTA c of N walks positions [c T / N, (c + 1) T / N), so every
+// CTA carries the same number of tiles within one.  chunk_of(p) is the
+// CTA whose range holds p.
 __device__ __forceinline__ int chunk_of(int p, int T, int N) {
   return (int)(((long)p * N + N - 1) / T);
 }
 
-// The run of a CTA's range [p, p1) inside one (sequence, kv head): its
-// tiles [t0, t1) of the head's n, its index among the CTAs that share the
-// head's tiles and their count, and the position after it.
+// The run of a CTA's range [p, p1) inside one (sequence, work unit): its
+// tiles [t0, t1) of the unit's n (counted from the sequence's first
+// tile), its index among the CTAs that share the unit's tiles and their
+// count, and the position after it.
 struct Segment {
-  int b, kvh, t0, t1, index, count, next;
+  int b, unit, t0, t1, index, count, next;
 };
 
 __device__ __forceinline__ Segment segment_at(int p, int p1, const int* pre,
-                                              int B, int NKV, int T, int N,
+                                              int B, int NU, int T, int N,
                                               int c) {
   int lo = 0, hi = B;   // pre[lo] <= p < pre[hi]
   while (hi - lo > 1) {
     const int mid = (lo + hi) >> 1;
     if (pre[mid] <= p) lo = mid; else hi = mid;
   }
-  const int n = (pre[lo + 1] - pre[lo]) / NKV;
+  const int n = (pre[lo + 1] - pre[lo]) / NU;
   const int r = p - pre[lo];
   const int start = pre[lo] + (r / n) * n, stop = start + n;
   const int next = min(p1, stop);
@@ -342,9 +429,13 @@ __device__ __forceinline__ Segment segment_at(int p, int p1, const int* pre,
                  chunk_of(stop - 1, T, N) - first + 1, next};
 }
 
-// GM: a bound on the group size G (1, 2, 4 or 8), so the accumulators of
-// a small group take few registers (four CTAs an SM up to GM 2).
-template <int D, int GM>
+// GM: a bound on the heads of a pass (1, 2, 4 or 8), so the accumulators
+// of a small group take few registers (four CTAs an SM up to GM 2).  WIN:
+// the walk starts at the window's tile and masks below its first key;
+// ALIBI: each score takes -slope (len - k) (log2 units, as the scores);
+// SPLIT: a group above MAXG, in passes (work units) of MAXG heads.  With
+// all three off, the kernel is the one without them.
+template <int D, int GM, bool WIN, bool ALIBI, bool SPLIT>
 __global__ void __launch_bounds__(D_THREADS, GM <= 2 ? 4 : 2)
 paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap,
@@ -354,14 +445,17 @@ paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
                  DecodeArgs a) {
   using DT = DecodeTile<D>;
   constexpr int TK = pg::TK, NDC = DT::NDC, KG = DT::KG;
-  const int G = a.NH / a.NKV;
+  const int GA = a.NH / a.NKV;                // a kv head's whole group
+  const int GC = SPLIT ? a.NU / a.NKV : 1;    // its passes
+  const int HG = SPLIT ? a.HG : GA;           // heads a pass (last: fewer)
+  const int NU = SPLIT ? a.NU : a.NKV;        // work units a sequence
   extern __shared__ __align__(1024) uint8_t smem_tma[];
   uint8_t* ring = hp::align1024(smem_tma);
-  float* sq = reinterpret_cast<float*>(ring + DT::RING);   // [G][QROW]
-  float* ss = sq + G * DT::QROW;                            // [G][TK]
-  float* sp = ss + G * TK;                                  // [G][TK]
-  float* red = sp + G * TK;                                 // [4][G][D]
-  int* pre = reinterpret_cast<int*>(red + 4 * G * D);       // [B + 1]
+  float* sq = reinterpret_cast<float*>(ring + DT::RING);   // [HG][QROW]
+  float* ss = sq + HG * DT::QROW;                           // [HG][TK]
+  float* sp = ss + HG * TK;                                 // [HG][TK]
+  float* red = sp + HG * TK;                                // [4][HG][D]
+  int* pre = reinterpret_cast<int*>(red + 4 * HG * D);      // [B + 1]
   __shared__ __align__(8) uint64_t full[D_SLOTS], empty[D_SLOTS];
   __shared__ float s_alpha[MAXG], s_m[MAXG], s_l[MAXG];
   __shared__ int last;
@@ -375,7 +469,7 @@ paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
     if (lane == 0) pre[0] = 0;
     for (int b0 = 0; b0 < a.B; b0 += 32) {
       const int b = b0 + lane;
-      int x = b < a.B ? seq_tiles(__ldg(lens + b), a) * a.NKV : 0;
+      int x = b < a.B ? seq_tiles<WIN>(__ldg(lens + b), a) * NU : 0;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
         const int y = __shfl_up_sync(0xffffffffu, x, off);
@@ -387,7 +481,7 @@ paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
   }
   // inactive rows (lens < 0): zeros, each row by one CTA
   for (int b = blockIdx.x; b < a.B; b += gridDim.x)
-    if (seq_tiles(__ldg(lens + b), a) == 0)
+    if (seq_tiles<WIN>(__ldg(lens + b), a) == 0)
       for (int i = tid; i < a.NH * D; i += D_THREADS)
         o[(long)b * a.NH * D + i] = __float2bfloat16(0.f);
   if (tid == 0) {
@@ -408,16 +502,18 @@ paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
   if (warp == 4) {   // the producer warp: K_j, V_j, K_j+1, ... in turn
     int e = 0;       // ring entries issued
     for (int pos = p0; pos < p1;) {
-      const Segment sg = segment_at(pos, p1, pre, a.B, a.NKV, T, N, cta);
+      const Segment sg = segment_at(pos, p1, pre, a.B, NU, T, N, cta);
+      const int t_first = first_tile<WIN>(__ldg(lens + sg.b), a);
       pg::BoxPages pages{tables + (long)sg.b * a.MB, a.MB, a.nb, a.bs, rows,
-                         sg.t0 * TK};
+                         (t_first + sg.t0) * TK};
       for (int j = 0; j < sg.t1 - sg.t0; ++j) {
         for (int kv = 0; kv < 2; ++kv, ++e) {
           const int s = e % D_SLOTS;
           hp::mbar_wait(&empty[s], ((e / D_SLOTS) & 1) ^ 1);
           if (lane == 0) hp::mbar_expect_tx(&full[s], DT::TILE);
           pg::load_tile<D>(ring + s * DT::TILE, kv ? &vmap : &kmap, &full[s],
-                           pages, j * (TK / rows), a.page0, sg.kvh, lane);
+                           pages, j * (TK / rows), a.page0, sg.unit / GC,
+                           lane);
         }
       }
       pos = sg.next;
@@ -428,16 +524,25 @@ paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
   const int dc = tid % NDC, kg = tid / NDC;   // the P V pass's chunk, keys
   int e = 0;                                  // ring entries consumed
   for (int pos = p0; pos < p1;) {
-    const Segment sg = segment_at(pos, p1, pre, a.B, a.NKV, T, N, cta);
+    const Segment sg = segment_at(pos, p1, pre, a.B, NU, T, N, cta);
     pos = sg.next;
-    const int n_keys = min(__ldg(lens + sg.b) + 1, a.MB * a.bs);
-    const int t0 = sg.t0, nt = sg.t1 - sg.t0;
-    const long row = (long)sg.b * a.NH + (long)sg.kvh * G;   // first head
+    const int len = __ldg(lens + sg.b);
+    const int n_keys = min(len + 1, a.MB * a.bs);
+    const int k_lo = WIN ? window_lo(len, a.window) : 0;
+    const int t0 = first_tile<WIN>(len, a) + sg.t0, nt = sg.t1 - sg.t0;
+    // the pass's heads: HG of the kv head's group from the pass's first
+    const int h0 = (sg.unit / GC) * GA + (sg.unit % GC) * HG;
+    const int G = SPLIT ? min(HG, (sg.unit / GC) * GA + GA - h0) : GA;
+    const long row = (long)sg.b * a.NH + h0;                 // first head
     for (int x = tid; x < G * D; x += 128) {
       const int g = x / D, d = x % D;
       sq[g * DT::QROW + d + (d >= D / 2 ? 4 : 0)] =
           __bfloat162float(q[row * D + x]) * a.scale_log2;
     }
+    float slope[GM];   // log2 units
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      slope[g] = ALIBI && g < G ? __ldg(a.slopes + h0 + g) * LOG2E : 0.f;
     float m_r[2] = {-INFINITY, -INFINITY};   // heads warp and warp + 4
     float l_r[2] = {0.f, 0.f};
     float acc[GM][8];
@@ -483,12 +588,14 @@ paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
                      kf[4] * y.x + kf[5] * y.y + kf[6] * y.z + kf[7] * y.w;
           }
         }
-        const bool live_key = k0 + key < n_keys;
+        const bool live_key =
+            k0 + key < n_keys && (!WIN || k0 + key >= k_lo);
 #pragma unroll
         for (int g = 0; g < GM; ++g) {
           if (g >= G) break;
           // a + b on one lane, b + a on the other: the same float
-          const float both = sc[g] + __shfl_xor_sync(0xffffffffu, sc[g], 1);
+          float both = sc[g] + __shfl_xor_sync(0xffffffffu, sc[g], 1);
+          if constexpr (ALIBI) both -= slope[g] * (float)(len - (k0 + key));
           if (half == 0) ss[g * TK + key] = live_key ? both : -INFINITY;
         }
       }
@@ -526,6 +633,7 @@ paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
       for (int r0 = 0; r0 < TK / KG; ++r0) {
         const int r = kg + KG * r0;
         if (k0 + r >= n_keys) break;   // keys past lens are never read
+        if (WIN && k0 + r < k_lo) continue;   // nor keys before the window
         const uint4 raw = *pg::tile_chunk<D>(Vs, r, dc);
         const __nv_bfloat162* vp2 =
             reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -586,8 +694,8 @@ paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
       hp::named_sync(1, 128);   // red and s_l are read before the next
       continue;
     }
-    const long key = (long)sg.b * a.NKV + sg.kvh;
-    const int PART = G * (D + 2);   // a segment's acc [G][D], m, l
+    const long key = (long)sg.b * NU + sg.unit;
+    const int PART = HG * (D + 2);   // a segment's acc [G][D], m, l
     float* part = ws + (key * a.segs + sg.index) * PART;
     for (int x = tid; x < G * D; x += 128) {
       const int g = x / D, d = x % D;
@@ -626,43 +734,45 @@ paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
 }
 
 // The grid: one wave of resident CTAs (as many as fit on every SM at
-// this group size and batch) walks the work list.  The last answer is
+// this pass size and batch) walks the work list.  The last answer is
 // kept (a serving step asks the same for every layer).
-template <int D, int GM>
-int resident_ctas(int G, int B, int* ctas) {
+template <int D, int GM, bool WIN, bool ALIBI, bool SPLIT>
+int resident_ctas(int HG, int B, int* ctas) {
   static int last_dev = -1, last_G = 0, last_B = 0, last_ctas = 0;
-  const int smem = DecodeTile<D>::smem(G, B);
+  const int smem = DecodeTile<D>::smem(HG, B);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev == last_dev && G == last_G && B == last_B) {
+  if (dev == last_dev && HG == last_G && B == last_B) {
     *ctas = last_ctas;
     return 0;
   }
-  err = cudaFuncSetAttribute(paged_decode_tma<D, GM>,
+  err = cudaFuncSetAttribute(paged_decode_tma<D, GM, WIN, ALIBI, SPLIT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, paged_decode_tma<D, GM>, D_THREADS, smem);
+        &per_sm, paged_decode_tma<D, GM, WIN, ALIBI, SPLIT>, D_THREADS, smem);
   if (err != cudaSuccess) return (int)err;
   *ctas = per_sm * sms > 0 ? per_sm * sms : 1;
-  last_dev = dev, last_G = G, last_B = B, last_ctas = *ctas;
+  last_dev = dev, last_G = HG, last_B = B, last_ctas = *ctas;
   return 0;
 }
 
-template <int D, int GM>
+template <int D, int GM, bool WIN, bool ALIBI, bool SPLIT>
 int launch_tma(const void* q, const void* ak, const void* av,
                const void* tables, const void* lens, void* o, void* ws,
                void* tickets, int B, int NH, int NKV, int L, int nb, int bs,
-               int MB, int layer, int segs, cudaStream_t stream) {
+               int MB, int layer, int segs, int window, const float* slopes,
+               cudaStream_t stream) {
   const int G = NH / NKV;
+  const int NU = NKV * group_passes(G), HG = pass_heads(G);
   if (!pg::tma_block_size(bs) || segs < 1 || B > 4096 ||
       (long)L * nb >= (1L << 31) ||
       (long)segs * pg::TK < (long)MB * bs ||
-      (long)B * NKV * segs >= (1L << 31) || ws == nullptr ||
+      (long)B * NU * segs >= (1L << 31) || ws == nullptr ||
       tickets == nullptr)
     return (int)cudaErrorInvalidValue;
   CUtensorMap kmap, vmap;
@@ -670,45 +780,55 @@ int launch_tma(const void* q, const void* ak, const void* av,
   if (!rc) rc = pg::arena_map<D>(&vmap, av, L, nb, bs, NKV);
   if (rc) return rc;
   int ctas = 0;
-  rc = resident_ctas<D, GM>(G, B, &ctas);
+  rc = resident_ctas<D, GM, WIN, ALIBI, SPLIT>(HG, B, &ctas);
   if (rc) return rc;
-  DecodeArgs args{B, NH, NKV, nb, bs, MB, layer * nb, segs,
-                  1.4426950408889634f / sqrtf((float)D)};
-  paged_decode_tma<D, GM><<<ctas, D_THREADS, DecodeTile<D>::smem(G, B),
-                            stream>>>(
-      kmap, vmap, static_cast<const bf16*>(q),
-      static_cast<const int*>(tables), static_cast<const int*>(lens),
-      static_cast<bf16*>(o), static_cast<float*>(ws),
-      static_cast<int*>(tickets), args);
+  DecodeArgs args{B,  NH, NKV, nb,     bs,    MB, layer * nb, segs,
+                  LOG2E / sqrtf((float)D), NU, HG, window, slopes};
+  paged_decode_tma<D, GM, WIN, ALIBI, SPLIT>
+      <<<ctas, D_THREADS, DecodeTile<D>::smem(HG, B), stream>>>(
+          kmap, vmap, static_cast<const bf16*>(q),
+          static_cast<const int*>(tables), static_cast<const int*>(lens),
+          static_cast<bf16*>(o), static_cast<float*>(ws),
+          static_cast<int*>(tickets), args);
   return (int)cudaGetLastError();
 }
 
-// f(GM) for the least group bound GM of 1, 2, 4, 8 that holds G.
+// f(GM, SPLIT) for a group of G: the least bound GM of 1, 2, 4, 8 that
+// holds a pass, and whether G takes more than one pass.
 template <typename F>
 int by_group(int G, F&& f) {
-  if (G <= 1) return f(std::integral_constant<int, 1>());
-  if (G <= 2) return f(std::integral_constant<int, 2>());
-  if (G <= 4) return f(std::integral_constant<int, 4>());
-  return f(std::integral_constant<int, 8>());
+  using one = std::false_type;
+  if (G <= 1) return f(std::integral_constant<int, 1>(), one());
+  if (G <= 2) return f(std::integral_constant<int, 2>(), one());
+  if (G <= 4) return f(std::integral_constant<int, 4>(), one());
+  if (G <= MAXG) return f(std::integral_constant<int, 8>(), one());
+  return f(std::integral_constant<int, 8>(), std::true_type());
 }
 
 template <int D>
 int launch_tma_any(const void* q, const void* ak, const void* av,
                    const void* tables, const void* lens, void* o, void* ws,
                    void* tickets, int B, int NH, int NKV, int L, int nb,
-                   int bs, int MB, int layer, int segs, cudaStream_t stream) {
-  return by_group(NH / NKV, [&](auto gm) {
-    return launch_tma<D, decltype(gm)::value>(q, ak, av, tables, lens, o, ws,
-                                              tickets, B, NH, NKV, L, nb, bs,
-                                              MB, layer, segs, stream);
+                   int bs, int MB, int layer, int segs, int window,
+                   const void* slopes, cudaStream_t stream) {
+  return by_group(NH / NKV, [&](auto gm, auto split) {
+    return by_flags(window, slopes, [&](auto win, auto alibi) {
+      return launch_tma<D, decltype(gm)::value, decltype(win)::value,
+                        decltype(alibi)::value, decltype(split)::value>(
+          q, ak, av, tables, lens, o, ws, tickets, B, NH, NKV, L, nb, bs, MB,
+          layer, segs, window, static_cast<const float*>(slopes), stream);
+    });
   });
 }
 
+// The grid of the build without a window or a bias (the builds with them
+// have the same launch bound and shared memory, so the same grid).
 template <int D>
 int ctas_any(int G, int B) {
   int ctas = 0;
-  const int rc = by_group(G, [&](auto gm) {
-    return resident_ctas<D, decltype(gm)::value>(G, B, &ctas);
+  const int rc = by_group(G, [&](auto gm, auto split) {
+    return resident_ctas<D, decltype(gm)::value, false, false,
+                         decltype(split)::value>(pass_heads(G), B, &ctas);
   });
   return rc ? 0 : ctas;
 }
@@ -721,74 +841,88 @@ extern "C" int dstt_paged_decode_splits(int MB, int bs) {
   return (MB * bs + KS - 1) / KS;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launches (cudaErrorInvalidValue for an unsupported shape or dtype).
+// dtype: 0 = float32, 1 = bfloat16; window <= 0: no sliding window;
+// slopes: [NH] f32 ALiBi slopes or null.  Returns cudaGetLastError()
+// after the launches (cudaErrorInvalidValue for an unsupported shape or
+// dtype).
 extern "C" int dstt_paged_decode(const void* q, const void* ak,
                                  const void* av, const void* tables,
                                  const void* lens, void* part, void* o,
                                  int B, int NH, int NKV, int D, int nb,
                                  int bs, int MB, long long layer_off,
-                                 int dtype, void* stream) {
+                                 int window, const void* slopes, int dtype,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || NKV <= 0 || NH % NKV != 0 || NH / NKV > MAXG || nb <= 0 ||
-      bs <= 0 || MB <= 0)
+  if (B <= 0 || NKV <= 0 || NH % NKV != 0 || nb <= 0 || bs <= 0 || MB <= 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if (D == 32)
-      return launch<__nv_bfloat16, 32>(q, ak, av, tables, lens, part, o, B,
-                                       NH, NKV, nb, bs, MB, layer_off, st);
+      return launch_any<__nv_bfloat16, 32>(q, ak, av, tables, lens, part, o,
+                                           B, NH, NKV, nb, bs, MB, layer_off,
+                                           window, slopes, st);
     if (D == 64)
-      return launch<__nv_bfloat16, 64>(q, ak, av, tables, lens, part, o, B,
-                                       NH, NKV, nb, bs, MB, layer_off, st);
+      return launch_any<__nv_bfloat16, 64>(q, ak, av, tables, lens, part, o,
+                                           B, NH, NKV, nb, bs, MB, layer_off,
+                                           window, slopes, st);
     if (D == 128)
-      return launch<__nv_bfloat16, 128>(q, ak, av, tables, lens, part, o, B,
-                                        NH, NKV, nb, bs, MB, layer_off, st);
+      return launch_any<__nv_bfloat16, 128>(q, ak, av, tables, lens, part,
+                                            o, B, NH, NKV, nb, bs, MB,
+                                            layer_off, window, slopes, st);
   } else if (dtype == 0) {
     if (D == 32)
-      return launch<float, 32>(q, ak, av, tables, lens, part, o, B, NH, NKV,
-                               nb, bs, MB, layer_off, st);
+      return launch_any<float, 32>(q, ak, av, tables, lens, part, o, B, NH,
+                                   NKV, nb, bs, MB, layer_off, window,
+                                   slopes, st);
     if (D == 64)
-      return launch<float, 64>(q, ak, av, tables, lens, part, o, B, NH, NKV,
-                               nb, bs, MB, layer_off, st);
+      return launch_any<float, 64>(q, ak, av, tables, lens, part, o, B, NH,
+                                   NKV, nb, bs, MB, layer_off, window,
+                                   slopes, st);
     if (D == 128)
-      return launch<float, 128>(q, ak, av, tables, lens, part, o, B, NH, NKV,
-                                nb, bs, MB, layer_off, st);
+      return launch_any<float, 128>(q, ak, av, tables, lens, part, o, B, NH,
+                                    NKV, nb, bs, MB, layer_off, window,
+                                    slopes, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // The TMA kernel (bf16; see the note at the top): arena k/v
-// [L, nb, bs, NKV, D] read at `layer`; ws holds B * NKV * segs * G *
-// (D + 2) floats with segs * 64 >= MB * bs (a head's tiles split over at
-// most segs CTAs), tickets one zeroed int per (sequence, kv head) (left
-// zeroed); B <= 4096.  Returns cudaGetLastError() after the launch
+// [L, nb, bs, NKV, D] read at `layer`; with U = NKV * passes work units a
+// sequence and HG q heads a pass (ops/paged_attention.py:group_passes), ws
+// holds B * U * segs * HG * (D + 2) floats with segs * 64 >= MB * bs (a
+// unit's tiles split over at most segs CTAs), tickets one zeroed int per
+// (sequence, unit) (left zeroed); B <= 4096; window and slopes as in
+// dstt_paged_decode.  Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for what the kernel does not take).
 extern "C" int dstt_paged_decode_tma(const void* q, const void* ak,
                                      const void* av, const void* tables,
                                      const void* lens, void* o, void* ws,
                                      void* tickets, int B, int NH, int NKV,
                                      int D, int L, int nb, int bs, int MB,
-                                     int layer, int segs, void* stream) {
+                                     int layer, int segs, int window,
+                                     const void* slopes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || NKV <= 0 || NH % NKV != 0 || NH / NKV > MAXG || nb <= 0 ||
-      bs <= 0 || MB <= 0 || L <= 0 || layer < 0 || layer >= L)
+  if (B <= 0 || NKV <= 0 || NH % NKV != 0 || nb <= 0 || bs <= 0 ||
+      MB <= 0 || L <= 0 || layer < 0 || layer >= L)
     return (int)cudaErrorInvalidValue;
   if (D == 32)
     return launch_tma_any<32>(q, ak, av, tables, lens, o, ws, tickets, B,
-                              NH, NKV, L, nb, bs, MB, layer, segs, st);
+                              NH, NKV, L, nb, bs, MB, layer, segs, window,
+                              slopes, st);
   if (D == 64)
     return launch_tma_any<64>(q, ak, av, tables, lens, o, ws, tickets, B,
-                              NH, NKV, L, nb, bs, MB, layer, segs, st);
+                              NH, NKV, L, nb, bs, MB, layer, segs, window,
+                              slopes, st);
   if (D == 128)
     return launch_tma_any<128>(q, ak, av, tables, lens, o, ws, tickets, B,
-                               NH, NKV, L, nb, bs, MB, layer, segs, st);
+                               NH, NKV, L, nb, bs, MB, layer, segs, window,
+                               slopes, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // The TMA kernel's grid for head dim D, group G and batch B (the CTAs
 // that share its work list), or 0 where it takes no such call.
 extern "C" int dstt_paged_decode_tma_ctas(int D, int G, int B) {
-  if (G < 1 || G > MAXG || B < 1 || B > 4096) return 0;
+  if (G < 1 || B < 1 || B > 4096) return 0;
   if (D == 32) return ctas_any<32>(G, B);
   if (D == 64) return ctas_any<64>(G, B);
   if (D == 128) return ctas_any<128>(G, B);

@@ -7,6 +7,15 @@
 // window; online softmax in f32; neither the gathered K/V copy nor the
 // score matrix is ever written to device memory.
 //
+// Beyond the TPU kernel, each kernel takes ALiBi slopes [NH] f32 (the
+// reference's callers send ALiBi models to a dense gather in XLA): each
+// visible score qk/sqrt(D) takes -slope[h] (q_pos - key_pos), added in f32
+// before the running max, in the layout the masks are built in; a model
+// that adds the bias before the 1/sqrt(D) scale (Falcon-RW) passes slopes
+// divided by sqrt(D), so the kernels do not branch on the architecture.
+// The bias is a template flag (ALIBI): a call without slopes runs the code
+// it ran before.
+//
 // Layout: q [C, NH, D]; arena k/v [L, nb, bs, NKV, D] (the merged
 // [L, nb, bs, NKV * D] is the same bytes) read at layer `layer`; table [MB]
 // int32, entries clamped to [0, nb-1] like the reference; out [C, NH, D].
@@ -65,13 +74,14 @@ struct PagedKeyOff {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, bool ALIBI>
 __global__ void __launch_bounds__(dstt::launch_threads<T>())
 paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ ak,
                      const T* __restrict__ av, const int* __restrict__ table,
                      T* __restrict__ o, int C, int NH, int NKV, int nb,
                      int bs, int MB, long layer_off, int pos0, int n_valid,
-                     int window, float sm_scale) {
+                     int window, float sm_scale,
+                     const float* __restrict__ slopes) {
   const int c0 = blockIdx.x * dstt::BQ;
   const int h = blockIdx.y;
   const int kvh = h / (NH / NKV);
@@ -84,29 +94,43 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ ak,
   const int last_q = pos0 + min(c0 + dstt::BQ, n_valid) - 1;
   const int k_end = max(0, min(last_q + 1, MB * bs));
   const int k_begin = window > 0 ? max(0, qpos0 - window + 1) : 0;
-  dstt::attn_tile_any<T, D>(q + base, row_stride, ak, av, key_off,
-                            o + base, row_stride, nullptr, n_rows, qpos0,
-                            true, window, k_begin, k_end, sm_scale);
+  dstt::attn_tile_any<T, D, ALIBI>(
+      q + base, row_stride, ak, av, key_off, o + base, row_stride, nullptr,
+      n_rows, qpos0, true, window, k_begin, k_end, sm_scale,
+      ALIBI ? slopes[h] : 0.f);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ALIBI>
 int launch(const void* q, const void* ak, const void* av, const void* table,
            void* o, int C, int NH, int NKV, int nb, int bs, int MB,
            long long layer_off, int pos0, int n_valid, int window,
-           cudaStream_t stream) {
+           const float* slopes, cudaStream_t stream) {
   const int smem = dstt::launch_smem_bytes<T>(D);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      paged_prefill_kernel<T, D, ALIBI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((C + dstt::BQ - 1) / dstt::BQ, NH);
-  paged_prefill_kernel<T, D><<<grid, dstt::launch_threads<T>(), smem,
-                               stream>>>(
+  paged_prefill_kernel<T, D, ALIBI><<<grid, dstt::launch_threads<T>(), smem,
+                                      stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(ak),
       static_cast<const T*>(av), static_cast<const int*>(table),
       static_cast<T*>(o), C, NH, NKV, nb, bs, MB, (long)layer_off, pos0,
-      n_valid, window, 1.0f / sqrtf((float)D));
+      n_valid, window, 1.0f / sqrtf((float)D), slopes);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_any(const void* q, const void* ak, const void* av,
+               const void* table, void* o, int C, int NH, int NKV, int nb,
+               int bs, int MB, long long layer_off, int pos0, int n_valid,
+               int window, const void* slopes, cudaStream_t stream) {
+  const float* sl = static_cast<const float*>(slopes);
+  if (sl)
+    return launch<T, D, true>(q, ak, av, table, o, C, NH, NKV, nb, bs, MB,
+                              layer_off, pos0, n_valid, window, sl, stream);
+  return launch<T, D, false>(q, ak, av, table, o, C, NH, NKV, nb, bs, MB,
+                             layer_off, pos0, n_valid, window, sl, stream);
 }
 
 // ---------------------------------------------------------------------
@@ -130,6 +154,7 @@ struct PrefillTile {
 struct PrefillArgs {
   int C, NH, NKV, nb, bs, MB, page0, pos0, n_valid, window, splits;
   float scale_log2;
+  const float* slopes;   // the ALIBI build's [NH] slopes
 };
 
 // Query tile qt's keys: [k_begin, k_end) (the window's start for its first
@@ -158,21 +183,47 @@ __device__ __forceinline__ TileRange tile_range(const PrefillArgs& a, int qt,
 // Online softmax of one m64n64 S tile in place (element i: row r0 +
 // 8 ((i >> 1) & 1), key k0 + acc_col(i, t)): mask where `masked` (key past
 // the row's position, past k_end, or outside the window), new row max m
-// (log2 units), alpha = 2^(m_old - m_new), p = 2^(s scale_log2 - m).
+// (log2 units), alpha = 2^(m_old - m_new), p = 2^(s scale_log2 - m).  With
+// ALIBI the visible scores are first taken to log2 units with their bias,
+// s scale_log2 - slope_log2 (q_pos - k_pos), and the scale is then 1.
+template <bool ALIBI>
 __device__ __forceinline__ void prefill_softmax(
     float (&sc)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
     bool masked, int k0, int qpos0, int t, int k_end, int window,
-    float scale_log2) {
+    float scale_log2, float slope_log2) {
   float tmax[2] = {-INFINITY, -INFINITY};
+  if constexpr (ALIBI) {
+    // slope (k - q) = slope (k0 + 2t - q) + slope (8 (i >> 2) + (i & 1)):
+    // a row's base and a column constant, two FMAs an element
+    float base[2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int hh = (i >> 1) & 1;
-    if (masked) {
+    for (int hh = 0; hh < 2; ++hh)
+      base[hh] = slope_log2 * (float)(k0 + 2 * t - qpos0 - 8 * hh);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
       const int kp = k0 + hp::acc_col(i, t), qp = qpos0 + 8 * hh;
-      if (kp > qp || kp >= k_end || (window > 0 && kp <= qp - window))
+      if (masked &&
+          (kp > qp || kp >= k_end || (window > 0 && kp <= qp - window)))
         sc[i] = -INFINITY;
+      else
+        sc[i] = fmaf(sc[i], scale_log2,
+                     fmaf(slope_log2, (float)(8 * (i >> 2) + (i & 1)),
+                          base[hh]));
+      tmax[hh] = fmaxf(tmax[hh], sc[i]);
     }
-    tmax[hh] = fmaxf(tmax[hh], sc[i]);
+    scale_log2 = 1.f;   // the scores are in log2 units now
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      if (masked) {
+        const int kp = k0 + hp::acc_col(i, t), qp = qpos0 + 8 * hh;
+        if (kp > qp || kp >= k_end || (window > 0 && kp <= qp - window))
+          sc[i] = -INFINITY;
+      }
+      tmax[hh] = fmaxf(tmax[hh], sc[i]);
+    }
   }
   float mu[2];
 #pragma unroll
@@ -249,7 +300,7 @@ __device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
   hp::wgmma_commit();
 }
 
-template <int D>
+template <int D, bool ALIBI>
 __global__ void __launch_bounds__(P_THREADS, 2)
 paged_prefill_wgmma(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
@@ -323,6 +374,7 @@ paged_prefill_wgmma(const __grid_constant__ CUtensorMap qmap,
   float m[2] = {-INFINITY, -INFINITY};   // running max, log2 units
   float l[2] = {0.f, 0.f};               // this lane's partial row sums
   float alpha[2] = {1.f, 1.f};
+  const float slope_log2 = ALIBI ? a.slopes[h] * 1.4426950408889634f : 0.f;
   // tile k0 needs the mask where it holds a key past the tile's first
   // row, past k_end, or at or before the last row's window edge
   auto masked = [&](int k0) {
@@ -340,9 +392,9 @@ paged_prefill_wgmma(const __grid_constant__ CUtensorMap qmap,
     hp::fence_regs(sc);
     __syncwarp();
     if (lane == 0) hp::mbar_arrive(&k_empty[0]);
-    prefill_softmax(sc, m, l, alpha, masked(kr.j0 * pg::TK),
-                    kr.j0 * pg::TK, qpos0, t, kr.k_end, a.window,
-                    a.scale_log2);
+    prefill_softmax<ALIBI>(sc, m, l, alpha, masked(kr.j0 * pg::TK),
+                           kr.j0 * pg::TK, qpos0, t, kr.k_end, a.window,
+                           a.scale_log2, slope_log2);
     hp::pack_frags(pa, sc);
     // tile j: S_j = Q K_j^T is issued, then P_{j-1} V_{j-1}; the softmax
     // of S_j runs while P_{j-1} V_{j-1} holds the tensor cores
@@ -361,8 +413,8 @@ paged_prefill_wgmma(const __grid_constant__ CUtensorMap qmap,
       hp::fence_regs(sc);
       __syncwarp();
       if (lane == 0) hp::mbar_arrive(&k_empty[s]);
-      prefill_softmax(sc, m, l, alpha, masked(k0), k0, qpos0, t, kr.k_end,
-                      a.window, a.scale_log2);
+      prefill_softmax<ALIBI>(sc, m, l, alpha, masked(k0), k0, qpos0, t,
+                             kr.k_end, a.window, a.scale_log2, slope_log2);
       hp::wgmma_wait<0>();            // P_{j-1} V_{j-1} is done
       hp::fence_regs(oacc);
       __syncwarp();
@@ -445,12 +497,12 @@ paged_prefill_wgmma(const __grid_constant__ CUtensorMap qmap,
   if (tid == 0) tickets[unit] = 0;   // zeroed for the next call
 }
 
-template <int D>
+template <int D, bool ALIBI>
 int launch_wgmma(const void* q, const void* ak, const void* av,
                  const void* table, void* o, void* ws, void* tickets, int C,
                  int NH, int NKV, int L, int nb, int bs, int MB, int layer,
                  int pos0, int n_valid, int window, int splits,
-                 cudaStream_t stream) {
+                 const float* slopes, cudaStream_t stream) {
   using T = hp::RowTile<D>;
   using P = PrefillTile<D>;
   const int q_tiles = (C + PQ - 1) / PQ;
@@ -468,55 +520,76 @@ int launch_wgmma(const void* q, const void* ak, const void* av,
   if (!rc) rc = pg::arena_map<D>(&vmap, av, L, nb, bs, NKV);
   if (rc) return rc;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      P::SMEM);
+      paged_prefill_wgmma<D, ALIBI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
   if (err != cudaSuccess) return (int)err;
-  PrefillArgs args{C, NH, NKV, nb, bs, MB, layer * nb, pos0, n_valid,
-                   window, splits, 1.4426950408889634f / sqrtf((float)D)};
-  paged_prefill_wgmma<D><<<dim3(NH, q_tiles, splits), P_THREADS, P::SMEM,
-                           stream>>>(
+  PrefillArgs args{C,      NH,     NKV,
+                   nb,     bs,     MB,
+                   layer * nb,     pos0,
+                   n_valid, window, splits,
+                   1.4426950408889634f / sqrtf((float)D), slopes};
+  paged_prefill_wgmma<D, ALIBI><<<dim3(NH, q_tiles, splits), P_THREADS,
+                                  P::SMEM, stream>>>(
       qmap, kmap, vmap, static_cast<const int*>(table),
       static_cast<bf16*>(o), static_cast<float*>(ws),
       static_cast<int*>(tickets), args);
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_wgmma_any(const void* q, const void* ak, const void* av,
+                     const void* table, void* o, void* ws, void* tickets,
+                     int C, int NH, int NKV, int L, int nb, int bs, int MB,
+                     int layer, int pos0, int n_valid, int window,
+                     int splits, const void* slopes, cudaStream_t stream) {
+  const float* sl = static_cast<const float*>(slopes);
+  if (sl)
+    return launch_wgmma<D, true>(q, ak, av, table, o, ws, tickets, C, NH,
+                                 NKV, L, nb, bs, MB, layer, pos0, n_valid,
+                                 window, splits, sl, stream);
+  return launch_wgmma<D, false>(q, ak, av, table, o, ws, tickets, C, NH, NKV,
+                                L, nb, bs, MB, layer, pos0, n_valid, window,
+                                splits, sl, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; window <= 0 means no sliding window.
-// Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16; window <= 0 means no sliding window;
+// slopes: [NH] f32 ALiBi slopes or null.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int dstt_paged_prefill(const void* q, const void* ak,
                                   const void* av, const void* table, void* o,
                                   int C, int NH, int NKV, int D, int nb,
                                   int bs, int MB, long long layer_off,
                                   int pos0, int n_valid, int window,
-                                  int dtype, void* stream) {
+                                  const void* slopes, int dtype,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (C <= 0 || NKV <= 0 || NH % NKV != 0 || nb <= 0 || bs <= 0 || MB <= 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if (D == 32)
-      return launch<__nv_bfloat16, 32>(q, ak, av, table, o, C, NH, NKV, nb,
+      return launch_any<__nv_bfloat16, 32>(q, ak, av, table, o, C, NH, NKV, nb,
                                        bs, MB, layer_off, pos0, n_valid,
-                                       window, st);
+                                       window, slopes, st);
     if (D == 64)
-      return launch<__nv_bfloat16, 64>(q, ak, av, table, o, C, NH, NKV, nb,
+      return launch_any<__nv_bfloat16, 64>(q, ak, av, table, o, C, NH, NKV, nb,
                                        bs, MB, layer_off, pos0, n_valid,
-                                       window, st);
+                                       window, slopes, st);
     if (D == 128)
-      return launch<__nv_bfloat16, 128>(q, ak, av, table, o, C, NH, NKV, nb,
+      return launch_any<__nv_bfloat16, 128>(q, ak, av, table, o, C, NH, NKV, nb,
                                         bs, MB, layer_off, pos0, n_valid,
-                                        window, st);
+                                        window, slopes, st);
   } else if (dtype == 0) {
     if (D == 32)
-      return launch<float, 32>(q, ak, av, table, o, C, NH, NKV, nb, bs, MB,
-                               layer_off, pos0, n_valid, window, st);
+      return launch_any<float, 32>(q, ak, av, table, o, C, NH, NKV, nb, bs, MB,
+                               layer_off, pos0, n_valid, window, slopes, st);
     if (D == 64)
-      return launch<float, 64>(q, ak, av, table, o, C, NH, NKV, nb, bs, MB,
-                               layer_off, pos0, n_valid, window, st);
+      return launch_any<float, 64>(q, ak, av, table, o, C, NH, NKV, nb, bs, MB,
+                               layer_off, pos0, n_valid, window, slopes, st);
     if (D == 128)
-      return launch<float, 128>(q, ak, av, table, o, C, NH, NKV, nb, bs, MB,
-                                layer_off, pos0, n_valid, window, st);
+      return launch_any<float, 128>(q, ak, av, table, o, C, NH, NKV, nb, bs, MB,
+                                layer_off, pos0, n_valid, window, slopes, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -533,22 +606,23 @@ extern "C" int dstt_paged_prefill_tma(const void* q, const void* ak,
                                       int C, int NH, int NKV, int D, int L,
                                       int nb, int bs, int MB, int layer,
                                       int pos0, int n_valid, int window,
-                                      int splits, void* stream) {
+                                      int splits, const void* slopes,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (C <= 0 || NKV <= 0 || NH % NKV != 0 || nb <= 0 || bs <= 0 ||
       MB <= 0 || L <= 0 || layer < 0 || layer >= L)
     return (int)cudaErrorInvalidValue;
   if (D == 32)
-    return launch_wgmma<32>(q, ak, av, table, o, ws, tickets, C, NH, NKV, L,
+    return launch_wgmma_any<32>(q, ak, av, table, o, ws, tickets, C, NH, NKV, L,
                             nb, bs, MB, layer, pos0, n_valid, window, splits,
-                            st);
+                            slopes, st);
   if (D == 64)
-    return launch_wgmma<64>(q, ak, av, table, o, ws, tickets, C, NH, NKV, L,
+    return launch_wgmma_any<64>(q, ak, av, table, o, ws, tickets, C, NH, NKV, L,
                             nb, bs, MB, layer, pos0, n_valid, window, splits,
-                            st);
+                            slopes, st);
   if (D == 128)
-    return launch_wgmma<128>(q, ak, av, table, o, ws, tickets, C, NH, NKV,
+    return launch_wgmma_any<128>(q, ak, av, table, o, ws, tickets, C, NH, NKV,
                              L, nb, bs, MB, layer, pos0, n_valid, window,
-                             splits, st);
+                             splits, slopes, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -65,7 +65,8 @@ from .ragged_ops import (decode_multi_step, decode_step, decode_tokens,
                          init_arena, prefill_chunks, prefill_full,
                          prefill_full_supported, sample_tokens_compiled)
 
-__all__ = ["RaggedInferenceEngineConfig", "InferenceEngineV2"]
+__all__ = ["RaggedInferenceEngineConfig", "InferenceEngineV2",
+           "LayoutNotCarried"]
 
 
 @dataclass
@@ -92,6 +93,12 @@ class RaggedInferenceEngineConfig:
     # fresh full prompts within budget run one dense causal flash
     # forward (prefill_full); False forces chunked everywhere
     full_prompt_prefill: bool = True
+
+
+class LayoutNotCarried(NotImplementedError, ValueError):
+    """A block feature the fused tensor-parallel programs do not carry:
+    not carried by the port (NotImplementedError), and the reference's
+    ValueError for the same configuration."""
 
 
 def _resolve_device(device) -> torch.device:
@@ -267,15 +274,21 @@ class InferenceEngineV2:
 
     def _refuse_layout(self, params) -> None:
         """Refuse what the fused programs do not serve, with the
-        reference's reasons (`params` may hold shapes only)."""
-        from .tp_ragged import tp_fused_unsupported_reason
+        reference's reasons (`params` may hold shapes only).  A block
+        feature those programs do not carry (post-norm and parallel
+        residual blocks, ALiBi, windows, embedding projections) raises
+        `LayoutNotCarried`, a NotImplementedError that is also the
+        reference's ValueError."""
+        from .tp_ragged import tp_fused_unsupported_reason, tp_unported
         meta_arena = init_arena(self.cfg, self.config.num_blocks,
                                 self.config.block_size, "meta",
                                 merged=self.config.arena_merged)
         reason = tp_fused_unsupported_reason(self.cfg, self.config, params,
                                              meta_arena)
         if reason is not None:
-            raise ValueError(
+            err = (LayoutNotCarried if tp_unported(self.cfg, params)
+                   else ValueError)
+            raise err(
                 f"tp_collectives='fused' cannot serve this configuration: "
                 f"{reason} — the reference's tp_collectives='xla' (GSPMD) "
                 f"path serves it, and is not carried by the PyTorch port "

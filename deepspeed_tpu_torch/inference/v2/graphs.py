@@ -31,7 +31,11 @@ again.  What a capture relies on:
   lives as long as the graph;
 - the wrappers' launch counters move while capturing, where no kernel
   launches: each program records how far each counter moved, takes it
-  back, and adds it again at every replay.
+  back, and adds it again at every replay;
+- the model's per-layer windows are host ints, fixed in each launch at
+  capture, and its ALiBi slopes one device tensor made before any
+  capture and held here (`ragged_ops._slopes`); the per-architecture
+  switches (windows, positions, block kind) are in every program's key.
 """
 from __future__ import annotations
 
@@ -45,7 +49,8 @@ from ...ops import _scratch
 from ...ops.lora_matmul import LoraRows, lora_delta
 from ...ops.paged_attention import paged_decode_attention
 from ...ops.paged_merged import merged_decode_attention
-from .ragged_ops import decode_multi_step, decode_tokens, write_rows
+from .ragged_ops import (_slopes, decode_multi_step, decode_tokens,
+                         write_rows)
 
 __all__ = ["DecodeGraphs", "COUNTED"]
 
@@ -124,6 +129,11 @@ class DecodeGraphs:
         self._pool = None
         self.captures = 0
         self.replays = 0
+        # the slopes every captured launch reads by address
+        self.slopes = _slopes(cfg, self.device)
+        self._arch = (cfg.pos_emb, cfg.alibi_scaled, cfg.sliding_window,
+                      cfg.sliding_window_layers, cfg.post_norm,
+                      cfg.parallel_residual)
 
     # -- the programs -----------------------------------------------------
     def decode_tokens(self, params, arena, tokens, seq_lens, block_tables,
@@ -216,7 +226,7 @@ class DecodeGraphs:
             host["lora_plan"] = plan
             host["lora_ids"] = lrows.ids.astype(np.int64)
             key += (("lora", n_tiles, n_base),)
-        key += (tuple(sorted(host)), id(generator))
+        key += (tuple(sorted(host)), id(generator), self._arch)
         where = _where(arena, lora)
         if where != self._where:
             # the arena or the LoRA stacks moved: every graph read the old

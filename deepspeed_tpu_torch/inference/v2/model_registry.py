@@ -2,8 +2,10 @@
 
 Counterpart of `deepspeed_tpu/inference/v2/model_registry.py`: maps an
 architecture name to a model family's config preset and builds the ragged
-engine.  The port serves the pre-norm sequential dense families (gpt2,
-llama, qwen2); the reference's other architectures are refused by name.
+engine (`build_engine`), or builds it from an HF checkpoint
+(`build_hf_engine`, through `models/hf_loader.py`).  The port serves the
+dense families gpt2, llama, qwen2, mistral, falcon, opt and bloom; the
+reference's other architectures are refused by name.
 """
 from __future__ import annotations
 
@@ -12,20 +14,27 @@ from typing import Optional
 from ...models import get_model_config
 from .engine_v2 import InferenceEngineV2, RaggedInferenceEngineConfig
 
-__all__ = ["ARCH_REGISTRY", "arch_config", "build_engine"]
+__all__ = ["ARCH_REGISTRY", "arch_config", "build_engine",
+           "build_hf_engine"]
 
 # arch name (HF-style, lowercased) -> models/ family key
 ARCH_REGISTRY = {
     "gpt2": "gpt2",
     "llama": "llama",
     "llama_v2": "llama",
+    "mistral": "mistral",
     "qwen2": "qwen2",
     "qwen_v2": "qwen2",
+    "falcon": "falcon",
+    "opt": "opt",
+    "bloom": "bloom",
 }
 
-# architectures the reference serves that the port does not carry yet
-_NOT_PORTED = ("mistral", "mixtral", "qwen_v2_moe", "qwen2_moe", "phi",
-               "phi3", "falcon", "opt", "bloom", "gptneox")
+# architectures the reference serves that the port does not carry yet:
+# the MoE families wait for MoE serving, phi / phi3 / gptneox for head
+# dims 80 and 96 in the paged and flash kernels (and scaled RoPE)
+_NOT_PORTED = ("mixtral", "qwen_v2_moe", "qwen2_moe", "phi", "phi3",
+               "gptneox")
 
 
 def arch_config(arch: str, size: Optional[str] = None, **kw):
@@ -54,4 +63,19 @@ def build_engine(arch: str, size: Optional[str] = None, params=None,
     `comm.init_distributed` and serves its shard on its own card."""
     cfg = arch_config(arch, size, **cfg_kw)
     return InferenceEngineV2(cfg, params=params, config=engine_config,
+                             device=device)
+
+
+def build_hf_engine(model, engine_config: Optional[
+        RaggedInferenceEngineConfig] = None, dtype=None, device="cuda",
+        **cfg_kw) -> InferenceEngineV2:
+    """HF torch model (or name/path) -> ragged serving engine with the
+    converted weights (`models.hf_loader.load_hf_model`; `cfg_kw`
+    overrides config fields).  A name or path needs `transformers`;
+    without it, pass any object with `.config` (the HF config's
+    attributes, e.g. a `types.SimpleNamespace` from its config.json) and
+    `.state_dict()`.  `device` as in `build_engine`."""
+    from ...models.hf_loader import load_hf_model
+    bundle, params = load_hf_model(model, dtype=dtype, **cfg_kw)
+    return InferenceEngineV2(bundle, params=params, config=engine_config,
                              device=device)

@@ -32,10 +32,18 @@ Where the reference differs by nature of JAX, the port does this instead:
 - The seeded sampling streams (Philox4x64-10, `philox_word`) run in
   int64 lanes holding 32-bit words, since torch's uint32 covers few ops.
 
-Scope: the pre-norm sequential dense families (the config refuses the
-rest).  No grammar masks or drafts.  Tensor parallelism runs the same
-layer pieces (`_qkv`, `_mlp_delta`, `_KVSlots`, `_kernels`,
-`decode_loop`) through `tp_ragged.py`.
+- Sliding windows and ALiBi ride the paged kernels on the card (the
+  reference serves them with a dense gather in XLA): the layers are a
+  Python loop, so each layer's window is a plain int per launch
+  (`layer_windows`), and the slopes are one [NH] f32 device tensor
+  (`_slopes`), passed to every launch.
+
+Scope: the dense families the config takes — pre-norm, post-norm and
+parallel-residual blocks, rope, learned or ALiBi positions, windows for
+every layer or one a layer.  No grammar masks or drafts.  Tensor
+parallelism runs the same layer pieces (`_qkv`, `_mlp_delta`,
+`_KVSlots`, `_kernels`, `decode_loop`) through `tp_ragged.py`, for the
+pre-norm sequential blocks without windows or ALiBi.
 """
 from __future__ import annotations
 
@@ -44,8 +52,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ...models.transformer import (TransformerConfig, _dense, _embed_in,
-                                   _head_hidden, _mlp_block, _norm, _rope)
+from ...models.transformer import (TransformerConfig, _block_out, _dense,
+                                   _embed_in, _head_hidden, _mlp_block,
+                                   _norm, _rope, alibi_slopes,
+                                   layer_windows)
 from ...ops.attention import causal_attention
 from ...ops.lora_matmul import LoraRows, lora_delta, lora_delta_reference
 from ...ops.paged_attention import (paged_decode_attention,
@@ -207,6 +217,23 @@ def _kernels(cfg: TransformerConfig, arena):
             (paged_prefill_reference if plain else paged_prefill_attention))
 
 
+# the ALiBi slopes on each device, by (heads, head dim, scaled)
+_SLOPES: Dict[tuple, torch.Tensor] = {}
+
+
+def _slopes(cfg: TransformerConfig, device):
+    """The model's ALiBi slopes (`alibi_slopes`) as one [NH] f32 tensor on
+    `device`, made once and kept (a captured decode group reads it by
+    address, so it is made before any capture); None without ALiBi."""
+    if cfg.pos_emb != "alibi":
+        return None
+    key = (cfg.num_heads, cfg.head_dim, cfg.alibi_scaled,
+           torch.device(device))
+    if key not in _SLOPES:
+        _SLOPES[key] = torch.from_numpy(alibi_slopes(cfg)).to(device)
+    return _SLOPES[key]
+
+
 def _attn_out(cfg: TransformerConfig, lp, li: int, attn, lora, rows):
     """The attention output projection of the flat rows `attn` [N, NH*D],
     plus the gather-LoRA epilogue when `lora` is given (the reference's
@@ -232,14 +259,15 @@ def _mlp_delta(cfg: TransformerConfig, x, lp, col=_dense, row=_dense):
 
 
 def _qkv(cfg: TransformerConfig, lp, x, lead, positions, proj=_dense):
-    """Pre-norm and q/k/v projections of the flat rows `x` [N, H]
-    (`proj(h, w, b)`, `_dense` or a tensor-parallel stage whose output
-    rows and heads are this rank's), reshaped to `lead + (heads, D)`, with
-    RoPE at `positions` (shaped `lead`; a 1-D lead is rotated as a
-    length-1 sequence)."""
+    """Pre-norm (none for a post-norm block) and q/k/v projections of the
+    flat rows `x` [N, H] (`proj(h, w, b)`, `_dense` or a tensor-parallel
+    stage whose output rows and heads are this rank's), reshaped to
+    `lead + (heads, D)`, with RoPE at `positions` (shaped `lead`; a 1-D
+    lead is rotated as a length-1 sequence)."""
     D = cfg.head_dim
-    h = _norm(x, lp["attn_norm_scale"], lp.get("attn_norm_bias"), cfg.norm,
-              cfg.norm_eps)
+    h = x if cfg.post_norm else _norm(x, lp["attn_norm_scale"],
+                                      lp.get("attn_norm_bias"), cfg.norm,
+                                      cfg.norm_eps)
     q = proj(h, lp["wq"], lp.get("bq")).reshape(*lead, -1, D)
     k = proj(h, lp["wk"], lp.get("bk")).reshape(*lead, -1, D)
     v = proj(h, lp["wv"], lp.get("bv")).reshape(*lead, -1, D)
@@ -322,11 +350,12 @@ def prefill_chunks(cfg: TransformerConfig, params, arena, tokens, pos0s,
     tables_t = _dev(tables, dev, torch.int32)
     live = [i for i in range(NC) if active[i] and n_valids[i] > 0]
     attend = _kernels(cfg, arena)[1]
+    slopes = _slopes(cfg, dev)
     # each chunk's rows carry its slot (the reference's repeat by C)
     rows = (None if lora is None else
             LoraRows(np.repeat(_host(adapter_ids).astype(np.int32), C)))
 
-    for li in range(cfg.num_layers):
+    for li, window in enumerate(layer_windows(cfg)):
         lp = _layer(params, li)
         q, k, v = _qkv(cfg, lp, x, (NC, C), pos_t)
         slots.write(arena, li, k.reshape(NC * C, *k.shape[2:]),
@@ -335,11 +364,10 @@ def prefill_chunks(cfg: TransformerConfig, params, arena, tokens, pos0s,
         for i in live:
             attn[i] = attend(q[i], arena["k"], arena["v"], tables_t[i],
                              int(pos0s[i]), int(n_valids[i]),
-                             sliding_window=cfg.sliding_window,
-                             layer_idx=li)
-        x = x + _attn_out(cfg, lp, li, attn.reshape(NC * C, NH * D), lora,
-                          rows)
-        x = x + _mlp_delta(cfg, x, lp)
+                             sliding_window=window, layer_idx=li,
+                             alibi_slopes=slopes)
+        x = _block_out(cfg, lp, x, _attn_out(
+            cfg, lp, li, attn.reshape(NC * C, NH * D), lora, rows))
 
     last = np.clip(n_valids - 1, 0, C - 1)
     xl = x.reshape(NC, C, H)[_dev(np.arange(NC), dev), _dev(last, dev)]
@@ -347,13 +375,19 @@ def prefill_chunks(cfg: TransformerConfig, params, arena, tokens, pos0s,
 
 
 def prefill_full_supported(cfg: TransformerConfig) -> bool:
-    """Gate for the fresh-full-prompt fast path (the reference's gate; the
-    config already refuses alibi, windows, post_norm and parallel
-    residuals).  It does not look at the head dim, so scheduling is the
-    same on every device: on the card a head dim the flash kernel does
-    not take (it takes 32, 64 and 128) raises in the kernel's wrapper
-    rather than moving the prompt to another path."""
-    return cfg.pos_emb in ("rope", "learned")
+    """Gate for the fresh-full-prompt fast path (the reference's gate):
+    the dense causal flash path takes rope or learned positions in the
+    pre-norm sequential block; ALiBi, windows (for every layer or one a
+    layer), post-norm and parallel-residual blocks keep the chunked path,
+    whose paged kernels carry their masks and bias.  It does not look at
+    the head dim, so scheduling is the same on every device: on the card
+    a head dim the flash kernel does not take (it takes 32, 64 and 128)
+    raises in the kernel's wrapper rather than moving the prompt to
+    another path."""
+    return (cfg.pos_emb in ("rope", "learned")
+            and cfg.sliding_window is None
+            and cfg.sliding_window_layers is None and not cfg.post_norm
+            and not cfg.parallel_residual)
 
 
 def prefill_full(cfg: TransformerConfig, params, arena, tokens, lens,
@@ -385,8 +419,8 @@ def prefill_full(cfg: TransformerConfig, params, arena, tokens, lens,
         slots.write(arena, li, k.reshape(NS * S, *k.shape[2:]),
                     v.reshape(NS * S, *v.shape[2:]))
         attn = causal_attention(q, k, v, plain=cfg.attn_impl == "jnp")
-        x = x + _dense(attn.reshape(NS * S, NH * D), lp["wo"], lp.get("bo"))
-        x = x + _mlp_delta(cfg, x, lp)
+        x = _block_out(cfg, lp, x, _dense(attn.reshape(NS * S, NH * D),
+                                          lp["wo"], lp.get("bo")))
 
     last = np.clip(lens - 1, 0, S - 1)
     xl = x.reshape(NS, S, H)[_dev(np.arange(NS), dev), _dev(last, dev)]
@@ -404,14 +438,16 @@ def _decode_layers(cfg: TransformerConfig, params, arena, tokens, pos_t,
     NH, D = cfg.num_heads, cfg.head_dim
     x = _embed(cfg, params, tokens.long(), pos_t)                  # [B, H]
     attend = _kernels(cfg, arena)[0]
-    for li in range(cfg.num_layers):
+    slopes = _slopes(cfg, x.device)
+    for li, window in enumerate(layer_windows(cfg)):
         lp = _layer(params, li)
         q, k, v = _qkv(cfg, lp, x, (B,), pos_t)
         slots.write(arena, li, k, v)
         attn = attend(q, arena["k"], arena["v"], tables_t, lens_t,
-                      layer_idx=li)
-        x = x + _attn_out(cfg, lp, li, attn.reshape(B, NH * D), lora, rows)
-        x = x + _mlp_delta(cfg, x, lp)
+                      layer_idx=li, sliding_window=window,
+                      alibi_slopes=slopes)
+        x = _block_out(cfg, lp, x, _attn_out(
+            cfg, lp, li, attn.reshape(B, NH * D), lora, rows))
     return _lm_logits(cfg, params, x), arena
 
 

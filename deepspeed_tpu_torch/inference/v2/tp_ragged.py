@@ -47,7 +47,7 @@ from ...ops.tp_matmul import ag_matmul, matmul_rs, tile_matmul
 from .ragged_ops import (_KVSlots, _dev, _host, _kernels, _layer,
                          _mlp_delta, _operand, _qkv, decode_loop)
 
-__all__ = ["TPServingPrograms", "tp_fused_unsupported_reason"]
+__all__ = ["TPServingPrograms", "tp_fused_unsupported_reason", "tp_unported"]
 
 
 def _leaf_paths(params, prefix=""):
@@ -57,6 +57,17 @@ def _leaf_paths(params, prefix=""):
             yield from _leaf_paths(v, path + ".")
         else:
             yield path
+
+
+def tp_unported(cfg, params) -> bool:
+    """Whether `cfg` has a block feature that the fused programs do not
+    carry (the first refusals of `tp_fused_unsupported_reason`): post-norm
+    or parallel-residual blocks, ALiBi, windows, embedding projections."""
+    return bool(cfg.post_norm or cfg.parallel_residual
+                or cfg.pos_emb not in ("rope", "learned")
+                or cfg.sliding_window is not None
+                or cfg.sliding_window_layers is not None
+                or "embed_in_proj" in params or "embed_out_proj" in params)
 
 
 def tp_fused_unsupported_reason(cfg, config, params, arena) -> Optional[str]:

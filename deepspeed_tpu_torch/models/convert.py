@@ -62,6 +62,7 @@ def params_from_jax(np_tree: Dict, cfg: TransformerConfig, device,
         else:
             out[key] = _leaf(val, device, dtype)
     L, H = cfg.num_layers, cfg.hidden_size
+    E, V = cfg.embed_proj_dim or H, cfg.vocab_size
     want = {"wq": (L, H, cfg.num_heads * cfg.head_dim),
             "wk": (L, H, cfg.kv_heads * cfg.head_dim),
             "wv": (L, H, cfg.kv_heads * cfg.head_dim),
@@ -71,6 +72,17 @@ def params_from_jax(np_tree: Dict, cfg: TransformerConfig, device,
         if got != shape:
             raise ValueError(f"layers.{k} has shape {got}, config wants "
                              f"{shape}")
+    # the leaves of the embedding and the head, those of the narrow
+    # embedding space (OPT-350m), the embedding norm (bloom) and the head
+    # bias included, wherever the tree has them
+    top = {"tok_embed": (V, E), "embed_in_proj": (E, H),
+           "embed_out_proj": (H, E), "embed_norm_scale": (H,),
+           "embed_norm_bias": (H,), "lm_head": (E, V),
+           "lm_head_bias": (V,)}
+    for k, shape in top.items():
+        if k in out and tuple(out[k].shape) != shape:
+            raise ValueError(f"{k} has shape {tuple(out[k].shape)}, config "
+                             f"wants {shape}")
     return out
 
 

@@ -6,14 +6,20 @@ leading layer dim (`layers.wq` is `[L, H, NH*D]`, in-first), so a JAX
 checkpoint converts without a transpose (`models/convert.py`).  Where the
 reference scans over that dim, the port loops over it in Python.
 
-Scope: the pre-norm sequential dense families (gpt2, llama, qwen2) —
-rope or learned positions, rmsnorm or layernorm, swiglu or gelu, GQA,
-qkv/output biases.  The config refuses the features the port does not
-carry yet, by name, at construction (`NotImplementedError`).
+Scope: the dense families gpt2, llama, qwen2, mistral, falcon, opt and
+bloom — rope, learned or ALiBi positions, rmsnorm or layernorm, swiglu,
+gelu or relu, GQA and MQA, qkv/output biases, sliding windows (one for
+every layer, or one a layer), pre-norm, post-norm (OPT-350m) and
+parallel-residual (Falcon) blocks, embedding norms and projections.  The
+config refuses the features the port does not carry yet, by name, at
+construction (`NotImplementedError`): rope scaling, MoE layers, dropout,
+tiled MLPs.
 
 Training (`_forward`, `_lm_loss`, `Transformer.loss_fn`) runs the same
-layer math with autograd: attention through the differentiable flash op
-(`ops/attention.causal_attention`), each layer optionally under a
+layer math with autograd (the pre-norm sequential block with rope or
+learned positions and no window; `training_refusal` names the rest, whose
+plain forward runs on the CPU only): attention through the differentiable
+flash op (`ops/attention.causal_attention`), each layer optionally under a
 checkpoint with a named remat policy (`runtime/activation_checkpointing`),
 and the loss optionally through the tiled fused logits+loss
 (`sequence/tiled.py`).  The layer stack may be given as the stacked dict
@@ -27,12 +33,15 @@ from dataclasses import dataclass
 from functools import partial
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 __all__ = ["TransformerConfig", "Transformer", "gpt2_config",
-           "llama_config", "qwen2_config", "init_params",
-           "dense_f32"]
+           "llama_config", "qwen2_config", "mistral_config",
+           "falcon_config", "opt_config", "bloom_config", "init_params",
+           "dense_f32", "alibi_slopes", "layer_windows",
+           "training_refusal"]
 
 
 @dataclass(frozen=True)
@@ -45,7 +54,10 @@ class TransformerConfig:
     # None -> 4*hidden (gelu) / 8/3*hidden rounded to 256 (swiglu)
     intermediate_size: Optional[int] = None
     max_seq_len: int = 1024
-    pos_emb: str = "learned"                    # learned | rope | none
+    pos_emb: str = "learned"                    # learned | rope | alibi | none
+    # falcon adds alibi BEFORE the 1/sqrt(D) score scaling, bloom after:
+    # the slopes carry the difference (`alibi_slopes`)
+    alibi_scaled: bool = False
     norm: str = "layernorm"                     # layernorm | rmsnorm
     # gelu (tanh) | gelu_exact | swiglu | relu
     activation: str = "gelu"
@@ -56,12 +68,14 @@ class TransformerConfig:
     qkv_bias: bool = False                      # qkv biases w/ rmsnorm (qwen2)
     embed_norm: bool = False                    # layernorm after tok embed
     head_bias: bool = False                     # bias on the lm head
-    post_norm: bool = False                     # refused
+    # OPT-350m block: the norms after each residual add
+    post_norm: bool = False
     embed_proj_dim: Optional[int] = None        # narrow embedding space
     final_norm: bool = True
-    parallel_residual: bool = False             # refused
-    sliding_window: Optional[int] = None        # refused
-    sliding_window_layers: Optional[Tuple[int, ...]] = None   # refused
+    parallel_residual: bool = False             # attn+mlp from the same x
+    sliding_window: Optional[int] = None        # local attention (mistral)
+    # qwen2-style per-layer windows (0 = full attention), num_layers long
+    sliding_window_layers: Optional[Tuple[int, ...]] = None
     norm_eps: float = 1e-5
     dropout: float = 0.0                        # != 0 refused
     dtype: torch.dtype = torch.bfloat16         # compute dtype
@@ -76,17 +90,8 @@ class TransformerConfig:
 
     def __post_init__(self):
         refused = []
-        if self.pos_emb == "alibi":
-            refused.append("alibi position bias")
-        elif self.pos_emb not in ("learned", "rope", "none"):
+        if self.pos_emb not in ("learned", "rope", "alibi", "none"):
             raise ValueError(f"unknown pos_emb {self.pos_emb!r}")
-        if self.sliding_window is not None or \
-                self.sliding_window_layers is not None:
-            refused.append("sliding-window attention")
-        if self.post_norm:
-            refused.append("post_norm blocks")
-        if self.parallel_residual:
-            refused.append("parallel_residual blocks")
         if self.rope_scaling is not None:
             refused.append("rope_scaling")
         if self.moe_experts > 1:
@@ -98,7 +103,23 @@ class TransformerConfig:
         if refused:
             raise NotImplementedError(
                 f"the PyTorch port does not carry {', '.join(refused)} yet "
-                f"(scope: pre-norm sequential dense gpt2/llama/qwen2)")
+                f"(scope: the dense gpt2/llama/qwen2/mistral/falcon/opt/"
+                f"bloom blocks)")
+        # the reference's own checks of the block features
+        if self.sliding_window_layers is not None:
+            if len(self.sliding_window_layers) != self.num_layers:
+                raise ValueError(
+                    f"sliding_window_layers has "
+                    f"{len(self.sliding_window_layers)} entries for "
+                    f"{self.num_layers} layers")
+            if self.sliding_window is not None:
+                raise ValueError(
+                    "set either sliding_window (homogeneous) or "
+                    "sliding_window_layers (per-layer), not both")
+        if self.post_norm and self.parallel_residual:
+            raise ValueError(
+                "post_norm (OPT-350m block) supports only the sequential "
+                "dense block")
         if self.norm not in ("layernorm", "rmsnorm"):
             raise ValueError(f"unknown norm {self.norm!r}")
         if self.activation not in ("gelu", "gelu_exact", "swiglu", "relu"):
@@ -187,6 +208,114 @@ def qwen2_config(size: str = "7b", **kw) -> TransformerConfig:
     base.update(presets[size])
     base.update(kw)
     return TransformerConfig(**base)
+
+
+def mistral_config(size: str = "7b", **kw) -> TransformerConfig:
+    presets = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=8,
+                     num_kv_heads=2, max_seq_len=512, sliding_window=256),
+        "7b": dict(hidden_size=4096, num_layers=32, num_heads=32,
+                   num_kv_heads=8, intermediate_size=14336,
+                   max_seq_len=8192, sliding_window=4096),
+    }
+    base = dict(pos_emb="rope", norm="rmsnorm", activation="swiglu",
+                tie_embeddings=False, vocab_size=32000)
+    base.update(presets[size])
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def falcon_config(size: str = "7b", **kw) -> TransformerConfig:
+    presets = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=8,
+                     num_kv_heads=1, max_seq_len=512, vocab_size=1024),
+        "7b": dict(hidden_size=4544, num_layers=32, num_heads=71,
+                   num_kv_heads=1, max_seq_len=2048, vocab_size=65024),
+    }
+    base = dict(pos_emb="rope", norm="layernorm", activation="gelu",
+                tie_embeddings=True, parallel_residual=True)
+    base.update(presets[size])
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def opt_config(size: str = "1.3b", **kw) -> TransformerConfig:
+    presets = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=8,
+                     max_seq_len=512, vocab_size=1024),
+        "1.3b": dict(hidden_size=2048, num_layers=24, num_heads=32,
+                     max_seq_len=2048, vocab_size=50272),
+        "13b": dict(hidden_size=5120, num_layers=40, num_heads=40,
+                    max_seq_len=2048, vocab_size=50272),
+    }
+    base = dict(pos_emb="learned", norm="layernorm", activation="relu",
+                tie_embeddings=True)
+    base.update(presets[size])
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def bloom_config(size: str = "7b", **kw) -> TransformerConfig:
+    presets = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=8,
+                     max_seq_len=512, vocab_size=1024),
+        "7b": dict(hidden_size=4096, num_layers=30, num_heads=32,
+                   max_seq_len=2048, vocab_size=250880),
+    }
+    base = dict(pos_emb="alibi", norm="layernorm", activation="gelu",
+                tie_embeddings=True, embed_norm=True)
+    base.update(presets[size])
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def _alibi_slopes(num_heads: int) -> np.ndarray:
+    """ALiBi per-head slopes [num_heads] f32 (the reference's)."""
+    p = 2 ** np.floor(np.log2(num_heads))
+    slopes = 2.0 ** (-8.0 * (np.arange(1, p + 1) / p))
+    if p < num_heads:
+        extra = 2.0 ** (-4.0 * (np.arange(1, 2 * (num_heads - p) + 1, 2)
+                                / p))
+        slopes = np.concatenate([slopes, extra])
+    return slopes[:num_heads].astype(np.float32)
+
+
+def alibi_slopes(cfg: TransformerConfig) -> Optional[np.ndarray]:
+    """[NH] f32 slopes of `cfg`'s ALiBi bias, divided by sqrt(D) for
+    `alibi_scaled` (Falcon-RW adds the bias before the score scale), so
+    every attention computes qk/sqrt(D) - slope (q_pos - k_pos); None
+    without ALiBi."""
+    if cfg.pos_emb != "alibi":
+        return None
+    slopes = _alibi_slopes(cfg.num_heads)
+    if cfg.alibi_scaled:
+        slopes = slopes / np.float32(math.sqrt(cfg.head_dim))
+    return slopes
+
+
+def layer_windows(cfg: TransformerConfig) -> Tuple[Optional[int], ...]:
+    """Each layer's sliding window: `sliding_window_layers[i]` (0: full
+    attention, None here), else `sliding_window` for every layer."""
+    if cfg.sliding_window_layers is not None:
+        return tuple(int(w) or None for w in cfg.sliding_window_layers)
+    return (cfg.sliding_window,) * cfg.num_layers
+
+
+def training_refusal(cfg: TransformerConfig) -> Optional[str]:
+    """What of `cfg` the port's training path does not carry, by name, or
+    None: the flash kernels take no ALiBi bias and no window, and the
+    post-norm and parallel-residual blocks are left to the same slice."""
+    names = [n for n, on in (
+        ("alibi", cfg.pos_emb == "alibi"),
+        ("sliding windows", cfg.sliding_window is not None
+         or cfg.sliding_window_layers is not None),
+        ("post_norm blocks", cfg.post_norm),
+        ("parallel residual blocks", cfg.parallel_residual)) if on]
+    if not names:
+        return None
+    return (f"training with {', '.join(names)} is not carried by the "
+            f"PyTorch port yet (its flash kernels take no bias and no "
+            f"window); these architectures are served, not trained")
 
 
 # ----------------------------------------------------------------------
@@ -393,25 +522,57 @@ def _mlp_block(cfg: TransformerConfig, lp, h, col=_dense, row=_dense):
     return row(h, lp["w_down"], lp.get("b_down"))
 
 
-def _layer(cfg: TransformerConfig, x, lp, positions):
-    """One pre-norm transformer block over the full sequence.  x: [B, S,
-    H] in the compute dtype; lp: this layer's weights."""
+def _alibi_bias(cfg: TransformerConfig, S: int, device):
+    """[1, NH, S, S] f32 additive score bias -slope (q_pos - k_pos)."""
+    slopes = torch.from_numpy(alibi_slopes(cfg)).to(device)
+    pos = torch.arange(S, device=device, dtype=torch.float32)
+    dist = pos[:, None] - pos[None, :]
+    return -(slopes[:, None, None] * dist[None])[None]
+
+
+def _layer(cfg: TransformerConfig, x, lp, positions, window=None):
+    """One transformer block over the full sequence: pre-norm sequential,
+    post-norm (`cfg.post_norm`) or parallel residual
+    (`cfg.parallel_residual`), as the reference's `_layer`.  x: [B, S, H]
+    in the compute dtype; lp: this layer's weights; `window`: this
+    layer's sliding window (None: full attention)."""
     from ..ops.attention import causal_attention
     B, S, _ = x.shape
     NH, NKV, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-    h = _norm(x, lp["attn_norm_scale"], lp.get("attn_norm_bias"), cfg.norm,
-              cfg.norm_eps)
+    x_in = x
+    h = x if cfg.post_norm else _norm(x, lp["attn_norm_scale"],
+                                      lp.get("attn_norm_bias"), cfg.norm,
+                                      cfg.norm_eps)
     q = _dense(h, lp["wq"], lp.get("bq")).reshape(B, S, NH, D)
     k = _dense(h, lp["wk"], lp.get("bk")).reshape(B, S, NKV, D)
     v = _dense(h, lp["wv"], lp.get("bv")).reshape(B, S, NKV, D)
     if cfg.pos_emb == "rope":
         q = _rope(q, positions, cfg.rope_theta, cfg.rope_pct)
         k = _rope(k, positions, cfg.rope_theta, cfg.rope_pct)
-    attn = causal_attention(q, k, v, plain=cfg.attn_impl == "jnp")
-    x = x + _dense(attn.reshape(B, S, NH * D), lp["wo"], lp.get("bo"))
-    h = _norm(x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"), cfg.norm,
-              cfg.norm_eps)
-    return x + _mlp_block(cfg, lp, h)
+    bias = (_alibi_bias(cfg, S, x.device) if cfg.pos_emb == "alibi"
+            else None)
+    attn = causal_attention(q, k, v, plain=cfg.attn_impl == "jnp",
+                            bias=bias, sliding_window=window)
+    return _block_out(cfg, lp, x_in, _dense(attn.reshape(B, S, NH * D),
+                                            lp["wo"], lp.get("bo")))
+
+
+def _block_out(cfg: TransformerConfig, lp, x, attn_out):
+    """The rest of a layer after its attention output `attn_out`, on the
+    layer's input `x` (the reference's blocks): parallel residual
+    (attention and MLP both read x), post-norm (a norm after each
+    residual add) or pre-norm sequential."""
+    def mlp_norm(h):
+        return _norm(h, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"),
+                     cfg.norm, cfg.norm_eps)
+    if cfg.parallel_residual:
+        return x + attn_out + _mlp_block(cfg, lp, mlp_norm(x))
+    if cfg.post_norm:
+        x = _norm(x + attn_out, lp["attn_norm_scale"],
+                  lp.get("attn_norm_bias"), cfg.norm, cfg.norm_eps)
+        return mlp_norm(x + _mlp_block(cfg, lp, x))
+    x = x + attn_out
+    return x + _mlp_block(cfg, lp, mlp_norm(x))
 
 
 def _layer_params(layers, i: int) -> Dict[str, torch.Tensor]:
@@ -433,9 +594,13 @@ def _forward(cfg: TransformerConfig, params, input_ids, positions=None,
              return_hidden: bool = False, remat_policy: str = None):
     """f32 logits [B, S, V] for [B, S] token ids, or the final hidden
     states with `return_hidden`.  `remat_policy` names the checkpoint
-    policy when `cfg.remat` is set."""
+    policy when `cfg.remat` is set.  What `training_refusal` names runs
+    on the CPU only (the plain forward the tests hold against JAX's)."""
     B, S = input_ids.shape
     dt = cfg.dtype
+    refusal = training_refusal(cfg)
+    if refusal is not None and input_ids.device.type != "cpu":
+        raise NotImplementedError(refusal)
     if positions is None:
         positions = torch.arange(S, device=input_ids.device)[None].expand(
             B, S)
@@ -449,8 +614,9 @@ def _forward(cfg: TransformerConfig, params, input_ids, positions=None,
     if cfg.remat:
         from ..runtime.activation_checkpointing import checkpoint_wrapper
         layer_fn = checkpoint_wrapper(layer_fn, remat_policy)
-    for i in range(cfg.num_layers):
-        x = layer_fn(x, _layer_params(params["layers"], i), positions)
+    for i, window in enumerate(layer_windows(cfg)):
+        x = layer_fn(x, _layer_params(params["layers"], i), positions,
+                     window)
     if cfg.final_norm:
         x = _norm(x, params["final_norm_scale"],
                   params.get("final_norm_bias"), cfg.norm, cfg.norm_eps)

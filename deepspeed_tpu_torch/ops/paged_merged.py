@@ -35,13 +35,11 @@ __all__ = ["merged_decode_attention", "merged_prefill_attention",
 def merged_kernels_supported(NH: int, NKV: int, D: int,
                              op: str = "decode") -> bool:
     """What the kernels take: head dim 32, 64 or 128 and whole GQA groups
-    (decode: at most 8 q heads per kv head).  The reference's 128-lane
-    stripe conditions have no counterpart here."""
+    of any size.  The reference's 128-lane stripe conditions have no
+    counterpart here."""
     if op not in ("decode", "prefill"):
         raise ValueError(f"op must be 'decode' or 'prefill', got {op!r}")
-    if D not in (32, 64, 128) or NKV < 1 or NH % NKV:
-        return False
-    return op == "prefill" or NH // NKV <= 8
+    return D in (32, 64, 128) and NKV >= 1 and NH % NKV == 0
 
 
 def as_5d(arena, D: int):
@@ -54,64 +52,70 @@ def as_5d(arena, D: int):
 
 
 def merged_decode_reference(q, arena_k, arena_v, block_tables, lens,
-                            layer_idx=None):
+                            layer_idx=None, sliding_window=None,
+                            alibi_slopes=None):
     """Plain PyTorch version: `paged_decode_reference` on the 5-D view.
     q: [B, NH, D]; arena_k/v: [nb, bs, NKV*D] (or [L, ...] with
     `layer_idx`).  Returns [B, NH, D] in q.dtype."""
     D = q.shape[-1]
     return paged_attention.paged_decode_reference(
         q, as_5d(arena_k, D), as_5d(arena_v, D), block_tables, lens,
-        layer_idx)
+        layer_idx, sliding_window, alibi_slopes)
 
 
 def merged_decode_attention(q, arena_k, arena_v, block_tables, lens,
-                            layer_idx=None, variant: Optional[str] = None):
+                            layer_idx=None, variant: Optional[str] = None,
+                            sliding_window=None, alibi_slopes=None):
     """Paged decode over a merged arena (the reference's signature,
     without its `interpret` switch); shapes as in
-    `merged_decode_reference`; `variant` as in `paged_decode_attention`."""
+    `merged_decode_reference`; `variant`, `sliding_window` and
+    `alibi_slopes` as in `paged_decode_attention`."""
     if q.device.type == "cpu":
         return merged_decode_reference(q, arena_k, arena_v, block_tables,
-                                       lens, layer_idx)
+                                       lens, layer_idx, sliding_window,
+                                       alibi_slopes)
     if q.device.type != "cuda":
         raise ValueError(f"no merged decode kernel for device {q.device}")
     D = q.shape[-1]
     out, used = paged_attention.launch(q, as_5d(arena_k, D),
                                        as_5d(arena_v, D), block_tables,
-                                       lens, layer_idx, variant)
+                                       lens, layer_idx, variant,
+                                       sliding_window, alibi_slopes)
     count(merged_decode_attention, used)
     return out
 
 
 def merged_prefill_reference(q, arena_k, arena_v, block_table, pos0,
                              n_valid, sliding_window: Optional[int] = None,
-                             layer_idx=None):
+                             layer_idx=None, alibi_slopes=None):
     """Plain PyTorch version: `paged_prefill_reference` on the 5-D view.
     q: [C, NH, D]; arena_k/v: [nb, bs, NKV*D] (or [L, ...] with
     `layer_idx`).  Returns [C, NH, D] in q.dtype."""
     D = q.shape[-1]
     return paged_prefill.paged_prefill_reference(
         q, as_5d(arena_k, D), as_5d(arena_v, D), block_table, pos0,
-        n_valid, sliding_window, layer_idx)
+        n_valid, sliding_window, layer_idx, alibi_slopes)
 
 
 def merged_prefill_attention(q, arena_k, arena_v, block_table, pos0, n_valid,
                              sliding_window: Optional[int] = None,
-                             layer_idx=None, variant: Optional[str] = None):
+                             layer_idx=None, variant: Optional[str] = None,
+                             alibi_slopes=None):
     """Blocked-flash prefill over a merged arena (the reference's
     signature, without its `interpret` switch); shapes as in
-    `merged_prefill_reference`; `variant` as in
+    `merged_prefill_reference`; `variant` and `alibi_slopes` as in
     `paged_prefill_attention`."""
     if q.device.type == "cpu":
         return merged_prefill_reference(q, arena_k, arena_v, block_table,
                                         pos0, n_valid, sliding_window,
-                                        layer_idx)
+                                        layer_idx, alibi_slopes)
     if q.device.type != "cuda":
         raise ValueError(f"no merged prefill kernel for device {q.device}")
     D = q.shape[-1]
     out, used = paged_prefill.launch(q, as_5d(arena_k, D),
                                      as_5d(arena_v, D), block_table, pos0,
                                      n_valid, sliding_window, layer_idx,
-                                     variant)
+                                     variant, alibi_slopes)
     count(merged_prefill_attention, used)
     return out
 

@@ -13,7 +13,11 @@ alone.  The wrappers count their launches in all and by variant.
 
 C chunk queries sit at absolute positions [pos0, pos0+C); block j of the
 table holds key positions [j*bs, (j+1)*bs); causal = key_pos <= q_pos,
-and a sliding window additionally masks key_pos <= q_pos - window.  Rows
+and a sliding window additionally masks key_pos <= q_pos - window.
+`alibi_slopes` [NH] f32 adds -slope[h] (q_pos - key_pos) to each score
+qk/sqrt(D) (the slopes carry a model's 1/sqrt(D) where it adds the bias
+before the scale, as Falcon-RW does); the kernels add it in f32 before
+the running max, so the architectures differ in the slopes only.  Rows
 c >= n_valid are padding: the caller drops them, and neither version
 promises zeros there.  Every C >= 1 is served (the TPU kernel's VMEM
 tile plan has no counterpart on the card).
@@ -37,8 +41,8 @@ __all__ = ["paged_prefill_attention", "paged_prefill_reference",
 NEG_INF = -1e30
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _I, _I, _I,
-         _I, _P)
-_TMA_ARGS = (_P,) * 7 + (_I,) * 13 + (_P,)
+         _P, _I, _P)
+_TMA_ARGS = (_P,) * 7 + (_I,) * 13 + (_P, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 VARIANTS = ("tma", "mma", "f32")
@@ -49,12 +53,13 @@ CTAS_PER_SM = 2    # the TMA kernel's CTAs resident on one SM
 
 def paged_prefill_reference(q, arena_k, arena_v, block_table, pos0,
                             n_valid, sliding_window: Optional[int] = None,
-                            layer_idx=None):
+                            layer_idx=None, alibi_slopes=None):
     """Plain PyTorch version (dense gather, f32 softmax and products).
 
     q: [C, NH, D]; arena_k/v: [nb, bs, NKV, D], or the full
     [L, nb, bs, NKV, D] arena with `layer_idx`; block_table: [MB];
-    pos0/n_valid: ints.  Returns [C, NH, D] in q.dtype."""
+    pos0/n_valid: ints; `alibi_slopes`: [NH] f32 or None.  Returns
+    [C, NH, D] in q.dtype."""
     if layer_idx is not None:
         arena_k, arena_v = arena_k[layer_idx], arena_v[layer_idx]
     C, NH, D = q.shape
@@ -70,6 +75,9 @@ def paged_prefill_reference(q, arena_k, arena_v, block_table, pos0,
     s = torch.einsum("cnd,mnd->ncm", q.float(), kk) / math.sqrt(D)
     key_pos = torch.arange(max_kv, device=q.device)[None, None, :]
     q_pos = (int(pos0) + torch.arange(C, device=q.device))[None, :, None]
+    if alibi_slopes is not None:
+        dist = (q_pos - key_pos).clamp_min(0).float()
+        s = s - alibi_slopes.to(q.device).float()[:, None, None] * dist
     mask = key_pos <= q_pos
     if sliding_window is not None:
         mask &= key_pos > q_pos - sliding_window
@@ -212,12 +220,15 @@ def named_variant(want: str, variant: Optional[str], what: str) -> str:
 
 def launch(q, arena_k, arena_v, block_table, pos0, n_valid,
            sliding_window: Optional[int] = None, layer_idx=None,
-           variant: Optional[str] = None):
+           variant: Optional[str] = None, alibi_slopes=None):
     """Check the inputs and launch a kernel on `q`'s CUDA device (the one
     `prefill_variant` names, or `variant` where it can take the call),
     without counting the launch (the wrappers over it count theirs).
     Returns (out, the variant launched)."""
+    from .paged_attention import check_extras
     _check(q, arena_k, arena_v, block_table, layer_idx, sliding_window)
+    check_extras(q, sliding_window, alibi_slopes)
+    slopes = None if alibi_slopes is None else alibi_slopes.data_ptr()
     C, NH, D = q.shape
     nb, bs, NKV = arena_k.shape[-4], arena_k.shape[-3], arena_k.shape[-2]
     MB = block_table.shape[0]
@@ -246,7 +257,8 @@ def launch(q, arena_k, arena_v, block_table, pos0, n_valid,
                 None if ws is None else ws.data_ptr(),
                 None if tickets is None else tickets.data_ptr(), C, NH, NKV,
                 D, L, nb, bs, MB, int(layer_idx or 0), int(pos0),
-                int(n_valid), int(sliding_window or 0), plan.splits, stream)
+                int(n_valid), int(sliding_window or 0), plan.splits, slopes,
+                stream)
     else:
         layer_off = (0 if layer_idx is None
                      else int(layer_idx) * nb * bs * NKV * D)
@@ -254,7 +266,7 @@ def launch(q, arena_k, arena_v, block_table, pos0, n_valid,
         rc = fn(q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
                 block_table.data_ptr(), out.data_ptr(), C, NH, NKV, D, nb,
                 bs, MB, layer_off, int(pos0), int(n_valid),
-                int(sliding_window or 0), _DTYPES[q.dtype], stream)
+                int(sliding_window or 0), slopes, _DTYPES[q.dtype], stream)
     _build.check(rc, f"paged prefill ({variant})")
     return out, variant
 
@@ -267,21 +279,23 @@ def count(wrapper, variant: str) -> None:
 
 def paged_prefill_attention(q, arena_k, arena_v, block_table, pos0,
                             n_valid, sliding_window: Optional[int] = None,
-                            layer_idx=None, variant: Optional[str] = None):
+                            layer_idx=None, variant: Optional[str] = None,
+                            alibi_slopes=None):
     """Blocked-flash prefill (see module docstring); shapes as in
     `paged_prefill_reference`.  With `layer_idx`, arena_k/v keep their
     full [L, nb, bs, NKV, D] shape and the kernel reads the layer in
     place.  `variant` (the card only) names a kernel other than the
     rule's where it can take the call ("mma" for a bf16 call the rule
-    sends to "tma"), and raises where it cannot."""
+    sends to "tma"), and raises where it cannot.  `alibi_slopes` ([NH]
+    f32 on the card) selects the kernels' bias build."""
     if q.device.type == "cpu":
         return paged_prefill_reference(q, arena_k, arena_v, block_table,
                                        pos0, n_valid, sliding_window,
-                                       layer_idx)
+                                       layer_idx, alibi_slopes)
     if q.device.type != "cuda":
         raise ValueError(f"no paged prefill kernel for device {q.device}")
     out, used = launch(q, arena_k, arena_v, block_table, pos0, n_valid,
-                       sliding_window, layer_idx, variant)
+                       sliding_window, layer_idx, variant, alibi_slopes)
     count(paged_prefill_attention, used)
     return out
 

@@ -314,12 +314,18 @@ def initialize(loss_fn: Callable = None, params=None, config=None,
     `torch.Generator` (the model's `init_params` by default, seeded from
     the config's `seed`).  `plain_kernels=True` runs the plain versions
     throughout: the model's attention and the optimizer's `update` (never
-    `update_fused`).  Returns the engine."""
+    `update_fused`).  A model with ALiBi, windows, post-norm or
+    parallel-residual blocks raises `NotImplementedError` by name
+    (`models.transformer.training_refusal`).  Returns the engine."""
     cfg = DeepSpeedTPUConfig.from_json(config or {}, world_size=1)
     policy = cfg.activation_checkpointing.policy
     remat_policy(policy)   # refuse an unported policy before any work
     if model is not None:
         mcfg = model.cfg
+        from ..models.transformer import training_refusal
+        refusal = training_refusal(mcfg)
+        if refusal is not None:
+            raise NotImplementedError(refusal)
         if plain_kernels:
             mcfg = dataclasses.replace(mcfg, attn_impl="jnp")
         model = type(model)(mcfg)

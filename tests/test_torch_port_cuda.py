@@ -2228,3 +2228,198 @@ def test_unseeded_replays_draw_fresh_numbers(card):
         runs[seeded] = outs
     assert (runs[False][0][:, :8] != runs[False][1][:, :8]).any()
     np.testing.assert_array_equal(runs[True][0], runs[True][1])
+
+
+# ----------------------------------------------------------------------
+# the paged kernels' sliding window, ALiBi slopes and groups above 8
+# (Mistral, Bloom, Falcon, Falcon-RW)
+# ----------------------------------------------------------------------
+def _alibi(NH, D, kind):
+    """bloom's slopes (after the 1/sqrt(D) scale) or falcon-rw's (before
+    it: divided by sqrt(D)), on the card; None without ALiBi."""
+    if kind is None:
+        return None
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+    cfg = get_model_config("bloom", "tiny", hidden_size=NH * D,
+                           num_heads=NH, alibi_scaled=kind == "falcon")
+    return torch.from_numpy(alibi_slopes(cfg)).cuda()
+
+
+PAGED_FEATURE_DTYPES = pytest.mark.parametrize(
+    "dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+
+
+@PAGED_FEATURE_DTYPES
+@pytest.mark.parametrize("NH,NKV,D,bs,window,alibi", [
+    (32, 8, 128, 64, 4096, None), (32, 8, 128, 64, 100, "falcon"),
+    (32, 32, 128, 64, None, "bloom"), (64, 8, 128, 128, 1, "bloom"),
+    (71, 1, 64, 64, None, None), (71, 1, 64, 64, 100, "falcon"),
+    (12, 1, 64, 16, 16, "bloom"), (32, 4, 64, 32, None, "falcon")])
+def test_paged_decode_window_alibi_and_groups(card, dtype, NH, NKV, D, bs,
+                                              window, alibi):
+    """Rows before, at and past the window (4600 and 4700 past Mistral's
+    4096), inactive rows; the rule's kernel and (bf16) the mma.sync pair
+    against the plain version, reruns and the merged view bit for bit."""
+    rng = np.random.RandomState(NH + D + bs)
+    L, MB = 2, 5120 // bs
+    lens = np.asarray([4599, 4700, 99, 100, -1, 4095, 0, 37], np.int32)
+    nb = sum(int(n) // bs + 1 for n in lens if n >= 0) + 4
+    ak, av = (_rnd(card, dtype, L, nb, bs, NKV, D) for _ in range(2))
+    tables = torch.from_numpy(_live_tables(rng, lens, MB, nb, bs)).cuda()
+    q = _rnd(card, dtype, lens.size, NH, D)
+    kw = dict(layer_idx=1, sliding_window=window,
+              alibi_slopes=_alibi(NH, D, alibi))
+    args = (q, ak, av, tables, torch.from_numpy(lens).cuda())
+    want = "tma" if dtype == torch.bfloat16 else "f32"
+    assert tdecode.decode_variant(dtype, D, bs, NH // NKV) == want
+    before = _by_variant(tdecode.paged_decode_attention)
+    got = tdecode.paged_decode_attention(*args, **kw)
+    assert _by_variant(tdecode.paged_decode_attention)[want] == \
+        before[want] + 1
+    ref = tdecode.paged_decode_reference(*args, **kw)
+    _close(got, ref, ATOL[dtype], RTOL[dtype])
+    assert (got[torch.from_numpy(lens < 0).cuda()] == 0).all()
+    assert torch.equal(got, tdecode.paged_decode_attention(*args, **kw))
+    if dtype == torch.bfloat16:
+        old = tdecode.paged_decode_attention(*args, variant="mma", **kw)
+        _close(old, ref, ATOL[dtype], RTOL[dtype])
+    mk, mv = (t.view(L, nb, bs, NKV * D) for t in (ak, av))
+    assert torch.equal(got, tmerged.merged_decode_attention(
+        q, mk, mv, tables, args[-1], **kw))
+
+
+@PAGED_FEATURE_DTYPES
+@pytest.mark.parametrize("C,NH,NKV,D,pos0,n_valid,window,bs,alibi", [
+    (256, 32, 32, 128, 1024, 256, None, 64, "bloom"),
+    (256, 32, 32, 128, 1024, 256, None, 64, "falcon"),
+    (256, 32, 8, 128, 4500, 256, 4096, 64, None),
+    (64, 32, 8, 128, 300, 64, 100, 64, "falcon"),
+    (256, 71, 1, 64, 0, 200, None, 64, None),
+    (128, 71, 1, 64, 100, 100, 1, 64, "falcon"),
+    (70, 12, 1, 64, 100, 61, 16, 16, "bloom"),
+    (70, 64, 8, 128, 100, 61, 100, 128, "bloom")])
+def test_paged_prefill_alibi_window_and_groups(card, dtype, C, NH, NKV, D,
+                                               pos0, n_valid, window, bs,
+                                               alibi):
+    rng = np.random.RandomState(C + pos0 + bs)
+    L = 2
+    MB = -(-(pos0 + C) // bs) + 3
+    nb = MB + 5
+    ak, av = (_rnd(card, dtype, L, nb, bs, NKV, D) for _ in range(2))
+    table = torch.from_numpy(_live_tables(
+        rng, [pos0 + n_valid - 1], MB, nb, bs)[0]).cuda()
+    q = _rnd(card, dtype, C, NH, D)
+    kw = dict(sliding_window=window, layer_idx=1,
+              alibi_slopes=_alibi(NH, D, alibi))
+    args = (q, ak, av, table, pos0, n_valid)
+    got = tprefill.paged_prefill_attention(*args, **kw)
+    ref = tprefill.paged_prefill_reference(*args, **kw)
+    _close(got[:n_valid], ref[:n_valid], ATOL[dtype], RTOL[dtype])
+    assert torch.equal(got, tprefill.paged_prefill_attention(*args, **kw))
+    if dtype == torch.bfloat16:
+        old = tprefill.paged_prefill_attention(*args, variant="mma", **kw)
+        _close(old[:n_valid], ref[:n_valid], ATOL[dtype], RTOL[dtype])
+    mk, mv = (t.view(L, nb, bs, NKV * D) for t in (ak, av))
+    assert torch.equal(got, tmerged.merged_prefill_attention(
+        q, mk, mv, table, pos0, n_valid, **kw))
+
+
+@pytest.mark.parametrize("variant", ["tma", "mma"])
+def test_windowed_decode_never_reads_values_before_the_window(card, variant):
+    """Every arena row before a row's window start holds NaN (also inside
+    the window's first tile): the output is finite and equals the plain
+    version on the arena with those rows zeroed — the walk starts at the
+    window's tile and skips the masked rows of it."""
+    rng = np.random.RandomState(11)
+    L, bs, NKV, NH, D, W = 1, 16, 2, 8, 64, 100
+    lens = np.asarray([700, 333, 50], np.int32)
+    MB = 48
+    nb = sum(int(n) // bs + 1 for n in lens) + 2
+    # each row's live blocks its own (the NaN rows of one row must not
+    # lie in another row's window)
+    perm, used = rng.permutation(nb), 0
+    tables = np.zeros((lens.size, MB), np.int32)
+    for b, n in enumerate(lens):
+        live = int(n) // bs + 1
+        tables[b, :live] = perm[used:used + live]
+        used += live
+    ak, av = (_rnd(card, torch.bfloat16, L, nb, bs, NKV, D)
+              for _ in range(2))
+    clean = [t.clone() for t in (ak, av)]
+    for b, n in enumerate(lens):
+        for pos in range(max(0, int(n) + 1 - W)):
+            blk, off = tables[b, pos // bs], pos % bs
+            for t, c in zip((ak, av), clean):
+                t[0, blk, off] = float("nan")
+                c[0, blk, off] = 0.0
+    q = _rnd(card, torch.bfloat16, lens.size, NH, D)
+    tab, lens_t = (torch.from_numpy(a).cuda() for a in (tables, lens))
+    got = tdecode.paged_decode_attention(q, ak, av, tab, lens_t, layer_idx=0,
+                                         variant=variant, sliding_window=W)
+    assert torch.isfinite(got).all()
+    ref = tdecode.paged_decode_reference(q, *clean, tab, lens_t, layer_idx=0,
+                                         sliding_window=W)
+    _close(got, ref, ATOL[torch.bfloat16], RTOL[torch.bfloat16])
+
+
+def test_paged_kernels_refuse_bad_window_and_slopes(card):
+    q = _rnd(card, torch.bfloat16, 2, 8, 64)
+    ak, av = (_rnd(card, torch.bfloat16, 1, 4, 16, 2, 64) for _ in range(2))
+    tables = torch.zeros(2, 4, dtype=torch.int32, device="cuda")
+    lens = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="sliding_window"):
+        tdecode.paged_decode_attention(q, ak, av, tables, lens, layer_idx=0,
+                                       sliding_window=0)
+    for bad in (torch.ones(8, device="cuda", dtype=torch.bfloat16),
+                torch.ones(4, device="cuda"), torch.ones(8)):
+        with pytest.raises(ValueError, match="alibi_slopes"):
+            tdecode.paged_decode_attention(q, ak, av, tables, lens,
+                                           layer_idx=0, alibi_slopes=bad)
+        with pytest.raises(ValueError, match="alibi_slopes"):
+            tprefill.paged_prefill_attention(q, ak, av, tables[0], 0, 2,
+                                             layer_idx=0, alibi_slopes=bad)
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("mistral", dict(sliding_window=64)), ("bloom", {}), ("falcon", {}),
+    ("falcon", dict(pos_emb="alibi", alibi_scaled=True)),
+    ("opt", dict(post_norm=True, final_norm=False, embed_proj_dim=128))])
+def test_arch_engine_matches_plain_engine_f32(card, arch, kw):
+    """Each architecture's f32 engine through the kernels against the same
+    engine through the plain versions: prefill (chunked: none of these
+    takes the full-prompt path) and a greedy burst and group, captured,
+    with equal tokens; no plain version on the kernel path."""
+    ecfg = RaggedInferenceEngineConfig(num_blocks=64, block_size=16,
+                                       max_blocks_per_seq=32, max_seqs=4,
+                                       prefill_chunk_size=64,
+                                       max_prefill_tokens_per_step=128)
+    eng = build_engine(arch, "tiny", dtype=torch.float32,
+                       engine_config=ecfg, **kw)
+    plain = InferenceEngineV2(eng.cfg, params=eng.params, config=ecfg,
+                              device="cuda", plain_kernels=True)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, eng.cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 70, 200)]
+    uids = list(range(len(prompts)))
+    calls = dict(decode=tdecode.paged_decode_attention.launches,
+                 prefill=tprefill.paged_prefill_attention.launches)
+    outs = []
+    for e in (eng, plain):
+        e.put(uids, prompts)
+        while any(e.query(u) is None for u in uids):
+            e.step()
+        first = {u: e.query(u).copy() for u in uids}
+        for u in uids:
+            e.state.seqs[u].generated.append(int(first[u].argmax()))
+        burst = e.decode_burst_step(uids=uids, n_steps=4)
+        group = e.decode_multi_step(uids=uids, k=4)
+        outs.append((first, burst, group))
+        for u in uids:
+            e.flush(u)
+    (f1, b1, g1), (f2, b2, g2) = outs
+    for u in uids:
+        np.testing.assert_allclose(f1[u], f2[u], rtol=1e-4, atol=1e-4)
+        assert np.asarray(b1[u]).tolist() == np.asarray(b2[u]).tolist()
+        assert g1[u].tolist() == g2[u].tolist()
+    assert tdecode.paged_decode_attention.launches > calls["decode"]
+    assert tprefill.paged_prefill_attention.launches > calls["prefill"]

@@ -14,7 +14,9 @@ greedy token chains.
 Also here: the entry points default to the card (and raise without one),
 and every feature the port does not carry yet is refused by name (the
 "seeded" and "multi_step" cases now hold what stays refused beside those
-features: drafts with seeds, and grammar automata on a step group).
+features: drafts with seeds, and grammar automata on a step group; the
+block features now served — ALiBi, windows, post-norm and parallel
+residual — are refused for training).
 """
 import jax
 import jax.numpy as jnp
@@ -135,8 +137,17 @@ def test_build_engine_defaults_to_the_card(monkeypatch):
     ids=["alibi", "window", "post_norm", "parallel_residual",
          "rope_scaling", "moe"])
 def test_config_refuses_features_not_ported(kw):
+    """rope scaling and MoE layers: the config refuses them.  ALiBi,
+    windows, post-norm and parallel-residual blocks are served now; what
+    the port does not carry of them is training, which `initialize`
+    refuses by name."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import Transformer
     with pytest.raises(NotImplementedError, match="PyTorch port"):
-        get_model_config("llama", "tiny", **kw)
+        cfg = get_model_config("llama", "tiny", dtype=torch.float32, **kw)
+        initialize(model=Transformer(cfg),
+                   config={"train_micro_batch_size_per_gpu": 1},
+                   device="cpu")
 
 
 def _tiny_engine(**engine_kw):

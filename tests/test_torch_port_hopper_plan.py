@@ -569,11 +569,11 @@ def test_paged_decode_variant_by_dtype_head_dim_block_and_group(dtype, D, bs,
 @pytest.mark.parametrize("dtype,D,G,err", [
     (torch.float16, 128, 1, TypeError), (torch.int8, 64, 1, TypeError),
     (BF16, 48, 1, ValueError), (BF16, 256, 1, ValueError),
-    (BF16, 128, 9, ValueError), (F32, 128, 16, ValueError)])
+    (BF16, 128, 0, ValueError), (F32, 128, -1, ValueError)])
 def test_paged_variants_refuse_what_no_kernel_takes(dtype, D, G, err):
     with pytest.raises(err):
         tdecode.decode_variant(dtype, D, 64, G)
-    if G <= 8:
+    if G >= 1:
         with pytest.raises(err):
             tprefill.prefill_variant(dtype, D, 64)
 

@@ -187,7 +187,10 @@ def test_merged_kernels_supported_and_views():
     assert tmerged.merged_kernels_supported(32, 32, 128, op="prefill")
     assert tmerged.merged_kernels_supported(8, 2, 32)
     assert not tmerged.merged_kernels_supported(8, 2, 48)
-    assert not tmerged.merged_kernels_supported(32, 2, 64)     # group 16
+    # groups above 8 run in passes of 8 heads (Falcon-7B: 71 on one)
+    assert tmerged.merged_kernels_supported(32, 2, 64)         # group 16
+    assert tmerged.merged_kernels_supported(71, 1, 64)
+    assert not tmerged.merged_kernels_supported(8, 3, 64)      # NH % NKV
     assert tmerged.merged_kernels_supported(32, 2, 64, op="prefill")
     arena = torch.zeros(2, 3, 4, 2 * 64)
     view = tmerged.as_5d(arena, 64)
