@@ -10,7 +10,8 @@ Phases (any failure exits non-zero and prints no result):
      `deepspeed_tpu_torch/csrc` (one nvcc per source, all in parallel);
   1. hold each kernel against its plain PyTorch version on the card, at
      the serving and training paths' shapes and at edge cases (GQA,
-     ragged lengths, head dims 32/64/128, f32), and time both (device time
+     ragged lengths, head dims 32/64/128, and 80/96 for the paged kernels
+     and the flash forward, f32), and time both (device time
      from torch.profiler; CUDA events where its sessions keep missing
      device events, as each row's `clocks` says) beside the card's bound
      for the same work;
@@ -137,7 +138,14 @@ Phases (any failure exits non-zero and prints no result):
      rerun's device time and the idle share against the run's wall; an
      f32 run at 4 layers whose greedy chains of 16 tokens must equal the
      plain engine's (a differing token at a plain top-2 margin below
-     ARCH_F32_TIE is printed, past it the run fails).  Then Mistral-7B at
+     ARCH_F32_TIE is printed, past it the run fails).  Then phi-2 (head
+     dim 80, partial rotary, parallel block) at `--layers`, Phi-3-mini in
+     its 128k geometry (head dim 96, `max_seq_len` 131072, longrope over
+     the original 4096 with seeded factor lists: two prompts of 4600
+     tokens in the long band, one of 4090 whose decode crosses 4096, five
+     short ones through `prefill_full`, the flash forward at D 96) at
+     `--layers`, and GPT-NeoX-20B (head dim 96, 64 heads) at full width
+     and 4 layers (cut for time), the same way.  Then Mistral-7B at
      4 layers on the merged arena (rows 6 and 7), equal to the 5-D
      engine's, and `build_hf_engine` on the card from an HF config
      namespace and a state dict (no `transformers` there).  The kernels
@@ -149,6 +157,12 @@ over block sizes 16-128, groups 1-8, head dims 32-128, windows, ragged
 lens and chunks, reruns bit-identical, beside the mma.sync kernels they
 replaced (timed in the same call); phases 2-4, 8, 9, 13 and 14 fail on a
 paged launch off "tma".
+Phase 1 also holds the paged kernels at head dims 80 and 96 (block sizes
+16, 64, 128, groups 1, 4, 8, window None and 100, ALiBi off and on, bf16
+on the TMA and mma.sync kernels and f32, the merged view bit for bit)
+and the flash forward there (bf16, f32), and times phi-2's, Phi-3-mini's
+and GPT-NeoX-20B's decode and prefill (5-D and merged) beside their
+bounds and the flash forward at [4,512,32,96] beside SDPA.
 Phase 1 also holds the paged kernels with a sliding window (None, 1,
 100, 4096), ALiBi slopes (off, bloom's, falcon-rw's) and groups of 1, 4,
 8 and 71 at D 64 and 128, bf16 on the TMA and mma.sync kernels and f32,
@@ -1673,22 +1687,17 @@ def _feature_run(torch, what, variants, call, ref, rows=None):
     return errs
 
 
-def check_paged_features(torch, np, pa, pp, pm, dev):
-    """The paged decode and prefill kernels with a sliding window, ALiBi
-    slopes and GQA groups above 8 against their plain versions: every
-    case on the rule's kernel ("tma" at bf16, "f32" at f32) and on the
-    mma.sync kernels (`variant="mma"`), reruns bit for bit, the merged
-    wrappers on the same bytes bit for bit the 5-D kernels.  Then the
-    timed shapes: Mistral-7B's decode with and without its window (the
-    windowed walk must read fewer key tiles and take less time), Falcon-7B's
-    group-71 decode, Bloom-7b1's prefill with and without ALiBi.  Returns
-    ({decode row keys}, {prefill row keys})."""
-    rng = np.random.RandomState(18)
-    g = torch.Generator(device=dev).manual_seed(18)
+def feature_cases(torch, np, pa, pp, pm, dev, decode_cases, prefill_cases,
+                  rng, g):
+    """Each decode and prefill case, bf16 on the rule's kernel ("tma")
+    and the mma.sync kernels (`variant="mma"`) and f32 ("f32"), against
+    the plain version, reruns bit for bit, the merged wrappers on the same
+    bytes bit for bit the 5-D kernels.  Returns the largest errors,
+    {"decode": e, "prefill": e}."""
     worst = {"decode": 0.0, "prefill": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         variants = ("tma", "mma") if dtype == torch.bfloat16 else ("f32",)
-        for NH, NKV, D, bs, lens_l, win, al in FEATURE_DECODE:
+        for NH, NKV, D, bs, lens_l, win, al in decode_cases:
             B, MB = len(lens_l), 5120 // bs
             nb = sum(max(n, 0) // bs + 1 for n in lens_l) + 4
             ak, av = (torch.randn(2, nb, bs, NKV, D, generator=g, device=dev,
@@ -1721,7 +1730,7 @@ def check_paged_features(torch, np, pa, pp, pm, dev):
             if not same:
                 fail(f"merged decode != 5-D decode at {(NH, NKV, D, bs)}")
             worst["decode"] = max(worst["decode"], *errs.values())
-        for C, NH, NKV, D, pos0, nv, win, bs, al in FEATURE_PREFILL:
+        for C, NH, NKV, D, pos0, nv, win, bs, al in prefill_cases:
             MB = 5120 // bs
             nb = (pos0 + nv) // bs + 8
             ak, av = (torch.randn(2, nb, bs, NKV, D, generator=g, device=dev,
@@ -1751,6 +1760,23 @@ def check_paged_features(torch, np, pa, pp, pm, dev):
             if not same:
                 fail(f"merged prefill != 5-D prefill at {(C, NH, NKV, D)}")
             worst["prefill"] = max(worst["prefill"], *errs.values())
+    return worst
+
+
+def check_paged_features(torch, np, pa, pp, pm, dev):
+    """The paged decode and prefill kernels with a sliding window, ALiBi
+    slopes and GQA groups above 8 against their plain versions: every
+    case on the rule's kernel ("tma" at bf16, "f32" at f32) and on the
+    mma.sync kernels (`variant="mma"`), reruns bit for bit, the merged
+    wrappers on the same bytes bit for bit the 5-D kernels.  Then the
+    timed shapes: Mistral-7B's decode with and without its window (the
+    windowed walk must read fewer key tiles and take less time), Falcon-7B's
+    group-71 decode, Bloom-7b1's prefill with and without ALiBi.  Returns
+    ({decode row keys}, {prefill row keys})."""
+    rng = np.random.RandomState(18)
+    g = torch.Generator(device=dev).manual_seed(18)
+    worst = feature_cases(torch, np, pa, pp, pm, dev, FEATURE_DECODE,
+                          FEATURE_PREFILL, rng, g)
 
     # Mistral-7B decode: 8 rows, six past the 4096 window
     NH, NKV, D, bs, W = 32, 8, 128, 64, 4096
@@ -1837,6 +1863,153 @@ def check_paged_features(torch, np, pa, pp, pm, dev):
                  mistral_window=window_row, falcon_group71=g71_row),
             dict(features_max_abs_err=worst["prefill"],
                  bloom_alibi=alibi_row))
+
+
+# ----------------------------------------------------------------------
+# phase 1: head dims 80 and 96 (phi-2, Phi-3, GPT-NeoX) in the paged
+# kernels (rows 2, 3, 6, 7) and the flash forward (row 1)
+# ----------------------------------------------------------------------
+# decode (NH, NKV, D, bs, lens, window, alibi): phi-2, Phi-3-mini and
+# GPT-NeoX-20B at the wave's positions; block sizes 16, 64 and 128,
+# groups 1, 4 and 8, window None and 100, ALiBi off, bloom's and
+# falcon-rw's slopes
+WIDE_DECODE = [
+    (32, 32, 80, 64, WAVE_LENS, None, None),
+    (32, 8, 80, 16, [5, 40, -1, 333, 1000, 2047], 100, "bloom"),
+    (16, 4, 80, 128, [-1, 0, 127, 128, 1499, 900], 100, "falcon"),
+    (32, 32, 96, 64, WAVE_LENS, None, None),
+    (64, 64, 96, 64, WAVE_LENS, 100, None),
+    (64, 8, 96, 128, [1000, 3000, 5, 0], None, "falcon"),
+    (32, 8, 96, 16, [4599, 311, 100, 99, 5, -1, 64, 0], 100, "bloom")]
+# prefill (C, NH, NKV, D, pos0, n_valid, window, bs, alibi)
+WIDE_PREFILL = [
+    (256, 32, 32, 80, 1024, 256, None, 64, None),
+    (70, 16, 4, 80, 100, 61, 100, 16, "bloom"),
+    (64, 32, 4, 80, 300, 64, None, 128, None),
+    (256, 32, 32, 96, 1024, 256, None, 64, None),
+    (256, 64, 64, 96, 1024, 250, 100, 64, None),
+    (128, 32, 4, 96, 300, 128, 100, 128, "falcon"),
+    (64, 16, 2, 96, 0, 64, None, 16, None)]
+# flash forward (B, S, NH, NKV, D, f32): Phi-3's serving shape first
+WIDE_FLASH = [(4, 512, 32, 32, 96, False), (1, 300, 32, 8, 80, False),
+              (2, 129, 64, 64, 96, False), (2, 200, 16, 16, 80, True),
+              (2, 129, 8, 2, 96, True)]
+# the timed shapes: (name, NH, NKV, D) at phase 1's main decode and
+# prefill positions
+WIDE_MODELS = [("phi-2", 32, 32, 80), ("phi-3-mini", 32, 32, 96),
+               ("gpt-neox-20b", 64, 64, 96)]
+
+
+def _decode_bound(np, NH, NKV, D, lens, MB):
+    keys = int(np.sum(np.maximum(np.asarray(lens), -1) + 1))
+    B = len(lens)
+    return bound_ms(4 * NH * D * keys, 2 * keys * NKV * D * 2
+                    + 2 * 2 * B * NH * D + 4 * B * MB + 4 * B)
+
+
+def check_wide_head_dims(torch, np, pa, pp, pm, fa, dev):
+    """Head dims 80 and 96: the paged decode and prefill kernels on every
+    variant (`feature_cases`: bf16 "tma" and mma.sync, "f32"; block
+    sizes 16-128, groups 1-8, window and ALiBi on and off; reruns and the
+    merged view bit for bit), and the flash forward (bf16 on the wgmma
+    kernel, f32) against their plain versions; then phi-2's, Phi-3-mini's
+    and GPT-NeoX-20B's decode and prefill at phase 1's main positions
+    (5-D and merged; tma, the mma.sync kernels and plain, beside each
+    bound) and the flash forward at [4,512,32,96] beside SDPA.  Returns
+    ({decode}, {prefill}, {flash}, {merged decode}, {merged prefill})
+    extras for the kernels line."""
+    import torch.nn.functional as F
+    rng = np.random.RandomState(19)
+    g = torch.Generator(device=dev).manual_seed(19)
+    worst = feature_cases(torch, np, pa, pp, pm, dev, WIDE_DECODE,
+                          WIDE_PREFILL, rng, g)
+    flash_err = 0.0
+    for B, S, NH, NKV, D, f32 in WIDE_FLASH:
+        q, k, v = _qkv(torch, g, dev, B, S, NH, NKV, D,
+                       torch.float32 if f32 else None)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        again = fa.flash_attention_fwd(q, k, v, causal=True)[0]
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        e, el = max_err(out, ref), max_err(lse, ref_lse)
+        ok = (feature_close(out, ref) if f32 else kernel_close(out, ref))
+        print(f"  flash_fwd B={B} S={S} NH={NH} NKV={NKV} D={D} "
+              f"{str(q.dtype)[6:]}: max|dout|={e:.3e} max|dlse|={el:.3e}, "
+              f"rerun equal: {torch.equal(out, again)}")
+        if not (ok and el <= LSE_ATOL and torch.equal(out, again)):
+            fail(f"flash_fwd disagrees with its plain version at "
+                 f"{(B, S, NH, NKV, D, q.dtype)}: {e} (bf16 tol {TOL_TEXT}, "
+                 f"f32 {PAGED_F32_TOL}), lse {el} (tol {LSE_ATOL})")
+        flash_err = max(flash_err, e, el)
+        del ref, ref_lse
+
+    dec_rows, pre_rows, mdec_rows, mpre_rows = {}, {}, {}, {}
+    for name, NH, NKV, D in WIDE_MODELS:
+        dec, pre = paged_main_inputs(torch, np, dev, NH, NKV, D)
+        MB = dec[3].shape[1]
+        d_bound, d_by = _decode_bound(np, NH, NKV, D, WAVE_LENS, MB)
+        p_bound, p_by = bound_ms(*_prefill_work(256, NH, NKV, D, 1024, 256,
+                                                None))
+        d = dict(ms=time_ms(lambda: pa.paged_decode_attention(
+                     *dec, layer_idx=1)),
+                 mma_ms=time_ms(lambda: pa.paged_decode_attention(
+                     *dec, layer_idx=1, variant="mma")),
+                 plain_ms=time_ms(lambda: pa.paged_decode_reference(
+                     *dec, layer_idx=1)),
+                 bound_ms=d_bound, bound_by=d_by,
+                 shape=f"q [8,{NH},{D}] arena [2,256,64,{NKV},{D}] bf16, "
+                       f"lens {WAVE_LENS}")
+        p = dict(ms=time_ms(lambda: pp.paged_prefill_attention(
+                     *pre, layer_idx=1)),
+                 mma_ms=time_ms(lambda: pp.paged_prefill_attention(
+                     *pre, layer_idx=1, variant="mma")),
+                 plain_ms=time_ms(lambda: pp.paged_prefill_reference(
+                     *pre, layer_idx=1)),
+                 bound_ms=p_bound, bound_by=p_by,
+                 shape=f"q [256,{NH},{D}] arena [2,256,64,{NKV},{D}] bf16, "
+                       f"pos0=1024 n_valid=256")
+        ak, av = (t.view(*t.shape[:3], NKV * D) for t in dec[1:3])
+        mdec, mpre = (dec[0], ak, av, *dec[3:]), (pre[0], ak, av, *pre[3:])
+        md = dict(ms=time_ms(lambda: pm.merged_decode_attention(
+                      *mdec, layer_idx=1)),
+                  plain_ms=time_ms(lambda: pm.merged_decode_reference(
+                      *mdec, layer_idx=1)),
+                  bound_ms=d_bound, bound_by=d_by,
+                  shape=f"q [8,{NH},{D}] arena [2,256,64,{NKV * D}] bf16")
+        mp = dict(ms=time_ms(lambda: pm.merged_prefill_attention(
+                      *mpre, layer_idx=1)),
+                  plain_ms=time_ms(lambda: pm.merged_prefill_reference(
+                      *mpre, layer_idx=1)),
+                  bound_ms=p_bound, bound_by=p_by,
+                  shape=f"q [256,{NH},{D}] arena [2,256,64,{NKV * D}] bf16")
+        print(f"  {name} (D {D}, NH {NH}, NKV {NKV}): paged_decode tma "
+              f"{d['ms']:.4f} ms (mma.sync {d['mma_ms']:.4f}, merged "
+              f"{md['ms']:.4f}, plain {d['plain_ms']:.4f}, bound "
+              f"{d_bound:.4f} {d_by}); paged_prefill tma {p['ms']:.4f} ms "
+              f"(mma.sync {p['mma_ms']:.4f}, merged {mp['ms']:.4f}, plain "
+              f"{p['plain_ms']:.4f}, bound {p_bound:.4f} {p_by})")
+        dec_rows[name], pre_rows[name] = d, p
+        mdec_rows[name], mpre_rows[name] = md, mp
+        del dec, pre, mdec, mpre
+
+    B, S, NH, NKV, D, _ = WIDE_FLASH[0]
+    q, k, v = _qkv(torch, g, dev, B, S, NH, NKV, D)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    f_bound, f_by = bound_ms(*_flash_fwd_work(B, S, NH, NKV, D))
+    flash = dict(ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v)),
+                 plain_ms=time_ms(lambda: fa.flash_attention_reference(
+                     q, k, v)),
+                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, is_causal=True)),
+                 bound_ms=f_bound, bound_by=f_by,
+                 shape=f"q/k/v [{B},{S},{NH},{D}] bf16 (Phi-3-mini)")
+    print(f"  flash_fwd at [{B},{S},{NH},{D}]: {flash['ms']:.4f} ms (SDPA "
+          f"{flash['library_ms']:.4f}, plain {flash['plain_ms']:.4f}, bound "
+          f"{f_bound:.4f} {f_by})")
+    return (dict(d80_d96_max_abs_err=worst["decode"], d80_d96=dec_rows),
+            dict(d80_d96_max_abs_err=worst["prefill"], d80_d96=pre_rows),
+            dict(d80_d96_max_abs_err=flash_err, d96=flash),
+            dict(d80_d96=mdec_rows), dict(d80_d96=mpre_rows))
 
 
 def sync(torch, dev="cuda"):
@@ -2783,6 +2956,30 @@ def multi_step_path(torch, np, cfg, params, config, prompts, counters, lm,
 MISTRAL_PROMPTS = [37, 64, 96, 128, 200, 311, 4600, 4600]
 # its engine: 80 blocks of 64 keys a sequence holds 4600 + the decode
 MISTRAL_ENGINE = dict(num_blocks=256, block_size=64, max_blocks_per_seq=80)
+# Phi-3-mini-128k: two prompts of 4600 tokens (their prefill takes the
+# long rope band), one of 4090 (its decode crosses the original 4096 and
+# switches band), five short ones (fresh prompts through prefill_full, the
+# flash forward at D 96)
+PHI3_PROMPTS = [37, 64, 96, 200, 311, 4090, 4600, 4600]
+PHI3_ENGINE = dict(num_blocks=256, block_size=64, max_blocks_per_seq=80)
+
+
+def phi3_longrope(np, orig=4096, ctx=131072, half=48, seed=1903):
+    """Phi-3-mini-128k's `rope_scaling` with seeded factor lists (the
+    published lists are not in the repository): 48 short and 48 long
+    factors a band (D 96), each rising from 1.0 as the published ones do
+    (short to about 2, long to about 60), and HF's attention factor for a
+    32x context, sqrt(1 + ln 32 / ln 4096)."""
+    rng = np.random.RandomState(seed)
+    short = 1.0 + np.cumsum(rng.uniform(0.0, 0.05, half))
+    long_ = np.sort(np.exp(np.linspace(0.0, np.log(60.0), half))
+                    * rng.uniform(0.95, 1.05, half))
+    short[0] = long_[0] = 1.0
+    af = float(np.sqrt(1.0 + np.log(ctx / orig) / np.log(orig)))
+    return ("longrope", af, float(orig),
+            tuple(float(x) for x in short), tuple(float(x) for x in long_))
+
+
 ARCH_BURST = 8            # decode_burst_step's tokens
 ARCH_K = 8                # decode_multi_step's group
 ARCH_F32_LAYERS = 4
@@ -2793,14 +2990,17 @@ ARCH_F32_STEPS = 16
 ARCH_F32_TIE = 1e-3
 
 
-def arch_models(layers):
+def arch_models(layers, np):
     """(name, family, size, overrides, prompt lens, engine overrides):
     Mistral-7B at `layers` (32: full depth), Bloom-7b1, Falcon-7B and a
     Falcon-RW-7B-style model (its published widths: 71 heads of 64, one kv
     head each, sequential blocks, ALiBi before the score scale) at full
     width and 4 layers, OPT-350m at full depth (24 layers of 1024, 16
     heads, its 512-wide embedding projected in and out, post-norm, no
-    final norm)."""
+    final norm); phi-2 (D 80) and Phi-3-mini in its 128k geometry (D 96,
+    longrope over the original 4096, `max_seq_len` 131072) at `layers`,
+    GPT-NeoX-20B (D 96, 64 heads of 6144) at full width and 4 layers (cut
+    for time, as Falcon-7B's)."""
     return [
         ("mistral-7b", "mistral", "7b", dict(num_layers=layers),
          MISTRAL_PROMPTS, MISTRAL_ENGINE),
@@ -2812,7 +3012,13 @@ def arch_models(layers):
         ("opt-350m", "opt", "1.3b",
          dict(hidden_size=1024, num_layers=24, num_heads=16,
               intermediate_size=4096, embed_proj_dim=512, post_norm=True,
-              final_norm=False), PROMPT_LENS, {})]
+              final_norm=False), PROMPT_LENS, {}),
+        ("phi-2", "phi", "2", dict(num_layers=layers), PROMPT_LENS, {}),
+        ("phi-3-mini-128k", "phi3", "mini",
+         dict(num_layers=layers, max_seq_len=131072,
+              rope_scaling=phi3_longrope(np)), PHI3_PROMPTS, PHI3_ENGINE),
+        ("gpt-neox-20b", "gptneox", "20b", dict(num_layers=4), PROMPT_LENS,
+         {})]
 
 
 def arch_serve(np, e, prompts, burst=True):
@@ -2932,13 +3138,21 @@ def arch_run(torch, np, name, family, size, kw, lens, ekw, counters):
     rng = np.random.RandomState(15)
     prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
+    scaling = cfg.rope_scaling
     print(f"phase 15: {name} (H={cfg.hidden_size}, L={cfg.num_layers}, "
           f"NH={cfg.num_heads}, NKV={cfg.kv_heads}, D={cfg.head_dim}, "
           f"FFN={cfg.ffn_dim}, V={cfg.vocab_size}, pos {cfg.pos_emb}"
-          f"{' scaled' if cfg.alibi_scaled else ''}, window "
+          f"{' scaled' if cfg.alibi_scaled else ''}, rope_pct "
+          f"{cfg.rope_pct}, rope_scaling "
+          f"{scaling[:3] if scaling else None}, window "
           f"{cfg.sliding_window}, post_norm {cfg.post_norm}, parallel "
           f"residual {cfg.parallel_residual}) bf16, random weights (seed 0) "
           f"built in {time.perf_counter() - t0:.1f} s; prompts {lens}")
+    from deepspeed_tpu_torch.models import get_model_config
+    full = get_model_config(family, size).num_layers
+    if cfg.num_layers < full:
+        print(f"phase 15: {name}: depth cut from its {full} layers to "
+              f"{cfg.num_layers} for time; widths as published")
     launches = {}
     out = {}
 
@@ -2956,6 +3170,18 @@ def arch_run(torch, np, name, family, size, kw, lens, ekw, counters):
         if c.__name__ in ("paged_decode_attention",
                           "paged_prefill_attention") and c.launches <= 0:
             fail(f"phase 15: {name}: {c.__name__} was never launched")
+    fresh = eng._use_prefill_full and min(lens) <= \
+        ecfg.max_prefill_tokens_per_step
+    if fresh and launches.get("flash_attention_fwd", 0) <= 0:
+        fail(f"phase 15: {name}: its fresh prompts never reached the flash "
+             f"forward (prefill_full)")
+    if scaling is not None and scaling[0] == "longrope":
+        crossed = [len(p) for p in prompts
+                   if len(p) <= scaling[2] < len(p) + 2 + ARCH_BURST]
+        print(f"phase 15: {name}: longrope over {scaling[2]:.0f} tokens: "
+              f"prompts of {[n for n in lens if n > scaling[2]]} take the "
+              f"long band in prefill, the decode of {crossed} crosses "
+              f"{scaling[2]:.0f} and switches band")
     for u, t in tokens.items():
         if (t.shape != (ARCH_BURST + ARCH_K,) or t.min() < 0
                 or t.max() >= cfg.vocab_size):
@@ -3118,7 +3344,7 @@ def arch_path(torch, np, layers, counters, merged_counters):
     architecture and the merged run)."""
     t_phase = time.perf_counter()
     runs = {}
-    for name, family, size, kw, lens, ekw in arch_models(layers):
+    for name, family, size, kw, lens, ekw in arch_models(layers, np):
         runs[name] = arch_run(torch, np, name, family, size, kw, lens, ekw,
                               counters)
     merged = arch_merged(torch, np, merged_counters)
@@ -5398,12 +5624,17 @@ def main(argv=None):
     evo_edges = check_evoformer_edges(torch, evo, ef, "cuda")
     dec_extra, pre_extra = check_paged_features(torch, np, pa, pp, pm,
                                                 "cuda")
-    kernels = [check_flash(torch, fa, "cuda"),
+    wide_dec, wide_pre, wide_flash, wide_mdec, wide_mpre = \
+        check_wide_head_dims(torch, np, pa, pp, pm, fa, "cuda")
+    mdec_row, mpre_row = check_merged(torch, np, pa, pp, pm, "cuda")
+    kernels = [{**check_flash(torch, fa, "cuda"), **wide_flash},
                *check_flash_bwd(torch, fa, "cuda"),
-               {**check_decode(torch, np, pa, "cuda"), **dec_extra},
-               {**check_prefill(torch, np, pp, "cuda"), **pre_extra},
+               {**check_decode(torch, np, pa, "cuda"), **dec_extra,
+                **wide_dec},
+               {**check_prefill(torch, np, pp, "cuda"), **pre_extra,
+                **wide_pre},
                check_lora(torch, np, lm, "cuda"),
-               *check_merged(torch, np, pa, pp, pm, "cuda"),
+               {**mdec_row, **wide_mdec}, {**mpre_row, **wide_mpre},
                check_adam8(torch, fa8, topt, "cuda"),
                *check_sparse(torch, np, sa, sf, "cuda"),
                *check_evoformer(torch, ef, "cuda"),
@@ -5455,9 +5686,12 @@ def main(argv=None):
     del params
     torch.cuda.empty_cache()
 
-    # phase 15 (after phase 14, before the training phases)
+    # phase 15 (after phase 14, before the training phases); the merged
+    # wrappers are counted in every run too (0 on the 5-D arenas)
     archs = arch_path(
-        torch, np, args.layers, serve_counters,
+        torch, np, args.layers,
+        serve_counters + [pm.merged_decode_attention,
+                          pm.merged_prefill_attention],
         [pm.merged_decode_attention, pm.merged_prefill_attention,
          pa.paged_decode_attention, pp.paged_prefill_attention])
     torch.cuda.empty_cache()

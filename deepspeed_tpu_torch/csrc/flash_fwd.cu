@@ -21,7 +21,9 @@
 // lands), through 4-D tensor maps over [B, S, heads, D], so rows past S
 // come back zero and a tile never crosses into the next batch.  Rows of
 // more than 64 bf16 are loaded as 64-column boxes (the 128-byte swizzle's
-// width; D 32 uses the 64-byte swizzle).  S = Q K^T is wgmma with both
+// width); D 32 and 96 as 32-column boxes (64-byte swizzle), D 80 as
+// 16-column boxes (32-byte swizzle), so P V is one wgmma of N = D over 3
+// or 5 column blocks (hopper_tile.cuh's RowTile).  S = Q K^T is wgmma with both
 // operands in shared memory (K is the K-major B); the online softmax runs
 // on the f32 accumulators with a base-2 exponent, masking only the
 // diagonal tile and the ragged end; O += P V takes P from registers
@@ -98,12 +100,10 @@ constexpr int F_STAGES = 3;     // K/V ring slots
 constexpr int F_THREADS = 384;  // producer warpgroup + two consumers
 constexpr float LOG2E = 1.4426950408889634f;
 
+// a row's boxes as RowTile<D> cuts them (CH = 64, 32 or 16 columns, each
+// with the swizzle of its width), and the CTA's tile sizes
 template <int D>
-struct FwdTile {
-  static constexpr int CH = D < 64 ? D : 64;     // elements per box row
-  static constexpr int NCH = D / CH;             // boxes per row
-  static constexpr int RB = CH * 2;              // bytes per box row
-  static constexpr hp::Swizzle SW = RB == 128 ? hp::SW128 : hp::SW64;
+struct FwdTile : hp::RowTile<D> {
   static constexpr int Q_BYTES = FQ * D * 2;
   static constexpr int KV_BYTES = FK * D * 2;
   static constexpr int SMEM = 1024 + Q_BYTES + F_STAGES * 2 * KV_BYTES;
@@ -216,7 +216,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                 int S, int NH, int NKV, int causal, float scale_log2) {
   using T = FwdTile<D>;
-  static_assert(D == 32 || D == 64 || D == 128, "head dim");
   extern __shared__ __align__(1024) uint8_t smem_tma[];
   uint8_t* Qs = hp::align1024(smem_tma);
   uint8_t* KVs = Qs + T::Q_BYTES;   // slot s: K, then V
@@ -425,6 +424,10 @@ extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v,
       return launch_wgmma<32>(q, k, v, o, lse, B, S, NH, NKV, causal, st);
     if (D == 64)
       return launch_wgmma<64>(q, k, v, o, lse, B, S, NH, NKV, causal, st);
+    if (D == 80)
+      return launch_wgmma<80>(q, k, v, o, lse, B, S, NH, NKV, causal, st);
+    if (D == 96)
+      return launch_wgmma<96>(q, k, v, o, lse, B, S, NH, NKV, causal, st);
     if (D == 128)
       return launch_wgmma<128>(q, k, v, o, lse, B, S, NH, NKV, causal, st);
   } else if (dtype == 0) {
@@ -432,6 +435,10 @@ extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v,
       return launch_f32<32>(q, k, v, o, lse, B, S, NH, NKV, causal, st);
     if (D == 64)
       return launch_f32<64>(q, k, v, o, lse, B, S, NH, NKV, causal, st);
+    if (D == 80)
+      return launch_f32<80>(q, k, v, o, lse, B, S, NH, NKV, causal, st);
+    if (D == 96)
+      return launch_f32<96>(q, k, v, o, lse, B, S, NH, NKV, causal, st);
     if (D == 128)
       return launch_f32<128>(q, k, v, o, lse, B, S, NH, NKV, causal, st);
   }

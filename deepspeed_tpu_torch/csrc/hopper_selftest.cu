@@ -9,7 +9,8 @@
 //     byte for byte, so the caller can check the swizzle pattern and the
 //     zero fill at the edges;
 //   dstt_selftest_wgmma: one warpgroup's out [64, N] f32 = A [64, 64] @ B
-//     over four k16 steps (N 16, 32, 64 or 128), A and B loaded by TMA
+//     over four k16 steps (N 16, 32, 64, 80, 96 or 128: 80 and 96 are
+//     the P V products of head dims 80 and 96), A and B loaded by TMA
 //     with the given swizzle, A from shared memory (K-major, or MN-major:
 //     the transposed operand of a [K, M] tile) or, at N 32-128, from
 //     registers, B K-major ([N, 64]) or MN-major ([64, N]);
@@ -175,6 +176,8 @@ int wgmma_by_n(int N, const void* a, const void* b, void* out, int swizzle,
     case 16: return launch_wgmma<16, TB>(a, b, out, swizzle, a_mode, st);
     case 32: return launch_wgmma<32, TB>(a, b, out, swizzle, a_mode, st);
     case 64: return launch_wgmma<64, TB>(a, b, out, swizzle, a_mode, st);
+    case 80: return launch_wgmma<80, TB>(a, b, out, swizzle, a_mode, st);
+    case 96: return launch_wgmma<96, TB>(a, b, out, swizzle, a_mode, st);
     case 128: return launch_wgmma<128, TB>(a, b, out, swizzle, a_mode, st);
   }
   return (int)cudaErrorInvalidValue;
@@ -340,7 +343,8 @@ extern "C" int dstt_selftest_tma_f32(const void* src, void* dst, int rank,
 // out [64, N] f32 = A @ (b_mn ? b [64, N] : b [N, 64]^T), bf16 row-major
 // inputs, A = a [64, 64] (a_mode 0: from shared memory, 1: from
 // registers, N 32-128 only) or a^T (a_mode 2: a [K, M] read MN-major);
-// N 16, 32, 64 or 128; swizzle 1-3 (32, 64, 128 B).
+// N 16, 32, 64, 80, 96 or 128 (an MN-major B's N a multiple of the
+// swizzle's width in elements); swizzle 1-3 (32, 64, 128 B).
 extern "C" int dstt_selftest_wgmma(const void* a, const void* b, void* out,
                                    int N, int b_mn, int a_mode, int swizzle,
                                    void* stream) {

@@ -19,8 +19,9 @@
 //   * wgmma: shared-memory matrix descriptors for the 32, 64 and 128 byte
 //     swizzles that TMA writes, fence / commit / wait, and
 //     wgmma.mma_async m64nNk16, bf16 in, f32 accumulators in registers,
-//     A from shared memory (`wgmma_ss`, N 16, 32, 64, 128; K-major or,
-//     TA = 1, MN-major) or from registers (`wgmma_rs`, N 32, 64, 128), B
+//     A from shared memory (`wgmma_ss`, N 16, 32, 64, 80, 96, 128;
+//     K-major or, TA = 1, MN-major) or from registers (`wgmma_rs`, N 32,
+//     64, 80, 96, 128), B
 //     K-major (TB = 0) or MN-major (TB = 1, the transpose bit that 16-bit
 //     types allow).
 //
@@ -460,13 +461,114 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "n"(TB));
 }
 
+// N 80 and 96: the P V products of head dims 80 and 96 (RowTile)
+template <int TB, int TA = 0>
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
+      "%25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39}"
+      ", %40, %41, p, 1, 1, %44, %43;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
+      "%25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39}"
+      ", {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TB, int TA = 0>
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
+      "%25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
+      ", %48, %49, p, 1, 1, %52, %51;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
+      "%25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
 template <int N, int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma N");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 80 || N == 96 ||
+                    N == 128,
+                "wgmma N");
   if constexpr (N == 16) wgmma_ss_n16<TB, TA>(d, da, db, scale_d);
   if constexpr (N == 32) wgmma_ss_n32<TB, TA>(d, da, db, scale_d);
   if constexpr (N == 64) wgmma_ss_n64<TB, TA>(d, da, db, scale_d);
+  if constexpr (N == 80) wgmma_ss_n80<TB, TA>(d, da, db, scale_d);
+  if constexpr (N == 96) wgmma_ss_n96<TB, TA>(d, da, db, scale_d);
   if constexpr (N == 128) wgmma_ss_n128<TB, TA>(d, da, db, scale_d);
 }
 
@@ -476,24 +578,40 @@ template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 128, "wgmma N");
+  static_assert(N == 32 || N == 64 || N == 80 || N == 96 || N == 128,
+                "wgmma N");
   if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, db, scale_d);
   if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, scale_d);
+  if constexpr (N == 80) wgmma_rs_n80<TB>(d, a, db, scale_d);
+  if constexpr (N == 96) wgmma_rs_n96<TB>(d, a, db, scale_d);
   if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, db, scale_d);
 }
 
 // ---------------------------------------------------------------------
-// attention tiles of D bf16 columns (the backward kernels' products)
-// Rows of D bf16 as TMA boxes of CH columns (64 at most, the 128-byte
-// swizzle's width; D 32 is one 64-byte box), NCH boxes a row, RB bytes a
-// box row.
+// attention tiles of D bf16 columns
+// Rows of D bf16 as TMA boxes of CH columns, NCH boxes a row, RB bytes a
+// box row, every box with the swizzle of its width: the widest of 64
+// (128-byte swizzle), 32 (64-byte) and 16 columns (32-byte) that divides
+// D.  So D 64 and 128 take 64-column boxes, D 32 one 32-column box, D 96
+// three 32-column boxes and D 80 five 16-column boxes: one swizzle a
+// tile, and the same descriptors (a K-major k16 slice at 32 kk bytes into
+// its box; an MN-major N dim in CH-column blocks LBO apart, so wgmma's N
+// = D is 5 or 3 such blocks).  Padding D 80 / 96 to 128 columns would
+// cost 1.6x / 1.33x the shared memory and tensor-core work; narrower
+// boxes cost more TMA issues and a narrower swizzle.
 template <int D>
 struct RowTile {
-  static_assert(D == 32 || D == 64 || D == 128, "head dim");
-  static constexpr int CH = D < 64 ? D : 64;
+  static_assert(D == 32 || D == 64 || D == 80 || D == 96 || D == 128,
+                "head dim");
+  static constexpr int CH = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
   static constexpr int NCH = D / CH;
   static constexpr int RB = CH * 2;
-  static constexpr Swizzle SW = RB == 128 ? SW128 : SW64;
+  static constexpr Swizzle SW = RB == 128 ? SW128 : RB == 64 ? SW64 : SW32;
+  // the swizzle's row pattern (the layouts at the top): 16-byte chunk j
+  // of box row r is stored at chunk j ^ row_xor(r)
+  __host__ __device__ static constexpr int row_xor(int r) {
+    return RB == 128 ? (r & 7) : RB == 64 ? ((r >> 1) & 3) : ((r >> 2) & 1);
+  }
 };
 
 __device__ __forceinline__ float ex2(float x) {

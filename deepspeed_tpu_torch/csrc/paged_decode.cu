@@ -33,8 +33,8 @@
 // flash-decoding).  `ops/paged_attention.py:decode_variant` names the
 // kernels a call takes:
 //
-// paged_decode_tma ("tma": bf16, D 32/64/128, a block size TMA can tile,
-// see paged_tile.cuh; B <= 4096): one wave of resident CTAs (as many as
+// paged_decode_tma ("tma": bf16, D 32/64/80/96/128, a block size TMA can
+// tile, see paged_tile.cuh; B <= 4096): one wave of resident CTAs (as many as
 // fit on every SM) walks a work list that each CTA builds alike from
 // lens: the key tiles (64 keys, whole pages at bs <= 64) of every
 // (sequence, work unit: a kv head, or one pass of a group above 8), from
@@ -60,7 +60,9 @@
 // workspace and takes an integer ticket of the (sequence, kv head), and
 // the CTA that takes the last one merges them in CTA order and resets
 // the ticket: one launch, no float atomics, a rerun bit for bit the same
-// (the grid is fixed for a card and a group size).
+// (the grid is fixed for a card and a group size).  At D 80 and 96 a row
+// is 10 or 12 chunks: the P V pass gives a key group 16 threads (a power
+// of two, for the shuffles that sum the groups), 6 or 4 of them idle.
 //
 // paged_decode_kernel + paged_decode_combine_kernel ("mma": other bf16
 // block sizes; "f32"), a split-KV pass and a merge:
@@ -70,7 +72,8 @@
 //      once.  Its 8 warps take keys w*4, w*4+1,
 //      ... in runs of 4 and issue the 4 rows' K and V loads (one vector
 //      load per lane per row) before any arithmetic, so their latencies
-//      overlap; lane i holds D/32 contiguous elements of q, k, v and of
+//      overlap; lane i holds D/32 (at D 80 and 96: 4, on the first D/4
+//      lanes) contiguous elements of q, k, v and of
 //      the f32 accumulators for each of the pass's <= 8 heads; the per-key dot
 //      is a 5-step xor-shuffle sum; the warps' (m, l, acc) states merge
 //      through shared memory into the split's partial state, written
@@ -151,7 +154,11 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ ak,
                     int NH, int NKV, int nb, int bs, int MB, int splits,
                     long layer_off, float sm_scale, int window,
                     const float* __restrict__ slopes) {
-  constexpr int PER = D / 32;   // elements per lane
+  // a lane's contiguous elements: D / 32 (one aligned vector load), or 4
+  // at D 80 and 96, whose rows then span the first D / 4 lanes (the other
+  // lanes hold zeros)
+  constexpr int PER = D == 32 || D == 64 || D == 128 ? D / 32 : 4;
+  constexpr int LANES = D / PER;
   __shared__ float sm_m[NW][MAXG];
   __shared__ float sm_l[NW][MAXG];
   __shared__ float sm_acc[NW][MAXG][D];
@@ -165,6 +172,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ ak,
   const int split = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const bool cols = LANES == 32 || lane < LANES;   // lane holds columns
   const int len = lens[b];
   const int n_keys = min(len + 1, MB * bs);   // lens < 0: no keys
   int k0 = split * KS;
@@ -174,7 +182,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ ak,
 
   float qf[MAXG][PER], acc[MAXG][PER], m[MAXG], l[MAXG];
   float slope[MAXG];
-  const long q_base = ((long)b * NH + h0) * D + lane * PER;
+  const long q_base = ((long)b * NH + h0) * D + (cols ? lane * PER : 0);
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     m[g] = -INFINITY;
@@ -182,26 +190,28 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ ak,
 #pragma unroll
     for (int e = 0; e < PER; ++e) acc[g][e] = 0.f;
     slope[g] = 0.f;
-    if (g < G) {
+    if (g < G && cols) {
       load_f<T, PER>(q + q_base + (long)g * D, qf[g]);
 #pragma unroll
       for (int e = 0; e < PER; ++e) qf[g][e] *= sm_scale;
-      if constexpr (ALIBI) slope[g] = slopes[h0 + g];
     } else {
 #pragma unroll
       for (int e = 0; e < PER; ++e) qf[g][e] = 0.f;
     }
+    if constexpr (ALIBI)
+      if (g < G) slope[g] = slopes[h0 + g];
   }
 
   const long row_stride = (long)NKV * D;
-  const long head_off = layer_off + (long)kvh * D + lane * PER;
+  const long head_off =
+      layer_off + (long)kvh * D + (cols ? lane * PER : 0);
   const int* tb = tables + (long)b * MB;
   for (int base = k0 + warp * KB; base < k1; base += NW * KB) {
     float kf[KB][PER], vf[KB][PER];
 #pragma unroll
     for (int u = 0; u < KB; ++u) {
       const int kp = base + u;
-      if (kp < k1) {
+      if (kp < k1 && cols) {
         int blk = tb[kp / bs];
         blk = min(max(blk, 0), nb - 1);
         const long off = head_off + ((long)blk * bs + kp % bs) * row_stride;
@@ -242,8 +252,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ ak,
       sm_m[warp][g] = m[g];
       sm_l[warp][g] = l[g];
     }
+    if (cols)
 #pragma unroll
-    for (int e = 0; e < PER; ++e) sm_acc[warp][g][lane * PER + e] = acc[g][e];
+      for (int e = 0; e < PER; ++e)
+        sm_acc[warp][g][lane * PER + e] = acc[g][e];
   }
   __syncthreads();
   // the split's partial state, unnormalized: acc[0:D], then m, l
@@ -355,7 +367,10 @@ struct DecodeTile {
   static constexpr int TILE = pg::TK * D * 2;
   static constexpr int RING = D_SLOTS * TILE;
   static constexpr int NDC = D / 8;        // 16-byte chunks a row
-  static constexpr int KG = 128 / NDC;     // key groups of the P V pass
+  // the P V pass's threads a key group: NDC rounded up to a power of two
+  // (16 at D 80 and 96, whose last 6 or 4 threads a group idle there)
+  static constexpr int NDCP = NDC <= 4 ? 4 : NDC <= 8 ? 8 : 16;
+  static constexpr int KG = 128 / NDCP;    // key groups of the P V pass
   // q of one head, f32: two halves of D / 2 + 4 floats (the pad puts the
   // halves' chunks, read at once by a key's two threads, on other banks)
   static constexpr int QROW = D + 8;
@@ -444,7 +459,7 @@ paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
                  float* __restrict__ ws, int* __restrict__ tickets,
                  DecodeArgs a) {
   using DT = DecodeTile<D>;
-  constexpr int TK = pg::TK, NDC = DT::NDC, KG = DT::KG;
+  constexpr int TK = pg::TK, NDC = DT::NDC, NDCP = DT::NDCP, KG = DT::KG;
   const int GA = a.NH / a.NKV;                // a kv head's whole group
   const int GC = SPLIT ? a.NU / a.NKV : 1;    // its passes
   const int HG = SPLIT ? a.HG : GA;           // heads a pass (last: fewer)
@@ -521,7 +536,7 @@ paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
     return;
   }
 
-  const int dc = tid % NDC, kg = tid / NDC;   // the P V pass's chunk, keys
+  const int dc = tid % NDCP, kg = tid / NDCP;   // the P V pass's chunk, keys
   int e = 0;                                  // ring entries consumed
   for (int pos = p0; pos < p1;) {
     const Segment sg = segment_at(pos, p1, pre, a.B, NU, T, N, cta);
@@ -632,6 +647,7 @@ paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
 #pragma unroll 2
       for (int r0 = 0; r0 < TK / KG; ++r0) {
         const int r = kg + KG * r0;
+        if (NDCP != NDC && dc >= NDC) break;   // a padding thread
         if (k0 + r >= n_keys) break;   // keys past lens are never read
         if (WIN && k0 + r < k_lo) continue;   // nor keys before the window
         const uint4 raw = *pg::tile_chunk<D>(Vs, r, dc);
@@ -659,7 +675,7 @@ paged_decode_tma(const __grid_constant__ CUtensorMap kmap,
     // the key groups' sums: first the lanes of a warp that share a chunk,
     // then the four warps in order
 #pragma unroll
-    for (int off = NDC; off < 32; off <<= 1)
+    for (int off = NDCP; off < 32; off <<= 1)
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         if (g >= G) break;
@@ -835,6 +851,16 @@ int ctas_any(int G, int B) {
 
 }  // namespace
 
+// The head dims this library holds: the build of this source with
+// -DDSTT_DECODE_WIDE (library paged_decode_wide) takes D 80 and 96, the
+// default build D 32, 64 and 128, so the two halves of the template builds
+// compile in parallel (ops/_build.py) and each library refuses the other's.
+#ifdef DSTT_DECODE_WIDE
+#define DSTT_DECODE_DIMS(X) X(80) X(96)
+#else
+#define DSTT_DECODE_DIMS(X) X(32) X(64) X(128)
+#endif
+
 // Number of key splits of a table of MB blocks of bs keys: the scratch
 // `part` holds B * NH * splits * (D + 2) floats.
 extern "C" int dstt_paged_decode_splits(int MB, int bs) {
@@ -855,33 +881,19 @@ extern "C" int dstt_paged_decode(const void* q, const void* ak,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || NKV <= 0 || NH % NKV != 0 || nb <= 0 || bs <= 0 || MB <= 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    if (D == 32)
-      return launch_any<__nv_bfloat16, 32>(q, ak, av, tables, lens, part, o,
-                                           B, NH, NKV, nb, bs, MB, layer_off,
-                                           window, slopes, st);
-    if (D == 64)
-      return launch_any<__nv_bfloat16, 64>(q, ak, av, tables, lens, part, o,
-                                           B, NH, NKV, nb, bs, MB, layer_off,
-                                           window, slopes, st);
-    if (D == 128)
-      return launch_any<__nv_bfloat16, 128>(q, ak, av, tables, lens, part,
-                                            o, B, NH, NKV, nb, bs, MB,
-                                            layer_off, window, slopes, st);
-  } else if (dtype == 0) {
-    if (D == 32)
-      return launch_any<float, 32>(q, ak, av, tables, lens, part, o, B, NH,
-                                   NKV, nb, bs, MB, layer_off, window,
-                                   slopes, st);
-    if (D == 64)
-      return launch_any<float, 64>(q, ak, av, tables, lens, part, o, B, NH,
-                                   NKV, nb, bs, MB, layer_off, window,
-                                   slopes, st);
-    if (D == 128)
-      return launch_any<float, 128>(q, ak, av, tables, lens, part, o, B, NH,
-                                    NKV, nb, bs, MB, layer_off, window,
-                                    slopes, st);
+#define DSTT_CASE(DD)                                                        \
+  if (D == DD) {                                                            \
+    if (dtype == 1)                                                         \
+      return launch_any<__nv_bfloat16, DD>(q, ak, av, tables, lens, part, o, \
+                                           B, NH, NKV, nb, bs, MB,           \
+                                           layer_off, window, slopes, st);   \
+    if (dtype == 0)                                                         \
+      return launch_any<float, DD>(q, ak, av, tables, lens, part, o, B, NH,  \
+                                   NKV, nb, bs, MB, layer_off, window,       \
+                                   slopes, st);                              \
   }
+  DSTT_DECODE_DIMS(DSTT_CASE)
+#undef DSTT_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -904,18 +916,13 @@ extern "C" int dstt_paged_decode_tma(const void* q, const void* ak,
   if (B <= 0 || NKV <= 0 || NH % NKV != 0 || nb <= 0 || bs <= 0 ||
       MB <= 0 || L <= 0 || layer < 0 || layer >= L)
     return (int)cudaErrorInvalidValue;
-  if (D == 32)
-    return launch_tma_any<32>(q, ak, av, tables, lens, o, ws, tickets, B,
-                              NH, NKV, L, nb, bs, MB, layer, segs, window,
+#define DSTT_CASE(DD)                                                      \
+  if (D == DD)                                                            \
+    return launch_tma_any<DD>(q, ak, av, tables, lens, o, ws, tickets, B,  \
+                              NH, NKV, L, nb, bs, MB, layer, segs, window, \
                               slopes, st);
-  if (D == 64)
-    return launch_tma_any<64>(q, ak, av, tables, lens, o, ws, tickets, B,
-                              NH, NKV, L, nb, bs, MB, layer, segs, window,
-                              slopes, st);
-  if (D == 128)
-    return launch_tma_any<128>(q, ak, av, tables, lens, o, ws, tickets, B,
-                               NH, NKV, L, nb, bs, MB, layer, segs, window,
-                               slopes, st);
+  DSTT_DECODE_DIMS(DSTT_CASE)
+#undef DSTT_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -923,8 +930,9 @@ extern "C" int dstt_paged_decode_tma(const void* q, const void* ak,
 // that share its work list), or 0 where it takes no such call.
 extern "C" int dstt_paged_decode_tma_ctas(int D, int G, int B) {
   if (G < 1 || B < 1 || B > 4096) return 0;
-  if (D == 32) return ctas_any<32>(G, B);
-  if (D == 64) return ctas_any<64>(G, B);
-  if (D == 128) return ctas_any<128>(G, B);
+#define DSTT_CASE(DD) \
+  if (D == DD) return ctas_any<DD>(G, B);
+  DSTT_DECODE_DIMS(DSTT_CASE)
+#undef DSTT_CASE
   return 0;
 }

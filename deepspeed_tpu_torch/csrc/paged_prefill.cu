@@ -27,8 +27,9 @@
 // Two kernels; `ops/paged_prefill.py:prefill_variant` names the one a call
 // takes (a stated rule, each with its launch count):
 //
-// paged_prefill_wgmma ("tma": bf16, D 32/64/128, a block size TMA can
-// tile, see paged_tile.cuh).  What bounds it: the two products, 4 D per
+// paged_prefill_wgmma ("tma": bf16, D 32/64/80/96/128, a block size TMA
+// can tile, see paged_tile.cuh; D 80 and 96 in 16- and 32-column boxes,
+// hopper_tile.cuh's RowTile, so P V is one wgmma of N = D).  What bounds it: the two products, 4 D per
 // visible (query, key) pair against each visible key row read about once
 // (at C 256, pos0 1024, NH 32, D 128: 4.8 GFLOP and 21 MB, some 5-7 us of
 // either); what held the mma.sync kernel back was latency (loads, then a
@@ -576,6 +577,14 @@ extern "C" int dstt_paged_prefill(const void* q, const void* ak,
       return launch_any<__nv_bfloat16, 64>(q, ak, av, table, o, C, NH, NKV, nb,
                                        bs, MB, layer_off, pos0, n_valid,
                                        window, slopes, st);
+    if (D == 80)
+      return launch_any<__nv_bfloat16, 80>(q, ak, av, table, o, C, NH, NKV, nb,
+                                           bs, MB, layer_off, pos0, n_valid,
+                                           window, slopes, st);
+    if (D == 96)
+      return launch_any<__nv_bfloat16, 96>(q, ak, av, table, o, C, NH, NKV, nb,
+                                           bs, MB, layer_off, pos0, n_valid,
+                                           window, slopes, st);
     if (D == 128)
       return launch_any<__nv_bfloat16, 128>(q, ak, av, table, o, C, NH, NKV, nb,
                                         bs, MB, layer_off, pos0, n_valid,
@@ -587,6 +596,14 @@ extern "C" int dstt_paged_prefill(const void* q, const void* ak,
     if (D == 64)
       return launch_any<float, 64>(q, ak, av, table, o, C, NH, NKV, nb, bs, MB,
                                layer_off, pos0, n_valid, window, slopes, st);
+    if (D == 80)
+      return launch_any<float, 80>(q, ak, av, table, o, C, NH, NKV, nb, bs, MB,
+                                   layer_off, pos0, n_valid, window, slopes,
+                                   st);
+    if (D == 96)
+      return launch_any<float, 96>(q, ak, av, table, o, C, NH, NKV, nb, bs, MB,
+                                   layer_off, pos0, n_valid, window, slopes,
+                                   st);
     if (D == 128)
       return launch_any<float, 128>(q, ak, av, table, o, C, NH, NKV, nb, bs, MB,
                                 layer_off, pos0, n_valid, window, slopes, st);
@@ -620,6 +637,14 @@ extern "C" int dstt_paged_prefill_tma(const void* q, const void* ak,
     return launch_wgmma_any<64>(q, ak, av, table, o, ws, tickets, C, NH, NKV, L,
                             nb, bs, MB, layer, pos0, n_valid, window, splits,
                             slopes, st);
+  if (D == 80)
+    return launch_wgmma_any<80>(q, ak, av, table, o, ws, tickets, C, NH, NKV,
+                                L, nb, bs, MB, layer, pos0, n_valid, window,
+                                splits, slopes, st);
+  if (D == 96)
+    return launch_wgmma_any<96>(q, ak, av, table, o, ws, tickets, C, NH, NKV,
+                                L, nb, bs, MB, layer, pos0, n_valid, window,
+                                splits, slopes, st);
   if (D == 128)
     return launch_wgmma_any<128>(q, ak, av, table, o, ws, tickets, C, NH, NKV,
                              L, nb, bs, MB, layer, pos0, n_valid, window,

@@ -7,8 +7,9 @@
 // NKV heads, D], so a layer is a page offset (layer * nb) and a box of
 // one kv head's rows has a row pitch of NKV * D elements.  A tile holds
 // 64 consecutive key positions of one kv head, in the layout that
-// hopper_tile.cuh's RowTile<D> describes (D-column boxes of 64 rows,
-// swizzled as TMA writes them): at bs <= 64 it is 64 / bs pages of one
+// hopper_tile.cuh's RowTile<D> describes (CH-column boxes of 64 rows,
+// swizzled as TMA writes them: 64 columns at D 64 / 128, 32 at D 32 /
+// 96, 16 at D 80): at bs <= 64 it is 64 / bs pages of one
 // box each, at bs >= 64 one 64-row part of a page.  So a bs that TMA can
 // tile this way is 8, 16, 32 or a multiple of 64 (a box of bs rows must
 // start on the swizzle's 8-row repeat); other block sizes stay on the
@@ -95,9 +96,9 @@ __device__ __forceinline__ const uint4* tile_chunk(const uint8_t* tile, int r,
                                                    int c) {
   using T = hp::RowTile<D>;
   constexpr int PER = T::CH / 8;
-  const int f = T::RB == 128 ? (r & 7) : ((r >> 1) & 3);
-  return reinterpret_cast<const uint4*>(tile + (c / PER) * TK * T::RB +
-                                        r * T::RB + (((c % PER) ^ f) << 4));
+  return reinterpret_cast<const uint4*>(
+      tile + (c / PER) * TK * T::RB + r * T::RB +
+      (((c % PER) ^ T::row_xor(r)) << 4));
 }
 
 // Zero whole rows [0, lo) and [hi, TK) of a tile (every box of a row, so

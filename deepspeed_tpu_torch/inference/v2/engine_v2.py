@@ -606,6 +606,7 @@ class InferenceEngineV2:
         tokens = np.zeros((cap_alloc, C), np.int32)
         pos0s = np.zeros(cap_alloc, np.int32)
         nvalids = np.zeros(cap_alloc, np.int32)
+        tlens = np.zeros(cap_alloc, np.int32)
         tables = np.zeros((cap_alloc, self.config.max_blocks_per_seq),
                           np.int32)
         active = np.zeros(cap_alloc, bool)
@@ -621,6 +622,9 @@ class InferenceEngineV2:
             tokens[i, :n] = d.prompt[start:start + n]
             pos0s[i] = start
             nvalids[i] = n
+            # the whole prompt's length, so longrope chooses the band of
+            # HF's one-shot prompt forward for every chunk
+            tlens[i] = len(d.prompt)
             tables[i] = self.state.block_table(d)
             active[i] = True
             planned.append((d, start, n))
@@ -632,7 +636,7 @@ class InferenceEngineV2:
                 NC *= 2
             logits, self.arena = self._programs.prefill_chunks(
                 self.params, self.arena, tokens[:NC], pos0s[:NC],
-                nvalids[:NC], tables[:NC], active[:NC],
+                nvalids[:NC], tables[:NC], active[:NC], tlens[:NC],
                 **self._lora_kw([d for d, _, _ in planned], NC))
             logits = self._fetch(logits)
             for i, (d, start, n) in enumerate(planned):

@@ -34,8 +34,12 @@ again.  What a capture relies on:
   back, and adds it again at every replay;
 - the model's per-layer windows are host ints, fixed in each launch at
   capture, and its ALiBi slopes one device tensor made before any
-  capture and held here (`ragged_ops._slopes`); the per-architecture
-  switches (windows, positions, block kind) are in every program's key.
+  capture and held here (`ragged_ops._slopes`); its rope frequency
+  tables (`models.transformer.rope_tables`: longrope's two, between
+  which each row's band is chosen on the device from its position at
+  every step) are made by the eager steps and the warm-up before any
+  capture and kept per device; the per-architecture switches (windows,
+  positions, rope scaling, block kind) are in every program's key.
 """
 from __future__ import annotations
 
@@ -133,7 +137,7 @@ class DecodeGraphs:
         self.slopes = _slopes(cfg, self.device)
         self._arch = (cfg.pos_emb, cfg.alibi_scaled, cfg.sliding_window,
                       cfg.sliding_window_layers, cfg.post_norm,
-                      cfg.parallel_residual)
+                      cfg.parallel_residual, cfg.rope_pct, cfg.rope_scaling)
 
     # -- the programs -----------------------------------------------------
     def decode_tokens(self, params, arena, tokens, seq_lens, block_tables,

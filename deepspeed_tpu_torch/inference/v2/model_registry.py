@@ -4,8 +4,8 @@ Counterpart of `deepspeed_tpu/inference/v2/model_registry.py`: maps an
 architecture name to a model family's config preset and builds the ragged
 engine (`build_engine`), or builds it from an HF checkpoint
 (`build_hf_engine`, through `models/hf_loader.py`).  The port serves the
-dense families gpt2, llama, qwen2, mistral, falcon, opt and bloom; the
-reference's other architectures are refused by name.
+dense families gpt2, llama, qwen2, mistral, phi, phi3, falcon, opt, bloom
+and gptneox; the reference's MoE architectures are refused by name.
 """
 from __future__ import annotations
 
@@ -25,16 +25,17 @@ ARCH_REGISTRY = {
     "mistral": "mistral",
     "qwen2": "qwen2",
     "qwen_v2": "qwen2",
+    "phi": "phi",
+    "phi3": "phi3",
     "falcon": "falcon",
     "opt": "opt",
     "bloom": "bloom",
+    "gptneox": "gptneox",
 }
 
 # architectures the reference serves that the port does not carry yet:
-# the MoE families wait for MoE serving, phi / phi3 / gptneox for head
-# dims 80 and 96 in the paged and flash kernels (and scaled RoPE)
-_NOT_PORTED = ("mixtral", "qwen_v2_moe", "qwen2_moe", "phi", "phi3",
-               "gptneox")
+# the MoE families wait for MoE serving
+_NOT_PORTED = ("mixtral", "qwen_v2_moe", "qwen2_moe")
 
 
 def arch_config(arch: str, size: Optional[str] = None, **kw):

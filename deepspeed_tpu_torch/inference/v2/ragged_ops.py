@@ -36,7 +36,17 @@ Where the reference differs by nature of JAX, the port does this instead:
   reference serves them with a dense gather in XLA): the layers are a
   Python loop, so each layer's window is a plain int per launch
   (`layer_windows`), and the slopes are one [NH] f32 device tensor
-  (`_slopes`), passed to every launch.
+  (`_slopes`), passed to every launch.  Head dims 80 and 96 (phi-2,
+  Phi-3, GPT-NeoX) ride the same kernels, where the reference's Pallas
+  kernels take D % 64 == 0 only and it gathers densely.
+- Scaled RoPE (`cfg.rope_scaling`) rides every path, as in the
+  reference: the chunked prefill passes each row's whole prompt length
+  (`total_lens`) as longrope's `regime_len`, `prefill_full` the prompt
+  lengths, decode none (each row's band then follows its position, so a
+  row whose decode crosses the original context switches bands, as the
+  reference's does).  The frequency tables are made once per device
+  (`models.transformer.rope_tables`), and the band is chosen per row on
+  the device.
 
 Scope: the dense families the config takes — pre-norm, post-norm and
 parallel-residual blocks, rope, learned or ALiBi positions, windows for
@@ -258,12 +268,15 @@ def _mlp_delta(cfg: TransformerConfig, x, lp, col=_dense, row=_dense):
     return _mlp_block(cfg, lp, h, col, row)
 
 
-def _qkv(cfg: TransformerConfig, lp, x, lead, positions, proj=_dense):
+def _qkv(cfg: TransformerConfig, lp, x, lead, positions, proj=_dense,
+         regime_len=None):
     """Pre-norm (none for a post-norm block) and q/k/v projections of the
     flat rows `x` [N, H] (`proj(h, w, b)`, `_dense` or a tensor-parallel
     stage whose output rows and heads are this rank's), reshaped to
-    `lead + (heads, D)`, with RoPE at `positions` (shaped `lead`; a 1-D
-    lead is rotated as a length-1 sequence)."""
+    `lead + (heads, D)`, with RoPE (scaled by `cfg.rope_scaling`) at
+    `positions` (shaped `lead`; a 1-D lead is rotated as a length-1
+    sequence); `regime_len` [lead[0]]: longrope's band length per row
+    (None: max(positions) + 1)."""
     D = cfg.head_dim
     h = x if cfg.post_norm else _norm(x, lp["attn_norm_scale"],
                                       lp.get("attn_norm_bias"), cfg.norm,
@@ -272,14 +285,14 @@ def _qkv(cfg: TransformerConfig, lp, x, lead, positions, proj=_dense):
     k = proj(h, lp["wk"], lp.get("bk")).reshape(*lead, -1, D)
     v = proj(h, lp["wv"], lp.get("bv")).reshape(*lead, -1, D)
     if cfg.pos_emb == "rope":
+        rope = dict(theta=cfg.rope_theta, pct=cfg.rope_pct,
+                    scaling=cfg.rope_scaling, regime_len=regime_len)
         if len(lead) == 1:
-            q = _rope(q[:, None], positions[:, None], cfg.rope_theta,
-                      cfg.rope_pct)[:, 0]
-            k = _rope(k[:, None], positions[:, None], cfg.rope_theta,
-                      cfg.rope_pct)[:, 0]
+            q = _rope(q[:, None], positions[:, None], **rope)[:, 0]
+            k = _rope(k[:, None], positions[:, None], **rope)[:, 0]
         else:
-            q = _rope(q, positions, cfg.rope_theta, cfg.rope_pct)
-            k = _rope(k, positions, cfg.rope_theta, cfg.rope_pct)
+            q = _rope(q, positions, **rope)
+            k = _rope(k, positions, **rope)
     return q, k, v
 
 
@@ -317,11 +330,14 @@ def _lm_logits(cfg: TransformerConfig, params, x):
 # serving programs
 # ----------------------------------------------------------------------
 def prefill_chunks(cfg: TransformerConfig, params, arena, tokens, pos0s,
-                   n_valids, block_tables, active, adapter_ids=None,
-                   lora=None):
+                   n_valids, block_tables, active, total_lens=None,
+                   adapter_ids=None, lora=None):
     """Advance up to NC prompt chunks in one call (the ragged composition
     of Dynamic SplitFuse).  tokens: [NC, C] (padded); pos0s/n_valids:
-    [NC]; block_tables: [NC, MB]; active: [NC] — all host data.  Within
+    [NC]; block_tables: [NC, MB]; active: [NC]; total_lens: [NC] the
+    whole prompt length of each chunk's sequence (longrope's band, as
+    HF's one-shot forward of the prompt chooses it; None: each chunk's
+    max position + 1) — all host data.  Within
     each layer every chunk's keys are written first, then the chunks
     attend in scheduling order, so consecutive chunks of one prompt stay
     exact; projections, MLP and logits batch over all NC*C rows.
@@ -345,6 +361,8 @@ def prefill_chunks(cfg: TransformerConfig, params, arena, tokens, pos0s,
     positions = pos0s[:, None] + np.arange(C)[None]               # [NC, C]
     valid = (np.arange(C)[None] < n_valids[:, None]) & active[:, None]
     pos_t = _dev(positions, dev)
+    regime = (None if total_lens is None
+              else _dev(_host(total_lens).astype(np.int64), dev))
     x = _embed(cfg, params, _dev(tokens.ravel(), dev), pos_t.reshape(-1))
     slots = _KVSlots(tables, positions, valid, bs, dev)
     tables_t = _dev(tables, dev, torch.int32)
@@ -357,7 +375,7 @@ def prefill_chunks(cfg: TransformerConfig, params, arena, tokens, pos0s,
 
     for li, window in enumerate(layer_windows(cfg)):
         lp = _layer(params, li)
-        q, k, v = _qkv(cfg, lp, x, (NC, C), pos_t)
+        q, k, v = _qkv(cfg, lp, x, (NC, C), pos_t, regime_len=regime)
         slots.write(arena, li, k.reshape(NC * C, *k.shape[2:]),
                     v.reshape(NC * C, *v.shape[2:]))
         attn = torch.zeros_like(q)
@@ -381,9 +399,9 @@ def prefill_full_supported(cfg: TransformerConfig) -> bool:
     layer), post-norm and parallel-residual blocks keep the chunked path,
     whose paged kernels carry their masks and bias.  It does not look at
     the head dim, so scheduling is the same on every device: on the card
-    a head dim the flash kernel does not take (it takes 32, 64 and 128)
-    raises in the kernel's wrapper rather than moving the prompt to
-    another path."""
+    a head dim the flash kernel does not take (it takes 32, 64, 80, 96
+    and 128) raises in the kernel's wrapper rather than moving the prompt
+    to another path."""
     return (cfg.pos_emb in ("rope", "learned")
             and cfg.sliding_window is None
             and cfg.sliding_window_layers is None and not cfg.post_norm
@@ -410,12 +428,13 @@ def prefill_full(cfg: TransformerConfig, params, arena, tokens, lens,
     positions = np.broadcast_to(np.arange(S)[None], (NS, S))
     valid = positions < lens[:, None]
     pos_t = _dev(positions, dev)
+    regime = _dev(lens, dev)    # longrope's band: the prompt's length
     x = _embed(cfg, params, _dev(tokens.ravel(), dev), pos_t.reshape(-1))
     slots = _KVSlots(tables, positions, valid, bs, dev)
 
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
-        q, k, v = _qkv(cfg, lp, x, (NS, S), pos_t)
+        q, k, v = _qkv(cfg, lp, x, (NS, S), pos_t, regime_len=regime)
         slots.write(arena, li, k.reshape(NS * S, *k.shape[2:]),
                     v.reshape(NS * S, *v.shape[2:]))
         attn = causal_attention(q, k, v, plain=cfg.attn_impl == "jnp")

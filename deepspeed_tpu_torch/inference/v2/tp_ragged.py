@@ -291,9 +291,10 @@ class TPServingPrograms:
 
     # -- prefill ----------------------------------------------------------
     def prefill_chunks(self, params, arena, tokens, pos0s, n_valids,
-                       block_tables, active):
+                       block_tables, active, total_lens=None):
         """`ragged_ops.prefill_chunks` on this rank's shard: (logits [NC,
-        V] f32 at each chunk's last valid token, arena)."""
+        V] f32 at each chunk's last valid token, arena); `total_lens`
+        as there (longrope's band)."""
         cfg = self.cfg
         dev = arena["k"].device
         tokens = _host(tokens)
@@ -308,6 +309,8 @@ class TPServingPrograms:
         positions = pos0s[:, None] + np.arange(C)[None]            # [NC, C]
         valid = (np.arange(C)[None] < n_valids[:, None]) & active[:, None]
         pos_t = _dev(positions, dev)
+        regime = (None if total_lens is None
+                  else _dev(_host(total_lens).astype(np.int64), dev))
         x = self._embed_rows(params, _dev(tokens.ravel(), dev),
                              pos_t.reshape(-1))                # [NC*C/tp, H]
         slots = _KVSlots(tables, positions, valid, bs, dev)
@@ -316,7 +319,8 @@ class TPServingPrograms:
         attend = _kernels(cfg, arena)[1]
         for li in range(cfg.num_layers):
             lp = _layer(params, li)
-            q, k, v = _qkv(cfg, lp, x, (NC, C), pos_t, proj=self._col)
+            q, k, v = _qkv(cfg, lp, x, (NC, C), pos_t, proj=self._col,
+                           regime_len=regime)
             slots.write(arena, li, k.reshape(NC * C, *k.shape[2:]),
                         v.reshape(NC * C, *v.shape[2:]))
             attn = torch.zeros_like(q)

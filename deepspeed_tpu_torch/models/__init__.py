@@ -1,12 +1,12 @@
 """Model configs, parameters and the training model bundle of the port
 (counterpart of `deepspeed_tpu/models/__init__.py`, restricted to the
-dense families the port serves: gpt2, llama, qwen2, mistral, falcon, opt
-and bloom; it trains the pre-norm sequential ones, `training_refusal`
-names the rest), and the HF checkpoint loader."""
+dense families the port serves: gpt2, llama, qwen2, mistral, phi, phi3,
+falcon, opt, bloom and gptneox; it trains the pre-norm sequential ones,
+`training_refusal` names the rest), and the HF checkpoint loader."""
 from .transformer import (Transformer, TransformerConfig, bloom_config,
-                          falcon_config, gpt2_config, init_params,
-                          llama_config, mistral_config, opt_config,
-                          qwen2_config)
+                          falcon_config, gpt2_config, gptneox_config,
+                          init_params, llama_config, mistral_config,
+                          opt_config, phi3_config, phi_config, qwen2_config)
 from .convert import opt_state_from_jax, params_from_jax, shard_params_tp
 from .hf_loader import convert_state_dict, hf_to_config, load_hf_model
 
@@ -15,9 +15,12 @@ MODEL_FAMILIES = {
     "llama": llama_config,
     "mistral": mistral_config,
     "qwen2": qwen2_config,
+    "phi": phi_config,
+    "phi3": phi3_config,
     "falcon": falcon_config,
     "opt": opt_config,
     "bloom": bloom_config,
+    "gptneox": gptneox_config,
 }
 
 
@@ -32,7 +35,8 @@ def get_model_config(family: str, size: str = None, **kw) -> TransformerConfig:
 
 __all__ = ["Transformer", "TransformerConfig", "MODEL_FAMILIES",
            "get_model_config", "gpt2_config", "llama_config",
-           "mistral_config", "qwen2_config", "falcon_config", "opt_config",
-           "bloom_config", "init_params", "params_from_jax",
+           "mistral_config", "qwen2_config", "phi_config", "phi3_config",
+           "falcon_config", "opt_config", "bloom_config", "gptneox_config",
+           "init_params", "params_from_jax",
            "opt_state_from_jax", "shard_params_tp", "load_hf_model",
            "hf_to_config", "convert_state_dict"]

@@ -1,14 +1,17 @@
 """HuggingFace checkpoints -> the port's configs and stacked parameters.
 
 Counterpart of `deepspeed_tpu/models/hf_loader.py`, for the model types
-the port serves: gpt2, llama, mistral, qwen2 (with `use_sliding_window`
-stacks, homogeneous or per layer), opt (with the 350m post-norm and
-embedding-projection variant), bloom (embedding layernorm, ALiBi, per-head
-qkv interleave) and falcon (the 7b multi-query and the classic rw fused
-qkv layouts, and the new-decoder-architecture groups; Falcon-RW's
-ALiBi before the score scale).  phi, phi3, gpt_neox, mixtral and
-qwen2_moe, and non-default `rope_scaling`, raise `NotImplementedError` by
-name.
+the port serves: gpt2, llama (with llama3, linear and yarn
+`rope_scaling`), mistral, qwen2 (with `use_sliding_window` stacks,
+homogeneous or per layer), phi (phi-2's biased lm head and one shared
+layernorm a parallel block), phi3 (fused qkv and gate/up projections,
+longrope's short and long per-band factors), opt (with the 350m
+post-norm and embedding-projection variant), gpt_neox (per-head qkv
+interleave), bloom (embedding layernorm, ALiBi, per-head qkv interleave)
+and falcon (the 7b multi-query and the classic rw fused qkv layouts, and
+the new-decoder-architecture groups; Falcon-RW's ALiBi before the score
+scale).  mixtral and qwen2_moe, dynamic RoPE, yarn with truncate=False
+and phi's qk_layernorm raise `NotImplementedError` by name.
 
 The HF state dict is converted once into the reference's stacked layout
 ([L, ...] leading layer dim, in-first matmuls, the same key names), as f32
@@ -24,6 +27,7 @@ converts without it.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -35,7 +39,7 @@ __all__ = ["load_hf_model", "hf_to_config", "convert_state_dict",
            "SUPPORTED_MODEL_TYPES"]
 
 # model types the reference converts that the port does not serve yet
-NOT_PORTED = ("phi", "phi3", "gpt_neox", "mixtral", "qwen2_moe")
+NOT_PORTED = ("mixtral", "qwen2_moe")
 
 
 def _to_np(sd) -> Dict[str, np.ndarray]:
@@ -86,14 +90,69 @@ def _qwen2_window_stack(c):
     return None, wins
 
 
-def _refuse_rope_scaling(c) -> None:
-    """Scaled RoPE (the reference converts llama3, linear, yarn and
-    longrope) is not carried by the port: refuse it by name rather than
-    convert it silently wrong."""
+def _convert_rope_scaling(c):
+    """HF rope_scaling dict -> TransformerConfig.rope_scaling tuple (the
+    reference's conversion): llama3, linear, yarn (with the mscale pair)
+    and longrope ("su", its older name) convert exactly; dynamic RoPE and
+    yarn with truncate=False are refused rather than converted silently
+    wrong."""
     rs = getattr(c, "rope_scaling", None)
-    if rs and rs.get("rope_type", rs.get("type", "default")) != "default":
-        raise NotImplementedError(
-            f"rope_scaling={rs!r} is not carried by the PyTorch port yet")
+    if not rs:
+        return None
+    kind = rs.get("rope_type", rs.get("type", "default"))
+    if kind == "default":
+        return None
+    if kind in ("longrope", "su"):
+        # phi3-style per-band divisors (HF _compute_longrope_parameters)
+        short = tuple(float(x) for x in rs["short_factor"])
+        long_ = tuple(float(x) for x in rs["long_factor"])
+        orig = float(rs.get("original_max_position_embeddings")
+                     or getattr(c, "original_max_position_embeddings", 0)
+                     or c.max_position_embeddings)
+        factor = rs.get("factor")
+        if getattr(c, "original_max_position_embeddings", None):
+            factor = c.max_position_embeddings / orig
+        factor = float(factor if factor is not None else 1.0)
+        af = rs.get("attention_factor")
+        if af is None:
+            af = (1.0 if factor <= 1.0
+                  else math.sqrt(1.0 + math.log(factor) / math.log(orig)))
+        return ("longrope", float(af), orig, short, long_)
+    if kind == "linear":
+        return ("linear", float(rs["factor"]))
+    if kind == "llama3":
+        return ("llama3", float(rs["factor"]),
+                float(rs["low_freq_factor"]),
+                float(rs["high_freq_factor"]),
+                float(rs["original_max_position_embeddings"]))
+    if kind == "yarn":
+        if not rs.get("truncate", True):
+            raise NotImplementedError(
+                "yarn with truncate=False uses untruncated correction "
+                "bounds this conversion does not model — refusing rather "
+                "than converting silently wrong")
+        factor = float(rs["factor"])
+        af = rs.get("attention_factor")
+        mscale = rs.get("mscale")
+        mscale_all_dim = rs.get("mscale_all_dim")
+
+        def get_mscale(scale, ms=1.0):
+            return 1.0 if scale <= 1 else 0.1 * ms * math.log(scale) + 1.0
+        if af is None:
+            # HF _compute_yarn_parameters: the mscale pair, or the
+            # paper's 0.1 ln(factor) + 1
+            af = (get_mscale(factor, mscale) / get_mscale(factor,
+                                                          mscale_all_dim)
+                  if (mscale and mscale_all_dim) else get_mscale(factor))
+        orig = float(rs.get("original_max_position_embeddings")
+                     or c.max_position_embeddings)
+        return ("yarn", factor, float(af),
+                float(rs.get("beta_fast") or 32),
+                float(rs.get("beta_slow") or 1), orig)
+    raise NotImplementedError(
+        f"rope_scaling={rs!r}: {kind} RoPE is not modeled by this zoo "
+        f"(llama3, linear, yarn and longrope convert exactly; dynamic "
+        f"would produce silently wrong logits)")
 
 
 def hf_to_config(c, dtype=None, **overrides) -> TransformerConfig:
@@ -110,8 +169,8 @@ def hf_to_config(c, dtype=None, **overrides) -> TransformerConfig:
                   norm="layernorm",
                   activation=_map_act(c.activation_function),
                   tie_embeddings=True, norm_eps=c.layer_norm_epsilon)
-    elif mt in ("llama", "mistral", "qwen2"):
-        _refuse_rope_scaling(c)
+    elif mt in ("llama", "mistral", "qwen2", "phi3"):
+        rope_scaling = _convert_rope_scaling(c)
         if mt == "qwen2" and getattr(c, "use_sliding_window", False):
             homogeneous_window, qwen2_windows = _qwen2_window_stack(c)
         else:
@@ -129,6 +188,7 @@ def hf_to_config(c, dtype=None, **overrides) -> TransformerConfig:
                   intermediate_size=c.intermediate_size,
                   max_seq_len=c.max_position_embeddings, pos_emb="rope",
                   rope_theta=getattr(c, "rope_theta", 10000.0),
+                  rope_scaling=rope_scaling,
                   norm="rmsnorm", activation="swiglu",
                   tie_embeddings=bool(getattr(c, "tie_word_embeddings",
                                               False)),
@@ -136,7 +196,7 @@ def hf_to_config(c, dtype=None, **overrides) -> TransformerConfig:
                   qkv_bias=(mt == "qwen2"
                             and bool(getattr(c, "attention_bias", True))),
                   sliding_window=(getattr(c, "sliding_window", None)
-                                  if mt == "mistral"
+                                  if mt in ("mistral", "phi3")
                                   else homogeneous_window),
                   sliding_window_layers=qwen2_windows)
     elif mt == "opt":
@@ -158,6 +218,39 @@ def hf_to_config(c, dtype=None, **overrides) -> TransformerConfig:
                                   else None),
                   tie_embeddings=bool(getattr(c, "tie_word_embeddings",
                                               True)))
+    elif mt == "phi":
+        rope_scaling = _convert_rope_scaling(c)
+        if getattr(c, "qk_layernorm", False):
+            raise NotImplementedError(
+                "phi with qk_layernorm=True (per-head q/k layernorms) is "
+                "not modeled by this zoo")
+        kw = dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+                  num_layers=c.num_hidden_layers,
+                  num_heads=c.num_attention_heads,
+                  intermediate_size=c.intermediate_size,
+                  max_seq_len=c.max_position_embeddings, pos_emb="rope",
+                  rope_pct=c.partial_rotary_factor,
+                  rope_theta=getattr(c, "rope_theta", 10000.0),
+                  rope_scaling=rope_scaling,
+                  norm="layernorm", norm_eps=c.layer_norm_eps,
+                  activation=_map_act(c.hidden_act),
+                  tie_embeddings=bool(getattr(c, "tie_word_embeddings",
+                                              False)),
+                  parallel_residual=True, head_bias=True)
+    elif mt == "gpt_neox":
+        kw = dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+                  num_layers=c.num_hidden_layers,
+                  num_heads=c.num_attention_heads,
+                  intermediate_size=c.intermediate_size,
+                  max_seq_len=c.max_position_embeddings, pos_emb="rope",
+                  rope_pct=c.rotary_pct,
+                  rope_scaling=_convert_rope_scaling(c),
+                  rope_theta=getattr(c, "rotary_emb_base", 10000.0),
+                  norm="layernorm", norm_eps=c.layer_norm_eps,
+                  activation=_map_act(c.hidden_act),
+                  tie_embeddings=bool(getattr(c, "tie_word_embeddings",
+                                              False)),
+                  parallel_residual=c.use_parallel_residual)
     elif mt == "bloom":
         kw = dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
                   num_layers=c.n_layer, num_heads=c.n_head,
@@ -170,8 +263,6 @@ def hf_to_config(c, dtype=None, **overrides) -> TransformerConfig:
                   embed_norm=True)
     elif mt == "falcon":
         use_alibi = bool(getattr(c, "alibi", False))
-        if not use_alibi:
-            _refuse_rope_scaling(c)
         new_arch = bool(getattr(c, "new_decoder_architecture", False))
         kw = dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
                   num_layers=c.num_hidden_layers,
@@ -186,6 +277,8 @@ def hf_to_config(c, dtype=None, **overrides) -> TransformerConfig:
                   pos_emb="alibi" if use_alibi else "rope",
                   alibi_scaled=use_alibi,
                   rope_theta=getattr(c, "rope_theta", 10000.0),
+                  rope_scaling=(None if use_alibi
+                                else _convert_rope_scaling(c)),
                   norm="layernorm", norm_eps=c.layer_norm_epsilon,
                   activation="gelu_exact",
                   tie_embeddings=bool(getattr(c, "tie_word_embeddings",
@@ -258,6 +351,110 @@ def _load_llama_family(cfg: TransformerConfig, sd, hf_config=None) -> Dict:
     }
     if not cfg.tie_embeddings:
         out["lm_head"] = sd["lm_head.weight"].T
+    return out
+
+
+def _load_phi3(cfg: TransformerConfig, sd, hf_config=None) -> Dict:
+    """phi3: fused qkv_proj and gate_up_proj."""
+    L, NH, NKV, D = (cfg.num_layers, cfg.num_heads, cfg.kv_heads,
+                     cfg.head_dim)
+    F = cfg.ffn_dim
+    p = "model.layers.{}."
+    qkv = _stk_t(sd, p + "self_attn.qkv_proj.weight", L)  # [L, H, (NH+2NKV)D]
+    gu = _stk_t(sd, p + "mlp.gate_up_proj.weight", L)     # [L, H, 2F]
+    layers = {
+        "attn_norm_scale": _stk(sd, p + "input_layernorm.weight", L),
+        "mlp_norm_scale": _stk(sd, p + "post_attention_layernorm.weight", L),
+        "wq": qkv[:, :, :NH * D],
+        "wk": qkv[:, :, NH * D:(NH + NKV) * D],
+        "wv": qkv[:, :, (NH + NKV) * D:],
+        "wo": _stk_t(sd, p + "self_attn.o_proj.weight", L),
+        "w_gate": gu[:, :, :F],
+        "w_up": gu[:, :, F:],
+        "w_down": _stk_t(sd, p + "mlp.down_proj.weight", L),
+    }
+    out = {
+        "tok_embed": sd["model.embed_tokens.weight"],
+        "layers": layers,
+        "final_norm_scale": sd["model.norm.weight"],
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = sd["lm_head.weight"].T
+    return out
+
+
+def _load_phi(cfg: TransformerConfig, sd, hf_config=None) -> Dict:
+    """phi-2: separate biased q/k/v, ONE shared per-layer layernorm feeding
+    the parallel attention + MLP block (copied into both norm slots), a
+    biased lm head."""
+    L = cfg.num_layers
+    p = "model.layers.{}."
+    ln_w = _stk(sd, p + "input_layernorm.weight", L)
+    ln_b = _stk(sd, p + "input_layernorm.bias", L)
+    layers = {
+        "attn_norm_scale": ln_w, "attn_norm_bias": ln_b,
+        "mlp_norm_scale": ln_w, "mlp_norm_bias": ln_b,
+        "wq": _stk_t(sd, p + "self_attn.q_proj.weight", L),
+        "wk": _stk_t(sd, p + "self_attn.k_proj.weight", L),
+        "wv": _stk_t(sd, p + "self_attn.v_proj.weight", L),
+        "bq": _stk(sd, p + "self_attn.q_proj.bias", L),
+        "bk": _stk(sd, p + "self_attn.k_proj.bias", L),
+        "bv": _stk(sd, p + "self_attn.v_proj.bias", L),
+        "wo": _stk_t(sd, p + "self_attn.dense.weight", L),
+        "bo": _stk(sd, p + "self_attn.dense.bias", L),
+        "w_up": _stk_t(sd, p + "mlp.fc1.weight", L),
+        "b_up": _stk(sd, p + "mlp.fc1.bias", L),
+        "w_down": _stk_t(sd, p + "mlp.fc2.weight", L),
+        "b_down": _stk(sd, p + "mlp.fc2.bias", L),
+    }
+    out = {
+        "tok_embed": sd["model.embed_tokens.weight"],
+        "layers": layers,
+        "final_norm_scale": sd["model.final_layernorm.weight"],
+        "final_norm_bias": sd["model.final_layernorm.bias"],
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = sd["lm_head.weight"].T
+        out["lm_head_bias"] = sd["lm_head.bias"]
+    return out
+
+
+def _load_gpt_neox(cfg: TransformerConfig, sd, hf_config=None) -> Dict:
+    L, NH, D = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    H = cfg.hidden_size
+    p = "gpt_neox.layers.{}."
+    # fused qkv with a per-head [q|k|v] interleave: weight [3H, H] ->
+    # in-first [H, NH, 3D] -> thirds per head
+    qkv = np.stack([sd[p.format(i) + "attention.query_key_value.weight"].T
+                    .reshape(H, NH, 3 * D) for i in range(L)])
+    qkv_b = np.stack([sd[p.format(i) + "attention.query_key_value.bias"]
+                      .reshape(NH, 3 * D) for i in range(L)])
+    layers = {
+        "attn_norm_scale": _stk(sd, p + "input_layernorm.weight", L),
+        "attn_norm_bias": _stk(sd, p + "input_layernorm.bias", L),
+        "mlp_norm_scale": _stk(sd, p + "post_attention_layernorm.weight", L),
+        "mlp_norm_bias": _stk(sd, p + "post_attention_layernorm.bias", L),
+        "wq": qkv[..., :D].reshape(L, H, NH * D),
+        "wk": qkv[..., D:2 * D].reshape(L, H, NH * D),
+        "wv": qkv[..., 2 * D:].reshape(L, H, NH * D),
+        "bq": qkv_b[..., :D].reshape(L, NH * D),
+        "bk": qkv_b[..., D:2 * D].reshape(L, NH * D),
+        "bv": qkv_b[..., 2 * D:].reshape(L, NH * D),
+        "wo": _stk_t(sd, p + "attention.dense.weight", L),
+        "bo": _stk(sd, p + "attention.dense.bias", L),
+        "w_up": _stk_t(sd, p + "mlp.dense_h_to_4h.weight", L),
+        "b_up": _stk(sd, p + "mlp.dense_h_to_4h.bias", L),
+        "w_down": _stk_t(sd, p + "mlp.dense_4h_to_h.weight", L),
+        "b_down": _stk(sd, p + "mlp.dense_4h_to_h.bias", L),
+    }
+    out = {
+        "tok_embed": sd["gpt_neox.embed_in.weight"],
+        "layers": layers,
+        "final_norm_scale": sd["gpt_neox.final_layer_norm.weight"],
+        "final_norm_bias": sd["gpt_neox.final_layer_norm.bias"],
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = sd["embed_out.weight"].T
     return out
 
 
@@ -456,7 +653,10 @@ _LOADERS: Dict[str, Callable] = {
     "llama": _load_llama_family,
     "mistral": _load_llama_family,
     "qwen2": _load_llama_family,
+    "phi3": _load_phi3,
+    "phi": _load_phi,
     "opt": _load_opt,
+    "gpt_neox": _load_gpt_neox,
     "bloom": _load_bloom,
     "falcon": _load_falcon,
 }

@@ -6,18 +6,20 @@ leading layer dim (`layers.wq` is `[L, H, NH*D]`, in-first), so a JAX
 checkpoint converts without a transpose (`models/convert.py`).  Where the
 reference scans over that dim, the port loops over it in Python.
 
-Scope: the dense families gpt2, llama, qwen2, mistral, falcon, opt and
-bloom — rope, learned or ALiBi positions, rmsnorm or layernorm, swiglu,
-gelu or relu, GQA and MQA, qkv/output biases, sliding windows (one for
-every layer, or one a layer), pre-norm, post-norm (OPT-350m) and
-parallel-residual (Falcon) blocks, embedding norms and projections.  The
-config refuses the features the port does not carry yet, by name, at
-construction (`NotImplementedError`): rope scaling, MoE layers, dropout,
-tiled MLPs.
+Scope: the dense families gpt2, llama, qwen2, mistral, phi, phi3,
+falcon, opt, bloom and gptneox — rope (partial, and scaled: linear,
+llama3, yarn and phi3's longrope), learned or ALiBi positions, rmsnorm or
+layernorm, swiglu, gelu or relu, GQA and MQA, qkv/output biases and the
+lm-head bias, sliding windows (one for every layer, or one a layer),
+pre-norm, post-norm (OPT-350m) and parallel-residual (Falcon, phi,
+GPT-NeoX) blocks, embedding norms and projections.  The config refuses
+the features the port does not carry yet, by name, at construction
+(`NotImplementedError`): MoE layers, dropout, tiled MLPs.
 
 Training (`_forward`, `_lm_loss`, `Transformer.loss_fn`) runs the same
 layer math with autograd (the pre-norm sequential block with rope or
-learned positions and no window; `training_refusal` names the rest, whose
+learned positions, no window and a head dim the flash backward takes;
+`training_refusal` names the rest, whose
 plain forward runs on the CPU only): attention through the differentiable
 flash op (`ops/attention.causal_attention`), each layer optionally under a
 checkpoint with a named remat policy (`runtime/activation_checkpointing`),
@@ -37,11 +39,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.flash_attention import BWD_HEAD_DIMS
+
 __all__ = ["TransformerConfig", "Transformer", "gpt2_config",
-           "llama_config", "qwen2_config", "mistral_config",
-           "falcon_config", "opt_config", "bloom_config", "init_params",
-           "dense_f32", "alibi_slopes", "layer_windows",
-           "training_refusal"]
+           "llama_config", "qwen2_config", "mistral_config", "phi_config",
+           "phi3_config", "falcon_config", "opt_config", "bloom_config",
+           "gptneox_config", "init_params", "dense_f32", "alibi_slopes",
+           "layer_windows", "training_refusal", "rope_tables"]
 
 
 @dataclass(frozen=True)
@@ -63,8 +67,16 @@ class TransformerConfig:
     activation: str = "gelu"
     tie_embeddings: bool = True
     rope_theta: float = 10000.0
-    rope_pct: float = 1.0                       # partial rotary
-    rope_scaling: Optional[Tuple] = None        # refused
+    rope_pct: float = 1.0                       # partial rotary (phi/neox)
+    # scaled RoPE as a hashable tuple (the reference's):
+    #   ("linear", factor)
+    #   ("llama3", factor, low_freq_factor, high_freq_factor,
+    #    original_max_position_embeddings)
+    #   ("yarn", factor, attention_factor, beta_fast, beta_slow,
+    #    original_max_position_embeddings)
+    #   ("longrope", attention_factor, original_max_position_embeddings,
+    #    short_factors, long_factors)   (phi3; per-band divisors)
+    rope_scaling: Optional[Tuple] = None
     qkv_bias: bool = False                      # qkv biases w/ rmsnorm (qwen2)
     embed_norm: bool = False                    # layernorm after tok embed
     head_bias: bool = False                     # bias on the lm head
@@ -92,8 +104,6 @@ class TransformerConfig:
         refused = []
         if self.pos_emb not in ("learned", "rope", "alibi", "none"):
             raise ValueError(f"unknown pos_emb {self.pos_emb!r}")
-        if self.rope_scaling is not None:
-            refused.append("rope_scaling")
         if self.moe_experts > 1:
             refused.append("mixture-of-experts layers")
         if self.dropout:
@@ -103,8 +113,8 @@ class TransformerConfig:
         if refused:
             raise NotImplementedError(
                 f"the PyTorch port does not carry {', '.join(refused)} yet "
-                f"(scope: the dense gpt2/llama/qwen2/mistral/falcon/opt/"
-                f"bloom blocks)")
+                f"(scope: the dense gpt2/llama/qwen2/mistral/phi/phi3/"
+                f"falcon/opt/bloom/gptneox blocks)")
         # the reference's own checks of the block features
         if self.sliding_window_layers is not None:
             if len(self.sliding_window_layers) != self.num_layers:
@@ -225,6 +235,43 @@ def mistral_config(size: str = "7b", **kw) -> TransformerConfig:
     return TransformerConfig(**base)
 
 
+def phi3_config(size: str = "mini", **kw) -> TransformerConfig:
+    """Phi-3: llama-style (RMSNorm, SwiGLU, full rotary, sequential
+    residual); the 128k variants add longrope `rope_scaling`."""
+    presets = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=8,
+                     num_kv_heads=8, max_seq_len=512, vocab_size=1024),
+        "mini": dict(hidden_size=3072, num_layers=32, num_heads=32,
+                     num_kv_heads=32, intermediate_size=8192,
+                     max_seq_len=4096, vocab_size=32064),
+        "medium": dict(hidden_size=5120, num_layers=40, num_heads=40,
+                       num_kv_heads=10, intermediate_size=17920,
+                       max_seq_len=4096, vocab_size=32064),
+    }
+    base = dict(pos_emb="rope", norm="rmsnorm", activation="swiglu",
+                tie_embeddings=False)
+    base.update(presets[size])
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def phi_config(size: str = "2", **kw) -> TransformerConfig:
+    """phi-2: partial rotary (40%), one layernorm feeding a parallel
+    attention + MLP block, biased q/k/v and lm head."""
+    presets = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=8,
+                     max_seq_len=512, vocab_size=1024),
+        "2": dict(hidden_size=2560, num_layers=32, num_heads=32,
+                  max_seq_len=2048, vocab_size=51200),
+    }
+    base = dict(pos_emb="rope", rope_pct=0.4, norm="layernorm",
+                activation="gelu", tie_embeddings=False,
+                parallel_residual=True, head_bias=True)
+    base.update(presets[size])
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
 def falcon_config(size: str = "7b", **kw) -> TransformerConfig:
     presets = {
         "tiny": dict(hidden_size=256, num_layers=4, num_heads=8,
@@ -269,6 +316,23 @@ def bloom_config(size: str = "7b", **kw) -> TransformerConfig:
     return TransformerConfig(**base)
 
 
+def gptneox_config(size: str = "20b", **kw) -> TransformerConfig:
+    """GPT-NeoX: partial rotary (25%), layernorm, gelu, parallel residual
+    with two layernorms (`use_parallel_residual`)."""
+    presets = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=8,
+                     max_seq_len=512, vocab_size=1024),
+        "20b": dict(hidden_size=6144, num_layers=44, num_heads=64,
+                    max_seq_len=2048, vocab_size=50432),
+    }
+    base = dict(pos_emb="rope", rope_pct=0.25, norm="layernorm",
+                activation="gelu", tie_embeddings=False,
+                parallel_residual=True)
+    base.update(presets[size])
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
 def _alibi_slopes(num_heads: int) -> np.ndarray:
     """ALiBi per-head slopes [num_heads] f32 (the reference's)."""
     p = 2 ** np.floor(np.log2(num_heads))
@@ -303,19 +367,24 @@ def layer_windows(cfg: TransformerConfig) -> Tuple[Optional[int], ...]:
 
 def training_refusal(cfg: TransformerConfig) -> Optional[str]:
     """What of `cfg` the port's training path does not carry, by name, or
-    None: the flash kernels take no ALiBi bias and no window, and the
-    post-norm and parallel-residual blocks are left to the same slice."""
+    None: the flash kernels take no ALiBi bias and no window, the
+    backward kernels no head dim but 32, 64 and 128, and the post-norm
+    and parallel-residual blocks are left to the same slice."""
     names = [n for n, on in (
         ("alibi", cfg.pos_emb == "alibi"),
         ("sliding windows", cfg.sliding_window is not None
          or cfg.sliding_window_layers is not None),
         ("post_norm blocks", cfg.post_norm),
-        ("parallel residual blocks", cfg.parallel_residual)) if on]
+        ("parallel residual blocks", cfg.parallel_residual),
+        (f"head dim {cfg.head_dim}",
+         cfg.head_dim not in BWD_HEAD_DIMS)) if on]
     if not names:
         return None
     return (f"training with {', '.join(names)} is not carried by the "
             f"PyTorch port yet (its flash kernels take no bias and no "
-            f"window); these architectures are served, not trained")
+            f"window, and its flash backward head dims "
+            f"{BWD_HEAD_DIMS} only); these architectures are served, "
+            f"not trained")
 
 
 # ----------------------------------------------------------------------
@@ -409,21 +478,110 @@ def _norm(x, scale, bias, kind: str, eps: float):
     return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
 
 
-def _rope(x, positions, theta: float, pct: float = 1.0):
-    """Rotary embedding (no scaling).  x: [B, S, N, D]; positions [B, S];
-    pct < 1 rotates only the leading rotary_dim."""
+def _scale_rope_freqs(freqs, scaling, theta):
+    """An HF-style rope_scaling spec applied to the inverse frequencies
+    [half] f32 (the reference's): "linear" divides them all by the factor;
+    "llama3" leaves the high frequencies, divides the low ones, and ramps
+    between; "yarn" interpolates by parts with a linear ramp between the
+    beta_fast / beta_slow rotation counts (its attention factor scales
+    cos and sin in `_rope`)."""
+    kind = scaling[0]
+    if kind == "linear":
+        return freqs / scaling[1]
+    if kind == "llama3":
+        _, factor, low_f, high_f, orig = scaling
+        wavelen = 2.0 * math.pi / freqs
+        low_wl = orig / low_f
+        high_wl = orig / high_f
+        smooth = (orig / wavelen - low_f) / (high_f - low_f)
+        mid = (1.0 - smooth) * freqs / factor + smooth * freqs
+        return torch.where(wavelen > low_wl, freqs / factor,
+                           torch.where(wavelen < high_wl, freqs, mid))
+    if kind == "yarn":
+        _, factor, _af, beta_fast, beta_slow, orig = scaling
+        half = freqs.shape[0]
+        dim = 2 * half
+
+        def corr(rot):
+            return (dim * math.log(orig / (rot * 2 * math.pi))
+                    / (2 * math.log(theta)))
+        low = max(math.floor(corr(beta_fast)), 0)
+        high = min(math.ceil(corr(beta_slow)), dim - 1)
+        ramp = torch.clamp((torch.arange(half, dtype=torch.float32,
+                                         device=freqs.device) - low)
+                           / max(high - low, 1e-3), 0.0, 1.0)
+        # interpolated (freq / factor) where ramp = 1, extrapolated at 0
+        return (freqs / factor) * ramp + freqs * (1.0 - ramp)
+    raise ValueError(f"unknown rope_scaling kind {kind!r} "
+                     f"(supported: linear, llama3, yarn, longrope)")
+
+
+# rope frequency tables on each device, by (half, theta, scaling, device)
+_ROPE: Dict[tuple, tuple] = {}
+
+
+def rope_tables(half: int, theta: float, scaling, device):
+    """The inverse frequencies of a rotary embedding over 2 `half` dims,
+    made once per device and kept (a captured decode group reads them by
+    address, and a capture may copy nothing from the host): (freqs
+    [half] f32, None) or, for longrope, (freqs / short_factors, freqs /
+    long_factors), each [half] f32; and the attention factor that scales
+    cos and sin (yarn, longrope) or None."""
+    key = (half, float(theta), scaling, torch.device(device))
+    if key not in _ROPE:
+        freqs = torch.exp(-math.log(theta)
+                          * torch.arange(half, dtype=torch.float32,
+                                         device=device) / half)
+        factor = None
+        if scaling is not None and scaling[0] == "longrope":
+            _, factor, _orig, short_f, long_f = scaling
+            tables = tuple(
+                freqs / torch.tensor(f, dtype=torch.float32, device=device)
+                for f in (short_f, long_f))
+        else:
+            if scaling is not None:
+                freqs = _scale_rope_freqs(freqs, scaling, theta)
+                if scaling[0] == "yarn":
+                    factor = scaling[2]
+            tables = (freqs, None)
+        _ROPE[key] = tables + (factor,)
+    return _ROPE[key]
+
+
+def _rope(x, positions, theta: float, pct: float = 1.0, scaling=None,
+          regime_len=None):
+    """Rotary embedding.  x: [B, S, N, D]; positions [B, S]; pct < 1
+    rotates only the leading rotary_dim (phi, neox); `scaling` is a
+    TransformerConfig.rope_scaling tuple.  For longrope each row takes
+    the long factors where its `regime_len` [B] (a device tensor; the
+    chunked prefill passes each row's whole prompt length) or, without
+    it, max(positions) + 1 exceeds the original context, chosen on the
+    device (a captured group replays the choice without a host read)."""
     if pct < 1.0:
         rd = (int(x.shape[-1] * pct) // 2) * 2
-        return torch.cat([_rope(x[..., :rd], positions, theta),
+        return torch.cat([_rope(x[..., :rd], positions, theta,
+                                scaling=scaling, regime_len=regime_len),
                           x[..., rd:]], dim=-1)
     D = x.shape[-1]
     half = D // 2
-    freqs = torch.exp(-math.log(theta)
-                      * torch.arange(half, dtype=torch.float32,
-                                     device=x.device) / half)
-    angles = positions.float()[:, :, None] * freqs[None, None, :]  # [B,S,half]
+    freqs, long_freqs, factor = rope_tables(half, theta, scaling, x.device)
+    pos = positions.float()
+    if long_freqs is not None:
+        # per-band divisors, chosen per row: short inside the original
+        # context, long beyond it (HF's per-forward choice is the
+        # one-sequence case of this)
+        eff_len = (positions.amax(dim=-1) + 1 if regime_len is None
+                   else regime_len)
+        use_long = (eff_len > scaling[2])[:, None]                 # [B, 1]
+        f = torch.where(use_long, long_freqs[None], freqs[None])   # [B,half]
+        angles = pos[:, :, None] * f[:, None, :]                   # [B,S,half]
+    else:
+        angles = pos[:, :, None] * freqs[None, None, :]            # [B,S,half]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
+    if factor is not None:
+        cos = cos * factor
+        sin = sin * factor
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -547,8 +705,10 @@ def _layer(cfg: TransformerConfig, x, lp, positions, window=None):
     k = _dense(h, lp["wk"], lp.get("bk")).reshape(B, S, NKV, D)
     v = _dense(h, lp["wv"], lp.get("bv")).reshape(B, S, NKV, D)
     if cfg.pos_emb == "rope":
-        q = _rope(q, positions, cfg.rope_theta, cfg.rope_pct)
-        k = _rope(k, positions, cfg.rope_theta, cfg.rope_pct)
+        q = _rope(q, positions, cfg.rope_theta, cfg.rope_pct,
+                  cfg.rope_scaling)
+        k = _rope(k, positions, cfg.rope_theta, cfg.rope_pct,
+                  cfg.rope_scaling)
     bias = (_alibi_bias(cfg, S, x.device) if cfg.pos_emb == "alibi"
             else None)
     attn = causal_attention(q, k, v, plain=cfg.attn_impl == "jnp",

@@ -24,9 +24,13 @@ from typing import Dict
 __all__ = ["KERNELS", "build_all", "load", "library_path", "function",
            "check"]
 
-KERNELS = ("flash_fwd", "flash_bwd", "paged_decode", "paged_prefill",
-           "lora_delta", "fused_adam8", "sparse_flash", "evoformer_flash",
-           "tile_matmul")
+KERNELS = ("flash_fwd", "flash_bwd", "paged_decode", "paged_decode_wide",
+           "paged_prefill", "lora_delta", "fused_adam8", "sparse_flash",
+           "evoformer_flash", "tile_matmul")
+# libraries built from another library's source with extra flags: the
+# paged decode's template builds at head dims 80 and 96, compiled beside
+# those at 32, 64 and 128 by a process of their own
+_VARIANTS = {"paged_decode_wide": ("paged_decode", ("-DDSTT_DECODE_WIDE",))}
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -50,7 +54,7 @@ def _nvcc() -> str:
 
 
 def _build_dir() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_FLAGS).encode() + repr(_VARIANTS).encode())
     for src in sorted(_CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -77,8 +81,9 @@ def build_all(names=KERNELS) -> Dict[str, float]:
     t0 = time.perf_counter()
     for name in todo:
         tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-               str(_CSRC / f"{name}.cu")]
+        src, extra = _VARIANTS.get(name, (name, ()))
+        cmd = [nvcc, *_FLAGS, *extra, "-I", str(_CSRC), "-o", str(tmp),
+               str(_CSRC / f"{src}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))

@@ -33,7 +33,8 @@ reruns the forward kernel.
 Layout is the JAX public one: q [B, S, NH, D], k/v [B, S, NKV, D]; lse
 and delta [B, NH, S] f32.  On the card S need not be a multiple of any
 tile (the TPU gate in `ops/attention.py` has no counterpart here); D is
-32, 64 or 128.
+32, 64, 80, 96 or 128 for the forward (`HEAD_DIMS`), 32, 64 or 128 for
+the backward (`BWD_HEAD_DIMS`).
 """
 from __future__ import annotations
 
@@ -59,7 +60,9 @@ _DELTA_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
 _DQ_ARGS = (_P,) * 8 + (_I,) * 7 + (_P,)
 _DKV_ARGS = (_P,) * 9 + (_I,) * 7 + (_P,)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128)   # the forward's
+BWD_HEAD_DIMS = (32, 64, 128)       # the backward kernels'
+
 # the backward kernels: TMA + wgmma (bf16, reads delta), CUDA cores (f32)
 BWD_VARIANTS = ("wgmma", "f32")
 
@@ -170,8 +173,10 @@ def _check(q, k, v, *rest):
     B, S, NH, D = q.shape
     if k.shape[0] != B or k.shape[1] != S or k.shape[3] != D:
         raise ValueError("k/v batch, length and head dim must match q")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} (kernel takes 32, 64 or 128)")
+    dims = BWD_HEAD_DIMS if rest else HEAD_DIMS
+    if D not in dims:
+        raise ValueError(f"head dim {D} (the {'backward' if rest else 'forward'}"
+                         f" kernels take {dims})")
     if NH % k.shape[2]:
         raise ValueError(f"NH={NH} is not a multiple of NKV={k.shape[2]}")
     tensors = [("q", q), ("k", k), ("v", v)]
@@ -231,9 +236,10 @@ def flash_attention_bwd_delta(out, do):
             do.device != out.device:
         raise ValueError("do must match out's shape, dtype and device")
     if out.dtype not in _DTYPES or out.dim() != 4 or \
-            out.shape[3] not in HEAD_DIMS:
+            out.shape[3] not in BWD_HEAD_DIMS:
         raise ValueError(f"out must be bf16 or f32 [B, S, NH, D] with D in "
-                         f"{HEAD_DIMS}, got {out.dtype} {tuple(out.shape)}")
+                         f"{BWD_HEAD_DIMS}, got {out.dtype} "
+                         f"{tuple(out.shape)}")
     for name, t in (("out", out), ("do", do)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "

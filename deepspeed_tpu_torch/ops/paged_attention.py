@@ -7,7 +7,7 @@ ctypes); `paged_decode_reference` is the plain PyTorch version of the
 same function.  `paged_decode_attention` runs the plain version for
 tensors on the CPU and a kernel for tensors on a CUDA device — never the
 plain version there: `decode_variant` names which ("tma": the one-launch
-TMA kernel, for bf16 at head dims 32, 64, 128 and a block size TMA can
+TMA kernel, for bf16 at head dims 32, 64, 80, 96, 128 and a block size TMA can
 tile; "mma": the split-KV pass and its merge, for other bf16 block sizes;
 "f32"); `decode_plan` sizes the TMA kernel's workspace from the table's
 length alone, and `decode_work` is its work list (equal shares of all key
@@ -228,8 +228,8 @@ def _check(q, arena_k, arena_v, block_tables, lens, layer_idx):
                          f"{tuple(arena_k.shape)} / {tuple(arena_v.shape)}")
     B, NH, D = q.shape
     NKV = arena_k.shape[-2]
-    if arena_k.shape[-1] != D or D not in (32, 64, 128):
-        raise ValueError(f"head dim {D} (kernel takes 32, 64 or 128, "
+    if arena_k.shape[-1] != D or D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} (kernels take {HEAD_DIMS}, "
                          f"matching the arena)")
     if NH % NKV:
         raise ValueError(f"NH={NH} is not a multiple of NKV={NKV}")
@@ -247,10 +247,17 @@ def _check(q, arena_k, arena_v, block_tables, lens, layer_idx):
         raise ValueError(f"layer_idx {layer_idx} out of range")
 
 
+def library(D: int) -> str:
+    """The kernel library that holds head dim D's builds: the decode source
+    compiles twice (csrc/paged_decode.cu), D 80 and 96 into
+    "paged_decode_wide", the others into "paged_decode"."""
+    return "paged_decode_wide" if D in (80, 96) else "paged_decode"
+
+
 def tma_ctas(D: int, G: int, B: int) -> int:
     """The TMA kernel's grid on the current card for head dim D, group G
     and batch B (the CTAs that share its work list; `decode_work`)."""
-    return _build.function("paged_decode", "dstt_paged_decode_tma_ctas",
+    return _build.function(library(D), "dstt_paged_decode_tma_ctas",
                            (_I, _I, _I))(D, G, B)
 
 
@@ -283,7 +290,7 @@ def launch(q, arena_k, arena_v, block_tables, lens, layer_idx=None,
                              torch.float32)
         tickets = _scratch.buffer("decode_tickets", q.device, stream,
                                   units, torch.int32)
-        fn = _build.function("paged_decode", "dstt_paged_decode_tma",
+        fn = _build.function(library(D), "dstt_paged_decode_tma",
                              _TMA_ARGS)
         rc = fn(q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
                 block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
@@ -292,12 +299,12 @@ def launch(q, arena_k, arena_v, block_tables, lens, layer_idx=None,
     else:
         layer_off = (0 if layer_idx is None
                      else int(layer_idx) * nb * bs * NKV * D)
-        splits = _build.function("paged_decode", "dstt_paged_decode_splits",
+        splits = _build.function(library(D), "dstt_paged_decode_splits",
                                  (_I, _I))(MB, bs)
         # the split-KV pass's partial states (see csrc/paged_decode.cu)
         part = torch.empty(B * NH * splits * (D + 2), dtype=torch.float32,
                            device=q.device)
-        fn = _build.function("paged_decode", "dstt_paged_decode", _ARGS)
+        fn = _build.function(library(D), "dstt_paged_decode", _ARGS)
         rc = fn(q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
                 block_tables.data_ptr(), lens.data_ptr(), part.data_ptr(),
                 out.data_ptr(), B, NH, NKV, D, nb, bs, MB, layer_off, window,

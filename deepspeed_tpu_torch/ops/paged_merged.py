@@ -25,7 +25,7 @@ from __future__ import annotations
 from typing import Optional
 
 from . import paged_attention, paged_prefill
-from .paged_prefill import VARIANTS, count
+from .paged_prefill import HEAD_DIMS, VARIANTS, count
 
 __all__ = ["merged_decode_attention", "merged_prefill_attention",
            "merged_decode_reference", "merged_prefill_reference",
@@ -34,12 +34,12 @@ __all__ = ["merged_decode_attention", "merged_prefill_attention",
 
 def merged_kernels_supported(NH: int, NKV: int, D: int,
                              op: str = "decode") -> bool:
-    """What the kernels take: head dim 32, 64 or 128 and whole GQA groups
+    """What the kernels take: head dim 32, 64, 80, 96 or 128 and whole GQA groups
     of any size.  The reference's 128-lane stripe conditions have no
     counterpart here."""
     if op not in ("decode", "prefill"):
         raise ValueError(f"op must be 'decode' or 'prefill', got {op!r}")
-    return D in (32, 64, 128) and NKV >= 1 and NH % NKV == 0
+    return D in HEAD_DIMS and NKV >= 1 and NH % NKV == 0
 
 
 def as_5d(arena, D: int):

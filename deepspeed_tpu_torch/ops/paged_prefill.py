@@ -6,7 +6,7 @@ ctypes); `paged_prefill_reference` is the plain PyTorch version of the
 same function.  `paged_prefill_attention` runs the plain version for
 tensors on the CPU and a kernel for tensors on a CUDA device:
 `prefill_variant` names which ("tma": the TMA + wgmma kernel, for bf16 at
-head dims 32, 64, 128 and a block size TMA can tile; "mma": the mma.sync
+head dims 32, 64, 80, 96, 128 and a block size TMA can tile; "mma": the mma.sync
 kernel, for other bf16 block sizes; "f32"), and `prefill_plan` how the
 TMA kernel splits each query tile's key range over CTAs, from host ints
 alone.  The wrappers count their launches in all and by variant.
@@ -44,7 +44,7 @@ _ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _I, _I, _I,
          _P, _I, _P)
 _TMA_ARGS = (_P,) * 7 + (_I,) * 13 + (_P, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128)
 VARIANTS = ("tma", "mma", "f32")
 TILE = 64          # query rows of a TMA CTA, and keys of a tile
 MAX_SPLITS = 16
@@ -185,8 +185,8 @@ def _check(q, arena_k, arena_v, block_table, layer_idx, window):
                          f"{tuple(arena_k.shape)} / {tuple(arena_v.shape)}")
     C, NH, D = q.shape
     NKV = arena_k.shape[-2]
-    if arena_k.shape[-1] != D or D not in (32, 64, 128):
-        raise ValueError(f"head dim {D} (kernel takes 32, 64 or 128, "
+    if arena_k.shape[-1] != D or D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} (kernels take {HEAD_DIMS}, "
                          f"matching the arena)")
     if NH % NKV:
         raise ValueError(f"NH={NH} is not a multiple of NKV={NKV}")

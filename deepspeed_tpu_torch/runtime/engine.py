@@ -315,7 +315,8 @@ def initialize(loss_fn: Callable = None, params=None, config=None,
     the config's `seed`).  `plain_kernels=True` runs the plain versions
     throughout: the model's attention and the optimizer's `update` (never
     `update_fused`).  A model with ALiBi, windows, post-norm or
-    parallel-residual blocks raises `NotImplementedError` by name
+    parallel-residual blocks, or a head dim the flash backward does not
+    take (80, 96), raises `NotImplementedError` by name
     (`models.transformer.training_refusal`).  Returns the engine."""
     cfg = DeepSpeedTPUConfig.from_json(config or {}, world_size=1)
     policy = cfg.activation_checkpointing.policy

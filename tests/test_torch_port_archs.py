@@ -1,5 +1,5 @@
-"""The port's mistral, bloom, falcon and opt serving, and qwen2's per-layer
-windows, against the JAX package on the CPU.
+"""The port's mistral, bloom, falcon, opt, phi, phi3 and gptneox serving,
+and qwen2's per-layer windows, against the JAX package on the CPU.
 
 - The engine of each tiny preset against the JAX engine: both built from
   the same parameters (the JAX initializer's, converted with
@@ -8,16 +8,24 @@ windows, against the JAX package on the CPU.
   `decode_multi_step(k=4)`.  Windows of 16 keys at block size 8 make
   rows cross them mid-block.  Logits within the engine tests' 1e-4,
   tokens equal, arenas allclose.  Also the merged arena, and LoRA
-  adapter rows beside base rows.
+  adapter rows beside base rows.  Head dims 80 and 96: phi (80, 32
+  rotated dims), Phi-3 (96) with longrope over an original context of
+  32 tokens (prompts on both sides of it, a decode that crosses it, rows
+  of both bands in one batch) and with a window, GPT-NeoX (96, 24 rotated
+  dims) with its parallel and sequential blocks.
 - The plain versions of the paged decode and prefill kernels (which the
   wrappers run for CPU tensors) with a window, ALiBi and a group of 12 q
   heads on one kv head: against the JAX Pallas prefill kernel in
   interpret mode where it takes the case (a window), and against a numpy
   softmax from first principles where it does not (ALiBi).
+- The plain paged decode and prefill and the plain flash forward at head
+  dims 80 and 96 against the JAX functions the reference runs there (its
+  plain paged and attention references) and a numpy softmax.
 - The plain `Transformer` forward of each preset against the JAX
   `Transformer`'s.
-- What stays refused, by name: the remaining architectures, tensor
-  parallelism with each new block feature, training with each.
+- What stays refused, by name: the MoE architectures, tensor
+  parallelism with each new block feature, training with each (and at
+  head dims 80 and 96).
 """
 import functools
 
@@ -31,6 +39,9 @@ from deepspeed_tpu.inference.v2 import RaggedInferenceEngineConfig as JaxCfg
 from deepspeed_tpu.inference.v2 import build_engine as jax_build_engine
 from deepspeed_tpu.models import Transformer as JaxTransformer
 from deepspeed_tpu.models import get_model_config as jax_model_config
+from deepspeed_tpu.ops import attention as jattn
+from deepspeed_tpu.ops import paged_attention as jdecode
+from deepspeed_tpu.ops import paged_prefill as jprefill
 from deepspeed_tpu_torch import initialize
 from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                               RaggedInferenceEngineConfig,
@@ -41,6 +52,7 @@ from deepspeed_tpu_torch.models import (Transformer, get_model_config,
 from deepspeed_tpu_torch.models.transformer import (alibi_slopes,
                                                     layer_windows,
                                                     training_refusal)
+from deepspeed_tpu_torch.ops import flash_attention as tflash
 from deepspeed_tpu_torch.ops import paged_attention as tdecode
 from deepspeed_tpu_torch.ops import paged_merged as tmerged
 from deepspeed_tpu_torch.ops import paged_prefill as tprefill
@@ -55,9 +67,16 @@ PROMPT_LENS = (5, 13, 29, 50)
 # the engine tests' bound (tests/test_torch_port_engine.py)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+# Phi-3-mini-128k's longrope at head dim 96 over an original context of 32
+# tokens: 48 factors a band, rising from 1.0 as the published lists do,
+# and the attention factor HF derives for a 4x context
+LONGROPE_96 = ("longrope", float(np.sqrt(1 + np.log(4.0) / np.log(32.0))),
+               32.0, tuple(1.0 + 0.02 * i for i in range(48)),
+               tuple(1.0 + 0.25 * i for i in range(48)))
 # (family, preset overrides): windows of 16 keys at block 8; the
 # OPT-350m block (post-norm, a 128-wide embedding projected in and out,
-# no final norm); qwen2 with full and windowed layers interleaved
+# no final norm); qwen2 with full and windowed layers interleaved; head
+# dims 80 (phi) and 96 (phi3, gptneox)
 ARCHS = {
     "mistral": ("mistral", dict(sliding_window=16)),
     "bloom": ("bloom", {}),
@@ -68,6 +87,17 @@ ARCHS = {
                                    embed_proj_dim=128)),
     "qwen2_windows": ("qwen2", dict(vocab_size=2048,
                                     sliding_window_layers=(0, 16, 0, 16))),
+    "llama_yarn": ("llama", dict(rope_scaling=(
+        "yarn", 4.0, 0.1 * float(np.log(4.0)) + 1.0, 32.0, 1.0, 64.0))),
+    "phi_d80": ("phi", dict(hidden_size=160, num_heads=2)),
+    "phi3_longrope_d96": ("phi3", dict(hidden_size=384, num_heads=4,
+                                       num_kv_heads=2,
+                                       rope_scaling=LONGROPE_96)),
+    "phi3_window_d96": ("phi3", dict(hidden_size=192, num_heads=2,
+                                     num_kv_heads=2, sliding_window=16)),
+    "gptneox_d96": ("gptneox", dict(hidden_size=192, num_heads=2)),
+    "gptneox_sequential_d96": ("gptneox", dict(hidden_size=192, num_heads=2,
+                                               parallel_residual=False)),
 }
 
 
@@ -158,6 +188,14 @@ def test_engine_matches_jax(name):
     if windows:
         assert max(d.seen_tokens for d in te.state.seqs.values()) > \
             2 * max(windows) + 1
+    # longrope: prompts on both sides of the original context, and a row
+    # whose decode crossed it (its band switched mid-sequence)
+    scaling = te.cfg.rope_scaling
+    if scaling is not None and scaling[0] == "longrope":
+        orig = scaling[2]
+        assert min(PROMPT_LENS) < orig < max(PROMPT_LENS)
+        assert any(len(d.prompt) < orig < d.seen_tokens
+                   for d in te.state.seqs.values())
     for u in uids:
         je.flush(u)
         te.flush(u)
@@ -356,6 +394,98 @@ def test_decode_work_list_starts_at_the_window():
 
 
 # ----------------------------------------------------------------------
+# head dims 80 and 96: the plain paged and flash versions against JAX's
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("D", [80, 96])
+@pytest.mark.parametrize("NH,NKV", [(4, 4), (8, 2), (8, 1)])
+def test_plain_decode_head_dims_80_96(D, NH, NKV):
+    """The decode plain version at D 80 / 96 (groups 1, 4, 8) against the
+    JAX reference's plain decode and a numpy softmax, the merged view
+    equal to it."""
+    rng = np.random.RandomState(D + NH)
+    bs, nb = 16, 40
+    lens = np.asarray([5, 15, 16, 300, -1, 129], np.int32)
+    B, MB = lens.size, 24
+    ak, av = _paged(rng, nb, bs, NKV, D)
+    q = rng.randn(B, NH, D).astype(np.float32)
+    tables = np.stack([rng.permutation(nb)[:MB] for _ in range(B)]).astype(
+        np.int32)
+    got = tdecode.paged_decode_attention(
+        *map(torch.from_numpy, (q, ak, av, tables, lens)))
+    want = np.asarray(jdecode.paged_decode_reference(
+        *map(jnp.asarray, (q, ak, av, tables, lens))))
+    live = lens >= 0
+    np.testing.assert_allclose(got.numpy()[live], want[live], **KERNEL_TOL)
+    assert not got[~torch.from_numpy(live)].any()
+    for b in np.flatnonzero(live):
+        n = lens[b] + 1
+        kk = ak[tables[b]].reshape(-1, NKV, D)[:n]
+        vv = av[tables[b]].reshape(-1, NKV, D)[:n]
+        ref = _numpy_attention(q[b:b + 1], kk, vv, np.asarray([lens[b]]),
+                               np.arange(n))
+        np.testing.assert_allclose(got[b].numpy(), ref[0], **KERNEL_TOL)
+    mk, mv = (torch.from_numpy(a.reshape(nb, bs, NKV * D)) for a in (ak, av))
+    merged = tmerged.merged_decode_attention(
+        torch.from_numpy(q), mk, mv, torch.from_numpy(tables),
+        torch.from_numpy(lens))
+    assert torch.equal(merged, got)
+    assert tmerged.merged_kernels_supported(NH, NKV, D)
+    assert tdecode.decode_variant(torch.bfloat16, D, 64, NH // NKV) == "tma"
+    assert tdecode.library(D) == "paged_decode_wide"
+
+
+@pytest.mark.parametrize("D", [80, 96])
+@pytest.mark.parametrize("pos0,n_valid,window", [(0, 40, None),
+                                                  (37, 27, 16),
+                                                  (100, 64, None)])
+def test_plain_prefill_head_dims_80_96(D, pos0, n_valid, window):
+    """The prefill plain version at D 80 / 96 (a group of 4) against the
+    JAX reference's plain prefill and a numpy softmax."""
+    rng = np.random.RandomState(D + pos0)
+    NH, NKV, bs, nb, C = 8, 2, 16, 24, 64
+    ak, av = _paged(rng, nb, bs, NKV, D)
+    q = rng.randn(C, NH, D).astype(np.float32)
+    table = rng.permutation(nb)[:20].astype(np.int32)
+    got = tprefill.paged_prefill_attention(
+        *map(torch.from_numpy, (q, ak, av, table)), pos0, n_valid,
+        sliding_window=window).numpy()[:n_valid]
+    want = np.asarray(jprefill.paged_prefill_reference(
+        *map(jnp.asarray, (q, ak, av, table)), pos0, n_valid,
+        sliding_window=window))[:n_valid]
+    np.testing.assert_allclose(got, want, **KERNEL_TOL)
+    n_keys = pos0 + n_valid
+    kk = ak[table].reshape(-1, NKV, D)[:n_keys]
+    vv = av[table].reshape(-1, NKV, D)[:n_keys]
+    ref = _numpy_attention(q[:n_valid], kk, vv, pos0 + np.arange(n_valid),
+                           np.arange(n_keys), None, window)
+    np.testing.assert_allclose(got, ref, **KERNEL_TOL)
+    assert tprefill.prefill_variant(torch.bfloat16, D, 64) == "tma"
+
+
+@pytest.mark.parametrize("D", [80, 96])
+@pytest.mark.parametrize("NH,NKV", [(4, 4), (8, 2)])
+def test_plain_flash_forward_head_dims_80_96(D, NH, NKV):
+    """The flash forward's plain version at D 80 / 96 (the card's kernel
+    takes them in bf16 and f32; its backward does not) against the JAX
+    attention reference and a numpy softmax."""
+    rng = np.random.RandomState(D * NH)
+    B, S = 2, 37
+    q = rng.randn(B, S, NH, D).astype(np.float32)
+    k = rng.randn(B, S, NKV, D).astype(np.float32)
+    v = rng.randn(B, S, NKV, D).astype(np.float32)
+    out, lse = tflash.flash_attention_fwd(
+        *map(torch.from_numpy, (q, k, v)), causal=True)
+    want = np.asarray(jattn.attention_reference(
+        *map(jnp.asarray, (q, k, v)), causal=True))
+    np.testing.assert_allclose(out.numpy(), want, **KERNEL_TOL)
+    for b in range(B):
+        ref = _numpy_attention(q[b], k[b], v[b], np.arange(S), np.arange(S))
+        np.testing.assert_allclose(out[b].numpy(), ref, **KERNEL_TOL)
+    assert lse.shape == (B, NH, S)
+    assert D in tflash.HEAD_DIMS and D not in tflash.BWD_HEAD_DIMS
+
+
+# ----------------------------------------------------------------------
 # the plain Transformer forward against JAX's
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("name", sorted(ARCHS))
@@ -375,17 +505,39 @@ def test_plain_forward_matches_jax(name):
 # ----------------------------------------------------------------------
 # refusals by name
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["mixtral", "qwen2_moe", "qwen_v2_moe",
-                                  "phi", "phi3", "gptneox"])
+@pytest.mark.parametrize("arch", ["mixtral", "qwen2_moe", "qwen_v2_moe"])
 def test_remaining_architectures_are_refused_by_name(arch):
     with pytest.raises(NotImplementedError, match=arch):
         build_engine(arch, "tiny", device="cpu")
 
 
+def test_training_takes_rope_scaling():
+    """Training with scaled RoPE at a head dim the flash backward takes
+    is carried (`_rope` is plain PyTorch on both sides): `initialize`
+    builds the engine, and a step's loss equals the JAX model's."""
+    family, kw = ARCHS["llama_yarn"]
+    cfg = get_model_config(family, "tiny", dtype=torch.float32, **kw)
+    assert training_refusal(cfg) is None
+    jcfg = jax_model_config(family, "tiny", dtype=jnp.float32, **kw)
+    jmodel = JaxTransformer(jcfg)
+    jparams = jax.device_get(jmodel.init_params(jax.random.PRNGKey(2)))
+    ids = np.random.RandomState(9).randint(0, cfg.vocab_size, (2, 40))
+    want, _ = jmodel.loss_fn(jparams, {"input_ids": jnp.asarray(
+        ids, jnp.int32)})
+    eng = initialize(model=Transformer(cfg),
+                     params=params_from_jax(jparams, cfg, "cpu"),
+                     config={"train_micro_batch_size_per_gpu": 2},
+                     device="cpu")
+    got, _ = Transformer(cfg).loss_fn(eng.params, {
+        "input_ids": torch.from_numpy(ids)})
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
 @pytest.mark.parametrize("name,match", [
     ("mistral", "sliding windows"), ("qwen2_windows", "sliding windows"),
     ("bloom", "alibi"), ("falcon", "parallel-residual"),
-    ("opt_350m_style", "post-norm")])
+    ("opt_350m_style", "post-norm"), ("phi_d80", "parallel-residual"),
+    ("gptneox_d96", "parallel-residual")])
 def test_tp_refuses_each_new_feature(name, match):
     """At tp 2 the fused programs refuse each block feature with the
     reference's reason, as NotImplementedError (and ValueError), before
@@ -402,11 +554,14 @@ def test_tp_refuses_each_new_feature(name, match):
 @pytest.mark.parametrize("name,match", [
     ("mistral", "sliding windows"), ("qwen2_windows", "sliding windows"),
     ("bloom", "alibi"), ("falcon_alibi", "alibi"),
-    ("falcon", "parallel residual"), ("opt_350m_style", "post_norm")])
+    ("falcon", "parallel residual"), ("opt_350m_style", "post_norm"),
+    ("phi_d80", "head dim 80"), ("phi3_longrope_d96", "head dim 96"),
+    ("gptneox_sequential_d96", "head dim 96")])
 def test_training_refuses_each_new_feature(name, match):
     """Training these blocks is not carried (the flash kernels take no
-    window and no bias): `initialize` refuses each by name, and so does
-    the model's forward on a device other than the CPU."""
+    window and no bias, the flash backward no head dim 80 or 96):
+    `initialize` refuses each by name, and so does the model's forward on
+    a device other than the CPU."""
     family, kw = ARCHS[name]
     cfg = get_model_config(family, "tiny", dtype=torch.float32, **kw)
     assert match in training_refusal(cfg)
@@ -430,8 +585,15 @@ def test_config_validates_the_new_fields_as_the_reference():
     with pytest.raises(ValueError, match="sequential dense block"):
         get_model_config("opt", "tiny", post_norm=True,
                          parallel_residual=True)
-    with pytest.raises(NotImplementedError, match="rope_scaling"):
-        get_model_config("mistral", "tiny", rope_scaling=("linear", 2.0))
+    # rope scaling is carried now; an unknown kind raises where the
+    # frequencies are made, as in the reference
+    scaled = get_model_config("llama", "tiny", rope_scaling=("linear", 2.0))
+    assert scaled.rope_scaling == ("linear", 2.0)
+    assert training_refusal(scaled) is None
+    from deepspeed_tpu_torch.models.transformer import _rope
+    with pytest.raises(ValueError, match="rope_scaling kind"):
+        _rope(torch.zeros(1, 2, 1, 8), torch.zeros(1, 2, dtype=torch.long),
+              1e4, scaling=("ntk", 2.0))
     cfg = get_model_config("qwen2", "tiny",
                            sliding_window_layers=(0, 16, 0, 16))
     assert layer_windows(cfg) == (None, 16, None, 16)

@@ -10,7 +10,8 @@ has only PyTorch:
 Each kernel is checked in both dtypes it takes: f32, where kernel and
 plain version differ only by the order of f32 sums, and bf16, where the
 output's final rounding adds one bf16 ulp, at the head dims the kernels
-take (32, 64, 128; block-sparse 64-256; Evoformer every D % 8 up to 128,
+take (32, 64, 80, 96, 128 for the flash forward and the paged kernels, 32,
+64, 128 for the flash backward; block-sparse 64-256; Evoformer every D % 8 up to 128,
 whose backward must also rerun bit for bit).  The engine tests serve the
 same wave, and take the same training steps, through the kernels and
 through the plain versions (`plain_kernels=True`) in f32.
@@ -2423,3 +2424,180 @@ def test_arch_engine_matches_plain_engine_f32(card, arch, kw):
         assert g1[u].tolist() == g2[u].tolist()
     assert tdecode.paged_decode_attention.launches > calls["decode"]
     assert tprefill.paged_prefill_attention.launches > calls["prefill"]
+
+
+# ----------------------------------------------------------------------
+# head dims 80 and 96 (phi-2, Phi-3, GPT-NeoX): the wgmma N of P V, the
+# paged kernels on every variant and the flash forward
+# ----------------------------------------------------------------------
+# (N, B MN-major, swizzle): an MN-major B of N 80 / 96 is stored in
+# column blocks of the swizzle's width, which must divide N
+WIDE_WGMMA_CASES = [(n, mn, sw) for n in (80, 96) for mn in (0, 1)
+                    for sw in (1, 2, 3) if not (mn and n % (8 << sw))]
+
+
+@pytest.mark.parametrize("N,b_mn,swizzle", WIDE_WGMMA_CASES, ids=[
+    f"n{n}-{'mn' if mn else 'k'}major-sw{16 << sw}"
+    for n, mn, sw in WIDE_WGMMA_CASES])
+@pytest.mark.parametrize("a_regs", [0, 1], ids=["a-smem", "a-regs"])
+def test_hopper_wgmma_n80_n96_matches_a_matmul(card, N, b_mn, swizzle,
+                                               a_regs):
+    """wgmma m64n80k16 / m64n96k16, the P V product at head dims 80 and
+    96 (A from registers, V MN-major in 16- or 32-column blocks), and the
+    shared-memory and K-major forms beside it."""
+    import ctypes
+    fn = _selftest("dstt_selftest_wgmma", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    a = _rnd(card, torch.bfloat16, 64, 64)
+    b = _rnd(card, torch.bfloat16, *((64, N) if b_mn else (N, 64)))
+    out = torch.full((64, N), float("nan"), device="cuda")
+    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), N, b_mn, a_regs,
+            swizzle, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    _close(out, a.float() @ (b.float() if b_mn else b.float().t()), 1e-4)
+
+
+@PAGED_FEATURE_DTYPES
+@pytest.mark.parametrize("D,bs,G,window,alibi", [
+    (80, 64, 1, None, None), (80, 16, 4, 100, "bloom"),
+    (80, 128, 8, None, "falcon"), (80, 64, 4, 100, None),
+    (80, 8, 2, None, None), (96, 64, 1, None, None),
+    (96, 16, 8, 100, None), (96, 128, 4, None, "bloom"),
+    (96, 64, 8, 100, "falcon"), (96, 32, 12, 100, None)])
+def test_paged_decode_head_dims_80_96(card, dtype, D, bs, G, window, alibi):
+    """The decode kernels at D 80 / 96 on every variant ("tma" and, bf16,
+    the mma.sync pair; "f32"): block sizes 8-128, groups 1-12, window and
+    ALiBi on and off, against the plain version; reruns and the merged
+    view bit for bit."""
+    rng = np.random.RandomState(D + bs + G)
+    NKV, L = 2, 2
+    NH, MB = G * NKV, 5120 // bs
+    lens = np.asarray([4599, 99, 100, -1, 0, 37, bs - 1, 1499], np.int32)
+    nb = sum(int(n) // bs + 1 for n in lens if n >= 0) + 4
+    ak, av = (_rnd(card, dtype, L, nb, bs, NKV, D) for _ in range(2))
+    tables = torch.from_numpy(_live_tables(rng, lens, MB, nb, bs)).cuda()
+    q = _rnd(card, dtype, lens.size, NH, D)
+    kw = dict(layer_idx=1, sliding_window=window,
+              alibi_slopes=_alibi(NH, D, alibi))
+    args = (q, ak, av, tables, torch.from_numpy(lens).cuda())
+    want = "tma" if dtype == torch.bfloat16 else "f32"
+    assert tdecode.decode_variant(dtype, D, bs, G) == want
+    before = _by_variant(tdecode.paged_decode_attention)
+    got = tdecode.paged_decode_attention(*args, **kw)
+    assert _by_variant(tdecode.paged_decode_attention)[want] == \
+        before[want] + 1
+    ref = tdecode.paged_decode_reference(*args, **kw)
+    _close(got, ref, ATOL[dtype], RTOL[dtype])
+    assert (got[torch.from_numpy(lens < 0).cuda()] == 0).all()
+    assert torch.equal(got, tdecode.paged_decode_attention(*args, **kw))
+    if dtype == torch.bfloat16:
+        old = tdecode.paged_decode_attention(*args, variant="mma", **kw)
+        _close(old, ref, ATOL[dtype], RTOL[dtype])
+    mk, mv = (t.view(L, nb, bs, NKV * D) for t in (ak, av))
+    assert torch.equal(got, tmerged.merged_decode_attention(
+        q, mk, mv, tables, args[-1], **kw))
+
+
+@PAGED_FEATURE_DTYPES
+@pytest.mark.parametrize("C,NH,NKV,D,pos0,n_valid,window,bs,alibi", [
+    (256, 32, 32, 80, 1024, 256, None, 64, None),
+    (70, 8, 2, 80, 100, 61, 100, 16, "bloom"),
+    (64, 16, 2, 80, 300, 64, None, 8, None),
+    (128, 32, 4, 96, 700, 100, None, 128, None),
+    (256, 64, 8, 96, 1024, 250, 100, 64, "falcon"),
+    (64, 8, 1, 96, 0, 64, None, 16, None),
+    (3, 32, 32, 96, 77, 3, None, 64, None)])
+def test_paged_prefill_head_dims_80_96(card, dtype, C, NH, NKV, D, pos0,
+                                       n_valid, window, bs, alibi):
+    """The prefill kernels at D 80 / 96 ("tma" = wgmma with N = D and,
+    bf16, the mma.sync kernel; "f32") against the plain version; reruns
+    and the merged view bit for bit."""
+    rng = np.random.RandomState(C + pos0 + bs + D)
+    L = 2
+    MB = -(-(pos0 + C) // bs) + 3
+    nb = MB + 5
+    ak, av = (_rnd(card, dtype, L, nb, bs, NKV, D) for _ in range(2))
+    table = torch.from_numpy(_live_tables(
+        rng, [pos0 + n_valid - 1], MB, nb, bs)[0]).cuda()
+    q = _rnd(card, dtype, C, NH, D)
+    kw = dict(sliding_window=window, layer_idx=1,
+              alibi_slopes=_alibi(NH, D, alibi))
+    args = (q, ak, av, table, pos0, n_valid)
+    want = "tma" if dtype == torch.bfloat16 else "f32"
+    assert tprefill.prefill_variant(dtype, D, bs) == want
+    before = _by_variant(tprefill.paged_prefill_attention)
+    got = tprefill.paged_prefill_attention(*args, **kw)
+    assert _by_variant(tprefill.paged_prefill_attention)[want] == \
+        before[want] + 1
+    ref = tprefill.paged_prefill_reference(*args, **kw)
+    _close(got[:n_valid], ref[:n_valid], ATOL[dtype], RTOL[dtype])
+    assert torch.equal(got, tprefill.paged_prefill_attention(*args, **kw))
+    if dtype == torch.bfloat16:
+        old = tprefill.paged_prefill_attention(*args, variant="mma", **kw)
+        _close(old[:n_valid], ref[:n_valid], ATOL[dtype], RTOL[dtype])
+    mk, mv = (t.view(L, nb, bs, NKV * D) for t in (ak, av))
+    assert torch.equal(got, tmerged.merged_prefill_attention(
+        q, mk, mv, table, pos0, n_valid, **kw))
+
+
+@DTYPES
+@pytest.mark.parametrize("S,NH,NKV,D", [(200, 8, 2, 80), (513, 4, 4, 96),
+                                        (1, 2, 1, 96), (129, 8, 8, 80)])
+def test_flash_forward_head_dims_80_96(card, dtype, S, NH, NKV, D):
+    """The flash forward at D 80 / 96 (bf16 on the wgmma kernel, f32 on
+    the CUDA-core one) against its plain version; the backward kernels
+    refuse those head dims by name."""
+    q, k, v = (_rnd(card, dtype, 2, S, n, D) for n in (NH, NKV, NKV))
+    out, lse = tflash.flash_attention_fwd(q, k, v)
+    ref, ref_lse = tflash.flash_attention_reference(q, k, v)
+    _close(out, ref, ATOL[dtype], RTOL[dtype])
+    _close(lse, ref_lse, LSE_ATOL)
+    assert torch.equal(out, tflash.flash_attention_fwd(q, k, v)[0])
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_attention_bwd_dq(q, k, v, out, lse, out)
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("phi", dict(hidden_size=320, num_heads=4)),
+    ("phi3", dict(hidden_size=384, num_heads=4, num_kv_heads=2,
+                  rope_scaling=("longrope", 1.2, 64.0,
+                                tuple(1.0 + 0.02 * i for i in range(48)),
+                                tuple(1.0 + 0.5 * i for i in range(48))))),
+    ("gptneox", dict(hidden_size=384, num_heads=4))],
+    ids=["phi-d80", "phi3-longrope-d96", "gptneox-d96"])
+def test_wide_head_dim_engine_matches_plain_engine_f32(card, arch, kw):
+    """phi (D 80), Phi-3 (D 96, longrope over an original context of 64:
+    a 70- and a 200-token prompt in the long band, a 5-token one whose
+    decode stays short) and GPT-NeoX (D 96) in f32 through the kernels
+    against the plain versions: logits, a captured burst and group."""
+    ecfg = RaggedInferenceEngineConfig(num_blocks=64, block_size=16,
+                                       max_blocks_per_seq=32, max_seqs=4,
+                                       prefill_chunk_size=64,
+                                       max_prefill_tokens_per_step=128)
+    eng = build_engine(arch, "tiny", dtype=torch.float32,
+                       engine_config=ecfg, **kw)
+    plain = InferenceEngineV2(eng.cfg, params=eng.params, config=ecfg,
+                              device="cuda", plain_kernels=True)
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, eng.cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 70, 200)]
+    uids = list(range(len(prompts)))
+    outs = []
+    for e in (eng, plain):
+        e.put(uids, prompts)
+        while any(e.query(u) is None for u in uids):
+            e.step()
+        first = {u: e.query(u).copy() for u in uids}
+        for u in uids:
+            e.state.seqs[u].generated.append(int(first[u].argmax()))
+        burst = e.decode_burst_step(uids=uids, n_steps=4)
+        group = e.decode_multi_step(uids=uids, k=4)
+        outs.append((first, burst, group))
+        for u in uids:
+            e.flush(u)
+    (f1, b1, g1), (f2, b2, g2) = outs
+    for u in uids:
+        np.testing.assert_allclose(f1[u], f2[u], rtol=1e-4, atol=1e-4)
+        assert np.asarray(b1[u]).tolist() == np.asarray(b2[u]).tolist()
+        assert g1[u].tolist() == g2[u].tolist()

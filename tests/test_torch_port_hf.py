@@ -7,10 +7,14 @@ tests/test_hf_loader.py builds them.  For each: the port's converted
 parameters equal the JAX loader's exactly, and the port's engine (f32,
 paged prefill and decode through the kernels' plain versions) gives the
 HF forward's logits within 2e-4 — at a prompt's last token and at two
-decode steps after it.  Also: the model types the port does not serve
-are refused by name, a config and state dict convert without
-`transformers` (the card has none), and `build_hf_engine` serves on the
-card by default.
+decode steps after it.  The models: each dense family at the JAX tests'
+head dim 16, phi, phi3 and gpt_neox also at head dims 80 and 96, llama
+with linear, llama3 and yarn `rope_scaling` (yarn with the paper's
+attention factor and with an mscale pair), phi3 with longrope in its
+short and its long band and with a 4k-style window.  Also: the model
+types and RoPE kinds the port does not serve are refused by name, a
+config and state dict convert without `transformers` (the card has
+none), and `build_hf_engine` serves on the card by default.
 """
 import types
 
@@ -114,7 +118,105 @@ TINY = dict(
                                  bias=False, multi_query=True,
                                  parallel_attn=True,
                                  new_decoder_architecture=False),
+    # scaled RoPE on llama (the reference test's geometries)
+    llama_linear_scaled=lambda: _hf(
+        transformers.LlamaConfig, vocab_size=V, hidden_size=64,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        intermediate_size=112, max_position_embeddings=256,
+        rope_scaling={"rope_type": "linear", "factor": 4.0}),
+    llama3_scaled=lambda: _hf(
+        transformers.LlamaConfig, vocab_size=V, hidden_size=64,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        intermediate_size=112, max_position_embeddings=256,
+        rope_scaling={"rope_type": "llama3", "factor": 8.0,
+                      "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                      "original_max_position_embeddings": 64}),
+    llama_yarn_scaled=lambda: _hf(
+        transformers.LlamaConfig, vocab_size=V, hidden_size=64,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        intermediate_size=112, max_position_embeddings=256,
+        rope_scaling={"rope_type": "yarn", "factor": 4.0,
+                      "original_max_position_embeddings": 64}),
+    llama_yarn_mscale=lambda: _hf(
+        transformers.LlamaConfig, vocab_size=V, hidden_size=64,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        intermediate_size=112, max_position_embeddings=256,
+        rope_scaling={"rope_type": "yarn", "factor": 4.0, "mscale": 1.0,
+                      "mscale_all_dim": 0.8,
+                      "original_max_position_embeddings": 64}),
+    # head dim 96 with llama3 scaling
+    llama3_scaled_d96=lambda: _hf(
+        transformers.LlamaConfig, vocab_size=V, hidden_size=192,
+        num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+        intermediate_size=112, max_position_embeddings=256,
+        rope_scaling={"rope_type": "llama3", "factor": 8.0,
+                      "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                      "original_max_position_embeddings": 64}),
+    # phi-2's block: one layernorm, partial rotary, biased lm head
+    phi=lambda: _hf(transformers.PhiConfig, vocab_size=V, hidden_size=64,
+                    num_hidden_layers=2, num_attention_heads=4,
+                    intermediate_size=256, max_position_embeddings=64,
+                    partial_rotary_factor=0.5),
+    phi_d80=lambda: _hf(transformers.PhiConfig, vocab_size=V,
+                        hidden_size=160, num_hidden_layers=2,
+                        num_attention_heads=2, intermediate_size=256,
+                        max_position_embeddings=64,
+                        partial_rotary_factor=0.4),
+    phi3=lambda: _hf(transformers.Phi3Config, vocab_size=V, hidden_size=64,
+                     num_hidden_layers=2, num_attention_heads=4,
+                     num_key_value_heads=2, intermediate_size=112,
+                     max_position_embeddings=64, pad_token_id=0,
+                     bos_token_id=1, eos_token_id=2),
+    phi3_d96=lambda: _hf(transformers.Phi3Config, vocab_size=V,
+                         hidden_size=192, num_hidden_layers=2,
+                         num_attention_heads=2, num_key_value_heads=2,
+                         intermediate_size=112, max_position_embeddings=64,
+                         pad_token_id=0, bos_token_id=1, eos_token_id=2),
+    # Phi-3-mini-4k's window (2047 there), 8 keys here
+    phi3_window_d96=lambda: _hf(transformers.Phi3Config, vocab_size=V,
+                                hidden_size=192, num_hidden_layers=2,
+                                num_attention_heads=2,
+                                num_key_value_heads=2,
+                                intermediate_size=112,
+                                max_position_embeddings=64,
+                                sliding_window=8, pad_token_id=0,
+                                bos_token_id=1, eos_token_id=2),
+    # Phi-3-mini-128k's longrope: the prompt and its decode steps inside
+    # the original context (short band) or past it (long band)
+    phi3_longrope_short=lambda: _phi3_longrope(64, 64),
+    phi3_longrope_long=lambda: _phi3_longrope(64, 8),
+    phi3_longrope_long_d96=lambda: _phi3_longrope(192, 8, heads=2),
+    gpt_neox=lambda: _hf(transformers.GPTNeoXConfig, vocab_size=V,
+                         hidden_size=64, num_hidden_layers=2,
+                         num_attention_heads=4, intermediate_size=256,
+                         max_position_embeddings=64, rotary_pct=0.25),
+    gpt_neox_d96=lambda: _hf(transformers.GPTNeoXConfig, vocab_size=V,
+                             hidden_size=192, num_hidden_layers=2,
+                             num_attention_heads=2, intermediate_size=256,
+                             max_position_embeddings=64, rotary_pct=0.25),
+    gpt_neox_sequential_d96=lambda: _hf(
+        transformers.GPTNeoXConfig, vocab_size=V, hidden_size=192,
+        num_hidden_layers=2, num_attention_heads=2, intermediate_size=256,
+        max_position_embeddings=64, rotary_pct=0.25,
+        use_parallel_residual=False),
 )
+
+
+def _phi3_longrope(hidden, orig, heads=4):
+    """Phi-3 with longrope over an original context of `orig` tokens
+    (max 256): factor lists of D / 2 entries rising from 1.0."""
+    half = hidden // heads // 2
+    return _hf(transformers.Phi3Config, vocab_size=V, hidden_size=hidden,
+               num_hidden_layers=2, num_attention_heads=heads,
+               num_key_value_heads=heads // 2, intermediate_size=112,
+               max_position_embeddings=256,
+               original_max_position_embeddings=orig, pad_token_id=0,
+               bos_token_id=1, eos_token_id=2,
+               rope_scaling={"type": "longrope",
+                             "short_factor": [1.0 + 0.1 * i
+                                              for i in range(half)],
+                             "long_factor": [1.0 + 2.0 * i
+                                             for i in range(half)]})
 
 
 def _flat(tree, prefix=""):
@@ -179,16 +281,6 @@ def test_qwen2_windows_convert_per_layer():
 
 
 @pytest.mark.parametrize("name,config", [
-    ("phi", lambda: transformers.PhiConfig(vocab_size=V, hidden_size=64,
-                                           num_hidden_layers=2,
-                                           num_attention_heads=4)),
-    ("phi3", lambda: transformers.Phi3Config(vocab_size=V, hidden_size=64,
-                                             num_hidden_layers=2,
-                                             num_attention_heads=4,
-                                             pad_token_id=0)),
-    ("gpt_neox", lambda: transformers.GPTNeoXConfig(
-        vocab_size=V, hidden_size=64, num_hidden_layers=2,
-        num_attention_heads=4)),
     ("mixtral", lambda: transformers.MixtralConfig(
         vocab_size=V, hidden_size=64, num_hidden_layers=2,
         num_attention_heads=4, num_key_value_heads=2)),
@@ -204,11 +296,30 @@ def test_remaining_model_types_are_refused_by_name(name, config):
 
 
 def test_rope_scaling_and_attention_bias_are_refused():
-    with pytest.raises(NotImplementedError, match="rope_scaling"):
+    """What the reference refuses: dynamic RoPE, yarn with
+    truncate=False, phi's qk_layernorm, a biased llama o_proj.  The
+    scalings it converts convert here to the same tuples."""
+    from deepspeed_tpu.models.hf_loader import hf_to_config as jax_config
+    with pytest.raises(NotImplementedError, match="dynamic"):
         hf_to_config(transformers.LlamaConfig(
             vocab_size=V, hidden_size=64, num_hidden_layers=2,
             num_attention_heads=4,
-            rope_scaling={"rope_type": "linear", "factor": 2.0}))
+            rope_scaling={"rope_type": "dynamic", "factor": 2.0}))
+    with pytest.raises(NotImplementedError, match="truncate=False"):
+        fields = transformers.LlamaConfig(
+            vocab_size=V, hidden_size=64, num_hidden_layers=2,
+            num_attention_heads=4).to_dict()
+        fields["rope_scaling"] = {"rope_type": "yarn", "factor": 4.0,
+                                  "truncate": False}
+        hf_to_config(types.SimpleNamespace(**fields))
+    with pytest.raises(NotImplementedError, match="qk_layernorm"):
+        hf_to_config(transformers.PhiConfig(
+            vocab_size=V, hidden_size=64, num_hidden_layers=2,
+            num_attention_heads=4, qk_layernorm=True))
+    for name in ("llama_linear_scaled", "llama3_scaled",
+                 "llama_yarn_mscale", "phi3_longrope_long"):
+        c = TINY[name]().config
+        assert hf_to_config(c).rope_scaling == jax_config(c).rope_scaling
     with pytest.raises(NotImplementedError, match="attention_bias"):
         hf_to_config(transformers.MistralConfig(
             vocab_size=V, hidden_size=64, num_hidden_layers=2,

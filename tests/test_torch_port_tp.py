@@ -202,6 +202,42 @@ def test_tp2_greedy_serving_parity(tp2_served):
             assert out["chains"] == want["chains"]
 
 
+# Phi-3 at head dim 96 with longrope over an original context of 12: the
+# 25-token prompt embeds in the long band, the 7-token one in the short
+# band until its decode crosses position 12
+PHI3_KW = dict(vocab_size=128, hidden_size=384, num_layers=2, num_heads=4,
+               num_kv_heads=2, intermediate_size=256, max_seq_len=256,
+               pos_emb="rope", norm="rmsnorm", activation="swiglu",
+               tie_embeddings=False,
+               rope_scaling=("longrope",
+                             float(np.sqrt(1 + np.log(8.0) / np.log(12.0))),
+                             12.0, tuple(1.0 + 0.05 * i for i in range(48)),
+                             tuple(1.0 + 0.5 * i for i in range(48))))
+
+
+def test_tp2_phi3_longrope_d96_gives_tp1_tokens(tmp_path):
+    """The fused ring at tp 2 serves a Phi-3 block at head dim 96 with
+    longrope: the same greedy drive as tp 1's, logits within 2e-4,
+    tokens equal, on both ranks."""
+    model = JaxTransformer(JaxConfig(dtype=jnp.float32, **PHI3_KW))
+    params = jax.device_get(model.init_params(jax.random.PRNGKey(5)))
+    cfg_kw = dict(PHI3_KW, dtype=torch.float32)
+    prompts = _prompts()
+    port1 = ranks._drive(ranks.engine(params, cfg_kw, ENGINE_KW), prompts)
+    port2 = _spawn(tmp_path, ranks.serve_tp, 2, params, cfg_kw, ENGINE_KW,
+                   prompts)
+    for out in port2:
+        assert out["arena"] == (2, 64, 8, 1, 96)
+        for key in ("prefill", "cont"):
+            for u in port1[key]:
+                np.testing.assert_allclose(out[key][u], port1[key][u],
+                                           **TP_TOL)
+        for u in (0, 1):
+            np.testing.assert_array_equal(out["burst"][u], port1["burst"][u])
+        assert out["chains"] == port1["chains"]
+        assert out["tile_launches"] == 0     # the CPU runs the plain GEMM
+
+
 def test_tp_fused_refuses_unsupported_layouts(tp2_served):
     """The reference's refusals, each by name: layouts the fused forward
     does not serve (its reasons), "fused" at tp 1, the GSPMD "xla" mode
