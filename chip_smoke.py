@@ -150,6 +150,45 @@ Phases (any failure exits non-zero and prints no result):
      engine's, and `build_hf_engine` on the card from an HF config
      namespace and a state dict (no `transformers` there).  The kernels
      line's `archs` path counts the served runs and the merged run.
+ 16. (run after phase 14, on phase 2's parameters) speculative
+     draft-and-verify and fp8 serving weights.  Verify: 8 extractive
+     prompts of about phase 2's lengths (a seeded passage, the model's
+     own greedy continuation of it, the passage again), greedy
+     prompt-lookup drafts (`PromptLookupDrafter(ngram=3, max_draft=7)`,
+     each dispatch's span `span_bucket` of its longest draft) through
+     `decode_burst_step(drafts=, draft_span=)` until every request has 32
+     tokens: drafted and accepted counts, tokens a row a dispatch, each
+     dispatch's wall, paged prefill launches (L a live row, all "tma",
+     nothing else of the attention kernels), the bf16 chains beside the
+     sequential (captured burst) chains (reported); the logits of a
+     span of 8 through the kernels against their plain versions (phase
+     3's limit); 3 per_row dispatches (rejection sampling: 1 to 1 + draft
+     tokens a row, no rejected draft token its own replacement); a
+     captured burst after a dispatch replays its graph; from the staged
+     state again, oracle drafts (the sequential chain, the acceptance
+     ceiling), counted the same way; a verify dispatch of span 8 against
+     one and 8 captured decode steps in turns, and a profiled dispatch
+     (device ms by kind, idle share); the merged arena's oracle
+     dispatches equal to the 5-D arena's; an f32 model at 2 layers whose
+     spec-on chains (oracle drafts) must equal the sequential chains;
+     Mistral-7B at 4 layers with two prompts past its 4096 window (oracle
+     drafts, span logits against the plain versions).  Random weights
+     rarely continue a passage as they did before, so prompt-lookup
+     acceptance is near 0 here and says nothing of real traffic.  fp8: per
+     granularity (column, group) the tree quantized on the card, phase
+     2's wave on a captured and an eager engine (tokens equal; codes 1
+     byte and scales f32 after both), the prefill and one decode step's
+     logits against the plain engine on the same weights (phase 3's
+     limit) and against phase 3's bf16 logits (reported), the
+     parameters' GiB, decode ms a step (captured bursts) beside bf16
+     weights'.  The kernels line's `spec` path counts the verify
+     dispatches of the bf16 engines, its `fp8` path the captured fp8
+     waves.  Phase 1 adds the spans' shapes (C = 2-16 queries at deep
+     positions, GQA and a window, ALiBi; bf16, f32, 5-D and merged) and
+     times one verify layer's attention (8 launches) beside one decode
+     launch; phase 13 adds two verify dispatches at each tp (f32 tokens
+     and counts equal to tp 1's; the bf16 agreement reported; the tile
+     GEMM's verify hops counted by kernel).
 Every profile must hold each launch the kernels' counters saw in it (a
 session that dropped device events is repeated).  The bf16 paged prefill
 and decode run on their TMA kernels (`variant` "tma"): phase 1 holds them
@@ -227,6 +266,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 # bf16 kernel-vs-plain tolerance, elementwise |out - plain| <= ATOL +
 # RTOL * |plain|: both versions read the same bf16 inputs and sum in f32;
@@ -1866,6 +1906,86 @@ def check_paged_features(torch, np, pa, pp, pm, dev):
 
 
 # ----------------------------------------------------------------------
+# phase 1: the verify spans' shapes (phase 16) in the paged prefill
+# ----------------------------------------------------------------------
+# (C, NH, NKV, D, pos0, n_valid, window, bs, alibi): spans of 2, 4, 8 and
+# 16 rows at deep positions (Llama-2-7B's heads), full and short of
+# their span (n_valid < C), Mistral-7B's GQA and window past its edge,
+# Bloom's ALiBi
+SPAN_PREFILL = [
+    (2, 32, 32, 128, 1499, 2, None, 64, None),
+    (4, 32, 32, 128, 4093, 3, None, 64, None),
+    (8, 32, 32, 128, 1200, 8, None, 64, None),
+    (16, 32, 32, 128, 4070, 16, None, 64, None),
+    (16, 32, 32, 128, 310, 9, None, 64, None),
+    (8, 32, 8, 128, 4600, 8, 4096, 64, None),
+    (4, 32, 32, 128, 2000, 4, None, 64, "bloom")]
+
+
+def check_span_shapes(torch, np, pa, pp, pm, dev):
+    """The verify spans' shapes (`SPAN_PREFILL`) through `feature_cases`
+    (bf16 on "tma" and mma.sync, f32, reruns and the merged view bit for
+    bit), then one verify layer's attention at phase 16's shape: 8 rows,
+    each a span of 8 queries at the wave's positions (`WAVE_LENS`), one
+    launch a row, timed (5-D and merged) beside the plain versions, the
+    bound of the 8 launches' work, and phase 1's one decode launch for
+    the same 8 rows.  Returns ({prefill row keys}, {merged prefill row
+    keys})."""
+    rng = np.random.RandomState(20)
+    g = torch.Generator(device=dev).manual_seed(20)
+    worst = feature_cases(torch, np, pa, pp, pm, dev, [], SPAN_PREFILL, rng,
+                          g)["prefill"]
+    NH, NKV, D, bs, S = 32, 32, 128, 64, 8
+    pos = np.asarray(WAVE_LENS, np.int64)
+    B, MB = pos.size, 32
+    nb = sum(int(p + S) // bs + 1 for p in pos) + 4
+    ak, av = (torch.randn(2, nb, bs, NKV, D, generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    q = torch.randn(B, S, NH, D, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    tables = torch.from_numpy(_garbage_tables(np, rng, B, MB, nb, bs,
+                                              pos + S - 1)).to(dev)
+    mk, mv = (t.view(*t.shape[:3], NKV * D) for t in (ak, av))
+
+    def layer(fn, k, v):
+        return lambda: [fn(q[b], k, v, tables[b], int(pos[b]), S,
+                           layer_idx=1) for b in range(B)]
+    ms = time_ms(layer(pp.paged_prefill_attention, ak, av))
+    mma_ms = time_ms(lambda: [pp.paged_prefill_attention(
+        q[b], ak, av, tables[b], int(pos[b]), S, layer_idx=1,
+        variant="mma") for b in range(B)])
+    plain = time_ms(layer(pp.paged_prefill_reference, ak, av))
+    m_ms = time_ms(layer(pm.merged_prefill_attention, mk, mv))
+    m_plain = time_ms(layer(pm.merged_prefill_reference, mk, mv))
+    one = time_ms(lambda: pp.paged_prefill_attention(
+        q[-1], ak, av, tables[-1], int(pos[-1]), S, layer_idx=1))
+    flops = nbytes = 0
+    for p in pos:
+        f, n = _prefill_work(S, NH, NKV, D, int(p), S, None)
+        flops, nbytes = flops + f, nbytes + n
+    bms, by = bound_ms(flops, nbytes)
+    dq = q[:, 0].contiguous()
+    dec = time_ms(lambda: pa.paged_decode_attention(
+        dq, ak, av, tables, torch.from_numpy(pos.astype(np.int32)).to(dev),
+        layer_idx=1))
+    print(f"  verify layer (8 rows, span {S}, pos0 {WAVE_LENS}, one launch "
+          f"a row): tma {ms:.4f} ms (one launch at pos0 {pos[-1]}: "
+          f"{one:.4f}), mma.sync {mma_ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {bms:.4f} ms ({by}); merged {m_ms:.4f} ms (plain "
+          f"{m_plain:.4f}); one decode launch for the 8 rows {dec:.4f} ms")
+    shape = (f"8 rows of q [{S},{NH},{D}] at pos0 {WAVE_LENS}, arena "
+             f"[2,{nb},{bs},{NKV},{D}] bf16, one launch a row")
+    return (dict(span_max_abs_err=worst,
+                 verify_layer=dict(shape=shape, ms=ms, mma_ms=mma_ms,
+                                   plain_ms=plain, bound_ms=bms,
+                                   bound_by=by, one_launch_ms=one,
+                                   decode_launch_ms=dec)),
+            dict(span_max_abs_err=worst,
+                 verify_layer=dict(shape=shape, ms=m_ms, plain_ms=m_plain,
+                                   bound_ms=bms, bound_by=by)))
+
+
+# ----------------------------------------------------------------------
 # phase 1: head dims 80 and 96 (phi-2, Phi-3, GPT-NeoX) in the paged
 # kernels (rows 2, 3, 6, 7) and the flash forward (row 1)
 # ----------------------------------------------------------------------
@@ -3361,6 +3481,631 @@ def arch_path(torch, np, layers, counters, merged_counters):
           f"launches {launches}, by variant {variants}")
     return dict(runs=runs, merged=merged, launches=launches,
                 launches_by_variant=variants)
+
+
+# ----------------------------------------------------------------------
+# phase 16: speculative draft-and-verify and fp8 serving weights
+# ----------------------------------------------------------------------
+SPEC_NGRAM, SPEC_MAX_DRAFT = 3, 7
+SPEC_NEW = 32             # tokens each request takes after its first
+SPEC_PASSAGE = 48         # the repeated passage of each prompt
+SPEC_F32_LAYERS = 2
+SPEC_PER_ROW = 3          # per_row dispatches after the greedy wave
+# per_row dispatches: temperature and top_k by request (0: a greedy row)
+SPEC_TEMPS = {0: 0.8, 1: 0.8, 2: 0.0, 3: 1.0, 4: 0.6, 5: 0.0, 6: 0.8,
+              7: 1.2}
+SPEC_TOPK = {0: 0, 1: 40, 2: 0, 3: 8, 4: 0, 5: 0, 6: 100, 7: 0}
+SPEC_TIMED = 4            # timed verify dispatches and bursts, in turns
+SPEC_SPAN = 8             # the timed dispatches' span (drafts of 7)
+MISTRAL_SPEC_LAYERS = 4
+FP8_GRANULARITIES = ("column", "group")
+
+
+def spec_prompts(np, eng, lens=PROMPT_LENS, seed=16):
+    """Extractive prompts of about `lens` tokens: a seeded passage (at
+    most SPEC_PASSAGE tokens, repeated) of half the length, `eng`'s own
+    greedy continuation of it (its first token and SPEC_NEW more, bursts
+    of 8), then the passage again.  A model that continues the second
+    passage as it did the first (a random-weight model's next token rests
+    mostly on the last few tokens) meets prompt-lookup drafts of its own
+    continuation; where it does not, the drafts are rejected."""
+    rng = np.random.RandomState(seed)
+    base = []
+    for n in lens:
+        m = max(n // 2, 4)
+        passage = rng.randint(0, eng.cfg.vocab_size, min(SPEC_PASSAGE, m))
+        base.append(np.resize(passage, m).astype(np.int32))
+    uids = ms_stage(np, (eng,), base)
+    chains = seq_chains(np, eng, uids)
+    for u in uids:
+        eng.flush(u)
+    return [np.concatenate([b, np.asarray(chains[u], np.int32), b])
+            for u, b in zip(uids, base)]
+
+
+def spec_drafts(np, eng, uids, drafter):
+    """{uid: prompt-lookup draft of the request's whole context} and the
+    dispatch's span (`span_bucket` of 1 + the longest draft)."""
+    from deepspeed_tpu_torch.serving import span_bucket
+    drafts = {}
+    for u in uids:
+        d = eng.state.seqs[u]
+        drafts[u] = drafter.draft(np.concatenate([d.prompt, d.generated]))
+    return drafts, span_bucket(1 + max(len(d) for d in drafts.values()))
+
+
+def oracle_drafts(eng, uids, oracle):
+    """{uid: the next SPEC_MAX_DRAFT tokens of `oracle` (the sequential
+    engine's greedy chain) after the request's generated tokens} and the
+    dispatch's span: the drafts a draft model that agrees with the target
+    would make (the acceptance ceiling)."""
+    from deepspeed_tpu_torch.serving import span_bucket
+    drafts = {}
+    for u in uids:
+        at = len(eng.state.seqs[u].generated)
+        drafts[u] = oracle[u][at:at + SPEC_MAX_DRAFT]
+    return drafts, span_bucket(1 + max(len(d) for d in drafts.values()))
+
+
+def spec_wave(torch, np, eng, uids, n_new=SPEC_NEW, dev="cuda",
+              oracle=None):
+    """Greedy dispatches (`decode_burst_step(drafts=, draft_span=)`) of
+    prompt-lookup drafts, or with `oracle` ({uid: chain}) of
+    `oracle_drafts`, until every request holds its first token and n_new
+    more, each dispatch timed (synchronised).  Returns the record:
+    chains, drafted, accepted, dispatches, live rows per dispatch, spans,
+    walls."""
+    from deepspeed_tpu_torch.serving import PromptLookupDrafter
+    drafter = PromptLookupDrafter(ngram=SPEC_NGRAM, max_draft=SPEC_MAX_DRAFT)
+    rec = dict(drafted=0, accepted=0, emitted=0, rows=[], spans=[],
+               walls=[])
+    live = list(uids)
+    while live:
+        drafts, span = (spec_drafts(np, eng, live, drafter) if oracle is None
+                        else oracle_drafts(eng, live, oracle))
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        got = eng.decode_burst_step(uids=live, drafts=drafts,
+                                    draft_span=span)
+        sync(torch, dev)
+        rec["walls"].append(time.perf_counter() - t0)
+        rec["rows"].append(len(live))
+        rec["spans"].append(span)
+        for u in live:
+            toks, n_d, n_a = got[u]
+            if not 1 <= len(toks) <= 1 + n_d or n_a != len(toks) - 1:
+                fail(f"phase 16: request {u} emitted {len(toks)} tokens "
+                     f"for a draft of {n_d} ({n_a} accepted)")
+            rec["drafted"] += n_d
+            rec["accepted"] += n_a
+            rec["emitted"] += len(toks)
+        live = [u for u in live
+                if len(eng.state.seqs[u].generated) < 1 + n_new]
+    rec["chains"] = {u: list(eng.state.seqs[u].generated[:1 + n_new])
+                     for u in uids}
+    rec["dispatches"] = len(rec["walls"])
+    return rec
+
+
+def seq_chains(np, eng, uids, n_new=SPEC_NEW, burst=8):
+    """The sequential greedy chains: bursts of `burst` until every request
+    holds its first token and n_new + SPEC_MAX_DRAFT more (an oracle
+    draft's reach past the n_new a wave takes)."""
+    n = 1 + n_new + SPEC_MAX_DRAFT
+    while min(len(eng.state.seqs[u].generated) for u in uids) < n:
+        eng.decode_burst_step(uids=uids, n_steps=burst)
+    return {u: list(eng.state.seqs[u].generated[:n]) for u in uids}
+
+
+def chain_agreement(want, got):
+    """(tokens of `got` equal to `want`'s at the same place, of how many;
+    requests whose chains are equal), over `got`'s length."""
+    same = sum(int(a == b) for u in got for a, b in zip(want[u], got[u]))
+    return same, sum(len(v) for v in got.values()), [
+        u for u in got if want[u][:len(got[u])] == got[u]]
+
+
+def span_operands(np, eng, uids, drafts, S):
+    """A verify span's host operands as the engine stages them (leases
+    for the span taken; no state moves): tokens, seq_lens, n_valids,
+    block tables, active, max_len."""
+    B, MB = eng.config.max_seqs, eng.config.max_blocks_per_seq
+    tokens = np.zeros((B, S), np.int32)
+    lens = np.zeros(B, np.int32)
+    nval = np.ones(B, np.int32)
+    tables = np.zeros((B, MB), np.int32)
+    active = np.zeros(B, bool)
+    max_lens = np.ones(B, np.int32)
+    for i, u in enumerate(uids):
+        d = eng.state.seqs[u]
+        dr = np.asarray(drafts[u], np.int32)[:S - 1]
+        tokens[i, 0] = d.generated[-1]
+        tokens[i, 1:1 + len(dr)] = dr
+        nval[i] = 1 + len(dr)
+        lens[i] = d.seen_tokens
+        max_lens[i] = min(d.seen_tokens + S, eng.max_tokens_per_seq)
+        eng.state.ensure_capacity(d, int(max_lens[i]))
+        tables[i] = eng.state.block_table(d)
+        active[i] = True
+    return tokens, lens, nval, tables, active, max_lens
+
+
+def span_vs_plain(torch, np, eng, uids, drafts, S):
+    """The span forward's logits (`ragged_ops._span_core`) through the
+    kernels and through their plain versions, each on its own copy of the
+    engine's arena: max |dlogit| / max |logit| over each request's valid
+    span positions.  Returns ({uid: relative difference}, the kernel
+    logits' argmax agreement with the plain ones)."""
+    from dataclasses import replace
+    from deepspeed_tpu_torch.inference.v2 import ragged_ops
+    ops = span_operands(np, eng, uids, drafts, S)
+    out = {}
+    for name, cfg in (("kernel", eng.cfg),
+                      ("plain", replace(eng.cfg, attn_impl="jnp"))):
+        arena = {n: t.clone() for n, t in eng.arena.items()}
+        logits, _ = ragged_ops._span_core(cfg, eng.params, arena, *ops)
+        out[name] = logits.cpu().numpy()
+        del arena, logits
+        free(torch, eng.device)
+    rels, agree, n = {}, 0, 0
+    for i, u in enumerate(uids):
+        a = out["kernel"][i, :ops[2][i]]
+        b = out["plain"][i, :ops[2][i]]
+        if not (np.isfinite(a).all() and np.isfinite(b).all()):
+            fail(f"phase 16: span logits of request {u} not finite")
+        rels[u] = float(np.abs(a - b).max() / np.abs(b).max())
+        agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+        n += a.shape[0]
+    return rels, (agree, n)
+
+
+def param_gib(params):
+    """The bytes of a parameter tree on the card, in GiB."""
+    def leaves(t):
+        for v in t.values():
+            if isinstance(v, dict):
+                yield from leaves(v)
+            else:
+                yield v
+    return sum(t.numel() * t.element_size() for t in leaves(params)) / 2**30
+
+
+def spec_timing(torch, np, spec, seq, uids, counters, dev="cuda"):
+    """A verify dispatch of span SPEC_SPAN (every request a draft of
+    SPEC_SPAN - 1 tokens the model rejects: each emits one) against one
+    captured decode step and SPEC_SPAN of them (bursts), SPEC_TIMED of
+    each in turns, synchronised walls; then one verify dispatch under the
+    profiler (device ms by kind, idle share against its unprofiled mean
+    wall).  Returns the record."""
+    walls = {"verify": [], "step": [], "steps": []}
+    # a round more than timed: the first captures the one-step burst
+    for i in range(SPEC_TIMED + 1):
+        drafts = garbage_drafts(spec, uids)
+        for name, call in (
+                ("verify", lambda: spec.decode_burst_step(
+                    uids=uids, drafts=drafts, draft_span=SPEC_SPAN)),
+                ("step", lambda: seq.decode_burst_step(uids=uids,
+                                                       n_steps=1)),
+                ("steps", lambda: seq.decode_burst_step(
+                    uids=uids, n_steps=SPEC_SPAN))):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            call()
+            sync(torch, dev)
+            if i:
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+    mean = {k: sum(v) / len(v) for k, v in walls.items()}
+    launches = {}
+
+    def dispatch():
+        drafts = garbage_drafts(spec, uids)
+        spec.decode_burst_step(uids=uids, drafts=drafts,
+                               draft_span=SPEC_SPAN)
+    # each profiled try is a dispatch of its own (the state moves on)
+    events = profiled(counted(counters, dispatch, launches),
+                      holds_launches(launches),
+                      what="kernels of a verify dispatch")
+    by_kind = {}
+    for e in events:
+        by_kind[_kind(e.name)] = (by_kind.get(_kind(e.name), 0.0)
+                                  + e.time_range.elapsed_us() / 1e3)
+    busy = sum(by_kind.values())
+    return dict(walls_ms=walls, verify_ms=mean["verify"],
+                step_ms=mean["step"], steps_ms=mean["steps"],
+                device_ms=busy, idle_share=1 - busy / mean["verify"],
+                ms_by_kind=by_kind,
+                prefill_launches=launches["paged_prefill_attention"])
+
+
+def garbage_drafts(eng, uids, n=SPEC_SPAN - 1):
+    """{uid: n tokens the model all but surely rejects} (a span of n + 1
+    valid positions that emits one token a row)."""
+    V = eng.cfg.vocab_size
+    return {u: [(eng.state.seqs[u].generated[-1] + 7 * (j + 1)) % V
+                for j in range(n)] for u in uids}
+
+
+def wave_text(wave):
+    """A wave's counts, for the log."""
+    rate = wave["accepted"] / max(wave["drafted"], 1)
+    tpd = wave["emitted"] / sum(wave["rows"])
+    return (rate, tpd, f"{wave['dispatches']} dispatches (spans "
+            f"{wave['spans']}): drafted {wave['drafted']}, accepted "
+            f"{wave['accepted']} ({rate:.3f}), {tpd:.3f} tokens a row a "
+            f"dispatch; dispatch wall mean "
+            f"{1e3 * sum(wave['walls']) / len(wave['walls']):.1f} ms")
+
+
+def spec_path(torch, np, cfg, params, config, counters, merged_counters):
+    """Phase 16, speculative part (see the module docstring).  Returns the
+    record; its launches are the path's: every verify dispatch of the
+    bf16 engines (the prompt-lookup and oracle waves, per_row, merged,
+    Mistral), each counted from 0 just before it and read just after (the
+    timed and profiled dispatches of `spec_timing` are not on it)."""
+    from dataclasses import replace
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig,
+                                                  build_engine)
+    t_phase = time.perf_counter()
+    L = cfg.num_layers
+    path = {}
+
+    def on_path(body, cs=counters):
+        launches = {}
+        out = []
+        counted(cs, lambda: out.append(body()), launches)()
+        paged_on_tma(cs, "phase 16")
+        for n, v in launches.items():
+            path[n] = path.get(n, 0) + v
+        return out[0], launches
+
+    def check_launches(wave, launches, name="paged_prefill_attention",
+                       layers=L, what="the verify dispatches"):
+        if (launches[name] != layers * sum(wave["rows"])
+                or launches.get("paged_decode_attention")
+                or launches.get("merged_decode_attention")
+                or launches.get("flash_attention_fwd")):
+            fail(f"phase 16: {what} launched {launches}, want "
+                 f"{layers * sum(wave['rows'])} {name} launches (L x live "
+                 f"rows) and nothing else of the attention kernels")
+
+    spec = InferenceEngineV2(cfg, params=params, config=config,
+                             device="cuda")
+    seq = InferenceEngineV2(cfg, params=params, config=config,
+                            device="cuda")
+    prompts = spec_prompts(np, seq)
+    lens = [len(p) for p in prompts]
+    uids = ms_stage(np, (spec, seq), prompts)
+    chains = seq_chains(np, seq, uids)
+    wave, launches = on_path(lambda: spec_wave(torch, np, spec, uids))
+    check_launches(wave, launches)
+    same, total, equal = chain_agreement(chains, wave["chains"])
+    rate, tpd, text = wave_text(wave)
+    print(f"phase 16: Llama-2-7B widths, {L} layers, bf16: {len(uids)} "
+          f"prompts of {lens} tokens (a passage, the model's continuation "
+          f"of it, the passage again); greedy prompt-lookup (ngram "
+          f"{SPEC_NGRAM}, max draft {SPEC_MAX_DRAFT}) for {SPEC_NEW} tokens "
+          f"a request: {text}; paged prefill launches "
+          f"{launches['paged_prefill_attention']} = L x live rows, by "
+          f"variant { {k: v for k, v in launches.items() if '/' in k and v} }"
+          f"; chains vs the sequential (captured burst) chains {same} of "
+          f"{total} tokens equal, requests equal {equal}")
+    record = dict(prompt_lens=lens, dispatches=wave["dispatches"],
+                  spans=wave["spans"], rows=wave["rows"],
+                  drafted=wave["drafted"], accepted=wave["accepted"],
+                  acceptance=rate, tokens_per_row_dispatch=tpd,
+                  dispatch_wall_ms=[w * 1e3 for w in wave["walls"]],
+                  bf16_chain_agreement=(same, total), bf16_equal=equal,
+                  wave_launches=launches)
+
+    # the span's logits against the plain versions', from this state: a
+    # span of SPEC_SPAN valid positions a row
+    rels, agree = span_vs_plain(torch, np, spec, uids,
+                                garbage_drafts(spec, uids), SPEC_SPAN)
+    worst = max(rels.values())
+    print(f"phase 16: span logits (span {SPEC_SPAN}) kernel vs plain "
+          f"versions: max |dlogit| / max |logit| by request "
+          f"{[float(f'{rels[u]:.3e}') for u in uids]} (tol {E2E_REL_TOL}); "
+          f"argmax equal at {agree[0]} of {agree[1]} span positions")
+    if worst > E2E_REL_TOL:
+        fail(f"phase 16: span logits differ from the plain versions' by "
+             f"{worst} relative (tol {E2E_REL_TOL})")
+    record.update(span_rel_dlogit=rels, span_worst=worst,
+                  span_argmax_agreement=agree)
+
+    # per_row dispatches from here: rejection sampling's rules
+    gen = torch.Generator(device=spec.device).manual_seed(16)
+    stats = dict(drafted=0, accepted=0, dispatches=0)
+
+    def per_row():
+        for _ in range(SPEC_PER_ROW):
+            drafts = garbage_drafts(spec, uids)
+            got = spec.decode_burst_step(
+                uids=uids, mode="per_row", temperature=SPEC_TEMPS,
+                top_k=SPEC_TOPK, rng=gen, drafts=drafts,
+                draft_span=SPEC_SPAN)
+            stats["dispatches"] += 1
+            for u in uids:
+                toks, n_d, n_a = got[u]
+                if not 1 <= len(toks) <= 1 + n_d or n_a != len(toks) - 1:
+                    fail(f"phase 16: per_row request {u} emitted "
+                         f"{len(toks)} for a draft of {n_d}")
+                if n_a < n_d and int(toks[n_a]) == int(drafts[u][n_a]):
+                    fail(f"phase 16: request {u}'s rejected draft token "
+                         f"{toks[n_a]} came back as its replacement")
+                stats["drafted"] += n_d
+                stats["accepted"] += n_a
+    on_path(per_row)
+    # a captured burst after a verify dispatch replays its graph (no
+    # graphs on the CPU: a rehearsal there skips the check)
+    g = spec._programs.graphs or types.SimpleNamespace(captures=0,
+                                                       replays=0)
+    spec.decode_burst_step(uids=uids, n_steps=8)
+    captures, replays = g.captures, g.replays
+    on_path(lambda: spec.decode_burst_step(
+        uids=uids, drafts=garbage_drafts(spec, uids), draft_span=SPEC_SPAN))
+    spec.decode_burst_step(uids=uids, n_steps=8)
+    if spec._programs.graphs is not None and (
+            g.captures != captures or g.replays != replays + 1):
+        fail(f"phase 16: a burst after a verify dispatch captured again "
+             f"({g.captures} captures, {g.replays} replays; before "
+             f"{captures}, {replays})")
+    print(f"phase 16: {stats['dispatches']} per_row dispatches (span "
+          f"{SPEC_SPAN}, drafts the model all but surely rejects; "
+          f"temperatures {SPEC_TEMPS}, top_k {SPEC_TOPK}): drafted "
+          f"{stats['drafted']}, accepted {stats['accepted']}; every row "
+          f"1 to 1 + draft tokens, no rejected draft token its own "
+          f"replacement; a captured burst after a verify dispatch "
+          f"replayed its graph ({g.captures} captures)")
+    record["per_row"] = stats
+
+    # oracle drafts (the sequential chain: a draft model that agrees with
+    # the target), from the staged state again
+    for u in uids:
+        spec.flush(u)
+        seq.flush(u)
+    uids = ms_stage(np, (spec, seq), prompts)
+    owave, olaunch = on_path(lambda: spec_wave(torch, np, spec, uids,
+                                               oracle=chains))
+    check_launches(owave, olaunch)
+    same, total, equal = chain_agreement(chains, owave["chains"])
+    rate, tpd, text = wave_text(owave)
+    print(f"phase 16: oracle drafts (the sequential chain): {text}; chains "
+          f"vs the sequential chains {same} of {total} tokens equal, "
+          f"requests equal {equal}")
+    record["oracle"] = dict(dispatches=owave["dispatches"],
+                            spans=owave["spans"], drafted=owave["drafted"],
+                            accepted=owave["accepted"], acceptance=rate,
+                            tokens_per_row_dispatch=tpd,
+                            dispatch_wall_ms=[w * 1e3
+                                              for w in owave["walls"]],
+                            chain_agreement=(same, total), launches=olaunch)
+
+    # a verify dispatch against one and SPEC_SPAN captured decode steps
+    timing = spec_timing(torch, np, spec, seq, uids, counters)
+    print(f"phase 16: a verify dispatch (span {SPEC_SPAN}, {len(uids)} rows,"
+          f" eager) {timing['verify_ms']:.2f} ms vs one captured decode step"
+          f" {timing['step_ms']:.2f} ms and {SPEC_SPAN} steps "
+          f"{timing['steps_ms']:.2f} ms (means of {SPEC_TIMED} in turns); "
+          f"profiled dispatch: device {timing['device_ms']:.2f} ms (idle "
+          f"share {timing['idle_share']:.3f}), by kind (ms) " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(
+                  timing["ms_by_kind"].items(), key=lambda kv: -kv[1])))
+    record["timing"] = timing
+    del seq
+    free(torch, "cuda")
+
+    # the merged arena: the same oracle dispatches give the 5-D tokens
+    for u in uids:
+        spec.flush(u)
+    merged = InferenceEngineV2(cfg, params=params,
+                               config=replace(config, arena_merged=True),
+                               device="cuda")
+    uids = ms_stage(np, (spec, merged), prompts)
+    five = spec_wave(torch, np, spec, uids, n_new=16, oracle=chains)
+    mwave, mlaunch = on_path(lambda: spec_wave(
+        torch, np, merged, uids, n_new=16, oracle=chains), merged_counters)
+    if mwave["chains"] != five["chains"] or \
+            mwave["spans"] != five["spans"]:
+        fail("phase 16: the merged arena's verify tokens differ from the "
+             "5-D arena's")
+    check_launches(mwave, mlaunch, "merged_prefill_attention")
+    if mlaunch["paged_prefill_attention"]:
+        fail(f"phase 16: the merged verify launched {mlaunch}")
+    print(f"phase 16: merged arena, oracle drafts: {mwave['dispatches']} "
+          f"dispatches (accepted {mwave['accepted']} of "
+          f"{mwave['drafted']}), tokens equal to the 5-D arena's; merged "
+          f"prefill launches {mlaunch['merged_prefill_attention']}")
+    record["merged"] = dict(dispatches=mwave["dispatches"],
+                            accepted=mwave["accepted"],
+                            drafted=mwave["drafted"], launches=mlaunch)
+    del merged, spec
+    free(torch, "cuda")
+
+    # f32 at SPEC_F32_LAYERS layers: the spec-on chain is the sequential
+    f32 = build_engine("llama", "7b", dtype=torch.float32, device="cuda",
+                       num_layers=SPEC_F32_LAYERS)
+    f32_seq = InferenceEngineV2(f32.cfg, params=f32.params,
+                                config=f32.config, device="cuda")
+    uids = ms_stage(np, (f32, f32_seq), spec_prompts(np, f32_seq))
+    fchains = seq_chains(np, f32_seq, uids)
+    fw = spec_wave(torch, np, f32, uids, oracle=fchains)
+    same, total, _ = chain_agreement(fchains, fw["chains"])
+    print(f"phase 16: f32, {SPEC_F32_LAYERS} layers, oracle drafts: spec-on "
+          f"chains equal to the sequential chains: {same} of {total} tokens "
+          f"(accepted {fw['accepted']} of {fw['drafted']} drafted, "
+          f"{fw['dispatches']} dispatches)")
+    if same != total or fw["accepted"] == 0:
+        fail(f"phase 16: the f32 spec-on chains differ from the sequential "
+             f"chains ({same} of {total} tokens equal) or accepted nothing")
+    record["f32"] = dict(layers=SPEC_F32_LAYERS, tokens_equal=(same, total),
+                         drafted=fw["drafted"], accepted=fw["accepted"],
+                         dispatches=fw["dispatches"])
+    del f32, f32_seq
+    free(torch, "cuda")
+
+    # a windowed architecture: Mistral-7B widths at MISTRAL_SPEC_LAYERS
+    mis = build_engine("mistral", "7b", dtype=torch.bfloat16, device="cuda",
+                       num_layers=MISTRAL_SPEC_LAYERS,
+                       engine_config=RaggedInferenceEngineConfig(
+                           **MISTRAL_ENGINE))
+    mseq = InferenceEngineV2(mis.cfg, params=mis.params, config=mis.config,
+                             device="cuda")
+    mprompts = spec_prompts(np, mseq, MISTRAL_PROMPTS, seed=17)
+    uids = ms_stage(np, (mis, mseq), mprompts)
+    mchains = seq_chains(np, mseq, uids)
+    mw, ml = on_path(lambda: spec_wave(torch, np, mis, uids,
+                                       oracle=mchains))
+    check_launches(mw, ml, layers=MISTRAL_SPEC_LAYERS,
+                   what="Mistral's verify dispatches")
+    same, total, _ = chain_agreement(mchains, mw["chains"])
+    mrels, magree = span_vs_plain(torch, np, mis, uids,
+                                  garbage_drafts(mis, uids), SPEC_SPAN)
+    mworst = max(mrels.values())
+    crossed = [u for u in uids if mis.state.seqs[u].seen_tokens
+               > mis.cfg.sliding_window]
+    print(f"phase 16: Mistral-7B widths, {MISTRAL_SPEC_LAYERS} layers, "
+          f"window {mis.cfg.sliding_window}, prompts "
+          f"{[len(p) for p in mprompts]} (requests {crossed} past the "
+          f"window), oracle drafts: {mw['dispatches']} dispatches, accepted "
+          f"{mw['accepted']} of {mw['drafted']}; chains vs sequential "
+          f"{same} of {total} tokens equal; span logits (span {SPEC_SPAN}) "
+          f"vs plain max rel {mworst:.3e} (tol {E2E_REL_TOL}), argmax equal "
+          f"{magree[0]} of {magree[1]}")
+    if mworst > E2E_REL_TOL or not crossed:
+        fail(f"phase 16: Mistral's span logits differ by {mworst} (or no "
+             f"request passed the window: {crossed})")
+    record["mistral"] = dict(layers=MISTRAL_SPEC_LAYERS,
+                             dispatches=mw["dispatches"],
+                             drafted=mw["drafted"], accepted=mw["accepted"],
+                             chain_agreement=(same, total),
+                             span_worst=mworst, launches=ml)
+    del mis, mseq
+    free(torch, "cuda")
+    record["launches"] = path
+    record["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 16 (spec): {record['wall_s']:.1f} s; the path's launches "
+          f"{ {k: v for k, v in path.items() if v} }")
+    return record
+
+
+def fp8_path(torch, np, cfg, params, config, prompts, outs, bf16_logits,
+             counters):
+    """Phase 16, fp8 part (see the module docstring): per granularity,
+    phase 2's wave on a captured and an eager engine over the same fp8
+    tree (tokens equal), codes 1 byte and scales f32 after both, the
+    prefill and one decode step's logits against the plain-version
+    engine on the same weights (phase 3's limit) and against phase 3's
+    bf16 logits (reported), the parameters' GiB, and decode ms a step
+    against the bf16 engine (captured bursts in turns).  The path's
+    launches are the captured engines' waves."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models.transformer import \
+        quantize_serving_weights
+    path, record = {}, {}
+    t_phase = time.perf_counter()
+    bf16_gib = param_gib(params)
+    for gran in FP8_GRANULARITIES:
+        t0 = time.perf_counter()
+        pq = quantize_serving_weights(params, granularity=gran)
+        sync(torch)
+        q_s = time.perf_counter() - t0
+        eng = InferenceEngineV2(cfg, params=pq, config=config,
+                                device="cuda")
+        eager = ms_eager(InferenceEngineV2(cfg, params=pq, config=config,
+                                           device="cuda"))
+        launches = {}
+        got = []
+        sync(torch)
+        t0 = time.perf_counter()
+        counted(counters, lambda: got.append(eng.generate_batch(
+            prompts, max_new_tokens=MAX_NEW)), launches)()
+        sync(torch)
+        wall = time.perf_counter() - t0
+        paged_on_tma(counters, f"phase 16 fp8 {gran}")
+        for n, v in launches.items():
+            path[n] = path.get(n, 0) + v
+        got = got[0]
+        eager_outs = eager.generate_batch(prompts, max_new_tokens=MAX_NEW)
+        if any(a.tolist() != b.tolist() for a, b in zip(got, eager_outs)):
+            fail(f"phase 16: fp8 {gran}: the captured engine's tokens "
+                 f"differ from the eager engine's")
+        key = "q_col_scales" if gran == "column" else "q_scales"
+        for e in (eng, eager):
+            for k, leaf in e.params["layers"].items():
+                if isinstance(leaf, dict) and not (
+                        leaf["q_codes"].dtype == torch.float8_e4m3fn
+                        and leaf["q_codes"].element_size() == 1
+                        and leaf[key].dtype == torch.float32):
+                    fail(f"phase 16: fp8 {gran}: {k} left its 1-byte codes"
+                         f" or f32 scales ({leaf['q_codes'].dtype}, "
+                         f"{leaf[key].dtype})")
+        graphs = eng._programs.graphs
+        if graphs is not None and graphs.replays <= 0:
+            fail(f"phase 16: fp8 {gran}: no burst was replayed")
+        del eager
+        free(torch, "cuda")
+        plain = InferenceEngineV2(cfg, params=pq, config=config,
+                                  device="cuda", plain_kernels=True)
+        kernel = prefill_and_step(np, eng, prompts, outs)
+        want = prefill_and_step(np, plain, prompts, outs)
+        del plain
+        free(torch, "cuda")
+        rels = logit_differences(np, kernel, want)
+        worst = max(max(rels[0]), max(rels[1]))
+        vs_bf16 = logit_differences(np, kernel, bf16_logits)
+        # decode ms a step, captured bursts in turns against bf16 weights
+        bf16 = InferenceEngineV2(cfg, params=params, config=config,
+                                 device="cuda")
+        walls = {"fp8": [], "bf16": []}
+        staged = []
+        for e in (eng, bf16):
+            us = list(range(len(prompts)))
+            e.put(us, prompts, decode=False)
+            while any(e.query(u) is None for u in us):
+                e.step(decode=False)
+            for u in us:
+                e.state.seqs[u].generated.append(int(outs[u][0]))
+            staged.append(us)
+        # a round more than timed: the first captures the bursts
+        for i in range(SPEC_TIMED + 1):
+            for name, e in (("fp8", eng), ("bf16", bf16)):
+                sync(torch)
+                t0 = time.perf_counter()
+                e.decode_burst_step(uids=staged[0], n_steps=8)
+                sync(torch)
+                if i:
+                    walls[name].append((time.perf_counter() - t0) * 1e3
+                                       / 8)
+        step = {k: sum(v) / len(v) for k, v in walls.items()}
+        gib = param_gib(eng.params)
+        print(f"phase 16: fp8 {gran}: quantized on the card in {q_s:.1f} s;"
+              f" params {gib:.2f} GiB (bf16 {bf16_gib:.2f}); wave "
+              f"{wall:.3f} s captured, tokens equal to the eager engine's; "
+              f"launches {launches}; kernel vs plain engine on the same "
+              f"weights max |dlogit| / max |logit| "
+              f"{worst:.3e} (tol {E2E_REL_TOL}); vs bf16 weights (reported)"
+              f" first token {max(vs_bf16[0]):.3e}, second "
+              f"{max(vs_bf16[1]):.3e}; decode ms a step (captured bursts "
+              f"of 8, {len(prompts)} rows) fp8 {step['fp8']:.2f} vs bf16 "
+              f"{step['bf16']:.2f}")
+        if worst > E2E_REL_TOL:
+            fail(f"phase 16: fp8 {gran} logits differ from the plain "
+                 f"engine's by {worst} relative (tol {E2E_REL_TOL})")
+        record[gran] = dict(quantize_s=q_s, params_gib=gib, wave_s=wall,
+                            launches=launches, e2e_max_rel_dlogit=worst,
+                            vs_bf16_first=max(vs_bf16[0]),
+                            vs_bf16_second=max(vs_bf16[1]),
+                            decode_ms_per_step=step["fp8"],
+                            bf16_decode_ms_per_step=step["bf16"],
+                            walls_ms=walls)
+        del eng, bf16, pq
+        free(torch, "cuda")
+    record["bf16_params_gib"] = bf16_gib
+    record["launches"] = path
+    record["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 16 (fp8): {record['wall_s']:.1f} s")
+    return record
 
 
 # ----------------------------------------------------------------------
@@ -5166,6 +5911,48 @@ def tp_wave(torch, np, eng, prompts, counters):
                 / max(calls["decode_steps"], 1))
 
 
+TP_VERIFY_DISPATCHES = 2
+TP_VERIFY_SPAN = 8
+
+
+def tp_verify(np, eng, prompts, outs, counters=()):
+    """Phase 13's verify dispatches on `eng` (any tp): the wave's prompts
+    prefilled, each request's first token tp 1's (`outs[i][0]`), then
+    TP_VERIFY_DISPATCHES greedy verify dispatches of span TP_VERIFY_SPAN,
+    even requests drafting tp 1's greedy chain (`outs[i][1:]`), odd ones
+    garbage; the counters set to 0 just before the dispatches and read
+    just after.  Returns ({uid: [(tokens, drafted, accepted) a
+    dispatch]}, launches); every request flushed."""
+    uids = list(range(len(prompts)))
+    eng.put(uids, prompts, decode=False)
+    while any(eng.query(u) is None for u in uids):
+        eng.step(decode=False)
+    for u in uids:
+        eng.state.seqs[u].generated.append(int(outs[u][0]))
+    got = {u: [] for u in uids}
+    launches = {}
+    V = eng.cfg.vocab_size
+
+    def dispatches():
+        for j in range(TP_VERIFY_DISPATCHES):
+            drafts = {}
+            for u in uids:
+                d = eng.state.seqs[u]
+                at = len(d.generated)
+                chain = [int(t) for t in outs[u][at:at + TP_VERIFY_SPAN - 1]]
+                drafts[u] = (chain if u % 2 == 0
+                             else [(t + 11) % V for t in chain])
+            out = eng.decode_burst_step(uids=uids, drafts=drafts,
+                                        draft_span=TP_VERIFY_SPAN)
+            for u in uids:
+                t, n_d, n_a = out[u]
+                got[u].append((np.asarray(t).tolist(), int(n_d), int(n_a)))
+    counted(counters, dispatches, launches)()
+    for u in uids:
+        eng.flush(u)
+    return got, launches
+
+
 def _union_us(intervals):
     """Total length of the union of (start, end) intervals."""
     total, end = 0.0, None
@@ -5314,6 +6101,7 @@ def tp_rank(rank, world, init, layers, prompts, outs1, strict_outs1, dev,
     build_s = time.perf_counter() - t0
     wave = tp_wave(torch, np, eng, prompts, counters)
     logits = prefill_and_step(np, eng, prompts, outs1)
+    verify, verify_launches = tp_verify(np, eng, prompts, outs1, counters)
     prof, step_ms = tp_profile_decode(torch, np, eng, prompts, outs1,
                                       profile and rank == 0)
     arena = tuple(eng.arena["k"].shape)
@@ -5325,11 +6113,14 @@ def tp_rank(rank, world, init, layers, prompts, outs1, strict_outs1, dev,
     strict_tokens = np.stack(strict.generate_batch(prompts,
                                                    max_new_tokens=MAX_NEW))
     strict_logits = prefill_and_step(np, strict, prompts, strict_outs1)
+    strict_verify, _ = tp_verify(np, strict, prompts, strict_outs1)
     del strict
     free(torch, dev)
     return dict(build_s=build_s, wave=wave, logits=logits, profile=prof,
                 decode_step_wall_ms=step_ms, arena=arena, plain_calls=plain,
-                strict_tokens=strict_tokens, strict_logits=strict_logits)
+                strict_tokens=strict_tokens, strict_logits=strict_logits,
+                verify=verify, verify_launches=verify_launches,
+                strict_verify=strict_verify)
 
 
 def tensor_parallel(torch, np, layers, sizes, store_dir, dev="cuda",
@@ -5381,6 +6172,7 @@ def tensor_parallel(torch, np, layers, sizes, store_dir, dev="cuda",
     paged_on_tma(counters, "phase 13, tp 1")
     outs1 = base["tokens"]
     logits1 = prefill_and_step(np, eng, prompts, outs1)
+    verify1, _ = tp_verify(np, eng, prompts, outs1)
     del eng
     free(torch, dev)
     strict = build_engine("llama", "7b", dtype=torch.float32, device=dev,
@@ -5389,6 +6181,7 @@ def tensor_parallel(torch, np, layers, sizes, store_dir, dev="cuda",
     strict_outs1 = np.stack(strict.generate_batch(prompts,
                                                   max_new_tokens=MAX_NEW))
     strict_logits1 = prefill_and_step(np, strict, prompts, strict_outs1)
+    strict_verify1, _ = tp_verify(np, strict, prompts, strict_outs1)
     del strict
     free(torch, dev)
     print(f"phase 13: tp 1: prefill {base['prefill_tok_s']:.0f} tok/s, "
@@ -5483,6 +6276,37 @@ def tensor_parallel(torch, np, layers, sizes, store_dir, dev="cuda",
         if sd > TP_STRICT_ATOL or not strict_same:
             fail(f"tp {tp} strict check: max |dlogit| {sd}, tokens "
                  f"identical {strict_same}")
+        # verify dispatches over the ring: ranks alike, f32 tokens tp 1's
+        if any(r["verify"] != r0["verify"]
+               or r["strict_verify"] != r0["strict_verify"]
+               for r in ranks[1:]):
+            fail(f"tp {tp}: the ranks took different verify decisions")
+        vl = r0["verify_launches"]
+        n_disp = TP_VERIFY_DISPATCHES
+        want_vt = tp * (TP_MM_PER_LAYER * L + 1) * n_disp
+        want_vp = L * len(prompts) * n_disp
+        tok_same = sum(int(a == b) for u in verify1
+                       for x, y in zip(r0["verify"][u], verify1[u])
+                       for a, b in zip(x[0], y[0]))
+        tok_all = sum(len(y[0]) for u in verify1 for y in verify1[u])
+        strict_v = r0["strict_verify"] == strict_verify1
+        accepted = [sum(x[2] for x in r0["verify"][u]) for u in verify1]
+        print(f"  verify ({n_disp} greedy dispatches of span "
+              f"{TP_VERIFY_SPAN}, even requests drafting tp 1's chain): "
+              f"bf16 tokens equal to tp 1's {tok_same} of {tok_all}, "
+              f"accepted by request {accepted}; f32 {TP_STRICT_LAYERS} "
+              f"layers tokens and counts equal to tp 1's: {strict_v}; "
+              f"tile GEMM launches {vl['tile_matmul']} (want {want_vt}), "
+              f"by kernel { {k.split('/')[1]: v for k, v in vl.items() if k.startswith('tile_matmul/') and v} }; "
+              f"paged prefill {vl['paged_prefill_attention']} (want "
+              f"{want_vp}), on tma {vl['paged_prefill_attention/tma']}")
+        if not strict_v:
+            fail(f"tp {tp}: the f32 verify dispatches differ from tp 1's")
+        if (vl["tile_matmul"] != want_vt
+                or vl["paged_prefill_attention"] != want_vp
+                or vl["paged_prefill_attention/tma"] != want_vp
+                or vl["paged_decode_attention"]):
+            fail(f"tp {tp}: the verify dispatches launched {vl}")
         p0 = r0["profile"]
         if p0 is not None:
             print(f"  rank 0 decode step: device {p0['device_ms']:.3f} ms "
@@ -5504,6 +6328,9 @@ def tensor_parallel(torch, np, layers, sizes, store_dir, dev="cuda",
             e2e_max_rel_dlogit=worst, token_agreement=same,
             first_token_agreement=first_same / len(prompts),
             strict_max_abs_dlogit=sd, strict_tokens_identical=strict_same,
+            verify_tokens_equal=(tok_same, tok_all),
+            verify_accepted=accepted, verify_launches=vl,
+            strict_verify_equal=strict_v,
             prefill_tok_s=w["prefill_tok_s"],
             decode_ms_per_step=w["decode_ms_per_step"],
             decode_step_wall_ms=r0["decode_step_wall_ms"], profile=p0)
@@ -5626,15 +6453,17 @@ def main(argv=None):
                                                 "cuda")
     wide_dec, wide_pre, wide_flash, wide_mdec, wide_mpre = \
         check_wide_head_dims(torch, np, pa, pp, pm, fa, "cuda")
+    span_pre, span_mpre = check_span_shapes(torch, np, pa, pp, pm, "cuda")
     mdec_row, mpre_row = check_merged(torch, np, pa, pp, pm, "cuda")
     kernels = [{**check_flash(torch, fa, "cuda"), **wide_flash},
                *check_flash_bwd(torch, fa, "cuda"),
                {**check_decode(torch, np, pa, "cuda"), **dec_extra,
                 **wide_dec},
                {**check_prefill(torch, np, pp, "cuda"), **pre_extra,
-                **wide_pre},
+                **wide_pre, **span_pre},
                check_lora(torch, np, lm, "cuda"),
-               {**mdec_row, **wide_mdec}, {**mpre_row, **wide_mpre},
+               {**mdec_row, **wide_mdec},
+               {**mpre_row, **wide_mpre, **span_mpre},
                check_adam8(torch, fa8, topt, "cuda"),
                *check_sparse(torch, np, sa, sf, "cuda"),
                *check_evoformer(torch, ef, "cuda"),
@@ -5683,6 +6512,17 @@ def main(argv=None):
         torch, np, cfg, params, config, prompts,
         serve_counters + [pm.merged_decode_attention,
                           pm.merged_prefill_attention, lm.lora_delta], lm)
+    torch.cuda.empty_cache()
+
+    # phase 16 (phase 2's parameters, after phase 14): verify spans, then
+    # fp8 serving weights
+    merged_counters = [pm.merged_decode_attention,
+                       pm.merged_prefill_attention]
+    spec = spec_path(torch, np, cfg, params, config,
+                     serve_counters + merged_counters,
+                     merged_counters + serve_counters)
+    fp8 = fp8_path(torch, np, cfg, params, config, prompts, outs,
+                   kernel_logits, serve_counters)
     del params
     torch.cuda.empty_cache()
 
@@ -5754,7 +6594,8 @@ def main(argv=None):
     paths = (("serve", served["launches"]), ("train", trained["launches"]),
              ("tenants", tenants["launches"]), ("merged", merged["launches"]),
              ("multi_step", multi["launches"]),
-             ("archs", archs["launches"]),
+             ("archs", archs["launches"]), ("spec", spec["launches"]),
+             ("fp8", fp8["launches"]),
              ("sparse", sparse["launches"]), ("train_int8", int8["launches"]),
              ("evoformer", evoformer["launches"]))
     for k in kernels:
@@ -5771,13 +6612,17 @@ def main(argv=None):
                                                           merged, multi,
                                                           archs)
                  if fn in p["launches_by_variant"]]
+        # phase 16's by variant, from its paths' launch records
+        paged += [{v: p["launches"].get(f"{fn}/{v}", 0)
+                   for v in paged[0]} for p in (spec, fp8)
+                  if paged and f"{fn}/tma" in p["launches"]]
         if paged:                                    # the paged kernels
             k["launches_by_variant"] = {v: sum(p[v] for p in paged)
                                         for v in paged[0]}
 
     record = dict(kernels=kernels, serve=served, e2e=e2e, profile=prof,
                   tenants=tenants, merged=merged, multi_step=multi,
-                  archs=archs,
+                  archs=archs, spec=spec, fp8=fp8,
                   train=trained, train_profile=tprof, train_plain=tplain,
                   train_control=control, remat=remat, sparse=sparse,
                   train_int8=int8, evoformer=evoformer,

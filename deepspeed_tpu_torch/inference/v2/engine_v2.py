@@ -43,12 +43,18 @@ rank keeps its shard of the weights and its kv heads of the arena, and
 fused-ring programs of `tp_ragged.py`.  Every rank must get the same
 calls; each then holds the same full logits and samples the same tokens.
 
+Draft-and-verify (`decode_burst_step(drafts=, draft_span=)`) verifies
+each row's pending token and draft in one span forward through the paged
+prefill kernels, eagerly, at every tp; fp8 serving weights
+(`models.transformer.quantize_serving_weights`) keep their 1-byte codes
+and f32 scales on the engine and serve every tp-1 path.
+
 Not carried yet, each refused by name: the reference's GSPMD tensor
 parallelism (`tp_collectives="xla"` at tp > 1), LoRA adapters and KV
-block IO on a tensor-parallel engine, prefix cache, expert paging,
-draft-and-verify and grammar automata (`fsm=`).  As in the reference, the
-fused tensor-parallel programs carry neither seeded streams nor
-multi-step groups.
+block IO on a tensor-parallel engine, prefix cache, expert paging and
+grammar automata (`fsm=`).  As in the reference, the fused
+tensor-parallel programs carry neither seeded streams, multi-step groups
+nor fp8 weights, and drafts refuse seeds and adapter rows.
 """
 from __future__ import annotations
 
@@ -58,12 +64,13 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ...models.convert import shard_params_tp
+from ...models.convert import fp8_leaf, shard_params_tp
 from ...models.transformer import TransformerConfig, init_params
 from .ragged_manager import DSStateManager
 from .ragged_ops import (decode_multi_step, decode_step, decode_tokens,
                          init_arena, prefill_chunks, prefill_full,
-                         prefill_full_supported, sample_tokens_compiled)
+                         prefill_full_supported, sample_tokens_compiled,
+                         verify_tokens)
 
 __all__ = ["RaggedInferenceEngineConfig", "InferenceEngineV2",
            "LayoutNotCarried"]
@@ -112,10 +119,11 @@ def _resolve_device(device) -> torch.device:
 
 
 def _to_param(x, device, dtype):
+    """A parameter leaf on `device`: floats in the compute dtype; an fp8
+    serving-weight dict keeps its 1-byte codes and f32 scales (a blanket
+    cast would un-quantize the codes), as in the reference."""
     if isinstance(x, dict):
-        raise NotImplementedError(
-            "quantized serving weights are not carried by the PyTorch port "
-            "yet (plain weights only)")
+        return fp8_leaf(x, device)
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
         np.array(x, np.float32))
     return t.to(device=device, dtype=dtype) if t.is_floating_point() \
@@ -161,6 +169,12 @@ class _RaggedPrograms:
         if self.graphs is not None:
             return self.graphs.decode_tokens(*args, **kw)
         return decode_tokens(self.cfg, *args, **kw)
+
+    def verify_tokens(self, *args, **kw):
+        # eager on every device: the rows' positions feed the prefill
+        # kernel's host plan, and the captured decode groups are left as
+        # they are (they read the arena by address)
+        return verify_tokens(self.cfg, *args, **kw)
 
     def decode_multi_step(self, *args, **kw):
         if self.graphs is not None:
@@ -329,7 +343,8 @@ class InferenceEngineV2:
 
     supports_per_row_sampling = True
     supports_lora = True
-    supports_draft_verify = False
+    # decode_burst_step(drafts=) runs the verify span, at every tp
+    supports_draft_verify = True
     supports_structured = False
     supports_moe = False
 
@@ -676,9 +691,13 @@ class InferenceEngineV2:
                           mode: str = "greedy", temperature=1.0,
                           top_k=0, rng: Optional[torch.Generator] = None,
                           max_tokens: Optional[Dict[int, int]] = None,
+                          drafts: Optional[Dict[int, Sequence[int]]] = None,
+                          draft_span: Optional[int] = None,
                           seeds: Optional[Dict[int, int]] = None,
                           seed_positions: Optional[Dict[int, int]] = None,
-                          **unsupported) -> Dict[int, np.ndarray]:
+                          fsm=None, fsm_states: Optional[Dict[int, int]] = None,
+                          fsm_eos: Optional[Dict[int, int]] = None
+                          ) -> Dict[int, np.ndarray]:
         """Advance decode-ready sequences `n_steps` tokens in one call
         (ragged_ops.decode_tokens): sample -> append KV -> feed back, all
         on the device (one graph replay on the card at tp 1).  Each
@@ -693,13 +712,38 @@ class InferenceEngineV2:
         stream}) draw the flagged rows' token j from their counter-based
         Philox stream at position + j, independent of the engine's
         generator; they need a stochastic mode ("sample" rides the
-        per-row program so that the flags get a row axis).  `drafts=` and
-        `fsm=` are refused by name."""
-        given = sorted(k for k, v in unsupported.items() if v is not None)
-        if given:
+        per-row program so that the flags get a row axis).
+
+        `drafts` ({uid: proposed continuation tokens}) switches the call
+        to draft-and-verify (`_verify_draft_step`, ragged_ops.
+        verify_tokens): one span forward verifies each row's pending
+        token plus its draft, with accept/reject on the device, instead
+        of `n_steps` sequential steps.  The return becomes {uid:
+        (emitted tokens [n] int32, n_drafted, n_accepted)}, n = accepted
+        + 1 (the replacement or bonus token), the last left pending.
+        `draft_span` (1 + the longest draft, bucketed by the caller with
+        `serving.span_bucket`) fixes the span width and must be given.
+        Greedy rows emit the sequential greedy chain; "sample" and
+        "per_row" rows use rejection sampling.  `drafts` refuses `seeds`
+        and LoRA adapter rows (the reference's refusals); `fsm=` is
+        refused by name."""
+        if seeds and drafts is not None:
+            raise RuntimeError(
+                "draft-and-verify cannot serve seeded sampling streams: "
+                "rejection sampling consumes a DATA-dependent number of "
+                "uniforms per emitted token, so the (seed, position) "
+                "stream contract — one draw per generated index — "
+                "cannot hold; serve seeded requests through plain "
+                "bursts or multi-step groups")
+        if fsm is not None or fsm_states is not None or fsm_eos is not None:
             raise NotImplementedError(
-                f"decode_burst_step({', '.join(given)}=...): drafts and "
-                f"grammar automata are not carried by the PyTorch port yet")
+                "decode_burst_step(fsm=...): grammar automata (structured "
+                "generation) are not carried by the PyTorch port yet")
+        if drafts is not None:
+            return self._verify_draft_step(
+                uids, mode=mode, temperature=temperature, top_k=top_k,
+                rng=rng, max_tokens=max_tokens, drafts=drafts,
+                draft_span=draft_span)
         if seeds:
             self._check_seeds(seed_positions)
             if mode == "greedy":
@@ -818,6 +862,100 @@ class InferenceEngineV2:
                 sp[i] = int(seed_positions[d.uid])
                 hs[i] = True
         return dict(seed_hi=sh, seed_lo=sl, seed_pos=sp, has_seed=hs)
+
+    def _verify_draft_step(self, uids: Optional[Sequence[int]], *,
+                           mode: str, temperature, top_k,
+                           rng: Optional[torch.Generator],
+                           max_tokens: Optional[Dict[int, int]],
+                           drafts: Dict[int, Sequence[int]],
+                           draft_span: Optional[int]) -> Dict[int, tuple]:
+        """The draft-and-verify dispatch (`decode_burst_step(drafts=)`):
+        stage each row's [pending, draft...] span, run `verify_tokens`
+        (eagerly: each row's position feeds the prefill kernel's host
+        plan), read its tokens and counts in one fetch and adopt the
+        accepted ones.  The lease is capped as the sequential burst's:
+        span positions past it drop their writes and their tokens are
+        trimmed here."""
+        if draft_span is None or draft_span < 1:
+            raise ValueError(
+                "drafts= needs draft_span >= 1 (the bucketed compiled "
+                "span width, 1 + max draft length)")
+        batch = self._decode_ready(uids)
+        # every row the span serves, drafted or not: the verify has no
+        # gather-LoRA epilogue
+        if any(self._adapter_slots.get(d.uid, -1) >= 0 for d in batch):
+            raise RuntimeError(
+                "draft-and-verify does not serve LoRA adapter rows: "
+                "the verify program has no gather-LoRA epilogue, so "
+                "accepting drafts against base-model logits would "
+                "silently decode the wrong model — serve adapter "
+                "requests through plain bursts (the serving layer "
+                "refuses the speculative+tenancy combination at "
+                "config validation)")
+        if not batch:
+            return {}
+        B = self.config.max_seqs
+        S = int(draft_span)
+        tokens = np.zeros((B, S), np.int32)
+        lens = np.zeros(B, np.int32)
+        nval = np.ones(B, np.int32)
+        max_lens = np.ones(B, np.int32)
+        tables = np.zeros((B, self.config.max_blocks_per_seq), np.int32)
+        active = np.zeros(B, bool)
+        for i, d in enumerate(batch):
+            tokens[i, 0] = self._pending(d, "draft verify")
+            dr = np.asarray(drafts.get(d.uid, ()), np.int32).ravel()[:S - 1]
+            tokens[i, 1:1 + len(dr)] = dr
+            nval[i] = 1 + len(dr)
+            lens[i] = d.seen_tokens
+            capped = min(d.seen_tokens + S, self.max_tokens_per_seq)
+            if max_tokens is not None and d.uid in max_tokens:
+                capped = min(capped, int(max_tokens[d.uid]))
+            capped = max(capped, d.seen_tokens)
+            max_lens[i] = capped
+            self.state.ensure_capacity(d, capped)
+            tables[i] = self.state.block_table(d)
+            active[i] = True
+        rng = rng or self._rng
+        if mode == "greedy":
+            emitted, n_emitted, self.arena = self._programs.verify_tokens(
+                self.params, self.arena, tokens, lens, nval, tables, active,
+                rng, 0.0, max_lens, mode="greedy")
+        else:
+            # "per_row" dicts and uniform "sample" scalars share the
+            # per-row verify
+            temp_vec = np.zeros(B, np.float32)
+            topk_vec = np.zeros(B, np.int32)
+            if mode == "per_row":
+                temperature = dict(temperature or {})
+                top_k = dict(top_k or {})
+                for i, d in enumerate(batch):
+                    temp_vec[i] = float(temperature.get(d.uid, 0.0))
+                    topk_vec[i] = int(top_k.get(d.uid, 0))
+            elif mode == "sample":
+                temp_vec[:len(batch)] = float(temperature)
+                topk_vec[:len(batch)] = int(top_k)
+            else:
+                raise ValueError(
+                    f"unknown sampling mode {mode!r} "
+                    f"(greedy | sample | per_row)")
+            emitted, n_emitted, self.arena = self._programs.verify_tokens(
+                self.params, self.arena, tokens, lens, nval, tables, active,
+                rng, temp_vec, max_lens, topk_vec, mode="per_row")
+        # the once-per-dispatch read: tokens and counts in one fetch
+        got = self._fetch(torch.cat([emitted, n_emitted[:, None]], dim=1))
+        out: Dict[int, tuple] = {}
+        for i, d in enumerate(batch):
+            n = int(got[i, S])
+            real = max(0, int(max_lens[i]) - int(lens[i]))
+            take = min(n, real)
+            toks = np.asarray(got[i, :take], np.int32)
+            d.generated.extend(int(t) for t in toks)
+            d.seen_tokens = min(d.seen_tokens + n, int(max_lens[i]))
+            # the verify path produces tokens, not logits
+            self._last_logits.pop(d.uid, None)
+            out[d.uid] = (toks, int(nval[i]) - 1, max(take - 1, 0))
+        return out
 
     def decode_multi_step(self, uids: Optional[Sequence[int]] = None,
                           k: int = 8, temperature=None, top_k=None,

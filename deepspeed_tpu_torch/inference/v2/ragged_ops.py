@@ -48,12 +48,20 @@ Where the reference differs by nature of JAX, the port does this instead:
   (`models.transformer.rope_tables`), and the band is chosen per row on
   the device.
 
+- A draft-and-verify span (`verify_tokens`) is one prefill chunk per
+  row through the chunked prefill's own layers (`_chunk_layers`), so
+  each row's attention is one paged prefill launch a layer, as the
+  reference's scan over rows; its rejection sampling draws from torch's
+  generator (the distribution matches the reference, the stream does
+  not).
+
 Scope: the dense families the config takes — pre-norm, post-norm and
 parallel-residual blocks, rope, learned or ALiBi positions, windows for
-every layer or one a layer.  No grammar masks or drafts.  Tensor
-parallelism runs the same layer pieces (`_qkv`, `_mlp_delta`,
-`_KVSlots`, `_kernels`, `decode_loop`) through `tp_ragged.py`, for the
-pre-norm sequential blocks without windows or ALiBi.
+every layer or one a layer — with plain or fp8 weights (`_dense`).  No
+grammar masks.  Tensor parallelism runs the same layer pieces (`_qkv`,
+`_mlp_delta`, `_KVSlots`, `_kernels`, `_span_plan`, `_spec_accept`,
+`decode_loop`) through `tp_ragged.py`, for the pre-norm sequential
+blocks without windows or ALiBi.
 """
 from __future__ import annotations
 
@@ -63,8 +71,8 @@ import numpy as np
 import torch
 
 from ...models.transformer import (TransformerConfig, _block_out, _dense,
-                                   _embed_in, _head_hidden, _mlp_block,
-                                   _norm, _rope, alibi_slopes,
+                                   _embed_in, _head_hidden, _layer_params,
+                                   _mlp_block, _norm, _rope, alibi_slopes,
                                    layer_windows)
 from ...ops.attention import causal_attention
 from ...ops.lora_matmul import LoraRows, lora_delta, lora_delta_reference
@@ -80,7 +88,7 @@ from ...ops.paged_prefill import (paged_prefill_attention,
 __all__ = ["init_arena", "prefill_chunks", "prefill_full",
            "prefill_full_supported", "decode_step", "decode_tokens",
            "decode_multi_step", "sample_tokens_compiled", "philox_word",
-           "seeded_uniform24", "write_rows"]
+           "seeded_uniform24", "write_rows", "verify_tokens"]
 
 
 def init_arena(cfg: TransformerConfig, num_blocks: int, block_size: int,
@@ -210,8 +218,9 @@ def _operand(x, device, dtype) -> torch.Tensor:
 
 
 def _layer(params, li: int) -> Dict[str, torch.Tensor]:
-    """Layer `li`'s weights as views into the stacked [L, ...] leaves."""
-    return {k: w[li] for k, w in params["layers"].items()}
+    """Layer `li`'s weights as views into the stacked [L, ...] leaves (an
+    fp8 dict's codes and scales each)."""
+    return _layer_params(params["layers"], li)
 
 
 def _kernels(cfg: TransformerConfig, arena):
@@ -329,6 +338,46 @@ def _lm_logits(cfg: TransformerConfig, params, x):
 # ----------------------------------------------------------------------
 # serving programs
 # ----------------------------------------------------------------------
+def _chunk_layers(cfg: TransformerConfig, params, arena, tokens, positions,
+                  valid, pos0s, n_valids, tables, live, regime=None,
+                  lora=None, rows=None):
+    """The layers over NC chunks of C rows each, through the paged
+    prefill kernels: the body `prefill_chunks` and `_span_core` share.
+    Host data: tokens [NC, C]; positions [NC, C] (embedding and RoPE);
+    valid [NC, C] (the rows that write K/V); pos0s, n_valids [NC] (each
+    chunk's kernel call: query c at pos0 + c, rows past n_valid padding);
+    tables [NC, MB]; live: the chunks the kernel runs.  regime [NC]
+    (device) as `_qkv`'s `regime_len`; `lora` with `rows` the gather-LoRA
+    epilogue.  Within each layer every chunk's keys are written first,
+    then the chunks attend in order, so consecutive chunks of one
+    sequence stay exact; projections and MLP batch over all NC*C rows.
+    Returns the hidden rows x [NC*C, H] (the arena updated in place)."""
+    dev = arena["k"].device
+    NC, C = tokens.shape
+    bs = arena["k"].shape[2]
+    NH, D = cfg.num_heads, cfg.head_dim
+    pos_t = _dev(positions, dev)
+    x = _embed(cfg, params, _dev(tokens.ravel(), dev), pos_t.reshape(-1))
+    slots = _KVSlots(tables, positions, valid, bs, dev)
+    tables_t = _dev(tables, dev, torch.int32)
+    attend = _kernels(cfg, arena)[1]
+    slopes = _slopes(cfg, dev)
+    for li, window in enumerate(layer_windows(cfg)):
+        lp = _layer(params, li)
+        q, k, v = _qkv(cfg, lp, x, (NC, C), pos_t, regime_len=regime)
+        slots.write(arena, li, k.reshape(NC * C, *k.shape[2:]),
+                    v.reshape(NC * C, *v.shape[2:]))
+        attn = torch.zeros_like(q)
+        for i in live:
+            attn[i] = attend(q[i], arena["k"], arena["v"], tables_t[i],
+                             int(pos0s[i]), int(n_valids[i]),
+                             sliding_window=window, layer_idx=li,
+                             alibi_slopes=slopes)
+        x = _block_out(cfg, lp, x, _attn_out(
+            cfg, lp, li, attn.reshape(NC * C, NH * D), lora, rows))
+    return x
+
+
 def prefill_chunks(cfg: TransformerConfig, params, arena, tokens, pos0s,
                    n_valids, block_tables, active, total_lens=None,
                    adapter_ids=None, lora=None):
@@ -337,10 +386,8 @@ def prefill_chunks(cfg: TransformerConfig, params, arena, tokens, pos0s,
     [NC]; block_tables: [NC, MB]; active: [NC]; total_lens: [NC] the
     whole prompt length of each chunk's sequence (longrope's band, as
     HF's one-shot forward of the prompt chooses it; None: each chunk's
-    max position + 1) — all host data.  Within
-    each layer every chunk's keys are written first, then the chunks
-    attend in scheduling order, so consecutive chunks of one prompt stay
-    exact; projections, MLP and logits batch over all NC*C rows.
+    max position + 1) — all host data.  The layers are `_chunk_layers`;
+    the logits batch over the chunks' last rows.
     adapter_ids: [NC] LoRA pool slot per chunk (< 0 = base model, host
     data) with `lora` = {"a": [L, slots, NH*D, r], "b": [L, slots, r, H]}:
     the attention output gains the gather-LoRA epilogue; lora=None runs
@@ -355,37 +402,18 @@ def prefill_chunks(cfg: TransformerConfig, params, arena, tokens, pos0s,
     n_valids = np.where(active, _host(n_valids), 0).astype(np.int64)
     tables = _host(block_tables).astype(np.int32)
     NC, C = tokens.shape
-    bs = arena["k"].shape[2]
-    NH, D, H = cfg.num_heads, cfg.head_dim, cfg.hidden_size
+    H = cfg.hidden_size
 
     positions = pos0s[:, None] + np.arange(C)[None]               # [NC, C]
     valid = (np.arange(C)[None] < n_valids[:, None]) & active[:, None]
-    pos_t = _dev(positions, dev)
     regime = (None if total_lens is None
               else _dev(_host(total_lens).astype(np.int64), dev))
-    x = _embed(cfg, params, _dev(tokens.ravel(), dev), pos_t.reshape(-1))
-    slots = _KVSlots(tables, positions, valid, bs, dev)
-    tables_t = _dev(tables, dev, torch.int32)
     live = [i for i in range(NC) if active[i] and n_valids[i] > 0]
-    attend = _kernels(cfg, arena)[1]
-    slopes = _slopes(cfg, dev)
     # each chunk's rows carry its slot (the reference's repeat by C)
     rows = (None if lora is None else
             LoraRows(np.repeat(_host(adapter_ids).astype(np.int32), C)))
-
-    for li, window in enumerate(layer_windows(cfg)):
-        lp = _layer(params, li)
-        q, k, v = _qkv(cfg, lp, x, (NC, C), pos_t, regime_len=regime)
-        slots.write(arena, li, k.reshape(NC * C, *k.shape[2:]),
-                    v.reshape(NC * C, *v.shape[2:]))
-        attn = torch.zeros_like(q)
-        for i in live:
-            attn[i] = attend(q[i], arena["k"], arena["v"], tables_t[i],
-                             int(pos0s[i]), int(n_valids[i]),
-                             sliding_window=window, layer_idx=li,
-                             alibi_slopes=slopes)
-        x = _block_out(cfg, lp, x, _attn_out(
-            cfg, lp, li, attn.reshape(NC * C, NH * D), lora, rows))
+    x = _chunk_layers(cfg, params, arena, tokens, positions, valid, pos0s,
+                      n_valids, tables, live, regime, lora, rows)
 
     last = np.clip(n_valids - 1, 0, C - 1)
     xl = x.reshape(NC, C, H)[_dev(np.arange(NC), dev), _dev(last, dev)]
@@ -866,3 +894,152 @@ def decode_loop(core, arena, tokens, seq_lens, rng, temperature=1.0,
         if cap is not None:
             lens = np.minimum(lens, cap)
     return torch.stack(out, dim=1), arena
+
+
+# ----------------------------------------------------------------------
+# draft-and-verify (speculative decoding)
+# ----------------------------------------------------------------------
+def _refuse_fsm(*fsm) -> None:
+    if any(x is not None for x in fsm):
+        raise NotImplementedError(
+            "verify_tokens(fsm_mask=...): grammar-constrained verify spans "
+            "(structured generation) are not carried by the PyTorch port "
+            "yet")
+
+
+def _spec_accept(logits, tokens, n_valids, generator, mode: str,
+                 temperature, top_k_vec, fsm_mask=None, fsm_accept=None,
+                 span_states=None, has_fsm=None, fsm_eos=None):
+    """Accept/reject of a verified draft span, on the logits' device.
+
+    logits: [B, S, V] f32, position i the model's distribution after
+    tokens[b, :i+1]; tokens: [B, S], column 0 the pending input token,
+    columns 1.. the draft; n_valids: [B] = 1 + draft length (host data
+    or tensors).
+
+    Greedy rows accept draft token i+1 iff it equals argmax(logits_i);
+    the accepted count is the cumulative product of the matches.
+    `mode="per_row"` rows with temperature > 0 use rejection sampling
+    against the point-mass draft: accept d with probability p(d) (one
+    uniform a position from `generator`); on a reject, the replacement is
+    drawn from p with d masked out (the exact residual for a
+    deterministic drafter), at full acceptance the bonus from p itself
+    (`_draw`); rows with temperature <= 0 verify greedily.  The emitted
+    stream is distributed as spec-off sampling, not the same stream.
+    Returns (emitted [B, S] int32, n_emitted [B] int32): row b emits
+    emitted[b, :n_emitted[b]], its accepted prefix and one replacement or
+    bonus token, 1 to n_valids[b] tokens.  The grammar operands
+    (`fsm_*`) are refused by name."""
+    _refuse_fsm(fsm_mask, fsm_accept, span_states, has_fsm, fsm_eos)
+    B, S, V = logits.shape
+    dev = logits.device
+    tokens = _operand(tokens, dev, torch.int64)
+    n_valids = _operand(n_valids, dev, torch.int64)
+    idx = torch.arange(S, device=dev)[None]                       # [1, S]
+    in_draft = idx < (n_valids - 1)[:, None]                      # [B, S]
+    # the draft token checked at position i is tokens[:, i+1] (the wrap
+    # of column 0 lands only where in_draft is False)
+    nxt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    greedy_tgt = logits.argmax(dim=-1)                            # [B, S]
+    if mode == "greedy":
+        m = (nxt == greedy_tgt) & in_draft
+        n_acc = torch.cumprod(m.long(), dim=1).sum(dim=1)
+        return greedy_tgt.to(torch.int32), (n_acc + 1).to(torch.int32)
+    if mode != "per_row":
+        raise ValueError(f"unknown verify mode {mode!r} (greedy | per_row)")
+    from ..sampling import scale_topk_per_row
+    t = _operand(temperature, dev, torch.float32)                 # [B]
+    k = _operand(top_k_vec, dev, torch.int64)                     # [B]
+    scaled = scale_topk_per_row(
+        logits.reshape(B * S, V), t.repeat_interleave(S),
+        k.repeat_interleave(S)).reshape(B, S, V)
+    p_d = torch.log_softmax(scaled, dim=-1).gather(
+        -1, nxt[..., None])[..., 0].exp()                         # [B, S]
+    u = torch.rand((B, S), generator=generator, device=dev)
+    greedy_rows = (t <= 0.0)[:, None]
+    m = torch.where(greedy_rows, nxt == greedy_tgt, u < p_d) & in_draft
+    n_acc = torch.cumprod(m.long(), dim=1).sum(dim=1)
+    # the replacement at every position: at a reject (inside the draft)
+    # the residual, the target with the rejected token masked out; at the
+    # full-accept boundary (i == draft length) the bonus from the target.
+    # Read only at the boundary each row reached.
+    at_d = scaled.gather(-1, nxt[..., None])
+    hole = torch.where(in_draft[..., None],
+                       torch.full_like(at_d, float("-inf")), at_d)
+    masked = scaled.scatter(-1, nxt[..., None], hole)
+    samp = _draw(torch.softmax(masked, dim=-1).reshape(B * S, V),
+                 generator).reshape(B, S)
+    tail = torch.where(greedy_rows, greedy_tgt, samp)
+    emitted = torch.where(idx < n_acc[:, None], nxt, tail)
+    return emitted.to(torch.int32), (n_acc + 1).to(torch.int32)
+
+
+def _span_plan(tokens, seq_lens, n_valids, active, max_len):
+    """A verify span's host plan: (tokens, pos0s, n_valids, positions,
+    valid, live).  Span position i of row b sits at seq_lens[b] + i; with
+    `max_len` [B] (each row's KV-lease bound) the positions at or past it
+    drop their K/V writes (a clamp would overwrite an in-lease slot
+    before the attention reads it) and clamp to max_len - 1 for the
+    embedding and RoPE; their logits are meaningless and the host trims
+    their tokens.  The kernel still takes each live row at (pos0 =
+    seq_lens, n_valid = n_valids), as the reference's."""
+    tokens = _host(tokens)
+    active = _host(active).astype(bool)
+    pos0s = _host(seq_lens).astype(np.int64)
+    n_valids = _host(n_valids).astype(np.int64)
+    B, S = tokens.shape
+    positions = pos0s[:, None] + np.arange(S)[None]                # [B, S]
+    valid = (np.arange(S)[None] < n_valids[:, None]) & active[:, None]
+    if max_len is not None:
+        cap = _host(max_len).astype(np.int64)[:, None]
+        valid &= positions < cap
+        positions = np.minimum(positions, cap - 1)
+    live = [i for i in range(B) if active[i] and n_valids[i] > 0]
+    return tokens, pos0s, n_valids, positions, valid, live
+
+
+def _span_core(cfg: TransformerConfig, params, arena, tokens, seq_lens,
+               n_valids, block_tables, active, max_len=None):
+    """Forward over a [B, S] token span per row (the verify step's body):
+    each row's span is one prefill chunk (C = S, pos0 = seq_lens, n_valid
+    = n_valids) through `_chunk_layers`, its keys written before the
+    attention, so position i attends its own draft prefix.  Longrope's
+    band is each row's max span position + 1 (no `regime_len`, as the
+    reference's span).  Returns (logits [B, S, V] f32 at every span
+    position, arena updated in place).  Host data in, as
+    `prefill_chunks`."""
+    tokens, pos0s, n_valids, positions, valid, live = _span_plan(
+        tokens, seq_lens, n_valids, active, max_len)
+    B, S = tokens.shape
+    x = _chunk_layers(cfg, params, arena, tokens, positions, valid, pos0s,
+                      n_valids, _host(block_tables).astype(np.int32), live)
+    return _lm_logits(cfg, params, x).reshape(B, S, -1), arena
+
+
+def verify_tokens(cfg: TransformerConfig, params, arena, tokens, seq_lens,
+                  n_valids, block_tables, active, generator,
+                  temperature=0.0, max_len=None, top_k_vec=None,
+                  fsm_mask=None, fsm_accept=None, span_states=None,
+                  has_fsm=None, fsm_eos=None, *, mode: str = "greedy"):
+    """Draft-and-verify: advance up to B rows by a whole draft span in
+    one call — the span forward (`_span_core`: [pending, draft...] of
+    each row through the paged prefill kernels, its K/V written to the
+    arena) and the accept/reject on the device (`_spec_accept`).  One
+    span moves every weight once for up to S tokens of progress, where S
+    sequential decode steps move them S times.
+
+    tokens [B, S]: column 0 each row's pending token, columns 1.. its
+    draft, zero-padded; n_valids [B] = 1 + draft length; seq_lens [B]
+    the pending token's position; block_tables [B, MB]; active [B];
+    max_len [B] the KV-lease bound (see `_span_plan`) — host data.
+    `generator` is read by stochastic rows only; temperature / top_k_vec
+    are [B] under mode="per_row" (rows with temperature <= 0 verify
+    greedily).  Grammar operands are refused by name.
+    Returns (emitted [B, S] int32, n_emitted [B] int32, arena), on the
+    device."""
+    _refuse_fsm(fsm_mask, fsm_accept, span_states, has_fsm, fsm_eos)
+    logits, arena = _span_core(cfg, params, arena, tokens, seq_lens,
+                               n_valids, block_tables, active, max_len)
+    emitted, n_emitted = _spec_accept(logits, tokens, n_valids, generator,
+                                      mode, temperature, top_k_vec)
+    return emitted, n_emitted, arena

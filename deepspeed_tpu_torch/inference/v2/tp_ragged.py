@@ -31,8 +31,9 @@ the reference's reasons: pre-norm sequential-residual archs only,
 rope/learned positions, no sliding windows / MoE / embed projections /
 fp8 weight dicts, the 5-D arena, and every dimension the stream or the
 weights are sharded over divides by tp (max_seqs, prefill chunk, vocab,
-ffn, and the attention heads).  Speculative verify spans are not carried
-yet (`verify_tokens` raises).
+ffn, and the attention heads).  A speculative verify span runs the
+prefill's layers (`_chunk_rows`) over B*S rows, with the fused all-gather
+head over all of them, and each rank accepts on the same full logits.
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ from ...comm import comm
 from ...models.transformer import _norm
 from ...ops.tp_matmul import ag_matmul, matmul_rs, tile_matmul
 from .ragged_ops import (_KVSlots, _dev, _host, _kernels, _layer,
-                         _mlp_delta, _operand, _qkv, decode_loop)
+                         _mlp_delta, _operand, _qkv, _refuse_fsm,
+                         _span_plan, _spec_accept, decode_loop)
 
 __all__ = ["TPServingPrograms", "tp_fused_unsupported_reason", "tp_unported"]
 
@@ -283,39 +285,22 @@ class TPServingPrograms:
                            max_len, top_k_vec, n_steps=n_steps, mode=mode,
                            top_k=top_k)
 
-    def verify_tokens(self, *args, **kwargs):
-        raise NotImplementedError(
-            "speculative verify spans under tensor parallelism are not "
-            "carried by the PyTorch port yet (the port has no drafts= "
-            "path at any tp)")
-
-    # -- prefill ----------------------------------------------------------
-    def prefill_chunks(self, params, arena, tokens, pos0s, n_valids,
-                       block_tables, active, total_lens=None):
-        """`ragged_ops.prefill_chunks` on this rank's shard: (logits [NC,
-        V] f32 at each chunk's last valid token, arena); `total_lens`
-        as there (longrope's band)."""
+    # -- chunks: prefill and the verify span ------------------------------
+    def _chunk_rows(self, params, arena, tokens, positions, valid, pos0s,
+                    n_valids, tables, live, regime=None):
+        """`ragged_ops._chunk_layers` on this rank's shard: the layers
+        over NC chunks of C rows (host plan as there), each chunk's
+        attention one paged prefill launch a layer on the local heads.
+        Returns this rank's rows of the stream, [NC*C/tp, H]."""
         cfg = self.cfg
         dev = arena["k"].device
-        tokens = _host(tokens)
-        active = _host(active).astype(bool)
-        pos0s = np.where(active, _host(pos0s), 0).astype(np.int64)
-        n_valids = np.where(active, _host(n_valids), 0).astype(np.int64)
-        tables = _host(block_tables).astype(np.int32)
         NC, C = tokens.shape
         bs = arena["k"].shape[2]
-        H = cfg.hidden_size
-
-        positions = pos0s[:, None] + np.arange(C)[None]            # [NC, C]
-        valid = (np.arange(C)[None] < n_valids[:, None]) & active[:, None]
         pos_t = _dev(positions, dev)
-        regime = (None if total_lens is None
-                  else _dev(_host(total_lens).astype(np.int64), dev))
         x = self._embed_rows(params, _dev(tokens.ravel(), dev),
                              pos_t.reshape(-1))                # [NC*C/tp, H]
         slots = _KVSlots(tables, positions, valid, bs, dev)
         tables_t = _dev(tables, dev, torch.int32)
-        live = [i for i in range(NC) if active[i] and n_valids[i] > 0]
         attend = _kernels(cfg, arena)[1]
         for li in range(cfg.num_layers):
             lp = _layer(params, li)
@@ -332,9 +317,57 @@ class TPServingPrograms:
             x = x + self._rowp(attn.reshape(NC * C, -1), lp["wo"],
                                lp.get("bo"))
             x = x + self._mlp_rows(x, lp)
+        return x
+
+    def prefill_chunks(self, params, arena, tokens, pos0s, n_valids,
+                       block_tables, active, total_lens=None):
+        """`ragged_ops.prefill_chunks` on this rank's shard: (logits [NC,
+        V] f32 at each chunk's last valid token, arena); `total_lens`
+        as there (longrope's band)."""
+        dev = arena["k"].device
+        tokens = _host(tokens)
+        active = _host(active).astype(bool)
+        pos0s = np.where(active, _host(pos0s), 0).astype(np.int64)
+        n_valids = np.where(active, _host(n_valids), 0).astype(np.int64)
+        tables = _host(block_tables).astype(np.int32)
+        NC, C = tokens.shape
+        H = self.cfg.hidden_size
+
+        positions = pos0s[:, None] + np.arange(C)[None]            # [NC, C]
+        valid = (np.arange(C)[None] < n_valids[:, None]) & active[:, None]
+        regime = (None if total_lens is None
+                  else _dev(_host(total_lens).astype(np.int64), dev))
+        live = [i for i in range(NC) if active[i] and n_valids[i] > 0]
+        x = self._chunk_rows(params, arena, tokens, positions, valid, pos0s,
+                             n_valids, tables, live, regime)
         # each chunk's last valid row: gather the stream's rows once
         x_full = comm.all_gather(x, self.group)                  # [NC*C, H]
         last = np.clip(n_valids - 1, 0, C - 1)
         xl = x_full.reshape(NC, C, H)[_dev(np.arange(NC), dev),
                                       _dev(last, dev)]
         return self._logits_repl(params, xl), arena
+
+    def verify_tokens(self, params, arena, tokens, seq_lens, n_valids,
+                      block_tables, active, generator, temperature=0.0,
+                      max_len=None, top_k_vec=None, fsm_mask=None,
+                      fsm_accept=None, span_states=None, has_fsm=None,
+                      fsm_eos=None, *, mode: str = "greedy"):
+        """`ragged_ops.verify_tokens` on this rank's shard: the span's
+        rows through `_chunk_rows` (the tile GEMM hops, each row's
+        attention one paged prefill launch a layer on the local heads),
+        the full logits of every span row by the fused all-gather head,
+        then `_spec_accept` on them — every rank holds the same logits and
+        an identically seeded generator, so the ranks take the same
+        decisions."""
+        _refuse_fsm(fsm_mask, fsm_accept, span_states, has_fsm, fsm_eos)
+        tokens, pos0s, n_valids, positions, valid, live = _span_plan(
+            tokens, seq_lens, n_valids, active, max_len)
+        B, S = tokens.shape
+        x = self._chunk_rows(params, arena, tokens, positions, valid, pos0s,
+                             n_valids, _host(block_tables).astype(np.int32),
+                             live)
+        logits = self._logits_rows(params, x).reshape(B, S, -1)
+        emitted, n_emitted = _spec_accept(logits, tokens, n_valids,
+                                          generator, mode, temperature,
+                                          top_k_vec)
+        return emitted, n_emitted, arena

@@ -17,7 +17,7 @@ import torch
 from .transformer import TransformerConfig
 
 __all__ = ["params_from_jax", "opt_state_from_jax", "shard_params_tp",
-           "TP_SPLIT_DIMS"]
+           "TP_SPLIT_DIMS", "fp8_leaf"]
 
 # The reference's Megatron partition rules (`_TP_RULES`,
 # deepspeed_tpu/models/transformer.py) as the dim of each stacked leaf that
@@ -38,18 +38,60 @@ def _leaf(x, device, dtype):
     a = np.asarray(x)
     if a.dtype.kind != "f":
         raise NotImplementedError(
-            f"non-float parameter leaf of dtype {a.dtype} (quantized "
-            f"serving weights are not carried by the PyTorch port yet)")
+            f"non-float parameter leaf of dtype {a.dtype} (the port carries "
+            f"float leaves and the fp8 serving-weight dicts)")
     # bf16 has no numpy dtype of its own here: go through float32
     t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
     return t.to(device=device, dtype=dtype)
 
 
+# the fp8 serving-weight dicts (`quantize_serving_weights`) by key set
+_FP8_KEYS = (frozenset({"q_codes", "q_col_scales"}),
+            frozenset({"q_codes", "q_scales"}))
+
+
+def _fp8_codes(x, device) -> torch.Tensor:
+    """fp8 e4m3 codes as a `torch.float8_e4m3fn` tensor on `device`: a
+    tensor of that dtype as it is, or a numpy array of the ml_dtypes
+    float8_e4m3fn type through a uint8 view (torch.from_numpy has no
+    float8).  The codes are never cast: they keep their byte."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.float8_e4m3fn:
+            raise TypeError(f"fp8 codes of dtype {x.dtype} (want "
+                            f"torch.float8_e4m3fn)")
+        return x.to(device)
+    a = np.asarray(x)
+    if a.dtype.name != "float8_e4m3fn" or a.dtype.itemsize != 1:
+        raise TypeError(f"fp8 codes of dtype {a.dtype} (want "
+                        f"float8_e4m3fn)")
+    t = torch.from_numpy(np.array(a).view(np.uint8))     # a writable copy
+    return t.view(torch.float8_e4m3fn).to(device)
+
+
+def fp8_leaf(w: Dict, device) -> Dict:
+    """An fp8 serving-weight dict on `device`: its codes as `_fp8_codes`,
+    its scales f32 (the dequantize and the post-scale multiply in f32).
+    Raises on any other dict."""
+    if frozenset(w) not in _FP8_KEYS:
+        raise NotImplementedError(
+            f"a parameter leaf of keys {sorted(w)}: the port carries the "
+            f"fp8 serving-weight dicts {{q_codes, q_col_scales}} and "
+            f"{{q_codes, q_scales}} only")
+    scale_key = "q_col_scales" if "q_col_scales" in w else "q_scales"
+    s = w[scale_key]
+    s = s if isinstance(s, torch.Tensor) else torch.from_numpy(
+        np.array(s, np.float32))
+    return {"q_codes": _fp8_codes(w["q_codes"], device),
+            scale_key: s.to(device=device, dtype=torch.float32)}
+
+
 def params_from_jax(np_tree: Dict, cfg: TransformerConfig, device,
                     dtype: torch.dtype = None) -> Dict:
     """Convert a JAX parameter tree of numpy arrays to torch tensors on
-    `device` in `dtype` (default `cfg.dtype`), keeping every key.  Raises
-    on a leaf whose shape disagrees with `cfg`'s stacked layout."""
+    `device` in `dtype` (default `cfg.dtype`), keeping every key; the fp8
+    serving-weight dicts of `layers` keep their 1-byte codes and f32
+    scales (`fp8_leaf`).  Raises on a leaf whose shape disagrees with
+    `cfg`'s stacked layout."""
     dtype = dtype or cfg.dtype
     out: Dict = {}
     for key, val in np_tree.items():
@@ -58,7 +100,9 @@ def params_from_jax(np_tree: Dict, cfg: TransformerConfig, device,
                 raise NotImplementedError(
                     f"nested parameter group {key!r} (only 'layers' is "
                     f"carried)")
-            out[key] = {k: _leaf(v, device, dtype) for k, v in val.items()}
+            out[key] = {k: (fp8_leaf(v, device) if isinstance(v, dict)
+                            else _leaf(v, device, dtype))
+                        for k, v in val.items()}
         else:
             out[key] = _leaf(val, device, dtype)
     L, H = cfg.num_layers, cfg.hidden_size
@@ -68,7 +112,9 @@ def params_from_jax(np_tree: Dict, cfg: TransformerConfig, device,
             "wv": (L, H, cfg.kv_heads * cfg.head_dim),
             "wo": (L, cfg.num_heads * cfg.head_dim, H)}
     for k, shape in want.items():
-        got = tuple(out["layers"][k].shape)
+        leaf = out["layers"][k]
+        got = tuple((leaf["q_codes"] if isinstance(leaf, dict)
+                     else leaf).shape)
         if got != shape:
             raise ValueError(f"layers.{k} has shape {got}, config wants "
                              f"{shape}")

@@ -12,7 +12,9 @@ llama3, yarn and phi3's longrope), learned or ALiBi positions, rmsnorm or
 layernorm, swiglu, gelu or relu, GQA and MQA, qkv/output biases and the
 lm-head bias, sliding windows (one for every layer, or one a layer),
 pre-norm, post-norm (OPT-350m) and parallel-residual (Falcon, phi,
-GPT-NeoX) blocks, embedding norms and projections.  The config refuses
+GPT-NeoX) blocks, embedding norms and projections, and fp8 serving
+weights (`quantize_serving_weights`: e4m3 codes with per-column or
+per-group f32 scales, which `_dense` takes).  The config refuses
 the features the port does not carry yet, by name, at construction
 (`NotImplementedError`): MoE layers, dropout, tiled MLPs.
 
@@ -45,7 +47,9 @@ __all__ = ["TransformerConfig", "Transformer", "gpt2_config",
            "llama_config", "qwen2_config", "mistral_config", "phi_config",
            "phi3_config", "falcon_config", "opt_config", "bloom_config",
            "gptneox_config", "init_params", "dense_f32", "alibi_slopes",
-           "layer_windows", "training_refusal", "rope_tables"]
+           "layer_windows", "training_refusal", "rope_tables",
+           "resolve_weight", "resolve_weight_scaled",
+           "quantize_serving_weights"]
 
 
 @dataclass(frozen=True)
@@ -618,14 +622,102 @@ def _head_hidden(params, x, dt):
 # ----------------------------------------------------------------------
 # training forward
 # ----------------------------------------------------------------------
+def resolve_weight(w, dt):
+    """A weight leaf as a matrix in `dt`: plain tensors cast; fp8 dicts
+    (`quantize_serving_weights`) dequantized in f32 and rounded once —
+    {"q_codes", "q_scales"} by groups of the last dim (the group count is
+    the scales' last dim, so a layer's slice resolves alone),
+    {"q_codes", "q_col_scales"} by output column (`_dense` applies those
+    scales to the product instead, `resolve_weight_scaled`)."""
+    if isinstance(w, dict):
+        codes = w["q_codes"].float()
+        if "q_col_scales" in w:
+            return (codes * w["q_col_scales"][..., None, :]).to(dt)
+        scales = w["q_scales"]
+        g = codes.shape[-1] // scales.shape[-1]
+        cf = codes.reshape(*codes.shape[:-1], scales.shape[-1], g)
+        return (cf * scales[..., None]).reshape(codes.shape).to(dt)
+    return w.to(dt)
+
+
+def resolve_weight_scaled(w, dt):
+    """(matrix, post-scale or None): column-granular fp8 weights give
+    their codes in `dt` (e4m3 -> bf16 is exact) and their per-column f32
+    scale, which commutes with the contraction and multiplies the
+    product; every other leaf resolves as `resolve_weight`, with no
+    post-scale."""
+    if isinstance(w, dict) and "q_col_scales" in w:
+        return w["q_codes"].to(dt), w["q_col_scales"]
+    return resolve_weight(w, dt), None
+
+
+def quantize_serving_weights(params, q_bits: int = 8, group_size: int = 128,
+                             granularity: str = "column",
+                             keys=("wq", "wk", "wv", "wo", "w_up",
+                                   "w_down", "w_gate")):
+    """The reference's serving-weight transform: each named layer-stack
+    matmul weight becomes a dict of `torch.float8_e4m3fn` codes and f32
+    scales (absmax / 448, e4m3's largest value), consumed by `_dense`;
+    embeddings, norms and biases stay as they are.  An inference
+    transform (training takes no dict leaves).
+
+    granularity "column": one scale per output column (the last dim,
+    absmax over the contraction dim), {"q_codes", "q_col_scales"};
+    "group": one per `group_size` run of the last dim (the whole dim when
+    it does not divide), {"q_codes", "q_scales"}, dequantized before the
+    product."""
+    if q_bits != 8:
+        raise NotImplementedError("serving weight quantization ships fp8 "
+                                  "(e4m3) — fp6/fp12 codecs exist in "
+                                  "linear/quantization.py but are not "
+                                  "wired to the zoo")
+    if granularity not in ("group", "column"):
+        raise ValueError(f"granularity must be group|column, got "
+                         f"{granularity!r}")
+    layers = dict(params["layers"])
+    for k in keys:
+        if k not in layers:
+            continue
+        w = layers[k]
+        wf = w.float()
+        if granularity == "column":
+            amax = wf.abs().amax(dim=-2, keepdim=True) + 1e-12
+            scale = amax / 448.0
+            layers[k] = {"q_codes": (wf / scale).to(torch.float8_e4m3fn),
+                         "q_col_scales": scale[..., 0, :]}
+            continue
+        r = w.shape[-1]
+        g = group_size if r % group_size == 0 else r
+        grouped = wf.reshape(*w.shape[:-1], r // g, g)
+        amax = grouped.abs().amax(dim=-1, keepdim=True) + 1e-12
+        scale = amax / 448.0
+        codes = (grouped / scale).to(torch.float8_e4m3fn)
+        layers[k] = {"q_codes": codes.reshape(w.shape),
+                     "q_scales": scale[..., 0]}
+    out = dict(params)
+    out["layers"] = layers
+    return out
+
+
 def _dense(h, w, b=None):
     """[..., H] @ [H, D] in the activation dtype: bf16 in, f32
     accumulation, rounded once to the activation dtype (torch's matmul
     contract, with cuBLAS's split-K reductions kept in f32 by
     `torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
-    False`), then the bias added in that dtype — as the JAX `_dense`."""
+    False`), then the bias added in that dtype — as the JAX `_dense`.
+    fp8 dicts: column-granular codes feed the product in `dt`, whose f32
+    result takes the column scale in f32 and is rounded once (rounding
+    the product first would round twice); group-granular ones are
+    dequantized first (`resolve_weight`)."""
     dt = h.dtype
-    out = h @ w.to(dt)
+    if isinstance(w, dict):
+        mat, post = resolve_weight_scaled(w, dt)
+        if post is None:
+            out = h @ mat
+        else:
+            out = (dense_f32(h, mat) * post.float()).to(dt)
+    else:
+        out = h @ w.to(dt)
     if b is not None:
         out = out + b.to(dt)
     return out
@@ -737,10 +829,12 @@ def _block_out(cfg: TransformerConfig, lp, x, attn_out):
 
 def _layer_params(layers, i: int) -> Dict[str, torch.Tensor]:
     """Layer i's weights: from a list of per-layer dicts, or as views
-    into the stacked [L, ...] leaves."""
+    into the stacked [L, ...] leaves (an fp8 dict's codes and scales
+    each)."""
     if isinstance(layers, (list, tuple)):
         return layers[i]
-    return {k: w[i] for k, w in layers.items()}
+    return {k: ({kk: vv[i] for kk, vv in w.items()} if isinstance(w, dict)
+                else w[i]) for k, w in layers.items()}
 
 
 def _lm_head(params):

@@ -70,19 +70,25 @@ def ring_block(rank, world, init, x, w1, w2, device="cpu"):
 
 
 def _drive(eng, prompts):
-    """The greedy drive of the reference's tp parity test (verify spans
-    left out): prefill logits, a burst of 8, a continuation token's
-    logits, then generate_batch chains on fresh uids."""
+    """The greedy drive of the reference's tp parity test: prefill
+    logits, a burst of 8, a verify dispatch of the reference's drafts
+    (tokens, drafted and accepted counts), a continuation token's logits,
+    then generate_batch chains on fresh uids."""
     o = eng.put([0, 1], [p.copy() for p in prompts])
     for u in (0, 1):
         eng.state.seqs[u].generated.append(int(np.argmax(o[u])))
     b = eng.decode_burst_step(n_steps=8, mode="greedy")
+    drafts = {0: [int(t) for t in b[0][-3:]], 1: [int(b[1][-1])]}
+    d = eng.decode_burst_step(drafts=drafts, draft_span=4, mode="greedy")
+    verify = {u: (np.asarray(t).tolist(), int(n_d), int(n_a))
+              for u, (t, n_d, n_a) in d.items()}
     n = eng.put([1], [np.asarray([5], np.int32)])
     for u in (0, 1):
         eng.flush(u)
     g = eng.generate_batch(prompts, max_new_tokens=8, first_uid=10)
     eng.audit_blocks()
-    return dict(prefill=o, burst=b, cont=n, chains=[c.tolist() for c in g])
+    return dict(prefill=o, burst=b, verify=verify, cont=n,
+                chains=[c.tolist() for c in g])
 
 
 def engine(params, cfg_kw, engine_kw, device="cpu", **tp_kw):
@@ -94,8 +100,10 @@ def engine(params, cfg_kw, engine_kw, device="cpu", **tp_kw):
 
 def serve_tp(rank, world, init, params, cfg_kw, engine_kw, prompts,
              device="cpu"):
-    """A tp=`world` fused engine on this rank: the greedy drive, then the
-    refusals that need a built tensor-parallel engine."""
+    """A tp=`world` fused engine on this rank: the greedy drive, a
+    per_row verify dispatch at temperature 0.9 from a generator seeded
+    alike on every rank (the ranks must take the same decisions), then
+    the refusals that need a built tensor-parallel engine."""
     comm.init_distributed(init, rank, world, device=device)
     eng = engine(params, cfg_kw, engine_kw, device=device,
                  tensor_parallel_size=world, tp_collectives="fused")
@@ -103,12 +111,24 @@ def serve_tp(rank, world, init, params, cfg_kw, engine_kw, prompts,
     out = _drive(eng, prompts)
     out["tile_launches"] = tm.tile_matmul.launches
     out["arena"] = tuple(eng.arena["k"].shape)
+    o = eng.put([20, 21], [p.copy() for p in prompts])
+    for u in (20, 21):
+        eng.state.seqs[u].generated.append(int(np.argmax(o[u])))
+    gen = torch.Generator(device=eng.device).manual_seed(5)
+    sampled = []
+    for _ in range(3):
+        d = eng.decode_burst_step(
+            uids=[20, 21], mode="per_row", temperature={20: 0.9, 21: 0.9},
+            top_k={20: 0, 21: 8}, rng=gen, draft_span=4,
+            drafts={20: [1, 2, 3], 21: [int(eng.state.seqs[21].generated[-1])]})
+        sampled.append({u: (np.asarray(t).tolist(), int(a))
+                        for u, (t, _, a) in d.items()})
+    out["sampled"] = sampled
     refused = {}
     for what, call in (
             ("attach_lora", lambda: eng.attach_lora(None)),
             ("read_kv_block", lambda: eng.read_kv_block(0)),
-            ("write_kv_blocks", lambda: eng.write_kv_blocks([0], None, None)),
-            ("verify_tokens", lambda: eng._tpp.verify_tokens())):
+            ("write_kv_blocks", lambda: eng.write_kv_blocks([0], None, None))):
         try:
             call()
             refused[what] = None

@@ -2007,7 +2007,10 @@ def test_tp2_greedy_chain_on_two_cards(two_cards, tmp_path):
                                            rtol=2e-4, atol=2e-4)
         for u in (0, 1):
             np.testing.assert_array_equal(out["burst"][u], want["burst"][u])
+        assert out["verify"] == want["verify"]
         assert out["chains"] == want["chains"]
+    # the per_row verify dispatches took the same decisions on both cards
+    assert res[0]["sampled"] == res[1]["sampled"]
 
 
 # ----------------------------------------------------------------------
@@ -2601,3 +2604,164 @@ def test_wide_head_dim_engine_matches_plain_engine_f32(card, arch, kw):
         np.testing.assert_allclose(f1[u], f2[u], rtol=1e-4, atol=1e-4)
         assert np.asarray(b1[u]).tolist() == np.asarray(b2[u]).tolist()
         assert g1[u].tolist() == g2[u].tolist()
+
+
+# ----------------------------------------------------------------------
+# speculative verify spans and fp8 serving weights
+# ----------------------------------------------------------------------
+@DTYPES
+@pytest.mark.parametrize("C,n_valid,pos0,G,D", [
+    (2, 2, 1499, 1, 128), (4, 3, 4093, 4, 128), (8, 8, 1200, 1, 128),
+    (16, 16, 4070, 1, 128), (16, 9, 310, 8, 64), (8, 5, 2047, 2, 32)])
+def test_verify_span_shapes_match_plain_version(card, dtype, C, n_valid,
+                                                pos0, G, D):
+    """A verify span is a prefill chunk of 2-16 queries deep in a
+    sequence: the rule's kernel ("tma" for bf16 at block 64, "f32") gives
+    the plain version's rows, reruns bit for bit, and the merged view
+    gives the 5-D kernel's bytes."""
+    rng = np.random.RandomState(C + pos0)
+    NKV, L, bs = 2, 2, 64
+    MB = -(-(pos0 + C) // bs) + 3
+    nb = MB + 5
+    ak, av = (_rnd(card, dtype, L, nb, bs, NKV, D) for _ in range(2))
+    table = torch.from_numpy(_live_tables(
+        rng, [pos0 + n_valid - 1], MB, nb, bs)[0]).cuda()
+    q = _rnd(card, dtype, C, G * NKV, D)
+    args = (q, ak, av, table, pos0, n_valid)
+    want = "tma" if dtype == torch.bfloat16 else "f32"
+    assert tprefill.prefill_variant(dtype, D, bs) == want
+    before = _by_variant(tprefill.paged_prefill_attention)
+    got = tprefill.paged_prefill_attention(*args, layer_idx=1)
+    assert _by_variant(tprefill.paged_prefill_attention)[want] == \
+        before[want] + 1
+    ref = tprefill.paged_prefill_reference(*args, layer_idx=1)
+    _close(got[:n_valid], ref[:n_valid], ATOL[dtype], RTOL[dtype])
+    assert torch.equal(got, tprefill.paged_prefill_attention(*args,
+                                                             layer_idx=1))
+    mk, mv = (t.view(L, nb, bs, NKV * D) for t in (ak, av))
+    assert torch.equal(got, tmerged.merged_prefill_attention(
+        q, mk, mv, table, pos0, n_valid, layer_idx=1))
+
+
+def _spec_engines(dtype=torch.float32, merged=False, **cfg_kw):
+    """A tiny llama (head dim 32) three times on the card, one set of
+    weights: the kernel engine (its bursts captured), the plain-version
+    engine, and a kernel engine for the sequential chains."""
+    cfg = get_model_config("llama", "tiny", dtype=dtype,
+                           **dict(dict(num_layers=2), **cfg_kw))
+    ecfg = RaggedInferenceEngineConfig(**dict(GROUP_ECFG,
+                                              arena_merged=merged))
+    spec = InferenceEngineV2(cfg, config=ecfg, device="cuda")
+    plain = InferenceEngineV2(cfg, params=spec.params, config=ecfg,
+                              device="cuda", plain_kernels=True)
+    seq = InferenceEngineV2(cfg, params=spec.params, config=ecfg,
+                            device="cuda")
+    return spec, plain, seq
+
+
+@pytest.mark.parametrize("merged", [False, True], ids=["5d", "merged"])
+def test_verify_on_the_card_gives_the_plain_and_sequential_tokens(card,
+                                                                  merged):
+    """f32 on the card: verify dispatches (a perfect draft, a half-right
+    one, garbage, none) through the kernels give the plain engine's
+    tokens and counts and the sequential chain; every span's attention is
+    one prefill launch a live row and layer, on "f32"; a captured burst
+    after a verify dispatch still replays its graph."""
+    from deepspeed_tpu_torch.serving import PromptLookupDrafter, span_bucket
+    spec, plain, seq = _spec_engines(merged=merged)
+    uids = _stage((spec, plain, seq))
+    chains = seq.decode_burst_step(uids=uids, n_steps=8)
+    first = {u: spec.state.seqs[u].generated[-1] for u in uids}
+    drafts = {0: chains[0][:7].tolist(),
+              1: chains[1][:2].tolist() + [(int(chains[1][2]) + 1) % 32000],
+              2: [(first[2] + 9) % 32000] * 3, 3: []}
+    wrapper = (tmerged.merged_prefill_attention if merged
+               else tprefill.paged_prefill_attention)
+    n0 = wrapper.launches
+    got = spec.decode_burst_step(uids=uids, drafts=drafts, draft_span=8)
+    assert wrapper.launches - n0 == 2 * len(uids)
+    want = plain.decode_burst_step(uids=uids, drafts=drafts, draft_span=8)
+    for u in uids:
+        assert got[u][0].tolist() == want[u][0].tolist()
+        assert got[u][1:] == want[u][1:]
+    assert got[0][0].tolist() == chains[0].tolist()
+    assert got[0][1:] == (7, 7) and got[2][1:] == (3, 0)
+    # a burst after the dispatch replays its graph (no new capture)
+    g = spec._programs.graphs
+    spec.decode_burst_step(uids=uids, n_steps=8)
+    captures, replays = g.captures, g.replays
+    spec.decode_burst_step(uids=uids, drafts={u: [] for u in uids},
+                           draft_span=2)
+    spec.decode_burst_step(uids=uids, n_steps=8)
+    assert g.captures == captures and g.replays == replays + 1
+    # prompt-lookup drafts: the spec-on chain is the sequential chain
+    for e in (spec, seq):
+        for u in uids:
+            e.flush(u)
+    uids = _stage((spec, seq), seed=13)
+    drafter = PromptLookupDrafter(ngram=2, max_draft=7)
+    while min(len(spec.state.seqs[u].generated) for u in uids) < 25:
+        ctx = {u: np.concatenate([spec.state.seqs[u].prompt,
+                                  spec.state.seqs[u].generated])
+               for u in uids}
+        dr = {u: drafter.draft(c) for u, c in ctx.items()}
+        spec.decode_burst_step(uids=uids, drafts=dr, draft_span=span_bucket(
+            1 + max(len(d) for d in dr.values())))
+    while min(len(seq.state.seqs[u].generated) for u in uids) < 25:
+        seq.decode_burst_step(uids=uids, n_steps=8)
+    for u in uids:
+        assert (spec.state.seqs[u].generated[:25]
+                == seq.state.seqs[u].generated[:25])
+
+
+@pytest.mark.parametrize("granularity", ["column", "group"])
+def test_fp8_engine_on_the_card(card, granularity):
+    """fp8 weights on the card: codes stay 1 byte and scales f32 through
+    captured and eager bursts, a step group and a verify dispatch; the
+    captured bursts and group give the eager ones' tokens and arena; f32
+    compute: the kernel engine's prefill logits are the plain engine's
+    within 1e-4."""
+    from deepspeed_tpu_torch.models.transformer import \
+        quantize_serving_weights
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = get_model_config("llama", "tiny", dtype=dtype, num_layers=2)
+        base = InferenceEngineV2(cfg, config=RaggedInferenceEngineConfig(
+            **GROUP_ECFG), device="cuda")
+        pq = quantize_serving_weights(base.params, granularity=granularity)
+        del base
+        ecfg = RaggedInferenceEngineConfig(**GROUP_ECFG)
+        graph = InferenceEngineV2(cfg, params=pq, config=ecfg, device="cuda")
+        eager = InferenceEngineV2(cfg, params=pq, config=ecfg, device="cuda")
+        eager._programs.graphs = None
+        plain = InferenceEngineV2(cfg, params=pq, config=ecfg, device="cuda",
+                                  plain_kernels=True)
+        uids = _stage((graph, eager))
+        for _ in range(2):
+            got = graph.decode_burst_step(uids=uids, n_steps=4)
+            want = eager.decode_burst_step(uids=uids, n_steps=4)
+            for u in uids:
+                assert got[u].tolist() == want[u].tolist()
+        got = graph.decode_multi_step(uids=uids, k=4)
+        want = eager.decode_multi_step(uids=uids, k=4)
+        for u in uids:
+            assert got[u].tolist() == want[u].tolist()
+        assert _same_arena(graph, eager)
+        assert graph._programs.graphs.replays == 3
+        graph.decode_burst_step(uids=uids, drafts={u: [1, 2] for u in uids},
+                                draft_span=4)
+        key = "q_col_scales" if granularity == "column" else "q_scales"
+        for e in (graph, eager):
+            for k in ("wq", "wk", "wv", "wo", "w_up", "w_down", "w_gate"):
+                leaf = e.params["layers"][k]
+                assert leaf["q_codes"].dtype == torch.float8_e4m3fn
+                assert leaf["q_codes"].element_size() == 1
+                assert leaf[key].dtype == torch.float32
+        if dtype == torch.float32:
+            # both within one step's budget: one put gives both logits
+            prompts = [np.arange(1, 30, dtype=np.int32),
+                       np.arange(5, 35, dtype=np.int32) * 7]
+            a = graph.put([10, 11], prompts)
+            b = plain.put([10, 11], prompts)
+            for u in (10, 11):
+                np.testing.assert_allclose(a[u], b[u], rtol=1e-4,
+                                           atol=1e-4)

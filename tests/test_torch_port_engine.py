@@ -13,10 +13,12 @@ greedy token chains.
 
 Also here: the entry points default to the card (and raise without one),
 and every feature the port does not carry yet is refused by name (the
-"seeded" and "multi_step" cases now hold what stays refused beside those
-features: drafts with seeds, and grammar automata on a step group; the
-block features now served — ALiBi, windows, post-norm and parallel
-residual — are refused for training).
+"seeded", "drafts" and "multi_step" cases now hold what stays refused
+beside those features: drafts with seeds, as the reference refuses them,
+and grammar automata on a verify span and on a step group; the
+"quantized" case a parameter dict that is not an fp8 serving-weight
+dict; the block features now served — ALiBi, windows, post-norm and
+parallel residual — are refused for training).
 """
 import jax
 import jax.numpy as jnp
@@ -160,7 +162,10 @@ def _tiny_engine(**engine_kw):
     "mixtral", "tensor_parallel", "prefix_cache", "quantized", "seeded",
     "drafts", "multi_step"])
 def test_engine_refuses_features_not_ported(what):
-    with pytest.raises(NotImplementedError):
+    # drafts with seeds is the reference's own refusal (its RuntimeError);
+    # the rest are not carried by the port
+    err = RuntimeError if what == "seeded" else NotImplementedError
+    with pytest.raises(err):
         if what == "mixtral":
             build_engine("mixtral", device="cpu")
         elif what == "tensor_parallel":
@@ -176,13 +181,14 @@ def test_engine_refuses_features_not_ported(what):
             if what == "prefix_cache":
                 eng.enable_prefix_cache(8)
             elif what == "seeded":
-                # seeded streams are carried; draft-and-verify is not,
-                # with seeds or without
+                # seeded streams and drafts are carried, not together
                 eng.decode_burst_step(mode="sample", seeds={0: 1},
                                       seed_positions={0: 1},
-                                      drafts={0: [1, 2]})
+                                      drafts={0: [1, 2]}, draft_span=4)
             elif what == "drafts":
-                eng.decode_burst_step(drafts={0: [1, 2]})
+                # drafts are carried; a grammar on their span is not
+                eng.decode_burst_step(drafts={0: [1, 2]}, draft_span=4,
+                                      fsm=object(), fsm_states={0: 0})
             else:
                 # multi-step groups are carried; grammar automata are not
                 eng.decode_multi_step(fsm=object(), fsm_states={0: 0})

@@ -36,6 +36,7 @@ from deepspeed_tpu_torch.inference.v2.tp_ragged import \
 from deepspeed_tpu_torch.models import (TransformerConfig, get_model_config,
                                         init_params, shard_params_tp)
 from deepspeed_tpu_torch.models.convert import TP_SPLIT_DIMS
+from deepspeed_tpu_torch.models.transformer import quantize_serving_weights
 from deepspeed_tpu_torch.ops import tp_matmul as ttm
 
 pytestmark = pytest.mark.serving
@@ -185,8 +186,9 @@ def tp2_served(tmp_path_factory):
 
 def test_tp2_greedy_serving_parity(tp2_served):
     """Port tp 2 against port tp 1 and the JAX tp 2 fused engine: prefill
-    and continuation logits within 2e-4, burst and generate_batch greedy
-    chains token for token, every rank alike."""
+    and continuation logits within 2e-4, burst, verify dispatch (tokens,
+    drafted and accepted counts) and generate_batch greedy chains token
+    for token, every rank alike."""
     jax_out, port1, port2 = tp2_served
     for out in port2:
         assert out["arena"] == (2, 64, 8, 1, 16)       # NKV/tp local heads
@@ -199,7 +201,25 @@ def test_tp2_greedy_serving_parity(tp2_served):
             for u in (0, 1):
                 np.testing.assert_array_equal(out["burst"][u],
                                               want["burst"][u])
+            assert out["verify"] == want["verify"]
             assert out["chains"] == want["chains"]
+
+
+def test_tp2_verify_spans_give_tp1_tokens(tp2_served):
+    """Verify spans over the fused ring at tp 2: the greedy dispatch's
+    tokens and counts equal tp 1's and the JAX tp 2 engine's (in the
+    drive above); a per_row dispatch at temperature 0.9 takes the same
+    decisions on both ranks, each row emitting 1 to 4 tokens, a rejected
+    draft token never its own replacement."""
+    jax_out, port1, port2 = tp2_served
+    for out in port2:
+        assert out["verify"] == port1["verify"] == jax_out["verify"]
+    assert port2[0]["sampled"] == port2[1]["sampled"]
+    for d in port2[0]["sampled"]:
+        for u, (toks, accepted) in d.items():
+            assert 1 <= len(toks) == accepted + 1 <= 4
+            if u == 20 and accepted < 3:
+                assert toks[accepted] != [1, 2, 3][accepted]
 
 
 # Phi-3 at head dim 96 with longrope over an original context of 12: the
@@ -234,6 +254,7 @@ def test_tp2_phi3_longrope_d96_gives_tp1_tokens(tmp_path):
                                            **TP_TOL)
         for u in (0, 1):
             np.testing.assert_array_equal(out["burst"][u], port1["burst"][u])
+        assert out["verify"] == port1["verify"]
         assert out["chains"] == port1["chains"]
         assert out["tile_launches"] == 0     # the CPU runs the plain GEMM
 
@@ -241,8 +262,8 @@ def test_tp2_phi3_longrope_d96_gives_tp1_tokens(tmp_path):
 def test_tp_fused_refuses_unsupported_layouts(tp2_served):
     """The reference's refusals, each by name: layouts the fused forward
     does not serve (its reasons), "fused" at tp 1, the GSPMD "xla" mode
-    at tp > 1 (not carried), and on a built tp engine LoRA adapters, KV
-    block IO and verify spans."""
+    at tp > 1 (not carried), fp8 weight dicts (the reference's reason),
+    and on a built tp engine LoRA adapters and KV block IO."""
     _, params = _jax_model()
     cfg = TransformerConfig(dtype=torch.float32, **MODEL_KW)
 
@@ -262,6 +283,13 @@ def test_tp_fused_refuses_unsupported_layouts(tp2_served):
         build(max_seqs=3, **fused2)
     with pytest.raises(ValueError, match="merged"):
         build(arena_merged=True, **fused2)
+    fp8 = quantize_serving_weights(init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    with pytest.raises(ValueError, match="fp8 serving-weight dicts are not "
+                                         "TP-sharded"):
+        InferenceEngineV2(cfg, params=fp8, device="cpu",
+                          config=RaggedInferenceEngineConfig(
+                              **dict(ENGINE_KW, **fused2)))
     with pytest.raises(ValueError, match="kv_heads=1 must divide by tp=2"):
         build(cfg=TransformerConfig(dtype=torch.float32,
                                     **dict(MODEL_KW, num_kv_heads=1)),
