@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (`deepspeed_tpu_torch`) on one NVIDIA card
 (or N with `--tp N`).
 
-    python3 chip_smoke.py [--layers N] [--train-layers N] [--out DIR]
+    python3 chip_smoke.py [--layers N] [--moe-layers N] [--train-layers N]
+                          [--out DIR]
     python3 chip_smoke.py --tp N [--layers N] [--out DIR]      (N cards)
 
 Phases (any failure exits non-zero and prints no result):
@@ -189,6 +190,44 @@ Phases (any failure exits non-zero and prints no result):
      launch; phase 13 adds two verify dispatches at each tp (f32 tokens
      and counts equal to tp 1's; the bf16 agreement reported; the tile
      GEMM's verify hops counted by kernel).
+ 17. (run after phase 15, before phase 10) MoE serving, one model at a
+     time, each freed before the next, bf16 with random seeded weights at
+     published widths: Qwen1.5-MoE-A2.7B at all 24 layers (60 experts of
+     1408, top 4, the shared expert of 5632 behind its sigmoid gate,
+     `moe_norm_topk_prob` False; ~29 GB) and Mixtral-8x7B at
+     `--moe-layers` (8 of its 32 layers: ~2.9 GB a layer, so 32 would
+     need ~93 GB, more than one 80 GB card holds).  Each (engine
+     max_seqs 8, one decode row a request): phase 2's 8 prompt lengths
+     through put/step, a decode step, a greedy burst of 8 and a captured
+     greedy group of 8, counted: the grouped GEMM exactly 3 launches per
+     expert layer per forward call (a capture's warm-up step counted as
+     one), every paged launch on "tma", the grouped GEMM's plain version
+     never run; the first- and second-token logits against
+     `plain_kernels=True` on the same weights within phase 3's limit,
+     every expert layer's routing of both recorded: a request past the
+     limit must have routed a token of its own differently first at a
+     near-tie (router logits within MOE_ROUTE_NOISE of each other: exact
+     top-k is discontinuous), else the run fails; a profiled rerun's
+     device time by
+     kind and idle share; captured bursts against an eager twin in turns
+     (tokens equal; decode ms a step of each), prefill tokens/s, the
+     parameters' GiB, and the grouped GEMM's device ms in one eager
+     decode step beside the bound of the products its routing asked
+     for; then `enable_expert_paging(S=E)` (host copies pinned, the
+     full stacks dropped from the card): the wave again with logits and
+     tokens equal to the unpaged engine's, and a census of top_k x the
+     decoded tokens in every layer with no reroute; at 2 layers (full
+     widths) a captured engine and an eager twin paged at S = top_k + 1:
+     reroutes counted, censuses equal, `rebalance` promotes, audits
+     clean, and a group replayed after the rebalance (no new capture)
+     equal to eager; an f32 model at 1 layer whose greedy chains of 16
+     tokens must equal the plain engine's.  Phase 1 holds the grouped
+     GEMM (`ops/moe_grouped.py`, `csrc/moe_grouped.cu`) against its plain
+     version at both models' decode and prefill shapes and at edges
+     (empty groups, every row in one group, M 1, M off the tile, K and N
+     off the 16-byte grain), bf16 and f32, reruns `torch.equal`, and
+     times the model shapes beside their bound and `torch._grouped_mm`.
+     The kernels line's `moe` path counts the two counted waves.
 Every profile must hold each launch the kernels' counters saw in it (a
 session that dropped device events is repeated).  The bf16 paged prefill
 and decode run on their TMA kernels (`variant` "tma"): phase 1 holds them
@@ -257,10 +296,13 @@ they replaced.
      and decode ms per step beside tp 1's.
 Prints a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  `--layers` cuts the serving models'
-depth and `--train-layers` the training model's (the widths stay
-Llama-2-7B's and GPT-2-1.3B's); the defaults are the full 32 and 24.
+depth, `--moe-layers` Mixtral-8x7B's and `--train-layers` the training
+model's (the widths stay Llama-2-7B's, Mixtral's and GPT-2-1.3B's); the
+defaults are the full 32, 8 of Mixtral's 32 (the card's memory) and the
+full 24.
 """
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -435,7 +477,8 @@ KERNELS = {"flash_fwd": ("flash_attention_fwd", 1),
            "evo_dq": ("evoformer_flash_dq", 1),
            "evo_dkv": ("evoformer_flash_dkv", 1),
            "evo_db2": ("evoformer_flash_db2", 1),
-           "tile_matmul": ("tile_matmul", 1)}
+           "tile_matmul": ("tile_matmul", 1),
+           "moe_grouped": ("grouped_matmul", 1)}
 # each row of the kernels line -> the wrapper whose counter it reads (the
 # merged wrappers launch the paged kernels on a view of their arena; the
 # TPU's D-major Evoformer forward is the same kernel as its forward, and
@@ -3221,6 +3264,15 @@ def arch_f32(torch, np, name, family, size, kw, prompts, ecfg):
     got, _ = greedy_chain(np, eng, prompts, ARCH_F32_STEPS)
     want, rows = greedy_chain(np, plain, prompts, ARCH_F32_STEPS)
     del eng, plain
+    return chain_margin(np, f"phase 15: {name} f32", got, want, rows,
+                        ARCH_F32_LAYERS)
+
+
+def chain_margin(np, what, got, want, rows, layers):
+    """Hold the kernel engine's greedy chains `got` against the plain
+    engine's `want` (with its logits `rows`): a differing token where the
+    plain top-2 margin is below ARCH_F32_TIE is printed, past it the run
+    fails.  Returns the smallest plain margin."""
     low = float("inf")
     for u in want:
         for j, row in enumerate(rows[u][:ARCH_F32_STEPS]):
@@ -3229,15 +3281,15 @@ def arch_f32(torch, np, name, family, size, kw, prompts, ecfg):
             low = min(low, margin)
             if got[u][j] != want[u][j]:
                 if margin > ARCH_F32_TIE:
-                    fail(f"phase 15: {name} f32: request {u} step {j}: "
-                         f"kernel token {got[u][j]} != plain {want[u][j]} "
-                         f"(plain top-2 margin {margin:.3e})")
-                print(f"phase 15: {name} f32: request {u} step {j}: tokens"
-                      f" differ at a near-tie (plain top-2 margin "
-                      f"{margin:.3e} < {ARCH_F32_TIE})")
+                    fail(f"{what}: request {u} step {j}: kernel token "
+                         f"{got[u][j]} != plain {want[u][j]} (plain top-2 "
+                         f"margin {margin:.3e})")
+                print(f"{what}: request {u} step {j}: tokens differ at a "
+                      f"near-tie (plain top-2 margin {margin:.3e} < "
+                      f"{ARCH_F32_TIE})")
                 break
-    print(f"phase 15: {name} f32, {ARCH_F32_LAYERS} layers: greedy chains "
-          f"of {ARCH_F32_STEPS} tokens equal for requests "
+    print(f"{what}, {layers} layers: greedy chains of {ARCH_F32_STEPS} "
+          f"tokens equal for requests "
           f"{[u for u in want if got[u] == want[u]]} of {len(want)}; "
           f"smallest plain top-2 margin {low:.3e}")
     return low
@@ -5833,6 +5885,810 @@ def check_tile_matmul(torch, tm, dev):
 
 
 # ----------------------------------------------------------------------
+# phase 1 (MoE): the grouped GEMM of exact top-k routing
+# ----------------------------------------------------------------------
+# grouped GEMM vs its plain version: |kernel - plain| <= MOE_REL
+# max|plain|, the tile GEMM's limit on the same grounds: both sum the same
+# exact products (bf16 x bf16 is exact in f32) in f32, in another order
+# (the bf16 kernel sums each 32-row stage on the tensor cores, then the
+# stages with f32 adds); a lost tile or a row in the wrong group is O(1)
+MOE_REL = 2e-5
+# (label, M assignments, G groups, K, N, group kind, timed): Mixtral-8x7B
+# (top 2 of 8, H 4096, F 14336) and Qwen1.5-MoE-A2.7B (top 4 of 60, H
+# 2048, F 1408) at decode (8 rows) and prefill, then edges
+MOE_CASES = [
+    ("mixtral decode gate/up", 16, 8, 4096, 14336, "random", True),
+    ("mixtral decode down", 16, 8, 14336, 4096, "random", True),
+    ("mixtral prefill gate/up", 512, 8, 4096, 14336, "random", True),
+    ("mixtral prefill down", 512, 8, 14336, 4096, "random", True),
+    ("qwen decode gate/up", 32, 60, 2048, 1408, "random", True),
+    ("qwen decode down", 32, 60, 1408, 2048, "random", True),
+    ("qwen prefill gate/up", 1024, 60, 2048, 1408, "random", True),
+    ("qwen prefill down", 1024, 60, 1408, 2048, "random", True),
+    ("edge: empty groups", 77, 9, 256, 200, "sparse", False),
+    ("edge: every row in one group", 300, 6, 128, 64, "one", False),
+    ("edge: M 1", 1, 4, 64, 40, "one", False),
+    ("edge: M not a multiple of the tile", 131, 3, 72, 136, "random",
+     False),
+    ("edge: K, N off the 16-byte grain", 29, 3, 1003, 1001, "random",
+     False),
+]
+
+
+def moe_offsets(torch, np, rng, M, G, kind, dev):
+    """[G+1] int32 offsets of M rows over G groups: uniform picks
+    ("random", some groups empty at decode), every other group empty
+    ("sparse"), or all rows in one group ("one")."""
+    if kind == "one":
+        sizes = np.zeros(G, np.int64)
+        sizes[G // 2] = M
+    else:
+        groups = rng.randint(0, G, M)
+        if kind == "sparse":
+            groups = (groups // 2) * 2
+        sizes = np.bincount(groups, minlength=G)
+    off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    return torch.from_numpy(off).to(dev), sizes
+
+
+def moe_work(sizes, K, N, elem):
+    """(operations, bytes) of one grouped product: 2 M K N, and x read
+    once, the weights of the groups that have rows read once, the f32
+    output written once."""
+    M = int(sizes.sum())
+    used = int((sizes > 0).sum())
+    return 2 * M * K * N, M * K * elem + used * K * N * elem + M * N * 4
+
+
+def grouped_mm_library(torch, x, w, off):
+    """A callable of `torch._grouped_mm` on the same product (bf16, the
+    library's stride rules), or None where this torch has none or refuses
+    the shape: the library column only."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None or x.dtype != torch.bfloat16:
+        return None
+    ends = off[1:].contiguous()
+    for wl in (w, w.transpose(-2, -1).contiguous().transpose(-2, -1)):
+        try:
+            fn(x, wl, offs=ends, out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            return lambda wl=wl: fn(x, wl, offs=ends,
+                                    out_dtype=torch.bfloat16)
+        except Exception as e:              # the library's refusal
+            why = str(e).splitlines()[0][:100]
+    print(f"  (torch._grouped_mm refused [{x.shape[0]},{x.shape[1]}] x "
+          f"{list(w.shape)}: {why})")
+    return None
+
+
+def check_moe_grouped(torch, np, mg, dev):
+    """The grouped GEMM against its plain version at the MOE_CASES shapes,
+    bf16 and f32, reruns `torch.equal`; the timed cases (bf16) beside
+    their bound, the plain version and `torch._grouped_mm` where this
+    torch has it.  Returns the kernels-line row (main case: Mixtral's
+    decode gate/up product)."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    rng = np.random.RandomState(17)
+    errs, rels, timed = [], [], []
+    for label, M, G, K, N, kind, timed_case in MOE_CASES:
+        off, sizes = moe_offsets(torch, np, rng, M, G, kind, dev)
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(M, K, generator=g, device=dev, dtype=dt)
+            w = torch.randn(G, K, N, generator=g, device=dev, dtype=dt)
+            n0 = mg.grouped_matmul.launches
+            out = mg.grouped_matmul(x, w, off)
+            again = mg.grouped_matmul(x, w, off)
+            ref = mg.grouped_matmul_reference(x, w, off)
+            torch.cuda.synchronize()
+            if mg.grouped_matmul.launches != n0 + 2:
+                fail(f"grouped_matmul did not count its launches at "
+                     f"{label}")
+            e = max_err(out, ref)
+            rel = e / max(float(ref.abs().max()), 1e-30)
+            if out.dtype != torch.float32 or rel > MOE_REL:
+                fail(f"grouped_matmul disagrees with its plain version at "
+                     f"{label} {dt}: {rel} of max|plain| (tol {MOE_REL})")
+            if not torch.equal(out, again):
+                fail(f"grouped_matmul reruns differ at {label} {dt}")
+            errs.append(e)
+            rels.append(rel)
+            row = None
+            if timed_case and dt == torch.bfloat16:
+                lib = grouped_mm_library(torch, x, w, off)
+                row = dict(shape=f"x [{M},{K}] over {G} groups "
+                                 f"({int((sizes > 0).sum())} with rows) @ "
+                                 f"w [{G},{K},{N}] bf16", case=label,
+                           ms=time_ms(lambda: mg.grouped_matmul(x, w, off)),
+                           plain_ms=time_ms(
+                               lambda: mg.grouped_matmul_reference(x, w,
+                                                                   off)),
+                           library_ms=None if lib is None else time_ms(lib))
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    *moe_work(sizes, K, N, 2))
+                timed.append(row)
+            lib_text = ""
+            if row is not None:
+                lib_ms = row["library_ms"]
+                lib_ms = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+                lib_text = (f"; {row['ms']:.4f} ms (bound "
+                            f"{row['bound_ms']:.4f} {row['bound_by']}, "
+                            f"plain {row['plain_ms']:.4f}, "
+                            f"torch._grouped_mm {lib_ms})")
+            print(f"  moe_grouped {label} [{M},{K}] x [{G},{K},{N}] "
+                  f"{str(dt)[6:]}: max|d| / max|plain| = {rel:.3e}, rerun "
+                  f"equal{lib_text}")
+            del x, w, out, again, ref
+    torch.cuda.empty_cache()
+    main = timed[0]
+    return dict(name="moe_grouped", route="cuda",
+                source="deepspeed_tpu_torch/csrc/moe_grouped.cu",
+                replaces="none: XLA's lax.ragged_dot in "
+                         "deepspeed_tpu/models/transformer.py:1045 "
+                         "(_moe_inference), not a TPU kernel",
+                shape=main["shape"] + f" ({main['case']})",
+                max_abs_err=max(errs), max_rel_err=max(rels),
+                max_rel_err_note="max|kernel - plain| / max|plain|",
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"],
+                library_note="torch._grouped_mm(x, w, offs, out_dtype="
+                             "bf16) where this torch has it",
+                cases=timed)
+
+
+# ----------------------------------------------------------------------
+# phase 17: MoE serving (mixtral, qwen2_moe)
+# ----------------------------------------------------------------------
+# (name, family, preset, overrides): Qwen1.5-MoE-A2.7B at all 24 layers
+# (~29 GB of bf16 parameters) and Mixtral-8x7B at `--moe-layers` (~2.9 GB a
+# layer: its 32 layers need ~93 GB, which one 80 GB card cannot hold)
+def moe_models(moe_layers):
+    return [("qwen1.5-moe-a2.7b", "qwen2_moe", "a2.7b", {}),
+            ("mixtral-8x7b", "mixtral", "8x7b",
+             dict(num_layers=moe_layers))]
+
+
+# one decode row a request: the census counts the decode batch's rows
+# (max_seqs), so with 8 requests it counts k a decoded token
+MOE_ENGINE = dict(max_seqs=8)
+MOE_BURST, MOE_K = 8, 8          # decode_burst_step's tokens, the group's k
+MOE_TIMED = 4                    # bursts timed a side, in turns
+MOE_PRESSURE_LAYERS = 2          # the paging-under-pressure engines' depth
+MOE_F32_LAYERS = 1
+MOE_SWIGLU_PRODUCTS = 3          # gate, up, down: grouped launches a layer
+
+
+def moe_layer_count(cfg):
+    """The expert layers of `cfg` (a layer `moe_dense_layers` marks
+    dense runs the plain MLP)."""
+    dense = cfg.moe_dense_layers or (0,) * cfg.num_layers
+    return sum(1 for d in dense if not d)
+
+
+def count_forward_calls(calls, eng):
+    """Count the engine's forward calls (one layer stack each) into
+    `calls["all"]`: each prefill_full, each prefill_chunks, each decode
+    step's `_decode_core` (put/step), and each step of a burst or a group
+    (a graph replay), with the eager warm-up step of each capture.
+    Returns a function that restores them."""
+    from deepspeed_tpu_torch.inference.v2 import engine_v2, ragged_ops
+    progs = eng._programs
+    graphs = progs.graphs
+    saved = [(engine_v2, "prefill_full", engine_v2.prefill_full, 1),
+             (engine_v2, "prefill_chunks", engine_v2.prefill_chunks, 1),
+             (ragged_ops, "_decode_core", ragged_ops._decode_core, 1),
+             (progs, "decode_tokens", progs.decode_tokens, "n_steps"),
+             (progs, "decode_multi_step", progs.decode_multi_step, "k")]
+
+    def wrap(fn, steps):
+        def counted_call(*args, **kw):
+            captures = graphs.captures if graphs is not None else 0
+            out = fn(*args, **kw)
+            n = kw[steps] if isinstance(steps, str) else steps
+            if graphs is not None:
+                n += graphs.captures - captures
+            calls["all"] += n
+            return out
+        return counted_call
+
+    for obj, name, fn, steps in saved:
+        setattr(obj, name, wrap(fn, steps))
+
+    def restore():
+        for obj, name, fn, _ in saved:
+            if obj is progs:
+                delattr(progs, name)
+            else:
+                setattr(obj, name, fn)
+    return restore
+
+
+def moe_serve(torch, np, e, prompts, timing=None):
+    """put/step prefill of every prompt (its wall into `timing`), one
+    decode step through put (each request's greedy first token), a greedy
+    `decode_burst_step` of MOE_BURST tokens and a greedy captured
+    `decode_multi_step(k=MOE_K)`; every request flushed.  Returns
+    ({uid: first-token logits}, {uid: second-token logits}, {uid: burst
+    and group tokens})."""
+    uids = list(range(len(prompts)))
+    sync(torch)
+    t0 = time.perf_counter()
+    e.put(uids, prompts)
+    while any(e.query(u) is None for u in uids):
+        e.step()
+    sync(torch)
+    if timing is not None:
+        timing["prefill_s"] = time.perf_counter() - t0
+    first = {u: e.query(u).copy() for u in uids}
+    e.put(uids, [np.asarray([int(first[u].argmax())], np.int32)
+                 for u in uids])
+    second = {u: e.query(u).copy() for u in uids}
+    for u in uids:
+        e.state.seqs[u].generated.append(int(second[u].argmax()))
+    got = e.decode_burst_step(uids=uids, n_steps=MOE_BURST)
+    group = e.decode_multi_step(uids=uids, k=MOE_K)
+    tokens = {u: np.concatenate([np.asarray(got[u]), np.asarray(group[u])])
+              for u in uids}
+    for u in uids:
+        e.flush(u)
+    return first, second, tokens
+
+
+def moe_stage(np, engines, prompts, firsts):
+    """Prefill every prompt on each engine and stage `firsts` ({uid:
+    token}) as the pending input of a burst."""
+    uids = list(range(len(prompts)))
+    for e in engines:
+        e.put(uids, prompts, decode=False)
+        while any(e.query(u) is None for u in uids):
+            e.step(decode=False)
+        for u in uids:
+            e.state.seqs[u].generated.append(int(firsts[u]))
+    return uids
+
+
+def moe_flush(engines):
+    for e in engines:
+        for u in list(e.state.seqs):
+            e.flush(u)
+
+
+def record_grouped(mg, calls):
+    """Wrap `mg.grouped_matmul` to keep each call's (K, N, elem, offsets
+    clone) in `calls` (read after the run: the offsets are device data);
+    returns a function that restores it."""
+    fn = mg.grouped_matmul
+
+    def recording(x, w, offsets):
+        calls.append((w.shape[1], w.shape[2], x.element_size(),
+                      offsets.clone()))
+        return fn(x, w, offsets)
+    # the wrapper counts its launches on the module's `grouped_matmul`,
+    # which is this function for the run: its own counters, not the path's
+    recording.launches = 0
+    recording.launches_by_variant = dict.fromkeys(mg.VARIANTS, 0)
+    mg.grouped_matmul = recording
+
+    def restore():
+        mg.grouped_matmul = fn
+    return restore
+
+
+def moe_step_bound(np, calls):
+    """(operations, bytes) of the recorded grouped products: each
+    group's rows, and the weights of each group that has rows, once."""
+    ops = nbytes = 0
+    for K, N, elem, off in calls:
+        sizes = np.diff(off.cpu().numpy().astype(np.int64))
+        o, b = moe_work(sizes, K, N, elem)
+        ops, nbytes = ops + o, nbytes + b
+    return ops, nbytes
+
+
+def captures_of(e):
+    """The captures of `e`'s decode graphs (0 on the CPU, which has
+    none: a rehearsal there)."""
+    graphs = e._programs.graphs
+    return 0 if graphs is None else graphs.captures
+
+
+def moe_pressure(torch, np, name, family, size, kw, prompts, firsts):
+    """Paging under pressure at MOE_PRESSURE_LAYERS layers (full widths):
+    a captured engine and an eager twin, each with its own pool at S =
+    top_k + 1.  A burst and a group on both (tokens equal, censuses
+    equal, reroutes > 0), `ingest_census` and `rebalance` on both (a
+    promote at least), audits clean, then the same group again: replayed
+    with no new capture, the eager tokens."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig,
+                                                  build_engine)
+    ecfg = RaggedInferenceEngineConfig(**MOE_ENGINE)
+    graph = build_engine(family, size, dtype=torch.bfloat16, device="cuda",
+                         engine_config=ecfg,
+                         **dict(kw, num_layers=MOE_PRESSURE_LAYERS))
+    cfg = graph.cfg
+    eager = ms_eager(InferenceEngineV2(cfg, params=graph.params, config=ecfg,
+                                       device="cuda"))
+    S = cfg.moe_top_k + 1
+    t0 = time.perf_counter()
+    pools = [e.enable_expert_paging(slots_per_layer=S)
+             for e in (graph, eager)]
+    sync(torch)
+    enable_s = time.perf_counter() - t0
+    uids = moe_stage(np, (graph, eager), prompts, firsts)
+
+    def both(what, **kw):
+        got, want = ((e.decode_multi_step(uids=uids, **kw) if what == "group"
+                      else e.decode_burst_step(uids=uids, **kw))
+                     for e in (graph, eager))
+        for u in uids:
+            if got[u].tolist() != want[u].tolist():
+                fail(f"phase 17: {name} under pressure: {what} {kw}: "
+                     f"captured tokens of request {u} differ from eager")
+    both("burst", n_steps=MOE_BURST)
+    both("group", k=MOE_K)
+    censuses = [e.drain_moe_census() for e in (graph, eager)]
+    if not np.array_equal(censuses[0], censuses[1]):
+        fail(f"phase 17: {name} under pressure: the captured engine's "
+             f"census differs from the eager engine's")
+    rerouted = int(censuses[0][:, -1].sum())
+    if rerouted <= 0:
+        fail(f"phase 17: {name} under pressure (S={S} of "
+             f"{cfg.moe_experts}): no assignment was rerouted")
+    for pool in pools:
+        pool.ingest_census(censuses[0])
+    promoted = [pool.rebalance() for pool in pools]
+    if promoted[0] <= 0 or promoted[0] != promoted[1]:
+        fail(f"phase 17: {name} under pressure: rebalance promoted "
+             f"{promoted}")
+    audit = [pool.audit() for pool in pools][0]
+    captures = captures_of(graph)
+    both("group", k=MOE_K)
+    if captures_of(graph) != captures:
+        fail(f"phase 17: {name}: the group after the rebalance was "
+             f"captured again (the pool must write in place)")
+    stats = pools[0].stats()
+    print(f"phase 17: {name} under pressure ({MOE_PRESSURE_LAYERS} layers, "
+          f"S={S} of {cfg.moe_experts}): paging enabled in "
+          f"{enable_s:.1f} s; census {censuses[0][:, :-1].sum()} routed, "
+          f"{rerouted} rerouted; rebalance promoted {promoted[0]}; audit "
+          f"{audit}; the group after it replayed with no capture, tokens "
+          f"equal to eager; stats {stats}")
+    moe_flush((graph, eager))
+    del graph, eager, pools
+    free(torch, "cuda")
+    return dict(slots=S, routed=int(censuses[0][:, :-1].sum()),
+                rerouted=rerouted, promoted=promoted[0], audit=audit,
+                enable_s=enable_s)
+
+
+# the kernel and plain engines' logits may differ past phase 3's limit only
+# in a request whose exact top-k routing differs between them: exact top-k
+# is discontinuous, so a router near-tie that a bf16 rounding tips sends a
+# token to another expert, an O(1) change of its MLP output that the later
+# layers carry (with Mixtral's normalised top 2, half of the token's MLP).
+# Such a request is accepted only where its first differing routing
+# decision (the earliest serving call and layer at which one of its own
+# valid rows picked other experts) comes with router logits that agree to
+# MOE_ROUTE_NOISE of the row's max |router logit|: everything before it
+# routed alike, so the two engines' hidden states differ by roundings
+# only, and a wrong kernel would move them by O(1).
+MOE_ROUTE_NOISE = 0.05
+
+
+class RouteRecorder:
+    """Record every expert layer's routing of the valid rows of each
+    serving call of one engine: the rows' owners and validity from the
+    call's own operands (block tables, lengths, active flags), the router
+    logits recomputed from `_moe_inference`'s input and their top k.
+    Eager calls only (it reads the device back): put/step and decode
+    steps, no captured groups.  `install(eng)` returns the restore."""
+
+    def __init__(self, torch, np):
+        self.torch, self.np = torch, np
+        self.calls = []            # [(owners [N], valid [N], [layers])]
+
+    def _call(self, eng, tables, valid):
+        """Open a call: row r of its flat rows belongs to the sequence
+        whose block table is tables[r // per] (per = rows a table)."""
+        np = self.np
+        first = {d.blocks[0]: uid for uid, d in eng.state.seqs.items()
+                 if d.blocks}
+        tables = np.asarray(tables)
+        per = valid.size // tables.shape[0]
+        owners = np.asarray([first.get(int(t[0]), -1) for t in tables])
+        self.calls.append((np.repeat(owners, per), valid.ravel(), []))
+
+    def install(self, eng):
+        from deepspeed_tpu_torch.inference.v2 import engine_v2, ragged_ops
+        from deepspeed_tpu_torch.models import transformer as ttf
+        np, torch = self.np, self.torch
+        progs = eng._programs
+        moe, pfull = ttf._moe_inference, engine_v2.prefill_full
+        pchunks, dcore = progs.prefill_chunks, ragged_ops._decode_core
+
+        def prefill_full(cfg, params, arena, tokens, lens, tables, active):
+            S = np.asarray(tokens).shape[1]
+            valid = ((np.arange(S)[None] < np.asarray(lens)[:, None])
+                     & np.asarray(active)[:, None])
+            self._call(eng, tables, valid)
+            return pfull(cfg, params, arena, tokens, lens, tables, active)
+
+        def prefill_chunks(params, arena, tokens, pos0s, nvalids, tables,
+                           active, *a, **kw):
+            C = np.asarray(tokens).shape[1]
+            valid = ((np.arange(C)[None] < np.asarray(nvalids)[:, None])
+                     & np.asarray(active)[:, None])
+            self._call(eng, tables, valid)
+            return pchunks(params, arena, tokens, pos0s, nvalids, tables,
+                           active, *a, **kw)
+
+        def decode_core(cfg, params, arena, tokens, seq_lens, tables,
+                        active, *a, **kw):
+            self._call(eng, tables, np.asarray(active).astype(bool))
+            return dcore(cfg, params, arena, tokens, seq_lens, tables,
+                         active, *a, **kw)
+
+        def moe_inference(cfg, lp, h, with_census=False):
+            x = h.reshape(-1, h.shape[-1]).float()
+            logits = x @ lp["moe_gate"].float()
+            ids = torch.topk(logits, cfg.moe_top_k, dim=-1).indices
+            owners, valid, layers = self.calls[-1]
+            layers.append((ids.sort(dim=-1).values.cpu().numpy()[valid],
+                           logits.cpu().numpy()[valid]))
+            return moe(cfg, lp, h, with_census)
+
+        engine_v2.prefill_full = prefill_full
+        progs.prefill_chunks = prefill_chunks
+        ragged_ops._decode_core = decode_core
+        ttf._moe_inference = moe_inference
+
+        def restore():
+            engine_v2.prefill_full = pfull
+            del progs.prefill_chunks
+            ragged_ops._decode_core = dcore
+            ttf._moe_inference = moe
+        return restore
+
+
+def first_route_flips(np, kernel, plain):
+    """{uid: (call, layer, max |d router logit| / max |router logit| at
+    the row, routing decisions of the uid up to it)} at each request's
+    first routing difference between two recorders of the same schedule,
+    and the counts (decisions, differing decisions) over every request."""
+    if len(kernel.calls) != len(plain.calls):
+        fail(f"phase 17: the kernel and plain engines made different "
+             f"serving calls ({len(kernel.calls)} vs {len(plain.calls)})")
+    first, total, flipped = {}, 0, 0
+    for c, ((own_k, val_k, lk), (own_p, val_p, lp)) in enumerate(
+            zip(kernel.calls, plain.calls)):
+        if not (np.array_equal(val_k, val_p)
+                and np.array_equal(own_k[val_k], own_p[val_p])):
+            fail(f"phase 17: serving call {c} differs in its rows between "
+                 f"the kernel and plain engines")
+        owners = own_k[val_k]
+        for li, ((ik, rk), (ip, rp)) in enumerate(zip(lk, lp)):
+            diff = (ik != ip).any(axis=1)
+            total += diff.size
+            flipped += int(diff.sum())
+            for r in np.flatnonzero(diff):
+                uid = int(owners[r])
+                if uid not in first:
+                    d = float(np.abs(rk[r] - rp[r]).max())
+                    first[uid] = (c, li, d / float(np.abs(rp[r]).max()))
+    return first, total, flipped
+
+
+def moe_compare_plain(torch, np, name, eng, plain, prompts, first):
+    """Phase 17's kernel-vs-plain comparison: both engines' first- and
+    second-token logits of the wave (put/step, one decode step, eager),
+    every expert layer's routing recorded; a request past E2E_REL_TOL must
+    be explained by a routing difference at a near-tie (MOE_ROUTE_NOISE).
+    Returns the record."""
+    got, want = {}, {}
+    recs = {}
+    for side, e in (("kernel", eng), ("plain", plain)):
+        rec = RouteRecorder(torch, np)
+        restore = rec.install(e)
+        try:
+            logits = arch_plain_logits(np, e, prompts, first)
+        finally:
+            restore()
+        (got if side == "kernel" else want)["logits"] = logits
+        recs[side] = rec
+    rels = logit_differences(np, got["logits"], want["logits"])
+    flips, total, flipped = first_route_flips(np, recs["kernel"],
+                                              recs["plain"])
+    # the last serving call is the decode step of the second token: a
+    # first-token difference needs a routing difference in the prefill
+    decode_call = len(recs["kernel"].calls) - 1
+    past = []
+    for u in range(len(prompts)):
+        for which, limit_call in ((0, decode_call), (1, decode_call + 1)):
+            if rels[which][u] <= E2E_REL_TOL:
+                continue
+            past.append(u)
+            if u not in flips or flips[u][0] >= limit_call:
+                fail(f"phase 17: {name}: request {u}'s "
+                     f"{('first', 'second')[which]}-token logits differ by "
+                     f"{rels[which][u]:.3e} of max |logit| from the plain "
+                     f"engine's (tol {E2E_REL_TOL}) with every routing "
+                     f"decision before them alike")
+            c, li, noise = flips[u]
+            if noise > MOE_ROUTE_NOISE:
+                fail(f"phase 17: {name}: request {u}'s first routing "
+                     f"difference (call {c}, layer {li}) comes with router "
+                     f"logits {noise:.3e} of max apart (limit "
+                     f"{MOE_ROUTE_NOISE})")
+    past = sorted(set(past))
+    within = [u for u in range(len(prompts)) if u not in past]
+    others = {u: flips[u] for u in within if u in flips}
+    print(f"phase 17: {name}: kernel vs plain engine max |dlogit| / max "
+          f"|logit|: first token {[float(f'{r:.3e}') for r in rels[0]]}, "
+          f"second {[float(f'{r:.3e}') for r in rels[1]]} (tol "
+          f"{E2E_REL_TOL}); routing decisions differing {flipped} of "
+          f"{total}; requests past the limit {past}, each explained by a "
+          f"near-tie at its first routing difference (call, layer, router "
+          f"logits apart / max): { {u: flips[u] for u in past} }; the "
+          f"other requests' first differences {others}")
+    worst_within = max([max(rels[0][u], rels[1][u]) for u in within],
+                       default=0.0)
+    return dict(rels_first=rels[0], rels_second=rels[1],
+                worst=max(max(rels[0]), max(rels[1])),
+                worst_without_route_flip=max(
+                    [max(rels[0][u], rels[1][u]) for u in within
+                     if u not in flips], default=0.0),
+                worst_within_limit=worst_within, past_limit=past,
+                route_decisions=total, route_differing=flipped,
+                first_route_flips={u: list(v) for u, v in flips.items()})
+
+
+def moe_run(torch, np, name, family, size, kw, counters, mg):
+    """Phase 17 for one model (see the module docstring).  Returns its
+    record, launches included."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig,
+                                                  build_engine)
+    from deepspeed_tpu_torch.models import get_model_config
+    free(torch, "cuda")
+    held = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    ecfg = RaggedInferenceEngineConfig(**MOE_ENGINE)
+    eng = build_engine(family, size, dtype=torch.bfloat16, device="cuda",
+                       engine_config=ecfg, **kw)
+    sync(torch)
+    cfg = eng.cfg
+    gib = param_gib(eng.params)
+    n_moe = moe_layer_count(cfg)
+    rng = np.random.RandomState(17)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    print(f"phase 17: {name} (H={cfg.hidden_size}, L={cfg.num_layers}, "
+          f"{n_moe} expert layers, E={cfg.moe_experts}, top {cfg.moe_top_k},"
+          f" F={cfg.ffn_dim}, shared {cfg.moe_shared_expert_ffn}, "
+          f"norm_topk {cfg.moe_norm_topk_prob}, NH={cfg.num_heads}, "
+          f"NKV={cfg.kv_heads}, D={cfg.head_dim}, V={cfg.vocab_size}) bf16, "
+          f"random weights (seed 0), {gib:.2f} GiB, built in "
+          f"{time.perf_counter() - t0:.1f} s ({held:.2f} GiB allocated on "
+          f"the card before it); prompts {PROMPT_LENS}")
+    full = get_model_config(family, size).num_layers
+    if cfg.num_layers < full:
+        print(f"phase 17: {name}: depth cut from its {full} layers to "
+              f"{cfg.num_layers} (the card holds ~80 GB); widths as "
+              f"published")
+    # the wave through the kernels, counted; no plain version may run
+    plain_calls = {"n": 0}
+    ref_fn = mg.grouped_matmul_reference
+
+    def plain_counted(*a):
+        plain_calls["n"] += 1
+        return ref_fn(*a)
+    mg.grouped_matmul_reference = plain_counted
+    launches, out, calls, timing = {}, {}, {"all": 0}, {}
+    restore = count_forward_calls(calls, eng)
+
+    def served():
+        out["run"] = moe_serve(torch, np, eng, prompts, timing)
+    sync(torch)
+    t1 = time.perf_counter()
+    try:
+        counted(counters, served, launches)()
+        sync(torch)
+    finally:
+        restore()
+        mg.grouped_matmul_reference = ref_fn
+    wall = time.perf_counter() - t1
+    variants = by_variant(counters)
+    paged_on_tma(counters, f"phase 17 ({name})")
+    first, second, tokens = out["run"]
+    for c in counters:
+        if c.__name__ in ("paged_decode_attention", "paged_prefill_attention",
+                          "flash_attention_fwd") and c.launches <= 0:
+            fail(f"phase 17: {name}: {c.__name__} was never launched")
+    want_gmm = MOE_SWIGLU_PRODUCTS * n_moe * calls["all"]
+    if launches["grouped_matmul"] != want_gmm:
+        fail(f"phase 17: {name}: {launches['grouped_matmul']} grouped GEMM "
+             f"launches for {calls['all']} forward calls of {n_moe} expert "
+             f"layers (want {want_gmm}: 3 a layer a call)")
+    if plain_calls["n"]:
+        fail(f"phase 17: {name}: the grouped GEMM's plain version ran "
+             f"{plain_calls['n']} times in the kernel engine's wave")
+    for u, t in tokens.items():
+        if (t.shape != (MOE_BURST + MOE_K,) or t.min() < 0
+                or t.max() >= cfg.vocab_size):
+            fail(f"phase 17: {name}: bad tokens for request {u}: {t}")
+    prefill_tok_s = sum(PROMPT_LENS) / timing["prefill_s"]
+    print(f"phase 17: {name}: wave {wall:.2f} s ({calls['all']} forward "
+          f"calls, {launches['grouped_matmul']} grouped GEMM launches: 3 a "
+          f"layer a call); prefill {prefill_tok_s:.0f} tokens/s")
+    # against the plain versions on the same weights, routing recorded
+    plain = InferenceEngineV2(cfg, params=eng.params, config=ecfg,
+                              device="cuda", plain_kernels=True)
+    vs_plain = moe_compare_plain(torch, np, name, eng, plain, prompts,
+                                 first)
+    del plain
+    free(torch, "cuda")
+    worst = vs_plain["worst"]
+    # a profiled rerun: device time and the idle share
+    prof_launches = {}
+    events = profiled(counted(counters, lambda: moe_serve(torch, np, eng,
+                                                          prompts),
+                              prof_launches),
+                      holds_launches(prof_launches),
+                      what=f"kernels of {name}'s wave")
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    idle = 1 - busy / (wall * 1e3)
+    by_kind = {}
+    for e in events:
+        k = _kind(e.name)
+        by_kind[k] = by_kind.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+    print(f"phase 17: {name}: device time {busy:.1f} ms of the "
+          f"{wall * 1e3:.1f} ms wave, idle share {idle:.3f}; by kind "
+          f"{ {k: round(v, 1) for k, v in sorted(by_kind.items())} }")
+    # decode ms a step: captured bursts against an eager twin, in turns;
+    # the captured tokens must be the eager ones
+    eager = ms_eager(InferenceEngineV2(cfg, params=eng.params, config=ecfg,
+                                       device="cuda"))
+    firsts = {u: int(second[u].argmax()) for u in second}
+    uids = moe_stage(np, (eng, eager), prompts, firsts)
+    walls = {"captured": [], "eager": []}
+    for i in range(MOE_TIMED + 1):
+        got = {}
+        for side, e in (("captured", eng), ("eager", eager)):
+            sync(torch)
+            t2 = time.perf_counter()
+            got[side] = e.decode_burst_step(uids=uids, n_steps=MOE_BURST)
+            sync(torch)
+            if i:       # the first round captures the burst
+                walls[side].append((time.perf_counter() - t2) * 1e3
+                                   / MOE_BURST)
+        for u in uids:
+            if got["captured"][u].tolist() != got["eager"][u].tolist():
+                fail(f"phase 17: {name}: captured burst tokens of request "
+                     f"{u} differ from the eager burst's")
+    step_ms = {k: sum(v) / len(v) for k, v in walls.items()}
+    # the grouped GEMM's device ms in one eager decode step, beside the
+    # bound of the products that step's routing asked for
+    grouped_calls = []
+    restore = record_grouped(mg, grouped_calls)
+    try:
+        step_events = profiled(
+            lambda: eager.decode_burst_step(uids=uids, n_steps=1),
+            lambda ev: sum(_kind(x.name) == "moe_grouped" for x in ev)
+            == MOE_SWIGLU_PRODUCTS * n_moe,
+            what=f"grouped GEMM kernels of {name}'s decode step")
+    finally:
+        restore()
+    gmm_ms = sum(e.time_range.elapsed_us() for e in step_events
+                 if _kind(e.name) == "moe_grouped") / 1e3
+    step_busy = sum(e.time_range.elapsed_us() for e in step_events) / 1e3
+    gmm_bound, gmm_by = bound_ms(*moe_step_bound(np, grouped_calls[
+        -MOE_SWIGLU_PRODUCTS * n_moe:]))
+    print(f"phase 17: {name}: decode ms a step (bursts of {MOE_BURST}, "
+          f"{len(uids)} rows) captured {step_ms['captured']:.2f}, eager "
+          f"{step_ms['eager']:.2f}, tokens equal; one eager decode step: "
+          f"device {step_busy:.2f} ms, of it the grouped GEMM "
+          f"{gmm_ms:.3f} ms (bound {gmm_bound:.3f} {gmm_by})")
+    moe_flush((eng, eager))
+    del eager
+    free(torch, "cuda")
+    # the census: full residency, the same wave bit for bit
+    t3 = time.perf_counter()
+    pool = eng.enable_expert_paging(slots_per_layer=cfg.moe_experts)
+    sync(torch)
+    enable_s = time.perf_counter() - t3
+    if "moe_w_up" in eng.params["layers"]:
+        fail(f"phase 17: {name}: the full expert stacks stayed on the card")
+    paged_gib = param_gib(eng.params)
+    pfirst, psecond, ptokens = moe_serve(torch, np, eng, prompts)
+    for u in first:
+        if not (np.array_equal(pfirst[u], first[u])
+                and np.array_equal(psecond[u], second[u])
+                and np.array_equal(ptokens[u], tokens[u])):
+            fail(f"phase 17: {name}: the paged engine at S = E differs from "
+                 f"the unpaged engine for request {u}")
+    census = eng.drain_moe_census()
+    decoded = len(prompts) * (1 + MOE_BURST + MOE_K)
+    per_layer = census[:, :-1].sum(axis=1)
+    dense = cfg.moe_dense_layers or (0,) * cfg.num_layers
+    want_rows = np.asarray([0 if d else cfg.moe_top_k * decoded
+                            for d in dense])
+    if not np.array_equal(per_layer, want_rows) or census[:, -1].any():
+        fail(f"phase 17: {name}: census per layer {per_layer.tolist()}, "
+             f"reroutes {census[:, -1].tolist()} (want {cfg.moe_top_k} x "
+             f"{decoded} decoded tokens a layer, no reroute)")
+    pool.ingest_census(census)
+    audit = pool.audit()
+    hot = census[:, :-1].max(axis=1)
+    print(f"phase 17: {name}: expert paging at S = E enabled in "
+          f"{enable_s:.1f} s (host copies pinned), params on the card "
+          f"{paged_gib:.2f} GiB; logits and tokens equal to the unpaged "
+          f"engine's; census {cfg.moe_top_k} x {decoded} a layer, no "
+          f"reroute, busiest expert {int(hot.max())} assignments, load "
+          f"imbalance {pool.load_imbalance():.2f}; audit {audit}")
+    del eng, pool
+    free(torch, "cuda")
+    pressure = moe_pressure(torch, np, name, family, size, kw, prompts,
+                            firsts)
+    f32_prompts = prompts[::2]
+    margin = moe_f32(torch, np, name, family, size, kw, f32_prompts, ecfg)
+    free(torch, "cuda")
+    return dict(launches={k: v for k, v in launches.items() if "/" not in k},
+                launches_by_variant=variants, forward_calls=calls["all"],
+                params_gib=gib, paged_params_gib=paged_gib,
+                wall_ms=wall * 1e3, device_ms=busy, idle_share=idle,
+                device_ms_by_kind=by_kind,
+                prefill_tokens_per_s=prefill_tok_s,
+                decode_ms_per_step=step_ms["captured"],
+                eager_decode_ms_per_step=step_ms["eager"],
+                grouped_ms_per_step=gmm_ms, grouped_bound_ms=gmm_bound,
+                grouped_bound_by=gmm_by, step_device_ms=step_busy,
+                e2e_max_rel_dlogit=worst, vs_plain=vs_plain,
+                census_enable_s=enable_s,
+                pressure=pressure, f32_min_top2_margin=margin)
+
+
+def moe_f32(torch, np, name, family, size, kw, prompts, ecfg):
+    """The f32 check at MOE_F32_LAYERS layers: the kernel and plain
+    engines' greedy chains over ARCH_F32_STEPS steps must be equal (a
+    near tie below ARCH_F32_TIE is printed, past it the run fails)."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  build_engine)
+    eng = build_engine(family, size, dtype=torch.float32, device="cuda",
+                       engine_config=ecfg,
+                       **dict(kw, num_layers=MOE_F32_LAYERS))
+    plain = InferenceEngineV2(eng.cfg, params=eng.params, config=eng.config,
+                              device="cuda", plain_kernels=True)
+    got, _ = greedy_chain(np, eng, prompts, ARCH_F32_STEPS)
+    want, rows = greedy_chain(np, plain, prompts, ARCH_F32_STEPS)
+    del eng, plain
+    return chain_margin(np, f"phase 17: {name} f32", got, want, rows,
+                        MOE_F32_LAYERS)
+
+
+def moe_path(torch, np, moe_layers, counters, mg):
+    """Phase 17 (see the module docstring): each model in turn, freed
+    before the next.  Returns the record and the path's launches (the
+    kernel engines' counted waves)."""
+    t_phase = time.perf_counter()
+    runs = {}
+    for name, family, size, kw in moe_models(moe_layers):
+        runs[name] = moe_run(torch, np, name, family, size, kw, counters,
+                             mg)
+    launches, variants = {}, {}
+    for r in runs.values():
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        for k, by in r["launches_by_variant"].items():
+            acc = variants.setdefault(k, dict.fromkeys(by, 0))
+            for v, n in by.items():
+                acc[v] += n
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s; the path's "
+          f"launches {launches}, by variant {variants}")
+    return dict(runs=runs, launches=launches, launches_by_variant=variants)
+
+
+# ----------------------------------------------------------------------
 # phase 13: tensor-parallel serving over the fused ring (--tp N)
 # ----------------------------------------------------------------------
 def tp_engine_config(tp):
@@ -6060,6 +6916,10 @@ def tp_profile_decode(torch, np, eng, prompts, outs, profile):
 
 
 def free(torch, dev):
+    """Return the card memory of what the caller dropped: collect the
+    reference cycles first (an engine and its pools), then empty the
+    allocator's cache."""
+    gc.collect()
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
 
@@ -6379,6 +7239,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="serving model depth (Llama-2-7B has 32)")
+    ap.add_argument("--moe-layers", type=int, default=8,
+                    help="Mixtral-8x7B's depth in phase 17 (its 32 layers "
+                         "need ~93 GB; 8 hold ~24 GB)")
     ap.add_argument("--train-layers", type=int, default=24,
                     help="training model depth (GPT-2-1.3B has 24)")
     ap.add_argument("--out", default=os.path.join("build", "chip_smoke"),
@@ -6407,6 +7270,7 @@ def main(argv=None):
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import fused_adam8 as fa8
     from deepspeed_tpu_torch.ops import lora_matmul as lm
+    from deepspeed_tpu_torch.ops import moe_grouped as mg
     from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops import paged_merged as pm
     from deepspeed_tpu_torch.ops import paged_prefill as pp
@@ -6447,7 +7311,8 @@ def main(argv=None):
           f"tol {TOL_TEXT}; backward tol {BWD_TOL_TEXT}; LoRA tol "
           f"{LORA_REL} max|plain|; fused 8-bit Adam master {ADAM8_RTOL} "
           f"|plain| + {ADAM8_ATOL}, codes within 1, scales {ADAM8_RTOL}; "
-          f"tile GEMM {TILE_REL} max|plain|)")
+          f"tile GEMM {TILE_REL} max|plain|; grouped GEMM {MOE_REL} "
+          f"max|plain|)")
     evo_edges = check_evoformer_edges(torch, evo, ef, "cuda")
     dec_extra, pre_extra = check_paged_features(torch, np, pa, pp, pm,
                                                 "cuda")
@@ -6467,7 +7332,8 @@ def main(argv=None):
                check_adam8(torch, fa8, topt, "cuda"),
                *check_sparse(torch, np, sa, sf, "cuda"),
                *check_evoformer(torch, ef, "cuda"),
-               check_tile_matmul(torch, tm, "cuda")]
+               check_tile_matmul(torch, tm, "cuda"),
+               check_moe_grouped(torch, np, mg, "cuda")]
     for k in kernels:
         k["clocks"] = clocks(k)
     other = {k["name"]: {t: c for t, c in k["clocks"].items()
@@ -6536,6 +7402,11 @@ def main(argv=None):
          pa.paged_decode_attention, pp.paged_prefill_attention])
     torch.cuda.empty_cache()
 
+    # phase 17 (after phase 15): MoE serving, one model at a time
+    moe = moe_path(torch, np, args.moe_layers,
+                   serve_counters + [mg.grouped_matmul], mg)
+    torch.cuda.empty_cache()
+
     # phase 10 (before the training phases: run after phase 6, most of its
     # profiler sessions came back without device events on the H100
     # machine, for a reason not known)
@@ -6595,7 +7466,7 @@ def main(argv=None):
              ("tenants", tenants["launches"]), ("merged", merged["launches"]),
              ("multi_step", multi["launches"]),
              ("archs", archs["launches"]), ("spec", spec["launches"]),
-             ("fp8", fp8["launches"]),
+             ("fp8", fp8["launches"]), ("moe", moe["launches"]),
              ("sparse", sparse["launches"]), ("train_int8", int8["launches"]),
              ("evoformer", evoformer["launches"]))
     for k in kernels:
@@ -6610,25 +7481,26 @@ def main(argv=None):
             k["launches_by_variant"] = sparse["launches_by_variant"][fn]
         paged = [p["launches_by_variant"][fn] for p in (served, tenants,
                                                           merged, multi,
-                                                          archs)
+                                                          archs, moe)
                  if fn in p["launches_by_variant"]]
         # phase 16's by variant, from its paths' launch records
         paged += [{v: p["launches"].get(f"{fn}/{v}", 0)
                    for v in paged[0]} for p in (spec, fp8)
                   if paged and f"{fn}/tma" in p["launches"]]
-        if paged:                                    # the paged kernels
+        if paged:                      # the paged kernels, the grouped GEMM
             k["launches_by_variant"] = {v: sum(p[v] for p in paged)
                                         for v in paged[0]}
 
     record = dict(kernels=kernels, serve=served, e2e=e2e, profile=prof,
                   tenants=tenants, merged=merged, multi_step=multi,
-                  archs=archs, spec=spec, fp8=fp8,
+                  archs=archs, spec=spec, fp8=fp8, moe=moe,
                   train=trained, train_profile=tprof, train_plain=tplain,
                   train_control=control, remat=remat, sparse=sparse,
                   train_int8=int8, evoformer=evoformer,
                   evoformer_edges_max_abs_err=evo_edges,
                   device=dict(kind=kind, nvidia_smi=smi,
                               layers=args.layers,
+                              moe_layers=args.moe_layers,
                               train_layers=args.train_layers))
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -12,7 +12,9 @@ and as the kernel's check.
 Entry points:
 - serving: `inference.v2.build_engine(arch, size, device="cuda")` and
   `InferenceEngineV2.put / step / generate_batch`, with multi-tenant LoRA
-  adapters through `serving.tenancy.AdapterPool` and `set_adapter`, and
+  adapters through `serving.tenancy.AdapterPool` and `set_adapter`, MoE
+  models (mixtral, qwen2_moe) with expert paging through
+  `enable_expert_paging` (`serving.experts.ExpertPool`), and
   tensor-parallel over several cards (`comm.init_distributed` in every
   rank, then `RaggedInferenceEngineConfig(tensor_parallel_size=N,
   tp_collectives="fused")`);

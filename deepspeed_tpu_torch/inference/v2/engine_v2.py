@@ -43,6 +43,15 @@ rank keeps its shard of the weights and its kv heads of the arena, and
 fused-ring programs of `tp_ragged.py`.  Every rank must get the same
 calls; each then holds the same full logits and samples the same tokens.
 
+Mixture-of-experts models (mixtral, qwen2_moe) serve on every path at
+tensor parallelism 1 (the fused ring refuses them, as the reference's
+does): their expert layers run exact top-k routing through the
+hand-written grouped GEMM.  `enable_expert_paging` pages the expert
+weights through a `serving.experts.ExpertPool` (slot stacks on the card,
+canonical copies on the host, rerouting under pressure) and adds the
+router census to the arena, which the decode steps accumulate and
+`drain_moe_census` fetches.
+
 Draft-and-verify (`decode_burst_step(drafts=, draft_span=)`) verifies
 each row's pending token and draft in one span forward through the paged
 prefill kernels, eagerly, at every tp; fp8 serving weights
@@ -51,8 +60,8 @@ and f32 scales on the engine and serve every tp-1 path.
 
 Not carried yet, each refused by name: the reference's GSPMD tensor
 parallelism (`tp_collectives="xla"` at tp > 1), LoRA adapters and KV
-block IO on a tensor-parallel engine, prefix cache, expert paging and
-grammar automata (`fsm=`).  As in the reference, the fused
+block IO on a tensor-parallel engine, prefix cache and grammar
+automata (`fsm=`).  As in the reference, the fused
 tensor-parallel programs carry neither seeded streams, multi-step groups
 nor fp8 weights, and drafts refuse seeds and adapter rows.
 """
@@ -265,6 +274,9 @@ class InferenceEngineV2:
         # adapter row run exactly the single-tenant computation.
         self._lora = None
         self._adapter_slots: Dict[int, int] = {}
+        # expert-paged MoE serving (serving/experts.ExpertPool), off until
+        # enable_expert_paging()
+        self._expert_pool = None
 
     # -- tensor parallelism ----------------------------------------------
     def _check_tp(self) -> None:
@@ -336,17 +348,88 @@ class InferenceEngineV2:
         raise NotImplementedError(
             "prefix KV cache is not carried by the PyTorch port yet")
 
-    def enable_expert_paging(self, *args, **kwargs):
-        raise NotImplementedError(
-            "mixture-of-experts serving is not carried by the PyTorch "
-            "port yet")
-
     supports_per_row_sampling = True
     supports_lora = True
     # decode_burst_step(drafts=) runs the verify span, at every tp
     supports_draft_verify = True
     supports_structured = False
-    supports_moe = False
+
+    # expert-paged MoE decode (serving/experts.ExpertPool): the slot
+    # stacks and maps ride params["layers"] through every layer, which
+    # the fused-TP programs do not thread (and their weights are
+    # per-rank shards)
+    @property
+    def supports_moe(self) -> bool:
+        return self.cfg.moe_experts > 1 and self._tpp is None
+
+    def enable_expert_paging(self, slots_per_layer: int,
+                             spill: str = "none"):
+        """Page this MoE model's expert FFN weights: only
+        `slots_per_layer` experts per layer stay resident on the device in
+        slot stacks, the rest live on the host (optionally int8 via
+        `spill`) and promote back on demand; demoted experts' tokens
+        reroute to the best resident expert (masked router) instead of
+        faulting.  The full [L, E, ...] stacks leave the device
+        (`_install_expert_pages`), so the memory saving is real.  Adds
+        the router-census rider to the arena, so it refuses while
+        sequences are live.  Returns the ExpertPool.
+
+        slots_per_layer == E keeps every expert in its home slot: bit for
+        bit the unpaged model (spill='none')."""
+        if not self.supports_moe:
+            raise RuntimeError(
+                f"expert paging needs an MoE model served without "
+                f"fused-TP collectives (moe_experts="
+                f"{self.cfg.moe_experts}, fused_tp={self._tpp is not None})"
+            )
+        if self.tp > 1:
+            raise RuntimeError(
+                "expert paging under tensor parallelism is not wired: "
+                "the slot stacks would need per-rank resharding on every "
+                "promote (serve MoE with tp=1, or keep experts unpaged)")
+        if self._expert_pool is not None:
+            raise RuntimeError(
+                "expert paging already enabled (one pool owns the slot "
+                "tensors; reconstruct the engine to resize it)")
+        if self.state.seqs:
+            raise RuntimeError(
+                "enable_expert_paging with live sequences: drain or "
+                "flush them first (the arena is rebuilt with the census "
+                "rider)")
+        from ...serving.experts import ExpertPool
+        self._expert_pool = ExpertPool(self, slots_per_layer, spill=spill)
+        self.arena = init_arena(self.cfg, self.config.num_blocks,
+                                self.config.block_size, self.device,
+                                merged=self.config.arena_merged,
+                                moe_census=True)
+        return self._expert_pool
+
+    def _install_expert_pages(self, pages: Dict[str, torch.Tensor]) -> None:
+        """ExpertPool's install hook: splice the slot stacks, the slot map
+        and the resident mask into params['layers'] and drop the full
+        [L, E, ...] expert stacks from the device (paged serving must not
+        hold both copies).  Called once; the pool writes the installed
+        tensors in place afterwards."""
+        layers = self.params["layers"]
+        for key in ("moe_w_up", "moe_w_down", "moe_w_gate_proj"):
+            layers.pop(key, None)
+        layers.update(pages)
+
+    def drain_moe_census(self) -> np.ndarray:
+        """Fetch and reset the router census the decode programs
+        accumulate (arena 'moe_census' [L, E+1]; see
+        `models.transformer._moe_inference`): one explicit fetch per
+        drain, counted like every other, then a zero fill in place (a
+        captured decode group adds to the same storage)."""
+        census = self.arena.get("moe_census")
+        if census is None:
+            raise RuntimeError(
+                "no census rider in the arena — enable_expert_paging "
+                "first")
+        # a copy: on the CPU the fetched array shares the tensor's memory
+        out = self._fetch(census).copy()
+        census.zero_()
+        return out
 
     # counter-based (seed, position) sampling streams and k-step groups
     # with on-device termination: properties, as in the reference, since
@@ -880,6 +963,13 @@ class InferenceEngineV2:
             raise ValueError(
                 "drafts= needs draft_span >= 1 (the bucketed compiled "
                 "span width, 1 + max draft length)")
+        if self._expert_pool is not None:
+            raise RuntimeError(
+                "speculative verify with expert paging enabled is "
+                "refused: a rejected draft rolls KV back, but the census "
+                "the verify span accumulated (and any reroutes a demoted "
+                "expert caused inside the speculated span) cannot be "
+                "rolled back with it — serve MoE speculation unpaged")
         batch = self._decode_ready(uids)
         # every row the span serves, drafted or not: the verify has no
         # gather-LoRA epilogue

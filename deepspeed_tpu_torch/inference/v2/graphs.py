@@ -13,10 +13,17 @@ A program is captured for one key: the function and its static shape
 LoRA on or off with its tile count, and the generator it draws from.  The
 batch width and block-table width are the engine's and fixed.  Every
 operand lives in a fixed device buffer that the host refills with `copy_`
-before each replay; the arena and the LoRA stacks are read by address,
-and the cache is emptied when those addresses (or shapes) change
-(`attach_lora` with new stacks, a new arena), so the next call captures
-again.  What a capture relies on:
+before each replay; the arena (with its router census, where it has one),
+the LoRA stacks and the expert weights (full stacks, or the expert
+pool's slot stacks, slot map and resident mask) are read by address, and
+the cache is emptied when those addresses (or shapes) change
+(`attach_lora` with new stacks, a new arena, `enable_expert_paging`), so
+the next call captures again.  The expert pool writes its tensors in
+place, so a promote or demote between replays needs no capture: the next
+replay routes by the new map and reads the new slot weights, and its
+census adds to the arena's in place.  An expert layer's grouped GEMM
+reads the group offsets on the device, so it replays as captured.  What a
+capture relies on:
 
 - no step reads the device from the host: the group is planned on the
   device (`ragged_ops._GroupSlots`), and a host read inside the capture
@@ -51,6 +58,7 @@ import torch
 
 from ...ops import _scratch
 from ...ops.lora_matmul import LoraRows, lora_delta
+from ...ops.moe_grouped import grouped_matmul
 from ...ops.paged_attention import paged_decode_attention
 from ...ops.paged_merged import merged_decode_attention
 from .ragged_ops import (_slopes, decode_multi_step, decode_tokens,
@@ -60,7 +68,8 @@ __all__ = ["DecodeGraphs", "COUNTED"]
 
 # the kernel wrappers a decode group can launch; their counters move per
 # replay
-COUNTED = (paged_decode_attention, merged_decode_attention, lora_delta)
+COUNTED = (paged_decode_attention, merged_decode_attention, lora_delta,
+           grouped_matmul)
 # programs kept per engine (least recently used dropped first)
 MAX_PROGRAMS = 16
 # dtypes of the operand buffers, by name
@@ -110,11 +119,13 @@ class _Program:
         return self.out
 
 
-def _where(arena, lora):
-    """The addresses and shapes the captured programs read in place."""
-    ts = [arena["k"], arena["v"]]
+def _where(arena, lora, layers):
+    """The addresses and shapes the captured programs read in place: the
+    arena's tensors, the LoRA stacks and the expert leaves."""
+    ts = [arena[n] for n in sorted(arena)]
     if lora is not None:
         ts += [lora["a"], lora["b"]]
+    ts += [layers[n] for n in sorted(layers) if n.startswith("moe_")]
     return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in ts)
 
 
@@ -137,7 +148,8 @@ class DecodeGraphs:
         self.slopes = _slopes(cfg, self.device)
         self._arch = (cfg.pos_emb, cfg.alibi_scaled, cfg.sliding_window,
                       cfg.sliding_window_layers, cfg.post_norm,
-                      cfg.parallel_residual, cfg.rope_pct, cfg.rope_scaling)
+                      cfg.parallel_residual, cfg.rope_pct, cfg.rope_scaling,
+                      cfg.moe_experts, cfg.moe_top_k, cfg.moe_dense_layers)
 
     # -- the programs -----------------------------------------------------
     def decode_tokens(self, params, arena, tokens, seq_lens, block_tables,
@@ -178,7 +190,7 @@ class DecodeGraphs:
 
         key = ("decode_tokens", n_steps, mode, scalars)
         out = self._run(key, n_steps, host, body, arena, lora, adapter_ids,
-                        None if mode == "greedy" else rng)
+                        None if mode == "greedy" else rng, params)
         return out, arena
 
     def decode_multi_step(self, params, arena, tokens, seq_lens,
@@ -208,12 +220,12 @@ class DecodeGraphs:
                 b.get("has_seed"), lrows, lora, k=steps, rows=b["rows"])[0]
 
         out = self._run(("decode_multi_step", k), k, host, body, arena, lora,
-                        adapter_ids, rng)
+                        adapter_ids, rng, params)
         return out, arena
 
     # -- capture and replay -----------------------------------------------
     def _run(self, key, steps, host, body, arena, lora, adapter_ids,
-             generator: Optional[torch.Generator]):
+             generator: Optional[torch.Generator], params):
         """Refill the program of `key` (captured first where the cache has
         none) with the host operands and replay it; returns its output."""
         host = {n: np.ascontiguousarray(
@@ -231,14 +243,16 @@ class DecodeGraphs:
             host["lora_ids"] = lrows.ids.astype(np.int64)
             key += (("lora", n_tiles, n_base),)
         key += (tuple(sorted(host)), id(generator), self._arch)
-        where = _where(arena, lora)
+        where = _where(arena, lora, params["layers"])
         if where != self._where:
-            # the arena or the LoRA stacks moved: every graph read the old
+            # the arena, the LoRA stacks or the expert leaves moved: every
+            # graph read the old
             self._programs.clear()
             self._where = where
         prog = self._programs.get(key)
         if prog is None:
-            prog = self._capture(host, steps, body, lrows, generator)
+            prog = self._capture(host, steps, body, lrows, generator,
+                                 arena.get("moe_census"))
             self._programs[key] = prog
             while len(self._programs) > MAX_PROGRAMS:
                 self._programs.popitem(last=False)
@@ -247,9 +261,12 @@ class DecodeGraphs:
         self.replays += 1
         return prog.replay(host)
 
-    def _capture(self, host, steps, body, lrows, generator) -> _Program:
+    def _capture(self, host, steps, body, lrows, generator,
+                 census=None) -> _Program:
         """Warm up, capture and return the program of `body` for these
-        operands (its first replay is the caller's)."""
+        operands (its first replay is the caller's).  The warm-up step's
+        router counts are taken back out of `census` (the arena's rider,
+        if any): only the replays are decode steps of the group."""
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
@@ -265,7 +282,10 @@ class DecodeGraphs:
             # group's first step writes, from the same operands
             side.wait_stream(cur)
             with torch.cuda.stream(side):
+                before = None if census is None else census.clone()
                 body(buffers, 1, lrows)
+                if census is not None:
+                    census.copy_(before)
             cur.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             if generator is not None:

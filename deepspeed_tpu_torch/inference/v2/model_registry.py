@@ -3,9 +3,9 @@
 Counterpart of `deepspeed_tpu/inference/v2/model_registry.py`: maps an
 architecture name to a model family's config preset and builds the ragged
 engine (`build_engine`), or builds it from an HF checkpoint
-(`build_hf_engine`, through `models/hf_loader.py`).  The port serves the
-dense families gpt2, llama, qwen2, mistral, phi, phi3, falcon, opt, bloom
-and gptneox; the reference's MoE architectures are refused by name.
+(`build_hf_engine`, through `models/hf_loader.py`).  The port serves
+every architecture the reference's registry names: gpt2, llama, qwen2,
+mistral, mixtral, qwen2_moe, phi, phi3, falcon, opt, bloom and gptneox.
 """
 from __future__ import annotations
 
@@ -23,8 +23,11 @@ ARCH_REGISTRY = {
     "llama": "llama",
     "llama_v2": "llama",
     "mistral": "mistral",
+    "mixtral": "mixtral",
     "qwen2": "qwen2",
     "qwen_v2": "qwen2",
+    "qwen_v2_moe": "qwen2_moe",
+    "qwen2_moe": "qwen2_moe",
     "phi": "phi",
     "phi3": "phi3",
     "falcon": "falcon",
@@ -33,18 +36,10 @@ ARCH_REGISTRY = {
     "gptneox": "gptneox",
 }
 
-# architectures the reference serves that the port does not carry yet:
-# the MoE families wait for MoE serving
-_NOT_PORTED = ("mixtral", "qwen_v2_moe", "qwen2_moe")
-
 
 def arch_config(arch: str, size: Optional[str] = None, **kw):
     """Architecture name -> TransformerConfig."""
     key = arch.lower()
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not carried by the PyTorch port yet "
-            f"(supported: {sorted(ARCH_REGISTRY)})")
     if key not in ARCH_REGISTRY:
         raise ValueError(f"unsupported architecture {arch!r}; supported: "
                          f"{sorted(ARCH_REGISTRY)}")

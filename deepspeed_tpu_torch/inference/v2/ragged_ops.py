@@ -55,13 +55,22 @@ Where the reference differs by nature of JAX, the port does this instead:
   generator (the distribution matches the reference, the stream does
   not).
 
-Scope: the dense families the config takes — pre-norm, post-norm and
+- Expert layers (mixtral, qwen2_moe) run the exact top-k routing of
+  `models.transformer._moe_inference` in every program, through the
+  hand-written grouped GEMM (`ops.moe_grouped`); a layer that
+  qwen2_moe's `moe_dense_layers` marks dense takes the dense MLP,
+  chosen per layer on the host (the reference computes both and keeps
+  one with a `where`: the same values).  The router census rides the
+  arena ("moe_census", `init_arena(moe_census=True)`) and the decode
+  steps add to it in place, so a captured decode group counts too.
+
+Scope: the families the config takes — pre-norm, post-norm and
 parallel-residual blocks, rope, learned or ALiBi positions, windows for
-every layer or one a layer — with plain or fp8 weights (`_dense`).  No
-grammar masks.  Tensor parallelism runs the same layer pieces (`_qkv`,
-`_mlp_delta`, `_KVSlots`, `_kernels`, `_span_plan`, `_spec_accept`,
-`decode_loop`) through `tp_ragged.py`, for the pre-norm sequential
-blocks without windows or ALiBi.
+every layer or one a layer, expert layers — with plain or fp8 weights
+(`_dense`).  No grammar masks.  Tensor parallelism runs the same layer
+pieces (`_qkv`, `_mlp_delta`, `_KVSlots`, `_kernels`, `_span_plan`,
+`_spec_accept`, `decode_loop`) through `tp_ragged.py`, for the pre-norm
+sequential dense blocks without windows or ALiBi.
 """
 from __future__ import annotations
 
@@ -92,8 +101,8 @@ __all__ = ["init_arena", "prefill_chunks", "prefill_full",
 
 
 def init_arena(cfg: TransformerConfig, num_blocks: int, block_size: int,
-               device, merged="auto", kv_heads: int = None
-               ) -> Dict[str, torch.Tensor]:
+               device, merged="auto", kv_heads: int = None,
+               moe_census: bool = False) -> Dict[str, torch.Tensor]:
     """Zeroed KV arena {"k", "v"} in cfg.dtype on `device`, each
     [L, num_blocks, block_size, NKV, D], or [L, num_blocks, block_size,
     NKV*D] with merged=True; `kv_heads` overrides NKV (a tensor-parallel
@@ -101,7 +110,11 @@ def init_arena(cfg: TransformerConfig, num_blocks: int, block_size: int,
     the TPU's 128-lane padding of a narrow head dim; a GPU pads nothing,
     so "auto" keeps the 5-D layout here, and merged=True stores the same
     bytes under the reference's merged shape (the serving functions
-    branch on the arena's rank, as the reference's do)."""
+    branch on the arena's rank, as the reference's do).  moe_census=True
+    adds the router-census rider "moe_census" [L, E+1] int32: each
+    layer's routed-assignment counts per expert and, in the last column,
+    the assignments rerouted off non-resident experts.  The decode steps
+    add to it in place; prefill and verify spans leave it as it is."""
     if merged not in ("auto", False, True):
         raise ValueError(f"merged must be 'auto', False or True, got "
                          f"{merged!r}")
@@ -109,8 +122,17 @@ def init_arena(cfg: TransformerConfig, num_blocks: int, block_size: int,
     shape = (cfg.num_layers, num_blocks, block_size, nkv, cfg.head_dim)
     if merged is True:
         shape = shape[:3] + (nkv * cfg.head_dim,)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    arena = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    if moe_census:
+        if cfg.moe_experts <= 1:
+            raise ValueError(
+                "moe_census arena requested for a dense model "
+                "(moe_experts <= 1 has no router to count)")
+        arena["moe_census"] = torch.zeros(
+            (cfg.num_layers, cfg.moe_experts + 1), dtype=torch.int32,
+            device=device)
+    return arena
 
 
 # ----------------------------------------------------------------------
@@ -270,8 +292,10 @@ def _attn_out(cfg: TransformerConfig, lp, li: int, attn, lora, rows):
 # layer math (the dense and MLP pieces are the model module's)
 # ----------------------------------------------------------------------
 def _mlp_delta(cfg: TransformerConfig, x, lp, col=_dense, row=_dense):
-    """pre-norm -> MLP of `x`, without the residual add (`col` / `row`:
-    the projections, as in `_mlp_block`)."""
+    """pre-norm -> dense MLP of `x`, without the residual add (`col` /
+    `row`: the projections, as in `_mlp_block`): the tensor-parallel
+    programs' MLP, which refuse expert layers (the single-device
+    programs run `_block_out`, whose `_ffn` routes them)."""
     h = _norm(x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"), cfg.norm,
               cfg.norm_eps)
     return _mlp_block(cfg, lp, h, col, row)
@@ -374,7 +398,7 @@ def _chunk_layers(cfg: TransformerConfig, params, arena, tokens, positions,
                              sliding_window=window, layer_idx=li,
                              alibi_slopes=slopes)
         x = _block_out(cfg, lp, x, _attn_out(
-            cfg, lp, li, attn.reshape(NC * C, NH * D), lora, rows))
+            cfg, lp, li, attn.reshape(NC * C, NH * D), lora, rows), li)
     return x
 
 
@@ -467,7 +491,7 @@ def prefill_full(cfg: TransformerConfig, params, arena, tokens, lens,
                     v.reshape(NS * S, *v.shape[2:]))
         attn = causal_attention(q, k, v, plain=cfg.attn_impl == "jnp")
         x = _block_out(cfg, lp, x, _dense(attn.reshape(NS * S, NH * D),
-                                          lp["wo"], lp.get("bo")))
+                                          lp["wo"], lp.get("bo")), li)
 
     last = np.clip(lens - 1, 0, S - 1)
     xl = x.reshape(NS, S, H)[_dev(np.arange(NS), dev), _dev(last, dev)]
@@ -480,12 +504,16 @@ def _decode_layers(cfg: TransformerConfig, params, arena, tokens, pos_t,
     and positions `pos_t` [B], block tables `tables_t` [B, MB] int32, the
     kernel's `lens_t` [B] int32 (< 0: a row that is not live), `slots`
     (a `_KVSlots` or `_GroupSlots`: where the rows write K/V), `rows` (a
-    `LoraRows`) with `lora`.  Returns (logits [B, V] f32, arena)."""
+    `LoraRows`) with `lora`.  An arena with the "moe_census" rider takes
+    every row's router counts of every expert layer, added in place (all
+    B rows, as the reference's decode core counts them).  Returns (logits
+    [B, V] f32, arena)."""
     B = pos_t.shape[0]
     NH, D = cfg.num_heads, cfg.head_dim
     x = _embed(cfg, params, tokens.long(), pos_t)                  # [B, H]
     attend = _kernels(cfg, arena)[0]
     slopes = _slopes(cfg, x.device)
+    census = arena.get("moe_census")
     for li, window in enumerate(layer_windows(cfg)):
         lp = _layer(params, li)
         q, k, v = _qkv(cfg, lp, x, (B,), pos_t)
@@ -494,7 +522,7 @@ def _decode_layers(cfg: TransformerConfig, params, arena, tokens, pos_t,
                       layer_idx=li, sliding_window=window,
                       alibi_slopes=slopes)
         x = _block_out(cfg, lp, x, _attn_out(
-            cfg, lp, li, attn.reshape(B, NH * D), lora, rows))
+            cfg, lp, li, attn.reshape(B, NH * D), lora, rows), li, census)
     return _lm_logits(cfg, params, x), arena
 
 

@@ -24,8 +24,8 @@ __all__ = ["params_from_jax", "opt_state_from_jax", "shard_params_tp",
 # the tp axis splits: column-parallel leaves (q/k/v, MLP up/gate and their
 # biases) on their output dim, row-parallel ones (attention out, MLP down)
 # on their input dim, the embedding and lm head on the vocabulary.  Every
-# other leaf is replicated.  (The MoE rules are left out: the port refuses
-# MoE layers.)
+# other leaf is replicated.  (The MoE rules are left out: the fused ring
+# refuses MoE layers, as the reference's does.)
 TP_SPLIT_DIMS = {
     "wq": 2, "wk": 2, "wv": 2, "bq": 1, "bk": 1, "bv": 1,
     "w_up": 2, "w_gate": 2, "b_up": 1,
@@ -85,13 +85,44 @@ def fp8_leaf(w: Dict, device) -> Dict:
             scale_key: s.to(device=device, dtype=torch.float32)}
 
 
+def _moe_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
+    """The MoE leaves an MoE config's layers carry, by key, with their
+    stacked shapes (the reference's `init_params`): the router, the
+    expert stacks, qwen2-moe's shared expert and the dense MLP of a
+    dense-interleaved stack; {} for a dense config."""
+    if cfg.moe_experts <= 1:
+        return {}
+    L, H, E, F = (cfg.num_layers, cfg.hidden_size, cfg.moe_experts,
+                  cfg.ffn_dim)
+    swiglu = cfg.activation == "swiglu"
+    out = {"moe_gate": (L, H, E), "moe_w_up": (L, E, H, F),
+           "moe_w_down": (L, E, F, H)}
+    if swiglu:
+        out["moe_w_gate_proj"] = (L, E, H, F)
+    if cfg.moe_shared_expert_ffn:
+        Fs = cfg.moe_shared_expert_ffn
+        out.update(moe_shared_w_up=(L, H, Fs), moe_shared_w_down=(L, Fs, H),
+                   moe_shared_gate=(L, H))
+        if swiglu:
+            out["moe_shared_w_gate_proj"] = (L, H, Fs)
+    if cfg.moe_dense_layers is not None:
+        Fd = cfg.dense_intermediate_size or F
+        out.update(w_up=(L, H, Fd), w_down=(L, Fd, H))
+        if swiglu:
+            out["w_gate"] = (L, H, Fd)
+    return out
+
+
 def params_from_jax(np_tree: Dict, cfg: TransformerConfig, device,
                     dtype: torch.dtype = None) -> Dict:
     """Convert a JAX parameter tree of numpy arrays to torch tensors on
     `device` in `dtype` (default `cfg.dtype`), keeping every key; the fp8
     serving-weight dicts of `layers` keep their 1-byte codes and f32
     scales (`fp8_leaf`).  Raises on a leaf whose shape disagrees with
-    `cfg`'s stacked layout."""
+    `cfg`'s stacked layout: the attention projections, the embedding and
+    head leaves, and on an MoE config its router, expert stacks, shared
+    expert and dense-interleaved MLP (`_moe_shapes`), each of which must
+    be there."""
     dtype = dtype or cfg.dtype
     out: Dict = {}
     for key, val in np_tree.items():
@@ -111,7 +142,10 @@ def params_from_jax(np_tree: Dict, cfg: TransformerConfig, device,
             "wk": (L, H, cfg.kv_heads * cfg.head_dim),
             "wv": (L, H, cfg.kv_heads * cfg.head_dim),
             "wo": (L, cfg.num_heads * cfg.head_dim, H)}
+    want.update(_moe_shapes(cfg))
     for k, shape in want.items():
+        if k not in out["layers"]:
+            raise ValueError(f"layers.{k} is missing: config wants {shape}")
         leaf = out["layers"][k]
         got = tuple((leaf["q_codes"] if isinstance(leaf, dict)
                      else leaf).shape)

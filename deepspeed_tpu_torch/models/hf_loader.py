@@ -10,7 +10,10 @@ post-norm and embedding-projection variant), gpt_neox (per-head qkv
 interleave), bloom (embedding layernorm, ALiBi, per-head qkv interleave)
 and falcon (the 7b multi-query and the classic rw fused qkv layouts, and
 the new-decoder-architecture groups; Falcon-RW's ALiBi before the score
-scale).  mixtral and qwen2_moe, dynamic RoPE, yarn with truncate=False
+scale), mixtral (per-expert w1/w3/w2 stacked into the expert leaves) and
+qwen2_moe (the shared expert behind its sigmoid gate, `norm_topk_prob`,
+and the dense layers that `mlp_only_layers` and `decoder_sparse_step`
+mark, as `moe_dense_layers`).  Dynamic RoPE, yarn with truncate=False
 and phi's qk_layernorm raise `NotImplementedError` by name.
 
 The HF state dict is converted once into the reference's stacked layout
@@ -37,9 +40,6 @@ from .transformer import Transformer, TransformerConfig
 
 __all__ = ["load_hf_model", "hf_to_config", "convert_state_dict",
            "SUPPORTED_MODEL_TYPES"]
-
-# model types the reference converts that the port does not serve yet
-NOT_PORTED = ("mixtral", "qwen2_moe")
 
 
 def _to_np(sd) -> Dict[str, np.ndarray]:
@@ -158,10 +158,6 @@ def _convert_rope_scaling(c):
 def hf_to_config(c, dtype=None, **overrides) -> TransformerConfig:
     """HF PretrainedConfig -> TransformerConfig (per model_type)."""
     mt = c.model_type
-    if mt in NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type {mt!r} is not carried by the PyTorch port yet "
-            f"(supported: {sorted(SUPPORTED_MODEL_TYPES)})")
     if mt == "gpt2":
         kw = dict(vocab_size=c.vocab_size, hidden_size=c.n_embd,
                   num_layers=c.n_layer, num_heads=c.n_head,
@@ -199,6 +195,55 @@ def hf_to_config(c, dtype=None, **overrides) -> TransformerConfig:
                                   if mt in ("mistral", "phi3")
                                   else homogeneous_window),
                   sliding_window_layers=qwen2_windows)
+    elif mt == "mixtral":
+        kw = dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+                  num_layers=c.num_hidden_layers,
+                  num_heads=c.num_attention_heads,
+                  num_kv_heads=c.num_key_value_heads,
+                  intermediate_size=c.intermediate_size,
+                  max_seq_len=c.max_position_embeddings, pos_emb="rope",
+                  rope_theta=getattr(c, "rope_theta", 10000.0),
+                  rope_scaling=_convert_rope_scaling(c),
+                  norm="rmsnorm", activation="swiglu", tie_embeddings=False,
+                  norm_eps=c.rms_norm_eps,
+                  moe_experts=c.num_local_experts,
+                  moe_top_k=c.num_experts_per_tok,
+                  moe_norm_topk_prob=True)
+    elif mt == "qwen2_moe":
+        rope_scaling = _convert_rope_scaling(c)
+        if getattr(c, "use_sliding_window", False):
+            moe_window, moe_windows = _qwen2_window_stack(c)
+        else:
+            moe_window, moe_windows = None, None
+        # HF layer i is an expert layer iff i is not in mlp_only_layers
+        # and (i + 1) % decoder_sparse_step == 0 (Qwen2MoeDecoderLayer);
+        # the dense layers run a plain MLP of intermediate_size
+        mlp_only = set(getattr(c, "mlp_only_layers", None) or [])
+        dense_flags = tuple(
+            1 if (i in mlp_only or (i + 1) % c.decoder_sparse_step != 0)
+            else 0 for i in range(c.num_hidden_layers))
+        moe_dense_layers = dense_flags if any(dense_flags) else None
+        kw = dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+                  num_layers=c.num_hidden_layers,
+                  num_heads=c.num_attention_heads,
+                  num_kv_heads=c.num_key_value_heads,
+                  intermediate_size=c.moe_intermediate_size,
+                  max_seq_len=c.max_position_embeddings, pos_emb="rope",
+                  rope_theta=getattr(c, "rope_theta", 10000.0),
+                  rope_scaling=rope_scaling,
+                  norm="rmsnorm", activation="swiglu",
+                  tie_embeddings=bool(getattr(c, "tie_word_embeddings",
+                                              False)),
+                  norm_eps=c.rms_norm_eps, qkv_bias=True,
+                  sliding_window=moe_window,
+                  sliding_window_layers=moe_windows,
+                  moe_experts=c.num_experts,
+                  moe_top_k=c.num_experts_per_tok,
+                  moe_shared_expert_ffn=c.shared_expert_intermediate_size,
+                  moe_norm_topk_prob=bool(c.norm_topk_prob),
+                  moe_dense_layers=moe_dense_layers,
+                  dense_intermediate_size=(c.intermediate_size
+                                           if moe_dense_layers else None))
     elif mt == "opt":
         post_norm = not getattr(c, "do_layer_norm_before", True)
         # the top-level final_layer_norm exists only for the pre-norm
@@ -344,6 +389,112 @@ def _load_llama_family(cfg: TransformerConfig, sd, hf_config=None) -> Dict:
         layers["bq"] = _stk(sd, p + "self_attn.q_proj.bias", L)
         layers["bk"] = _stk(sd, p + "self_attn.k_proj.bias", L)
         layers["bv"] = _stk(sd, p + "self_attn.v_proj.bias", L)
+    out = {
+        "tok_embed": sd["model.embed_tokens.weight"],
+        "layers": layers,
+        "final_norm_scale": sd["model.norm.weight"],
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = sd["lm_head.weight"].T
+    return out
+
+
+def _load_mixtral(cfg: TransformerConfig, sd, hf_config=None) -> Dict:
+    """mixtral: each layer's experts' w1 (gate), w3 (up) and w2 (down)
+    stacked into the [L, E, in, out] expert leaves."""
+    L, E = cfg.num_layers, cfg.moe_experts
+    p = "model.layers.{}."
+
+    def experts(which):
+        return np.stack([
+            np.stack([sd[p.format(i)
+                         + f"block_sparse_moe.experts.{e}.{which}.weight"].T
+                      for e in range(E)]) for i in range(L)])
+
+    layers = {
+        "attn_norm_scale": _stk(sd, p + "input_layernorm.weight", L),
+        "mlp_norm_scale": _stk(sd, p + "post_attention_layernorm.weight", L),
+        "wq": _stk_t(sd, p + "self_attn.q_proj.weight", L),
+        "wk": _stk_t(sd, p + "self_attn.k_proj.weight", L),
+        "wv": _stk_t(sd, p + "self_attn.v_proj.weight", L),
+        "wo": _stk_t(sd, p + "self_attn.o_proj.weight", L),
+        "moe_gate": _stk_t(sd, p + "block_sparse_moe.gate.weight", L),
+        "moe_w_gate_proj": experts("w1"),
+        "moe_w_up": experts("w3"),
+        "moe_w_down": experts("w2"),
+    }
+    return {
+        "tok_embed": sd["model.embed_tokens.weight"],
+        "layers": layers,
+        "final_norm_scale": sd["model.norm.weight"],
+        "lm_head": sd["lm_head.weight"].T,
+    }
+
+
+def _load_qwen2_moe(cfg: TransformerConfig, sd, hf_config=None) -> Dict:
+    """qwen2_moe: the experts stacked as mixtral's, the shared expert and
+    its gate row; the layers `moe_dense_layers` marks carry the dense MLP
+    and zeros in the expert leaves (and the expert layers zeros in the
+    dense leaves), as the reference's loader fills them."""
+    L, E = cfg.num_layers, cfg.moe_experts
+    p = "model.layers.{}."
+    dense = list(cfg.moe_dense_layers or (0,) * L)
+    H = cfg.hidden_size
+    Fm = cfg.intermediate_size
+    Fs = cfg.moe_shared_expert_ffn
+
+    def experts(which):
+        def one(i):
+            if dense[i]:
+                shp = ((E, H, Fm) if which != "down_proj" else (E, Fm, H))
+                return np.zeros(shp, np.float32)
+            return np.stack([
+                sd[p.format(i) + f"mlp.experts.{e}.{which}.weight"].T
+                for e in range(E)])
+        return np.stack([one(i) for i in range(L)])
+
+    def moe_only(fmt, shape):
+        return np.stack([np.zeros(shape, np.float32) if dense[i]
+                         else np.asarray(sd[fmt.format(i)]).T
+                         for i in range(L)])
+
+    def dense_only(which, shape):
+        return np.stack([
+            np.asarray(sd[p.format(i) + f"mlp.{which}.weight"]).T
+            if dense[i] else np.zeros(shape, np.float32)
+            for i in range(L)])
+
+    layers = {
+        "attn_norm_scale": _stk(sd, p + "input_layernorm.weight", L),
+        "mlp_norm_scale": _stk(sd, p + "post_attention_layernorm.weight", L),
+        "wq": _stk_t(sd, p + "self_attn.q_proj.weight", L),
+        "wk": _stk_t(sd, p + "self_attn.k_proj.weight", L),
+        "wv": _stk_t(sd, p + "self_attn.v_proj.weight", L),
+        "bq": _stk(sd, p + "self_attn.q_proj.bias", L),
+        "bk": _stk(sd, p + "self_attn.k_proj.bias", L),
+        "bv": _stk(sd, p + "self_attn.v_proj.bias", L),
+        "wo": _stk_t(sd, p + "self_attn.o_proj.weight", L),
+        "moe_gate": moe_only(p + "mlp.gate.weight", (H, E)),
+        "moe_w_gate_proj": experts("gate_proj"),
+        "moe_w_up": experts("up_proj"),
+        "moe_w_down": experts("down_proj"),
+        "moe_shared_w_gate_proj": moe_only(
+            p + "mlp.shared_expert.gate_proj.weight", (H, Fs)),
+        "moe_shared_w_up": moe_only(
+            p + "mlp.shared_expert.up_proj.weight", (H, Fs)),
+        "moe_shared_w_down": moe_only(
+            p + "mlp.shared_expert.down_proj.weight", (Fs, H)),
+        "moe_shared_gate": np.stack([
+            np.zeros((H,), np.float32) if dense[i]
+            else np.asarray(sd[p.format(i)
+                               + "mlp.shared_expert_gate.weight"])[0, :]
+            for i in range(L)]),
+    }
+    if any(dense):
+        Fd = cfg.dense_intermediate_size
+        layers["w_gate"] = dense_only("gate_proj", (H, Fd))
+        layers["w_up"] = dense_only("up_proj", (H, Fd))
+        layers["w_down"] = dense_only("down_proj", (Fd, H))
     out = {
         "tok_embed": sd["model.embed_tokens.weight"],
         "layers": layers,
@@ -653,6 +804,8 @@ _LOADERS: Dict[str, Callable] = {
     "llama": _load_llama_family,
     "mistral": _load_llama_family,
     "qwen2": _load_llama_family,
+    "mixtral": _load_mixtral,
+    "qwen2_moe": _load_qwen2_moe,
     "phi3": _load_phi3,
     "phi": _load_phi,
     "opt": _load_opt,
@@ -673,10 +826,6 @@ def convert_state_dict(cfg: TransformerConfig, model_type: str,
                        state_dict, hf_config=None) -> Dict:
     """HF state dict (torch tensors or arrays) -> stacked-layer params,
     f32 torch tensors on the CPU."""
-    if model_type in NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type {model_type!r} is not carried by the PyTorch port "
-            f"yet (supported: {sorted(SUPPORTED_MODEL_TYPES)})")
     if model_type not in _LOADERS:
         raise ValueError(f"unsupported model_type {model_type!r}; supported: "
                          f"{sorted(SUPPORTED_MODEL_TYPES)}")

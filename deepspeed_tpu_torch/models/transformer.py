@@ -6,8 +6,11 @@ leading layer dim (`layers.wq` is `[L, H, NH*D]`, in-first), so a JAX
 checkpoint converts without a transpose (`models/convert.py`).  Where the
 reference scans over that dim, the port loops over it in Python.
 
-Scope: the dense families gpt2, llama, qwen2, mistral, phi, phi3,
-falcon, opt, bloom and gptneox — rope (partial, and scaled: linear,
+Scope: the families gpt2, llama, qwen2, mistral, phi, phi3, falcon,
+opt, bloom and gptneox, and the expert layers of mixtral and qwen2_moe
+(exact top-k routing through the hand-written grouped GEMM,
+`_moe_inference`, with qwen2_moe's shared expert and dense-interleaved
+stacks) — rope (partial, and scaled: linear,
 llama3, yarn and phi3's longrope), learned or ALiBi positions, rmsnorm or
 layernorm, swiglu, gelu or relu, GQA and MQA, qkv/output biases and the
 lm-head bias, sliding windows (one for every layer, or one a layer),
@@ -16,13 +19,14 @@ GPT-NeoX) blocks, embedding norms and projections, and fp8 serving
 weights (`quantize_serving_weights`: e4m3 codes with per-column or
 per-group f32 scales, which `_dense` takes).  The config refuses
 the features the port does not carry yet, by name, at construction
-(`NotImplementedError`): MoE layers, dropout, tiled MLPs.
+(`NotImplementedError`): dropout, tiled MLPs.
 
 Training (`_forward`, `_lm_loss`, `Transformer.loss_fn`) runs the same
 layer math with autograd (the pre-norm sequential block with rope or
 learned positions, no window and a head dim the flash backward takes;
 `training_refusal` names the rest, whose
-plain forward runs on the CPU only): attention through the differentiable
+plain forward runs on the CPU only; expert layers are not trained at all,
+and `Transformer.forward` refuses them): attention through the differentiable
 flash op (`ops/attention.causal_attention`), each layer optionally under a
 checkpoint with a named remat policy (`runtime/activation_checkpointing`),
 and the loss optionally through the tiled fused logits+loss
@@ -44,7 +48,8 @@ import torch.nn.functional as F
 from ..ops.flash_attention import BWD_HEAD_DIMS
 
 __all__ = ["TransformerConfig", "Transformer", "gpt2_config",
-           "llama_config", "qwen2_config", "mistral_config", "phi_config",
+           "llama_config", "qwen2_config", "mistral_config",
+           "mixtral_config", "qwen2_moe_config", "phi_config",
            "phi3_config", "falcon_config", "opt_config", "bloom_config",
            "gptneox_config", "init_params", "dense_f32", "alibi_slopes",
            "layer_windows", "training_refusal", "rope_tables",
@@ -100,7 +105,22 @@ class TransformerConfig:
     # CPU); jnp: the plain versions on every device (what both engines'
     # `plain_kernels=True` selects, for comparisons on the card)
     attn_impl: str = "auto"
-    moe_experts: int = 1                        # >1 refused
+    # mixture-of-experts (served by exact top-k routing, `_moe_inference`;
+    # training refused by `training_refusal`): >1 turns every layer's MLP
+    # into a top-k gated expert layer (Mixtral-style)
+    moe_experts: int = 1
+    moe_top_k: int = 2
+    # qwen2-moe's always-on shared expert of this width behind a sigmoid
+    # gate (0: none)
+    moe_shared_expert_ffn: int = 0
+    # normalize the selected top-k gate probs to sum to 1 (mixtral: True,
+    # HF qwen2-moe default: False)
+    moe_norm_topk_prob: bool = True
+    # qwen2-moe dense-interleaved stacks (mlp_only_layers /
+    # decoder_sparse_step): 1 = a plain dense MLP of
+    # `dense_intermediate_size` instead of the expert layer, num_layers long
+    moe_dense_layers: Optional[Tuple[int, ...]] = None
+    dense_intermediate_size: Optional[int] = None
     tiled_mlp_shards: int = 1                   # >1 refused
     tiled_loss_shards: int = 1      # >1: fused logits+loss, no [B,S,V]
 
@@ -108,8 +128,6 @@ class TransformerConfig:
         refused = []
         if self.pos_emb not in ("learned", "rope", "alibi", "none"):
             raise ValueError(f"unknown pos_emb {self.pos_emb!r}")
-        if self.moe_experts > 1:
-            refused.append("mixture-of-experts layers")
         if self.dropout:
             refused.append("dropout")
         if self.tiled_mlp_shards > 1:
@@ -117,8 +135,9 @@ class TransformerConfig:
         if refused:
             raise NotImplementedError(
                 f"the PyTorch port does not carry {', '.join(refused)} yet "
-                f"(scope: the dense gpt2/llama/qwen2/mistral/phi/phi3/"
-                f"falcon/opt/bloom/gptneox blocks)")
+                f"(scope: the gpt2/llama/qwen2/mistral/phi/phi3/falcon/"
+                f"opt/bloom/gptneox blocks and the mixtral/qwen2_moe "
+                f"expert layers)")
         # the reference's own checks of the block features
         if self.sliding_window_layers is not None:
             if len(self.sliding_window_layers) != self.num_layers:
@@ -130,7 +149,31 @@ class TransformerConfig:
                 raise ValueError(
                     "set either sliding_window (homogeneous) or "
                     "sliding_window_layers (per-layer), not both")
-        if self.post_norm and self.parallel_residual:
+        if self.parallel_residual and self.moe_experts > 1:
+            raise ValueError(
+                "parallel_residual (falcon/neox/phi block) with MoE is not "
+                "supported")
+        if self.moe_dense_layers is not None:
+            if self.moe_experts <= 1:
+                raise ValueError(
+                    "moe_dense_layers requires moe_experts > 1 (it marks "
+                    "which layers of an MoE stack are dense)")
+            if len(self.moe_dense_layers) != self.num_layers:
+                raise ValueError(
+                    f"moe_dense_layers has {len(self.moe_dense_layers)} "
+                    f"entries for {self.num_layers} layers")
+            if self.dense_intermediate_size is None:
+                raise ValueError(
+                    "moe_dense_layers needs dense_intermediate_size (the "
+                    "dense layers' FFN width — usually different from the "
+                    "per-expert moe width)")
+        if self.moe_shared_expert_ffn and self.moe_experts <= 1:
+            raise ValueError(
+                "moe_shared_expert_ffn requires moe_experts > 1 (the shared "
+                "expert runs alongside routed experts; a dense model would "
+                "silently ignore it)")
+        if self.post_norm and (self.parallel_residual
+                               or self.moe_experts > 1):
             raise ValueError(
                 "post_norm (OPT-350m block) supports only the sequential "
                 "dense block")
@@ -234,6 +277,44 @@ def mistral_config(size: str = "7b", **kw) -> TransformerConfig:
     }
     base = dict(pos_emb="rope", norm="rmsnorm", activation="swiglu",
                 tie_embeddings=False, vocab_size=32000)
+    base.update(presets[size])
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def mixtral_config(size: str = "8x7b", **kw) -> TransformerConfig:
+    presets = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=8,
+                     num_kv_heads=2, max_seq_len=512, moe_experts=4,
+                     moe_top_k=2),
+        "8x7b": dict(hidden_size=4096, num_layers=32, num_heads=32,
+                     num_kv_heads=8, intermediate_size=14336,
+                     max_seq_len=8192, moe_experts=8, moe_top_k=2),
+    }
+    base = dict(pos_emb="rope", norm="rmsnorm", activation="swiglu",
+                tie_embeddings=False, vocab_size=32000)
+    base.update(presets[size])
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def qwen2_moe_config(size: str = "a2.7b", **kw) -> TransformerConfig:
+    """Qwen2-MoE: routed experts with a small per-expert FFN plus an
+    always-on shared expert behind a sigmoid gate."""
+    presets = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=8,
+                     num_kv_heads=4, max_seq_len=512, vocab_size=1024,
+                     intermediate_size=128, moe_experts=4, moe_top_k=2,
+                     moe_shared_expert_ffn=256),
+        # Qwen1.5-MoE-A2.7B geometry
+        "a2.7b": dict(hidden_size=2048, num_layers=24, num_heads=16,
+                      num_kv_heads=16, intermediate_size=1408,
+                      max_seq_len=8192, vocab_size=151936, moe_experts=60,
+                      moe_top_k=4, moe_shared_expert_ffn=5632),
+    }
+    base = dict(pos_emb="rope", norm="rmsnorm", activation="swiglu",
+                tie_embeddings=False, qkv_bias=True, rope_theta=1000000.0,
+                moe_norm_topk_prob=False)
     base.update(presets[size])
     base.update(kw)
     return TransformerConfig(**base)
@@ -373,13 +454,16 @@ def training_refusal(cfg: TransformerConfig) -> Optional[str]:
     """What of `cfg` the port's training path does not carry, by name, or
     None: the flash kernels take no ALiBi bias and no window, the
     backward kernels no head dim but 32, 64 and 128, and the post-norm
-    and parallel-residual blocks are left to the same slice."""
+    and parallel-residual blocks are left to the same slice.  Expert
+    layers train in the reference through the capacity-limited dispatch
+    of `moe/sharded.py`, which the port does not carry."""
     names = [n for n, on in (
         ("alibi", cfg.pos_emb == "alibi"),
         ("sliding windows", cfg.sliding_window is not None
          or cfg.sliding_window_layers is not None),
         ("post_norm blocks", cfg.post_norm),
         ("parallel residual blocks", cfg.parallel_residual),
+        ("mixture-of-experts layers", cfg.moe_experts > 1),
         (f"head dim {cfg.head_dim}",
          cfg.head_dim not in BWD_HEAD_DIMS)) if on]
     if not names:
@@ -436,7 +520,31 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         layers["bq"] = zeros((L, NH * D))
         layers["bk"] = zeros((L, NKV * D))
         layers["bv"] = zeros((L, NKV * D))
-    if cfg.activation == "swiglu":
+    if cfg.moe_experts > 1:
+        # the reference's MoE leaves, keys and shapes
+        E = cfg.moe_experts
+        layers["moe_gate"] = rnd((L, H, E))
+        layers["moe_w_up"] = rnd((L, E, H, Fd))
+        layers["moe_w_down"] = rnd((L, E, Fd, H), scale=out_scale)
+        if cfg.activation == "swiglu":
+            layers["moe_w_gate_proj"] = rnd((L, E, H, Fd))
+        if cfg.moe_dense_layers is not None:
+            Fdn = cfg.dense_intermediate_size or Fd
+            layers["w_up"] = rnd((L, H, Fdn))
+            layers["w_down"] = rnd((L, Fdn, H), scale=out_scale)
+            if cfg.activation == "swiglu":
+                layers["w_gate"] = rnd((L, H, Fdn))
+            else:
+                layers["b_up"] = zeros((L, Fdn))
+                layers["b_down"] = zeros((L, H))
+        if cfg.moe_shared_expert_ffn:
+            Fs = cfg.moe_shared_expert_ffn
+            layers["moe_shared_w_up"] = rnd((L, H, Fs))
+            layers["moe_shared_w_down"] = rnd((L, Fs, H), scale=out_scale)
+            if cfg.activation == "swiglu":
+                layers["moe_shared_w_gate_proj"] = rnd((L, H, Fs))
+            layers["moe_shared_gate"] = rnd((L, H))
+    elif cfg.activation == "swiglu":
         layers["w_gate"] = rnd((L, H, Fd))
         layers["w_up"] = rnd((L, H, Fd))
         layers["w_down"] = rnd((L, Fd, H), scale=out_scale)
@@ -772,6 +880,181 @@ def _mlp_block(cfg: TransformerConfig, lp, h, col=_dense, row=_dense):
     return row(h, lp["w_down"], lp.get("b_down"))
 
 
+def _shared_expert(cfg: TransformerConfig, lp, h):
+    """qwen2-moe's always-on shared expert of the normed rows `h` [N, H],
+    scaled by a per-token sigmoid gate of an f32 dot, cast to the
+    activation dtype before the product (the reference's)."""
+    dt = h.dtype
+    u = _dense(h, lp["moe_shared_w_up"])
+    if cfg.activation == "swiglu":
+        act = F.silu(_dense(h, lp["moe_shared_w_gate_proj"])) * u
+    else:
+        act = _act_fn(cfg.activation)(u)
+    out = _dense(act, lp["moe_shared_w_down"])
+    gate = h.float() @ lp["moe_shared_gate"].float()
+    return out * torch.sigmoid(gate)[..., None].to(dt)
+
+
+def _sorted_slots(gids, G: int):
+    """Where each token-expert assignment lands when the assignments are
+    sorted by group, stably (the reference's `argsort(gids, stable=True)`
+    over the flattened [T, k] ids), computed without a sort: a token picks
+    k distinct groups, so assignment (t, j) sits at offsets[g] + the
+    number of earlier tokens in group g.  gids: [T, k] int64 on the
+    device.  Returns (pos [T, k] int64, offsets [G+1] int32): the group
+    sizes are a column sum of the [T, G] pick matrix, so nothing is read
+    on the host and nothing is summed by atomics."""
+    T, k = gids.shape
+    pick = torch.zeros(T, G, dtype=torch.int32, device=gids.device)
+    pick.scatter_(1, gids, 1)
+    sizes = pick.sum(dim=0, dtype=torch.int32)
+    offsets = torch.zeros(G + 1, dtype=torch.int32, device=gids.device)
+    offsets[1:] = torch.cumsum(sizes, dim=0, dtype=torch.int32)
+    before = torch.cumsum(pick, dim=0, dtype=torch.int32) - pick   # [T, G]
+    pos = offsets[gids] + before.gather(1, gids)
+    return pos.long(), offsets
+
+
+def _in_group_order(pos, gids):
+    """Each token's k sorted positions in ascending group order ([T, k]):
+    the rank of pick j among its token's k distinct groups, then a
+    scatter to that rank (no sort kernel)."""
+    rank = (gids[:, None, :] < gids[:, :, None]).sum(dim=-1)          # [T, k]
+    return torch.zeros_like(pos).scatter_(1, rank, pos)
+
+
+def _moe_inference(cfg: TransformerConfig, lp, h, with_census=False):
+    """Exact top-k MoE of the normed rows `h` [..., H] (the reference's,
+    for serving): no capacity and no dropping, so each token's output
+    depends on its own routing only.
+
+    - softmax over the f32 router logits, then the top k; the combine
+      weights are the selected probabilities, normalised over the k only
+      when `cfg.moe_norm_topk_prob` is set;
+    - the assignments sorted stably by expert id (by slot id when `lp`
+      carries the expert pages, `moe_slot_map` / `moe_resident_mask`):
+      `_sorted_slots`, with no sort and no read on the host;
+    - the three grouped products (gate, up, down for swiglu) through
+      `ops.moe_grouped.grouped_matmul` with f32 results, in the
+      reference's casts: `up` rounded to the dtype, the gate kept f32
+      through SiLU;
+    - the combine in f32: each token's k weighted products gathered back
+      and added in sorted-group order, the order the reference's
+      `.at[].add` walks (no float atomics, so reruns are equal); then
+      the shared expert where the config has one.
+
+    Paged layers (`serving.experts.ExpertPool`): the router logits of
+    non-resident experts are masked to -1e30 before the softmax, so their
+    tokens fall to the best resident expert, and the products run over the
+    slot stacks `moe_*_slots` [S, ...].  torch.topk's order among tied
+    values is not jax.lax.top_k's (lower index first), and only masked
+    logits tie: that cannot bite while at least k experts are resident,
+    which the pool enforces (`slots_per_layer >= top_k`).
+
+    with_census: also return the [E+1] int32 census row — each expert's
+    count of the assignments the router wanted (the unmasked top k), and
+    in the last column the assignments rerouted off non-resident
+    experts."""
+    from ..ops.moe_grouped import grouped_matmul, grouped_matmul_reference
+    # attn_impl="jnp" (the engines' plain_kernels) takes the plain version
+    gmm = (grouped_matmul_reference if cfg.attn_impl == "jnp"
+           else grouped_matmul)
+    dt = h.dtype
+    lead, H = h.shape[:-1], h.shape[-1]
+    k, E = cfg.moe_top_k, cfg.moe_experts
+    xt = h.reshape(-1, H)
+    T = xt.shape[0]
+    paged = "moe_slot_map" in lp
+
+    logits = xt.float() @ lp["moe_gate"].float()                  # [T, E]
+    if paged:
+        raw_logits = logits
+        # ties among the masked logits cannot reach the top k while the
+        # pool keeps at least k experts resident (see the docstring)
+        logits = torch.where(lp["moe_resident_mask"][None, :], logits,
+                             torch.full_like(logits, -1e30))
+    gates = torch.softmax(logits, dim=-1)
+    topi = torch.topk(logits, k, dim=-1).indices                  # [T, k]
+    sel = gates.gather(1, topi)
+    if cfg.moe_norm_topk_prob:
+        weight = sel / torch.clamp_min(sel.sum(dim=1, keepdim=True), 1e-9)
+    else:
+        weight = sel
+
+    if paged:
+        # masked routing guarantees resident targets; the clamp covers
+        # only the no-resident-expert corner (the pool refuses it)
+        gids = lp["moe_slot_map"].long()[topi].clamp_min(0)
+        w_up, w_down = lp["moe_w_up_slots"], lp["moe_w_down_slots"]
+        w_gp = lp.get("moe_w_gate_proj_slots")
+    else:
+        gids = topi
+        w_up, w_down = lp["moe_w_up"], lp["moe_w_down"]
+        w_gp = lp.get("moe_w_gate_proj")
+    G = w_up.shape[0]
+    pos, offsets = _sorted_slots(gids, G)
+    flat = pos.reshape(-1)
+    # zeros, not empty: every position is written while the picks of a
+    # token are distinct, which the pool guarantees (see the clamp above)
+    token_of = torch.zeros(T * k, dtype=torch.long, device=h.device)
+    token_of[flat] = torch.arange(T * k, device=h.device) // k
+    xs = xt.index_select(0, token_of)                             # [T*k, H]
+
+    up = gmm(xs, w_up.to(dt), offsets).to(dt)
+    if cfg.activation == "swiglu":
+        g = gmm(xs, w_gp.to(dt), offsets)
+        act = F.silu(g).to(dt) * up
+    else:
+        act = _act_fn(cfg.activation)(up)
+    down = gmm(act, w_down.to(dt), offsets)                       # f32
+
+    w_sorted = torch.zeros(T * k, dtype=torch.float32, device=h.device)
+    w_sorted[flat] = weight.reshape(-1)
+    contrib = down * w_sorted[:, None]
+    order = _in_group_order(pos, gids)
+    out = contrib.index_select(0, order[:, 0])
+    for j in range(1, k):
+        out = out + contrib.index_select(0, order[:, j])
+    out = out.to(dt).reshape(*lead, H)
+    if cfg.moe_shared_expert_ffn:
+        out = out + _shared_expert(cfg, lp, h)
+    if not with_census:
+        return out
+    row = torch.zeros(E + 1, dtype=torch.int32, device=h.device)
+    if paged:
+        # count what the router wanted (the unmasked top k), so demoted
+        # experts keep accruing demand; the last column counts the
+        # assignments that had to reroute
+        wanted = torch.topk(raw_logits, k, dim=-1).indices
+        row[:E] = torch.zeros(T, E, dtype=torch.int32,
+                              device=h.device).scatter_(1, wanted, 1).sum(
+            dim=0, dtype=torch.int32)
+        row[E] = (~lp["moe_resident_mask"][wanted]).sum(dtype=torch.int32)
+    else:
+        # unpaged, each expert's group is what the router wanted of it
+        row[:E] = offsets.diff()
+    return out, row
+
+
+def _ffn(cfg: TransformerConfig, lp, h, li: int = 0, census=None):
+    """A layer's MLP of the normed rows `h`: the dense MLP, or the exact
+    top-k expert layer on an MoE config, except where
+    `cfg.moe_dense_layers[li]` marks layer `li` dense (qwen2-moe's
+    mlp_only_layers; the flag is static config, so the choice is made
+    here on the host, where the reference computes both and keeps one
+    with a `where`).  `census` ([L, E+1] int32 on the device): the
+    layer's census row is added to row `li` in place (a dense layer adds
+    none, as the reference's zero row)."""
+    if cfg.moe_experts <= 1 or (cfg.moe_dense_layers is not None
+                                and cfg.moe_dense_layers[li]):
+        return _mlp_block(cfg, lp, h)
+    if census is None:
+        return _moe_inference(cfg, lp, h)
+    out, row = _moe_inference(cfg, lp, h, with_census=True)
+    census[li].add_(row)
+    return out
+
+
 def _alibi_bias(cfg: TransformerConfig, S: int, device):
     """[1, NH, S, S] f32 additive score bias -slope (q_pos - k_pos)."""
     slopes = torch.from_numpy(alibi_slopes(cfg)).to(device)
@@ -809,11 +1092,14 @@ def _layer(cfg: TransformerConfig, x, lp, positions, window=None):
                                             lp["wo"], lp.get("bo")))
 
 
-def _block_out(cfg: TransformerConfig, lp, x, attn_out):
-    """The rest of a layer after its attention output `attn_out`, on the
-    layer's input `x` (the reference's blocks): parallel residual
+def _block_out(cfg: TransformerConfig, lp, x, attn_out, li: int = 0,
+               census=None):
+    """The rest of layer `li` after its attention output `attn_out`, on
+    the layer's input `x` (the reference's blocks): parallel residual
     (attention and MLP both read x), post-norm (a norm after each
-    residual add) or pre-norm sequential."""
+    residual add) or pre-norm sequential, whose MLP is `_ffn` (an expert
+    layer on an MoE config; the config refuses experts in the other two
+    blocks), with `census` as there."""
     def mlp_norm(h):
         return _norm(h, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"),
                      cfg.norm, cfg.norm_eps)
@@ -824,7 +1110,7 @@ def _block_out(cfg: TransformerConfig, lp, x, attn_out):
                   lp.get("attn_norm_bias"), cfg.norm, cfg.norm_eps)
         return mlp_norm(x + _mlp_block(cfg, lp, x))
     x = x + attn_out
-    return x + _mlp_block(cfg, lp, mlp_norm(x))
+    return x + _ffn(cfg, lp, mlp_norm(x), li, census)
 
 
 def _layer_params(layers, i: int) -> Dict[str, torch.Tensor]:
@@ -853,7 +1139,8 @@ def _forward(cfg: TransformerConfig, params, input_ids, positions=None,
     B, S = input_ids.shape
     dt = cfg.dtype
     refusal = training_refusal(cfg)
-    if refusal is not None and input_ids.device.type != "cpu":
+    if refusal is not None and (input_ids.device.type != "cpu"
+                                or cfg.moe_experts > 1):
         raise NotImplementedError(refusal)
     if positions is None:
         positions = torch.arange(S, device=input_ids.device)[None].expand(

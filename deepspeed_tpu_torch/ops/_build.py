@@ -26,7 +26,7 @@ __all__ = ["KERNELS", "build_all", "load", "library_path", "function",
 
 KERNELS = ("flash_fwd", "flash_bwd", "paged_decode", "paged_decode_wide",
            "paged_prefill", "lora_delta", "fused_adam8", "sparse_flash",
-           "evoformer_flash", "tile_matmul")
+           "evoformer_flash", "tile_matmul", "moe_grouped")
 # libraries built from another library's source with extra flags: the
 # paged decode's template builds at head dims 80 and 96, compiled beside
 # those at 32, 64 and 128 by a process of their own

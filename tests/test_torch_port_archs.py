@@ -23,9 +23,11 @@ and qwen2's per-layer windows, against the JAX package on the CPU.
   plain paged and attention references) and a numpy softmax.
 - The plain `Transformer` forward of each preset against the JAX
   `Transformer`'s.
-- What stays refused, by name: the MoE architectures, tensor
-  parallelism with each new block feature, training with each (and at
-  head dims 80 and 96).
+- The MoE architectures by their registry names (mixtral, qwen2_moe,
+  qwen_v2_moe) serve and match the JAX engine (tests/
+  test_torch_port_moe.py holds the rest of MoE serving).
+- What stays refused, by name: tensor parallelism with each new block
+  feature, training with each (and at head dims 80 and 96).
 """
 import functools
 
@@ -506,9 +508,40 @@ def test_plain_forward_matches_jax(name):
 # refusals by name
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ["mixtral", "qwen2_moe", "qwen_v2_moe"])
-def test_remaining_architectures_are_refused_by_name(arch):
-    with pytest.raises(NotImplementedError, match=arch):
-        build_engine(arch, "tiny", device="cpu")
+def test_moe_architectures_serve_and_match_jax(arch):
+    """The registry's MoE names build on both sides from the same
+    parameters: put/step prefill, a decode step, an 8-token greedy burst
+    and a k=4 greedy group give the JAX engine's logits and tokens."""
+    ekw = dict(ENGINE_KW, max_seqs=4)
+    je = jax_build_engine(arch, "tiny", dtype=jnp.float32,
+                          engine_config=JaxCfg(**ekw))
+    te = build_engine(arch, "tiny", params=jax.device_get(je.params),
+                      engine_config=RaggedInferenceEngineConfig(**ekw),
+                      device="cpu", dtype=torch.float32)
+    assert te.cfg.moe_experts > 1 and te.supports_moe
+    prompts = _prompts(te.cfg.vocab_size)
+    uids = list(range(len(prompts)))
+    _same(je.put(uids, prompts), te.put(uids, prompts))
+    while any(je.query(u) is None for u in uids):
+        _same(je.step(), te.step())
+    for u in uids:
+        first = int(np.argmax(je.query(u)))
+        je.state.seqs[u].generated.append(first)
+        te.state.seqs[u].generated.append(first)
+    _same(je.step(), te.step())
+    for u in uids:
+        first = int(np.argmax(je.query(u)))
+        je.state.seqs[u].generated.append(first)
+        te.state.seqs[u].generated.append(first)
+    want = je.decode_burst_step(uids=uids, n_steps=8)
+    got = te.decode_burst_step(uids=uids, n_steps=8)
+    for u in uids:
+        assert np.asarray(got[u]).tolist() == np.asarray(want[u]).tolist()
+    want = je.decode_multi_step(uids=uids, k=4)
+    got = te.decode_multi_step(uids=uids, k=4)
+    for u in uids:
+        assert got[u].tolist() == np.asarray(want[u]).tolist()
+    _same_state(je, te)
 
 
 def test_training_takes_rope_scaling():

@@ -2765,3 +2765,211 @@ def test_fp8_engine_on_the_card(card, granularity):
             for u in (10, 11):
                 np.testing.assert_allclose(a[u], b[u], rtol=1e-4,
                                            atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# MoE serving: the grouped GEMM and the expert-paged engine
+# ----------------------------------------------------------------------
+# grouped GEMM vs plain version, |kernel - plain| <= MOE_REL max|plain|:
+# both sum the same exact products (bf16 x bf16 is exact in f32) in f32,
+# in another order (the bf16 kernel sums each 32-row stage on the tensor
+# cores, then adds the stages in f32); a lost tile or a row in the wrong
+# group is O(1)
+MOE_REL = 2e-5
+# (name, M rows, G groups, K, N, group kind): the phase-1 shapes of
+# Mixtral-8x7B (top 2 of 8) and Qwen1.5-MoE-A2.7B (top 4 of 60) at decode
+# and prefill, then edges
+MOE_CASES = [
+    ("mixtral_decode_up", 16, 8, 4096, 14336, "random"),
+    ("mixtral_decode_down", 16, 8, 14336, 4096, "random"),
+    ("mixtral_prefill_up", 512, 8, 4096, 14336, "random"),
+    ("qwen_decode_up", 32, 60, 2048, 1408, "random"),
+    ("qwen_decode_down", 32, 60, 1408, 2048, "random"),
+    ("qwen_prefill_up", 1024, 60, 2048, 1408, "random"),
+    ("empty_groups", 77, 9, 256, 200, "sparse"),
+    ("one_group", 300, 6, 128, 64, "one"),
+    ("m1", 1, 4, 64, 40, "one"),
+    ("ragged_tail", 131, 3, 72, 136, "random"),
+    ("k_n_off_grain", 29, 3, 1003, 1001, "random"),
+]
+
+
+def _moe_offsets(rng, M, G, kind, device):
+    if kind == "one":
+        sizes = np.zeros(G, np.int64)
+        sizes[G // 2] = M
+    else:
+        groups = rng.randint(0, G, M)
+        if kind == "sparse":                 # every other group empty
+            groups = (groups // 2) * 2
+        sizes = np.bincount(groups, minlength=G)
+    off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    return torch.from_numpy(off).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("name,M,G,K,N,kind", MOE_CASES,
+                         ids=[c[0] for c in MOE_CASES])
+def test_grouped_matmul_kernel_matches_plain_version(card, dtype, name, M, G,
+                                                     K, N, kind):
+    from deepspeed_tpu_torch.ops import moe_grouped as tmoe
+    rng = np.random.RandomState(M + G)
+    g = torch.Generator(device="cuda").manual_seed(M * 7 + K)
+    x = _rnd(g, dtype, M, K)
+    w = _rnd(g, dtype, G, K, N)
+    off = _moe_offsets(rng, M, G, kind, "cuda")
+    n0 = tmoe.grouped_matmul.launches
+    got = tmoe.grouped_matmul(x, w, off)
+    again = tmoe.grouped_matmul(x, w, off)
+    want = tmoe.grouped_matmul_reference(x, w, off)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert tmoe.grouped_matmul.launches == n0 + 2
+    err = (got - want).abs().max().item()
+    assert err <= MOE_REL * want.abs().max().item(), err
+    assert torch.equal(got, again)
+
+
+def test_grouped_matmul_raises_on_what_the_kernel_does_not_take(card):
+    from deepspeed_tpu_torch.ops import moe_grouped as tmoe
+    x = torch.zeros(4, 8, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(2, 8, 16, device="cuda", dtype=torch.bfloat16)
+    off = torch.tensor([0, 2, 4], dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        tmoe.grouped_matmul(x, w.float(), off)
+    with pytest.raises(TypeError):
+        tmoe.grouped_matmul(x, w, off.long())
+    with pytest.raises(ValueError):
+        tmoe.grouped_matmul(x, w, off[:2])
+    with pytest.raises(ValueError):
+        tmoe.grouped_matmul(x, w.transpose(1, 2).contiguous().transpose(
+            1, 2), off)
+    with pytest.raises(ValueError):
+        tmoe.grouped_matmul(x, w, off.cpu())
+
+
+def _moe_engines(arch="qwen2_moe", num_layers=2, dtype=torch.bfloat16):
+    """A tiny MoE model (head dim 32) on the card twice, sharing its
+    weights: decode groups captured, and run eagerly."""
+    cfg = get_model_config(arch, "tiny", dtype=dtype, num_layers=num_layers)
+    ecfg = RaggedInferenceEngineConfig(**GROUP_ECFG)
+    graph = InferenceEngineV2(cfg, config=ecfg, device="cuda")
+    eager = InferenceEngineV2(cfg, params=graph.params, config=ecfg,
+                              device="cuda")
+    eager._programs.graphs = None
+    return graph, eager
+
+
+def _moe_stage(engines):
+    rng = np.random.RandomState(21)
+    V = engines[0].cfg.vocab_size
+    prompts = [rng.randint(0, V, m).astype(np.int32)
+               for m in (5, 17, 40, 23, 9, 60, 31, 2)]
+    uids = list(range(len(prompts)))
+    for eng in engines:
+        eng.put(uids, prompts, decode=False)
+        while any(eng.query(u) is None for u in uids):
+            eng.step(decode=False)
+    for u in uids:
+        first = int(np.argmax(engines[0].query(u)))
+        for eng in engines:
+            eng.state.seqs[u].generated.append(first)
+    return uids
+
+
+def test_moe_captured_groups_equal_eager_before_and_after_rebalance(card):
+    """Expert paging at S = top_k + 1 on both engines: a captured group
+    and an eager group give the same tokens, arena and census; after a
+    census-driven rebalance (slot stacks, map and mask written in place)
+    the next replay, with no new capture, gives the eager tokens again."""
+    from deepspeed_tpu_torch.ops import moe_grouped as tmoe
+    graph, eager = _moe_engines()
+    cfg = graph.cfg
+    S = cfg.moe_top_k + 1
+    pools = [e.enable_expert_paging(slots_per_layer=S)
+             for e in (graph, eager)]
+    uids = _moe_stage((graph, eager))
+    n0 = tmoe.grouped_matmul.launches
+    got = graph.decode_multi_step(uids=uids, k=4)
+    want = eager.decode_multi_step(uids=uids, k=4)
+    for u in uids:
+        assert got[u].tolist() == want[u].tolist()
+    assert _same_arena(graph, eager)
+    # 3 products a layer a step: the capture's warm-up step and the
+    # replay's 4 steps, and the eager group's 4
+    assert (tmoe.grouped_matmul.launches - n0
+            == 3 * cfg.num_layers * ((1 + 4) + 4))
+    censuses = [e.drain_moe_census() for e in (graph, eager)]
+    assert np.array_equal(censuses[0], censuses[1])
+    assert censuses[0][:, -1].sum() > 0
+    assert (censuses[0][:, :-1].sum(axis=1)
+            == cfg.moe_top_k * GROUP_ECFG["max_seqs"] * 4).all()
+    for pool in pools:
+        pool.ingest_census(censuses[0])
+    assert pools[0].rebalance() == pools[1].rebalance()
+    # and one explicit promote of a spilled expert (evicting the least
+    # recently used resident), so the slots surely change
+    spilled = next(e for e in range(cfg.moe_experts)
+                   if not pools[0].is_resident(0, e))
+    for pool in pools:
+        pool.promote(0, spilled)
+    pools[0].audit()
+    captures = graph._programs.graphs.captures
+    got = graph.decode_multi_step(uids=uids, k=4)
+    want = eager.decode_multi_step(uids=uids, k=4)
+    for u in uids:
+        assert got[u].tolist() == want[u].tolist()
+    assert graph._programs.graphs.captures == captures
+    assert _same_arena(graph, eager)
+    assert np.array_equal(graph.drain_moe_census(),
+                          eager.drain_moe_census())
+
+
+def test_moe_census_totals_on_the_card(card):
+    """Full residency (S = E) on the captured engine only: a burst and a
+    group count k assignments per row per step in every layer, none
+    rerouted, and give the unpaged eager engine's tokens."""
+    graph, eager = _moe_engines(arch="mixtral")
+    cfg = graph.cfg
+    graph.enable_expert_paging(slots_per_layer=cfg.moe_experts)
+    assert "moe_w_up" in eager.params["layers"]
+    uids = _moe_stage((graph, eager))
+    for what, kw in (("burst", dict(uids=uids, n_steps=4)),
+                     ("multi", dict(uids=uids, k=3))):
+        got, want = ((e.decode_multi_step(**kw) if what == "multi"
+                      else e.decode_burst_step(**kw))
+                     for e in (graph, eager))
+        for u in uids:
+            assert got[u].tolist() == want[u].tolist(), (what, u)
+    census = graph.drain_moe_census()
+    B = GROUP_ECFG["max_seqs"]
+    assert (census[:, :-1].sum(axis=1) == cfg.moe_top_k * B * (4 + 3)).all()
+    assert census[:, -1].sum() == 0
+
+
+def test_moe_engine_matches_plain_versions(card):
+    """f32 mixtral and qwen2_moe (a dense layer between expert layers):
+    prefill and a decode step through the kernels within 1e-4 of the
+    engine that runs the plain versions (`plain_kernels=True`)."""
+    for arch, kw in (("mixtral", {}),
+                     ("qwen2_moe", dict(moe_dense_layers=(0, 1, 0),
+                                        dense_intermediate_size=192))):
+        cfg = get_model_config(arch, "tiny", dtype=torch.float32,
+                               num_layers=3, **kw)
+        ecfg = RaggedInferenceEngineConfig(**GROUP_ECFG)
+        eng = InferenceEngineV2(cfg, config=ecfg, device="cuda")
+        plain = InferenceEngineV2(cfg, params=eng.params, config=ecfg,
+                                  device="cuda", plain_kernels=True)
+        feed = [np.arange(1, 30, dtype=np.int32),
+                (np.arange(5, 45, dtype=np.int32) * 7) % cfg.vocab_size]
+        for _ in range(2):          # the prompts, then one decode step
+            for e in (eng, plain):
+                e.put([0, 1], feed)
+                while any(e.query(u) is None for u in (0, 1)):
+                    e.step()
+            for u in (0, 1):
+                np.testing.assert_allclose(eng.query(u), plain.query(u),
+                                           rtol=1e-4, atol=1e-4)
+            feed = [np.asarray([int(np.argmax(eng.query(u)))], np.int32)
+                    for u in (0, 1)]

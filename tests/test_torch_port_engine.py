@@ -137,10 +137,10 @@ def test_build_engine_defaults_to_the_card(monkeypatch):
     dict(parallel_residual=True), dict(moe_experts=4)],
     ids=["alibi", "window", "post_norm", "parallel_residual", "moe"])
 def test_config_refuses_features_not_ported(kw):
-    """MoE layers: the config refuses them.  ALiBi, windows, post-norm
-    and parallel-residual blocks are served now; what the port does not
-    carry of them is training, which `initialize` refuses by name.  (Rope
-    scaling is carried, served and trained.)"""
+    """ALiBi, windows, post-norm and parallel-residual blocks and MoE
+    layers are served now; what the port does not carry of them is
+    training, which `initialize` refuses by name (`training_refusal`).
+    (Rope scaling is carried, served and trained.)"""
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models import Transformer
     with pytest.raises(NotImplementedError, match="PyTorch port"):
@@ -162,12 +162,18 @@ def _tiny_engine(**engine_kw):
     "mixtral", "tensor_parallel", "prefix_cache", "quantized", "seeded",
     "drafts", "multi_step"])
 def test_engine_refuses_features_not_ported(what):
-    # drafts with seeds is the reference's own refusal (its RuntimeError);
-    # the rest are not carried by the port
-    err = RuntimeError if what == "seeded" else NotImplementedError
+    # drafts with seeds is the reference's own refusal (its RuntimeError),
+    # and so is mixtral under the fused tensor-parallel ring (its
+    # ValueError, before any process group); the rest are not carried by
+    # the port
+    err = {"seeded": RuntimeError, "mixtral": ValueError}.get(
+        what, NotImplementedError)
     with pytest.raises(err):
         if what == "mixtral":
-            build_engine("mixtral", device="cpu")
+            build_engine("mixtral", "tiny", device="cpu",
+                         engine_config=RaggedInferenceEngineConfig(
+                             tensor_parallel_size=2,
+                             tp_collectives="fused"))
         elif what == "tensor_parallel":
             _tiny_engine(tensor_parallel_size=2)
         elif what == "quantized":

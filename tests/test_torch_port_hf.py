@@ -8,11 +8,15 @@ parameters equal the JAX loader's exactly, and the port's engine (f32,
 paged prefill and decode through the kernels' plain versions) gives the
 HF forward's logits within 2e-4 — at a prompt's last token and at two
 decode steps after it.  The models: each dense family at the JAX tests'
-head dim 16, phi, phi3 and gpt_neox also at head dims 80 and 96, llama
+head dim 16, mixtral and qwen2_moe (its shared expert, `norm_topk_prob`
+off and on, and a stack whose `mlp_only_layers` and
+`decoder_sparse_step` make dense layers), phi, phi3 and gpt_neox also
+at head dims 80 and 96, llama
 with linear, llama3 and yarn `rope_scaling` (yarn with the paper's
 attention factor and with an mscale pair), phi3 with longrope in its
-short and its long band and with a 4k-style window.  Also: the model
-types and RoPE kinds the port does not serve are refused by name, a
+short and its long band and with a 4k-style window.  Also: the MoE model
+types' configs as the JAX loader's, the RoPE kinds the port does not
+serve refused by name, a
 config and state dict convert without `transformers` (the card has
 none), and `build_hf_engine` serves on the card by default.
 """
@@ -194,6 +198,30 @@ TINY = dict(
                              hidden_size=192, num_hidden_layers=2,
                              num_attention_heads=2, intermediate_size=256,
                              max_position_embeddings=64, rotary_pct=0.25),
+    mixtral=lambda: _hf(transformers.MixtralConfig, vocab_size=V,
+                        hidden_size=64, num_hidden_layers=2,
+                        num_attention_heads=4, num_key_value_heads=2,
+                        intermediate_size=96, num_local_experts=4,
+                        num_experts_per_tok=2, max_position_embeddings=64),
+    qwen2_moe=lambda: _hf(transformers.Qwen2MoeConfig, vocab_size=V,
+                          hidden_size=64, num_hidden_layers=2,
+                          num_attention_heads=4, num_key_value_heads=2,
+                          intermediate_size=112, moe_intermediate_size=48,
+                          shared_expert_intermediate_size=80, num_experts=6,
+                          num_experts_per_tok=3, norm_topk_prob=False,
+                          max_position_embeddings=64),
+    # layers 0 and 2 dense by mlp_only_layers and decoder_sparse_step 2,
+    # normalised top-k weights
+    qwen2_moe_dense=lambda: _hf(transformers.Qwen2MoeConfig, vocab_size=V,
+                                hidden_size=64, num_hidden_layers=4,
+                                num_attention_heads=4, num_key_value_heads=2,
+                                intermediate_size=112,
+                                moe_intermediate_size=48,
+                                shared_expert_intermediate_size=80,
+                                num_experts=4, num_experts_per_tok=2,
+                                norm_topk_prob=True, decoder_sparse_step=1,
+                                mlp_only_layers=[0, 2],
+                                max_position_embeddings=64),
     gpt_neox_sequential_d96=lambda: _hf(
         transformers.GPTNeoXConfig, vocab_size=V, hidden_size=192,
         num_hidden_layers=2, num_attention_heads=2, intermediate_size=256,
@@ -280,19 +308,31 @@ def test_qwen2_windows_convert_per_layer():
     assert hf_to_config(TINY["falcon"]().config).kv_heads == 1
 
 
-@pytest.mark.parametrize("name,config", [
-    ("mixtral", lambda: transformers.MixtralConfig(
-        vocab_size=V, hidden_size=64, num_hidden_layers=2,
-        num_attention_heads=4, num_key_value_heads=2)),
-    ("qwen2_moe", lambda: transformers.Qwen2MoeConfig(
-        vocab_size=V, hidden_size=64, num_hidden_layers=2,
-        num_attention_heads=4, num_key_value_heads=2))])
-def test_remaining_model_types_are_refused_by_name(name, config):
-    with pytest.raises(NotImplementedError, match=name):
-        hf_to_config(config())
-    with pytest.raises(NotImplementedError, match=name):
-        convert_state_dict(None, name, {})
-    assert name not in SUPPORTED_MODEL_TYPES
+@pytest.mark.parametrize("name", ["mixtral", "qwen2_moe_dense"])
+def test_moe_model_types_convert_as_the_jax_loader(name):
+    """The MoE model types' configs as the JAX loader's (experts, top k,
+    the shared expert, `norm_topk_prob`, the dense layers), and the
+    prompt's logits through `convert_state_dict` and the engine within
+    the HF tolerance of the HF forward."""
+    model = TINY[name]()
+    mt = model.config.model_type
+    assert mt in SUPPORTED_MODEL_TYPES
+    from deepspeed_tpu.models.hf_loader import hf_to_config as jax_hf_config
+    cfg = hf_to_config(model.config, dtype=torch.float32)
+    jcfg = jax_hf_config(model.config)
+    for field in ("moe_experts", "moe_top_k", "moe_shared_expert_ffn",
+                  "moe_norm_topk_prob", "moe_dense_layers",
+                  "dense_intermediate_size", "intermediate_size"):
+        assert getattr(cfg, field) == getattr(jcfg, field), field
+    if name == "qwen2_moe_dense":
+        assert cfg.moe_dense_layers == (1, 0, 1, 0)
+    params = convert_state_dict(cfg, mt, model.state_dict())
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    eng = InferenceEngineV2(cfg, params=params, device="cpu",
+                            config=RaggedInferenceEngineConfig(**ENGINE_KW))
+    ids = np.random.RandomState(1).randint(0, V, 13).astype(np.int32)
+    out = eng.put([0], [ids])
+    np.testing.assert_allclose(out[0], _hf_logits(model, ids)[-1], **HF_TOL)
 
 
 def test_rope_scaling_and_attention_bias_are_refused():
