@@ -3,7 +3,8 @@
 
     python3 chip_ab.py DIR_A DIR_B [--rounds N]
                        [--what train|paged|paged_plans|sparse|evoformer|
-                               evoformer_plans|tile|flash|lora]
+                               evoformer_plans|tile|flash|lora|moe|
+                               moe_step]
                        [--train-layers N]
 
 Each DIR holds a `deepspeed_tpu_torch` package (for example one unpacked
@@ -54,7 +55,16 @@ B, A per round, each in a process of its own that builds its own kernels
   bf16, and the host time of one decode-hop call (`host_us`);
 - `--what flash`: the flash forward's device time at the serving shape
   [4, 512, 32, 128] and the training shape (TRAIN_ATTN), bf16, causal,
-  and the host time of one call at [1, 128, 8, 128].
+  and the host time of one call at [1, 128, 8, 128];
+- `--what moe`: the MoE grouped GEMM's device time at chip_smoke phase
+  1's eight timed MOE_CASES (Mixtral-8x7B and Qwen1.5-MoE-A2.7B, decode
+  and prefill, gate/up and down; bf16), each on the kernel its package
+  routes it to, and the host time of one decode-shape call;
+- `--what moe_step`: decode ms a step of Qwen1.5-MoE-A2.7B (24 layers,
+  bf16, random weights from seed 0) through captured bursts, with
+  chip_smoke phase 17's engine, prompts and staging (8 rows, bursts of
+  MOE_BURST): the first burst captures, then MOE_STEP_BURSTS replays,
+  each timed on the host clock around a sync and by CUDA events.
 
 One JSON line per run, then a summary; two versions compare only within
 one call, on one card.  Exits non-zero without a card.
@@ -402,6 +412,84 @@ def tile_worker(cs, np, torch):
     return res
 
 
+def moe_worker(cs, np, torch):
+    """Device ms of the grouped GEMM at chip_smoke phase 1's timed
+    MOE_CASES (bf16, its `moe_offsets`), each on the kernel the package
+    routes it to (`<case>_variant`, from the package's counters); host us
+    of one decode-shape call at a size where the card keeps up (16 rows
+    over 8 groups of [512, 512])."""
+    from deepspeed_tpu_torch.ops import moe_grouped as mg
+    rng = np.random.RandomState(17)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    res = {}
+    for label, M, G, K, N, kind, timed in cs.MOE_CASES:
+        if not timed:
+            continue
+        off, _ = cs.moe_offsets(torch, np, rng, M, G, kind, "cuda")
+        x = torch.randn(M, K, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        w = torch.randn(G, K, N, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        key = label.replace(" ", "_").replace("/", "_")
+        before = dict(mg.grouped_matmul.launches_by_variant)
+        mg.grouped_matmul(x, w, off)
+        res[f"{key}_variant"] = next(
+            v for v, n in mg.grouped_matmul.launches_by_variant.items()
+            if n != before[v])
+        res[f"{key}_ms"] = cs.time_ms(lambda: mg.grouped_matmul(x, w, off))
+        del x, w
+        torch.cuda.empty_cache()
+    off = torch.tensor([0, 2, 2, 5, 9, 9, 12, 15, 16], dtype=torch.int32,
+                       device="cuda")
+    x = torch.randn(16, 512, generator=g, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(8, 512, 512, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    res["decode_host_us"] = cs.host_us(torch,
+                                       lambda: mg.grouped_matmul(x, w, off))
+    return res
+
+
+MOE_STEP_BURSTS = 8
+
+
+def moe_step_worker(cs, np, torch):
+    """Decode ms a step of captured Qwen1.5-MoE-A2.7B bursts (see the
+    module docstring): the mean over MOE_STEP_BURSTS replays on the host
+    clock (`step_ms`) and by CUDA events (`event_step_ms`), and the
+    grouped GEMM's launches in them by kernel (`grouped_by_variant`)."""
+    import time
+    from deepspeed_tpu_torch.inference.v2 import (RaggedInferenceEngineConfig,
+                                                  build_engine)
+    from deepspeed_tpu_torch.ops import moe_grouped as mg
+    ecfg = RaggedInferenceEngineConfig(**cs.MOE_ENGINE)
+    eng = build_engine("qwen2_moe", "a2.7b", dtype=torch.bfloat16,
+                       device="cuda", engine_config=ecfg)
+    V = eng.cfg.vocab_size
+    rng = np.random.RandomState(17)
+    prompts = [rng.randint(0, V, n).astype(np.int32) for n in cs.PROMPT_LENS]
+    firsts = dict(enumerate(int(t) for t in rng.randint(0, V, len(prompts))))
+    uids = cs.moe_stage(np, (eng,), prompts, firsts)
+    eng.decode_burst_step(uids=uids, n_steps=cs.MOE_BURST)   # captures
+    before = dict(mg.grouped_matmul.launches_by_variant)
+    walls, events = [], []
+    for _ in range(MOE_STEP_BURSTS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        eng.decode_burst_step(uids=uids, n_steps=cs.MOE_BURST)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / cs.MOE_BURST)
+        events.append(start.elapsed_time(end) / cs.MOE_BURST)
+    moved = {v: n - before[v] for v, n in
+             mg.grouped_matmul.launches_by_variant.items() if n != before[v]}
+    return dict(step_ms=sum(walls) / len(walls),
+                event_step_ms=sum(events) / len(events),
+                step_ms_each=walls, grouped_by_variant=moved)
+
+
 def flash_worker(cs, np, torch):
     """Device ms of the flash forward at the serving and training shapes;
     host us of one call at a small shape."""
@@ -440,7 +528,8 @@ def worker(pkg_dir, train_layers, what):
                "sparse": sparse_worker, "lora": lora_worker,
                "evoformer": evoformer_worker,
                "evoformer_plans": evoformer_plans_worker, "tile": tile_worker,
-               "flash": flash_worker}
+               "flash": flash_worker, "moe": moe_worker,
+               "moe_step": moe_step_worker}
     if what in workers:
         print("AB " + json.dumps(dict(package=package, **workers[what](
             cs, np, torch))), flush=True)
@@ -476,7 +565,7 @@ def main(argv=None):
     ap.add_argument("--what", default="train",
                     choices=("train", "paged", "paged_plans", "sparse",
                              "evoformer", "evoformer_plans", "tile", "flash",
-                             "lora"))
+                             "lora", "moe", "moe_step"))
     ap.add_argument("--train-layers", type=int, default=24)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

@@ -225,9 +225,17 @@ Phases (any failure exits non-zero and prints no result):
      GEMM (`ops/moe_grouped.py`, `csrc/moe_grouped.cu`) against its plain
      version at both models' decode and prefill shapes and at edges
      (empty groups, every row in one group, M 1, M off the tile, K and N
-     off the 16-byte grain), bf16 and f32, reruns `torch.equal`, and
-     times the model shapes beside their bound and `torch._grouped_mm`.
-     The kernels line's `moe` path counts the two counted waves.
+     off the 16-byte grain, one group over 32 row tiles under a K split),
+     bf16 and f32, on the kernel its plan names (asserted against
+     MOE_ROUTES: the TMA + wgmma kernel at prefill, its split-K stream at
+     decode, mma.sync off the grain, the CUDA-core kernel in f32), reruns
+     `torch.equal` with a split's workspace filled with NaN before each
+     call, and times the model shapes beside their bound, the
+     mma.sync kernel (`variant="mma"`) in turns in the same call and
+     `torch._grouped_mm`: the gate fails the run where the routed kernel
+     takes more than MOE_GATE x the mma.sync kernel.  Phase 17's waves
+     must run every grouped launch on the TMA kernels.  The kernels
+     line's `moe` path counts the two counted waves.
 Every profile must hold each launch the kernels' counters saw in it (a
 session that dropped device events is repeated).  The bf16 paged prefill
 and decode run on their TMA kernels (`variant` "tma"): phase 1 holds them
@@ -5890,9 +5898,16 @@ def check_tile_matmul(torch, tm, dev):
 # grouped GEMM vs its plain version: |kernel - plain| <= MOE_REL
 # max|plain|, the tile GEMM's limit on the same grounds: both sum the same
 # exact products (bf16 x bf16 is exact in f32) in f32, in another order
-# (the bf16 kernel sums each 32-row stage on the tensor cores, then the
-# stages with f32 adds); a lost tile or a row in the wrong group is O(1)
+# (the bf16 kernels sum each K stage on the tensor cores into zeroed
+# accumulators, then the stages with f32 adds, and K splits' partials in
+# split order); a lost tile or a row in the wrong group is O(1)
 MOE_REL = 2e-5
+# the gate: at every timed bf16 case the routed kernel takes at most
+# MOE_GATE x the mma.sync kernel (`variant="mma"`) timed in the same call,
+# in turns (routed, mma, routed, mma; the sums compared).  Same-call
+# readings of one kernel differ by ~1-3%; a design that loses by more
+# than 5% is routed back to the old kernel by the plan
+MOE_GATE = 1.05
 # (label, M assignments, G groups, K, N, group kind, timed): Mixtral-8x7B
 # (top 2 of 8, H 4096, F 14336) and Qwen1.5-MoE-A2.7B (top 4 of 60, H
 # 2048, F 1408) at decode (8 rows) and prefill, then edges
@@ -5912,7 +5927,21 @@ MOE_CASES = [
      False),
     ("edge: K, N off the 16-byte grain", 29, 3, 1003, 1001, "random",
      False),
+    ("edge: one group over 32 row tiles, K split", 4096, 32, 512, 128,
+     "one", False),
 ]
+# the kernel the plan must route each case to in bf16 (in f32 every case
+# takes the CUDA-core kernel, "f32")
+MOE_ROUTES = {
+    "mixtral decode gate/up": "stream", "mixtral decode down": "stream",
+    "mixtral prefill gate/up": "wgmma", "mixtral prefill down": "wgmma",
+    "qwen decode gate/up": "stream", "qwen decode down": "stream",
+    "qwen prefill gate/up": "wgmma", "qwen prefill down": "wgmma",
+    "edge: empty groups": "stream", "edge: every row in one group": "wgmma",
+    "edge: M 1": "stream", "edge: M not a multiple of the tile": "wgmma",
+    "edge: K, N off the 16-byte grain": "mma",
+    "edge: one group over 32 row tiles, K split": "wgmma",
+}
 
 
 def moe_offsets(torch, np, rng, M, G, kind, dev):
@@ -5963,10 +5992,12 @@ def grouped_mm_library(torch, x, w, off):
 
 def check_moe_grouped(torch, np, mg, dev):
     """The grouped GEMM against its plain version at the MOE_CASES shapes,
-    bf16 and f32, reruns `torch.equal`; the timed cases (bf16) beside
-    their bound, the plain version and `torch._grouped_mm` where this
-    torch has it.  Returns the kernels-line row (main case: Mixtral's
-    decode gate/up product)."""
+    bf16 and f32, on the kernel the plan names (asserted), reruns
+    `torch.equal`, the mma.sync kernel (`variant="mma"`) too in bf16; the
+    timed cases (bf16) beside their bound, the plain version, the mma.sync
+    kernel in turns in the same call (the gate, MOE_GATE) and
+    `torch._grouped_mm` where this torch has it.  Returns the kernels-line
+    row (main case: Mixtral's decode gate/up product)."""
     g = torch.Generator(device=dev).manual_seed(17)
     rng = np.random.RandomState(17)
     errs, rels, timed = [], [], []
@@ -5975,30 +6006,73 @@ def check_moe_grouped(torch, np, mg, dev):
         for dt in (torch.bfloat16, torch.float32):
             x = torch.randn(M, K, generator=g, device=dev, dtype=dt)
             w = torch.randn(G, K, N, generator=g, device=dev, dtype=dt)
+            plan = mg.grouped_plan(M, K, N, G, dt, True,
+                                   mg._scratch.sm_count(x.device))
+            want = MOE_ROUTES[label] if dt == torch.bfloat16 else "f32"
+            if plan.variant != want:
+                fail(f"grouped_plan routes {label} {dt} to {plan.variant} "
+                     f"({plan.reason}), want {want}")
+
+            def nan_ws():
+                # a split's workspace holds NaN before each call, so a
+                # merge that read partials not yet stored shows
+                if plan.splits > 1:
+                    mg._scratch.buffer(
+                        "moe_ws", x.device,
+                        torch.cuda.current_stream().cuda_stream,
+                        plan.splits * M * N, torch.float32).fill_(
+                            float("nan"))
             n0 = mg.grouped_matmul.launches
+            by0 = dict(mg.grouped_matmul.launches_by_variant)
+            nan_ws()
             out = mg.grouped_matmul(x, w, off)
+            nan_ws()
             again = mg.grouped_matmul(x, w, off)
             ref = mg.grouped_matmul_reference(x, w, off)
             torch.cuda.synchronize()
-            if mg.grouped_matmul.launches != n0 + 2:
+            moved = {v: n - by0[v] for v, n in
+                     mg.grouped_matmul.launches_by_variant.items()
+                     if n != by0[v]}
+            if mg.grouped_matmul.launches != n0 + 2 or \
+                    moved != {plan.variant: 2}:
                 fail(f"grouped_matmul did not count its launches at "
-                     f"{label}")
+                     f"{label} on {plan.variant}: {moved}")
+            scale = max(float(ref.abs().max()), 1e-30)
             e = max_err(out, ref)
-            rel = e / max(float(ref.abs().max()), 1e-30)
+            rel = e / scale
             if out.dtype != torch.float32 or rel > MOE_REL:
                 fail(f"grouped_matmul disagrees with its plain version at "
-                     f"{label} {dt}: {rel} of max|plain| (tol {MOE_REL})")
+                     f"{label} {dt} on {plan.variant}: {rel} of max|plain| "
+                     f"(tol {MOE_REL})")
             if not torch.equal(out, again):
                 fail(f"grouped_matmul reruns differ at {label} {dt}")
+            old_rel = None
+            if dt == torch.bfloat16 and plan.variant != "mma":
+                old = mg.grouped_matmul(x, w, off, variant="mma")
+                torch.cuda.synchronize()
+                old_rel = max_err(old, ref) / scale
+                if old_rel > MOE_REL:
+                    fail(f"moe_grouped_mma disagrees with its plain version "
+                         f"at {label}: {old_rel} of max|plain|")
+                del old
             errs.append(e)
             rels.append(rel)
             row = None
             if timed_case and dt == torch.bfloat16:
                 lib = grouped_mm_library(torch, x, w, off)
+                routed = lambda: mg.grouped_matmul(x, w, off)       # noqa: E731
+                mma = lambda: mg.grouped_matmul(x, w, off,          # noqa: E731
+                                                variant="mma")
+                turns = [time_ms(routed), time_ms(mma), time_ms(routed),
+                         time_ms(mma)]
+                ms = Timing((turns[0] + turns[2]) / 2, turns[0].clock)
+                old_ms = Timing((turns[1] + turns[3]) / 2, turns[1].clock)
                 row = dict(shape=f"x [{M},{K}] over {G} groups "
                                  f"({int((sizes > 0).sum())} with rows) @ "
                                  f"w [{G},{K},{N}] bf16", case=label,
-                           ms=time_ms(lambda: mg.grouped_matmul(x, w, off)),
+                           variant=plan.variant, row_tile=plan.tok,
+                           splits=plan.splits, ms=ms, old_ms=old_ms,
+                           turns_ms=[float(t) for t in turns],
                            plain_ms=time_ms(
                                lambda: mg.grouped_matmul_reference(x, w,
                                                                    off)),
@@ -6006,17 +6080,26 @@ def check_moe_grouped(torch, np, mg, dev):
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     *moe_work(sizes, K, N, 2))
                 timed.append(row)
+                if turns[0] + turns[2] > MOE_GATE * (turns[1] + turns[3]):
+                    fail(f"the gate: {plan.variant} takes {ms:.4f} ms at "
+                         f"{label}, more than {MOE_GATE}x moe_grouped_mma's "
+                         f"{old_ms:.4f} in the same call (turns {turns}): "
+                         f"the plan must route this shape to mma")
             lib_text = ""
             if row is not None:
                 lib_ms = row["library_ms"]
                 lib_ms = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
-                lib_text = (f"; {row['ms']:.4f} ms (bound "
+                lib_text = (f"; {plan.variant} {row['ms']:.4f} ms (bound "
                             f"{row['bound_ms']:.4f} {row['bound_by']}, "
-                            f"plain {row['plain_ms']:.4f}, "
+                            f"moe_grouped_mma {row['old_ms']:.4f}: "
+                            f"{row['ms'] / row['old_ms']:.3f}x, gate "
+                            f"{MOE_GATE}x; plain {row['plain_ms']:.4f}, "
                             f"torch._grouped_mm {lib_ms})")
+            old_text = "" if old_rel is None else f", mma {old_rel:.3e}"
             print(f"  moe_grouped {label} [{M},{K}] x [{G},{K},{N}] "
-                  f"{str(dt)[6:]}: max|d| / max|plain| = {rel:.3e}, rerun "
-                  f"equal{lib_text}")
+                  f"{str(dt)[6:]} on {plan.variant} (row tile {plan.tok}, "
+                  f"K split {plan.splits}): max|d| / max|plain| = {rel:.3e}"
+                  f"{old_text}, rerun equal{lib_text}")
             del x, w, out, again, ref
     torch.cuda.empty_cache()
     main = timed[0]
@@ -6026,9 +6109,13 @@ def check_moe_grouped(torch, np, mg, dev):
                          "deepspeed_tpu/models/transformer.py:1045 "
                          "(_moe_inference), not a TPU kernel",
                 shape=main["shape"] + f" ({main['case']})",
+                variant=main["variant"],
                 max_abs_err=max(errs), max_rel_err=max(rels),
                 max_rel_err_note="max|kernel - plain| / max|plain|",
-                ms=main["ms"], plain_ms=main["plain_ms"],
+                ms=main["ms"], old_ms=main["old_ms"],
+                old_note="moe_grouped_mma (variant='mma'), same call, in "
+                         "turns",
+                plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=main["library_ms"],
                 library_note="torch._grouped_mm(x, w, offs, out_dtype="
@@ -6500,6 +6587,11 @@ def moe_run(torch, np, name, family, size, kw, counters, mg):
     wall = time.perf_counter() - t1
     variants = by_variant(counters)
     paged_on_tma(counters, f"phase 17 ({name})")
+    gmm = variants["grouped_matmul"]
+    if gmm["stream"] + gmm["wgmma"] != launches["grouped_matmul"]:
+        fail(f"phase 17: {name}: grouped GEMM launches {gmm} of "
+             f"{launches['grouped_matmul']}: every bf16 product of these "
+             f"widths must take a TMA kernel")
     first, second, tokens = out["run"]
     for c in counters:
         if c.__name__ in ("paged_decode_attention", "paged_prefill_attention",
@@ -6520,7 +6612,8 @@ def moe_run(torch, np, name, family, size, kw, counters, mg):
     prefill_tok_s = sum(PROMPT_LENS) / timing["prefill_s"]
     print(f"phase 17: {name}: wave {wall:.2f} s ({calls['all']} forward "
           f"calls, {launches['grouped_matmul']} grouped GEMM launches: 3 a "
-          f"layer a call); prefill {prefill_tok_s:.0f} tokens/s")
+          f"layer a call; stream {gmm['stream']}, wgmma {gmm['wgmma']}); "
+          f"prefill {prefill_tok_s:.0f} tokens/s")
     # against the plain versions on the same weights, routing recorded
     plain = InferenceEngineV2(cfg, params=eng.params, config=ecfg,
                               device="cuda", plain_kernels=True)

@@ -45,6 +45,8 @@ __global__ void tma_box_kernel(const __grid_constant__ CUtensorMap map,
     hp::mbar_expect_tx(&bar, (uint32_t)bytes);
     if (rank == 2)
       hp::tma_load_2d(box, &map, &bar, c0, c1);
+    else if (rank == 3)
+      hp::tma_load_3d(box, &map, &bar, c0, c1, c2);
     else
       hp::tma_load_4d(box, &map, &bar, c0, c1, c2, c3);
   }
@@ -184,13 +186,13 @@ int wgmma_by_n(int N, const void* a, const void* b, void* out, int swizzle,
 }
 
 // One TMA box of a contiguous bf16 (es 2) or f32 (es 4) tensor: `rank` (2
-// or 4) dims innermost first, the box, the box's start coordinates (may
+// to 4) dims innermost first, the box, the box's start coordinates (may
 // run past the edges), swizzle 0-3 (none, 32, 64, 128 B).  dst gets the
 // box's shared memory image, prod(box) elements.
 int tma_box(const void* src, void* dst, int rank, const long long* dims,
             const int* box, const int* coords, int swizzle, int es,
             cudaStream_t stream) {
-  if (rank != 2 && rank != 4) return (int)cudaErrorInvalidValue;
+  if (rank < 2 || rank > 4) return (int)cudaErrorInvalidValue;
   uint64_t d[4], s[3];
   uint32_t b[4];
   uint64_t stride = es;
@@ -214,7 +216,7 @@ int tma_box(const void* src, void* dst, int rank, const long long* dims,
   if (e != cudaSuccess) return (int)e;
   tma_box_kernel<<<1, 128, smem, stream>>>(
       map, static_cast<uint8_t*>(dst), bytes, rank, coords[0], coords[1],
-      rank > 2 ? coords[2] : 0, rank > 2 ? coords[3] : 0);
+      rank > 2 ? coords[2] : 0, rank > 3 ? coords[3] : 0);
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,7 @@
 //     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so
 //     that the libraries link no libcuda; a kernel takes a map as a
 //     `__grid_constant__ const CUtensorMap` parameter.
-//   * TMA tile loads (2-D and 4-D cp.async.bulk.tensor, bf16 or f32
+//   * TMA tile loads (2-D, 3-D and 4-D cp.async.bulk.tensor, bf16 or f32
 //     elements) into shared memory, completing on an mbarrier (init,
 //     arrive.expect_tx, arrive, try_wait.parity on the phase bit of a ring
 //     slot).
@@ -195,6 +195,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 

@@ -54,6 +54,7 @@
 // thread 2 x 4 outputs, exact f32 FMAs on the CUDA cores.
 #include "attn_tile.cuh"
 #include "hopper_tile.cuh"
+#include "split_k.cuh"
 
 namespace {
 
@@ -281,16 +282,10 @@ int launch_mma(const void* x, const void* w, void* out, int M, int K, int N,
 // ---------------------------------------------------------------------
 // TMA variants (bf16, K and N multiples of 8, 16-byte aligned bases)
 namespace hp = dstt::hopper;
+using dstt::split_range;
+using dstt::sum_partials;
 
 constexpr int SPLIT_KT = 64;          // K rows per ring slot (both)
-
-// K tiles [t0, t1) of split `split` out of `splits` over nkt tiles; the
-// host plan computes the same ranges (tp_matmul.tile_plan)
-__device__ __forceinline__ void split_range(int split, int splits, int nkt,
-                                            int& t0, int& t1) {
-  t0 = (int)((long)split * nkt / splits);
-  t1 = (int)((long)(split + 1) * nkt / splits);
-}
 
 // Split-K, first half: store this CTA's f32 accumulators (NJ n8 blocks
 // acc[j][0..3] at rows r0 and r0 + 8, columns col0 + 8 j (+ 2 t, + 1))
@@ -314,52 +309,8 @@ __device__ __forceinline__ bool store_partial(
             make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
     }
   }
-  if (splits == 1) return false;
-  __threadfence();
-  hp::named_sync(bar_id, threads);
-  if (leader) *last = atomicAdd(ticket, 1) == splits - 1;
-  hp::named_sync(bar_id, threads);
-  if (*last) __threadfence();
-  return *last;
-}
-
-// Split-K, second half (the last CTA of an output tile): out = ws[0] +
-// ws[1] + ... + ws[splits-1], added in that order, over rows [m0, m0 +
-// rows) and columns [n0, n0 + BN) of the tile, 16-byte chunks spread
-// over the CTA's `threads` consumers, BATCH splits' loads in flight at a
-// time; then the ticket is reset for the next call on this stream.
-template <int BN, int BATCH>
-__device__ __forceinline__ void sum_partials(
-    float* __restrict__ out, const float* __restrict__ ws,
-    int* __restrict__ ticket, int M, int N, int m0, int rows, int n0,
-    int splits, int tid, int threads) {
-  constexpr int C4 = BN / 4;   // 16-byte chunks per tile row
-  const long mn = (long)M * N;
-  for (int i = tid; i < rows * C4; i += threads) {
-    const int col = n0 + (i % C4) * 4;
-    if (col >= N) continue;     // N % 8 == 0: a chunk is in or out
-    const long off = (long)(m0 + i / C4) * N + col;
-    float4 sum = __ldcg(reinterpret_cast<const float4*>(ws + off));
-    for (int sp = 1; sp < splits; sp += BATCH) {
-      float4 p[BATCH];
-#pragma unroll
-      for (int b = 0; b < BATCH; ++b)
-        p[b] = sp + b < splits
-                   ? __ldcg(reinterpret_cast<const float4*>(
-                         ws + (sp + b) * mn + off))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int b = 0; b < BATCH; ++b) {
-        if (sp + b >= splits) break;
-        sum.x += p[b].x;
-        sum.y += p[b].y;
-        sum.z += p[b].z;
-        sum.w += p[b].w;
-      }
-    }
-    *reinterpret_cast<float4*>(out + off) = sum;
-  }
-  if (tid == 0) *ticket = 0;
+  return splits > 1 &&
+         dstt::take_ticket(ticket, last, splits, bar_id, threads, leader);
 }
 
 // ---- tile_matmul_stream: split-K stream for M <= 16 ---------------

@@ -1733,9 +1733,12 @@ def _tma_box_image(g, symbol, rank, dims, box, coords, swizzle, itype):
     (4, (32, 2, 50, 3), (32, 1, 128, 1), (0, 1, 0, 2), 2),
     # the Evoformer pair bias [B, H, L, L] (keys innermost), bf16 boxes of
     # 64 keys: the transposed tile of dk/dv and the rows of dq, past L
-    (4, (104, 100, 2, 1), (64, 64, 1, 1), (64, 64, 1, 0), 3)],
+    (4, (104, 100, 2, 1), (64, 64, 1, 1), (64, 64, 1, 0), 3),
+    # the grouped GEMM's weights [G, K, N] (columns innermost): expert 1's
+    # box past K 72 reads zeros, never expert 2's first rows
+    (3, (136, 72, 3), (64, 64, 1), (64, 64, 1), 3)],
     ids=["2d-sw128", "2d-sw64-edge", "2d-sw32", "2d-none", "4d-sw128-S100",
-         "4d-sw64-S50", "4d-sw128-bias-L100"])
+         "4d-sw64-S50", "4d-sw128-bias-L100", "3d-sw128-expert-k-edge"])
 def test_hopper_tma_box_lands_swizzled_and_zero_filled(card, rank, dims,
                                                       box, coords, swizzle):
     _tma_box_image(card, "dstt_selftest_tma", rank, dims, box, coords,
@@ -1808,7 +1811,7 @@ def test_hopper_wgmma_n16_matches_a_matmul(card, b_mn, swizzle):
 
 
 # A MN-major (a [K, M] read as the transposed operand), from shared memory
-A_MN_CASES = [(n, mn, sw) for n in (16, 32, 64) for mn in (0, 1)
+A_MN_CASES = [(n, mn, sw) for n in (16, 32, 64, 128) for mn in (0, 1)
               for sw in (1, 2, 3) if not (mn and n < 8 << sw)]
 
 
@@ -1817,7 +1820,8 @@ A_MN_CASES = [(n, mn, sw) for n in (16, 32, 64) for mn in (0, 1)
     for n, mn, sw in A_MN_CASES])
 def test_hopper_wgmma_transposed_a_matches_a_matmul(card, N, b_mn, swizzle):
     """wgmma with A MN-major (the transpose bit of A, as the block-sparse
-    pair reads its gathered tile for dQ^T, dK^T and dV^T), every N the
+    pair reads its gathered tile for dQ^T, dK^T and dV^T, and the grouped
+    GEMM its weight tile beside K-major x rows at N 16-128), every N the
     pair takes and N 16's K-major and MN-major B."""
     import ctypes
     fn = _selftest("dstt_selftest_wgmma", (
@@ -2791,6 +2795,13 @@ MOE_CASES = [
     ("m1", 1, 4, 64, 40, "one"),
     ("ragged_tail", 131, 3, 72, 136, "random"),
     ("k_n_off_grain", 29, 3, 1003, 1001, "random"),
+    # added with the TMA kernels: the prefill down products; K not a
+    # multiple of the 64-row K box over several experts (the 3-D map's
+    # zeros, split K); more row-tile slots than a grid's y axis holds
+    ("mixtral_prefill_down", 512, 8, 14336, 4096, "random"),
+    ("qwen_prefill_down", 1024, 60, 1408, 2048, "random"),
+    ("k_off_the_box", 90, 5, 200, 64, "random"),
+    ("many_slots", 9_000_000, 3, 8, 8, "random"),
 ]
 
 
@@ -2819,16 +2830,79 @@ def test_grouped_matmul_kernel_matches_plain_version(card, dtype, name, M, G,
     x = _rnd(g, dtype, M, K)
     w = _rnd(g, dtype, G, K, N)
     off = _moe_offsets(rng, M, G, kind, "cuda")
+    plan = tmoe.grouped_plan(M, K, N, G, dtype)
     n0 = tmoe.grouped_matmul.launches
+    by0 = dict(tmoe.grouped_matmul.launches_by_variant)
     got = tmoe.grouped_matmul(x, w, off)
     again = tmoe.grouped_matmul(x, w, off)
     want = tmoe.grouped_matmul_reference(x, w, off)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (M, N)
     assert tmoe.grouped_matmul.launches == n0 + 2
+    assert {v: n - by0[v] for v, n in
+            tmoe.grouped_matmul.launches_by_variant.items()
+            if n != by0[v]} == {plan.variant: 2}
+    if dtype == torch.bfloat16 and name != "k_n_off_grain":
+        assert plan.variant in ("stream", "wgmma"), plan
+    if dtype == torch.bfloat16 and name in ("k_off_the_box",
+                                            "empty_groups"):
+        assert plan.splits > 1
+    if name == "k_off_the_box":
+        assert K % tmoe.SPLIT_KT
+    if name == "many_slots":
+        assert plan.slots > 65535
     err = (got - want).abs().max().item()
     assert err <= MOE_REL * want.abs().max().item(), err
+    # bit for bit on a rerun, a split of K included (fixed split order)
     assert torch.equal(got, again)
+    if dtype == torch.bfloat16:
+        # the mma.sync kernel stays reachable, and agrees the same way
+        old = tmoe.grouped_matmul(x, w, off, variant="mma")
+        torch.cuda.synchronize()
+        assert tmoe.grouped_matmul.launches_by_variant["mma"] == \
+            by0["mma"] + 1 + 2 * (plan.variant == "mma")
+        err = (old - want).abs().max().item()
+        assert err <= MOE_REL * want.abs().max().item(), err
+
+
+# one group over several row tiles under a K split: the last CTA of each
+# row tile merges its own rows only.  The workspace is filled with NaN
+# before half the calls and the two inputs take turns, so a merge that
+# read rows another tile had not stored yet would leave NaN or the other
+# input's partials in `out`; every call must equal the first of its input
+MOE_MERGE_CASES = [("one_group", 300, 6, 128, 64),
+                   ("one_group_32_tiles", 4096, 32, 512, 128)]
+
+
+@pytest.mark.parametrize("name,M,G,K,N", MOE_MERGE_CASES,
+                         ids=[c[0] for c in MOE_MERGE_CASES])
+def test_grouped_matmul_split_merge_keeps_to_its_row_tile(card, name, M, G,
+                                                          K, N):
+    from deepspeed_tpu_torch.ops import _scratch
+    from deepspeed_tpu_torch.ops import moe_grouped as tmoe
+    rng = np.random.RandomState(M)
+    g = torch.Generator(device="cuda").manual_seed(M + K)
+    xs = [_rnd(g, torch.bfloat16, M, K) for _ in range(2)]
+    w = _rnd(g, torch.bfloat16, G, K, N)
+    off = _moe_offsets(rng, M, G, "one", "cuda")
+    plan = tmoe.grouped_plan(M, K, N, G, torch.bfloat16)
+    assert plan.variant == "wgmma" and plan.splits > 1 and M > 2 * plan.tok
+    stream = torch.cuda.current_stream().cuda_stream
+    firsts = []
+    for x in xs:
+        got = tmoe.grouped_matmul(x, w, off)
+        want = tmoe.grouped_matmul_reference(x, w, off)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        assert err <= MOE_REL * want.abs().max().item(), err
+        firsts.append(got)
+    for i in range(24):
+        if i % 4 < 2:
+            _scratch.buffer("moe_ws", xs[0].device, stream,
+                            plan.splits * M * N,
+                            torch.float32).fill_(float("nan"))
+        got = tmoe.grouped_matmul(xs[i % 2], w, off)
+        assert torch.equal(got, firsts[i % 2]), i
 
 
 def test_grouped_matmul_raises_on_what_the_kernel_does_not_take(card):
@@ -2891,14 +2965,18 @@ def test_moe_captured_groups_equal_eager_before_and_after_rebalance(card):
              for e in (graph, eager)]
     uids = _moe_stage((graph, eager))
     n0 = tmoe.grouped_matmul.launches
+    by0 = tmoe.grouped_matmul.launches_by_variant["stream"]
     got = graph.decode_multi_step(uids=uids, k=4)
     want = eager.decode_multi_step(uids=uids, k=4)
     for u in uids:
         assert got[u].tolist() == want[u].tolist()
     assert _same_arena(graph, eager)
     # 3 products a layer a step: the capture's warm-up step and the
-    # replay's 4 steps, and the eager group's 4
+    # replay's 4 steps, and the eager group's 4, each on the decode
+    # stream (replays count the variant of the launches they hold)
     assert (tmoe.grouped_matmul.launches - n0
+            == 3 * cfg.num_layers * ((1 + 4) + 4))
+    assert (tmoe.grouped_matmul.launches_by_variant["stream"] - by0
             == 3 * cfg.num_layers * ((1 + 4) + 4))
     censuses = [e.drain_moe_census() for e in (graph, eager)]
     assert np.array_equal(censuses[0], censuses[1])

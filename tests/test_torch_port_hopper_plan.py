@@ -24,7 +24,10 @@ order), against the Pallas paged prefill and decode kernels; and so are
 the fused LoRA kernel's (k-group sums in order, K spans' partials in span
 order) against the JAX `lora_delta` and the block-sparse wgmma forward's
 (the gathered, owner-masked online softmax with P rounded to bf16)
-against the Pallas block-sparse forward.
+against the Pallas block-sparse forward.  The MoE grouped GEMM's plan
+(`ops/moe_grouped.grouped_plan`) is held at chip_smoke phase 1's timed
+shapes, its row-tile slots against every group's tiles (the kernels'
+`find_tile`, emulated), and its edges.
 """
 import functools
 
@@ -36,6 +39,7 @@ import torch
 from deepspeed_tpu_torch.ops import evoformer_flash as tevof
 from deepspeed_tpu_torch.ops import flash_attention as tflash
 from deepspeed_tpu_torch.ops import lora_matmul as tlora
+from deepspeed_tpu_torch.ops import moe_grouped as tmg
 from deepspeed_tpu_torch.ops import paged_attention as tdecode
 from deepspeed_tpu_torch.ops import paged_merged as tmerged
 from deepspeed_tpu_torch.ops import paged_prefill as tprefill
@@ -1596,3 +1600,131 @@ def test_evoformer_db2_split_order_matches_the_pallas_kernel(
     got = _emulate_evo_db2(q, k, v, b1, b2, do, lse, delta,
                            1.0 / np.sqrt(D), splits)
     assert np.abs(got - ref).max() <= EVO_DB2_REL * np.abs(ref).max()
+
+
+# ----------------------------------------------------------------------
+# the MoE grouped GEMM's plan (ops/moe_grouped.grouped_plan)
+# ----------------------------------------------------------------------
+# chip_smoke phase 1's timed bf16 shapes (M, G, K, N) -> (variant, row
+# tile, splits, slots, column tiles) on 132 SMs: Mixtral-8x7B (top 2 of
+# 8, H 4096, F 14336) and Qwen1.5-MoE-A2.7B (top 4 of 60, H 2048, F 1408)
+# at decode and prefill
+MOE_PLANS = {
+    "mixtral decode gate/up": ((16, 8, 4096, 14336), ("stream", 16, 1, 9, 112)),
+    "mixtral decode down": ((16, 8, 14336, 4096), ("stream", 16, 2, 9, 32)),
+    "mixtral prefill gate/up": ((512, 8, 4096, 14336),
+                                ("wgmma", 128, 1, 12, 112)),
+    "mixtral prefill down": ((512, 8, 14336, 4096), ("wgmma", 128, 1, 12, 32)),
+    "qwen decode gate/up": ((32, 60, 2048, 1408), ("stream", 16, 1, 34, 11)),
+    "qwen decode down": ((32, 60, 1408, 2048), ("stream", 16, 1, 34, 16)),
+    "qwen prefill gate/up": ((1024, 60, 2048, 1408), ("wgmma", 32, 1, 92, 11)),
+    "qwen prefill down": ((1024, 60, 1408, 2048), ("wgmma", 32, 1, 92, 16)),
+}
+
+
+@pytest.mark.parametrize("case", list(MOE_PLANS))
+def test_grouped_plan_at_the_phase1_shapes(case):
+    (M, G, K, N), want = MOE_PLANS[case]
+    plan = tmg.grouped_plan(M, K, N, G, torch.bfloat16, True, 132)
+    assert plan.reason == ""
+    assert (plan.variant, plan.tok, plan.splits, plan.slots,
+            plan.n_tiles) == want
+    assert plan.bn == tmg.TMA_BN and plan.n_tiles * plan.bn >= N
+    # every split sums at least one whole SPLIT_KT-row slot of K
+    assert 1 <= plan.splits <= -(-K // tmg.SPLIT_KT)
+    # one row tile holds 1.5x an average group's rows (or is the largest)
+    groups = min(G, M)
+    assert plan.tok >= 1.5 * M / groups or plan.tok == tmg.WGMMA_TOKS[-1]
+    assert plan.tok == tmg.STREAM_TOK or plan.tok / 2 < 1.5 * M / groups
+
+
+def _find_tile(off, M, tok, j):
+    """csrc/moe_grouped.cu `find_tile`: row-tile slot j -> (group, r0,
+    r1) of its tile, or None past the last tile; offsets clamped into [0,
+    M] and made nondecreasing."""
+    prev = min(max(off[0], 0), M)
+    for g in range(len(off) - 1):
+        s = prev
+        e = min(max(off[g + 1], s), M)
+        prev = e
+        n = -(-(e - s) // tok)
+        if j < n:
+            return g, s + j * tok, e
+        j -= n
+    return None
+
+
+def _moe_sizes(rng, M, G, kind):
+    if kind == "one":
+        sizes = np.zeros(G, np.int64)
+        sizes[G // 2] = M
+        return sizes
+    groups = rng.randint(0, G, M)
+    if kind == "sparse":
+        groups = (groups // 2) * 2
+    return np.bincount(groups, minlength=G)
+
+
+@pytest.mark.parametrize("kind", ["random", "sparse", "one"])
+@pytest.mark.parametrize("M,G,K,N", [(16, 8, 4096, 14336),
+                                     (32, 60, 2048, 1408),
+                                     (512, 8, 4096, 14336),
+                                     (1024, 60, 1408, 2048),
+                                     (77, 9, 256, 200), (1, 4, 64, 40),
+                                     (131, 3, 72, 136)])
+def test_grouped_slots_cover_each_group_tile_once(M, G, K, N, kind):
+    """Every row of every group lies in exactly one row-tile slot's tile,
+    within one group and at most `tok` rows; the slots past the last
+    tile are empty (their CTAs exit), for random, sparse and
+    single-group offsets."""
+    rng = np.random.RandomState(M + G)
+    plan = tmg.grouped_plan(M, K, N, G, torch.bfloat16)
+    for trial in range(3):
+        sizes = _moe_sizes(rng, M, G, kind)
+        off = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+        seen = np.zeros(M, np.int64)
+        tiles = [_find_tile(off, M, plan.tok, j) for j in range(plan.slots)]
+        live = [t for t in tiles if t is not None]
+        assert tiles[:len(live)] == live      # the empty slots come last
+        for g, r0, r1 in live:
+            rows = min(r1 - r0, plan.tok)
+            assert 0 < rows and off[g] <= r0 and r0 + rows <= off[g + 1]
+            seen[r0:r0 + rows] += 1
+        assert (seen == 1).all()
+        assert len(live) == sum(-(-int(n) // plan.tok) for n in sizes)
+
+
+@pytest.mark.parametrize("M,K,N,G,dtype,aligned,reason", [
+    (29, 1003, 1001, 3, torch.bfloat16, True, "K or N not a multiple of 8"),
+    (16, 4096, 1004, 8, torch.bfloat16, True, "K or N not a multiple of 8"),
+    (16, 4096, 14336, 8, torch.bfloat16, False,
+     "a base off the 16-byte boundary"),
+    (5, 0, 64, 2, torch.bfloat16, True, "K = 0"),
+    (4, 64, 128 * 65536, 2, torch.bfloat16, True,
+     "more than 65535 column tiles"),
+    (16, 4096, 14336, 8, torch.float32, True, "(the CUDA-core kernel)")],
+    ids=["k-n-off-grain", "n-off-grain", "unaligned", "k0", "wide-n",
+         "f32"])
+def test_grouped_plan_routes_edges_to_the_old_kernels(M, K, N, G, dtype,
+                                                      aligned, reason):
+    plan = tmg.grouped_plan(M, K, N, G, dtype, aligned)
+    assert reason in plan.reason
+    assert plan.reason == tmg.grouped_edge_reason(M, K, N, G, dtype, aligned)
+    assert plan.variant == ("f32" if dtype == torch.float32 else "mma")
+    assert plan.splits == 1 and plan.bn == tmg.OLD_BN == 64
+    assert plan.slots == -(-M // plan.tok) + G
+    assert plan.n_tiles == -(-N // 64)
+
+
+def test_grouped_variant_counts_name_every_kernel_and_count_no_cpu_launch():
+    assert set(tmg.grouped_matmul.launches_by_variant) == set(tmg.VARIANTS)
+    before = dict(tmg.grouped_matmul.launches_by_variant)
+    x = torch.ones(3, 8, dtype=torch.bfloat16)
+    w = torch.ones(2, 8, 16, dtype=torch.bfloat16)
+    off = torch.tensor([0, 1, 3], dtype=torch.int32)
+    for variant in (None, "mma"):
+        out = tmg.grouped_matmul(x, w, off, variant=variant)
+        assert torch.equal(out, torch.full((3, 16), 8.0))
+    assert tmg.grouped_matmul.launches_by_variant == before
+    with pytest.raises(ValueError):
+        tmg.grouped_matmul(x, w, off, variant="stream")

@@ -9,6 +9,8 @@ the CPU.
   outputs within 1e-5, census rows exactly equal.
 - The plain grouped GEMM (what `ops.moe_grouped.grouped_matmul` runs for
   CPU tensors) against `jax.lax.ragged_dot`, empty groups included; the
+  bf16 TMA kernels' order of sums (row tiles, K splits, 64-row stages
+  summed apart), emulated in numpy over their plan, against it too; the
   sort-free group order against the reference's stable argsort.
 - Engines built from the same JAX parameters (`params_from_jax`), f32:
   put/step (full-prompt and chunked prefill), a decode step,
@@ -199,6 +201,65 @@ def test_grouped_matmul_plain_matches_ragged_dot(sizes):
         moe_grouped.grouped_matmul(xb, wb, offsets).numpy(),
         moe_grouped.grouped_matmul(xb.float(), wb.float(), offsets).numpy(),
         rtol=0, atol=0)
+
+
+# the bf16 kernels' order of sums vs ragged_dot, |emulation - ragged_dot|
+# <= GROUPED_REL max|ragged_dot|: the same exact products (bf16 x bf16 is
+# exact in f32) summed in f32 in another order (chip_smoke's MOE_REL)
+GROUPED_REL = 2e-5
+
+
+def _split_ranges(K, splits):
+    """csrc/split_k.cuh `split_range`: split i sums K slots [i nkt //
+    splits, (i + 1) nkt // splits) of SPLIT_KT rows."""
+    kt, nkt = moe_grouped.SPLIT_KT, -(-K // moe_grouped.SPLIT_KT)
+    return [(i * nkt // splits * kt, min(K, (i + 1) * nkt // splits * kt))
+            for i in range(splits)]
+
+
+def _kernel_order(x, w, sizes, plan):
+    """The TMA kernels' sums, emulated: each group's rows in tiles of
+    `plan.tok`, each split's K range in 64-row stages, each stage's
+    products summed apart (the tensor cores' zeroed accumulators) and
+    added to the split's running sum in f32, the splits' partials added
+    in split order."""
+    M, N = x.shape[0], w.shape[2]
+    out = np.zeros((M, N), np.float32)
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    for g in range(len(sizes)):
+        for r0 in range(off[g], off[g + 1], plan.tok):
+            r1 = min(r0 + plan.tok, off[g + 1])
+            total = None
+            for k0, k1 in _split_ranges(x.shape[1], plan.splits):
+                acc = np.zeros((r1 - r0, N), np.float32)
+                for s in range(k0, k1, moe_grouped.SPLIT_KT):
+                    e = min(s + moe_grouped.SPLIT_KT, k1)
+                    acc += x[r0:r1, s:e] @ w[g, s:e]
+                total = acc if total is None else total + acc
+            out[r0:r1] = total
+    return out
+
+
+@pytest.mark.parametrize("sizes,K", [((5, 0, 9, 3, 0, 12), 200),
+                                     ((40, 0, 70), 136)],
+                         ids=["decode-stream-split4", "prefill-wgmma"])
+def test_grouped_kernel_order_of_sums_matches_ragged_dot(sizes, K):
+    """bf16 values through the TMA kernels' order of sums (the plan's row
+    tile and K split, 64-row stages summed apart), against
+    `jax.lax.ragged_dot` with f32 results, an empty group included."""
+    rng = np.random.RandomState(K)
+    M, G, N = sum(sizes), len(sizes), 24
+    plan = moe_grouped.grouped_plan(M, K, N, G, torch.bfloat16)
+    assert plan.variant in ("stream", "wgmma") and K % 64
+    assert plan.splits > 1 or plan.variant == "wgmma"
+    x, w = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+            .bfloat16().float().numpy() for shape in ((M, K), (G, K, N)))
+    want = np.asarray(jax.lax.ragged_dot(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
+        jnp.asarray(sizes, jnp.int32), preferred_element_type=jnp.float32))
+    got = _kernel_order(x, w, np.asarray(sizes), plan)
+    assert got.dtype == np.float32
+    assert np.abs(got - want).max() <= GROUPED_REL * np.abs(want).max()
 
 
 def test_sorted_slots_are_the_stable_argsort():
